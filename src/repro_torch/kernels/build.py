@@ -1,0 +1,97 @@
+"""Build and load the CUDA kernels: ``nvcc`` into a shared library, ``ctypes``.
+
+One ``nvcc`` per source, from the ``.cu`` files shipped in ``csrc/`` and
+nothing else, at first use, into ``build/repro_torch/`` at the root of the
+checkout (a git-ignored directory).  The library has a plain C interface — no
+PyTorch headers — so a build takes seconds.  The file name carries a hash of
+the source and the flags, so an edited kernel is never served from a stale
+library.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+
+# -fmad=false: the kernels are held bitwise to eager tensor code, which never
+# contracts a*b+c (see the note at the top of csrc/dse_sweep.cu)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# what the last build of each source printed (ptxas register / spill report)
+# and how long it took; empty when the library was already on disk
+build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def default_build_dir() -> Path:
+    """``build/repro_torch`` at the checkout root (``src/``'s parent)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the PATH, or
+    ``/usr/local/cuda/bin/nvcc``; raises when there is none."""
+    candidates: List[Optional[str]] = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("no nvcc found (looked at $CUDA_HOME/bin, the PATH "
+                       "and /usr/local/cuda/bin); the CUDA kernels cannot "
+                       "be built on this machine")
+
+
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` lives (content-addressed)."""
+    src = CSRC_DIR / source
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return default_build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(source: str, force: bool = False) -> Path:
+    """Compile ``csrc/<source>`` if its library is not on disk yet; returns
+    the library path.  Raises with the compiler's output on failure."""
+    out = library_path(source)
+    if out.exists() and not force:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[source] = time.perf_counter() - t0
+    build_logs[source] = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source} (exit "
+                           f"{proc.returncode}):\n{build_logs[source]}")
+    os.replace(tmp, out)        # atomic: a concurrent build sees all or none
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built on first use."""
+    lib = _libs.get(source)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(source)))
+                _libs[source] = lib
+    return lib

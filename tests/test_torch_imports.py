@@ -1,0 +1,90 @@
+"""The port stands alone: nothing under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro``."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "repro", "jaxlib", "flax", "optax")
+
+
+def imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0], node.lineno
+
+
+def test_port_has_the_expected_modules():
+    names = {str(p.relative_to(PORT)) for p in FILES[:-1]}
+    for want in ("__init__.py", "device.py", "hw.py", "core/costmodel.py",
+                 "core/dse.py", "kernels/build.py", "kernels/dse_sweep.py",
+                 "kernels/ops.py", "telemetry/__init__.py",
+                 "telemetry/metrics.py", "telemetry/trace.py",
+                 "dse_campaign/space.py", "dse_campaign/frontier.py",
+                 "dse_campaign/config.py", "dse_campaign/store.py",
+                 "dse_campaign/runner.py", "dse_campaign/__init__.py"):
+        assert want in names
+    assert (PORT / "kernels" / "csrc" / "dse_sweep.cu").is_file()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [(root, line) for root, line in imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES[:-1],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_compile_or_triton_or_extension_loader(path):
+    """The kernels are nvcc + ctypes: no ``torch.compile``, no Triton, no
+    ``torch.utils.cpp_extension`` anywhere in the package."""
+    src = path.read_text()
+    assert "torch.compile" not in src
+    assert "cpp_extension" not in src
+    assert "triton" not in {r for r, _ in imported_roots(path)}
+
+
+def test_import_leaves_jax_and_reference_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.hw, repro_torch.device\n"
+        "import repro_torch.core.costmodel, repro_torch.core.dse\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.telemetry, repro_torch.dse_campaign\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import build, dse_sweep\n"
+        "assert dse_sweep._bound is None and not build._libs\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """Without a CUDA device the smoke script exits non-zero and prints no
+    result line.  (Skipped where there is a card: there it runs for real.)"""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; run `python3 chip_smoke.py`")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
