@@ -5,20 +5,24 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
 
     python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
 
-It builds the hand-written kernels from `src/repro_torch/kernels/csrc/`,
-holds each against its plain PyTorch version on the card, and drives the
-port's main path — the fused campaign sweep — through `Campaign.run`.
-Every phase prints one JSON object on a line of its own; any failed phase
-raises, so the exit code is non-zero and the last line is missing.  Without
-a CUDA device the script exits non-zero before printing anything.
+It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
+`nvcc` per source, all started together), holds each against its plain
+PyTorch version on the card, and drives the port's two main paths: the fused
+campaign sweep through `Campaign.run`, and ResNet-50 inference through
+`build_model(get_config("resnet50")).init(...)`.  Every phase prints one
+JSON object on a line of its own; any failed phase raises, so the exit code
+is non-zero and the last line is missing.  Without a CUDA device the script
+exits non-zero before printing anything.
 
 Lines, in order:
   {"phase": "device", ...}           card, power limit, torch / CUDA versions
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
-  {"phase": "kernels", ...}          per-case comparison kernel vs plain
+  {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
   {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
+  {"phase": "conv2d", ...}           K2 vs plain on every ResNet-50 shape
+  {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}      the last line
@@ -29,12 +33,15 @@ It imports nothing of `jax` or of the reference package `repro`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -49,20 +56,29 @@ from repro_torch.dse_campaign import (Campaign, CampaignConfig,  # noqa: E402
                                       default_campaign_space,
                                       frontiers_identical)
 from repro_torch.hw import CHIPS, get_chip  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import conv2d as k2  # noqa: E402
 from repro_torch.kernels import dse_sweep as kern  # noqa: E402
+from repro_torch.models import resnet  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
+CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 # file:line of what each kernel replaces in the reference package
 REPLACES = {"dse_sweep": "src/repro/kernels/dse_sweep.py:52",
-            "screen_rows": "src/repro/core/costmodel.py:486"}
+            "screen_rows": "src/repro/core/costmodel.py:486",
+            "conv2d": "src/repro/kernels/conv2d.py:21"}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores; float64 vector rate
-# is half of that.
+# is half of that; 989 TFLOP/s bf16 dense on the tensor cores (the bound of
+# a bf16 convolution, whatever units the kernel uses).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12,
+              torch.bfloat16: 989e12}
 # arithmetic operations per (workload, lane) element, counted off the kernel
 # source (adds, multiplies, divides, compares, min/max each as one)
 SWEEP_OPS_PER_ELEMENT = 122
@@ -74,7 +90,7 @@ CELLS = [("qwen3_14b", "train_4k"), ("qwen3_14b", "decode_32k"),
          ("stablelm_1_6b", "train_4k"), ("stablelm_1_6b", "prefill_32k"),
          ("mamba2_130m", "train_4k"), ("zamba2_1_2b", "train_4k")]
 DTYPES = (torch.float64, torch.float32)
-SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def emit(obj) -> None:
@@ -156,6 +172,21 @@ def screen_bound(w: int, n: int, dtype) -> dict:
     return bound(nbytes, SCREEN_OPS_PER_ELEMENT * w * n, dtype)
 
 
+def compact_bound(keep: torch.Tensor, dtype, max_survivors: int = 2048
+                  ) -> dict:
+    """K1b, the cumsum-rank survivor compaction: it reads the keep mask
+    once and the energy / latency of the kept lanes it gathers (at most K
+    per row, counted from this tile's data), and writes [W, K] int64 lane
+    indices and two [W, K] value rows; about four operations per (row,
+    lane): the cumsum add, the rank compare, the and, the select."""
+    w, n = (int(d) for d in keep.shape)
+    k = min(max_survivors, n)
+    s = torch.finfo(dtype).bits // 8
+    gathered = int(keep.sum(dim=1).clamp(max=k).sum())
+    nbytes = w * n + gathered * 2 * s + w * k * (8 + 2 * s)
+    return bound(nbytes, 4 * w * n, dtype)
+
+
 def bound(nbytes: int, ops: int, dtype) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
@@ -182,15 +213,24 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    path = build.build(kern.SOURCE, force=True)
+    sources = (kern.SOURCE, k2.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(
+            lambda src: build.build(src, force=True), sources)))
     kern._library()
-    usage = [ln.strip() for ln in build.build_logs[kern.SOURCE].splitlines()
-             if "registers" in ln or "spill" in ln]
+    k2._library()
+    out = {}
+    for src in sources:
+        usage = [ln.strip() for ln in build.build_logs[src].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        out[src] = {"nvcc_seconds": build.build_seconds[src],
+                    "flags": " ".join(build.flags(src)),
+                    "library": os.path.relpath(paths[src], ROOT),
+                    "ptxas": usage}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": build.build_seconds[kern.SOURCE],
-          "flags": " ".join(build.NVCC_FLAGS),
-          "library": os.path.relpath(path, ROOT), "ptxas": usage})
+          "sources": out})
 
 
 def tile_inputs(engine: TileEvaluator, lo: int, hi: int, dtype, device):
@@ -314,6 +354,13 @@ def phase_kernels(workloads, device) -> dict:
                 costmodel._compact_rows_device(kk, ee, ll, 2048)
 
             t["device_chain_ms"] = time_ms(chain, iters)
+            # K1b alone: the compaction's tensor ops on this tile's keep mask
+            kk = kern.screen_rows(e, l, f)[0]
+            t["compact_ms"] = time_ms(
+                lambda: costmodel._compact_rows_device(kk, e, l, 2048), iters)
+            kb = compact_bound(kk, dtype)
+            t["compact_bound_ms"] = kb["bound_ms"]
+            t["compact_bound_by"] = kb["bound_by"]
             us = device_us({
                 "sweep": (lambda: kern.dse_sweep(cand, wl, **kw),
                           "dse_sweep_kernel"),
@@ -329,12 +376,15 @@ def phase_kernels(workloads, device) -> dict:
                                  "err": cases[-3]}
     emit({"phase": "kernels", "cases": cases + all_tiles,
           "timing": [{"dtype": k[0], "N": k[1],
+                      "compact_bound_by": val["compact_bound_by"],
                       **{m: v for m, v in val.items() if m.endswith("_ms")}}
                      for k, val in numbers.items()],
           "timing_note": "*_ms: CUDA events around back-to-back wrapper "
                          "calls after warm-up (launch overhead included, "
                          "inputs L2-resident); *_device_ms: kernel execution "
-                         "alone as torch.profiler reports it"})
+                         "alone as torch.profiler reports it; compact_*: K1b "
+                         "(costmodel._compact_rows_device, tensor ops) alone "
+                         "on the tile's keep mask, max_survivors 2048"})
     return numbers
 
 
@@ -508,7 +558,303 @@ def phase_campaign_large(workloads, device, freq_points, numbers) -> None:
                               "host work and copies"})
 
 
-def kernels_line(numbers, launches) -> dict:
+# --- ResNet-50 inference ----------------------------------------------------
+
+CONV_DTYPES = (torch.float32, torch.bfloat16)
+# K2 vs conv2d_plain, max |diff| over the scale max |plain|: float32 sums of
+# up to 4608 terms in another order (FMA-contracted) stay near 1e-6; a bf16
+# output may round the other way, one bf16 ulp, 2^-7 of the value at most
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# kernel-path vs plain-path logits over their scale, after 53 convolutions:
+# bf16 rounding flips in one layer feed every later one
+LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# (B, H=W, Cin, Cout, k) of tests/test_kernels.py's conv2d cases
+TEST_SHAPES = ((2, 16, 8, 16, 3), (2, 16, 4, 8, 1), (2, 24, 8, 8, 5))
+
+
+def conv_bound(x_shape, w_shape, y_shape, dtype) -> dict:
+    """Least time for one convolution: each of x, w, y moved once, and
+    2*M*N*K operations at the dtype's peak (bf16: the tensor cores)."""
+    s = torch.finfo(dtype).bits // 8
+    numel = [int(np.prod(t)) for t in (x_shape, w_shape, y_shape)]
+    kh, kw, cin, _ = w_shape
+    return bound(sum(numel) * s, 2 * numel[2] * kh * kw * cin, dtype)
+
+
+def k2_shapes(batch: int):
+    """The distinct stride-1 convolutions of one ResNet-50 forward at
+    ``batch``, with how many of the 46 launches each one is."""
+    shapes = {}
+    for c in resnet.conv_layers(get_config("resnet50"), batch):
+        if c["stride"] == 1:
+            key = (c["x"], c["w"])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def conv_case(x, w, pads, dtype) -> dict:
+    """K2 against its plain version on the same inputs; raises on
+    disagreement."""
+    y = k2.conv2d(x, w, padding=pads)
+    yp = k2.conv2d_plain(x, w, padding=pads)
+    torch.cuda.synchronize()
+    if y.shape != yp.shape or y.dtype != dtype:
+        raise AssertionError(f"K2 returned {y.shape} {y.dtype}")
+    if not torch.isfinite(y.float()).all():
+        raise AssertionError("K2 returned non-finite values")
+    err = float((y.float() - yp.float()).abs().max())
+    scale = float(yp.float().abs().max())
+    rel = err / scale
+    if rel > CONV_TOL[dtype]:
+        raise AssertionError(f"K2 {tuple(x.shape)} x {tuple(w.shape)} "
+                             f"{dtype}: max err {err} / scale {scale} = "
+                             f"{rel} > {CONV_TOL[dtype]}")
+    return {"x": list(x.shape), "w": list(w.shape), "dtype": SUFFIX[dtype],
+            "max_abs_err": err, "rel_err": rel}
+
+
+def library_conv(x, w):
+    """The one-call yardstick, ``F.conv2d`` (cuDNN) on channels-last views
+    of the same NHWC / HWIO tensors, stride 1, SAME for odd k; TF32 is off
+    (set in ``phase_conv2d``)."""
+    kh = int(w.shape[0])
+    w_lib = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+    x_lib = x.permute(0, 3, 1, 2)
+    return lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=kh // 2)
+
+
+def phase_conv2d(device, seed: int) -> dict:
+    """K2 against conv2d_plain on each of the 16 distinct stride-1 shapes of
+    ResNet-50 at B=32 and on the test_kernels.py shapes, float32 and bf16;
+    then K2's time, the library's and the bound on every ResNet-50 shape,
+    and the plain version's and the device time on the heaviest."""
+    torch.backends.cudnn.allow_tf32 = False       # float32 library = IEEE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = k2_shapes(32)
+    heavy = max(shapes, key=lambda k: conv_bound(
+        k[0], k[1], k[0][:3] + (k[1][3],), torch.float32)["operations"])
+    cases, per_dtype = [], {}
+    for dtype in CONV_DTYPES:
+        rows, fwd = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for (xs, ws), count in shapes.items():
+            x = torch.randn(xs, generator=gen, device=device).to(dtype)
+            w = (torch.randn(ws, generator=gen, device=device)
+                 * (2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5).to(dtype)
+            pads = ((ws[0] // 2, (ws[0] - 1) // 2),) * 2
+            case = conv_case(x, w, pads, dtype)
+            b = conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)
+            lib = library_conv(x, w)
+            lib_err = float((lib().permute(0, 2, 3, 1).float()
+                             - k2.conv2d_plain(x, w, padding=pads).float()
+                             ).abs().max())
+            t = {"ms": time_ms(lambda: k2.conv2d(x, w, padding=pads), 20),
+                 "library_ms": time_ms(lib, 20)}
+            row = {**case, "launches_per_forward": count, **t,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "library_max_abs_err": lib_err}
+            for key in fwd:
+                fwd[key] += count * row[key]
+            if (xs, ws) == heavy:
+                row["plain_ms"] = time_ms(
+                    lambda: k2.conv2d_plain(x, w, padding=pads), 5)
+                us = device_us({"k2": (
+                    lambda: k2.conv2d(x, w, padding=pads), "conv2d_kernel")})
+                row["device_ms"] = (None if us["k2"] is None
+                                    else us["k2"] / 1e3)
+                per_dtype[dtype] = {"heavy": row}
+            rows.append(row)
+        for (b_, hw, cin, cout, kh) in TEST_SHAPES:
+            x = torch.randn((b_, hw, hw, cin), generator=gen,
+                            device=device).to(dtype)
+            w = (0.1 * torch.randn((kh, kh, cin, cout), generator=gen,
+                                   device=device)).to(dtype)
+            pads = ((kh // 2, (kh - 1) // 2),) * 2
+            cases.append({"case": "test_kernels", **conv_case(x, w, pads,
+                                                               dtype)})
+        per_dtype[dtype]["forward_b32"] = fwd
+        per_dtype[dtype]["max_rel_err"] = max(r["rel_err"] for r in rows)
+        cases += [{"case": "resnet50_b32", **r} for r in rows]
+    emit({"phase": "conv2d", "distinct_shapes": len(shapes),
+          "launches_per_forward": sum(shapes.values()),
+          "heaviest": {"x": list(heavy[0]), "w": list(heavy[1])},
+          "tolerance_rel_to_scale": {SUFFIX[d]: CONV_TOL[d]
+                                     for d in CONV_DTYPES},
+          "cases": cases,
+          "forward_b32": {SUFFIX[d]: v["forward_b32"]
+                          for d, v in per_dtype.items()},
+          "timing_note": "ms / library_ms: CUDA events around 20 "
+                         "back-to-back calls after warm-up (launch and "
+                         "wrapper included, inputs L2-warm); forward_b32: "
+                         "each shape's time times its launches per forward, "
+                         "summed over the 46 launches; library = F.conv2d "
+                         "(cuDNN, channels-last, TF32 off)"})
+    return per_dtype
+
+
+def forward_ms(model, images, iters: int) -> float:
+    """Host-clock milliseconds per forward, each ending in a synchronize
+    (the latency a caller sees), after three warm-up forwards."""
+    for _ in range(3):
+        model(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model(images)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_breakdown(model, images) -> dict:
+    """Device time of one forward by kernel, from torch.profiler: the total,
+    K2's share of it, and the largest kernels.  None where the profiler
+    reports no device time on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(images)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+    total = sum(by_name.values())
+    if total <= 0:
+        return {"device_ms": None, "k2_share": None, "top": []}
+    k2_us = sum(v for k, v in by_name.items() if "conv2d_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": total / 1e3, "k2_device_ms": k2_us / 1e3,
+            "k2_share": k2_us / total,
+            "top": [{"kernel": k[:90], "ms": v / 1e3, "share": v / total}
+                    for k, v in top]}
+
+
+def phase_resnet50(device, seed: int) -> dict:
+    """The main path: full-width ResNet-50 inference (stages 3-4-6-3, width
+    64, 224x224x3, 1000 classes) from seeded random weights, on images from
+    synth_batch.  Counts are zeroed just before the three forwards (bf16 at
+    B=1 and B=32, float32 at B=8) and read just after; then each forward's
+    logits are held against the same forward with K2 swapped for its plain
+    version, a reduced ResNet on the card against the CPU, and the
+    throughput and device-time breakdown are taken."""
+    cfg = get_config("resnet50")
+    models = {torch.bfloat16: build_model(cfg).init(
+        torch.Generator().manual_seed(seed), device=device),
+        torch.float32: build_model(dataclasses.replace(
+            cfg, dtype="float32")).init(
+            torch.Generator().manual_seed(seed), device=device)}
+    runs = [(torch.bfloat16, 1), (torch.bfloat16, 32), (torch.float32, 8)]
+    images = {}
+    for _, b in runs:
+        batch = synth_batch(cfg, ShapeConfig(f"infer_b{b}", 1, b, "prefill"),
+                            DataConfig(seed=seed), 0)["images"]
+        images[b] = torch.from_numpy(batch).to(device)
+
+    k2.reset_launch_counts()
+    logits, per_forward = {}, []
+    for dtype, b in runs:
+        before = sum(k2.launch_counts().values())
+        logits[(dtype, b)] = models[dtype](images[b])
+        per_forward.append(sum(k2.launch_counts().values()) - before)
+    torch.cuda.synchronize()
+    launches = k2.launch_counts()
+
+    if per_forward != [46, 46, 46]:
+        raise AssertionError(f"K2 launches per forward {per_forward}, "
+                             "expected 46 each")
+    checks = []
+    with mock.patch.object(k2, "conv2d", k2.conv2d_plain):
+        for dtype, b in runs:
+            got = logits[(dtype, b)]
+            want = models[dtype](images[b])
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (b, cfg.vocab_size) or \
+                    got.dtype != torch.float32:
+                raise AssertionError(f"logits {tuple(got.shape)} {got.dtype}")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite logits {dtype} B={b}")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+            if err / scale > LOGIT_TOL[dtype]:
+                raise AssertionError(
+                    f"kernel-path logits {dtype} B={b} off the plain path by "
+                    f"{err} / {scale} > {LOGIT_TOL[dtype]}")
+            checks.append({"dtype": SUFFIX[dtype], "batch": b,
+                           "max_abs_err": err, "scale": scale,
+                           "rel_err": err / scale, "top1_agreement": agree})
+    if sum(k2.launch_counts().values()) != sum(launches.values()):
+        raise AssertionError("the plain-path forwards launched K2")
+
+    # a small input against the CPU, whose plain path the tests hold to the
+    # reference package: reduced ResNet, float32, the same weights
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    cpu_model = build_model(small).init(torch.Generator().manual_seed(seed),
+                                        device="cpu")
+    card_model = build_model(small).init(device=device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(synth_batch(small, ShapeConfig("b2", 1, 2, "prefill"),
+                                     DataConfig(seed=seed), 0)["images"])
+    want = cpu_model(x)
+    got = card_model(x.to(device)).cpu()
+    small_err = float((got - want).abs().max()) / float(want.abs().max())
+    if small_err > LOGIT_TOL[torch.float32]:
+        raise AssertionError(f"reduced ResNet card vs CPU: {small_err}")
+
+    perf = {}
+    for dtype, b in runs:
+        ms = forward_ms(models[dtype], images[b], 50 if b == 1 else 20)
+        br = device_breakdown(models[dtype], images[b])
+        idle = (None if br["device_ms"] is None
+                else 1.0 - br["device_ms"] / ms)
+        perf[f"{SUFFIX[dtype]}_b{b}"] = {"ms_per_batch": ms,
+                                         "images_per_s": b / ms * 1e3,
+                                         "idle_share": idle, **br}
+    emit({"phase": "resnet50", "config": "resnet50 (stages 3-4-6-3, width "
+          "64, 224x224x3, 1000 classes), weights from torch.Generator seed "
+          f"{seed}, BN at identity, images synth_batch(seed={seed})",
+          "k2_launches_per_forward": per_forward, "launches": launches,
+          "logits_vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LOGIT_TOL[d]
+                                           for d in LOGIT_TOL},
+          "reduced_card_vs_cpu_rel_err": small_err, "inference": perf,
+          "timing_note": "ms_per_batch: host clock around forward + "
+                         "synchronize, images already on the card; "
+                         "device_ms / k2_device_ms / top: torch.profiler "
+                         "kernel time of one forward; idle_share = 1 - "
+                         "device_ms / ms_per_batch"})
+    return {"launches": launches}
+
+
+def conv_rows(per_dtype, launches) -> list:
+    rows = []
+    for dtype in CONV_DTYPES:
+        d = per_dtype[dtype]
+        h = d["heavy"]
+        fwd = d["forward_b32"]
+        rows.append({
+            "name": f"conv2d_{SUFFIX[dtype]}", "route": "cuda",
+            "source": CONV_SOURCE, "replaces": REPLACES["conv2d"],
+            "launches": launches[f"conv2d_{SUFFIX[dtype]}"],
+            "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "device_ms": h["device_ms"],
+            "shape": f"x {h['x']}, w {h['w']}, SAME",
+            "max_rel_err_all_shapes": d["max_rel_err"],
+            "forward_b32_46_launches": {"ms": fwd["ms"],
+                                        "library_ms": fwd["library_ms"],
+                                        "bound_ms": fwd["bound_ms"]}})
+    return rows
+
+
+def kernels_line(numbers, launches) -> list:
     rows = []
     for dtype in DTYPES:
         sfx = SUFFIX[dtype]
@@ -530,7 +876,7 @@ def kernels_line(numbers, launches) -> dict:
                            "plain_ms": wide[f"{key}_plain_ms"],
                            "bound_ms": wide[key]["bound_ms"],
                            "bound_by": wide[key]["bound_by"]}})
-    return {"kernels": rows}
+    return rows
 
 
 def main() -> int:
@@ -553,8 +899,11 @@ def main() -> int:
     main_path = phase_campaign_default(workloads, device)
     phase_campaign_resume(workloads, device, main_path["fresh64"])
     phase_campaign_large(workloads, device, args.large_freq_points, numbers)
+    per_dtype = phase_conv2d(device, args.seed)
+    infer = phase_resnet50(device, args.seed)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
-    emit(kernels_line(numbers, main_path["launches"]))
+    emit({"kernels": kernels_line(numbers, main_path["launches"])
+          + conv_rows(per_dtype, infer["launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,14 +18,17 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 
-# -fmad=false: the kernels are held bitwise to eager tensor code, which never
-# contracts a*b+c (see the note at the top of csrc/dse_sweep.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source on top of NVCC_FLAGS.  -fmad=false for dse_sweep.cu:
+# its kernels are held bitwise to eager tensor code, which never contracts
+# a*b+c (see the note at the top of that file); conv2d.cu is held to a
+# tolerance and keeps FMA contraction.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"dse_sweep.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,11 +59,16 @@ def find_nvcc() -> str:
                        "be built on this machine")
 
 
+def flags(source: str) -> Tuple[str, ...]:
+    """The ``nvcc`` flags ``csrc/<source>`` is built with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` lives (content-addressed)."""
     src = CSRC_DIR / source
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(source)).encode())
     return default_build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -72,7 +80,8 @@ def build(source: str, force: bool = False) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    cmd = [find_nvcc(), *flags(source), "-o", str(tmp),
+           str(CSRC_DIR / source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds[source] = time.perf_counter() - t0

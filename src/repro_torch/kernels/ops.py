@@ -1,23 +1,33 @@
-"""Public entry point of the fused campaign evaluator.
+"""Public entry points of the port's kernels (the reference's
+``kernels/ops.py``).
 
 ``dse_sweep`` is what ``TileEvaluator.sweep_reduced`` calls per tile: the
 sweep kernel, the screen kernel and the survivor compaction in sequence on
 the device the packed tile lives on, returning the host-side
-``SweepReduced``.  With CUDA tensors the two hand-written kernels run (or
+``SweepReduced``.  ``conv2d`` is what the models call for a convolution:
+stride 1 goes to the hand-written kernel K2 with the reference's SAME
+padding, any other stride to the library convolution with JAX's SAME
+padding written out.  With CUDA tensors the hand-written kernels run (or
 the call raises); with CPU tensors their plain versions do — the device of
 the inputs alone decides, there is no switch and no fallback.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import costmodel
+from repro_torch.kernels import conv2d as _k2
 from repro_torch.kernels import dse_sweep as _k
 from repro_torch.kernels.dse_sweep import (CAND_COLS, launch_counts,
                                            reset_launch_counts)
 
-__all__ = ["CAND_COLS", "dse_sweep", "launch_counts", "reset_launch_counts"]
+__all__ = ["CAND_COLS", "conv2d", "dse_sweep", "launch_counts",
+           "reset_launch_counts", "same_pads"]
 
 
 def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
@@ -42,3 +52,59 @@ def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
     e, l, feas = _k.dse_sweep(cand_cols, wl_cols, sim=sim, **kw)
     return costmodel.build_sweep_reduced(
         _k.screen_rows(e, l, feas) + (e, l, feas), int(max_survivors))
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of one spatial axis under JAX's ``"SAME"``:
+    output ``ceil(size / stride)``, the total split with the odd element
+    AFTER.  For stride 2 that is asymmetric (224, k=7 -> (2, 3); 56, k=3 ->
+    (0, 1)), which a symmetric ``padding=`` argument of PyTorch cannot say."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+@contextlib.contextmanager
+def _ieee_float32():
+    """cuDNN convolutions in full float32, as the reference computes them:
+    PyTorch lets cuDNN use TF32 for float32 by default (the flag does not
+    touch other dtypes)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """NHWC x HWIO -> NHWC convolution, ``padding`` ``"SAME"`` or
+    ``"VALID"``.  Stride 1 runs on the hand-written kernel K2 (its plain
+    version for CPU tensors), SAME padded ``(kh//2, (kh-1)//2)`` as the
+    reference's ``ops.conv2d`` pads.  Any other stride -- ResNet's 7x7 stem
+    and its stride-2 3x3 and 1x1 convolutions -- goes to the library
+    convolution, as in the reference, with JAX's SAME padding applied by
+    ``F.pad`` first (float32 without TF32)."""
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, Cin] and w [kh, kw, Cin, "
+                         f"Cout]; got {tuple(x.shape)} and {tuple(w.shape)}")
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    if stride == 1:
+        pads = _k2.NO_PADDING
+        if padding == "SAME":
+            pads = ((kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2))
+        return _k2.conv2d(x, w, padding=pads)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if padding == "SAME":
+        (pt, pb) = same_pads(int(x.shape[1]), kh, stride)
+        (pl, pr) = same_pads(int(x.shape[2]), kw, stride)
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    with _ieee_float32():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     stride=stride)
+    return y.permute(0, 2, 3, 1).contiguous()

@@ -33,9 +33,18 @@ def test_port_has_the_expected_modules():
                  "telemetry/metrics.py", "telemetry/trace.py",
                  "dse_campaign/space.py", "dse_campaign/frontier.py",
                  "dse_campaign/config.py", "dse_campaign/store.py",
-                 "dse_campaign/runner.py", "dse_campaign/__init__.py"):
+                 "dse_campaign/runner.py", "dse_campaign/__init__.py",
+                 "kernels/conv2d.py", "configs/__init__.py", "configs/base.py",
+                 "configs/resnet50.py", "models/__init__.py",
+                 "models/layers.py", "models/resnet.py", "models/api.py",
+                 "data/__init__.py", "data/pipeline.py"):
         assert want in names
+    for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
+                 "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
+                 "paligemma_3b", "whisper_small", "zamba2_1_2b", "resnet50"):
+        assert f"configs/{arch}.py" in names
     assert (PORT / "kernels" / "csrc" / "dse_sweep.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -63,11 +72,16 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.core.costmodel, repro_torch.core.dse\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.telemetry, repro_torch.dse_campaign\n"
+        "import repro_torch.kernels.conv2d, repro_torch.configs.base\n"
+        "import repro_torch.models.api, repro_torch.models.resnet\n"
+        "import repro_torch.models.layers, repro_torch.data.pipeline\n"
+        "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "from repro_torch.kernels import build, dse_sweep\n"
-        "assert dse_sweep._bound is None and not build._libs\n"
+        "from repro_torch.kernels import build, conv2d, dse_sweep\n"
+        "assert dse_sweep._bound is None and conv2d._bound is None\n"
+        "assert not build._libs\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env={"PYTHONPATH": str(ROOT / "src"),
