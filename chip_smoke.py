@@ -61,7 +61,6 @@ from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as k2  # noqa: E402
 from repro_torch.kernels import dse_sweep as kern  # noqa: E402
-from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
@@ -581,15 +580,19 @@ def conv_bound(x_shape, w_shape, y_shape, dtype) -> dict:
     return bound(sum(numel) * s, 2 * numel[2] * kh * kw * cin, dtype)
 
 
-def k2_shapes(batch: int):
-    """The distinct stride-1 convolutions of one ResNet-50 forward at
-    ``batch``, with how many of the 46 launches each one is."""
-    shapes = {}
-    for c in resnet.conv_layers(get_config("resnet50"), batch):
-        if c["stride"] == 1:
-            key = (c["x"], c["w"])
-            shapes[key] = shapes.get(key, 0) + 1
-    return shapes
+def k2_calls(model, images) -> list:
+    """(x shape, w shape, padding) of every call the K2 wrapper receives in
+    one forward of ``model``, in order: the stride-1 convolutions of the
+    network that runs.  The forward launches K2."""
+    calls, real = [], k2.conv2d
+
+    def spy(x, w, *, padding):
+        calls.append((tuple(x.shape), tuple(w.shape), padding))
+        return real(x, w, padding=padding)
+
+    with mock.patch.object(k2, "conv2d", spy):
+        model(images)
+    return calls
 
 
 def conv_case(x, w, pads, dtype) -> dict:
@@ -613,82 +616,91 @@ def conv_case(x, w, pads, dtype) -> dict:
             "max_abs_err": err, "rel_err": rel}
 
 
-def library_conv(x, w):
-    """The one-call yardstick, ``F.conv2d`` (cuDNN) on channels-last views
-    of the same NHWC / HWIO tensors, stride 1, SAME for odd k; TF32 is off
-    (set in ``phase_conv2d``)."""
-    kh = int(w.shape[0])
-    w_lib = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-    x_lib = x.permute(0, 3, 1, 2)
-    return lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=kh // 2)
+_OHWI = {}
 
 
-def phase_conv2d(device, seed: int) -> dict:
-    """K2 against conv2d_plain on each of the 16 distinct stride-1 shapes of
-    ResNet-50 at B=32 and on the test_kernels.py shapes, float32 and bf16;
-    then K2's time, the library's and the bound on every ResNet-50 shape,
-    and the plain version's and the device time on the heaviest."""
-    torch.backends.cudnn.allow_tf32 = False       # float32 library = IEEE
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=device).manual_seed(seed)
-    shapes = k2_shapes(32)
+def library_conv2d(x, w, *, padding):
+    """K2's signature on the library: one ``F.conv2d`` (cuDNN) on a
+    channels-last view of the NHWC input, the HWIO weight laid out OHWI once
+    per weight and kept; the result is NHWC without a copy.  The yardstick,
+    alone and in place of K2 inside a forward; never part of the port."""
+    (pt, pb), (pl, pr) = padding
+    if (pt, pl) != (pb, pr):
+        raise ValueError(f"asymmetric padding {padding}")
+    key = (w.data_ptr(), tuple(w.shape), w.dtype)
+    if key not in _OHWI:          # w is kept too, so its address stays its own
+        _OHWI[key] = (w, w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2))
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), _OHWI[key][1],
+                                   padding=(pt, pl))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def phase_conv2d(device, seed: int, model, images) -> dict:
+    """K2 against conv2d_plain on each distinct stride-1 shape of ResNet-50
+    at B=32 (read off one forward of ``model`` on ``images``) and on the
+    test_kernels.py shapes, float32 and bf16; then K2's time, the library's
+    and the bound on every ResNet-50 shape, alone, and the plain version's
+    and the device time on the heaviest."""
+    shapes = {}
+    for xs, ws, _ in k2_calls(model, images):
+        shapes[(xs, ws)] = shapes.get((xs, ws), 0) + 1
     heavy = max(shapes, key=lambda k: conv_bound(
         k[0], k[1], k[0][:3] + (k[1][3],), torch.float32)["operations"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False       # float32 library = IEEE
     cases, per_dtype = [], {}
-    for dtype in CONV_DTYPES:
-        rows, fwd = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        for (xs, ws), count in shapes.items():
-            x = torch.randn(xs, generator=gen, device=device).to(dtype)
-            w = (torch.randn(ws, generator=gen, device=device)
-                 * (2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5).to(dtype)
-            pads = ((ws[0] // 2, (ws[0] - 1) // 2),) * 2
-            case = conv_case(x, w, pads, dtype)
-            b = conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)
-            lib = library_conv(x, w)
-            lib_err = float((lib().permute(0, 2, 3, 1).float()
-                             - k2.conv2d_plain(x, w, padding=pads).float()
-                             ).abs().max())
-            t = {"ms": time_ms(lambda: k2.conv2d(x, w, padding=pads), 20),
-                 "library_ms": time_ms(lib, 20)}
-            row = {**case, "launches_per_forward": count, **t,
-                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                   "library_max_abs_err": lib_err}
-            for key in fwd:
-                fwd[key] += count * row[key]
-            if (xs, ws) == heavy:
-                row["plain_ms"] = time_ms(
-                    lambda: k2.conv2d_plain(x, w, padding=pads), 5)
-                us = device_us({"k2": (
-                    lambda: k2.conv2d(x, w, padding=pads), "conv2d_kernel")})
-                row["device_ms"] = (None if us["k2"] is None
-                                    else us["k2"] / 1e3)
-                per_dtype[dtype] = {"heavy": row}
-            rows.append(row)
-        for (b_, hw, cin, cout, kh) in TEST_SHAPES:
-            x = torch.randn((b_, hw, hw, cin), generator=gen,
-                            device=device).to(dtype)
-            w = (0.1 * torch.randn((kh, kh, cin, cout), generator=gen,
-                                   device=device)).to(dtype)
-            pads = ((kh // 2, (kh - 1) // 2),) * 2
-            cases.append({"case": "test_kernels", **conv_case(x, w, pads,
-                                                               dtype)})
-        per_dtype[dtype]["forward_b32"] = fwd
-        per_dtype[dtype]["max_rel_err"] = max(r["rel_err"] for r in rows)
-        cases += [{"case": "resnet50_b32", **r} for r in rows]
+    try:
+        for dtype in CONV_DTYPES:
+            rows = []
+            for (xs, ws), count in shapes.items():
+                x = torch.randn(xs, generator=gen, device=device).to(dtype)
+                w = (torch.randn(ws, generator=gen, device=device)
+                     * (2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5).to(dtype)
+                pads = ((ws[0] // 2, (ws[0] - 1) // 2),) * 2
+                case = conv_case(x, w, pads, dtype)
+                b = conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)
+                lib_err = float((library_conv2d(x, w, padding=pads).float()
+                                 - k2.conv2d_plain(x, w, padding=pads).float()
+                                 ).abs().max())
+                row = {**case, "launches_per_forward": count,
+                       "ms": time_ms(lambda: k2.conv2d(x, w, padding=pads), 20),
+                       "library_ms": time_ms(lambda: library_conv2d(
+                           x, w, padding=pads), 20),
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                       "library_max_abs_err": lib_err}
+                if (xs, ws) == heavy:
+                    row["plain_ms"] = time_ms(
+                        lambda: k2.conv2d_plain(x, w, padding=pads), 5)
+                    us = device_us({"k2": (
+                        lambda: k2.conv2d(x, w, padding=pads),
+                        "conv2d_kernel")})
+                    row["device_ms"] = (None if us["k2"] is None
+                                        else us["k2"] / 1e3)
+                    per_dtype[dtype] = {"heavy": row}
+                rows.append(row)
+            for (b_, hw, cin, cout, kh) in TEST_SHAPES:
+                x = torch.randn((b_, hw, hw, cin), generator=gen,
+                                device=device).to(dtype)
+                w = (0.1 * torch.randn((kh, kh, cin, cout), generator=gen,
+                                       device=device)).to(dtype)
+                pads = ((kh // 2, (kh - 1) // 2),) * 2
+                cases.append({"case": "test_kernels",
+                              **conv_case(x, w, pads, dtype)})
+            per_dtype[dtype]["max_rel_err"] = max(r["rel_err"] for r in rows)
+            cases += [{"case": "resnet50_b32", **r} for r in rows]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     emit({"phase": "conv2d", "distinct_shapes": len(shapes),
           "launches_per_forward": sum(shapes.values()),
           "heaviest": {"x": list(heavy[0]), "w": list(heavy[1])},
           "tolerance_rel_to_scale": {SUFFIX[d]: CONV_TOL[d]
                                      for d in CONV_DTYPES},
           "cases": cases,
-          "forward_b32": {SUFFIX[d]: v["forward_b32"]
-                          for d, v in per_dtype.items()},
-          "timing_note": "ms / library_ms: CUDA events around 20 "
-                         "back-to-back calls after warm-up (launch and "
-                         "wrapper included, inputs L2-warm); forward_b32: "
-                         "each shape's time times its launches per forward, "
-                         "summed over the 46 launches; library = F.conv2d "
-                         "(cuDNN, channels-last, TF32 off)"})
+          "timing_note": "each shape alone: ms / library_ms are CUDA events "
+                         "around 20 back-to-back calls after warm-up (launch "
+                         "and wrapper included, inputs L2-warm); library = "
+                         "F.conv2d (cuDNN, channels-last, TF32 off)"})
     return per_dtype
 
 
@@ -735,30 +747,37 @@ def device_breakdown(model, images) -> dict:
                     for k, v in top]}
 
 
-def phase_resnet50(device, seed: int) -> dict:
-    """The main path: full-width ResNet-50 inference (stages 3-4-6-3, width
-    64, 224x224x3, 1000 classes) from seeded random weights, on images from
-    synth_batch.  Counts are zeroed just before the three forwards (bf16 at
-    B=1 and B=32, float32 at B=8) and read just after; then each forward's
-    logits are held against the same forward with K2 swapped for its plain
-    version, a reduced ResNet on the card against the CPU, and the
-    throughput and device-time breakdown are taken."""
+RUNS = ((torch.bfloat16, 1), (torch.bfloat16, 32), (torch.float32, 8))
+
+
+def resnet_inputs(device, seed: int):
+    """Full-width ResNet-50 (stages 3-4-6-3, width 64, 224x224x3, 1000
+    classes) in bf16 and float32 from seeded random weights, and images
+    from synth_batch for each batch size of ``RUNS``."""
     cfg = get_config("resnet50")
     models = {torch.bfloat16: build_model(cfg).init(
         torch.Generator().manual_seed(seed), device=device),
         torch.float32: build_model(dataclasses.replace(
             cfg, dtype="float32")).init(
             torch.Generator().manual_seed(seed), device=device)}
-    runs = [(torch.bfloat16, 1), (torch.bfloat16, 32), (torch.float32, 8)]
     images = {}
-    for _, b in runs:
+    for _, b in RUNS:
         batch = synth_batch(cfg, ShapeConfig(f"infer_b{b}", 1, b, "prefill"),
                             DataConfig(seed=seed), 0)["images"]
         images[b] = torch.from_numpy(batch).to(device)
+    return cfg, models, images
 
+
+def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
+    """The main path: full-width ResNet-50 inference.  Counts are zeroed
+    just before the three forwards (bf16 at B=1 and B=32, float32 at B=8)
+    and read just after; then each forward's logits are held against the
+    same forward with K2 swapped for its plain version, a reduced ResNet on
+    the card against the CPU, and each forward is timed and profiled twice:
+    as it runs, and with the library convolution in K2's place."""
     k2.reset_launch_counts()
     logits, per_forward = {}, []
-    for dtype, b in runs:
+    for dtype, b in RUNS:
         before = sum(k2.launch_counts().values())
         logits[(dtype, b)] = models[dtype](images[b])
         per_forward.append(sum(k2.launch_counts().values()) - before)
@@ -770,7 +789,7 @@ def phase_resnet50(device, seed: int) -> dict:
                              "expected 46 each")
     checks = []
     with mock.patch.object(k2, "conv2d", k2.conv2d_plain):
-        for dtype, b in runs:
+        for dtype, b in RUNS:
             got = logits[(dtype, b)]
             want = models[dtype](images[b])
             torch.cuda.synchronize()
@@ -808,14 +827,27 @@ def phase_resnet50(device, seed: int) -> dict:
         raise AssertionError(f"reduced ResNet card vs CPU: {small_err}")
 
     perf = {}
-    for dtype, b in runs:
-        ms = forward_ms(models[dtype], images[b], 50 if b == 1 else 20)
-        br = device_breakdown(models[dtype], images[b])
-        idle = (None if br["device_ms"] is None
-                else 1.0 - br["device_ms"] / ms)
-        perf[f"{SUFFIX[dtype]}_b{b}"] = {"ms_per_batch": ms,
-                                         "images_per_s": b / ms * 1e3,
-                                         "idle_share": idle, **br}
+    for dtype, b in RUNS:
+        model, x = models[dtype], images[b]
+        iters = 50 if b == 1 else 20
+        ms = forward_ms(model, x, iters)
+        br = device_breakdown(model, x)
+        with mock.patch.object(k2, "conv2d", library_conv2d):
+            lib_ms = forward_ms(model, x, iters)
+            lib_br = device_breakdown(model, x)
+        bound_ms = sum(conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)["bound_ms"]
+                       for xs, ws, _ in k2_calls(model, x))
+        row = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3,
+               "idle_share": None, **br,
+               "k2_calls_bound_ms": bound_ms,
+               "library_ms_per_batch": lib_ms,
+               "library_device_ms": lib_br["device_ms"],
+               "library_calls_device_ms": None}
+        if br["device_ms"] is not None and lib_br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+            row["library_calls_device_ms"] = (
+                lib_br["device_ms"] - (br["device_ms"] - br["k2_device_ms"]))
+        perf[f"{SUFFIX[dtype]}_b{b}"] = row
     emit({"phase": "resnet50", "config": "resnet50 (stages 3-4-6-3, width "
           "64, 224x224x3, 1000 classes), weights from torch.Generator seed "
           f"{seed}, BN at identity, images synth_batch(seed={seed})",
@@ -828,29 +860,38 @@ def phase_resnet50(device, seed: int) -> dict:
                          "synchronize, images already on the card; "
                          "device_ms / k2_device_ms / top: torch.profiler "
                          "kernel time of one forward; idle_share = 1 - "
-                         "device_ms / ms_per_batch"})
-    return {"launches": launches}
+                         "device_ms / ms_per_batch; k2_calls_bound_ms: the "
+                         "bound summed over the forward's 46 K2 calls; "
+                         "library_*: the same forward with F.conv2d (cuDNN, "
+                         "channels-last) in K2's place, where "
+                         "library_calls_device_ms = library_device_ms - "
+                         "(device_ms - k2_device_ms), the device time of "
+                         "those 46 library calls inside the forward"})
+    return {"launches": launches, "perf": perf}
 
 
-def conv_rows(per_dtype, launches) -> list:
+def conv_rows(per_dtype, infer) -> list:
+    """K2's rows: times on the heaviest shape alone, and K2 and the library
+    inside the forward of each dtype's largest batch (bf16 B=32, f32 B=8)."""
     rows = []
     for dtype in CONV_DTYPES:
         d = per_dtype[dtype]
         h = d["heavy"]
-        fwd = d["forward_b32"]
+        b = max(b for dt, b in RUNS if dt == dtype)
+        f = infer["perf"][f"{SUFFIX[dtype]}_b{b}"]
         rows.append({
             "name": f"conv2d_{SUFFIX[dtype]}", "route": "cuda",
             "source": CONV_SOURCE, "replaces": REPLACES["conv2d"],
-            "launches": launches[f"conv2d_{SUFFIX[dtype]}"],
+            "launches": infer["launches"][f"conv2d_{SUFFIX[dtype]}"],
             "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
             "device_ms": h["device_ms"],
             "shape": f"x {h['x']}, w {h['w']}, SAME",
             "max_rel_err_all_shapes": d["max_rel_err"],
-            "forward_b32_46_launches": {"ms": fwd["ms"],
-                                        "library_ms": fwd["library_ms"],
-                                        "bound_ms": fwd["bound_ms"]}})
+            "in_forward": {"batch": b, "k2_device_ms": f.get("k2_device_ms"),
+                           "library_device_ms": f["library_calls_device_ms"],
+                           "bound_ms": f["k2_calls_bound_ms"]}})
     return rows
 
 
@@ -899,11 +940,13 @@ def main() -> int:
     main_path = phase_campaign_default(workloads, device)
     phase_campaign_resume(workloads, device, main_path["fresh64"])
     phase_campaign_large(workloads, device, args.large_freq_points, numbers)
-    per_dtype = phase_conv2d(device, args.seed)
-    infer = phase_resnet50(device, args.seed)
+    cfg, models, images = resnet_inputs(device, args.seed)
+    per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],
+                             images[32])
+    infer = phase_resnet50(device, args.seed, cfg, models, images)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, main_path["launches"])
-          + conv_rows(per_dtype, infer["launches"])})
+          + conv_rows(per_dtype, infer)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

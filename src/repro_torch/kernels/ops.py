@@ -14,7 +14,6 @@ the inputs alone decides, there is no switch and no fallback.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
@@ -64,19 +63,6 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-@contextlib.contextmanager
-def _ieee_float32():
-    """cuDNN convolutions in full float32, as the reference computes them:
-    PyTorch lets cuDNN use TF32 for float32 by default (the flag does not
-    touch other dtypes)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
     """NHWC x HWIO -> NHWC convolution, ``padding`` ``"SAME"`` or
@@ -85,7 +71,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     reference's ``ops.conv2d`` pads.  Any other stride -- ResNet's 7x7 stem
     and its stride-2 3x3 and 1x1 convolutions -- goes to the library
     convolution, as in the reference, with JAX's SAME padding applied by
-    ``F.pad`` first (float32 without TF32)."""
+    ``F.pad`` first.  A float32 library convolution runs in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is off, as a float32 ``ResNet``
+    sets it."""
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be 'SAME' or 'VALID', got "
                          f"{padding!r}")
@@ -104,7 +92,5 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         (pt, pb) = same_pads(int(x.shape[1]), kh, stride)
         (pl, pr) = same_pads(int(x.shape[2]), kw, stride)
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
-    with _ieee_float32():
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                     stride=stride)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()

@@ -20,7 +20,6 @@ one leaf at a time.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
@@ -32,6 +31,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
+BN_EPS = 1e-5
 
 def _conv_init(generator: torch.Generator, kh: int, kw: int, cin: int,
                cout: int, dtype: torch.dtype) -> torch.Tensor:
@@ -68,16 +68,15 @@ class BatchNorm(nn.Module):
     cast back to the input dtype (``nn.BatchNorm2d`` places eps and updates
     its statistics differently)."""
 
-    def __init__(self, c: int, device: torch.device, eps: float = 1e-5):
+    def __init__(self, c: int, device: torch.device):
         super().__init__()
-        self.eps = eps
         self.scale = _frozen(torch.ones(c, device=device))
         self.bias = _frozen(torch.zeros(c, device=device))
         self.register_buffer("mean", torch.zeros(c, device=device))
         self.register_buffer("var", torch.ones(c, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = ((x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+        out = ((x.float() - self.mean) * torch.rsqrt(self.var + BN_EPS)
                * self.scale + self.bias)
         return out.to(x.dtype)
 
@@ -143,7 +142,8 @@ class ResNet(nn.Module):
     and moved to ``device`` -- and batch norm starts at the identity, as the
     reference's ``init_params`` does; the numbers differ from the
     reference's, which come from ``jax.random``.  ``device`` defaults to the
-    card and raises without one."""
+    card and raises without one.  Building a float32 ResNet turns off
+    ``torch.backends.cudnn.allow_tf32`` for the whole process."""
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device: DeviceLike = "cuda"):
@@ -156,6 +156,10 @@ class ResNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
         self.dtype = L.dtype_of(cfg)
+        if self.dtype == torch.float32:
+            # the reference convolves float32 in IEEE float32; PyTorch lets
+            # cuDNN use TF32 for it unless this process-wide flag is off
+            torch.backends.cudnn.allow_tf32 = False
         kw = dict(dtype=self.dtype, generator=generator, device=dev)
         w = cfg.cnn_width
         self.stem = Conv(7, 7, 3, w, 2, **kw)
@@ -216,35 +220,3 @@ def params_from_reference(params: Mapping, cfg,
         target.copy_(torch.from_numpy(flat[key]).to(target.dtype))
     return model
 
-
-def conv_layers(cfg, batch: int, image_size: Optional[int] = None
-                ) -> List[dict]:
-    """Every convolution of one forward in execution order:
-    ``{"name", "x": (B, H, W, Cin), "w": (kh, kw, Cin, Cout), "stride",
-    "y": (B, H_out, W_out, Cout)}``.  The stride-1 ones are K2's launches."""
-    r = cfg.image_size if image_size is None else image_size
-    out: List[dict] = []
-
-    def add(name, hw, kh, cin, cout, stride):
-        ho = math.ceil(hw / stride)
-        out.append({"name": name, "x": (batch, hw, hw, cin),
-                    "w": (kh, kh, cin, cout), "stride": stride,
-                    "y": (batch, ho, ho, cout)})
-        return ho
-
-    w = cfg.cnn_width
-    r = add("stem", r, 7, 3, w, 2)
-    r = math.ceil(r / 2)                       # the max pool
-    cin = w
-    for s, n_blocks in enumerate(cfg.cnn_stages):
-        cmid = w * (2 ** s)
-        for b in range(n_blocks):
-            stride = 2 if (b == 0 and s > 0) else 1
-            name = f"stage{s}_block{b}"
-            add(f"{name}.conv1", r, 1, cin, cmid, 1)
-            r2 = add(f"{name}.conv2", r, 3, cmid, cmid, stride)
-            add(f"{name}.conv3", r2, 1, cmid, cmid * 4, 1)
-            if stride != 1 or cin != cmid * 4:
-                add(f"{name}.proj", r, 1, cin, cmid * 4, stride)
-            r, cin = r2, cmid * 4
-    return out

@@ -22,6 +22,7 @@ from repro.models import resnet as rres
 from repro_torch.configs import base
 from repro_torch.data import pipeline
 from repro_torch.kernels import conv2d as k2
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import resnet
 from repro_torch.models.api import build_model
@@ -149,9 +150,28 @@ def test_batchnorm_matches_reference(dtype):
                                atol=1e-6)
 
 
+def _reference_convs(monkeypatch, rcfg, images_shape):
+    """(x shape, w shape, stride) of every convolution the reference's
+    ``resnet.forward`` makes, in order, read off an abstract evaluation
+    (``jax.eval_shape``: nothing is computed)."""
+    seen = []
+    real = rres.conv2d
+
+    def spy(x, w, stride=1, padding="SAME"):
+        seen.append((tuple(x.shape), tuple(w.shape), stride))
+        return real(x, w, stride, padding)
+
+    monkeypatch.setattr(rres, "conv2d", spy)
+    jax.eval_shape(lambda k, im: rres.forward(rres.init_params(k, rcfg), rcfg,
+                                              im, train=False),
+                   jax.random.PRNGKey(0),
+                   jax.ShapeDtypeStruct(images_shape, jnp.float32))
+    return seen
+
+
 def test_forward_routes_stride_one_convolutions_to_k2(monkeypatch):
     """On the reduced ResNet the K2 wrapper sees exactly the stride-1
-    convolutions that ``conv_layers`` lists, in order and with their
+    convolutions of the reference's forward, in order and with their
     shapes; on the CPU none of them is a launch."""
     seen = []
     real = k2.conv2d
@@ -161,35 +181,49 @@ def test_forward_routes_stride_one_convolutions_to_k2(monkeypatch):
         return real(x, w, padding=padding)
 
     monkeypatch.setattr(k2, "conv2d", spy)
-    cfg = base.get_config("resnet50").reduced()
+    rcfg, cfg = _configs("bfloat16")
     model = build_model(cfg).init(torch.Generator().manual_seed(3),
                                   device="cpu")
     k2.reset_launch_counts()
     model(torch.zeros(3, 32, 32, 3))
-    want = [(c["x"], c["w"]) for c in resnet.conv_layers(cfg, 3)
-            if c["stride"] == 1]
+    want = [(x, w) for x, w, stride in _reference_convs(
+        monkeypatch, rcfg, (3, 32, 32, 3)) if stride == 1]
     assert seen == want and len(want) == 6
     assert sum(k2.launch_counts().values()) == 0
 
 
-def test_full_resnet50_convolutions():
-    """ResNet-50 at 224x224: 53 convolutions, 46 of them stride 1 (K2) over
-    16 distinct shapes, carrying 81% of the 8.17 GFLOP of convolution per
-    image."""
-    layers = resnet.conv_layers(base.get_config("resnet50"), 1)
-    k2_layers = [c for c in layers if c["stride"] == 1]
+def test_full_resnet50_convolutions(monkeypatch):
+    """The port's full ResNet-50 at 224x224 makes the reference's 53
+    convolutions in order, 46 of them stride 1 (K2) over 16 distinct
+    shapes, carrying 81% of the 8.17 GFLOP of convolution per image.  Each
+    convolution is recorded and answered with zeros of its output shape, so
+    nothing is convolved."""
+    seen = []
+
+    def shape_only(x, w, *, stride=1, padding="SAME"):
+        seen.append((tuple(x.shape), tuple(w.shape), stride))
+        b, h, wd, _ = x.shape
+        return torch.zeros((b, -(-h // stride), -(-wd // stride), w.shape[3]),
+                           dtype=x.dtype)
+
+    monkeypatch.setattr(ops, "conv2d", shape_only)
+    rcfg, cfg = rbase.get_config("resnet50"), base.get_config("resnet50")
+    model = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    assert tuple(model(torch.zeros(1, 224, 224, 3)).shape) == (1, 1000)
+    assert seen == _reference_convs(monkeypatch, rcfg, (1, 224, 224, 3))
 
     def flops(c):
-        b, ho, wo, cout = c["y"]
-        kh, kw, cin, _ = c["w"]
-        return 2 * b * ho * wo * cout * kh * kw * cin
+        (b, h, wd, cin), (kh, kw, _, cout), stride = c
+        return 2 * b * -(-h // stride) * -(-wd // stride) * cout * kh * kw * cin
 
-    total = sum(flops(c) for c in layers)
-    k2_total = sum(flops(c) for c in k2_layers)
-    assert (len(layers), len(k2_layers)) == (53, 46)
-    assert len({(c["x"][1:], c["w"]) for c in k2_layers}) == 16
+    k2_convs = [c for c in seen if c[2] == 1]
+    total = sum(flops(c) for c in seen)
+    k2_total = sum(flops(c) for c in k2_convs)
+    assert (len(seen), len(k2_convs)) == (53, 46)
+    assert len({(x[1:], w) for x, w, _ in k2_convs}) == 16
     assert round(total / 1e9, 2) == 8.17 and round(k2_total / 1e9, 2) == 6.63
-    assert layers[-1]["y"] == (1, 7, 7, 2048)
+    assert seen[-1][:2] == ((1, 7, 7, 512), (1, 1, 512, 2048))
 
 
 def test_full_width_parameter_shapes_match_reference():
