@@ -7,9 +7,11 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
 `nvcc` per source, all started together), holds each against its plain
-PyTorch version on the card, and drives the port's two main paths: the fused
-campaign sweep through `Campaign.run`, and ResNet-50 inference through
-`build_model(get_config("resnet50")).init(...)`.  Every phase prints one
+PyTorch version on the card, and drives the port's three main paths: the
+fused campaign sweep through `Campaign.run`, ResNet-50 inference through
+`build_model(get_config("resnet50")).init(...)`, and dense-transformer
+serving (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
+qwen3-14b through `build_model(get_config(...)).init(...)`.  Every phase prints one
 JSON object on a line of its own; any failed phase raises, so the exit code
 is non-zero and the last line is missing.  Without a CUDA device the script
 exits non-zero before printing anything.
@@ -17,12 +19,14 @@ exits non-zero before printing anything.
 Lines, in order:
   {"phase": "device", ...}           card, power limit, torch / CUDA versions
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
+  {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model shapes
   {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
   {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
   {"phase": "conv2d", ...}           K2 vs plain on every ResNet-50 shape
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
+  {"phase": "transformer", ...}      prefill + decode: stablelm, qwen3 (L=4)
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}      the last line
@@ -61,15 +65,18 @@ from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as k2  # noqa: E402
 from repro_torch.kernels import dse_sweep as kern  # noqa: E402
+from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # file:line of what each kernel replaces in the reference package
 REPLACES = {"dse_sweep": "src/repro/kernels/dse_sweep.py:52",
             "screen_rows": "src/repro/core/costmodel.py:486",
-            "conv2d": "src/repro/kernels/conv2d.py:21"}
+            "conv2d": "src/repro/kernels/conv2d.py:21",
+            "flash_attention": "src/repro/kernels/flash_attention.py:25"}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores; float64 vector rate
@@ -214,12 +221,13 @@ def phase_device() -> str:
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    sources = (kern.SOURCE, k2.SOURCE)
+    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(
             lambda src: build.build(src, force=True), sources)))
     kern._library()
     k2._library()
+    k3._library()
     out = {}
     for src in sources:
         usage = [ln.strip() for ln in build.build_logs[src].splitlines()
@@ -704,30 +712,31 @@ def phase_conv2d(device, seed: int, model, images) -> dict:
     return per_dtype
 
 
-def forward_ms(model, images, iters: int) -> float:
-    """Host-clock milliseconds per forward, each ending in a synchronize
-    (the latency a caller sees), after three warm-up forwards."""
-    for _ in range(3):
-        model(images)
+def host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Host-clock milliseconds per call of ``fn``, each ending in a
+    synchronize (the latency a caller sees), after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        model(images)
+        fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_breakdown(model, images) -> dict:
-    """Device time of one forward by kernel, from torch.profiler: the total,
-    K2's share of it, and the largest kernels.  None where the profiler
-    reports no device time on this machine."""
+def device_breakdown(fn, symbol: str) -> dict:
+    """Device time of one call of ``fn`` by kernel, from torch.profiler: the
+    total, the time and share of the kernels whose name holds ``symbol``,
+    and the largest kernels.  None where the profiler reports no device time
+    on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model(images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model(images)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -738,11 +747,12 @@ def device_breakdown(model, images) -> dict:
         by_name[ev.key] = by_name.get(ev.key, 0.0) + us
     total = sum(by_name.values())
     if total <= 0:
-        return {"device_ms": None, "k2_share": None, "top": []}
-    k2_us = sum(v for k, v in by_name.items() if "conv2d_kernel" in k)
+        return {"device_ms": None, "kernel_device_ms": None,
+                "kernel_share": None, "top": []}
+    k_us = sum(v for k, v in by_name.items() if symbol in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_ms": total / 1e3, "k2_device_ms": k2_us / 1e3,
-            "k2_share": k2_us / total,
+    return {"device_ms": total / 1e3, "kernel_device_ms": k_us / 1e3,
+            "kernel_share": k_us / total,
             "top": [{"kernel": k[:90], "ms": v / 1e3, "share": v / total}
                     for k, v in top]}
 
@@ -830,15 +840,17 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
     for dtype, b in RUNS:
         model, x = models[dtype], images[b]
         iters = 50 if b == 1 else 20
-        ms = forward_ms(model, x, iters)
-        br = device_breakdown(model, x)
+        ms = host_ms(lambda: model(x), iters)
+        br = device_breakdown(lambda: model(x), "conv2d_kernel")
         with mock.patch.object(k2, "conv2d", library_conv2d):
-            lib_ms = forward_ms(model, x, iters)
-            lib_br = device_breakdown(model, x)
+            lib_ms = host_ms(lambda: model(x), iters)
+            lib_br = device_breakdown(lambda: model(x), "conv2d_kernel")
         bound_ms = sum(conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)["bound_ms"]
                        for xs, ws, _ in k2_calls(model, x))
         row = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3,
-               "idle_share": None, **br,
+               "idle_share": None, "device_ms": br["device_ms"],
+               "k2_device_ms": br["kernel_device_ms"],
+               "k2_share": br["kernel_share"], "top": br["top"],
                "k2_calls_bound_ms": bound_ms,
                "library_ms_per_batch": lib_ms,
                "library_device_ms": lib_br["device_ms"],
@@ -846,7 +858,8 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
             row["library_calls_device_ms"] = (
-                lib_br["device_ms"] - (br["device_ms"] - br["k2_device_ms"]))
+                lib_br["device_ms"] - (br["device_ms"]
+                                       - br["kernel_device_ms"]))
         perf[f"{SUFFIX[dtype]}_b{b}"] = row
     emit({"phase": "resnet50", "config": "resnet50 (stages 3-4-6-3, width "
           "64, 224x224x3, 1000 classes), weights from torch.Generator seed "
@@ -895,6 +908,402 @@ def conv_rows(per_dtype, infer) -> list:
     return rows
 
 
+# --- dense-transformer serving: flash attention (K3) ---------------------------
+
+FLASH_DTYPES = (torch.bfloat16, torch.float32)
+# K3 vs flash_attention_plain on the same inputs: float32 |diff| <= 1e-5
+# (sums of up to S terms in another order, FMA-contracted); bf16 the
+# assert_allclose(atol=2e-2, rtol=2e-2) of tests/test_kernels.py -- K3
+# rounds p to bf16 for the tensor-core P V product where the plain version
+# keeps it in float32, and an output in [2, 8) has a bf16 ulp of 1/64..1/32
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (case, B, S, H, KV, hd, hv, causal)
+FLASH_CASES = (
+    ("test_kernels", 2, 128, 2, 2, 32, 32, True),
+    ("test_kernels", 2, 256, 4, 2, 64, 64, True),
+    ("test_kernels", 2, 256, 4, 1, 64, 64, True),
+    ("test_kernels", 2, 384, 2, 2, 128, 128, True),
+    ("non_causal", 2, 512, 4, 2, 64, 64, False),
+    ("ragged", 2, 1000, 4, 2, 64, 64, True),
+    ("ragged_non_causal", 1, 1000, 2, 2, 128, 128, False),
+    ("hv_ne_hd", 2, 256, 4, 2, 64, 32, True),
+    ("hv_ne_hd", 2, 320, 2, 1, 32, 128, True),
+    ("stablelm_b1_s4096", 1, 4096, 32, 32, 64, 64, True),
+    ("stablelm_b8_s1024", 8, 1024, 32, 32, 64, 64, True),
+    ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, 128, True),
+)
+# the case each dtype's row of the kernels line reports
+FLASH_HEADLINE = "stablelm_b1_s4096"
+
+
+def flash_bound(b, s, h, kv, hd, hv, causal, dtype) -> dict:
+    """Least time for one attention call: q, k, v read once and o written
+    once; 2 * B * H * (visible pairs) * (hd + hv) operations at the dtype's
+    peak (bf16: the tensor cores), visible pairs S(S+1)/2 causal, S^2 not."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (b * s * h * hd + b * s * kv * (hd + hv) + b * s * h * hv) * e
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return bound(nbytes, 2 * b * h * pairs * (hd + hv), dtype)
+
+
+def library_flash_attention(q, k, v, *, causal=True, scale=None):
+    """K3's signature on the library: one
+    ``F.scaled_dot_product_attention`` on [B, H, S, d] views of the BSHD
+    inputs, GQA by ``enable_gqa``.  The yardstick, alone and in K3's place
+    inside a prefill; never part of the port."""
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, scale=scale, enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def flash_case(gen, device, case, dtype) -> dict:
+    """K3 against its plain version on one shape; raises on disagreement.
+    Then K3's, the plain version's and the library's time, the bound, and
+    for the model shapes K3's device time."""
+    name, b, s, h, kv, hd, hv, causal = case
+    q = torch.randn((b, s, h, hd), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, s, kv, hv), generator=gen, device=device).to(dtype)
+    o = k3.flash_attention(q, k, v, causal=causal)
+    op = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if tuple(o.shape) != (b, s, h, hv) or o.dtype != dtype:
+        raise AssertionError(f"K3 returned {tuple(o.shape)} {o.dtype}")
+    if not torch.isfinite(o.float()).all():
+        raise AssertionError(f"K3 {name}: non-finite output")
+    diff = (o.float() - op.float()).abs()
+    err = float(diff.max())
+    tol = FLASH_TOL[dtype]
+    limit = tol if dtype == torch.float32 else tol + tol * op.float().abs()
+    if not bool((diff <= limit).all()):
+        raise AssertionError(f"K3 {name} {(b, s, h, kv, hd, hv, causal)} "
+                             f"{dtype}: max |diff| {err} over the limit")
+    bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype)
+    big = s >= 2048
+    row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": hd,
+           "hv": hv, "causal": causal, "dtype": SUFFIX[dtype],
+           "max_abs_err": err,
+           "ms": time_ms(lambda: k3.flash_attention(q, k, v, causal=causal),
+                         10 if big else 20),
+           "plain_ms": time_ms(lambda: k3.flash_attention_plain(
+               q, k, v, causal=causal), 2, warmup=1),
+           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "library_ms": None, "library_max_abs_err": None,
+           "device_ms": None}
+    if hd == hv:
+        lib = library_flash_attention(q, k, v, causal=causal)
+        row["library_max_abs_err"] = float((lib.float() - op.float())
+                                           .abs().max())
+        row["library_ms"] = time_ms(lambda: library_flash_attention(
+            q, k, v, causal=causal), 10 if big else 20)
+    if name.startswith(("stablelm", "qwen3")):
+        us = device_us({"k3": (lambda: k3.flash_attention(q, k, v,
+                                                          causal=causal),
+                               f"flash_{SUFFIX[dtype]}_kernel")}, reps=5)
+        row["device_ms"] = None if us["k3"] is None else us["k3"] / 1e3
+    return row
+
+
+def phase_flash_attention(device, seed: int) -> dict:
+    """K3 against flash_attention_plain on the card, bf16 and float32: the
+    test_kernels.py cases (B=2), a non-causal, two ragged-S and two hv != hd
+    cases, and the model shapes (stablelm B=1 S=4096 and B=8 S=1024, qwen3
+    B=1 S=2048 H=40 KV=8 hd=128), each timed beside the plain version, SDPA
+    and the bound.  Returns the rows keyed by (dtype, case)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = {}
+    for dtype in FLASH_DTYPES:
+        for case in FLASH_CASES:
+            rows[(dtype, case)] = flash_case(gen, device, case, dtype)
+    emit({"phase": "flash_attention",
+          "tolerance": {"f32": "max |K3 - plain| <= 1e-5",
+                        "bf16": "|K3 - plain| <= 2e-2 + 2e-2 |plain| "
+                                "(tests/test_kernels.py atol = rtol)"},
+          "cases": list(rows.values()),
+          "timing_note": "ms / library_ms: CUDA events around back-to-back "
+                         "calls after warm-up (launch and wrapper included, "
+                         "inputs L2-warm where they fit); device_ms: the "
+                         "kernel alone (torch.profiler), model shapes only; "
+                         "library = F.scaled_dot_product_attention "
+                         "(enable_gqa), timed where hv == hd; bound = "
+                         "max(bytes of q, k, v, o / 3.35 TB/s, 2 B H "
+                         "pairs (hd + hv) / peak: 989 TFLOP/s bf16, 67 f32)"})
+    return rows
+
+
+# --- dense-transformer serving: prefill, KV cache, decode ----------------------
+
+# kernel-path vs plain-path prefill logits, max |diff| over max |logit|:
+# float32 allows sums in another order through every layer; in bf16 an
+# activation that rounds the other way feeds every later layer
+LM_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# (run, arch, depth or None for the full depth, dtype, B, S, decode steps)
+LM_RUNS = (
+    ("a_stablelm_b1_s4096", "stablelm_1_6b", None, torch.bfloat16, 1, 4096, 0),
+    ("b_stablelm_b8_s1024", "stablelm_1_6b", None, torch.bfloat16, 8, 1024,
+     16),
+    ("c_qwen3_14b_l4_b1_s2048", "qwen3_14b", 4, torch.bfloat16, 1, 2048, 0),
+    ("d_stablelm_f32_l4_b2_s1024", "stablelm_1_6b", 4, torch.float32, 2,
+     1024, 0),
+)
+
+
+def lm_models(device, seed: int) -> dict:
+    """One model per (arch, depth, dtype) of ``LM_RUNS``, at full width,
+    weights drawn on the card from a CUDA generator seeded with ``seed``."""
+    models = {}
+    for _, arch, depth, dtype, _, _, _ in LM_RUNS:
+        key = (arch, depth, dtype)
+        if key not in models:
+            cfg = dataclasses.replace(get_config(arch),
+                                      dtype=str(dtype).split(".")[-1])
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, num_layers=depth)
+            models[key] = build_model(cfg).init(
+                torch.Generator(device=device).manual_seed(seed),
+                device=device)
+    return models
+
+
+def lm_prompts(model, b: int, s: int, seed: int, device) -> torch.Tensor:
+    cfg = model.cfg
+    batch = synth_batch(cfg, ShapeConfig(f"serve_b{b}_s{s}", s, b, "prefill"),
+                        DataConfig(seed=seed), 0)
+    return torch.from_numpy(batch["tokens"]).to(device)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()) / \
+        float(want.float().abs().max())
+
+
+def grown_cache(model, cache, extra: int):
+    """The prefill's cache copied into one with room for ``extra`` more
+    positions (the reference's prefill cache is exactly prompt-long)."""
+    b, s = cache["layers"]["k"].shape[1:3]
+    big = model.init_cache(int(b), int(s) + extra)
+    for kv in ("k", "v"):
+        big["layers"][kv][:, :, :s] = cache["layers"][kv]
+    big["len"] = cache["len"]
+    return big
+
+
+def greedy_decode(model, logits, cache, steps: int):
+    """``steps`` greedy tokens after a prefill, into a copy of its cache with
+    room; returns (first step's logits, generated tokens [B, steps])."""
+    big = grown_cache(model, cache, steps)
+    tok = logits[:, -1:].argmax(-1)
+    first, out = None, []
+    for _ in range(steps):
+        step, big = model.decode_step(tok, big)
+        first = step if first is None else first
+        tok = step[:, -1:].argmax(-1)
+        out.append(tok)
+    return first, torch.cat(out, dim=1)
+
+
+def phase_transformer(device, seed: int) -> dict:
+    """The main path: dense-transformer serving.  Counts are zeroed just
+    before the four runs' prefills and decode steps and read just after; then
+    each prefill is held against the same prefill with K3 swapped for its
+    plain version (logits, top-1, cache), the first decode step after each,
+    a reduced model on the card against the CPU, and each run is timed and
+    profiled twice: as it runs, and with SDPA in K3's place."""
+    models = lm_models(device, seed)
+    prompts, outs, per_prefill, decode_launches = {}, {}, [], 0
+    for run, arch, depth, dtype, b, s, steps in LM_RUNS:
+        prompts[run] = lm_prompts(models[(arch, depth, dtype)], b, s, seed,
+                                  device)
+    torch.cuda.synchronize()
+
+    k3.reset_launch_counts()
+    for run, arch, depth, dtype, b, s, steps in LM_RUNS:
+        model = models[(arch, depth, dtype)]
+        before = sum(k3.launch_counts().values())
+        logits, cache = model.prefill(prompts[run])
+        per_prefill.append(sum(k3.launch_counts().values()) - before)
+        first, gen = None, None
+        if steps:
+            before = sum(k3.launch_counts().values())
+            first, gen = greedy_decode(model, logits, cache, steps)
+            decode_launches += sum(k3.launch_counts().values()) - before
+        outs[run] = (logits, cache, first, gen)
+    torch.cuda.synchronize()
+    launches = k3.launch_counts()
+
+    want_launches = [models[(a, d, t)].cfg.num_layers
+                     for _, a, d, t, _, _, _ in LM_RUNS]
+    if per_prefill != want_launches or decode_launches != 0:
+        raise AssertionError(f"K3 launches per prefill {per_prefill} "
+                             f"(expected {want_launches}), in decode "
+                             f"{decode_launches} (expected 0)")
+    checks = []
+    for run, arch, depth, dtype, b, s, steps in LM_RUNS:
+        model = models[(arch, depth, dtype)]
+        logits, cache, first, gen = outs.pop(run)
+        if (tuple(logits.shape) != (b, s, model.cfg.vocab_size)
+                or logits.dtype != torch.float32):
+            raise AssertionError(f"{run}: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{run}: non-finite logits")
+        with mock.patch.object(k3, "flash_attention",
+                               k3.flash_attention_plain):
+            want, want_cache = model.prefill(prompts[run])
+            # the first step from the plain cache, on the kernel path's token
+            want_first = (greedy_decode(model, logits, want_cache, 1)[0]
+                          if steps else None)
+        torch.cuda.synchronize()
+        tol = LM_LOGIT_TOL[dtype]
+        row = {"run": run, "dtype": SUFFIX[dtype], "batch": b, "seq": s,
+               "logits_rel_err": rel_err(logits, want),
+               "top1_agreement_last": float(
+                   (logits[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                   .float().mean()),
+               "cache_k_rel_err": rel_err(cache["layers"]["k"],
+                                          want_cache["layers"]["k"]),
+               "cache_v_rel_err": rel_err(cache["layers"]["v"],
+                                          want_cache["layers"]["v"])}
+        if steps:
+            row["first_decode_logits_rel_err"] = rel_err(first, want_first)
+            row["generated_tokens"] = [int(t) for t in gen[0]]
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{run}: non-finite decode logits")
+        bad = {k: v for k, v in row.items() if k.endswith("rel_err")
+               and v > tol}
+        if bad:
+            raise AssertionError(f"{run}: kernel path off the plain path "
+                                 f"beyond {tol}: {bad}")
+        checks.append(row)
+        del logits, cache, want, want_cache
+    if sum(k3.launch_counts().values()) != sum(launches.values()):
+        raise AssertionError("the plain-path prefills launched K3")
+
+    # a small input against the CPU, whose plain path the tests hold to the
+    # reference package: a reduced stablelm with head_dim 32 (K3's smallest)
+    small = dataclasses.replace(get_config("stablelm_1_6b").reduced(),
+                                dtype="float32", head_dim=32)
+    cpu_model = build_model(small).init(torch.Generator().manual_seed(seed),
+                                        device="cpu")
+    card_model = build_model(small).init(device=device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, small.vocab_size, (2, 100)).astype(np.int32))
+    small_err = rel_err(card_model(toks.to(device)).cpu(), cpu_model(toks))
+    if small_err > LM_LOGIT_TOL[torch.float32]:
+        raise AssertionError(f"reduced transformer card vs CPU: {small_err}")
+
+    perf = {}
+    for run, arch, depth, dtype, b, s, steps in LM_RUNS:
+        model, x = models[(arch, depth, dtype)], prompts[run]
+        symbol = f"flash_{SUFFIX[dtype]}_kernel"
+        cfg = model.cfg
+        ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+        br = device_breakdown(lambda: model.prefill(x), symbol)
+        with mock.patch.object(k3, "flash_attention",
+                               library_flash_attention):
+            lib_ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+            lib_br = device_breakdown(lambda: model.prefill(x), symbol)
+        bd = flash_bound(b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.head_dim, True, dtype)
+        row = {"ms_per_prefill": ms, "prompt_tokens_per_s": b * s / ms * 1e3,
+               "device_ms": br["device_ms"], "idle_share": None,
+               "k3_device_ms": br["kernel_device_ms"],
+               "k3_share": br["kernel_share"], "top": br["top"],
+               "k3_calls_bound_ms": cfg.num_layers * bd["bound_ms"],
+               "sdpa_ms_per_prefill": lib_ms,
+               "sdpa_device_ms": lib_br["device_ms"],
+               "sdpa_calls_device_ms": None}
+        if br["device_ms"] is not None and lib_br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+            row["sdpa_calls_device_ms"] = (
+                lib_br["device_ms"] - (br["device_ms"]
+                                       - br["kernel_device_ms"]))
+        if steps:
+            logits, cache = model.prefill(x)
+            big = grown_cache(model, cache, steps)
+            tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step, big = model.decode_step(tok, big)
+                tok = step[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            row["ms_per_decode_step"] = dec_s * 1e3 / steps
+            row["generated_tokens_per_s"] = b * steps / dec_s
+            # one step profiled (and one before it), into a fresh copy
+            big = grown_cache(model, cache, 2)
+            dec = device_breakdown(lambda: model.decode_step(tok, big),
+                                   symbol)
+            row["decode_device_ms"] = dec["device_ms"]
+            row["decode_idle_share"] = (
+                None if dec["device_ms"] is None
+                else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
+            row["decode_top"] = dec["top"]
+            del logits, cache, big
+        perf[run] = row
+    emit({"phase": "transformer",
+          "config": "stablelm-1.6b (24 L, d 2048, 32 heads of 64, d_ff 5632, "
+                    "vocab 100,352) full width and depth; qwen3-14b full "
+                    "width (d 5120, 40 heads / 8 kv of 128, qk_norm, d_ff "
+                    "17,408, vocab 151,936), depth 40 -> 4; stablelm float32 "
+                    f"depth 24 -> 4; weights from a CUDA generator seed {seed}, "
+                    f"prompts synth_batch(seed={seed})",
+          "k3_launches_per_prefill": per_prefill,
+          "k3_launches_in_decode": decode_launches, "launches": launches,
+          "vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                           for d in LM_LOGIT_TOL},
+          "reduced_card_vs_cpu_rel_err": small_err, "serving": perf,
+          "timing_note": "ms_per_prefill: host clock around prefill + "
+                         "synchronize, prompts on the card; device_ms / "
+                         "k3_device_ms / top: torch.profiler kernel time of "
+                         "one prefill; idle_share = 1 - device_ms / "
+                         "ms_per_prefill; k3_calls_bound_ms: the bound summed "
+                         "over the prefill's K3 calls; sdpa_*: the same "
+                         "prefill with F.scaled_dot_product_attention in "
+                         "K3's place, sdpa_calls_device_ms = sdpa_device_ms "
+                         "- (device_ms - k3_device_ms); decode: host clock "
+                         "around 16 greedy steps ending in a synchronize, "
+                         "decode_device_ms / decode_top: one step profiled"})
+    return {"launches": launches, "perf": perf}
+
+
+def flash_rows(rows, lm) -> list:
+    """K3's rows: times at the stablelm B=1 S=4096 shape alone, every other
+    model shape beside it, and K3 and SDPA inside the prefills."""
+    out = []
+    for dtype in FLASH_DTYPES:
+        sfx = SUFFIX[dtype]
+        head = next(r for (d, c), r in rows.items()
+                    if d == dtype and c[0] == FLASH_HEADLINE)
+        name = f"flash_attention_{sfx}"
+        runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
+        out.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": REPLACES["flash_attention"],
+            "launches": lm["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
+                               if d == dtype),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
+            "model_shapes": [{k: r[k] for k in (
+                "case", "B", "S", "H", "KV", "hd", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for (d, c), r in rows.items()
+                if d == dtype and c[0].startswith(("stablelm", "qwen3"))],
+            "in_prefill": {run: {
+                "k3_device_ms": lm["perf"][run]["k3_device_ms"],
+                "sdpa_device_ms": lm["perf"][run]["sdpa_calls_device_ms"],
+                "bound_ms": lm["perf"][run]["k3_calls_bound_ms"]}
+                for run in runs}})
+    return out
+
+
 def kernels_line(numbers, launches) -> list:
     rows = []
     for dtype in DTYPES:
@@ -935,6 +1344,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
+    # first after the build: in runs where it followed the ResNet phase's
+    # profiles, the profiler read no device time for K3 alone
+    flash = phase_flash_attention(device, args.seed)
     workloads = make_workloads(args.seed)
     numbers = phase_kernels(workloads, device)
     main_path = phase_campaign_default(workloads, device)
@@ -944,9 +1356,11 @@ def main() -> int:
     per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],
                              images[32])
     infer = phase_resnet50(device, args.seed, cfg, models, images)
+    del models, images
+    lm = phase_transformer(device, args.seed)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, main_path["launches"])
-          + conv_rows(per_dtype, infer)})
+          + conv_rows(per_dtype, infer) + flash_rows(flash, lm)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,17 @@ the device the packed tile lives on, returning the host-side
 ``SweepReduced``.  ``conv2d`` is what the models call for a convolution:
 stride 1 goes to the hand-written kernel K2 with the reference's SAME
 padding, any other stride to the library convolution with JAX's SAME
-padding written out.  With CUDA tensors the hand-written kernels run (or
-the call raises); with CPU tensors their plain versions do — the device of
-the inputs alone decides, there is no switch and no fallback.
+padding written out.  ``flash_attention`` is what the transformer calls for
+prefill attention: the hand-written kernel K3, in the reference's BSHD
+layout, GQA without repeating K / V.  With CUDA tensors the hand-written
+kernels run (or the call raises); with CPU tensors their plain versions do
+— the device of the inputs alone decides, there is no switch and no
+fallback.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,11 +25,12 @@ import torch.nn.functional as F
 from repro_torch.core import costmodel
 from repro_torch.kernels import conv2d as _k2
 from repro_torch.kernels import dse_sweep as _k
+from repro_torch.kernels import flash_attention as _k3
 from repro_torch.kernels.dse_sweep import (CAND_COLS, launch_counts,
                                            reset_launch_counts)
 
-__all__ = ["CAND_COLS", "conv2d", "dse_sweep", "launch_counts",
-           "reset_launch_counts", "same_pads"]
+__all__ = ["CAND_COLS", "conv2d", "dse_sweep", "flash_attention",
+           "launch_counts", "reset_launch_counts", "same_pads"]
 
 
 def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
@@ -94,3 +98,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, S, H, hd]; k, v [B, S, KV, hd | hv] -> [B, S, H, hv] in
+    ``q.dtype``, on the hand-written kernel K3 (its plain version for CPU
+    tensors).  Unlike the reference's ``ops.flash_attention`` nothing is
+    transposed to [B*H, S, hd] and K / V are not repeated for GQA: the
+    kernel reads the kv head ``h // (H // KV)`` in place.  ``scale``
+    defaults to ``hd ** -0.5``; any ``S`` works."""
+    return _k3.flash_attention(q, k, v, causal=causal, scale=scale)

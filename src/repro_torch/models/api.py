@@ -1,10 +1,13 @@
 """Per-family model API (the reference's ``models/api.py``).
 
 ``build_model(cfg)`` returns a ``Model`` whose ``init`` builds the network
-as a ``torch.nn.Module`` on the requested device.  So far only the CNN
-family (ResNet-50 inference) is ported; the other families raise
-``NotImplementedError`` naming the roadmap item that brings them.  Training
-(``loss``) is not ported either: the convolution kernel has no backward yet.
+as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
+family (ResNet-50 inference) and the dense transformer family (prefill,
+KV cache, decode).  ``prefill(module, batch)``, ``decode(module, batch,
+cache)`` and ``init_cache(batch, max_len, device=...)`` mirror the
+reference's serving entries (``None`` for the CNN, as there); the other
+families raise ``NotImplementedError`` naming the roadmap item that brings
+them.  Training (``loss``) is not ported: the kernels have no backward yet.
 """
 
 from __future__ import annotations
@@ -16,13 +19,23 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models import resnet
+from repro_torch.models import resnet, transformer
+
+# the roadmap item that ports each family not ported yet
+_NOT_PORTED = {"ssm": "Queue 1 item 12c (mamba2 prefill with K4)",
+               "moe": "Queue 1 item 12e (MoE, MLA)",
+               "vlm": "Queue 1 item 12e (the VLM prefix)",
+               "hybrid": "Queue 1 item 12e (zamba)",
+               "audio": "Queue 1 item 12e (whisper)"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
     init: Callable[..., torch.nn.Module]   # (generator=None, device="cuda")
+    prefill: Optional[Callable] = None     # (module, batch) -> (logits, cache)
+    decode: Optional[Callable] = None      # (module, batch, cache) -> same
+    init_cache: Optional[Callable] = None  # (batch, max_len, device) -> cache
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -32,7 +45,23 @@ def build_model(cfg: ArchConfig) -> Model:
             return resnet.ResNet(cfg, generator=generator, device=device)
 
         return Model(cfg, init)
+    if cfg.family == "dense":
+        transformer.check_dense(cfg)
+
+        def init(generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = "cuda") -> transformer.Transformer:
+            return transformer.Transformer(cfg, generator=generator,
+                                           device=device)
+
+        def init_cache(batch: int, max_len: int,
+                       device: DeviceLike = "cuda"):
+            return transformer.init_cache(cfg, batch, max_len, device)
+
+        return Model(cfg, init,
+                     prefill=lambda m, batch: m.prefill(batch["tokens"]),
+                     decode=lambda m, batch, cache: m.decode_step(
+                         batch["tokens"], cache),
+                     init_cache=init_cache)
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-        "ROADMAP.md Queue 1 (dense transformer prefill with K3, mamba2 "
-        "prefill with K4, then the rest of the workload side)")
+        f"ROADMAP.md {_NOT_PORTED.get(cfg.family, 'Queue 1')}")

@@ -1,0 +1,233 @@
+"""Decoder-only transformer LM, the dense path (counterpart of the
+reference's ``models/transformer.py``).
+
+Dense GQA / MQA models -- stablelm, qwen2 (``qkv_bias``), qwen3
+(``qk_norm``), granite (one kv head) -- for inference: ``prefill`` (every
+layer's attention on the hand-written kernel K3), a KV cache and greedy
+``decode_step``.  The reference scans one stacked layer body with ``lax.scan``;
+here ``Transformer.layers`` is an ``nn.ModuleList`` walked by a Python loop.
+The parameters are frozen and every entry point runs under
+``torch.no_grad``.  MoE, MLA, multi-token prediction and the VLM embedding
+scale raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 12e).
+
+The module's ``state_dict`` keys are the reference's parameter paths joined
+by dots, with the stacked leading L axis of ``params["layers"]`` spread over
+``layers.<i>`` (``layers.3.attn.wq``, ``embed.embed_w``,
+``final_norm.scale``), so ``params_from_reference`` carries a reference
+``init_params`` pytree over one leaf and one layer at a time.
+
+The cache is the reference's dict ``{"len", "layers": {"k", "v"}}`` with
+``len`` a Python int.  ``decode_step`` writes into it in place and RAISES
+when ``len`` has reached ``max_len``; the reference's
+``dynamic_update_slice`` clamps that index and silently overwrites the last
+position -- which is what decoding straight after the reference's
+``prefill`` (a cache exactly as long as the prompt) does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+Cache = Dict[str, object]
+
+
+def check_dense(cfg) -> None:
+    """Raises for what the dense path does not compute."""
+    missing = []
+    if cfg.num_experts:
+        missing.append("mixture of experts")
+    if cfg.attn_type == "mla":
+        missing.append("multi-head latent attention")
+    elif cfg.attn_type != "gqa":
+        missing.append(f"attn_type {cfg.attn_type!r}")
+    if cfg.mtp_depth:
+        missing.append("multi-token prediction")
+    if cfg.family == "vlm":
+        missing.append("the VLM embedding scale and patch prefix")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        missing.append(f"family {cfg.family!r}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet: see ROADMAP.md "
+            "Queue 1 item 12e")
+
+
+# --- init ------------------------------------------------------------------------
+
+def init_layer(generator, cfg, device=None) -> Dict:
+    return {"ln1": L.init_rmsnorm(cfg.d_model, device),
+            "ln2": L.init_rmsnorm(cfg.d_model, device),
+            "attn": L.init_attention(generator, cfg, device),
+            "ffn": L.init_ffn(generator, cfg, device=device)}
+
+
+def init_params(generator, cfg, device=None) -> Dict:
+    """The dense parameter tree with ``layers`` as a list of per-layer
+    trees; weights from ``generator`` with ``dense_init``'s scales (``wo`` /
+    ``w_out`` scaled by ``1/sqrt(L)``), norms at one, biases at zero."""
+    p = {"embed": L.init_embed(generator, cfg, device),
+         "final_norm": L.init_rmsnorm(cfg.d_model, device),
+         "layers": [init_layer(generator, cfg, device)
+                    for _ in range(cfg.num_layers)]}
+    if not cfg.tie_embeddings:
+        p["head"] = {"head_w": L.dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), L.dtype_of(cfg)
+        ).to(device)}
+    return p
+
+
+def init_cache(cfg, batch: int, max_len: int,
+               device: DeviceLike = "cuda") -> Cache:
+    """An empty cache with room for ``max_len`` positions."""
+    return {"len": 0, "layers": L.init_kv_cache(
+        cfg, batch, max_len, cfg.num_layers, resolve_device(device))}
+
+
+# --- forward ---------------------------------------------------------------------
+
+def _layer_fwd(lp, cfg, x: torch.Tensor, positions: torch.Tensor):
+    h = L.norm(lp["ln1"], x, cfg.norm_eps)
+    a, kv = L.attention_prefill(lp["attn"], cfg, h, positions)
+    x = x + a
+    h = L.norm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.ffn_block(lp["ffn"], cfg, h), kv
+
+
+def _layer_decode(lp, cfg, x: torch.Tensor, cache_l: Mapping,
+                  cache_len: int) -> torch.Tensor:
+    h = L.norm(lp["ln1"], x, cfg.norm_eps)
+    a, _ = L.attention_decode(lp["attn"], cfg, h, cache_l, cache_len)
+    x = x + a
+    h = L.norm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.ffn_block(lp["ffn"], cfg, h)
+
+
+class Transformer(nn.Module):
+    """The dense decoder of ``cfg`` in ``cfg.dtype`` (norms in float32).
+
+    Weights come from ``generator`` (``init_params``), drawn on the
+    generator's own device -- a CUDA generator draws on the card -- and
+    moved to ``device``; the numbers differ from the reference's, which come
+    from ``jax.random``.  ``device`` defaults to the card and raises without
+    one."""
+
+    def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        check_dense(cfg)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(generator, cfg, dev)
+        self.cfg = cfg
+        self.device = dev
+        self.embed = L.ParamTree(params["embed"])
+        self.final_norm = L.ParamTree(params["final_norm"])
+        self.layers = nn.ModuleList(L.ParamTree(lp)
+                                    for lp in params["layers"])
+        self.head = (L.ParamTree(params["head"]) if "head" in params
+                     else None)
+
+    def _run(self, tokens: torch.Tensor, kv_out: Optional[Dict]
+             ) -> torch.Tensor:
+        """The full-sequence forward; each layer's (k, v) is written into
+        ``kv_out`` (a cache's ``"layers"``) when one is given."""
+        x = L.embed(self.embed, tokens)
+        positions = torch.arange(tokens.shape[1], device=self.device)[None]
+        head_major = self.cfg.cache_layout == "head_major"
+        for i, lp in enumerate(self.layers):
+            x, (k, v) = _layer_fwd(lp, self.cfg, x, positions)
+            if kv_out is not None:
+                if head_major:
+                    k, v = k.transpose(1, 2), v.transpose(1, 2)
+                kv_out["k"][i] = k
+                kv_out["v"][i] = v
+        h = L.norm(self.final_norm, x, self.cfg.norm_eps)
+        return L.unembed(self.head, self.embed, h)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> float32 logits [B, S, vocab]."""
+        return self._run(torch.as_tensor(tokens, device=self.device), None)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """Logits and a populated cache whose ``max_len`` is the prompt
+        length (as the reference's); copy it into a larger ``init_cache``
+        to decode after it."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        cache = self.init_cache(*tokens.shape)
+        logits = self._run(tokens, cache["layers"])
+        cache["len"] = int(tokens.shape[1])
+        return logits, cache
+
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        return init_cache(self.cfg, batch, max_len, self.device)
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: Cache
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One token per sequence: tokens [B, 1] -> (logits [B, 1, vocab],
+        the cache with ``len`` + 1).  The cache is updated in place; a full
+        one raises (``layers.attention_decode``) before anything is
+        written."""
+        cache_len = int(cache["len"])
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = L.embed(self.embed, tokens)
+        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+        for i, lp in enumerate(self.layers):
+            x = _layer_decode(lp, self.cfg, x, {"k": kc[i], "v": vc[i]},
+                              cache_len)
+        cache["len"] = cache_len + 1
+        h = L.norm(self.final_norm, x, self.cfg.norm_eps)
+        return L.unembed(self.head, self.embed, h), cache
+
+
+def params_from_reference(params: Mapping, cfg,
+                          device: DeviceLike = "cuda") -> Transformer:
+    """A ``Transformer`` holding the reference's ``init_params`` pytree
+    ``params`` (nested dicts of arrays; any float dtype that numpy can cast
+    to float32, bf16 included).  The leading L axis of ``params["layers"]``
+    is split one layer at a time; every leaf must match one parameter of the
+    module by path and shape, and is cast to that parameter's dtype."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, path)
+            elif path.startswith("layers."):
+                arr = np.asarray(v)
+                if arr.shape[:1] != (cfg.num_layers,):
+                    raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
+                                     f"expected ({cfg.num_layers},) layers")
+                for i in range(cfg.num_layers):
+                    flat[f"layers.{i}.{path[len('layers.'):]}"] = \
+                        np.array(arr[i], dtype=np.float32)
+            else:
+                flat[path] = np.array(v, dtype=np.float32)
+
+    walk(params, "")
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    state = model.state_dict()
+    if set(flat) != set(state):
+        raise ValueError(f"reference params do not match the module: only "
+                         f"reference {sorted(set(flat) - set(state))[:4]}, "
+                         f"only module {sorted(set(state) - set(flat))[:4]}")
+    for key, target in state.items():
+        if tuple(flat[key].shape) != tuple(target.shape):
+            raise ValueError(f"{key}: reference shape {flat[key].shape}, "
+                             f"module shape {tuple(target.shape)}")
+        target.copy_(torch.from_numpy(flat[key]).to(target.dtype))
+    return model
