@@ -6,20 +6,22 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
     python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
-`nvcc` per source, all started together), holds each against its plain
-PyTorch version on the card, and drives the port's three main paths: the
+`nvcc` per source, all four started together), holds each against its plain
+PyTorch version on the card, and drives the port's four main paths: the
 fused campaign sweep through `Campaign.run`, ResNet-50 inference through
-`build_model(get_config("resnet50")).init(...)`, and dense-transformer
-serving (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
-qwen3-14b through `build_model(get_config(...)).init(...)`.  Every phase prints one
-JSON object on a line of its own; any failed phase raises, so the exit code
-is non-zero and the last line is missing.  Without a CUDA device the script
-exits non-zero before printing anything.
+`build_model(get_config("resnet50")).init(...)`, dense-transformer serving
+(prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
+qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
+recurrent greedy decode), each through `build_model(get_config(...))`.
+Every phase prints one JSON object on a line of its own; any failed phase
+raises, so the exit code is non-zero and the last line is missing.  Without
+a CUDA device the script exits non-zero before printing anything.
 
 Lines, in order:
   {"phase": "device", ...}           card, power limit, torch / CUDA versions
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
   {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model shapes
+  {"phase": "ssd_scan", ...}         K4 vs plain: test and mamba2 shapes
   {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
@@ -27,6 +29,8 @@ Lines, in order:
   {"phase": "conv2d", ...}           K2 vs plain on every ResNet-50 shape
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
   {"phase": "transformer", ...}      prefill + decode: stablelm, qwen3 (L=4)
+  {"phase": "mamba2", ...}           prefill + decode: mamba2-130m, f32 (L=4)
+  {"phase": "total", ...}            seconds the whole script took
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}      the last line
@@ -66,17 +70,20 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as k2  # noqa: E402
 from repro_torch.kernels import dse_sweep as kern  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
+from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 # file:line of what each kernel replaces in the reference package
 REPLACES = {"dse_sweep": "src/repro/kernels/dse_sweep.py:52",
             "screen_rows": "src/repro/core/costmodel.py:486",
             "conv2d": "src/repro/kernels/conv2d.py:21",
-            "flash_attention": "src/repro/kernels/flash_attention.py:25"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:25",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:24"}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores; float64 vector rate
@@ -141,11 +148,13 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def device_us(fns: dict, reps: int = 20) -> dict:
-    """Mean device microseconds of the two hand-written kernels as
-    ``torch.profiler`` sees them (kernel execution only, no launch overhead),
-    keyed like ``fns``; values are None where the profiler reports no device
-    time on this machine.  An extra reading beside the event timings: the
-    comparison and the campaign gates do not depend on it."""
+    """Mean device microseconds per call of each ``fn`` in the kernels whose
+    name holds its symbol, as ``torch.profiler`` sees them (kernel execution
+    only, no launch overhead; summed where one call launches several, as
+    K4's three), keyed like ``fns``; values are None where the profiler
+    reports no device time on this machine.  An extra reading beside the
+    event timings: the comparison and the campaign gates do not depend on
+    it."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for key, (fn, symbol) in fns.items():
@@ -162,7 +171,7 @@ def device_us(fns: dict, reps: int = 20) -> dict:
                 total += float(getattr(ev, "device_time_total",
                                        getattr(ev, "cuda_time_total", 0.0)))
                 count += int(ev.count)
-        out[key] = total / count if count and total > 0 else None
+        out[key] = total / reps if count and total > 0 else None
     return out
 
 
@@ -221,13 +230,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE)
+    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(
             lambda src: build.build(src, force=True), sources)))
-    kern._library()
-    k2._library()
-    k3._library()
+    for kernel in (kern, k2, k3, k4):
+        kernel._library()
     out = {}
     for src in sources:
         usage = [ln.strip() for ln in build.build_logs[src].splitlines()
@@ -723,6 +731,22 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def enqueue_ms(fn, iters: int = 3) -> float:
+    """Host-clock milliseconds until ``fn`` returns, WITHOUT a synchronize
+    inside the timed region (each call starts on an idle device): the time
+    the host takes to issue the call's kernels.  Close to ``host_ms`` means
+    the device waited on the host, or something in ``fn`` synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total * 1e3 / iters
 
 
 def device_breakdown(fn, symbol: str) -> dict:
@@ -1304,6 +1328,382 @@ def flash_rows(rows, lm) -> list:
     return out
 
 
+# --- mamba2 serving: the SSD chunk scan (K4) ------------------------------------
+
+SSD_DTYPES = (torch.bfloat16, torch.float32)
+# K4 vs ssd_scan_plain on the same inputs: float32 output (y and the final
+# state) within 1e-5 of the scale max |plain| -- sums in another order,
+# FMA-contracted; bf16 output within one bf16 ulp of the scale -- a float32
+# value that lies near a rounding boundary may round the other way
+SSD_TOL = 1e-5
+# (case, b, S, nh, hp, ds, chunk): tests/test_kernels.py's three cases
+# (b = 2), then mamba2-130m's heads at its two prefill shapes
+SSD_CASES = (
+    ("test_kernels", 2, 128, 2, 16, 16, 32),
+    ("test_kernels", 2, 256, 3, 16, 32, 64),
+    ("test_kernels", 2, 128, 4, 32, 16, 128),
+    ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256),
+    ("mamba2_b8_s1024", 8, 1024, 24, 64, 128, 256),
+)
+SSD_HEADLINE = "mamba2_b1_s4096"
+SSD_SYMBOL = "ssd_"       # K4's three __global__ functions
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (int(np.floor(np.log2(x))) - 7)
+
+
+def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
+    """Least time for one scan: x, dt, A, B, C read once, y and the final
+    state written once; per (b, h, chunk) the TPU kernel's work 2 Q^2 ds
+    (C B^T, recomputed per head) + 2 Q^2 hp ((C B^T . L) @ x dt) + 4 Q hp ds
+    (y_off and the state update), at the float32 rate (both input types
+    compute in float32).  Sharing C B^T across heads (ngroups == 1) would
+    take about half of it."""
+    ei = torch.finfo(in_dtype).bits // 8
+    eo = torch.finfo(out_dtype).bits // 8
+    nbytes = ((b * s * nh * hp + 2 * b * s * ds) * ei + b * s * nh * 4
+              + nh * 4 + b * s * nh * hp * eo + b * nh * hp * ds * 4)
+    ops_ = b * nh * (s // q) * (2 * q * q * ds + 2 * q * q * hp
+                                + 4 * q * hp * ds)
+    return bound(nbytes, ops_, torch.float32)
+
+
+def ssd_grid(b, s, nh, hp, ds, q) -> dict:
+    """The three launches of one K4 call and the blocks each fills."""
+    bh, nc = b * nh, s // q
+    rows = -(-q // k4.TILE)
+    smem = k4.output_smem_bytes(ds, q)
+    return {"chunk_state": {"grid": [nc, bh], "blocks": nc * bh},
+            "state_pass": {"grid": [-(-hp * ds // 256), bh],
+                           "blocks": -(-hp * ds // 256) * bh},
+            "output": {"grid": [rows, nc, bh], "blocks": rows * nc * bh,
+                       "smem_bytes": smem,
+                       "blocks_per_sm_by_smem": k4.MAX_SMEM // smem},
+            "threads_per_block": 256, "sms": torch.cuda.get_device_properties(
+                0).multi_processor_count}
+
+
+def ssd_case(gen, device, case, dtype) -> list:
+    """K4 against its plain version on one shape, with float32 output (the
+    model's path) and, for bf16 inputs, bf16 output (the reference kernel's
+    default); raises on disagreement.  The float32-output row is timed
+    beside the plain version and the bound; the model shapes also get K4's
+    device time."""
+    name, b, s, nh, hp, ds, q = case
+    x = torch.randn((b, s, nh, hp), generator=gen, device=device).to(dtype)
+    dt = torch.rand((b, s, nh), generator=gen, device=device) * 0.19 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=device) * 1.5 + 0.5)
+    Bm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
+    Cm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
+    rows = []
+    for out in dict.fromkeys((torch.float32, dtype)):
+        y, st = k4.ssd_scan(x, dt, A, Bm, Cm, chunk=q, out_dtype=out)
+        yp, sp = k4.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=q, out_dtype=out)
+        torch.cuda.synchronize()
+        if tuple(y.shape) != (b, s, nh, hp) or y.dtype != out:
+            raise AssertionError(f"K4 returned {tuple(y.shape)} {y.dtype}")
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"K4 {name}: non-finite output")
+        scale = float(yp.float().abs().max())
+        err = float((y.float() - yp.float()).abs().max())
+        s_err = float((st - sp).abs().max()) / float(sp.abs().max())
+        limit = SSD_TOL * scale if out == torch.float32 else bf16_ulp(scale)
+        if err > limit or s_err > SSD_TOL:
+            raise AssertionError(
+                f"K4 {name} {(b, s, nh, hp, ds, q)} {dtype} -> {out}: max "
+                f"|y diff| {err} (limit {limit}), state {s_err} of scale")
+        row = {"case": name, "b": b, "S": s, "nh": nh, "hp": hp, "ds": ds,
+               "Q": q, "dtype": SUFFIX[dtype], "out": SUFFIX[out],
+               "max_abs_err": err, "y_rel_err": err / scale,
+               "limit": limit, "state_rel_err": s_err}
+        if out == torch.float32:
+            bd = ssd_bound(b, s, nh, hp, ds, q, dtype, out)
+            big = s >= 1024
+            row.update({
+                "ms": time_ms(lambda: k4.ssd_scan(
+                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out),
+                    10 if big else 20),
+                "plain_ms": time_ms(lambda: k4.ssd_scan_plain(
+                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out), 3, warmup=1),
+                "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "bytes": bd["bytes"], "operations": bd["operations"],
+                "library_ms": None, "device_ms": None,
+                "grid": ssd_grid(b, s, nh, hp, ds, q)})
+            if name.startswith("mamba2"):
+                us = device_us({"k4": (lambda: k4.ssd_scan(
+                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out), SSD_SYMBOL)},
+                    reps=5)
+                row["device_ms"] = None if us["k4"] is None \
+                    else us["k4"] / 1e3
+        rows.append(row)
+    return rows
+
+
+def phase_ssd_scan(device, seed: int) -> dict:
+    """K4 against ssd_scan_plain on the card, bf16 and float32 inputs: the
+    test_kernels.py cases (b = 2) and mamba2-130m's prefill shapes (nh 24,
+    hp 64, ds 128, Q 256 at B=1 S=4096 and B=8 S=1024), each timed beside
+    the plain version and the bound.  Returns the float32-output rows keyed
+    by (dtype, case name)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases, rows = [], {}
+    for dtype in SSD_DTYPES:
+        for case in SSD_CASES:
+            out = ssd_case(gen, device, case, dtype)
+            cases += out
+            rows[(dtype, case)] = out[0]
+    emit({"phase": "ssd_scan",
+          "tolerance": {"f32_out": "max |K4 - plain| <= 1e-5 max |plain|, "
+                                   "y and final state",
+                        "bf16_out": "max |K4 - plain| <= one bf16 ulp of "
+                                    "max |plain|"},
+          "cases": cases,
+          "timing_note": "ms: CUDA events around back-to-back calls after "
+                         "warm-up (launch and wrapper included, inputs "
+                         "L2-warm where they fit), float32 output; "
+                         "device_ms: K4's three kernels per call "
+                         "(torch.profiler), model shapes only; library: "
+                         "none, no PyTorch call computes the SSD scan; "
+                         "bound = max(bytes of x, dt, A, B, C, y, state / "
+                         "3.35 TB/s, the TPU kernel's operations / 67 "
+                         "TFLOP/s float32)"})
+    return rows
+
+
+# --- mamba2 serving: chunked prefill on K4, recurrent decode -------------------
+
+# (run, depth or None for the full depth, dtype, B, S, decode steps)
+MAMBA_RUNS = (
+    ("a_mamba2_b1_s4096", None, torch.bfloat16, 1, 4096, 0),
+    ("b_mamba2_b8_s1024", None, torch.bfloat16, 8, 1024, 16),
+    ("c_mamba2_f32_l4_b2_s1024", 4, torch.float32, 2, 1024, 0),
+)
+
+
+def mamba_models(device, seed: int) -> dict:
+    """One mamba2-130m per (depth, dtype) of ``MAMBA_RUNS``, at full width,
+    weights drawn on the card from a CUDA generator seeded with ``seed``."""
+    models = {}
+    for _, depth, dtype, _, _, _ in MAMBA_RUNS:
+        if (depth, dtype) not in models:
+            cfg = dataclasses.replace(get_config("mamba2_130m"),
+                                      dtype=str(dtype).split(".")[-1])
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, num_layers=depth)
+            models[(depth, dtype)] = build_model(cfg).init(
+                torch.Generator(device=device).manual_seed(seed),
+                device=device)
+    return models
+
+
+def clone_cache(cache):
+    return {"len": cache["len"],
+            "ssm": {k: v.clone() for k, v in cache["ssm"].items()}}
+
+
+def ssm_decode(model, logits, cache, steps: int):
+    """``steps`` greedy tokens straight from a copy of the prefill's cache
+    (the SSM cache does not grow); returns (first step's logits, tokens)."""
+    cache = clone_cache(cache)
+    tok = logits[:, -1:].argmax(-1)
+    first, out = None, []
+    for _ in range(steps):
+        step, cache = model.decode_step(tok, cache)
+        first = step if first is None else first
+        tok = step[:, -1:].argmax(-1)
+        out.append(tok)
+    return first, torch.cat(out, dim=1)
+
+
+def phase_mamba2(device, seed: int) -> dict:
+    """The main path: mamba2-130m serving.  Counts are zeroed just before
+    the three runs' prefills and decode steps and read just after; then
+    each prefill is held against the same prefill with K4 swapped for its
+    plain version (logits, top-1, conv and state cache), the first decode
+    step after each, a reduced model on the card against the CPU, and each
+    run is timed and profiled."""
+    models = mamba_models(device, seed)
+    prompts, outs, per_prefill, decode_launches = {}, {}, [], 0
+    for run, depth, dtype, b, s, _ in MAMBA_RUNS:
+        prompts[run] = lm_prompts(models[(depth, dtype)], b, s, seed, device)
+    torch.cuda.synchronize()
+
+    k4.reset_launch_counts()
+    for run, depth, dtype, b, s, steps in MAMBA_RUNS:
+        model = models[(depth, dtype)]
+        before = sum(k4.launch_counts().values())
+        logits, cache = model.prefill(prompts[run])
+        per_prefill.append(sum(k4.launch_counts().values()) - before)
+        first, gen = None, None
+        if steps:
+            before = sum(k4.launch_counts().values())
+            first, gen = ssm_decode(model, logits, cache, steps)
+            decode_launches += sum(k4.launch_counts().values()) - before
+        outs[run] = (logits, cache, first, gen)
+    torch.cuda.synchronize()
+    launches = k4.launch_counts()
+
+    want_launches = [models[(d, t)].cfg.num_layers
+                     for _, d, t, _, _, _ in MAMBA_RUNS]
+    if per_prefill != want_launches or decode_launches != 0:
+        raise AssertionError(f"K4 launches per prefill {per_prefill} "
+                             f"(expected {want_launches}), in decode "
+                             f"{decode_launches} (expected 0)")
+    checks = []
+    for run, depth, dtype, b, s, steps in MAMBA_RUNS:
+        model = models[(depth, dtype)]
+        logits, cache, first, gen = outs.pop(run)
+        if (tuple(logits.shape) != (b, s, model.cfg.vocab_size)
+                or logits.dtype != torch.float32):
+            raise AssertionError(f"{run}: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{run}: non-finite logits")
+        with mock.patch.object(k4, "ssd_scan", k4.ssd_scan_plain):
+            want, want_cache = model.prefill(prompts[run])
+            # the first step from the plain cache, on the kernel path's token
+            want_first = (ssm_decode(model, logits, want_cache, 1)[0]
+                          if steps else None)
+        torch.cuda.synchronize()
+        tol = LM_LOGIT_TOL[dtype]
+        row = {"run": run, "dtype": SUFFIX[dtype], "batch": b, "seq": s,
+               "logits_rel_err": rel_err(logits, want),
+               "top1_agreement_last": float(
+                   (logits[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                   .float().mean()),
+               "cache_conv_rel_err": rel_err(cache["ssm"]["conv"],
+                                             want_cache["ssm"]["conv"]),
+               "cache_state_rel_err": rel_err(cache["ssm"]["state"],
+                                              want_cache["ssm"]["state"])}
+        if steps:
+            row["first_decode_logits_rel_err"] = rel_err(first, want_first)
+            row["generated_tokens"] = [int(t) for t in gen[0]]
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{run}: non-finite decode logits")
+        bad = {k: v for k, v in row.items() if k.endswith("rel_err")
+               and v > tol}
+        if bad or row["top1_agreement_last"] != 1.0:
+            raise AssertionError(f"{run}: kernel path off the plain path "
+                                 f"beyond {tol} or top-1 split: {bad}, "
+                                 f"{row['top1_agreement_last']}")
+        checks.append(row)
+        del logits, cache, want, want_cache
+    if sum(k4.launch_counts().values()) != sum(launches.values()):
+        raise AssertionError("the plain-path prefills launched K4")
+
+    # a small input against the CPU, whose plain path the tests hold to the
+    # reference package: the reduced mamba2 (hp 16, ds 16, chunk 16)
+    small = dataclasses.replace(get_config("mamba2_130m").reduced(),
+                                dtype="float32")
+    cpu_model = build_model(small).init(torch.Generator().manual_seed(seed),
+                                        device="cpu")
+    card_model = build_model(small).init(device=device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, small.vocab_size, (2, 96)).astype(np.int32))
+    small_err = rel_err(card_model(toks.to(device)).cpu(), cpu_model(toks))
+    if small_err > LM_LOGIT_TOL[torch.float32]:
+        raise AssertionError(f"reduced mamba2 card vs CPU: {small_err}")
+
+    perf = {}
+    for run, depth, dtype, b, s, steps in MAMBA_RUNS:
+        model, x = models[(depth, dtype)], prompts[run]
+        cfg = model.cfg
+        ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+        br = device_breakdown(lambda: model.prefill(x), SSD_SYMBOL)
+        bd = ssd_bound(b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                       min(cfg.ssm_chunk, s), dtype, torch.float32)
+        row = {"ms_per_prefill": ms, "prompt_tokens_per_s": b * s / ms * 1e3,
+               "enqueue_ms": enqueue_ms(lambda: model.prefill(x)),
+               "device_ms": br["device_ms"], "idle_share": None,
+               "k4_device_ms": br["kernel_device_ms"],
+               "k4_share": br["kernel_share"], "top": br["top"],
+               "k4_calls_bound_ms": cfg.num_layers * bd["bound_ms"]}
+        if br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+        if steps:
+            logits, cache = model.prefill(x)
+            tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step, cache = model.decode_step(tok, cache)
+                tok = step[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            row["ms_per_decode_step"] = dec_s * 1e3 / steps
+            row["generated_tokens_per_s"] = b * steps / dec_s
+            dec = device_breakdown(lambda: model.decode_step(tok, cache),
+                                   SSD_SYMBOL)
+            row["decode_device_ms"] = dec["device_ms"]
+            row["decode_idle_share"] = (
+                None if dec["device_ms"] is None
+                else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
+            row["decode_top"] = dec["top"]
+            del logits, cache
+        perf[run] = row
+    emit({"phase": "mamba2",
+          "config": "mamba2-130m (24 L, d 768, d_inner 1536, 24 heads of "
+                    "64, ds 128, chunk 256, conv 4, vocab 50,280, tied) "
+                    "full width and depth in bf16; float32 depth 24 -> 4; "
+                    f"weights from a CUDA generator seed {seed}, prompts "
+                    f"synth_batch(seed={seed})",
+          "k4_launches_per_prefill": per_prefill,
+          "k4_launches_in_decode": decode_launches, "launches": launches,
+          "vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                           for d in LM_LOGIT_TOL},
+          "reduced_card_vs_cpu_rel_err": small_err, "serving": perf,
+          "timing_note": "ms_per_prefill: host clock around prefill + "
+                         "synchronize, prompts on the card; device_ms / "
+                         "k4_device_ms / top: torch.profiler kernel time of "
+                         "one prefill (K4 = its three kernels); idle_share "
+                         "= 1 - device_ms / ms_per_prefill; enqueue_ms: host "
+                         "clock until prefill returns, no synchronize; "
+                         "k4_calls_bound_ms: the bound summed over the "
+                         "prefill's K4 calls; decode: host clock around 16 "
+                         "greedy steps from the prefill cache ending in a "
+                         "synchronize, decode_device_ms / decode_top: one "
+                         "step profiled"})
+    return {"launches": launches, "perf": perf}
+
+
+def ssd_rows(rows, mb) -> list:
+    """K4's rows: times at the mamba2 B=1 S=4096 shape alone (float32
+    output, the model's path), the other model shape beside it, and K4
+    inside the prefills."""
+    out = []
+    for dtype in SSD_DTYPES:
+        sfx = SUFFIX[dtype]
+        head = next(r for (d, c), r in rows.items()
+                    if d == dtype and c[0] == SSD_HEADLINE)
+        name = f"ssd_scan_{sfx}"
+        runs = [r for r, _, dt, _, _, _ in MAMBA_RUNS if dt == dtype]
+        out.append({
+            "name": name, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": REPLACES["ssd_scan"],
+            "launches": mb["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
+                               if d == dtype),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "device_ms": head["device_ms"],
+            "shape": "b=1, S=4096, nh=24, hp=64, ds=128, Q=256, "
+                     "float32 output",
+            "grid": head["grid"],
+            "model_shapes": [{k: r[k] for k in (
+                "case", "b", "S", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err")} for (d, c), r in rows.items()
+                if d == dtype and c[0].startswith("mamba2")],
+            "in_prefill": {run: {
+                "k4_device_ms": mb["perf"][run]["k4_device_ms"],
+                "bound_ms": mb["perf"][run]["k4_calls_bound_ms"]}
+                for run in runs}})
+    return out
+
+
 def kernels_line(numbers, launches) -> list:
     rows = []
     for dtype in DTYPES:
@@ -1347,6 +1747,7 @@ def main() -> int:
     # first after the build: in runs where it followed the ResNet phase's
     # profiles, the profiler read no device time for K3 alone
     flash = phase_flash_attention(device, args.seed)
+    ssd = phase_ssd_scan(device, args.seed)
     workloads = make_workloads(args.seed)
     numbers = phase_kernels(workloads, device)
     main_path = phase_campaign_default(workloads, device)
@@ -1358,9 +1759,11 @@ def main() -> int:
     infer = phase_resnet50(device, args.seed, cfg, models, images)
     del models, images
     lm = phase_transformer(device, args.seed)
+    mb = phase_mamba2(device, args.seed)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, main_path["launches"])
-          + conv_rows(per_dtype, infer) + flash_rows(flash, lm)})
+          + conv_rows(per_dtype, infer) + flash_rows(flash, lm)
+          + ssd_rows(ssd, mb)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

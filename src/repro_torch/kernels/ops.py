@@ -9,7 +9,9 @@ stride 1 goes to the hand-written kernel K2 with the reference's SAME
 padding, any other stride to the library convolution with JAX's SAME
 padding written out.  ``flash_attention`` is what the transformer calls for
 prefill attention: the hand-written kernel K3, in the reference's BSHD
-layout, GQA without repeating K / V.  With CUDA tensors the hand-written
+layout, GQA without repeating K / V.  ``ssd_scan`` is what the Mamba2
+block calls for its chunked scan in prefill: the hand-written kernel K4,
+returning the output and the final state.  With CUDA tensors the hand-written
 kernels run (or the call raises); with CPU tensors their plain versions do
 — the device of the inputs alone decides, there is no switch and no
 fallback.
@@ -26,11 +28,12 @@ from repro_torch.core import costmodel
 from repro_torch.kernels import conv2d as _k2
 from repro_torch.kernels import dse_sweep as _k
 from repro_torch.kernels import flash_attention as _k3
+from repro_torch.kernels import ssd_scan as _k4
 from repro_torch.kernels.dse_sweep import (CAND_COLS, launch_counts,
                                            reset_launch_counts)
 
 __all__ = ["CAND_COLS", "conv2d", "dse_sweep", "flash_attention",
-           "launch_counts", "reset_launch_counts", "same_pads"]
+           "launch_counts", "reset_launch_counts", "same_pads", "ssd_scan"]
 
 
 def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
@@ -110,3 +113,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel reads the kv head ``h // (H // KV)`` in place.  ``scale``
     defaults to ``hd ** -0.5``; any ``S`` works."""
     return _k3.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             out_dtype: Optional[torch.dtype] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan, ``ngroups == 1``: x [b, S, nh, hp], dt [b, S, nh]
+    and A [nh] float32, B / C [b, S, 1, ds] -> ``(y`` [b, S, nh, hp] in
+    ``out_dtype`` (default ``x.dtype``), the final state [b, nh, hp, ds]
+    float32``)``, on the hand-written kernel K4 (its plain version for CPU
+    tensors).  Unlike the reference's ``ops.ssd_scan`` it also returns the
+    final state, and nothing is transposed: K4 reads x and B / C (column
+    slices of one tensor included) in place."""
+    return _k4.ssd_scan(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype)

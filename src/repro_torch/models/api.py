@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose ``init`` builds the network
 as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
-family (ResNet-50 inference) and the dense transformer family (prefill,
-KV cache, decode).  ``prefill(module, batch)``, ``decode(module, batch,
+family (ResNet-50 inference), the dense transformer family (prefill, KV
+cache, decode) and the SSM family (Mamba2: chunked prefill, recurrent
+decode).  ``prefill(module, batch)``, ``decode(module, batch,
 cache)`` and ``init_cache(batch, max_len, device=...)`` mirror the
 reference's serving entries (``None`` for the CNN, as there); the other
 families raise ``NotImplementedError`` naming the roadmap item that brings
@@ -19,11 +20,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models import resnet, transformer
+from repro_torch.models import mamba, resnet, transformer
+
+# the serving families: (config check, module class, init_cache)
+_SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
+                      transformer.init_cache),
+            "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache)}
 
 # the roadmap item that ports each family not ported yet
-_NOT_PORTED = {"ssm": "Queue 1 item 12c (mamba2 prefill with K4)",
-               "moe": "Queue 1 item 12e (MoE, MLA)",
+_NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
                "vlm": "Queue 1 item 12e (the VLM prefix)",
                "hybrid": "Queue 1 item 12e (zamba)",
                "audio": "Queue 1 item 12e (whisper)"}
@@ -45,17 +50,17 @@ def build_model(cfg: ArchConfig) -> Model:
             return resnet.ResNet(cfg, generator=generator, device=device)
 
         return Model(cfg, init)
-    if cfg.family == "dense":
-        transformer.check_dense(cfg)
+    if cfg.family in _SERVING:
+        check, module, make_cache = _SERVING[cfg.family]
+        check(cfg)
 
         def init(generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = "cuda") -> transformer.Transformer:
-            return transformer.Transformer(cfg, generator=generator,
-                                           device=device)
+                 device: DeviceLike = "cuda") -> torch.nn.Module:
+            return module(cfg, generator=generator, device=device)
 
         def init_cache(batch: int, max_len: int,
                        device: DeviceLike = "cuda"):
-            return transformer.init_cache(cfg, batch, max_len, device)
+            return make_cache(cfg, batch, max_len, device)
 
         return Model(cfg, init,
                      prefill=lambda m, batch: m.prefill(batch["tokens"]),

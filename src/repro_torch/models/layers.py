@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -64,6 +65,46 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+
+def copy_reference_params(module: nn.Module, params: Mapping,
+                          num_layers: int) -> None:
+    """Copies the reference's ``init_params`` pytree ``params`` (nested
+    dicts of arrays; any float dtype that numpy can cast to float32, bf16
+    included) into ``module``, whose ``state_dict`` keys are the
+    reference's paths joined by dots.  The leading L axis of
+    ``params["layers"]`` is split one layer at a time over ``layers.<i>``;
+    every leaf must match one parameter by path and shape, and is cast to
+    that parameter's dtype."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, path)
+            elif path.startswith("layers."):
+                arr = np.asarray(v)
+                if arr.shape[:1] != (num_layers,):
+                    raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
+                                     f"expected ({num_layers},) layers")
+                for i in range(num_layers):
+                    flat[f"layers.{i}.{path[len('layers.'):]}"] = \
+                        np.array(arr[i], dtype=np.float32)
+            else:
+                flat[path] = np.array(v, dtype=np.float32)
+
+    walk(params, "")
+    state = module.state_dict()
+    if set(flat) != set(state):
+        raise ValueError(f"reference params do not match the module: only "
+                         f"reference {sorted(set(flat) - set(state))[:4]}, "
+                         f"only module {sorted(set(state) - set(flat))[:4]}")
+    for key, target in state.items():
+        if tuple(flat[key].shape) != tuple(target.shape):
+            raise ValueError(f"{key}: reference shape {flat[key].shape}, "
+                             f"module shape {tuple(target.shape)}")
+        target.copy_(torch.from_numpy(flat[key]).to(target.dtype))
 
 
 # --- normalization -------------------------------------------------------------

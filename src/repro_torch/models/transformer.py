@@ -28,7 +28,6 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -199,35 +198,7 @@ def params_from_reference(params: Mapping, cfg,
     module by path and shape, and is cast to that parameter's dtype."""
     check_dense(cfg)
     dev = resolve_device(device)
-    flat: Dict[str, np.ndarray] = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            path = f"{prefix}.{k}" if prefix else str(k)
-            if isinstance(v, Mapping):
-                walk(v, path)
-            elif path.startswith("layers."):
-                arr = np.asarray(v)
-                if arr.shape[:1] != (cfg.num_layers,):
-                    raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
-                                     f"expected ({cfg.num_layers},) layers")
-                for i in range(cfg.num_layers):
-                    flat[f"layers.{i}.{path[len('layers.'):]}"] = \
-                        np.array(arr[i], dtype=np.float32)
-            else:
-                flat[path] = np.array(v, dtype=np.float32)
-
-    walk(params, "")
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
-    state = model.state_dict()
-    if set(flat) != set(state):
-        raise ValueError(f"reference params do not match the module: only "
-                         f"reference {sorted(set(flat) - set(state))[:4]}, "
-                         f"only module {sorted(set(state) - set(flat))[:4]}")
-    for key, target in state.items():
-        if tuple(flat[key].shape) != tuple(target.shape):
-            raise ValueError(f"{key}: reference shape {flat[key].shape}, "
-                             f"module shape {tuple(target.shape)}")
-        target.copy_(torch.from_numpy(flat[key]).to(target.dtype))
+    L.copy_reference_params(model, params, cfg.num_layers)
     return model

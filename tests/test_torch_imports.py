@@ -38,7 +38,8 @@ def test_port_has_the_expected_modules():
                  "configs/resnet50.py", "models/__init__.py",
                  "models/layers.py", "models/resnet.py", "models/api.py",
                  "models/transformer.py", "kernels/flash_attention.py",
-                 "data/__init__.py", "data/pipeline.py"):
+                 "data/__init__.py", "data/pipeline.py", "kernels/ssd_scan.py",
+                 "models/ssd.py", "models/mamba.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -47,6 +48,7 @@ def test_port_has_the_expected_modules():
     assert (PORT / "kernels" / "csrc" / "dse_sweep.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "ssd_scan.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -79,14 +81,16 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.models.layers, repro_torch.data.pipeline\n"
         "import repro_torch.models.transformer\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.ssd\n"
+        "import repro_torch.models.mamba\n"
         "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "from repro_torch.kernels import (build, conv2d, dse_sweep,\n"
-        "                                 flash_attention)\n"
+        "                                 flash_attention, ssd_scan)\n"
         "assert dse_sweep._bound is None and conv2d._bound is None\n"
-        "assert flash_attention._bound is None\n"
+        "assert flash_attention._bound is None and ssd_scan._bound is None\n"
         "assert not build._libs\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
