@@ -1356,33 +1356,39 @@ def bf16_ulp(x: float) -> float:
 
 def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
     """Least time for one scan: x, dt, A, B, C read once, y and the final
-    state written once; per (b, h, chunk) the TPU kernel's work 2 Q^2 ds
-    (C B^T, recomputed per head) + 2 Q^2 hp ((C B^T . L) @ x dt) + 4 Q hp ds
-    (y_off and the state update), at the float32 rate (both input types
-    compute in float32).  Sharing C B^T across heads (ngroups == 1) would
-    take about half of it."""
+    state written once; the operations the scan needs, at the float32 rate
+    (both input types compute in float32): C B^T over the lower triangle
+    once per (b, chunk), ds Q (Q + 1) (ngroups == 1: all heads share it),
+    and per (b, h, chunk) the masked product (C B^T . L) @ (x dt) over the
+    lower triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
+    contribution.  ``tpu_kernel_operations`` is the TPU kernel's own count,
+    2 Q^2 ds + 2 Q^2 hp + 4 Q hp ds per (b, h, chunk): C B^T per head and
+    full Q x Q products."""
     ei = torch.finfo(in_dtype).bits // 8
     eo = torch.finfo(out_dtype).bits // 8
+    nc = s // q
     nbytes = ((b * s * nh * hp + 2 * b * s * ds) * ei + b * s * nh * 4
               + nh * 4 + b * s * nh * hp * eo + b * nh * hp * ds * 4)
-    ops_ = b * nh * (s // q) * (2 * q * q * ds + 2 * q * q * hp
-                                + 4 * q * hp * ds)
-    return bound(nbytes, ops_, torch.float32)
+    ops_ = (b * nc * ds * q * (q + 1)
+            + b * nh * nc * (hp * q * (q + 1) + 4 * q * hp * ds))
+    out = bound(nbytes, ops_, torch.float32)
+    out["tpu_kernel_operations"] = b * nh * nc * (
+        2 * q * q * ds + 2 * q * q * hp + 4 * q * hp * ds)
+    return out
 
 
 def ssd_grid(b, s, nh, hp, ds, q) -> dict:
-    """The three launches of one K4 call and the blocks each fills."""
-    bh, nc = b * nh, s // q
-    rows = -(-q // k4.TILE)
-    smem = k4.output_smem_bytes(ds, q)
-    return {"chunk_state": {"grid": [nc, bh], "blocks": nc * bh},
-            "state_pass": {"grid": [-(-hp * ds // 256), bh],
-                           "blocks": -(-hp * ds // 256) * bh},
-            "output": {"grid": [rows, nc, bh], "blocks": rows * nc * bh,
-                       "smem_bytes": smem,
-                       "blocks_per_sm_by_smem": k4.MAX_SMEM // smem},
-            "threads_per_block": 256, "sms": torch.cuda.get_device_properties(
-                0).multi_processor_count}
+    """The three launches of one K4 call and the blocks each fills, as the
+    kernel library lays them out."""
+    shape = k4.launch_shape(b, s, nh, hp, ds, q)
+    out = {name: {"grid": g, "blocks": g[0] * g[1] * g[2]}
+           for name, g in shape["grids"].items()}
+    smem = shape["smem_output"]
+    out["output"].update({"smem_bytes": smem,
+                          "blocks_per_sm_by_smem": shape["max_smem"] // smem})
+    out["threads_per_block"] = shape["threads_per_block"]
+    out["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    return out
 
 
 def ssd_case(gen, device, case, dtype) -> list:
@@ -1429,6 +1435,7 @@ def ssd_case(gen, device, case, dtype) -> list:
                     x, dt, A, Bm, Cm, chunk=q, out_dtype=out), 3, warmup=1),
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "bytes": bd["bytes"], "operations": bd["operations"],
+                "tpu_kernel_operations": bd["tpu_kernel_operations"],
                 "library_ms": None, "device_ms": None,
                 "grid": ssd_grid(b, s, nh, hp, ds, q)})
             if name.startswith("mamba2"):

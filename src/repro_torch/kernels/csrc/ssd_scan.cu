@@ -68,14 +68,17 @@
 //   columns tx + 16 b), from shared memory, on the CUDA cores in float32 for
 //   both input types.  hp > 64 and ds > 64 loop over 64-wide column tiles.
 //
-//   Bound on an H100: operations.  The TPU kernel's work per (b, h, chunk)
-//   is 2 Q^2 ds + 2 Q^2 hp + 4 Q hp ds (it recomputes C B^T per head); at
-//   mamba2-130m's B = 1, S = 4096, nh = 24, hp = 64, ds = 128, Q = 256 that
-//   is 12.9 GFLOP on ~41 MB, ~310 flops per byte, above the float32 CUDA-core
-//   ridge (67 TFLOP/s / 3.35 TB/s = 20).  This version skips the tiles above
-//   the diagonal (10 of 16 at Q = 256: ~9.3 GFLOP done).  What it leaves for
-//   later: C B^T once per (b, chunk) for all heads (ngroups == 1), bf16
-//   mma / wgmma for C B^T, fusing the three kernels.
+//   Bound on an H100: operations.  The scan needs, per (b, chunk), C B^T
+//   over the lower triangle, ds Q (Q + 1) flops (shared by all heads when
+//   ngroups == 1), and per (b, h, chunk) the masked product over the lower
+//   triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
+//   contribution: at mamba2-130m's B = 1, S = 4096, nh = 24, hp = 64,
+//   ds = 128, Q = 256 that is 5.0 GFLOP on ~41 MB, ~120 flops per byte,
+//   above the float32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20).  The
+//   TPU kernel does 12.9 GFLOP (C B^T per head, full Q x Q products); this
+//   version skips the tiles above the diagonal but recomputes C B^T per
+//   head (~9.3 GFLOP).  What it leaves for later: C B^T once per (b, chunk)
+//   for all heads, bf16 mma / wgmma for C B^T, fusing the three kernels.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -386,29 +389,43 @@ int set_smem(K kernel, int bytes) {
   return 0;
 }
 
+// The grids and dynamic shared memory (bytes) of one call's three launches.
+struct Launches {
+  dim3 chunk_state, state_pass, output;
+  int smem_chunk_state, smem_output;
+};
+
+Launches launches(int batch, int S, int nh, int hp, int ds, int Q) {
+  const int bh = batch * nh, nc = S / Q;
+  const long long n = (long long)hp * ds;
+  Launches l;
+  l.chunk_state = dim3(nc, bh);
+  l.smem_chunk_state = (3 * Q + 2 * kTile * kTile) * (int)sizeof(float);
+  l.state_pass = dim3((unsigned)((n + kThreads - 1) / kThreads), bh);
+  l.output = dim3((Q + kTile - 1) / kTile, nc, bh);
+  l.smem_output = output_smem_floats(ds, Q) * (int)sizeof(float);
+  return l;
+}
+
 template <typename Tin, typename Tout>
 int launch(const Params& p, int batch, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const int bh = batch * p.nh;
+  const Launches l = launches(batch, p.nc * p.Q, p.nh, p.hp, p.ds, p.Q);
 
-  const int smem1 = (3 * p.Q + 2 * kTile * kTile) * (int)sizeof(float);
-  int code = set_smem(ssd_chunk_state_kernel<Tin>, smem1);
+  int code = set_smem(ssd_chunk_state_kernel<Tin>, l.smem_chunk_state);
   if (code) return code;
-  ssd_chunk_state_kernel<Tin><<<dim3(p.nc, bh), kThreads, smem1, s>>>(p);
+  ssd_chunk_state_kernel<Tin>
+      <<<l.chunk_state, kThreads, l.smem_chunk_state, s>>>(p);
   if ((code = (int)cudaGetLastError())) return code;
 
-  const long long n = (long long)p.hp * p.ds;
-  ssd_state_pass_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads), bh),
-                          kThreads, 0, s>>>(p);
+  ssd_state_pass_kernel<<<l.state_pass, kThreads, 0, s>>>(p);
   if ((code = (int)cudaGetLastError())) return code;
 
-  const int smem3 = output_smem_floats(p.ds, p.Q) * (int)sizeof(float);
-  code = set_smem(ssd_output_kernel<Tin, Tout>, smem3);
+  code = set_smem(ssd_output_kernel<Tin, Tout>, l.smem_output);
   if (code) return code;
-  const int nrt = (p.Q + kTile - 1) / kTile;
-  ssd_output_kernel<Tin, Tout><<<dim3(nrt, p.nc, bh), kThreads, smem3, s>>>(p);
+  ssd_output_kernel<Tin, Tout><<<l.output, kThreads, l.smem_output, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -458,6 +475,26 @@ int ssd_scan_bf16(const void* x, const void* dt, const void* A, const void* B,
                                S, nh, hp, ds, Q, strides);
   return out_bf16 ? launch<bf16, bf16>(p, batch, device, stream)
                   : launch<bf16, float>(p, batch, device, stream);
+}
+
+// The launches of one call, 14 ints into out: the grids (x, y, z) of the
+// chunk states, the pass and the outputs; the dynamic shared memory (bytes)
+// of the chunk states and of the outputs; the threads per block; the most
+// shared memory a block may take.
+void ssd_scan_launch_shape(int batch, int S, int nh, int hp, int ds, int Q,
+                           int* out) {
+  const Launches l = launches(batch, S, nh, hp, ds, Q);
+  const dim3 g[3] = {l.chunk_state, l.state_pass, l.output};
+  for (int i = 0; i < 3; ++i) {
+    out[3 * i] = (int)g[i].x;
+    out[3 * i + 1] = (int)g[i].y;
+    out[3 * i + 2] = (int)g[i].z;
+  }
+  out[9] = l.smem_chunk_state;
+  out[10] = l.smem_output;
+  out[11] = kThreads;
+  out[12] = kMaxSmem;
+  out[13] = kTile;
 }
 
 const char* ssd_scan_error_string(int code) {

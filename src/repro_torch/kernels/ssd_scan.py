@@ -38,8 +38,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 SOURCE = "ssd_scan.cu"
-TILE = 64               # rows / keys / columns of the kernel's output tiles
-MAX_SMEM = 232448       # shared memory a Hopper block can use
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -75,15 +73,25 @@ def _library():
             fn.restype = ci
         lib.ssd_scan_error_string.argtypes = [ci]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_launch_shape.argtypes = [ci] * 6 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_launch_shape.restype = None
         _bound = lib
     return _bound
 
 
-def output_smem_bytes(ds: int, q: int) -> int:
-    """Dynamic shared memory of the kernel's output pass (the largest of
-    the three): C rows and B rows [64][ds rounded up to odd], the (x dt)
-    tile [64][64], the masked C B^T tile [64][65] and cum [Q], float32."""
-    return 4 * (2 * TILE * (ds | 1) + TILE * TILE + TILE * (TILE + 1) + q)
+def launch_shape(b: int, s: int, nh: int, hp: int, ds: int, q: int
+                 ) -> Dict[str, object]:
+    """The grids and dynamic shared memory of the three launches of one
+    call at these sizes, as the kernel library computes them (builds and
+    loads it)."""
+    out = (ctypes.c_int * 14)()
+    _library().ssd_scan_launch_shape(b, s, nh, hp, ds, q, out)
+    v = list(out)
+    grids = {name: v[3 * i: 3 * i + 3] for i, name in enumerate(
+        ("chunk_state", "state_pass", "output"))}
+    return {"grids": grids, "smem_chunk_state": v[9], "smem_output": v[10],
+            "threads_per_block": v[11], "max_smem": v[12], "tile": v[13]}
 
 
 def _validate(x, dt, A, B, C, chunk: int
@@ -191,14 +199,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     out = _out_dtype(x, out_dtype)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk, out_dtype=out)
-    smem = output_smem_bytes(ds, q)
-    if smem > MAX_SMEM:
-        raise ValueError(f"ds {ds} with chunk {q} needs {smem} bytes of "
-                         f"shared memory per block, above {MAX_SMEM}")
     nc = s // q
-    if b * nh > 65535 or nc > 65535:
-        raise ValueError(f"b * nh = {b * nh} or S / Q = {nc} exceeds the "
-                         "kernel's grid")
     x, B, C = (_kernel_operand(t) for t in (x, B, C))
     dev = x.device
     y = torch.empty((b, s, nh, hp), dtype=out, device=dev)
@@ -222,5 +223,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if code != 0:
         msg = lib.ssd_scan_error_string(code).decode()
         raise RuntimeError(f"CUDA launch of {name} failed: {msg} "
-                           f"(cudaError {code})")
+                           f"(cudaError {code}) at b {b}, S {s}, nh {nh}, "
+                           f"hp {hp}, ds {ds}, Q {q}")
     return y, final

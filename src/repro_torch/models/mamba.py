@@ -98,6 +98,16 @@ class Mamba(nn.Module):
                                     for lp in params["layers"])
         self.head = (L.ParamTree(params["head"]) if "head" in params
                      else None)
+        self.join_conv_weights()
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.join_conv_weights())
+
+    def join_conv_weights(self) -> None:
+        """Builds each layer's decode conv weights from its parameters;
+        called again whenever the parameters are replaced (after
+        ``load_state_dict`` by a hook, after ``params_from_reference``)."""
+        self._decode_conv = [ssd.decode_conv_weights(lp["mix"])
+                             for lp in self.layers]
 
     def _run(self, tokens: torch.Tensor, ssm_out: Optional[Dict]
              ) -> torch.Tensor:
@@ -147,7 +157,8 @@ class Mamba(nn.Module):
         for i, lp in enumerate(self.layers):
             h = L.norm(lp["ln"], x, self.cfg.norm_eps)
             dx, new = ssd.mamba_decode(lp["mix"], self.cfg, h,
-                                       {"conv": conv[i], "state": state[i]})
+                                       {"conv": conv[i], "state": state[i]},
+                                       self._decode_conv[i])
             conv[i] = new["conv"]
             state[i] = new["state"]
             x = x + dx
@@ -166,4 +177,5 @@ def params_from_reference(params: Mapping, cfg,
     model = Mamba(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0))
     L.copy_reference_params(model, params, cfg.num_layers)
+    model.join_conv_weights()
     return model

@@ -15,8 +15,7 @@ softplus(float32(dt_raw) + dt_bias)`` with softplus as ``logaddexp(x, 0)``
 has no threshold); the prefill conv a sum of ``cw`` shifted products in the
 activation dtype, in order (``F.conv1d`` would accumulate otherwise); the
 decode conv a float32-accumulated product over the window rounded once, as
-the reference's einsum; both convs' silu in XLA's steps (``_conv_silu``);
-the scan and the D skip in float32, cast to the activation dtype before
+the reference's einsum; the scan and the D skip in float32, cast to the activation dtype before
 the gated norm.
 """
 
@@ -75,22 +74,17 @@ def _project_in(p, x: torch.Tensor):
     return z, xs, bc, dt
 
 
-def _conv_silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA lowers it: ``x * 1 / (1 + exp(-x))``, each
-    step rounded to ``x.dtype`` (``F.silu`` rounds once, which differs by
-    up to two bf16 ulps)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
 def _causal_conv(xin: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d.  xin: [B, S, C]; w: [cw, C]; each shifted
     product and each partial sum rounded to the activation dtype, in the
-    reference's order."""
+    reference's order.  The silu rounds once (XLA's CPU lowering of
+    ``jax.nn.silu`` rounds each of its four steps to bf16: up to two bf16
+    ulps apart)."""
     cw, s = w.shape[0], xin.shape[1]
     pad = F.pad(xin, (0, 0, cw - 1, 0))
     out = sum(pad[:, i: i + s] * w[i] for i in range(cw))
-    return _conv_silu(out + b)
+    return F.silu(out + b)
 
 
 def mamba_block(p, cfg, x: torch.Tensor, return_cache: bool = False):
@@ -131,10 +125,20 @@ def init_ssm_cache(cfg, batch: int, num_layers: int,
                                  dtype=torch.float32, device=device)}
 
 
-def mamba_decode(p, cfg, x: torch.Tensor, cache: Mapping
+def decode_conv_weights(p) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode conv's weight [cw, C] (float32) and bias [C] over the
+    joined ``[xs, bc]`` channels, which the reference concatenates in every
+    step; built once per layer."""
+    return (torch.cat([p["conv_w"], p["conv_bc_w"]], dim=1).float(),
+            torch.cat([p["conv_b"], p["conv_bc_b"]]))
+
+
+def mamba_decode(p, cfg, x: torch.Tensor, cache: Mapping,
+                 conv_wb: Tuple[torch.Tensor, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token recurrent step.  x: [B, 1, D]; ``cache`` one layer's
-    ``{"conv", "state"}``; returns the block output and the new layer
+    ``{"conv", "state"}``; ``conv_wb`` the layer's
+    ``decode_conv_weights``; returns the block output and the new layer
     cache (new tensors, as the reference's)."""
     di, ng, ds, nh, hp = (cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state,
                           cfg.ssm_nheads, cfg.ssm_headdim)
@@ -142,13 +146,11 @@ def mamba_decode(p, cfg, x: torch.Tensor, cache: Mapping
     z, xs, bc, dt = _project_in(p, x)
     xbc = torch.cat([xs, bc], dim=-1)                    # [B, 1, di+2ngds]
     hist = torch.cat([cache["conv"], xbc], dim=1)        # [B, cw, C]
-    w_all = torch.cat([p["conv_w"], p["conv_bc_w"]], dim=1)
-    b_all = torch.cat([p["conv_b"], p["conv_bc_b"]])
+    w_all, b_all = conv_wb
     # einsum("bwc,wc->bc") of bf16 operands: exact products summed in
     # float32, rounded to the activation dtype once
-    conv = torch.einsum("bwc,wc->bc", hist.float(), w_all.float()
-                        ).to(x.dtype)
-    conv = _conv_silu(conv + b_all)
+    conv = torch.einsum("bwc,wc->bc", hist.float(), w_all).to(x.dtype)
+    conv = F.silu(conv + b_all)
     xv = conv[:, :di].reshape(b_, nh, hp).float()
     Bv = conv[:, di: di + ng * ds].reshape(b_, ng, ds).float()
     Cv = conv[:, di + ng * ds:].reshape(b_, ng, ds).float()

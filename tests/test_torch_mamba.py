@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import base as rbase
 from repro.models import mamba as rm
@@ -167,13 +168,24 @@ def test_prefill_state_equals_stepwise_decode(dtype):
 # --- block-level numerics ----------------------------------------------------
 
 
+def _ulps(got: torch.Tensor, want: np.ndarray) -> int:
+    """Largest distance in units in the last place (same-sign values)."""
+    if got.dtype == torch.bfloat16:
+        g, w = got.view(torch.int16).numpy(), want.view(np.int16)
+    else:
+        g, w = got.numpy().view(np.int32), want.view(np.int32)
+    return int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_causal_conv_matches_reference_bitwise(dtype):
+def test_causal_conv_matches_reference_bitwise(dtype, monkeypatch):
     """The prefill conv: four shifted products and their partial sums in
-    the activation dtype, in order, then ``+ b`` and silu in XLA's steps.
-    bf16: equal to the reference bit for bit (``F.conv1d`` and ``F.silu``
-    are not).  float32: within two ulps, the distance between XLA's float32
-    ``exp`` and torch's (the sums before the silu are bitwise equal)."""
+    the activation dtype, in order, then ``+ b``: bit for bit the
+    reference's in both dtypes (``F.conv1d`` would not be; read with the
+    silu taken out of both).  The silu rounds once (``F.silu``, one op per
+    conv); the reference's ``jax.nn.silu`` lowers on XLA's CPU to four
+    steps, each rounded to bf16, so the outputs may differ by two bf16
+    ulps (measured: 2) and two float32 ulps (XLA's and torch's ``exp``)."""
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.normal(size=(2, 40, 24)).astype(np.float32),
                     jnp.dtype(dtype))
@@ -181,17 +193,19 @@ def test_causal_conv_matches_reference_bitwise(dtype):
                     jnp.dtype(dtype))
     b = jnp.asarray(rng.normal(0, 0.1, (24,)).astype(np.float32),
                     jnp.dtype(dtype))
+    tx, tw, tb = (_torch(a, dtype) for a in (x, w, b))
     want = np.asarray(rssd._causal_conv(x, w, b))
-    got = tssd._causal_conv(_torch(x, dtype), _torch(w, dtype),
-                            _torch(b, dtype))
+    got = tssd._causal_conv(tx, tw, tb)
     assert got.dtype == TORCH[dtype]
-    if dtype == "bfloat16":
-        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
-                                      want.view(np.int16))
-    else:
-        ulps = np.abs(got.numpy().view(np.int32).astype(np.int64)
-                      - want.view(np.int32).astype(np.int64))
-        assert ulps.max() <= 2
+    assert _ulps(got, want) <= 2
+    with monkeypatch.context() as m:
+        m.setattr(jax.nn, "silu", lambda v: v)
+        want_pre = np.asarray(rssd._causal_conv(x, w, b))
+    with monkeypatch.context() as m:
+        m.setattr(F, "silu", lambda v: v)
+        got_pre = tssd._causal_conv(tx, tw, tb)
+    assert _ulps(got_pre, want_pre) == 0
+    assert torch.equal(got, F.silu(got_pre))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -280,6 +294,24 @@ def test_build_model_mamba2_130m_needs_a_card_unless_told_cpu():
         m.init()
     with pytest.raises(RuntimeError, match="cuda"):
         m.init(device="cuda")
+
+
+def test_decode_conv_weights_follow_the_parameters():
+    """The decode conv's joined weights, built once per layer, are rebuilt
+    when the parameters are replaced: by ``load_state_dict`` and by
+    ``params_from_reference``."""
+    _, cfg, params, ref_model, _, _ = _case("float32")
+    model = tm.Mamba(cfg, generator=torch.Generator().manual_seed(7),
+                     device="cpu")
+    model.load_state_dict(ref_model.state_dict())
+    for got, lp in zip(model._decode_conv, ref_model.layers):
+        mix = lp["mix"]
+        assert torch.equal(got[0], torch.cat(
+            [mix["conv_w"], mix["conv_bc_w"]], dim=1).float())
+        assert torch.equal(got[1], torch.cat(
+            [mix["conv_b"], mix["conv_bc_b"]]))
+    for got, want in zip(ref_model._decode_conv, model._decode_conv):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_ngroups_other_than_one_is_refused():
