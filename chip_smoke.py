@@ -26,7 +26,8 @@ Lines, in order:
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
   {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
-  {"phase": "conv2d", ...}           K2 vs plain on every ResNet-50 shape
+  {"phase": "conv2d", ...}           K2 vs plain: ResNet-50 shapes at B=1,
+                                     8, 32, test and ragged shapes, plans
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
   {"phase": "transformer", ...}      prefill + decode: stablelm, qwen3 (L=4)
   {"phase": "mamba2", ...}           prefill + decode: mamba2-130m, f32 (L=4)
@@ -244,8 +245,30 @@ def phase_build() -> None:
                     "flags": " ".join(build.flags(src)),
                     "library": os.path.relpath(paths[src], ROOT),
                     "ptxas": usage}
+    out[k2.SOURCE]["kernels"] = ptxas_report(build.build_logs[k2.SOURCE])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, shared memory and spills of each kernel in an ``nvcc
+    -Xptxas -v`` log, keyed by the kernel's mangled name (its template
+    arguments in it, e.g. ``ILi128ELb1EE`` = <128, true>)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"kernel": ln.split("'")[1]}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            f = ln.split(",")
+            cur["spill_stores"] = int(f[1].split()[0])
+            cur["spill_loads"] = int(f[2].split()[0])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            f = ln.split("Used")[1]
+            cur["registers"] = int(f.split()[0])
+            cur["smem_bytes"] = sum(int(t.split()[0]) for t in f.split(",")
+                                    if "smem" in t)
+    return rows
 
 
 def tile_inputs(engine: TileEvaluator, lo: int, hi: int, dtype, device):
@@ -576,6 +599,9 @@ def phase_campaign_large(workloads, device, freq_points, numbers) -> None:
 # --- ResNet-50 inference ----------------------------------------------------
 
 CONV_DTYPES = (torch.float32, torch.bfloat16)
+# every kernel of a K2 call (tensor-core, float32, SIMT, split-K sum) and
+# no library kernel has this in its name
+K2_SYMBOL = "k2_conv2d_"
 # K2 vs conv2d_plain, max |diff| over the scale max |plain|: float32 sums of
 # up to 4608 terms in another order (FMA-contracted) stay near 1e-6; a bf16
 # output may round the other way, one bf16 ulp, 2^-7 of the value at most
@@ -585,7 +611,16 @@ CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # (B, H=W, Cin, Cout, k) of tests/test_kernels.py's conv2d cases
 TEST_SHAPES = ((2, 16, 8, 16, 3), (2, 16, 4, 8, 1), (2, 24, 8, 8, 5))
-
+# (B, H, W, Cin, Cout, k, misaligned): Cin and Cout not multiples of 64, M
+# not a multiple of the tile, a Cout below one 64-wide box, 5x5; Cin = 12
+# (bf16: SIMT) and 5 / Cout 7 (float32: 4-byte copies); x a view one
+# element into its storage (bf16: SIMT, float32: 4-byte copies)
+RAGGED_SHAPES = ((3, 13, 11, 72, 40, 3, False), (1, 9, 9, 24, 136, 1, False),
+                 (2, 7, 5, 200, 8, 3, False), (1, 10, 9, 64, 72, 5, False),
+                 (1, 5, 6, 12, 20, 3, False), (2, 6, 6, 5, 7, 3, False),
+                 (2, 9, 9, 64, 64, 3, True), (1, 7, 7, 96, 64, 1, True))
+# ResNet-50's stride-1 shapes are checked at these batch sizes
+CONV_BATCHES = (1, 8, 32)
 
 def conv_bound(x_shape, w_shape, y_shape, dtype) -> dict:
     """Least time for one convolution: each of x, w, y moved once, and
@@ -615,10 +650,14 @@ def conv_case(x, w, pads, dtype) -> dict:
     """K2 against its plain version on the same inputs; raises on
     disagreement."""
     y = k2.conv2d(x, w, padding=pads)
+    again = k2.conv2d(x, w, padding=pads)
     yp = k2.conv2d_plain(x, w, padding=pads)
     torch.cuda.synchronize()
     if y.shape != yp.shape or y.dtype != dtype:
         raise AssertionError(f"K2 returned {y.shape} {y.dtype}")
+    if not torch.equal(y, again):
+        raise AssertionError(f"K2 {tuple(x.shape)} x {tuple(w.shape)} "
+                             f"{dtype}: two runs on the same inputs differ")
     if not torch.isfinite(y.float()).all():
         raise AssertionError("K2 returned non-finite values")
     err = float((y.float() - yp.float()).abs().max())
@@ -628,8 +667,12 @@ def conv_case(x, w, pads, dtype) -> dict:
         raise AssertionError(f"K2 {tuple(x.shape)} x {tuple(w.shape)} "
                              f"{dtype}: max err {err} / scale {scale} = "
                              f"{rel} > {CONV_TOL[dtype]}")
+    p = k2.plan_for(x, w, pads)
     return {"x": list(x.shape), "w": list(w.shape), "dtype": SUFFIX[dtype],
-            "max_abs_err": err, "rel_err": rel}
+            "max_abs_err": err, "rel_err": rel, "repeat_bitwise_equal": True,
+            "plan": {"variant": p.variant, "tile": [p.bm, p.bn],
+                     "split": p.split, "grid": list(p.grid),
+                     "gather": p.gather, "vec": p.vec}}
 
 
 _OHWI = {}
@@ -651,12 +694,29 @@ def library_conv2d(x, w, *, padding):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv_inputs(gen, device, xs, ws, dtype, scale=None, misaligned=False):
+    """x ~ N(0, 1) and He-scaled w (``scale`` overrides) on the card in
+    ``dtype``; ``misaligned`` puts x one element into its storage (a
+    contiguous view off the 16-byte boundary)."""
+    x = torch.randn(xs, generator=gen, device=device).to(dtype)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(xs)
+    if scale is None:
+        scale = (2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5
+    w = (torch.randn(ws, generator=gen, device=device) * scale).to(dtype)
+    return x, w
+
+
 def phase_conv2d(device, seed: int, model, images) -> dict:
-    """K2 against conv2d_plain on each distinct stride-1 shape of ResNet-50
-    at B=32 (read off one forward of ``model`` on ``images``) and on the
-    test_kernels.py shapes, float32 and bf16; then K2's time, the library's
-    and the bound on every ResNet-50 shape, alone, and the plain version's
-    and the device time on the heaviest."""
+    """K2 against conv2d_plain, with a second run that must give the same
+    bits, on each distinct stride-1 shape of ResNet-50 (read off one
+    forward of ``model`` on ``images``) at B = 1, 8 and 32, on the
+    test_kernels.py shapes and on a ragged set, float32 and bf16, each with
+    its launch plan; then K2's time, the library's and the bound on every
+    ResNet-50 shape at B=32, alone, and the plain version's and the device
+    time on the heaviest."""
     shapes = {}
     for xs, ws, _ in k2_calls(model, images):
         shapes[(xs, ws)] = shapes.get((xs, ws), 0) + 1
@@ -668,55 +728,71 @@ def phase_conv2d(device, seed: int, model, images) -> dict:
     cases, per_dtype = [], {}
     try:
         for dtype in CONV_DTYPES:
-            rows = []
-            for (xs, ws), count in shapes.items():
-                x = torch.randn(xs, generator=gen, device=device).to(dtype)
-                w = (torch.randn(ws, generator=gen, device=device)
-                     * (2.0 / (ws[0] * ws[1] * ws[2])) ** 0.5).to(dtype)
+            rows, errs = [], []
+            for (xs32, ws), count in shapes.items():
                 pads = ((ws[0] // 2, (ws[0] - 1) // 2),) * 2
-                case = conv_case(x, w, pads, dtype)
-                b = conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)
-                lib_err = float((library_conv2d(x, w, padding=pads).float()
-                                 - k2.conv2d_plain(x, w, padding=pads).float()
-                                 ).abs().max())
-                row = {**case, "launches_per_forward": count,
-                       "ms": time_ms(lambda: k2.conv2d(x, w, padding=pads), 20),
-                       "library_ms": time_ms(lambda: library_conv2d(
-                           x, w, padding=pads), 20),
-                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                       "library_max_abs_err": lib_err}
-                if (xs, ws) == heavy:
-                    row["plain_ms"] = time_ms(
-                        lambda: k2.conv2d_plain(x, w, padding=pads), 5)
-                    us = device_us({"k2": (
-                        lambda: k2.conv2d(x, w, padding=pads),
-                        "conv2d_kernel")})
-                    row["device_ms"] = (None if us["k2"] is None
-                                        else us["k2"] / 1e3)
-                    per_dtype[dtype] = {"heavy": row}
-                rows.append(row)
+                for batch in CONV_BATCHES:
+                    xs = (batch,) + xs32[1:]
+                    x, w = conv_inputs(gen, device, xs, ws, dtype)
+                    case = conv_case(x, w, pads, dtype)
+                    errs.append(case["rel_err"])
+                    if batch != 32:
+                        cases.append({"case": f"resnet50_b{batch}", **case})
+                        continue
+                    b = conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)
+                    lib_err = float((library_conv2d(x, w, padding=pads).float()
+                                     - k2.conv2d_plain(x, w, padding=pads)
+                                     .float()).abs().max())
+                    row = {**case, "launches_per_forward": count,
+                           "ms": time_ms(lambda: k2.conv2d(
+                               x, w, padding=pads), 20),
+                           "library_ms": time_ms(lambda: library_conv2d(
+                               x, w, padding=pads), 20),
+                           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                           "library_max_abs_err": lib_err}
+                    if (xs, ws) == heavy:
+                        row["plain_ms"] = time_ms(
+                            lambda: k2.conv2d_plain(x, w, padding=pads), 5)
+                        us = device_us({"k2": (
+                            lambda: k2.conv2d(x, w, padding=pads),
+                            K2_SYMBOL)})
+                        row["device_ms"] = (None if us["k2"] is None
+                                            else us["k2"] / 1e3)
+                        per_dtype[dtype] = {"heavy": row}
+                    rows.append(row)
             for (b_, hw, cin, cout, kh) in TEST_SHAPES:
-                x = torch.randn((b_, hw, hw, cin), generator=gen,
-                                device=device).to(dtype)
-                w = (0.1 * torch.randn((kh, kh, cin, cout), generator=gen,
-                                       device=device)).to(dtype)
+                x, w = conv_inputs(gen, device, (b_, hw, hw, cin),
+                                   (kh, kh, cin, cout), dtype, scale=0.1)
                 pads = ((kh // 2, (kh - 1) // 2),) * 2
                 cases.append({"case": "test_kernels",
                               **conv_case(x, w, pads, dtype)})
-            per_dtype[dtype]["max_rel_err"] = max(r["rel_err"] for r in rows)
+            for (b_, h, wd, cin, cout, kh, off) in RAGGED_SHAPES:
+                x, w = conv_inputs(gen, device, (b_, h, wd, cin),
+                                   (kh, kh, cin, cout), dtype,
+                                   misaligned=off)
+                pads = ((kh // 2, (kh - 1) // 2),) * 2
+                cases.append({"case": "ragged_misaligned" if off
+                              else "ragged", **conv_case(x, w, pads, dtype)})
+            per_dtype[dtype]["max_rel_err"] = max(errs)
             cases += [{"case": "resnet50_b32", **r} for r in rows]
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    variants = sorted({c["plan"]["variant"] for c in cases})
+    if variants != sorted(k2.LAUNCHES):
+        raise AssertionError(f"the conv2d phase ran the variants {variants}, "
+                             f"not all of {sorted(k2.LAUNCHES)}")
     emit({"phase": "conv2d", "distinct_shapes": len(shapes),
           "launches_per_forward": sum(shapes.values()),
+          "batches": list(CONV_BATCHES),
           "heaviest": {"x": list(heavy[0]), "w": list(heavy[1])},
           "tolerance_rel_to_scale": {SUFFIX[d]: CONV_TOL[d]
                                      for d in CONV_DTYPES},
           "cases": cases,
-          "timing_note": "each shape alone: ms / library_ms are CUDA events "
-                         "around 20 back-to-back calls after warm-up (launch "
-                         "and wrapper included, inputs L2-warm); library = "
-                         "F.conv2d (cuDNN, channels-last, TF32 off)"})
+          "timing_note": "each B=32 shape alone: ms / library_ms are CUDA "
+                         "events around 20 back-to-back calls after warm-up "
+                         "(launch and wrapper included, inputs L2-warm); "
+                         "library = F.conv2d (cuDNN, channels-last, TF32 "
+                         "off); every case ran twice, bitwise equal"})
     return per_dtype
 
 
@@ -772,13 +848,14 @@ def device_breakdown(fn, symbol: str) -> dict:
     total = sum(by_name.values())
     if total <= 0:
         return {"device_ms": None, "kernel_device_ms": None,
-                "kernel_share": None, "top": []}
+                "kernel_share": None, "top": [], "by_name": {}}
     k_us = sum(v for k, v in by_name.items() if symbol in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": total / 1e3, "kernel_device_ms": k_us / 1e3,
             "kernel_share": k_us / total,
             "top": [{"kernel": k[:90], "ms": v / 1e3, "share": v / total}
-                    for k, v in top]}
+                    for k, v in top],
+            "by_name": {k: v / 1e3 for k, v in by_name.items()}}
 
 
 RUNS = ((torch.bfloat16, 1), (torch.bfloat16, 32), (torch.float32, 8))
@@ -810,17 +887,25 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
     the card against the CPU, and each forward is timed and profiled twice:
     as it runs, and with the library convolution in K2's place."""
     k2.reset_launch_counts()
-    logits, per_forward = {}, []
+    logits, per_forward, by_variant = {}, [], []
     for dtype, b in RUNS:
-        before = sum(k2.launch_counts().values())
+        before = k2.launch_counts()
         logits[(dtype, b)] = models[dtype](images[b])
-        per_forward.append(sum(k2.launch_counts().values()) - before)
+        after = k2.launch_counts()
+        by_variant.append({k: after[k] - before[k] for k in after})
+        per_forward.append(sum(by_variant[-1].values()))
     torch.cuda.synchronize()
     launches = k2.launch_counts()
 
     if per_forward != [46, 46, 46]:
         raise AssertionError(f"K2 launches per forward {per_forward}, "
                              "expected 46 each")
+    for (dtype, b), counts in zip(RUNS, by_variant):
+        want = k2.TC if dtype == torch.bfloat16 else k2.F32
+        if counts[want] != 46:
+            raise AssertionError(f"{SUFFIX[dtype]} B={b} forward: K2 "
+                                 f"launches by variant {counts}, expected "
+                                 f"46 of {want}")
     checks = []
     with mock.patch.object(k2, "conv2d", k2.conv2d_plain):
         for dtype, b in RUNS:
@@ -865,13 +950,14 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
         model, x = models[dtype], images[b]
         iters = 50 if b == 1 else 20
         ms = host_ms(lambda: model(x), iters)
-        br = device_breakdown(lambda: model(x), "conv2d_kernel")
+        br = device_breakdown(lambda: model(x), K2_SYMBOL)
         with mock.patch.object(k2, "conv2d", library_conv2d):
             lib_ms = host_ms(lambda: model(x), iters)
-            lib_br = device_breakdown(lambda: model(x), "conv2d_kernel")
+            lib_br = device_breakdown(lambda: model(x), K2_SYMBOL)
         bound_ms = sum(conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)["bound_ms"]
                        for xs, ws, _ in k2_calls(model, x))
         row = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3,
+               "enqueue_ms": enqueue_ms(lambda: model(x)),
                "idle_share": None, "device_ms": br["device_ms"],
                "k2_device_ms": br["kernel_device_ms"],
                "k2_share": br["kernel_share"], "top": br["top"],
@@ -881,54 +967,68 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
                "library_calls_device_ms": None}
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
-            row["library_calls_device_ms"] = (
-                lib_br["device_ms"] - (br["device_ms"]
-                                       - br["kernel_device_ms"]))
+            # what each kernel name gained when the library took K2's
+            # place (its convolution, layout and copy kernels; the
+            # stride-2 convolutions share names with it), summed
+            row["library_calls_device_ms"] = sum(
+                max(0.0, v - br["by_name"].get(k, 0.0))
+                for k, v in lib_br["by_name"].items() if K2_SYMBOL not in k)
         perf[f"{SUFFIX[dtype]}_b{b}"] = row
     emit({"phase": "resnet50", "config": "resnet50 (stages 3-4-6-3, width "
           "64, 224x224x3, 1000 classes), weights from torch.Generator seed "
           f"{seed}, BN at identity, images synth_batch(seed={seed})",
-          "k2_launches_per_forward": per_forward, "launches": launches,
+          "k2_launches_per_forward": per_forward,
+          "k2_launches_per_forward_by_variant": by_variant,
+          "launches": launches,
           "logits_vs_plain_path": checks,
           "logit_tolerance_rel_to_scale": {SUFFIX[d]: LOGIT_TOL[d]
                                            for d in LOGIT_TOL},
           "reduced_card_vs_cpu_rel_err": small_err, "inference": perf,
           "timing_note": "ms_per_batch: host clock around forward + "
                          "synchronize, images already on the card; "
+                         "enqueue_ms: host clock until the forward returns, "
+                         "no synchronize inside; "
                          "device_ms / k2_device_ms / top: torch.profiler "
                          "kernel time of one forward; idle_share = 1 - "
                          "device_ms / ms_per_batch; k2_calls_bound_ms: the "
                          "bound summed over the forward's 46 K2 calls; "
                          "library_*: the same forward with F.conv2d (cuDNN, "
                          "channels-last) in K2's place, where "
-                         "library_calls_device_ms = library_device_ms - "
-                         "(device_ms - k2_device_ms), the device time of "
-                         "those 46 library calls inside the forward"})
+                         "library_calls_device_ms, the device time of those "
+                         "46 library calls inside the forward, sums what "
+                         "each kernel name gained over the K2 forward"})
     return {"launches": launches, "perf": perf}
 
 
 def conv_rows(per_dtype, infer) -> list:
-    """K2's rows: times on the heaviest shape alone, and K2 and the library
-    inside the forward of each dtype's largest batch (bf16 B=32, f32 B=8)."""
+    """K2's rows, one per variant on the main path (bf16: tensor cores,
+    float32): times on the heaviest shape alone, and K2 and the library
+    inside each forward of that dtype (bf16 B=1 and B=32, float32 B=8)."""
     rows = []
     for dtype in CONV_DTYPES:
         d = per_dtype[dtype]
         h = d["heavy"]
-        b = max(b for dt, b in RUNS if dt == dtype)
-        f = infer["perf"][f"{SUFFIX[dtype]}_b{b}"]
+        name = k2.TC if dtype == torch.bfloat16 else k2.F32
         rows.append({
-            "name": f"conv2d_{SUFFIX[dtype]}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": CONV_SOURCE, "replaces": REPLACES["conv2d"],
-            "launches": infer["launches"][f"conv2d_{SUFFIX[dtype]}"],
+            "launches": infer["launches"][name],
             "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
             "device_ms": h["device_ms"],
             "shape": f"x {h['x']}, w {h['w']}, SAME",
+            "plan": h["plan"],
             "max_rel_err_all_shapes": d["max_rel_err"],
-            "in_forward": {"batch": b, "k2_device_ms": f.get("k2_device_ms"),
-                           "library_device_ms": f["library_calls_device_ms"],
-                           "bound_ms": f["k2_calls_bound_ms"]}})
+            "in_forward": [
+                {"batch": b,
+                 "k2_device_ms": infer["perf"][f"{SUFFIX[dt]}_b{b}"].get(
+                     "k2_device_ms"),
+                 "library_device_ms": infer["perf"][f"{SUFFIX[dt]}_b{b}"][
+                     "library_calls_device_ms"],
+                 "bound_ms": infer["perf"][f"{SUFFIX[dt]}_b{b}"][
+                     "k2_calls_bound_ms"]}
+                for dt, b in RUNS if dt == dtype]})
     return rows
 
 

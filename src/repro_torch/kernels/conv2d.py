@@ -1,38 +1,69 @@
-"""The stride-1 convolution kernel (K2): wrapper, plain version, launch count.
+"""The stride-1 convolution kernel (K2): launch plan, wrapper, plain version,
+launch counts.
 
-One hand-written CUDA kernel (``csrc/conv2d.cu``) computes the stride-1
-convolution NHWC x HWIO -> NHWC as an implicit GEMM, reading bf16 or
-float32, accumulating in float32 and rounding the output to the input dtype
-once; it replaces the reference's TPU kernel ``_conv_kernel``.  Padding is a
-bounds check inside the kernel, and any ``H_out`` works: the TPU kernel's
-row tile (``tile_h``, which had to divide ``H_out``) is gone.
+Hand-written CUDA kernels (``csrc/conv2d.cu``) compute the stride-1
+convolution NHWC x HWIO -> NHWC as an implicit GEMM (M = output pixels,
+N = Cout, K = kh*kw*Cin), accumulating in float32 and rounding the output to
+the input dtype once; they replace the reference's TPU kernel
+``_conv_kernel``.  Padding is a bounds check (or TMA's zero fill) inside the
+kernel, and any ``H_out`` works.
 
-Beside it stands ``conv2d_plain``: the reference kernel's own arithmetic, a
+Three variants, chosen by shape before any launch (``plan``), each counted
+under its own key of ``LAUNCHES``:
+
+* ``conv2d_bf16_tc`` -- bf16 with Cin and Cout multiples of 8 and 16-byte
+  aligned x and w (every ResNet-50 shape): ``wgmma`` tensor cores fed by TMA
+  and ``cp.async`` through a ring of shared-memory stages.
+* ``conv2d_bf16_simt`` -- any other bf16 shape: the CUDA-core kernel.
+* ``conv2d_f32`` -- float32, any shape, on the CUDA cores in IEEE float32 (as
+  the reference convolves float32).
+
+Where the output tiles cannot fill the card, the plan splits the K walk into
+slices whose float32 partial sums a second kernel adds in slice order (no
+atomics: two runs give the same bits).  One call is one launch in
+``LAUNCHES`` whether it runs one kernel or two.
+
+Beside them stands ``conv2d_plain``: the reference kernel's own arithmetic, a
 float32 sum of ``kh*kw`` shifted-window matmuls.  The wrapper takes it ONLY
-for tensors that lie on the CPU; for CUDA tensors it launches the kernel or
-raises -- there is no fallback.  ``LAUNCHES`` counts launches per dtype
-(``"conv2d_f32"``, ``"conv2d_bf16"``), incremented exactly where the kernel
-is launched.  The library is built and loaded inside the first launching
-call, never at import time.
+for tensors that lie on the CPU; for CUDA tensors it launches a kernel or
+raises -- there is no fallback.  The library is built and loaded inside the
+first launching call, never at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 SOURCE = "conv2d.cu"
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 NO_PADDING: Padding = ((0, 0), (0, 0))
 
-# launches per dtype since the last ``reset_launch_counts``
-LAUNCHES: Dict[str, int] = {f"conv2d_{s}": 0 for s in _SUFFIX.values()}
+TC, SIMT, F32 = "conv2d_bf16_tc", "conv2d_bf16_simt", "conv2d_f32"
+
+# launches per variant since the last ``reset_launch_counts``
+LAUNCHES: Dict[str, int] = {TC: 0, SIMT: 0, F32: 0}
+
+# A K slice is at least this many steps: fewer would leave the stage ring
+# idle and grow the workspace for little more parallelism.
+MIN_SLICE_STEPS = 2
+# The tensor-core kernel's ring: up to 5 stages of 32 KB (128 x 128 tile)
+# or 4 of 24 KB (128 x 64), never more than the K walk has steps.  A walk
+# of at most SHORT_K steps takes the 128 x 64 tile whatever Cout is: with
+# 4 stages or fewer and 80 registers a thread, two of its blocks fit on an
+# SM, so one block's loads overlap another's products and stores.
+MAX_STAGES = {64: 4, 128: 5}
+SHORT_K = 2
+# blocks of a variant and tile that fit on one SM at once: the tensor-core
+# kernel 2 (128 x 64) or 1 (128 x 128, 90 registers x 384 threads); the
+# float32 128 x 128 kernel 1 (173 registers x 256 threads), 128 x 64 2
+RESIDENT = {(TC, 64): 2, (TC, 128): 1, (F32, 64): 2, (F32, 128): 1}
 
 
 def reset_launch_counts() -> None:
@@ -42,6 +73,84 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one K2 call runs: the variant (its ``LAUNCHES`` key), the output
+    tile ``bm x bn``, the channels per K step ``bk``, the K steps
+    ``kh * kw * ceil(Cin / bk)``, the K slices ``split`` and the grid
+    (tiles of M, tiles of N, slices).  ``vec`` is the float32 kernel's copy
+    width in floats (4: 16-byte ``cp.async``, 1: 4-byte); ``gather`` says
+    that the tensor-core kernel gathers x by ``cp.async`` (any kernel with
+    kh*kw > 1 or padding) instead of a TMA tensor map (1x1, no padding);
+    ``stages`` is its ring of shared-memory stages."""
+    variant: str
+    bm: int
+    bn: int
+    bk: int
+    steps: int
+    split: int
+    grid: Tuple[int, int, int]
+    vec: int = 0
+    gather: bool = False
+    stages: int = 0
+
+    def slice_bounds(self, z: int) -> Tuple[int, int]:
+        """Steps ``[begin, end)`` of K slice ``z``: contiguous, in order,
+        covering the walk once (the kernels compute the same bounds)."""
+        return (z * self.steps // self.split,
+                (z + 1) * self.steps // self.split)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+         padding: Padding, dtype: torch.dtype, sms: int,
+         aligned: bool = True) -> Plan:
+    """The launch plan of a stride-1 convolution of x [b, h, w, cin] with
+    w [kh, kw, cin, cout] on a card of ``sms`` SMs; ``aligned`` says that x
+    and w start on 16-byte boundaries.  A pure function of its arguments.
+
+    bf16 takes the tensor-core variant where Cin % 8 == 0, Cout % 8 == 0
+    and both are aligned (what TMA and 16-byte copies need), else the SIMT
+    variant.  Split-K: where the tiles fill less than one wave of resident
+    blocks, the K walk is cut into the fewest slices that fill one, with at
+    least ``MIN_SLICE_STEPS`` steps each."""
+    (pt, pb), (pl, pr) = padding
+    ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    m = b * ho * wo
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and aligned:
+        variant, bk = TC, 64
+    elif dtype == torch.bfloat16:
+        variant, bk = SIMT, 16
+    elif dtype == torch.float32:
+        variant, bk = F32, 16
+    else:
+        raise TypeError(f"no K2 variant for {dtype}")
+    steps = kh * kw * _cdiv(cin, bk)
+    bm, vec, gather, stages = 128, 0, False, 0
+    if variant == TC:
+        bn = 64 if cout <= 64 or steps <= SHORT_K else 128
+        stages = min(MAX_STAGES[bn], steps)
+        gather = not (kh == kw == 1 and padding == NO_PADDING)
+    elif variant == SIMT:
+        bn = 64
+    else:
+        bn = 128 if cout >= 128 else 64
+        vec = 4 if cin % 4 == 0 and cout % 4 == 0 and aligned else 1
+    gm, gn = _cdiv(m, bm), _cdiv(cout, bn)
+    split = 1
+    if variant != SIMT:
+        wave = sms * RESIDENT[(variant, bn)]
+        if gm * gn < wave:
+            split = max(1, min(_cdiv(wave, gm * gn),
+                               steps // MIN_SLICE_STEPS))
+    return Plan(variant, bm, bn, bk, steps, split, (gm, gn, split), vec,
+                gather, stages)
 
 
 _bound = None
@@ -56,10 +165,12 @@ def _library():
         from repro_torch.kernels import build
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        shape = [ci] * 11                      # B .. Wo
+        lib.conv2d_bf16_tc.argtypes = [vp] * 4 + shape + [ci] * 6 + [ci, vp]
+        lib.conv2d_bf16_simt.argtypes = [vp] * 3 + shape + [ci] * 2 + [ci, vp]
+        lib.conv2d_f32.argtypes = [vp] * 4 + shape + [ci] * 5 + [ci, vp]
         for name in LAUNCHES:
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp] + [ci] * 12 + [vp]
-            fn.restype = ci
+            getattr(lib, name).restype = ci
         lib.conv2d_error_string.argtypes = [ci]
         lib.conv2d_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -75,7 +186,7 @@ def _validate(x: torch.Tensor, w: torch.Tensor, padding: Padding
     if w.shape[2] != x.shape[3]:
         raise ValueError(f"Cin differs: x has {x.shape[3]}, w has "
                          f"{w.shape[2]}")
-    if x.dtype not in _SUFFIX or w.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"x and w must both be float32 or bfloat16; got "
                         f"{x.dtype} and {w.dtype}")
     if w.device != x.device:
@@ -113,13 +224,46 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *,
     return acc.reshape(b, ho, wo, cout).to(x.dtype)
 
 
+def plan_for(x: torch.Tensor, w: torch.Tensor,
+             padding: Padding = NO_PADDING) -> Plan:
+    """``plan`` for these CUDA tensors, with the SM count of their card."""
+    _validate(x, w, padding)
+    return _plan_of(x, w, padding)
+
+
+def _plan_of(x: torch.Tensor, w: torch.Tensor, padding: Padding) -> Plan:
+    (pt, pb), (pl, pr) = padding
+    return plan(*(int(s) for s in x.shape), int(w.shape[3]),
+                int(w.shape[0]), int(w.shape[1]),
+                ((int(pt), int(pb)), (int(pl), int(pr))), x.dtype,
+                _sm_count(x.device), aligned(x, w))
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = n
+    return n
+
+
+def aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether x and w start on 16-byte boundaries (TMA's and 16-byte
+    ``cp.async``'s rule); a view at an element offset may not."""
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *,
            padding: Padding = NO_PADDING) -> torch.Tensor:
     """Stride-1 VALID convolution of ``x`` [B, H, W, Cin] zero-padded by
     ``padding`` = ((top, bottom), (left, right)) with ``w`` [kh, kw, Cin,
     Cout]; returns [B, H_out, W_out, Cout] in ``x.dtype`` (float32 or
-    bfloat16, float32 accumulation).  CUDA tensors launch the hand-written
-    kernel; CPU tensors take the plain version."""
+    bfloat16, float32 accumulation).  CUDA tensors launch the variant that
+    ``plan`` picks; CPU tensors take the plain version."""
     ho, wo = _validate(x, w, padding)
     if x.device.type == "cpu":
         return conv2d_plain(x, w, padding=padding)
@@ -128,16 +272,32 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     if b * ho * wo >= 2 ** 31:
         raise ValueError(f"B*H_out*W_out = {b * ho * wo} exceeds the "
                          "kernel's int range")
+    p = _plan_of(x, w, padding)
     lib = _library()
     y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    name = f"conv2d_{_SUFFIX[x.dtype]}"
-    code = getattr(lib, name)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout, kh,
-        kw, int(padding[0][0]), int(padding[1][0]), ho, wo, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    LAUNCHES[name] += 1
+    ws: Optional[torch.Tensor] = None
+    if p.split > 1:
+        ws = torch.empty((p.split, b * ho * wo, cout), dtype=torch.float32,
+                         device=x.device)
+    shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
+             int(padding[1][0]), ho, wo)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    gx, gy, _ = p.grid
+    ws_ptr = 0 if ws is None else ws.data_ptr()
+    if p.variant == SIMT:
+        code = lib.conv2d_bf16_simt(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                    *shape, gx, gy, x.device.index, stream)
+    elif p.variant == TC:
+        code = lib.conv2d_bf16_tc(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape, p.bn,
+            int(p.gather), p.stages, p.split, gx, gy, x.device.index, stream)
+    else:
+        code = lib.conv2d_f32(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape, p.bn,
+            p.vec, p.split, gx, gy, x.device.index, stream)
+    LAUNCHES[p.variant] += 1
     if code != 0:
         msg = lib.conv2d_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {name} failed: {msg} "
+        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
                            f"(cudaError {code})")
     return y

@@ -11,6 +11,8 @@ one bf16 ulp; the stride-2 library path equals ``lax`` in float32 and is
 within one bf16 ulp in bf16; the max pool equals ``reduce_window``.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,7 +118,8 @@ def test_cpu_wrapper_takes_the_plain_version_and_launches_nothing():
     pads = ((1, 1), (1, 1))
     out = k2.conv2d(xt, wt, padding=pads)
     assert torch.equal(out, k2.conv2d_plain(xt, wt, padding=pads))
-    assert k2.launch_counts() == {"conv2d_f32": 0, "conv2d_bf16": 0}
+    assert k2.launch_counts() == {"conv2d_bf16_tc": 0, "conv2d_bf16_simt": 0,
+                                  "conv2d_f32": 0}
     assert k2._bound is None and "conv2d.cu" not in build._libs
 
 
@@ -165,6 +168,129 @@ def test_ops_routes_stride_one_to_k2_with_same_padding(monkeypatch):
     ops.conv2d(x, torch.zeros(1, 1, 2, 3), stride=2, padding="SAME")
     assert calls == [((3, 3), ((1, 1), (1, 1))), ((1, 1), ((0, 0), (0, 0))),
                      ((4, 2), ((2, 1), (1, 0))), ((3, 3), ((0, 0), (0, 0)))]
+
+
+# --- the launch plan (pure Python: what the CUDA side is told to run) -------
+
+# (H = W, Cin, Cout, k) of ResNet-50's 16 distinct stride-1 convolutions:
+# per stage the bottleneck's 1x1 in, 3x3 (stride 1 after the first block),
+# 1x1 out, and the 1x1 in of the stage's first block (stage 1 also the
+# stride-1 projection 64 -> 256); 46 calls per forward
+RESNET50_STRIDE1 = (
+    (56, 64, 64, 1), (56, 64, 64, 3), (56, 64, 256, 1), (56, 256, 64, 1),
+    (56, 256, 128, 1), (28, 128, 512, 1), (28, 512, 128, 1),
+    (28, 128, 128, 3), (28, 512, 256, 1), (14, 256, 1024, 1),
+    (14, 1024, 256, 1), (14, 256, 256, 3), (14, 1024, 512, 1),
+    (7, 512, 2048, 1), (7, 2048, 512, 1), (7, 512, 512, 3))
+H100_SMS = 132
+
+
+def _same(k):
+    return ((k // 2, (k - 1) // 2),) * 2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("shape", RESNET50_STRIDE1,
+                         ids=[f"{h}x{h}_{ci}to{co}_k{k}"
+                              for h, ci, co, k in RESNET50_STRIDE1])
+def test_plan_of_resnet50_shapes(shape, batch, dtype):
+    """Every ResNet-50 stride-1 shape at B = 1, 8, 32 on 132 SMs: bf16
+    takes the tensor-core variant (TMA for 1x1 inputs, gathers for 3x3; a
+    128 x 64 tile for a short K walk, a ring no longer than the walk),
+    float32 the 16-byte float32 kernel; the K slices cover the walk once, in
+    order; the grid is (tiles of M, tiles of N, slices); a split plan fills
+    at least one wave of resident blocks unless its slices are already
+    ``MIN_SLICE_STEPS`` short, and a plan that fills a wave is not split."""
+    h, cin, cout, k = shape
+    tdt = DTYPES[dtype][1]
+    p = k2.plan(batch, h, h, cin, cout, k, k, _same(k), tdt, H100_SMS)
+    if tdt == torch.bfloat16:
+        assert (p.variant, p.bk, p.bm) == (k2.TC, 64, 128)
+        assert p.gather == (k == 3)
+        short = p.steps <= k2.SHORT_K
+        assert p.bn == (64 if cout == 64 or short else 128)
+        assert p.stages == min(k2.MAX_STAGES[p.bn], p.steps) >= 1
+    else:
+        assert (p.variant, p.bk, p.vec) == (k2.F32, 16, 4)
+        assert p.bn == (128 if cout >= 128 else 64)
+    assert p.steps == k * k * -(-cin // p.bk)
+    bounds = [p.slice_bounds(z) for z in range(p.split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == p.steps
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(bounds, bounds[1:]))
+    assert all(e - b >= k2.MIN_SLICE_STEPS or p.split == 1
+               for b, e in bounds)
+    m = batch * h * h
+    tiles = -(-m // p.bm) * -(-cout // p.bn)
+    assert p.grid == (-(-m // p.bm), -(-cout // p.bn), p.split)
+    wave = H100_SMS * k2.RESIDENT[(p.variant, p.bn)]
+    if tiles >= wave:
+        assert p.split == 1
+    else:
+        cap = max(1, p.steps // k2.MIN_SLICE_STEPS)
+        assert tiles * p.split >= wave or p.split == cap
+        assert tiles * (p.split - 1) < wave     # the fewest slices that do
+
+
+def test_plan_splits_the_small_late_stages_at_batch_one():
+    """The late stages at B=1: 7x7 512->512 3x3 (4 tiles, 72 steps)
+    and 14x14 1024->256 1x1 (4 tiles of 128, 16 steps) at B=1."""
+    p = k2.plan(1, 7, 7, 512, 512, 3, 3, _same(3), torch.bfloat16, 132)
+    assert (p.grid, p.steps) == ((1, 4, 33), 72)
+    p = k2.plan(1, 14, 14, 1024, 256, 1, 1, _same(1), torch.bfloat16, 132)
+    assert (p.grid, p.steps, p.gather) == ((2, 2, 8), 16, False)
+    # the same shapes at B=32 fill the card without a split of 1x1 convs
+    p = k2.plan(32, 56, 56, 64, 256, 1, 1, _same(1), torch.bfloat16, 132)
+    assert p.split == 1
+
+
+@pytest.mark.parametrize("case,variant,vec", [
+    ("cin_not_8", k2.SIMT, 0), ("cout_not_8", k2.SIMT, 0),
+    ("misaligned", k2.SIMT, 0), ("padded_1x1", k2.TC, 0),
+    ("f32_cin_not_4", k2.F32, 1), ("f32_misaligned", k2.F32, 1),
+    ("f32_ragged_ok", k2.F32, 4)])
+def test_plan_routes_what_the_tensor_core_kernel_cannot_take(case, variant,
+                                                             vec):
+    """Decided by shape and alignment before any launch, never by a failed
+    launch: bf16 with Cin or Cout not a multiple of 8, or x / w off a
+    16-byte boundary, takes the SIMT kernel (no split); float32 copies 4
+    bytes at a time where 16-byte copies do not fit."""
+    dt = torch.float32 if case.startswith("f32") else torch.bfloat16
+    b, hw, cin, cout, k, pads, ok = 2, 16, 64, 64, 3, _same(3), True
+    if case == "cin_not_8":
+        cin = 4
+    elif case == "cout_not_8":
+        cout = 12
+    elif case in ("misaligned", "f32_misaligned"):
+        ok = False
+    elif case == "padded_1x1":
+        k, pads = 1, ((1, 0), (0, 1))
+    elif case == "f32_cin_not_4":
+        cin = 5
+    elif case == "f32_ragged_ok":
+        cin, cout = 12, 20
+    p = k2.plan(b, hw, hw, cin, cout, k, k, pads, dt, H100_SMS, ok)
+    assert (p.variant, p.vec) == (variant, vec)
+    if variant == k2.SIMT:
+        assert (p.bn, p.split) == (64, 1)
+    if case == "padded_1x1":
+        assert p.gather       # TMA over x takes only unpadded 1x1
+
+
+def test_alignment_of_a_view():
+    """A contiguous view that starts one element into its storage is not
+    16-byte aligned; the plan then routes bf16 to the SIMT kernel."""
+    base = torch.zeros(1 + 2 * 8 * 8 * 16, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16)
+    x0 = base[:-1].view(2, 8, 8, 16)
+    x1 = base[1:].view(2, 8, 8, 16)
+    assert x1.is_contiguous()
+    assert k2.aligned(x0, w) and not k2.aligned(x1, w)
+
+
+def test_plan_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        k2.plan(1, 8, 8, 8, 8, 3, 3, _same(3), torch.float16, 132)
 
 
 # --- stride 2 and the max pool: JAX's asymmetric SAME ----------------------
@@ -224,8 +350,14 @@ def test_conv2d_source_and_per_source_flags():
     kernels keep ``-fmad=false`` (held bitwise).  The flags are part of each
     library's content hash."""
     src = (build.CSRC_DIR / "conv2d.cu").read_text()
-    for sym in ("conv2d_f32", "conv2d_bf16", "conv2d_error_string"):
+    for sym in ("conv2d_f32", "conv2d_bf16_tc", "conv2d_bf16_simt",
+                "conv2d_error_string"):
         assert f"{sym}(" in src
+    # every kernel of a K2 call carries the profiler's symbol for K2
+    kernels = re.findall(
+        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src)
+    assert len(kernels) == 4
+    assert all(k.startswith("k2_conv2d_") for k in kernels)
     assert "-fmad=false" not in build.flags("conv2d.cu")
     assert "-fmad=false" in build.flags("dse_sweep.cu")
     for s in ("conv2d.cu", "dse_sweep.cu"):
