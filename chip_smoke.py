@@ -20,7 +20,8 @@ a CUDA device the script exits non-zero before printing anything.
 Lines, in order:
   {"phase": "device", ...}           card, power limit, torch / CUDA versions
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
-  {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model shapes
+  {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model
+                                     shapes, other scales; plans
   {"phase": "ssd_scan", ...}         K4 vs plain: test and mamba2 shapes
   {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
@@ -45,6 +46,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -246,6 +248,12 @@ def phase_build() -> None:
                     "library": os.path.relpath(paths[src], ROOT),
                     "ptxas": usage}
     out[k2.SOURCE]["kernels"] = ptxas_report(build.build_logs[k2.SOURCE])
+    out[k3.SOURCE]["kernels"] = ptxas_report(build.build_logs[k3.SOURCE])
+    tc = [r for r in out[k3.SOURCE]["kernels"]
+          if K3_TC_KERNEL in r["kernel"]]
+    if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
+        raise AssertionError(f"K3's tensor-core kernel spills (or is "
+                             f"missing from the ptxas report): {tc}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
 
@@ -796,33 +804,64 @@ def phase_conv2d(device, seed: int, model, images) -> dict:
     return per_dtype
 
 
-def host_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Host-clock milliseconds per call of ``fn``, each ending in a
-    synchronize (the latency a caller sees), after ``warmup`` calls."""
+# host-clock readings: at least this many, reported as median, min, max
+HOST_REPEATS = 5
+
+
+def spread(ms: list) -> dict:
+    """The median of host-clock readings in ms, with their min, max and
+    count."""
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "n": len(ms)}
+
+
+def host_ms(fn, iters: int = HOST_REPEATS, warmup: int = 3) -> dict:
+    """Host-clock milliseconds of each of ``iters`` (at least
+    ``HOST_REPEATS``) calls of ``fn``, each ending in a synchronize (the
+    latency a caller sees), after ``warmup`` calls: ``spread`` of them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def enqueue_ms(fn, iters: int = 3) -> float:
-    """Host-clock milliseconds until ``fn`` returns, WITHOUT a synchronize
-    inside the timed region (each call starts on an idle device): the time
-    the host takes to issue the call's kernels.  Close to ``host_ms`` means
-    the device waited on the host, or something in ``fn`` synchronized."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
+    times = []
+    for _ in range(max(iters, HOST_REPEATS)):
         t0 = time.perf_counter()
         fn()
-        total += time.perf_counter() - t0
         torch.cuda.synchronize()
-    return total * 1e3 / iters
+        times.append((time.perf_counter() - t0) * 1e3)
+    return spread(times)
+
+
+def enqueue_ms(fn, iters: int = HOST_REPEATS) -> dict:
+    """Host-clock milliseconds until ``fn`` returns, WITHOUT a synchronize
+    inside the timed region (each call starts on an idle device): the time
+    the host takes to issue the call's kernels, ``spread`` over ``iters``
+    calls.  Close to ``host_ms`` means the device waited on the host, or
+    something in ``fn`` synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(max(iters, HOST_REPEATS)):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return spread(times)
+
+
+def decode_ms(step, steps: int) -> dict:
+    """Host-clock milliseconds of each of ``steps`` (at least
+    ``HOST_REPEATS``) greedy decode steps, each ending in a synchronize:
+    ``spread`` of them.  ``step()`` runs one step."""
+    if steps < HOST_REPEATS:
+        raise ValueError(f"{steps} decode steps: at least {HOST_REPEATS}")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return spread(times)
 
 
 def device_breakdown(fn, symbol: str) -> dict:
@@ -949,20 +988,24 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
     for dtype, b in RUNS:
         model, x = models[dtype], images[b]
         iters = 50 if b == 1 else 20
-        ms = host_ms(lambda: model(x), iters)
+        host = host_ms(lambda: model(x), iters)
+        ms = host["median"]
         br = device_breakdown(lambda: model(x), K2_SYMBOL)
         with mock.patch.object(k2, "conv2d", library_conv2d):
-            lib_ms = host_ms(lambda: model(x), iters)
+            lib = host_ms(lambda: model(x), iters)
             lib_br = device_breakdown(lambda: model(x), K2_SYMBOL)
+        enq = enqueue_ms(lambda: model(x))
         bound_ms = sum(conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)["bound_ms"]
                        for xs, ws, _ in k2_calls(model, x))
-        row = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3,
-               "enqueue_ms": enqueue_ms(lambda: model(x)),
+        row = {"ms_per_batch": ms, "ms_per_batch_spread": host,
+               "images_per_s": b / ms * 1e3,
+               "enqueue_ms": enq["median"], "enqueue_ms_spread": enq,
                "idle_share": None, "device_ms": br["device_ms"],
                "k2_device_ms": br["kernel_device_ms"],
                "k2_share": br["kernel_share"], "top": br["top"],
                "k2_calls_bound_ms": bound_ms,
-               "library_ms_per_batch": lib_ms,
+               "library_ms_per_batch": lib["median"],
+               "library_ms_per_batch_spread": lib,
                "library_device_ms": lib_br["device_ms"],
                "library_calls_device_ms": None}
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
@@ -984,10 +1027,11 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
           "logit_tolerance_rel_to_scale": {SUFFIX[d]: LOGIT_TOL[d]
                                            for d in LOGIT_TOL},
           "reduced_card_vs_cpu_rel_err": small_err, "inference": perf,
-          "timing_note": "ms_per_batch: host clock around forward + "
-                         "synchronize, images already on the card; "
-                         "enqueue_ms: host clock until the forward returns, "
-                         "no synchronize inside; "
+          "timing_note": "ms_per_batch: median host clock around "
+                         "forward + synchronize over 20-50 forwards (spread: "
+                         "min, max), images already on the card; "
+                         "enqueue_ms: median host clock until the forward "
+                         "returns over 5, no synchronize inside; "
                          "device_ms / k2_device_ms / top: torch.profiler "
                          "kernel time of one forward; idle_share = 1 - "
                          "device_ms / ms_per_batch; k2_calls_bound_ms: the "
@@ -1058,6 +1102,15 @@ FLASH_CASES = (
 )
 # the case each dtype's row of the kernels line reports
 FLASH_HEADLINE = "stablelm_b1_s4096"
+# other softmax scales (the tensor-core kernel folds a positive scale into
+# its exp2 and multiplies first otherwise), causal and not: (B, S, H, KV, d)
+FLASH_SCALES = (0.3, -0.2, 0.0)
+FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128))
+# K3's profiler symbols: every K3 kernel's name starts with one per dtype
+K3_SYMBOL = {torch.bfloat16: "flash_bf16_", torch.float32: "flash_f32_"}
+K3_TC_KERNEL = "flash_bf16_tc_kernel"
+# the variant each dtype takes on the main path (every model shape)
+K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
 
 
 def flash_bound(b, s, h, kv, hd, hv, causal, dtype) -> dict:
@@ -1089,25 +1142,30 @@ def flash_case(gen, device, case, dtype) -> dict:
     q = torch.randn((b, s, h, hd), generator=gen, device=device).to(dtype)
     k = torch.randn((b, s, kv, hd), generator=gen, device=device).to(dtype)
     v = torch.randn((b, s, kv, hv), generator=gen, device=device).to(dtype)
+    plan = k3.plan_for(q, k, v, causal=causal)
+    if name.startswith(("stablelm", "qwen3")) and \
+            plan.variant != K3_MAIN[dtype]:
+        raise AssertionError(f"K3 {name} {dtype} planned {plan.variant}, "
+                             f"not {K3_MAIN[dtype]}")
     o = k3.flash_attention(q, k, v, causal=causal)
+    again = k3.flash_attention(q, k, v, causal=causal)
     op = k3.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    if not torch.equal(o, again):
+        raise AssertionError(f"K3 {name} {dtype}: two runs differ")
     if tuple(o.shape) != (b, s, h, hv) or o.dtype != dtype:
         raise AssertionError(f"K3 returned {tuple(o.shape)} {o.dtype}")
     if not torch.isfinite(o.float()).all():
         raise AssertionError(f"K3 {name}: non-finite output")
-    diff = (o.float() - op.float()).abs()
-    err = float(diff.max())
-    tol = FLASH_TOL[dtype]
-    limit = tol if dtype == torch.float32 else tol + tol * op.float().abs()
-    if not bool((diff <= limit).all()):
+    err = float((o.float() - op.float()).abs().max())
+    if not flash_within(o, op, dtype):
         raise AssertionError(f"K3 {name} {(b, s, h, kv, hd, hv, causal)} "
                              f"{dtype}: max |diff| {err} over the limit")
     bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype)
     big = s >= 2048
     row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": hd,
            "hv": hv, "causal": causal, "dtype": SUFFIX[dtype],
-           "max_abs_err": err,
+           "plan": dataclasses.asdict(plan), "max_abs_err": err,
            "ms": time_ms(lambda: k3.flash_attention(q, k, v, causal=causal),
                          10 if big else 20),
            "plain_ms": time_ms(lambda: k3.flash_attention_plain(
@@ -1124,9 +1182,35 @@ def flash_case(gen, device, case, dtype) -> dict:
     if name.startswith(("stablelm", "qwen3")):
         us = device_us({"k3": (lambda: k3.flash_attention(q, k, v,
                                                           causal=causal),
-                               f"flash_{SUFFIX[dtype]}_kernel")}, reps=5)
+                               K3_SYMBOL[dtype])}, reps=5)
         row["device_ms"] = None if us["k3"] is None else us["k3"] / 1e3
     return row
+
+
+def flash_within(o, op, dtype) -> bool:
+    """K3's output ``o`` within FLASH_TOL of the plain version's ``op``."""
+    diff = (o.float() - op.float()).abs()
+    tol = FLASH_TOL[dtype]
+    limit = tol if dtype == torch.float32 else tol + tol * op.float().abs()
+    return bool((diff <= limit).all())
+
+
+def flash_scale_case(gen, device, shape, scale, causal, dtype) -> dict:
+    """K3 against its plain version at an explicit softmax scale; raises on
+    disagreement."""
+    b, s, h, kv, d = shape
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device)
+               .to(dtype) for n in (h, kv, kv))
+    o = k3.flash_attention(q, k, v, causal=causal, scale=scale)
+    op = k3.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    err = float((o.float() - op.float()).abs().max())
+    if not flash_within(o, op, dtype):
+        raise AssertionError(f"K3 {shape} scale {scale} causal {causal} "
+                             f"{dtype}: max |diff| {err} over the limit")
+    return {"shape": list(shape), "scale": scale, "causal": causal,
+            "dtype": SUFFIX[dtype],
+            "variant": k3.plan_for(q, k, v).variant, "max_abs_err": err}
 
 
 def phase_flash_attention(device, seed: int) -> dict:
@@ -1140,11 +1224,19 @@ def phase_flash_attention(device, seed: int) -> dict:
     for dtype in FLASH_DTYPES:
         for case in FLASH_CASES:
             rows[(dtype, case)] = flash_case(gen, device, case, dtype)
+    scales = [flash_scale_case(gen, device, shape, scale, causal, dtype)
+              for dtype in FLASH_DTYPES for shape in FLASH_SCALE_SHAPES
+              for scale in FLASH_SCALES for causal in (True, False)]
+    variants = sorted({r["plan"]["variant"] for r in rows.values()})
+    if variants != sorted(k3.LAUNCHES):
+        raise AssertionError(f"the flash_attention phase ran the variants "
+                             f"{variants}, not all of {sorted(k3.LAUNCHES)}")
     emit({"phase": "flash_attention",
           "tolerance": {"f32": "max |K3 - plain| <= 1e-5",
                         "bf16": "|K3 - plain| <= 2e-2 + 2e-2 |plain| "
                                 "(tests/test_kernels.py atol = rtol)"},
-          "cases": list(rows.values()),
+          "cases": list(rows.values()), "scales": scales,
+          "bitwise_note": "every case ran twice, bitwise equal",
           "timing_note": "ms / library_ms: CUDA events around back-to-back "
                          "calls after warm-up (launch and wrapper included, "
                          "inputs L2-warm where they fit); device_ms: the "
@@ -1227,6 +1319,11 @@ def greedy_decode(model, logits, cache, steps: int):
     return first, torch.cat(out, dim=1)
 
 
+def launches_since(before: dict) -> dict:
+    """K3's launches per variant since the counts were ``before``."""
+    return {k: v - before[k] for k, v in k3.launch_counts().items()}
+
+
 def phase_transformer(device, seed: int) -> dict:
     """The main path: dense-transformer serving.  Counts are zeroed just
     before the four runs' prefills and decode steps and read just after; then
@@ -1244,9 +1341,9 @@ def phase_transformer(device, seed: int) -> dict:
     k3.reset_launch_counts()
     for run, arch, depth, dtype, b, s, steps in LM_RUNS:
         model = models[(arch, depth, dtype)]
-        before = sum(k3.launch_counts().values())
+        before = k3.launch_counts()
         logits, cache = model.prefill(prompts[run])
-        per_prefill.append(sum(k3.launch_counts().values()) - before)
+        per_prefill.append(launches_since(before))
         first, gen = None, None
         if steps:
             before = sum(k3.launch_counts().values())
@@ -1256,7 +1353,9 @@ def phase_transformer(device, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = k3.launch_counts()
 
-    want_launches = [models[(a, d, t)].cfg.num_layers
+    # every prefill's attention on its dtype's main variant, once a layer
+    want_launches = [{v: (models[(a, d, t)].cfg.num_layers
+                          if v == K3_MAIN[t] else 0) for v in k3.LAUNCHES}
                      for _, a, d, t, _, _, _ in LM_RUNS]
     if per_prefill != want_launches or decode_launches != 0:
         raise AssertionError(f"K3 launches per prefill {per_prefill} "
@@ -1321,42 +1420,48 @@ def phase_transformer(device, seed: int) -> dict:
     perf = {}
     for run, arch, depth, dtype, b, s, steps in LM_RUNS:
         model, x = models[(arch, depth, dtype)], prompts[run]
-        symbol = f"flash_{SUFFIX[dtype]}_kernel"
+        symbol = K3_SYMBOL[dtype]
         cfg = model.cfg
-        ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+        host = host_ms(lambda: model.prefill(x), warmup=2)
+        ms = host["median"]
         br = device_breakdown(lambda: model.prefill(x), symbol)
         with mock.patch.object(k3, "flash_attention",
                                library_flash_attention):
-            lib_ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+            lib = host_ms(lambda: model.prefill(x), warmup=2)
             lib_br = device_breakdown(lambda: model.prefill(x), symbol)
         bd = flash_bound(b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                          cfg.head_dim, True, dtype)
-        row = {"ms_per_prefill": ms, "prompt_tokens_per_s": b * s / ms * 1e3,
+        row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+               "prompt_tokens_per_s": b * s / ms * 1e3,
                "device_ms": br["device_ms"], "idle_share": None,
                "k3_device_ms": br["kernel_device_ms"],
                "k3_share": br["kernel_share"], "top": br["top"],
                "k3_calls_bound_ms": cfg.num_layers * bd["bound_ms"],
-               "sdpa_ms_per_prefill": lib_ms,
+               "sdpa_ms_per_prefill": lib["median"],
+               "sdpa_ms_per_prefill_spread": lib,
                "sdpa_device_ms": lib_br["device_ms"],
                "sdpa_calls_device_ms": None}
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
-            row["sdpa_calls_device_ms"] = (
-                lib_br["device_ms"] - (br["device_ms"]
-                                       - br["kernel_device_ms"]))
+            # what each kernel name gained when SDPA took K3's place,
+            # summed (as the resnet50 phase measures cuDNN in K2's place)
+            row["sdpa_calls_device_ms"] = sum(
+                max(0.0, v - br["by_name"].get(k, 0.0))
+                for k, v in lib_br["by_name"].items() if symbol not in k)
         if steps:
             logits, cache = model.prefill(x)
-            big = grown_cache(model, cache, steps)
-            tok = logits[:, -1:].argmax(-1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step, big = model.decode_step(tok, big)
-                tok = step[:, -1:].argmax(-1)
-            torch.cuda.synchronize()
-            dec_s = time.perf_counter() - t0
-            row["ms_per_decode_step"] = dec_s * 1e3 / steps
-            row["generated_tokens_per_s"] = b * steps / dec_s
+            st = {"tok": logits[:, -1:].argmax(-1),
+                  "cache": grown_cache(model, cache, steps)}
+
+            def one_step():
+                out, st["cache"] = model.decode_step(st["tok"], st["cache"])
+                st["tok"] = out[:, -1:].argmax(-1)
+
+            per_step = decode_ms(one_step, steps)
+            tok = st["tok"]
+            row["ms_per_decode_step"] = per_step["median"]
+            row["ms_per_decode_step_spread"] = per_step
+            row["generated_tokens_per_s"] = b / per_step["median"] * 1e3
             # one step profiled (and one before it), into a fresh copy
             big = grown_cache(model, cache, 2)
             dec = device_breakdown(lambda: model.decode_step(tok, big),
@@ -1366,7 +1471,7 @@ def phase_transformer(device, seed: int) -> dict:
                 None if dec["device_ms"] is None
                 else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
             row["decode_top"] = dec["top"]
-            del logits, cache, big
+            del logits, cache, big, st
         perf[run] = row
     emit({"phase": "transformer",
           "config": "stablelm-1.6b (24 L, d 2048, 32 heads of 64, d_ff 5632, "
@@ -1375,23 +1480,26 @@ def phase_transformer(device, seed: int) -> dict:
                     "17,408, vocab 151,936), depth 40 -> 4; stablelm float32 "
                     f"depth 24 -> 4; weights from a CUDA generator seed {seed}, "
                     f"prompts synth_batch(seed={seed})",
-          "k3_launches_per_prefill": per_prefill,
+          "k3_launches_per_prefill_by_variant": per_prefill,
           "k3_launches_in_decode": decode_launches, "launches": launches,
           "vs_plain_path": checks,
           "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
                                            for d in LM_LOGIT_TOL},
           "reduced_card_vs_cpu_rel_err": small_err, "serving": perf,
-          "timing_note": "ms_per_prefill: host clock around prefill + "
-                         "synchronize, prompts on the card; device_ms / "
+          "timing_note": "ms_per_prefill: median host clock around "
+                         "prefill + synchronize over 5 (spread: min, max), "
+                         "prompts on the card; device_ms / "
                          "k3_device_ms / top: torch.profiler kernel time of "
                          "one prefill; idle_share = 1 - device_ms / "
                          "ms_per_prefill; k3_calls_bound_ms: the bound summed "
                          "over the prefill's K3 calls; sdpa_*: the same "
                          "prefill with F.scaled_dot_product_attention in "
-                         "K3's place, sdpa_calls_device_ms = sdpa_device_ms "
-                         "- (device_ms - k3_device_ms); decode: host clock "
-                         "around 16 greedy steps ending in a synchronize, "
-                         "decode_device_ms / decode_top: one step profiled"})
+                         "K3's place, sdpa_calls_device_ms = what each "
+                         "kernel name gained there, summed; decode: median "
+                         "host "
+                         "clock of each of 16 greedy steps, each ending in a "
+                         "synchronize; decode_device_ms / decode_top: one "
+                         "step profiled"})
     return {"launches": launches, "perf": perf}
 
 
@@ -1400,17 +1508,18 @@ def flash_rows(rows, lm) -> list:
     model shape beside it, and K3 and SDPA inside the prefills."""
     out = []
     for dtype in FLASH_DTYPES:
-        sfx = SUFFIX[dtype]
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == FLASH_HEADLINE)
-        name = f"flash_attention_{sfx}"
+        name = K3_MAIN[dtype]
         runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
         out.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES["flash_attention"],
             "launches": lm["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
-                               if d == dtype),
+                               if d == dtype
+                               and r["plan"]["variant"] == name),
+            "plan": head["plan"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
@@ -1718,12 +1827,15 @@ def phase_mamba2(device, seed: int) -> dict:
     for run, depth, dtype, b, s, steps in MAMBA_RUNS:
         model, x = models[(depth, dtype)], prompts[run]
         cfg = model.cfg
-        ms = host_ms(lambda: model.prefill(x), 5, warmup=2)
+        host = host_ms(lambda: model.prefill(x), warmup=2)
+        ms = host["median"]
+        enq = enqueue_ms(lambda: model.prefill(x))
         br = device_breakdown(lambda: model.prefill(x), SSD_SYMBOL)
         bd = ssd_bound(b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
                        min(cfg.ssm_chunk, s), dtype, torch.float32)
-        row = {"ms_per_prefill": ms, "prompt_tokens_per_s": b * s / ms * 1e3,
-               "enqueue_ms": enqueue_ms(lambda: model.prefill(x)),
+        row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+               "prompt_tokens_per_s": b * s / ms * 1e3,
+               "enqueue_ms": enq["median"], "enqueue_ms_spread": enq,
                "device_ms": br["device_ms"], "idle_share": None,
                "k4_device_ms": br["kernel_device_ms"],
                "k4_share": br["kernel_share"], "top": br["top"],
@@ -1732,16 +1844,17 @@ def phase_mamba2(device, seed: int) -> dict:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
         if steps:
             logits, cache = model.prefill(x)
-            tok = logits[:, -1:].argmax(-1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step, cache = model.decode_step(tok, cache)
-                tok = step[:, -1:].argmax(-1)
-            torch.cuda.synchronize()
-            dec_s = time.perf_counter() - t0
-            row["ms_per_decode_step"] = dec_s * 1e3 / steps
-            row["generated_tokens_per_s"] = b * steps / dec_s
+            st = {"tok": logits[:, -1:].argmax(-1), "cache": cache}
+
+            def one_step():
+                out, st["cache"] = model.decode_step(st["tok"], st["cache"])
+                st["tok"] = out[:, -1:].argmax(-1)
+
+            per_step = decode_ms(one_step, steps)
+            tok, cache = st["tok"], st["cache"]
+            row["ms_per_decode_step"] = per_step["median"]
+            row["ms_per_decode_step_spread"] = per_step
+            row["generated_tokens_per_s"] = b / per_step["median"] * 1e3
             dec = device_breakdown(lambda: model.decode_step(tok, cache),
                                    SSD_SYMBOL)
             row["decode_device_ms"] = dec["device_ms"]
@@ -1763,17 +1876,19 @@ def phase_mamba2(device, seed: int) -> dict:
           "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
                                            for d in LM_LOGIT_TOL},
           "reduced_card_vs_cpu_rel_err": small_err, "serving": perf,
-          "timing_note": "ms_per_prefill: host clock around prefill + "
-                         "synchronize, prompts on the card; device_ms / "
+          "timing_note": "ms_per_prefill: median host clock around "
+                         "prefill + synchronize over 5 (spread: min, max), "
+                         "prompts on the card; device_ms / "
                          "k4_device_ms / top: torch.profiler kernel time of "
                          "one prefill (K4 = its three kernels); idle_share "
-                         "= 1 - device_ms / ms_per_prefill; enqueue_ms: host "
-                         "clock until prefill returns, no synchronize; "
+                         "= 1 - device_ms / ms_per_prefill; enqueue_ms: "
+                         "median host clock until prefill returns over 5, "
+                         "no synchronize; "
                          "k4_calls_bound_ms: the bound summed over the "
-                         "prefill's K4 calls; decode: host clock around 16 "
-                         "greedy steps from the prefill cache ending in a "
-                         "synchronize, decode_device_ms / decode_top: one "
-                         "step profiled"})
+                         "prefill's K4 calls; decode: median host clock of "
+                         "each of 16 greedy steps from the prefill cache, "
+                         "each ending in a synchronize; decode_device_ms / "
+                         "decode_top: one step profiled"})
     return {"launches": launches, "perf": perf}
 
 

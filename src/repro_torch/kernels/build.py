@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library, ``ctypes``.
 
 One ``nvcc`` per source, from the ``.cu`` files shipped in ``csrc/`` and
-nothing else, at first use, into ``build/repro_torch/`` at the root of the
-checkout (a git-ignored directory).  The library has a plain C interface — no
+the headers they include from there, and nothing else, at first use, into
+``build/repro_torch/`` at the root of the checkout (a git-ignored
+directory).  The library has a plain C interface — no
 PyTorch headers — so a build takes seconds.  The file name carries a hash of
-the source and the flags, so an edited kernel is never served from a stale
-library.  Nothing here runs at import time.
+the source, its local headers and the flags, so an edited kernel or header
+is never served from a stale library.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a*b+c (see the note at the top of that file); conv2d.cu and
 # flash_attention.cu are held to a tolerance and keep FMA contraction, and
 # neither takes --use_fast_math (flash_attention.cu's exp2f / expf stay the
-# accurate ones).
+# accurate ones).  Both include csrc/hopper.cuh.
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"dse_sweep.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
@@ -66,10 +68,31 @@ def flags(source: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(source: str) -> List[str]:
+    """The ``csrc/`` headers ``csrc/<source>`` includes with ``#include
+    "..."``, directly or through another such header, in first-seen order."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        text = (CSRC_DIR / todo.pop(0)).read_text()
+        for name in _INCLUDE.findall(text):
+            if name not in seen:
+                seen.append(name)
+                todo.append(name)
+    return seen
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` lives (content-addressed)."""
+    """Where the library of ``csrc/<source>`` lives (content-addressed: the
+    source, every local header it includes and the flags)."""
     src = CSRC_DIR / source
     h = hashlib.sha256(src.read_bytes())
+    for name in local_headers(source):
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(flags(source)).encode())
     return default_build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

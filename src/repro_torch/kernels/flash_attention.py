@@ -1,30 +1,42 @@
-"""The flash-attention kernel (K3): wrapper, plain version, launch count.
+"""The flash-attention kernel (K3): launch plan, wrapper, plain version,
+launch counts.
 
-One hand-written CUDA kernel (``csrc/flash_attention.cu``) computes causal or
+Hand-written CUDA kernels (``csrc/flash_attention.cu``) compute causal or
 non-causal softmax attention in the BSHD layout of the reference's
 ``ops.flash_attention``: ``q`` [B, S, H, hd], ``k`` [B, S, KV, hd], ``v``
 [B, S, KV, hv] -> [B, S, H, hv] in ``q.dtype``, with the running max, the
-running sum and the float32 accumulator kept on chip; it replaces the
+running sum and the float32 accumulator kept on chip; they replace the
 reference's TPU kernel ``_flash_kernel``.  GQA / MQA read the kv head
 ``h // (H // KV)`` in place (no repeated K / V), and any ``S`` works (the
-reference kernel needs ``S`` to be a multiple of its block).  bf16 runs on the
-tensor cores, float32 on the CUDA cores; the kernel takes ``hd, hv`` in
-``HEAD_DIMS``.
+reference kernel needs ``S`` to be a multiple of its block).  The kernels
+take ``hd, hv`` in ``HEAD_DIMS``.
 
-Beside it stands ``flash_attention_plain``: the reference kernel's own
+Three variants, chosen by shape before any launch (``plan``), each counted
+under its own key of ``LAUNCHES``:
+
+* ``flash_attention_bf16_tc`` -- bf16 with ``hd == hv`` in ``TC_HEAD_DIMS``
+  and q, k, v 16-byte aligned (every model shape): ``wgmma`` tensor cores
+  fed by TMA, a loader warp and two consumer warpgroups over 128-row
+  blocks.
+* ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
+  ``hv != hd``, a view off 16 bytes): ``mma.sync`` tensor cores, 64-row
+  blocks.
+* ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
+
+Beside them stands ``flash_attention_plain``: the reference kernel's own
 arithmetic (float32 throughout, blockwise online softmax over kv blocks of
 128, ``NEG_INF = -1e30``, the denominator clamped at ``1e-30``) in tensor
 code, for any head size.  The wrapper takes it ONLY for tensors that lie on
-the CPU; for CUDA tensors it launches the kernel or raises -- there is no
-fallback.  ``LAUNCHES`` counts launches per dtype (``"flash_attention_f32"``,
-``"flash_attention_bf16"``), incremented exactly where the kernel is
-launched.  The library is built and loaded inside the first launching call,
+the CPU; for CUDA tensors it launches a kernel or raises -- there is no
+fallback.  The library is built and loaded inside the first launching call,
 never at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,12 +45,21 @@ SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
 BLOCK = 128            # the reference kernel's default q / kv block
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+TC = "flash_attention_bf16_tc"
+MMA = "flash_attention_bf16_mma"
+F32 = "flash_attention_f32"
 
-# launches per dtype since the last ``reset_launch_counts``
-LAUNCHES: Dict[str, int] = {f"flash_attention_{s}": 0
-                            for s in _SUFFIX.values()}
+# launches per variant since the last ``reset_launch_counts``
+LAUNCHES: Dict[str, int] = {TC: 0, MMA: 0, F32: 0}
+
+# The wgmma kernel's ring of K / V slots: 3 at head dim 64 (32 KB a slot
+# pair), 2 at 128 (64 KB a pair; a third would leave 2 KB of the 227 KB).
+TC_STAGES = {64: 3, 128: 2}
+# SMs of an H100 SXM: the plan's default card
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -48,6 +69,55 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one K3 call runs: the variant (its ``LAUNCHES`` key), the query
+    rows of a tile ``block_q``, the keys of a kv tile ``block_k``, the
+    shared-memory ``stages`` of the K / V ring, and the launch grid: (``B *
+    H``, q-blocks), one block a tile, or for the tensor-core variant
+    (blocks, 1), one persistent block an SM that walks the tiles.  Tiles
+    run q-block by q-block over every head, the heaviest q-block first under
+    causal."""
+    variant: str
+    block_q: int
+    block_k: int
+    stages: int
+    grid: Tuple[int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
+         dtype: torch.dtype, causal: bool, aligned: bool = True,
+         sms: int = H100_SMS) -> Plan:
+    """The launch plan of attention over q [b, s, h, hd], k [b, s, kv, hd],
+    v [b, s, kv, hv] in ``dtype`` on a card of ``sms`` SMs; ``aligned`` says
+    that q, k and v lie as the kernels read them in place
+    (``kernel_ready``).  A pure function of its arguments; ``causal``
+    changes no choice today (the kernels order their causal q-blocks
+    heaviest first themselves).
+
+    bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
+    and the operands are aligned (what TMA needs), else the ``mma.sync``
+    variant; float32 takes the CUDA-core variant."""
+    del causal
+    if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS and aligned:
+        variant, bq, bk, stages = TC, 128, 128, TC_STAGES[hd]
+    elif dtype == torch.bfloat16:
+        variant, bq, bk, stages = MMA, 64, 64, 2
+    elif dtype == torch.float32:
+        variant, bq, bk, stages = F32, 64, 64, 2
+    else:
+        raise TypeError(f"no K3 variant for {dtype}")
+    grid = (b * h, _cdiv(s, bq))
+    if variant == TC:
+        grid = (min(grid[0] * grid[1], sms), 1)
+    return Plan(variant, bq, bk, stages, grid)
 
 
 _bound = None
@@ -66,7 +136,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = ([vp] * 4 + [ci] * 6
                            + [ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ci, ci, vp])
+                              ctypes.c_float, ci] + [ci] * 5 + [ci, vp])
             fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -90,7 +160,7 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if kv < 1 or h % kv:
         raise ValueError(f"query heads {h} are not a multiple of kv heads "
                          f"{kv}")
-    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -143,15 +213,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hv).to(q.dtype)
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernel reads it: the last dimension dense and every row
-    16-byte aligned (it loads 16 bytes at a time).  A view that is not is
-    copied to a contiguous tensor; the model's q, k, v already are."""
+def kernel_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels read ``t`` in place: the last dimension dense,
+    the base and every other stride on whole 16 bytes (TMA's and 16-byte
+    ``cp.async``'s rule).  The model's q, k, v are."""
     per16 = 16 // t.element_size()
-    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(st % per16 == 0 for st in t.stride()[:3])):
-        return t
-    return t.contiguous()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per16 == 0 for st in t.stride()[:3]))
+
+
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: itself where ``kernel_ready``, else a
+    contiguous copy."""
+    return t if kernel_ready(t) else t.contiguous()
+
+
+def plan_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True) -> Plan:
+    """``plan`` for these tensors as given, with the SM count of their card
+    (``H100_SMS`` off the card): a view the kernels cannot read in place is
+    copied before the launch and takes the ``mma.sync`` route."""
+    b, s, h, kv, hd, hv = _validate(q, k, v)
+    sms = _sm_count(q.device) if q.device.type == "cuda" else H100_SMS
+    return plan(b, s, h, kv, hd, hv, q.dtype, bool(causal),
+                all(kernel_ready(t) for t in (q, k, v)), sms)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = n
+    return n
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -161,8 +258,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``v`` [B, S, KV, hv] (H a multiple of KV), causal unless ``causal`` is
     False, scores scaled by ``scale`` (default ``hd ** -0.5``); returns [B,
     S, H, hv] in ``q.dtype`` (float32 or bfloat16, float32 statistics and
-    accumulation).  CUDA tensors launch the hand-written kernel, which takes
-    ``hd, hv`` in ``HEAD_DIMS``; CPU tensors take the plain version."""
+    accumulation).  CUDA tensors launch the variant that ``plan`` picks
+    (``hd, hv`` in ``HEAD_DIMS``); CPU tensors take the plain version."""
     b, s, h, kv, hd, hv = _validate(q, k, v)
     if scale is None:
         scale = hd ** -0.5
@@ -171,8 +268,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got hd "
                          f"{hd}, hv {hv}")
-    n_q = -(-s // 64)
-    if b * h >= 2 ** 31 or n_q > 65535:
+    p = plan_for(q, k, v, causal=causal)
+    gx, gy = p.grid
+    if gx >= 2 ** 31 or gy > 65535:
         raise ValueError(f"B*H = {b * h} or S = {s} exceeds the kernel's "
                          "grid")
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
@@ -180,14 +278,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = (ctypes.c_longlong * 12)(
         *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
     lib = _library()
-    name = f"flash_attention_{_SUFFIX[q.dtype]}"
-    code = getattr(lib, name)(
+    code = getattr(lib, p.variant)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
-        hd, hv, strides, float(scale), int(bool(causal)), q.device.index,
+        hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
+        p.block_k, p.stages, gx, gy, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
-    LAUNCHES[name] += 1
+    LAUNCHES[p.variant] += 1
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {name} failed: {msg} "
+        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
                            f"(cudaError {code})")
     return o

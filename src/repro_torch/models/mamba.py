@@ -26,7 +26,7 @@ into the cache in place.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -98,16 +98,26 @@ class Mamba(nn.Module):
                                     for lp in params["layers"])
         self.head = (L.ParamTree(params["head"]) if "head" in params
                      else None)
-        self.join_conv_weights()
-        self.register_load_state_dict_post_hook(
-            lambda module, _keys: module.join_conv_weights())
+        # per layer: (what the join was built from, the joined weights)
+        self._decode_conv: List[Optional[Tuple[tuple, Tuple[
+            torch.Tensor, torch.Tensor]]]] = [None] * len(self.layers)
 
-    def join_conv_weights(self) -> None:
-        """Builds each layer's decode conv weights from its parameters;
-        called again whenever the parameters are replaced (after
-        ``load_state_dict`` by a hook, after ``params_from_reference``)."""
-        self._decode_conv = [ssd.decode_conv_weights(lp["mix"])
-                             for lp in self.layers]
+    def decode_conv(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``i``'s decode conv weight and bias over the joined
+        channels (``ssd.decode_conv_weights``), joined on first use and
+        joined again whenever a source parameter changed since: written in
+        place (its ``_version``), replaced or moved (its ``data_ptr`` or
+        device) -- ``load_state_dict``, ``Module.to()`` and in-place updates
+        included.  The reference concatenates them on every step."""
+        mix = self.layers[i]["mix"]
+        key = tuple((t._version, t.data_ptr(), t.device)
+                    for t in (mix["conv_w"], mix["conv_bc_w"], mix["conv_b"],
+                              mix["conv_bc_b"]))
+        joined = self._decode_conv[i]
+        if joined is None or joined[0] != key:
+            joined = self._decode_conv[i] = (key,
+                                             ssd.decode_conv_weights(mix))
+        return joined[1]
 
     def _run(self, tokens: torch.Tensor, ssm_out: Optional[Dict]
              ) -> torch.Tensor:
@@ -158,7 +168,7 @@ class Mamba(nn.Module):
             h = L.norm(lp["ln"], x, self.cfg.norm_eps)
             dx, new = ssd.mamba_decode(lp["mix"], self.cfg, h,
                                        {"conv": conv[i], "state": state[i]},
-                                       self._decode_conv[i])
+                                       self.decode_conv(i))
             conv[i] = new["conv"]
             state[i] = new["state"]
             x = x + dx
@@ -177,5 +187,4 @@ def params_from_reference(params: Mapping, cfg,
     model = Mamba(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0))
     L.copy_reference_params(model, params, cfg.num_layers)
-    model.join_conv_weights()
     return model

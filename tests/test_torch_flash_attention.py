@@ -122,7 +122,8 @@ def test_cpu_tensors_never_launch():
     k3.reset_launch_counts()
     _, (qt, kt, vt) = _inputs(1, [(1, 32, 2, 16)] * 3, "bfloat16")
     ops.flash_attention(qt, kt, vt)
-    assert k3.launch_counts() == {"flash_attention_bf16": 0,
+    assert k3.launch_counts() == {"flash_attention_bf16_tc": 0,
+                                  "flash_attention_bf16_mma": 0,
                                   "flash_attention_f32": 0}
     assert k3._bound is None
 
@@ -165,11 +166,112 @@ def test_kernel_operand_copies_only_what_the_kernel_cannot_read():
 
 def test_cuda_source_defines_the_bound_entry_points():
     """The wrapper binds one C entry point per ``LAUNCHES`` key; the source
-    defines each, launches mma.sync on the bf16 path, and names the TPU
-    kernel it replaces."""
+    defines each, runs wgmma fed by TMA on the tensor-core path and
+    mma.sync on the other bf16 one, names every kernel with one profiler
+    prefix per dtype, and names the TPU kernel it replaces."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     for name in list(k3.LAUNCHES) + ["flash_attention_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
+    assert "setmaxnreg.dec" in src and "setmaxnreg.inc" in src
+    assert "tma_load_4d(" in src and '#include "hopper.cuh"' in src
     assert "repro/kernels/flash_attention.py::_flash_kernel" in src
     assert "-1e30f" in src and "1e-30f" in src
+    # each __global__ function's name opens the line after its bounds
+    kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
+    assert len(kernels) == src.count("__global__") == 3
+    assert sorted(kernels) == ["flash_bf16_mma_kernel", "flash_bf16_tc_kernel",
+                               "flash_f32_kernel"]
+
+
+# --- the launch plan -------------------------------------------------------
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    # stablelm-1.6b prefills (a), (b): 32 heads of 64; the tensor-core
+    # kernel runs one persistent block an SM over 1024 / 2048 tiles
+    ((1, 4096, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, 3, (132, 1))),
+    ((8, 1024, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, 3, (132, 1))),
+    # qwen3-14b prefill (c): 40 heads, 8 kv heads of 128: 640 tiles
+    ((1, 2048, 40, 8, 128, 128), BF16, (k3.TC, 128, 128, 2, (132, 1))),
+    # stablelm float32 prefill (d) and the float32 headline shape
+    ((2, 1024, 32, 32, 64, 64), F32, (k3.F32, 64, 64, 2, (64, 16))),
+    ((1, 4096, 32, 32, 64, 64), F32, (k3.F32, 64, 64, 2, (32, 64))),
+    # a ragged S rounds the tiles up: 8 x 8, fewer than the SMs
+    ((2, 1000, 4, 2, 64, 64), BF16, (k3.TC, 128, 128, 3, (64, 1))),
+    ((2, 1000, 4, 2, 64, 64), F32, (k3.F32, 64, 64, 2, (8, 16))),
+])
+def test_plan_of_the_model_shapes(shape, dtype, want):
+    p = k3.plan(*shape, dtype, True)
+    assert (p.variant, p.block_q, p.block_k, p.stages, p.grid) == want
+
+
+@pytest.mark.parametrize("shape,aligned", [
+    ((2, 128, 2, 2, 32, 32), True),      # hd 32
+    ((2, 256, 4, 2, 64, 32), True),      # hv != hd
+    ((2, 320, 2, 1, 32, 128), True),     # hd 32, hv != hd
+    ((2, 256, 4, 2, 128, 64), True),     # hv != hd, both tensor-core dims
+    ((1, 4096, 32, 32, 64, 64), False),  # a view off 16 bytes
+])
+def test_plan_routes_the_rest_of_bf16_to_mma_sync(shape, aligned):
+    p = k3.plan(*shape, BF16, True, aligned)
+    b, s, h = shape[:3]
+    assert (p.variant, p.block_q, p.block_k, p.stages) == (k3.MMA, 64, 64, 2)
+    assert p.grid == (b * h, -(-s // 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_plan_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        k3.plan(1, 128, 2, 2, 64, 64, dtype, True)
+
+
+def test_plan_fits_the_persistent_grid_to_the_card():
+    p = k3.plan(1, 4096, 32, 32, 64, 64, BF16, True, True, 114)
+    assert p.grid == (114, 1)
+    assert k3.plan(1, 4096, 32, 32, 64, 64, F32, True, True, 114).grid == \
+        (32, 64)
+
+
+def test_plan_is_pure_and_ignores_causal():
+    a = k3.plan(1, 2048, 40, 8, 128, 128, BF16, True)
+    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16, True) is a
+    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16, False) == a
+
+
+def test_plan_for_reads_alignment_off_the_tensors_as_given():
+    """A dense, 16-byte aligned view plans the tensor-core kernel; a view
+    whose rows start off 16 bytes plans mma.sync (it is copied first)."""
+    t = torch.zeros((1, 256, 6, 64), dtype=torch.bfloat16)
+    q, k, v = t[:, :, :2], t[:, :, 2:4], t[:, :, 4:]
+    assert k3.plan_for(q, k, v).variant == k3.TC
+    odd = torch.zeros((1, 256, 2, 72), dtype=torch.bfloat16)[..., 4:68]
+    assert not k3.kernel_ready(odd)
+    assert k3.plan_for(odd, k[:, :, :2], v[:, :, :2]).variant == k3.MMA
+    assert k3.plan_for(q.float(), k.float(), v.float()).variant == k3.F32
+
+
+def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """An edited header gives every source that includes it, directly or
+    through another header, a new library name."""
+    (tmp_path / "a.cu").write_text('#include "x.cuh"\nint a;\n')
+    (tmp_path / "x.cuh").write_text('#include "y.cuh"\n')
+    (tmp_path / "y.cuh").write_text("// v1\n")
+    (tmp_path / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.local_headers("a.cu") == ["x.cuh", "y.cuh"]
+    assert build.local_headers("b.cu") == []
+    a1, b1 = build.library_path("a.cu"), build.library_path("b.cu")
+    (tmp_path / "y.cuh").write_text("// v2\n")
+    assert build.library_path("a.cu") != a1
+    assert build.library_path("b.cu") == b1
+
+
+def test_flash_and_conv_sources_share_the_hopper_header():
+    for src in (k3.SOURCE, "conv2d.cu"):
+        assert "hopper.cuh" in build.local_headers(src)

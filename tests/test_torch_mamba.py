@@ -297,21 +297,53 @@ def test_build_model_mamba2_130m_needs_a_card_unless_told_cpu():
 
 
 def test_decode_conv_weights_follow_the_parameters():
-    """The decode conv's joined weights, built once per layer, are rebuilt
-    when the parameters are replaced: by ``load_state_dict`` and by
+    """The decode conv's joined weights, joined once per layer, are joined
+    again when the parameters are replaced: by ``load_state_dict`` and by
     ``params_from_reference``."""
     _, cfg, params, ref_model, _, _ = _case("float32")
     model = tm.Mamba(cfg, generator=torch.Generator().manual_seed(7),
                      device="cpu")
+    stale = [model.decode_conv(i) for i in range(cfg.num_layers)]
     model.load_state_dict(ref_model.state_dict())
-    for got, lp in zip(model._decode_conv, ref_model.layers):
+    for i, lp in enumerate(ref_model.layers):
         mix = lp["mix"]
+        got = model.decode_conv(i)
         assert torch.equal(got[0], torch.cat(
             [mix["conv_w"], mix["conv_bc_w"]], dim=1).float())
         assert torch.equal(got[1], torch.cat(
             [mix["conv_b"], mix["conv_bc_b"]]))
-    for got, want in zip(ref_model._decode_conv, model._decode_conv):
+        assert not torch.equal(got[0], stale[i][0])
+        want = ref_model.decode_conv(i)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # joined once: a second read without a change returns the same tensors
+    assert model.decode_conv(0)[0] is model.decode_conv(0)[0]
+
+
+def test_decode_after_an_in_place_weight_write_matches_a_fresh_model():
+    """A decode step after ``conv_w.mul_(2)`` on layer 0 (an in-place write,
+    as an optimizer's) gives the logits of a model freshly built from the
+    same parameters, not those of the stale join (0.17 apart)."""
+    _, cfg, _, ref_model, toks, _ = _case("float32")
+    model = tm.Mamba(cfg, generator=torch.Generator().manual_seed(7),
+                     device="cpu")
+    model.load_state_dict(ref_model.state_dict())
+    logits, cache = model.prefill(torch.from_numpy(toks))
+    tok = logits[:, -1:].argmax(-1)
+
+    def fork(c):
+        return {"len": c["len"], "ssm": {k: [t.clone() for t in v]
+                                         for k, v in c["ssm"].items()}}
+
+    before, _ = model.decode_step(tok, fork(cache))    # joins every layer
+    with torch.no_grad():
+        model.layers[0]["mix"]["conv_w"].mul_(2)
+    got, _ = model.decode_step(tok, fork(cache))
+    fresh = tm.Mamba(cfg, generator=torch.Generator().manual_seed(8),
+                     device="cpu")
+    fresh.load_state_dict(model.state_dict())
+    want, _ = fresh.decode_step(tok, fork(cache))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, before)
 
 
 def test_ngroups_other_than_one_is_refused():
