@@ -848,12 +848,34 @@ def enqueue_ms(fn, iters: int = HOST_REPEATS) -> dict:
     return spread(times)
 
 
-def decode_ms(step, steps: int) -> dict:
+def decode_window_ms(start, step, steps: int,
+                     windows: int = HOST_REPEATS) -> dict:
+    """Host-clock milliseconds per step of a window of ``steps`` greedy
+    decode steps issued back to back, one synchronize at the window's end
+    (the rate a generating caller sees, stalls included): ``spread`` over
+    ``windows`` (at least ``HOST_REPEATS``) windows, each from the state
+    ``start()`` sets up outside the timed region.  ``step()`` runs one
+    step."""
+    per_step = []
+    for _ in range(max(windows, HOST_REPEATS)):
+        start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3 / steps)
+    return spread(per_step)
+
+
+def decode_latency_ms(start, step, steps: int) -> dict:
     """Host-clock milliseconds of each of ``steps`` (at least
-    ``HOST_REPEATS``) greedy decode steps, each ending in a synchronize:
-    ``spread`` of them.  ``step()`` runs one step."""
+    ``HOST_REPEATS``) greedy decode steps from the state ``start()`` sets
+    up, each ending in a synchronize (the latency of one step): ``spread``
+    of them."""
     if steps < HOST_REPEATS:
         raise ValueError(f"{steps} decode steps: at least {HOST_REPEATS}")
+    start()
     torch.cuda.synchronize()
     times = []
     for _ in range(steps):
@@ -864,25 +886,42 @@ def decode_ms(step, steps: int) -> dict:
     return spread(times)
 
 
-def device_breakdown(fn, symbol: str) -> dict:
-    """Device time of one call of ``fn`` by kernel, from torch.profiler: the
-    total, the time and share of the kernels whose name holds ``symbol``,
-    and the largest kernels.  None where the profiler reports no device time
-    on this machine."""
+# calls a profile averages over where a library takes a kernel's place:
+# the signed difference of two profiles is only as steady as each total
+LIBRARY_REPS = 3
+
+
+def swapped_calls_device_ms(br: dict, lib_br: dict) -> float:
+    """Device ms of the library's calls that took a kernel's place: what the
+    ``device_breakdown`` of the run with the library (``lib_br``) spent
+    outside the kernel, less what the run with the kernel (``br``) spent
+    outside it -- a signed sum over kernel names, so the run-to-run noise of
+    the kernels both runs share cancels rather than adds up."""
+    return ((lib_br["device_ms"] - lib_br["kernel_device_ms"])
+            - (br["device_ms"] - br["kernel_device_ms"]))
+
+
+def device_breakdown(fn, symbol: str, reps: int = 1) -> dict:
+    """Device time of one call of ``fn`` by kernel, from torch.profiler,
+    averaged over ``reps`` calls in one profile: the total, the time and
+    share of the kernels whose name holds ``symbol``, and the largest
+    kernels.  None where the profiler reports no device time on this
+    machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
         us = float(getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0.0)))
+                           getattr(ev, "self_cuda_time_total", 0.0))) / reps
         by_name[ev.key] = by_name.get(ev.key, 0.0) + us
     total = sum(by_name.values())
     if total <= 0:
@@ -990,10 +1029,11 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
         iters = 50 if b == 1 else 20
         host = host_ms(lambda: model(x), iters)
         ms = host["median"]
-        br = device_breakdown(lambda: model(x), K2_SYMBOL)
+        br = device_breakdown(lambda: model(x), K2_SYMBOL, LIBRARY_REPS)
         with mock.patch.object(k2, "conv2d", library_conv2d):
             lib = host_ms(lambda: model(x), iters)
-            lib_br = device_breakdown(lambda: model(x), K2_SYMBOL)
+            lib_br = device_breakdown(lambda: model(x), K2_SYMBOL,
+                                      LIBRARY_REPS)
         enq = enqueue_ms(lambda: model(x))
         bound_ms = sum(conv_bound(xs, ws, xs[:3] + (ws[3],), dtype)["bound_ms"]
                        for xs, ws, _ in k2_calls(model, x))
@@ -1010,12 +1050,10 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
                "library_calls_device_ms": None}
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
-            # what each kernel name gained when the library took K2's
-            # place (its convolution, layout and copy kernels; the
-            # stride-2 convolutions share names with it), summed
-            row["library_calls_device_ms"] = sum(
-                max(0.0, v - br["by_name"].get(k, 0.0))
-                for k, v in lib_br["by_name"].items() if K2_SYMBOL not in k)
+            # the library's convolution, layout and copy kernels (the
+            # stride-2 convolutions share names with it)
+            row["library_calls_device_ms"] = swapped_calls_device_ms(
+                br, lib_br)
         perf[f"{SUFFIX[dtype]}_b{b}"] = row
     emit({"phase": "resnet50", "config": "resnet50 (stages 3-4-6-3, width "
           "64, 224x224x3, 1000 classes), weights from torch.Generator seed "
@@ -1033,14 +1071,16 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
                          "enqueue_ms: median host clock until the forward "
                          "returns over 5, no synchronize inside; "
                          "device_ms / k2_device_ms / top: torch.profiler "
-                         "kernel time of one forward; idle_share = 1 - "
+                         "kernel time of a forward (mean of 3 in one "
+                         "profile); idle_share = 1 - "
                          "device_ms / ms_per_batch; k2_calls_bound_ms: the "
                          "bound summed over the forward's 46 K2 calls; "
                          "library_*: the same forward with F.conv2d (cuDNN, "
                          "channels-last) in K2's place, where "
                          "library_calls_device_ms, the device time of those "
-                         "46 library calls inside the forward, sums what "
-                         "each kernel name gained over the K2 forward"})
+                         "46 library calls inside the forward, is that "
+                         "forward's device time outside K2 less the K2 "
+                         "forward's (signed)"})
     return {"launches": launches, "perf": perf}
 
 
@@ -1099,7 +1139,11 @@ FLASH_CASES = (
     ("stablelm_b1_s4096", 1, 4096, 32, 32, 64, 64, True),
     ("stablelm_b8_s1024", 8, 1024, 32, 32, 64, 64, True),
     ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, 128, True),
-)
+) + tuple(
+    # a sequence within one 128-row tile (the tensor-core kernel's TMA box
+    # taller than S, one partly filled tile): a short prompt on the main path
+    ("short", 2, s, 4, 2, d, d, causal)
+    for d in (64, 128) for s in (1, 7, 100) for causal in (True, False))
 # the case each dtype's row of the kernels line reports
 FLASH_HEADLINE = "stablelm_b1_s4096"
 # other softmax scales (the tensor-core kernel folds a positive scale into
@@ -1142,8 +1186,8 @@ def flash_case(gen, device, case, dtype) -> dict:
     q = torch.randn((b, s, h, hd), generator=gen, device=device).to(dtype)
     k = torch.randn((b, s, kv, hd), generator=gen, device=device).to(dtype)
     v = torch.randn((b, s, kv, hv), generator=gen, device=device).to(dtype)
-    plan = k3.plan_for(q, k, v, causal=causal)
-    if name.startswith(("stablelm", "qwen3")) and \
+    plan = k3.plan_for(q, k, v)
+    if name.startswith(("stablelm", "qwen3", "short")) and \
             plan.variant != K3_MAIN[dtype]:
         raise AssertionError(f"K3 {name} {dtype} planned {plan.variant}, "
                              f"not {K3_MAIN[dtype]}")
@@ -1213,12 +1257,39 @@ def flash_scale_case(gen, device, shape, scale, causal, dtype) -> dict:
             "variant": k3.plan_for(q, k, v).variant, "max_abs_err": err}
 
 
+def flash_view_case(gen, device) -> dict:
+    """bf16 views the kernels cannot read in place (a base off 16 bytes, a
+    dense view included) are copied and take the tensor-core kernel: bitwise
+    the output of the same call on contiguous copies."""
+    b, s, h, kv, d = 2, 300, 4, 2, 64
+    flat = torch.randn(1 + b * s * (h + 2 * kv) * d, generator=gen,
+                       device=device).to(torch.bfloat16)
+    views = []
+    for n, off in ((h, 1), (kv, 1 + b * s * h * d),
+                   (kv, 1 + b * s * (h + kv) * d)):
+        views.append(flat[off:off + b * s * n * d].view(b, s, n, d))
+    if any(k3.kernel_ready(t) for t in views):
+        raise AssertionError("the shifted views are kernel-ready")
+    before = k3.launch_counts()
+    o = k3.flash_attention(*views)
+    ran = launches_since(before)
+    want = k3.flash_attention(*(t.clone() for t in views))
+    torch.cuda.synchronize()
+    if ran != {k: int(k == k3.TC) for k in k3.LAUNCHES} or \
+            not torch.equal(o, want):
+        raise AssertionError(f"K3 on views off 16 bytes: launches {ran}, "
+                             f"bitwise equal {torch.equal(o, want)}")
+    return {"shape": [b, s, h, kv, d], "launches": ran,
+            "bitwise_equal_to_contiguous": True}
+
+
 def phase_flash_attention(device, seed: int) -> dict:
     """K3 against flash_attention_plain on the card, bf16 and float32: the
     test_kernels.py cases (B=2), a non-causal, two ragged-S and two hv != hd
-    cases, and the model shapes (stablelm B=1 S=4096 and B=8 S=1024, qwen3
-    B=1 S=2048 H=40 KV=8 hd=128), each timed beside the plain version, SDPA
-    and the bound.  Returns the rows keyed by (dtype, case)."""
+    cases, the model shapes (stablelm B=1 S=4096 and B=8 S=1024, qwen3 B=1
+    S=2048 H=40 KV=8 hd=128) and sequences within one tile (S 1, 7, 100 at
+    hd 64 and 128, causal and not), each timed beside the plain version,
+    SDPA and the bound.  Returns the rows keyed by (dtype, case)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = {}
     for dtype in FLASH_DTYPES:
@@ -1227,6 +1298,7 @@ def phase_flash_attention(device, seed: int) -> dict:
     scales = [flash_scale_case(gen, device, shape, scale, causal, dtype)
               for dtype in FLASH_DTYPES for shape in FLASH_SCALE_SHAPES
               for scale in FLASH_SCALES for causal in (True, False)]
+    views = flash_view_case(gen, device)
     variants = sorted({r["plan"]["variant"] for r in rows.values()})
     if variants != sorted(k3.LAUNCHES):
         raise AssertionError(f"the flash_attention phase ran the variants "
@@ -1236,6 +1308,7 @@ def phase_flash_attention(device, seed: int) -> dict:
                         "bf16": "|K3 - plain| <= 2e-2 + 2e-2 |plain| "
                                 "(tests/test_kernels.py atol = rtol)"},
           "cases": list(rows.values()), "scales": scales,
+          "misaligned_views": views,
           "bitwise_note": "every case ran twice, bitwise equal",
           "timing_note": "ms / library_ms: CUDA events around back-to-back "
                          "calls after warm-up (launch and wrapper included, "
@@ -1424,11 +1497,12 @@ def phase_transformer(device, seed: int) -> dict:
         cfg = model.cfg
         host = host_ms(lambda: model.prefill(x), warmup=2)
         ms = host["median"]
-        br = device_breakdown(lambda: model.prefill(x), symbol)
+        br = device_breakdown(lambda: model.prefill(x), symbol, LIBRARY_REPS)
         with mock.patch.object(k3, "flash_attention",
                                library_flash_attention):
             lib = host_ms(lambda: model.prefill(x), warmup=2)
-            lib_br = device_breakdown(lambda: model.prefill(x), symbol)
+            lib_br = device_breakdown(lambda: model.prefill(x), symbol,
+                                      LIBRARY_REPS)
         bd = flash_bound(b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                          cfg.head_dim, True, dtype)
         row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
@@ -1443,25 +1517,29 @@ def phase_transformer(device, seed: int) -> dict:
                "sdpa_calls_device_ms": None}
         if br["device_ms"] is not None and lib_br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
-            # what each kernel name gained when SDPA took K3's place,
-            # summed (as the resnet50 phase measures cuDNN in K2's place)
-            row["sdpa_calls_device_ms"] = sum(
-                max(0.0, v - br["by_name"].get(k, 0.0))
-                for k, v in lib_br["by_name"].items() if symbol not in k)
+            # SDPA's kernels and its layout copies (as the resnet50 phase
+            # measures cuDNN in K2's place)
+            row["sdpa_calls_device_ms"] = swapped_calls_device_ms(br, lib_br)
         if steps:
             logits, cache = model.prefill(x)
-            st = {"tok": logits[:, -1:].argmax(-1),
-                  "cache": grown_cache(model, cache, steps)}
+            st = {}
+
+            def start():
+                st["tok"] = logits[:, -1:].argmax(-1)
+                st["cache"] = grown_cache(model, cache, steps)
 
             def one_step():
                 out, st["cache"] = model.decode_step(st["tok"], st["cache"])
                 st["tok"] = out[:, -1:].argmax(-1)
 
-            per_step = decode_ms(one_step, steps)
+            window = decode_window_ms(start, one_step, steps)
+            latency = decode_latency_ms(start, one_step, steps)
             tok = st["tok"]
-            row["ms_per_decode_step"] = per_step["median"]
-            row["ms_per_decode_step_spread"] = per_step
-            row["generated_tokens_per_s"] = b / per_step["median"] * 1e3
+            row["ms_per_decode_step"] = window["median"]
+            row["ms_per_decode_step_spread"] = window
+            row["generated_tokens_per_s"] = b / window["median"] * 1e3
+            row["decode_step_latency_ms"] = latency["median"]
+            row["decode_step_latency_spread"] = latency
             # one step profiled (and one before it), into a fresh copy
             big = grown_cache(model, cache, 2)
             dec = device_breakdown(lambda: model.decode_step(tok, big),
@@ -1490,16 +1568,20 @@ def phase_transformer(device, seed: int) -> dict:
                          "prefill + synchronize over 5 (spread: min, max), "
                          "prompts on the card; device_ms / "
                          "k3_device_ms / top: torch.profiler kernel time of "
-                         "one prefill; idle_share = 1 - device_ms / "
-                         "ms_per_prefill; k3_calls_bound_ms: the bound summed "
+                         "a prefill (mean of 3 in one profile); idle_share "
+                         "= 1 - device_ms / ms_per_prefill; "
+                         "k3_calls_bound_ms: the bound summed "
                          "over the prefill's K3 calls; sdpa_*: the same "
                          "prefill with F.scaled_dot_product_attention in "
-                         "K3's place, sdpa_calls_device_ms = what each "
-                         "kernel name gained there, summed; decode: median "
-                         "host "
-                         "clock of each of 16 greedy steps, each ending in a "
-                         "synchronize; decode_device_ms / decode_top: one "
-                         "step profiled"})
+                         "K3's place, sdpa_calls_device_ms = its device "
+                         "time outside K3 less the K3 run's (signed); "
+                         "ms_per_decode_step / generated_tokens_per_s: host "
+                         "clock of a window of 16 greedy steps issued back "
+                         "to back, one synchronize at its end, per step, "
+                         "median over 5 windows; decode_step_latency_ms: "
+                         "median host clock of each of 16 steps, each ending "
+                         "in a synchronize; decode_device_ms / decode_top: "
+                         "one step profiled"})
     return {"launches": launches, "perf": perf}
 
 
@@ -1844,17 +1926,25 @@ def phase_mamba2(device, seed: int) -> dict:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
         if steps:
             logits, cache = model.prefill(x)
-            st = {"tok": logits[:, -1:].argmax(-1), "cache": cache}
+            st = {}
+
+            def start():
+                # decode updates the cache in place: each window from a copy
+                st["tok"] = logits[:, -1:].argmax(-1)
+                st["cache"] = clone_cache(cache)
 
             def one_step():
                 out, st["cache"] = model.decode_step(st["tok"], st["cache"])
                 st["tok"] = out[:, -1:].argmax(-1)
 
-            per_step = decode_ms(one_step, steps)
+            window = decode_window_ms(start, one_step, steps)
+            latency = decode_latency_ms(start, one_step, steps)
             tok, cache = st["tok"], st["cache"]
-            row["ms_per_decode_step"] = per_step["median"]
-            row["ms_per_decode_step_spread"] = per_step
-            row["generated_tokens_per_s"] = b / per_step["median"] * 1e3
+            row["ms_per_decode_step"] = window["median"]
+            row["ms_per_decode_step_spread"] = window
+            row["generated_tokens_per_s"] = b / window["median"] * 1e3
+            row["decode_step_latency_ms"] = latency["median"]
+            row["decode_step_latency_spread"] = latency
             dec = device_breakdown(lambda: model.decode_step(tok, cache),
                                    SSD_SYMBOL)
             row["decode_device_ms"] = dec["device_ms"]
@@ -1885,10 +1975,14 @@ def phase_mamba2(device, seed: int) -> dict:
                          "median host clock until prefill returns over 5, "
                          "no synchronize; "
                          "k4_calls_bound_ms: the bound summed over the "
-                         "prefill's K4 calls; decode: median host clock of "
-                         "each of 16 greedy steps from the prefill cache, "
-                         "each ending in a synchronize; decode_device_ms / "
-                         "decode_top: one step profiled"})
+                         "prefill's K4 calls; ms_per_decode_step / "
+                         "generated_tokens_per_s: host clock of a window of "
+                         "16 greedy steps from the prefill cache issued back "
+                         "to back, one synchronize at its end, per step, "
+                         "median over 5 windows; decode_step_latency_ms: "
+                         "median host clock of each of 16 steps, each ending "
+                         "in a synchronize; decode_device_ms / decode_top: "
+                         "one step profiled"})
     return {"launches": launches, "perf": perf}
 
 

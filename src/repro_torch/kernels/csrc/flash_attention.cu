@@ -51,7 +51,7 @@
 //   one exp2 on the SFU (16 a clock an SM) per 256 flops of the tensor
 //   cores, so the design overlaps it with them.
 //
-//   The launch plan -- variant, tile, stages, grid -- is made in Python
+//   The launch plan -- variant, tile, grid -- is made in Python
 //   (repro_torch/kernels/flash_attention.py, plan()).  These entry points
 //   check that a plan fits the shape and obey it; they choose nothing.
 //
@@ -73,7 +73,8 @@
 //       (a 128-byte box row is 64 bf16, so D = 128 takes two boxes a tile).
 //       A box never runs into the next sequence, and TMA's zero fill covers
 //       rows and keys past S.  K and V tiles of 128 keys go through a ring
-//       of `stages` slots with separate full / empty mbarriers for K and V,
+//       of tc_stages<D>() slots (3 at D = 64, 2 at D = 128; 2 to 6 ran
+//       alike at D = 64) with separate full / empty mbarriers for K and V,
 //       so S = Q K^T on a tile starts before its V has landed.  The ring
 //       runs on from one tile of queries to the next, and Q has its own
 //       full / empty pair: the next tile's Q, K and V load while the
@@ -104,7 +105,7 @@
 //       the fragments, rows past S not written.
 //
 //   flash_bf16_mma_kernel<HD, HV>   the other bf16 shapes (hd or hv = 32,
-//     hv != hd, views off 16 bytes): mma.sync.aligned.m16n8k16 from
+//     hv != hd): mma.sync.aligned.m16n8k16 from
 //     ldmatrix fragments, four warps per 64-query block, each owning 16
 //     rows; K and V tiles of 64 keys double-buffered by cp.async in
 //     row-padded shared memory; P re-used from the S fragments as above.
@@ -150,8 +151,7 @@ struct Params {
   int64_t os_b, os_s, os_h;
   float scale;
   int causal;
-  int stages;  // tensor-core kernel: slots of the K / V ring
-  int bh;      // tensor-core kernel: B * H
+  int bh;  // tensor-core kernel: B * H
 };
 
 // The (b * H + h, q-block) of tile `lin` of bh * nq: tiles run q-block by
@@ -343,21 +343,22 @@ constexpr int kTcThreads = 384;   // loader warpgroup + 2 consumer warpgroups
 constexpr int kTcConsumerWarps = 8;
 constexpr int kTcBoxBytes = 128 * 128;  // one box: 128 rows of 128 bytes
 
-// shared memory: Q, `stages` K and V slots, barriers, 1 KiB to align the
-// base to the swizzle's 1024-byte period
+// slots of the K / V ring: 3 at D = 64 (32 KB a K, V pair), 2 at D = 128
+// (64 KB a pair)
 template <int D>
-constexpr int tc_smem_bytes(int stages) {
-  return 1024 + (D / 64) * kTcBoxBytes * (1 + 2 * stages) +
-         (2 + 4 * stages) * 8;
+__host__ __device__ constexpr int tc_stages() {
+  return D == 64 ? 3 : 2;
 }
 
-// the most slots that fit in a block's 227 KB: 6 at D = 64, 3 at D = 128
+// shared memory: Q, the K and V slots, barriers, 1 KiB to align the base to
+// the swizzle's 1024-byte period
 template <int D>
-constexpr int tc_max_stages() {
-  int st = 2;
-  while (tc_smem_bytes<D>(st + 1) <= 232448) ++st;
-  return st;
+constexpr int tc_smem_bytes() {
+  return 1024 + (D / 64) * kTcBoxBytes * (1 + 2 * tc_stages<D>()) +
+         (2 + 4 * tc_stages<D>()) * 8;
 }
+static_assert(tc_smem_bytes<64>() <= 232448 && tc_smem_bytes<128>() <= 232448,
+              "a block's shared memory is 227 KB");
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -369,7 +370,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int kTile = (D / 64) * kTcBoxBytes;  // one Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int stages = p.stages;
+  constexpr int stages = tc_stages<D>();
   uint8_t* sQ = smem;
   uint8_t* sK = sQ + kTile;
   uint8_t* sV = sK + stages * kTile;
@@ -1188,7 +1189,7 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    int S, int H, int KV, const long long* st, float scale,
-                   int causal, int stages) {
+                   int causal) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.S = S; p.H = H; p.KV = KV;
@@ -1198,7 +1199,6 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.os_b = st[9]; p.os_s = st[10]; p.os_h = st[11];
   p.scale = scale;
   p.causal = causal;
-  p.stages = stages;
   p.bh = 0;  // set by the entry point that needs it
   return p;
 }
@@ -1241,12 +1241,10 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   auto kernel = flash_bf16_tc_kernel<D>;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = allow_smem(kernel, tc_smem_bytes<D>(tc_max_stages<D>()), device,
-                     &done);
+    err = allow_smem(kernel, tc_smem_bytes<D>(), device, &done);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((unsigned)gx, (unsigned)gy), kTcThreads,
-           tc_smem_bytes<D>(p.stages), (cudaStream_t)stream>>>(tm_q, tm_k,
-                                                               tm_v, p);
+  kernel<<<dim3((unsigned)gx, (unsigned)gy), kTcThreads, tc_smem_bytes<D>(),
+           (cudaStream_t)stream>>>(tm_q, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }
 
@@ -1256,21 +1254,19 @@ extern "C" {
 
 // Every entry point: q, k, v, o device pointers; B, S, H, KV, hd, hv;
 // strides: 12 element strides, (batch, seq, head) of q, k, v, o in order;
-// the softmax scale; causal; the plan: block_q x block_k tile, stages, grid
-// (gx, gy); the device and the stream.
+// the softmax scale; causal; the plan: block_q x block_k tile, grid (gx,
+// gy); the device and the stream.
 
-// bf16 on wgmma.  Plan: 128 x 128, stages in [2, 6] (D = 64) or [2, 3]
-// (D = 128), a persistent grid (gx, 1) of gx <= B*H * ceil(S / 128) blocks
-// that walk the tiles; hd == hv in {64, 128}, every row 16-byte aligned.
+// bf16 on wgmma.  Plan: 128 x 128, a persistent grid (gx, 1) of gx <= B*H *
+// ceil(S / 128) blocks that walk the tiles; hd == hv in {64, 128}, every
+// row 16-byte aligned.
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int H, int KV, int hd,
                             int hv, const long long* strides, float scale,
-                            int causal, int block_q, int block_k, int stages,
-                            int gx, int gy, int device, void* stream) {
+                            int causal, int block_q, int block_k, int gx,
+                            int gy, int device, void* stream) {
   const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
-  if (hd != hv || (hd != 64 && hd != 128) || stages < 2 ||
-      stages > (hd == 64 ? tc_max_stages<64>() : tc_max_stages<128>()) ||
-      B < 1 || S < 1 || KV < 1 || H % KV || block_q != kTcBM ||
+  if (hd != hv || (hd != 64 && hd != 128) || B < 1 || S < 1 || KV < 1 || H % KV || block_q != kTcBM ||
       block_k != kTcBN || gx < 1 || gx > n_tiles || gy != 1 ||
       !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
@@ -1279,42 +1275,38 @@ int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
       !encode_bshd(&tm_k, k, B, S, KV, hd, strides + 3, kTcBN) ||
       !encode_bshd(&tm_v, v, B, S, KV, hv, strides + 6, kTcBN))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal, stages);
+  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
   p.bh = B * H;
   return hd == 64 ? launch_tc<64>(tm_q, tm_k, tm_v, p, gx, gy, device, stream)
                   : launch_tc<128>(tm_q, tm_k, tm_v, p, gx, gy, device,
                                    stream);
 }
 
-// bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, 2 stages,
-// grid (B*H, ceil(S / 64)); every row 16-byte aligned.
+// bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid (B*H,
+// ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
                              void* o, int B, int S, int H, int KV, int hd,
                              int hv, const long long* strides, float scale,
-                             int causal, int block_q, int block_k, int stages,
-                             int gx, int gy, int device, void* stream) {
-  if (stages != 2 ||
-      !plan_fits(B, S, H, KV, block_q, block_k, kBQ, kBK, gx, gy) ||
+                             int causal, int block_q, int block_k, int gx,
+                             int gy, int device, void* stream) {
+  if (!plan_fits(B, S, H, KV, block_q, block_k, kBQ, kBK, gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal,
-                               stages);
+  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
   FLASH_DISPATCH(launch_mma)
 }
 
-// float32 on the CUDA cores, hd, hv in {32, 64, 128}.  Plan: 64 x 64, 2
-// stages, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
+// float32 on the CUDA cores, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid
+// (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int KV, int hd, int hv,
                         const long long* strides, float scale, int causal,
-                        int block_q, int block_k, int stages, int gx, int gy,
-                        int device, void* stream) {
-  if (stages != 2 ||
-      !plan_fits(B, S, H, KV, block_q, block_k, kFQ, kFK, gx, gy) ||
+                        int block_q, int block_k, int gx, int gy, int device,
+                        void* stream) {
+  if (!plan_fits(B, S, H, KV, block_q, block_k, kFQ, kFK, gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal,
-                               stages);
+  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
   FLASH_DISPATCH(launch_f32)
 }
 

@@ -15,12 +15,10 @@ Three variants, chosen by shape before any launch (``plan``), each counted
 under its own key of ``LAUNCHES``:
 
 * ``flash_attention_bf16_tc`` -- bf16 with ``hd == hv`` in ``TC_HEAD_DIMS``
-  and q, k, v 16-byte aligned (every model shape): ``wgmma`` tensor cores
-  fed by TMA, a loader warp and two consumer warpgroups over 128-row
-  blocks.
+  (every model shape): ``wgmma`` tensor cores fed by TMA, a loader warp and
+  two consumer warpgroups over 128-row blocks.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
-  ``hv != hd``, a view off 16 bytes): ``mma.sync`` tensor cores, 64-row
-  blocks.
+  ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
 * ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
 
 Beside them stands ``flash_attention_plain``: the reference kernel's own
@@ -55,9 +53,6 @@ F32 = "flash_attention_f32"
 # launches per variant since the last ``reset_launch_counts``
 LAUNCHES: Dict[str, int] = {TC: 0, MMA: 0, F32: 0}
 
-# The wgmma kernel's ring of K / V slots: 3 at head dim 64 (32 KB a slot
-# pair), 2 at 128 (64 KB a pair; a third would leave 2 KB of the 227 KB).
-TC_STAGES = {64: 3, 128: 2}
 # SMs of an H100 SXM: the plan's default card
 H100_SMS = 132
 
@@ -74,16 +69,14 @@ def launch_counts() -> Dict[str, int]:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one K3 call runs: the variant (its ``LAUNCHES`` key), the query
-    rows of a tile ``block_q``, the keys of a kv tile ``block_k``, the
-    shared-memory ``stages`` of the K / V ring, and the launch grid: (``B *
-    H``, q-blocks), one block a tile, or for the tensor-core variant
-    (blocks, 1), one persistent block an SM that walks the tiles.  Tiles
-    run q-block by q-block over every head, the heaviest q-block first under
-    causal."""
+    rows of a tile ``block_q``, the keys of a kv tile ``block_k``, and the
+    launch grid: (``B * H``, q-blocks), one block a tile, or for the
+    tensor-core variant (blocks, 1), one persistent block an SM that walks
+    the tiles.  Tiles run q-block by q-block over every head, the heaviest
+    q-block first under causal."""
     variant: str
     block_q: int
     block_k: int
-    stages: int
     grid: Tuple[int, int]
 
 
@@ -93,31 +86,26 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
-         dtype: torch.dtype, causal: bool, aligned: bool = True,
-         sms: int = H100_SMS) -> Plan:
+         dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
     """The launch plan of attention over q [b, s, h, hd], k [b, s, kv, hd],
-    v [b, s, kv, hv] in ``dtype`` on a card of ``sms`` SMs; ``aligned`` says
-    that q, k and v lie as the kernels read them in place
-    (``kernel_ready``).  A pure function of its arguments; ``causal``
-    changes no choice today (the kernels order their causal q-blocks
-    heaviest first themselves).
+    v [b, s, kv, hv] in ``dtype`` on a card of ``sms`` SMs, for operands
+    the kernels read in place (``kernel_ready``; the wrapper copies any
+    other first).  A pure function of its arguments.
 
-    bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
-    and the operands are aligned (what TMA needs), else the ``mma.sync``
-    variant; float32 takes the CUDA-core variant."""
-    del causal
-    if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS and aligned:
-        variant, bq, bk, stages = TC, 128, 128, TC_STAGES[hd]
+    bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``,
+    else the ``mma.sync`` variant; float32 takes the CUDA-core variant."""
+    if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS:
+        variant, bq, bk = TC, 128, 128
     elif dtype == torch.bfloat16:
-        variant, bq, bk, stages = MMA, 64, 64, 2
+        variant, bq, bk = MMA, 64, 64
     elif dtype == torch.float32:
-        variant, bq, bk, stages = F32, 64, 64, 2
+        variant, bq, bk = F32, 64, 64
     else:
         raise TypeError(f"no K3 variant for {dtype}")
     grid = (b * h, _cdiv(s, bq))
     if variant == TC:
         grid = (min(grid[0] * grid[1], sms), 1)
-    return Plan(variant, bq, bk, stages, grid)
+    return Plan(variant, bq, bk, grid)
 
 
 _bound = None
@@ -136,7 +124,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = ([vp] * 4 + [ci] * 6
                            + [ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ci] + [ci] * 5 + [ci, vp])
+                              ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
             fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -224,19 +212,18 @@ def kernel_ready(t: torch.Tensor) -> bool:
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels read it: itself where ``kernel_ready``, else a
-    contiguous copy."""
-    return t if kernel_ready(t) else t.contiguous()
+    copy in fresh contiguous memory (``contiguous()`` would hand back a
+    dense view whose base lies off 16 bytes as it is)."""
+    return t if kernel_ready(t) else t.clone(
+        memory_format=torch.contiguous_format)
 
 
-def plan_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             causal: bool = True) -> Plan:
-    """``plan`` for these tensors as given, with the SM count of their card
-    (``H100_SMS`` off the card): a view the kernels cannot read in place is
-    copied before the launch and takes the ``mma.sync`` route."""
+def plan_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """``plan`` for these tensors, with the SM count of their card
+    (``H100_SMS`` off the card)."""
     b, s, h, kv, hd, hv = _validate(q, k, v)
     sms = _sm_count(q.device) if q.device.type == "cuda" else H100_SMS
-    return plan(b, s, h, kv, hd, hv, q.dtype, bool(causal),
-                all(kernel_ready(t) for t in (q, k, v)), sms)
+    return plan(b, s, h, kv, hd, hv, q.dtype, sms)
 
 
 _SMS: Dict[int, int] = {}
@@ -268,12 +255,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got hd "
                          f"{hd}, hv {hv}")
-    p = plan_for(q, k, v, causal=causal)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    p = plan_for(q, k, v)
     gx, gy = p.grid
     if gx >= 2 ** 31 or gy > 65535:
         raise ValueError(f"B*H = {b * h} or S = {s} exceeds the kernel's "
                          "grid")
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
@@ -281,7 +268,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = getattr(lib, p.variant)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
         hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
-        p.block_k, p.stages, gx, gy, q.device.index,
+        p.block_k, gx, gy, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[p.variant] += 1
     if code != 0:

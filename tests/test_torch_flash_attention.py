@@ -152,7 +152,8 @@ def test_wrapper_rejects_mixed_dtypes():
 def test_kernel_operand_copies_only_what_the_kernel_cannot_read():
     """Dense-last-dim, 16-byte aligned BSHD views go to the kernel in place
     (a slice of the sequence or of the heads included); anything else is
-    copied to a contiguous tensor first."""
+    copied to fresh contiguous memory first, which the kernels read in
+    place -- a dense view whose base lies off 16 bytes too."""
     t = torch.zeros((2, 16, 4, 32), dtype=torch.bfloat16)
     assert k3._kernel_operand(t) is t
     assert k3._kernel_operand(t[:, 4:]).data_ptr() == t[:, 4:].data_ptr()
@@ -162,6 +163,12 @@ def test_kernel_operand_copies_only_what_the_kernel_cannot_read():
     assert k3._kernel_operand(swapped).is_contiguous()
     odd = torch.zeros((1, 8, 2, 33))[..., 1:]
     assert k3._kernel_operand(odd).data_ptr() != odd.data_ptr()
+    shifted = torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16)[1:].view(
+        1, 8, 2, 32)
+    assert shifted.is_contiguous() and not k3.kernel_ready(shifted)
+    for view in (odd, shifted):  # head sizes of whole 16 bytes
+        copy = k3._kernel_operand(view)
+        assert k3.kernel_ready(copy) and torch.equal(copy, view)
 
 
 def test_cuda_source_defines_the_bound_entry_points():
@@ -194,65 +201,69 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("shape,dtype,want", [
     # stablelm-1.6b prefills (a), (b): 32 heads of 64; the tensor-core
     # kernel runs one persistent block an SM over 1024 / 2048 tiles
-    ((1, 4096, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, 3, (132, 1))),
-    ((8, 1024, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, 3, (132, 1))),
+    ((1, 4096, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, (132, 1))),
+    ((8, 1024, 32, 32, 64, 64), BF16, (k3.TC, 128, 128, (132, 1))),
     # qwen3-14b prefill (c): 40 heads, 8 kv heads of 128: 640 tiles
-    ((1, 2048, 40, 8, 128, 128), BF16, (k3.TC, 128, 128, 2, (132, 1))),
+    ((1, 2048, 40, 8, 128, 128), BF16, (k3.TC, 128, 128, (132, 1))),
     # stablelm float32 prefill (d) and the float32 headline shape
-    ((2, 1024, 32, 32, 64, 64), F32, (k3.F32, 64, 64, 2, (64, 16))),
-    ((1, 4096, 32, 32, 64, 64), F32, (k3.F32, 64, 64, 2, (32, 64))),
+    ((2, 1024, 32, 32, 64, 64), F32, (k3.F32, 64, 64, (64, 16))),
+    ((1, 4096, 32, 32, 64, 64), F32, (k3.F32, 64, 64, (32, 64))),
     # a ragged S rounds the tiles up: 8 x 8, fewer than the SMs
-    ((2, 1000, 4, 2, 64, 64), BF16, (k3.TC, 128, 128, 3, (64, 1))),
-    ((2, 1000, 4, 2, 64, 64), F32, (k3.F32, 64, 64, 2, (8, 16))),
+    ((2, 1000, 4, 2, 64, 64), BF16, (k3.TC, 128, 128, (64, 1))),
+    ((2, 1000, 4, 2, 64, 64), F32, (k3.F32, 64, 64, (8, 16))),
 ])
 def test_plan_of_the_model_shapes(shape, dtype, want):
-    p = k3.plan(*shape, dtype, True)
-    assert (p.variant, p.block_q, p.block_k, p.stages, p.grid) == want
+    p = k3.plan(*shape, dtype)
+    assert (p.variant, p.block_q, p.block_k, p.grid) == want
 
 
-@pytest.mark.parametrize("shape,aligned", [
-    ((2, 128, 2, 2, 32, 32), True),      # hd 32
-    ((2, 256, 4, 2, 64, 32), True),      # hv != hd
-    ((2, 320, 2, 1, 32, 128), True),     # hd 32, hv != hd
-    ((2, 256, 4, 2, 128, 64), True),     # hv != hd, both tensor-core dims
-    ((1, 4096, 32, 32, 64, 64), False),  # a view off 16 bytes
+@pytest.mark.parametrize("shape", [
+    (2, 128, 2, 2, 32, 32),      # hd 32
+    (2, 256, 4, 2, 64, 32),      # hv != hd
+    (2, 320, 2, 1, 32, 128),     # hd 32, hv != hd
+    (2, 256, 4, 2, 128, 64),     # hv != hd, both tensor-core dims
+    (1, 4096, 32, 32, 32, 32),   # hd 32 at a model's size
 ])
-def test_plan_routes_the_rest_of_bf16_to_mma_sync(shape, aligned):
-    p = k3.plan(*shape, BF16, True, aligned)
+def test_plan_routes_the_rest_of_bf16_to_mma_sync(shape):
+    p = k3.plan(*shape, BF16)
     b, s, h = shape[:3]
-    assert (p.variant, p.block_q, p.block_k, p.stages) == (k3.MMA, 64, 64, 2)
+    assert (p.variant, p.block_q, p.block_k) == (k3.MMA, 64, 64)
     assert p.grid == (b * h, -(-s // 64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_plan_refuses_other_dtypes(dtype):
     with pytest.raises(TypeError):
-        k3.plan(1, 128, 2, 2, 64, 64, dtype, True)
+        k3.plan(1, 128, 2, 2, 64, 64, dtype)
 
 
 def test_plan_fits_the_persistent_grid_to_the_card():
-    p = k3.plan(1, 4096, 32, 32, 64, 64, BF16, True, True, 114)
+    p = k3.plan(1, 4096, 32, 32, 64, 64, BF16, 114)
     assert p.grid == (114, 1)
-    assert k3.plan(1, 4096, 32, 32, 64, 64, F32, True, True, 114).grid == \
-        (32, 64)
+    assert k3.plan(1, 4096, 32, 32, 64, 64, F32, 114).grid == (32, 64)
+    # fewer tiles than SMs: one block a tile
+    assert k3.plan(2, 7, 4, 2, 128, 128, BF16, 114).grid == (8, 1)
 
 
-def test_plan_is_pure_and_ignores_causal():
-    a = k3.plan(1, 2048, 40, 8, 128, 128, BF16, True)
-    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16, True) is a
-    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16, False) == a
+def test_plan_is_pure():
+    a = k3.plan(1, 2048, 40, 8, 128, 128, BF16)
+    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16) is a
+    assert k3.plan(1, 2048, 40, 8, 128, 128, BF16, k3.H100_SMS) == a
 
 
-def test_plan_for_reads_alignment_off_the_tensors_as_given():
-    """A dense, 16-byte aligned view plans the tensor-core kernel; a view
-    whose rows start off 16 bytes plans mma.sync (it is copied first)."""
+def test_plan_for_plans_the_operands_as_launched():
+    """Every view plans by shape and dtype alone: one the kernels cannot
+    read in place is copied to one they can before the launch, so a
+    misaligned bf16 view takes the tensor-core kernel like any other."""
     t = torch.zeros((1, 256, 6, 64), dtype=torch.bfloat16)
     q, k, v = t[:, :, :2], t[:, :, 2:4], t[:, :, 4:]
     assert k3.plan_for(q, k, v).variant == k3.TC
     odd = torch.zeros((1, 256, 2, 72), dtype=torch.bfloat16)[..., 4:68]
     assert not k3.kernel_ready(odd)
-    assert k3.plan_for(odd, k[:, :, :2], v[:, :, :2]).variant == k3.MMA
+    assert k3.kernel_ready(k3._kernel_operand(odd))
+    assert k3.plan_for(odd, k[:, :, :2], v[:, :, :2]).variant == k3.TC
     assert k3.plan_for(q.float(), k.float(), v.float()).variant == k3.F32
+    assert k3.plan_for(q[..., :32], k[..., :32], v[..., :32]).variant == k3.MMA
 
 
 def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
