@@ -254,6 +254,14 @@ def phase_build() -> None:
     if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
         raise AssertionError(f"K3's tensor-core kernel spills (or is "
                              f"missing from the ptxas report): {tc}")
+    out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
+    tiles = [r for r in out[k4.SOURCE]["kernels"]
+             if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
+    if {k for k in SSD_TILE_KERNELS if any(k in r["kernel"] for r in tiles)} \
+            != set(SSD_TILE_KERNELS) or any(
+                r["spill_stores"] or r["spill_loads"] for r in tiles):
+        raise AssertionError(f"K4's shared_cb kernels spill (or are missing "
+                             f"from the ptxas report): {tiles}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
 
@@ -1628,16 +1636,24 @@ SSD_DTYPES = (torch.bfloat16, torch.float32)
 # value that lies near a rounding boundary may round the other way
 SSD_TOL = 1e-5
 # (case, b, S, nh, hp, ds, chunk): tests/test_kernels.py's three cases
-# (b = 2), then mamba2-130m's heads at its two prefill shapes
+# (b = 2), a small shape of the shared_cb variant (ds 64, Q 128), then
+# mamba2-130m's heads at its two prefill shapes
 SSD_CASES = (
     ("test_kernels", 2, 128, 2, 16, 16, 32),
     ("test_kernels", 2, 256, 3, 16, 32, 64),
     ("test_kernels", 2, 128, 4, 32, 16, 128),
+    ("shared_cb_small", 2, 512, 3, 64, 64, 128),
     ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256),
     ("mamba2_b8_s1024", 8, 1024, 24, 64, 128, 256),
 )
 SSD_HEADLINE = "mamba2_b1_s4096"
-SSD_SYMBOL = "ssd_"       # K4's three __global__ functions
+SSD_SYMBOL = "ssd_"       # every K4 __global__ function's name starts so
+# the variant each case must plan, by the case name's start
+SSD_VARIANT = {"test_kernels": k4.GENERAL, "shared_cb_small": k4.SHARED_CB,
+               "mamba2": k4.SHARED_CB}
+# the shared_cb variant's kernels: ptxas must report no spills for them
+SSD_TILE_KERNELS = ("ssd_cb_bf16_kernel", "ssd_cb_f32_kernel",
+                    "ssd_state_tile_kernel", "ssd_output_tile_kernel")
 
 
 def bf16_ulp(x: float) -> float:
@@ -1652,53 +1668,89 @@ def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
     once per (b, chunk), ds Q (Q + 1) (ngroups == 1: all heads share it),
     and per (b, h, chunk) the masked product (C B^T . L) @ (x dt) over the
     lower triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
-    contribution.  ``tpu_kernel_operations`` is the TPU kernel's own count,
-    2 Q^2 ds + 2 Q^2 hp + 4 Q hp ds per (b, h, chunk): C B^T per head and
-    full Q x Q products."""
+    contribution.  ``units_bound_ms``: the same work at the rates of the
+    units the shared_cb variant runs it on -- C B^T of bf16 inputs on the
+    bf16 tensor cores (989 TFLOP/s), the rest on the float32 CUDA cores.
+    ``tpu_kernel_operations`` is the TPU kernel's own count, 2 Q^2 ds + 2
+    Q^2 hp + 4 Q hp ds per (b, h, chunk): C B^T per head and full Q x Q
+    products."""
     ei = torch.finfo(in_dtype).bits // 8
     eo = torch.finfo(out_dtype).bits // 8
     nc = s // q
     nbytes = ((b * s * nh * hp + 2 * b * s * ds) * ei + b * s * nh * 4
               + nh * 4 + b * s * nh * hp * eo + b * nh * hp * ds * 4)
-    ops_ = (b * nc * ds * q * (q + 1)
-            + b * nh * nc * (hp * q * (q + 1) + 4 * q * hp * ds))
-    out = bound(nbytes, ops_, torch.float32)
+    cb_ops = b * nc * ds * q * (q + 1)
+    rest_ops = b * nh * nc * (hp * q * (q + 1) + 4 * q * hp * ds)
+    out = bound(nbytes, cb_ops + rest_ops, torch.float32)
+    cb_rate = PEAK_FLOPS[torch.bfloat16 if in_dtype == torch.bfloat16
+                         else torch.float32]
+    out["units_bound_ms"] = max(
+        nbytes / PEAK_BYTES_PER_S,
+        cb_ops / cb_rate + rest_ops / PEAK_FLOPS[torch.float32]) * 1e3
     out["tpu_kernel_operations"] = b * nh * nc * (
         2 * q * q * ds + 2 * q * q * hp + 4 * q * hp * ds)
     return out
 
 
-def ssd_grid(b, s, nh, hp, ds, q) -> dict:
-    """The three launches of one K4 call and the blocks each fills, as the
-    kernel library lays them out."""
-    shape = k4.launch_shape(b, s, nh, hp, ds, q)
-    out = {name: {"grid": g, "blocks": g[0] * g[1] * g[2]}
-           for name, g in shape["grids"].items()}
-    smem = shape["smem_output"]
-    out["output"].update({"smem_bytes": smem,
-                          "blocks_per_sm_by_smem": shape["max_smem"] // smem})
-    out["threads_per_block"] = shape["threads_per_block"]
-    out["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
-    return out
+def ssd_grid(b, s, nh, hp, ds, q, dtype) -> dict:
+    """K4's plan at these sizes, held against what the kernel library
+    launches: the variant, each launch's grid, threads, dynamic shared
+    memory and blocks per SM; raises where the plan and the library
+    disagree."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = k4.plan(b, s, nh, hp, ds, q, dtype, sms)
+    shape = k4.launch_shape(b, s, nh, hp, ds, q, dtype)
+    got = {k: tuple(v["grid"]) for k, v in shape["launches"].items()}
+    if shape["variant"] != p.variant or got != p.grids:
+        raise AssertionError(f"K4 plan {p} disagrees with the library's "
+                             f"launches {shape}")
+    return {"variant": p.variant, "sms": sms,
+            "launches": {k: dict(v, blocks=int(np.prod(v["grid"])),
+                                 blocks_per_sm=p.blocks_per_sm[k])
+                         for k, v in shape["launches"].items()},
+            "scratch": {k: list(v) for k, v in p.scratch.items()}}
+
+
+def plain_cum(dt, A, q) -> torch.Tensor:
+    """The plain version's cum of every chunk, [b, nh, nc, Q]: dt * A in
+    float32, cumsum in float64, rounded to float32 once."""
+    b, s, nh = dt.shape
+    dA = (dt * A).reshape(b, s // q, q, nh).permute(0, 3, 1, 2)
+    return torch.cumsum(dA.double(), dim=-1).float()
 
 
 def ssd_case(gen, device, case, dtype) -> list:
     """K4 against its plain version on one shape, with float32 output (the
     model's path) and, for bf16 inputs, bf16 output (the reference kernel's
-    default); raises on disagreement.  The float32-output row is timed
-    beside the plain version and the bound; the model shapes also get K4's
-    device time."""
+    default); raises on disagreement, on a run that differs bitwise from a
+    second run, on a cum that differs from the plain version's, and on a
+    variant other than the one the case must plan.  The float32-output row
+    is timed beside the plain version and the bound; the model shapes also
+    get K4's device time, kernel by kernel."""
     name, b, s, nh, hp, ds, q = case
     x = torch.randn((b, s, nh, hp), generator=gen, device=device).to(dtype)
     dt = torch.rand((b, s, nh), generator=gen, device=device) * 0.19 + 0.01
     A = -(torch.rand((nh,), generator=gen, device=device) * 1.5 + 0.5)
     Bm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
     Cm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
+    grid = ssd_grid(b, s, nh, hp, ds, q, dtype)
+    want = next(v for k, v in SSD_VARIANT.items() if name.startswith(k))
+    if grid["variant"] != want:
+        raise AssertionError(f"K4 {name} {dtype} planned {grid['variant']}, "
+                             f"not {want}")
     rows = []
     for out in dict.fromkeys((torch.float32, dtype)):
-        y, st = k4.ssd_scan(x, dt, A, Bm, Cm, chunk=q, out_dtype=out)
+        y, st, scratch = k4.ssd_scan_with_scratch(x, dt, A, Bm, Cm, chunk=q,
+                                                  out_dtype=out)
+        y2, st2 = k4.ssd_scan(x, dt, A, Bm, Cm, chunk=q, out_dtype=out)
         yp, sp = k4.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=q, out_dtype=out)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError(f"K4 {name} {dtype} -> {out}: two runs "
+                                 f"differ")
+        if not torch.equal(scratch["cum"], plain_cum(dt, A, q)):
+            raise AssertionError(f"K4 {name} {dtype}: cum differs from the "
+                                 f"plain version's float64 cumsum")
         if tuple(y.shape) != (b, s, nh, hp) or y.dtype != out:
             raise AssertionError(f"K4 returned {tuple(y.shape)} {y.dtype}")
         if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
@@ -1713,38 +1765,77 @@ def ssd_case(gen, device, case, dtype) -> list:
                 f"|y diff| {err} (limit {limit}), state {s_err} of scale")
         row = {"case": name, "b": b, "S": s, "nh": nh, "hp": hp, "ds": ds,
                "Q": q, "dtype": SUFFIX[dtype], "out": SUFFIX[out],
-               "max_abs_err": err, "y_rel_err": err / scale,
-               "limit": limit, "state_rel_err": s_err}
+               "variant": grid["variant"], "max_abs_err": err,
+               "y_rel_err": err / scale, "limit": limit,
+               "state_rel_err": s_err, "twice_bitwise": True,
+               "cum_equal_plain": True}
         if out == torch.float32:
             bd = ssd_bound(b, s, nh, hp, ds, q, dtype, out)
-            big = s >= 1024
             row.update({
                 "ms": time_ms(lambda: k4.ssd_scan(
-                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out),
-                    10 if big else 20),
+                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out), 20),
                 "plain_ms": time_ms(lambda: k4.ssd_scan_plain(
                     x, dt, A, Bm, Cm, chunk=q, out_dtype=out), 3, warmup=1),
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "units_bound_ms": bd["units_bound_ms"],
                 "bytes": bd["bytes"], "operations": bd["operations"],
                 "tpu_kernel_operations": bd["tpu_kernel_operations"],
-                "library_ms": None, "device_ms": None,
-                "grid": ssd_grid(b, s, nh, hp, ds, q)})
+                "library_ms": None, "device_ms": None, "kernel_split": None,
+                "grid": grid})
             if name.startswith("mamba2"):
-                us = device_us({"k4": (lambda: k4.ssd_scan(
-                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out), SSD_SYMBOL)},
+                br = device_breakdown(lambda: k4.ssd_scan(
+                    x, dt, A, Bm, Cm, chunk=q, out_dtype=out), SSD_SYMBOL,
                     reps=5)
-                row["device_ms"] = None if us["k4"] is None \
-                    else us["k4"] / 1e3
+                row["device_ms"] = br["kernel_device_ms"]
+                row["kernel_split"] = {
+                    k[k.find(SSD_SYMBOL):][:80]: v
+                    for k, v in br["by_name"].items() if SSD_SYMBOL in k}
         rows.append(row)
     return rows
 
 
+def ssd_view_case(gen, device) -> dict:
+    """B and C as column slices of one tensor (in place, as the model
+    passes them) and x, B, C views whose base lies off 16 bytes (copied
+    before the shared_cb kernels read them): bitwise the output of the same
+    call on contiguous copies, one launch each."""
+    b, s, nh, hp, ds, q = 2, 512, 3, 64, 64, 128
+    dt = torch.rand((b, s, nh), generator=gen, device=device) * 0.19 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=device) * 1.5 + 0.5)
+    flat = torch.randn(8 + b * s * (nh * hp + 2 * ds), generator=gen,
+                       device=device).to(torch.bfloat16)
+    out = {}
+    for off in (0, 1):
+        xbc = flat[off:off + b * s * (nh * hp + 2 * ds)].view(
+            b, s, nh * hp + 2 * ds)
+        x = xbc[..., :nh * hp].view(b, s, nh, hp)
+        Bm = xbc[..., nh * hp:nh * hp + ds].view(b, s, 1, ds)
+        Cm = xbc[..., nh * hp + ds:].view(b, s, 1, ds)
+        ready = [k4.kernel_ready(t) for t in (x, Bm, Cm)]
+        if ready != [off == 0] * 3:
+            raise AssertionError(f"views at offset {off}: kernel_ready "
+                                 f"{ready}")
+        before = sum(k4.launch_counts().values())
+        y, st = k4.ssd_scan(x, dt, A, Bm, Cm, chunk=q)
+        ran = sum(k4.launch_counts().values()) - before
+        yc, stc = k4.ssd_scan(*(t.contiguous() for t in (x, dt, A, Bm, Cm)),
+                              chunk=q)
+        torch.cuda.synchronize()
+        if ran != 1 or not (torch.equal(y, yc) and torch.equal(st, stc)):
+            raise AssertionError(f"K4 on views at offset {off}: launches "
+                                 f"{ran}, bitwise {torch.equal(y, yc)}")
+        out[f"offset_{off}"] = {"kernel_ready": ready[0], "launches": ran,
+                                "bitwise_equal_to_contiguous": True}
+    return out
+
+
 def phase_ssd_scan(device, seed: int) -> dict:
     """K4 against ssd_scan_plain on the card, bf16 and float32 inputs: the
-    test_kernels.py cases (b = 2) and mamba2-130m's prefill shapes (nh 24,
-    hp 64, ds 128, Q 256 at B=1 S=4096 and B=8 S=1024), each timed beside
-    the plain version and the bound.  Returns the float32-output rows keyed
-    by (dtype, case name)."""
+    test_kernels.py cases (b = 2, the general variant), a small shared_cb
+    shape and mamba2-130m's prefill shapes (nh 24, hp 64, ds 128, Q 256 at
+    B=1 S=4096 and B=8 S=1024, shared_cb), each timed beside the plain
+    version and the bound; strided and misaligned views.  Returns the
+    float32-output rows keyed by (dtype, case)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     cases, rows = [], {}
     for dtype in SSD_DTYPES:
@@ -1752,21 +1843,30 @@ def phase_ssd_scan(device, seed: int) -> dict:
             out = ssd_case(gen, device, case, dtype)
             cases += out
             rows[(dtype, case)] = out[0]
+    views = ssd_view_case(gen, device)
     emit({"phase": "ssd_scan",
           "tolerance": {"f32_out": "max |K4 - plain| <= 1e-5 max |plain|, "
                                    "y and final state",
                         "bf16_out": "max |K4 - plain| <= one bf16 ulp of "
                                     "max |plain|"},
-          "cases": cases,
+          "cases": cases, "views": views,
+          "checks_note": "every case ran twice, bitwise equal; cum (the "
+                         "scratch) equal to the plain version's float64 "
+                         "cumsum rounded once; the variant as planned, the "
+                         "plan's grids as the library launches them",
           "timing_note": "ms: CUDA events around back-to-back calls after "
                          "warm-up (launch and wrapper included, inputs "
                          "L2-warm where they fit), float32 output; "
-                         "device_ms: K4's three kernels per call "
-                         "(torch.profiler), model shapes only; library: "
-                         "none, no PyTorch call computes the SSD scan; "
-                         "bound = max(bytes of x, dt, A, B, C, y, state / "
-                         "3.35 TB/s, the TPU kernel's operations / 67 "
-                         "TFLOP/s float32)"})
+                         "device_ms: K4's kernels per call "
+                         "(torch.profiler), model shapes only, "
+                         "kernel_split by kernel; library: none, no "
+                         "PyTorch call computes the SSD scan; bound = "
+                         "max(bytes of x, dt, A, B, C, y, state / 3.35 "
+                         "TB/s, the scan's least operations -- C B^T once "
+                         "per (b, chunk) and the products over the lower "
+                         "triangle -- / 67 TFLOP/s float32); units_bound "
+                         "= the same with C B^T of bf16 inputs at 989 "
+                         "TFLOP/s, the units shared_cb runs it on"})
     return rows
 
 
@@ -1921,7 +2021,9 @@ def phase_mamba2(device, seed: int) -> dict:
                "device_ms": br["device_ms"], "idle_share": None,
                "k4_device_ms": br["kernel_device_ms"],
                "k4_share": br["kernel_share"], "top": br["top"],
-               "k4_calls_bound_ms": cfg.num_layers * bd["bound_ms"]}
+               "k4_calls_bound_ms": cfg.num_layers * bd["bound_ms"],
+               "k4_calls_units_bound_ms":
+                   cfg.num_layers * bd["units_bound_ms"]}
         if br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
         if steps:
@@ -1974,8 +2076,8 @@ def phase_mamba2(device, seed: int) -> dict:
                          "= 1 - device_ms / ms_per_prefill; enqueue_ms: "
                          "median host clock until prefill returns over 5, "
                          "no synchronize; "
-                         "k4_calls_bound_ms: the bound summed over the "
-                         "prefill's K4 calls; ms_per_decode_step / "
+                         "k4_calls_bound_ms / k4_calls_units_bound_ms: "
+                         "the bounds summed over the prefill's K4 calls; ms_per_decode_step / "
                          "generated_tokens_per_s: host clock of a window of "
                          "16 greedy steps from the prefill cache issued back "
                          "to back, one synchronize at its end, per step, "
@@ -2005,17 +2107,20 @@ def ssd_rows(rows, mb) -> list:
                                if d == dtype),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "units_bound_ms": head["units_bound_ms"],
             "library_ms": None, "device_ms": head["device_ms"],
             "shape": "b=1, S=4096, nh=24, hp=64, ds=128, Q=256, "
                      "float32 output",
-            "grid": head["grid"],
+            "variant": head["variant"], "grid": head["grid"],
             "model_shapes": [{k: r[k] for k in (
                 "case", "b", "S", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "max_abs_err")} for (d, c), r in rows.items()
+                "bound_by", "units_bound_ms", "max_abs_err", "kernel_split")}
+                for (d, c), r in rows.items()
                 if d == dtype and c[0].startswith("mamba2")],
             "in_prefill": {run: {
                 "k4_device_ms": mb["perf"][run]["k4_device_ms"],
-                "bound_ms": mb["perf"][run]["k4_calls_bound_ms"]}
+                "bound_ms": mb["perf"][run]["k4_calls_bound_ms"],
+                "units_bound_ms": mb["perf"][run]["k4_calls_units_bound_ms"]}
                 for run in runs}})
     return out
 

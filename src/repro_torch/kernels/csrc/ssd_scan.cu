@@ -26,59 +26,76 @@
 //          dimension dense (B and C may be column slices of one tensor)
 //     out: y [b, S, nh, hp] (Tout, dense), final state [b, nh, hp, ds]
 //          (float32, dense)
-//     scratch: states [b, nh, nc, hp, ds] and cum [b, nh, nc, Q] (float32)
+//     scratch: states [b, nh, nc, hp, ds] and cum [b, nh, nc, Q] (float32);
+//          the shared-C B^T variant also cb [b, nc, Q, Q] (float32)
 //
 //   The TPU kernel runs a (b, nh, chunk) grid with the chunk axis sequential
 //   on one core, carrying the [hp, ds] state in VMEM across grid steps and
 //   holding the whole [Q, Q] decay matrix L and C B^T per step.  On Hopper
 //   that design would give b * nh blocks (24 of 132 SMs at B = 1) and, at
 //   the model's chunk Q = 256, two float32 [256, 256] matrices of 256 KB
-//   each, above a block's 227 KB of shared memory.  So the one scan is three
-//   kernels here, the decomposition of the reference's ssd_chunked:
+//   each, above a block's 227 KB of shared memory.  So the one scan is
+//   several kernels here, the decomposition of the reference's ssd_chunked.
 //
-//   1. ssd_chunk_state_kernel, grid (nc, b * nh): cum of the chunk
-//      (accumulated in double, rounded to float once per element: the
-//      plain version does the same, so both take the decay exponents from
-//      the same float values) written to scratch, and the chunk's own
-//      contribution ((x dt) exp(cum[-1] - cum))^T @ B written to states,
-//      as 64 x 64 output tiles over 64-step slices of the chunk.
-//   2. ssd_state_pass_kernel, grid (ceil(hp ds / 256), b * nh): one thread
-//      per state element walks the chunks in order, replaces each chunk's
+//   What bounds it on an H100: operations.  The scan needs, per (b, chunk),
+//   C B^T over the lower triangle, ds Q (Q + 1) flops (shared by all heads
+//   when ngroups == 1), and per (b, h, chunk) the masked product over the
+//   lower triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
+//   contribution: at mamba2-130m's B = 1, S = 4096, nh = 24, hp = 64,
+//   ds = 128, Q = 256 that is 5.0 GFLOP on ~41 MB, ~120 flops per byte,
+//   above the float32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20).  Three
+//   of the four products have float32 operands (C B^T (.) L, x dt, the
+//   state) and are held to 1e-5 of scale: one rounding of such an operand
+//   to TF32 or bf16 breaks that, so they run on the float32 CUDA cores.
+//   C B^T of bf16 inputs is exact product by product in float32 and runs
+//   on the bf16 tensor cores.
+//
+//   Two variants, picked by shape in Python (kernels/ssd_scan.py::plan):
+//
+//   shared_cb (hp == 64, ds % 64 == 0, ds <= 256, Q % 64 == 0, Q <= 256:
+//   every mamba2-130m shape), four launches:
+//   0. ssd_cb_bf16_kernel / ssd_cb_f32_kernel, grid (lower-triangle tiles,
+//      b * nc): C B^T once per (b, chunk) for all heads, only the 64 x 64
+//      tiles on or below the diagonal, into the cb scratch (4 MB at B = 1,
+//      S = 4096: L2 holds it).  bf16: mma.sync m16n8k16 with float32
+//      accumulation, each warp 16 rows x 64 columns.  float32: the CUDA-core
+//      tile below.
+//   1. ssd_state_tile_kernel, grid (nc, b * nh, ds / 64): cum by a float64
+//      warp scan, written to scratch; the chunk's contribution
+//      ((x dt) exp(cum[-1] - cum))^T @ B for one 64-column slice of ds.
+//   2. ssd_state_pass_kernel<4>: the general variant's pass (below), four
+//      state elements a thread in one 16-byte access.
+//   3. ssd_output_tile_kernel, grid (nc, b * nh, Q / 64), the heaviest row
+//      tiles issued first: y of 64 rows x hp as one product over
+//      K = ds + (the row tile's end): (C exp(cum_i)) against the entering
+//      state, then (C B^T (.) L) against (x dt), C B^T read from the cb
+//      scratch; L is exp'd per element while the slice is staged, the
+//      diagonal tile masked by a select.
+//   The CUDA-core products (kernels 1, 3, and 0 in float32) share one block
+//   tile: 128 threads, a 64 x 64 output, K in slices of 16 staged through
+//   two shared buffers (the next slice's loads in flight in registers
+//   while the current one is multiplied), an 8 x 4 register tile per
+//   thread fed by 16-byte shared loads, 32 FMA per three LDS.128.  The
+//   loaders read 16 bytes (8 for bf16 quarters) at a time: the wrapper
+//   hands this variant operands whose base and strides lie on 16 bytes.
+//
+//   general (every other shape; the test and reduced-model shapes), three
+//   launches, each thread a 4 x 4 register tile from scalar shared loads:
+//   1. ssd_chunk_state_kernel, grid (nc, b * nh): cum (float64 warp scan)
+//      and the chunk's contribution to states, 64 x 64 output tiles.
+//   2. ssd_state_pass_kernel<1>, grid (ceil(hp ds / 256), b * nh): one
+//      thread per state element walks the chunks in order (the loads of
+//      four chunks issued ahead), replaces each chunk's
 //      contribution by the state ENTERING that chunk, and carries
 //      state = state * exp(cum[-1]) + contribution, the TPU kernel's
 //      association; the last value is the final state.
 //   3. ssd_output_kernel, grid (ceil(Q / 64), nc, b * nh): one block per
-//      64-row tile of one chunk.  y_off = exp(cum_i) (C_i . state_p), then
-//      for each 64-key tile j <= the row tile: the C B^T tile from shared
-//      C and B rows, times L recomputed from cum, exp only where i >= j
-//      (i < j gives 0 without evaluating exp, which could overflow), then
-//      added into y by a product with the (x dt) tile.  L and C B^T never
-//      exist whole: one 64 x 64 tile of their product lives in shared
-//      memory at a time.  Row tiles are issued heaviest first (the last
-//      row tile of a chunk sees every key tile).
+//      64-row tile of one chunk; C B^T rebuilt per head and key tile.
 //
-//   Shared memory of kernel 3: C rows and B rows (or state rows) [64][ld]
-//   each, ld = ds rounded up to odd so that 16 rows fall in 16 banks; the
-//   (x dt) tile [64][64]; the masked C B^T tile [64][65]; cum [<= Q].  At
-//   ds = 128, Q = 256: 100 KB, two blocks per SM; above 48 KB it needs the
-//   dynamic-shared-memory opt-in, set before every launch.
-//
-//   Each block has 256 threads as a 16 x 16 grid; every product is a 64 x 64
-//   output tile with a 4 x 4 register tile per thread (rows ty + 16 a,
-//   columns tx + 16 b), from shared memory, on the CUDA cores in float32 for
-//   both input types.  hp > 64 and ds > 64 loop over 64-wide column tiles.
-//
-//   Bound on an H100: operations.  The scan needs, per (b, chunk), C B^T
-//   over the lower triangle, ds Q (Q + 1) flops (shared by all heads when
-//   ngroups == 1), and per (b, h, chunk) the masked product over the lower
-//   triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
-//   contribution: at mamba2-130m's B = 1, S = 4096, nh = 24, hp = 64,
-//   ds = 128, Q = 256 that is 5.0 GFLOP on ~41 MB, ~120 flops per byte,
-//   above the float32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20).  The
-//   TPU kernel does 12.9 GFLOP (C B^T per head, full Q x Q products); this
-//   version skips the tiles above the diagonal but recomputes C B^T per
-//   head (~9.3 GFLOP).  What it leaves for later: C B^T once per (b, chunk)
-//   for all heads, bf16 mma / wgmma for C B^T, fusing the three kernels.
+//   cum is accumulated in float64 and rounded to float32 once per element,
+//   as the plain version does: every partial sum of float values of one
+//   chunk whose exponents span less than 53 - log2(Q) bits is exact in
+//   float64, so the warp scan gives the serial loop's floats.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -89,9 +106,11 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kThreads = 256;  // general variant: 16 x 16
 constexpr int kTile = 64;      // rows, keys and columns of one output tile
 constexpr int kMaxSmem = 232448;
+
+enum Variant { kGeneral = 0, kSharedCb = 1 };
 
 struct Params {
   const void* x;
@@ -103,6 +122,7 @@ struct Params {
   float* final_state;
   float* states;
   float* cum;
+  float* cb;
   int nh, hp, ds, Q, nc;
   long long xs_b, xs_s, xs_h;     // x strides (batch, seq, head)
   long long dts_b, dts_s, dts_h;  // dt strides
@@ -122,6 +142,38 @@ __device__ __forceinline__ void store(float* p, long long i, float v) {
 __device__ __forceinline__ void store(bf16* p, long long i, float v) {
   p[i] = __float2bfloat16(v);
 }
+
+// ---- cum of one chunk: float64 warp scan ----------------------------------
+
+// v[0..Q) holds dt * A of the chunk's steps; on return (after the caller's
+// __syncthreads) it holds their cumsum, accumulated in float64 and rounded
+// to float once per element.  Warp 0 works; each lane sums a run of
+// consecutive steps, the lanes' totals are scanned by shuffles, and each
+// lane then walks its run again from its exclusive prefix.
+__device__ __forceinline__ void chunk_cumsum(float* v, int Q) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int per = (Q + 31) / 32;
+  const int q0 = min(lane * per, Q), q1 = min(q0 + per, Q);
+  double own = 0.0;
+  for (int q = q0; q < q1; ++q) own += (double)v[q];
+  double incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  double run = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) run = 0.0;
+  for (int q = q0; q < q1; ++q) {
+    run += (double)v[q];
+    v[q] = (float)run;
+  }
+}
+
+// ===========================================================================
+// general variant
+// ===========================================================================
 
 // ---- 1. per-chunk cum and the chunk's own state contribution ------------
 
@@ -150,13 +202,7 @@ ssd_chunk_state_kernel(Params p) {
     cum[q] = d * a;
   }
   __syncthreads();
-  if (tid == 0) {
-    double run = 0.0;
-    for (int q = 0; q < Q; ++q) {
-      run += (double)cum[q];
-      cum[q] = (float)run;
-    }
-  }
+  chunk_cumsum(cum, Q);
   __syncthreads();
   float* cum_g = p.cum + ((long long)bh * p.nc + c) * Q;
   const float cend = cum[Q - 1];
@@ -211,23 +257,60 @@ ssd_chunk_state_kernel(Params p) {
   }
 }
 
-// ---- 2. the sequential pass over chunks ----------------------------------
+// ---- 2. the sequential pass over chunks (both variants) ------------------
 
+// V consecutive state elements per thread (4: one 16-byte access, when
+// hp ds is a multiple of 4; else 1); the loads of four chunks are issued
+// before the carried update walks them.
+template <int V>
+__device__ __forceinline__ void load_v(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
+}
+
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 ssd_state_pass_kernel(Params p) {
   const int bh = blockIdx.y;
   const long long n = (long long)p.hp * p.ds;
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * V;
   if (e >= n) return;
-  float* st = p.states + (long long)bh * p.nc * n + e;
-  const float* cum = p.cum + (long long)bh * p.nc * p.Q;
-  float run = 0.f;
-  for (int c = 0; c < p.nc; ++c) {
-    const float contrib = st[c * n];
-    st[c * n] = run;                 // the state entering chunk c
-    run = run * expf(cum[(long long)c * p.Q + p.Q - 1]) + contrib;
+  float* __restrict__ st = p.states + (long long)bh * p.nc * n + e;
+  const float* __restrict__ cum = p.cum + (long long)bh * p.nc * p.Q;
+  float run[V] = {};
+  for (int c0 = 0; c0 < p.nc; c0 += 4) {
+    float v[4][V], g[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (c0 + u < p.nc) {
+        load_v(v[u], st + (c0 + u) * n);
+        g[u] = expf(cum[(long long)(c0 + u) * p.Q + p.Q - 1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (c0 + u < p.nc) {
+        store_v(st + (c0 + u) * n, run);   // the state entering the chunk
+#pragma unroll
+        for (int i = 0; i < V; ++i) run[i] = run[i] * g[u] + v[u][i];
+      }
+    }
   }
-  p.final_state[bh * n + e] = run;
+  store_v(p.final_state + bh * n + e, run);
 }
 
 // ---- 3. the outputs, per 64-row tile of a chunk --------------------------
@@ -380,6 +463,447 @@ ssd_output_kernel(Params p) {
   }
 }
 
+// ===========================================================================
+// shared_cb variant
+// ===========================================================================
+
+constexpr int kNT = 128;                 // threads of a tile block
+constexpr int kBM = 64, kBN = 64, kBK = 16;
+constexpr int kMaxQ = 256;               // the variant's largest chunk
+
+// Four consecutive elements, loaded in one 16-byte (float) or 8-byte (bf16)
+// access; get(i) converts element i to float.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+template <> struct Vec4<bf16> {
+  uint2 v;
+  __device__ __forceinline__ void load(const bf16* p) {
+    v = *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    const uint32_t w = i < 2 ? v.x : v.y;
+    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+// One block tile's shared slices, double-buffered: A k-major a[k][m], B
+// b[k][n]; thread (ty = tid / 16, tx = tid % 16) owns rows 8 ty .. 8 ty + 7
+// and columns 4 tx .. 4 tx + 3 of the 64 x 64 output.
+struct TileSmem {
+  float a[2][kBK][kBM];
+  float b[2][kBK][kBN];
+};
+
+// Two ways a thread stages its 8 elements of a 16 x 64 slice:
+//   row pattern (kk = tid / 8, q = tid % 8): slice row kk, columns 4 q ..
+//     4 q + 3 and 32 + 4 q .. 32 + 4 q + 3, from a source row k0 + kk whose
+//     64 columns are the slice's columns;
+//   transposed pattern (m = tid % 64, hh = tid / 64): slice column m, rows
+//     8 hh .. 8 hh + 7, from source row m at columns k0 + 8 hh .. + 7.
+__device__ __forceinline__ void put_row(float (*s)[kBN], const float v[8]) {
+  const int kk = threadIdx.x >> 3, q = threadIdx.x & 7;
+  *reinterpret_cast<float4*>(&s[kk][4 * q]) =
+      make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(&s[kk][32 + 4 * q]) =
+      make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void put_transposed(float (*s)[kBM],
+                                               const float v[8]) {
+  const int m = threadIdx.x & 63, hh = threadIdx.x >> 6;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[8 * hh + j][m] = v[j];
+}
+
+// acc += A B over nk slices of 16, F staging them: F::fetch(kt) issues the
+// global loads of slice kt into registers, F::put(a, b) turns them into the
+// slice in shared memory.  The loads of slice kt + 1 are in flight while
+// slice kt is multiplied.  Ends on a __syncthreads, so a second call may
+// follow at once.
+template <typename F>
+__device__ __forceinline__ void tile_mainloop(F& f, int nk, TileSmem& sm,
+                                              float (&acc)[8][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  f.fetch(0);
+  f.put(sm.a[0], sm.b[0]);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) f.fetch(kt + 1);
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[cur][k][8 * ty]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&sm.a[cur][k][8 * ty + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[cur][k][4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+    if (kt + 1 < nk) f.put(sm.a[cur ^ 1], sm.b[cur ^ 1]);
+    __syncthreads();
+  }
+}
+
+// ---- 0. C B^T once per (b, chunk), lower-triangle 64 x 64 tiles ----------
+
+// (row tile, column tile) of lower-triangle tile `idx`, row-major order
+__device__ __forceinline__ void tri_tile(int idx, int& ti, int& tj) {
+  ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= idx) ++ti;
+  tj = idx - ti * (ti + 1) / 2;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// bf16 inputs: the products C[i, s] B[j, s] are exact in float32; the
+// tensor cores sum them with float32 accumulation.  C and B rows of the
+// tile in shared memory, ld = ds + 8 bf16 (ds / 2 + 4 words: the 32 lanes'
+// fragment words fall in 32 banks).  Warp w: rows 16 w .. 16 w + 15, all
+// 64 columns as 8 n-tiles of m16n8k16.
+int cb_bf16_smem_bytes(int ds) { return 2 * kBM * (ds + 8) * 2; }
+
+__global__ void __launch_bounds__(kNT)
+ssd_cb_bf16_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smcb[];
+  const int Q = p.Q, ds = p.ds, ld = ds + 8;
+  int ti, tj;
+  tri_tile(blockIdx.x, ti, tj);
+  const int bc = blockIdx.y, b = bc / p.nc, c = bc % p.nc;
+  const long long t0 = (long long)c * Q;
+  const bf16* Cp = static_cast<const bf16*>(p.C);
+  const bf16* Bp = static_cast<const bf16*>(p.B);
+  bf16* Cs = reinterpret_cast<bf16*>(smcb);
+  bf16* Bs = Cs + kBM * ld;
+  const int chunks = ds / 8;
+  for (int i = threadIdx.x; i < kBM * chunks; i += kNT) {
+    const int r = i / chunks, k8 = (i % chunks) * 8;
+    *reinterpret_cast<uint4*>(&Cs[r * ld + k8]) =
+        *reinterpret_cast<const uint4*>(
+            Cp + b * p.cs_b + (t0 + ti * kBM + r) * p.cs_s + k8);
+    *reinterpret_cast<uint4*>(&Bs[r * ld + k8]) =
+        *reinterpret_cast<const uint4*>(
+            Bp + b * p.bs_b + (t0 + tj * kBN + r) * p.bs_s + k8);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g;
+  float acc[8][4] = {};
+  for (int k0 = 0; k0 < ds; k0 += 16) {
+    const int ka = k0 + 2 * t;
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(&Cs[ra * ld + ka]);
+    const uint32_t a1 =
+        *reinterpret_cast<const uint32_t*>(&Cs[(ra + 8) * ld + ka]);
+    const uint32_t a2 =
+        *reinterpret_cast<const uint32_t*>(&Cs[ra * ld + ka + 8]);
+    const uint32_t a3 =
+        *reinterpret_cast<const uint32_t*>(&Cs[(ra + 8) * ld + ka + 8]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int rb = 8 * n + g;
+      const uint32_t b0 =
+          *reinterpret_cast<const uint32_t*>(&Bs[rb * ld + ka]);
+      const uint32_t b1 =
+          *reinterpret_cast<const uint32_t*>(&Bs[rb * ld + ka + 8]);
+      mma_bf16(acc[n], a0, a1, a2, a3, b0, b1);
+    }
+  }
+  float* out = p.cb + ((long long)bc * Q + ti * kBM + ra) * Q + tj * kBN;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(out + 8 * Q + 8 * n + 2 * t) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// float32 inputs: the CUDA-core tile, A = C rows, B = B rows, both staged
+// transposed (k = s).
+struct CbF32Fetch {
+  const float* crow;   // C row ti * 64 + m of the chunk
+  const float* brow;   // B row tj * 64 + m
+  float4 c0, c1, b0, b1;
+  __device__ __forceinline__ void fetch(int kt) {
+    const int k = kt * kBK + 8 * (threadIdx.x >> 6);
+    c0 = *reinterpret_cast<const float4*>(crow + k);
+    c1 = *reinterpret_cast<const float4*>(crow + k + 4);
+    b0 = *reinterpret_cast<const float4*>(brow + k);
+    b1 = *reinterpret_cast<const float4*>(brow + k + 4);
+  }
+  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+    const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    put_transposed(a, cv);
+    put_transposed(b, bv);
+  }
+};
+
+__global__ void __launch_bounds__(kNT)
+ssd_cb_f32_kernel(Params p) {
+  __shared__ __align__(16) TileSmem sm;
+  const int Q = p.Q;
+  int ti, tj;
+  tri_tile(blockIdx.x, ti, tj);
+  const int bc = blockIdx.y, b = bc / p.nc, c = bc % p.nc;
+  const long long t0 = (long long)c * Q;
+  const int m = threadIdx.x & 63;
+  CbF32Fetch f;
+  f.crow = static_cast<const float*>(p.C) + b * p.cs_b +
+           (t0 + ti * kBM + m) * p.cs_s;
+  f.brow = static_cast<const float*>(p.B) + b * p.bs_b +
+           (t0 + tj * kBN + m) * p.bs_s;
+  float acc[8][4] = {};
+  tile_mainloop(f, p.ds / kBK, sm, acc);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* out = p.cb + ((long long)bc * Q + ti * kBM + 8 * ty) * Q +
+               tj * kBN + 4 * tx;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<float4*>(out + (long long)r * Q) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
+// ---- 1. cum and the chunk's contribution, per 64-column slice of ds ------
+
+// A = (x dt) dec [q][p] (row pattern), B = B [q][s0 + n] (row pattern)
+template <typename Tin>
+struct StateFetch {
+  const Tin* x;        // x at (b, chunk start, h)
+  const Tin* bm;       // B at (b, chunk start) + s0
+  long long xs, bs;    // x and B step strides
+  const float* dts;    // shared [Q]
+  const float* dec;    // shared [Q]
+  Vec4<Tin> x0, x1, b0, b1;
+  int q;
+  __device__ __forceinline__ void fetch(int kt) {
+    const int kk = threadIdx.x >> 3, c4 = 4 * (threadIdx.x & 7);
+    q = kt * kBK + kk;
+    x0.load(x + q * xs + c4);
+    x1.load(x + q * xs + 32 + c4);
+    b0.load(bm + q * bs + c4);
+    b1.load(bm + q * bs + 32 + c4);
+  }
+  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+    const float d = dts[q], e = dec[q];
+    float w[8], v[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = (x0.get(i) * d) * e;
+      w[4 + i] = (x1.get(i) * d) * e;
+      v[i] = b0.get(i);
+      v[4 + i] = b1.get(i);
+    }
+    put_row(a, w);
+    put_row(b, v);
+  }
+};
+
+template <typename Tin>
+__global__ void __launch_bounds__(kNT)
+ssd_state_tile_kernel(Params p) {
+  __shared__ __align__(16) TileSmem sm;
+  __shared__ float dts[kMaxQ], cum[kMaxQ], dec[kMaxQ];
+  const int Q = p.Q;
+  const int c = blockIdx.x, bh = blockIdx.y, s0 = blockIdx.z * kBN;
+  const int b = bh / p.nh, h = bh % p.nh;
+  const long long t0 = (long long)c * Q;
+  const float a = p.A[h];
+  for (int q = threadIdx.x; q < Q; q += kNT) {
+    const float d = p.dt[b * p.dts_b + (t0 + q) * p.dts_s + h * p.dts_h];
+    dts[q] = d;
+    cum[q] = d * a;
+  }
+  __syncthreads();
+  chunk_cumsum(cum, Q);
+  __syncthreads();
+  const float cend = cum[Q - 1];
+  float* cum_g = p.cum + ((long long)bh * p.nc + c) * Q;
+  for (int q = threadIdx.x; q < Q; q += kNT) {
+    if (blockIdx.z == 0) cum_g[q] = cum[q];
+    dec[q] = expf(cend - cum[q]);
+  }
+  __syncthreads();
+
+  StateFetch<Tin> f;
+  f.x = static_cast<const Tin*>(p.x) + b * p.xs_b + t0 * p.xs_s +
+        h * p.xs_h;
+  f.bm = static_cast<const Tin*>(p.B) + b * p.bs_b + t0 * p.bs_s + s0;
+  f.xs = p.xs_s;
+  f.bs = p.bs_s;
+  f.dts = dts;
+  f.dec = dec;
+  float acc[8][4] = {};
+  tile_mainloop(f, Q / kBK, sm, acc);
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* out = p.states + (((long long)bh * p.nc + c) * p.hp + 8 * ty) *
+                              p.ds + s0 + 4 * tx;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<float4*>(out + (long long)r * p.ds) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
+// ---- 3. y per 64-row tile: one product over K = ds + the row tile's end --
+
+// y_off: A = C[i][s] exp(cum_i) (transposed), B = state[p][s] (transposed)
+template <typename Tin>
+struct YoffFetch {
+  const Tin* crow;     // C row r0 + m
+  const float* srow;   // entering state, row p = m
+  float e;             // exp(cum[r0 + m])
+  Vec4<Tin> c0, c1;
+  float4 s0, s1;
+  __device__ __forceinline__ void fetch(int kt) {
+    const int k = kt * kBK + 8 * (threadIdx.x >> 6);
+    c0.load(crow + k);
+    c1.load(crow + k + 4);
+    s0 = *reinterpret_cast<const float4*>(srow + k);
+    s1 = *reinterpret_cast<const float4*>(srow + k + 4);
+  }
+  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+    float cv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cv[i] = c0.get(i) * e;
+      cv[4 + i] = c1.get(i) * e;
+    }
+    const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    put_transposed(a, cv);
+    put_transposed(b, sv);
+  }
+};
+
+// y_diag: A = C B^T[i][j] L[i][j] (transposed; 0 where j > i, by select),
+// B = x[j][p] dt[j] (row pattern)
+template <typename Tin>
+struct DiagFetch {
+  const float* cbrow;  // C B^T row i = r0 + m of the chunk
+  const Tin* x;        // x at (b, chunk start, h)
+  const float* dt;     // dt at (b, chunk start, h)
+  long long xs, dts;
+  const float* cum;    // shared cum of the chunk
+  float cum_i;
+  int i;
+  float4 cb0, cb1;
+  Vec4<Tin> x0, x1;
+  float d;
+  int j0, j;
+  __device__ __forceinline__ void fetch(int kt) {
+    j0 = kt * kBK + 8 * (threadIdx.x >> 6);
+    cb0 = *reinterpret_cast<const float4*>(cbrow + j0);
+    cb1 = *reinterpret_cast<const float4*>(cbrow + j0 + 4);
+    j = kt * kBK + (threadIdx.x >> 3);
+    const int c4 = 4 * (threadIdx.x & 7);
+    x0.load(x + j * xs + c4);
+    x1.load(x + j * xs + 32 + c4);
+    d = dt[j * dts];
+  }
+  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+    const float cb[8] = {cb0.x, cb0.y, cb0.z, cb0.w,
+                         cb1.x, cb1.y, cb1.z, cb1.w};
+    float pv[8], xv[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      // above the diagonal cum_i - cum_j > 0 may overflow exp: the select
+      // drops it
+      const float v = cb[k] * expf(cum_i - cum[j0 + k]);
+      pv[k] = j0 + k <= i ? v : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      xv[k] = x0.get(k) * d;
+      xv[4 + k] = x1.get(k) * d;
+    }
+    put_transposed(a, pv);
+    put_row(b, xv);
+  }
+};
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kNT)
+ssd_output_tile_kernel(Params p) {
+  __shared__ __align__(16) TileSmem sm;
+  __shared__ float cum[kMaxQ];
+  const int Q = p.Q, ds = p.ds;
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int rt = gridDim.z - 1 - blockIdx.z;   // heaviest row tiles first
+  const int b = bh / p.nh, h = bh % p.nh;
+  const int r0 = rt * kBM, kend = r0 + kBM;
+  const long long t0 = (long long)c * Q;
+  const float* cum_g = p.cum + ((long long)bh * p.nc + c) * Q;
+  for (int i = threadIdx.x; i < kend; i += kNT) cum[i] = cum_g[i];
+  __syncthreads();
+  const int m = threadIdx.x & 63;
+  float acc[8][4] = {};
+  {
+    YoffFetch<Tin> f;
+    f.crow = static_cast<const Tin*>(p.C) + b * p.cs_b +
+             (t0 + r0 + m) * p.cs_s;
+    f.srow = p.states + (((long long)bh * p.nc + c) * p.hp + m) * ds;
+    f.e = expf(cum[r0 + m]);
+    tile_mainloop(f, ds / kBK, sm, acc);
+  }
+  {
+    DiagFetch<Tin> f;
+    f.cbrow = p.cb + ((long long)(b * p.nc + c) * Q + r0 + m) * Q;
+    f.x = static_cast<const Tin*>(p.x) + b * p.xs_b + t0 * p.xs_s +
+          h * p.xs_h;
+    f.dt = p.dt + b * p.dts_b + t0 * p.dts_s + h * p.dts_h;
+    f.xs = p.xs_s;
+    f.dts = p.dts_s;
+    f.cum = cum;
+    f.i = r0 + m;
+    f.cum_i = cum[r0 + m];
+    tile_mainloop(f, kend / kBK, sm, acc);
+  }
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long ys = (long long)p.nh * p.hp;
+  Tout* y = static_cast<Tout*>(p.y) +
+            ((long long)b * p.nc * Q + t0 + r0 + 8 * ty) * ys +
+            (long long)h * p.hp + 4 * tx;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    Tout* row = y + r * ys;
+    if constexpr (sizeof(Tout) == 4) {
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    } else {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(acc[r][0], acc[r][1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(acc[r][2], acc[r][3]);
+      uint2 w;
+      w.x = *reinterpret_cast<uint32_t*>(&lo);
+      w.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(row) = w;
+    }
+  }
+}
+
+// ===========================================================================
+// launches
+// ===========================================================================
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -389,50 +913,106 @@ int set_smem(K kernel, int bytes) {
   return 0;
 }
 
-// The grids and dynamic shared memory (bytes) of one call's three launches.
+// One call's launches, in order: C B^T (shared_cb only; else a zero grid),
+// the chunk states, the pass, the outputs; grid, threads and dynamic
+// shared memory (bytes) of each.
+struct Launch {
+  dim3 grid;
+  int threads, smem;
+};
 struct Launches {
-  dim3 chunk_state, state_pass, output;
-  int smem_chunk_state, smem_output;
+  Launch cb, chunk_state, state_pass, output;
 };
 
-Launches launches(int batch, int S, int nh, int hp, int ds, int Q) {
+// state elements per thread of the pass: 4 under shared_cb (hp = 64)
+int pass_width(int variant) { return variant == kSharedCb ? 4 : 1; }
+
+Launches launches(int variant, bool in_bf16, int batch, int S, int nh,
+                  int hp, int ds, int Q) {
   const int bh = batch * nh, nc = S / Q;
   const long long n = (long long)hp * ds;
+  const int v = pass_width(variant);
   Launches l;
-  l.chunk_state = dim3(nc, bh);
-  l.smem_chunk_state = (3 * Q + 2 * kTile * kTile) * (int)sizeof(float);
-  l.state_pass = dim3((unsigned)((n + kThreads - 1) / kThreads), bh);
-  l.output = dim3((Q + kTile - 1) / kTile, nc, bh);
-  l.smem_output = output_smem_floats(ds, Q) * (int)sizeof(float);
+  l.state_pass = {dim3((unsigned)((n + v * kThreads - 1) / (v * kThreads)),
+                       bh),
+                  kThreads, 0};
+  if (variant == kSharedCb) {
+    const int nq = Q / kBM;
+    l.cb = {dim3(nq * (nq + 1) / 2, batch * nc), kNT,
+            in_bf16 ? cb_bf16_smem_bytes(ds) : 0};
+    l.chunk_state = {dim3(nc, bh, ds / kBN), kNT, 0};
+    l.output = {dim3(nc, bh, nq), kNT, 0};
+  } else {
+    l.cb = {dim3(0, 0, 0), 0, 0};
+    l.chunk_state = {dim3(nc, bh), kThreads,
+                     (3 * Q + 2 * kTile * kTile) * (int)sizeof(float)};
+    l.output = {dim3((Q + kTile - 1) / kTile, nc, bh), kThreads,
+                output_smem_floats(ds, Q) * (int)sizeof(float)};
+  }
   return l;
 }
 
+// Whether the shared_cb variant takes these sizes (the plan's rule).
+bool shared_cb_fits(int hp, int ds, int Q) {
+  return hp == kBN && ds % kBN == 0 && ds <= 256 && Q % kBM == 0 &&
+         Q <= kMaxQ;
+}
+
 template <typename Tin, typename Tout>
-int launch(const Params& p, int batch, int device, void* stream) {
+int launch(const Params& p, int variant, int batch, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const Launches l = launches(batch, p.nc * p.Q, p.nh, p.hp, p.ds, p.Q);
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  const Launches l = launches(variant, kBf16, batch, p.nc * p.Q, p.nh, p.hp,
+                              p.ds, p.Q);
+  int code;
+  if (variant == kSharedCb) {
+    if (!shared_cb_fits(p.hp, p.ds, p.Q)) return (int)cudaErrorInvalidValue;
+    if constexpr (kBf16) {
+      if ((code = set_smem(ssd_cb_bf16_kernel, l.cb.smem))) return code;
+      ssd_cb_bf16_kernel<<<l.cb.grid, l.cb.threads, l.cb.smem, s>>>(p);
+    } else {
+      ssd_cb_f32_kernel<<<l.cb.grid, l.cb.threads, 0, s>>>(p);
+    }
+    if ((code = (int)cudaGetLastError())) return code;
+    ssd_state_tile_kernel<Tin>
+        <<<l.chunk_state.grid, l.chunk_state.threads, 0, s>>>(p);
+    if ((code = (int)cudaGetLastError())) return code;
+  } else {
+    if (variant != kGeneral) return (int)cudaErrorInvalidValue;
+    code = set_smem(ssd_chunk_state_kernel<Tin>, l.chunk_state.smem);
+    if (code) return code;
+    ssd_chunk_state_kernel<Tin><<<l.chunk_state.grid, l.chunk_state.threads,
+                                  l.chunk_state.smem, s>>>(p);
+    if ((code = (int)cudaGetLastError())) return code;
+  }
 
-  int code = set_smem(ssd_chunk_state_kernel<Tin>, l.smem_chunk_state);
-  if (code) return code;
-  ssd_chunk_state_kernel<Tin>
-      <<<l.chunk_state, kThreads, l.smem_chunk_state, s>>>(p);
+  if (variant == kSharedCb)
+    ssd_state_pass_kernel<4>
+        <<<l.state_pass.grid, l.state_pass.threads, 0, s>>>(p);
+  else
+    ssd_state_pass_kernel<1>
+        <<<l.state_pass.grid, l.state_pass.threads, 0, s>>>(p);
   if ((code = (int)cudaGetLastError())) return code;
 
-  ssd_state_pass_kernel<<<l.state_pass, kThreads, 0, s>>>(p);
-  if ((code = (int)cudaGetLastError())) return code;
-
-  code = set_smem(ssd_output_kernel<Tin, Tout>, l.smem_output);
-  if (code) return code;
-  ssd_output_kernel<Tin, Tout><<<l.output, kThreads, l.smem_output, s>>>(p);
+  if (variant == kSharedCb) {
+    ssd_output_tile_kernel<Tin, Tout>
+        <<<l.output.grid, l.output.threads, 0, s>>>(p);
+  } else {
+    code = set_smem(ssd_output_kernel<Tin, Tout>, l.output.smem);
+    if (code) return code;
+    ssd_output_kernel<Tin, Tout>
+        <<<l.output.grid, l.output.threads, l.output.smem, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
 Params make_params(const void* x, const void* dt, const void* A,
                    const void* B, const void* C, void* y, void* final_state,
-                   void* states, void* cum, int S, int nh, int hp, int ds,
-                   int Q, const long long* st) {
+                   void* states, void* cum, void* cb, int S, int nh, int hp,
+                   int ds, int Q, const long long* st) {
   Params p;
   p.x = x; p.dt = static_cast<const float*>(dt);
   p.A = static_cast<const float*>(A);
@@ -440,6 +1020,7 @@ Params make_params(const void* x, const void* dt, const void* A,
   p.final_state = static_cast<float*>(final_state);
   p.states = static_cast<float*>(states);
   p.cum = static_cast<float*>(cum);
+  p.cb = static_cast<float*>(cb);
   p.nh = nh; p.hp = hp; p.ds = ds; p.Q = Q; p.nc = S / Q;
   p.xs_b = st[0]; p.xs_s = st[1]; p.xs_h = st[2];
   p.dts_b = st[3]; p.dts_s = st[4]; p.dts_h = st[5];
@@ -453,48 +1034,48 @@ Params make_params(const void* x, const void* dt, const void* A,
 extern "C" {
 
 // strides: 10 element strides in order: x (batch, seq, head), dt (batch,
-// seq, head), B (batch, seq), C (batch, seq).  out_bf16: 0 writes y in
+// seq, head), B (batch, seq), C (batch, seq).  variant: 0 general, 1
+// shared_cb (cb may be null for general).  out_bf16: 0 writes y in
 // float32, 1 in bfloat16.
 int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* B,
                  const void* C, void* y, void* final_state, void* states,
-                 void* cum, int batch, int S, int nh, int hp, int ds, int Q,
-                 const long long* strides, int out_bf16, int device,
-                 void* stream) {
+                 void* cum, void* cb, int batch, int S, int nh, int hp,
+                 int ds, int Q, int variant, const long long* strides,
+                 int out_bf16, int device, void* stream) {
   const Params p = make_params(x, dt, A, B, C, y, final_state, states, cum,
-                               S, nh, hp, ds, Q, strides);
-  return out_bf16 ? launch<float, bf16>(p, batch, device, stream)
-                  : launch<float, float>(p, batch, device, stream);
+                               cb, S, nh, hp, ds, Q, strides);
+  return out_bf16 ? launch<float, bf16>(p, variant, batch, device, stream)
+                  : launch<float, float>(p, variant, batch, device, stream);
 }
 
 int ssd_scan_bf16(const void* x, const void* dt, const void* A, const void* B,
                   const void* C, void* y, void* final_state, void* states,
-                  void* cum, int batch, int S, int nh, int hp, int ds, int Q,
-                  const long long* strides, int out_bf16, int device,
-                  void* stream) {
+                  void* cum, void* cb, int batch, int S, int nh, int hp,
+                  int ds, int Q, int variant, const long long* strides,
+                  int out_bf16, int device, void* stream) {
   const Params p = make_params(x, dt, A, B, C, y, final_state, states, cum,
-                               S, nh, hp, ds, Q, strides);
-  return out_bf16 ? launch<bf16, bf16>(p, batch, device, stream)
-                  : launch<bf16, float>(p, batch, device, stream);
+                               cb, S, nh, hp, ds, Q, strides);
+  return out_bf16 ? launch<bf16, bf16>(p, variant, batch, device, stream)
+                  : launch<bf16, float>(p, variant, batch, device, stream);
 }
 
-// The launches of one call, 14 ints into out: the grids (x, y, z) of the
-// chunk states, the pass and the outputs; the dynamic shared memory (bytes)
-// of the chunk states and of the outputs; the threads per block; the most
-// shared memory a block may take.
+// The launches of one call of `variant` with bf16 (in_bf16 = 1) or float32
+// inputs, 21 ints into out: for C B^T (zeros under the general variant),
+// the chunk states, the pass and the outputs in turn, the grid (x, y, z),
+// the threads per block and the dynamic shared memory (bytes); then the
+// most shared memory a block may take.
 void ssd_scan_launch_shape(int batch, int S, int nh, int hp, int ds, int Q,
-                           int* out) {
-  const Launches l = launches(batch, S, nh, hp, ds, Q);
-  const dim3 g[3] = {l.chunk_state, l.state_pass, l.output};
-  for (int i = 0; i < 3; ++i) {
-    out[3 * i] = (int)g[i].x;
-    out[3 * i + 1] = (int)g[i].y;
-    out[3 * i + 2] = (int)g[i].z;
+                           int variant, int in_bf16, int* out) {
+  const Launches l = launches(variant, in_bf16 != 0, batch, S, nh, hp, ds, Q);
+  const Launch* g[4] = {&l.cb, &l.chunk_state, &l.state_pass, &l.output};
+  for (int i = 0; i < 4; ++i) {
+    out[5 * i] = (int)g[i]->grid.x;
+    out[5 * i + 1] = (int)g[i]->grid.y;
+    out[5 * i + 2] = (int)g[i]->grid.z;
+    out[5 * i + 3] = g[i]->threads;
+    out[5 * i + 4] = g[i]->smem;
   }
-  out[9] = l.smem_chunk_state;
-  out[10] = l.smem_output;
-  out[11] = kThreads;
-  out[12] = kMaxSmem;
-  out[13] = kTile;
+  out[20] = kMaxSmem;
 }
 
 const char* ssd_scan_error_string(int code) {

@@ -1,26 +1,37 @@
-"""The SSD chunk-scan kernel (K4): wrapper, plain version, launch count.
+"""The SSD chunk-scan kernel (K4): launch plan, wrapper, plain version,
+launch count.
 
-One hand-written CUDA source (``csrc/ssd_scan.cu``) computes the Mamba2 SSD
+Hand-written CUDA kernels (``csrc/ssd_scan.cu``) compute the Mamba2 SSD
 scan of the reference's ``ops.ssd_scan`` for ``ngroups == 1``: ``x`` [b, S,
 nh, hp], ``dt`` [b, S, nh] (float32), ``A`` [nh] (float32), ``B``, ``C`` [b,
 S, 1, ds] -> ``y`` [b, S, nh, hp] and the final state [b, nh, hp, ds]
-(float32); it replaces the reference's TPU kernel ``_ssd_kernel``.  The
+(float32); they replace the reference's TPU kernel ``_ssd_kernel``.  The
 sequence is cut into chunks of ``Q = min(chunk, S)`` steps (``S % Q == 0``,
-as the reference asserts).  One call runs three ``__global__`` functions --
-per-chunk states, the sequential pass over chunks, the outputs per 64-row
-tile of a chunk -- and counts as one launch.  ``x``, ``B`` and ``C`` are
-float32 or bfloat16 (one type for the three), read in place through their
-strides (``B`` and ``C`` may be column slices of one tensor, as in the
-model); all arithmetic is float32; ``y`` is written in ``out_dtype``
-(default ``x.dtype``, as the reference kernel returns).  Unlike the
-reference kernel it also returns the final state, which the model's
-prefill keeps for decoding.
+as the reference asserts).  ``x``, ``B`` and ``C`` are float32 or bfloat16
+(one type for the three), read in place through their strides (``B`` and
+``C`` may be column slices of one tensor, as in the model); ``y`` is
+written in ``out_dtype`` (default ``x.dtype``, as the reference kernel
+returns).  Unlike the reference kernel it also returns the final state,
+which the model's prefill keeps for decoding.
 
-Beside it stands ``ssd_scan_plain``: the reference kernel's arithmetic in
+Two variants, chosen by shape before any launch (``plan``); one call runs
+three or four ``__global__`` functions and counts as one launch:
+
+* ``shared_cb`` -- ``hp == 64``, ``ds % 64 == 0``, ``ds <= 256``, ``Q % 64
+  == 0``, ``Q <= 256`` (every mamba2-130m shape): C B^T once per (b, chunk)
+  for all heads into a scratch, on bf16 tensor cores for bf16 inputs; the
+  chunk states; the pass over chunks; the outputs, 64 rows a block, as one
+  product over ``ds + `` the row tile's end.  The float32-operand products
+  run on the CUDA cores in float32.  Operands whose base or strides lie off
+  16 bytes are copied first.
+* ``general`` -- every other shape: chunk states, pass, outputs, C B^T
+  rebuilt per head.
+
+Beside them stands ``ssd_scan_plain``: the reference kernel's arithmetic in
 float32 tensor code, a loop over chunks vectorised over (b, h).  The
 wrapper takes it ONLY for tensors that lie on the CPU; for CUDA tensors it
-launches the kernel or raises -- there is no fallback.  ``LAUNCHES`` counts
-launches per input dtype (``"ssd_scan_f32"``, ``"ssd_scan_bf16"``),
+launches a kernel variant or raises -- there is no fallback.  ``LAUNCHES``
+counts launches per input dtype (``"ssd_scan_f32"``, ``"ssd_scan_bf16"``),
 incremented exactly where the kernel is launched.  The library is built and
 loaded inside the first launching call, never at import time.
 
@@ -33,6 +44,7 @@ float64; its CUDA cumsum scans in float32 in another order).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,6 +52,19 @@ import torch
 SOURCE = "ssd_scan.cu"
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+GENERAL = "general"
+SHARED_CB = "shared_cb"
+# the variant ids of the C interface
+_VARIANT_ID = {GENERAL: 0, SHARED_CB: 1}
+# the launches of each variant, in order
+LAUNCH_NAMES = {GENERAL: ("chunk_state", "state_pass", "output"),
+                SHARED_CB: ("cb", "chunk_state", "state_pass", "output")}
+
+# SMs of an H100 SXM: the plan's default card
+H100_SMS = 132
+_TILE = 64          # rows / columns of a block tile in both variants
+_PASS_THREADS = 256
 
 # launches per input dtype since the last ``reset_launch_counts``
 LAUNCHES: Dict[str, int] = {f"ssd_scan_{s}": 0 for s in _SUFFIX.values()}
@@ -52,6 +77,60 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one K4 call runs: the variant, the grid (x, y, z) of each of its
+    launches in order (``LAUNCH_NAMES``), the scratch tensors the wrapper
+    allocates (name -> shape, all float32), and the blocks of each launch
+    per SM of the card it was planned for."""
+    variant: str
+    grids: Dict[str, Tuple[int, int, int]]
+    scratch: Dict[str, Tuple[int, ...]]
+    blocks_per_sm: Dict[str, float]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def shared_cb_fits(hp: int, ds: int, q: int) -> bool:
+    """Whether the ``shared_cb`` variant takes these head, state and chunk
+    sizes."""
+    return hp == _TILE and ds % _TILE == 0 and ds <= 256 \
+        and q % _TILE == 0 and q <= 256
+
+
+def plan(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+         dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
+    """The launch plan of one scan of x [b, s, nh, hp] in chunks of ``q``
+    with state size ``ds`` and inputs in ``dtype`` on a card of ``sms``
+    SMs.  A pure function of its arguments: builds and loads nothing."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"no K4 variant for {dtype}")
+    if s % q:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {q}")
+    nc, bh = s // q, b * nh
+    scratch = {"states": (b, nh, nc, hp, ds), "cum": (b, nh, nc, q)}
+    if shared_cb_fits(hp, ds, q):
+        variant = SHARED_CB
+        nq = q // _TILE
+        # the pass takes 4 state elements a thread (hp ds % 4 == 0)
+        grids = {"state_pass": (_cdiv(hp * ds, 4 * _PASS_THREADS), bh, 1)}
+        scratch["cb"] = (b, nc, q, q)
+        grids["cb"] = (nq * (nq + 1) // 2, b * nc, 1)
+        grids["chunk_state"] = (nc, bh, ds // _TILE)
+        grids["output"] = (nc, bh, nq)
+    else:
+        variant = GENERAL
+        grids = {"state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1)}
+        grids["chunk_state"] = (nc, bh, 1)
+        grids["output"] = (_cdiv(q, _TILE), nc, bh)
+    grids = {k: grids[k] for k in LAUNCH_NAMES[variant]}
+    per_sm = {k: g[0] * g[1] * g[2] / sms for k, g in grids.items()}
+    return Plan(variant, grids, scratch, per_sm)
 
 
 _bound = None
@@ -68,30 +147,36 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name in LAUNCHES:
             fn = getattr(lib, name)
-            fn.argtypes = ([vp] * 9 + [ci] * 6
+            fn.argtypes = ([vp] * 10 + [ci] * 7
                            + [ctypes.POINTER(ctypes.c_longlong), ci, ci, vp])
             fn.restype = ci
         lib.ssd_scan_error_string.argtypes = [ci]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        lib.ssd_scan_launch_shape.argtypes = [ci] * 6 + [
+        lib.ssd_scan_launch_shape.argtypes = [ci] * 8 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.ssd_scan_launch_shape.restype = None
         _bound = lib
     return _bound
 
 
-def launch_shape(b: int, s: int, nh: int, hp: int, ds: int, q: int
-                 ) -> Dict[str, object]:
-    """The grids and dynamic shared memory of the three launches of one
-    call at these sizes, as the kernel library computes them (builds and
-    loads it)."""
-    out = (ctypes.c_int * 14)()
-    _library().ssd_scan_launch_shape(b, s, nh, hp, ds, q, out)
+def launch_shape(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+                 dtype: torch.dtype) -> Dict[str, object]:
+    """What the kernel library launches for ``plan``'s variant at these
+    sizes (builds and loads it): per launch its grid, threads per block and
+    dynamic shared memory (bytes), and the most shared memory a block may
+    take."""
+    variant = plan(b, s, nh, hp, ds, q, dtype).variant
+    out = (ctypes.c_int * 21)()
+    _library().ssd_scan_launch_shape(b, s, nh, hp, ds, q,
+                                     _VARIANT_ID[variant],
+                                     int(dtype == torch.bfloat16), out)
     v = list(out)
-    grids = {name: v[3 * i: 3 * i + 3] for i, name in enumerate(
-        ("chunk_state", "state_pass", "output"))}
-    return {"grids": grids, "smem_chunk_state": v[9], "smem_output": v[10],
-            "threads_per_block": v[11], "max_smem": v[12], "tile": v[13]}
+    slots = ("cb", "chunk_state", "state_pass", "output")
+    launches = {name: {"grid": tuple(v[5 * i: 5 * i + 3]),
+                       "threads": v[5 * i + 3], "smem": v[5 * i + 4]}
+                for i, name in enumerate(slots)
+                if name in LAUNCH_NAMES[variant]}
+    return {"variant": variant, "launches": launches, "max_smem": v[20]}
 
 
 def _validate(x, dt, A, B, C, chunk: int
@@ -179,11 +264,92 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(out), state
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with its last dimension dense, as the kernel reads it; a view
-    whose last stride is not 1 is copied.  The model's x and the column
-    slices B, C of its conv output are read in place."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+def kernel_ready(t: torch.Tensor) -> bool:
+    """Whether the ``shared_cb`` kernels read ``t`` in place: the last
+    dimension dense, the base and every other stride on whole 16 bytes (its
+    vector loads).  The model's x and the column slices B, C of its conv
+    output are."""
+    per16 = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per16 == 0 for st in t.stride()[:-1]))
+
+
+def _kernel_operand(t: torch.Tensor, variant: str) -> torch.Tensor:
+    """``t`` as the kernels of ``variant`` read it: itself where it can be
+    read in place (the general variant needs only the last dimension
+    dense, ``shared_cb`` ``kernel_ready``), else a copy in fresh contiguous
+    memory."""
+    ok = kernel_ready(t) if variant == SHARED_CB else t.stride(-1) == 1
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = n
+    return n
+
+
+def plan_for(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128) -> Plan:
+    """``plan`` for these tensors, with the SM count of their card
+    (``H100_SMS`` off the card)."""
+    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
+    sms = _sm_count(x.device) if x.device.type == "cuda" else H100_SMS
+    return plan(b, s, nh, hp, ds, q, x.dtype, sms)
+
+
+def scratch_tensors(p: Plan, device) -> Dict[str, torch.Tensor]:
+    """The float32 scratch tensors of a call planned as ``p``, allocated
+    with ``torch.empty`` (every element is written before it is read)."""
+    return {name: torch.empty(shape, dtype=torch.float32, device=device)
+            for name, shape in p.scratch.items()}
+
+
+def ssd_scan_with_scratch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, *,
+                          chunk: int = 128,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Dict[str, torch.Tensor]]:
+    """``ssd_scan`` on CUDA tensors, also returning the call's scratch (the
+    per-chunk ``cum`` among it), for checks on the card."""
+    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
+    out = _out_dtype(x, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors; got {x.device}")
+    p = plan_for(x, dt, A, B, C, chunk=chunk)
+    x, B, C = (_kernel_operand(t, p.variant) for t in (x, B, C))
+    dev = x.device
+    y = torch.empty((b, s, nh, hp), dtype=out, device=dev)
+    final = torch.empty((b, nh, hp, ds), dtype=torch.float32, device=dev)
+    scratch = scratch_tensors(p, dev)
+    cb = scratch.get("cb")
+    A = A.contiguous()
+    strides = (ctypes.c_longlong * 10)(
+        *(int(st) for st in (*x.stride()[:3], *dt.stride(), *B.stride()[:2],
+                             *C.stride()[:2])))
+    lib = _library()
+    name = f"ssd_scan_{_SUFFIX[x.dtype]}"
+    code = getattr(lib, name)(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), final.data_ptr(),
+        scratch["states"].data_ptr(), scratch["cum"].data_ptr(),
+        None if cb is None else cb.data_ptr(), b, s, nh, hp, ds, q,
+        _VARIANT_ID[p.variant], strides, int(out == torch.bfloat16),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES[name] += 1
+    if code != 0:
+        msg = lib.ssd_scan_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {name} ({p.variant}) failed: "
+                           f"{msg} (cudaError {code}) at b {b}, S {s}, nh "
+                           f"{nh}, hp {hp}, ds {ds}, Q {q}")
+    return y, final, scratch
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -193,36 +359,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The SSD scan of ``x`` [b, S, nh, hp] with ``dt`` [b, S, nh], ``A``
     [nh], ``B``, ``C`` [b, S, 1, ds] in chunks of ``min(chunk, S)``; returns
     ``(y`` [b, S, nh, hp] in ``out_dtype`` (default ``x.dtype``), the final
-    state [b, nh, hp, ds] float32``)``.  CUDA tensors launch the hand-written
-    kernel; CPU tensors take the plain version."""
-    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
-    out = _out_dtype(x, out_dtype)
+    state [b, nh, hp, ds] float32``)``.  CUDA tensors launch the variant
+    that ``plan`` picks; CPU tensors take the plain version."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk, out_dtype=out)
-    nc = s // q
-    x, B, C = (_kernel_operand(t) for t in (x, B, C))
-    dev = x.device
-    y = torch.empty((b, s, nh, hp), dtype=out, device=dev)
-    final = torch.empty((b, nh, hp, ds), dtype=torch.float32, device=dev)
-    states = torch.empty((b, nh, nc, hp, ds), dtype=torch.float32,
-                         device=dev)
-    cum = torch.empty((b, nh, nc, q), dtype=torch.float32, device=dev)
-    A = A.contiguous()
-    strides = (ctypes.c_longlong * 10)(
-        *(int(st) for st in (*x.stride()[:3], *dt.stride(), *B.stride()[:2],
-                             *C.stride()[:2])))
-    lib = _library()
-    name = f"ssd_scan_{_SUFFIX[x.dtype]}"
-    code = getattr(lib, name)(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), final.data_ptr(), states.data_ptr(),
-        cum.data_ptr(), b, s, nh, hp, ds, q, strides,
-        int(out == torch.bfloat16), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES[name] += 1
-    if code != 0:
-        msg = lib.ssd_scan_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {name} failed: {msg} "
-                           f"(cudaError {code}) at b {b}, S {s}, nh {nh}, "
-                           f"hp {hp}, ds {ds}, Q {q}")
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              out_dtype=out_dtype)
+    y, final, _ = ssd_scan_with_scratch(x, dt, A, B, C, chunk=chunk,
+                                        out_dtype=out_dtype)
     return y, final

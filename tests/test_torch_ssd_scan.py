@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref
 from repro.models import ssd as rssd
+from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as k4
 
@@ -153,3 +154,86 @@ def test_cpu_call_launches_nothing_and_builds_nothing():
     ops.ssd_scan(*tt, chunk=32)
     assert k4.launch_counts() == {"ssd_scan_f32": 0, "ssd_scan_bf16": 0}
     assert k4._bound is None
+
+
+# --- the launch plan (pure Python; the card runs what it says) -------------
+
+MAMBA2 = get_config("mamba2_130m")
+# mamba2-130m's prefill shapes as chip_smoke.py drives them: (b, S)
+MODEL_SHAPES = [(1, 4096), (8, 1024)]
+
+
+def _model_plan(b, s, dtype, cfg=MAMBA2):
+    return k4.plan(b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                   min(cfg.ssm_chunk, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s", MODEL_SHAPES)
+def test_model_shapes_plan_the_shared_cb_variant(b, s, dtype):
+    """Every mamba2-130m prefill shape takes the variant that computes
+    C B^T once per (b, chunk): its four launches, the C B^T grid over the
+    lower-triangle 64 x 64 tiles of each (b, chunk), the outputs over
+    (chunk, b * nh, row tile), and the card filled at B = 1."""
+    p = _model_plan(b, s, dtype)
+    nc, nh = s // 256, MAMBA2.ssm_nheads
+    assert p.variant == k4.SHARED_CB
+    assert tuple(p.grids) == k4.LAUNCH_NAMES[k4.SHARED_CB]
+    assert p.grids["cb"] == (10, b * nc, 1)
+    assert p.grids["chunk_state"] == (nc, b * nh, 2)
+    assert p.grids["output"] == (nc, b * nh, 4)
+    assert p.blocks_per_sm["output"] >= 4
+    assert p.scratch["cb"] == (b, nc, 256, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,nh,hp,ds,chunk", CASES)
+def test_test_kernels_shapes_plan_the_general_variant(S, nh, hp, ds, chunk,
+                                                      dtype):
+    p = k4.plan(2, S, nh, hp, ds, min(chunk, S), dtype)
+    assert p.variant == k4.GENERAL
+    assert tuple(p.grids) == k4.LAUNCH_NAMES[k4.GENERAL]
+    assert "cb" not in p.scratch
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_reduced_mamba2_plans_the_general_variant(dtype):
+    p = _model_plan(2, 96, dtype, MAMBA2.reduced())
+    assert p.variant == k4.GENERAL
+
+
+def test_plan_is_pure_and_builds_nothing():
+    """The plan depends on its arguments alone and loads no library."""
+    args = (1, 4096, 24, 64, 128, 256, torch.bfloat16)
+    assert k4.plan(*args) == k4.plan(*args)
+    assert k4.plan(*args, sms=66).grids == k4.plan(*args).grids
+    assert k4.plan(*args, sms=66).blocks_per_sm["output"] == \
+        2 * k4.plan(*args).blocks_per_sm["output"]
+    assert k4._bound is None
+
+
+@pytest.mark.parametrize("b,s,nh,hp,ds,q", [(1, 4096, 24, 64, 128, 256),
+                                            (2, 128, 2, 16, 16, 32)])
+def test_scratch_the_plan_asks_for_is_what_the_wrapper_allocates(b, s, nh,
+                                                                 hp, ds, q):
+    """states [b, nh, nc, hp, ds] and cum [b, nh, nc, Q] in both variants,
+    cb [b, nc, Q, Q] in shared_cb only: float32, as ``scratch_tensors``
+    allocates them for the launch."""
+    p = k4.plan(b, s, nh, hp, ds, q, torch.float32)
+    nc = s // q
+    want = {"states": (b, nh, nc, hp, ds), "cum": (b, nh, nc, q)}
+    if p.variant == k4.SHARED_CB:
+        want["cb"] = (b, nc, q, q)
+    assert p.scratch == want
+    got = k4.scratch_tensors(p, "cpu")
+    assert {k: tuple(v.shape) for k, v in got.items()} == want
+    assert all(v.dtype == torch.float32 for v in got.values())
+
+
+def test_kernel_ready_needs_16_byte_base_and_strides():
+    """The shared_cb kernels read the model's column slices in place; a
+    base off 16 bytes is not ready (the wrapper copies it first)."""
+    xbc = torch.zeros((2, 64, 3 * 64 + 2 * 128), dtype=torch.bfloat16)
+    assert k4.kernel_ready(xbc[..., 192:320].reshape(2, 64, 1, 128))
+    flat = torch.zeros(1 + 2 * 64 * 128, dtype=torch.bfloat16)
+    assert not k4.kernel_ready(flat[1:].view(2, 64, 1, 128))
