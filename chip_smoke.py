@@ -22,7 +22,8 @@ Lines, in order:
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
   {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model
                                      shapes, other scales; plans
-  {"phase": "ssd_scan", ...}         K4 vs plain: test and mamba2 shapes
+  {"phase": "ssd_scan", ...}         K4 vs plain: test, shared_cb and
+                                     mamba2 shapes, views; plans, cum
   {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
@@ -95,6 +96,9 @@ REPLACES = {"dse_sweep": "src/repro/kernels/dse_sweep.py:52",
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12,
               torch.bfloat16: 989e12}
+# 495 TFLOP/s TF32 dense on the tensor cores (NVIDIA data sheet): the rate
+# of K4's 3xTF32 products, three (or two) TF32 products per float32 one
+TF32_FLOPS = 495e12
 # arithmetic operations per (workload, lane) element, counted off the kernel
 # source (adds, multiplies, divides, compares, min/max each as one)
 SWEEP_OPS_PER_ELEMENT = 122
@@ -153,8 +157,8 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
 def device_us(fns: dict, reps: int = 20) -> dict:
     """Mean device microseconds per call of each ``fn`` in the kernels whose
     name holds its symbol, as ``torch.profiler`` sees them (kernel execution
-    only, no launch overhead; summed where one call launches several, as
-    K4's three), keyed like ``fns``; values are None where the profiler
+    only, no launch overhead; summed where one call launches several),
+    keyed like ``fns``; values are None where the profiler
     reports no device time on this machine.  An extra reading beside the
     event timings: the comparison and the campaign gates do not depend on
     it."""
@@ -691,6 +695,22 @@ def conv_case(x, w, pads, dtype) -> dict:
                      "gather": p.gather, "vec": p.vec}}
 
 
+def simt_timing(x, w, pads, dtype) -> dict:
+    """K2's time on one shape beside its plain version's, the library's,
+    the bound and its device time."""
+    b = conv_bound(tuple(x.shape), tuple(w.shape),
+                   tuple(x.shape[:3]) + (w.shape[3],), dtype)
+    us = device_us({"k2": (lambda: k2.conv2d(x, w, padding=pads),
+                           K2_SYMBOL)})
+    return {"ms": time_ms(lambda: k2.conv2d(x, w, padding=pads), 20),
+            "plain_ms": time_ms(lambda: k2.conv2d_plain(x, w, padding=pads),
+                                5),
+            "library_ms": time_ms(lambda: library_conv2d(x, w,
+                                                         padding=pads), 20),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "device_ms": None if us["k2"] is None else us["k2"] / 1e3}
+
+
 _OHWI = {}
 
 
@@ -787,8 +807,15 @@ def phase_conv2d(device, seed: int, model, images) -> dict:
                                    (kh, kh, cin, cout), dtype,
                                    misaligned=off)
                 pads = ((kh // 2, (kh - 1) // 2),) * 2
+                case = conv_case(x, w, pads, dtype)
+                if case["plan"]["variant"] == k2.SIMT and \
+                        "simt" not in per_dtype[dtype]:
+                    # the SIMT kernel, off the main path, timed at its
+                    # first ragged shape
+                    case.update(simt_timing(x, w, pads, dtype))
+                    per_dtype[dtype]["simt"] = case
                 cases.append({"case": "ragged_misaligned" if off
-                              else "ragged", **conv_case(x, w, pads, dtype)})
+                              else "ragged", **case})
             per_dtype[dtype]["max_rel_err"] = max(errs)
             cases += [{"case": "resnet50_b32", **r} for r in rows]
     finally:
@@ -1095,7 +1122,8 @@ def phase_resnet50(device, seed: int, cfg, models, images) -> dict:
 def conv_rows(per_dtype, infer) -> list:
     """K2's rows, one per variant on the main path (bf16: tensor cores,
     float32): times on the heaviest shape alone, and K2 and the library
-    inside each forward of that dtype (bf16 B=1 and B=32, float32 B=8)."""
+    inside each forward of that dtype (bf16 B=1 and B=32, float32 B=8);
+    then the bf16 SIMT variant at its first ragged shape."""
     rows = []
     for dtype in CONV_DTYPES:
         d = per_dtype[dtype]
@@ -1121,6 +1149,16 @@ def conv_rows(per_dtype, infer) -> list:
                  "bound_ms": infer["perf"][f"{SUFFIX[dt]}_b{b}"][
                      "k2_calls_bound_ms"]}
                 for dt, b in RUNS if dt == dtype]})
+    simt = per_dtype[torch.bfloat16]["simt"]
+    rows.append({
+        "name": k2.SIMT, "route": "cuda", "source": CONV_SOURCE,
+        "replaces": REPLACES["conv2d"], "launches": infer["launches"][k2.SIMT],
+        "max_abs_err": simt["max_abs_err"], "ms": simt["ms"],
+        "plain_ms": simt["plain_ms"], "bound_ms": simt["bound_ms"],
+        "bound_by": simt["bound_by"], "library_ms": simt["library_ms"],
+        "device_ms": simt["device_ms"],
+        "shape": f"x {simt['x']}, w {simt['w']}, SAME (ragged, off the "
+                 f"main path)", "plan": simt["plan"]})
     return rows
 
 
@@ -1636,20 +1674,22 @@ SSD_DTYPES = (torch.bfloat16, torch.float32)
 # value that lies near a rounding boundary may round the other way
 SSD_TOL = 1e-5
 # (case, b, S, nh, hp, ds, chunk): tests/test_kernels.py's three cases
-# (b = 2), a small shape of the shared_cb variant (ds 64, Q 128), then
-# mamba2-130m's heads at its two prefill shapes
+# (b = 2), two small shapes of the shared_cb variant (ds 64, Q 128; its
+# largest state and smallest chunk, ds 256, Q 64), then mamba2-130m's
+# heads at its two prefill shapes
 SSD_CASES = (
     ("test_kernels", 2, 128, 2, 16, 16, 32),
     ("test_kernels", 2, 256, 3, 16, 32, 64),
     ("test_kernels", 2, 128, 4, 32, 16, 128),
     ("shared_cb_small", 2, 512, 3, 64, 64, 128),
+    ("shared_cb_edge", 2, 256, 2, 64, 256, 64),
     ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256),
     ("mamba2_b8_s1024", 8, 1024, 24, 64, 128, 256),
 )
 SSD_HEADLINE = "mamba2_b1_s4096"
 SSD_SYMBOL = "ssd_"       # every K4 __global__ function's name starts so
 # the variant each case must plan, by the case name's start
-SSD_VARIANT = {"test_kernels": k4.GENERAL, "shared_cb_small": k4.SHARED_CB,
+SSD_VARIANT = {"test_kernels": k4.GENERAL, "shared_cb": k4.SHARED_CB,
                "mamba2": k4.SHARED_CB}
 # the shared_cb variant's kernels: ptxas must report no spills for them
 SSD_TILE_KERNELS = ("ssd_cb_bf16_kernel", "ssd_cb_f32_kernel",
@@ -1670,7 +1710,9 @@ def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
     lower triangle, hp Q (Q + 1), plus 4 Q hp ds for y_off and the state
     contribution.  ``units_bound_ms``: the same work at the rates of the
     units the shared_cb variant runs it on -- C B^T of bf16 inputs on the
-    bf16 tensor cores (989 TFLOP/s), the rest on the float32 CUDA cores.
+    bf16 tensor cores (989 TFLOP/s), every float32-operand product as
+    3xTF32 on the TF32 tensor cores (495 / 3 TFLOP/s), or 495 / 2 where
+    one operand is bf16 (y_off, the state contribution of bf16 inputs).
     ``tpu_kernel_operations`` is the TPU kernel's own count, 2 Q^2 ds + 2
     Q^2 hp + 4 Q hp ds per (b, h, chunk): C B^T per head and full Q x Q
     products."""
@@ -1680,13 +1722,15 @@ def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
     nbytes = ((b * s * nh * hp + 2 * b * s * ds) * ei + b * s * nh * 4
               + nh * 4 + b * s * nh * hp * eo + b * nh * hp * ds * 4)
     cb_ops = b * nc * ds * q * (q + 1)
-    rest_ops = b * nh * nc * (hp * q * (q + 1) + 4 * q * hp * ds)
-    out = bound(nbytes, cb_ops + rest_ops, torch.float32)
-    cb_rate = PEAK_FLOPS[torch.bfloat16 if in_dtype == torch.bfloat16
-                         else torch.float32]
-    out["units_bound_ms"] = max(
-        nbytes / PEAK_BYTES_PER_S,
-        cb_ops / cb_rate + rest_ops / PEAK_FLOPS[torch.float32]) * 1e3
+    masked_ops = b * nh * nc * hp * q * (q + 1)
+    off_state_ops = b * nh * nc * 4 * q * hp * ds
+    out = bound(nbytes, cb_ops + masked_ops + off_state_ops, torch.float32)
+    bf16 = in_dtype == torch.bfloat16
+    units_s = (cb_ops / (PEAK_FLOPS[torch.bfloat16] if bf16
+                         else TF32_FLOPS / 3)
+               + masked_ops / (TF32_FLOPS / 3)
+               + off_state_ops / (TF32_FLOPS / (2 if bf16 else 3)))
+    out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S, units_s) * 1e3
     out["tpu_kernel_operations"] = b * nh * nc * (
         2 * q * q * ds + 2 * q * q * hp + 4 * q * hp * ds)
     return out
@@ -1864,9 +1908,12 @@ def phase_ssd_scan(device, seed: int) -> dict:
                          "max(bytes of x, dt, A, B, C, y, state / 3.35 "
                          "TB/s, the scan's least operations -- C B^T once "
                          "per (b, chunk) and the products over the lower "
-                         "triangle -- / 67 TFLOP/s float32); units_bound "
-                         "= the same with C B^T of bf16 inputs at 989 "
-                         "TFLOP/s, the units shared_cb runs it on"})
+                         "triangle -- / 67 TFLOP/s float32, kept so for "
+                         "rows comparable across PRs); units_bound = the "
+                         "same work at the rates of the units shared_cb "
+                         "runs it on: C B^T of bf16 inputs at 989 TFLOP/s, "
+                         "3xTF32 products at 495 / 3 TFLOP/s, 495 / 2 where "
+                         "one operand is bf16"})
     return rows
 
 
@@ -2021,6 +2068,9 @@ def phase_mamba2(device, seed: int) -> dict:
                "device_ms": br["device_ms"], "idle_share": None,
                "k4_device_ms": br["kernel_device_ms"],
                "k4_share": br["kernel_share"], "top": br["top"],
+               "k4_split": {k[k.find(SSD_SYMBOL):][:80]: v
+                            for k, v in br["by_name"].items()
+                            if SSD_SYMBOL in k},
                "k4_calls_bound_ms": cfg.num_layers * bd["bound_ms"],
                "k4_calls_units_bound_ms":
                    cfg.num_layers * bd["units_bound_ms"]}
@@ -2071,8 +2121,9 @@ def phase_mamba2(device, seed: int) -> dict:
           "timing_note": "ms_per_prefill: median host clock around "
                          "prefill + synchronize over 5 (spread: min, max), "
                          "prompts on the card; device_ms / "
-                         "k4_device_ms / top: torch.profiler kernel time of "
-                         "one prefill (K4 = its three kernels); idle_share "
+                         "k4_device_ms / top / k4_split: torch.profiler "
+                         "kernel time of one prefill (K4 = its kernels, "
+                         "k4_split by kernel); idle_share "
                          "= 1 - device_ms / ms_per_prefill; enqueue_ms: "
                          "median host clock until prefill returns over 5, "
                          "no synchronize; "

@@ -46,9 +46,15 @@
 //   above the float32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20).  Three
 //   of the four products have float32 operands (C B^T (.) L, x dt, the
 //   state) and are held to 1e-5 of scale: one rounding of such an operand
-//   to TF32 or bf16 breaks that, so they run on the float32 CUDA cores.
-//   C B^T of bf16 inputs is exact product by product in float32 and runs
-//   on the bf16 tensor cores.
+//   to TF32 or bf16 breaks that.  So they run on the tensor cores as
+//   3xTF32: each float32 operand is split into hi + lo, both TF32, and the
+//   product is lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B) with float32
+//   accumulation (what it drops, lo(A) lo(B), is ~2^-22 of a product);
+//   where one operand holds bf16 values, exact in TF32, two terms.  C B^T
+//   of bf16 inputs is exact product by product in float32 and runs on the
+//   bf16 tensor cores.  The same tiles with the float32 products on the
+//   CUDA cores (8 x 4 register tiles from 16-byte shared loads) took
+//   1.3-1.4x the time at the model shapes (PERF.md).
 //
 //   Two variants, picked by shape in Python (kernels/ssd_scan.py::plan):
 //
@@ -58,7 +64,7 @@
 //      b * nc): C B^T once per (b, chunk) for all heads, only the 64 x 64
 //      tiles on or below the diagonal, into the cb scratch (4 MB at B = 1,
 //      S = 4096: L2 holds it).  bf16: mma.sync m16n8k16 with float32
-//      accumulation, each warp 16 rows x 64 columns.  float32: the CUDA-core
+//      accumulation, each warp 16 rows x 64 columns.  float32: the 3xTF32
 //      tile below.
 //   1. ssd_state_tile_kernel, grid (nc, b * nh, ds / 64): cum by a float64
 //      warp scan, written to scratch; the chunk's contribution
@@ -67,18 +73,21 @@
 //      state elements a thread in one 16-byte access.
 //   3. ssd_output_tile_kernel, grid (nc, b * nh, Q / 64), the heaviest row
 //      tiles issued first: y of 64 rows x hp as one product over
-//      K = ds + (the row tile's end): (C exp(cum_i)) against the entering
-//      state, then (C B^T (.) L) against (x dt), C B^T read from the cb
-//      scratch; L is exp'd per element while the slice is staged, the
-//      diagonal tile masked by a select.
-//   The CUDA-core products (kernels 1, 3, and 0 in float32) share one block
-//   tile: 128 threads, a 64 x 64 output, K in slices of 16 staged through
-//   two shared buffers (the next slice's loads in flight in registers
-//   while the current one is multiplied), an 8 x 4 register tile per
-//   thread fed by 16-byte shared loads, 32 FMA per three LDS.128.  The
-//   loaders read 16 bytes (8 for bf16 quarters) at a time: the wrapper
+//      K = ds + (the row tile's end): C against the entering state, its
+//      rows then scaled by exp(cum_i), then (C B^T (.) L) against (x dt),
+//      C B^T read from the cb scratch; L is exp'd per element while the
+//      slice is staged, the diagonal tile masked by a select.
+//   The tensor-core products (kernels 1, 3, and 0 in float32) share one
+//   block tile: 128 threads, a 64 x 64 output (each warp 32 x 32 as 2 x 4
+//   mma.sync m16n8k8 tf32 tiles), K in slices of 16 staged through two
+//   shared buffers (the next slice's loads in flight in registers while the
+//   current one is multiplied; the staging applies dt, the decay and L).
+//   The loaders read 16 bytes (8 for bf16 quarters) at a time: the wrapper
 //   hands this variant operands whose base and strides lie on 16 bytes.
-//
+//   What holds the output kernel back now is the staging itself (its
+//   transposed loads touch 32 rows a warp instruction, one barrier a slice),
+//   not the tensor cores: see PERF.md.
+
 //   general (every other shape; the test and reduced-model shapes), three
 //   launches, each thread a 4 x 4 register tile from scalar shared loads:
 //   1. ssd_chunk_state_kernel, grid (nc, b * nh): cum (float64 warp scan)
@@ -495,11 +504,14 @@ template <> struct Vec4<bf16> {
 };
 
 // One block tile's shared slices, double-buffered: A k-major a[k][m], B
-// b[k][n]; thread (ty = tid / 16, tx = tid % 16) owns rows 8 ty .. 8 ty + 7
-// and columns 4 tx .. 4 tx + 3 of the 64 x 64 output.
+// b[k][n], rows padded to kLd = 72 floats so that the fragment loads of a
+// warp (lanes g = lane / 4 and t = lane % 4 at [k + t][m + g]) fall in 32
+// banks.  Warp w computes rows 32 (w % 2) .. + 31 and columns 32 (w / 2) ..
+// + 31 of the 64 x 64 output as 2 x 4 m16n8k8 tiles.
+constexpr int kLd = kBM + 8;
 struct TileSmem {
-  float a[2][kBK][kBM];
-  float b[2][kBK][kBN];
+  float a[2][kBK][kLd];
+  float b[2][kBK][kLd];
 };
 
 // Two ways a thread stages its 8 elements of a 16 x 64 slice:
@@ -508,29 +520,82 @@ struct TileSmem {
 //     64 columns are the slice's columns;
 //   transposed pattern (m = tid % 64, hh = tid / 64): slice column m, rows
 //     8 hh .. 8 hh + 7, from source row m at columns k0 + 8 hh .. + 7.
-__device__ __forceinline__ void put_row(float (*s)[kBN], const float v[8]) {
+__device__ __forceinline__ void put_row(float (*s)[kLd], const float v[8]) {
   const int kk = threadIdx.x >> 3, q = threadIdx.x & 7;
   *reinterpret_cast<float4*>(&s[kk][4 * q]) =
       make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(&s[kk][32 + 4 * q]) =
       make_float4(v[4], v[5], v[6], v[7]);
 }
-__device__ __forceinline__ void put_transposed(float (*s)[kBM],
+__device__ __forceinline__ void put_transposed(float (*s)[kLd],
                                                const float v[8]) {
   const int m = threadIdx.x & 63, hh = threadIdx.x >> 6;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[8 * hh + j][m] = v[j];
 }
 
+// A float32 x as hi + lo, both TF32 (10 explicit mantissa bits each, round
+// to nearest): x - hi is exact in float32, and lo keeps all but the last
+// ~2 of x's 24 bits.  An operand that holds bf16 values is exact in TF32
+// and is passed as it is.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+template <bool kSplit>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where this thread's accumulators lie: acc[mt][nt][2 h + c] is row
+// row(mt, h), column col(nt) + c of the block's 64 x 64 output.
+struct FragPos {
+  int wm, wn, g, t;
+  __device__ __forceinline__ FragPos() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    g = lane >> 2;
+    t = lane & 3;
+    wm = 32 * (warp & 1);
+    wn = 32 * (warp >> 1);
+  }
+  __device__ __forceinline__ int row(int mt, int h) const {
+    return wm + 16 * mt + g + 8 * h;
+  }
+  __device__ __forceinline__ int col(int nt) const {
+    return wn + 8 * nt + 2 * t;
+  }
+};
+
+typedef float TileAcc[2][4][4];
+
 // acc += A B over nk slices of 16, F staging them: F::fetch(kt) issues the
 // global loads of slice kt into registers, F::put(a, b) turns them into the
 // slice in shared memory.  The loads of slice kt + 1 are in flight while
-// slice kt is multiplied.  Ends on a __syncthreads, so a second call may
-// follow at once.
-template <typename F>
+// slice kt is multiplied.  Each product is float32 on the tensor cores as
+// 3xTF32: lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B), the small terms first;
+// kSplitA / kSplitB false for an operand that is exact in TF32 (bf16 data)
+// drops its lo term.  Ends on a __syncthreads, so a second call may follow
+// at once.
+template <bool kSplitA, bool kSplitB, typename F>
 __device__ __forceinline__ void tile_mainloop(F& f, int nk, TileSmem& sm,
-                                              float (&acc)[8][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                                              TileAcc& acc) {
+  const FragPos fp;
   f.fetch(0);
   f.put(sm.a[0], sm.b[0]);
   __syncthreads();
@@ -538,17 +603,36 @@ __device__ __forceinline__ void tile_mainloop(F& f, int nk, TileSmem& sm,
     const int cur = kt & 1;
     if (kt + 1 < nk) f.fetch(kt + 1);
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[cur][k][8 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sm.a[cur][k][8 * ty + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[cur][k][4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
+    for (int kb = 0; kb < kBK; kb += 8) {
+      const float* a0 = &sm.a[cur][kb + fp.t][0];
+      const float* a1 = &sm.a[cur][kb + fp.t + 4][0];
+      const float* b0 = &sm.b[cur][kb + fp.t][0];
+      const float* b1 = &sm.b[cur][kb + fp.t + 4][0];
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m = fp.wm + 16 * mt + fp.g;
+        split_tf32<kSplitA>(a0[m], ah[mt][0], al[mt][0]);
+        split_tf32<kSplitA>(a0[m + 8], ah[mt][1], al[mt][1]);
+        split_tf32<kSplitA>(a1[m], ah[mt][2], al[mt][2]);
+        split_tf32<kSplitA>(a1[m + 8], ah[mt][3], al[mt][3]);
+      }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = fp.wn + 8 * nt + fp.g;
+        split_tf32<kSplitB>(b0[n], bh[nt][0], bl[nt][0]);
+        split_tf32<kSplitB>(b1[n], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (kSplitA)
+            mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+          if constexpr (kSplitB)
+            mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+          mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+        }
     }
     if (kt + 1 < nk) f.put(sm.a[cur ^ 1], sm.b[cur ^ 1]);
     __syncthreads();
@@ -638,8 +722,23 @@ ssd_cb_bf16_kernel(Params p) {
   }
 }
 
-// float32 inputs: the CUDA-core tile, A = C rows, B = B rows, both staged
-// transposed (k = s).
+// Writes a block's 64 x 64 float32 accumulators to rows of `out` ld floats
+// apart, float2 by float2.
+__device__ __forceinline__ void store_tile(float* out, long long ld,
+                                           const TileAcc& acc) {
+  const FragPos fp;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(out + fp.row(mt, h) * ld + fp.col(nt)) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+}
+
+// float32 inputs: the tile above, 3xTF32, A = C rows, B = B rows, both
+// staged transposed (k = s).
 struct CbF32Fetch {
   const float* crow;   // C row ti * 64 + m of the chunk
   const float* brow;   // B row tj * 64 + m
@@ -651,7 +750,7 @@ struct CbF32Fetch {
     b0 = *reinterpret_cast<const float4*>(brow + k);
     b1 = *reinterpret_cast<const float4*>(brow + k + 4);
   }
-  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+  __device__ __forceinline__ void put(float (*a)[kLd], float (*b)[kLd]) {
     const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
     put_transposed(a, cv);
@@ -673,15 +772,9 @@ ssd_cb_f32_kernel(Params p) {
            (t0 + ti * kBM + m) * p.cs_s;
   f.brow = static_cast<const float*>(p.B) + b * p.bs_b +
            (t0 + tj * kBN + m) * p.bs_s;
-  float acc[8][4] = {};
-  tile_mainloop(f, p.ds / kBK, sm, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float* out = p.cb + ((long long)bc * Q + ti * kBM + 8 * ty) * Q +
-               tj * kBN + 4 * tx;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    *reinterpret_cast<float4*>(out + (long long)r * Q) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  TileAcc acc = {};
+  tile_mainloop<true, true>(f, p.ds / kBK, sm, acc);
+  store_tile(p.cb + ((long long)bc * Q + ti * kBM) * Q + tj * kBN, Q, acc);
 }
 
 // ---- 1. cum and the chunk's contribution, per 64-column slice of ds ------
@@ -704,7 +797,7 @@ struct StateFetch {
     b0.load(bm + q * bs + c4);
     b1.load(bm + q * bs + 32 + c4);
   }
-  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+  __device__ __forceinline__ void put(float (*a)[kLd], float (*b)[kLd]) {
     const float d = dts[q], e = dec[q];
     float w[8], v[8];
 #pragma unroll
@@ -724,6 +817,7 @@ __global__ void __launch_bounds__(kNT)
 ssd_state_tile_kernel(Params p) {
   __shared__ __align__(16) TileSmem sm;
   __shared__ float dts[kMaxQ], cum[kMaxQ], dec[kMaxQ];
+  constexpr bool kBf16 = sizeof(Tin) == 2;
   const int Q = p.Q;
   const int c = blockIdx.x, bh = blockIdx.y, s0 = blockIdx.z * kBN;
   const int b = bh / p.nh, h = bh % p.nh;
@@ -753,26 +847,20 @@ ssd_state_tile_kernel(Params p) {
   f.bs = p.bs_s;
   f.dts = dts;
   f.dec = dec;
-  float acc[8][4] = {};
-  tile_mainloop(f, Q / kBK, sm, acc);
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float* out = p.states + (((long long)bh * p.nc + c) * p.hp + 8 * ty) *
-                              p.ds + s0 + 4 * tx;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    *reinterpret_cast<float4*>(out + (long long)r * p.ds) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  TileAcc acc = {};
+  tile_mainloop<true, !kBf16>(f, Q / kBK, sm, acc);
+  store_tile(p.states + ((long long)bh * p.nc + c) * p.hp * p.ds + s0, p.ds,
+             acc);
 }
 
 // ---- 3. y per 64-row tile: one product over K = ds + the row tile's end --
 
-// y_off: A = C[i][s] exp(cum_i) (transposed), B = state[p][s] (transposed)
+// y_off before its row scale: A = C[i][s] (transposed), B = state[p][s]
+// (transposed)
 template <typename Tin>
 struct YoffFetch {
   const Tin* crow;     // C row r0 + m
   const float* srow;   // entering state, row p = m
-  float e;             // exp(cum[r0 + m])
   Vec4<Tin> c0, c1;
   float4 s0, s1;
   __device__ __forceinline__ void fetch(int kt) {
@@ -782,12 +870,12 @@ struct YoffFetch {
     s0 = *reinterpret_cast<const float4*>(srow + k);
     s1 = *reinterpret_cast<const float4*>(srow + k + 4);
   }
-  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+  __device__ __forceinline__ void put(float (*a)[kLd], float (*b)[kLd]) {
     float cv[8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      cv[i] = c0.get(i) * e;
-      cv[4 + i] = c1.get(i) * e;
+      cv[i] = c0.get(i);
+      cv[4 + i] = c1.get(i);
     }
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
     put_transposed(a, cv);
@@ -820,7 +908,7 @@ struct DiagFetch {
     x1.load(x + j * xs + 32 + c4);
     d = dt[j * dts];
   }
-  __device__ __forceinline__ void put(float (*a)[kBM], float (*b)[kBN]) {
+  __device__ __forceinline__ void put(float (*a)[kLd], float (*b)[kLd]) {
     const float cb[8] = {cb0.x, cb0.y, cb0.z, cb0.w,
                          cb1.x, cb1.y, cb1.z, cb1.w};
     float pv[8], xv[8];
@@ -846,6 +934,7 @@ __global__ void __launch_bounds__(kNT)
 ssd_output_tile_kernel(Params p) {
   __shared__ __align__(16) TileSmem sm;
   __shared__ float cum[kMaxQ];
+  constexpr bool kBf16 = sizeof(Tin) == 2;
   const int Q = p.Q, ds = p.ds;
   const int c = blockIdx.x, bh = blockIdx.y;
   const int rt = gridDim.z - 1 - blockIdx.z;   // heaviest row tiles first
@@ -856,15 +945,27 @@ ssd_output_tile_kernel(Params p) {
   for (int i = threadIdx.x; i < kend; i += kNT) cum[i] = cum_g[i];
   __syncthreads();
   const int m = threadIdx.x & 63;
-  float acc[8][4] = {};
+  const FragPos fp;
+  TileAcc acc = {};
   {
     YoffFetch<Tin> f;
     f.crow = static_cast<const Tin*>(p.C) + b * p.cs_b +
              (t0 + r0 + m) * p.cs_s;
     f.srow = p.states + (((long long)bh * p.nc + c) * p.hp + m) * ds;
-    f.e = expf(cum[r0 + m]);
-    tile_mainloop(f, ds / kBK, sm, acc);
+    tile_mainloop<!kBf16, true>(f, ds / kBK, sm, acc);
   }
+  // y_off = exp(cum_i) (C state^T)_i
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float e = expf(cum[r0 + fp.row(mt, hh)]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        acc[mt][nt][2 * hh] *= e;
+        acc[mt][nt][2 * hh + 1] *= e;
+      }
+    }
   {
     DiagFetch<Tin> f;
     f.cbrow = p.cb + ((long long)(b * p.nc + c) * Q + r0 + m) * Q;
@@ -876,28 +977,26 @@ ssd_output_tile_kernel(Params p) {
     f.cum = cum;
     f.i = r0 + m;
     f.cum_i = cum[r0 + m];
-    tile_mainloop(f, kend / kBK, sm, acc);
+    tile_mainloop<true, true>(f, kend / kBK, sm, acc);
   }
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long ys = (long long)p.nh * p.hp;
-  Tout* y = static_cast<Tout*>(p.y) +
-            ((long long)b * p.nc * Q + t0 + r0 + 8 * ty) * ys +
-            (long long)h * p.hp + 4 * tx;
+  Tout* y = static_cast<Tout*>(p.y) + ((long long)b * p.nc * Q + t0 + r0) * ys +
+            (long long)h * p.hp;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    Tout* row = y + r * ys;
-    if constexpr (sizeof(Tout) == 4) {
-      *reinterpret_cast<float4*>(row) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    } else {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(acc[r][0], acc[r][1]);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(acc[r][2], acc[r][3]);
-      uint2 w;
-      w.x = *reinterpret_cast<uint32_t*>(&lo);
-      w.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(row) = w;
-    }
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        Tout* at = y + fp.row(mt, hh) * ys + fp.col(nt);
+        const float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+        if constexpr (sizeof(Tout) == 4) {
+          *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(at) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
 }
 
 // ===========================================================================

@@ -125,5 +125,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     float32``)``, on the hand-written kernel K4 (its plain version for CPU
     tensors).  Unlike the reference's ``ops.ssd_scan`` it also returns the
     final state, and nothing is transposed: K4 reads x and B / C (column
-    slices of one tensor included) in place."""
+    slices of one tensor included) in place, the model's always (a view
+    whose base or strides lie off 16 bytes is copied first at the model's
+    shapes)."""
     return _k4.ssd_scan(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype)

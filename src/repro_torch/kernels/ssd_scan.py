@@ -22,10 +22,11 @@ three or four ``__global__`` functions and counts as one launch:
   for all heads into a scratch, on bf16 tensor cores for bf16 inputs; the
   chunk states; the pass over chunks; the outputs, 64 rows a block, as one
   product over ``ds + `` the row tile's end.  The float32-operand products
-  run on the CUDA cores in float32.  Operands whose base or strides lie off
-  16 bytes are copied first.
+  run on the tensor cores at float32 accuracy as 3xTF32 (each float32
+  operand split into two TF32 parts, never rounded once).  Operands whose
+  base or strides lie off 16 bytes are copied first.
 * ``general`` -- every other shape: chunk states, pass, outputs, C B^T
-  rebuilt per head.
+  rebuilt per head, all on the CUDA cores in float32.
 
 Beside them stands ``ssd_scan_plain``: the reference kernel's arithmetic in
 float32 tensor code, a loop over chunks vectorised over (b, h).  The
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -84,7 +86,8 @@ class Plan:
     """How one K4 call runs: the variant, the grid (x, y, z) of each of its
     launches in order (``LAUNCH_NAMES``), the scratch tensors the wrapper
     allocates (name -> shape, all float32), and the blocks of each launch
-    per SM of the card it was planned for."""
+    per SM of the card it was planned for.  Plans are cached: read them,
+    do not change them."""
     variant: str
     grids: Dict[str, Tuple[int, int, int]]
     scratch: Dict[str, Tuple[int, ...]]
@@ -95,13 +98,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def shared_cb_fits(hp: int, ds: int, q: int) -> bool:
+def _shared_cb_fits(hp: int, ds: int, q: int) -> bool:
     """Whether the ``shared_cb`` variant takes these head, state and chunk
     sizes."""
     return hp == _TILE and ds % _TILE == 0 and ds <= 256 \
         and q % _TILE == 0 and q <= 256
 
 
+@functools.lru_cache(maxsize=4096)
 def plan(b: int, s: int, nh: int, hp: int, ds: int, q: int,
          dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
     """The launch plan of one scan of x [b, s, nh, hp] in chunks of ``q``
@@ -114,21 +118,19 @@ def plan(b: int, s: int, nh: int, hp: int, ds: int, q: int,
                          f"chunk {q}")
     nc, bh = s // q, b * nh
     scratch = {"states": (b, nh, nc, hp, ds), "cum": (b, nh, nc, q)}
-    if shared_cb_fits(hp, ds, q):
-        variant = SHARED_CB
-        nq = q // _TILE
-        # the pass takes 4 state elements a thread (hp ds % 4 == 0)
-        grids = {"state_pass": (_cdiv(hp * ds, 4 * _PASS_THREADS), bh, 1)}
+    if _shared_cb_fits(hp, ds, q):
+        variant, nq = SHARED_CB, q // _TILE
         scratch["cb"] = (b, nc, q, q)
-        grids["cb"] = (nq * (nq + 1) // 2, b * nc, 1)
-        grids["chunk_state"] = (nc, bh, ds // _TILE)
-        grids["output"] = (nc, bh, nq)
+        grids = {"cb": (nq * (nq + 1) // 2, b * nc, 1),
+                 "chunk_state": (nc, bh, ds // _TILE),
+                 # four state elements a thread (hp ds % 4 == 0)
+                 "state_pass": (_cdiv(hp * ds, 4 * _PASS_THREADS), bh, 1),
+                 "output": (nc, bh, nq)}
     else:
         variant = GENERAL
-        grids = {"state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1)}
-        grids["chunk_state"] = (nc, bh, 1)
-        grids["output"] = (_cdiv(q, _TILE), nc, bh)
-    grids = {k: grids[k] for k in LAUNCH_NAMES[variant]}
+        grids = {"chunk_state": (nc, bh, 1),
+                 "state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1),
+                 "output": (_cdiv(q, _TILE), nc, bh)}
     per_sm = {k: g[0] * g[1] * g[2] / sms for k, g in grids.items()}
     return Plan(variant, grids, scratch, per_sm)
 
@@ -323,7 +325,7 @@ def ssd_scan_with_scratch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     out = _out_dtype(x, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors; got {x.device}")
-    p = plan_for(x, dt, A, B, C, chunk=chunk)
+    p = plan(b, s, nh, hp, ds, q, x.dtype, _sm_count(x.device))
     x, B, C = (_kernel_operand(t, p.variant) for t in (x, B, C))
     dev = x.device
     y = torch.empty((b, s, nh, hp), dtype=out, device=dev)
