@@ -24,7 +24,10 @@ Lines, in order:
                                      shapes, other scales; plans
   {"phase": "ssd_scan", ...}         K4 vs plain: test, shared_cb and
                                      mamba2 shapes, views; plans, cum
-  {"phase": "kernels", ...}          K1 / K1a vs plain per case, timings, K1b
+  {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
+                                     twice), plans, K1 / K1a vs plain,
+                                     timings of the fused tile and the
+                                     old chain, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
   {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
@@ -83,7 +86,8 @@ CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 # file:line of what each kernel replaces in the reference package
-REPLACES = {"dse_sweep": "src/repro/kernels/dse_sweep.py:52",
+REPLACES = {"sweep_reduce": "src/repro/kernels/dse_sweep.py:52",
+            "dse_sweep": "src/repro/kernels/dse_sweep.py:52",
             "screen_rows": "src/repro/core/costmodel.py:486",
             "conv2d": "src/repro/kernels/conv2d.py:21",
             "flash_attention": "src/repro/kernels/flash_attention.py:25",
@@ -103,6 +107,12 @@ TF32_FLOPS = 495e12
 # source (adds, multiplies, divides, compares, min/max each as one)
 SWEEP_OPS_PER_ELEMENT = 122
 SCREEN_OPS_PER_ELEMENT = 80
+# the fused tile (K1 + K1a + K1b in one launch): the clusters the plan takes
+# at the campaign's two tile widths, and the survivor slots of a row
+FUSED_CLUSTERS = {4096: 8, 65536: 16}
+MAX_SURVIVORS = 2048
+# a float64 tile width past the fused kernel's shared memory: `general`
+GENERAL_N = 262_144
 
 BASE = {"flops": 3.2e14, "hbm_bytes": 4.5e13, "collective_bytes": 5e11,
         "wire_bytes": 7e11}
@@ -209,6 +219,36 @@ def compact_bound(keep: torch.Tensor, dtype, max_survivors: int = 2048
     return bound(nbytes, 4 * w * n, dtype)
 
 
+def fused_bound(w: int, n: int, k: int, dtype) -> dict:
+    """The fused tile: the candidate columns and the workload rows read
+    once, the packed [W] aggregates and [W, K] survivors written once,
+    against the sweep's and the screen's operations."""
+    s = torch.finfo(dtype).bits // 8
+    nbytes = (18 * n + 6 * w) * s + kern.packed_layout(w, k, dtype)[1]
+    return bound(nbytes, (SWEEP_OPS_PER_ELEMENT + SCREEN_OPS_PER_ELEMENT)
+                 * w * n, dtype)
+
+
+def device_total_ms(fn, reps: int = 20):
+    """Mean device milliseconds per call of ``fn`` over every kernel it
+    launches (``torch.profiler``'s self device time, summed); None where
+    the profiler reads no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(float(getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0)))
+                for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    return total / reps / 1e3 if total > 0 else None
+
+
 def bound(nbytes: int, ops: int, dtype) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
@@ -234,8 +274,9 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
-    """One nvcc per source, all started together."""
+def phase_build() -> dict:
+    """One nvcc per source, all started together; returns the report per
+    source."""
     t0 = time.perf_counter()
     sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -251,6 +292,8 @@ def phase_build() -> None:
                     "flags": " ".join(build.flags(src)),
                     "library": os.path.relpath(paths[src], ROOT),
                     "ptxas": usage}
+    out[kern.SOURCE]["kernels"] = ptxas_report(
+        build.build_logs[kern.SOURCE])
     out[k2.SOURCE]["kernels"] = ptxas_report(build.build_logs[k2.SOURCE])
     out[k3.SOURCE]["kernels"] = ptxas_report(build.build_logs[k3.SOURCE])
     tc = [r for r in out[k3.SOURCE]["kernels"]
@@ -268,6 +311,7 @@ def phase_build() -> None:
                              f"from the ptxas report): {tiles}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
+    return out
 
 
 def ptxas_report(log: str) -> list:
@@ -342,13 +386,61 @@ def compare_case(name, cand, wl, cons, dtype) -> dict:
             "screen_max_abs_err": screen_err, "screen_equal": True}
 
 
-def phase_kernels(workloads, device) -> dict:
-    """Each kernel against its plain version at the main-path shape
-    (W=6, N=4096) and at W=6, N=65536, plus an all-infeasible tile and a
-    partial tile; then the timings.  Returns per-kernel numbers."""
+def fused_field_diff(got: torch.Tensor, want: torch.Tensor, p) -> str:
+    """The fields of two packed results that differ, for the message."""
+    return ", ".join(
+        name for name, f in p.layout.items()
+        if not torch.equal(got[f.offset:f.offset + f.nbytes],
+                           want[f.offset:f.offset + f.nbytes]))
+
+
+def compare_fused(name, cand, wl, cons, dtype, host_buffer,
+                  max_survivors: int = MAX_SURVIVORS) -> dict:
+    """The fused kernel against ``sweep_reduce_plain`` on one tile: the
+    packed results of two launches each bitwise equal to the plain
+    version's, and the host path's ``SweepReduced`` equal to the plain
+    one's; raises on a mismatch."""
+    kw = dict(max_power_w=cons.max_power_w, max_latency_s=cons.max_latency_s,
+              min_hbm_fit=cons.min_hbm_fit)
+    p = kern.plan_for(cand, wl, max_survivors)
+    if p.variant != kern.FUSED:
+        raise AssertionError(f"{name}: planned {p.variant}, not fused")
+    want = kern.sweep_reduce_plain(cand, wl, **kw,
+                                   max_survivors=max_survivors)
+    for run in range(2):
+        got = kern.sweep_reduce_packed(cand, wl, **kw,
+                                       max_survivors=max_survivors)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {SUFFIX[dtype]} run {run}: fused "
+                                 f"differs from plain in "
+                                 f"{fused_field_diff(got, want, p)}")
+    red = kern.sweep_reduce(cand, wl, **kw, max_survivors=max_survivors,
+                            host_buffer=host_buffer)
+    ref = kern.unpack(want.cpu().numpy(), p, lambda: None)
+    for f in ("surv_idx", "surv_energy", "surv_latency", "n_survivors",
+              "n_feasible", "ref_energy", "ref_latency"):
+        if not np.array_equal(getattr(red, f), getattr(ref, f)):
+            raise AssertionError(f"{name}: host path differs in {f}")
+    ns = red.n_survivors
+    return {"case": name, "dtype": SUFFIX[dtype], "W": p.w, "N": p.n,
+            "K": p.k, "clusters": p.clusters,
+            "feasible": int(red.n_feasible.sum()), "survivors": int(ns.sum()),
+            "overflowed_rows": int((ns > max_survivors).sum()),
+            "bitwise_equal_twice": True}
+
+
+def phase_kernels(workloads, device, ptxas: list) -> dict:
+    """The fused kernel against its plain version, bitwise and twice, at the
+    main-path shape (W=6, N=4096: a full tile, an all-infeasible one, the
+    partial last one, every tile of the default campaign) and at W=6,
+    N=65536, plus overflow at K 1 and 16; the plans and their cluster
+    occupancy; K1 and K1a (the ``general`` variant) against theirs as
+    before; then the timings.  Returns per-(dtype, N) numbers."""
     cons = dse.Constraint(max_power_w=40_000)
     none_ok = dse.Constraint(max_power_w=1e-3, min_hbm_fit=False)
-    cases, all_tiles, numbers = [], [], {}
+    cases, fused_cases, all_tiles, numbers, plans = [], [], [], {}, []
+    host = kern.ResultBuffer()
     for dtype in DTYPES:
         sfx = SUFFIX[dtype]
         for n in (4096, 65536):
@@ -360,11 +452,34 @@ def phase_kernels(workloads, device) -> dict:
             # partly feasible, some not at all); tile 0 at 65536
             lo = 5 * n if n == 4096 else 0
             cand, wl = tile_inputs(eng, lo, lo + n, dtype, device)
+            w = int(wl.shape[0])
+            p = kern.plan_for(cand, wl, MAX_SURVIVORS)
+            active = kern.max_active_clusters(p, dtype, device)
+            if p.variant != kern.FUSED or p.clusters != FUSED_CLUSTERS[n] \
+                    or active < 1:
+                raise AssertionError(f"plan at N={n} {sfx}: {p.variant}, "
+                                     f"C={p.clusters}, {active} clusters "
+                                     f"active at most")
+            plans.append({"dtype": sfx, "W": w, "N": n, "variant": p.variant,
+                          "clusters": p.clusters, "lanes": p.lanes,
+                          "threads": p.threads, "smem_bytes": p.smem_bytes,
+                          "portable": p.portable,
+                          "max_active_clusters": active})
             cases.append(compare_case(f"full_n{n}", cand, wl, cons, dtype))
+            fused_cases.append(compare_fused(f"full_n{n}", cand, wl, cons,
+                                             dtype, host))
+            for k in (1, 16):
+                c = compare_fused(f"overflow_n{n}_k{k}", cand, wl, cons,
+                                  dtype, host, max_survivors=k)
+                if not c["overflowed_rows"]:
+                    raise AssertionError(f"K={k} did not overflow")
+                fused_cases.append(c)
             cases.append(compare_case(f"all_infeasible_n{n}", cand, wl,
                                       none_ok, dtype))
             if cases[-1]["feasible"] != 0 or cases[-1]["survivors"] != 0:
                 raise AssertionError("all-infeasible tile has feasible lanes")
+            fused_cases.append(compare_fused(f"all_infeasible_n{n}", cand,
+                                             wl, none_ok, dtype, host))
             # the space's last tile is partial: padding lanes carry valid=0
             last_lo = (space.n_tiles() - 1) * n
             pc, pw = tile_inputs(eng, last_lo, len(space), dtype, device)
@@ -373,6 +488,8 @@ def phase_kernels(workloads, device) -> dict:
                 raise AssertionError("expected a partial last tile")
             cases.append(compare_case(f"partial_n{n}_valid{n_valid}", pc, pw,
                                       cons, dtype))
+            fused_cases.append(compare_fused(f"partial_n{n}_valid{n_valid}",
+                                             pc, pw, cons, dtype, host))
             _, _, pf = kern.dse_sweep(pc, pw, max_power_w=cons.max_power_w)
             if bool(pf[:, n_valid:].any()):
                 raise AssertionError("padding lanes came out feasible")
@@ -383,19 +500,31 @@ def phase_kernels(workloads, device) -> dict:
                     tc, tw = tile_inputs(eng, t_lo, t_lo + len(b), dtype,
                                          device)
                     c = compare_case("tile", tc, tw, cons, dtype)
+                    f = compare_fused("tile", tc, tw, cons, dtype, host)
+                    if (f["feasible"], f["survivors"]) != (c["feasible"],
+                                                           c["survivors"]):
+                        raise AssertionError("fused and K1 + K1a counts "
+                                             "differ")
                     tot["feasible"] += c["feasible"]
                     tot["survivors"] += c["survivors"]
                     tot["sweep_max_ulp"] = max(tot["sweep_max_ulp"],
                                                c["sweep_max_ulp"])
                 all_tiles.append({"case": f"all_{space.n_tiles()}_tiles_n{n}",
-                                  "dtype": sfx, **tot, "screen_equal": True})
+                                  "dtype": sfx, **tot, "screen_equal": True,
+                                  "fused_bitwise_equal_twice": True})
 
             # timings on the full tile
             kw = dict(max_power_w=cons.max_power_w)
             e, l, f = kern.dse_sweep(cand, wl, **kw)
             iters = 200 if n == 4096 else 50
-            w = int(wl.shape[0])
             t = {
+                "fused_ms": time_ms(lambda: kern.sweep_reduce_packed(
+                    cand, wl, **kw), iters),
+                "fused_plain_ms": time_ms(lambda: kern.sweep_reduce_plain(
+                    cand, wl, **kw), 20),
+                # the wrapper the campaign calls: launch, one copy, one sync
+                "fused_tile_ms": time_ms(lambda: kern.sweep_reduce(
+                    cand, wl, **kw, host_buffer=host), iters),
                 "sweep_ms": time_ms(lambda: kern.dse_sweep(cand, wl, **kw),
                                     iters),
                 "sweep_plain_ms": time_ms(
@@ -409,40 +538,92 @@ def phase_kernels(workloads, device) -> dict:
             def chain():
                 ee, ll, ff = kern.dse_sweep(cand, wl, **kw)
                 kk = kern.screen_rows(ee, ll, ff)[0]
-                costmodel._compact_rows_device(kk, ee, ll, 2048)
+                costmodel._compact_rows_device(kk, ee, ll, MAX_SURVIVORS)
 
+            def general_tile():
+                ee, ll, ff = kern.dse_sweep(cand, wl, **kw)
+                costmodel.build_sweep_reduced(
+                    kern.screen_rows(ee, ll, ff) + (ee, ll, ff),
+                    MAX_SURVIVORS)
+
+            # the old chain, K1 -> K1a -> K1b, device work only, and with
+            # its four copies to the host (the general variant's wrapper)
             t["device_chain_ms"] = time_ms(chain, iters)
+            t["general_tile_ms"] = time_ms(general_tile, iters)
             # K1b alone: the compaction's tensor ops on this tile's keep mask
             kk = kern.screen_rows(e, l, f)[0]
             t["compact_ms"] = time_ms(
-                lambda: costmodel._compact_rows_device(kk, e, l, 2048), iters)
+                lambda: costmodel._compact_rows_device(kk, e, l,
+                                                       MAX_SURVIVORS), iters)
+            t["compact_device_ms"] = device_total_ms(
+                lambda: costmodel._compact_rows_device(kk, e, l,
+                                                       MAX_SURVIVORS))
             kb = compact_bound(kk, dtype)
             t["compact_bound_ms"] = kb["bound_ms"]
             t["compact_bound_by"] = kb["bound_by"]
             us = device_us({
+                "fused": (lambda: kern.sweep_reduce_packed(cand, wl, **kw),
+                          "k1_sweep_reduce_kernel"),
                 "sweep": (lambda: kern.dse_sweep(cand, wl, **kw),
                           "dse_sweep_kernel"),
                 "screen": (lambda: kern.screen_rows(e, l, f),
                            "screen_rows_kernel")})
-            t["sweep_device_ms"] = None if us["sweep"] is None \
-                else us["sweep"] / 1e3
-            t["screen_device_ms"] = None if us["screen"] is None \
-                else us["screen"] / 1e3
+            for key in ("fused", "sweep", "screen"):
+                t[f"{key}_device_ms"] = None if us[key] is None \
+                    else us[key] / 1e3
             numbers[(sfx, n)] = {**t, "W": w,
+                                 "fused": fused_bound(w, n, p.k, dtype),
                                  "sweep": sweep_bound(w, n, dtype),
                                  "screen": screen_bound(w, n, dtype),
                                  "err": cases[-3]}
-    emit({"phase": "kernels", "cases": cases + all_tiles,
+    # the general variant through the same wrapper, on a float64 tile past
+    # the fused kernel's shared memory (one partial tile of the space)
+    n = GENERAL_N
+    space = default_campaign_space(chunk_size=n)
+    eng = TileEvaluator(workloads, CampaignConfig(
+        space=space, evaluator="cuda", dtype=torch.float64, device=device,
+        constraint=cons))
+    cand, wl = tile_inputs(eng, 0, len(space), torch.float64, device)
+    p = kern.plan_for(cand, wl, MAX_SURVIVORS)
+    if p.variant != kern.GENERAL:
+        raise AssertionError(f"N={n} float64 planned {p.variant}")
+    red = kern.sweep_reduce(cand, wl, max_power_w=cons.max_power_w,
+                            host_buffer=host)
+    ref = kern.unpack(kern.sweep_reduce_plain(
+        cand, wl, max_power_w=cons.max_power_w).cpu().numpy(), p,
+        lambda: None)
+    for f in p.layout:
+        if not np.array_equal(getattr(red, f), getattr(ref, f)):
+            raise AssertionError(f"general variant differs in {f}")
+    general_case = {"case": f"general_n{n}_valid{len(space)}",
+                    "dtype": "f64", "variant": p.variant,
+                    "survivors": int(red.n_survivors.sum()), "equal": True}
+    fused_ptxas = [r for r in ptxas if "k1_sweep_reduce_kernel" in r["kernel"]]
+    if len(fused_ptxas) != 4:
+        raise AssertionError(f"the fused kernel's four instances are not in "
+                             f"the ptxas report: {fused_ptxas}")
+    emit({"phase": "kernels", "fused_cases": fused_cases,
+          "general_case": general_case,
+          "cases": cases + all_tiles, "plans": plans,
+          "fused_ptxas": fused_ptxas,
           "timing": [{"dtype": k[0], "N": k[1],
+                      "fused_bound_ms": val["fused"]["bound_ms"],
+                      "fused_bound_by": val["fused"]["bound_by"],
                       "compact_bound_by": val["compact_bound_by"],
                       **{m: v for m, v in val.items() if m.endswith("_ms")}}
                      for k, val in numbers.items()],
-          "timing_note": "*_ms: CUDA events around back-to-back wrapper "
-                         "calls after warm-up (launch overhead included, "
-                         "inputs L2-resident); *_device_ms: kernel execution "
-                         "alone as torch.profiler reports it; compact_*: K1b "
-                         "(costmodel._compact_rows_device, tensor ops) alone "
-                         "on the tile's keep mask, max_survivors 2048"})
+          "timing_note": "*_ms: CUDA events around back-to-back calls after "
+                         "warm-up (launch overhead included, inputs "
+                         "L2-resident); *_device_ms: kernel execution alone "
+                         "as torch.profiler reports it; fused_ms: the fused "
+                         "kernel's launch alone; fused_tile_ms: its wrapper "
+                         "(launch, one copy to pinned host memory, one "
+                         "synchronisation); device_chain_ms: the old chain "
+                         "K1 -> K1a -> K1b without copies; general_tile_ms: "
+                         "the old chain with its four copies to the host; "
+                         "compact_*: K1b (costmodel._compact_rows_device, "
+                         "tensor ops) alone on the tile's keep mask, "
+                         "max_survivors 2048"})
     return numbers
 
 
@@ -455,22 +636,54 @@ def run_campaign(workloads, space, evaluator, dtype, device, cons,
     torch.cuda.synchronize()
     result = camp.run()
     torch.cuda.synchronize()
-    shares = {}
+    spans = {}
     if trace:
         dur = {}
         for r in tel.tracer.records:
             dur[r.name] = dur.get(r.name, 0.0) + r.dur
         total = dur.get("tile_eval", 0.0)
-        shares = {k: dur.get(k, 0.0) / total
-                  for k in ("pad", "launch", "compact", "merge")}
-    return camp, result, shares
+        tiles = max(result.tiles_done, 1)
+        names = ("pad", "launch", "compact", "merge")
+        spans = {"share": {k: dur.get(k, 0.0) / total for k in names},
+                 "ms_per_tile": {k: 1e3 * dur.get(k, 0.0) / tiles
+                                 for k in names}}
+    return camp, result, spans
 
 
-def summarize(result, shares) -> dict:
+def summarize(result, spans) -> dict:
     return {"wall_s": result.wall_s,
             "evaluations_per_s": result.candidates_evaluated / result.wall_s,
             "tile_ms": 1e3 * result.sweep_wall_s / max(result.tiles_done, 1),
-            "span_share_of_tile": shares}
+            "span_share_of_tile": spans.get("share", {}),
+            "span_ms_per_tile": spans.get("ms_per_tile", {})}
+
+
+class OverflowSpy:
+    """Counts the overflow fallback's reads of full rows during a run:
+    (tile, workload) pairs, and the tiles (results) they fall in."""
+
+    def __init__(self):
+        self.pairs = 0
+        self.tiles = 0
+        self._patch = None
+
+    def __enter__(self):
+        orig = costmodel.SweepReduced.full_rows
+
+        def full_rows(red, w, n=None):
+            self.pairs += 1
+            if "_spied" not in red.__dict__:       # first read of this tile
+                red.__dict__["_spied"] = True
+                self.tiles += 1
+            return orig(red, w, n)
+
+        self._patch = mock.patch.object(costmodel.SweepReduced, "full_rows",
+                                        full_rows)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
 
 
 def hv(result, key) -> float:
@@ -494,16 +707,23 @@ def phase_campaign_default(workloads, device) -> dict:
                                device, cons, trace=False)
 
     kern.reset_launch_counts()
-    c64, r64, s64 = run_campaign(workloads, space, "cuda", torch.float64,
-                                 device, cons)
-    c32, r32, s32 = run_campaign(workloads, space, "cuda", torch.float32,
-                                 device, cons)
+    with OverflowSpy() as spy:
+        c64, r64, s64 = run_campaign(workloads, space, "cuda", torch.float64,
+                                     device, cons)
+        c32, r32, s32 = run_campaign(workloads, space, "cuda", torch.float32,
+                                     device, cons)
     launches = kern.launch_counts()
 
-    for name, count in launches.items():
-        if count != n_tiles:
-            raise AssertionError(f"{name}: {count} launches on the main "
-                                 f"path, expected {n_tiles} (one per tile)")
+    # one fused launch a tile and tier; K1 only where a tile overflowed, K1a
+    # (the general variant's) never
+    want = {k: 0 for k in launches}
+    want["sweep_reduce_f64"] = want["sweep_reduce_f32"] = n_tiles
+    if launches["dse_sweep_f64"] + launches["dse_sweep_f32"] != spy.tiles \
+            or {k: v for k, v in launches.items() if "dse_sweep" not in k} \
+            != {k: v for k, v in want.items() if "dse_sweep" not in k}:
+        raise AssertionError(f"launches on the main path {launches}, "
+                             f"expected {n_tiles} fused a tier and K1 once "
+                             f"for each of {spy.tiles} overflowed tiles")
     if c64.engine.fused_launches != n_tiles:
         raise AssertionError("fused_launches != tiles")
     hv64, hv32, frontier_sizes = 0.0, 0.0, {}
@@ -536,6 +756,7 @@ def phase_campaign_default(workloads, device) -> dict:
           "hypervolume_rel_diff_float64": hv64,
           "hypervolume_rel_diff_float32": hv32,
           "frontier_sizes": frontier_sizes, "launches": launches,
+          "overflowed_tile_workload_pairs": spy.pairs,
           "exact_torch_float64": summarize(exact, {}),
           "cuda_float64": summarize(r64, s64),
           "cuda_float32": summarize(r32, s32)})
@@ -566,16 +787,28 @@ def phase_campaign_resume(workloads, device, fresh) -> None:
           "tiles": final.n_tiles, "frontier_identical_to_fresh": True})
 
 
-def phase_campaign_large(workloads, device, freq_points, numbers) -> None:
+def phase_campaign_large(workloads, device, freq_points, numbers) -> dict:
     """A space a user of a million-point campaign would call real, float32
-    fused tier; frontier members re-checked against the scalar simulator."""
+    fused tier; frontier members re-checked against the scalar simulator.
+    Launch counts are zeroed just before the run and read just after; a spy
+    counts the tiles and (tile, workload) pairs that overflowed
+    ``max_survivors`` and took the fallback through K1's full rows."""
     cons = dse.Constraint(max_power_w=40_000)
     space = SpaceSpec(chips=tuple(CHIPS),
                       chip_counts=(4, 8, 16, 32, 64, 128, 256, 512, 1024),
                       freq_points=freq_points, mesh_dims=3,
                       variants=DEFAULT_VARIANTS, chunk_size=65_536)
-    _, res, shares = run_campaign(workloads, space, "cuda", torch.float32,
-                                  device, cons)
+    kern.reset_launch_counts()
+    with OverflowSpy() as spy:
+        _, res, shares = run_campaign(workloads, space, "cuda", torch.float32,
+                                      device, cons)
+    launches = kern.launch_counts()
+    want = {k: 0 for k in launches}
+    want["sweep_reduce_f32"] = res.n_tiles
+    want["dse_sweep_f32"] = spy.tiles
+    if launches != want:
+        raise AssertionError(f"launches in the large campaign {launches}, "
+                             f"expected {want}")
     if not res.complete:
         raise AssertionError("large campaign incomplete")
     worst, sizes = 0.0, {}
@@ -600,20 +833,25 @@ def phase_campaign_large(workloads, device, freq_points, numbers) -> None:
     if worst > 1e-5:
         raise AssertionError(f"large-campaign frontier off the scalar "
                              f"simulator by {worst}")
-    chain_ms = numbers[("f32", 65536)]["device_chain_ms"]
-    busy_s = res.n_tiles * chain_ms / 1e3
+    num = numbers[("f32", 65536)]
+    busy_s = (res.n_tiles * num["fused_ms"] + spy.tiles * num["sweep_ms"]) \
+        / 1e3
     emit({"phase": "campaign_large", "candidates": len(space),
           "rows": space.n_rows, "freq_points": freq_points,
           "workloads": len(workloads), "tiles": res.n_tiles,
           "dtype": "float32", **summarize(res, shares),
+          "launches": launches,
+          "overflowed_tiles": spy.tiles,
+          "overflowed_tile_workload_pairs": spy.pairs,
           "frontier_sizes": sizes,
           "frontier_max_rel_err_vs_scalar_simulator": worst,
           "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / res.wall_s,
-          "device_idle_note": "busy = tiles x the sweep+screen+compaction "
-                              "chain timed by CUDA events at this tile shape "
-                              "in the kernels phase; the rest of the wall is "
-                              "host work and copies"})
+          "device_idle_note": "busy = tiles x the fused kernel's launch and "
+                              "overflowed tiles x K1's, as CUDA events timed "
+                              "them at this tile shape in the kernels phase; "
+                              "the rest of the wall is host work and copies"})
+    return launches
 
 
 # --- ResNet-50 inference ----------------------------------------------------
@@ -2176,11 +2414,41 @@ def ssd_rows(rows, mb) -> list:
     return out
 
 
-def kernels_line(numbers, launches) -> list:
+def kernels_line(numbers, launches, ptxas) -> list:
+    """K1's rows: the fused tile (K1 + K1a + K1b in one launch, the main
+    path), then K1 and K1a alone (the general variant; K1 also the overflow
+    fallback).  ``launches``: the campaign phases' counts, summed."""
     rows = []
     for dtype in DTYPES:
         sfx = SUFFIX[dtype]
         main, wide = numbers[(sfx, 4096)], numbers[(sfx, 65536)]
+        name = f"sweep_reduce_{sfx}"
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES["sweep_reduce"],
+            "also_replaces": ["src/repro/core/costmodel.py:486",
+                              "src/repro/core/costmodel.py:544"],
+            "launches": launches[name], "max_abs_err": 0.0,
+            "ms": main["fused_ms"], "plain_ms": main["fused_plain_ms"],
+            "bound_ms": main["fused"]["bound_ms"],
+            "bound_by": main["fused"]["bound_by"], "library_ms": None,
+            "device_ms": main["fused_device_ms"],
+            "tile_ms": main["fused_tile_ms"],
+            "shape": f"W={main['W']}, N=4096, K={MAX_SURVIVORS}",
+            "ptxas": [r for r in ptxas if "k1_sweep_reduce_kernelI"
+                      + ("d" if dtype == torch.float64 else "f")
+                      in r["kernel"]],
+            "old_chain": {"device_chain_ms": main["device_chain_ms"],
+                          "general_tile_ms": main["general_tile_ms"]},
+            "n65536": {"ms": wide["fused_ms"],
+                       "device_ms": wide["fused_device_ms"],
+                       "tile_ms": wide["fused_tile_ms"],
+                       "plain_ms": wide["fused_plain_ms"],
+                       "bound_ms": wide["fused"]["bound_ms"],
+                       "bound_by": wide["fused"]["bound_by"],
+                       "old_chain": {
+                           "device_chain_ms": wide["device_chain_ms"],
+                           "general_tile_ms": wide["general_tile_ms"]}}})
         for kname, key in (("dse_sweep", "sweep"), ("screen_rows", "screen")):
             name = f"{kname}_{sfx}"
             err = main["err"][f"{key}_max_abs_err"]
@@ -2215,16 +2483,20 @@ def main() -> int:
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = phase_device()
-    phase_build()
+    built = phase_build()
     # first after the build: in runs where it followed the ResNet phase's
     # profiles, the profiler read no device time for K3 alone
     flash = phase_flash_attention(device, args.seed)
     ssd = phase_ssd_scan(device, args.seed)
     workloads = make_workloads(args.seed)
-    numbers = phase_kernels(workloads, device)
+    ptxas = built[kern.SOURCE]["kernels"]
+    numbers = phase_kernels(workloads, device, ptxas)
     main_path = phase_campaign_default(workloads, device)
     phase_campaign_resume(workloads, device, main_path["fresh64"])
-    phase_campaign_large(workloads, device, args.large_freq_points, numbers)
+    large = phase_campaign_large(workloads, device, args.large_freq_points,
+                                 numbers)
+    campaign_launches = {k: v + large[k]
+                         for k, v in main_path["launches"].items()}
     cfg, models, images = resnet_inputs(device, args.seed)
     per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],
                              images[32])
@@ -2233,7 +2505,7 @@ def main() -> int:
     lm = phase_transformer(device, args.seed)
     mb = phase_mamba2(device, args.seed)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
-    emit({"kernels": kernels_line(numbers, main_path["launches"])
+    emit({"kernels": kernels_line(numbers, campaign_launches, ptxas)
           + conv_rows(per_dtype, infer) + flash_rows(flash, lm)
           + ssd_rows(ssd, mb)})
     print(smi, flush=True)

@@ -36,7 +36,8 @@ bitwise to the tensor code here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -572,14 +573,18 @@ def _compact_rows_device(keep, energy, latency, max_survivors: int):
 
 @dataclasses.dataclass(frozen=True, eq=False)  # eq=False: array fields
 class SweepReduced:
-    """Reduced result of one fused (all-workloads x tile) sweep launch.
+    """Reduced result of one fused (all-workloads x tile) sweep.
 
     ``surv_*`` are the screened tile survivors (a feasible superset of the
     tile's Pareto skyline) on the host — all a frontier merge needs.  The
-    ``*_full`` rows stay tensors on the device the sweep ran on and are read
-    only through ``full_rows`` — on the (rare) overflow fallback when a
-    workload's screened set exceeds ``max_survivors`` — so a normal tile
-    moves only the [W, K] survivors and five [W] aggregates to the host."""
+    full [W, N] rows are not kept: ``rows`` gives them, on the device the
+    sweep ran on, at most once per result (``energy_full``,
+    ``latency_full``, ``feasible_full``).  Where the sweep never wrote them
+    (the fused kernel), ``rows`` runs the sweep kernel again for this tile;
+    it is read only through ``full_rows`` on the (rare) overflow fallback,
+    when a workload's screened set exceeds ``max_survivors``.  So a normal
+    tile moves only the [W, K] survivors and four [W] aggregates to the
+    host."""
 
     surv_idx: np.ndarray         # int64 [W, K] lane indices into the tile
     surv_energy: np.ndarray      # [W, K], rows past n_survivors are fill
@@ -589,9 +594,24 @@ class SweepReduced:
     ref_energy: np.ndarray       # [W] feasible max (-inf if none)
     ref_latency: np.ndarray      # [W]
     max_survivors: int
-    energy_full: torch.Tensor    # [W, N], device-resident
-    latency_full: torch.Tensor
-    feasible_full: torch.Tensor  # bool [W, N]
+    # () -> (energy, latency, feasible bool), each [W, N]
+    rows: Callable[[], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+    @functools.cached_property
+    def _rows(self):
+        return self.rows()
+
+    @property
+    def energy_full(self) -> torch.Tensor:
+        return self._rows[0]
+
+    @property
+    def latency_full(self) -> torch.Tensor:
+        return self._rows[1]
+
+    @property
+    def feasible_full(self) -> torch.Tensor:
+        return self._rows[2]
 
     def overflowed(self, w: int) -> bool:
         return int(self.n_survivors[w]) > self.max_survivors
@@ -606,9 +626,10 @@ class SweepReduced:
 
 
 def build_sweep_reduced(out, max_survivors: int) -> SweepReduced:
-    """Assemble a ``SweepReduced`` from a fused launch's output tuple
+    """Assemble a ``SweepReduced`` from a sweep-and-screen output tuple
     (keep, n_surv, n_feas, ref_e, ref_l, e_full, l_full, feas_full), all
-    tensors on one device.
+    tensors on one device — the plain path and the kernels' ``general``
+    launch plan.
 
     Compaction runs where the rows live (``_compact_rows_device``); four
     small copies bring the survivors and the aggregates to the host, and the
@@ -620,12 +641,12 @@ def build_sweep_reduced(out, max_survivors: int) -> SweepReduced:
     counts = torch.stack([n_surv, n_feas]).cpu().numpy()
     refs = torch.stack([ref_e, ref_l]).cpu().numpy()
     vals = torch.stack([surv_e, surv_l]).cpu().numpy()
+    full = (e_full, l_full, feas_full)
     return SweepReduced(
         surv_idx=surv_idx.cpu().numpy(), surv_energy=vals[0],
         surv_latency=vals[1], n_survivors=counts[0], n_feasible=counts[1],
         ref_energy=refs[0], ref_latency=refs[1],
-        max_survivors=int(max_survivors),
-        energy_full=e_full, latency_full=l_full, feasible_full=feas_full)
+        max_survivors=int(max_survivors), rows=lambda: full)
 
 
 def pack_cand_cols(arrays: Dict, dtype=torch.float64,
@@ -676,7 +697,7 @@ def sweep_workloads_reduced(wl_cols, chip_cols: Dict, n_chips, freq_mhz,
     O(survivors).  It is at once the counterpart of the reference's fused
     float32 sweep (``dtype=torch.float32``) and the plain version of the
     CUDA kernel path (``repro_torch.kernels.ops.dse_sweep``), which computes
-    the same thing in two hand-written launches.  ``chip_cols`` needs the
+    the same thing in one hand-written launch.  ``chip_cols`` needs the
     ``SWEEP_GATHER_FIELDS`` columns; ``wl_cols`` is the packed [W, 6]
     ``WL_COLS`` matrix; inputs are numpy arrays.
     """

@@ -247,9 +247,10 @@ class TileEvaluator:
       ``config.device``, bitwise-identical to one-shot ``pareto_search``
       (reproduces the reference's ``"numpy"`` tier);
     * ``"cuda"`` — the fused sweep: one hand-written kernel launch for all
-      workloads x the tile, a second for the dominance screen, compaction on
-      the device.  ``config.dtype=float64`` holds the exact tier's frontier
-      candidate set (the reference's fused-kernel tier in float64),
+      workloads x the tile that sweeps, screens and compacts, and one copy
+      of its result to the host.  ``config.dtype=float64`` holds the exact
+      tier's frontier candidate set (the reference's fused-kernel tier in
+      float64),
       ``float32`` is the fast tier (the reference's ``"jit"`` / compiled
       tier).  On ``device="cpu"`` the same path runs the kernels' plain
       PyTorch versions.
@@ -286,6 +287,7 @@ class TileEvaluator:
         self._c_survivors = self.telemetry.counter(
             "evaluator_survivors_total")
         self._staging: Optional[torch.Tensor] = None
+        self._results = None        # the reused pinned result buffer
 
     @property
     def fused_launches(self) -> int:
@@ -383,9 +385,13 @@ class TileEvaluator:
         """ONE fused sweep: all workloads x one padded tile, screened and
         compacted on the device.  Spans wrap the host-side stages only —
         ``pad`` (array staging + the host-to-device copy) and ``launch``
-        (kernel dispatch, compaction, and the device-to-host read of the
-        survivors, which is where the host waits for the device)."""
-        from repro_torch.kernels import ops
+        (kernel dispatch and the device-to-host read of the survivors,
+        which is where the host waits for the device).  The result's arrays
+        are views into a pinned buffer this evaluator reuses: valid until
+        its next ``sweep_reduced``."""
+        from repro_torch.kernels import dse_sweep, ops
+        if self._results is None:
+            self._results = dse_sweep.ResultBuffer()
         self._c_fused.inc()
         with self.telemetry.span("pad", n=len(batch)):
             cand = self._stage(self.padded_tile_arrays(batch))
@@ -394,7 +400,8 @@ class TileEvaluator:
             return ops.dse_sweep(
                 cand, self.wl_cols_device, sim=self.sim,
                 constraint=self.constraint,
-                max_survivors=self.max_survivors)
+                max_survivors=self.max_survivors,
+                host_buffer=self._results)
 
     # -- the normalized reduction -------------------------------------------
 

@@ -1,4 +1,5 @@
-// Fused DSE campaign sweep for NVIDIA Hopper (sm_90a): two hand-written kernels.
+// Fused DSE campaign sweep for NVIDIA Hopper (sm_90a): three hand-written
+// kernels.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -66,11 +67,49 @@
 //   (~0.45 MB at W=6, N=4096, float64), again far below launch cost.  What
 //   holds it back is occupancy, not bandwidth: W blocks (six in the default
 //   campaign) run on W of the card's 132 SMs, and each block walks its row
-//   three times (the re-reads come from L2).  That is accepted for now; a
-//   split-row version with a second pass is the obvious next step for wide
-//   tiles.
+//   three times (the re-reads come from L2).  It stays for the `general`
+//   launch plan only, which shapes past the fused kernel's shared memory take.
+//
+// ---------------------------------------------------------------------------
+// k1_sweep_reduce<T>   replaces, in one launch, the TPU kernel _sweep_kernel
+//                      and the jnp screen and compaction behind it
+//                      (repro/core/costmodel.py::_screen_rows,
+//                      ::_compact_rows_device)
+//
+//   One thread-block cluster of C CTAs (C <= 16, launched with
+//   cudaLaunchKernelEx and the cluster-dimension attribute) per workload row;
+//   CTA r owns lanes [r*lanes, (r+1)*lanes) of the row, with 512 threads (at
+//   most 128 registers each) or, for wide slices, 1024 (at most 64).
+//     1. sweep: sweep_point() of each owned lane into the CTA's own shared
+//        memory (e, l and a flag byte; dynamic shared memory);
+//     2. feasible min / max of e and l and the feasible count: warp shuffles,
+//        once across warps, cluster.sync(), then every CTA combines the C
+//        partials by reading its peers' shared memory (map_shared_rank);
+//     3. the eight (score, lane) probe argmins the same way; each probe's
+//        (e, l) is read from the owning CTA's shared memory;
+//     4. keep = feasible & !dominated, the CTA's survivor count, and over
+//        DSMEM the exclusive prefix of the counts of lower ranks;
+//     5. a block scan of the keep bits in lane order gives each survivor its
+//        rank in the row; ranks < K are written, the rest of the K slots are
+//        zero-filled, CTA 0 writes the row's counts and maxima; a last
+//        cluster.sync() keeps every CTA resident while peers read it.
+//     in : cand_cols [18, N], wl_cols [W, 6], K
+//     out: n_surv, n_feas [W] (int64), ref_e, ref_l [W] (T),
+//          surv_idx [W, K] (int64, ascending lanes), surv_e, surv_l [W, K]
+//          (T): what screen_rows_kernel and the compaction give, with no
+//          [W, N] row ever written to device memory.
+//   The reductions are min, max, count and lexicographic min and the scan
+//   runs in rank order, so the result is deterministic and equals the plain
+//   chain bit for bit.  Bound on an H100: the candidate columns read once
+//   plus the [W, K] outputs written, about 0.9 MB at the default tile (W=6,
+//   N=4096, K=2048, float64), against ~200 operations per (row, lane); the
+//   W re-reads of the columns are left to L2.  What the design removes: the
+//   [W, N] round trip through device memory, the screen's ~135 block-wide
+//   barriers a row, and the W-SM occupancy of the screen.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -79,6 +118,10 @@ namespace {
 constexpr int kSweepThreads = 256;
 constexpr int kScreenThreads = 1024;
 constexpr int kProbes = 8;
+constexpr int kFusedMaxThreads = 1024;  // threads of a fused CTA, at most
+constexpr int kMaxCluster = 16;         // non-portable cluster size limit
+constexpr int kPortableCluster = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
 // column order of cand_cols (CAND_COLS in repro_torch/core/costmodel.py)
 enum CandCol {
@@ -105,6 +148,12 @@ struct SweepParams {
 
 struct ScreenParams {
   double weights[kProbes];          // already rounded to T on the host
+};
+
+// everything the fused kernel takes besides pointers and extents
+struct FusedParams {
+  SweepParams sweep;
+  ScreenParams screen;
 };
 
 namespace {
@@ -136,18 +185,28 @@ __device__ __forceinline__ T axis_time(T payload, T k, T links, T bw, T hop) {
   return live ? t_bw + t_hop : T(0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kSweepThreads)
-dse_sweep_kernel(const T* __restrict__ cand, const T* __restrict__ wl,
-                 T* __restrict__ energy, T* __restrict__ latency_out,
-                 uint8_t* __restrict__ feasible, int64_t n, SweepParams p) {
-  const int64_t lane = (int64_t)blockIdx.x * kSweepThreads + threadIdx.x;
-  if (lane >= n) return;
-  const int64_t w = blockIdx.y;
+// the six scalars of one workload row that the sweep reads
+template <typename T> struct WlRow { T flops, hbm_b, wire_b, bc, state_gb; };
 
+template <typename T>
+__device__ __forceinline__ WlRow<T> load_wl_row(const T* __restrict__ wl,
+                                                int64_t w) {
   const T* wrow = wl + w * W_COUNT;
-  const T flops = wrow[W_FLOPS], hbm_b = wrow[W_HBM], wire_b = wrow[W_WIRE];
-  const T bc = wrow[W_BASE_CHIPS], state_gb = wrow[W_STATE_GB];
+  return {wrow[W_FLOPS], wrow[W_HBM], wrow[W_WIRE], wrow[W_BASE_CHIPS],
+          wrow[W_STATE_GB]};
+}
+
+// The sweep of one (workload, lane): energy, latency and the constraint
+// mask.  dse_sweep_kernel and k1_sweep_reduce_kernel both call it, so the
+// arithmetic of the two kernels cannot diverge.
+template <typename T>
+__device__ __forceinline__ void sweep_point(const T* __restrict__ cand,
+                                            int64_t n, int64_t lane,
+                                            const WlRow<T> r,
+                                            const SweepParams p, T& e_out,
+                                            T& lat_out, bool& ok_out) {
+  const T flops = r.flops, hbm_b = r.hbm_b, wire_b = r.wire_b;
+  const T bc = r.bc, state_gb = r.state_gb;
 
   const T nc = cand[C_N_CHIPS * n + lane];
   const T freq_in = cand[C_FREQ * n + lane];
@@ -169,11 +228,11 @@ dse_sweep_kernel(const T* __restrict__ cand, const T* __restrict__ wl,
   const T hbm_cap = cand[C_HBM_BYTES * n + lane];
 
   // scale_census (only the keys the mesh-aware simulation reads)
-  const T r = bc / nc;
+  const T r_ = bc / nc;
   const T ring_base = tmax((bc - T(1)) / bc, T(1e-9));
-  const T flops_s = flops * r;
-  const T hbm_s = hbm_b * r;
-  const T payload = wire_b * r / ring_base;
+  const T flops_s = flops * r_;
+  const T hbm_s = hbm_b * r_;
+  const T payload = wire_b * r_ / ring_base;
 
   // simulate_batch
   const T freq = tmin(tmax(freq_in, f_min), f_max);
@@ -215,6 +274,22 @@ dse_sweep_kernel(const T* __restrict__ cand, const T* __restrict__ wl,
   if (p.has_max_power) ok = ok && (power * nc <= T(p.max_power_w));
   if (p.has_max_latency) ok = ok && (lat <= T(p.max_latency_s));
 
+  e_out = e;
+  lat_out = lat;
+  ok_out = ok;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSweepThreads)
+dse_sweep_kernel(const T* __restrict__ cand, const T* __restrict__ wl,
+                 T* __restrict__ energy, T* __restrict__ latency_out,
+                 uint8_t* __restrict__ feasible, int64_t n, SweepParams p) {
+  const int64_t lane = (int64_t)blockIdx.x * kSweepThreads + threadIdx.x;
+  if (lane >= n) return;
+  const int64_t w = blockIdx.y;
+  T e, lat;
+  bool ok;
+  sweep_point(cand, n, lane, load_wl_row(wl, w), p, e, lat, ok);
   const int64_t o = w * n + lane;
   energy[o] = e;
   latency_out[o] = lat;
@@ -356,6 +431,316 @@ screen_rows_kernel(const T* __restrict__ energy, const T* __restrict__ latency,
   }
 }
 
+
+// ---- the fused tile: sweep, screen and compaction in one cluster launch ----
+
+template <typename T>
+__device__ __forceinline__ bool lane_less(T s, int i, T bs, int bi) {
+  return (s < bs) || (s == bs && i < bi);
+}
+
+// bytes of dynamic shared memory of a fused CTA that owns `lanes` lanes:
+// energy and latency in T, one flag byte (bit 0 feasible, bit 1 kept)
+template <typename T> __host__ __device__ constexpr int64_t fused_smem(
+    int64_t lanes) {
+  return (lanes * (2 * (int64_t)sizeof(T) + 1) + 15) / 16 * 16;
+}
+
+template <typename T, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+k1_sweep_reduce_kernel(const T* __restrict__ cand, const T* __restrict__ wl,
+                       long long* __restrict__ n_surv,
+                       long long* __restrict__ n_feas, T* __restrict__ ref_e,
+                       T* __restrict__ ref_l, long long* __restrict__ surv_idx,
+                       T* __restrict__ surv_e, T* __restrict__ surv_l,
+                       int64_t n, int lanes, int64_t k, FusedParams fp) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int crank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, wlane = tid & 31, nwarps = nthreads >> 5;
+  const int64_t w = blockIdx.y;
+  const int64_t base = (int64_t)crank * lanes;
+  // lanes of this CTA's slice that exist (the last slices may hold fewer)
+  const int own = (int)(n - base < lanes ? (n - base > 0 ? n - base : 0)
+                                         : lanes);
+  const T inf = T(INFINITY);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_e = reinterpret_cast<T*>(smem);
+  T* s_l = s_e + lanes;
+  uint8_t* s_f = reinterpret_cast<uint8_t*>(s_l + lanes);
+
+  constexpr int kMaxWarps = kMaxThreads / 32;
+  __shared__ T s_wext[kMaxWarps][4];
+  __shared__ int s_wcnt[kMaxWarps];
+  __shared__ T s_ps[kMaxWarps][kProbes];
+  __shared__ int s_pi[kMaxWarps][kProbes];
+  __shared__ int s_scan[2][kMaxWarps];
+  // this CTA's partials, read by its peers through distributed shared memory
+  __shared__ T c_ext[4];
+  __shared__ int c_feas;
+  __shared__ T c_ps[kProbes];
+  __shared__ int c_pi[kProbes];
+  __shared__ int c_keep;
+  // the row's values, combined from all the cluster's partials
+  __shared__ T r_ext[4];
+  __shared__ int r_feas;
+  __shared__ T r_ep[kProbes], r_lp[kProbes];
+  __shared__ long long r_off, r_tot;
+
+  // 1. sweep this slice into shared memory; feasible extrema and count
+  const WlRow<T> row = load_wl_row(wl, w);
+  T e_lo = inf, l_lo = inf, e_hi = -inf, l_hi = -inf;
+  int cnt = 0;
+  for (int i = tid; i < own; i += nthreads) {
+    T e, lat;
+    bool ok;
+    sweep_point(cand, n, base + i, row, fp.sweep, e, lat, ok);
+    s_e[i] = e;
+    s_l[i] = lat;
+    s_f[i] = ok ? 1 : 0;
+    if (ok) {
+      e_lo = tmin(e_lo, e);
+      l_lo = tmin(l_lo, lat);
+      e_hi = tmax(e_hi, e);
+      l_hi = tmax(l_hi, lat);
+      ++cnt;
+    }
+  }
+  // 2. extrema: warp shuffles, once across warps, then across the cluster
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    e_lo = tmin(e_lo, __shfl_xor_sync(kFull, e_lo, o));
+    l_lo = tmin(l_lo, __shfl_xor_sync(kFull, l_lo, o));
+    e_hi = tmax(e_hi, __shfl_xor_sync(kFull, e_hi, o));
+    l_hi = tmax(l_hi, __shfl_xor_sync(kFull, l_hi, o));
+    cnt += __shfl_xor_sync(kFull, cnt, o);
+  }
+  if (wlane == 0) {
+    s_wext[warp][0] = e_lo;
+    s_wext[warp][1] = l_lo;
+    s_wext[warp][2] = e_hi;
+    s_wext[warp][3] = l_hi;
+    s_wcnt[warp] = cnt;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int q = 1; q < nwarps; ++q) {
+      e_lo = tmin(e_lo, s_wext[q][0]);
+      l_lo = tmin(l_lo, s_wext[q][1]);
+      e_hi = tmax(e_hi, s_wext[q][2]);
+      l_hi = tmax(l_hi, s_wext[q][3]);
+      cnt += s_wcnt[q];
+    }
+    c_ext[0] = e_lo;
+    c_ext[1] = l_lo;
+    c_ext[2] = e_hi;
+    c_ext[3] = l_hi;
+    c_feas = cnt;
+  }
+  cluster.sync();                                           // barrier 1
+  if (warp == 0) {
+    T v0 = inf, v1 = inf, v2 = -inf, v3 = -inf;
+    int c = 0;
+    if (wlane < csize) {
+      const T* pe = cluster.map_shared_rank(c_ext, wlane);
+      v0 = pe[0];
+      v1 = pe[1];
+      v2 = pe[2];
+      v3 = pe[3];
+      c = *cluster.map_shared_rank(&c_feas, wlane);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v0 = tmin(v0, __shfl_xor_sync(kFull, v0, o));
+      v1 = tmin(v1, __shfl_xor_sync(kFull, v1, o));
+      v2 = tmax(v2, __shfl_xor_sync(kFull, v2, o));
+      v3 = tmax(v3, __shfl_xor_sync(kFull, v3, o));
+      c += __shfl_xor_sync(kFull, c, o);
+    }
+    if (wlane == 0) {
+      r_ext[0] = v0;
+      r_ext[1] = v1;
+      r_ext[2] = v2;
+      r_ext[3] = v3;
+      r_feas = c;
+    }
+  }
+  __syncthreads();
+  e_lo = r_ext[0];
+  l_lo = r_ext[1];
+
+  // 3. eight probe argmins of w_p*(e/e_lo) + l/l_lo over feasible lanes,
+  //    ties to the lowest lane (a row without a feasible lane: lane 0)
+  T best_s[kProbes];
+  int best_i[kProbes];
+#pragma unroll
+  for (int p = 0; p < kProbes; ++p) { best_s[p] = inf; best_i[p] = INT_MAX; }
+  for (int i = tid; i < own; i += nthreads) {
+    const bool fi = s_f[i] != 0;
+    const T en = s_e[i] / e_lo;
+    const T ln = s_l[i] / l_lo;
+    const int g = (int)(base + i);
+#pragma unroll
+    for (int p = 0; p < kProbes; ++p) {
+      const T s = fi ? T(fp.screen.weights[p]) * en + ln : inf;
+      if (lane_less<T>(s, g, best_s[p], best_i[p])) {
+        best_s[p] = s;
+        best_i[p] = g;
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kProbes; ++p) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const T os = __shfl_xor_sync(kFull, best_s[p], o);
+      const int oi = __shfl_xor_sync(kFull, best_i[p], o);
+      if (lane_less<T>(os, oi, best_s[p], best_i[p])) {
+        best_s[p] = os;
+        best_i[p] = oi;
+      }
+    }
+    if (wlane == 0) {
+      s_ps[warp][p] = best_s[p];
+      s_pi[warp][p] = best_i[p];
+    }
+  }
+  __syncthreads();
+  if (tid < kProbes) {
+    T bs = s_ps[0][tid];
+    int bi = s_pi[0][tid];
+    for (int q = 1; q < nwarps; ++q) {
+      if (lane_less<T>(s_ps[q][tid], s_pi[q][tid], bs, bi)) {
+        bs = s_ps[q][tid];
+        bi = s_pi[q][tid];
+      }
+    }
+    c_ps[tid] = bs;
+    c_pi[tid] = bi;
+  }
+  cluster.sync();                                           // barrier 2
+  // one warp a probe: lane r reads CTA r's partial, shuffles pick the best,
+  // lane 0 reads the probe's (e, l) from the CTA that owns its lane
+  for (int p = warp; p < kProbes; p += nwarps) {
+    T bs = inf;
+    int bi = INT_MAX;
+    if (wlane < csize) {
+      bs = cluster.map_shared_rank(c_ps, wlane)[p];
+      bi = cluster.map_shared_rank(c_pi, wlane)[p];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const T os = __shfl_xor_sync(kFull, bs, o);
+      const int oi = __shfl_xor_sync(kFull, bi, o);
+      if (lane_less<T>(os, oi, bs, bi)) {
+        bs = os;
+        bi = oi;
+      }
+    }
+    if (wlane == 0) {
+      const int pi = bi < n ? bi : 0;
+      const int owner = pi / lanes, at = pi - owner * lanes;
+      r_ep[p] = cluster.map_shared_rank(s_e, owner)[at];
+      r_lp[p] = cluster.map_shared_rank(s_l, owner)[at];
+    }
+  }
+  __syncthreads();
+
+  // 4. keep = feasible & not dominated by a probe; the slice's count
+  T ep[kProbes], lp[kProbes];
+#pragma unroll
+  for (int p = 0; p < kProbes; ++p) { ep[p] = r_ep[p]; lp[p] = r_lp[p]; }
+  int kept = 0;
+  for (int i = tid; i < own; i += nthreads) {
+    const T ei = s_e[i], li = s_l[i];
+    bool dom = false;
+#pragma unroll
+    for (int p = 0; p < kProbes; ++p) {
+      dom = dom || ((ei >= ep[p]) && (li >= lp[p])
+                    && ((ei > ep[p]) || (li > lp[p])));
+    }
+    if (s_f[i] && !dom) {
+      s_f[i] = 3;
+      ++kept;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) kept += __shfl_xor_sync(kFull, kept, o);
+  if (wlane == 0) s_wcnt[warp] = kept;
+  __syncthreads();
+  if (tid == 0) {
+    for (int q = 1; q < nwarps; ++q) kept += s_wcnt[q];
+    c_keep = kept;
+  }
+  cluster.sync();                                           // barrier 3
+  // the survivors of lower ranks come first: this slice's global offset
+  if (warp == 0) {
+    long long v = wlane < csize ? *cluster.map_shared_rank(&c_keep, wlane)
+                                : 0;
+    long long before = wlane < crank ? v : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v += __shfl_xor_sync(kFull, v, o);
+      before += __shfl_xor_sync(kFull, before, o);
+    }
+    if (wlane == 0) {
+      r_tot = v;
+      r_off = before;
+    }
+  }
+  __syncthreads();
+
+  // 5. compaction in lane order: a block scan of the keep bits per round
+  //    of nthreads lanes, carried across rounds; ranks >= k are not written
+  const long long tot = r_tot;
+  long long carry = r_off;
+  int buf = 0;
+  const unsigned below = (1u << wlane) - 1u;
+  for (int i0 = 0; i0 < own && carry < k; i0 += nthreads) {
+    const int i = i0 + tid;
+    const bool kp = i < own && s_f[i] == 3;
+    const unsigned b = __ballot_sync(kFull, kp);
+    if (wlane == 0) s_scan[buf][warp] = __popc(b);
+    __syncthreads();
+    int before = 0, round = 0;
+    for (int q = 0; q < nwarps; ++q) {
+      const int v = s_scan[buf][q];
+      before += q < warp ? v : 0;
+      round += v;
+    }
+    if (kp) {
+      const long long rank = carry + before + __popc(b & below);
+      if (rank < k) {
+        const int64_t o = w * k + rank;
+        surv_idx[o] = base + i;
+        surv_e[o] = s_e[i];
+        surv_l[o] = s_l[i];
+      }
+    }
+    carry += round;
+    buf ^= 1;
+  }
+  // zero fill past the row's survivors, spread over the cluster
+  const long long filled = tot < k ? tot : k;
+  for (long long s = filled + (long long)crank * nthreads + tid; s < k;
+       s += (long long)csize * nthreads) {
+    const int64_t o = w * k + s;
+    surv_idx[o] = 0;
+    surv_e[o] = T(0);
+    surv_l[o] = T(0);
+  }
+  if (crank == 0 && tid == 0) {
+    n_surv[w] = tot;
+    n_feas[w] = r_feas;
+    ref_e[w] = r_ext[2];
+    ref_l[w] = r_ext[3];
+  }
+  cluster.sync();            // barrier 4: no CTA leaves while a peer reads it
+}
+
 template <typename T>
 int launch_sweep(const void* cand, const void* wl, void* energy, void* latency,
                  void* feasible, int64_t w, int64_t n, const SweepParams* p,
@@ -382,6 +767,105 @@ int launch_screen(const void* energy, const void* latency,
       (uint8_t*)keep, (long long*)n_surv, (long long*)n_feas, (T*)ref_e,
       (T*)ref_l, n, *sp);
   return (int)cudaGetLastError();
+}
+
+
+// the fused kernel instance that takes `threads` threads: 512 at most (up to
+// 128 registers a thread), or 1024 (64 registers); null past that
+template <typename T>
+using FusedKernel = void (*)(const T*, const T*, long long*, long long*, T*,
+                             T*, long long*, T*, T*, int64_t, int, int64_t,
+                             FusedParams);
+
+template <typename T>
+FusedKernel<T> fused_kernel(int threads) {
+  if (threads <= 512) return k1_sweep_reduce_kernel<T, 512>;
+  if (threads <= 1024) return k1_sweep_reduce_kernel<T, 1024>;
+  return nullptr;
+}
+
+// the dynamic shared memory and the non-portable cluster size each
+// instance was last allowed on each device, so they are set once
+constexpr int kMaxDevices = 64;
+
+// the fused kernel's launch configuration, checked; 0 or an error code
+template <typename T>
+int fused_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                 FusedKernel<T>* kern_out, int device, int64_t w, int64_t n,
+                 int clusters, int lanes, int threads, int64_t smem,
+                 void* stream) {
+  const FusedKernel<T> kern = fused_kernel<T>(threads);
+  if (kern == nullptr || w < 1 || w > 65535 || n < 1 || n >= INT_MAX
+      || clusters < 1 || clusters > kMaxCluster || threads < 32
+      || threads % 32 || lanes < 1 || (int64_t)clusters * lanes < n
+      || smem < fused_smem<T>(lanes) || device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidValue;
+  static int64_t smem_allowed[2][kMaxDevices];
+  static bool wide_allowed[2][kMaxDevices];
+  const int slot = threads > 512 ? 1 : 0;
+  cudaError_t err;
+  if (smem > smem_allowed[slot][device]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed[slot][device] = smem;
+  }
+  if (clusters > kPortableCluster && !wide_allowed[slot][device]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    wide_allowed[slot][device] = true;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)clusters, (unsigned)w, 1);
+  cfg->blockDim = dim3((unsigned)threads, 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *kern_out = kern;
+  return 0;
+}
+
+template <typename T>
+int launch_fused(const void* cand, const void* wl, void* n_surv, void* n_feas,
+                 void* ref_e, void* ref_l, void* surv_idx, void* surv_e,
+                 void* surv_l, int64_t w, int64_t n, int64_t k, int clusters,
+                 int lanes, int threads, int64_t smem, const FusedParams* fp,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  FusedKernel<T> kern;
+  int code = fused_config<T>(&cfg, attr, &kern, device, w, n, clusters, lanes,
+                             threads, smem, stream);
+  if (code != 0) return code;
+  err = cudaLaunchKernelEx(&cfg, kern, (const T*)cand, (const T*)wl,
+                           (long long*)n_surv, (long long*)n_feas, (T*)ref_e,
+                           (T*)ref_l, (long long*)surv_idx, (T*)surv_e,
+                           (T*)surv_l, n, lanes, k, *fp);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fused_max_clusters(int64_t w, int64_t n, int clusters, int lanes,
+                       int threads, int64_t smem, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  FusedKernel<T> kern;
+  int code = fused_config<T>(&cfg, attr, &kern, device, w, n, clusters, lanes,
+                             threads, smem, nullptr);
+  if (code != 0) return code;
+  return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
 }
 
 }  // namespace
@@ -418,6 +902,33 @@ int screen_rows_f32(const void* energy, const void* latency,
                     void* stream) {
   return launch_screen<float>(energy, latency, feasible, keep, n_surv, n_feas,
                               ref_e, ref_l, w, n, sp, device, stream);
+}
+
+#define K1_FUSED_ARGS                                                        \
+  const void *cand, const void *wl, void *n_surv, void *n_feas,             \
+      void *ref_e, void *ref_l, void *surv_idx, void *surv_e, void *surv_l, \
+      int64_t w, int64_t n, int64_t k, int clusters, int lanes, int threads, \
+      int64_t smem, const FusedParams *fp, int device, void *stream
+#define K1_FUSED_PASS                                                        \
+  cand, wl, n_surv, n_feas, ref_e, ref_l, surv_idx, surv_e, surv_l, w, n, k, \
+      clusters, lanes, threads, smem, fp, device, stream
+
+int sweep_reduce_f64(K1_FUSED_ARGS) {
+  return launch_fused<double>(K1_FUSED_PASS);
+}
+
+int sweep_reduce_f32(K1_FUSED_ARGS) {
+  return launch_fused<float>(K1_FUSED_PASS);
+}
+
+// cudaOccupancyMaxActiveClusters of the fused kernel at this configuration
+int sweep_reduce_max_clusters(int is_f64, int64_t w, int64_t n, int clusters,
+                              int lanes, int threads, int64_t smem,
+                              int device, int* out) {
+  return is_f64 ? fused_max_clusters<double>(w, n, clusters, lanes, threads,
+                                             smem, device, out)
+                : fused_max_clusters<float>(w, n, clusters, lanes, threads,
+                                            smem, device, out);
 }
 
 const char* dse_error_string(int code) {

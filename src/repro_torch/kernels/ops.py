@@ -1,13 +1,14 @@
 """Public entry points of the port's kernels (the reference's
 ``kernels/ops.py``).
 
-``dse_sweep`` is what ``TileEvaluator.sweep_reduced`` calls per tile: the
-sweep kernel, the screen kernel and the survivor compaction in sequence on
-the device the packed tile lives on, returning the host-side
-``SweepReduced``.  ``conv2d`` is what the models call for a convolution:
-stride 1 goes to the hand-written kernel K2 with the reference's SAME
-padding, any other stride to the library convolution with JAX's SAME
-padding written out.  ``flash_attention`` is what the transformer calls for
+``dse_sweep`` is what ``TileEvaluator.sweep_reduced`` calls per tile: on a
+card, one launch of the fused sweep-screen-compaction kernel, one copy of
+its packed result to the host and one synchronisation (tiles past the fused
+kernel's shared memory take the sweep kernel, the screen kernel and the
+compaction in turn), returning the host-side ``SweepReduced``.
+``conv2d`` is what the models call for a convolution: stride 1 goes to the
+hand-written kernel K2 with the reference's SAME padding, any other stride
+to the library convolution with JAX's SAME padding written out.  ``flash_attention`` is what the transformer calls for
 prefill attention: the hand-written kernel K3, in the reference's BSHD
 layout, GQA without repeating K / V.  ``ssd_scan`` is what the Mamba2
 block calls for its chunked scan in prefill: the hand-written kernel K4,
@@ -38,8 +39,9 @@ __all__ = ["CAND_COLS", "conv2d", "dse_sweep", "flash_attention",
 
 def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
               sim: costmodel.SimConfig = costmodel.SimConfig(),
-              constraint=None,
-              max_survivors: int = 2048) -> costmodel.SweepReduced:
+              constraint=None, max_survivors: int = 2048,
+              host_buffer: Optional[_k.ResultBuffer] = None
+              ) -> costmodel.SweepReduced:
     """Fused on-device campaign evaluator.
 
     Evaluates all workload rows of ``wl_cols`` against the packed candidate
@@ -48,16 +50,18 @@ def dse_sweep(cand_cols: torch.Tensor, wl_cols: torch.Tensor, *,
     ``constraint`` duck-types ``dse.Constraint`` (``max_power_w`` /
     ``max_latency_s`` / ``min_hbm_fit``).  The tensors' dtype is the
     precision tier: float64 frontiers hold the exact tier's candidate set,
-    float32 is the fast tier.
+    float32 is the fast tier.  ``host_buffer``, a ``ResultBuffer`` the
+    caller reuses, takes the packed result on the host (the returned arrays
+    are views into it, valid until its next use).
     """
     kw = dict(max_power_w=None, max_latency_s=None, min_hbm_fit=True)
     if constraint is not None:
         kw = dict(max_power_w=constraint.max_power_w,
                   max_latency_s=constraint.max_latency_s,
                   min_hbm_fit=constraint.min_hbm_fit)
-    e, l, feas = _k.dse_sweep(cand_cols, wl_cols, sim=sim, **kw)
-    return costmodel.build_sweep_reduced(
-        _k.screen_rows(e, l, feas) + (e, l, feas), int(max_survivors))
+    return _k.sweep_reduce(cand_cols, wl_cols, sim=sim, **kw,
+                           max_survivors=int(max_survivors),
+                           host_buffer=host_buffer)
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
