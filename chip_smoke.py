@@ -7,8 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
 `nvcc` per source, all four started together), holds each against its plain
-PyTorch version on the card, and drives the port's four main paths: the
-fused campaign sweep through `Campaign.run`, ResNet-50 inference through
+PyTorch version on the card, and drives the port's main paths: the fused
+campaign sweep through `Campaign.run`, the paper's predictors (dataset,
+k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
+and the surrogate-guided `AdaptiveCampaign`, ResNet-50 inference through
 `build_model(get_config("resnet50")).init(...)`, dense-transformer serving
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
 qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
@@ -31,6 +33,11 @@ Lines, in order:
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
   {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
+  {"phase": "predictors", ...}       dataset, k-fold MAPE / R^2 (synthetic
+                                     census), forest walk and KNN card vs
+                                     CPU, fast-path pick card vs CPU
+  {"phase": "campaign_fast", ...}    the "fast" tier over the default space
+  {"phase": "adaptive", ...}         AdaptiveCampaign card vs CPU, resume
   {"phase": "conv2d", ...}           K2 vs plain: ResNet-50 shapes at B=1,
                                      8, 32, test and ragged shapes, plans
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
@@ -64,14 +71,19 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import costmodel, dse  # noqa: E402
-from repro_torch.dse_campaign import (Campaign, CampaignConfig,  # noqa: E402
-                                      DEFAULT_VARIANTS, SpaceSpec,
-                                      TileEvaluator, canonical_frontier,
+from repro_torch.core import (costmodel, dataset, dse,  # noqa: E402
+                              features, predictors)
+from repro_torch.dse_campaign import (AdaptiveCampaign,  # noqa: E402
+                                      AdaptiveConfig, Campaign,
+                                      CampaignConfig, DEFAULT_VARIANTS,
+                                      SpaceSpec, TileEvaluator,
+                                      canonical_frontier,
                                       default_campaign_space,
-                                      frontiers_identical)
+                                      frontiers_identical, hypervolume_2d,
+                                      tile_span)
 from repro_torch.hw import CHIPS, get_chip  # noqa: E402
-from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
+                                      get_config)
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as k2  # noqa: E402
@@ -760,7 +772,7 @@ def phase_campaign_default(workloads, device) -> dict:
           "exact_torch_float64": summarize(exact, {}),
           "cuda_float64": summarize(r64, s64),
           "cuda_float32": summarize(r32, s32)})
-    return {"launches": launches, "fresh64": r64}
+    return {"launches": launches, "fresh64": r64, "exact": exact}
 
 
 def phase_campaign_resume(workloads, device, fresh) -> None:
@@ -852,6 +864,387 @@ def phase_campaign_large(workloads, device, freq_points, numbers) -> dict:
                               "them at this tile shape in the kernels phase; "
                               "the rest of the wall is host work and copies"})
     return launches
+
+
+# --- the paper's predictors, the fast tier, the adaptive campaign ------------
+
+PREDICTOR_MODELS = ("knn", "decision_tree", "random_forest")
+# rows k-fold evaluation takes from the dataset (a seeded subsample): a
+# random-forest fold fits 40 trees in numpy on the host, ~0.2 s a tree at
+# ~1,000 rows, so the whole dataset would take ~100 s for the two targets
+KFOLD_ROWS = 256
+# the forests the walk is timed with (RandomForestRegressor's defaults)
+WALK_TREES, WALK_DEPTH = 40, 12
+# query rows the KNN's card-against-CPU comparison takes (the CPU's
+# difference blocks over the whole space would take tens of seconds)
+KNN_CPU_ROWS = 8192
+KNN_TOL = 1e-5
+TREE_NODE_BYTES = 8 + 4 + 8 + 8 + 4     # feature, threshold, left, right, value
+
+
+class CallSpy:
+    """Counts calls of ``module.name`` while active (patched in place)."""
+
+    def __init__(self, module, name: str):
+        self.calls = 0
+        self._module, self._name = module, name
+        self._patch = None
+
+    def __enter__(self):
+        orig = getattr(self._module, self._name)
+
+        def spy(*args, **kwargs):
+            self.calls += 1
+            return orig(*args, **kwargs)
+
+        self._patch = mock.patch.object(self._module, self._name, spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def span_ms(tel: Telemetry, names) -> dict:
+    dur = {}
+    for r in tel.tracer.records:
+        dur[r.name] = dur.get(r.name, 0.0) + r.dur
+    return {k: 1e3 * dur.get(k, 0.0) for k in names}
+
+
+def write_artifacts(workloads, path: str) -> None:
+    """The dry-run artifact JSONs ``dataset.load_dryrun_artifacts`` reads,
+    one per workload cell, holding the workloads' SYNTHETIC census."""
+    for wl in workloads:
+        art = {"hxa": dict(wl.base_analysis),
+               "roofline": {"n_chips": wl.base_chips}}
+        with open(os.path.join(path, f"{wl.arch}__{wl.shape}__pod1.json"),
+                  "w") as f:
+            json.dump(art, f)
+
+
+def walk_levels(model, X: torch.Tensor) -> int:
+    """(tree, sample) steps that met an internal node in one walk of ``X``
+    — the comparisons this data needs, the walk's operation count."""
+    feat, thr, left, right, _ = model._stacked
+    node = torch.zeros((feat.shape[0], X.shape[0]), dtype=torch.int64,
+                       device=X.device)
+    xt, visits = X.t(), 0
+    for _ in range(model.max_depth + 1):
+        f = feat.gather(1, node)
+        visits += int((f >= 0).sum())
+        x = xt.gather(0, f.clamp(min=0))
+        nxt = torch.where(x <= thr.gather(1, node), left.gather(1, node),
+                          right.gather(1, node))
+        node = torch.where(f < 0, node, nxt)
+    return visits
+
+
+def walk_bound(model, X: torch.Tensor) -> dict:
+    """The forest walk: the feature matrix, the stacked trees and the
+    [T, N] float32 leaf values each moved once; one comparison for each
+    internal node a sample meets in a tree."""
+    t, nodes = model._stacked[0].shape
+    n, f = X.shape
+    nbytes = n * f * 4 + t * nodes * TREE_NODE_BYTES + t * n * 4
+    return bound(nbytes, walk_levels(model, X), torch.float32)
+
+
+def knn_bound(model, n: int) -> dict:
+    """KNN predict: queries, the standardized training set and its
+    targets read once, predictions written once; three operations (sub,
+    mul, add) per (query, training row, feature)."""
+    m, f = model._x.shape
+    nbytes = (n * f + m * f + m + n) * 4
+    return bound(nbytes, 3 * n * m * f, torch.float32)
+
+
+def kernel_count(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches, as the profiler counts
+    them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(int(ev.count) for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA)
+
+
+def phase_predictors(workloads, device, seed: int) -> dict:
+    """The paper's predictors on the card: a dataset built from artifact
+    JSONs of the six cells, k-fold MAPE / R^2 of the three models on power
+    and cycles, the forest walk and KNN over the whole campaign space held
+    card against CPU, and the fast path's pick card against CPU."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_artifacts(workloads, tmp)
+        t = time.perf_counter()
+        X, y_power, y_cycles, _ = dataset.build_dataset(tmp)
+        dataset_s = time.perf_counter() - t
+    if not (len(X) and np.isfinite(X).all() and (y_power > 0).all()
+            and (y_cycles > 0).all()):
+        raise AssertionError("bad dataset")
+    rng = np.random.default_rng(seed)
+    cap = np.sort(rng.choice(len(X), size=min(KFOLD_ROWS, len(X)),
+                             replace=False))
+    kfold = {}
+    for target, y in (("power", y_power), ("cycles", y_cycles)):
+        for name in PREDICTOR_MODELS:
+            t = time.perf_counter()
+            r = predictors.kfold_evaluate(name, X[cap], y[cap], device=device)
+            if not (np.isfinite(r["mape"]) and np.isfinite(r["r2"])):
+                raise AssertionError(f"{target}/{name}: {r}")
+            kfold[f"{target}/{name}"] = {
+                "mape_pct": r["mape"], "r2": r["r2"],
+                "mape_std": r["mape_std"],
+                "seconds": time.perf_counter() - t}
+
+    # the fast tier's models, fitted on the whole dataset: the paper's picks
+    t = time.perf_counter()
+    power = predictors.RandomForestRegressor(
+        n_trees=WALK_TREES, max_depth=WALK_DEPTH, device=device).fit(
+        X, y_power)
+    cycles = predictors.KNNRegressor(device=device).fit(X, y_cycles)
+    fit_s = time.perf_counter() - t
+    power_cpu, cycles_cpu = (predictors.params_from_reference(
+        predictors.model_state(m), device="cpu") for m in (power, cycles))
+
+    # the design matrix of the whole campaign space, first workload's cell
+    space = default_campaign_space()
+    batch = space.slice(0, len(space), with_candidates=False)
+    wl = workloads[0]
+    xs = features.extract_batch(get_config(wl.arch), SHAPES[wl.shape],
+                                batch.chip_idx, batch.n_chips,
+                                batch.mesh_data, batch.mesh_model,
+                                batch.freq_mhz)
+    xs_dev = torch.from_numpy(xs).to(device)
+    leaves = power.tree_predictions(xs_dev)
+    if not torch.equal(leaves.cpu(), power_cpu.tree_predictions(xs)):
+        raise AssertionError("forest walk: card != CPU")
+    stats, stats_cpu = (power.predict_log_stats(xs_dev),
+                        power_cpu.predict_log_stats(xs))
+    if not all(np.array_equal(a, b) for a, b in zip(stats, stats_cpu)):
+        raise AssertionError("predict_log_stats: card != CPU")
+    if not np.array_equal(power.predict(xs_dev), power_cpu.predict(xs)):
+        raise AssertionError("forest predict: card != CPU")
+    walk = lambda: power.tree_predictions(xs_dev)
+    walk_ms = time_ms(walk, iters=10, warmup=2)
+    walk_stats_ms = time_ms(lambda: power.predict_log_stats(xs_dev),
+                            iters=5, warmup=1)
+    walk_device = device_total_ms(walk, reps=3)
+
+    knn = cycles.predict(xs_dev)
+    knn_cpu = cycles_cpu.predict(xs[:KNN_CPU_ROWS])
+    knn_err = float(np.max(np.abs(knn[:KNN_CPU_ROWS] / knn_cpu - 1.0)))
+    if not (np.isfinite(knn).all() and knn_err <= KNN_TOL):
+        raise AssertionError(f"KNN card vs CPU {knn_err} > {KNN_TOL}")
+    knn_fn = lambda: cycles.predict(xs_dev)
+    knn_ms = time_ms(knn_fn, iters=3, warmup=1)
+    knn_device = device_total_ms(knn_fn, reps=2)
+
+    # the fast path's pick, each workload's cell, card against CPU
+    cons = dse.Constraint(max_power_w=40_000)
+    picks = {}
+    for w in workloads:
+        def verify(c, w=w):
+            return costmodel.simulate(
+                dse._scale_analysis(w.base_analysis, w.base_chips, c),
+                get_chip(c.chip), c.n_chips, freq_mhz=c.freq_mhz,
+                mesh=c.mesh)
+        got = [dse.fast_path_search(w.arch, w.shape, p, c,
+                                    dse.default_space(), cons,
+                                    verify_top_k=5, slow_verify=verify)
+               for p, c in ((power, cycles), (power_cpu, cycles_cpu))]
+        if got[0][0] != got[1][0] or got[0][0] is None:
+            raise AssertionError(f"{w.arch}|{w.shape}: fast-path pick on "
+                                 f"the card {got[0][0]} != CPU {got[1][0]}")
+        picks["|".join((w.arch, w.shape))] = dataclasses.astuple(got[0][0])
+    emit({"phase": "predictors", "census": "synthetic",
+          "dataset": {"rows": int(len(X)), "features": int(X.shape[1]),
+                      "cells": len(workloads), "seconds": dataset_s},
+          "kfold": {"rows_cap": int(len(cap)), "folds": 5,
+                    "models": kfold},
+          "fit_seconds_full_dataset": fit_s,
+          "forest_walk": {
+              "trees": WALK_TREES, "max_depth": WALK_DEPTH,
+              "nodes_padded": int(power._stacked[0].shape[1]),
+              "rows": int(len(xs)), "features": int(xs.shape[1]),
+              "card_vs_cpu_leaves_bitwise": True,
+              "predict_log_stats_bitwise": True, "predict_bitwise": True,
+              "ms": walk_ms, "device_ms": walk_device,
+              "predict_log_stats_ms": walk_stats_ms,
+              "rows_per_s": len(xs) / (walk_ms / 1e3),
+              "kernels_per_walk": kernel_count(walk),
+              **walk_bound(power, xs_dev)},
+          "knn": {"k": cycles.k, "train_rows": int(cycles._x.shape[0]),
+                  "rows": int(len(xs)), "block_rows": cycles.block_rows(),
+                  "block_bytes": predictors.KNN_BLOCK_BYTES,
+                  "cpu_rows_compared": KNN_CPU_ROWS,
+                  "max_rel_err_card_vs_cpu": knn_err, "tolerance": KNN_TOL,
+                  "ms": knn_ms, "device_ms": knn_device,
+                  "rows_per_s": len(xs) / (knn_ms / 1e3),
+                  **knn_bound(cycles, len(xs))},
+          "fast_path_pick_card_equals_cpu": True, "fast_path_picks": picks,
+          "seconds": time.perf_counter() - t_phase})
+    return {"power": power, "cycles": cycles,
+            "walk": {"ms": walk_ms, "device_ms": walk_device}}
+
+
+def frontier_hv_ratio(wl, cands, exact_front, cons, device) -> dict:
+    """The predicted frontier's candidates priced exactly: the hypervolume
+    of those truly feasible against the exact frontier's, both against a
+    reference point 1.1x the exact frontier's largest energy and latency."""
+    ref_e = 1.1 * float(np.max(exact_front.energy_j))
+    ref_l = 1.1 * float(np.max(exact_front.latency_s))
+    res, feas = dse.evaluate_workload_tile(
+        wl, dse.CandidateBatch.from_candidates(cands), cons, device=device)
+    feas = feas.cpu().numpy()
+    hv_pred = hypervolume_2d(res.energy_j.cpu().numpy()[feas],
+                             res.latency_s.cpu().numpy()[feas], ref_e, ref_l)
+    hv_exact = hypervolume_2d(exact_front.energy_j, exact_front.latency_s,
+                              ref_e, ref_l)
+    return {"hv_ratio": hv_pred / hv_exact,
+            "truly_feasible": int(feas.sum()), "size": len(cands)}
+
+
+def phase_campaign_fast(workloads, device, models, exact) -> dict:
+    """``Campaign.run`` with the fast tier (the phase's fitted forest for
+    power, KNN for cycles) over the default space; each predicted frontier
+    priced exactly and held against the exact tier's (report only)."""
+    cons = dse.Constraint(max_power_w=40_000)
+    space = default_campaign_space()
+    tel = Telemetry()
+    with CallSpy(predictors, "forest_predict") as walks:
+        camp = Campaign(workloads, CampaignConfig(
+            space=space, evaluator="fast", device=device, constraint=cons,
+            power_model=models["power"], cycles_model=models["cycles"]),
+            telemetry=tel)
+        torch.cuda.synchronize()
+        res = camp.run()
+        torch.cuda.synchronize()
+    if not res.complete:
+        raise AssertionError("fast campaign incomplete")
+    sizes, hv = {}, {}
+    for wl in workloads:
+        key = (wl.arch, wl.shape)
+        front = res.frontiers[key]
+        if not (len(front) and np.isfinite(front.energy_j).all()
+                and np.isfinite(front.latency_s).all()):
+            raise AssertionError(f"{key}: bad predicted frontier")
+        if res.trajectories[key][-1].evaluated != len(space):
+            raise AssertionError("evaluated count != space size")
+        name = "|".join(key)
+        sizes[name] = len(front)
+        hv[name] = frontier_hv_ratio(wl, list(front.candidates),
+                                     exact.frontiers[key], cons, device)
+    spans = span_ms(tel, ("launch", "merge"))
+    emit({"phase": "campaign_fast", "candidates": len(space),
+          "workloads": len(workloads), "tiles": res.n_tiles,
+          "models": {"power": "random_forest (40 trees, depth 12)",
+                     "cycles": "knn (k 5)"},
+          "census": "synthetic",
+          "wall_s": res.wall_s,
+          "evaluations_per_s": res.candidates_evaluated / res.wall_s,
+          "tile_ms": 1e3 * res.sweep_wall_s / res.tiles_done,
+          "span_ms_per_tile": {k: v / res.tiles_done
+                               for k, v in spans.items()},
+          "forest_walks": walks.calls,
+          "frontier_sizes": sizes,
+          "predicted_frontier_priced_exactly": hv,
+          "hv_note": "report only: hypervolume of the predicted frontier's "
+                     "truly feasible candidates at their exact costs over "
+                     "the exact torch tier's frontier's, reference point "
+                     "1.1x the exact frontier's largest energy and latency"})
+    return {"walks": walks.calls}
+
+
+def phase_adaptive(workloads, device, exact) -> dict:
+    """The main path of the adaptive campaign: the default ``AdaptiveConfig``
+    over the default space on the fused float64 tier, card against the same
+    run on the CPU, resume == fresh on the card.  Launch counts are zeroed
+    just before the card's fresh run and read just after."""
+    cons = dse.Constraint(max_power_w=40_000)
+    acfg = AdaptiveConfig()
+    cfg = CampaignConfig(space=default_campaign_space(), evaluator="cuda",
+                         dtype=torch.float64, device=device, constraint=cons,
+                         adaptive=acfg)
+    tel = Telemetry()
+    kern.reset_launch_counts()
+    with CallSpy(predictors, "forest_predict") as walks:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = AdaptiveCampaign(workloads, cfg, telemetry=tel)
+        res = card.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = kern.launch_counts()
+    want = {k: 0 for k in launches}
+    want["sweep_reduce_f64"] = res.tiles_evaluated
+    want["dse_sweep_f64"] = res.tiles_evaluated     # the training samples
+    if launches != want:
+        raise AssertionError(f"adaptive launches {launches}, expected {want}")
+
+    t = time.perf_counter()
+    cpu = AdaptiveCampaign(workloads, cfg.replace(device="cpu"))
+    res_cpu = cpu.run()
+    cpu_s = time.perf_counter() - t
+    if (res_cpu.rounds != res.rounds or res_cpu.hv_history != res.hv_history
+            or res_cpu.stopped_on != res.stopped_on):
+        raise AssertionError(f"adaptive card {res.rounds} {res.hv_history} "
+                             f"!= CPU {res_cpu.rounds} {res_cpu.hv_history}")
+    for key in res.frontiers:
+        if not frontiers_identical(res.frontiers[key],
+                                   res_cpu.frontiers[key]):
+            raise AssertionError(f"{key}: adaptive frontier card != CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "adaptive.json")
+        part = AdaptiveCampaign(workloads, cfg).run(checkpoint_path=ckpt,
+                                                    max_rounds=1)
+        if part.stopped_on != "max_rounds" or len(part.rounds) != 1:
+            raise AssertionError("adaptive interruption did not stop")
+        resumed = AdaptiveCampaign.from_checkpoint(ckpt, device=device)
+        final = resumed.run(checkpoint_path=ckpt)
+    if (final.rounds != res.rounds or final.hv_history != res.hv_history
+            or final.stopped_on != res.stopped_on):
+        raise AssertionError("adaptive resume != fresh")
+    for key in res.frontiers:
+        if not frontiers_identical(final.frontiers[key], res.frontiers[key]):
+            raise AssertionError(f"{key}: resumed adaptive frontier != fresh")
+
+    hv = {}
+    for key, refs in card.acq_refs.items():
+        fr, ex = res.frontiers[key], exact.frontiers[key]
+        if refs is None or not len(fr):
+            raise AssertionError(f"{key}: no adaptive frontier")
+        if not set(fr.indices.tolist()) <= {
+                i for t in sum(res.rounds, [])
+                for i in range(*tile_span(card.space, t))}:
+            raise AssertionError(f"{key}: frontier outside evaluated tiles")
+        hv["|".join(key)] = (hypervolume_2d(fr.energy_j, fr.latency_s, *refs)
+                             / hypervolume_2d(ex.energy_j, ex.latency_s,
+                                              *refs))
+    emit({"phase": "adaptive", "candidates": res.space_size,
+          "workloads": len(workloads), "config": acfg.to_dict(),
+          "evaluator": "cuda", "dtype": "float64",
+          "rounds": res.rounds, "stopped_on": res.stopped_on,
+          "tiles_evaluated": res.tiles_evaluated, "n_tiles": res.n_tiles,
+          "fraction_evaluated": res.fraction_evaluated,
+          "hv_history": res.hv_history,
+          "hv_ratio_vs_exact_frontier": hv,
+          "hv_note": "each workload's adaptive frontier over the exact torch "
+                     "tier's frontier (campaign_default), both against the "
+                     "adaptive run's pinned acquisition reference point",
+          "card_vs_cpu_identical": True, "resume_equals_fresh": True,
+          "wall_s": wall, "cpu_run_s": cpu_s,
+          "span_ms": span_ms(tel, ("tile_eval", "launch", "sample",
+                                   "compact", "refit", "acquisition")),
+          "launches": launches, "forest_walks": walks.calls})
+    return {"launches": launches, "walks": walks.calls}
 
 
 # --- ResNet-50 inference ----------------------------------------------------
@@ -2495,7 +2888,10 @@ def main() -> int:
     phase_campaign_resume(workloads, device, main_path["fresh64"])
     large = phase_campaign_large(workloads, device, args.large_freq_points,
                                  numbers)
-    campaign_launches = {k: v + large[k]
+    models = phase_predictors(workloads, device, args.seed)
+    phase_campaign_fast(workloads, device, models, main_path["exact"])
+    adaptive = phase_adaptive(workloads, device, main_path["exact"])
+    campaign_launches = {k: v + large[k] + adaptive["launches"][k]
                          for k, v in main_path["launches"].items()}
     cfg, models, images = resnet_inputs(device, args.seed)
     per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],

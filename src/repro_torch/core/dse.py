@@ -1,18 +1,23 @@
-"""Design Space Exploration — slow path and Pareto search on tensors.
+"""Design Space Exploration — the slow path, the fast path and Pareto
+search on tensors.
 
-Counterpart of ``repro.core.dse`` for the part of it that needs no trained
-predictor: identify the most appropriate accelerator slice (generation, chip
-count, mesh shape, DVFS frequency) for a given (arch, shape) workload, under
-power / latency / capacity constraints, by running the calibrated simulator
-on every candidate.
+Counterpart of ``repro.core.dse``: identify the most appropriate
+accelerator slice (generation, chip count, mesh shape, DVFS frequency) for
+a given (arch, shape) workload, under power / latency / capacity
+constraints.  Two exploration modes mirror the paper's comparison:
 
-The space is packed struct-of-arrays on the host (``CandidateBatch``, numpy:
-it is index arithmetic, built by ``SpaceSpec.slice``); evaluation moves the
-columns to ``device`` and runs ``costmodel.simulate_batch`` there as tensor
-ops.  ``slow_path_search_scalar`` preserves the per-candidate python loop as
-the agreement oracle.  The predictor-ranked fast path (``predict_space``,
-``fast_path_search``, the surrogate features) is not part of this module
-yet.
+  * slow path — run the calibrated simulator on every candidate: the space
+    is packed struct-of-arrays on the host (``CandidateBatch``, numpy: it is
+    index arithmetic, built by ``SpaceSpec.slice``); evaluation moves the
+    columns to ``device`` and runs ``costmodel.simulate_batch`` there as
+    tensor ops.  ``slow_path_search_scalar`` preserves the per-candidate
+    python loop as the agreement oracle.
+  * fast path — rank ALL candidates with the trained predictors
+    (``repro_torch.core.predictors``, which predict on their own device) in
+    one batched call over the ``features.extract_batch`` design matrix, then
+    verify only the top-k with the slow path (``predict_space``,
+    ``fast_path_search``).  ``surrogate_features`` / ``predict_tile_scores``
+    are the adaptive campaign's per-tile surrogate inputs.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel
+from repro_torch.configs.base import SHAPES, get_config
+from repro_torch.core import costmodel, features
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.hw import (CHIP_TABLE, CHIPS, ChipTable, frequency_sweep,
                             get_chip, normalize_mesh)
@@ -191,6 +197,60 @@ def feasibility_mask(batch: CandidateBatch, sim: costmodel.SimBatch,
     return ok
 
 
+# Feature layout the adaptive-campaign surrogates train on.  Candidate
+# geometry first, then the chip-table columns the cost model actually
+# consumes — every column is a pure function of the candidate index, so
+# features computed from ``SpaceSpec.slice`` on any host/process are
+# bitwise identical (the property adaptive resume and the distributed
+# adaptive path rely on).
+SURROGATE_FEATURES: Tuple[str, ...] = (
+    "n_chips", "freq_mhz", "mesh_pod", "mesh_data", "mesh_model",
+    "peak_flops_bf16", "hbm_bw", "hbm_bytes", "ici_bw",
+    "tdp_watts", "idle_watts", "ici_hop_s",
+)
+
+_CHIP_FEATURES = SURROGATE_FEATURES[5:]
+
+
+def surrogate_features(batch: CandidateBatch,
+                       table: ChipTable = CHIP_TABLE) -> np.ndarray:
+    """Pack a candidate batch into the ``[N, F]`` float32 feature matrix the
+    adaptive campaign's forests consume (column order =
+    ``SURROGATE_FEATURES``)."""
+    cols = batch.chip_cols if batch.chip_cols is not None \
+        else table.gather(batch.chip_idx)
+    feats = [np.asarray(batch.n_chips, np.float64),
+             np.asarray(batch.freq_mhz, np.float64),
+             np.asarray(batch.pod_axis(), np.float64),
+             np.asarray(batch.mesh_data, np.float64),
+             np.asarray(batch.mesh_model, np.float64)]
+    feats += [np.asarray(cols[f], np.float64) for f in _CHIP_FEATURES]
+    return np.stack(feats, axis=1).astype(np.float32)
+
+
+def predict_tile_scores(energy_model, latency_model, batch: CandidateBatch,
+                        table: ChipTable = CHIP_TABLE
+                        ) -> Tuple[np.ndarray, np.ndarray,
+                                   np.ndarray, np.ndarray]:
+    """Tile-level surrogate scoring entry point: one batched forest inference
+    per model over the whole tile.  Returns ``(e_mu, e_sd, l_mu, l_sd)`` in
+    LOG space (the forests train on log targets).  Models without a
+    ``predict_log_stats`` surface degrade to ``log(predict)`` with zero
+    spread, so point predictors still work (no exploration term)."""
+    X = surrogate_features(batch, table)
+    out = []
+    for model in (energy_model, latency_model):
+        stats = getattr(model, "predict_log_stats", None)
+        if stats is not None:
+            mu, sd = stats(X)
+        else:
+            mu = np.log(np.maximum(np.asarray(model.predict(X), np.float64),
+                                   1e-300))
+            sd = np.zeros_like(mu)
+        out += [np.asarray(mu, np.float64), np.asarray(sd, np.float64)]
+    return out[0], out[1], out[2], out[3]
+
+
 class BatchSearchResults(Mapping):
     """Per-candidate results of a batched sweep, as a lazy
     ``{cand: {"sim": SimResult, "feasible": bool}}`` mapping.  The
@@ -316,6 +376,72 @@ def slow_path_search_scalar(arch: str, shape_name: str, base_analysis: Dict,
         if ok and score < best_score:
             best, best_score = cand, score
     return best, results, time.perf_counter() - t0
+
+
+def predict_space(cfg, shape, power_model, cycles_model, batch: CandidateBatch,
+                  constraint: Constraint = Constraint()
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                             np.ndarray, np.ndarray]:
+    """The fast path's shared scoring core: predictor-based
+    (energy_j, latency_s, feasible, power_w_per_chip, cycles) for a batch.
+
+    Single home for the prediction arithmetic and constraint masks so
+    ``fast_path_search`` and campaign fast-path tiles cannot diverge.
+    """
+    X = features.extract_batch(cfg, shape, batch.chip_idx, batch.n_chips,
+                               batch.mesh_data, batch.mesh_model,
+                               batch.freq_mhz)
+    p_watts = np.asarray(power_model.predict(X))     # per chip
+    p_cycles = np.asarray(cycles_model.predict(X))
+    n = batch.n_chips.astype(np.float64)
+    lat = p_cycles / (batch.freq_mhz * 1e6)
+    energy = p_watts * n * lat
+    feasible = np.ones(len(batch), bool)
+    if constraint.max_power_w is not None:
+        feasible &= (p_watts * n) <= constraint.max_power_w
+    if constraint.max_latency_s is not None:
+        feasible &= lat <= constraint.max_latency_s
+    if constraint.min_hbm_fit:
+        need = cfg.param_count() * 2 * (3.0 if shape.kind == "train" else 1.0)
+        feasible &= need / n <= batch.hbm_bytes() * 0.9
+    return energy, lat, feasible, p_watts, p_cycles
+
+
+def fast_path_search(arch: str, shape_name: str, power_model, cycles_model,
+                     space: SpaceLike,
+                     constraint: Constraint = Constraint(),
+                     objective: str = "energy",
+                     verify_top_k: int = 5,
+                     slow_verify=None) -> Tuple[Candidate, Dict, float]:
+    """Predictor-ranked search (the paper's fast path).
+
+    The design matrix comes from ``features.extract_batch`` (one vector pass,
+    no per-candidate Python), predictions and constraint masks are array ops,
+    and only the top-k survivors are optionally re-verified with the
+    simulator (callable ``slow_verify(cand) -> SimResult``)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    t0 = time.perf_counter()
+    batch = as_batch(space)
+    energy, lat, feasible, p_watts, p_cycles = predict_space(
+        cfg, shape, power_model, cycles_model, batch, constraint)
+    score = energy if objective == "energy" else lat
+    score = np.where(feasible, score, np.inf)
+    order = np.argsort(score)
+    elapsed = time.perf_counter() - t0
+    top = [batch.candidates[i] for i in order[:verify_top_k]
+           if np.isfinite(score[i])]
+    if not top:
+        return None, {}, elapsed
+    best = top[0]
+    if slow_verify is not None:
+        verified = [(slow_verify(c), c) for c in top]
+        key = ((lambda rc: rc[0].energy_j) if objective == "energy"
+               else (lambda rc: rc[0].latency_s))
+        best = min(verified, key=key)[1]
+    details = {"predicted_power_w": p_watts, "predicted_cycles": p_cycles,
+               "order": order[:verify_top_k]}
+    return best, details, elapsed
 
 
 # --- Multi-objective / multi-workload sweep -----------------------------------

@@ -9,6 +9,9 @@ reference's tiers):
   raw-merged into that workload's ``StreamingFrontier``.  Bitwise-identical
   to one-shot ``pareto_search``; the exact oracle.
 
+* ``"fast"`` — the same per-workload loop with the trained predictors in
+  place of the simulator (``dse.predict_space``).
+
 * ``"cuda"`` — the fused zero-copy pipeline: tiles stream as array-only
   batches (no per-candidate python objects), padded to ``chunk_size`` with
   a validity mask, packed into ONE contiguous staging buffer that crosses to
@@ -24,7 +27,9 @@ reference's tiers):
   stays on the consuming thread.
 
 The tile engine itself lives in ``TileEvaluator``, and a reduced tile is a
-``TileReduction`` — a pure function of (campaign config, tile span).
+``TileReduction`` — a pure function of (campaign config, tile span).  With
+``config.adaptive`` set it also carries the seeded training subsample the
+adaptive campaign's surrogates learn from.
 
 Peak candidate memory is one tile regardless of space size.
 
@@ -48,6 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.core import costmodel, dse
 from repro_torch.dse_campaign import store
 from repro_torch.dse_campaign.config import (EVALUATORS, REFERENCE_EVALUATORS,
@@ -157,6 +163,14 @@ class TileReduction:
     * the payload is O(survivors), not O(tile);
     * it is a pure function of (space, workloads, constraint, sim,
       evaluator, dtype) and the tile span — no cross-tile state.
+
+    Adaptive campaigns additionally carry a seeded training subsample:
+    ``sample_lidx`` (LOCAL indices into the tile, shared by all workloads —
+    candidate features are workload-independent) plus per-workload
+    ``sample_energy`` / ``sample_latency`` rows the surrogates train on.
+    The subsample is seeded by ``(adaptive.seed, lo)``, so it is a pure
+    function of config x span like everything else here.  ``None`` (exact
+    campaigns) keeps the payload unchanged.
     """
 
     lo: int
@@ -167,6 +181,9 @@ class TileReduction:
     n_feasible: Tuple[int, ...]
     ref_energy_j: Tuple[Optional[float], ...]
     ref_latency_s: Tuple[Optional[float], ...]
+    sample_lidx: Optional[np.ndarray] = None
+    sample_energy: Optional[Tuple[np.ndarray, ...]] = None
+    sample_latency: Optional[Tuple[np.ndarray, ...]] = None
 
     @property
     def n_workloads(self) -> int:
@@ -253,7 +270,10 @@ class TileEvaluator:
       float64),
       ``float32`` is the fast tier (the reference's ``"jit"`` / compiled
       tier).  On ``device="cpu"`` the same path runs the kernels' plain
-      PyTorch versions.
+      PyTorch versions;
+    * ``"fast"`` — trained predictors (``config.power_model`` /
+      ``cycles_model``) through ``dse.predict_space``, per workload, float64
+      on the host around the models' own device.
 
     ``fused_launches`` counts fused multi-workload sweeps (``sweep_reduced``
     calls) over this evaluator's lifetime; it is a view over the
@@ -279,6 +299,11 @@ class TileEvaluator:
         self.device = cfg.device
         self.dtype = cfg.dtype
         self.max_survivors = int(cfg.max_survivors)
+        self.power_model = cfg.power_model
+        self.cycles_model = cfg.cycles_model
+        self.adaptive = cfg.adaptive
+        self.train_sample = 0 if cfg.adaptive is None \
+            else int(cfg.adaptive.train_sample)
         self.telemetry = coerce_telemetry(telemetry)
         # held series: the hot path pays one attribute read, not a dict hit
         self._c_fused = self.telemetry.counter("evaluator_fused_launches_total")
@@ -305,17 +330,30 @@ class TileEvaluator:
         ``TileReduction`` tuple and frontier dict is indexed by."""
         return [(wl.arch, wl.shape) for wl in self.workloads]
 
-    # -- per-workload evaluation (the exact float64 tier) -------------------
+    # -- per-workload evaluation (the exact float64 tier, the fast tier) ----
 
     def evaluate_workload(self, wl: dse.Workload, batch: dse.CandidateBatch
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(energy_j, latency_s, feasible) for one workload on one tile, as
         host arrays."""
+        if self.evaluator == "fast":
+            return self._evaluate_fast(wl, batch)
         res, feasible = dse.evaluate_workload_tile(
             wl, batch, self.constraint, sim=self.sim, dtype=self.dtype,
             device=self.device)
         return (res.energy_j.cpu().numpy(), res.latency_s.cpu().numpy(),
                 feasible.cpu().numpy())
+
+    def _evaluate_fast(self, wl: dse.Workload, batch: dse.CandidateBatch):
+        """Predictor fast path via ``dse.predict_space`` (same scoring as
+        ``fast_path_search``).  Workload shapes suffixed with a pod tag
+        resolve to their base shape."""
+        cfg = get_config(wl.arch)
+        shape = SHAPES[wl.shape.split(":", 1)[0]]
+        energy, latency, feasible, _, _ = dse.predict_space(
+            cfg, shape, self.power_model, self.cycles_model, batch,
+            self.constraint)
+        return energy, latency, feasible
 
     # -- fused zero-copy sweep ----------------------------------------------
 
@@ -405,6 +443,18 @@ class TileEvaluator:
 
     # -- the normalized reduction -------------------------------------------
 
+    def _tile_sample_lidx(self, n: int, lo: int) -> Optional[np.ndarray]:
+        """Seeded training-subsample indices for the tile at ``lo`` (local,
+        sorted, without replacement), or ``None`` when the campaign is not
+        adaptive.  Seeded by ``(adaptive.seed, lo)`` so the draw depends
+        only on config x span — never on in which round the tile was
+        evaluated."""
+        if self.train_sample <= 0:
+            return None
+        k = min(self.train_sample, n)
+        rng = np.random.default_rng((self.adaptive.seed, lo))
+        return np.sort(rng.choice(n, size=k, replace=False)).astype(np.int64)
+
     @staticmethod
     def _reduce_rows(energy: np.ndarray, latency: np.ndarray,
                      feasible: np.ndarray, lo: int):
@@ -434,9 +484,20 @@ class TileEvaluator:
         back from the device, the only time they cross).  Either way the
         fold through ``StreamingFrontier.merge_reduced`` equals the raw
         full-tile merge.
+
+        With ``config.adaptive`` set, the reduction also carries the tile's
+        seeded training subsample (see ``TileReduction``): the per-workload
+        path reads it off each workload's evaluation; the fused path reads
+        it off the sweep's full rows (``SweepReduced.energy_full``), which
+        the fused kernel does not write — so an adaptive tile launches the
+        sweep kernel alone once more (counted in its ``LAUNCHES``), then
+        moves the [W, train_sample] sample to the host in one copy.
         """
         n = len(batch)
         cols = {"gidx": [], "e": [], "l": [], "nf": [], "re": [], "rl": []}
+        lidx = self._tile_sample_lidx(n, lo)
+        samp_e: List[np.ndarray] = []
+        samp_l: List[np.ndarray] = []
 
         def add(gidx, e, l, nf, re, rl):
             cols["gidx"].append(gidx)
@@ -448,6 +509,13 @@ class TileEvaluator:
 
         if self.fused:
             red = self.sweep_reduced(batch)
+            if lidx is not None:
+                with self.telemetry.span("sample", n=lidx.size):
+                    e, l = red.energy_full, red.latency_full
+                    at = torch.from_numpy(lidx).to(e.device)
+                    samp = torch.stack([e[:, at], l[:, at]]).double()
+                    samp = samp.cpu().numpy()
+                samp_e, samp_l = list(samp[0]), list(samp[1])
             with self.telemetry.span("compact", n=n):
                 for wi in range(len(self.workloads)):
                     if red.overflowed(wi):
@@ -466,13 +534,19 @@ class TileEvaluator:
                                          workload=f"{wl.arch}|{wl.shape}"):
                     energy, latency, feasible = \
                         self.evaluate_workload(wl, batch)
+                if lidx is not None:
+                    samp_e.append(np.asarray(energy, np.float64)[lidx])
+                    samp_l.append(np.asarray(latency, np.float64)[lidx])
                 with self.telemetry.span("compact", n=n):
                     add(*self._reduce_rows(energy, latency, feasible, lo))
         tr = TileReduction(
             lo=lo, hi=lo + n,
             surv_gidx=tuple(cols["gidx"]), surv_energy=tuple(cols["e"]),
             surv_latency=tuple(cols["l"]), n_feasible=tuple(cols["nf"]),
-            ref_energy_j=tuple(cols["re"]), ref_latency_s=tuple(cols["rl"]))
+            ref_energy_j=tuple(cols["re"]), ref_latency_s=tuple(cols["rl"]),
+            sample_lidx=lidx,
+            sample_energy=tuple(samp_e) if lidx is not None else None,
+            sample_latency=tuple(samp_l) if lidx is not None else None)
         self._c_candidates.inc(n * len(self.workloads))
         self._c_survivors.inc(tr.n_survivors)
         return tr
@@ -549,10 +623,15 @@ class Campaign:
         all restored from the checkpoint into a ``CampaignConfig``; extra
         keyword arguments override config fields on the rebuilt config
         (``device`` is not stored — a checkpoint resumes on whatever device
-        the caller names, the card by default).  A checkpoint written under
-        a different ``costmodel.SIM_MODEL_VERSION`` is refused: its
-        folded-in tiles and the tiles a resume would evaluate come from
-        incomparable cost models.
+        the caller names, the card by default).  Fitted predictor models
+        cannot be serialized, so resuming an ``evaluator="fast"`` campaign
+        requires re-passing the SAME ``power_model`` / ``cycles_model`` as
+        keywords (``CampaignConfig`` refuses the resume without them);
+        supplying retrained models would splice two predictors into one
+        frontier undetected.  A checkpoint written under a different
+        ``costmodel.SIM_MODEL_VERSION`` is refused: its folded-in tiles and
+        the tiles a resume would evaluate come from incomparable cost
+        models.
 
         Corrupt checkpoints do not crash the resume: ``store.load_checkpoint``
         verifies the integrity CRC, quarantines a bad file to ``*.corrupt``
@@ -685,7 +764,8 @@ class Campaign:
             c_ckpt.inc()
         return self._result(clock() - t_start)
 
-    def _result(self, wall_s: float) -> CampaignResult:
+    def _result(self, wall_s: float, tiles_done: Optional[int] = None
+                ) -> CampaignResult:
         wl_by_key = {(wl.arch, wl.shape): wl for wl in self.workloads}
         return CampaignResult(
             frontiers={k: fr.as_pareto_frontier(wl_by_key[k])
@@ -694,7 +774,7 @@ class Campaign:
                           for k, fr in self.frontiers.items()},
             tile_stats=list(self.tile_stats),
             space_size=len(self.space),
-            tiles_done=self.next_tile,
+            tiles_done=self.next_tile if tiles_done is None else tiles_done,
             n_tiles=self.space.n_tiles(),
             wall_s=wall_s)
 
@@ -733,13 +813,20 @@ def state_from_reference(state: Dict, chip_table: Optional[Dict] = None,
     the same tile, so a half-finished reference sweep is finished here.
     Evaluator names are mapped onto the port's tiers (``"numpy"`` ->
     ``"torch"``; ``"pallas"`` -> ``"cuda"`` float64; ``"jit"`` -> ``"cuda"``
-    float32).  ``chip_table``, when given, is the reference's chip-table
-    columns as numpy arrays (``{field: array}``, plus optionally
+    float32; a ``"fast"`` campaign has no counterpart here).
+    ``chip_table``, when given, is the reference's chip-table columns as
+    numpy arrays (``{field: array}``, plus optionally
     ``"names"``); the state is refused unless they equal this package's
     registry, since candidate indices and costs would otherwise not mean the
     same thing.  A ``sim_model_version`` other than this build's is refused
     like any checkpoint.  ``kwargs`` override config fields (``device=``).
+    An adaptive campaign's state (an ``"adaptive"`` key) is refused: its
+    surrogates would have to be rebuilt by replaying its rounds, which this
+    function does not do.
     """
+    if state.get("adaptive"):
+        raise ValueError(f"{source} is an adaptive campaign's state; "
+                         "carrying one across is not supported")
     ckpt_model = state.get("sim_model_version")
     if ckpt_model != costmodel.SIM_MODEL_VERSION:
         raise ValueError(

@@ -265,6 +265,17 @@ class SpaceSpec:
         return spec
 
 
+def tile_span(space: SpaceSpec, tile: int) -> Tuple[int, int]:
+    """The flat candidate span [lo, hi) of ``tile`` — the same arithmetic
+    ``SpaceSpec.tiles`` uses, exposed for random tile access (the adaptive
+    campaign evaluates tiles out of order)."""
+    n_tiles = space.n_tiles()
+    if not 0 <= tile < n_tiles:
+        raise IndexError(f"tile {tile} outside [0, {n_tiles})")
+    lo = tile * space.chunk_size
+    return lo, min(lo + space.chunk_size, len(space))
+
+
 def default_campaign_space(chunk_size: int = 4096) -> SpaceSpec:
     """The default mega-space: every 2D/3D mesh factorization of power-of-two
     slice sizes 4..1024 x a dense 320-point DVFS lattice x two slice variants

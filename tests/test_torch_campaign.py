@@ -373,7 +373,7 @@ def test_config_asking_for_the_card_raises_without_one():
 
 def test_config_validation():
     space = tiny_campaign_space()
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="power_model"):
         CampaignConfig(space=space, evaluator="fast", device="cpu")
     with pytest.raises(ValueError, match="unknown evaluator"):
         CampaignConfig(space=space, evaluator="warp", device="cpu")
@@ -388,8 +388,8 @@ def test_config_validation():
     assert cfg.resolved_space.chunk_size == 32 and cfg.dtype_name == "float64"
     assert cfg.replace(dtype="float32", evaluator="cuda").dtype is \
         torch.float32
-    with pytest.raises(TypeError):
-        cfg.replace(adaptive=None)          # the adaptive mode is not ported
+    with pytest.raises(TypeError, match="AdaptiveConfig"):
+        cfg.replace(adaptive={"budget_fraction": 0.1})
     with pytest.raises(ValueError, match="duplicate"):
         TileEvaluator(workloads(dse) * 2, cfg)
     short = Campaign(workloads(dse), space, evaluator="cuda", device="cpu")

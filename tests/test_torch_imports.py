@@ -39,7 +39,9 @@ def test_port_has_the_expected_modules():
                  "models/layers.py", "models/resnet.py", "models/api.py",
                  "models/transformer.py", "kernels/flash_attention.py",
                  "data/__init__.py", "data/pipeline.py", "kernels/ssd_scan.py",
-                 "models/ssd.py", "models/mamba.py"):
+                 "models/ssd.py", "models/mamba.py", "core/features.py",
+                 "core/predictors.py", "core/dataset.py",
+                 "dse_campaign/adaptive.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -83,6 +85,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.ssd\n"
         "import repro_torch.models.mamba\n"
+        "import repro_torch.core.features, repro_torch.core.predictors\n"
+        "import repro_torch.core.dataset, repro_torch.dse_campaign.adaptive\n"
         "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
