@@ -10,11 +10,14 @@ It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
 PyTorch version on the card, and drives the port's main paths: the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
-and the surrogate-guided `AdaptiveCampaign`, ResNet-50 inference through
+and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
+serving layer (`FrontierIndex`, `SelectionEngine`: index hits, novel queries
+on the fused kernel, the predictor paths), ResNet-50 inference through
 `build_model(get_config("resnet50")).init(...)`, dense-transformer serving
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
 qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
-recurrent greedy decode), each through `build_model(get_config(...))`.
+recurrent greedy decode), each through `build_model(get_config(...))`,
+and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m.
 Every phase prints one JSON object on a line of its own; any failed phase
 raises, so the exit code is non-zero and the last line is missing.  Without
 a CUDA device the script exits non-zero before printing anything.
@@ -38,11 +41,21 @@ Lines, in order:
                                      CPU, fast-path pick card vs CPU
   {"phase": "campaign_fast", ...}    the "fast" tier over the default space
   {"phase": "adaptive", ...}         AdaptiveCampaign card vs CPU, resume
+  {"phase": "selection", ...}        FrontierIndex + SelectionEngine: index
+                                     hits, a novel query over the whole
+                                     space (one fused launch, W=1 x
+                                     N=125,440), a one-launch flush of six,
+                                     predictor paths, card vs CPU; fused K1
+                                     vs plain at W 1 / 6 / 12 x N 4096 /
+                                     125,440
   {"phase": "conv2d", ...}           K2 vs plain: ResNet-50 shapes at B=1,
                                      8, 32, test and ragged shapes, plans
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
   {"phase": "transformer", ...}      prefill + decode: stablelm, qwen3 (L=4)
   {"phase": "mamba2", ...}           prefill + decode: mamba2-130m, f32 (L=4)
+  {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
+                                     slots, 8 requests), mamba2-130m; engine
+                                     == a direct decode loop
   {"phase": "total", ...}            seconds the whole script took
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
@@ -76,8 +89,8 @@ from repro_torch.core import (costmodel, dataset, dse,  # noqa: E402
 from repro_torch.dse_campaign import (AdaptiveCampaign,  # noqa: E402
                                       AdaptiveConfig, Campaign,
                                       CampaignConfig, DEFAULT_VARIANTS,
-                                      SpaceSpec, TileEvaluator,
-                                      canonical_frontier,
+                                      SpaceSpec, StreamingFrontier,
+                                      TileEvaluator, canonical_frontier,
                                       default_campaign_space,
                                       frontiers_identical, hypervolume_2d,
                                       tile_span)
@@ -91,6 +104,8 @@ from repro_torch.kernels import dse_sweep as kern  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.select import FrontierIndex, SelectionEngine  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
@@ -347,14 +362,19 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def tile_inputs(engine: TileEvaluator, lo: int, hi: int, dtype, device):
-    """Packed (cand_cols, wl_cols) on the card for space[lo:hi), padded to
-    the engine's chunk exactly as the campaign pads it."""
-    batch = engine.space.slice(lo, hi, with_candidates=False)
+def batch_inputs(engine: TileEvaluator, batch, dtype, device):
+    """Packed (cand_cols, wl_cols) on the card for ``batch``, padded to the
+    engine's chunk exactly as the evaluator pads a tile."""
     arrays = engine.padded_tile_arrays(batch)
     cand = costmodel.pack_cand_cols(arrays, dtype).to(device)
     wl = torch.as_tensor(engine.wl_cols).to(device=device, dtype=dtype)
     return cand, wl.contiguous()
+
+
+def tile_inputs(engine: TileEvaluator, lo: int, hi: int, dtype, device):
+    """``batch_inputs`` of space[lo:hi)."""
+    return batch_inputs(engine, engine.space.slice(
+        lo, hi, with_candidates=False), dtype, device)
 
 
 def compare_case(name, cand, wl, cons, dtype) -> dict:
@@ -772,7 +792,8 @@ def phase_campaign_default(workloads, device) -> dict:
           "exact_torch_float64": summarize(exact, {}),
           "cuda_float64": summarize(r64, s64),
           "cuda_float32": summarize(r32, s32)})
-    return {"launches": launches, "fresh64": r64, "exact": exact}
+    return {"launches": launches, "fresh64": r64, "exact": exact,
+            "campaign64": c64}
 
 
 def phase_campaign_resume(workloads, device, fresh) -> None:
@@ -1245,6 +1266,528 @@ def phase_adaptive(workloads, device, exact) -> dict:
                                    "compact", "refit", "acquisition")),
           "launches": launches, "forest_walks": walks.calls})
     return {"launches": launches, "walks": walks.calls}
+
+
+# --- accelerator selection serving --------------------------------------------
+
+# index hits asked per offline workload; the seeded census factor of the
+# novel queries (each workload's census scaled by one draw: a family the
+# index has not seen, under the same (arch, shape))
+SELECT_HIT_REPEATS = 8
+NOVEL_SCALE = (1.01, 1.3)
+SELECT_VERIFY_TOP = 256
+TIGHT_POWER_W = 20_000
+# the fused K1 held at the serving path's shapes: workload rows (a lone
+# query, a six-query flush, twelve) x lanes (a pruned slice padded to the
+# chunk, the whole default space as one tile)
+SELECT_W = (1, 6, 12)
+SELECT_N = (4096, 125_440)
+
+
+def novel_workloads(workloads, seed: int):
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for wl in workloads:
+        f = float(rng.uniform(*NOVEL_SCALE))
+        out.append(dse.Workload(
+            wl.arch, wl.shape, {k: v * f for k, v in wl.base_analysis.items()},
+            wl.base_chips, wl.state_gb_per_device))
+    return out
+
+
+def latency_summary(ms: list) -> dict:
+    """``spread`` (its median the p50) with the p99."""
+    return {**spread(ms), "p99": float(np.percentile(ms, 99))}
+
+
+def k1_delta(before: dict) -> dict:
+    """K1's launches since ``before`` (``sweep_reduce_*`` and
+    ``dse_sweep_*`` apart), the kernels that moved only."""
+    now = kern.launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def timed_select(engine, *args, **kw):
+    """(answer, host ms, K1 launches) of one ``engine.select``."""
+    before = kern.launch_counts()
+    t0 = time.perf_counter()
+    answer = engine.select(*args, **kw)
+    torch.cuda.synchronize()
+    return answer, (time.perf_counter() - t0) * 1e3, k1_delta(before)
+
+
+def span_stats(tel: Telemetry, names) -> dict:
+    out = {}
+    for name in names:
+        durs = [r.dur * 1e3 for r in tel.tracer.records if r.name == name]
+        if durs:
+            out[name] = {"n": len(durs), "total_ms": sum(durs),
+                         "mean_ms": sum(durs) / len(durs),
+                         "max_ms": max(durs)}
+    return out
+
+
+def slice_frontier(w, cfg, space, gidx):
+    """The exact frontier of ``w`` over the slice ``gidx`` of ``space``,
+    by a direct ``TileEvaluator.reduce_tile`` of that slice."""
+    ev = TileEvaluator([w], cfg)
+    batch = dse.CandidateBatch.from_candidates(space.candidates_at(gidx))
+    tr = ev.reduce_tile(batch, 0)
+    fr = StreamingFrontier()
+    loc = tr.surv_gidx[0]
+    fr.merge_reduced(space.candidates_at(gidx[loc]), tr.surv_energy[0],
+                     tr.surv_latency[0], loc, span=(0, int(gidx.size)),
+                     n_feasible=tr.n_feasible[0],
+                     ref_energy_j=tr.ref_energy_j[0],
+                     ref_latency_s=tr.ref_latency_s[0])
+    front = fr.as_pareto_frontier(w)
+    return dse.ParetoFrontier(
+        workload=w, candidates=front.candidates, energy_j=front.energy_j,
+        latency_s=front.latency_s, indices=gidx[front.indices],
+        feasible_count=front.feasible_count)
+
+
+def select_kernel_checks(workloads, novel, cons, pruned_gidx, device):
+    """The fused K1 against ``sweep_reduce_plain`` at the serving path's
+    shapes, bitwise and twice (``compare_fused``), in both dtypes: W in
+    SELECT_W x N in SELECT_N.  N=4096 is the pruned slice the predictor
+    path verified, padded to the chunk as the evaluator pads it; N=125,440
+    the whole default space as one tile.  Then the timings at N=125,440.
+    Returns (cases, plans, timing keyed (dtype, W))."""
+    host = kern.ResultBuffer()
+    space = default_campaign_space()
+    rows = {1: novel[:1], 6: novel, 12: list(workloads) + list(novel)}
+    cases, plans, timing = [], [], {}
+    for dtype in DTYPES:
+        sfx = SUFFIX[dtype]
+        for w in SELECT_W:
+            wls = [dataclasses.replace(x, shape=f"{x.shape}:q{i}")
+                   for i, x in enumerate(rows[w])]
+            ev = TileEvaluator(wls, CampaignConfig(
+                space=space, evaluator="cuda", dtype=dtype, device=device,
+                constraint=cons))
+            for n in SELECT_N:
+                if n == len(space):
+                    batch = space.slice(0, n, with_candidates=False)
+                else:
+                    batch = dse.CandidateBatch.from_candidates(
+                        space.candidates_at(pruned_gidx))
+                cand, wl = batch_inputs(ev, batch, dtype, device)
+                if int(cand.shape[1]) != n:
+                    raise AssertionError(f"tile of {cand.shape[1]} lanes, "
+                                         f"expected {n}")
+                p = kern.plan_for(cand, wl, MAX_SURVIVORS)
+                active = kern.max_active_clusters(p, dtype, device)
+                if p.variant != kern.FUSED or active < 1:
+                    raise AssertionError(f"W={w} N={n} {sfx}: {p.variant}, "
+                                         f"{active} clusters active")
+                plans.append({"dtype": sfx, "W": w, "N": n,
+                              "valid_lanes": len(batch),
+                              "variant": p.variant, "clusters": p.clusters,
+                              "lanes": p.lanes, "threads": p.threads,
+                              "lanes_per_thread": p.lanes / p.threads,
+                              "smem_bytes": p.smem_bytes,
+                              "portable": p.portable,
+                              "max_active_clusters": active})
+                cases.append(compare_fused(f"select_w{w}_n{n}", cand, wl,
+                                           cons, dtype, host))
+                if n != len(space):
+                    continue
+                kw = dict(max_power_w=cons.max_power_w)
+                t = {"fused_ms": time_ms(lambda: kern.sweep_reduce_packed(
+                         cand, wl, **kw), 50),
+                     "fused_tile_ms": time_ms(lambda: kern.sweep_reduce(
+                         cand, wl, **kw, host_buffer=host), 50),
+                     "fused_plain_ms": time_ms(
+                         lambda: kern.sweep_reduce_plain(cand, wl, **kw), 5,
+                         warmup=2),
+                     "sweep_ms": time_ms(lambda: kern.dse_sweep(
+                         cand, wl, **kw), 50)}
+                us = device_us({
+                    "fused": (lambda: kern.sweep_reduce_packed(cand, wl, **kw),
+                              "k1_sweep_reduce_kernel"),
+                    "sweep": (lambda: kern.dse_sweep(cand, wl, **kw),
+                              "dse_sweep_kernel")})
+                for key in ("fused", "sweep"):
+                    t[f"{key}_device_ms"] = None if us[key] is None \
+                        else us[key] / 1e3
+                fb = fused_bound(w, n, p.k, dtype)
+                sb = sweep_bound(w, n, dtype)
+                timing[(sfx, w)] = {
+                    **t, "W": w, "N": n,
+                    "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+                    "sweep_bound_ms": sb["bound_ms"],
+                    "sweep_bound_by": sb["bound_by"],
+                    "overflowed_rows": cases[-1]["overflowed_rows"],
+                    "plan": {k: plans[-1][k] for k in
+                             ("clusters", "lanes", "threads", "smem_bytes",
+                              "max_active_clusters")}}
+    return cases, plans, timing
+
+
+def phase_selection(workloads, device, campaign, fresh, models,
+                    seed: int) -> dict:
+    """The serving layer's main path: a ``FrontierIndex`` of
+    campaign_default's float64 ``"cuda"`` campaign, saved and loaded; index
+    hits; a novel query over the whole space (ONE fused launch of W=1 x
+    N=125,440), twice; a flush of six novel queries and one hit (one
+    launch); the same six one by one (six); a constraint override; the
+    predictor paths with the predictors phase's forest and KNN.  Counts are
+    zeroed just before the engines answer and read just after; then the
+    checks: standalone campaigns, a direct evaluation of the pruned slice,
+    the same queries on the CPU, and the fused K1 at the new shapes."""
+    t_phase = time.perf_counter()
+    cons = campaign.constraint
+    novel = novel_workloads(workloads, seed)
+    tight = dse.Constraint(max_power_w=TIGHT_POWER_W)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        path = FrontierIndex.from_campaign(campaign).save(
+            os.path.join(tmp, "frontier_index.json"))
+        index = FrontierIndex.load(path)
+        index_s = time.perf_counter() - t
+        index_bytes = os.path.getsize(path)
+    if (len(index), index.evaluator, index.dtype) != (len(workloads), "cuda",
+                                                      "float64"):
+        raise AssertionError(f"index {len(index)} {index.evaluator} "
+                             f"{index.dtype}")
+    tel, ptel = Telemetry(), Telemetry()
+    engine = SelectionEngine(index, device=device, telemetry=tel)
+    cfg = engine.config
+    if (cfg.evaluator, cfg.dtype, cfg.device) != ("cuda", torch.float64,
+                                                  device):
+        raise AssertionError(f"derived config {cfg.evaluator} {cfg.dtype} "
+                             f"{cfg.device}")
+    pcfg = cfg.replace(power_model=models["power"],
+                       cycles_model=models["cycles"])
+    pengine = SelectionEngine(index, pcfg, telemetry=ptel,
+                              verify_top=SELECT_VERIFY_TOP)
+    seq = SelectionEngine(index, device=device)
+    ms, deltas = {}, {}
+
+    torch.cuda.synchronize()
+    kern.reset_launch_counts()
+    hits, ms["index_exact"] = [], []
+    for _ in range(SELECT_HIT_REPEATS):
+        for w in workloads:
+            a, t_ms, d = timed_select(engine, w)
+            hits.append((w, a))
+            ms["index_exact"].append(t_ms)
+            if d:
+                raise AssertionError(f"an index hit launched {d}")
+    hit_launches = engine.fused_launches
+    lone, ms["mini_campaign_first"], deltas["lone_first"] = timed_select(
+        engine, novel[0])
+    again, ms["mini_campaign_warm"], deltas["lone_warm"] = timed_select(
+        engine, novel[0])
+    before, fused0 = kern.launch_counts(), engine.fused_launches
+    for w in novel:
+        engine.submit(w)
+    engine.submit(workloads[1])
+    t = time.perf_counter()
+    batched = engine.flush()
+    torch.cuda.synchronize()
+    ms["flush_7_queries"] = (time.perf_counter() - t) * 1e3
+    deltas["flush"] = k1_delta(before)
+    flush_launches = engine.fused_launches - fused0
+    seq_answers, ms["sequential"] = [], []
+    before = kern.launch_counts()
+    for w in novel:
+        a, t_ms, _ = timed_select(seq, w)
+        seq_answers.append(a)
+        ms["sequential"].append(t_ms)
+    deltas["sequential"] = k1_delta(before)
+    over, ms["constraint_override"], deltas["constraint_override"] = \
+        timed_select(engine, workloads[0], constraint=tight)
+    degraded, ms["predictor_only"], deltas["predictor_only"] = timed_select(
+        pengine, novel[0], deadline_s=0.0)
+    degraded_launches = pengine.fused_launches
+    pruned, ms["mini_campaign_pruned"], deltas["pruned"] = timed_select(
+        pengine, novel[0])
+    torch.cuda.synchronize()
+    launches = kern.launch_counts()
+
+    # every exact-path query answered exactly, one fused sweep a group
+    exact = [lone, again, over, pruned] + batched[:6] + seq_answers
+    if [a.provenance for a in exact] != ["mini_campaign"] * len(exact) \
+            or batched[6].provenance != "index_exact":
+        raise AssertionError("provenances " + str(
+            [a.provenance for a in exact + [batched[6]]]))
+    for name, d in deltas.items():
+        want = {"predictor_only": 0, "sequential": 6}.get(name, 1)
+        if d.get("sweep_reduce_f64", 0) != want or any(
+                k not in ("sweep_reduce_f64", "dse_sweep_f64") for k in d):
+            raise AssertionError(f"{name}: K1 launches {d}, expected {want} "
+                                 "fused float64 (and K1 alone on overflow)")
+    if (hit_launches, flush_launches, seq.fused_launches,
+            degraded_launches) != (0, 1, 6, 0):
+        raise AssertionError(f"fused_launches: hits {hit_launches}, flush "
+                             f"{flush_launches}, sequential "
+                             f"{seq.fused_launches}, predictor-only "
+                             f"{degraded_launches}")
+    fails = [e.telemetry.counter("selection_minicampaign_failures_total")
+             .value for e in (engine, pengine, seq)]
+    if any(fails):
+        raise AssertionError(f"mini-campaign failures {fails}")
+    for w, a in hits:
+        if a.provenance != "index_exact" or not frontiers_identical(
+                a.frontier(), fresh.frontiers[(w.arch, w.shape)]):
+            raise AssertionError(f"{w.arch}|{w.shape}: index hit != the "
+                                 "offline frontier")
+    space = engine.space
+    if lone.verified_gidx.size != len(space) or not frontiers_identical(
+            lone.frontier(), again.frontier()):
+        raise AssertionError("lone query: slice or repeat differs")
+    t = time.perf_counter()
+    standalone = Campaign([novel[0]], cfg).run()
+    standalone_s = time.perf_counter() - t
+    if not frontiers_identical(
+            lone.frontier(), standalone.frontiers[(novel[0].arch,
+                                                   novel[0].shape)]):
+        raise AssertionError("full-space mini-campaign != standalone "
+                             "Campaign.run")
+    for w, got, solo in zip(novel, batched, seq_answers):
+        if not frontiers_identical(got.frontier(), solo.frontier()):
+            raise AssertionError(f"{w.arch}|{w.shape}: batched != sequential")
+    w0 = workloads[0]
+    tight_run = Campaign([w0], cfg.replace(constraint=tight)).run()
+    if not frontiers_identical(over.frontier(),
+                               tight_run.frontiers[(w0.arch, w0.shape)]):
+        raise AssertionError("constraint override != standalone campaign")
+    if degraded.provenance != "predictor_only" \
+            or degraded.degraded_reason != "deadline" \
+            or any(c.exact for c in degraded.choices):
+        raise AssertionError("deadline 0 did not degrade to predictor_only")
+    gidx = pruned.verified_gidx
+    if not 0 < gidx.size < len(space):
+        raise AssertionError(f"pruned slice of {gidx.size}")
+    if not frontiers_identical(pruned.frontier(),
+                               slice_frontier(novel[0], pcfg, space, gidx)):
+        raise AssertionError("pruned answer != direct evaluation of its "
+                             "slice")
+
+    # the same exact-path queries on the CPU: the kernels' plain versions
+    t = time.perf_counter()
+    cpu = SelectionEngine(index, device="cpu")
+    cpu_pairs = [(lone, cpu.select(novel[0]))]
+    for w in novel:
+        cpu.submit(w)
+    cpu_pairs += list(zip(batched[:6], cpu.flush()))
+    cpu_pairs.append((over, cpu.select(w0, constraint=tight)))
+    cpu_s = time.perf_counter() - t
+    bitwise = True
+    for card, host_answer in cpu_pairs:
+        if not same_candidate_set(card.frontier(), host_answer.frontier()):
+            raise AssertionError(f"{card.workload.arch}|"
+                                 f"{card.workload.shape}: card != CPU")
+        bitwise &= frontiers_identical(card.frontier(),
+                                       host_answer.frontier())
+
+    cases, plans, timing = select_kernel_checks(workloads, novel, cons, gidx,
+                                                device)
+    lone_t = timing[("f64", 1)]
+    lone_busy = lone_t["fused_device_ms"] or lone_t["fused_ms"]
+    if deltas["lone_warm"].get("dse_sweep_f64"):
+        lone_busy += lone_t["sweep_device_ms"] or lone_t["sweep_ms"]
+    hit_wall = [a.wall_s * 1e3 for _, a in hits]
+    emit({"phase": "selection", "candidates": len(space),
+          "index": {"families": len(index), "evaluator": index.evaluator,
+                    "dtype": index.dtype, "bytes": index_bytes,
+                    "build_save_load_s": index_s},
+          "engine": {"evaluator": cfg.evaluator, "dtype": "float64",
+                     "device": str(cfg.device),
+                     "verify_top": SELECT_VERIFY_TOP},
+          "novel_census": f"each workload's census x U{NOVEL_SCALE} "
+                          f"(seed {seed + 1})",
+          "provenances": {"engine": engine.stats,
+                          "predictor_engine": pengine.stats,
+                          "sequential": seq.stats},
+          "index_hits_identical_to_offline": True,
+          "full_space_equals_standalone_campaign": True,
+          "flush_fused_launches": flush_launches,
+          "sequential_fused_launches": seq.fused_launches,
+          "batched_equals_sequential": True,
+          "constraint_override_equals_campaign": True,
+          "pruned_slice": {"size": int(gidx.size),
+                           "equals_direct_evaluation": True},
+          "card_vs_cpu_candidate_sets_identical": True,
+          "card_vs_cpu_bitwise": bool(bitwise),
+          "minicampaign_failures": 0,
+          "launch_deltas": deltas, "launches": launches,
+          "latency_ms": {
+              "index_exact": latency_summary(ms["index_exact"]),
+              "index_exact_answer_wall": latency_summary(hit_wall),
+              **{k: v for k, v in ms.items()
+                 if k not in ("index_exact", "sequential")},
+              "sequential": latency_summary(ms["sequential"])},
+          "spans_ms": span_stats(tel, ("index_lookup", "mini_campaign",
+                                       "pad", "launch", "compact")),
+          "predictor_spans_ms": span_stats(ptel, (
+              "predictor_only", "mini_campaign", "pad", "launch",
+              "compact")),
+          "lone_query_device_idle_share": 1.0 - lone_busy
+          / ms["mini_campaign_warm"],
+          "standalone_campaign_s": standalone_s, "cpu_engine_s": cpu_s,
+          "seconds": time.perf_counter() - t_phase,
+          "k1_cases": cases, "k1_plans": plans,
+          "k1_n125440": [{"dtype": k[0], **v} for k, v in timing.items()],
+          "timing_note": "latency_ms: host clock around select() / flush() "
+                         "ending in a synchronize; *_first includes building "
+                         "the space's 125,440 Candidate objects once; "
+                         "k1_n125440: fused_ms CUDA events around the launch "
+                         "alone, fused_tile_ms the wrapper (launch, copy, "
+                         "sync), *_device_ms torch.profiler; idle share: 1 - "
+                         "(fused [+ K1 alone if the row overflowed] device "
+                         "ms) / the warm lone query's host ms"})
+    return {"launches": launches, "timing": timing}
+
+
+# --- token serving -------------------------------------------------------------
+
+# (run, arch, dtype, slots, requests, prompt lengths [lo, hi], new tokens,
+# max_len): max_len covers every decode of the run, since each prompt token
+# is one [slots, 1] decode of the shared cache position
+TOKEN_RUNS = (
+    ("stablelm_bf16", "stablelm_1_6b", torch.bfloat16, 4, 8, (4, 32), 16,
+     512),
+    ("mamba2_bf16", "mamba2_130m", torch.bfloat16, 4, 8, (4, 16), 8, 256),
+)
+
+
+def token_requests(vocab: int, n: int, lens, max_new: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        1, vocab, int(rng.integers(lens[0], lens[1] + 1))).astype(np.int32),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def serve_requests(model, module, slots, max_len, reqs, device):
+    eng = ServingEngine(model, slots=slots, max_len=max_len, device=device)
+    eng.load(module)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, stats
+
+
+# engine-shaped decode calls in the window the idle share is read over
+# (profiling a whole run's ~250 calls x ~700 kernels took minutes)
+IDLE_WINDOW = 16
+
+
+def decode_call_window(model, module, slots: int, max_len: int,
+                       device) -> dict:
+    """The engine's unit of work, timed: ``IDLE_WINDOW`` decode calls of a
+    [slots, 1] batch (one live slot, pad token 0 in the others), each read
+    back to the host as the engine reads its logits.  Host ms per call
+    (median of ``HOST_REPEATS`` windows, each on a fresh cache) and the
+    device ms per call of one more window under the profiler; idle =
+    1 - device / host."""
+    def window():
+        cache = model.init_cache(slots, max_len, device=device)
+        toks = np.zeros((slots, 1), np.int32)
+        for i in range(IDLE_WINDOW):
+            toks[0, 0] = 1 + i
+            logits, cache = model.decode(
+                module, {"tokens": torch.from_numpy(toks)}, cache)
+            logits[0, -1].cpu().numpy()
+
+    host = host_ms(window, iters=HOST_REPEATS, warmup=1)
+    dev = device_total_ms(window, reps=1)
+    per_call = host["median"] / IDLE_WINDOW
+    return {"host_ms_per_call": per_call, "host_spread": host,
+            "device_ms_per_call": None if dev is None else dev / IDLE_WINDOW,
+            "device_idle_share": None if dev is None
+            else 1.0 - dev / host["median"]}
+
+
+def phase_token_serving(device, seed: int) -> dict:
+    """The token ``ServingEngine`` at full width: stablelm-1.6b bf16, then
+    mamba2-130m bf16 (shorter).  Each run: the requests through the engine
+    (K3 and K4 counted: a decode runs neither), every request complete,
+    the shared cache position inside ``max_len``; the device's idle share
+    over a window of engine-shaped decode calls; request 0 alone in one
+    slot against a direct per-token decode loop, token for token."""
+    t_phase, rows = time.perf_counter(), []
+    for run, arch, dtype, slots, n, lens, max_new, max_len in TOKEN_RUNS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  dtype=str(dtype).split(".")[-1])
+        model = build_model(cfg)
+        module = model.init(torch.Generator(device=device).manual_seed(seed),
+                            device=device)
+        reqs = token_requests(cfg.vocab_size, n, lens, max_new, seed)
+        before = sum(k3.launch_counts().values()) + sum(
+            k4.launch_counts().values())
+        eng, stats = serve_requests(model, module, slots, max_len, reqs,
+                                    device)
+        kernel_launches = sum(k3.launch_counts().values()) + sum(
+            k4.launch_counts().values()) - before
+        decodes = int(eng.cache["len"])
+        if kernel_launches or not all(
+                r.done and len(r.tokens_out) == max_new for r in reqs):
+            raise AssertionError(f"{run}: {kernel_launches} K3 / K4 "
+                                 "launches, or requests unfinished")
+        if decodes >= max_len or not all(
+                0 <= t < cfg.vocab_size for r in reqs for t in r.tokens_out):
+            raise AssertionError(f"{run}: {decodes} decodes (max_len "
+                                 f"{max_len}) or a token off the vocabulary")
+        idle = decode_call_window(model, module, slots, max_len, device)
+        # request 0 alone in one slot == a direct per-token decode loop
+        prompt = reqs[0].prompt
+        lone = Request(rid=0, prompt=prompt, max_new_tokens=max_new)
+        serve_requests(model, module, 1, len(prompt) + max_new, [lone],
+                       device)
+        cache = model.init_cache(1, len(prompt) + max_new, device=device)
+        for t in prompt:
+            logits, cache = model.decode(
+                module, {"tokens": torch.tensor([[int(t)]],
+                                                dtype=torch.int32)}, cache)
+        toks = [int(np.argmax(logits[0, -1].cpu().numpy()))]
+        while len(toks) < max_new:
+            logits, cache = model.decode(
+                module, {"tokens": torch.tensor([[toks[-1]]],
+                                                dtype=torch.int32)}, cache)
+            toks.append(int(np.argmax(logits[0, -1].cpu().numpy())))
+        if lone.tokens_out != toks:
+            raise AssertionError(f"{run}: engine {lone.tokens_out} != direct "
+                                 f"decode {toks}")
+        lat = [(r.finished_s - r.arrived_s) * 1e3 for r in reqs]
+        ttft = [(r.first_token_s - r.arrived_s) * 1e3 for r in reqs]
+        wall_ms = stats["wall_s"] * 1e3
+        rows.append({
+            "run": run, "arch": arch, "dtype": SUFFIX[dtype],
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "slots": slots, "requests": n,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "max_new_tokens": max_new, "max_len": max_len,
+            "decode_calls": decodes,
+            "completed": sum(r.done for r in reqs),
+            "decoded_tokens": stats["decoded_tokens"],
+            "wall_s": stats["wall_s"], "tokens_per_s": stats["tok_per_s"],
+            "ms_per_decode_call": wall_ms / decodes,
+            "mean_latency_ms": float(np.mean(lat)),
+            "mean_time_to_first_token_ms": float(np.mean(ttft)),
+            "decode_call_window": idle,
+            "device_idle_share": idle["device_idle_share"],
+            "k3_k4_launches": kernel_launches,
+            "engine_equals_direct_decode": True,
+            "direct_decode_tokens": len(toks)})
+        del module, eng
+        torch.cuda.empty_cache()
+    emit({"phase": "token_serving", "runs": rows,
+          "seconds": time.perf_counter() - t_phase,
+          "note": "ServingEngine: every prompt token is a [slots, 1] "
+                  "decode of the shared cache position, so decode_calls = "
+                  "prompt tokens + engine steps; tokens_per_s: the "
+                  "engine's generated tokens over run_until_drained's wall "
+                  "(host clock); decode_call_window: "
+                  f"{IDLE_WINDOW} [slots, 1] decode calls each read back "
+                  "to the host, as the engine makes them: host ms (median "
+                  "of 5 windows) and profiled device ms, idle = 1 - "
+                  "device / host"})
+    return {"runs": rows}
 
 
 # --- ResNet-50 inference ----------------------------------------------------
@@ -2807,14 +3350,17 @@ def ssd_rows(rows, mb) -> list:
     return out
 
 
-def kernels_line(numbers, launches, ptxas) -> list:
+def kernels_line(numbers, launches, ptxas, select_timing) -> list:
     """K1's rows: the fused tile (K1 + K1a + K1b in one launch, the main
     path), then K1 and K1a alone (the general variant; K1 also the overflow
-    fallback).  ``launches``: the campaign phases' counts, summed."""
+    fallback).  ``launches``: the campaign and selection phases' counts,
+    summed; ``select_timing``: the selection phase's N=125,440 timings by
+    (dtype, W), its lone query's W=1 first."""
     rows = []
     for dtype in DTYPES:
         sfx = SUFFIX[dtype]
         main, wide = numbers[(sfx, 4096)], numbers[(sfx, 65536)]
+        whole = [select_timing[(sfx, w)] for w in SELECT_W]
         name = f"sweep_reduce_{sfx}"
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2841,7 +3387,14 @@ def kernels_line(numbers, launches, ptxas) -> list:
                        "bound_by": wide["fused"]["bound_by"],
                        "old_chain": {
                            "device_chain_ms": wide["device_chain_ms"],
-                           "general_tile_ms": wide["general_tile_ms"]}}})
+                           "general_tile_ms": wide["general_tile_ms"]}},
+            "n125440": [{"W": t["W"], "ms": t["fused_ms"],
+                         "device_ms": t["fused_device_ms"],
+                         "tile_ms": t["fused_tile_ms"],
+                         "plain_ms": t["fused_plain_ms"],
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "plan": t["plan"]}
+                        for t in whole]})
         for kname, key in (("dse_sweep", "sweep"), ("screen_rows", "screen")):
             name = f"{kname}_{sfx}"
             err = main["err"][f"{key}_max_abs_err"]
@@ -2859,6 +3412,12 @@ def kernels_line(numbers, launches, ptxas) -> list:
                            "plain_ms": wide[f"{key}_plain_ms"],
                            "bound_ms": wide[key]["bound_ms"],
                            "bound_by": wide[key]["bound_by"]}})
+            if key == "sweep":
+                rows[-1]["n125440"] = [
+                    {"W": t["W"], "ms": t["sweep_ms"],
+                     "device_ms": t["sweep_device_ms"],
+                     "bound_ms": t["sweep_bound_ms"],
+                     "bound_by": t["sweep_bound_by"]} for t in whole]
     return rows
 
 
@@ -2891,7 +3450,10 @@ def main() -> int:
     models = phase_predictors(workloads, device, args.seed)
     phase_campaign_fast(workloads, device, models, main_path["exact"])
     adaptive = phase_adaptive(workloads, device, main_path["exact"])
+    selection = phase_selection(workloads, device, main_path["campaign64"],
+                                main_path["fresh64"], models, args.seed)
     campaign_launches = {k: v + large[k] + adaptive["launches"][k]
+                         + selection["launches"][k]
                          for k, v in main_path["launches"].items()}
     cfg, models, images = resnet_inputs(device, args.seed)
     per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],
@@ -2900,8 +3462,10 @@ def main() -> int:
     del models, images
     lm = phase_transformer(device, args.seed)
     mb = phase_mamba2(device, args.seed)
+    phase_token_serving(device, args.seed)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
-    emit({"kernels": kernels_line(numbers, campaign_launches, ptxas)
+    emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
+                                  selection["timing"])
           + conv_rows(per_dtype, infer) + flash_rows(flash, lm)
           + ssd_rows(ssd, mb)})
     print(smi, flush=True)

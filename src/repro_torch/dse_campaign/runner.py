@@ -652,7 +652,9 @@ class Campaign:
                 f"{ckpt_model!r} but this build is "
                 f"{costmodel.SIM_MODEL_VERSION}; resuming would splice two "
                 "incomparable cost models into one frontier.  To upgrade, "
-                "re-run the campaign from scratch under the current model")
+                "re-run the campaign from scratch under the current model "
+                "(and rebuild any FrontierIndex derived from this "
+                "checkpoint)")
         if state["evaluator"] not in EVALUATORS:
             raise ValueError(
                 f"checkpoint {source} names evaluator "

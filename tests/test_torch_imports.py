@@ -41,7 +41,9 @@ def test_port_has_the_expected_modules():
                  "data/__init__.py", "data/pipeline.py", "kernels/ssd_scan.py",
                  "models/ssd.py", "models/mamba.py", "core/features.py",
                  "core/predictors.py", "core/dataset.py",
-                 "dse_campaign/adaptive.py"):
+                 "dse_campaign/adaptive.py", "serving/__init__.py",
+                 "serving/frontier_index.py", "serving/engine.py",
+                 "select.py", "launch/__init__.py", "launch/serve.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -87,6 +89,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.models.mamba\n"
         "import repro_torch.core.features, repro_torch.core.predictors\n"
         "import repro_torch.core.dataset, repro_torch.dse_campaign.adaptive\n"
+        "import repro_torch.serving, repro_torch.serving.frontier_index\n"
+        "import repro_torch.serving.engine, repro_torch.select\n"
+        "import repro_torch.launch, repro_torch.launch.serve\n"
         "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
