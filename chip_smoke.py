@@ -12,7 +12,10 @@ campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
 serving layer (`FrontierIndex`, `SelectionEngine`: index hits, novel queries
-on the fused kernel, the predictor paths), ResNet-50 inference through
+on the fused kernel, the predictor paths), the distributed campaign layer
+(`spawn` fabric workers on the one card, fault injection, respawn, the
+distributed adaptive campaign, a chaos policy, 1 / 2 / 4 workers), ResNet-50
+inference through
 `build_model(get_config("resnet50")).init(...)`, dense-transformer serving
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
 qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
@@ -48,6 +51,11 @@ Lines, in order:
                                      predictor paths, card vs CPU; fused K1
                                      vs plain at W 1 / 6 / 12 x N 4096 /
                                      125,440
+  {"phase": "fabric", ...}           spawn workers on the card: faults at 2
+                                     workers (float64), float32, respawn,
+                                     distributed adaptive, chaos (all
+                                     bitwise the single-process runs);
+                                     1 / 2 / 4 workers over ~1 M candidates
   {"phase": "conv2d", ...}           K2 vs plain: ResNet-50 shapes at B=1,
                                      8, 32, test and ragged shapes, plans
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
@@ -88,12 +96,18 @@ from repro_torch.core import (costmodel, dataset, dse,  # noqa: E402
                               features, predictors)
 from repro_torch.dse_campaign import (AdaptiveCampaign,  # noqa: E402
                                       AdaptiveConfig, Campaign,
-                                      CampaignConfig, DEFAULT_VARIANTS,
+                                      CampaignConfig, ChaosPolicy,
+                                      ChaosRunner, DEFAULT_VARIANTS,
+                                      FaultInjection, MultiprocessFabric,
                                       SpaceSpec, StreamingFrontier,
                                       TileEvaluator, canonical_frontier,
                                       default_campaign_space,
                                       frontiers_identical, hypervolume_2d,
-                                      tile_span)
+                                      run_adaptive_distributed,
+                                      run_distributed, store, tile_span)
+from repro_torch.dse_campaign.fabric import (  # noqa: E402
+    _expand_intervals, worker_launches)
+from repro_torch.runtime.fault_tolerance import RetryPolicy  # noqa: E402
 from repro_torch.hw import CHIPS, get_chip  # noqa: E402
 from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
                                       get_config)
@@ -106,7 +120,7 @@ from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.select import FrontierIndex, SelectionEngine  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
-from repro_torch.telemetry import Telemetry  # noqa: E402
+from repro_torch.telemetry import Telemetry, metric_value  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
@@ -792,8 +806,8 @@ def phase_campaign_default(workloads, device) -> dict:
           "exact_torch_float64": summarize(exact, {}),
           "cuda_float64": summarize(r64, s64),
           "cuda_float32": summarize(r32, s32)})
-    return {"launches": launches, "fresh64": r64, "exact": exact,
-            "campaign64": c64}
+    return {"launches": launches, "fresh64": r64, "fresh32": r32,
+            "exact": exact, "campaign64": c64}
 
 
 def phase_campaign_resume(workloads, device, fresh) -> None:
@@ -1265,7 +1279,8 @@ def phase_adaptive(workloads, device, exact) -> dict:
           "span_ms": span_ms(tel, ("tile_eval", "launch", "sample",
                                    "compact", "refit", "acquisition")),
           "launches": launches, "forest_walks": walks.calls})
-    return {"launches": launches, "walks": walks.calls}
+    return {"launches": launches, "walks": walks.calls, "result": res,
+            "config": cfg}
 
 
 # --- accelerator selection serving --------------------------------------------
@@ -1640,6 +1655,281 @@ def phase_selection(workloads, device, campaign, fresh, models,
                          "(fused [+ K1 alone if the row overflowed] device "
                          "ms) / the warm lone query's host ms"})
     return {"launches": launches, "timing": timing}
+
+
+# --- the distributed campaign fabric -------------------------------------------
+
+# the scaling run: its worker counts, and the DVFS lattice that takes the
+# default chips and slice sizes to ~1 M candidates (392 rows x 2,560 points:
+# 1,003,520 candidates, 245 tiles of 4,096)
+FABRIC_WORKERS = (1, 2, 4)
+FABRIC_FREQ_POINTS = 2_560
+FABRIC_CHAOS_SEED = 7
+FABRIC_COUNTS = ("lost_workers", "worker_crashes", "worker_clean_exits",
+                 "deliveries", "duplicates", "reissued_tiles")
+
+
+def fabric_config(space, dtype, device, **kw) -> CampaignConfig:
+    return CampaignConfig(space=space, evaluator="cuda", dtype=dtype,
+                          device=device,
+                          constraint=dse.Constraint(max_power_w=40_000), **kw)
+
+
+def check_frontiers(got, want, what: str) -> None:
+    for key in want:
+        if not frontiers_identical(got[key], want[key]):
+            raise AssertionError(f"fabric {what}: {key} frontier differs "
+                                 "from the single-process run")
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"fabric {what}: launches {got}, expected "
+                             f"{want}")
+
+
+def per_worker_launches(metrics: dict) -> dict:
+    """Each worker's nonzero kernel launches, from its terminal snapshot."""
+    return {w: {k: v for k, v in worker_launches({w: snap}).items() if v}
+            for w, snap in sorted(metrics.items())}
+
+
+def fabric_row(stats: dict, tel: Telemetry) -> dict:
+    """A fleet's counts, its clocks, and the coordinator's ``merge`` (from
+    ``tel``, the campaign's telemetry) per delivery and as a share of the
+    window."""
+    merge = sum(r.dur for r in tel.tracer.records if r.name == "merge")
+    return {**{k: stats[k] for k in FABRIC_COUNTS},
+            "spawn_to_ready_s": stats["spawn_to_ready_s"],
+            "window_s": stats["window_s"], "shutdown_s": stats["shutdown_s"],
+            "merge_ms_per_tile": 1e3 * merge / max(stats["deliveries"], 1),
+            "merge_share_of_window": merge / stats["window_s"],
+            "worker_busy_cpu_s": stats["worker_busy_s"],
+            "worker_launches": per_worker_launches(stats["worker_metrics"])}
+
+
+def run_fabric(workloads, cfg, n_workers: int, checkpoint_path=None,
+               **fabric_kw):
+    """One ``MultiprocessFabric`` run, traced; returns its result and
+    ``fabric_row``."""
+    tel = Telemetry()
+    fab = MultiprocessFabric(Campaign(workloads, cfg, telemetry=tel),
+                             n_workers=n_workers, **fabric_kw)
+    res = fab.run(checkpoint_path=checkpoint_path)
+    if not res.complete or res.tiles_done != res.n_tiles:
+        raise AssertionError(f"fabric run stopped at {res.tiles_done} of "
+                             f"{res.n_tiles} tiles")
+    return res, fab.stats, fabric_row(fab.stats, tel)
+
+
+def phase_fabric(workloads, device, main_path, adaptive, space=None,
+                 scaling_space=None) -> dict:
+    """The distributed campaign layer on one card: ``spawn`` workers, each
+    with its own CUDA context, evaluating tiles through the fused K1 and
+    shipping ``TileReduction``s to the coordinator (this process).
+    (a) 2 workers, float64, a worker killed after one tile and a duplicated
+    delivery, checkpoints every 4 tiles, a mid-run checkpoint resumed by a
+    plain ``Campaign``; (b) the same clean in float32; (c) one worker
+    killed after one tile and respawned; (d) the distributed adaptive
+    campaign, clean and with a worker crash; (e) a seeded chaos policy on
+    the in-process fleet; (f) 1, 2 and 4 workers over ~1 M candidates.
+    Every frontier is held bitwise against the single-process run's.
+    Counts are zeroed just before (a) and read just after (f) in this
+    process; each worker ships its own in its terminal snapshot (a worker
+    that was killed ships none)."""
+    t_phase = time.perf_counter()
+    space = space or default_campaign_space()
+    scaling_space = scaling_space or dataclasses.replace(
+        default_campaign_space(), freq_points=FABRIC_FREQ_POINTS)
+    n_tiles = space.n_tiles()
+    f64, f32 = torch.float64, torch.float32
+    fresh64, fresh32 = main_path["fresh64"], main_path["fresh32"]
+    metrics = []        # every worker snapshot of the phase, for the sum
+    out, seconds = {}, {}
+    kern.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) faults at 2 workers
+        t = time.perf_counter()
+        ckpt = os.path.join(tmp, "fabric.json")
+        res, st, row = run_fabric(
+            workloads, fabric_config(space, f64, device), 2,
+            checkpoint_path=ckpt, checkpoint_every=4,
+            fault=FaultInjection(kill_worker=1, kill_after_tiles=1,
+                                 duplicate=True))
+        metrics.append(st["worker_metrics"])
+        check_frontiers(res.frontiers, fresh64.frontiers, "(a)")
+        for key in res.frontiers:
+            if not same_candidate_set(res.frontiers[key],
+                                      main_path["exact"].frontiers[key]):
+                raise AssertionError(f"fabric (a): {key} candidate set "
+                                     "differs from the torch tier's")
+        if (st["lost_workers"] != [1] or st["duplicates"] != 1
+                or st["reissued_tiles"] < 1):
+            raise AssertionError(f"fabric (a): faults did not fire as "
+                                 f"scripted: {row}")
+        done = _expand_intervals(store.load_checkpoint(ckpt)["fabric"]["done"])
+        if done != list(range(n_tiles)):
+            raise AssertionError(f"fabric (a): final checkpoint done {done}")
+        # the oldest generation kept is a mid-run checkpoint
+        mid = os.path.join(tmp, "mid.json")
+        with open(store.generation_paths(ckpt)[0][1]) as src, \
+                open(mid, "w") as dst:
+            dst.write(src.read())
+        resumed = Campaign.from_checkpoint(mid, device=device)
+        mid_tile = resumed.next_tile
+        if not 0 < mid_tile < n_tiles:
+            raise AssertionError(f"fabric (a): checkpoint at {mid_tile} is "
+                                 "not mid-run")
+        final = resumed.run()
+        check_frontiers(final.frontiers, fresh64.frontiers, "(a) resumed")
+        out["a_faults_2_workers"] = {**row, "resumed_from_tile": mid_tile}
+        seconds["a"] = time.perf_counter() - t
+
+        # (b) float32, clean
+        t = time.perf_counter()
+        res, st, row = run_fabric(workloads,
+                                  fabric_config(space, f32, device), 2)
+        metrics.append(st["worker_metrics"])
+        check_frontiers(res.frontiers, fresh32.frontiers, "(b)")
+        if st["lost_workers"] or st["reissued_tiles"]:
+            raise AssertionError(f"fabric (b): a clean run lost workers "
+                                 f"{row}")
+        out["b_float32_2_workers"] = row
+        seconds["b"] = time.perf_counter() - t
+
+        # (c) the only worker killed after one tile, then respawned
+        t = time.perf_counter()
+        tel = Telemetry()
+        camp = Campaign(workloads, fabric_config(
+            space, f64, device, n_workers=1, lease_timeout_s=60.0),
+            telemetry=tel)
+        res, st = run_distributed(
+            camp, fault=FaultInjection(kill_worker=0, kill_after_tiles=1),
+            retry=RetryPolicy(base_s=0.05, max_s=0.2), max_respawns=2)
+        metrics.append(st["worker_metrics"])
+        check_frontiers(res.frontiers, fresh64.frontiers, "(c)")
+        snap = tel.snapshot()
+        counters = {k: metric_value(snap, k, default=0) for k in (
+            "fabric_worker_crashed", "fabric_worker_done",
+            "fabric_worker_respawns_total")}
+        if (st["worker_crashes"] != [0] or st["worker_clean_exits"] != [1]
+                or counters != {"fabric_worker_crashed": 1,
+                                "fabric_worker_done": 1,
+                                "fabric_worker_respawns_total": 1}):
+            raise AssertionError(f"fabric (c): crash / clean exit counters "
+                                 f"{st} {counters}")
+        out["c_respawn_1_worker"] = {**fabric_row(st, tel),
+                                     "counters": counters}
+        seconds["c"] = time.perf_counter() - t
+
+        # (d) the distributed adaptive campaign, clean and with a crash
+        single = adaptive["result"]
+        cfg = adaptive["config"].replace(n_workers=2)
+        for name, fault in (("clean", None), ("worker_crash", FaultInjection(
+                kill_worker=1, kill_after_tiles=0))):
+            t = time.perf_counter()
+            dr, st = run_adaptive_distributed(workloads, cfg, fault=fault)
+            metrics.append(st["worker_metrics"])
+            if (dr.rounds != single.rounds
+                    or dr.hv_history != single.hv_history
+                    or dr.stopped_on != single.stopped_on):
+                raise AssertionError(
+                    f"fabric (d) {name}: rounds {dr.rounds} "
+                    f"{dr.hv_history} {dr.stopped_on} != single-process "
+                    f"{single.rounds} {single.hv_history} "
+                    f"{single.stopped_on}")
+            check_frontiers(dr.frontiers, single.frontiers, f"(d) {name}")
+            per_worker = per_worker_launches(st["worker_metrics"])
+            if fault is None:
+                # each tile: the fused K1 + K1 alone for its training
+                # sample, in the worker that evaluated it; plus one warm-up
+                # tile (both launches) a worker
+                want = dr.tiles_evaluated + 2
+                check_launches(worker_launches(st["worker_metrics"]),
+                               {"sweep_reduce_f64": want,
+                                "dse_sweep_f64": want}, "(d) clean")
+            elif st["lost_workers"] != [1] or st["reissued_tiles"] < 1:
+                raise AssertionError(f"fabric (d) {name}: the crash did not "
+                                     f"fire: {st}")
+            out[f"d_adaptive_{name}"] = {
+                "rounds": dr.rounds, "stopped_on": dr.stopped_on,
+                "tiles_evaluated": dr.tiles_evaluated,
+                **{k: st[k] for k in ("lost_workers", "deliveries",
+                                      "duplicates", "reissued_tiles")},
+                "worker_launches": per_worker,
+                "seconds": time.perf_counter() - t}
+        seconds["d"] = sum(out[f"d_adaptive_{n}"]["seconds"]
+                           for n in ("clean", "worker_crash"))
+
+        # (e) a seeded chaos policy on the in-process fleet
+        t = time.perf_counter()
+        policy = ChaosPolicy.random(FABRIC_CHAOS_SEED, n_events=6,
+                                    horizon=n_tiles)
+        res, report = ChaosRunner(
+            workloads, fabric_config(space, f64, device), policy).run(
+                os.path.join(tmp, "chaos.json"))
+        check_frontiers(res.frontiers, fresh64.frontiers, "(e) chaos")
+        out["e_chaos"] = {
+            "policy": policy.to_dict(),
+            "report": {k: v for k, v in report.items()
+                       if k not in ("recoveries", "quarantined_files",
+                                    "events_fired")},
+            "events_fired": [(e["completion"], e["kind"])
+                             for e in report["events_fired"]],
+            "quarantined_files": len(report["quarantined_files"])}
+        seconds["e"] = time.perf_counter() - t
+
+    # (f) scaling: 1, 2, 4 clean workers over ~1 M candidates
+    scaling, first = [], None
+    for n in FABRIC_WORKERS:
+        t = time.perf_counter()
+        before = kern.launch_counts()
+        res, st, row = run_fabric(workloads, fabric_config(
+            scaling_space, f64, device), n)
+        metrics.append(st["worker_metrics"])
+        here = kern.launch_counts()
+        check_launches({k: here[k] - before[k] for k in here},
+                       {k: 0 for k in here}, f"(f) {n} workers, coordinator")
+        check_launches(worker_launches(st["worker_metrics"]),
+                       {"sweep_reduce_f64": res.n_tiles + st["reissued_tiles"]
+                        + n}, f"(f) {n} workers")
+        if st["lost_workers"]:
+            raise AssertionError(f"fabric (f): lost {st['lost_workers']}")
+        if first is None:
+            first = res
+        check_frontiers(res.frontiers, first.frontiers,
+                        f"(f) {n} workers vs 1")
+        scaling.append({"workers": n, **row,
+                        "tiles_per_s": res.n_tiles / st["window_s"],
+                        "seconds": time.perf_counter() - t})
+    seconds["f"] = sum(r["seconds"] for r in scaling)
+
+    coordinator = kern.launch_counts()
+    workers = {k: sum(worker_launches(m)[k] for m in metrics)
+               for k in coordinator}
+    launches = {k: coordinator[k] + workers[k] for k in coordinator}
+    emit({"phase": "fabric", "candidates": len(space), "tiles": n_tiles,
+          "workloads": len(workloads),
+          "scaling_candidates": len(scaling_space),
+          "scaling_tiles": scaling_space.n_tiles(),
+          **out, "f_scaling": scaling,
+          "launches": launches, "launches_in_coordinator": coordinator,
+          "launches_in_workers": workers, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "timing_note": "spawn_to_ready_s: host clock from the first spawn "
+                         "until every worker signalled ready (imports, its "
+                         "CUDA context, the kernel library, one warm-up "
+                         "tile); window_s: from then to the last fold, the "
+                         "shutdown (shutdown_s: stop messages, snapshots, "
+                         "process exits) excluded; "
+                         "worker_busy_cpu_s: each worker's "
+                         "time.process_time over its tiles (host CPU, "
+                         "including the spin in the synchronise); "
+                         "merge_ms_per_tile: the coordinator's merge span "
+                         "per delivery; frontiers bitwise the "
+                         "single-process runs (campaign_default, "
+                         "adaptive)"})
+    return {"launches": launches}
 
 
 # --- token serving -------------------------------------------------------------
@@ -3452,8 +3742,9 @@ def main() -> int:
     adaptive = phase_adaptive(workloads, device, main_path["exact"])
     selection = phase_selection(workloads, device, main_path["campaign64"],
                                 main_path["fresh64"], models, args.seed)
+    fabric = phase_fabric(workloads, device, main_path, adaptive)
     campaign_launches = {k: v + large[k] + adaptive["launches"][k]
-                         + selection["launches"][k]
+                         + selection["launches"][k] + fabric["launches"][k]
                          for k, v in main_path["launches"].items()}
     cfg, models, images = resnet_inputs(device, args.seed)
     per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],

@@ -49,13 +49,20 @@ Determinism is the load-bearing property:
   and replaying the recorded rounds reproduces the surrogate state
   bitwise, which is exactly how ``from_checkpoint`` restores it.
 
-The reference's distributed runner (a fabric worker pool) is not part of
-this module.
+The distributed path (``run_adaptive_distributed``) keeps one coordinator
+(selection, fitting, folding) and farms tile evaluation to a persistent
+pool of fabric worker processes (``fabric._worker_main``: each its own
+CUDA context on the config's device); each round's tiles are leased in
+acquisition order through a ``LeaseBoard`` priority ranking.  Worker loss
+re-pends the tile; duplicate deliveries are no-ops — the result is
+bitwise-identical to the single-process adaptive run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing as mp
+import queue as queue_mod
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,12 +72,16 @@ from repro_torch.core import dse
 from repro_torch.core.predictors import RandomForestRegressor
 from repro_torch.dse_campaign import store
 from repro_torch.dse_campaign.config import AdaptiveConfig, CampaignConfig
+from repro_torch.dse_campaign.fabric import (FaultInjection, LeaseBoard,
+                                             _stop_workers, _worker_main,
+                                             campaign_config)
 from repro_torch.dse_campaign.frontier import (hypervolume_2d,
                                                hypervolume_gain_2d)
 from repro_torch.dse_campaign.runner import (Campaign, CampaignResult,
                                              TileReduction, TileStat,
                                              WorkloadKey)
 from repro_torch.dse_campaign.space import tile_span
+from repro_torch.runtime.fault_tolerance import RetryPolicy
 from repro_torch.telemetry import coerce_telemetry
 
 # feature-column positions the analytic feasibility screen reads
@@ -192,7 +203,8 @@ class AdaptiveCampaign:
 
     def _evaluate_round(self, tiles: List[int]) -> List[RoundDelivery]:
         """Evaluate ``tiles`` in the given (acquisition) order on the
-        campaign's own ``TileEvaluator``."""
+        campaign's own ``TileEvaluator`` — the round hook: the distributed
+        runner assigns its worker pool's ``evaluate_round`` here."""
         clock = self.telemetry.clock
         out: List[RoundDelivery] = []
         for t in tiles:
@@ -559,3 +571,161 @@ class AdaptiveCampaign:
         return obj
 
 
+# ---------------------------------------------------------------------------
+# distributed adaptive: one coordinator, a persistent fabric worker pool
+# ---------------------------------------------------------------------------
+
+class _WorkerPool:
+    """Persistent pool of fabric worker processes for the adaptive loop.
+
+    Reuses ``fabric._worker_main`` (same protocol, same warm-up, same
+    crash semantics) but keeps the processes alive ACROSS rounds — each
+    worker creates its CUDA context and loads the kernels once, not once
+    per round.  Each ``evaluate_round`` drives a per-round ``LeaseBoard``
+    restricted to the selected tiles, leased in acquisition order via
+    ``set_priority``; worker death re-pends its tile to a survivor.
+    ``close`` collects each surviving worker's terminal metrics snapshot
+    into ``stats["worker_metrics"]`` (its kernel launches among them: an
+    adaptive ``"cuda"`` tile launches the fused kernel and the sweep kernel
+    alone, in the worker that evaluated it).
+    """
+
+    def __init__(self, engine, n_workers: int,
+                 fault: Optional[FaultInjection] = None):
+        if n_workers < 1:
+            raise ValueError("n_workers must be >= 1")
+        fault = fault or FaultInjection()
+        if fault.hang_worker is not None:
+            raise ValueError("hang_worker is a LocalFabric-only injection")
+        cfg = campaign_config(engine)
+        self.n_tiles = engine.space.n_tiles()
+        ctx = mp.get_context("spawn")  # a CUDA parent cannot fork
+        self.result_q = ctx.Queue()
+        self.task_qs: Dict[int, object] = {}
+        self.procs: Dict[int, mp.Process] = {}
+        self.lost: set = set()
+        self.duplicate_pending = fault.duplicate
+        self.stats = {"deliveries": 0, "duplicates": 0, "reissued_tiles": 0,
+                      "lost_workers": [], "n_workers": int(n_workers),
+                      "worker_metrics": {}}
+        for w in range(n_workers):
+            worker_cfg = {}
+            if fault.kill_worker == w:
+                worker_cfg["die_on_nth_tile"] = fault.kill_after_tiles + 1
+            self.task_qs[w] = ctx.Queue()
+            p = ctx.Process(target=_worker_main,
+                            args=(w, cfg, worker_cfg, self.task_qs[w],
+                                  self.result_q), daemon=True)
+            p.start()
+            self.procs[w] = p
+        # ready barrier: leases are only issued once the fleet is warm
+        self.idle: List[int] = []
+        ready: set = set()
+        try:
+            while len(ready | self.lost) < n_workers:
+                try:
+                    kind, w, _, payload, _ = self.result_q.get(timeout=0.1)
+                except queue_mod.Empty:
+                    kind = None
+                if kind == "ready":
+                    ready.add(w)
+                    self.idle.append(w)
+                elif kind == "error":
+                    raise RuntimeError(f"adaptive worker {w} failed: "
+                                       f"{payload}")
+                self._reap()
+            if not self.idle:
+                raise RuntimeError("adaptive worker pool: all workers died "
+                                   "during warm-up")
+        except BaseException:
+            self.close()
+            raise
+
+    def _reap(self) -> None:
+        for w, p in self.procs.items():
+            if w not in self.lost and not p.is_alive():
+                self.lost.add(w)
+                self.stats["lost_workers"].append(w)
+                if w in self.idle:
+                    self.idle.remove(w)
+
+    def evaluate_round(self, tiles: List[int]) -> List[RoundDelivery]:
+        """Evaluate ``tiles`` across the pool; returns every delivery
+        (duplicates included — folding dedups).  Raises if the whole fleet
+        dies with tiles outstanding, or if a worker reports an error."""
+        board = LeaseBoard(
+            self.n_tiles,
+            done=[t for t in range(self.n_tiles) if t not in set(tiles)])
+        board.set_priority(tiles)
+        holding: Dict[int, int] = {}
+        out: List[RoundDelivery] = []
+        while not board.all_done:
+            while self.idle:
+                w = self.idle[0]
+                tile = board.next_tile(w)
+                if tile is None:
+                    break
+                self.idle.pop(0)
+                holding[w] = tile
+                self.task_qs[w].put(tile)
+            try:
+                kind, w, tile, payload, busy = self.result_q.get(timeout=0.05)
+            except queue_mod.Empty:
+                kind = None
+            if kind == "result":
+                out.append((tile, payload, busy))
+                board.complete(tile)
+                holding.pop(w, None)
+                self.stats["deliveries"] += 1
+                if w not in self.lost:
+                    self.idle.append(w)
+                if self.duplicate_pending:
+                    self.duplicate_pending = False
+                    out.append((tile, payload, 0.0))
+                    self.stats["duplicates"] += 1
+            elif kind == "error":
+                raise RuntimeError(f"adaptive worker {w} failed: {payload}")
+            self._reap()
+            for w in list(holding):
+                if w in self.lost:
+                    holding.pop(w)
+                    re_pended = board.revoke_worker(w)
+                    self.stats["reissued_tiles"] += len(re_pended)
+            if not board.all_done and len(self.lost) == len(self.procs):
+                raise RuntimeError(
+                    "adaptive pool stalled: all workers lost with "
+                    f"{board.n_pending} tiles pending")
+        return out
+
+    def close(self) -> None:
+        """Shut the pool down (``fabric._stop_workers``), keeping each
+        surviving worker's terminal metrics snapshot."""
+        self.stats["worker_metrics"].update(_stop_workers(
+            self.procs, self.task_qs, self.result_q, RetryPolicy()))
+
+
+def run_adaptive_distributed(workloads: Sequence[dse.Workload],
+                             config: CampaignConfig,
+                             fault: Optional[FaultInjection] = None,
+                             telemetry=None
+                             ) -> Tuple[AdaptiveResult, Dict]:
+    """One-call distributed adaptive campaign; returns
+    ``(AdaptiveResult, pool stats)``.
+
+    The coordinator (this process) keeps every decision — acquisition,
+    surrogate fitting, frontier folding, plateau stop — and only tile
+    evaluation fans out to ``config.n_workers`` fabric worker processes on
+    ``config.device``.  Because training rows, acquisition refs and
+    frontier folds are all order-canonicalized at round barriers, the
+    result is bitwise-identical to the single-process
+    ``AdaptiveCampaign.run`` on the same config — under injected worker
+    crashes and duplicate deliveries too.
+    """
+    adaptive = AdaptiveCampaign(workloads, config, telemetry=telemetry)
+    pool = _WorkerPool(adaptive.engine, config.n_workers, fault=fault)
+    try:
+        adaptive._evaluate_round = pool.evaluate_round
+        result = adaptive.run(checkpoint_path=config.checkpoint_path)
+    finally:
+        pool.close()
+    return result, dict(pool.stats)

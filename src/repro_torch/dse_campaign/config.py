@@ -143,6 +143,8 @@ class CampaignConfig:
       (never checkpointed: they must be re-passed on resume);
     * checkpointing — ``checkpoint_every`` (tiles between saves) and
       ``checkpoint_path`` (default path ``Campaign.run`` persists to);
+    * fabric — ``n_workers`` / ``lease_timeout_s`` for
+      ``fabric.run_distributed`` and ``adaptive.run_adaptive_distributed``;
     * adaptive — an optional ``AdaptiveConfig`` enabling the
       surrogate-guided campaign mode (``adaptive.AdaptiveCampaign``);
       ``None`` (the default) keeps every entry point on the exact sweep.
@@ -163,6 +165,8 @@ class CampaignConfig:
     chunk_size: Optional[int] = None
     checkpoint_every: int = 1
     checkpoint_path: Optional[str] = None
+    n_workers: int = 2
+    lease_timeout_s: float = 300.0
     adaptive: Optional[AdaptiveConfig] = None
 
     def __post_init__(self):
@@ -194,6 +198,8 @@ class CampaignConfig:
             raise ValueError("max_survivors must be >= 1")
         if self.checkpoint_every < 1:
             raise ValueError("checkpoint_every must be >= 1")
+        if self.n_workers < 1:
+            raise ValueError("n_workers must be >= 1")
 
     @property
     def dtype_name(self) -> str:

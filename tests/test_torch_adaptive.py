@@ -16,9 +16,14 @@ replaying the reference's own rows through the port's ``partial_fit``,
 round by round: tree arrays bitwise.  Port-only gates carried over
 from ``tests/test_adaptive.py``: budget 1.0 is bitwise the exact sweep, the
 frontier is a subset of the evaluated tiles, resume == fresh, a plain
-checkpoint is refused."""
+checkpoint is refused.  The distributed runner (``run_adaptive_distributed``,
+real ``spawn`` workers on the fused tier's plain versions) runs the same
+rounds, ``hv_history``, stop and frontiers as the single-process campaign,
+bitwise, clean and with a worker crash and a duplicate delivery, and on
+the reference's candidate sets; a pool whose every worker dies raises."""
 
 import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -36,9 +41,12 @@ from repro_torch.core import dse
 from repro_torch.core import predictors as P
 from repro_torch.dse_campaign import (AdaptiveCampaign, AdaptiveConfig,
                                       Campaign, CampaignConfig,
-                                      canonical_frontier, frontiers_identical,
+                                      FaultInjection, canonical_frontier,
+                                      frontiers_identical,
+                                      run_adaptive_distributed,
                                       state_from_reference, tile_span,
                                       tiny_campaign_space)
+from repro_torch.dse_campaign.adaptive import _WorkerPool
 
 BASE = {"flops": 3.2e14, "hbm_bytes": 4.5e13, "collective_bytes": 5e11,
         "wire_bytes": 7e11}
@@ -261,6 +269,56 @@ def test_plain_and_reference_states_are_refused(tmp_path):
     ref.run(max_rounds=1)
     with pytest.raises(ValueError, match="adaptive"):
         state_from_reference(ref.state_dict(), device="cpu")
+
+
+# --- distributed == single-process -------------------------------------------
+
+
+@pytest.mark.parametrize("fault", [
+    None,
+    FaultInjection(kill_worker=1, kill_after_tiles=1, duplicate=True),
+], ids=["clean", "worker_crash"])
+def test_adaptive_distributed_matches_single_process(fault):
+    cfg = port_config(AdaptiveConfig(**ACFG), "cuda", n_workers=2)
+    single = AdaptiveCampaign(workloads(dse), cfg)
+    sr = single.run()
+    t0 = time.monotonic()
+    dr, stats = run_adaptive_distributed(workloads(dse), cfg, fault=fault)
+    assert time.monotonic() - t0 < 60
+    assert dr.rounds == sr.rounds
+    assert dr.hv_history == sr.hv_history
+    assert dr.stopped_on == sr.stopped_on
+    assert dr.candidates_evaluated == sr.candidates_evaluated
+    for key in single.frontiers:
+        assert frontiers_identical(dr.frontiers[key], sr.frontiers[key]), key
+    _, rr = run_ref_adaptive(**ACFG)
+    assert dr.rounds == rr.rounds
+    for key in rr.frontiers:
+        assert same_frontier_set(rr.frontiers[key], dr.frontiers[key]), key
+    assert stats["n_workers"] == 2
+    assert stats["deliveries"] == sum(len(set(r)) for r in dr.rounds)
+    if fault is not None:
+        assert stats["lost_workers"] == [1]
+        assert stats["reissued_tiles"] >= 1
+        assert stats["duplicates"] == 1
+        assert list(stats["worker_metrics"]) == [0]
+    else:
+        assert sorted(stats["worker_metrics"]) == [0, 1]
+
+
+def test_adaptive_pool_raises_when_every_worker_dies():
+    cfg = port_config(AdaptiveConfig(**ACFG), "cuda", n_workers=1)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="adaptive pool stalled"):
+        run_adaptive_distributed(
+            workloads(dse), cfg,
+            fault=FaultInjection(kill_worker=0, kill_after_tiles=1))
+    assert time.monotonic() - t0 < 60
+    with pytest.raises(ValueError):
+        _WorkerPool(Campaign(workloads(dse), cfg).engine, 0)
+    with pytest.raises(ValueError, match="LocalFabric"):
+        _WorkerPool(Campaign(workloads(dse), cfg).engine, 1,
+                    fault=FaultInjection(hang_worker=0))
 
 
 # --- the "fast" tier ---------------------------------------------------------

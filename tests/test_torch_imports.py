@@ -43,7 +43,9 @@ def test_port_has_the_expected_modules():
                  "core/predictors.py", "core/dataset.py",
                  "dse_campaign/adaptive.py", "serving/__init__.py",
                  "serving/frontier_index.py", "serving/engine.py",
-                 "select.py", "launch/__init__.py", "launch/serve.py"):
+                 "select.py", "launch/__init__.py", "launch/serve.py",
+                 "runtime/__init__.py", "runtime/fault_tolerance.py",
+                 "dse_campaign/fabric.py", "dse_campaign/chaos.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -92,6 +94,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.serving, repro_torch.serving.frontier_index\n"
         "import repro_torch.serving.engine, repro_torch.select\n"
         "import repro_torch.launch, repro_torch.launch.serve\n"
+        "import repro_torch.runtime, repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.dse_campaign.fabric\n"
+        "import repro_torch.dse_campaign.chaos\n"
         "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
