@@ -6,8 +6,11 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
     python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
-`nvcc` per source, all four started together), holds each against its plain
-PyTorch version on the card, and drives the port's main paths: the fused
+`nvcc` per source, all five started together), holds each against its plain
+PyTorch version on the card, and drives the port's main paths: training the
+dense transformer (stablelm-1.6b at full width and depth through
+`launch.train.train`, every layer's attention on K3 and its hand-written
+backward), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -32,6 +35,12 @@ Lines, in order:
                                      shapes, other scales; plans
   {"phase": "ssd_scan", ...}         K4 vs plain: test, shared_cb and
                                      mamba2 shapes, views; plans, cum
+  {"phase": "training", ...}         (a) stablelm-1.6b bf16 B=1 S=4096, 4
+                                     steps: ms / step, tokens/s, device ms
+                                     by kind, idle, peak memory, K3
+                                     launches; (b) float32 depth 2 card vs
+                                     CPU; (c) resume == fresh bitwise; (d)
+                                     K3 backward vs plain, SDPA's backward
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -78,6 +87,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,7 +127,11 @@ from repro_torch.kernels import conv2d as k2  # noqa: E402
 from repro_torch.kernels import dse_sweep as kern  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
 from repro_torch.select import FrontierIndex, SelectionEngine  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.telemetry import Telemetry, metric_value  # noqa: E402
@@ -125,6 +139,7 @@ from repro_torch.telemetry import Telemetry, metric_value  # noqa: E402
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 # file:line of what each kernel replaces in the reference package
 REPLACES = {"sweep_reduce": "src/repro/kernels/dse_sweep.py:52",
@@ -319,12 +334,13 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; returns the report per
     source."""
     t0 = time.perf_counter()
-    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE)
+    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k3.BWD_SOURCE, k4.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(
             lambda src: build.build(src, force=True), sources)))
     for kernel in (kern, k2, k3, k4):
         kernel._library()
+    k3._bwd_library()
     out = {}
     for src in sources:
         usage = [ln.strip() for ln in build.build_logs[src].splitlines()
@@ -342,6 +358,14 @@ def phase_build() -> dict:
     if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
         raise AssertionError(f"K3's tensor-core kernel spills (or is "
                              f"missing from the ptxas report): {tc}")
+    out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
+        build.build_logs[k3.BWD_SOURCE])
+    bwd = [r for r in out[k3.BWD_SOURCE]["kernels"]
+           if "flash_bwd_" in r["kernel"] and "bf16" in r["kernel"]]
+    if len(bwd) != 4 or any(r["spill_stores"] or r["spill_loads"]
+                            for r in bwd):
+        raise AssertionError(f"K3's bf16 backward kernels spill (or are "
+                             f"missing from the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
              if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
@@ -2810,9 +2834,10 @@ def phase_flash_attention(device, seed: int) -> dict:
               for scale in FLASH_SCALES for causal in (True, False)]
     views = flash_view_case(gen, device)
     variants = sorted({r["plan"]["variant"] for r in rows.values()})
-    if variants != sorted(k3.LAUNCHES):
+    if variants != sorted(k3.FWD_VARIANTS):
         raise AssertionError(f"the flash_attention phase ran the variants "
-                             f"{variants}, not all of {sorted(k3.LAUNCHES)}")
+                             f"{variants}, not all of "
+                             f"{sorted(k3.FWD_VARIANTS)}")
     emit({"phase": "flash_attention",
           "tolerance": {"f32": "max |K3 - plain| <= 1e-5",
                         "bf16": "|K3 - plain| <= 2e-2 + 2e-2 |plain| "
@@ -3095,19 +3120,26 @@ def phase_transformer(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def flash_rows(rows, lm) -> list:
+def flash_rows(rows, lm, training) -> list:
     """K3's rows: times at the stablelm B=1 S=4096 shape alone, every other
-    model shape beside it, and K3 and SDPA inside the prefills."""
+    model shape beside it, and K3 and SDPA inside the prefills.  Launches:
+    the prefill path's (``transformer``) and the training path's (the
+    forward that also writes the log-sum-exp: (a) in bf16, (b) in
+    float32), each counted from zero around its own run."""
     out = []
+    train_path = {torch.bfloat16: "a_full", torch.float32: "b_card_vs_cpu"}
     for dtype in FLASH_DTYPES:
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == FLASH_HEADLINE)
         name = K3_MAIN[dtype]
         runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
+        trained = training[train_path[dtype]]["launches"][name]
         out.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES["flash_attention"],
-            "launches": lm["launches"][name],
+            "launches": lm["launches"][name] + trained,
+            "launches_by_path": {"prefill": lm["launches"][name],
+                                 "training": trained},
             "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
                                if d == dtype
                                and r["plan"]["variant"] == name),
@@ -3640,6 +3672,453 @@ def ssd_rows(rows, mb) -> list:
     return out
 
 
+# --- training: the dense transformer on K3 and its backward --------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS = 4
+TRAIN_SEQ = 4096
+# the step the profiler records in (a) (steps 1 and 2 are timed bare)
+TRAIN_PROFILED_STEP = 3
+# (b): card against the port's CPU path, float32, depth 2, full width; the
+# tolerances of tests/test_torch_train.py (loss 1e-5 relative, every
+# gradient 1e-4 of its scale)
+CARD_CPU_SEQ = 512
+CARD_CPU_LOSS_TOL = 1e-5
+CARD_CPU_GRAD_TOL = 1e-4
+# (c): resume, bf16, depth 2, full width
+RESUME_STEPS, RESUME_EVERY, RESUME_DEPTH = 4, 2, 2
+# (d): K3's backward against flash_attention_bwd_plain on the card, each
+# gradient within tol * max |plain|: bf16 2e-2 (the kernels round P and dS
+# to bf16 for the tensor-core products, the plain version keeps float32),
+# float32 1e-4 (sums in other orders)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (case, B, S, H, KV, d)
+BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64),
+             ("qwen3_b1_s2048", 1, 2048, 40, 8, 128))
+BWD_HEADLINE = "stablelm_b1_s4096"
+BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
+BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
+
+
+def flash_bwd_bound(b, s, h, kv, d, causal, dtype) -> dict:
+    """Least time for one backward call: q, k, v, o, do and the float32
+    log-sum-exp read once, dq, dk, dv written once; five products over the
+    visible pairs (S again, dP, dV, dQ, dK): 2 B H pairs 5 d operations,
+    2.5 times the forward's, at the dtype's peak."""
+    e = torch.finfo(dtype).bits // 8
+    # q, o, do, dq: [B, S, H, d]; k, v, dk, dv: [B, S, KV, d]; lse float32
+    nbytes = 4 * b * s * (h + kv) * d * e + b * h * s * 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return bound(nbytes, 2 * b * h * pairs * 5 * d, dtype)
+
+
+class StepClock:
+    """Wraps ``models.api.make_train_step`` while active: every step ends
+    in a synchronize and its host milliseconds are kept; step
+    ``TRAIN_PROFILED_STEP`` runs under ``torch.profiler``."""
+
+    def __init__(self):
+        self.ms, self.prof = [], None
+        self._patch = None
+
+    def __enter__(self):
+        make = train_mod.api.make_train_step
+
+        def timed_make(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(state, batch):
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(self.ms) == TRAIN_PROFILED_STEP:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        out = step(state, batch)
+                        torch.cuda.synchronize()
+                    self.prof = prof
+                else:
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+
+        self._patch = mock.patch.object(train_mod.api, "make_train_step",
+                                        timed_make)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def step_device_split(prof, top: int = 12) -> dict:
+    """Device ms of the profiled step by kind: K3 forward, K3 backward,
+    cuBLAS (GEMM kernels), the rest (elementwise, reductions, copies); and
+    the ``top`` kernels by device ms with their counts."""
+    from torch.autograd import DeviceType
+    split = {"k3_forward": 0.0, "k3_backward": 0.0, "cublas": 0.0,
+             "elementwise_and_other": 0.0}
+    kernels = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+        kernels.append({"kernel": ev.key[:120], "ms": us / 1e3,
+                        "count": int(ev.count)})
+        name = ev.key.lower()
+        if BWD_SYMBOL in name:
+            kind = "k3_backward"
+        elif "flash_bf16_" in name or "flash_f32_" in name:
+            kind = "k3_forward"
+        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                     "cublas", "sm90_")):
+            kind = "cublas"
+        else:
+            kind = "elementwise_and_other"
+        split[kind] += us / 1e3
+    kernels.sort(key=lambda r: -r["ms"])
+    return split, kernels[:top]
+
+
+def train_model_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N T for the parameters that multiply (all but the input
+    embedding table, a lookup) plus causal attention: the forward's 2 B H
+    pairs (hd + hv) a layer, three times (forward and a backward of two
+    such products each)."""
+    n = sum(p.numel() for name, p in module.named_parameters()
+            if name != "embed.embed_w" or module.head is None)
+    pairs = s * (s + 1) // 2
+    attn = 3 * 2 * b * cfg.num_heads * pairs * 2 * cfg.head_dim \
+        * cfg.num_layers
+    return {"matmul_params": n, "flops": 6 * n * b * s + attn,
+            "attention_flops": attn}
+
+
+def train_full(device, seed: int) -> dict:
+    """(a) stablelm-1.6b at full width and depth, bf16, B=1, S=4096, 4 steps
+    through ``launch.train.train``; the counts are zeroed just before and
+    read just after."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k3.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False, seq_len=TRAIN_SEQ,
+            batch=1, seed=seed, install_signals=False, log_every=1,
+            device=device)
+    launches = k3.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    want = {k: 0 for k in k3.LAUNCHES}
+    want[k3.TC] = want[k3.BWD_BF16] = cfg.num_layers * TRAIN_STEPS
+    if cfg.remat != "none" or launches != want:
+        raise AssertionError(f"K3 launches in training {launches}, expected "
+                             f"{want} (remat {cfg.remat})")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof)
+    device_ms = sum(split.values())
+    # the optimiser's share: one more AdamW update of the trained state
+    # (the parameters stand in for gradients), CUDA events
+    params = list(state.params.parameters())
+    grads = [p.detach() for p in params]
+    opt = optim.make_optimizer(cfg.optimizer, total_steps=TRAIN_STEPS)
+    opt_state = [state.opt]
+
+    def update():
+        opt_state[0] = opt.apply(params, grads, opt_state[0])[1]
+
+    optimizer_ms = time_ms(update, 3, warmup=1)
+    flops = train_model_flops(state.params, cfg, 1, TRAIN_SEQ)
+    out = {"arch": TRAIN_ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat, "B": 1,
+           "S": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "tokens_per_s": TRAIN_SEQ / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "optimizer_update_ms": optimizer_ms,
+           "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak,
+           "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches,
+           "note": "ms_per_step: host clock around a step ending in a "
+                   "synchronize, median of steps 1-2 (step 0 warms up, step "
+                   "3 runs under the profiler); device_ms: the profiled "
+                   "step's kernels by kind; idle_share = 1 - device_ms / "
+                   "ms_per_step; utilization = model flops / step time / "
+                   "989 TFLOP/s; optimizer_update_ms: one AdamW update of "
+                   "all parameters after the run (CUDA events, 3 runs)"}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tt.loss_fn(module, batch["tokens"], batch["labels"])
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+def train_card_vs_cpu(device, seed: int) -> dict:
+    """(b) stablelm float32 at depth 2 and full width, B=1, S=512: the loss
+    and every parameter gradient on the card (K3 float32 forward and
+    backward kernels, cuBLAS in full float32) against the port's CPU path
+    (plain versions) from the same weights and tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("stablelm_1_6b"), num_layers=2,
+                              dtype="float32")
+    cpu = tt.Transformer(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    card = tt.Transformer(cfg, generator=torch.Generator(device=device)
+                          .manual_seed(seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", CARD_CPU_SEQ, 1, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k3.reset_launch_counts()
+    loss_g, grads_g = _grads(card, batch)
+    torch.cuda.synchronize()
+    launches = k3.launch_counts()
+    t0 = time.perf_counter()
+    loss_c, grads_c = _grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"card vs CPU training: loss rel {rel_loss}, "
+                             f"worst gradient {worst} ({errs})")
+    want = {k: 0 for k in k3.LAUNCHES}
+    want[k3.F32] = want[k3.BWD_F32] = cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"K3 launches on the card {launches}, expected "
+                             f"{want}")
+    return {"layers": 2, "dtype": "float32", "B": 1, "S": CARD_CPU_SEQ,
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel_loss, "worst_grad_rel_diff": worst,
+            "grad_rel_diff": errs, "launches": launches,
+            "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL}}
+
+
+class TimedSave:
+    """Wraps ``checkpoint.store.save`` while active: seconds and bytes of
+    every write."""
+
+    def __init__(self):
+        self.writes = []
+        self._patch = None
+
+    def __enter__(self):
+        save = ckpt_store.save
+
+        def timed(ckpt_dir, step, tree, extra=None):
+            t0 = time.perf_counter()
+            out = save(ckpt_dir, step, tree, extra)
+            self.writes.append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": int(sum(ckpt_store._to_numpy(v)[0].nbytes
+                                 for v in tree.values()))})
+            return out
+
+        self._patch = mock.patch.object(ckpt_store, "save", timed)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def train_resume(device, seed: int) -> dict:
+    """(c) stablelm bf16 at depth 2 and full width, S=4096: 4 steps with a
+    checkpoint every 2; the step-4 checkpoint removed (a crash after step
+    2's); restored and run to 4.  The 2 losses and the final parameters
+    must be bitwise the uninterrupted run's."""
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def cut(name):
+        return dataclasses.replace(get_config(name), num_layers=RESUME_DEPTH)
+
+    kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=TRAIN_SEQ, batch=1,
+              ckpt_dir=ckdir, ckpt_every=RESUME_EVERY, seed=seed,
+              install_signals=False, log_every=100, device=device)
+    try:
+        with mock.patch.object(train_mod, "get_config", cut), \
+                TimedSave() as saves:
+            full, state = train_mod.train(TRAIN_ARCH, **kw)
+            final = [p.detach().clone() for p in state.params.parameters()]
+            del state
+            torch.cuda.empty_cache()
+            written = sorted(os.listdir(ckdir))
+            shutil.rmtree(os.path.join(ckdir, f"step_{RESUME_STEPS}"))
+            t0 = time.perf_counter()
+            resumed, state = train_mod.train(TRAIN_ARCH, restore=True, **kw)
+            resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(torch.equal(a, b)
+               for a, b in zip(final, state.params.parameters()))
+    if resumed != full[RESUME_EVERY:] or not same or \
+            not all(np.isfinite(full)):
+        raise AssertionError(f"resume != fresh: losses {full} then "
+                             f"{resumed}, parameters bitwise {same}")
+    del state, final
+    torch.cuda.empty_cache()
+    return {"layers": RESUME_DEPTH, "dtype": "bfloat16", "S": TRAIN_SEQ,
+            "losses_fresh": full, "losses_resumed": resumed,
+            "bitwise_losses_and_parameters": True,
+            "checkpoints_written": written, "writes": saves.writes,
+            "resumed_run_seconds": resume_s}
+
+
+def bwd_case(gen, device, case, dtype) -> dict:
+    """(d) K3's backward against flash_attention_bwd_plain on one model
+    shape, from the forward kernel's own o and log-sum-exp; twice, bitwise;
+    timed beside the plain version, SDPA's backward and the bound."""
+    name, b, s, h, kv, d = case
+    q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    o, lse = k3.flash_attention_fwd(q, k, v)
+    # the forward's log-sum-exp (what the backward recomputes P from)
+    # against the plain forward's, within 1e-5 of its scale
+    lse_plain = k3._plain_forward(q, k, v, True, None)[1]
+    lse_err = float((lse - lse_plain).abs().max())
+    if lse_err > 1e-5 * float(lse_plain.abs().max()) or \
+            not torch.equal(o, k3.flash_attention(q, k, v)):
+        raise AssertionError(f"K3 forward with the LSE {name} {dtype}: "
+                             f"lse max |diff| {lse_err}, or o differs from "
+                             f"the prefill kernel's")
+    del lse_plain
+    plan = k3.plan_bwd(b, s, h, kv, d, dtype)
+    if plan.variant != BWD_MAIN[dtype]:
+        raise AssertionError(f"K3 backward {name} {dtype} planned "
+                             f"{plan.variant}")
+
+    def run():
+        return k3.flash_attention_bwd(do, q, k, v, o, lse)
+
+    g1, g2 = run(), run()
+    gp = k3.flash_attention_bwd_plain(do, q, k, v, o, lse)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
+        raise AssertionError(f"K3 backward {name} {dtype}: two runs differ")
+    errs, rels = [], []
+    for g, p, gname in zip(g1, gp, ("dq", "dk", "dv")):
+        if g.shape != p.shape or g.dtype != dtype or \
+                not torch.isfinite(g.float()).all():
+            raise AssertionError(f"K3 backward {name} {gname}: {g.shape} "
+                                 f"{g.dtype}, or not finite")
+        err = float((g.float() - p.float()).abs().max())
+        rel = err / float(p.float().abs().max())
+        if rel > BWD_TOL[dtype]:
+            raise AssertionError(f"K3 backward {name} {dtype} {gname}: "
+                                 f"max |diff| {err} = {rel} of scale")
+        errs.append(err)
+        rels.append(rel)
+    del gp
+    bd = flash_bwd_bound(b, s, h, kv, d, True, dtype)
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    lib_o = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": d,
+           "dtype": SUFFIX[dtype], "plan": dataclasses.asdict(plan),
+           "max_abs_err": max(errs), "rel_err_dq_dk_dv": rels,
+           "lse_max_abs_err": lse_err,
+           "ms": time_ms(run, 10),
+           "plain_ms": time_ms(lambda: k3.flash_attention_bwd_plain(
+               do, q, k, v, o, lse), 1, warmup=1),
+           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               lib_o, (qs, ks, vs), do_t, retain_graph=True), 10)}
+    us = device_us({"bwd": (run, BWD_SYMBOL)}, reps=5)
+    row["device_ms"] = None if us["bwd"] is None else us["bwd"] / 1e3
+    return row
+
+
+def phase_training(device, seed: int) -> dict:
+    """The training path: (a) the full stablelm-1.6b run (the main path,
+    counts zeroed just before and read just after), (b) card against the
+    CPU in float32, (c) resume == fresh bitwise, (d) K3's backward alone
+    against its plain version at the model shapes."""
+    t0 = time.perf_counter()
+    out = {"a_full": train_full(device, seed)}
+    out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
+    out["c_resume"] = train_resume(device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out["d_k3_backward"] = [bwd_case(gen, device, case, dtype)
+                            for dtype in (torch.bfloat16, torch.float32)
+                            for case in BWD_CASES]
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "training", **out,
+          "tolerance": {"d_bf16": "max |kernel - plain| <= 2e-2 max |plain| "
+                                  "per gradient",
+                        "d_f32": "<= 1e-4 max |plain| per gradient"},
+          "timing_note": "d: ms / library_ms CUDA events around back-to-back "
+                         "calls after warm-up (library = SDPA's backward, "
+                         "torch.autograd.grad of F.scaled_dot_product_"
+                         "attention at the same shape, timed only); "
+                         "device_ms: the backward's two kernels "
+                         "(torch.profiler); bound = max(bytes of q, k, v, o, "
+                         "do, lse, dq, dk, dv / 3.35 TB/s, 2 B H pairs 5 d / "
+                         "peak: 989 TFLOP/s bf16, 67 f32)"})
+    return out
+
+
+def bwd_rows(training, ptxas) -> list:
+    """K3 backward's rows: the stablelm B=1 S=4096 shape, the qwen3 shape
+    beside it; launches from the training path ((a) bf16, (b) float32)."""
+    rows = []
+    paths = {torch.bfloat16: ("a_full", "training (a): stablelm-1.6b, 4 "
+                              "steps"),
+             torch.float32: ("b_card_vs_cpu", "training (b): stablelm "
+                             "float32 depth 2, one step on the card")}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = BWD_MAIN[dtype]
+        cases = [r for r in training["d_k3_backward"]
+                 if r["dtype"] == SUFFIX[dtype]]
+        head = next(r for r in cases if r["case"] == BWD_HEADLINE)
+        path, what = paths[dtype]
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "replaces": REPLACES["flash_attention"],
+            "also_replaces": "src/repro/models/layers.py:96 (jax.vjp of the "
+                             "XLA attention the reference trains through)",
+            "launches": training[path]["launches"][name],
+            "launches_from": what,
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "plan": head["plan"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"],
+            "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
+            "model_shapes": [{k: r[k] for k in (
+                "case", "B", "S", "H", "KV", "hd", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
+            "ptxas": [r for r in ptxas if "flash_bwd_" in r["kernel"]
+                      and ("bf16" if dtype == torch.bfloat16 else "f32")
+                      in r["kernel"]]})
+    return rows
+
+
 def kernels_line(numbers, launches, ptxas, select_timing) -> list:
     """K1's rows: the fused tile (K1 + K1a + K1b in one launch, the main
     path), then K1 and K1a alone (the general variant; K1 also the overflow
@@ -3730,6 +4209,9 @@ def main() -> int:
     # profiles, the profiler read no device time for K3 alone
     flash = phase_flash_attention(device, args.seed)
     ssd = phase_ssd_scan(device, args.seed)
+    # before the later phases' profiles (see above), and while the card's
+    # memory is free: the full-width run holds ~40 GB
+    training = phase_training(device, args.seed)
     workloads = make_workloads(args.seed)
     ptxas = built[kern.SOURCE]["kernels"]
     numbers = phase_kernels(workloads, device, ptxas)
@@ -3757,7 +4239,8 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])
-          + conv_rows(per_dtype, infer) + flash_rows(flash, lm)
+          + conv_rows(per_dtype, infer) + flash_rows(flash, lm, training)
+          + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
           + ssd_rows(ssd, mb)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,10 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source on top of NVCC_FLAGS.  -fmad=false for dse_sweep.cu:
 # its kernels are held bitwise to eager tensor code, which never contracts
-# a*b+c (see the note at the top of that file); conv2d.cu and
-# flash_attention.cu are held to a tolerance and keep FMA contraction, and
-# neither takes --use_fast_math (flash_attention.cu's exp2f / expf stay the
-# accurate ones).  Both include csrc/hopper.cuh.
+# a*b+c (see the note at the top of that file); conv2d.cu,
+# flash_attention.cu and flash_attention_bwd.cu are held to a tolerance and
+# keep FMA contraction, and none takes --use_fast_math (the attention
+# kernels' exp2f / expf / log2f stay the accurate ones).  All three include
+# csrc/hopper.cuh.
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"dse_sweep.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()

@@ -110,7 +110,7 @@
 //     rows; K and V tiles of 64 keys double-buffered by cp.async in
 //     row-padded shared memory; P re-used from the S fragments as above.
 //
-//   flash_f32_kernel<HD, HV>   float32, any hd, hv in {32, 64, 128}.  The
+//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128}.  The
 //     reference computes float32 attention in IEEE float32, so this stays on
 //     the CUDA cores (67 TFLOP/s; TF32 would break the 1e-5 tolerance).
 //     256 threads per 64-query block, tiles of 64 keys.  Q, K and V arrive
@@ -121,6 +121,13 @@
 //     scores stay in registers, the row max and sum come from shuffles
 //     across the 16 lanes of a row group, and only P goes through shared
 //     memory, once, for the P V product.  Two barriers a tile.
+//
+//   Training: flash_bf16_tc_kernel<D, true> and flash_f32_kernel<D, D, true>
+//   (entry points *_lse) also write the row log-sum-exp of the scaled
+//   scores, lse[b, h, i] = ln(sum_j exp(scale * q_i . k_j)), float32
+//   [B, H, S], from the final running max and sum -- what the backward
+//   kernels (flash_attention_bwd.cu) recompute P from.  The <..., false>
+//   instances, prefill's, are the code they were.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -138,6 +145,7 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMinDenom = 1e-30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -151,7 +159,8 @@ struct Params {
   int64_t os_b, os_s, os_h;
   float scale;
   int causal;
-  int bh;  // tensor-core kernel: B * H
+  int bh;      // tensor-core kernel: B * H
+  float* lse;  // [B, H, S] float32: the *_lse entry points only
 };
 
 // The (b * H + h, q-block) of tile `lin` of bh * nq: tiles run q-block by
@@ -360,7 +369,7 @@ constexpr int tc_smem_bytes() {
 static_assert(tc_smem_bytes<64>() <= 232448 && tc_smem_bytes<128>() <= 232448,
               "a block's shared memory is 227 KB");
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -685,8 +694,13 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + i * 8;
-      const float inv = 1.0f / fmaxf(quad_sum(l[i]), kMinDenom);
+      const float den = fmaxf(quad_sum(l[i]), kMinDenom);
+      const float inv = 1.0f / den;
       if (row >= p.S) continue;
+      if constexpr (kLse) {  // m is in the log2 domain of the scaled scores
+        if (t4 == 0)
+          p.lse[(int64_t)tl.bh * p.S + row] = (m[i] + log2f(den)) * kLn2;
+      }
       bf16* orow = op + row * p.os_s;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
@@ -976,7 +990,7 @@ constexpr int f32_min_blocks() {
   return 2 * (f32_smem_bytes<HD, HV>() + 1024) <= 233472 ? 2 : 1;
 }
 
-template <int HD, int HV>
+template <int HD, int HV, bool kLse>
 __global__ void __launch_bounds__(kFThreads, (f32_min_blocks<HD, HV>()))
 flash_f32_kernel(const Params p) {
   static_assert(HD % 4 == 0 && HV % 32 == 0, "tile shapes");
@@ -1136,6 +1150,9 @@ flash_f32_kernel(const Params p) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.S) continue;
     const float den = fmaxf(l[i], kMinDenom);
+    if constexpr (kLse) {
+      if (tx == 0) p.lse[(int64_t)tile.bh * p.S + row] = m[i] + logf(den);
+    }
     float* orow = op + row * p.os_s;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -1165,10 +1182,10 @@ int launch_mma(const Params& p, int gx, int gy, int device, void* stream) {
                 kThreads, p, gx, gy, &done, device, stream);
 }
 
-template <int HD, int HV>
+template <int HD, int HV, bool kLse = false>
 int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
   static unsigned done = 0;
-  return launch(flash_f32_kernel<HD, HV>, f32_smem_bytes<HD, HV>(),
+  return launch(flash_f32_kernel<HD, HV, kLse>, f32_smem_bytes<HD, HV>(),
                 kFThreads, p, gx, gy, &done, device, stream);
 }
 
@@ -1199,7 +1216,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.os_b = st[9]; p.os_s = st[10]; p.os_h = st[11];
   p.scale = scale;
   p.causal = causal;
-  p.bh = 0;  // set by the entry point that needs it
+  p.bh = 0;         // set by the entry point that needs it
+  p.lse = nullptr;  // set by the *_lse entry points
   return p;
 }
 
@@ -1233,12 +1251,12 @@ bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
   return encode_bf16(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
               const CUtensorMap& tm_v, const Params& p, int gx, int gy,
               int device, void* stream) {
   static unsigned done = 0;
-  auto kernel = flash_bf16_tc_kernel<D>;
+  auto kernel = flash_bf16_tc_kernel<D, kLse>;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
     err = allow_smem(kernel, tc_smem_bytes<D>(), device, &done);
@@ -1246,6 +1264,38 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   kernel<<<dim3((unsigned)gx, (unsigned)gy), kTcThreads, tc_smem_bytes<D>(),
            (cudaStream_t)stream>>>(tm_q, tm_k, tm_v, p);
   return (int)cudaGetLastError();
+}
+
+// the tensor-core entry points: checks, tensor maps, launch (lse nullptr:
+// prefill's instance)
+int tc_entry(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int H, int KV, int hd, int hv,
+             const long long* strides, float scale, int causal, int block_q,
+             int block_k, int gx, int gy, int device, void* stream) {
+  const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
+  if (hd != hv || (hd != 64 && hd != 128) || B < 1 || S < 1 || KV < 1 ||
+      H % KV || block_q != kTcBM || block_k != kTcBN || gx < 1 ||
+      gx > n_tiles || gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
+  if (!encode_bshd(&tm_q, q, B, S, H, hd, strides, kTcBM) ||
+      !encode_bshd(&tm_k, k, B, S, KV, hd, strides + 3, kTcBN) ||
+      !encode_bshd(&tm_v, v, B, S, KV, hv, strides + 6, kTcBN))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  p.bh = B * H;
+  p.lse = lse;
+  if (lse != nullptr)
+    return hd == 64
+               ? launch_tc<64, true>(tm_q, tm_k, tm_v, p, gx, gy, device,
+                                     stream)
+               : launch_tc<128, true>(tm_q, tm_k, tm_v, p, gx, gy, device,
+                                      stream);
+  return hd == 64
+             ? launch_tc<64, false>(tm_q, tm_k, tm_v, p, gx, gy, device,
+                                    stream)
+             : launch_tc<128, false>(tm_q, tm_k, tm_v, p, gx, gy, device,
+                                     stream);
 }
 
 }  // namespace
@@ -1265,21 +1315,21 @@ int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             int hv, const long long* strides, float scale,
                             int causal, int block_q, int block_k, int gx,
                             int gy, int device, void* stream) {
-  const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
-  if (hd != hv || (hd != 64 && hd != 128) || B < 1 || S < 1 || KV < 1 || H % KV || block_q != kTcBM ||
-      block_k != kTcBN || gx < 1 || gx > n_tiles || gy != 1 ||
-      !rows_aligned16(q, k, v, o, strides, 2))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
-  if (!encode_bshd(&tm_q, q, B, S, H, hd, strides, kTcBM) ||
-      !encode_bshd(&tm_k, k, B, S, KV, hd, strides + 3, kTcBN) ||
-      !encode_bshd(&tm_v, v, B, S, KV, hv, strides + 6, kTcBN))
-    return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
-  p.bh = B * H;
-  return hd == 64 ? launch_tc<64>(tm_q, tm_k, tm_v, p, gx, gy, device, stream)
-                  : launch_tc<128>(tm_q, tm_k, tm_v, p, gx, gy, device,
-                                   stream);
+  return tc_entry(q, k, v, o, nullptr, B, S, H, KV, hd, hv, strides, scale,
+                  causal, block_q, block_k, gx, gy, device, stream);
+}
+
+// the same, also writing the row log-sum-exp lse [B, H, S] (float32)
+int flash_attention_bf16_tc_lse(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int B, int S, int H,
+                                int KV, int hd, int hv,
+                                const long long* strides, float scale,
+                                int causal, int block_q, int block_k, int gx,
+                                int gy, int device, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return tc_entry(q, k, v, o, static_cast<float*>(lse), B, S, H, KV, hd, hv,
+                  strides, scale, causal, block_q, block_k, gx, gy, device,
+                  stream);
 }
 
 // bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid (B*H,
@@ -1308,6 +1358,23 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
   FLASH_DISPATCH(launch_f32)
+}
+
+// the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
+// hv in {64, 128}
+int flash_attention_f32_lse(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int S, int H, int KV,
+                            int hd, int hv, const long long* strides,
+                            float scale, int causal, int block_q, int block_k,
+                            int gx, int gy, int device, void* stream) {
+  if (lse == nullptr || hd != hv || (hd != 64 && hd != 128) ||
+      !plan_fits(B, S, H, KV, block_q, block_k, kFQ, kFK, gx, gy) ||
+      !rows_aligned16(q, k, v, o, strides, 4))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  p.lse = static_cast<float*>(lse);
+  return hd == 64 ? launch_f32<64, 64, true>(p, gx, gy, device, stream)
+                  : launch_f32<128, 128, true>(p, gx, gy, device, stream);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -28,6 +28,22 @@ code, for any head size.  The wrapper takes it ONLY for tensors that lie on
 the CPU; for CUDA tensors it launches a kernel or raises -- there is no
 fallback.  The library is built and loaded inside the first launching call,
 never at import time.
+
+Training goes through ``flash_attention_trainable``, a
+``torch.autograd.Function``.  Its forward is ``flash_attention_fwd``: the
+same kernels (``hd == hv`` in ``BWD_HEAD_DIMS``) built with a flag that
+also writes the row log-sum-exp of the scaled scores, float32 [B, H, S],
+counted under the forward variant's key.  Its backward is
+``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
+(``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``mma.sync`` tensor cores,
+or ``flash_attention_bwd_f32``, CUDA cores; one call launches a dQ kernel
+that also writes D = rowsum(dO * O) and then a dK / dV kernel, counted
+once), with no float atomics, so two runs are bitwise equal.  Beside it
+stands ``flash_attention_bwd_plain``, the backward written out step by step
+in float32 from the saved log-sum-exp, which CPU tensors take.  The
+reference defines no backward for its TPU kernel: it trains through its XLA
+attention (``models/layers.py`` ``flash_attention``), which the tests
+differentiate with ``jax.vjp``.
 """
 
 from __future__ import annotations
@@ -40,18 +56,26 @@ from typing import Dict, Optional, Tuple
 import torch
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 NEG_INF = -1e30
 BLOCK = 128            # the reference kernel's default q / kv block
 HEAD_DIMS = (32, 64, 128)
 TC_HEAD_DIMS = (64, 128)
+# head dims of the training path on the card (hd == hv), both dtypes
+BWD_HEAD_DIMS = TC_HEAD_DIMS
 DTYPES = (torch.float32, torch.bfloat16)
 
 TC = "flash_attention_bf16_tc"
 MMA = "flash_attention_bf16_mma"
 F32 = "flash_attention_f32"
+FWD_VARIANTS = (TC, MMA, F32)
+BWD_BF16 = "flash_attention_bwd_bf16"
+BWD_F32 = "flash_attention_bwd_f32"
+BWD_VARIANTS = (BWD_BF16, BWD_F32)
 
-# launches per variant since the last ``reset_launch_counts``
-LAUNCHES: Dict[str, int] = {TC: 0, MMA: 0, F32: 0}
+# launches per variant since the last ``reset_launch_counts`` (a forward
+# that also writes the log-sum-exp counts under its forward variant)
+LAUNCHES: Dict[str, int] = {k: 0 for k in FWD_VARIANTS + BWD_VARIANTS}
 
 # SMs of an H100 SXM: the plan's default card
 H100_SMS = 132
@@ -109,6 +133,7 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
 
 
 _bound = None
+_bwd_bound = None
 
 
 def _library():
@@ -120,16 +145,39 @@ def _library():
         from repro_torch.kernels import build
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in LAUNCHES:
+        tail = ([ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                            ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
+        for name in FWD_VARIANTS:
             fn = getattr(lib, name)
-            fn.argtypes = ([vp] * 4 + [ci] * 6
-                           + [ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
+            fn.argtypes = [vp] * 4 + tail
+            fn.restype = ci
+        for name in (TC, F32):               # the forwards with the LSE
+            fn = getattr(lib, name + "_lse")
+            fn.argtypes = [vp] * 5 + tail
             fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
+
+
+def _bwd_library():
+    """The loaded backward library with ``argtypes`` set."""
+    global _bwd_bound
+    if _bwd_bound is None:
+        from repro_torch.kernels import build
+        lib = build.load(BWD_SOURCE)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for name in BWD_VARIANTS:
+            fn = getattr(lib, name)
+            fn.argtypes = ([vp] * 10 + [ci] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
+            fn.restype = ci
+        lib.flash_attention_bwd_error_string.argtypes = [ci]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_bound = lib
+    return _bwd_bound
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -172,6 +220,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     above the diagonal) every ``p`` is exactly 0 and every correction
     exactly 1, so the update changes nothing.  GQA groups query heads over
     their kv head; K and V are never repeated."""
+    return _plain_forward(q, k, v, causal, scale)[0]
+
+
+def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, scale: Optional[float]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_plain``'s output and the row log-sum-exp of the
+    scaled scores, ``m + log(max(l, 1e-30))``, float32 [B, H, S]."""
     b, s, h, kv, hd, hv = _validate(q, k, v)
     g = h // kv
     if scale is None:
@@ -197,8 +253,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         m = m_new
         acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vj)
-    o = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hv).to(q.dtype)
+    den = torch.clamp_min(l, 1e-30)
+    o = acc / den[..., None]
+    lse = (m + torch.log(den)).reshape(b, h, s)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hv).to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of the backward kernels, written out step by
+    step in float32 from the forward's output ``o`` and log-sum-exp ``lse``
+    [B, H, S]: D = rowsum(dO * O); P = exp(scale q k^T - lse) (0 above the
+    diagonal when causal); dV = P^T dO; dP = dO V^T; dS = P * (dP - D) *
+    scale; dQ = dS K; dK = dS^T Q.  GQA sums dK and dV over each group's
+    heads.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, s, h, kv, hd, hv = _validate(q, k, v)
+    g = h // kv
+    if scale is None:
+        scale = hd ** -0.5
+    qf = q.float().reshape(b, s, kv, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, s, kv, g, hv)
+    dd = (dof * o.float().reshape(b, s, kv, g, hv)).sum(dim=-1)
+    dd = dd.permute(0, 2, 3, 1)                             # [b, kv, g, s]
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    p = torch.exp(sc - lse.float().reshape(b, kv, g, s)[..., None])
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        p = torch.where(pos[None, :] <= pos[:, None], p, 0.0)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - dd[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, s, h, hd)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kernel_ready(t: torch.Tensor) -> bool:
@@ -276,3 +369,162 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
                            f"(cudaError {code})")
     return o
+
+
+def _check_train_shape(hd: int, hv: int) -> None:
+    if hd != hv or hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"the training kernels take hd == hv in "
+                         f"{BWD_HEAD_DIMS}; got hd {hd}, hv {hv}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s output and the row log-sum-exp of the scaled
+    scores, float32 [B, H, S] (what the backward needs).  CUDA tensors
+    launch ``plan``'s variant built to write the LSE (``hd == hv`` in
+    ``BWD_HEAD_DIMS``; the tensor-core variant in bf16, the CUDA-core one in
+    float32); CPU tensors take the plain version."""
+    b, s, h, kv, hd, hv = _validate(q, k, v)
+    if scale is None:
+        scale = hd ** -0.5
+    if q.device.type == "cpu":
+        return _plain_forward(q, k, v, causal, scale)
+    _check_train_shape(hd, hv)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    p = plan_for(q, k, v)
+    o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
+    lib = _library()
+    gx, gy = p.grid
+    code = getattr(lib, p.variant + "_lse")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, s, h, kv, hd, hv, strides, float(scale),
+        int(bool(causal)), p.block_q, p.block_k, gx, gy, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[p.variant] += 1
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {p.variant}_lse ({p}) failed: "
+                           f"{msg} (cudaError {code})")
+    return o, lse
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call runs: the variant (its ``LAUNCHES`` key); the
+    dQ kernel's blocks own ``q_rows`` query rows of one (b, head) and walk
+    the visible keys ``kv_step`` at a time, grid ``grid_dq`` = (B * H,
+    q-blocks); the dK / dV kernel's blocks own ``kv_rows`` keys of one (b,
+    kv head) and walk the group's heads and the visible query rows
+    ``q_step`` at a time, grid ``grid_dkdv`` = (B * KV, kv-blocks)."""
+    variant: str
+    q_rows: int
+    kv_rows: int
+    q_step: int
+    kv_step: int
+    grid_dq: Tuple[int, int]
+    grid_dkdv: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_bwd(b: int, s: int, h: int, kv: int, hd: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """The backward's plan for q [b, s, h, hd], k, v [b, s, kv, hd] in
+    ``dtype`` (a pure function of its arguments).  bf16 on ``mma.sync``:
+    64-row blocks, the dK / dV kernel stepping 32 query rows at hd 128 (its
+    dK and dV accumulators take 128 registers there); float32 on the CUDA
+    cores: 32-row blocks."""
+    _check_train_shape(hd, hd)
+    if dtype == torch.bfloat16:
+        variant, qr, kr, qs, ks = BWD_BF16, 64, 64, 64 if hd == 64 else 32, 64
+    elif dtype == torch.float32:
+        variant, qr, kr, qs, ks = BWD_F32, 32, 32, 32, 32
+    else:
+        raise TypeError(f"no K3 backward variant for {dtype}")
+    return BwdPlan(variant, qr, kr, qs, ks, (b * h, _cdiv(s, qr)),
+                   (b * kv, _cdiv(s, kr)))
+
+
+def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of attention's output ``o`` = attention(q, k,
+    v) given its gradient ``do`` and the forward's log-sum-exp ``lse``
+    [B, H, S].  CUDA tensors launch ``plan_bwd``'s variant (``hd == hv`` in
+    ``BWD_HEAD_DIMS``) or raise; CPU tensors take
+    ``flash_attention_bwd_plain``."""
+    b, s, h, kv, hd, hv = _validate(q, k, v)
+    if scale is None:
+        scale = hd ** -0.5
+    if tuple(o.shape) != (b, s, h, hv) or tuple(do.shape) != (b, s, h, hv) \
+            or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be [B, S, H, hv] in {q.dtype}; got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)}; got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
+                                         scale=scale)
+    _check_train_shape(hd, hv)
+    p = plan_bwd(b, s, h, kv, hd, q.dtype)
+    if p.grid_dq[1] > 65535 or p.grid_dkdv[1] > 65535:
+        raise ValueError(f"S = {s} exceeds the backward kernels' grid")
+    q, k, v, o, do = (_kernel_operand(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, kv, hv), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(int(st) for t in (q, k, v, o, do, dq, dk, dv)
+          for st in t.stride()[:3]))
+    lib = _bwd_library()
+    code = getattr(lib, p.variant)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, strides,
+        float(scale), int(bool(causal)), p.q_rows, p.kv_rows, p.q_step,
+        p.kv_step, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[p.variant] += 1
+    if code != 0:
+        msg = lib.flash_attention_bwd_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
+                           f"(cudaError {code})")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with its backward: ``flash_attention_fwd`` saves q, k, v, o and
+    the log-sum-exp; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(do, q, k, v, o, lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` that autograd differentiates (``FlashAttention``)."""
+    if scale is None:
+        scale = int(q.shape[-1]) ** -0.5
+    return FlashAttention.apply(q, k, v, bool(causal), float(scale))

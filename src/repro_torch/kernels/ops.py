@@ -10,7 +10,8 @@ compaction in turn), returning the host-side ``SweepReduced``.
 hand-written kernel K2 with the reference's SAME padding, any other stride
 to the library convolution with JAX's SAME padding written out.  ``flash_attention`` is what the transformer calls for
 prefill attention: the hand-written kernel K3, in the reference's BSHD
-layout, GQA without repeating K / V.  ``ssd_scan`` is what the Mamba2
+layout, GQA without repeating K / V, differentiable (K3's backward
+kernels) where autograd records.  ``ssd_scan`` is what the Mamba2
 block calls for its chunked scan in prefill: the hand-written kernel K4,
 returning the output and the final state.  With CUDA tensors the hand-written
 kernels run (or the call raises); with CPU tensors their plain versions do
@@ -115,7 +116,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors).  Unlike the reference's ``ops.flash_attention`` nothing is
     transposed to [B*H, S, hd] and K / V are not repeated for GQA: the
     kernel reads the kv head ``h // (H // KV)`` in place.  ``scale``
-    defaults to ``hd ** -0.5``; any ``S`` works."""
+    defaults to ``hd ** -0.5``; any ``S`` works.  Where autograd records
+    (gradients on and an input that requires them) the call goes through
+    ``FlashAttention``, K3 with its hand-written backward (``hd == hv`` in
+    64, 128 on the card); otherwise -- prefill, decode -- straight to K3."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _k3.flash_attention_trainable(q, k, v, causal=causal,
+                                             scale=scale)
     return _k3.flash_attention(q, k, v, causal=causal, scale=scale)
 
 

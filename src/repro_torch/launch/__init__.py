@@ -1,1 +1,2 @@
-"""Drivers of the port run as modules (``python -m repro_torch.launch.serve``)."""
+"""Entry points of the port run as modules (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

@@ -47,9 +47,11 @@ def dense_init(generator: Optional[torch.Generator], shape: Sequence[int],
 
 
 class ParamTree(nn.Module):
-    """A nested mapping of frozen parameters as a module: ``tree["wq"]`` and
+    """A nested mapping of parameters as a module: ``tree["wq"]`` and
     ``"bias" in tree`` read like the reference's parameter dicts, and the
-    ``state_dict`` keys are the reference's paths joined by dots."""
+    ``state_dict`` keys are the reference's paths joined by dots.  The
+    parameters are made frozen, for the inference entries; a training entry
+    turns gradients on (``models.api.init_train_state``)."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -190,7 +192,8 @@ def _no_prefix(prefix_len: int) -> None:
 
 def attention_block(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                     prefix_len: int = 0) -> torch.Tensor:
-    """Full-sequence causal attention (train / prefill) through K3."""
+    """Full-sequence causal attention (train / prefill) through K3, with
+    K3's backward where autograd records (``ops.flash_attention``)."""
     return attention_prefill(p, cfg, x, positions, prefix_len)[0]
 
 
@@ -350,3 +353,15 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p_head, p_embed, x: torch.Tensor) -> torch.Tensor:
     w = p_embed["embed_w"].T if p_head is None else p_head["head_w"]
     return (x @ w).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in float32; logits [B, S, V], labels [B, S] (negative
+    = pad / ignore)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0)[..., None].long())[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -124,8 +124,10 @@ def test_cpu_tensors_never_launch():
     ops.flash_attention(qt, kt, vt)
     assert k3.launch_counts() == {"flash_attention_bf16_tc": 0,
                                   "flash_attention_bf16_mma": 0,
-                                  "flash_attention_f32": 0}
-    assert k3._bound is None
+                                  "flash_attention_f32": 0,
+                                  "flash_attention_bwd_bf16": 0,
+                                  "flash_attention_bwd_f32": 0}
+    assert k3._bound is None and k3._bwd_bound is None
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -172,12 +174,14 @@ def test_kernel_operand_copies_only_what_the_kernel_cannot_read():
 
 
 def test_cuda_source_defines_the_bound_entry_points():
-    """The wrapper binds one C entry point per ``LAUNCHES`` key; the source
-    defines each, runs wgmma fed by TMA on the tensor-core path and
-    mma.sync on the other bf16 one, names every kernel with one profiler
-    prefix per dtype, and names the TPU kernel it replaces."""
+    """The wrapper binds one C entry point per forward ``LAUNCHES`` key
+    (and the two that also write the log-sum-exp); the source defines each,
+    runs wgmma fed by TMA on the tensor-core path and mma.sync on the other
+    bf16 one, names every kernel with one profiler prefix per dtype, and
+    names the TPU kernel it replaces."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
-    for name in list(k3.LAUNCHES) + ["flash_attention_error_string"]:
+    for name in list(k3.FWD_VARIANTS) + [
+            k3.TC + "_lse", k3.F32 + "_lse", "flash_attention_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src

@@ -45,7 +45,10 @@ def test_port_has_the_expected_modules():
                  "serving/frontier_index.py", "serving/engine.py",
                  "select.py", "launch/__init__.py", "launch/serve.py",
                  "runtime/__init__.py", "runtime/fault_tolerance.py",
-                 "dse_campaign/fabric.py", "dse_campaign/chaos.py"):
+                 "dse_campaign/fabric.py", "dse_campaign/chaos.py",
+                 "optim/__init__.py", "optim/adamw.py", "optim/adafactor.py",
+                 "optim/compression.py", "checkpoint/__init__.py",
+                 "checkpoint/store.py", "launch/train.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -55,6 +58,7 @@ def test_port_has_the_expected_modules():
     assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "ssd_scan.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "flash_attention_bwd.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -97,6 +101,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.runtime, repro_torch.runtime.fault_tolerance\n"
         "import repro_torch.dse_campaign.fabric\n"
         "import repro_torch.dse_campaign.chaos\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.optim.adafactor, repro_torch.optim.compression\n"
+        "import repro_torch.checkpoint.store, repro_torch.launch.train\n"
         "repro_torch.configs.base.all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -105,6 +112,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "                                 flash_attention, ssd_scan)\n"
         "assert dse_sweep._bound is None and conv2d._bound is None\n"
         "assert flash_attention._bound is None and ssd_scan._bound is None\n"
+        "assert flash_attention._bwd_bound is None\n"
         "assert not build._libs\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
