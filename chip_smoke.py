@@ -361,11 +361,12 @@ def phase_build() -> dict:
     out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
         build.build_logs[k3.BWD_SOURCE])
     bwd = [r for r in out[k3.BWD_SOURCE]["kernels"]
-           if "flash_bwd_" in r["kernel"] and "bf16" in r["kernel"]]
+           if any(name in r["kernel"] for name in BWD_TC_KERNELS)]
     if len(bwd) != 4 or any(r["spill_stores"] or r["spill_loads"]
                             for r in bwd):
-        raise AssertionError(f"K3's bf16 backward kernels spill (or are "
-                             f"missing from the ptxas report): {bwd}")
+        raise AssertionError(f"K3's bf16 backward kernels (dQ and dK / dV "
+                             f"at hd 64 and 128) spill (or are missing "
+                             f"from the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
              if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
@@ -3692,12 +3693,21 @@ RESUME_STEPS, RESUME_EVERY, RESUME_DEPTH = 4, 2, 2
 # to bf16 for the tensor-core products, the plain version keeps float32),
 # float32 1e-4 (sums in other orders)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# (case, B, S, H, KV, d)
-BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64),
-             ("qwen3_b1_s2048", 1, 2048, 40, 8, 128))
+# (case, B, S, H, KV, d, causal, dtypes): the two model shapes in both
+# dtypes; a ragged S and a non-causal GQA call in bf16, which the model
+# shapes do not reach
+BF16_ONLY = (torch.bfloat16,)
+BOTH_DTYPES = (torch.bfloat16, torch.float32)
+BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
+             ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, True, BOTH_DTYPES),
+             ("ragged_b2_s1000", 2, 1000, 4, 4, 64, True, BF16_ONLY),
+             ("noncausal_b1_s512_gqa", 1, 512, 8, 2, 128, False, BF16_ONLY))
 BWD_HEADLINE = "stablelm_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
+# the bf16 backward's two kernels (ptxas must report no spills for them)
+BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
+                  "flash_bwd_dkdv_bf16_tc_kernel")
 
 
 def flash_bwd_bound(b, s, h, kv, d, causal, dtype) -> dict:
@@ -3985,35 +3995,39 @@ def train_resume(device, seed: int) -> dict:
 
 
 def bwd_case(gen, device, case, dtype) -> dict:
-    """(d) K3's backward against flash_attention_bwd_plain on one model
-    shape, from the forward kernel's own o and log-sum-exp; twice, bitwise;
-    timed beside the plain version, SDPA's backward and the bound."""
-    name, b, s, h, kv, d = case
+    """(d) K3's backward against flash_attention_bwd_plain on one shape,
+    from the forward kernel's own o and log-sum-exp; twice, bitwise; the
+    call, the dQ kernel alone and the dK / dV kernel alone timed beside the
+    plain version, SDPA's backward and the bound."""
+    name, b, s, h, kv, d, causal = case[:7]
     q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
     k = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
     v = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
     do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
-    o, lse = k3.flash_attention_fwd(q, k, v)
+    o, lse = k3.flash_attention_fwd(q, k, v, causal=causal)
     # the forward's log-sum-exp (what the backward recomputes P from)
     # against the plain forward's, within 1e-5 of its scale
-    lse_plain = k3._plain_forward(q, k, v, True, None)[1]
+    lse_plain = k3._plain_forward(q, k, v, causal, None)[1]
     lse_err = float((lse - lse_plain).abs().max())
     if lse_err > 1e-5 * float(lse_plain.abs().max()) or \
-            not torch.equal(o, k3.flash_attention(q, k, v)):
+            not torch.equal(o, k3.flash_attention(q, k, v, causal=causal)):
         raise AssertionError(f"K3 forward with the LSE {name} {dtype}: "
                              f"lse max |diff| {lse_err}, or o differs from "
                              f"the prefill kernel's")
     del lse_plain
-    plan = k3.plan_bwd(b, s, h, kv, d, dtype)
+    plan = k3.plan_bwd(b, s, h, kv, d, dtype, causal,
+                       torch.cuda.get_device_properties(device)
+                       .multi_processor_count)
     if plan.variant != BWD_MAIN[dtype]:
         raise AssertionError(f"K3 backward {name} {dtype} planned "
                              f"{plan.variant}")
+    scale = d ** -0.5
 
     def run():
-        return k3.flash_attention_bwd(do, q, k, v, o, lse)
+        return k3.flash_attention_bwd(do, q, k, v, o, lse, causal=causal)
 
     g1, g2 = run(), run()
-    gp = k3.flash_attention_bwd_plain(do, q, k, v, o, lse)
+    gp = k3.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
         raise AssertionError(f"K3 backward {name} {dtype}: two runs differ")
@@ -4031,19 +4045,34 @@ def bwd_case(gen, device, case, dtype) -> dict:
         errs.append(err)
         rels.append(rel)
     del gp
-    bd = flash_bwd_bound(b, s, h, kv, d, True, dtype)
+    # each kernel alone: the dK / dV kernel reads the scratch the last
+    # full call wrote
+    scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
+                            k3.BWD_BOTH)[3]
+    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
     lib_o = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True)
+        qs, ks, vs, is_causal=causal, enable_gqa=True)
     do_t = do.transpose(1, 2)
+    summary = {key: val for key, val in dataclasses.asdict(plan).items()
+               if not key.startswith("schedule")}
+    if plan.schedule_dq:
+        summary["items_a_block"] = {
+            kern: [min(map(len, sched)), max(map(len, sched))]
+            for kern, sched in (("dq", plan.schedule_dq),
+                                ("dkdv", plan.schedule_dkdv))}
     row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": d,
-           "dtype": SUFFIX[dtype], "plan": dataclasses.asdict(plan),
+           "causal": causal, "dtype": SUFFIX[dtype], "plan": summary,
            "max_abs_err": max(errs), "rel_err_dq_dk_dv": rels,
            "lse_max_abs_err": lse_err,
            "ms": time_ms(run, 10),
+           "dq_ms": time_ms(lambda: k3.bwd_launch(
+               do, q, k, v, o, lse, causal, scale, k3.BWD_DQ), 10),
+           "dkdv_ms": time_ms(lambda: k3.bwd_launch(
+               do, q, k, v, o, lse, causal, scale, k3.BWD_DKDV, scratch), 10),
            "plain_ms": time_ms(lambda: k3.flash_attention_bwd_plain(
-               do, q, k, v, o, lse), 1, warmup=1),
+               do, q, k, v, o, lse, causal=causal), 1, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
            "library_ms": time_ms(lambda: torch.autograd.grad(
                lib_o, (qs, ks, vs), do_t, retain_graph=True), 10)}
@@ -4063,8 +4092,8 @@ def phase_training(device, seed: int) -> dict:
     out["c_resume"] = train_resume(device, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     out["d_k3_backward"] = [bwd_case(gen, device, case, dtype)
-                            for dtype in (torch.bfloat16, torch.float32)
-                            for case in BWD_CASES]
+                            for dtype in BOTH_DTYPES
+                            for case in BWD_CASES if dtype in case[7]]
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     emit({"phase": "training", **out,
@@ -4074,7 +4103,10 @@ def phase_training(device, seed: int) -> dict:
           "timing_note": "d: ms / library_ms CUDA events around back-to-back "
                          "calls after warm-up (library = SDPA's backward, "
                          "torch.autograd.grad of F.scaled_dot_product_"
-                         "attention at the same shape, timed only); "
+                         "attention at the same shape, timed only); dq_ms / "
+                         "dkdv_ms: the same around each kernel alone "
+                         "(k3.bwd_launch with one part; the dK / dV kernel "
+                         "reads the scratch of a full call); "
                          "device_ms: the backward's two kernels "
                          "(torch.profiler); bound = max(bytes of q, k, v, o, "
                          "do, lse, dq, dk, dv / 3.35 TB/s, 2 B H pairs 5 d / "
@@ -4107,12 +4139,14 @@ def bwd_rows(training, ptxas) -> list:
             "plan": head["plan"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "device_ms": head["device_ms"],
+            "device_ms": head["device_ms"], "dq_ms": head["dq_ms"],
+            "dkdv_ms": head["dkdv_ms"],
             "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "H", "KV", "hd", "ms", "device_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
+                "case", "B", "S", "H", "KV", "hd", "causal", "ms",
+                "dq_ms", "dkdv_ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err",
+                "rel_err_dq_dk_dv")} for r in cases],
             "ptxas": [r for r in ptxas if "flash_bwd_" in r["kernel"]
                       and ("bf16" if dtype == torch.bfloat16 else "f32")
                       in r["kernel"]]})

@@ -5,12 +5,13 @@
 //        -shared -Xcompiler -fPIC -Xptxas -v
 // into a shared library with a plain C interface (loaded with ctypes; no
 // PyTorch headers), with FMA contraction and without --use_fast_math (the
-// kernels are held to their plain version by a tolerance; expf and exp2f
-// keep their accurate forms).  Every entry point takes raw device pointers,
-// element strides, the launch plan and the caller's CUDA stream, launches
-// on that stream, does not synchronise, allocates nothing, and returns a
-// CUDA error code: cudaErrorInvalidValue for a plan or shape it refuses,
-// else cudaGetLastError().
+// kernels are held to their plain version by a tolerance; the float32
+// kernels' expf keeps its accurate form, the bf16 kernels' ex2.approx is as
+// accurate as exp2f, 2 ulp, but flushes results below 2^-126).  Every entry
+// point takes raw device pointers, element strides, the launch plan and the
+// caller's CUDA stream, launches on that stream, does not synchronise,
+// allocates nothing, and returns a CUDA error code: cudaErrorInvalidValue
+// for a plan, shape or tensor map it refuses, else cudaGetLastError().
 //
 // ---------------------------------------------------------------------------
 // K3 backward   the gradient of the TPU kernel
@@ -30,36 +31,75 @@
 //     dK_j  = sum_{h in group} sum_i dS_ij q_i
 //   out: dq [B, S, H, D], dk, dv [B, S, KV, D] in the input type.
 //
-//   Bound on an H100: operations.  Per (b, h) the backward does five
+//   Bound on an H100: operations.  Per (b, h) the backward needs five
 //   products over the causally visible pairs -- S again, dP, dV, dQ, dK --
 //   2 * pairs * 5 * D flops, 2.5 times the forward's: at stablelm-1.6b's
 //   B=1, S=4096, H=32, D=64 that is 171.8 GFLOP on ~50 MB, far above the
-//   card's ridge point.
+//   card's ridge point (0.174 ms at 989 TFLOP/s).  The only way to the
+//   tensor cores' full rate is wgmma fed by loads that cost the multiplying
+//   threads nothing, and at D = 64 the exponentials (one per pair, on the
+//   SFU) weigh nearly as much as the products.
 //
-//   Design (a first, simple version; making it fast is later work): two
-//   launches a call, no float atomics, so two runs are bitwise equal.
-//   1. dQ: one block per (b * H + h, 64-row q block), the heaviest causal
-//      q blocks first.  It first computes D of its rows from o and do and
-//      writes it to a float32 [B, H, S] scratch, then walks the visible kv
-//      tiles: S = Q K^T and dP = dO V^T for its rows, P from lse, dS, and
-//      dQ += dS K, kept in registers until the end.
-//   2. dK / dV: one block per (b * KV + kvh, 64-key block).  It walks the
-//      G query heads of its group and, for each, the q tiles that see its
-//      keys (all of them when not causal): S^T = K Q^T and dP^T = V dO^T
-//      for its keys, P^T from lse, dS^T from D (written by launch 1), dV
-//      += P^T dO, dK += dS^T Q, all in registers, so the group's heads are
-//      summed without atomics.
+//   Two passes, no float atomics, so two runs are bitwise equal: a dQ
+//   kernel (which also writes D and lse * log2(e) to a float32 scratch),
+//   then a dK / dV kernel.  Each pass recomputes S and dP, so the call does
+//   seven products where five are needed (floor 0.243 ms at stablelm), but
+//   every product takes its A operand from shared memory or from registers
+//   (the C fragment of one m64 product is the A fragment of the next, so P
+//   and dS never touch shared memory), and GQA's sums over a group's heads
+//   stay inside one block.  The fused alternative -- one pass over key
+//   blocks that also writes float32 dQ partials per key block, summed in
+//   a second, deterministic pass -- writes and reads back 67,584 rows x 32
+//   heads x 64 x 4 B = 554 MB at stablelm (~0.33 ms of HBM), more than the
+//   two products it saves; adding dQ with float atomics instead would break
+//   the bitwise equality of two runs that training's resume relies on.
 //
-//   flash_bwd_dq_bf16_kernel<D, BK>, flash_bwd_dkdv_bf16_kernel<D, BQ>
-//     bf16, D in {64, 128}: mma.sync.aligned.m16n8k16 from ldmatrix
-//     fragments, four warps a block, each owning 16 rows (dQ) or 16 keys
-//     (dK / dV); the tile it walks double-buffered by 16-byte cp.async in
-//     row-padded shared memory.  A C fragment pair of an m16n8 product is
-//     the A fragment of the next product (P and dS are rounded to bf16 in
-//     registers and never touch shared memory); the same row-major tile of
-//     Q, K or dO gives B fragments both ways (ldmatrix, ldmatrix.trans).
-//     The dK / dV kernel steps 32 query rows at D = 128 (BQ), so that its
-//     four accumulators stay in registers.
+//   The launch plan -- tiles, ring depths, the persistent grids and the
+//   schedule of work items over their blocks -- is made in Python
+//   (repro_torch/kernels/flash_attention.py, plan_bwd()).  The entry points
+//   check that a plan fits the shape and obey it; they choose nothing.
+//
+//   flash_bwd_dq_bf16_tc_kernel<D>, flash_bwd_dkdv_bf16_tc_kernel<D>   bf16,
+//     D in {64, 128}, K3's forward (flash_attention.cu,
+//     flash_bf16_tc_kernel) with its roles turned around.  Persistent: one
+//     384-thread block an SM walks the work items the plan's schedule gives
+//     it (a list per block, heaviest first, longest-processing-time
+//     assignment, so the causal grid's 32:1 spread of work evens out).
+//     Warpgroup 0 loads: it drops to 24 registers (setmaxnreg) and one of
+//     its threads issues every TMA copy, over 4-D tensor maps (hd, heads,
+//     S, B) of q, do, k, v as they lie, 64-column boxes in the 128-byte
+//     swizzle; TMA's zero fill covers rows and keys past S.  Warpgroups 1
+//     and 2 rise to 240 registers; each owns 64 rows (dQ) or 64 keys (dK /
+//     dV) of the item and they take turns to issue their products (named
+//     barriers 1 and 2), so one's exponentials run under the other's
+//     products.
+//     dQ: an item is 128 query rows of one (b, h).  Their Q and dO tiles
+//       (two slots, so the next item's load under this one) stay while K
+//       and V tiles (128 keys at D = 64, 64 at D = 128, so that S, dP and
+//       dQ fit the registers) stream through a ring of full / empty
+//       mbarriers, from the diagonal down.  Per kv tile, S = Q K^T and
+//       dP = dO V^T by wgmma.m64nNk16 from shared memory (K and V as
+//       stored are K-major B operands), P = 2^(S scale log2 e - lse log2 e)
+//       and dS / scale = P (dP - D) on the fragments, masked by selects
+//       only on tiles that hold the diagonal or keys past S; dQ / scale +=
+//       (dS / scale) K by wgmma with dS rounded to bf16 in registers and K
+//       as an MN-major B (imm-trans-b = 1); the scale multiplies dQ once,
+//       at the store (dK likewise).  The products of tile j issue
+//       together with dQ of tile j - 1, so P and dS of one tile run under
+//       the other's products.  D of the item's rows comes from o and do in
+//       device memory before the loop.
+//     dK / dV: an item is 128 keys of one (b, kv head): its K and V tiles
+//       (two slots) stay while the group's G heads' Q and dO tiles of 64
+//       query rows, with their lse * log2 e and D (a bulk copy from the dQ
+//       kernel's scratch, padded to whole 128-row tiles so every copy is
+//       aligned), stream through the ring, each head from the first q tile
+//       that sees the item's keys.  S^T = K Q^T and dP^T = V dO^T from
+//       shared memory, P^T and dS^T on the fragments (lse and D are per
+//       column here: read from shared memory), dV += P^T dO and dK +=
+//       dS^T Q with A from registers and dO, Q as MN-major B.  At D = 64
+//       the products of q tile i issue together with dV and dK of tile
+//       i - 1 (at D = 128 the registers do not hold both).  dK and dV stay
+//       in registers across the group's heads and are stored once.
 //   flash_bwd_dq_f32_kernel<D>, flash_bwd_dkdv_f32_kernel<D>   float32 on
 //     the CUDA cores (the reference's float32 attention is IEEE float32):
 //     256 threads a 32-row block; thread (r, c) = (t / 8, t % 8) computes
@@ -68,6 +108,8 @@
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -89,11 +131,18 @@ struct Params {
   const void* o;
   const void* dout;
   const float* lse;  // [B, H, S]
-  float* dd;         // [B, H, S]: D, written by the dQ kernel
+  // float32: D [B, H, S], written by the dQ kernel.  bf16: D [B * H,
+  // s_pad] and lse2 = lse * log2(e) [B * H, s_pad], written by the dQ
+  // kernel (0 on the rows past S)
+  float* dd;
+  float* lse2;
   void* dq;
   void* dk;
   void* dv;
   int S, H, KV;
+  int s_pad;             // bf16: S rounded up to whole 128-row tiles
+  const int* sched_dq;   // bf16: each kernel's schedule, offsets [blocks +
+  const int* sched_kv;   //   1] then items (flash_attention_bwd_bf16)
   int64_t st[3 * kTensors];
   float scale;
   int causal;
@@ -111,365 +160,896 @@ __device__ __forceinline__ int64_t row_stride(const Params& p) {
   return p.st[3 * T + 1];
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and each lane receives (row lane/4, columns 2(lane%4), +1) of each: the
-// mma.sync fragment layout
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+// --- bf16, wgmma ----------------------------------------------------------------
+
+// 2^x by the SFU (ex2.approx: 2 ulp, as exp2f's; results below 2^-126
+// flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
                : "memory");
 }
 
-// the same, each matrix transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
+// `bytes` (a multiple of 16) global -> shared by the bulk-copy engine,
+// completing on `bar` like a TMA load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
-// d += a (16x16, row-major fragment) * b (16x8, column-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// named barriers for the consumers' turns (0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// C[64 x 64] (=|+)= A[64 x 16] (K-major, descriptor da) * B[64 x 16]^T
+// (K-major, descriptor db); scale_d = 0 overwrites C
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// the A fragment of k-step j from the C fragments of n-tiles 2j and 2j + 1
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+// C[64 x 64] += A[64 x 16] (registers: the m16n8k16 A fragment of each
+// warp's 16 rows) * B[16 x 64] (MN-major, descriptor db, imm-trans-b = 1)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// --- bf16, mma.sync ------------------------------------------------------------
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16 * kWarps;  // rows (dQ) or keys (dK / dV) a block
-constexpr int kPad = 8;             // bf16 elements of row padding (16 bytes)
-
-// rows [r0, r0 + ROWS) of a [S, D] bf16 view with row stride `st` into a
-// [ROWS][D + kPad] shared tile by 16-byte cp.async; rows past S zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t st, int r0, int S) {
-  constexpr int LD = D + kPad;
-  for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    const bool ok = r0 + r < S;
-    cp_async16(smem_u32(dst + r * LD + c * 8),
-               ok ? src + (int64_t)(r0 + r) * st + c * 8 : src, ok);
-  }
+// C[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// acc[16 x N] (=|+)= A[16 rows of the warp] . B[N rows]^T over D: A and B
-// both row-major [rows][D + kPad] tiles in shared memory (A's rows at
-// a_rows, the warp's 16)
-template <int D, int N>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[N / 8][4],
-                                              const bf16* a_rows,
-                                              const bf16* b) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + (np * 16 + (mi >> 1) * 8 + mr) * LD + kk * 16 +
-                          (mi & 1) * 8);
-      mma_bf16(acc[2 * np], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16 x D] += X[16 x N] (C fragments, rounded to bf16) . T[N x D] (a
-// row-major [N][D + kPad] tile in shared memory)
-template <int D, int N>
-__device__ __forceinline__ void frag_times_tile(float (&acc)[D / 8][4],
-                                                const float (&x)[N / 8][4],
-                                                const bf16* t) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    uint32_t a[4];
-    c_to_a(a, x[2 * j], x[2 * j + 1]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, t + (j * 16 + (mi & 1) * 8 + mr) * LD + dp * 16 +
-                                (mi >> 1) * 8);
-      mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// rows rlo, rlo + 8 of a 16-row accumulator into a bf16 [S, D] view
+// acc[64 x D] += A (registers) * B[16 x D] (MN-major)
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, int64_t st,
-                                           const float (&acc)[D / 8][4],
-                                           int rlo, int S) {
-  const int t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = rlo + 8 * i;
-    if (row >= S) continue;
-    bf16* out = dst + (int64_t)row * st;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8 + t4 * 2) =
-          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
-  }
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n64k16(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128k16(d, a, db);
 }
 
-template <int D, int BK>
+// S[64 x 128] (=|+)= A[64 x 16] (K-major) * B[128 x 16]^T (K-major)
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C[64 x N] (=|+)= A (K-major) * B^T (K-major), N keys or query rows
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n64k16(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_m64n128k16(d, da, db, scale_d);
+}
+
+constexpr int kThreads = 384;       // loader warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kRows = 128;          // dQ: query rows an item; dK / dV: keys
+constexpr int kStep = 64;           // dK / dV: query rows a q tile
+constexpr int kBoxBig = kRows * 128;   // a 64-column box of a 128-row tile
+constexpr int kBoxStep = kStep * 128;  // of a 64-row tile
+// kRows == 2 kStep keeps every q tile of the dK / dV ring on a 128-row
+// boundary of the items: the scratch's padding, the causal first q tile
+static_assert(kRows == 2 * kStep, "tile sizes");
+
+// the dQ kernel's kv tile: 128 keys at D = 64 (S and dP take 64 + 64
+// registers a thread beside dQ's 32), 64 at D = 128 (dQ takes 64)
+template <int D>
+__host__ __device__ constexpr int dq_step() {
+  return D == 64 ? 128 : 64;
+}
+// ring slots of each kernel (the budget of 227 KB decides)
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D == 64 ? 4 : 3;
+}
+template <int D>
+__host__ __device__ constexpr int dkdv_stages() {
+  return D == 64 ? 4 : 3;
+}
+
+// shared memory: 1 KiB to align the base to the swizzle's 1024-byte period,
+// two item slots of Q and dO, the ring of K and V tiles, the barriers
+template <int D>
 constexpr int dq_smem_bytes() {
-  return (2 * kRows + 4 * BK) * (D + kPad) * 2;
+  return 1024 + 2 * 2 * (D / 64) * kBoxBig +
+         dq_stages<D>() * 2 * (D / 64) * dq_step<D>() * 128 +
+         (4 + 4 * dq_stages<D>()) * 8;
+}
+// two item slots of K and V; the ring of Q and dO tiles with their 64 lse2
+// and D values; the barriers
+template <int D>
+constexpr int dkdv_smem_bytes() {
+  return 1024 + 2 * 2 * (D / 64) * kBoxBig +
+         dkdv_stages<D>() * (2 * (D / 64) * kBoxStep + 2 * kStep * 4) +
+         (4 + 2 * dkdv_stages<D>()) * 8;
+}
+static_assert(dq_smem_bytes<64>() <= 232448 && dq_smem_bytes<128>() <= 232448,
+              "a block's shared memory is 227 KB");
+static_assert(dkdv_smem_bytes<64>() <= 232448 &&
+                  dkdv_smem_bytes<128>() <= 232448,
+              "a block's shared memory is 227 KB");
+
+// accumulator fragment of a warpgroup's m64 product: thread t holds rows
+// 16 (t / 32) + (t % 32) / 4 and + 8, columns 8 n + 2 (t % 4) + {0, 1} in
+// [4 n + {0, 1}] and [4 n + {2, 3}].  The C fragments of column groups 2 j
+// and 2 j + 1 are the A fragment of k-step j of the next product.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float* c) {
+  a[0] = pack_bf16(c[0], c[1]);
+  a[1] = pack_bf16(c[2], c[3]);
+  a[2] = pack_bf16(c[4], c[5]);
+  a[3] = pack_bf16(c[6], c[7]);
 }
 
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const Params p) {
-  static_assert(D % 16 == 0 && BK % 16 == 0, "mma / ldmatrix tile shapes");
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][LD]
-  bf16* dOs = Qs + kRows * LD;                    // [kRows][LD]
-  bf16* Ks = dOs + kRows * LD;                    // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;                    // [2][BK][LD]
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const Params p) {
+  static_assert(D == 64 || D == 128, "head dims of the wgmma kernels");
+  constexpr int BN = dq_step<D>();
+  constexpr int stages = dq_stages<D>();
+  constexpr int kBoxK = BN * 128;             // a 64-column box of K or V
+  constexpr int kTileQ = (D / 64) * kBoxBig;  // Q or dO of an item
+  constexpr int kTileK = (D / 64) * kBoxK;    // a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                   // [2][kTileQ]
+  uint8_t* sdO = sQ + 2 * kTileQ;       // [2][kTileQ]
+  uint8_t* sK = sdO + 2 * kTileQ;       // [stages][kTileK]
+  uint8_t* sV = sK + stages * kTileK;   // [stages][kTileK]
+  uint64_t* t_full = reinterpret_cast<uint64_t*>(sV + stages * kTileK);
+  uint64_t* t_empty = t_full + 2;
+  uint64_t* k_full = t_empty + 2;
+  uint64_t* k_empty = k_full + stages;
+  uint64_t* v_full = k_empty + stages;
+  uint64_t* v_empty = v_full + stages;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.x;
-  const int qb = p.causal ? (int)gridDim.y - 1 - (int)blockIdx.y
-                          : (int)blockIdx.y;  // heaviest first
-  const int q0 = qb * kRows;
-  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
-  const bf16* qp = base<const bf16, kQ>(p, p.q, b, h);
-  const bf16* kp = base<const bf16, kK>(p, p.k, b, kvh);
-  const bf16* vp = base<const bf16, kV>(p, p.v, b, kvh);
-  const bf16* op = base<const bf16, kO>(p, p.o, b, h);
-  const bf16* dop = base<const bf16, kDO>(p, p.dout, b, h);
-  bf16* dqp = base<bf16, kDQ>(p, p.dq, b, h);
-
-  load_tile<D, kRows>(Qs, qp, row_stride<kQ>(p), q0, p.S);
-  load_tile<D, kRows>(dOs, dop, row_stride<kDO>(p), q0, p.S);
-  load_tile<D, BK>(Ks, kp, row_stride<kK>(p), 0, p.S);
-  load_tile<D, BK>(Vs, vp, row_stride<kV>(p), 0, p.S);
-  cp_async_commit();
-
-  // D of this warp's 16 rows from o and do: lane l sums columns l, l + 32,
-  // ... of a row, a butterfly finishes it; lane r < 16 keeps row r's
-  float d_mine = 0.0f;
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    float acc = 0.0f;
-    if (row < p.S) {
-      const bf16* orow = op + (int64_t)row * row_stride<kO>(p);
-      const bf16* drow = dop + (int64_t)row * row_stride<kDO>(p);
-      for (int c = lane; c < D; c += 32)
-        acc += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&t_full[i], 1);  // the loader's expect_tx
+      mbar_init(&t_empty[i], kConsumerWarps);  // one lane per warp
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == r) d_mine = acc;
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&k_empty[st], kConsumerWarps);
+      mbar_init(&v_empty[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int64_t lrow = (int64_t)bh * p.S;
-  if (lane < 16 && q0 + warp * 16 + lane < p.S)
-    p.dd[lrow + q0 + warp * 16 + lane] = d_mine;
-  const int rlo = q0 + warp * 16 + g, rhi = rlo + 8;  // this thread's rows
-  const float d_lo = __shfl_sync(0xffffffffu, d_mine, g);
-  const float d_hi = __shfl_sync(0xffffffffu, d_mine, g + 8);
-  const float l2_lo = rlo < p.S ? p.lse[lrow + rlo] * kLog2e : 0.0f;
-  const float l2_hi = rhi < p.S ? p.lse[lrow + rhi] * kLog2e : 0.0f;
-  const float sl2 = p.scale * kLog2e;
+  __syncthreads();
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-  const int kv_end = p.causal ? min(q0 + kRows, p.S) : p.S;
-  const int n_kv = (kv_end + BK - 1) / BK;
+  // this block's items: (b * H + h) * nq + q-block, heaviest first
+  const int nq = (p.S + kRows - 1) / kRows;
+  const int first = p.sched_dq[blockIdx.x];
+  const int n_mine = p.sched_dq[blockIdx.x + 1] - first;
+  const int* items = p.sched_dq + gridDim.x + 1 + first;
+  auto kv_tiles = [&](int qb) {
+    const int kv_end = p.causal ? min((qb + 1) * kRows, p.S) : p.S;
+    return (kv_end + BN - 1) / BN;
+  };
 
-  for (int kb = 0; kb < n_kv; ++kb) {
-    // the next tile is in flight while this one is multiplied out
-    if (kb + 1 < n_kv) {
-      load_tile<D, BK>(Ks + ((kb + 1) & 1) * BK * LD, kp, row_stride<kK>(p),
-                       (kb + 1) * BK, p.S);
-      load_tile<D, BK>(Vs + ((kb + 1) & 1) * BK * LD, vp, row_stride<kV>(p),
-                       (kb + 1) * BK, p.S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid < 128) {
+    // ---- loader: one thread issues every copy; the K / V ring runs on
+    // across this block's items ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_do);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      int ring = 0;
+      for (int j = 0; j < n_mine; ++j) {
+        const int item = items[j];
+        const int bh = item / nq, qb = item % nq;
+        const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+        const int n_kv = kv_tiles(qb);
+        const int slot = j & 1;
+        mbar_wait(&t_empty[slot], ((j >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&t_full[slot], 2 * kTileQ);
+#pragma unroll
+        for (int cc = 0; cc < D / 64; ++cc) {
+          tma_load_4d(sQ + slot * kTileQ + cc * kBoxBig, &tm_q, &t_full[slot],
+                      64 * cc, h, qb * kRows, b);
+          tma_load_4d(sdO + slot * kTileQ + cc * kBoxBig, &tm_do,
+                      &t_full[slot], 64 * cc, h, qb * kRows, b);
+        }
+        for (int it = 0; it < n_kv; ++it, ++ring) {
+          const int st = ring % stages;
+          const uint32_t free_parity = ((ring / stages) & 1) ^ 1;
+          const int k0 = (n_kv - 1 - it) * BN;  // from the diagonal down
+          mbar_wait(&k_empty[st], free_parity);
+          mbar_arrive_expect_tx(&k_full[st], kTileK);
+#pragma unroll
+          for (int cc = 0; cc < D / 64; ++cc)
+            tma_load_4d(sK + st * kTileK + cc * kBoxK, &tm_k, &k_full[st],
+                        64 * cc, kvh, k0, b);
+          mbar_wait(&v_empty[st], free_parity);
+          mbar_arrive_expect_tx(&v_full[st], kTileK);
+#pragma unroll
+          for (int cc = 0; cc < D / 64; ++cc)
+            tma_load_4d(sV + st * kTileK + cc * kBoxK, &tm_v, &v_full[st],
+                        64 * cc, kvh, k0, b);
+        }
+      }
     }
-    __syncthreads();
-    const bf16* Kb = Ks + (kb & 1) * BK * LD;
-    const bf16* Vb = Vs + (kb & 1) * BK * LD;
-    const int k0 = kb * BK;
+    return;
+  }
 
-    float s[BK / 8][4], dp[BK / 8][4];
-    rows_dot_rows<D, BK>(s, Qs + warp * 16 * LD, Kb);
-    rows_dot_rows<D, BK>(dp, dOs + warp * 16 * LD, Vb);
+  // ---- consumers: warpgroup cw owns rows [q0 + 64 cw, q0 + 64 cw + 64) of
+  // each item ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = tid / 128 - 1;
+  const int t = tid & 127, lane = t & 31, t4 = lane & 3;
+  const int frag_row = (t >> 5) * 16 + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const int seq = p.S;
+  const bool causal = p.causal;
 
-    // P from lse (0 past the diagonal and past S), dS = P (dP - D) scale,
-    // kept in s
-    const bool masked = (k0 + BK > p.S) || (p.causal && k0 + BK - 1 > q0);
+  float dq[D / 2];                 // dQ / scale
+  float s[BN / 2], dp[BN / 2];     // S then dS / scale; dP
+  uint32_t da[BN / 16][4];         // dS / scale in bf16: A fragments of dS K
+  float dsum[2], l2[2];            // D and lse * log2 e of the 2 rows
+  int row0 = 0, row_lo = 0;
+  uint32_t q_addr = 0, do_addr = 0;
+
+  // S = Q K^T and dP = dO V^T of ring slot st, 64 rows x BN keys, D / 16
+  // steps of 16 (two boxes at D = 128): K-major, 8-row groups 1 KB apart,
+  // the step's 16 columns at +32 bytes inside the swizzled row.  One
+  // commit group, not waited for.
+  auto issue_sdp = [&](int st) {
+    const uint32_t k_addr = smem_u32(sK + st * kTileK);
+    const uint32_t v_addr = smem_u32(sV + st * kTileK);
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(
+          s, smem_desc(q_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
+          smem_desc(k_addr + (kk / 4) * kBoxK + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(
+          dp,
+          smem_desc(do_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
+          smem_desc(v_addr + (kk / 4) * kBoxK + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+  };
+  // dQ += dS K of slot st: K MN-major, key step j at +2 KB, the two 64-wide
+  // column boxes of D = 128 one box apart (LBO).  One commit group.
+  auto issue_dq = [&](int st) {
+    const uint32_t k_addr = smem_u32(sK + st * kTileK);
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+      wgmma_rs<D>(dq, da[j], smem_desc(k_addr + j * 2048, kBoxK, 1024));
+    wgmma_commit();
+  };
+  // P and dS / scale of kv tile kt (keys [kt BN, kt BN + BN)) in s, from S
+  // in s and dP; on a tile with the diagonal or keys past S masked by
+  // selects (keys past S must go: TMA zero-filled their K and V, so P
+  // there is 2^-lse2, which can overflow)
+  auto ds_tile = [&](int k0, auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool hi = e >> 1;
-        float pe = exp2f(fmaf(s[n][e], sl2, -(hi ? l2_hi : l2_lo)));
-        if (masked) {
-          const int row = hi ? rhi : rlo;
+        const int i = e >> 1;
+        float pe = fast_exp2(fmaf(s[4 * n + e], sl2, -l2[i]));
+        if constexpr (kMasked) {
+          const int row = row0 + 8 * i;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          if (key >= p.S || (p.causal && key > row)) pe = 0.0f;
+          pe = (key >= seq || (causal && key > row)) ? 0.0f : pe;
         }
-        s[n][e] = pe * (dp[n][e] - (hi ? d_hi : d_lo)) * p.scale;
+        s[4 * n + e] = pe * (dp[4 * n + e] - dsum[i]);
       }
-    frag_times_tile<D, BK>(dq, s, Kb);   // dQ += dS K
-    __syncthreads();  // every warp is done with this buffer before refill
+  };
+  auto ds_of = [&](int kt) {
+    const int k0 = kt * BN;
+    if (k0 + BN > seq || (causal && k0 + BN - 1 > row_lo))
+      ds_tile(k0, std::true_type());
+    else
+      ds_tile(k0, std::false_type());
+  };
+  auto pack_ds = [&]() {
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) c_to_a(da[j], s + 8 * j);
+  };
+  auto fence_da = [&]() {
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) fence_frag(da[j]);
+  };
+
+  // The two consumer warpgroups take turns to issue (named barriers 1 and
+  // 2, 256 threads: one warpgroup syncs, the other arrives).  Each issues
+  // n_kv + 1 times an item; warpgroup 1 opens warpgroup 0's first turn and
+  // gives no turn after its very last.
+  const int my_turn = 1 + cw, their_turn = 2 - cw;
+  if (cw == 1) bar_arrive(1, 256);
+
+  int ring = 0;  // the K / V slot sequence, as the loader's
+  for (int j = 0; j < n_mine; ++j) {
+    const int item = items[j];
+    const int bh = item / nq, qb = item % nq;
+    const int b = bh / p.H, h = bh % p.H;
+    const int n_kv = kv_tiles(qb);
+    const int slot = j & 1;
+    row_lo = qb * kRows + cw * 64;
+    row0 = row_lo + frag_row;
+    q_addr = smem_u32(sQ + slot * kTileQ) + cw * 64 * 128;
+    do_addr = smem_u32(sdO + slot * kTileQ) + cw * 64 * 128;
+
+    // D = rowsum(dO o O) and lse of this thread's two rows: the quad's four
+    // threads take D / 4 columns each; written to the scratch for the dK /
+    // dV kernel, zeros on the rows past S
+    const bf16* op = base<const bf16, kO>(p, p.o, b, h);
+    const bf16* dop = base<const bf16, kDO>(p, p.dout, b, h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      float acc = 0.0f;
+      if (row < seq) {
+        const uint4* orow = reinterpret_cast<const uint4*>(
+            op + row * row_stride<kO>(p) + t4 * (D / 4));
+        const uint4* drow = reinterpret_cast<const uint4*>(
+            dop + row * row_stride<kDO>(p) + t4 * (D / 4));
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c) {
+          const uint4 a = orow[c], d = drow[c];
+          const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+          const uint32_t dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 af = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+            const float2 df = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&dv[e]));
+            acc = fmaf(af.x, df.x, acc);
+            acc = fmaf(af.y, df.y, acc);
+          }
+        }
+      }
+      dsum[i] = quad_sum(acc);
+      l2[i] = row < seq ? p.lse[(int64_t)bh * seq + row] * kLog2e : 0.0f;
+      if (t4 == 0) {
+        const int64_t at = (int64_t)bh * p.s_pad + row;
+        p.dd[at] = dsum[i];
+        p.lse2[at] = l2[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    const bool last_item = j + 1 == n_mine;
+
+    // kv tile 0 (the diagonal one under causal): S and dP, then dS
+    mbar_wait(&t_full[slot], (j >> 1) & 1);
+    {
+      const int st = ring % stages;
+      mbar_wait(&k_full[st], (ring / stages) & 1);
+      mbar_wait(&v_full[st], (ring / stages) & 1);
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_sdp(st);
+      bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      if (lane == 0) {
+        mbar_arrive(&v_empty[st]);
+        if (n_kv == 1) mbar_arrive(&t_empty[slot]);  // Q, dO done
+      }
+      ds_of(n_kv - 1);
+      pack_ds();
+    }
+    // kv tile it: S and dP of tile it, and dQ += dS K of tile it - 1, in
+    // flight together; P and dS of tile it while dQ runs
+    for (int it = 1; it < n_kv; ++it) {
+      const int r = ring + it;
+      const int st = r % stages, pst = (r - 1) % stages;
+      mbar_wait(&k_full[st], (r / stages) & 1);
+      mbar_wait(&v_full[st], (r / stages) & 1);
+      fence_acc(dq);
+      fence_da();
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_sdp(st);
+      issue_dq(pst);
+      bar_arrive(their_turn, 256);
+      wgmma_wait<1>();  // S, dP done (groups complete in order)
+      fence_acc(s);
+      fence_acc(dp);
+      if (lane == 0) {
+        mbar_arrive(&v_empty[st]);
+        if (it == n_kv - 1) mbar_arrive(&t_empty[slot]);  // Q, dO done
+      }
+      ds_of(n_kv - 1 - it);
+      wgmma_wait<0>();  // dQ of the last tile done: its K and dS free
+      fence_acc(dq);
+      fence_da();
+      if (lane == 0) mbar_arrive(&k_empty[pst]);
+      pack_ds();
+    }
+    {
+      const int st = (ring + n_kv - 1) % stages;
+      fence_acc(dq);
+      fence_da();
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_dq(st);
+      if (cw == 0 || !last_item) bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc(dq);
+      fence_da();
+      if (lane == 0) mbar_arrive(&k_empty[st]);
+    }
+    ring += n_kv;
+
+    bf16* dqp = base<bf16, kDQ>(p, p.dq, b, h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= seq) continue;
+      bf16* out = dqp + row * row_stride<kDQ>(p);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + n * 8 + t4 * 2) =
+            pack_bf16(dq[4 * n + 2 * i] * p.scale,
+                      dq[4 * n + 2 * i + 1] * p.scale);
+    }
   }
-  store_rows<D>(dqp, row_stride<kDQ>(p), dq, rlo, p.S);
 }
 
-template <int D, int BQ>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kRows + 4 * BQ) * (D + kPad) * 2 + 4 * BQ * 4;
-}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const Params p) {
+  static_assert(D == 64 || D == 128, "head dims of the wgmma kernels");
+  constexpr int stages = dkdv_stages<D>();
+  constexpr int kTileK = (D / 64) * kBoxBig;   // K or V of an item
+  constexpr int kTileQ = (D / 64) * kBoxStep;  // a Q or dO tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;                    // [2][kTileK]
+  uint8_t* sV = sK + 2 * kTileK;         // [2][kTileK]
+  uint8_t* sQ = sV + 2 * kTileK;         // [stages][kTileQ]
+  uint8_t* sdO = sQ + stages * kTileQ;   // [stages][kTileQ]
+  float* sL = reinterpret_cast<float*>(sdO + stages * kTileQ);  // [stages][64]
+  float* sD = sL + stages * kStep;                              // [stages][64]
+  uint64_t* t_full = reinterpret_cast<uint64_t*>(sD + stages * kStep);
+  uint64_t* t_empty = t_full + 2;
+  uint64_t* q_full = t_empty + 2;
+  uint64_t* q_empty = q_full + stages;
 
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16_kernel(const Params p) {
-  static_assert(D % 16 == 0 && BQ % 16 == 0, "mma / ldmatrix tile shapes");
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kRows][LD]
-  bf16* Vs = Ks + kRows * LD;                     // [kRows][LD]
-  bf16* Qs = Vs + kRows * LD;                     // [2][BQ][LD]
-  bf16* dOs = Qs + 2 * BQ * LD;                   // [2][BQ][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]: lse
-  float* Ds = Ls + 2 * BQ;                                  // [2][BQ]: D
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&t_full[i], 1);
+      mbar_init(&t_empty[i], kConsumerWarps);
+    }
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&q_full[st], 1);
+      mbar_init(&q_empty[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;  // the heaviest causal blocks first
-  const int b = bkv / p.KV, kvh = bkv % p.KV, G = p.H / p.KV;
-  const bf16* kp = base<const bf16, kK>(p, p.k, b, kvh);
-  const bf16* vp = base<const bf16, kV>(p, p.v, b, kvh);
+  // this block's items: (b * KV + kv head) * nk + key block, heaviest first;
+  // each walks the group's G heads, each head over the q tiles of 64 rows
+  // from the first that sees the block's keys
+  const int nk = (p.S + kRows - 1) / kRows;
+  const int nq = (p.S + kStep - 1) / kStep;
+  const int G = p.H / p.KV;
+  const int first = p.sched_kv[blockIdx.x];
+  const int n_mine = p.sched_kv[blockIdx.x + 1] - first;
+  const int* items = p.sched_kv + gridDim.x + 1 + first;
+  auto first_q = [&](int kb) { return p.causal ? kb * (kRows / kStep) : 0; };
 
-  // steps: the group's heads, each over the q tiles that see these keys
-  const int qt0 = p.causal ? k0 / BQ : 0;
-  const int n_qt = (p.S + BQ - 1) / BQ - qt0;
-  const int steps = G * n_qt;
-  auto load_step = [&](int i, int buf) {
-    const int h = kvh * G + i / n_qt, q0 = (qt0 + i % n_qt) * BQ;
-    load_tile<D, BQ>(Qs + buf * BQ * LD, base<const bf16, kQ>(p, p.q, b, h),
-                     row_stride<kQ>(p), q0, p.S);
-    load_tile<D, BQ>(dOs + buf * BQ * LD,
-                     base<const bf16, kDO>(p, p.dout, b, h),
-                     row_stride<kDO>(p), q0, p.S);
-    if (tid < BQ) {
-      const int64_t at = (int64_t)(b * p.H + h) * p.S + q0 + tid;
-      const bool ok = q0 + tid < p.S;
-      Ls[buf * BQ + tid] = ok ? p.lse[at] * kLog2e : 0.0f;
-      Ds[buf * BQ + tid] = ok ? p.dd[at] : 0.0f;
+  if (tid < 128) {
+    // ---- loader ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_do);
+      int ring = 0;
+      for (int j = 0; j < n_mine; ++j) {
+        const int item = items[j];
+        const int bkv = item / nk, kb = item % nk;
+        const int b = bkv / p.KV, kvh = bkv % p.KV;
+        const int slot = j & 1;
+        mbar_wait(&t_empty[slot], ((j >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&t_full[slot], 2 * kTileK);
+#pragma unroll
+        for (int cc = 0; cc < D / 64; ++cc) {
+          tma_load_4d(sK + slot * kTileK + cc * kBoxBig, &tm_k, &t_full[slot],
+                      64 * cc, kvh, kb * kRows, b);
+          tma_load_4d(sV + slot * kTileK + cc * kBoxBig, &tm_v, &t_full[slot],
+                      64 * cc, kvh, kb * kRows, b);
+        }
+        const int qt0 = first_q(kb), per_head = nq - qt0;
+        for (int i = 0; i < G * per_head; ++i, ++ring) {
+          const int h = kvh * G + i / per_head;
+          const int q0 = (qt0 + i % per_head) * kStep;
+          const int st = ring % stages;
+          mbar_wait(&q_empty[st], ((ring / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&q_full[st], 2 * kTileQ + 2 * kStep * 4);
+#pragma unroll
+          for (int cc = 0; cc < D / 64; ++cc) {
+            tma_load_4d(sQ + st * kTileQ + cc * kBoxStep, &tm_q, &q_full[st],
+                        64 * cc, h, q0, b);
+            tma_load_4d(sdO + st * kTileQ + cc * kBoxStep, &tm_do,
+                        &q_full[st], 64 * cc, h, q0, b);
+          }
+          const int64_t at = (int64_t)(b * p.H + h) * p.s_pad + q0;
+          bulk_load(sL + st * kStep, p.lse2 + at, kStep * 4, &q_full[st]);
+          bulk_load(sD + st * kStep, p.dd + at, kStep * 4, &q_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64) ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = tid / 128 - 1;
+  const int t = tid & 127, lane = t & 31, t4 = lane & 3;
+  const int frag_row = (t >> 5) * 16 + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const int seq = p.S;
+
+  // At D = 128 the overlap below would hold S^T and dP^T of one q tile
+  // beside P^T and dS^T of the other and dK, dV (224 registers a thread):
+  // ptxas then serializes the wgmmas and spills, so there a tile's products
+  // wait for the last tile's.
+  constexpr bool kOverlap = D == 64;
+  float dk[D / 2], dv[D / 2];          // dK / scale, dV
+  float s[kStep / 2], dp[kStep / 2];   // S^T then P^T; dP^T then dS^T /
+                                       // scale: 64 keys x 64 queries
+  uint32_t pa[kStep / 16][4], da[kStep / 16][4];  // P^T, dS^T in bf16
+  int key0 = 0, key_lo = 0;
+  uint32_t k_addr = 0, v_addr = 0;
+  auto fence_frags = [&]() {
+#pragma unroll
+    for (int j = 0; j < kStep / 16; ++j) {
+      fence_frag(pa[j]);
+      fence_frag(da[j]);
+    }
+  };
+  // S^T = K Q^T and dP^T = V dO^T of ring slot st: A = this warpgroup's 64
+  // keys, K-major from the item's tiles; B = the q tile, K-major.  One
+  // commit group.
+  auto issue_sdpt = [&](int st) {
+    const uint32_t q_addr = smem_u32(sQ + st * kTileQ);
+    const uint32_t do_addr = smem_u32(sdO + st * kTileQ);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(
+          s, smem_desc(k_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
+          smem_desc(q_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(
+          dp, smem_desc(v_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
+          smem_desc(do_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+  };
+  // dV += P^T dO and dK / scale += (dS^T / scale) Q of slot st: A from
+  // registers; B = dO and Q as MN-major, query step j at +2 KB.  One commit
+  // group.
+  auto issue_dkdv = [&](int st) {
+    const uint32_t q_addr = smem_u32(sQ + st * kTileQ);
+    const uint32_t do_addr = smem_u32(sdO + st * kTileQ);
+#pragma unroll
+    for (int j = 0; j < kStep / 16; ++j)
+      wgmma_rs<D>(dv, pa[j], smem_desc(do_addr + j * 2048, kBoxStep, 1024));
+#pragma unroll
+    for (int j = 0; j < kStep / 16; ++j)
+      wgmma_rs<D>(dk, da[j], smem_desc(q_addr + j * 2048, kBoxStep, 1024));
+    wgmma_commit();
+  };
+  // P^T into s and dS^T / scale into dp for the q tile at q0 (ring slot
+  // st); lse2 and D per column from shared memory; on a tile with the
+  // diagonal, P^T = 0 for a key after the query, by selects.  Queries past
+  // S need no mask: TMA zero-filled their Q and dO, and the scratch holds
+  // 0 for their lse2 and D, so P^T = 1, dP^T = 0 and dS^T = 0 add nothing.
+  auto p_ds_tile = [&](int st, int q0, auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+    const float* L = sL + st * kStep;
+    const float* Dd = sD + st * kStep;
+#pragma unroll
+    for (int n = 0; n < kStep / 8; ++n) {
+      const int col = n * 8 + t4 * 2;
+      const float2 lc = *reinterpret_cast<const float2*>(L + col);
+      const float2 dc = *reinterpret_cast<const float2*>(Dd + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = fast_exp2(fmaf(s[4 * n + e], sl2, (e & 1) ? -lc.y : -lc.x));
+        if constexpr (kMasked) {
+          const int key = key0 + 8 * (e >> 1);
+          pe = key > q0 + col + (e & 1) ? 0.0f : pe;
+        }
+        s[4 * n + e] = pe;
+        dp[4 * n + e] = pe * (dp[4 * n + e] - ((e & 1) ? dc.y : dc.x));
+      }
+    }
+  };
+  auto p_ds = [&](int st, int q0) {
+    if (p.causal && key_lo + 63 > q0)
+      p_ds_tile(st, q0, std::true_type());
+    else
+      p_ds_tile(st, q0, std::false_type());
+  };
+  auto pack_pds = [&]() {
+#pragma unroll
+    for (int j = 0; j < kStep / 16; ++j) {
+      c_to_a(pa[j], s + 8 * j);
+      c_to_a(da[j], dp + 8 * j);
     }
   };
 
-  load_tile<D, kRows>(Ks, kp, row_stride<kK>(p), k0, p.S);
-  load_tile<D, kRows>(Vs, vp, row_stride<kV>(p), k0, p.S);
-  load_step(0, 0);
-  cp_async_commit();
+  // turns as in the dQ kernel: steps + 1 issues an item with kOverlap,
+  // 2 steps without
+  const int my_turn = 1 + cw, their_turn = 2 - cw;
+  if (cw == 1) bar_arrive(1, 256);
 
-  float dk[D / 8][4], dv[D / 8][4];
+  int ring = 0;  // the Q / dO slot sequence, as the loader's
+  for (int j = 0; j < n_mine; ++j) {
+    const int item = items[j];
+    const int bkv = item / nk, kb = item % nk;
+    const int b = bkv / p.KV, kvh = bkv % p.KV;
+    const int slot = j & 1;
+    key_lo = kb * kRows + cw * 64;
+    key0 = key_lo + frag_row;
+    k_addr = smem_u32(sK + slot * kTileK) + cw * 64 * 128;
+    v_addr = smem_u32(sV + slot * kTileK) + cw * 64 * 128;
+    const int qt0 = first_q(kb), per_head = nq - qt0;
+    const int steps = G * per_head;
+    auto q0_of = [&](int i) { return (qt0 + i % per_head) * kStep; };
+    const bool last_item = j + 1 == n_mine;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-  const int klo = k0 + warp * 16 + g;  // this thread's keys: klo, klo + 8
-  const float sl2 = p.scale * kLog2e;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
 
-  for (int i = 0; i < steps; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < steps) {
-      load_step(i + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    // q tile 0: S^T and dP^T, then P^T and dS^T
+    mbar_wait(&t_full[slot], (j >> 1) & 1);
+    {
+      const int st = ring % stages;
+      mbar_wait(&q_full[st], (ring / stages) & 1);
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_sdpt(st);
+      bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      if (lane == 0 && steps == 1) mbar_arrive(&t_empty[slot]);  // K, V done
+      p_ds(st, q0_of(0));
+      pack_pds();
     }
-    __syncthreads();
-    const bf16* Qb = Qs + buf * BQ * LD;
-    const bf16* dOb = dOs + buf * BQ * LD;
-    const float* Lb = Ls + buf * BQ;
-    const float* Db = Ds + buf * BQ;
-    const int q0 = (qt0 + i % n_qt) * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    rows_dot_rows<D, BQ>(st, Ks + warp * 16 * LD, Qb);
-    rows_dot_rows<D, BQ>(dpt, Vs + warp * 16 * LD, dOb);
-
-    // P^T (0 for a query before the key or past S) in st, dS^T in dpt
-    const bool masked = (q0 + BQ > p.S) || (p.causal && k0 + kRows - 1 > q0);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + t4 * 2 + (e & 1);
-        float pe = exp2f(fmaf(st[n][e], sl2, -Lb[qi]));
-        if (masked) {
-          const int key = klo + (e >> 1) * 8;
-          if (q0 + qi >= p.S || (p.causal && key > q0 + qi)) pe = 0.0f;
-        }
-        dpt[n][e] = pe * (dpt[n][e] - Db[qi]) * p.scale;
-        st[n][e] = pe;
+    // q tile i.  kOverlap: S^T and dP^T of tile i, and dV, dK of tile
+    // i - 1, in flight together; P^T and dS^T of tile i while dV and dK
+    // run.  Else dV, dK of tile i - 1 first, then S^T and dP^T of tile i
+    // (two turns).
+    for (int i = 1; i < steps; ++i) {
+      const int r = ring + i;
+      const int st = r % stages, pst = (r - 1) % stages;
+      if constexpr (kOverlap) mbar_wait(&q_full[st], (r / stages) & 1);
+      fence_acc(dk);
+      fence_acc(dv);
+      fence_frags();
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      if constexpr (kOverlap) {
+        issue_sdpt(st);
+        issue_dkdv(pst);
+        bar_arrive(their_turn, 256);
+        wgmma_wait<1>();  // S^T, dP^T done (groups complete in order)
+      } else {
+        issue_dkdv(pst);  // not held up by tile i's loads
+        bar_arrive(their_turn, 256);
+        wgmma_wait<0>();
+        fence_acc(dk);
+        fence_acc(dv);
+        fence_frags();
+        if (lane == 0) mbar_arrive(&q_empty[pst]);
+        mbar_wait(&q_full[st], (r / stages) & 1);
+        bar_sync(my_turn, 256);
+        wgmma_fence();
+        issue_sdpt(st);
+        bar_arrive(their_turn, 256);
+        wgmma_wait<0>();
       }
-    frag_times_tile<D, BQ>(dv, st, dOb);   // dV += P^T dO
-    frag_times_tile<D, BQ>(dk, dpt, Qb);   // dK += dS^T Q
-    __syncthreads();  // every warp is done with this buffer before refill
+      fence_acc(s);
+      fence_acc(dp);
+      if (lane == 0 && i == steps - 1) mbar_arrive(&t_empty[slot]);
+      p_ds(st, q0_of(i));
+      if constexpr (kOverlap) {
+        wgmma_wait<0>();  // dV, dK of the last tile done: its slot is free
+        fence_acc(dk);
+        fence_acc(dv);
+        fence_frags();
+        if (lane == 0) mbar_arrive(&q_empty[pst]);
+      }
+      pack_pds();
+    }
+    {
+      const int st = (ring + steps - 1) % stages;
+      fence_acc(dk);
+      fence_acc(dv);
+      fence_frags();
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_dkdv(st);
+      if (cw == 0 || !last_item) bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc(dk);
+      fence_acc(dv);
+      fence_frags();
+      if (lane == 0) mbar_arrive(&q_empty[st]);
+    }
+    ring += steps;
+
+    bf16* dkp = base<bf16, kDK>(p, p.dk, b, kvh);
+    bf16* dvp = base<bf16, kDV>(p, p.dv, b, kvh);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      if (key >= seq) continue;
+      bf16* ko = dkp + key * row_stride<kDK>(p);
+      bf16* vo = dvp + key * row_stride<kDV>(p);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(ko + n * 8 + t4 * 2) =
+            pack_bf16(dk[4 * n + 2 * i] * p.scale,
+                      dk[4 * n + 2 * i + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(vo + n * 8 + t4 * 2) =
+            pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+      }
+    }
   }
-  store_rows<D>(base<bf16, kDK>(p, p.dk, b, kvh), row_stride<kDK>(p), dk,
-                klo, p.S);
-  store_rows<D>(base<bf16, kDV>(p, p.dv, b, kvh), row_stride<kDV>(p), dv,
-                klo, p.S);
 }
 
 // --- float32, CUDA cores --------------------------------------------------------
@@ -665,29 +1245,71 @@ cudaError_t launch(Kernel kernel, int smem, int threads, const Params& p,
   return cudaGetLastError();
 }
 
-template <int D, int BQ>
-int launch_bf16(const Params& p, int B, int device, void* stream) {
-  static unsigned dq_done = 0, dkdv_done = 0;
-  cudaError_t err = launch(flash_bwd_dq_bf16_kernel<D, 64>,
-                           dq_smem_bytes<D, 64>(), kThreads, p, B * p.H,
-                           (p.S + kRows - 1) / kRows, &dq_done, device,
-                           stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(flash_bwd_dkdv_bf16_kernel<D, BQ>,
-                     dkdv_smem_bytes<D, BQ>(), kThreads, p, B * p.KV,
-                     (p.S + kRows - 1) / kRows, &dkdv_done, device, stream);
+// a 4-D tensor map over a BSHD bf16 tensor as it lies, dims (d, heads, S,
+// B), boxes of 64 x 1 x rows x 1 (st: its batch, seq, head strides)
+bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
+                 int d, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_bf16(map, base, 4, dims, strides, box);
+}
+
+// parts: 1 the dQ kernel, 2 the dK / dV kernel (which reads the scratch the
+// dQ kernel wrote), 3 both in this order
+template <int D>
+int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
+                int ctas_kv, int parts, int device, void* stream) {
+  static unsigned dq_done = 0, kv_done = 0;
+  cudaError_t err = cudaSuccess;
+  CUtensorMap tm_q = {}, tm_do = {}, tm_k = {}, tm_v = {};
+  if (parts & 1) {
+    if (!encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kRows) ||
+        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kRows) ||
+        !encode_bshd(&tm_k, p.k, B, p.S, p.KV, D, st + 3 * kK,
+                     dq_step<D>()) ||
+        !encode_bshd(&tm_v, p.v, B, p.S, p.KV, D, st + 3 * kV, dq_step<D>()))
+      return (int)cudaErrorInvalidValue;
+    auto kernel = flash_bwd_dq_bf16_tc_kernel<D>;
+    err = allow_smem(kernel, dq_smem_bytes<D>(), device, &dq_done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<ctas_dq, kThreads, dq_smem_bytes<D>(), (cudaStream_t)stream>>>(
+        tm_q, tm_do, tm_k, tm_v, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    if (!encode_bshd(&tm_k, p.k, B, p.S, p.KV, D, st + 3 * kK, kRows) ||
+        !encode_bshd(&tm_v, p.v, B, p.S, p.KV, D, st + 3 * kV, kRows) ||
+        !encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kStep) ||
+        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kStep))
+      return (int)cudaErrorInvalidValue;
+    auto kernel = flash_bwd_dkdv_bf16_tc_kernel<D>;
+    err = allow_smem(kernel, dkdv_smem_bytes<D>(), device, &kv_done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<ctas_kv, kThreads, dkdv_smem_bytes<D>(),
+             (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 template <int D>
-int launch_f32(const Params& p, int B, int device, void* stream) {
+int launch_f32(const Params& p, int B, int parts, int device, void* stream) {
   static unsigned dq_done = 0, dkdv_done = 0;
-  cudaError_t err = launch(flash_bwd_dq_f32_kernel<D>,
-                           f32_smem_bytes<D>(), kFThreads, p, B * p.H,
-                           (p.S + kF - 1) / kF, &dq_done, device, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(flash_bwd_dkdv_f32_kernel<D>, f32_smem_bytes<D>(),
-                     kFThreads, p, B * p.KV, (p.S + kF - 1) / kF,
-                     &dkdv_done, device, stream);
+  if (parts & 1) {
+    cudaError_t err = launch(flash_bwd_dq_f32_kernel<D>, f32_smem_bytes<D>(),
+                             kFThreads, p, B * p.H, (p.S + kF - 1) / kF,
+                             &dq_done, device, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2)
+    return (int)launch(flash_bwd_dkdv_f32_kernel<D>, f32_smem_bytes<D>(),
+                       kFThreads, p, B * p.KV, (p.S + kF - 1) / kF,
+                       &dkdv_done, device, stream);
+  return (int)cudaSuccess;
 }
 
 bool aligned_rows(const void* const* ptrs, const long long* st, int elem) {
@@ -703,12 +1325,13 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse, void* dd,
                  void* dq, void* dk, void* dv, int B, int S, int H, int KV,
                  int hd, const long long* strides, float scale, int causal,
-                 int elem) {
+                 int parts, int elem) {
   const void* ptrs[kTensors] = {q, k, v, o, dout, dq, dk, dv};
   if (B < 1 || S < 1 || KV < 1 || H % KV || (hd != 64 && hd != 128) ||
       (int64_t)B * H >= (1ll << 31) || lse == nullptr || dd == nullptr ||
-      !aligned_rows(ptrs, strides, elem))
+      parts < 1 || parts > 3 || !aligned_rows(ptrs, strides, elem))
     return false;
+  *p = Params{};
   p->q = q; p->k = k; p->v = v; p->o = o; p->dout = dout;
   p->lse = static_cast<const float*>(lse);
   p->dd = static_cast<float*>(dd);
@@ -724,52 +1347,81 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Both entry points: q, k, v, o, do, lse, the D scratch (float32 [B, H, S]),
-// dq, dk, dv device pointers; B, S, H, KV, hd (== hv, 64 or 128); strides:
-// 24 element strides, (batch, seq, head) of q, k, v, o, do, dq, dk, dv in
-// order; the softmax scale; causal; the plan: the dQ kernel's rows a block
-// (q_rows) and kv step, the dK / dV kernel's keys a block (kv_rows) and q
-// step; the device and the stream.  Every row 16-byte aligned.  Launches
-// the dQ kernel (which writes D), then the dK / dV kernel.
+// Both entry points: q, k, v, o, do, lse, the scratch, (bf16: the
+// schedule,) dq, dk, dv device pointers; B, S, H, KV, hd (== hv, 64 or
+// 128); strides: 24 element strides, (batch, seq, head) of q, k, v, o, do,
+// dq, dk, dv in order; the softmax scale; causal; the plan: the dQ
+// kernel's rows a block or item (q_rows) and kv step, the dK / dV kernel's
+// keys a block or item (kv_rows) and q step; parts: 1 the dQ kernel, 2 the
+// dK / dV kernel (it reads the scratch a dQ launch of the same call wrote),
+// 3 both in this order (a training step's call); the device and the
+// stream.  Every row 16-byte aligned.
 
-// bf16 on mma.sync.  Plan: q_rows = kv_rows = kv_step = 64; q_step 64 at
-// hd 64, 32 at hd 128.
+// bf16 on wgmma.  Plan: q_rows = kv_rows = 128, q_step = 64, kv_step 128 at
+// hd 64 and 64 at 128 (dq_step), the ring depths of the two kernels (4 and
+// 4 at hd 64, 3 and 3 at 128), their persistent grids ctas_dq <= B * H * nq
+// and ctas_kv <= B * KV * nq blocks (nq = ceil(S / 128)).  scratch: float32
+// [2, B * H, 128 nq] (lse2, then D).  sched: int32, each kernel's schedule
+// in turn -- ctas + 1 offsets, then its items, block c taking items
+// [offsets[c], offsets[c + 1]) in order: for the dQ kernel B * H * nq items
+// (b * H + h) * nq + q-block, for the dK / dV kernel B * KV * nq items
+// (b * KV + kv head) * nq + key block.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             void* dd, void* dq, void* dk, void* dv, int B,
-                             int S, int H, int KV, int hd,
-                             const long long* strides, float scale,
+                             void* scratch, const void* sched, void* dq,
+                             void* dk, void* dv, int B, int S, int H, int KV,
+                             int hd, const long long* strides, float scale,
                              int causal, int q_rows, int kv_rows, int q_step,
-                             int kv_step, int device, void* stream) {
+                             int kv_step, int stages_dq, int stages_dkdv,
+                             int ctas_dq, int ctas_kv, int parts, int device,
+                             void* stream) {
   Params p;
-  if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, H, KV,
-                   hd, strides, scale, causal, 2) ||
-      q_rows != kRows || kv_rows != kRows || kv_step != 64 ||
-      q_step != (hd == 64 ? 64 : 32))
+  if (!make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H,
+                   KV, hd, strides, scale, causal, parts, 2) ||
+      sched == nullptr || q_rows != kRows || kv_rows != kRows ||
+      q_step != kStep ||
+      kv_step != (hd == 64 ? dq_step<64>() : dq_step<128>()))
     return (int)cudaErrorInvalidValue;
+  const int64_t nq = (S + kRows - 1) / kRows;
+  const int64_t n_dq = (int64_t)B * H * nq, n_kv = (int64_t)B * KV * nq;
+  const bool d64 = hd == 64;
+  if (stages_dq != (d64 ? dq_stages<64>() : dq_stages<128>()) ||
+      stages_dkdv != (d64 ? dkdv_stages<64>() : dkdv_stages<128>()) ||
+      n_dq >= (1ll << 31) || ctas_dq < 1 || ctas_dq > n_dq || ctas_kv < 1 ||
+      ctas_kv > n_kv)
+    return (int)cudaErrorInvalidValue;
+  p.s_pad = (int)(nq * kRows);
+  p.lse2 = static_cast<float*>(scratch);
+  p.dd = p.lse2 + (int64_t)B * H * p.s_pad;
+  p.sched_dq = static_cast<const int*>(sched);
+  p.sched_kv = p.sched_dq + ctas_dq + 1 + n_dq;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return hd == 64 ? launch_bf16<64, 64>(p, B, device, stream)
-                  : launch_bf16<128, 32>(p, B, device, stream);
+  return d64 ? launch_bf16<64>(p, B, strides, ctas_dq, ctas_kv, parts,
+                               device, stream)
+             : launch_bf16<128>(p, B, strides, ctas_dq, ctas_kv, parts,
+                                device, stream);
 }
 
-// float32 on the CUDA cores.  Plan: every block and step 32 rows.
+// float32 on the CUDA cores.  Plan: every block and step 32 rows, grids
+// (B * H, ceil(S / 32)) and (B * KV, ceil(S / 32)); scratch: float32 D
+// [B, H, S].
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
                             int S, int H, int KV, int hd,
                             const long long* strides, float scale, int causal,
                             int q_rows, int kv_rows, int q_step, int kv_step,
-                            int device, void* stream) {
+                            int parts, int device, void* stream) {
   Params p;
   if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, H, KV,
-                   hd, strides, scale, causal, 4) ||
+                   hd, strides, scale, causal, parts, 4) ||
       q_rows != kF || kv_rows != kF || q_step != kF || kv_step != kF)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return hd == 64 ? launch_f32<64>(p, B, device, stream)
-                  : launch_f32<128>(p, B, device, stream);
+  return hd == 64 ? launch_f32<64>(p, B, parts, device, stream)
+                  : launch_f32<128>(p, B, parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
 // cp.async, mbarriers, TMA loads, wgmma shared-memory descriptors and
 // fences, and the host side of TMA (cuTensorMapEncodeTiled found through
-// the runtime, so no -lcuda).  Included by conv2d.cu and flash_attention.cu;
-// kernels/build.py hashes this header into the library name of every source
-// that includes it.
+// the runtime, so no -lcuda).  Included by conv2d.cu, flash_attention.cu
+// and flash_attention_bwd.cu; kernels/build.py hashes this header into the
+// library name of every source that includes it.
 
 #pragma once
 

@@ -35,10 +35,11 @@ same kernels (``hd == hv`` in ``BWD_HEAD_DIMS``) built with a flag that
 also writes the row log-sum-exp of the scaled scores, float32 [B, H, S],
 counted under the forward variant's key.  Its backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
-(``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``mma.sync`` tensor cores,
-or ``flash_attention_bwd_f32``, CUDA cores; one call launches a dQ kernel
-that also writes D = rowsum(dO * O) and then a dK / dV kernel, counted
-once), with no float atomics, so two runs are bitwise equal.  Beside it
+(``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
+by TMA in persistent grids that walk the plan's schedule, or
+``flash_attention_bwd_f32``, CUDA cores; one call launches a dQ kernel that
+also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
+with no float atomics, so two runs are bitwise equal.  Beside it
 stands ``flash_attention_bwd_plain``, the backward written out step by step
 in float32 from the saved log-sum-exp, which CPU tensors take.  The
 reference defines no backward for its TPU kernel: it trains through its XLA
@@ -51,7 +52,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+import heapq
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -168,12 +170,16 @@ def _bwd_library():
         from repro_torch.kernels import build
         lib = build.load(BWD_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        shape = [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                            ctypes.c_float, ci] + [ci] * 4
+        # ..., scratch, [schedule,] dq, dk, dv, shape, strides, scale,
+        # causal, the plan, [stages, grids,] parts, device, stream
+        lib.flash_attention_bwd_bf16.argtypes = \
+            [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
+        lib.flash_attention_bwd_f32.argtypes = \
+            [vp] * 10 + shape + [ci, ci, vp]
         for name in BWD_VARIANTS:
-            fn = getattr(lib, name)
-            fn.argtypes = ([vp] * 10 + [ci] * 5
-                           + [ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
-            fn.restype = ci
+            getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_bound = lib
@@ -412,40 +418,162 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+# the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
+# of one (b, head) and walk the keys ``_dq_step(hd)`` at a time; the dK /
+# dV kernel's items are BWD_ROWS keys of one (b, kv head) and walk the
+# group's query rows BWD_STEP at a time.  The float32 kernels' blocks and
+# steps are F32_BWD_ROWS rows.
+BWD_ROWS, BWD_STEP, F32_BWD_ROWS = 128, 64, 32
+# which kernels a backward launch runs (the C entry points' ``parts``)
+BWD_DQ, BWD_DKDV, BWD_BOTH = 1, 2, 3
+
+
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """How one backward call runs: the variant (its ``LAUNCHES`` key); the
-    dQ kernel's blocks own ``q_rows`` query rows of one (b, head) and walk
-    the visible keys ``kv_step`` at a time, grid ``grid_dq`` = (B * H,
-    q-blocks); the dK / dV kernel's blocks own ``kv_rows`` keys of one (b,
-    kv head) and walk the group's heads and the visible query rows
-    ``q_step`` at a time, grid ``grid_dkdv`` = (B * KV, kv-blocks)."""
+    dQ kernel owns ``q_rows`` query rows of one (b, head) at a time and
+    walks the visible keys ``kv_step`` at a time; the dK / dV kernel owns
+    ``kv_rows`` keys of one (b, kv head) and walks the group's heads and
+    their visible query rows ``q_step`` at a time.  ``stages``: the ring
+    slots of the two kernels' streamed tiles (0: the float32 kernels have
+    none); ``smem``: the dynamic shared memory of a block of each.
+
+    bf16: each kernel is persistent, ``grid_*`` = (blocks, 1), and block
+    ``c`` works through the items ``schedule_*[c]`` in order -- dQ items
+    ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV + kv_head) * nq
+    + key_block`` with ``nq = ceil(S / q_rows)``.  float32: one block a
+    (b * H, q-block) or (b * KV, kv-block), ``grid_*`` as such, no
+    schedule."""
     variant: str
     q_rows: int
     kv_rows: int
     q_step: int
     kv_step: int
+    stages: Tuple[int, int]
     grid_dq: Tuple[int, int]
     grid_dkdv: Tuple[int, int]
+    smem: Tuple[int, int]
+    schedule_dq: Tuple[Tuple[int, ...], ...] = dataclasses.field(
+        default=(), repr=False)
+    schedule_dkdv: Tuple[Tuple[int, ...], ...] = dataclasses.field(
+        default=(), repr=False)
+
+
+def _bwd_stages(hd: int) -> int:
+    """Ring slots of both bf16 kernels (the 227 KB budget decides at 128)."""
+    return 4 if hd == 64 else 3
+
+
+def _dq_step(hd: int) -> int:
+    """Keys of the bf16 dQ kernel's kv tile: 128 at hd 64, 64 at hd 128
+    (where dQ's accumulator takes 64 registers a thread)."""
+    return 128 if hd == 64 else 64
+
+
+def _bwd_smem(hd: int, stages: int) -> Tuple[int, int]:
+    """Dynamic shared memory of a bf16 block, as ``flash_attention_bwd.cu``
+    lays it out: 1 KiB to align the base to the swizzle's period; dQ: two
+    item slots of Q and dO, ``stages`` slots of K and V tiles, 4 + 4 stages
+    mbarriers; dK / dV: two item slots of K and V, ``stages`` slots of Q,
+    dO and their 64 lse2 and D floats, 4 + 2 stages mbarriers."""
+    boxes = hd // 64                         # 64-column boxes of a row
+    big, step = BWD_ROWS * 128, BWD_STEP * 128   # bytes of a box
+    dq = 1024 + 4 * boxes * big + stages * 2 * boxes * _dq_step(hd) * 128 \
+        + (4 + 4 * stages) * 8
+    dkdv = 1024 + 4 * boxes * big \
+        + stages * (2 * boxes * step + 2 * BWD_STEP * 4) + (4 + 2 * stages) * 8
+    return dq, dkdv
+
+
+def _f32_bwd_smem(hd: int) -> int:
+    """Shared memory of a float32 backward block: four [32][hd + 1] tiles,
+    two [32][33] and 64 floats."""
+    r = F32_BWD_ROWS
+    return (4 * r * (hd + 1) + 2 * r * (r + 1) + 2 * r) * 4
+
+
+def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool
+                  ) -> Tuple[List[int], List[int]]:
+    """The work of each bf16 item, in ``BWD_STEP``-wide tiles it walks plus
+    one for its set-up (loads, D, the epilogue): dQ item ``(b * H + h) *
+    nq + qb`` walks the keys up to its rows' last (all of them when not
+    causal), in kv tiles of ``_dq_step`` keys; dK / dV item ``(b * KV +
+    kvh) * nq + kb`` walks, for each of the G heads, the q tiles of
+    ``BWD_STEP`` rows from the first that sees its keys.  The work does not
+    depend on the head size: ``_dq_step(64)`` tiles count as two."""
+    nq, nstep = _cdiv(s, BWD_ROWS), _cdiv(s, BWD_STEP)
+    per_block = BWD_ROWS // BWD_STEP
+    dq = [_cdiv(min((qb + 1) * BWD_ROWS, s) if causal else s, BWD_STEP) + 1
+          for qb in range(nq)]
+    dkdv = [(h // kv) * (nstep - (kb * per_block if causal else 0)) + 1
+            for kb in range(nq)]
+    return dq * (b * h), dkdv * (b * kv)
+
+
+def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
+    """Longest processing time first: the items in order of decreasing work
+    (ties by index), each to the block with the least work so far (ties by
+    block index).  Every block's list is heaviest first."""
+    order = sorted(range(len(work)), key=lambda i: (-work[i], i))
+    heap = [(0, c) for c in range(blocks)]
+    lists: List[List[int]] = [[] for _ in range(blocks)]
+    for i in order:
+        load, c = heapq.heappop(heap)
+        lists[c].append(i)
+        heapq.heappush(heap, (load + work[i], c))
+    return tuple(tuple(x) for x in lists)
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_bwd(b: int, s: int, h: int, kv: int, hd: int,
-             dtype: torch.dtype) -> BwdPlan:
+def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
+             causal: bool = True, sms: int = H100_SMS) -> BwdPlan:
     """The backward's plan for q [b, s, h, hd], k, v [b, s, kv, hd] in
-    ``dtype`` (a pure function of its arguments).  bf16 on ``mma.sync``:
-    64-row blocks, the dK / dV kernel stepping 32 query rows at hd 128 (its
-    dK and dV accumulators take 128 registers there); float32 on the CUDA
-    cores: 32-row blocks."""
+    ``dtype`` on a card of ``sms`` SMs (a pure function of its arguments).
+    bf16 on ``wgmma``: items of 128 rows or keys, the dQ kernel stepping
+    ``_dq_step`` keys at a time and the dK / dV kernel 64 query rows,
+    ``_bwd_stages`` ring slots, each kernel a persistent grid of at most
+    one block an SM whose schedule ``_lpt`` makes from ``bwd_item_work``;
+    float32 on the CUDA cores: 32-row blocks, one a tile."""
     _check_train_shape(hd, hd)
     if dtype == torch.bfloat16:
-        variant, qr, kr, qs, ks = BWD_BF16, 64, 64, 64 if hd == 64 else 32, 64
-    elif dtype == torch.float32:
-        variant, qr, kr, qs, ks = BWD_F32, 32, 32, 32, 32
-    else:
-        raise TypeError(f"no K3 backward variant for {dtype}")
-    return BwdPlan(variant, qr, kr, qs, ks, (b * h, _cdiv(s, qr)),
-                   (b * kv, _cdiv(s, kr)))
+        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal)
+        ctas_dq, ctas_dkdv = min(len(work_dq), sms), min(len(work_dkdv), sms)
+        st = _bwd_stages(hd)
+        return BwdPlan(BWD_BF16, BWD_ROWS, BWD_ROWS, BWD_STEP, _dq_step(hd),
+                       (st, st), (ctas_dq, 1), (ctas_dkdv, 1),
+                       _bwd_smem(hd, st), _lpt(work_dq, ctas_dq),
+                       _lpt(work_dkdv, ctas_dkdv))
+    if dtype == torch.float32:
+        r, smem = F32_BWD_ROWS, _f32_bwd_smem(hd)
+        return BwdPlan(BWD_F32, r, r, r, r, (0, 0), (b * h, _cdiv(s, r)),
+                       (b * kv, _cdiv(s, r)), (smem, smem))
+    raise TypeError(f"no K3 backward variant for {dtype}")
+
+
+def schedule_words(p: BwdPlan) -> List[int]:
+    """The bf16 kernels' schedule as they read it (int32): for the dQ
+    kernel, then the dK / dV kernel, ``blocks + 1`` offsets and then the
+    items, block ``c`` taking items ``[offsets[c], offsets[c + 1])``."""
+    out: List[int] = []
+    for sched in (p.schedule_dq, p.schedule_dkdv):
+        offsets = [0]
+        for items in sched:
+            offsets.append(offsets[-1] + len(items))
+        out += offsets + [i for items in sched for i in items]
+    return out
+
+
+# each bf16 plan's schedule on each card, made once
+_SCHEDULES: Dict[Tuple[int, int], Tuple[BwdPlan, torch.Tensor]] = {}
+
+
+def _schedule_tensor(p: BwdPlan, device: torch.device) -> torch.Tensor:
+    key = (id(p), device.index)
+    hit = _SCHEDULES.get(key)
+    if hit is None or hit[0] is not p:
+        t = torch.tensor(schedule_words(p), dtype=torch.int32).to(device)
+        hit = _SCHEDULES[key] = (p, t)
+    return hit[1]
 
 
 def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -473,32 +601,56 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
                                          scale=scale)
     _check_train_shape(hd, hv)
-    p = plan_bwd(b, s, h, kv, hd, q.dtype)
+    return bwd_launch(do, q, k, v, o, lse, causal, scale, BWD_BOTH)[:3]
+
+
+def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+               causal: bool, scale: float, parts: int,
+               scratch: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, ...]:
+    """The kernels of ``flash_attention_bwd`` on CUDA tensors it accepts:
+    ``parts`` ``BWD_DQ`` (the dQ kernel, which also writes the scratch),
+    ``BWD_DKDV`` (the dK / dV kernel, which reads it) or ``BWD_BOTH``;
+    returns (dq, dk, dv, scratch), the outputs a part did not launch
+    unwritten.  One call counts once.  To time the dK / dV kernel alone,
+    pass back the scratch of a ``BWD_BOTH`` call on the same inputs."""
+    b, s, h, kv, hd, _ = _validate(q, k, v)
+    p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device))
     if p.grid_dq[1] > 65535 or p.grid_dkdv[1] > 65535:
         raise ValueError(f"S = {s} exceeds the backward kernels' grid")
     q, k, v, o, do = (_kernel_operand(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    bf16 = p.variant == BWD_BF16
+    if scratch is None:
+        shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if bf16 \
+            else (b, h, s)
+        scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, s, kv, hv), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(int(st) for t in (q, k, v, o, do, dq, dk, dv)
           for st in t.stride()[:3]))
     lib = _bwd_library()
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr()]
+    if bf16:
+        head.append(_schedule_tensor(p, q.device).data_ptr())
+    tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd,
+            strides, float(scale), int(bool(causal)), p.q_rows, p.kv_rows,
+            p.q_step, p.kv_step]
+    if bf16:
+        tail += [p.stages[0], p.stages[1], p.grid_dq[0], p.grid_dkdv[0]]
     code = getattr(lib, p.variant)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, strides,
-        float(scale), int(bool(causal)), p.q_rows, p.kv_rows, p.q_step,
-        p.kv_step, q.device.index,
+        *head, *tail, int(parts), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[p.variant] += 1
     if code != 0:
         msg = lib.flash_attention_bwd_error_string(code).decode()
         raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
                            f"(cudaError {code})")
-    return dq, dk, dv
+    return dq, dk, dv, scratch
 
 
 class FlashAttention(torch.autograd.Function):

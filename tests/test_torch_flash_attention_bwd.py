@@ -170,25 +170,113 @@ def test_backward_rejects_mismatched_saved_tensors():
 # --- the backward's launch plan --------------------------------------------
 
 BF16, F32 = torch.bfloat16, torch.float32
+SMEM_LIMIT = 232_448      # shared memory a block may use on an H100 (227 KB)
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    # stablelm-1.6b training, B=1 S=4096: 32 heads of 64
-    ((1, 4096, 32, 32, 64), BF16, (k3.BWD_BF16, 64, 64, 64, 64, (32, 64),
-                                   (32, 64))),
-    # qwen3-14b: 40 heads, 8 kv heads of 128 (dK / dV step 32 query rows)
-    ((1, 2048, 40, 8, 128), BF16, (k3.BWD_BF16, 64, 64, 32, 64, (40, 32),
-                                   (8, 32))),
-    ((1, 512, 32, 32, 64), F32, (k3.BWD_F32, 32, 32, 32, 32, (32, 16),
-                                 (32, 16))),
-    ((2, 1000, 4, 2, 128), F32, (k3.BWD_F32, 32, 32, 32, 32, (8, 32),
-                                 (4, 32))),
+    # stablelm-1.6b training, B=1 S=4096: 32 heads of 64; 1,024 items of
+    # each kernel over the 132 SMs; the dQ kernel steps 128 keys at hd 64
+    ((1, 4096, 32, 32, 64), BF16, (k3.BWD_BF16, 128, 128, 64, 128, (4, 4),
+                                   (132, 1), (132, 1), (197792, 134240))),
+    # qwen3-14b: 40 heads, 8 kv heads of 128: 640 dQ items, 128 dK / dV
+    # items (one a block); three ring slots fill the 227 KB
+    ((1, 2048, 40, 8, 128), BF16, (k3.BWD_BF16, 128, 128, 64, 64, (3, 3),
+                                   (132, 1), (128, 1), (230528, 232016))),
+    ((1, 512, 32, 32, 64), F32, (k3.BWD_F32, 32, 32, 32, 32, (0, 0),
+                                 (32, 16), (32, 16), (41984, 41984))),
+    ((2, 1000, 4, 2, 128), F32, (k3.BWD_F32, 32, 32, 32, 32, (0, 0),
+                                 (8, 32), (4, 32), (74752, 74752))),
 ])
 def test_plan_bwd_of_the_model_shapes(shape, dtype, want):
     p = k3.plan_bwd(*shape, dtype)
-    assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.grid_dq,
-            p.grid_dkdv) == want
+    assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
+            p.grid_dq, p.grid_dkdv, p.smem) == want
+    assert max(p.smem) <= SMEM_LIMIT
     assert k3.plan_bwd(*shape, dtype) is p          # pure, cached
+
+
+# (B, S, H, KV): stablelm, qwen3, a ragged S with GQA, more items than SMs
+SCHEDULE_SHAPES = [(1, 4096, 32, 32), (1, 2048, 40, 8), (2, 1000, 4, 2),
+                   (8, 1024, 32, 32)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES)
+def test_bwd_schedule_covers_every_item_once_heaviest_first(shape, causal):
+    """Each kernel's schedule holds every (b, head or kv head, block) item
+    exactly once; every block's list runs heaviest first; no block gets
+    more than the even share plus one item (LPT's bound); the grid is the
+    SM count or the item count, whichever is smaller."""
+    b, s, h, kv = shape
+    p = k3.plan_bwd(b, s, h, kv, 64, BF16, causal)
+    nq = -(-s // 128)
+    work_dq, work_dkdv = k3.bwd_item_work(b, s, h, kv, causal)
+    assert len(work_dq) == b * h * nq and len(work_dkdv) == b * kv * nq
+    for sched, work, grid in ((p.schedule_dq, work_dq, p.grid_dq),
+                              (p.schedule_dkdv, work_dkdv, p.grid_dkdv)):
+        assert grid == (min(len(work), k3.H100_SMS), 1)
+        assert len(sched) == grid[0] and all(sched)
+        assert sorted(i for items in sched for i in items) \
+            == list(range(len(work)))
+        for items in sched:
+            w = [work[i] for i in items]
+            assert w == sorted(w, reverse=True)
+        loads = [sum(work[i] for i in items) for items in sched]
+        assert max(loads) <= sum(work) / len(sched) + max(work)
+        # the first item of every block is among the heaviest
+        firsts = sorted((work[items[0]] for items in sched), reverse=True)
+        assert firsts == sorted(work, reverse=True)[:len(sched)]
+
+
+def test_bwd_item_work_counts_the_tiles_each_item_walks():
+    # S = 300: 3 dQ items of 128 rows a head, 5 kv tiles of 64 keys
+    dq, dkdv = k3.bwd_item_work(1, 300, 4, 2, causal=True)
+    assert dq == [2 + 1, 4 + 1, 5 + 1] * 4
+    # a dK / dV item walks G = 2 heads from its first visible q tile
+    assert dkdv == [2 * 5 + 1, 2 * 3 + 1, 2 * 1 + 1] * 2
+    dq, dkdv = k3.bwd_item_work(1, 300, 4, 2, causal=False)
+    assert dq == [6] * 12 and dkdv == [11] * 6
+
+
+def test_schedule_words_are_offsets_then_items_per_kernel():
+    p = k3.plan_bwd(1, 300, 4, 2, 64, BF16)
+    words = k3.schedule_words(p)
+    n_dq, n_kv = p.grid_dq[0], p.grid_dkdv[0]
+    offsets, rest = words[:n_dq + 1], words[n_dq + 1:]
+    assert offsets[0] == 0 and offsets[-1] == 12
+    for c, items in enumerate(p.schedule_dq):
+        assert tuple(rest[offsets[c]:offsets[c + 1]]) == items
+    rest = rest[12:]
+    assert rest[:n_kv + 1][-1] == 6 and len(rest) == n_kv + 1 + 6
+    assert tuple(rest[n_kv + 1:]) == sum(p.schedule_dkdv, ())
+
+
+def test_bwd_plan_matches_the_source_constants():
+    """The plan's tiles, ring depths and shared memory are the ones the
+    kernels are compiled with (``kRows``, ``kStep``, ``dq_step``,
+    ``dq_stages``, ``dkdv_stages``; the layout ``_bwd_smem`` mirrors)."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    assert re.search(rf"constexpr int kRows = {k3.BWD_ROWS};", src)
+    assert re.search(rf"constexpr int kStep = {k3.BWD_STEP};", src)
+    assert re.search(rf"constexpr int kF = {k3.F32_BWD_ROWS};", src)
+    for fn, want in (("dq_stages", k3._bwd_stages), ("dkdv_stages",
+                                                     k3._bwd_stages),
+                     ("dq_step", k3._dq_step)):
+        m = re.search(rf"{fn}\(\) {{\s*return D == 64 \? (\d+) : (\d+);",
+                      src)
+        assert m and (int(m[1]), int(m[2])) == (want(64), want(128)), fn
+    for hd in (64, 128):
+        assert max(k3._bwd_smem(hd, k3._bwd_stages(hd))) <= SMEM_LIMIT
+
+
+def test_bwd_source_adds_no_float_atomics_to_its_outputs():
+    """dQ, dK and dV are each written once, by plain stores from the block
+    that owns them, so two runs are bitwise equal: no atomicAdd, no red.
+    (reduction) instruction, no atom. anywhere in the source."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    for word in ("atomicAdd", "atomicCAS", "red.", "atom."):
+        assert word not in code, word
 
 
 @pytest.mark.parametrize("hd", [16, 32, 256])
@@ -204,18 +292,24 @@ def test_plan_bwd_refuses_other_dtypes(dtype):
 
 
 def test_bwd_source_defines_the_bound_entry_points():
-    """One C entry point per backward ``LAUNCHES`` key; no float atomics
-    (two runs bitwise); mma.sync on bf16; every kernel's name starts with
-    ``flash_bwd_`` (the profiler's symbol); the build compiles the source
-    with FMA contraction and without fast math, like the forward."""
+    """One C entry point per backward ``LAUNCHES`` key; bf16 on ``wgmma``
+    fed by TMA and a loader warpgroup (no ``mma.sync``); every kernel's name
+    starts with ``flash_bwd_`` (the profiler's symbol); the build compiles
+    the source with FMA contraction and without fast math, like the
+    forward."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
     for name in list(k3.BWD_VARIANTS) + ["flash_attention_bwd_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "atomicAdd" not in src and "red.global" not in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "mma.sync" not in src and "ldmatrix" not in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
+    assert "setmaxnreg.dec" in src and "setmaxnreg.inc" in src
+    assert "tma_load_4d(" in src
     kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
     assert len(kernels) == src.count("__global__") == 4
     assert all(name.startswith("flash_bwd_") for name in kernels)
+    assert {"flash_bwd_dq_bf16_tc_kernel",
+            "flash_bwd_dkdv_bf16_tc_kernel"} <= set(kernels)
     assert "repro/kernels/flash_attention.py::_flash_kernel" in src
     assert "--use_fast_math" not in build.flags(k3.BWD_SOURCE)
     assert "-fmad=false" not in build.flags(k3.BWD_SOURCE)
