@@ -362,11 +362,11 @@ def phase_build() -> dict:
         build.build_logs[k3.BWD_SOURCE])
     bwd = [r for r in out[k3.BWD_SOURCE]["kernels"]
            if any(name in r["kernel"] for name in BWD_TC_KERNELS)]
-    if len(bwd) != 4 or any(r["spill_stores"] or r["spill_loads"]
-                            for r in bwd):
-        raise AssertionError(f"K3's bf16 backward kernels (dQ and dK / dV "
-                             f"at hd 64 and 128) spill (or are missing "
-                             f"from the ptxas report): {bwd}")
+    if len(bwd) != 2 * len(BWD_TC_KERNELS) or any(
+            r["spill_stores"] or r["spill_loads"] for r in bwd):
+        raise AssertionError(f"K3's backward kernels (dQ and dK / dV, bf16 "
+                             f"and float32, at hd 64 and 128) spill (or are "
+                             f"missing from the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
              if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
@@ -3693,33 +3693,43 @@ RESUME_STEPS, RESUME_EVERY, RESUME_DEPTH = 4, 2, 2
 # to bf16 for the tensor-core products, the plain version keeps float32),
 # float32 1e-4 (sums in other orders)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# (case, B, S, H, KV, d, causal, dtypes): the two model shapes in both
-# dtypes; a ragged S and a non-causal GQA call in bf16, which the model
-# shapes do not reach
-BF16_ONLY = (torch.bfloat16,)
+# (case, B, S, H, KV, d, causal, dtypes): the two model shapes, a ragged S
+# and a non-causal GQA call (which the model shapes do not reach), each in
+# both dtypes
 BOTH_DTYPES = (torch.bfloat16, torch.float32)
 BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
              ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, True, BOTH_DTYPES),
-             ("ragged_b2_s1000", 2, 1000, 4, 4, 64, True, BF16_ONLY),
-             ("noncausal_b1_s512_gqa", 1, 512, 8, 2, 128, False, BF16_ONLY))
+             ("ragged_b2_s1000", 2, 1000, 4, 4, 64, True, BOTH_DTYPES),
+             ("noncausal_b1_s512_gqa", 1, 512, 8, 2, 128, False,
+              BOTH_DTYPES))
 BWD_HEADLINE = "stablelm_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
-# the bf16 backward's two kernels (ptxas must report no spills for them)
+# the backward's tensor-core kernels, bf16 (wgmma) and float32 (3xTF32 on
+# mma.sync), each at hd 64 and 128: ptxas must report no spills for them
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
-                  "flash_bwd_dkdv_bf16_tc_kernel")
+                  "flash_bwd_dkdv_bf16_tc_kernel",
+                  "flash_bwd_dq_f32_tc_kernel",
+                  "flash_bwd_dkdv_f32_tc_kernel")
 
 
 def flash_bwd_bound(b, s, h, kv, d, causal, dtype) -> dict:
     """Least time for one backward call: q, k, v, o, do and the float32
     log-sum-exp read once, dq, dk, dv written once; five products over the
     visible pairs (S again, dP, dV, dQ, dK): 2 B H pairs 5 d operations,
-    2.5 times the forward's, at the dtype's peak."""
+    2.5 times the forward's, at the dtype's peak.  float32 also gets
+    ``units_bound_ms``: the same work at the rate of the units the kernels
+    run it on, 3xTF32 on the TF32 tensor cores (495 / 3 TFLOP/s)."""
     e = torch.finfo(dtype).bits // 8
     # q, o, do, dq: [B, S, H, d]; k, v, dk, dv: [B, S, KV, d]; lse float32
     nbytes = 4 * b * s * (h + kv) * d * e + b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
-    return bound(nbytes, 2 * b * h * pairs * 5 * d, dtype)
+    ops = 2 * b * h * pairs * 5 * d
+    out = bound(nbytes, ops, dtype)
+    if dtype == torch.float32:
+        out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
+                                    ops / (TF32_FLOPS / 3)) * 1e3
+    return out
 
 
 class StepClock:
@@ -4074,6 +4084,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
            "plain_ms": time_ms(lambda: k3.flash_attention_bwd_plain(
                do, q, k, v, o, lse, causal=causal), 1, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "units_bound_ms": bd.get("units_bound_ms"),
            "library_ms": time_ms(lambda: torch.autograd.grad(
                lib_o, (qs, ks, vs), do_t, retain_graph=True), 10)}
     us = device_us({"bwd": (run, BWD_SYMBOL)}, reps=5)
@@ -4110,7 +4121,9 @@ def phase_training(device, seed: int) -> dict:
                          "device_ms: the backward's two kernels "
                          "(torch.profiler); bound = max(bytes of q, k, v, o, "
                          "do, lse, dq, dk, dv / 3.35 TB/s, 2 B H pairs 5 d / "
-                         "peak: 989 TFLOP/s bf16, 67 f32)"})
+                         "peak: 989 TFLOP/s bf16, 67 f32); units_bound "
+                         "(float32): the same operations at 495 / 3 TFLOP/s, "
+                         "3xTF32 on the tensor cores"})
     return out
 
 
@@ -4139,13 +4152,14 @@ def bwd_rows(training, ptxas) -> list:
             "plan": head["plan"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "units_bound_ms": head["units_bound_ms"],
             "device_ms": head["device_ms"], "dq_ms": head["dq_ms"],
             "dkdv_ms": head["dkdv_ms"],
             "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
             "model_shapes": [{k: r[k] for k in (
                 "case", "B", "S", "H", "KV", "hd", "causal", "ms",
                 "dq_ms", "dkdv_ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs_err",
+                "bound_by", "units_bound_ms", "library_ms", "max_abs_err",
                 "rel_err_dq_dk_dv")} for r in cases],
             "ptxas": [r for r in ptxas if "flash_bwd_" in r["kernel"]
                       and ("bf16" if dtype == torch.bfloat16 else "f32")

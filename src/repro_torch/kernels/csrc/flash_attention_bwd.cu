@@ -100,11 +100,54 @@
 //       the products of q tile i issue together with dV and dK of tile
 //       i - 1 (at D = 128 the registers do not hold both).  dK and dV stay
 //       in registers across the group's heads and are stored once.
-//   flash_bwd_dq_f32_kernel<D>, flash_bwd_dkdv_f32_kernel<D>   float32 on
-//     the CUDA cores (the reference's float32 attention is IEEE float32):
-//     256 threads a 32-row block; thread (r, c) = (t / 8, t % 8) computes
-//     the scores of row r and columns c + 8 j and owns accumulator columns
-//     c + 8 j; P and dS go through shared memory once a tile.
+//   flash_bwd_dq_f32_tc_kernel<D>, flash_bwd_dkdv_f32_tc_kernel<D>   float32,
+//     D in {64, 128}: every product -- S and dP in both kernels, dQ, dV, dK
+//     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
+//     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
+//     + hi lo + hi hi, the small terms first, into a float32 accumulator;
+//     the helpers are hopper.cuh's, which K4 shares).  That is
+//     float32-accurate to ~1e-6 relative, inside every float32 gate, so the
+//     kernels ignore torch.backends.cuda.matmul.allow_tf32: one-pass TF32
+//     keeps ~3 decimal digits, which a gate of 1e-4 of scale does not
+//     allow.  They replace kernels that ran every product on the CUDA
+//     cores, a serial fmaf chain out of shared memory for each score.
+//     Bound: operations.  The 5 products at 3xTF32 (495 / 3 TFLOP/s) take
+//     1.04 ms at stablelm-1.6b's B=1 S=4096 H=32 D=64 and 0.65 ms at
+//     qwen3-14b's B=1 S=2048 H=40 KV=8 D=128; the 7 of the two passes 1.46
+//     / 0.91 ms (the CUDA cores' 67 TFLOP/s: 2.57 / 1.60 ms for 5).
+//     mma.sync reaches the tensor cores at well under wgmma's rate, and
+//     each product here costs three of them, the splits and the fragment
+//     loads, all executed by the warp; wgmma (TF32 from shared memory,
+//     K-major operands only) is the route past that.
+//     Items are 64 query rows (dQ) or 64 keys (dK / dV), one block each; the
+//     grid lists them heaviest first, so the hardware, handing blocks out in
+//     order, deals them longest first.  The item's resident tiles (Q and
+//     dO, or K and V) load once; the streamed ones (K and V, or the head's
+//     Q and dO with their lse and D) of f32_step rows come through a ring of
+//     two slots by 16-byte cp.async, the next tile under this one's
+//     products.  Shared rows of D + 4 floats keep both reads of a tile
+//     conflict-free.  The accumulator fragment of S or dP is the A fragment
+//     of the next product once the reduction index is relabelled (relabel_a,
+//     frag_b), so P and dS stay in registers where the warp that made them
+//     uses them.  Operands are split as they are read from shared memory.
+//     Each 16 x 8 block of dQ, dK or dV adds a tile's sum, made in a fresh
+//     accumulator, in float32: mma.sync's accumulation truncates, and over a
+//     whole row of S = 4096 it drifted to ~1e-4 of scale.  A warp skips a
+//     tile the causal mask hides from all its rows; the diagonal tile and
+//     keys (rows) past S are masked by selects, past S even when not causal
+//     (a zero K gives P = e^-lse, not 0).
+//     dQ: 4 warps, warp w owns rows 16 w .. 16 w + 15 and computes S, dP,
+//       P, dS and dQ for them; it also writes D of its rows to the scratch.
+//     dK / dV: 8 warps; warps 2 w and 2 w + 1 share keys 16 w .. 16 w + 15.
+//       The first computes S^T and P^T, hands P^T to the second through
+//       shared memory and adds P^T dO to dV; the second computes dP^T and
+//       dS^T and adds dS^T Q to dK.  Each warp holds one accumulator (dK and
+//       dV together are 128 registers a thread at D = 128) and runs 2 of the
+//       4 products.  An item is one head: one that walked a GQA group's G
+//       heads in turn set the pass's time (qwen3's 256 such items on 132
+//       SMs), so with GQA each item writes float32 partials and
+//       flash_bwd_dkdv_sum_f32_kernel adds a group's G of them in head
+//       order.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -143,17 +186,25 @@ struct Params {
   int s_pad;             // bf16: S rounded up to whole 128-row tiles
   const int* sched_dq;   // bf16: each kernel's schedule, offsets [blocks +
   const int* sched_kv;   //   1] then items (flash_attention_bwd_bf16)
+  // float32 with H > KV: the dK / dV kernel's per-head partial dK, then
+  // dV [B, S, H, D], which flash_bwd_dkdv_sum_f32_kernel sums by group
+  float* part;
+  int64_t part_half;     // B S H D: where the dV partials start
   int64_t st[3 * kTensors];
   float scale;
   int causal;
 };
 
+// a non-negative index as a 64-bit offset, zero-extended: no register has
+// to keep its sign word (which, held across a loop, can cost a spill)
+__device__ __forceinline__ int64_t u64(int i) { return (int64_t)(uint32_t)i; }
+
 // the (b, head) base of tensor T and its row stride
 template <typename E, int T>
 __device__ __forceinline__ E* base(const Params& p, const void* ptr, int b,
                                    int head) {
-  return const_cast<E*>(static_cast<const E*>(ptr)) + b * p.st[3 * T] +
-         head * p.st[3 * T + 2];
+  return const_cast<E*>(static_cast<const E*>(ptr)) + u64(b) * p.st[3 * T] +
+         u64(head) * p.st[3 * T + 2];
 }
 template <int T>
 __device__ __forceinline__ int64_t row_stride(const Params& p) {
@@ -1052,183 +1103,486 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// --- float32, CUDA cores --------------------------------------------------------
+// --- float32, 3xTF32 on mma.sync ------------------------------------------------
 
-constexpr int kF = 32;           // rows (dQ) or keys (dK / dV) a block; the
-                                 // tile it walks
-constexpr int kFThreads = 256;   // thread t: row t / 8, columns t % 8 + 8 j
+constexpr int kF = 64;           // rows (dQ) or keys (dK / dV) of an item
+constexpr int kFThreads = 128;   // the dQ kernel's block: 4 warps of 16 rows
+constexpr int kKVThreads = 256;  // the dK / dV kernel's: 4 pairs of warps
+constexpr int kFStages = 2;      // ring slots of the streamed tiles
 
+// keys (dQ) or query rows (dK / dV) of a streamed tile: with 32 at D =
+// 64 and 16 at D = 128 two blocks of each kernel fit an SM and ptxas
+// needs no spill (dQ at D = 128 alone holds 64 accumulator registers a
+// thread)
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (4 * kF * (D + 1) + 2 * kF * (kF + 1) + 2 * kF) * 4;
+__host__ __device__ constexpr int f32_step() {
+  return D == 64 ? 32 : 16;
 }
 
-// rows [r0, r0 + kF) of a [S, D] float32 view into a [kF][D + 1] tile
-// (the odd row length keeps a warp's column reads on distinct banks); rows
-// past S are zeros
+// shared rows are D + 4 floats: a row stride of 4 (mod 32) words puts both
+// ways a tile is read on 32 distinct banks -- element [g][t] (A fragments,
+// B of S = Q K^T) at bank 4 g + t, element [2 t][g] (B of dQ = dS K, dV =
+// P^T dO, dK = dS^T Q) at 8 t + g -- and keeps every row whole 16-byte
+// chunks for cp.async
 template <int D>
-__device__ __forceinline__ void load_f32(float* dst, const float* src,
-                                         int64_t st, int r0, int S) {
-  for (int i = threadIdx.x; i < kF * D; i += kFThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? src[(int64_t)(r0 + r) * st + c] : 0.0f;
+constexpr int f32_dq_smem_bytes() {  // Q, dO; the ring's K, V
+  return (2 * kF + kFStages * 2 * f32_step<D>()) * (D + 4) * 4;
+}
+template <int D>
+constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring's Q, dO, lse, D
+  return (2 * kF * (D + 4) + kF * (f32_step<D>() + 8) +
+          kFStages * 2 * f32_step<D>() * (D + 5)) * 4;
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared::cta.global [%0], [%1], 4, %2;\n" ::"r"(
+                   dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a [S, D] float32 view (row stride st) into
+// shared rows of D + 4 floats, by 16-byte cp.async; zeros past S
+template <int D, int ROWS, int THREADS = kFThreads>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int64_t st, int r0, int S) {
+  constexpr int kChunks = D / 4;
+  static_assert(ROWS * kChunks % THREADS == 0, "whole rounds");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
+    const int i = (int)threadIdx.x + j * THREADS;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < S;
+    cp_async16(smem_u32(dst + r * (D + 4) + 4 * c),
+               src + (ok ? u64(r0 + r) * st + 4 * c : 0), ok);
   }
 }
 
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
+// the A fragment of rows row0 + (g, g + 8), columns c0 + (t, t + 4) of a
+// shared tile, split into TF32 hi and lo
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* s, int row0, int c0,
+                                       int g, int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float* p = s + (row0 + g) * LD + c0 + t;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[8 * LD], hi[1], lo[1]);
+  split_tf32<true>(p[4], hi[2], lo[2]);
+  split_tf32<true>(p[8 * LD + 4], hi[3], lo[3]);
 }
 
+// the B fragment of a product against a shared tile's transpose (S = Q
+// K^T): B[k][n] = s[n0 + n][k0 + k], so b0 = s[n0 + g][k0 + t], b1 =
+// s[n0 + g][k0 + t + 4]
+template <int LD>
+__device__ __forceinline__ void frag_bt(const float* s, int n0, int k0, int g,
+                                        int t, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  const float* p = s + (n0 + g) * LD + k0 + t;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[4], hi[1], lo[1]);
+}
+
+// the B fragment of a product against a shared tile as it lies (dQ = dS
+// K), with the reduction index relabelled so that an accumulator fragment
+// is the A fragment as it stands: k-slot t is row k0 + 2 t, k-slot t + 4
+// row k0 + 2 t + 1 (see relabel_a)
+template <int LD>
+__device__ __forceinline__ void frag_b(const float* s, int k0, int n0, int g,
+                                       int t, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[LD], hi[1], lo[1]);
+}
+
+// an accumulator fragment c (rows g, g + 8; columns 2 t, 2 t + 1 of 8) as
+// the A fragment of the next product: {c0, c2, c1, c3} puts column 2 t in
+// k-slot t and column 2 t + 1 in k-slot t + 4, which frag_b matches; the
+// sum over the 8 columns only changes its order, the same in every run
+__device__ __forceinline__ void relabel_a(const float (&c)[4],
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_tf32<true>(c[0], hi[0], lo[0]);
+  split_tf32<true>(c[2], hi[1], lo[1]);
+  split_tf32<true>(c[1], hi[2], lo[2]);
+  split_tf32<true>(c[3], hi[3], lo[3]);
+}
+
+// d += a b in float32 as 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b),
+// the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// s = A B^T over the D columns for a warp's 16 rows row0.. of a resident
+// tile A against the NT * 8 rows of a streamed tile B (S = Q K^T in the dQ
+// kernel; S^T = K Q^T, dP^T = V dO^T in the dK / dV kernel)
+template <int D, int NT>
+__device__ __forceinline__ void scores_f32(const float* A, const float* B,
+                                           int row0, int g, int t,
+                                           float (&s)[NT][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+  // unrolled as far as the 128 registers of the dK / dV kernel's two
+  // blocks an SM allow without a spill (ptxas)
+  constexpr int kUnroll = D == 64 ? 2 : 4;
+#pragma unroll kUnroll
+  for (int kd = 0; kd < D / 8; ++kd) {
+    uint32_t ah[4], al[4];
+    frag_a<LD>(A, row0, 8 * kd, g, t, ah, al);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bh[2], bl[2];
+      frag_bt<LD>(B, 8 * n, 8 * kd, g, t, bh, bl);
+      mma_3xtf32(s[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc += c B: c a warp's [16][NT * 8] accumulator fragments (P or dS),
+// B the streamed tile's [NT * 8][D] rows as they lie.  Each 16 x 8 block
+// of acc sums the tile in a fresh accumulator and adds it to acc in
+// float32: mma.sync's float32 accumulation truncates, and over the
+// thousands of steps of a whole row it drifts toward zero (~1e-4 of scale
+// at S = 4096), where the tile's sum of 3 NT steps does not.
+template <int D, int NT>
+__device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
+                                               const float* B, int g, int t,
+                                               float (&acc)[D / 8][4]) {
+  constexpr int LD = D + 4;
+  uint32_t ah[NT][4], al[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) relabel_a(c[kk], ah[kk], al[kk]);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t bh[2], bl[2];
+      frag_b<LD>(B, 8 * kk, 8 * n, g, t, bh, bl);
+      mma_3xtf32(part, ah[kk], al[kk], bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// dQ: an item is kF query rows of one (b, h), blockIdx.x = (the item's
+// q-block, heaviest first under causal) * B H + b H + h.  Q and dO stay;
+// K and V tiles of f32_step keys stream through a ring of kFStages slots,
+// from key 0 to the item's last row (to S when not causal).  D of the rows
+// goes to the scratch for the dK / dV kernel.
 template <int D>
-__global__ void __launch_bounds__(kFThreads)
-flash_bwd_dq_f32_kernel(const Params p) {
-  constexpr int LD = D + 1, LP = kF + 1;
+__global__ void __launch_bounds__(kFThreads, 2)
+flash_bwd_dq_f32_tc_kernel(const Params p) {
+  constexpr int LD = D + 4, KT = f32_step<D>(), NT = KT / 8;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;               // [kF][LD]
   float* dOs = Qs + kF * LD;     // [kF][LD]
-  float* Ks = dOs + kF * LD;     // [kF][LD]
-  float* Vs = Ks + kF * LD;      // [kF][LD]
-  float* dSs = Vs + kF * LD;     // [kF][LP]
+  float* ring = dOs + kF * LD;   // kFStages x (K [KT][LD], V [KT][LD])
 
-  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
-  const int bh = blockIdx.x;
-  const int qb = p.causal ? (int)gridDim.y - 1 - (int)blockIdx.y
-                          : (int)blockIdx.y;
-  const int q0 = qb * kF, row = q0 + r;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (p.S + kF - 1) / kF, BH = (int)gridDim.x / nq;
+  const int qb = p.causal ? nq - 1 - (int)blockIdx.x / BH
+                          : (int)blockIdx.x / BH;
+  const int bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+  const int q0 = qb * kF, r0 = q0 + 16 * warp;  // the warp's first row
   const float* kp = base<const float, kK>(p, p.k, b, kvh);
   const float* vp = base<const float, kV>(p, p.v, b, kvh);
-  const float* op = base<const float, kO>(p, p.o, b, h);
-  load_f32<D>(Qs, base<const float, kQ>(p, p.q, b, h), row_stride<kQ>(p), q0,
-              p.S);
-  load_f32<D>(dOs, base<const float, kDO>(p, p.dout, b, h),
-              row_stride<kDO>(p), q0, p.S);
-  __syncthreads();
 
-  // D of row r: columns c + 8 j here, the 8 threads of the row after
-  float dsum = 0.0f;
-  if (row < p.S) {
-    const float* orow = op + (int64_t)row * row_stride<kO>(p);
-    for (int d = c; d < D; d += 8) dsum = fmaf(dOs[r * LD + d], orow[d], dsum);
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-  const int64_t lrow = (int64_t)bh * p.S;
-  if (c == 0 && row < p.S) p.dd[lrow + row] = dsum;
-  const float lse = row < p.S ? p.lse[lrow + row] : 0.0f;
-
-  float dq[D / 8];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dq[j] = 0.0f;
+  load_rows_f32<D, kF>(Qs, base<const float, kQ>(p, p.q, b, h),
+                       row_stride<kQ>(p), q0, p.S);
+  load_rows_f32<D, kF>(dOs, base<const float, kDO>(p, p.dout, b, h),
+                       row_stride<kDO>(p), q0, p.S);
+  cp_async_commit();
   const int kv_end = p.causal ? min(q0 + kF, p.S) : p.S;
-  for (int k0 = 0; k0 < kv_end; k0 += kF) {
-    load_f32<D>(Ks, kp, row_stride<kK>(p), k0, p.S);
-    load_f32<D>(Vs, vp, row_stride<kV>(p), k0, p.S);
-    __syncthreads();
+  const int tiles = (kv_end + KT - 1) / KT;
+  load_rows_f32<D, KT>(ring, kp, row_stride<kK>(p), 0, p.S);
+  load_rows_f32<D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.S);
+  cp_async_commit();
+
+  // lse and D of rows g, g + 8 (D: the warp sums each of its rows, the
+  // first kv tile loading meanwhile)
+  const int64_t lrow = u64(bh) * p.S;
+  float lse[2], dd[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kF / 8; ++j) {
-      const int kl = c + 8 * j, key = k0 + kl;
-      const float s = dot_rows<D>(Qs + r * LD, Ks + kl * LD);
-      const float dp = dot_rows<D>(dOs + r * LD, Vs + kl * LD);
-      float pe = expf(s * p.scale - lse);
-      if (key >= p.S || (p.causal && key > row)) pe = 0.0f;
-      dSs[r * LP + kl] = pe * (dp - dsum) * p.scale;
-    }
-    __syncthreads();
-    for (int kl = 0; kl < kF; ++kl) {
-      const float ds = dSs[r * LP + kl];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        dq[j] = fmaf(ds, Ks[kl * LD + c + 8 * j], dq[j]);
-    }
-    __syncthreads();  // K, V and dS are refilled next
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    lse[i] = row < p.S ? p.lse[lrow + row] : 0.0f;
   }
-  if (row < p.S) {
-    float* out = base<float, kDQ>(p, p.dq, b, h) +
-                 (int64_t)row * row_stride<kDQ>(p);
+  cp_async_wait<1>();
+  __syncthreads();
+  {
+    const float* op = base<const float, kO>(p, p.o, b, h);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) out[c + 8 * j] = dq[j];
+    for (int r = 0; r < 16; ++r) {
+      const int row = r0 + r;
+      float acc = 0.0f;
+      if (row < p.S) {
+        const float* orow = op + u64(row) * row_stride<kO>(p);
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j)
+          acc = fmaf(dOs[(16 * warp + r) * LD + lane + 32 * j],
+                     orow[lane + 32 * j], acc);
+      }
+      acc = warp_sum(acc);
+      if (r == g) dd[0] = acc;
+      if (r == g + 8) dd[1] = acc;
+      if (lane == 0 && row < p.S) p.dd[lrow + row] = acc;
+    }
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      float* nxt = ring + ((it + 1) % kFStages) * 2 * KT * LD;
+      load_rows_f32<D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.S);
+      load_rows_f32<D, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
+                           (it + 1) * KT, p.S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = it * KT;
+    // a tile whose keys all lie above the warp's rows adds nothing to them
+    if (!p.causal || k0 <= r0 + 15) {
+      const float* Ks = ring + (it % kFStages) * 2 * KT * LD;
+      const float* Vs = Ks + KT * LD;
+      float s[NT][4], dp[NT][4];
+      scores_f32<D, NT>(Qs, Ks, 16 * warp, g, t, s);
+      scores_f32<D, NT>(dOs, Vs, 16 * warp, g, t, dp);
+      // P = exp(S scale - lse), 0 for keys past S or above the row; dS /
+      // scale = P (dP - D) into dp
+      const bool edge = k0 + KT > p.S || (p.causal && k0 + KT - 1 > r0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pe = expf(s[n][e] * p.scale - lse[e >> 1]);
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = r0 + g + 8 * (e >> 1);
+          if (edge && (key >= p.S || (p.causal && key > row))) pe = 0.0f;
+          dp[n][e] = pe * (dp[n][e] - dd[e >> 1]);
+        }
+      accumulate_f32<D, NT>(dp, Ks, g, t, dq);
+    }
+    __syncthreads();  // the slot is refilled next
+  }
+
+  float* dqp = base<float, kDQ>(p, p.dq, b, h);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= p.S) continue;
+    float* out = dqp + u64(row) * row_stride<kDQ>(p);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) = make_float2(
+          dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
   }
 }
 
+// dK / dV: an item is kF keys and one head, blockIdx.x = (the item's key
+// block, heaviest first under causal) * B H + b H + h.  K and V of the
+// head's kv head stay; the head's Q and dO tiles of f32_step rows, with
+// their lse and D (the dQ kernel's scratch), stream through a ring of
+// kFStages slots from the first row that sees the item's keys.  Warps 2 w
+// and 2 w + 1 share the keys 16 w .. 16 w + 15: per tile the first (the P
+// warp) computes S^T and P^T, hands P^T to the second through shared
+// memory and adds P^T dO to dV; the second (the dS warp) computes dP^T and
+// dS^T = P^T (dP^T - D) and adds dS^T Q to dK.  Each warp runs 2 of the 4
+// products and holds one accumulator, so neither holds dK and dV (128
+// registers a thread at D = 128) beside the scores.  Without GQA the item
+// writes dk, dv; with it, its head's float32 partials, which
+// flash_bwd_dkdv_sum_f32_kernel adds up by group in head order.
+// rows [qt0, qt0 + f32_step) of head h's Q and dO, with their lse and D,
+// into a dK / dV ring slot: [QT][D + 4] Q, then dO, then QT lse, QT D
 template <int D>
-__global__ void __launch_bounds__(kFThreads)
-flash_bwd_dkdv_f32_kernel(const Params p) {
-  constexpr int LD = D + 1, LP = kF + 1;
+__device__ __forceinline__ void load_q_tile(const Params& p, float* slot,
+                                            int b, int h, int qt0) {
+  constexpr int QT = f32_step<D>(), LD = D + 4;
+  load_rows_f32<D, QT, kKVThreads>(slot, base<const float, kQ>(p, p.q, b, h),
+                                   row_stride<kQ>(p), qt0, p.S);
+  load_rows_f32<D, QT, kKVThreads>(slot + QT * LD,
+                                   base<const float, kDO>(p, p.dout, b, h),
+                                   row_stride<kDO>(p), qt0, p.S);
+  const int row = qt0 + (int)threadIdx.x % QT;
+  const float* src = threadIdx.x < QT ? p.lse : p.dd;
+  if (threadIdx.x < 2 * QT)
+    cp_async4(smem_u32(slot + 2 * QT * LD + threadIdx.x),
+              src + (row < p.S ? u64(b * p.H + h) * p.S + row : 0),
+              row < p.S);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kKVThreads, 2)
+flash_bwd_dkdv_f32_tc_kernel(const Params p) {
+  constexpr int LD = D + 4, QT = f32_step<D>(), NT = QT / 8, LP = QT + 8;
+  constexpr int kSlot = 2 * QT * LD + 2 * QT;  // Q, dO, lse, D
   extern __shared__ __align__(16) float fsm[];
   float* Ks = fsm;               // [kF][LD]
   float* Vs = Ks + kF * LD;      // [kF][LD]
-  float* Qs = Vs + kF * LD;      // [kF][LD]
-  float* dOs = Qs + kF * LD;     // [kF][LD]
-  float* Ps = dOs + kF * LD;     // [kF][LP]: P^T, key-major
-  float* dSs = Ps + kF * LP;     // [kF][LP]: dS^T
-  float* Ls = dSs + kF * LP;     // [kF]
-  float* Ds = Ls + kF;           // [kF]
+  float* Pt = Vs + kF * LD;      // [kF][LP]: P^T, from the P warps
+  float* ring = Pt + kF * LP;    // kFStages x kSlot
 
-  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
-  const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * kF, key = k0 + r;
-  const int b = bkv / p.KV, kvh = bkv % p.KV, G = p.H / p.KV;
-  load_f32<D>(Ks, base<const float, kK>(p, p.k, b, kvh), row_stride<kK>(p),
-              k0, p.S);
-  load_f32<D>(Vs, base<const float, kV>(p, p.v, b, kvh), row_stride<kV>(p),
-              k0, p.S);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool pwarp = (warp & 1) == 0;
+  const int r16 = 16 * (warp >> 1);  // the warp's first key in the item
+  const int nk = (p.S + kF - 1) / kF, BH = (int)gridDim.x / nk;
+  const int kb = (int)blockIdx.x / BH, bh = (int)blockIdx.x % BH;
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+  const int k0 = kb * kF, key0 = k0 + r16;
+  load_rows_f32<D, kF, kKVThreads>(Ks, base<const float, kK>(p, p.k, b, kvh),
+                                   row_stride<kK>(p), k0, p.S);
+  load_rows_f32<D, kF, kKVThreads>(Vs, base<const float, kV>(p, p.v, b, kvh),
+                                   row_stride<kV>(p), k0, p.S);
+  cp_async_commit();
 
-  float dk[D / 8], dv[D / 8];
+  // the query tiles of one head, from the first that sees a key here
+  // (k0 is a multiple of QT)
+  const int qs0 = p.causal ? k0 : 0;
+  load_q_tile<D>(p, ring, b, h, qs0);
+  cp_async_commit();
+
+  // P warp: dV; dS warp: dK / scale
+  float acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) dk[j] = dv[j] = 0.0f;
-  const int qs0 = p.causal ? k0 : 0;  // the first query that sees a key here
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const int64_t lrow = (int64_t)(b * p.H + h) * p.S;
-    for (int q0 = qs0; q0 < p.S; q0 += kF) {
-      load_f32<D>(Qs, base<const float, kQ>(p, p.q, b, h), row_stride<kQ>(p),
-                  q0, p.S);
-      load_f32<D>(dOs, base<const float, kDO>(p, p.dout, b, h),
-                  row_stride<kDO>(p), q0, p.S);
-      if (tid < kF) {
-        const bool ok = q0 + tid < p.S;
-        Ls[tid] = ok ? p.lse[lrow + q0 + tid] : 0.0f;
-        Ds[tid] = ok ? p.dd[lrow + q0 + tid] : 0.0f;
-      }
-      __syncthreads();
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < kF / 8; ++j) {
-        const int ql = c + 8 * j, query = q0 + ql;
-        const float s = dot_rows<D>(Ks + r * LD, Qs + ql * LD);
-        const float dp = dot_rows<D>(Vs + r * LD, dOs + ql * LD);
-        float pe = expf(s * p.scale - Ls[ql]);
-        if (query >= p.S || (p.causal && key > query)) pe = 0.0f;
-        Ps[r * LP + ql] = pe;
-        dSs[r * LP + ql] = pe * (dp - Ds[ql]) * p.scale;
-      }
-      __syncthreads();
-      for (int ql = 0; ql < kF; ++ql) {
-        const float pv = Ps[r * LP + ql], ds = dSs[r * LP + ql];
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  const float* A = pwarp ? Ks : Vs;
+  for (int qt0 = qs0, i = 0; qt0 < p.S; qt0 += QT, i ^= 1) {
+    if (qt0 + QT < p.S) load_q_tile<D>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qs = ring + i * kSlot;
+    const float* dOs = Qs + QT * LD;
+    const float* Ls = dOs + QT * LD;
+    const float* Ds = Ls + QT;
+    // a tile whose rows all lie before the warp's keys adds nothing to them
+    const bool active = !p.causal || qt0 + QT - 1 >= key0;
+    float c[NT][4];  // P warp: S^T, then P^T; dS warp: dP^T, then dS^T
+    if (active) {
+      scores_f32<D, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
+      if (pwarp) {
+        // P^T, 0 for rows past S or before the key
+        const bool edge = qt0 + QT > p.S || (p.causal && qt0 < key0 + 15);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          dv[j] = fmaf(pv, dOs[ql * LD + c + 8 * j], dv[j]);
-          dk[j] = fmaf(ds, Qs[ql * LD + c + 8 * j], dk[j]);
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = 8 * n + 2 * t + (e & 1), row = qt0 + ql;
+            const int key = key0 + g + 8 * (e >> 1);
+            float pe = expf(c[n][e] * p.scale - Ls[ql]);
+            if (edge && (row >= p.S || (p.causal && key > row))) pe = 0.0f;
+            c[n][e] = pe;
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<float2*>(Pt + (r16 + g + 8 * i) * LP + 8 * n +
+                                       2 * t) =
+                make_float2(c[n][2 * i], c[n][2 * i + 1]);
         }
       }
-      __syncthreads();  // Q, dO, P and dS are refilled next
     }
-  }
-  if (key < p.S) {
-    float* ko = base<float, kDK>(p, p.dk, b, kvh) +
-                (int64_t)key * row_stride<kDK>(p);
-    float* vo = base<float, kDV>(p, p.dv, b, kvh) +
-                (int64_t)key * row_stride<kDV>(p);
+    __syncthreads();  // P^T handed over
+    if (active) {
+      if (!pwarp) {
+        // dS^T / scale = P^T (dP^T - D)
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      ko[c + 8 * j] = dk[j];
-      vo[c + 8 * j] = dv[j];
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float2 pe = *reinterpret_cast<const float2*>(
+                Pt + (r16 + g + 8 * i) * LP + 8 * n + 2 * t);
+            const int ql = 8 * n + 2 * t;
+            c[n][2 * i] = pe.x * (c[n][2 * i] - Ds[ql]);
+            c[n][2 * i + 1] = pe.y * (c[n][2 * i + 1] - Ds[ql + 1]);
+          }
+      }
+      accumulate_f32<D, NT>(c, pwarp ? dOs : Qs, g, t, acc);
     }
+    __syncthreads();  // the slot and P^T are refilled next
+  }
+
+  // without GQA dk, dv; with it, the head's partials, rows of H D floats
+  float* out;
+  int64_t st;
+  if (p.H == p.KV) {
+    out = pwarp ? base<float, kDV>(p, p.dv, b, kvh)
+                : base<float, kDK>(p, p.dk, b, kvh);
+    st = pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p);
+  } else {
+    out = p.part + (pwarp ? p.part_half : 0) +
+          (u64(b) * p.S * p.H + h) * D;
+    st = (int64_t)p.H * D;
+  }
+  const float mul = pwarp ? 1.0f : p.scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + g + 8 * i;
+    if (key >= p.S) continue;
+    float* o = out + u64(key) * st;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
+}
+
+// dK and dV with GQA: for each (b, key, kv head), the sum of the group's G
+// float32 partials in head order (the same order in every run); 4 columns
+// a thread
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
+  const int G = p.H / p.KV;
+  const int64_t total = (int64_t)B * p.S * p.KV * (D / 4);
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i % (D / 4));
+    const int64_t r = i / (D / 4);
+    const int kvh = (int)(r % p.KV), key = (int)(r / p.KV % p.S);
+    const int b = (int)(r / p.KV / p.S);
+    const float* src = p.part + (((int64_t)b * p.S + key) * p.H + kvh * G) * D
+                       + 4 * c;
+    float4 k4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = k4;
+    for (int gi = 0; gi < G; ++gi) {
+      const float4 x = *reinterpret_cast<const float4*>(src + gi * D);
+      const float4 y =
+          *reinterpret_cast<const float4*>(src + p.part_half + gi * D);
+      k4.x += x.x; k4.y += x.y; k4.z += x.z; k4.w += x.w;
+      v4.x += y.x; v4.y += y.y; v4.z += y.z; v4.w += y.w;
+    }
+    *reinterpret_cast<float4*>(base<float, kDK>(p, p.dk, b, kvh) +
+                               key * row_stride<kDK>(p) + 4 * c) = k4;
+    *reinterpret_cast<float4*>(base<float, kDV>(p, p.dv, b, kvh) +
+                               key * row_stride<kDV>(p) + 4 * c) = v4;
   }
 }
 
@@ -1297,18 +1651,27 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
 }
 
 template <int D>
-int launch_f32(const Params& p, int B, int parts, int device, void* stream) {
-  static unsigned dq_done = 0, dkdv_done = 0;
+int launch_f32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
+               int device, void* stream) {
+  static unsigned dq_done = 0, kv_done = 0;
   if (parts & 1) {
-    cudaError_t err = launch(flash_bwd_dq_f32_kernel<D>, f32_smem_bytes<D>(),
-                             kFThreads, p, B * p.H, (p.S + kF - 1) / kF,
-                             &dq_done, device, stream);
+    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<D>,
+                             f32_dq_smem_bytes<D>(), kFThreads, p, ctas_dq,
+                             1, &dq_done, device, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  if (parts & 2)
-    return (int)launch(flash_bwd_dkdv_f32_kernel<D>, f32_smem_bytes<D>(),
-                       kFThreads, p, B * p.KV, (p.S + kF - 1) / kF,
-                       &dkdv_done, device, stream);
+  if (parts & 2) {
+    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<D>,
+                             f32_dkdv_smem_bytes<D>(), kKVThreads, p, ctas_kv,
+                             1, &kv_done, device, stream);
+    if (err != cudaSuccess || p.H == p.KV) return (int)err;
+    const int64_t total = (int64_t)B * p.S * p.KV * (D / 4);
+    const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256
+                                                          : 65536);
+    flash_bwd_dkdv_sum_f32_kernel<D><<<blocks, 256, 0,
+                                       (cudaStream_t)stream>>>(p, B);
+    return (int)cudaGetLastError();
+  }
   return (int)cudaSuccess;
 }
 
@@ -1351,11 +1714,13 @@ extern "C" {
 // schedule,) dq, dk, dv device pointers; B, S, H, KV, hd (== hv, 64 or
 // 128); strides: 24 element strides, (batch, seq, head) of q, k, v, o, do,
 // dq, dk, dv in order; the softmax scale; causal; the plan: the dQ
-// kernel's rows a block or item (q_rows) and kv step, the dK / dV kernel's
-// keys a block or item (kv_rows) and q step; parts: 1 the dQ kernel, 2 the
-// dK / dV kernel (it reads the scratch a dQ launch of the same call wrote),
-// 3 both in this order (a training step's call); the device and the
-// stream.  Every row 16-byte aligned.
+// kernel's rows an item (q_rows) and kv step, the dK / dV kernel's keys an
+// item (kv_rows) and q step, the ring depths of the two kernels and their
+// grids (blocks); parts: 1 the dQ kernel, 2 the dK / dV kernel (it reads
+// the scratch a dQ launch of the same call wrote), 3 both in this order (a
+// training step's call); the device and the stream.  Every row 16-byte
+// aligned.  Each entry point checks the plan against its own constants and
+// refuses any other.
 
 // bf16 on wgmma.  Plan: q_rows = kv_rows = 128, q_step = 64, kv_step 128 at
 // hd 64 and 64 at 128 (dq_step), the ring depths of the two kernels (4 and
@@ -1403,25 +1768,39 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                 device, stream);
 }
 
-// float32 on the CUDA cores.  Plan: every block and step 32 rows, grids
-// (B * H, ceil(S / 32)) and (B * KV, ceil(S / 32)); scratch: float32 D
-// [B, H, S].
+// float32 as 3xTF32 on mma.sync.  Plan: q_rows = kv_rows = 64 (kF), q_step
+// = kv_step = f32_step, 2 ring slots in each kernel, grids of one block an
+// item: ctas_dq = ctas_kv = B * H * nq (nq = ceil(S / 64)).  scratch:
+// float32 D [B, H, S], after the dK, dV partials 2 x [B, S, H, hd] when H >
+// KV.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
                             int S, int H, int KV, int hd,
                             const long long* strides, float scale, int causal,
                             int q_rows, int kv_rows, int q_step, int kv_step,
-                            int parts, int device, void* stream) {
+                            int stages_dq, int stages_dkdv, int ctas_dq,
+                            int ctas_kv, int parts, int device,
+                            void* stream) {
   Params p;
+  const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
+  const int64_t nq = (S + kF - 1) / kF;
   if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, H, KV,
                    hd, strides, scale, causal, parts, 4) ||
-      q_rows != kF || kv_rows != kF || q_step != kF || kv_step != kF)
+      q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
+      stages_dq != kFStages || stages_dkdv != kFStages ||
+      (int64_t)B * H * nq >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
+      ctas_kv != ctas_dq)
     return (int)cudaErrorInvalidValue;
+  // with GQA the scratch holds the dK, dV partials [B, S, H, hd], then D
+  p.part_half = (int64_t)B * S * H * hd;
+  p.part = static_cast<float*>(dd);
+  if (H > KV) p.dd += 2 * p.part_half;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return hd == 64 ? launch_f32<64>(p, B, parts, device, stream)
-                  : launch_f32<128>(p, B, parts, device, stream);
+  return hd == 64
+             ? launch_f32<64>(p, B, ctas_dq, ctas_kv, parts, device, stream)
+             : launch_f32<128>(p, B, ctas_dq, ctas_kv, parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
 // cp.async, mbarriers, TMA loads, wgmma shared-memory descriptors and
-// fences, and the host side of TMA (cuTensorMapEncodeTiled found through
-// the runtime, so no -lcuda).  Included by conv2d.cu, flash_attention.cu
-// and flash_attention_bwd.cu; kernels/build.py hashes this header into the
-// library name of every source that includes it.
+// fences, float32 products as 3xTF32 on mma.sync, and the host side of TMA
+// (cuTensorMapEncodeTiled found through the runtime, so no -lcuda).
+// Included by conv2d.cu, flash_attention.cu, flash_attention_bwd.cu and
+// ssd_scan.cu; kernels/build.py hashes this header into the library name of
+// every source that includes it.
 
 #pragma once
 
@@ -24,6 +25,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- mbarriers ---------------------------------------------------------------
@@ -144,6 +155,41 @@ template <int N>
 __device__ __forceinline__ void fence_frag(uint32_t (&a)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// --- float32 products as 3xTF32 on mma.sync ----------------------------------
+
+// A float32 x as hi + lo, both TF32 (10 explicit mantissa bits each, round
+// to nearest): x - hi is exact in float32, and lo keeps all but the last
+// ~2 of x's 24 bits.  An operand that holds bf16 values is exact in TF32
+// and is passed as it is.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+template <bool kSplit>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// d += a b on the tensor cores, m16n8k8, TF32 operands, float32
+// accumulation.  Thread (g, t) = (lane / 4, lane % 4) holds a = A[g][t],
+// A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; d =
+// D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // --- host side ---------------------------------------------------------------

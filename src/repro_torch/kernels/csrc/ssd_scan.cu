@@ -111,7 +111,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// the 3xTF32 helpers the K3 backward shares (hopper.cuh)
+using hopper::mma_tf32;
+using hopper::split_tf32;
 
 typedef __nv_bfloat16 bf16;
 
@@ -532,35 +538,6 @@ __device__ __forceinline__ void put_transposed(float (*s)[kLd],
   const int m = threadIdx.x & 63, hh = threadIdx.x >> 6;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[8 * hh + j][m] = v[j];
-}
-
-// A float32 x as hi + lo, both TF32 (10 explicit mantissa bits each, round
-// to nearest): x - hi is exact in float32, and lo keeps all but the last
-// ~2 of x's 24 bits.  An operand that holds bf16 values is exact in TF32
-// and is passed as it is.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-template <bool kSplit>
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  if constexpr (kSplit) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Where this thread's accumulators lie: acc[mt][nt][2 h + c] is row

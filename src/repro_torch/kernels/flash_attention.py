@@ -37,7 +37,8 @@ counted under the forward variant's key.  Its backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
 (``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
 by TMA in persistent grids that walk the plan's schedule, or
-``flash_attention_bwd_f32``, CUDA cores; one call launches a dQ kernel that
+``flash_attention_bwd_f32``, every product as 3xTF32 on ``mma.sync``
+tensor cores; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
 with no float atomics, so two runs are bitwise equal.  Beside it
 stands ``flash_attention_bwd_plain``, the backward written out step by step
@@ -173,11 +174,11 @@ def _bwd_library():
         shape = [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                             ctypes.c_float, ci] + [ci] * 4
         # ..., scratch, [schedule,] dq, dk, dv, shape, strides, scale,
-        # causal, the plan, [stages, grids,] parts, device, stream
+        # causal, the plan (tiles, stages, grids), parts, device, stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
         lib.flash_attention_bwd_f32.argtypes = \
-            [vp] * 10 + shape + [ci, ci, vp]
+            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
         for name in BWD_VARIANTS:
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
@@ -421,9 +422,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
 # of one (b, head) and walk the keys ``_dq_step(hd)`` at a time; the dK /
 # dV kernel's items are BWD_ROWS keys of one (b, kv head) and walk the
-# group's query rows BWD_STEP at a time.  The float32 kernels' blocks and
-# steps are F32_BWD_ROWS rows.
-BWD_ROWS, BWD_STEP, F32_BWD_ROWS = 128, 64, 32
+# group's query rows BWD_STEP at a time.  The float32 kernels' items are
+# F32_BWD_ROWS rows or keys, and each walks ``_f32_step(hd)`` keys or rows
+# at a time through a ring of F32_BWD_STAGES slots.
+BWD_ROWS, BWD_STEP, F32_BWD_ROWS, F32_BWD_STAGES = 128, 64, 64, 2
 # which kernels a backward launch runs (the C entry points' ``parts``)
 BWD_DQ, BWD_DKDV, BWD_BOTH = 1, 2, 3
 
@@ -435,15 +437,18 @@ class BwdPlan:
     walks the visible keys ``kv_step`` at a time; the dK / dV kernel owns
     ``kv_rows`` keys of one (b, kv head) and walks the group's heads and
     their visible query rows ``q_step`` at a time.  ``stages``: the ring
-    slots of the two kernels' streamed tiles (0: the float32 kernels have
-    none); ``smem``: the dynamic shared memory of a block of each.
+    slots of the two kernels' streamed tiles; ``smem``: the dynamic shared
+    memory of a block of each.
 
     bf16: each kernel is persistent, ``grid_*`` = (blocks, 1), and block
     ``c`` works through the items ``schedule_*[c]`` in order -- dQ items
     ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV + kv_head) * nq
-    + key_block`` with ``nq = ceil(S / q_rows)``.  float32: one block a
-    (b * H, q-block) or (b * KV, kv-block), ``grid_*`` as such, no
-    schedule."""
+    + key_block`` with ``nq = ceil(S / q_rows)``.  float32: one block an
+    item, ``grid_*`` = (items, 1), no schedule: block ``i`` takes q-block
+    or key block ``i // (B H)`` (the dQ kernel's reversed under causal, so
+    the heaviest items come first) of head ``b H + h = i % (B H)``; with
+    GQA the dK / dV items write float32 partials per head, which a last
+    kernel sums by group in head order."""
     variant: str
     q_rows: int
     kv_rows: int
@@ -485,11 +490,25 @@ def _bwd_smem(hd: int, stages: int) -> Tuple[int, int]:
     return dq, dkdv
 
 
-def _f32_bwd_smem(hd: int) -> int:
-    """Shared memory of a float32 backward block: four [32][hd + 1] tiles,
-    two [32][33] and 64 floats."""
-    r = F32_BWD_ROWS
-    return (4 * r * (hd + 1) + 2 * r * (r + 1) + 2 * r) * 4
+def _f32_step(hd: int) -> int:
+    """Keys (dQ) or query rows (dK / dV) of a float32 kernel's streamed
+    tile: 32 at hd 64, 16 at hd 128, so that two blocks of each kernel fit
+    an SM and ptxas needs no spill."""
+    return 32 if hd == 64 else 16
+
+
+def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
+    """Dynamic shared memory of a float32 block, as
+    ``flash_attention_bwd.cu`` lays it out in rows of hd + 4 floats: dQ:
+    the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V tiles; dK /
+    dV: the item's K and V, P^T handed between the warps of a pair
+    ([64][step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and their
+    lse and D."""
+    ld, r, st = hd + 4, F32_BWD_ROWS, _f32_step(hd)
+    dq = (2 * r + F32_BWD_STAGES * 2 * st) * ld * 4
+    dkdv = (2 * r * ld + r * (st + 8)
+            + F32_BWD_STAGES * 2 * st * (ld + 1)) * 4
+    return dq, dkdv
 
 
 def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool
@@ -533,7 +552,10 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     ``_dq_step`` keys at a time and the dK / dV kernel 64 query rows,
     ``_bwd_stages`` ring slots, each kernel a persistent grid of at most
     one block an SM whose schedule ``_lpt`` makes from ``bwd_item_work``;
-    float32 on the CUDA cores: 32-row blocks, one a tile."""
+    float32 as 3xTF32 on ``mma.sync``: items of 64 rows or keys, one block
+    an item, heaviest first, each stepping ``_f32_step`` rows or keys
+    through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums
+    the dK / dV pass's per-head partials."""
     _check_train_shape(hd, hd)
     if dtype == torch.bfloat16:
         work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal)
@@ -544,9 +566,11 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
                        _bwd_smem(hd, st), _lpt(work_dq, ctas_dq),
                        _lpt(work_dkdv, ctas_dkdv))
     if dtype == torch.float32:
-        r, smem = F32_BWD_ROWS, _f32_bwd_smem(hd)
-        return BwdPlan(BWD_F32, r, r, r, r, (0, 0), (b * h, _cdiv(s, r)),
-                       (b * kv, _cdiv(s, r)), (smem, smem))
+        r, st = F32_BWD_ROWS, _f32_step(hd)
+        items = b * h * _cdiv(s, r)
+        return BwdPlan(BWD_F32, r, r, st, st,
+                       (F32_BWD_STAGES, F32_BWD_STAGES), (items, 1),
+                       (items, 1), _f32_bwd_smem(hd))
     raise TypeError(f"no K3 backward variant for {dtype}")
 
 
@@ -617,14 +641,17 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     pass back the scratch of a ``BWD_BOTH`` call on the same inputs."""
     b, s, h, kv, hd, _ = _validate(q, k, v)
     p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device))
-    if p.grid_dq[1] > 65535 or p.grid_dkdv[1] > 65535:
-        raise ValueError(f"S = {s} exceeds the backward kernels' grid")
+    if max(p.grid_dq[0], p.grid_dkdv[0]) >= 2 ** 31:
+        raise ValueError(f"B = {b}, H = {h}, S = {s} exceed the backward "
+                         "kernels' grid")
     q, k, v, o, do = (_kernel_operand(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     bf16 = p.variant == BWD_BF16
     if scratch is None:
+        # bf16: lse2, D [B H, S padded]; float32: D [B, H, S], after the
+        # per-head dK, dV partials [2, B, S, H, hd] with GQA
         shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if bf16 \
-            else (b, h, s)
+            else ((h > kv) * 2 * b * s * h * hd + b * h * s,)
         scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
@@ -639,9 +666,8 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         head.append(_schedule_tensor(p, q.device).data_ptr())
     tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd,
             strides, float(scale), int(bool(causal)), p.q_rows, p.kv_rows,
-            p.q_step, p.kv_step]
-    if bf16:
-        tail += [p.stages[0], p.stages[1], p.grid_dq[0], p.grid_dkdv[0]]
+            p.q_step, p.kv_step, p.stages[0], p.stages[1], p.grid_dq[0],
+            p.grid_dkdv[0]]
     code = getattr(lib, p.variant)(
         *head, *tail, int(parts), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -288,5 +288,5 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
 
 
 def test_flash_and_conv_sources_share_the_hopper_header():
-    for src in (k3.SOURCE, "conv2d.cu"):
+    for src in (k3.SOURCE, "conv2d.cu", k3.BWD_SOURCE, "ssd_scan.cu"):
         assert "hopper.cuh" in build.local_headers(src)

@@ -9,7 +9,9 @@ differentiates that.  The port's plain backward, ``flash_attention_bwd_plain``
 chunk set to 128), head sizes 16 and 64.  Tolerance: each gradient within
 1e-5 of its own scale (max |reference|); measured below 1e-6 -- sums over
 the keys in other orders.  The CUDA kernels are held to the plain version
-on the card by ``chip_smoke.py`` (its ``training`` phase).
+on the card by ``chip_smoke.py`` (its ``training`` phase); here a numpy
+emulation of the float32 kernels' 3xTF32 arithmetic shows, before any
+card, that it holds their 1e-4-of-scale gate.
 """
 
 import re
@@ -182,10 +184,12 @@ SMEM_LIMIT = 232_448      # shared memory a block may use on an H100 (227 KB)
     # items (one a block); three ring slots fill the 227 KB
     ((1, 2048, 40, 8, 128), BF16, (k3.BWD_BF16, 128, 128, 64, 64, (3, 3),
                                    (132, 1), (128, 1), (230528, 232016))),
-    ((1, 512, 32, 32, 64), F32, (k3.BWD_F32, 32, 32, 32, 32, (0, 0),
-                                 (32, 16), (32, 16), (41984, 41984))),
-    ((2, 1000, 4, 2, 128), F32, (k3.BWD_F32, 32, 32, 32, 32, (0, 0),
-                                 (8, 32), (4, 32), (74752, 74752))),
+    # float32: items of 64 rows or keys, one block each; 32-row steps at
+    # hd 64, 16 at hd 128; two blocks an SM
+    ((1, 512, 32, 32, 64), F32, (k3.BWD_F32, 64, 64, 32, 32, (2, 2),
+                                 (256, 1), (256, 1), (69632, 80384))),
+    ((2, 1000, 4, 2, 128), F32, (k3.BWD_F32, 64, 64, 16, 16, (2, 2),
+                                 (128, 1), (128, 1), (101376, 107776))),
 ])
 def test_plan_bwd_of_the_model_shapes(shape, dtype, want):
     p = k3.plan_bwd(*shape, dtype)
@@ -193,6 +197,21 @@ def test_plan_bwd_of_the_model_shapes(shape, dtype, want):
             p.grid_dq, p.grid_dkdv, p.smem) == want
     assert max(p.smem) <= SMEM_LIMIT
     assert k3.plan_bwd(*shape, dtype) is p          # pure, cached
+
+
+@pytest.mark.parametrize("shape,hd", [
+    ((1, 4096, 32, 32), 64),        # stablelm
+    ((1, 2048, 40, 8), 128),        # qwen3: 1,280 items, not 256 of 5 heads
+    ((8, 2048, 40, 8), 128),
+    ((1, 512, 8, 2), 128),          # non-causal GQA's case
+])
+def test_f32_plan_gives_every_head_its_own_items(shape, hd):
+    """Both float32 kernels take one block an item of 64 rows or keys of
+    one head, so GQA's dK / dV items are as many and as even as dQ's."""
+    b, s, h, kv = shape
+    p = k3.plan_bwd(b, s, h, kv, hd, F32)
+    assert p.grid_dq == p.grid_dkdv == (b * h * -(-s // 64), 1)
+    assert not p.schedule_dq and not p.schedule_dkdv
 
 
 # (B, S, H, KV): stablelm, qwen3, a ragged S with GQA, more items than SMs
@@ -259,14 +278,18 @@ def test_bwd_plan_matches_the_source_constants():
     assert re.search(rf"constexpr int kRows = {k3.BWD_ROWS};", src)
     assert re.search(rf"constexpr int kStep = {k3.BWD_STEP};", src)
     assert re.search(rf"constexpr int kF = {k3.F32_BWD_ROWS};", src)
+    assert re.search(rf"constexpr int kFStages = {k3.F32_BWD_STAGES};", src)
     for fn, want in (("dq_stages", k3._bwd_stages), ("dkdv_stages",
                                                      k3._bwd_stages),
-                     ("dq_step", k3._dq_step)):
+                     ("dq_step", k3._dq_step), ("f32_step", k3._f32_step)):
         m = re.search(rf"{fn}\(\) {{\s*return D == 64 \? (\d+) : (\d+);",
                       src)
         assert m and (int(m[1]), int(m[2])) == (want(64), want(128)), fn
     for hd in (64, 128):
         assert max(k3._bwd_smem(hd, k3._bwd_stages(hd))) <= SMEM_LIMIT
+        # two float32 blocks (and the 1 KB the card reserves for each) fit
+        # an SM's 228 KB
+        assert 2 * (max(k3._f32_bwd_smem(hd)) + 1024) <= 233_472
 
 
 def test_bwd_source_adds_no_float_atomics_to_its_outputs():
@@ -293,24 +316,147 @@ def test_plan_bwd_refuses_other_dtypes(dtype):
 
 def test_bwd_source_defines_the_bound_entry_points():
     """One C entry point per backward ``LAUNCHES`` key; bf16 on ``wgmma``
-    fed by TMA and a loader warpgroup (no ``mma.sync``); every kernel's name
-    starts with ``flash_bwd_`` (the profiler's symbol); the build compiles
-    the source with FMA contraction and without fast math, like the
-    forward."""
+    fed by TMA and a loader warpgroup (no bf16 ``mma.sync``, no
+    ``ldmatrix``); float32 as 3xTF32 on ``mma.sync`` m16n8k8, each operand
+    split by ``cvt.rna.tf32.f32`` (from the shared header); every kernel's
+    name starts with ``flash_bwd_`` (the profiler's symbol); the build
+    compiles the source with FMA contraction and without fast math, like
+    the forward."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
     for name in list(k3.BWD_VARIANTS) + ["flash_attention_bwd_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "atomicAdd" not in src and "red.global" not in src
-    assert "mma.sync" not in src and "ldmatrix" not in src
+    header = (build.CSRC_DIR / "hopper.cuh").read_text()
+    assert not re.search(r"mma\.sync\.aligned\.m16n8k16[.\w]*bf16", src)
+    assert "ldmatrix" not in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert "cvt.rna.tf32.f32" in header
+    assert "mma_tf32(" in src and "split_tf32<true>(" in src
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
     assert "setmaxnreg.dec" in src and "setmaxnreg.inc" in src
     assert "tma_load_4d(" in src
     kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
-    assert len(kernels) == src.count("__global__") == 4
+    assert len(kernels) == src.count("__global__") == 5
     assert all(name.startswith("flash_bwd_") for name in kernels)
-    assert {"flash_bwd_dq_bf16_tc_kernel",
-            "flash_bwd_dkdv_bf16_tc_kernel"} <= set(kernels)
+    assert {"flash_bwd_dq_bf16_tc_kernel", "flash_bwd_dkdv_bf16_tc_kernel",
+            "flash_bwd_dq_f32_tc_kernel", "flash_bwd_dkdv_f32_tc_kernel",
+            "flash_bwd_dkdv_sum_f32_kernel"} == set(kernels)
+    # no CUDA-core product loop is left
+    assert "dot_rows" not in src
     assert "repro/kernels/flash_attention.py::_flash_kernel" in src
     assert "--use_fast_math" not in build.flags(k3.BWD_SOURCE)
     assert "-fmad=false" not in build.flags(k3.BWD_SOURCE)
     assert "hopper.cuh" in build.local_headers(k3.BWD_SOURCE)
+
+
+# --- the float32 kernels' arithmetic, emulated in numpy --------------------
+
+
+def _tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, on the 13 low mantissa bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` (batched float32) as the kernels' tensor cores compute it:
+    each operand split into TF32 hi = tf32(x), lo = tf32(x - hi); per
+    k-slice of 8, lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) into a float32
+    accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc += np.matmul(x[..., k0:k0 + 8], y[..., k0:k0 + 8, :])
+    return acc
+
+
+def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale):
+    """The float32 kernels' backward in numpy: D = rowsum(dO o) in float32;
+    S, dP, dQ, dK and dV as 3xTF32 products; P = exp(S scale - lse) and dS
+    = P (dP - D) in float32; the scale applied to dQ and dK at the end; dK
+    and dV summed over a group's heads in one accumulation, as the dK / dV
+    kernel walks them."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    heads = lambda t: np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+    qh, doh = heads(q), heads(do)                      # [b, h, s, d]
+    kh, vh = heads(k)[:, np.arange(h) // g], heads(v)[:, np.arange(h) // g]
+    dd = heads((do * o).sum(-1, dtype=np.float32)[..., None])[..., 0]
+    sc = _mm_3xtf32(qh, kh.swapaxes(-1, -2))
+    p = np.exp(sc * np.float32(scale) - lse[..., None]).astype(np.float32)
+    if causal:
+        p = np.where(np.tril(np.ones((s, s), bool)), p, np.float32(0))
+    dp = _mm_3xtf32(doh, vh.swapaxes(-1, -2))
+    ds = p * (dp - dd[..., None])
+    dq = _mm_3xtf32(ds, kh) * np.float32(scale)
+    # [b, kv, keys, g * rows]: the group's heads one after another
+    by_key = lambda t: np.ascontiguousarray(
+        t.reshape(b, kv, g, s, s).transpose(0, 1, 4, 2, 3)
+        .reshape(b, kv, s, g * s))
+    rows = lambda t: t.reshape(b, kv, g * s, d)
+    dk = _mm_3xtf32(by_key(ds), rows(qh)) * np.float32(scale)
+    dv = _mm_3xtf32(by_key(p), rows(doh))
+    return (dq.transpose(0, 2, 1, 3), dk.transpose(0, 2, 1, 3),
+            dv.transpose(0, 2, 1, 3))
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                  -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-3],
+                 np.float32)
+    want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                     -(1.0 + 2.0 ** -10), 1.0, np.float32(3.0e-3)],
+                    np.float32)
+    got = _tf32(x)
+    np.testing.assert_array_equal(got[:5], want[:5])
+    # a split keeps all but the last bits: hi + lo is x to 2^-21 relative
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert np.all(np.abs(hi + lo - x) <= 2.0 ** -21 * np.abs(x))
+    assert abs(float(got[5]) - 3.0e-3) <= 2.0 ** -11 * 3.0e-3
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal", [
+    (2, 128, 4, 4, 64, True),       # causal MHA
+    (1, 150, 4, 2, 64, True),       # causal GQA G = 2, S ragged
+    (1, 96, 8, 2, 64, False),       # non-causal GQA G = 4
+    (1, 80, 4, 2, 128, True),       # hd 128
+])
+def test_3xtf32_backward_holds_the_float32_gates(b, s, h, kv, d, causal):
+    """The float32 kernels' arithmetic -- every product as 3xTF32 -- keeps
+    dq, dk and dv within 1e-4 of scale (the gate of ``chip_smoke.py``'s
+    training (d) and (b)) of the float64 autograd, of ``jax.vjp`` of the
+    reference's attention (non-causal: its bidirectional prefix over the
+    whole sequence) and of ``flash_attention_bwd_plain``; one-pass TF32
+    would not."""
+    q, k, v, do = _draw(s * d + h, b, s, h, kv, d)
+    scale = d ** -0.5
+    o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
+                                    scale=scale)
+    got = _emulated_f32_bwd(do, q, k, v, o.numpy(), lse.numpy(), causal,
+                            scale)
+    q64, k64, v64 = (_t(x).double().requires_grad_(True) for x in (q, k, v))
+    want64 = torch.autograd.grad(_naive(q64, k64, v64, causal, scale),
+                                 (q64, k64, v64), _t(do).double())
+
+    def attn(q, k, v):
+        return rL.flash_attention(q, k, v, scale=scale, chunk=128,
+                                  prefix_len=0 if causal else s)
+
+    _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_jax = vjp(jnp.asarray(do))
+    plain = k3.flash_attention_bwd_plain(_t(do), _t(q), _t(k), _t(v), o, lse,
+                                         causal=causal, scale=scale)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g = torch.from_numpy(np.ascontiguousarray(got[i]))
+        assert g.shape == plain[i].shape and g.dtype == torch.float32
+        for ref in (want64[i].numpy(), want_jax[i], plain[i].numpy()):
+            assert _rel(g, ref) <= 1e-4, name
+    # one-pass TF32 products in the same place miss the gate
+    one_pass = _tf32(_tf32(q[0, :, 0]) @ _tf32(k[0, :, 0]).T)
+    exact = q[0, :, 0].astype(np.float64) @ k[0, :, 0].T.astype(np.float64)
+    assert np.abs(one_pass - exact).max() > 1e-4 * np.abs(exact).max()

@@ -9,9 +9,9 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
 ``repro_torch.kernels.flash_attention.flash_attention_bwd`` on the shapes
 of ``chip_smoke.py``'s training (d) -- stablelm-1.6b B=1 S=4096 (32 heads
-of 64) and qwen3-14b B=1 S=2048 (40 heads, 8 kv, of 128), causal, in bf16
-and float32; a ragged B=2 S=1000 (4 heads of 64, causal) and a non-causal
-B=1 S=512 (8 heads, 2 kv, of 128) in bf16 -- on seeded random inputs and
+of 64) and qwen3-14b B=1 S=2048 (40 heads, 8 kv, of 128), causal; a
+ragged B=2 S=1000 (4 heads of 64, causal) and a non-causal B=1 S=512 (8
+heads, 2 kv, of 128); each in bf16 and float32 -- on seeded random inputs and
 the forward kernel's own output and log-sum-exp, on the first CUDA card.
 Prints one JSON object: per shape the milliseconds of one call (CUDA
 events around ``--iters`` back-to-back calls after a warm-up, inputs
@@ -33,7 +33,10 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True),
           ("ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, 64, True),
           ("noncausal_b1_s512_gqa", "bfloat16", 1, 512, 8, 2, 128, False),
           ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, True),
-          ("qwen3_b1_s2048_f32", "float32", 1, 2048, 40, 8, 128, True))
+          ("qwen3_b1_s2048_f32", "float32", 1, 2048, 40, 8, 128, True),
+          ("ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, 64, True),
+          ("noncausal_b1_s512_gqa_f32", "float32", 1, 512, 8, 2, 128,
+           False))
 
 
 def main() -> int:
