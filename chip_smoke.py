@@ -23,7 +23,11 @@ inference through
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
 qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
 recurrent greedy decode), each through `build_model(get_config(...))`,
-and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m.
+and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m,
+and the workload census (`launch.lowering` / `launch.dryrun`: every ported
+cell traced on the meta device, three steps traced on the card and held
+equal to their meta census, the census fed to `Campaign.from_artifacts`,
+`dataset.build_dataset`, the predictors and `offload.sweep_bandwidth`).
 Every phase prints one JSON object on a line of its own; any failed phase
 raises, so the exit code is non-zero and the last line is missing.  Without
 a CUDA device the script exits non-zero before printing anything.
@@ -73,6 +77,13 @@ Lines, in order:
   {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
                                      slots, 8 requests), mamba2-130m; engine
                                      == a direct decode loop
+  {"phase": "census", ...}           meta census of every ported cell; the
+                                     card census of stablelm prefill, mamba2
+                                     prefill (B=1 S=4096) and a stablelm
+                                     train step == their meta census, K3 /
+                                     K4 launches == entries; the census
+                                     campaign (fused == exact), dataset and
+                                     k-fold; offload sweep card == CPU
   {"phase": "total", ...}            seconds the whole script took
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
@@ -103,7 +114,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import (costmodel, dataset, dse,  # noqa: E402
-                              features, predictors)
+                              features, offload, predictors)
 from repro_torch.dse_campaign import (AdaptiveCampaign,  # noqa: E402
                                       AdaptiveConfig, Campaign,
                                       CampaignConfig, ChaosPolicy,
@@ -128,6 +139,7 @@ from repro_torch.kernels import dse_sweep as kern  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch import optim  # noqa: E402
+from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -2132,12 +2144,11 @@ RAGGED_SHAPES = ((3, 13, 11, 72, 40, 3, False), (1, 9, 9, 24, 136, 1, False),
 CONV_BATCHES = (1, 8, 32)
 
 def conv_bound(x_shape, w_shape, y_shape, dtype) -> dict:
-    """Least time for one convolution: each of x, w, y moved once, and
-    2*M*N*K operations at the dtype's peak (bf16: the tensor cores)."""
-    s = torch.finfo(dtype).bits // 8
-    numel = [int(np.prod(t)) for t in (x_shape, w_shape, y_shape)]
-    kh, kw, cin, _ = w_shape
-    return bound(sum(numel) * s, 2 * numel[2] * kh * kw * cin, dtype)
+    """Least time for one convolution: K2's census work
+    (``k2.census_work``: each of x, w, y moved once, 2*M*N*K operations) at
+    the dtype's peak (bf16: the tensor cores)."""
+    ops, nbytes = k2.census_work(x_shape, w_shape, y_shape, dtype)
+    return bound(nbytes, ops, dtype)
 
 
 def k2_calls(model, images) -> list:
@@ -2693,13 +2704,12 @@ K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
 
 
 def flash_bound(b, s, h, kv, hd, hv, causal, dtype) -> dict:
-    """Least time for one attention call: q, k, v read once and o written
-    once; 2 * B * H * (visible pairs) * (hd + hv) operations at the dtype's
-    peak (bf16: the tensor cores), visible pairs S(S+1)/2 causal, S^2 not."""
-    e = torch.finfo(dtype).bits // 8
-    nbytes = (b * s * h * hd + b * s * kv * (hd + hv) + b * s * h * hv) * e
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return bound(nbytes, 2 * b * h * pairs * (hd + hv), dtype)
+    """Least time for one attention call: K3's census work
+    (``k3.fwd_work``: q, k, v read once and o written once; 2 * B * H *
+    (visible pairs) * (hd + hv) operations, visible pairs S(S+1)/2 causal,
+    S^2 not) at the dtype's peak (bf16: the tensor cores)."""
+    ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype)
+    return bound(nbytes, ops, dtype)
 
 
 def library_flash_attention(q, k, v, *, causal=True, scale=None):
@@ -3213,15 +3223,18 @@ def ssd_bound(b, s, nh, hp, ds, q, in_dtype, out_dtype) -> dict:
     ``tpu_kernel_operations`` is the TPU kernel's own count, 2 Q^2 ds + 2
     Q^2 hp + 4 Q hp ds per (b, h, chunk): C B^T per head and full Q x Q
     products."""
-    ei = torch.finfo(in_dtype).bits // 8
-    eo = torch.finfo(out_dtype).bits // 8
+    census_ops, nbytes = k4.census_work(b, s, nh, hp, ds, q, in_dtype,
+                                        out_dtype)
     nc = s // q
-    nbytes = ((b * s * nh * hp + 2 * b * s * ds) * ei + b * s * nh * 4
-              + nh * 4 + b * s * nh * hp * eo + b * nh * hp * ds * 4)
+    # K4's census (``k4.census_work``) counts the chunked algorithm's full
+    # Q x Q products (C B^T once per (b, chunk), the masked product per
+    # head); the scan needs their lower triangles only, diagonal included
+    upper_triangles = b * nc * (ds + nh * hp) * q * (q - 1)
+    ops = census_ops - upper_triangles
     cb_ops = b * nc * ds * q * (q + 1)
     masked_ops = b * nh * nc * hp * q * (q + 1)
-    off_state_ops = b * nh * nc * 4 * q * hp * ds
-    out = bound(nbytes, cb_ops + masked_ops + off_state_ops, torch.float32)
+    off_state_ops = ops - cb_ops - masked_ops        # 4 Q hp ds a head
+    out = bound(nbytes, ops, torch.float32)
     bf16 = in_dtype == torch.bfloat16
     units_s = (cb_ops / (PEAK_FLOPS[torch.bfloat16] if bf16
                          else TF32_FLOPS / 3)
@@ -3720,11 +3733,10 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype) -> dict:
     2.5 times the forward's, at the dtype's peak.  float32 also gets
     ``units_bound_ms``: the same work at the rate of the units the kernels
     run it on, 3xTF32 on the TF32 tensor cores (495 / 3 TFLOP/s)."""
-    e = torch.finfo(dtype).bits // 8
-    # q, o, do, dq: [B, S, H, d]; k, v, dk, dv: [B, S, KV, d]; lse float32
-    nbytes = 4 * b * s * (h + kv) * d * e + b * h * s * 4
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 2 * b * h * pairs * 5 * d
+    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype)
+    # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
+    # kernels write and read back: no input or output of the function
+    nbytes -= 4 * b * h * s
     out = bound(nbytes, ops, dtype)
     if dtype == torch.float32:
         out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
@@ -4238,6 +4250,241 @@ def kernels_line(numbers, launches, ptxas, select_timing) -> list:
     return rows
 
 
+# --- the workload census ----------------------------------------------------------
+
+# the steps traced on the card: the shapes the transformer (a), mamba2 (a)
+# and training (a) runs drive, at full width and depth
+CENSUS_CARD = (
+    ("stablelm_1_6b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
+    ("mamba2_130m", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
+    ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")))
+CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
+               "hbm_by_opcode", "kernels")
+# the k-fold models of the census dataset (the forest's k-fold, ~30 s a
+# target on the host, stays in the predictors phase)
+CENSUS_MODELS = ("knn", "decision_tree")
+OFFLOAD_BANDWIDTHS = 4096
+OFFLOAD_CHECKED = 8
+OFFLOAD_TOL = 1e-15      # analyze vs the sweep: the network leg's association
+
+
+def census_meta(tmp: str) -> list:
+    """Every applicable ported cell traced on the meta device at its full
+    width, depth and shape, written to ``tmp`` as a ``card1`` artifact."""
+    rows = []
+    for arch, shape in dryrun.applicable_cells():
+        art = dryrun.run_cell(arch, shape, save=False)
+        with open(os.path.join(
+                tmp, f"{arch}__{shape}__{dryrun.POD_TAG}.json"), "w") as f:
+            json.dump(art, f)
+        rows.append({"cell": f"{arch}|{shape}", "flops": art["hxa"]["flops"],
+                     "hbm_bytes": art["hxa"]["hbm_bytes"],
+                     "useful_flops_ratio": art["useful_flops_ratio"],
+                     "state_gb_per_device":
+                         art["memory"]["state_gb_per_device"],
+                     "kernels": {k: v["launches"] for k, v in
+                                 art["hxa"]["kernels"].items()},
+                     "trace_wall_s": art["wall_s"]})
+    return rows
+
+
+def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
+    """One step traced on the card at full width and depth, held equal to
+    the same step traced on the meta device; its K3 / K4 launches (counts
+    zeroed just before the traced run, read just after) equal the census's
+    kernel entries."""
+    cfg = get_config(arch)
+    meta, meta_cost = lowering.trace(lowering.make_step(cfg, shape, "meta"))
+    torch.cuda.empty_cache()
+    step = lowering.make_step(cfg, shape, device)
+    run = lambda: step.fn(*step.args)   # noqa: E731
+    untraced = host_ms(run, iters=HOST_REPEATS, warmup=1)
+    k3.reset_launch_counts()
+    k4.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, card_cost = lowering.trace(step)
+    torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in {**k3.launch_counts(),
+                                  **k4.launch_counts()}.items() if v}
+    for key in CENSUS_KEYS:
+        if card[key] != meta[key]:
+            raise AssertionError(f"{arch} {shape.name}: census {key} on the "
+                                 f"card {card[key]} != on meta {meta[key]}")
+    if card_cost != meta_cost:
+        raise AssertionError(f"{arch} {shape.name}: FlopCounterMode card "
+                             f"{card_cost} != meta {meta_cost}")
+    entries = {k: int(v["launches"]) for k, v in card["kernels"].items()}
+    layers = cfg.num_layers
+    want = ({k3.TC: layers, k3.BWD_BF16: layers} if shape.kind == "train"
+            else {"ssd_scan_bf16": layers} if cfg.family == "ssm"
+            else {k3.TC: layers})
+    if entries != launches or launches != want:
+        raise AssertionError(f"{arch} {shape.name}: census kernel entries "
+                             f"{entries}, launch_counts() {launches}, "
+                             f"expected {want}")
+    ms = untraced["median"]
+    out = {"arch": arch, "shape": shape.name, "B": shape.global_batch,
+           "S": shape.seq_len, "kind": shape.kind, "dtype": cfg.dtype,
+           "layers": layers, "card_equals_meta": True,
+           "flops": card["flops"], "matmul_flops": card["matmul_flops"],
+           "hbm_bytes": card["hbm_bytes"], "kernels": card["kernels"],
+           "launches": launches, "step_ms": ms, "step_ms_spread": untraced,
+           "traced_step_ms": traced_ms, "trace_overhead": traced_ms / ms,
+           "achieved_tflops": card["flops"] / (ms / 1e3) / 1e12,
+           "ops_traced": sum(v for k, v in card["op_counts"].items()
+                             if k not in card["kernels"])}
+    del step, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def census_campaign(tmp: str, device) -> dict:
+    """``Campaign.from_artifacts`` over the default space with the census
+    workloads: the fused ``"cuda"`` float64 frontier must be the ``"torch"``
+    float64 candidate set (hypervolume rel diff <= 1e-12), float32 <= 1e-5;
+    fused launches are counted over the two ``"cuda"`` runs."""
+    cons = dse.Constraint(max_power_w=40_000)
+    space = default_campaign_space()
+
+    def run(evaluator, dtype):
+        camp = Campaign.from_artifacts(tmp, CampaignConfig(
+            space=space, evaluator=evaluator, dtype=dtype, device=device,
+            constraint=cons))
+        torch.cuda.synchronize()
+        res = camp.run()
+        torch.cuda.synchronize()
+        return camp, res
+
+    camp, exact = run("torch", torch.float64)
+    kern.reset_launch_counts()
+    _, r64 = run("cuda", torch.float64)
+    _, r32 = run("cuda", torch.float32)
+    launches = kern.launch_counts()
+    n_tiles = space.n_tiles()
+    if launches["sweep_reduce_f64"] != n_tiles \
+            or launches["sweep_reduce_f32"] != n_tiles:
+        raise AssertionError(f"census campaign launches {launches}, "
+                             f"expected {n_tiles} fused a tier")
+    hv64 = hv32 = 0.0
+    for key in exact.frontiers:
+        if not same_candidate_set(exact.frontiers[key], r64.frontiers[key]):
+            raise AssertionError(f"{key}: census campaign float64 fused "
+                                 "frontier differs from the exact tier")
+        h = hv(exact, key)
+        if h:
+            hv64 = max(hv64, abs(hv(r64, key) - h) / h)
+            hv32 = max(hv32, abs(hv(r32, key) - h) / h)
+    if hv64 > 1e-12 or hv32 > 1e-5:
+        raise AssertionError(f"census campaign hypervolume rel diff float64 "
+                             f"{hv64}, float32 {hv32}")
+    return {"workloads": len(camp.workloads), "candidates": len(space),
+            "tiles": n_tiles, "identical_candidate_sets_float64": True,
+            "hypervolume_rel_diff_float64": hv64,
+            "hypervolume_rel_diff_float32": hv32,
+            "frontier_sizes": {"|".join(k): len(f)
+                               for k, f in exact.frontiers.items()},
+            "launches": launches,
+            "exact_torch_float64_wall_s": exact.wall_s,
+            "cuda_float64_wall_s": r64.wall_s,
+            "cuda_float32_wall_s": r32.wall_s}
+
+
+def census_predictors(tmp: str, device) -> dict:
+    """The paper's Fig. 2 setting on the port's census: one accelerator a
+    point swept over DVFS (``mesh_counts=()``), k-fold MAPE / R^2."""
+    t = time.perf_counter()
+    X, y_power, y_cycles, meta = dataset.build_dataset(
+        tmp, pod=dryrun.POD_TAG, mesh_counts=())
+    dataset_s = time.perf_counter() - t
+    if not (len(X) and np.isfinite(X).all()
+            and all(tuple(m.mesh) == (1, 1) for m in meta)):
+        raise AssertionError("bad census dataset")
+    kfold = {}
+    for target, y in (("power", y_power), ("cycles", y_cycles)):
+        for name in CENSUS_MODELS:
+            t = time.perf_counter()
+            r = predictors.kfold_evaluate(name, X, y, device=device)
+            if not (np.isfinite(r["mape"]) and np.isfinite(r["r2"])):
+                raise AssertionError(f"census {target}/{name}: {r}")
+            kfold[f"{target}/{name}"] = {
+                "mape_pct": r["mape"], "r2": r["r2"],
+                "mape_std": r["mape_std"],
+                "seconds": time.perf_counter() - t}
+    return {"rows": int(len(X)), "features": int(X.shape[1]),
+            "dataset_seconds": dataset_s, "kfold": kfold,
+            "labels": "the cost model's (costmodel.simulate) on the port's "
+                      "census, not the paper's measured numbers"}
+
+
+def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
+    """``offload.sweep_bandwidth`` of one census (local tpu-edge, remote
+    tpu-v5e x 4) over ``OFFLOAD_BANDWIDTHS`` uplinks: the card's sweep
+    bitwise the CPU's, ``analyze`` at ``OFFLOAD_CHECKED`` of them within
+    ``OFFLOAD_TOL`` relative of the sweep, decisions equal."""
+    bws = np.geomspace(1e5, 1e10, OFFLOAD_BANDWIDTHS)
+    req, resp = 4 * seq, 4 * vocab     # int32 prompt; float32 last logits
+    sweep = lambda dev: offload.sweep_bandwidth(   # noqa: E731
+        ana, ana, req, resp, bws, device=dev)
+    card, cpu = sweep(device), sweep("cpu")
+    for k in cpu:
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise AssertionError(f"offload sweep {k}: card != CPU")
+    worst = 0.0
+    for i in np.linspace(0, OFFLOAD_BANDWIDTHS - 1,
+                         OFFLOAD_CHECKED).astype(int):
+        one = offload.analyze(ana, ana, req, resp, offload.NetworkSpec(
+            bandwidth_bps=float(bws[i]))).as_dict()
+        for f, v in one.items():
+            got = cpu[f][i].item()
+            if isinstance(v, bool):
+                if got != v:
+                    raise AssertionError(f"offload {f} at {bws[i]} b/s")
+            else:
+                worst = max(worst, abs(got - v) / abs(v))
+    if worst > OFFLOAD_TOL:
+        raise AssertionError(f"offload analyze vs sweep {worst} > "
+                             f"{OFFLOAD_TOL}")
+    return {"bandwidths": OFFLOAD_BANDWIDTHS, "card_equals_cpu_bitwise": True,
+            "analyze_checked": OFFLOAD_CHECKED,
+            "analyze_vs_sweep_max_rel": worst,
+            "request_bytes": req, "response_bytes": resp,
+            "remote_chosen_for_latency": int(
+                cpu["choose_remote_latency"].sum())}
+
+
+def phase_census(device) -> dict:
+    """The workload census: every applicable ported cell traced on the meta
+    device; three steps traced on the card and held equal to the meta
+    census; ``Campaign.from_artifacts``, ``build_dataset`` and the
+    predictors, and ``offload.sweep_bandwidth`` on the census."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        meta_rows = census_meta(tmp)
+        card_rows = [census_card_case(arch, shape, device)
+                     for arch, shape in CENSUS_CARD]
+        camp = census_campaign(tmp, device)
+        preds = census_predictors(tmp, device)
+    cfg = get_config(CENSUS_CARD[0][0])
+    prefill = lowering.trace(lowering.make_step(cfg, CENSUS_CARD[0][1],
+                                                "meta"))[0]
+    off = census_offload(prefill, cfg.vocab_size, CENSUS_CARD[0][1].seq_len,
+                         device)
+    out = {"phase": "census", "meta_cells": meta_rows, "card": card_rows,
+           "campaign_from_artifacts": camp, "predictors": preds,
+           "offload": off, "seconds": time.perf_counter() - t_phase,
+           "note": "meta_cells: lower_cell on the meta device at the cell's "
+                   "shape (per device, one device); card: the step traced on "
+                   "the card equals the meta trace exactly (flops, bytes, "
+                   "op counts, kernel entries); step_ms: host clock, each "
+                   "run ending in a synchronize, median of 5 after a warm-up; "
+                   "achieved_tflops = census flops / step_ms (report only); "
+                   "trace_overhead = traced step / untraced step"}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4284,6 +4531,9 @@ def main() -> int:
     lm = phase_transformer(device, args.seed)
     mb = phase_mamba2(device, args.seed)
     phase_token_serving(device, args.seed)
+    census = phase_census(device)
+    campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
+                         for k, v in campaign_launches.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])

@@ -86,6 +86,18 @@ def build_dataset(art_dir: str, chips: Optional[List[str]] = None,
     at their only valid design point (1 chip, 1x1 mesh) instead of the base
     mesh, so the fast path stops extrapolating blindly into the edge region
     of the space.  Pass ``mesh_counts=()`` for a base-mesh-only dataset.
+
+    The base mesh is the artifact's own (``art["mesh"]``, as the
+    reference's ``reanalyze`` reads it): ``16x16`` / ``2x16x16`` for the
+    reference's ``pod1`` / ``pod2`` artifacts (so their datasets stay
+    bitwise the reference's), ``1x1`` at 1 chip for the port's ``card1``
+    census (``launch.dryrun``); an artifact without ``"mesh"`` takes the
+    reference's mesh of its pod tag.  With ``pod="card1"`` and
+    ``mesh_counts=()`` this is the paper's own Fig. 2 setting: one
+    accelerator swept over DVFS.  A ``card1`` census has no collective
+    bytes, so ``dse._scale_analysis`` prices larger meshes from it with no
+    collective time: the collective half of the census waits for ROADMAP.md
+    Queue 1 item 12e (a census on more than one device).
     """
     chips = chips if chips is not None else list(CHIPS)
     arts = load_dryrun_artifacts(art_dir)
@@ -109,7 +121,9 @@ def build_dataset(art_dir: str, chips: Optional[List[str]] = None,
                     "hbm_bytes": art["hxa"]["hbm_bytes"],
                     "collective_bytes": art["hxa"]["collective_bytes"],
                     "wire_bytes": art["hxa"]["wire_bytes"]}
-        mesh_shape = (2, 16, 16) if pod == "pod2" else (16, 16)
+        mesh_shape = (tuple(int(d) for d in art["mesh"].split("x"))
+                      if "mesh" in art
+                      else (2, 16, 16) if pod == "pod2" else (16, 16))
         for chip_name in chips:
             chip = get_chip(chip_name)
             if chip.ici_bw == 0:

@@ -3,7 +3,12 @@
 ``resolve_device("cuda")`` raises when there is no CUDA device: the port's
 entry points default to the card and never degrade to the CPU on their own.
 The CPU is used only when the caller names it (``device="cpu"``), which is
-what the parity tests do; kernels' plain PyTorch versions run there.
+what the parity tests do; kernels' plain PyTorch versions run there.  The
+meta device (shapes and dtypes, no storage) is accepted only where the
+caller asks for it (``allow_meta=True``): the models' constructors and
+caches, so that the workload census (``launch.lowering.lower_cell``) traces a
+step without a card and without memory.  Campaign, serving and training
+entry points resolve with the default and refuse it.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ DEFAULT_DEVICE = "cuda"
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
-def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
+def resolve_device(device: DeviceLike = DEFAULT_DEVICE, *,
+                   allow_meta: bool = False) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist.  ``"meta"``
+    is refused unless ``allow_meta``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -35,7 +42,12 @@ def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
         elif dev.index >= torch.cuda.device_count():
             raise RuntimeError(f"device {str(device)!r} does not exist "
                                f"({torch.cuda.device_count()} CUDA devices)")
-    elif dev.type != "cpu":
+    elif dev.type == "meta" and not allow_meta:
+        raise ValueError(f"device {str(device)!r}: the meta device is taken "
+                         "only by the workload census (models built for "
+                         "launch.lowering.lower_cell); expected 'cuda' or "
+                         "'cpu'")
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device type {dev.type!r}; "
                          "expected 'cuda' or 'cpu'")
     return dev

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import SHAPES, get_config
-from repro_torch.core import costmodel, dse
+from repro_torch.core import costmodel, dataset, dse
 from repro_torch.dse_campaign import store
 from repro_torch.dse_campaign.config import (EVALUATORS, REFERENCE_EVALUATORS,
                                              CampaignConfig,
@@ -613,6 +613,33 @@ class Campaign:
         return self.engine.fused
 
     # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_artifacts(cls, art_dir: str, config=None,
+                       **kwargs) -> "Campaign":
+        """Sweep ALL cached dry-run workloads under ``art_dir``: the port's
+        own (``launch.dryrun``, ``card1``) or the reference's (``pod1`` /
+        ``pod2``).  ``config`` is a ``CampaignConfig``; extra keyword
+        arguments go to the constructor.  Each artifact's census
+        (``base_analysis``) is loaded ONCE per (arch, shape) cell and reused
+        across every tile of the sweep.  Colliding (arch, shape) cells from
+        different pods are disambiguated by suffixing the shape with the pod
+        tag."""
+        arts = dataset.load_dryrun_artifacts(art_dir)
+        if not arts:
+            raise FileNotFoundError(f"no dry-run artifacts in {art_dir}")
+        seen = {}
+        for (arch, shape, pod), art in sorted(arts.items()):
+            key = (arch, shape) if (arch, shape) not in seen else (
+                arch, f"{shape}:{pod}")
+            seen[key] = dse.Workload(
+                arch=key[0], shape=key[1],
+                base_analysis={k: art["hxa"][k] for k in
+                               ("flops", "hbm_bytes", "collective_bytes",
+                                "wire_bytes")},
+                base_chips=art["roofline"]["n_chips"],
+                state_gb_per_device=art["memory"]["state_gb_per_device"])
+        return cls(list(seen.values()), config, **kwargs)
 
     @classmethod
     def from_checkpoint(cls, path: str, **kwargs) -> "Campaign":

@@ -27,7 +27,11 @@ Beside them stands ``conv2d_plain``: the reference kernel's own arithmetic, a
 float32 sum of ``kh*kw`` shifted-window matmuls.  The wrapper takes it ONLY
 for tensors that lie on the CPU; for CUDA tensors it launches a kernel or
 raises -- there is no fallback.  The library is built and loaded inside the
-first launching call, never at import time.
+first launching call, never at import time.  Tensors on the meta device (the
+workload census, ``core.census.analyze_step``) take a shape-only route:
+the plan, an empty meta output, nothing launched or counted.  Under an
+active census each call books its entry (``census_work``) through
+``census.kernel_call``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import census
+
 SOURCE = "conv2d.cu"
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -49,6 +55,9 @@ TC, SIMT, F32 = "conv2d_bf16_tc", "conv2d_bf16_simt", "conv2d_f32"
 
 # launches per variant since the last ``reset_launch_counts``
 LAUNCHES: Dict[str, int] = {TC: 0, SIMT: 0, F32: 0}
+
+# SMs of an H100 SXM: the plan's card off the card (CPU, meta)
+H100_SMS = 132
 
 # A K slice is at least this many steps: fewer would leave the stage ring
 # idle and grow the workspace for little more parallelism.
@@ -224,9 +233,25 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *,
     return acc.reshape(b, ho, wo, cout).to(x.dtype)
 
 
+def census_work(x_shape, w_shape, y_shape, dtype: torch.dtype
+                ) -> Tuple[int, int]:
+    """(flops, bytes) of one call, as the census books it: 2 prod(y) kh kw
+    Cin, and x, w read and y written once."""
+    kh, kw, cin, _ = w_shape
+    ny = 1
+    for d in y_shape:
+        ny *= int(d)
+    nx = 1
+    for d in x_shape:
+        nx *= int(d)
+    return 2 * ny * kh * kw * cin, dtype.itemsize * (
+        nx + kh * kw * cin * int(w_shape[3]) + ny)
+
+
 def plan_for(x: torch.Tensor, w: torch.Tensor,
              padding: Padding = NO_PADDING) -> Plan:
-    """``plan`` for these CUDA tensors, with the SM count of their card."""
+    """``plan`` for these tensors, with the SM count of their card
+    (``H100_SMS`` off the card)."""
     _validate(x, w, padding)
     return _plan_of(x, w, padding)
 
@@ -236,7 +261,8 @@ def _plan_of(x: torch.Tensor, w: torch.Tensor, padding: Padding) -> Plan:
     return plan(*(int(s) for s in x.shape), int(w.shape[3]),
                 int(w.shape[0]), int(w.shape[1]),
                 ((int(pt), int(pb)), (int(pl), int(pr))), x.dtype,
-                _sm_count(x.device), aligned(x, w))
+                _sm_count(x.device) if x.device.type == "cuda" else H100_SMS,
+                aligned(x, w))
 
 
 _SMS: Dict[int, int] = {}
@@ -265,39 +291,46 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     bfloat16, float32 accumulation).  CUDA tensors launch the variant that
     ``plan`` picks; CPU tensors take the plain version."""
     ho, wo = _validate(x, w, padding)
-    if x.device.type == "cpu":
-        return conv2d_plain(x, w, padding=padding)
     b, h, wd, cin = (int(s) for s in x.shape)
     kh, kw, _, cout = (int(s) for s in w.shape)
-    if b * ho * wo >= 2 ** 31:
-        raise ValueError(f"B*H_out*W_out = {b * ho * wo} exceeds the "
-                         "kernel's int range")
-    p = _plan_of(x, w, padding)
-    lib = _library()
-    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    ws: Optional[torch.Tensor] = None
-    if p.split > 1:
-        ws = torch.empty((p.split, b * ho * wo, cout), dtype=torch.float32,
-                         device=x.device)
-    shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
-             int(padding[1][0]), ho, wo)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    gx, gy, _ = p.grid
-    ws_ptr = 0 if ws is None else ws.data_ptr()
-    if p.variant == SIMT:
-        code = lib.conv2d_bf16_simt(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                    *shape, gx, gy, x.device.index, stream)
-    elif p.variant == TC:
-        code = lib.conv2d_bf16_tc(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape, p.bn,
-            int(p.gather), p.stages, p.split, gx, gy, x.device.index, stream)
-    else:
-        code = lib.conv2d_f32(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape, p.bn,
-            p.vec, p.split, gx, gy, x.device.index, stream)
-    LAUNCHES[p.variant] += 1
-    if code != 0:
-        msg = lib.conv2d_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
-                           f"(cudaError {code})")
-    return y
+    with census.kernel_call(lambda: (
+            _plan_of(x, w, padding).variant,
+            *census_work(x.shape, w.shape, (b, ho, wo, cout), x.dtype))):
+        if x.device.type == "cpu":
+            return conv2d_plain(x, w, padding=padding)
+        if b * ho * wo >= 2 ** 31:
+            raise ValueError(f"B*H_out*W_out = {b * ho * wo} exceeds the "
+                             "kernel's int range")
+        p = _plan_of(x, w, padding)
+        y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+        if x.device.type == "meta":
+            return y                  # the census's shape-only route
+        lib = _library()
+        ws: Optional[torch.Tensor] = None
+        if p.split > 1:
+            ws = torch.empty((p.split, b * ho * wo, cout),
+                             dtype=torch.float32, device=x.device)
+        shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
+                 int(padding[1][0]), ho, wo)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        gx, gy, _ = p.grid
+        ws_ptr = 0 if ws is None else ws.data_ptr()
+        if p.variant == SIMT:
+            code = lib.conv2d_bf16_simt(x.data_ptr(), w.data_ptr(),
+                                        y.data_ptr(), *shape, gx, gy,
+                                        x.device.index, stream)
+        elif p.variant == TC:
+            code = lib.conv2d_bf16_tc(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape,
+                p.bn, int(p.gather), p.stages, p.split, gx, gy,
+                x.device.index, stream)
+        else:
+            code = lib.conv2d_f32(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape,
+                p.bn, p.vec, p.split, gx, gy, x.device.index, stream)
+        LAUNCHES[p.variant] += 1
+        if code != 0:
+            msg = lib.conv2d_error_string(code).decode()
+            raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
+                               f"{msg} (cudaError {code})")
+        return y

@@ -27,7 +27,11 @@ arithmetic (float32 throughout, blockwise online softmax over kv blocks of
 code, for any head size.  The wrapper takes it ONLY for tensors that lie on
 the CPU; for CUDA tensors it launches a kernel or raises -- there is no
 fallback.  The library is built and loaded inside the first launching call,
-never at import time.
+never at import time.  Tensors on the meta device (the workload census,
+``core.census.analyze_step``) take a shape-only route: the plan's variant,
+empty meta outputs, nothing launched or counted in ``LAUNCHES``.  Under an
+active census each call books its entry (``fwd_work`` / ``bwd_work``)
+through ``census.kernel_call``.
 
 Training goes through ``flash_attention_trainable``, a
 ``torch.autograd.Function``.  Its forward is ``flash_attention_fwd``: the
@@ -57,6 +61,8 @@ import heapq
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.core import census
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -109,6 +115,37 @@ class Plan:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: S(S+1)/2 causal, S^2 not."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def fwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
+             causal: bool, dtype: torch.dtype, lse: bool = False
+             ) -> Tuple[int, int]:
+    """(flops, bytes) of one forward call, as the census books it: the two
+    products, (2 hd + 2 hv) B H pairs, whatever the tiling; q, k, v read and
+    o (and the float32 log-sum-exp) written once -- never the score
+    blocks."""
+    el = dtype.itemsize
+    nbytes = el * b * s * (h * hd + kv * hd + kv * hv + h * hv)
+    if lse:
+        nbytes += 4 * b * h * s
+    return (2 * hd + 2 * hv) * b * h * _pairs(s, causal), nbytes
+
+
+def bwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
+             causal: bool, dtype: torch.dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call: the recomputed S = Q K^T and
+    the products dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q,
+    (6 hd + 4 hv) B H pairs; q, k, v, o, dO and the LSE read, dq, dk, dv
+    and D = rowsum(dO O) written once."""
+    el = dtype.itemsize
+    nbytes = el * b * s * (2 * (h * hd + kv * hd + kv * hv) + 2 * h * hv) \
+        + 2 * 4 * b * h * s
+    return (6 * hd + 4 * hv) * b * h * _pairs(s, causal), nbytes
 
 
 @functools.lru_cache(maxsize=4096)
@@ -263,7 +300,9 @@ def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     den = torch.clamp_min(l, 1e-30)
     o = acc / den[..., None]
     lse = (m + torch.log(den)).reshape(b, h, s)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hv).to(q.dtype), lse
+    # contiguous [B, S, H, hv], as the kernels write it
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hv).to(q.dtype)
+    return o.contiguous(), lse
 
 
 def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
@@ -350,32 +389,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, kv, hd, hv = _validate(q, k, v)
     if scale is None:
         scale = hd ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got hd "
-                         f"{hd}, hv {hv}")
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    p = plan_for(q, k, v)
-    gx, gy = p.grid
-    if gx >= 2 ** 31 or gy > 65535:
-        raise ValueError(f"B*H = {b * h} or S = {s} exceeds the kernel's "
-                         "grid")
-    o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
-    lib = _library()
-    code = getattr(lib, p.variant)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
-        hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
-        p.block_k, gx, gy, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    LAUNCHES[p.variant] += 1
-    if code != 0:
-        msg = lib.flash_attention_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
-                           f"(cudaError {code})")
-    return o
+    with census.kernel_call(lambda: (
+            plan_for(q, k, v).variant,
+            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype))):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
+            raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got "
+                             f"hd {hd}, hv {hv}")
+        p = plan_for(q, k, v)
+        gx, gy = p.grid
+        if gx >= 2 ** 31 or gy > 65535:
+            raise ValueError(f"B*H = {b * h} or S = {s} exceeds the kernel's "
+                             "grid")
+        o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
+        if q.device.type == "meta":
+            return o                  # the census's shape-only route
+        q, k, v = (_kernel_operand(t) for t in (q, k, v))
+        strides = (ctypes.c_longlong * 12)(
+            *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
+        lib = _library()
+        code = getattr(lib, p.variant)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
+            kv, hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
+            p.block_k, gx, gy, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        LAUNCHES[p.variant] += 1
+        if code != 0:
+            msg = lib.flash_attention_error_string(code).decode()
+            raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
+                               f"{msg} (cudaError {code})")
+        return o
 
 
 def _check_train_shape(hd: int, hv: int) -> None:
@@ -395,28 +439,33 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, kv, hd, hv = _validate(q, k, v)
     if scale is None:
         scale = hd ** -0.5
-    if q.device.type == "cpu":
-        return _plain_forward(q, k, v, causal, scale)
-    _check_train_shape(hd, hv)
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    p = plan_for(q, k, v)
-    o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
-    lib = _library()
-    gx, gy = p.grid
-    code = getattr(lib, p.variant + "_lse")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, s, h, kv, hd, hv, strides, float(scale),
-        int(bool(causal)), p.block_q, p.block_k, gx, gy, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    LAUNCHES[p.variant] += 1
-    if code != 0:
-        msg = lib.flash_attention_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {p.variant}_lse ({p}) failed: "
-                           f"{msg} (cudaError {code})")
-    return o, lse
+    with census.kernel_call(lambda: (
+            plan_for(q, k, v).variant,
+            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, lse=True))):
+        if q.device.type == "cpu":
+            return _plain_forward(q, k, v, causal, scale)
+        _check_train_shape(hd, hv)
+        p = plan_for(q, k, v)
+        o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            return o, lse             # the census's shape-only route
+        q, k, v = (_kernel_operand(t) for t in (q, k, v))
+        strides = (ctypes.c_longlong * 12)(
+            *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
+        lib = _library()
+        gx, gy = p.grid
+        code = getattr(lib, p.variant + "_lse")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, s, h, kv, hd, hv, strides, float(scale),
+            int(bool(causal)), p.block_q, p.block_k, gx, gy, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        LAUNCHES[p.variant] += 1
+        if code != 0:
+            msg = lib.flash_attention_error_string(code).decode()
+            raise RuntimeError(f"CUDA launch of {p.variant}_lse ({p}) "
+                               f"failed: {msg} (cudaError {code})")
+        return o, lse
 
 
 # the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
@@ -543,6 +592,15 @@ def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(x) for x in lists)
 
 
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward's variant (its ``LAUNCHES`` key) for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return BWD_BF16
+    if dtype == torch.float32:
+        return BWD_F32
+    raise TypeError(f"no K3 backward variant for {dtype}")
+
+
 @functools.lru_cache(maxsize=4096)
 def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
              causal: bool = True, sms: int = H100_SMS) -> BwdPlan:
@@ -621,11 +679,17 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
-                                         scale=scale)
-    _check_train_shape(hd, hv)
-    return bwd_launch(do, q, k, v, o, lse, causal, scale, BWD_BOTH)[:3]
+    with census.kernel_call(lambda: (
+            bwd_variant(q.dtype),
+            *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype))):
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(do, q, k, v, o, lse,
+                                             causal=causal, scale=scale)
+        _check_train_shape(hd, hv)
+        if q.device.type == "meta":       # the census's shape-only route
+            return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                         for t in (q, k, v))
+        return bwd_launch(do, q, k, v, o, lse, causal, scale, BWD_BOTH)[:3]
 
 
 def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -34,7 +34,11 @@ wrapper takes it ONLY for tensors that lie on the CPU; for CUDA tensors it
 launches a kernel variant or raises -- there is no fallback.  ``LAUNCHES``
 counts launches per input dtype (``"ssd_scan_f32"``, ``"ssd_scan_bf16"``),
 incremented exactly where the kernel is launched.  The library is built and
-loaded inside the first launching call, never at import time.
+loaded inside the first launching call, never at import time.  Tensors on
+the meta device (the workload census, ``core.census.analyze_step``) take a
+shape-only route: the plan, empty meta outputs, nothing launched or
+counted.  Under an active census each call books its entry
+(``census_work``) through ``census.kernel_call``.
 
 Both versions accumulate ``cumsum(dt * A)`` in float64 and round it to
 float32 once per element, so that they take the decay exponents from the
@@ -50,6 +54,8 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.core import census
 
 SOURCE = "ssd_scan.cu"
 
@@ -96,6 +102,24 @@ class Plan:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def census_work(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+                in_dtype: torch.dtype, out_dtype: torch.dtype
+                ) -> Tuple[int, int]:
+    """(flops, bytes) of one call, as the census books it: the dots of the
+    SSD chunked algorithm -- per (b, chunk) C B^T, 2 Q^2 ds (shared by the
+    heads, ``ngroups == 1``), and per head the masked (C B^T * L) (x dt),
+    2 Q^2 hp, the prior state's output C state^T, 2 Q ds hp, and the chunk
+    state (x dt decay)^T B, 2 Q hp ds; x, dt, A, B, C read and y and the
+    final state written once -- never the decay blocks or the scratch."""
+    nc = s // q
+    flops = b * nc * (2 * q * q * ds
+                      + nh * (2 * q * q * hp + 4 * q * ds * hp))
+    nbytes = (in_dtype.itemsize * b * s * (nh * hp + 2 * ds)
+              + 4 * (b * s * nh + nh) + out_dtype.itemsize * b * s * nh * hp
+              + 4 * b * nh * hp * ds)
+    return flops, nbytes
 
 
 def _shared_cb_fits(hp: int, ds: int, q: int) -> bool:
@@ -363,9 +387,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``(y`` [b, S, nh, hp] in ``out_dtype`` (default ``x.dtype``), the final
     state [b, nh, hp, ds] float32``)``.  CUDA tensors launch the variant
     that ``plan`` picks; CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                              out_dtype=out_dtype)
-    y, final, _ = ssd_scan_with_scratch(x, dt, A, B, C, chunk=chunk,
-                                        out_dtype=out_dtype)
-    return y, final
+    with census.kernel_call(lambda: (
+            f"ssd_scan_{_SUFFIX[x.dtype]}",
+            *census_work(*_validate(x, dt, A, B, C, chunk), x.dtype,
+                         _out_dtype(x, out_dtype)))):
+        if x.device.type == "cpu":
+            return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                  out_dtype=out_dtype)
+        if x.device.type == "meta":       # the census's shape-only route
+            plan_for(x, dt, A, B, C, chunk=chunk)
+            b, s, nh, hp, ds, _ = _validate(x, dt, A, B, C, chunk)
+            return (torch.empty((b, s, nh, hp),
+                                dtype=_out_dtype(x, out_dtype),
+                                device=x.device),
+                    torch.empty((b, nh, hp, ds), dtype=torch.float32,
+                                device=x.device))
+        y, final, _ = ssd_scan_with_scratch(x, dt, A, B, C, chunk=chunk,
+                                            out_dtype=out_dtype)
+        return y, final

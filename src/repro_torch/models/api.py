@@ -59,7 +59,7 @@ class Model:
     loss: Optional[Callable] = None        # (module, batch) -> (loss, metrics)
 
 
-def _check_trainable(cfg: ArchConfig) -> None:
+def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family ({cfg.name}) is not ported "
@@ -87,7 +87,7 @@ def build_model(cfg: ArchConfig) -> Model:
             return make_cache(cfg, batch, max_len, device)
 
         def loss(module: torch.nn.Module, batch):
-            _check_trainable(cfg)
+            check_trainable(cfg)
             return transformer.loss_fn(module, batch["tokens"],
                                        batch["labels"])
 
@@ -124,7 +124,7 @@ def make_train_step(model: Model, optimizer,
     parameters and moments in place.  A failure in the forward or the
     backward leaves the state as it was.  Metrics: ``nll``, ``moe_aux``,
     ``grad_norm``, ``lr``, ``loss`` (tensors)."""
-    _check_trainable(model.cfg)
+    check_trainable(model.cfg)
 
     def train_step(state: TrainState, batch):
         module = state.params
@@ -195,7 +195,7 @@ def restore_train_state(ckpt_dir: str, state: TrainState, model: Model,
     ``TrainState`` carried by ``transformer.train_state_from_reference``
     onto ``state``'s device)."""
     if store.is_reference_checkpoint(ckpt_dir, step):
-        _check_trainable(model.cfg)
+        check_trainable(model.cfg)
         paths = transformer.reference_state_paths(state.params,
                                                   optimizer.name)
         step, tree, extra = store.restore(ckpt_dir, step,

@@ -13,6 +13,7 @@ as the reference computes it outside any Pallas kernel.  Large products are
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +45,19 @@ def dense_init(generator: Optional[torch.Generator], shape: Sequence[int],
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=dev)
     return (w * scale).to(dtype)
+
+
+def init_generator(generator: Optional[torch.Generator],
+                   device: torch.device):
+    """``(generator, context)`` for drawing a model's weights on ``device``:
+    ``generator`` (seed 0 on ``device`` when None) under no context; on the
+    meta device no generator -- nothing is drawn -- and the context makes
+    ``dense_init`` create its tensors there (shapes and dtypes only)."""
+    if device.type == "meta":
+        return None, torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return generator, contextlib.nullcontext()
 
 
 class ParamTree(nn.Module):

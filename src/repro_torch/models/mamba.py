@@ -69,7 +69,7 @@ def init_cache(cfg, batch: int, max_len: int = 0,
     """An empty cache; ``max_len`` is ignored (constant-size state)."""
     del max_len
     return {"len": 0, "ssm": ssd.init_ssm_cache(
-        cfg, batch, cfg.num_layers, resolve_device(device))}
+        cfg, batch, cfg.num_layers, resolve_device(device, allow_meta=True))}
 
 
 class Mamba(nn.Module):
@@ -80,16 +80,17 @@ class Mamba(nn.Module):
     generator's own device -- a CUDA generator draws on the card -- and
     moved to ``device``; the numbers differ from the reference's, which come
     from ``jax.random``.  ``device`` defaults to the card and raises without
-    one."""
+    one; ``device="meta"`` builds the module with shapes only (nothing drawn,
+    nothing allocated) for the workload census."""
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device: DeviceLike = "cuda"):
         super().__init__()
         check_ssm(cfg)
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        params = init_params(generator, cfg, dev)
+        dev = resolve_device(device, allow_meta=True)
+        generator, ctx = L.init_generator(generator, dev)
+        with ctx:
+            params = init_params(generator, cfg, dev)
         self.cfg = cfg
         self.device = dev
         self.embed = L.ParamTree(params["embed"])

@@ -95,7 +95,8 @@ def init_cache(cfg, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Cache:
     """An empty cache with room for ``max_len`` positions."""
     return {"len": 0, "layers": L.init_kv_cache(
-        cfg, batch, max_len, cfg.num_layers, resolve_device(device))}
+        cfg, batch, max_len, cfg.num_layers,
+        resolve_device(device, allow_meta=True))}
 
 
 # --- forward ---------------------------------------------------------------------
@@ -164,16 +165,17 @@ class Transformer(nn.Module):
     generator's own device -- a CUDA generator draws on the card -- and
     moved to ``device``; the numbers differ from the reference's, which come
     from ``jax.random``.  ``device`` defaults to the card and raises without
-    one."""
+    one; ``device="meta"`` builds the module with shapes only (nothing drawn,
+    nothing allocated) for the workload census."""
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device: DeviceLike = "cuda"):
         super().__init__()
         check_dense(cfg)
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        params = init_params(generator, cfg, dev)
+        dev = resolve_device(device, allow_meta=True)
+        generator, ctx = L.init_generator(generator, dev)
+        with ctx:
+            params = init_params(generator, cfg, dev)
         self.cfg = cfg
         self.device = dev
         self.embed = L.ParamTree(params["embed"])

@@ -1,0 +1,360 @@
+"""The port's HxA against the reference's.
+
+* Part (a), the HLO-text analyzer kept from the reference: ``analyze_hlo_text``
+  returns a dict EQUAL to the reference's on ``tests/test_hxa.py``'s
+  ``SYNTH`` module and on the compiled text of a tiny reference stablelm and
+  mamba2 prefill (``jax.jit(...).lower(...).compile().as_text()``, one
+  device).
+* Part (b), ``analyze_step``: its conventions on small functions, the
+  kernel entries (``kernel_call``), and the census of the port's own step
+  against HxA on the reference's compiled HLO of the same model:
+  - flops within 5 % of HxA's, each known gap computed here, not absorbed by
+    the bound: attention over causal pairs (the port's K3) against XLA's
+    full square, and the elementwise work, which the port counts per aten
+    op and HxA per HLO op inside XLA's fusions; once both are accounted the
+    products agree to 1e-9 relative;
+  - K3's and K4's census entries within 5 % of HxA on the reference's XLA
+    counterpart compiled alone (``kernels/ref.attention_ref`` non-causal,
+    ``models/ssd.ssd_chunked``), the counterpart's elementwise work
+    computed here the same way;
+  - hbm_bytes beside HxA's, three known gaps computed here: the CPU
+    backend's bf16 -> f32 widening (the port traced at float32, the width
+    the reference's compiled step computes at), XLA's layout and window
+    ops (copies, transposes, slices of the scanned layer stack ...) against
+    the port's data-movement aten ops, and the attention scores the XLA
+    reference writes and reads ([B, H, S, S] blocks), which the port's K3
+    keeps on chip.  What is left, the port's per-aten-op operands against
+    XLA's fused ops, must lie in ``HBM_BAND``, set from the readings 0.857
+    (stablelm) and 1.015 (mamba2);
+  - K3's (forward, forward with LSE, backward) and K4's entry bytes equal
+    closed forms;
+  - the census of a step on the CPU equals the one on the meta device
+    exactly (the kernels book the same entries on both; nothing else
+    differs).
+Tiny shapes, as the reference was probed: 2 layers, d 128, S 64, B 2.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import base as rbase
+from repro.core import hxa as rhxa
+from repro.kernels import ref as rref
+from repro.models import api as rapi
+from repro.models import ssd as rssd
+from repro_torch.configs import base
+from repro_torch.core import census, hxa
+from repro_torch.kernels import flash_attention as k3
+from repro_torch.kernels import ssd_scan as k4
+from repro_torch.launch import lowering
+
+from test_hxa import SYNTH
+
+TINY = {"stablelm_1_6b": dict(num_layers=2, d_model=128, num_heads=4,
+                              num_kv_heads=4, head_dim=32, d_ff=256,
+                              vocab_size=256),
+        "mamba2_130m": dict(num_layers=2, d_model=128, ssm_headdim=64,
+                            ssm_state=64, ssm_chunk=64, vocab_size=256)}
+SEQ = {"stablelm_1_6b": 64, "mamba2_130m": 128}
+B = 2
+FLOP_TOL = 0.05
+DOTS_TOL = 1e-9
+# the port's compute bytes over HxA's once the three known gaps are taken
+# out (readings: stablelm 0.857, mamba2 1.015); a census that counted every
+# operand twice would read 1.57 and 2.03
+HBM_BAND = (0.8, 1.2)
+# HLO opcodes that only move or lay out data: XLA materialises them where the
+# port reads through a view (the scanned layer stack's dynamic slices, the
+# transposes before a dot, the conv window slices)
+XLA_LAYOUT_OPS = ("copy", "transpose", "slice", "dynamic-slice",
+                  "dynamic-update-slice", "concatenate", "pad", "gather",
+                  "broadcast", "reshape")
+
+
+def _dots_only(text: str) -> float:
+    """HxA's flops of the dots and convolutions alone, loop trips included:
+    the reference's census over the module with every other op made a
+    ``parameter`` (free); control flow and the constants that bound loops
+    are kept."""
+    comps = rhxa.parse_module(text)
+    keep = ("dot", "convolution", "while", "fusion", "call", "conditional",
+            "constant")
+    for ops in comps.values():
+        for op in ops:
+            if op.opcode not in keep:
+                op.opcode = "parameter"
+    return rhxa.census_computation(rhxa._entry_name(comps, text), comps,
+                                   {}).flops
+
+
+def _score_block_bytes(text: str, s: int) -> float:
+    """HxA's bytes of the attention scores alone, loop trips included: the
+    reference's census over the module with every operand and result but
+    the [..., S, S] blocks dropped, and the layout ops (counted apart)
+    made free."""
+    comps = rhxa.parse_module(text)
+    for ops in comps.values():
+        for op in ops:
+            if op.opcode in XLA_LAYOUT_OPS:
+                op.opcode = "parameter"
+            op.operand_types = [t for t in op.operand_types
+                                if t[1][-2:] == [s, s]]
+            op.result_types = [t for t in op.result_types
+                               if t[1][-2:] == [s, s]]
+    return rhxa.census_computation(rhxa._entry_name(comps, text), comps,
+                                   {}).hbm_bytes
+
+
+_TEXT = {}
+
+
+def _reference_prefill_text(name: str) -> str:
+    if name not in _TEXT:
+        rcfg = dataclasses.replace(rbase.get_config(name).reduced(),
+                                   **TINY[name])
+        m = rapi.build_model(rcfg)
+        params = jax.eval_shape(lambda: m.init(jax.random.PRNGKey(0)))
+        batch = {"tokens": jax.ShapeDtypeStruct((B, SEQ[name]), jnp.int32)}
+        _TEXT[name] = jax.jit(rapi.make_serve_step(m, "prefill", None)).lower(
+            params, batch).compile().as_text()
+    return _TEXT[name]
+
+
+def _port_cfg(name: str):
+    return dataclasses.replace(base.get_config(name).reduced(), **TINY[name])
+
+
+# --- part (a): the HLO-text analyzer --------------------------------------------
+
+
+def test_analyze_hlo_text_equals_reference_on_synth():
+    got = hxa.analyze_hlo_text(SYNTH)
+    assert got == rhxa.analyze_hlo_text(SYNTH)
+    assert got["loops"][0]["trips"] == 13
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_analyze_hlo_text_equals_reference_on_compiled_prefill(name):
+    text = _reference_prefill_text(name)
+    got = hxa.analyze_hlo_text(text)
+    assert got == rhxa.analyze_hlo_text(text)
+    assert got["loops"] and got["loops"][0]["trips"] == 2   # scanned layers
+
+
+def test_parse_module_and_trip_count_equal_reference():
+    comps, rcomps = hxa.parse_module(SYNTH), rhxa.parse_module(SYNTH)
+    assert {k: [dataclasses.astuple(o) for o in v] for k, v in comps.items()} \
+        == {k: [dataclasses.astuple(o) for o in v] for k, v in rcomps.items()}
+    assert hxa._trip_count(comps["loop_cond"]) == 13
+
+
+# --- part (b): analyze_step's conventions -----------------------------------------
+
+
+def test_step_conventions():
+    a = torch.ones((8, 16), dtype=torch.float32, device="meta")
+    w = torch.ones((16, 32), dtype=torch.bfloat16, device="meta")
+
+    def fn(a, w):
+        h = a.to(torch.bfloat16) @ w           # cast 128, mm 2*8*32*16
+        h = torch.exp(h.float())               # cast 256, exp 256
+        v = h.view(4, 64).t()                  # views: free
+        return v.sum(dim=0), torch.empty(100)  # reduce 256 in; alloc free
+
+    r = hxa.analyze_step(fn, a, w)
+    assert r["matmul_flops"] == 2 * 8 * 32 * 16
+    assert r["flops"] == 2 * 8 * 32 * 16 + 128 + 256 + 256 + 256
+    assert r["op_counts"] == {"_to_copy": 2.0, "exp": 1.0, "mm": 1.0,
+                              "sum": 1.0}
+    # bytes: cast 8*16*(4+2), mm (8*16 + 16*32 + 8*32)*2, cast 256*(2+4),
+    # exp 256*8, sum 256*4 + 4*4
+    want = {"_to_copy": 8 * 16 * 6 + 256 * 6, "mm": (128 + 512 + 256) * 2,
+            "exp": 256 * 8, "sum": 256 * 4 + 4 * 4}
+    assert r["hbm_by_opcode"] == {k: float(v) for k, v in sorted(
+        want.items(), key=lambda kv: (-kv[1], kv[0]))}
+    assert r["hbm_bytes"] == sum(want.values())
+    assert (r["collective_bytes"], r["wire_bytes"], r["collectives"],
+            r["loops"], r["kernels"]) == (0.0, 0.0, {}, [], {})
+    assert set(rhxa.analyze_hlo_text(SYNTH)) - {"entry"} <= set(r)
+
+
+def test_step_matmul_flops_equal_flop_counter_and_broadcast_reads_once():
+    x = torch.ones((3, 5, 7), device="meta")
+    y = torch.ones((7, 11), device="meta")
+    s = torch.ones((11,), device="meta")
+
+    def fn(x, y, s):
+        z = torch.matmul(x, y) + s.expand(3, 5, 11)
+        return torch.baddbmm(z[:, :, :5], x, torch.ones((3, 7, 5),
+                                                        device="meta"))
+
+    with FlopCounterMode(display=False) as fc:
+        r = hxa.analyze_step(fn, x, y, s)
+    assert r["matmul_flops"] == fc.get_total_flops() > 0
+    # the add reads x@y (165 floats) and the expanded s once (11 floats)
+    assert r["hbm_by_opcode"]["add"] == (165 + 11 + 165) * 4
+
+
+def test_kernel_call_books_an_entry_and_hides_the_ops_inside():
+    x = torch.ones((4, 4))
+
+    def fn(x):
+        with census.kernel_call(lambda: ("k", 1000, 64)):
+            y = x @ x                          # hidden
+            with census.kernel_call(lambda: ("inner", 5, 5)):   # hidden too
+                pass
+        return y + 1
+
+    r = hxa.analyze_step(fn, x)
+    assert r["kernels"] == {"k": {"launches": 1.0, "flops": 1000.0,
+                                  "bytes": 64.0}}
+    assert r["op_counts"] == {"add": 1.0, "k": 1.0}
+    assert r["matmul_flops"] == 0.0 and r["flops"] == 1000 + 16
+    # no active census: nothing happens, the work is not even asked for
+    with census.kernel_call(lambda: 1 / 0):
+        pass
+    assert not census._ACTIVE
+
+
+# --- part (b): the census against HxA -----------------------------------------------
+
+
+def _port_prefill(name: str, device: str) -> dict:
+    cfg = _port_cfg(name)
+    shape = base.ShapeConfig("tiny", SEQ[name], B, "prefill")
+    return lowering.trace(lowering.make_step(cfg, shape, device))[0]
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_census_flops_within_5pct_of_hxa(name):
+    text = _reference_prefill_text(name)
+    ref = rhxa.analyze_hlo_text(text)
+    ref_dots = _dots_only(text)
+    got = _port_prefill(name, "meta")
+    cfg = _port_cfg(name)
+    s = SEQ[name]
+    kernel_flops = sum(v["flops"] for v in got["kernels"].values())
+    # gap 1: the port's K3 books causal pairs, XLA computes the full square
+    causal_gap = 0.0
+    if cfg.num_heads and cfg.family != "ssm":
+        per_pair = 2 * cfg.head_dim + 2 * cfg.head_dim
+        causal_gap = per_pair * B * cfg.num_heads * cfg.num_layers * (
+            s * s - s * (s + 1) // 2)
+        assert got["kernels"]["flash_attention_bf16_mma"]["flops"] == \
+            per_pair * B * cfg.num_heads * cfg.num_layers * s * (s + 1) // 2
+    # gap 2: elementwise work, per aten op against per fused HLO op
+    port_elementwise = got["flops"] - got["matmul_flops"] - kernel_flops
+    ref_elementwise = ref["flops"] - ref_dots
+    dots = got["matmul_flops"] + kernel_flops + causal_gap
+    assert abs(dots - ref_dots) <= DOTS_TOL * ref_dots
+    adjusted = got["flops"] + causal_gap
+    assert abs(adjusted - ref["flops"]) <= FLOP_TOL * ref["flops"], \
+        (adjusted, ref["flops"], port_elementwise, ref_elementwise)
+    # with both gaps swapped in, the totals agree as the products do
+    swapped = adjusted - port_elementwise + ref_elementwise
+    assert abs(swapped - ref["flops"]) <= DOTS_TOL * ref["flops"]
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_census_hbm_bytes_within_band_of_hxa(name):
+    text = _reference_prefill_text(name)
+    ref = rhxa.analyze_hlo_text(text)
+    assert len(ref["hbm_by_opcode"]) < 15          # the breakdown is whole
+    # gap 1: XLA:CPU computes the bf16 model at float32; trace the port so
+    cfg = dataclasses.replace(_port_cfg(name), dtype="float32")
+    shape = base.ShapeConfig("tiny", SEQ[name], B, "prefill")
+    got = lowering.trace(lowering.make_step(cfg, shape, "meta"))[0]
+    # gap 2: data movement, XLA's layout ops against the port's moves
+    ref_layout = sum(v for k, v in ref["hbm_by_opcode"].items()
+                     if k in XLA_LAYOUT_OPS)
+    port_moves = sum(v for k, v in got["hbm_by_opcode"].items()
+                     if k in census._MOVE_OPS or k in census._FILL_OPS)
+    # gap 3: the scores XLA's attention writes and reads; K3 keeps them
+    scores = 0.0
+    if "flash_attention_f32" in got["kernels"]:
+        scores = _score_block_bytes(text, SEQ[name])
+        assert scores > 0
+    ratio = (got["hbm_bytes"] - port_moves + scores) / (
+        ref["hbm_bytes"] - ref_layout)
+    assert HBM_BAND[0] <= ratio <= HBM_BAND[1], ratio
+
+
+def test_k3_entry_within_5pct_of_hxa_on_attention_ref():
+    b, s, h, hd = 2, 128, 4, 64
+    sd = jax.ShapeDtypeStruct((b, s, h, hd), jnp.float32)
+    text = jax.jit(lambda q, k, v: rref.attention_ref(
+        q, k, v, causal=False)).lower(sd, sd, sd).compile().as_text()
+    ref, ref_dots = rhxa.analyze_hlo_text(text), _dots_only(text)
+    q = torch.zeros((b, s, h, hd), device="meta")
+    got = hxa.analyze_step(lambda: k3.flash_attention(q, q, q, causal=False))
+    entry = got["kernels"]["flash_attention_f32"]
+    assert entry["flops"] == 4 * hd * b * h * s * s
+    assert got["flops"] == entry["flops"] and got["op_counts"] == {
+        "flash_attention_f32": 1.0}
+    assert abs(entry["flops"] - ref_dots) <= DOTS_TOL * ref_dots
+    gap = ref["flops"] - ref_dots          # softmax, elementwise in XLA
+    assert abs(entry["flops"] + gap - ref["flops"]) <= FLOP_TOL * ref["flops"]
+    assert abs(entry["flops"] - ref["flops"]) <= FLOP_TOL * ref["flops"]
+    assert entry["bytes"] == 4 * 4 * b * s * h * hd     # q, k, v, o once
+
+
+def test_k3_training_entries_equal_closed_forms():
+    b, s, h, kv, d = 2, 96, 4, 2, 64
+    q, o, do = (torch.zeros((b, s, h, d), device="meta") for _ in range(3))
+    k, v = (torch.zeros((b, s, kv, d), device="meta") for _ in range(2))
+    lse = torch.zeros((b, h, s), device="meta")
+    pairs = s * (s + 1) // 2
+    fwd = hxa.analyze_step(lambda: k3.flash_attention_fwd(q, k, v))
+    assert fwd["kernels"] == {"flash_attention_f32": {
+        "launches": 1.0, "flops": 4.0 * d * b * h * pairs,
+        # q, o and k, v once; the float32 LSE written once
+        "bytes": 4.0 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s)}}
+    bwd = hxa.analyze_step(
+        lambda: k3.flash_attention_bwd(do, q, k, v, o, lse))
+    assert bwd["kernels"] == {k3.BWD_F32: {
+        "launches": 1.0, "flops": 10.0 * d * b * h * pairs,
+        # q, o, do, dq and k, v, dk, dv once; the LSE read and D written
+        "bytes": 4.0 * (4 * b * s * h * d + 4 * b * s * kv * d
+                        + 2 * b * h * s)}}
+
+
+def test_k4_entry_within_5pct_of_hxa_on_ssd_chunked():
+    b, s, nh, hp, ds, q = 1, 512, 24, 64, 128, 256     # mamba2's head shape
+    f32 = jnp.float32
+    args = (jax.ShapeDtypeStruct((b, s, nh, hp), f32),
+            jax.ShapeDtypeStruct((b, s, nh), f32),
+            jax.ShapeDtypeStruct((nh,), f32),
+            jax.ShapeDtypeStruct((b, s, 1, ds), f32),
+            jax.ShapeDtypeStruct((b, s, 1, ds), f32))
+    text = jax.jit(lambda *a: rssd.ssd_chunked(*a, chunk=q)).lower(
+        *args).compile().as_text()
+    ref, ref_dots = rhxa.analyze_hlo_text(text), _dots_only(text)
+    t = [torch.zeros(a.shape, device="meta") for a in args]
+    got = hxa.analyze_step(lambda: k4.ssd_scan(*t, chunk=q))
+    entry = got["kernels"]["ssd_scan_f32"]
+    # x, dt, A, B, C read, y and the final state written, once each
+    assert entry["bytes"] == 4 * (2 * b * s * nh * hp + b * s * nh + nh
+                                  + 2 * b * s * ds + b * nh * hp * ds)
+    assert abs(entry["flops"] - ref_dots) <= DOTS_TOL * ref_dots
+    gap = ref["flops"] - ref_dots          # decay blocks, elementwise
+    assert abs(entry["flops"] + gap - ref["flops"]) <= FLOP_TOL * ref["flops"]
+    assert abs(entry["flops"] - ref["flops"]) <= FLOP_TOL * ref["flops"]
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_census_on_cpu_equals_census_on_meta(name):
+    cpu, meta = _port_prefill(name, "cpu"), _port_prefill(name, "meta")
+    assert cpu == meta and meta["kernels"]
+
+
+def test_decode_census_on_cpu_equals_meta():
+    cfg = _port_cfg("stablelm_1_6b")
+    shape = base.ShapeConfig("tiny_decode", 32, B, "decode")
+    cpu, meta = (lowering.trace(lowering.make_step(cfg, shape, d))[0]
+                 for d in ("cpu", "meta"))
+    assert cpu == meta and not meta["kernels"]

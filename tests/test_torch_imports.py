@@ -48,7 +48,9 @@ def test_port_has_the_expected_modules():
                  "dse_campaign/fabric.py", "dse_campaign/chaos.py",
                  "optim/__init__.py", "optim/adamw.py", "optim/adafactor.py",
                  "optim/compression.py", "checkpoint/__init__.py",
-                 "checkpoint/store.py", "launch/train.py"):
+                 "checkpoint/store.py", "launch/train.py", "core/hxa.py",
+                 "core/offload.py", "launch/lowering.py",
+                 "launch/dryrun.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
