@@ -6,11 +6,12 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
     python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
-`nvcc` per source, all five started together), holds each against its plain
+`nvcc` per source, all six started together), holds each against its plain
 PyTorch version on the card, and drives the port's main paths: training the
 dense transformer (stablelm-1.6b at full width and depth through
 `launch.train.train`, every layer's attention on K3 and its hand-written
-backward), the fused
+backward) and mamba2-130m (full width and depth, B=8 S=4096, every scan
+on K4 and its hand-written backward), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -25,7 +26,7 @@ qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
 recurrent greedy decode), each through `build_model(get_config(...))`,
 and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m,
 and the workload census (`launch.lowering` / `launch.dryrun`: every ported
-cell traced on the meta device, three steps traced on the card and held
+cell traced on the meta device, four steps traced on the card and held
 equal to their meta census, the census fed to `Campaign.from_artifacts`,
 `dataset.build_dataset`, the predictors and `offload.sweep_bandwidth`).
 Every phase prints one JSON object on a line of its own; any failed phase
@@ -44,7 +45,12 @@ Lines, in order:
                                      by kind, idle, peak memory, K3
                                      launches; (b) float32 depth 2 card vs
                                      CPU; (c) resume == fresh bitwise; (d)
-                                     K3 backward vs plain, SDPA's backward
+                                     K3 backward vs plain, SDPA's backward;
+                                     (e) mamba2-130m bf16 B=8 S=4096, 4
+                                     steps: the same readings, K4 and K4
+                                     backward launches; (f) mamba2 float32
+                                     depth 2 card vs CPU; (g) mamba2 resume
+                                     == fresh; (h) K4 backward vs plain
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -79,8 +85,9 @@ Lines, in order:
                                      == a direct decode loop
   {"phase": "census", ...}           meta census of every ported cell; the
                                      card census of stablelm prefill, mamba2
-                                     prefill (B=1 S=4096) and a stablelm
-                                     train step == their meta census, K3 /
+                                     prefill (B=1 S=4096) and a stablelm and
+                                     a mamba2 train step == their meta
+                                     census, K3 /
                                      K4 launches == entries; the census
                                      campaign (fused == exact), dataset and
                                      k-fold; offload sweep card == CPU
@@ -141,6 +148,7 @@ from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import mamba as tm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
@@ -153,6 +161,7 @@ CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 # file:line of what each kernel replaces in the reference package
 REPLACES = {"sweep_reduce": "src/repro/kernels/dse_sweep.py:52",
             "dse_sweep": "src/repro/kernels/dse_sweep.py:52",
@@ -346,13 +355,15 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; returns the report per
     source."""
     t0 = time.perf_counter()
-    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k3.BWD_SOURCE, k4.SOURCE)
+    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k3.BWD_SOURCE, k4.SOURCE,
+               k4.BWD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(
             lambda src: build.build(src, force=True), sources)))
     for kernel in (kern, k2, k3, k4):
         kernel._library()
     k3._bwd_library()
+    k4._bwd_library()
     out = {}
     for src in sources:
         usage = [ln.strip() for ln in build.build_logs[src].splitlines()
@@ -387,6 +398,20 @@ def phase_build() -> dict:
                 r["spill_stores"] or r["spill_loads"] for r in tiles):
         raise AssertionError(f"K4's shared_cb kernels spill (or are missing "
                              f"from the ptxas report): {tiles}")
+    out[k4.BWD_SOURCE]["kernels"] = ptxas_report(
+        build.build_logs[k4.BWD_SOURCE])
+    ssd_bwd = [r for r in out[k4.BWD_SOURCE]["kernels"]
+               if "ssd_bwd_" in r["kernel"]]
+    # two blocks an SM (128 registers) cost the dCB kernel a small spill,
+    # and it still ran faster than one block without (PERF.md): the others
+    # must not spill, and it at most SSD_BWD_DCB_SPILL bytes
+    if len(ssd_bwd) != 11 or any(
+            max(r["spill_stores"], r["spill_loads"])
+            > (SSD_BWD_DCB_SPILL if "ssd_bwd_dcb_" in r["kernel"] else 0)
+            for r in ssd_bwd):
+        raise AssertionError(f"K4's backward kernels (four per input dtype "
+                             f"and three shared) spill (or are missing from "
+                             f"the ptxas report): {ssd_bwd}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
     return out
@@ -3649,10 +3674,13 @@ def phase_mamba2(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def ssd_rows(rows, mb) -> list:
+def ssd_rows(rows, mb, training) -> list:
     """K4's rows: times at the mamba2 B=1 S=4096 shape alone (float32
     output, the model's path), the other model shape beside it, and K4
-    inside the prefills."""
+    inside the prefills; launches from the serving path, and beside them
+    those of the training path ((e) bf16, (f) float32)."""
+    trained = {torch.bfloat16: training["e_mamba2_full"]["launches"],
+               torch.float32: training["f_mamba2_card_vs_cpu"]["launches"]}
     out = []
     for dtype in SSD_DTYPES:
         sfx = SUFFIX[dtype]
@@ -3664,6 +3692,7 @@ def ssd_rows(rows, mb) -> list:
             "name": name, "route": "cuda", "source": SSD_SOURCE,
             "replaces": REPLACES["ssd_scan"],
             "launches": mb["launches"][name],
+            "launches_in_training": trained[dtype][name],
             "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
                                if d == dtype),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3785,13 +3814,21 @@ class StepClock:
         self._patch.stop()
 
 
-def step_device_split(prof, top: int = 12) -> dict:
-    """Device ms of the profiled step by kind: K3 forward, K3 backward,
-    cuBLAS (GEMM kernels), the rest (elementwise, reductions, copies); and
-    the ``top`` kernels by device ms with their counts."""
+# the profiled step's kinds of hand-written kernel, (kind, name symbols),
+# each matched in this order before cuBLAS and the rest
+K3_KINDS = (("k3_forward", ("flash_bf16_", "flash_f32_")),
+            ("k3_backward", (BWD_SYMBOL,)))
+K4_KINDS = (("k4_backward", ("ssd_bwd_",)), ("k4_forward", ("ssd_",)))
+
+
+def step_device_split(prof, top: int = 12, kinds=K3_KINDS) -> dict:
+    """Device ms of the profiled step by kind: the hand-written kernels of
+    ``kinds`` (K3 forward and backward by default), cuBLAS (GEMM kernels),
+    the rest (elementwise, reductions, copies); and the ``top`` kernels by
+    device ms with their counts."""
     from torch.autograd import DeviceType
-    split = {"k3_forward": 0.0, "k3_backward": 0.0, "cublas": 0.0,
-             "elementwise_and_other": 0.0}
+    split = {kind: 0.0 for kind, _ in kinds}
+    split.update({"cublas": 0.0, "elementwise_and_other": 0.0})
     kernels = []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -3801,15 +3838,12 @@ def step_device_split(prof, top: int = 12) -> dict:
         kernels.append({"kernel": ev.key[:120], "ms": us / 1e3,
                         "count": int(ev.count)})
         name = ev.key.lower()
-        if BWD_SYMBOL in name:
-            kind = "k3_backward"
-        elif "flash_bf16_" in name or "flash_f32_" in name:
-            kind = "k3_forward"
-        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass",
-                                     "cublas", "sm90_")):
-            kind = "cublas"
-        else:
-            kind = "elementwise_and_other"
+        kind = next((k for k, symbols in kinds
+                     if any(t in name for t in symbols)), None)
+        if kind is None:
+            kind = ("cublas" if any(t in name for t in (
+                "gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_"))
+                else "elementwise_and_other")
         split[kind] += us / 1e3
     kernels.sort(key=lambda r: -r["ms"])
     return split, kernels[:top]
@@ -3973,31 +4007,33 @@ class TimedSave:
         self._patch.stop()
 
 
-def train_resume(device, seed: int) -> dict:
-    """(c) stablelm bf16 at depth 2 and full width, S=4096: 4 steps with a
-    checkpoint every 2; the step-4 checkpoint removed (a crash after step
-    2's); restored and run to 4.  The 2 losses and the final parameters
-    must be bitwise the uninterrupted run's."""
+def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
+                 batch: int = 1) -> dict:
+    """(c) stablelm, (g) mamba2: bf16 at depth 2 and full width, S=4096, B
+    ``batch``: 4 steps with a checkpoint every 2; the step-4 checkpoint
+    removed (a crash after step 2's); restored and run to 4.  The 2 losses
+    and the final parameters must be bitwise the uninterrupted run's."""
     ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
 
     def cut(name):
         return dataclasses.replace(get_config(name), num_layers=RESUME_DEPTH)
 
-    kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=TRAIN_SEQ, batch=1,
-              ckpt_dir=ckdir, ckpt_every=RESUME_EVERY, seed=seed,
-              install_signals=False, log_every=100, device=device)
+    kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=TRAIN_SEQ,
+              batch=batch, ckpt_dir=ckdir, ckpt_every=RESUME_EVERY,
+              seed=seed, install_signals=False, log_every=100,
+              device=device)
     try:
         with mock.patch.object(train_mod, "get_config", cut), \
                 TimedSave() as saves:
-            full, state = train_mod.train(TRAIN_ARCH, **kw)
+            full, state = train_mod.train(arch, **kw)
             final = [p.detach().clone() for p in state.params.parameters()]
             del state
             torch.cuda.empty_cache()
             written = sorted(os.listdir(ckdir))
             shutil.rmtree(os.path.join(ckdir, f"step_{RESUME_STEPS}"))
             t0 = time.perf_counter()
-            resumed, state = train_mod.train(TRAIN_ARCH, restore=True, **kw)
+            resumed, state = train_mod.train(arch, restore=True, **kw)
             resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -4009,8 +4045,8 @@ def train_resume(device, seed: int) -> dict:
                              f"{resumed}, parameters bitwise {same}")
     del state, final
     torch.cuda.empty_cache()
-    return {"layers": RESUME_DEPTH, "dtype": "bfloat16", "S": TRAIN_SEQ,
-            "losses_fresh": full, "losses_resumed": resumed,
+    return {"arch": arch, "layers": RESUME_DEPTH, "dtype": "bfloat16",
+            "B": batch, "S": TRAIN_SEQ, "losses_fresh": full, "losses_resumed": resumed,
             "bitwise_losses_and_parameters": True,
             "checkpoints_written": written, "writes": saves.writes,
             "resumed_run_seconds": resume_s}
@@ -4104,11 +4140,274 @@ def bwd_case(gen, device, case, dtype) -> dict:
     return row
 
 
+# --- training: mamba2 on K4 and its backward ------------------------------------
+
+MAMBA_TRAIN_ARCH = "mamba2_130m"
+MAMBA_TRAIN_BATCH = 8
+# (f): mamba2 float32 at depth 2 and full width, card against the CPU; the
+# (b) gates
+MAMBA_CARD_CPU_SEQ = 1024
+# (g): mamba2 resume, bf16 at depth 2
+MAMBA_RESUME_BATCH = 2
+# (h): K4's backward against ssd_scan_bwd_plain on the card, each gradient
+# within tol * max |plain|: float32 1e-4 (sums in other orders), bf16 2e-2
+# (the gradients of bf16 inputs are rounded to bf16 once)
+SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (case, b, S, nh, hp, ds, Q, with_final): a test shape (3 chunks of 16), a
+# general shape (every size off the 64 tile), mamba2-130m's heads at B=1 and
+# at the training run's B=8, S=4096, with a final-state cotangent; and the
+# training run's own call, B=8 with none (the model drops the final state,
+# so ``SSDScan`` passes None and the reverse pass starts from 0)
+SSD_BWD_CASES = (("test", 2, 48, 3, 8, 16, 16, True),
+                 ("general", 2, 300, 2, 72, 40, 100, True),
+                 ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256, True),
+                 ("mamba2_b8_s4096", 8, 4096, 24, 64, 128, 256, True),
+                 ("mamba2_b8_s4096_no_final", 8, 4096, 24, 64, 128, 256,
+                  False))
+SSD_BWD_HEADLINE = "mamba2_b8_s4096_no_final"
+SSD_BWD_SYMBOL = "ssd_bwd_"   # every K4-backward kernel's name starts so
+# the most the dCB kernel may spill (bytes of stores or loads); 120 measured
+SSD_BWD_DCB_SPILL = 256
+
+
+def ssd_bwd_bound(b, s, nh, hp, ds, q, dtype, with_final) -> dict:
+    """Least time for one backward call: dy (float32), the final state's
+    cotangent when given, x, dt, A, B, C and the forward's states and cum
+    read once, dx, ddt, dA, dB, dC written once (``k4.census_work_bwd``'s
+    bytes); the chunked VJP's products over the lower triangles -- per (b,
+    chunk) C B^T, dCB B and dCB^T C, 3 ds Q (Q + 1); per (b, h, chunk) the
+    masked d(x dt) = (C B^T . L)^T dY and dM = dY (x dt)^T, 2 hp Q (Q + 1);
+    and four Q hp ds products, 8 Q hp ds: the state gradient (C e^cum)^T
+    dY, dY S_in (dC's y_off term), B dS_out^T (d(x dt)'s state term) and
+    (x dt) dS_out (dB's state term).  dcum needs no fifth: its y_off term
+    is the row sum of C . (e^cum dY S_in) and its decay_end term the row
+    sum of B . ((x dt) dS_out), both from products above -- at the
+    float32 rate (67 TFLOP/s; both input types compute in float32).
+    ``units_bound_ms``: the same work at the tensor cores' rates, as
+    ``ssd_bound``'s -- C B^T of bf16 inputs at 989 TFLOP/s; a product
+    with a bf16 operand (B or C, or x under dt's row scaling) as 2xTF32,
+    495 / 2 TFLOP/s, one of two float32 operands (dY S_in, the masked d(x
+    dt)) as 3xTF32, 495 / 3; float32 inputs: every product at 495 / 3."""
+    nbytes = k4.census_work_bwd(b, s, nh, hp, ds, q, dtype, with_final)[1]
+    nc = s // q
+    cb = b * nc * ds * q * (q + 1)              # one per (b, chunk)
+    tri = b * nc * nh * hp * q * (q + 1)        # one per (b, h, chunk)
+    state = b * nc * nh * 2 * q * hp * ds       # one per (b, h, chunk)
+    ops = 3 * cb + 2 * tri + 4 * state
+    out = bound(nbytes, ops, torch.float32)
+    bf16 = dtype == torch.bfloat16
+    f32_rate = TF32_FLOPS / 3
+    mixed_rate = TF32_FLOPS / (2 if bf16 else 3)
+    units_s = (cb / (PEAK_FLOPS[torch.bfloat16] if bf16 else f32_rate)
+               + 2 * cb / mixed_rate                  # dCB B, dCB^T C
+               + tri / f32_rate + tri / mixed_rate    # masked d(x dt), dM
+               + state / f32_rate + 3 * state / mixed_rate)
+    out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S, units_s) * 1e3
+    return out
+
+
+def ssd_bwd_case(gen, device, case, dtype) -> dict:
+    """(h) K4's backward against ssd_scan_bwd_plain on one shape, from the
+    forward kernel's own scratch, with a final-state cotangent or (as the
+    training path calls it) none; twice, bitwise; the plan's grids as the
+    library launches them; the call timed beside the plain version and the
+    bound, its kernels by the profiler."""
+    name, b, s, nh, hp, ds, q, with_final = case
+    x = torch.randn((b, s, nh, hp), generator=gen, device=device).to(dtype)
+    dt = torch.rand((b, s, nh), generator=gen, device=device) * 0.19 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=device) * 1.5 + 0.5)
+    Bm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
+    Cm = torch.randn((b, s, 1, ds), generator=gen, device=device).to(dtype)
+    dy = torch.randn((b, s, nh, hp), generator=gen, device=device)
+    df = (torch.randn((b, nh, hp, ds), generator=gen, device=device)
+          if with_final else None)
+    plan = k4.plan_bwd(b, s, nh, hp, ds, q, dtype)
+    shape = k4.bwd_launch_shape(b, s, nh, hp, ds, q)
+    if {k: tuple(v["grid"]) for k, v in shape["launches"].items()} \
+            != plan.grids or shape["launches"]["dcum"]["smem"] \
+            != plan.dcum_smem:
+        raise AssertionError(f"K4 backward plan {plan} disagrees with the "
+                             f"library's launches {shape}")
+    _, _, scr = k4.ssd_scan_with_scratch(x, dt, A, Bm, Cm, chunk=q,
+                                         out_dtype=torch.float32)
+
+    def run():
+        return k4.ssd_scan_bwd(dy, df, x, dt, A, Bm, Cm, chunk=q,
+                               states=scr["states"], cum=scr["cum"])
+
+    g1, g2 = run(), run()
+    gp = k4.ssd_scan_bwd_plain(dy, df, x, dt, A, Bm, Cm, chunk=q)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(g1, g2)):
+        raise AssertionError(f"K4 backward {name} {dtype}: two runs differ")
+    errs, rels = {}, {}
+    for gname, u, w, t in zip(("dx", "ddt", "dA", "dB", "dC"), g1, gp,
+                              (x, dt, A, Bm, Cm)):
+        if u.shape != t.shape or u.dtype != t.dtype or \
+                not torch.isfinite(u.float()).all():
+            raise AssertionError(f"K4 backward {name} {gname}: {u.shape} "
+                                 f"{u.dtype}, or not finite")
+        err = float((u.float() - w.float()).abs().max())
+        rel = err / float(w.float().abs().max())
+        if rel > SSD_BWD_TOL[dtype]:
+            raise AssertionError(f"K4 backward {name} {dtype} {gname}: max "
+                                 f"|diff| {err} = {rel} of scale")
+        errs[gname], rels[gname] = err, rel
+    del g1, g2, gp
+    bd = ssd_bwd_bound(b, s, nh, hp, ds, q, dtype, with_final)
+    row = {"case": name, "b": b, "S": s, "nh": nh, "hp": hp, "ds": ds,
+           "Q": q, "with_final": with_final, "dtype": SUFFIX[dtype],
+           "max_abs_err": max(errs.values()),
+           "abs_err": errs, "rel_err": rels, "twice_bitwise": True,
+           "grids": {k: list(v) for k, v in plan.grids.items()},
+           "ms": time_ms(run, 5, warmup=2),
+           "plain_ms": time_ms(lambda: k4.ssd_scan_bwd_plain(
+               dy, df, x, dt, A, Bm, Cm, chunk=q), 1, warmup=1),
+           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "units_bound_ms": bd["units_bound_ms"],
+           "bytes": bd["bytes"], "operations": bd["operations"],
+           "library_ms": None}
+    br = device_breakdown(run, SSD_BWD_SYMBOL, reps=3)
+    row["device_ms"] = br["kernel_device_ms"]
+    row["kernel_split"] = {k[k.find(SSD_BWD_SYMBOL):][:60]: v
+                           for k, v in br["by_name"].items()
+                           if SSD_BWD_SYMBOL in k}
+    del scr
+    torch.cuda.empty_cache()
+    return row
+
+
+def mamba_train_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N T for the parameters (all but the input embedding table when
+    the head is its own; mamba2-130m ties them) plus the scan: its least
+    forward operations (``ssd_bound``), three times (forward and a
+    backward of two such products each)."""
+    n = sum(p.numel() for name, p in module.named_parameters()
+            if name != "embed.embed_w" or module.head is None)
+    scan = 3 * cfg.num_layers * ssd_bound(
+        b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk,
+        torch.bfloat16, torch.float32)["operations"]
+    return {"matmul_params": n, "flops": 6 * n * b * s + scan,
+            "scan_flops": scan}
+
+
+def train_mamba_full(device, seed: int) -> dict:
+    """(e) mamba2-130m at full width and depth, bf16, B=8, S=4096, 4 AdamW
+    steps through ``launch.train.train``; the counts are zeroed just
+    before and read just after."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k4.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            MAMBA_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            seq_len=TRAIN_SEQ, batch=MAMBA_TRAIN_BATCH, seed=seed,
+            install_signals=False, log_every=1, device=device)
+    launches = k4.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"mamba2 training losses {losses}")
+    # "dots" keeps the projections, not the scan's batched products: the
+    # backward recomputes every layer's scan, so K4 runs twice a layer
+    want = {k: 0 for k in k4.LAUNCHES}
+    want["ssd_scan_bf16"] = 2 * cfg.num_layers * TRAIN_STEPS
+    want["ssd_scan_bwd_bf16"] = cfg.num_layers * TRAIN_STEPS
+    if cfg.remat != "dots" or launches != want:
+        raise AssertionError(f"K4 launches in mamba2 training {launches}, "
+                             f"expected {want} (remat {cfg.remat})")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof, kinds=K4_KINDS)
+    device_ms = sum(split.values())
+    tokens = MAMBA_TRAIN_BATCH * TRAIN_SEQ
+    flops = mamba_train_flops(state.params, cfg, MAMBA_TRAIN_BATCH,
+                              TRAIN_SEQ)
+    out = {"arch": MAMBA_TRAIN_ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat,
+           "B": MAMBA_TRAIN_BATCH, "S": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "tokens_per_s": tokens / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak, "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items() if v},
+           "note": "as a_full: ms_per_step the host clock around a step "
+                   "ending in a synchronize, median of steps 1-2; "
+                   "device_ms_by_kind from step 3 under the profiler (K4 "
+                   "forward, K4 backward, cuBLAS, other); idle_share = 1 - "
+                   "device_ms / ms_per_step; utilization = model flops "
+                   "(6 N T + 3 x the scan's forward operations) / step "
+                   "time / 989 TFLOP/s"}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tm.loss_fn(module, batch["tokens"], batch["labels"])
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+def train_mamba_card_vs_cpu(device, seed: int) -> dict:
+    """(f) mamba2 float32 at depth 2 and full width, B=1, S=1024: the loss
+    and every parameter gradient on the card (K4's float32 forward and
+    backward kernels, cuBLAS in full float32) against the port's CPU path
+    (plain versions) from the same weights and tokens; (b)'s gates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MAMBA_TRAIN_ARCH), num_layers=2,
+                              dtype="float32")
+    cpu = tm.Mamba(cfg, generator=torch.Generator().manual_seed(seed),
+                   device="cpu")
+    card = tm.Mamba(cfg, generator=torch.Generator(device=device)
+                    .manual_seed(seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", MAMBA_CARD_CPU_SEQ, 1, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k4.reset_launch_counts()
+    loss_g, grads_g = _ssm_grads(card, batch)
+    torch.cuda.synchronize()
+    launches = k4.launch_counts()
+    t0 = time.perf_counter()
+    loss_c, grads_c = _ssm_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"mamba2 card vs CPU training: loss rel "
+                             f"{rel_loss}, worst gradient {worst} ({errs})")
+    want = {k: 0 for k in k4.LAUNCHES}
+    want["ssd_scan_f32"] = 2 * cfg.num_layers      # "dots" recomputes it
+    want["ssd_scan_bwd_f32"] = cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"K4 launches on the card {launches}, expected "
+                             f"{want}")
+    return {"arch": MAMBA_TRAIN_ARCH, "layers": 2, "dtype": "float32",
+            "B": 1, "S": MAMBA_CARD_CPU_SEQ, "loss_card": float(loss_g),
+            "loss_cpu": float(loss_c), "loss_rel_diff": rel_loss,
+            "worst_grad_rel_diff": worst, "grad_rel_diff": errs,
+            "launches": launches, "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL}}
+
+
 def phase_training(device, seed: int) -> dict:
-    """The training path: (a) the full stablelm-1.6b run (the main path,
+    """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
     CPU in float32, (c) resume == fresh bitwise, (d) K3's backward alone
-    against its plain version at the model shapes."""
+    against its plain version at the model shapes; (e) - (h) the same for
+    mamba2-130m and K4's backward ((e) the full run, B=8)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -4118,11 +4417,42 @@ def phase_training(device, seed: int) -> dict:
                             for dtype in BOTH_DTYPES
                             for case in BWD_CASES if dtype in case[7]]
     torch.cuda.empty_cache()
+    seconds = {"a_to_d": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    out["e_mamba2_full"] = train_mamba_full(device, seed)
+    out["f_mamba2_card_vs_cpu"] = train_mamba_card_vs_cpu(device, seed)
+    out["g_mamba2_resume"] = train_resume(device, seed, MAMBA_TRAIN_ARCH,
+                                          MAMBA_RESUME_BATCH)
+    out["h_k4_backward"] = [ssd_bwd_case(gen, device, case, dtype)
+                            for dtype in BOTH_DTYPES
+                            for case in SSD_BWD_CASES]
+    torch.cuda.empty_cache()
+    seconds["e_to_h"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = seconds
     emit({"phase": "training", **out,
           "tolerance": {"d_bf16": "max |kernel - plain| <= 2e-2 max |plain| "
                                   "per gradient",
-                        "d_f32": "<= 1e-4 max |plain| per gradient"},
+                        "d_f32": "<= 1e-4 max |plain| per gradient",
+                        "h_bf16": "max |K4 backward - plain| <= 2e-2 max "
+                                  "|plain| per gradient",
+                        "h_f32": "<= 1e-4 max |plain| per gradient"},
+          "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
+                           "after 2 warm-ups; device_ms the backward's "
+                           "kernels (torch.profiler, 3 calls), "
+                           "kernel_split by kernel; plain_ms one call of "
+                           "ssd_scan_bwd_plain; library: none, no PyTorch "
+                           "call computes the scan's VJP; bound = max("
+                           "bytes of dy, the final state's cotangent, x, "
+                           "dt, A, B, C, states, cum, dx, ddt, dA, dB, dC "
+                           "/ 3.35 TB/s, the VJP's products over the lower "
+                           "triangles -- 3 ds Q (Q + 1) a (b, chunk), 2 hp "
+                           "Q (Q + 1) + 8 Q hp ds a (b, h, chunk) -- / 67 "
+                           "TFLOP/s float32); units_bound: the same "
+                           "operations at the tensor cores' rates (C B^T "
+                           "of bf16 at 989 TFLOP/s, a product with a bf16 "
+                           "operand at 495 / 2, float32 by float32 at 495 "
+                           "/ 3)",
           "timing_note": "d: ms / library_ms CUDA events around back-to-back "
                          "calls after warm-up (library = SDPA's backward, "
                          "torch.autograd.grad of F.scaled_dot_product_"
@@ -4176,6 +4506,46 @@ def bwd_rows(training, ptxas) -> list:
             "ptxas": [r for r in ptxas if "flash_bwd_" in r["kernel"]
                       and ("bf16" if dtype == torch.bfloat16 else "f32")
                       in r["kernel"]]})
+    return rows
+
+
+def ssd_bwd_rows(training, ptxas) -> list:
+    """K4 backward's rows: the mamba2 B=8 S=4096 call with no final-state
+    cotangent (the training run's), the other shapes beside it; launches from the training path ((e)
+    bf16, (f) float32)."""
+    rows = []
+    paths = {torch.bfloat16: ("e_mamba2_full", "training (e): mamba2-130m, "
+                              "B=8, S=4096, 4 steps"),
+             torch.float32: ("f_mamba2_card_vs_cpu", "training (f): mamba2 "
+                             "float32 depth 2, one step on the card")}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"ssd_scan_bwd_{SUFFIX[dtype]}"
+        cases = [r for r in training["h_k4_backward"]
+                 if r["dtype"] == SUFFIX[dtype]]
+        head = next(r for r in cases if r["case"] == SSD_BWD_HEADLINE)
+        path, what = paths[dtype]
+        rows.append({
+            "name": name, "route": "cuda", "source": SSD_BWD_SOURCE,
+            "replaces": REPLACES["ssd_scan"],
+            "also_replaces": "src/repro/models/ssd.py:75 (jax.vjp of the "
+                             "XLA chunked scan the reference trains "
+                             "through; no TPU backward kernel)",
+            "launches": training[path]["launches"][name],
+            "launches_from": what,
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "units_bound_ms": head["units_bound_ms"],
+            "library_ms": None, "device_ms": head["device_ms"],
+            "kernel_split": head["kernel_split"],
+            "shape": "b=8, S=4096, nh=24, hp=64, ds=128, Q=256, no final-"
+                     "state cotangent (the training path's call)",
+            "shapes": [{k: r[k] for k in (
+                "case", "b", "S", "nh", "hp", "ds", "Q", "with_final", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "units_bound_ms", "max_abs_err", "rel_err")}
+                for r in cases],
+            "ptxas": [r for r in ptxas if "ssd_bwd_" in r["kernel"]]})
     return rows
 
 
@@ -4253,11 +4623,13 @@ def kernels_line(numbers, launches, ptxas, select_timing) -> list:
 # --- the workload census ----------------------------------------------------------
 
 # the steps traced on the card: the shapes the transformer (a), mamba2 (a)
-# and training (a) runs drive, at full width and depth
+# and training (a) runs drive, and a mamba2 train step, at full width and
+# depth
 CENSUS_CARD = (
     ("stablelm_1_6b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("mamba2_130m", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
-    ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")))
+    ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
+    ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")))
 CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
                "hbm_by_opcode", "kernels")
 # the k-fold models of the census dataset (the forest's k-fold, ~30 s a
@@ -4317,9 +4689,13 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
                              f"{card_cost} != meta {meta_cost}")
     entries = {k: int(v["launches"]) for k, v in card["kernels"].items()}
     layers = cfg.num_layers
-    want = ({k3.TC: layers, k3.BWD_BF16: layers} if shape.kind == "train"
-            else {"ssd_scan_bf16": layers} if cfg.family == "ssm"
-            else {k3.TC: layers})
+    if cfg.family == "ssm":
+        # a train step recomputes every scan under remat "dots"
+        want = ({"ssd_scan_bf16": 2 * layers, "ssd_scan_bwd_bf16": layers}
+                if shape.kind == "train" else {"ssd_scan_bf16": layers})
+    else:
+        want = ({k3.TC: layers, k3.BWD_BF16: layers}
+                if shape.kind == "train" else {k3.TC: layers})
     if entries != launches or launches != want:
         raise AssertionError(f"{arch} {shape.name}: census kernel entries "
                              f"{entries}, launch_counts() {launches}, "
@@ -4456,7 +4832,7 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
 
 def phase_census(device) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device; three steps traced on the card and held equal to the meta
+    device; four steps traced on the card and held equal to the meta
     census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
@@ -4539,7 +4915,8 @@ def main() -> int:
                                   selection["timing"])
           + conv_rows(per_dtype, infer) + flash_rows(flash, lm, training)
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
-          + ssd_rows(ssd, mb)})
+          + ssd_rows(ssd, mb, training)
+          + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ manifest lists the paths in ``"paths"`` where the reference pickles a JAX
 treedef (``"treedef_pkl"``).  ``restore`` returns the nested dict the paths
 spell.  It also reads a checkpoint the reference wrote: it never unpickles
 the treedef (that needs JAX) and takes the leaf order from
-``reference_paths`` instead (``models.transformer.reference_state_paths``
+``reference_paths`` instead (``models.api.reference_state_paths``
 spells it for a ``TrainState(params, OptState(step, m, v))``).
 
 ``AsyncCheckpointer.save_async`` copies every leaf to host memory before it

@@ -12,8 +12,9 @@ to the library convolution with JAX's SAME padding written out.  ``flash_attenti
 prefill attention: the hand-written kernel K3, in the reference's BSHD
 layout, GQA without repeating K / V, differentiable (K3's backward
 kernels) where autograd records.  ``ssd_scan`` is what the Mamba2
-block calls for its chunked scan in prefill: the hand-written kernel K4,
-returning the output and the final state.  With CUDA tensors the hand-written
+block calls for its chunked scan: the hand-written kernel K4, returning
+the output and the final state, differentiable (K4's backward kernels)
+where autograd records.  With CUDA tensors the hand-written
 kernels run (or the call raises); with CPU tensors their plain versions do
 — the device of the inputs alone decides, there is no switch and no
 fallback.
@@ -139,5 +140,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final state, and nothing is transposed: K4 reads x and B / C (column
     slices of one tensor included) in place, the model's always (a view
     whose base or strides lie off 16 bytes is copied first at the model's
-    shapes)."""
+    shapes).  Where autograd records (gradients on and an input that
+    requires them) the call goes through ``SSDScan``, K4 with its
+    hand-written backward; otherwise -- prefill -- straight to K4."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        return _k4.SSDScan.apply(x, dt, A, B, C, int(chunk), out_dtype)
     return _k4.ssd_scan(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype)

@@ -1,5 +1,5 @@
-"""The SSD chunk-scan kernel (K4): launch plan, wrapper, plain version,
-launch count.
+"""The SSD chunk-scan kernel (K4) and its backward: launch plans,
+wrappers, plain versions, launch counts, the autograd ``Function``.
 
 Hand-written CUDA kernels (``csrc/ssd_scan.cu``) compute the Mamba2 SSD
 scan of the reference's ``ops.ssd_scan`` for ``ngroups == 1``: ``x`` [b, S,
@@ -44,6 +44,21 @@ Both versions accumulate ``cumsum(dt * A)`` in float64 and round it to
 float32 once per element, so that they take the decay exponents from the
 same float values (torch's CPU cumsum of float32 already accumulates in
 float64; its CUDA cumsum scans in float32 in another order).
+
+The backward (``ssd_scan_bwd``; ``csrc/ssd_scan_bwd.cu``) is the VJP of the
+scan, written from the chunked algebra: the reference has no backward
+kernel and trains through ``jax.vjp`` of ``ssd_chunked``.  Given dy (and
+the final state's cotangent, or none) and the forward's inputs and scratch
+(the state entering every chunk, ``cum``), it returns dx, ddt, dA, dB, dC,
+each in its input's dtype.  Seven launches (``BWD_LAUNCH_NAMES``) count as
+one under ``"ssd_scan_bwd_f32"`` / ``"ssd_scan_bwd_bf16"``; every shape the
+forward takes runs on them (64 x 64 tiles, masked at the edges), in
+float32 on the CUDA cores, with no float atomics: the sums over heads (dB,
+dC) and over (b, S) (dA) run in a fixed order, so two runs are bitwise
+equal.  ``ssd_scan_bwd_plain`` holds the same formulas as float32 tensor
+code, chunk by chunk.  ``SSDScan`` is the autograd node: K4 with its
+scratch saved, then K4's backward; ``kernels.ops.ssd_scan`` routes through
+it wherever autograd records.
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ import torch
 from repro_torch.core import census
 
 SOURCE = "ssd_scan.cu"
+BWD_SOURCE = "ssd_scan_bwd.cu"
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -74,8 +90,18 @@ H100_SMS = 132
 _TILE = 64          # rows / columns of a block tile in both variants
 _PASS_THREADS = 256
 
-# launches per input dtype since the last ``reset_launch_counts``
-LAUNCHES: Dict[str, int] = {f"ssd_scan_{s}": 0 for s in _SUFFIX.values()}
+# the backward's launches, in issue order, and its scratch tensors in the
+# order of its C interface
+BWD_LAUNCH_NAMES = ("dcb", "state_grad", "state_pass", "dx", "dcum", "dbc",
+                    "da")
+BWD_SCRATCH = ("cb", "dcb", "dstate", "rowpart", "colpart", "dcum_loc",
+               "ddt_x", "rsum", "dA_part")
+BWD_MAX_Q = 8192    # the dcum kernel holds one chunk's dcum in shared memory
+
+FWD_KEYS = tuple(f"ssd_scan_{s}" for s in _SUFFIX.values())
+BWD_KEYS = tuple(f"ssd_scan_bwd_{s}" for s in _SUFFIX.values())
+# calls per kind and input dtype since the last ``reset_launch_counts``
+LAUNCHES: Dict[str, int] = {k: 0 for k in FWD_KEYS + BWD_KEYS}
 
 
 def reset_launch_counts() -> None:
@@ -171,7 +197,7 @@ def _library():
         from repro_torch.kernels import build
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in LAUNCHES:
+        for name in FWD_KEYS:
             fn = getattr(lib, name)
             fn.argtypes = ([vp] * 10 + [ci] * 7
                            + [ctypes.POINTER(ctypes.c_longlong), ci, ci, vp])
@@ -378,6 +404,34 @@ def ssd_scan_with_scratch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, final, scratch
 
 
+def _scan(x, dt, A, B, C, chunk: int, out_dtype: Optional[torch.dtype]
+          ) -> Tuple[torch.Tensor, torch.Tensor,
+                     Optional[Dict[str, torch.Tensor]]]:
+    """``ssd_scan``, also returning what the backward reads of the call's
+    scratch (``states``, ``cum``) on the card and on the meta device (None
+    on the CPU, whose plain backward recomputes it)."""
+    with census.kernel_call(lambda: (
+            f"ssd_scan_{_SUFFIX[x.dtype]}",
+            *census_work(*_validate(x, dt, A, B, C, chunk), x.dtype,
+                         _out_dtype(x, out_dtype)))):
+        if x.device.type == "cpu":
+            return (*ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                    out_dtype=out_dtype), None)
+        if x.device.type == "meta":       # the census's shape-only route
+            p = plan_for(x, dt, A, B, C, chunk=chunk)
+            b, s, nh, hp, ds, _ = _validate(x, dt, A, B, C, chunk)
+            scratch = scratch_tensors(p, x.device)
+            return (torch.empty((b, s, nh, hp),
+                                dtype=_out_dtype(x, out_dtype),
+                                device=x.device),
+                    torch.empty((b, nh, hp, ds), dtype=torch.float32,
+                                device=x.device),
+                    {k: scratch[k] for k in ("states", "cum")})
+        y, final, scratch = ssd_scan_with_scratch(x, dt, A, B, C, chunk=chunk,
+                                                  out_dtype=out_dtype)
+        return y, final, {k: scratch[k] for k in ("states", "cum")}
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
              out_dtype: Optional[torch.dtype] = None
@@ -387,21 +441,304 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``(y`` [b, S, nh, hp] in ``out_dtype`` (default ``x.dtype``), the final
     state [b, nh, hp, ds] float32``)``.  CUDA tensors launch the variant
     that ``plan`` picks; CPU tensors take the plain version."""
+    return _scan(x, dt, A, B, C, chunk, out_dtype)[:2]
+
+
+# --- the backward ------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call runs: the grid (x, y, z) of each of its
+    launches in order (``BWD_LAUNCH_NAMES``), the float32 scratch tensors
+    the wrapper allocates (name -> shape, in ``BWD_SCRATCH`` order) and the
+    dcum kernel's dynamic shared memory (bytes)."""
+    grids: Dict[str, Tuple[int, int, int]]
+    scratch: Dict[str, Tuple[int, ...]]
+    dcum_smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_bwd(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """The backward's plan for a scan of x [b, s, nh, hp] in chunks of
+    ``q`` with state size ``ds`` and inputs in ``dtype`` (a pure function
+    of its arguments): every shape the forward takes, in 64 x 64 tiles of
+    256 threads."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"no K4 backward for {dtype}")
+    if s % q:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {q}")
+    if q > BWD_MAX_Q:
+        raise ValueError(f"chunk {q} exceeds the backward's {BWD_MAX_Q}")
+    nc, bh = s // q, b * nh
+    t = _cdiv(q, _TILE)
+    grids = {"dcb": (t * (t + 1) // 2, b * nc, 1),
+             "state_grad": (nc, bh, _cdiv(hp, _TILE) * _cdiv(ds, _TILE)),
+             "state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1),
+             "dx": (t, nc, bh),
+             "dcum": (nc, bh, 1),
+             "dbc": (t, _cdiv(ds, _TILE), b * nc),
+             "da": (_cdiv(nh, _PASS_THREADS), 1, 1)}
+    scratch = {"cb": (b, nc, q, q), "dcb": (b, nc, q, q),
+               "dstate": (b, nh, nc, hp, ds), "rowpart": (b, nh, nc, t, q),
+               "colpart": (b, nh, nc, t, q), "dcum_loc": (b, nh, nc, q),
+               "ddt_x": (b, nh, nc, q), "rsum": (b, nh, nc, t),
+               "dA_part": (nh, b, nc)}
+    return BwdPlan(grids, scratch, 4 * q)
+
+
+def census_work_bwd(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+                    in_dtype: torch.dtype, with_final: bool
+                    ) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call, as the census books it: the
+    dots of the chunked VJP with full Q x Q products, as ``census_work``
+    counts the forward's -- per (b, chunk) C B^T and dCB's two products, 6
+    Q^2 ds; per head M and d(xdt)'s masked product, 4 Q^2 hp, and five Q
+    hp ds products (G, B dS^T, C S_in^T, dY S_in, xdt dS), 10 Q hp ds --;
+    dy (float32), the final state's cotangent when given, x, dt, A, B, C
+    and the forward's ``states`` and ``cum`` read, dx, ddt, dA, dB, dC
+    written once -- never the scratch."""
+    nc = s // q
+    flops = b * nc * (6 * q * q * ds
+                      + nh * (4 * q * q * hp + 10 * q * hp * ds))
+    it = in_dtype.itemsize
+    nbytes = (4 * b * s * nh * hp + 4 * b * nh * hp * ds * int(with_final)
+              + 2 * (it * b * s * (nh * hp + 2 * ds) + 4 * (b * s * nh + nh))
+              + 4 * b * nh * nc * (hp * ds + q))
+    return flops, nbytes
+
+
+_bwd_bound = None
+
+
+def _bwd_library():
+    """The backward's loaded library with ``argtypes`` set."""
+    global _bwd_bound
+    if _bwd_bound is None:
+        from repro_torch.kernels import build
+        lib = build.load(BWD_SOURCE)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for name in BWD_KEYS:
+            fn = getattr(lib, name)
+            fn.argtypes = ([vp] * 14 + [ctypes.POINTER(vp)] + [ci] * 6
+                           + [ctypes.POINTER(ctypes.c_longlong), ci, vp])
+            fn.restype = ci
+        lib.ssd_scan_bwd_error_string.argtypes = [ci]
+        lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_bwd_launch_shape.argtypes = [ci] * 6 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_bwd_launch_shape.restype = None
+        _bwd_bound = lib
+    return _bwd_bound
+
+
+def bwd_launch_shape(b: int, s: int, nh: int, hp: int, ds: int,
+                     q: int) -> Dict[str, object]:
+    """What the backward's library launches at these sizes (builds and
+    loads it): per launch its grid, threads per block and dynamic shared
+    memory (bytes); and its constants (tile, threads, largest chunk,
+    scratch tensors)."""
+    n = len(BWD_LAUNCH_NAMES)
+    out = (ctypes.c_int * (5 * n + 4))()
+    _bwd_library().ssd_scan_bwd_launch_shape(b, s, nh, hp, ds, q, out)
+    v = list(out)
+    return {"launches": {name: {"grid": tuple(v[5 * i: 5 * i + 3]),
+                                "threads": v[5 * i + 3],
+                                "smem": v[5 * i + 4]}
+                         for i, name in enumerate(BWD_LAUNCH_NAMES)},
+            "tile": v[5 * n], "threads": v[5 * n + 1],
+            "max_q": v[5 * n + 2], "scratch": v[5 * n + 3]}
+
+
+def ssd_scan_bwd_plain(dy: torch.Tensor, d_final: Optional[torch.Tensor],
+                       x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward, the kernel's formulas in
+    float32, all (b, h) together: the forward's chunk loop again for the
+    state entering every chunk, then the chunks last to first -- d(x dt)
+    from ``(C B^T . L)^T dY`` and ``decay_end . (B dS_out^T)``; dCB and dL
+    from ``dY (x dt)^T`` under the causal mask; dcum from dL's rows minus
+    its columns, y_off, decay_end and the chunk decay; ddA its reverse
+    cumsum (float64); ``dS_in = (C . e^cum)^T dY + e^{cum_last} dS_out``.
+    Returns ``(dx, ddt, dA, dB, dC)``, each in its input's dtype."""
+    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
+    dev = x.device
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B[:, :, 0].float(), C[:, :, 0].float()
+    dyf = dy.float()
+    tril = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+    cums, states = [], []
+    state = torch.zeros((b, nh, hp, ds), dtype=torch.float32, device=dev)
+    for t0 in range(0, s, q):       # the forward's states, as ssd_scan_plain
+        xdt = (xf[:, t0:t0 + q] * dtf[:, t0:t0 + q, :, None]).transpose(1, 2)
+        cum = torch.cumsum((dtf[:, t0:t0 + q].transpose(1, 2)
+                            * A[:, None]).double(), dim=-1).float()
+        cums.append(cum)
+        states.append(state)
+        decay_end = torch.exp(cum[..., -1:] - cum)
+        contrib = (xdt * decay_end[..., None]).transpose(-1, -2) \
+            @ Bf[:, None, t0:t0 + q]
+        state = state * torch.exp(cum[..., -1])[..., None, None] + contrib
+    dx = torch.empty((b, s, nh, hp), dtype=torch.float32, device=dev)
+    ddt = torch.empty((b, s, nh), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, 1, ds), dtype=torch.float32, device=dev)
+    dC = torch.empty((b, s, 1, ds), dtype=torch.float32, device=dev)
+    dA = torch.zeros((nh,), dtype=torch.float32, device=dev)
+    dS = (torch.zeros((b, nh, hp, ds), dtype=torch.float32, device=dev)
+          if d_final is None else d_final.float())
+    for c in reversed(range(s // q)):
+        t0 = c * q
+        xc = xf[:, t0:t0 + q].transpose(1, 2)            # [b, nh, Q, hp]
+        dtc = dtf[:, t0:t0 + q].transpose(1, 2)          # [b, nh, Q]
+        dyc = dyf[:, t0:t0 + q].transpose(1, 2)          # [b, nh, Q, hp]
+        Bc, Cc = Bf[:, None, t0:t0 + q], Cf[:, None, t0:t0 + q]
+        cum, s_in = cums[c], states[c]
+        L = torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~tril, float("-inf")))
+        xdt = xc * dtc[..., None]
+        CB = Cc @ Bc.transpose(-1, -2)                   # [b, 1, Q, Q]
+        decay_end = torch.exp(cum[..., -1:] - cum)
+        decay_in = torch.exp(cum)
+        BdS = Bc @ dS.transpose(-1, -2)                  # [b, nh, Q, hp]
+        dxdt = (CB * L).transpose(-1, -2) @ dyc + decay_end[..., None] * BdS
+        M = (dyc @ xdt.transpose(-1, -2)).masked_fill(~tril, 0.0)
+        ML = M * L
+        P = ML * CB
+        dYS = dyc @ s_in                                 # [b, nh, Q, ds]
+        r = decay_end * (xdt * BdS).sum(-1)
+        dcum = P.sum(-1) - P.sum(-2) + decay_in * (Cc * dYS).sum(-1) - r
+        dcum[..., -1] += r.sum(-1) + torch.exp(cum[..., -1]) * (
+            s_in * dS).sum((-1, -2))
+        ddA = torch.flip(torch.cumsum(torch.flip(dcum.double(), [-1]), -1),
+                         [-1]).float()
+        dCB = ML.sum(1, keepdim=True)                    # [b, 1, Q, Q]
+        dC[:, t0:t0 + q, 0] = (dCB @ Bc + (decay_in[..., None] * dYS)
+                               .sum(1, keepdim=True))[:, 0]
+        dB[:, t0:t0 + q, 0] = (dCB.transpose(-1, -2) @ Cc
+                               + (decay_end[..., None] * (xdt @ dS))
+                               .sum(1, keepdim=True))[:, 0]
+        dx[:, t0:t0 + q] = (dxdt * dtc[..., None]).transpose(1, 2)
+        ddt[:, t0:t0 + q] = ((dxdt * xc).sum(-1) + ddA * A[:, None]) \
+            .transpose(1, 2)
+        dA += (ddA * dtc).sum((0, 2))
+        dS = dyc.transpose(-1, -2) @ (Cc * decay_in[..., None]) \
+            + torch.exp(cum[..., -1])[..., None, None] * dS
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype))
+
+
+def _bwd_kernel(dy, d_final, x, dt, A, B, C, states, cum, chunk: int
+                ) -> Tuple[torch.Tensor, ...]:
+    """The backward's kernels on CUDA tensors ``_validate`` accepted."""
+    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
+    dev = x.device
+    p = plan_bwd(b, s, nh, hp, ds, q, x.dtype)
+    x, B, C = (_kernel_operand(t, GENERAL) for t in (x, B, C))
+    dt = dt if dt.stride(-1) == 1 else dt.contiguous()
+    dy = dy.float().contiguous()
+    if d_final is not None:
+        d_final = d_final.float().contiguous()
+    A = A.contiguous()
+    if tuple(states.shape) != (b, nh, s // q, hp, ds) or \
+            tuple(cum.shape) != (b, nh, s // q, q):
+        raise ValueError(f"forward scratch states {tuple(states.shape)}, "
+                         f"cum {tuple(cum.shape)} do not fit the scan")
+    states, cum = states.contiguous(), cum.contiguous()
+    dx = torch.empty((b, s, nh, hp), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, nh), dtype=torch.float32, device=dev)
+    dA = torch.empty((nh,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, 1, ds), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, s, 1, ds), dtype=C.dtype, device=dev)
+    scratch = [torch.empty(p.scratch[k], dtype=torch.float32, device=dev)
+               for k in BWD_SCRATCH]
+    ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    strides = (ctypes.c_longlong * 10)(
+        *(int(st) for st in (*x.stride()[:3], *dt.stride(), *B.stride()[:2],
+                             *C.stride()[:2])))
+    lib = _bwd_library()
+    name = f"ssd_scan_bwd_{_SUFFIX[x.dtype]}"
+    code = getattr(lib, name)(
+        dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), states.data_ptr(), cum.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptrs,
+        b, s, nh, hp, ds, q, strides, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES[name] += 1
+    if code != 0:
+        msg = lib.ssd_scan_bwd_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {name} failed: {msg} (cudaError "
+                           f"{code}) at b {b}, S {s}, nh {nh}, hp {hp}, ds "
+                           f"{ds}, Q {q}")
+    return dx, ddt, dA, dB, dC
+
+
+def ssd_scan_bwd(dy: torch.Tensor, d_final: Optional[torch.Tensor],
+                 x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+                 states: Optional[torch.Tensor] = None,
+                 cum: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Gradients ``(dx, ddt, dA, dB, dC)`` of the scan ``ssd_scan(x, dt, A,
+    B, C, chunk=chunk)`` given dy [b, S, nh, hp] (computed in float32) and
+    the final state's gradient [b, nh, hp, ds] (None: zero).  CUDA tensors
+    launch the backward's kernels, which read the forward's scratch
+    ``states`` and ``cum`` (``ssd_scan_with_scratch``), or raise; CPU
+    tensors take ``ssd_scan_bwd_plain``."""
+    b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
+    if tuple(dy.shape) != (b, s, nh, hp) or dy.device != x.device:
+        raise ValueError(f"dy must be [b, S, nh, hp] = {(b, s, nh, hp)} on "
+                         f"{x.device}; got {tuple(dy.shape)} on {dy.device}")
+    if d_final is not None and tuple(d_final.shape) != (b, nh, hp, ds):
+        raise ValueError(f"d_final must be [b, nh, hp, ds] = "
+                         f"{(b, nh, hp, ds)}; got {tuple(d_final.shape)}")
     with census.kernel_call(lambda: (
-            f"ssd_scan_{_SUFFIX[x.dtype]}",
-            *census_work(*_validate(x, dt, A, B, C, chunk), x.dtype,
-                         _out_dtype(x, out_dtype)))):
+            f"ssd_scan_bwd_{_SUFFIX[x.dtype]}",
+            *census_work_bwd(b, s, nh, hp, ds, q, x.dtype,
+                             d_final is not None))):
         if x.device.type == "cpu":
-            return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                                  out_dtype=out_dtype)
+            return ssd_scan_bwd_plain(dy, d_final, x, dt, A, B, C,
+                                      chunk=chunk)
         if x.device.type == "meta":       # the census's shape-only route
-            plan_for(x, dt, A, B, C, chunk=chunk)
-            b, s, nh, hp, ds, _ = _validate(x, dt, A, B, C, chunk)
-            return (torch.empty((b, s, nh, hp),
-                                dtype=_out_dtype(x, out_dtype),
-                                device=x.device),
-                    torch.empty((b, nh, hp, ds), dtype=torch.float32,
-                                device=x.device))
-        y, final, _ = ssd_scan_with_scratch(x, dt, A, B, C, chunk=chunk,
-                                            out_dtype=out_dtype)
+            plan_bwd(b, s, nh, hp, ds, q, x.dtype)
+            return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                         for t in (x, dt, A, B, C))
+        if states is None or cum is None:
+            raise ValueError("the backward's kernels read the forward's "
+                             "scratch: pass states and cum "
+                             "(ssd_scan_with_scratch)")
+        return _bwd_kernel(dy, d_final, x, dt, A, B, C, states, cum, q)
+
+
+class SSDScan(torch.autograd.Function):
+    """K4 with its backward: the forward saves its inputs and, on the card
+    and the meta device, the scratch the backward reads (``states``,
+    ``cum``); the backward is ``ssd_scan_bwd``.  On the CPU both are the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int,
+                out_dtype: Optional[torch.dtype]):
+        y, final, scratch = _scan(x, dt, A, B, C, chunk, out_dtype)
+        saved = (x, dt, A, B, C)
+        if scratch is not None:
+            saved += (scratch["states"], scratch["cum"])
+        ctx.save_for_backward(*saved)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
         return y, final
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, d_final):
+        x, dt, A, B, C, *scratch = ctx.saved_tensors
+        if dy is None:
+            b, s, nh, hp = x.shape
+            dy = torch.zeros((b, s, nh, hp), dtype=torch.float32,
+                             device=x.device)
+        states, cum = scratch if scratch else (None, None)
+        grads = ssd_scan_bwd(dy, d_final, x, dt, A, B, C, chunk=ctx.chunk,
+                             states=states, cum=cum)
+        return (*grads, None, None)

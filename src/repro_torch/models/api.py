@@ -4,38 +4,48 @@
 as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
 family (ResNet-50 inference), the dense transformer family (prefill, KV
 cache, decode, and training) and the SSM family (Mamba2: chunked prefill,
-recurrent decode).  ``prefill(module, batch)``, ``decode(module, batch,
-cache)`` and ``init_cache(batch, max_len, device=...)`` mirror the
-reference's serving entries (``None`` for the CNN, as there); the other
-families raise ``NotImplementedError`` naming the roadmap item that brings
-them.  ``loss(module, batch)`` and ``make_train_step`` train the dense
-family; the SSM and CNN families raise, naming the roadmap item that
-brings their backward kernels.
+recurrent decode, and training).  ``prefill(module, batch)``,
+``decode(module, batch, cache)`` and ``init_cache(batch, max_len,
+device=...)`` mirror the reference's serving entries (``None`` for the CNN,
+as there); the other families raise ``NotImplementedError`` naming the
+roadmap item that brings them.  ``loss(module, batch)`` and
+``make_train_step`` train the dense and SSM families; the CNN raises,
+naming the roadmap item that brings its backward kernels.
 
-A ``TrainState`` is the module and its optimiser state; ``state_tree`` /
+A ``TrainState`` is the module and its optimiser state, one optimiser leaf
+for each of the reference's parameter leaves (``leaf_groups``: a
+[L, ...] stack of layers is one leaf); ``state_tree`` /
 ``load_state_tree`` turn it into the flat tree ``checkpoint.store`` writes
 and back, and ``restore_train_state`` also reads a checkpoint of the
-reference's ``TrainState``.
+reference's ``TrainState`` (``train_state_from_reference``, any trainable
+family).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models import layers as L
 from repro_torch.models import mamba, resnet, transformer
-from repro_torch.optim.adafactor import FactoredV
-from repro_torch.optim.adamw import is_moment_leaf
+from repro_torch.optim.adafactor import AdafactorConfig, FactoredV, factorable
+from repro_torch.optim.adamw import Group, is_moment_leaf
 
 # the serving families: (config check, module class, init_cache)
 _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
                       transformer.init_cache),
             "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache)}
+
+# the trainable families: (loss_fn, params_from_reference)
+_TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
+             "ssm": (mamba.loss_fn, mamba.params_from_reference)}
 
 # the roadmap item that ports each family not ported yet
 _NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
@@ -44,8 +54,7 @@ _NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
                "audio": "Queue 1 item 12e (whisper)"}
 
 # the roadmap item that brings training to each ported family that lacks it
-_NO_TRAINING = {"ssm": "Queue 1 item 13b (Mamba2 training: a K4 backward)",
-                "cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
+_NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
                        "and train-mode batch norm)"}
 
 
@@ -60,7 +69,7 @@ class Model:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _TRAINING:
         raise NotImplementedError(
             f"training the {cfg.family!r} family ({cfg.name}) is not ported "
             f"yet: see ROADMAP.md "
@@ -88,8 +97,8 @@ def build_model(cfg: ArchConfig) -> Model:
 
         def loss(module: torch.nn.Module, batch):
             check_trainable(cfg)
-            return transformer.loss_fn(module, batch["tokens"],
-                                       batch["labels"])
+            return _TRAINING[cfg.family][0](module, batch["tokens"],
+                                            batch["labels"])
 
         return Model(cfg, init,
                      prefill=lambda m, batch: m.prefill(batch["tokens"]),
@@ -106,24 +115,57 @@ def build_model(cfg: ArchConfig) -> Model:
 @dataclasses.dataclass
 class TrainState:
     params: torch.nn.Module       # the model, parameters updated in place
-    opt: Any                      # the optimiser's state
+    opt: Any                      # the optimiser's state, a leaf a group
+
+
+def leaf_groups(names: Sequence[str]) -> List[Tuple[str, Group]]:
+    """The reference's parameter leaves over the port's parameters named
+    ``names`` (in ``named_parameters()`` order): ``(leaf name, Group)`` in
+    order of first appearance, the leaf name the reference's path joined by
+    dots.  ``layers.<i>.<rest>`` for i = 0 .. L-1 is one stacked group,
+    ``layers.<rest>``; every other parameter a group of its own."""
+    order: List[str] = []
+    members: Dict[str, List[Tuple[int, int]]] = {}
+    for i, name in enumerate(names):
+        path, layer = L.reference_key(name)
+        leaf = path.replace("/", ".")
+        if leaf not in members:
+            order.append(leaf)
+            members[leaf] = []
+        members[leaf].append((-1 if layer is None else layer, i))
+    out = []
+    for leaf in order:
+        got = sorted(members[leaf])
+        stacked = got[0][0] >= 0
+        if stacked and [lay for lay, _ in got] != list(range(len(got))):
+            raise ValueError(f"{leaf}: layers {[lay for lay, _ in got]} "
+                             "are not 0 .. L-1")
+        out.append((leaf, Group(tuple(i for _, i in got), stacked)))
+    return out
+
+
+def param_groups(module: torch.nn.Module) -> List[Tuple[str, Group]]:
+    """``leaf_groups`` of ``module``'s ``named_parameters()``."""
+    return leaf_groups([n for n, _ in module.named_parameters()])
 
 
 def init_train_state(module: torch.nn.Module, optimizer) -> TrainState:
     """Gradients on for ``module``'s parameters and a fresh optimiser
-    state over them (in ``named_parameters()`` order)."""
+    state over them, one leaf a ``param_groups`` group."""
     module.requires_grad_(True)
-    return TrainState(module, optimizer.init(list(module.parameters())))
+    return TrainState(module, optimizer.init(
+        list(module.parameters()), [g for _, g in param_groups(module)]))
 
 
 def make_train_step(model: Model, optimizer,
                     grad_transform: Optional[Callable] = None):
     """``train_step(state, batch) -> (state, metrics)``: the loss and every
     parameter's gradient, the optional ``grad_transform`` (grads -> grads,
-    e.g. int8 compression), then ``optimizer.apply``, which writes the new
-    parameters and moments in place.  A failure in the forward or the
-    backward leaves the state as it was.  Metrics: ``nll``, ``moe_aux``,
-    ``grad_norm``, ``lr``, ``loss`` (tensors)."""
+    e.g. int8 compression), then ``optimizer.apply`` over the groups the
+    state was made with, which writes the new parameters and moments in
+    place.  A failure in the forward or the backward leaves the state as it
+    was.  Metrics: ``nll``, ``moe_aux``, ``grad_norm``, ``lr``, ``loss``
+    (tensors)."""
     check_trainable(model.cfg)
 
     def train_step(state: TrainState, batch):
@@ -141,16 +183,19 @@ def make_train_step(model: Model, optimizer,
 
 
 def state_tree(state: TrainState) -> Dict[str, Any]:
-    """The flat tree ``checkpoint.store.save`` writes: ``params/<name>``,
-    ``opt/step``, ``opt/m/<name>`` and ``opt/v/<name>`` (an int8 moment as
+    """The flat tree ``checkpoint.store.save`` writes: ``params/<name>``
+    (``<name>`` a ``named_parameters()`` name), ``opt/step``,
+    ``opt/m/<leaf>`` and ``opt/v/<leaf>`` (``<leaf>`` a ``param_groups``
+    leaf name: a stacked group's ``layers.<rest>``; an int8 moment as
     ``.../q`` and ``.../scale``, a factored one as ``.../r`` and
-    ``.../c``), ``<name>`` a ``named_parameters()`` name."""
-    named = list(state.params.named_parameters())
-    tree: Dict[str, Any] = {f"params/{n}": p.detach() for n, p in named}
+    ``.../c``)."""
+    tree: Dict[str, Any] = {f"params/{n}": p.detach()
+                            for n, p in state.params.named_parameters()}
     tree["opt/step"] = torch.tensor(state.opt.step, dtype=torch.int32)
     for field in ("m", "v"):
-        for (n, _), leaf in zip(named, getattr(state.opt, field)):
-            pre = f"opt/{field}/{n}"
+        for (leaf_name, _), leaf in zip(param_groups(state.params),
+                                        getattr(state.opt, field)):
+            pre = f"opt/{field}/{leaf_name}"
             if is_moment_leaf(leaf):
                 tree[f"{pre}/q"], tree[f"{pre}/scale"] = leaf["q"], \
                     leaf["scale"]
@@ -165,22 +210,23 @@ def state_tree(state: TrainState) -> Dict[str, Any]:
 def load_state_tree(state: TrainState, tree: Dict) -> TrainState:
     """``state`` with the values of a restored ``state_tree`` (the nested
     dict ``checkpoint.store.restore`` returns) copied in."""
-    named = list(state.params.named_parameters())
-    for n, p in named:
+    for n, p in state.params.named_parameters():
         p.copy_(tree["params"][n])
     moments = {}
     for field in ("m", "v"):
         saved, out = tree["opt"][field], []
-        for (n, p), leaf in zip(named, getattr(state.opt, field)):
+        for (leaf_name, _), leaf in zip(param_groups(state.params),
+                                        getattr(state.opt, field)):
+            got = saved[leaf_name]
             if is_moment_leaf(leaf):
-                leaf = {"q": saved[n]["q"].to(p.device),
-                        "scale": saved[n]["scale"].to(p.device),
-                        "shape": tuple(p.shape), "n": p.numel()}
+                dev = leaf["q"].device
+                leaf = {"q": got["q"].to(dev), "scale": got["scale"].to(dev),
+                        "shape": leaf["shape"], "n": leaf["n"]}
             elif isinstance(leaf, FactoredV):
-                leaf.r.copy_(saved[n]["r"])
-                leaf.c.copy_(saved[n]["c"])
+                leaf.r.copy_(got["r"])
+                leaf.c.copy_(got["c"])
             else:
-                leaf.copy_(saved[n])
+                leaf.copy_(got)
             out.append(leaf)
         moments[field] = out
     return TrainState(state.params, state.opt._replace(
@@ -192,15 +238,135 @@ def restore_train_state(ckpt_dir: str, state: TrainState, model: Model,
                         ) -> Tuple[int, TrainState, Dict]:
     """(step, state, data state) from checkpoint ``step`` (default: the
     latest) of ``ckpt_dir``, written by the port or by the reference (its
-    ``TrainState`` carried by ``transformer.train_state_from_reference``
-    onto ``state``'s device)."""
+    ``TrainState`` carried by ``train_state_from_reference`` onto
+    ``state``'s device)."""
     if store.is_reference_checkpoint(ckpt_dir, step):
         check_trainable(model.cfg)
-        paths = transformer.reference_state_paths(state.params,
-                                                  optimizer.name)
+        paths = reference_state_paths(state.params, optimizer.name)
         step, tree, extra = store.restore(ckpt_dir, step,
                                           reference_paths=paths)
-        return step, transformer.train_state_from_reference(
+        return step, train_state_from_reference(
             tree, model.cfg, optimizer, device=state.params.device), extra
     step, tree, extra = store.restore(ckpt_dir, step)
     return step, load_state_tree(state, tree), extra
+
+
+# --- the reference's training state carried across --------------------------------
+
+def reference_param_leaves(module: torch.nn.Module
+                           ) -> List[Tuple[str, tuple]]:
+    """(path, shape) of each leaf of the reference's ``init_params`` tree
+    for ``module``'s config, layer leaves stacked [L, ...], in
+    ``jax.tree_util``'s order (dict keys sorted at every level)."""
+    shapes = {}
+    for name, p in module.named_parameters():
+        path, layer = L.reference_key(name)
+        stack = (module.cfg.num_layers,) if layer is not None else ()
+        shapes[path] = stack + tuple(p.shape)
+    return sorted(shapes.items(), key=lambda kv: kv[0].split("/"))
+
+
+def reference_state_paths(module: torch.nn.Module, optimizer_name: str
+                          ) -> List[str]:
+    """The leaf paths of the reference's ``TrainState(params, OptState(step,
+    m, v))`` for ``module`` and the optimiser named ``optimizer_name``, in
+    the order the reference's checkpoint stores them: the params, the step,
+    then m and v leaf by leaf -- an int8 moment as its dict (``n``, ``q``,
+    ``scale``, ``shape``'s ints), an Adafactor factored v as (``r``,
+    ``c``)."""
+    leaves = reference_param_leaves(module)
+    paths = [f"params/{p}" for p, _ in leaves] + ["opt/step"]
+    af = AdafactorConfig()
+    for field in ("m", "v"):
+        for p, shape in leaves:
+            pre = f"opt/{field}/{p}"
+            if optimizer_name == "adamw8bit":
+                paths += [f"{pre}/n", f"{pre}/q", f"{pre}/scale"] + [
+                    f"{pre}/shape/{i}" for i in range(len(shape))]
+            elif (optimizer_name == "adafactor" and field == "v"
+                  and factorable(shape, af)):
+                paths += [f"{pre}/r", f"{pre}/c"]
+            else:
+                paths.append(pre)
+    return paths
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """A reference leaf (numpy, bf16 as ml_dtypes, or a tensor) as a CPU
+    tensor of its own dtype."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _float_tree(tree):
+    """A reference params tree with tensor leaves as float32 numpy (what
+    ``layers.copy_reference_params`` reads)."""
+    if isinstance(tree, Mapping):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    return _as_tensor(tree).float().numpy()
+
+
+def _field(leaf, key: str):
+    return leaf[key] if isinstance(leaf, Mapping) else getattr(leaf, key)
+
+
+def _copy_exact(dst: torch.Tensor, src) -> None:
+    t = _as_tensor(src)
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"reference leaf {tuple(t.shape)}, port leaf "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(t)
+
+
+def _carry_leaf(ref, mine):
+    """The port's optimiser leaf ``mine`` holding the reference's leaf
+    ``ref`` of the same shape: float moments and factored statistics
+    copied, an int8 moment block for block."""
+    if is_moment_leaf(mine):
+        q, scale = _as_tensor(ref["q"]), _as_tensor(ref["scale"]).float()
+        if tuple(q.shape) != tuple(mine["q"].shape) or \
+                tuple(scale.shape) != tuple(mine["scale"].shape):
+            raise ValueError(f"reference int8 blocks {tuple(q.shape)}, port "
+                             f"{tuple(mine['q'].shape)}")
+        dev = mine["q"].device
+        return {"q": q.to(dev), "scale": scale.to(dev),
+                "shape": mine["shape"], "n": mine["n"]}
+    if isinstance(mine, FactoredV):
+        _copy_exact(mine.r, _field(ref, "r"))
+        _copy_exact(mine.c, _field(ref, "c"))
+        return mine
+    _copy_exact(mine, ref)
+    return mine
+
+
+def train_state_from_reference(state, cfg: ArchConfig, optimizer,
+                               device: DeviceLike = "cuda") -> TrainState:
+    """A ``TrainState`` holding the reference's ``TrainState(params,
+    OptState(step, m, v))`` ``state`` (the object with numpy or tensor
+    leaves, or the nested dict ``checkpoint.store.restore`` returns) of a
+    trainable family, for ``optimizer`` (a ``repro_torch.optim.Optimizer``
+    of the same name).  Parameters are split one layer at a time (the
+    family's ``params_from_reference``); each optimiser leaf is the
+    reference's, copied exactly -- a stacked leaf whole, int8 moments
+    block for block."""
+    check_trainable(cfg)
+    if isinstance(state, Mapping):
+        params, opt = state["params"], state["opt"]
+    else:
+        params, opt = state.params, state.opt
+    step, ref_m, ref_v = (_field(opt, k) for k in ("step", "m", "v"))
+    module = _TRAINING[cfg.family][1](_float_tree(params), cfg, device)
+    ts = init_train_state(module, optimizer)
+    for ref, mine in ((ref_m, ts.opt.m), (ref_v, ts.opt.v)):
+        for k, (leaf_name, _) in enumerate(param_groups(module)):
+            leaf = ref
+            for key in leaf_name.split("."):
+                leaf = leaf[key]
+            mine[k] = _carry_leaf(leaf, mine[k])
+    return TrainState(module, ts.opt._replace(
+        step=int(_as_tensor(step).item())))

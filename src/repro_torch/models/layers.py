@@ -14,12 +14,14 @@ as the reference computes it outside any Pallas kernel.  Large products are
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 
@@ -121,6 +123,50 @@ def copy_reference_params(module: nn.Module, params: Mapping,
             raise ValueError(f"{key}: reference shape {flat[key].shape}, "
                              f"module shape {tuple(target.shape)}")
         target.copy_(torch.from_numpy(flat[key]).to(target.dtype))
+
+
+def reference_key(name: str) -> Tuple[str, Optional[int]]:
+    """The reference's path of the port's parameter ``name`` and its layer
+    (``layers.3.attn.wq`` -> ``("layers/attn/wq", 3)``)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+# --- rematerialisation -----------------------------------------------------------
+
+# what the reference's "dots" policy (dots_with_no_batch_dims_saveable)
+# keeps: the products without batch dimensions -- here every projection,
+# each one aten.mm once matmul has folded [B, S, d] into rows
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(body: Callable, cfg) -> Callable:
+    """``body`` (one layer of a training forward) under ``cfg.remat``, as
+    the reference's ``_remat``: ``"none"`` keeps every activation;
+    ``"full"`` keeps only the layer's inputs and recomputes the layer in
+    the backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"``
+    keeps the outputs of the projections too (a selective-checkpoint
+    policy)."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "full":
+        return lambda *args: _ckpt.checkpoint(body, *args,
+                                              use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *args: _ckpt.checkpoint(body, *args,
+                                              use_reentrant=False,
+                                              context_fn=ctx)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}; expected "
+                     "'none', 'dots' or 'full'")
 
 
 # --- normalization -------------------------------------------------------------
@@ -379,3 +425,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     nll = lse - gold
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def next_token_loss(logits: torch.Tensor, labels
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The LM loss of the reference's ``loss_fn``: mean NLL of
+    ``logits[:, :-1]`` against ``labels[:, 1:]``, and the metrics ``{"nll",
+    "moe_aux"}`` (0 without experts)."""
+    labels = torch.as_tensor(labels, device=logits.device)
+    loss = cross_entropy(logits[:, :-1], labels[:, 1:])
+    return loss, {"nll": loss.detach(),
+                  "moe_aux": torch.zeros((), dtype=torch.float32,
+                                         device=logits.device)}

@@ -1,13 +1,16 @@
 """Mamba2 LM, pure SSM and attention-free (counterpart of the reference's
-``models/mamba.py``), for inference.
+``models/mamba.py``).
 
-``prefill`` runs every layer's chunked SSD scan on the hand-written kernel K4
-and keeps, per layer, the conv tail and K4's final state as the cache;
-``decode_step`` is the reference's O(1) recurrent update as tensor code.  The
-reference scans one stacked layer body with ``lax.scan``; here
-``Mamba.layers`` is an ``nn.ModuleList`` walked by a Python loop.  The
-parameters are frozen and every entry point runs under ``torch.no_grad``.
-Training (``loss_fn``) is not ported.
+Inference: ``prefill`` runs every layer's chunked SSD scan on the
+hand-written kernel K4 and keeps, per layer, the conv tail and K4's final
+state as the cache; ``decode_step`` is the reference's O(1) recurrent update
+as tensor code; both run under ``torch.no_grad`` on frozen parameters.
+Training: ``forward`` / ``loss_fn`` over all positions, differentiable --
+the scan through ``kernels.ssd_scan.SSDScan``, K4 with its hand-written
+backward -- with each layer under the reference's ``cfg.remat``
+(``layers.remat``).  The reference scans one stacked layer body with
+``lax.scan``; here ``Mamba.layers`` is an ``nn.ModuleList`` walked by a
+Python loop.
 
 The module's ``state_dict`` keys are the reference's parameter paths joined
 by dots, with the stacked leading L axis of ``params["layers"]`` spread over
@@ -26,6 +29,7 @@ into the cache in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -176,6 +180,32 @@ class Mamba(nn.Module):
         cache["len"] = int(cache["len"]) + 1
         h = L.norm(self.final_norm, x, self.cfg.norm_eps)
         return L.unembed(self.head, self.embed, h), cache
+
+
+def _layer_train(lp, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + ssd.mamba_block(lp["mix"], cfg,
+                               L.norm(lp["ln"], x, cfg.norm_eps))
+
+
+def forward(model: Mamba, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over all positions: tokens [B, S] -> (final
+    hidden [B, S, D], float32 logits [B, S, vocab]), differentiable, each
+    layer under ``cfg.remat``."""
+    cfg = model.cfg
+    x = L.embed(model.embed, torch.as_tensor(tokens, device=model.device))
+    layer = L.remat(functools.partial(_layer_train, cfg=cfg), cfg)
+    for lp in model.layers:
+        x = layer(lp, x)
+    h = L.norm(model.final_norm, x, cfg.norm_eps)
+    return h, L.unembed(model.head, model.embed, h)
+
+
+def loss_fn(model: Mamba, tokens, labels
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean NLL of ``logits[:, :-1]`` against ``labels[:, 1:]`` (the
+    reference's pairing) and the metrics ``{"nll", "moe_aux"}`` (0: no
+    experts)."""
+    return L.next_token_loss(forward(model, tokens)[1], labels)
 
 
 def params_from_reference(params: Mapping, cfg,

@@ -1,9 +1,12 @@
 """Mamba2 SSD blocks (counterpart of the reference's ``models/ssd.py``).
 
-Prefill runs the chunked SSD scan of every layer on the hand-written kernel
-K4 (``kernels.ops.ssd_scan``), which also returns the final recurrent state
-for the cache; the reference's models run the XLA form ``ssd_chunked`` and
-never reach their Pallas kernel, the port's always reach its kernel.
+Prefill and training run the chunked SSD scan of every layer on the
+hand-written kernel K4 (``kernels.ops.ssd_scan``), which also returns the
+final recurrent state for the cache; in training its gradient runs on K4's
+hand-written backward (``kernels.ssd_scan.SSDScan``).  The reference's
+models run the XLA form ``ssd_chunked`` (and train through its
+``jax.vjp``) and never reach their Pallas kernel; the port's always reach
+its kernels.
 Decode is the reference's O(1) recurrent update, ``state <- state *
 exp(dt A) + dt B (x) x``, as tensor code.  Projections are split (z / x / B
 / C / dt) as in the reference; ``ngroups == 1`` (mamba2, zamba2), the one

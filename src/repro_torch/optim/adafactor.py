@@ -4,10 +4,11 @@ The second moment of a tensor of two or more dimensions whose two trailing
 dimensions are both at least ``min_dim_factor`` is FACTORED into row and
 column statistics (``FactoredV``: r, the mean over the last dimension; c,
 the mean over the second-to-last), which drop the reduced dimension as in
-the reference.  Like ``adamw``, it works over a flat list of tensors and
-updates parameters and moments in place.  The update clip (RMS(u) <= 1)
-is taken over each tensor: the reference takes it over each leaf, which is
-a whole [L, ...] stack of layers in its scanned models.  The reference's
+the reference.  Like ``adamw``, it works over a flat list of tensors,
+updates parameters and moments in place and keeps one state leaf a group
+(``adamw.Group``).  The update clip (RMS(u) <= 1) is taken over each leaf,
+as the reference's: a stacked group's is the RMS over all its layers, the
+reference's [L, ...] leaf.  The reference's
 ``state_specs`` / ``factored_spec`` are JAX partition specs and have no
 counterpart here.
 """
@@ -15,12 +16,15 @@ counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
-from repro_torch.optim.adamw import (clip_factor, global_norm, lr_at, sqrt,
-                                     warmup_cosine)
+from repro_torch.optim.adamw import (Group, check_groups, clip_factor,
+                                     global_norm, leaf_of, leaf_shapes, lr_at,
+                                     per_tensor, sqrt, warmup_cosine,
+                                     write_back)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +47,8 @@ class FactoredV(NamedTuple):
 class AdafactorState(NamedTuple):
     step: int
     m: list
-    v: list           # per tensor: FactoredV or a full float32 tensor
+    v: list           # per leaf: FactoredV or a full float32 tensor
+    groups: Tuple[Group, ...]    # the leaves over the parameters
 
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -54,21 +59,24 @@ def factorable(shape, cfg: AdafactorConfig) -> bool:
             and shape[-2] >= cfg.min_dim_factor)
 
 
-def init_state(params: Sequence[torch.Tensor],
-               cfg: AdafactorConfig) -> AdafactorState:
-    def mk_v(p):
-        shape = tuple(p.shape)
+def init_state(params: Sequence[torch.Tensor], cfg: AdafactorConfig,
+               groups: Optional[Sequence[Group]] = None) -> AdafactorState:
+    """Zero moments, one leaf a group (default: a tensor); the state keeps
+    the groups."""
+    def mk_v(shape, dev):
         if factorable(shape, cfg):
             return FactoredV(
-                r=torch.zeros(shape[:-1], dtype=torch.float32,
-                              device=p.device),
+                r=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
                 c=torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
-                              device=p.device))
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+                              device=dev))
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    m = [torch.zeros(p.shape, dtype=_MOMENT_DTYPES[cfg.moment_dtype],
-                     device=p.device) for p in params]
-    return AdafactorState(step=0, m=m, v=[mk_v(p) for p in params])
+    groups = tuple(per_tensor(len(params)) if groups is None else groups)
+    shapes = leaf_shapes(params, groups)
+    m = [torch.zeros(s, dtype=_MOMENT_DTYPES[cfg.moment_dtype], device=d)
+         for s, d in shapes]
+    return AdafactorState(step=0, m=m, v=[mk_v(s, d) for s, d in shapes],
+                          groups=groups)
 
 
 @torch.no_grad()
@@ -76,13 +84,16 @@ def apply_adafactor(params: List[torch.Tensor],
                     grads: Sequence[torch.Tensor], state: AdafactorState,
                     cfg: AdafactorConfig):
     """One Adafactor step over ``params`` (updated in place, as are the
-    moments); returns (params, new state, metrics)."""
+    moments), one leaf a group of the state's ``groups``; returns (params,
+    new state, metrics)."""
+    check_groups(state.groups, len(state.m), params, grads)
     gnorm = global_norm(grads)
     step = state.step + 1
     lr = lr_at(cfg.lr, step)
     d = cfg.decay
     new_v = []
-    for p, g, m, v in zip(params, grads, state.m, state.v):
+    for grp, m, v in zip(state.groups, state.m, state.v):
+        p, g = leaf_of(params, grp), leaf_of(grads, grp)
         g = g.float() * clip_factor(gnorm, cfg.grad_clip).to(p.device)
         g2 = g * g + cfg.eps
         if isinstance(v, FactoredV):
@@ -105,9 +116,10 @@ def apply_adafactor(params: List[torch.Tensor],
         m_f = cfg.b1 * m.float() + (1 - cfg.b1) * u
         pf = p.float()
         p.copy_(pf - lr.to(p.device) * (m_f + cfg.weight_decay * pf))
+        write_back(params, grp, p)
         m.copy_(m_f)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, AdafactorState(step, state.m, new_v), metrics
+    return params, AdafactorState(step, state.m, new_v, state.groups), metrics
 
 
 def make_adafactor(lr: float = 3e-4,

@@ -10,22 +10,84 @@ weight decay added, the parameter cast back to its own dtype.
 
 ``adamw8bit`` stores both moments as int8 with one float32 scale a block of
 256 (``quantize_i8``), v in the square-root domain; each moment leaf is the
-reference's dict ``{"q", "scale", "shape", "n"}``.  Quantization runs over
-each tensor on its own: the reference quantizes its stacked [L, ...] layer
-leaves, whose blocks run across layer boundaries where a layer's size is
-not a multiple of 256, so a carried int8 state is dequantized and
-re-quantized a layer at a time (``transformer.train_state_from_reference``).
+reference's dict ``{"q", "scale", "shape", "n"}``.
+
+State leaves follow ``groups`` (``Group``): one leaf a group of tensors.  A
+stacked group holds the layers of one reference leaf -- the port keeps a
+[L, ...] stack as L per-layer tensors, ``layers.<i>.<rest>`` -- and its
+moments are one [L, ...] leaf, as the reference's are: the int8 blocks run
+across layer boundaries exactly where the reference's do, and a group's
+update is the reference's update of the stacked leaf.  Without ``groups``
+every tensor is a group of its own (``per_tensor``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
 import torch
 
 BLOCK = 256
+
+
+# --- groups: the reference's leaves over the port's tensors ----------------------
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One optimiser leaf: the indices of its tensors in the flat parameter
+    list and whether they are the layers of one stacked [L, ...] leaf (in
+    layer order, one shape and dtype) or a single tensor of its own.  A
+    layout, not state: no walk over a state's tuples (``state_bytes``)
+    counts it."""
+    members: Tuple[int, ...]
+    stacked: bool
+
+
+def per_tensor(n: int) -> List[Group]:
+    """The default: every one of ``n`` tensors a leaf of its own."""
+    return [Group((i,), False) for i in range(n)]
+
+
+def leaf_of(tensors: Sequence[torch.Tensor], g: Group) -> torch.Tensor:
+    """The group's leaf: its tensor, or its members stacked [L, ...] (a
+    copy)."""
+    if g.stacked:
+        return torch.stack([tensors[i] for i in g.members])
+    return tensors[g.members[0]]
+
+
+def write_back(params: Sequence[torch.Tensor], g: Group,
+               leaf: torch.Tensor) -> None:
+    """Copies a stacked leaf updated in place back into its members (a
+    single tensor's leaf is the tensor itself)."""
+    if g.stacked:
+        for k, i in enumerate(g.members):
+            params[i].copy_(leaf[k])
+
+
+def leaf_shapes(params: Sequence[torch.Tensor], groups: Sequence[Group]
+                ) -> List[Tuple[Tuple[int, ...], torch.device]]:
+    """(shape, device) of each group's leaf; raises on a stacked group whose
+    members differ in shape, dtype or device."""
+    out = []
+    for g in groups:
+        first = params[g.members[0]]
+        if g.stacked:
+            for i in g.members[1:]:
+                p = params[i]
+                if (p.shape, p.dtype, p.device) != (first.shape, first.dtype,
+                                                    first.device):
+                    raise ValueError(f"group {g.members}: tensors of "
+                                     f"{tuple(first.shape)} {first.dtype} "
+                                     f"and {tuple(p.shape)} {p.dtype}")
+            out.append(((len(g.members),) + tuple(first.shape),
+                        first.device))
+        else:
+            out.append((tuple(first.shape), first.device))
+    return out
 
 
 # --- int8 block quantization -------------------------------------------------------
@@ -88,26 +150,46 @@ class AdamWConfig:
     moment_dtype: str = "float32"       # "bfloat16" halves optimizer state
 
 
+def check_groups(groups: Sequence[Group], n_leaves: int,
+                 params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor]) -> None:
+    """Raises unless the state's ``groups`` have ``n_leaves`` moment leaves
+    and their members are the indices of ``params`` and ``grads``."""
+    members = sorted(i for g in groups for i in g.members)
+    if len(groups) != n_leaves or members != list(range(len(params))) \
+            or len(grads) != len(params):
+        raise ValueError(f"optimiser state of {n_leaves} leaves over "
+                         f"{len(groups)} groups of {len(members)} tensors; "
+                         f"given {len(params)} parameters, {len(grads)} "
+                         "gradients")
+
+
 class OptState(NamedTuple):
     step: int            # updates taken (the reference's int32 scalar)
-    m: list              # one moment a parameter, in the parameters' order
+    m: list              # one moment a leaf, in the groups' order
     v: list
+    groups: Tuple[Group, ...]    # the leaves over the parameters
 
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _zeros_like_moment(p: torch.Tensor, cfg: AdamWConfig):
-    z = torch.zeros(p.shape, dtype=_MOMENT_DTYPES[cfg.moment_dtype],
-                    device=p.device)
+def _zeros_moment(shape, device, cfg: AdamWConfig):
+    z = torch.zeros(shape, dtype=_MOMENT_DTYPES[cfg.moment_dtype],
+                    device=device)
     return quantize_i8(z) if cfg.quantize_moments else z
 
 
-def init_opt_state(params: Sequence[torch.Tensor],
-                   cfg: AdamWConfig) -> OptState:
+def init_opt_state(params: Sequence[torch.Tensor], cfg: AdamWConfig,
+                   groups: Optional[Sequence[Group]] = None) -> OptState:
+    """Zero moments, one leaf a group (default: a tensor); the state keeps
+    the groups."""
+    groups = tuple(per_tensor(len(params)) if groups is None else groups)
+    shapes = leaf_shapes(params, groups)
     return OptState(step=0,
-                    m=[_zeros_like_moment(p, cfg) for p in params],
-                    v=[_zeros_like_moment(p, cfg) for p in params])
+                    m=[_zeros_moment(s, d, cfg) for s, d in shapes],
+                    v=[_zeros_moment(s, d, cfg) for s, d in shapes],
+                    groups=groups)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -142,7 +224,9 @@ def lr_at(cfg_lr, step: int) -> torch.Tensor:
 def apply_adamw(params: List[torch.Tensor], grads: Sequence[torch.Tensor],
                 state: OptState, cfg: AdamWConfig):
     """One AdamW step over ``params`` (updated in place, as are the
-    moments); returns (params, new state, metrics)."""
+    moments), one leaf a group of the state's ``groups``; returns (params,
+    new state, metrics)."""
+    check_groups(state.groups, len(state.m), params, grads)
     gnorm = global_norm(grads)
     step = state.step + 1
     lr = lr_at(cfg.lr, step)
@@ -157,31 +241,39 @@ def apply_adamw(params: List[torch.Tensor], grads: Sequence[torch.Tensor],
                        b1c.to(dev), b2c.to(dev))
         return on[dev]
 
-    new_m, new_v = [], []
-    for p, g, m, v in zip(params, grads, state.m, state.v):
+    def update(p, g, m_f, v_f):
+        """p updated in place from float32 moments; returns the new ones."""
         clip, lr_d, b1c_d, b2c_d = scalars(p.device)
         g = g.float() * clip
-        if cfg.quantize_moments:
-            m_f = dequantize_i8(m)
-            v_f = torch.square(dequantize_i8(v))   # v stored in sqrt domain
-        else:
-            m_f = m.float()
-            v_f = v.float()
         m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
         v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
         upd = (m_f / b1c_d) / (sqrt(v_f / b2c_d) + cfg.eps)
         pf = p.float()
         p.copy_(pf - lr_d * (upd + cfg.weight_decay * pf))
+        return m_f, v_f
+
+    new_m, new_v = [], []
+    for grp, m, v in zip(state.groups, state.m, state.v):
         if cfg.quantize_moments:
+            # the int8 blocks run over the whole leaf: update it stacked
+            p = leaf_of(params, grp)
+            m_f, v_f = update(p, leaf_of(grads, grp), dequantize_i8(m),
+                              torch.square(dequantize_i8(v)))  # v: sqrt
+            write_back(params, grp, p)
             new_m.append(quantize_i8(m_f))
             new_v.append(quantize_i8(sqrt(v_f)))
-        else:
-            m.copy_(m_f)
-            v.copy_(v_f)
-            new_m.append(m)
-            new_v.append(v)
+            continue
+        # float moments: each tensor against its slice of the leaf (the
+        # same element operations, and no stacked copies)
+        for k, i in enumerate(grp.members):
+            mk, vk = (m[k], v[k]) if grp.stacked else (m, v)
+            m_f, v_f = update(params[i], grads[i], mk.float(), vk.float())
+            mk.copy_(m_f)
+            vk.copy_(v_f)
+        new_m.append(m)
+        new_v.append(v)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, OptState(step, new_m, new_v), metrics
+    return params, OptState(step, new_m, new_v, state.groups), metrics
 
 
 def make_optimizer(name: str, lr: float = 3e-4,

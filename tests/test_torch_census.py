@@ -58,6 +58,7 @@ from repro_torch.dse_campaign import (Campaign, CampaignConfig,
 from repro_torch.launch import dryrun, lowering
 from repro_torch.launch import train as train_mod
 from repro_torch.kernels import flash_attention as k3
+from repro_torch.kernels import ssd_scan as k4
 
 ANALYTIC_TOL = 0.03
 SIM_TOL = 1e-15
@@ -311,14 +312,35 @@ def test_applicable_and_skipped_cells():
     assert cells == ({(a, s) for a in dense
                       for s in ("train_4k", "prefill_32k", "decode_32k")}
                      | {("mamba2_130m", s) for s in
-                        ("prefill_32k", "decode_32k", "long_500k")})
+                        ("train_4k", "prefill_32k", "decode_32k",
+                         "long_500k")})
     skipped = {(a, s): why for a, s, why in dryrun.skipped_cells()}
-    assert "item 13b" in skipped[("mamba2_130m", "train_4k")]
+    assert len(skipped) == 17
     for arch in ("deepseek_v3_671b", "deepseek_v2_236b", "paligemma_3b",
                  "whisper_small", "zamba2_1_2b"):
         assert "ROADMAP.md Queue 1 item 12e" in skipped[(arch, "prefill_32k")]
     assert ("resnet50", "-") in skipped
     assert not cells & set(skipped)
+
+
+def test_mamba2_train_cell_books_the_scan_and_its_backward():
+    """mamba2 x train_4k, traced on meta at full width and depth (B = 256,
+    S = 4096): every layer's scan on K4 twice (the forward, and its
+    recomputation under remat "dots") and K4's backward once, each entry
+    the kernels' own census work."""
+    cfg = base.get_config("mamba2_130m")
+    art = dryrun.run_cell("mamba2_130m", "train_4k", save=False)
+    kern = art["hxa"]["kernels"]
+    assert set(kern) == {"ssd_scan_bf16", "ssd_scan_bwd_bf16"}
+    layers = cfg.num_layers
+    assert kern["ssd_scan_bf16"]["launches"] == 2 * layers
+    assert kern["ssd_scan_bwd_bf16"]["launches"] == layers
+    shape = (256, 4096, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+             cfg.ssm_chunk)
+    flops, nbytes = k4.census_work_bwd(*shape, torch.bfloat16, False)
+    assert kern["ssd_scan_bwd_bf16"]["flops"] == layers * flops
+    assert kern["ssd_scan_bwd_bf16"]["bytes"] == layers * nbytes
+    assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
 
 
 def test_all_names_every_skipped_cell(tmp_path, monkeypatch, capsys):

@@ -36,7 +36,7 @@ from repro_torch import optim
 from repro_torch.checkpoint import store
 from repro_torch.configs import base
 from repro_torch.data import pipeline as pipe
-from repro_torch.models import api
+from repro_torch.models import api, layers
 from repro_torch.models import transformer as tt
 from repro_torch.optim.adafactor import FactoredV
 from repro_torch.optim.adamw import is_moment_leaf
@@ -137,7 +137,7 @@ def test_reference_checkpoint_restores_and_steps_like_the_reference(tmp_path):
     state, met = api.make_train_step(model, opt)(state, batch)
     assert abs(float(met["loss"]) / float(rmet["loss"]) - 1) <= 1e-5
     for n, p in state.params.named_parameters():
-        path, layer = tt._reference_key(n)
+        path, layer = layers.reference_key(n)
         want = rstate.params
         for key in path.split("/"):
             want = want[key]
@@ -149,47 +149,42 @@ def test_reference_checkpoint_restores_and_steps_like_the_reference(tmp_path):
 
 @pytest.mark.parametrize("name", ["adamw8bit", "adafactor", "adamw_bf16"])
 def test_reference_optimizer_states_carry_across(name):
-    """``train_state_from_reference`` over each optimiser's reference state
-    (a reference ``TrainState`` of numpy leaves): stacked layer leaves
-    split a layer at a time; float moments and Adafactor's factored
-    statistics exactly; an int8 moment's values within its quantization
-    step (re-quantized a layer at a time where a layer's size is not a
-    whole number of blocks, its blocks copied where it is)."""
+    """``api.train_state_from_reference`` over each optimiser's reference
+    state (a reference ``TrainState`` of numpy leaves): one port leaf per
+    reference leaf (``api.param_groups``: a stacked [L, ...] layer leaf is
+    one leaf), each copied exactly -- float moments, Adafactor's factored
+    statistics, and an int8 moment block for block (its q and scales), with
+    no re-quantization."""
     rcfg, cfg = _configs("float32")
     params = rt.init_params(jax.random.PRNGKey(0), rcfg)
     _, _, rstate = _reference_state(rcfg, params, name, 2)
     host = jax.tree_util.tree_map(np.asarray, rstate)
     opt = optim.make_optimizer(name, lr=1e-3, total_steps=10)
-    state = tt.train_state_from_reference(host, cfg, opt, device="cpu")
+    state = api.train_state_from_reference(host, cfg, opt, device="cpu")
     assert state.opt.step == 2
-    for i, (n, p) in enumerate(state.params.named_parameters()):
-        path, layer = tt._reference_key(n)
+    groups = api.param_groups(state.params)
+    assert len(groups) == len(jax.tree_util.tree_leaves(params))
+    for k, (leaf, group) in enumerate(groups):
         for field in ("m", "v"):
             ref = getattr(host.opt, field)
-            for key in path.split("/"):
+            for key in leaf.split("."):
                 ref = ref[key]
-            mine = getattr(state.opt, field)[i]
+            mine = getattr(state.opt, field)[k]
             if is_moment_leaf(mine):
-                full = (np.asarray(ref["q"], np.float32)
-                        * np.asarray(ref["scale"])).reshape(-1)
-                want = full[:int(np.prod(ref["shape"]))].reshape(
-                    ref["shape"])
-                want = want if layer is None else want[layer]
-                got = (mine["q"].float() * mine["scale"]).reshape(-1)[
-                    :mine["n"]].reshape(mine["shape"]).numpy()
-                step_ = np.abs(want).max() / 127
-                assert np.abs(got - want).max() <= step_ + 1e-12, n
-                if layer is None or p.numel() % 256 == 0:
-                    assert np.array_equal(got, want)
+                assert np.array_equal(mine["q"].numpy(), np.asarray(ref["q"]))
+                assert np.array_equal(mine["scale"].numpy(),
+                                      np.asarray(ref["scale"]))
+                assert mine["shape"] == tuple(int(d) for d in ref["shape"])
+                assert mine["n"] == int(ref["n"])
             elif isinstance(mine, FactoredV):
                 for part in ("r", "c"):
-                    want = np.asarray(getattr(ref, part))
-                    want = want if layer is None else want[layer]
-                    assert np.array_equal(getattr(mine, part).numpy(), want)
+                    assert np.array_equal(getattr(mine, part).numpy(),
+                                          np.asarray(getattr(ref, part)))
             else:
                 want = np.asarray(jnp.asarray(ref).astype(jnp.float32))
-                want = want if layer is None else want[layer]
-                assert np.array_equal(mine.float().numpy(), want), n
+                if group.stacked:
+                    assert mine.shape[0] == cfg.num_layers
+                assert np.array_equal(mine.float().numpy(), want), leaf
 
 
 def test_reference_paths_spell_the_reference_leaf_order():
@@ -203,9 +198,9 @@ def test_reference_paths_spell_the_reference_leaf_order():
         ropt = roptim.make_optimizer(name, lr=1e-3, total_steps=10)
         leaves = jax.tree_util.tree_leaves(
             rapi.TrainState(params, ropt.init(params)))
-        paths = tt.reference_state_paths(module, name)
+        paths = api.reference_state_paths(module, name)
         assert len(paths) == len(leaves), name
-        shapes = dict(tt.reference_param_leaves(module))
+        shapes = dict(api.reference_param_leaves(module))
         for path, leaf in zip(paths, leaves):
             if path.startswith("params/"):
                 assert tuple(np.shape(leaf)) == shapes[path[len("params/"):]]

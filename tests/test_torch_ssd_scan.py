@@ -152,7 +152,9 @@ def test_cpu_call_launches_nothing_and_builds_nothing():
     _, tt = _inputs(10, 64, 2, 16, 16, "float32")
     k4.reset_launch_counts()
     ops.ssd_scan(*tt, chunk=32)
-    assert k4.launch_counts() == {"ssd_scan_f32": 0, "ssd_scan_bf16": 0}
+    assert k4.launch_counts() == {"ssd_scan_f32": 0, "ssd_scan_bf16": 0,
+                                  "ssd_scan_bwd_f32": 0,
+                                  "ssd_scan_bwd_bf16": 0}
     assert k4._bound is None
 
 
