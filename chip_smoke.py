@@ -402,16 +402,12 @@ def phase_build() -> dict:
         build.build_logs[k4.BWD_SOURCE])
     ssd_bwd = [r for r in out[k4.BWD_SOURCE]["kernels"]
                if "ssd_bwd_" in r["kernel"]]
-    # two blocks an SM (128 registers) cost the dCB kernel a small spill,
-    # and it still ran faster than one block without (PERF.md): the others
-    # must not spill, and it at most SSD_BWD_DCB_SPILL bytes
-    if len(ssd_bwd) != 11 or any(
-            max(r["spill_stores"], r["spill_loads"])
-            > (SSD_BWD_DCB_SPILL if "ssd_bwd_dcb_" in r["kernel"] else 0)
-            for r in ssd_bwd):
-        raise AssertionError(f"K4's backward kernels (four per input dtype "
-                             f"and three shared) spill (or are missing from "
-                             f"the ptxas report): {ssd_bwd}")
+    if len(ssd_bwd) != SSD_BWD_KERNELS or any(
+            r["spill_stores"] or r["spill_loads"] for r in ssd_bwd):
+        raise AssertionError(f"K4's backward kernels (tc: four per input "
+                             f"dtype; general: four per input dtype; three "
+                             f"shared) spill (or are missing from the ptxas "
+                             f"report): {ssd_bwd}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": out})
     return out
@@ -4155,19 +4151,25 @@ MAMBA_RESUME_BATCH = 2
 SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (case, b, S, nh, hp, ds, Q, with_final): a test shape (3 chunks of 16), a
 # general shape (every size off the 64 tile), mamba2-130m's heads at B=1 and
-# at the training run's B=8, S=4096, with a final-state cotangent; and the
+# at the training run's B=8, S=4096, with a final-state cotangent; the
 # training run's own call, B=8 with none (the model drops the final state,
-# so ``SSDScan`` passes None and the reverse pass starts from 0)
+# so ``SSDScan`` passes None and the reverse pass starts from 0); and
+# zamba2-1.2b's scan (64 heads, ds 64) at B=1, S=4096, with and without one
 SSD_BWD_CASES = (("test", 2, 48, 3, 8, 16, 16, True),
                  ("general", 2, 300, 2, 72, 40, 100, True),
                  ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256, True),
                  ("mamba2_b8_s4096", 8, 4096, 24, 64, 128, 256, True),
                  ("mamba2_b8_s4096_no_final", 8, 4096, 24, 64, 128, 256,
+                  False),
+                 ("zamba2_b1_s4096", 1, 4096, 64, 64, 64, 256, True),
+                 ("zamba2_b1_s4096_no_final", 1, 4096, 64, 64, 64, 256,
                   False))
 SSD_BWD_HEADLINE = "mamba2_b8_s4096_no_final"
 SSD_BWD_SYMBOL = "ssd_bwd_"   # every K4-backward kernel's name starts so
-# the most the dCB kernel may spill (bytes of stores or loads); 120 measured
-SSD_BWD_DCB_SPILL = 256
+# the backward's kernels in the ptxas report: tc dcb, state_grad, dxbc and
+# bc_sum, general dcb, state_grad, dx and dbc, each for bf16 and float32
+# inputs; state_pass, dcum and da shared.  None may spill.
+SSD_BWD_KERNELS = 19
 
 
 def ssd_bwd_bound(b, s, nh, hp, ds, q, dtype, with_final) -> dict:
@@ -4221,11 +4223,12 @@ def ssd_bwd_case(gen, device, case, dtype) -> dict:
     dy = torch.randn((b, s, nh, hp), generator=gen, device=device)
     df = (torch.randn((b, nh, hp, ds), generator=gen, device=device)
           if with_final else None)
-    plan = k4.plan_bwd(b, s, nh, hp, ds, q, dtype)
-    shape = k4.bwd_launch_shape(b, s, nh, hp, ds, q)
-    if {k: tuple(v["grid"]) for k, v in shape["launches"].items()} \
-            != plan.grids or shape["launches"]["dcum"]["smem"] \
-            != plan.dcum_smem:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = k4.plan_bwd(b, s, nh, hp, ds, q, dtype, sms)
+    shape = k4.bwd_launch_shape(b, s, nh, hp, ds, q, dtype, sms)
+    launched = shape["launches"]
+    if {k: tuple(v["grid"]) for k, v in launched.items()} != plan.grids \
+            or any(launched[k]["smem"] != v for k, v in plan.smem.items()):
         raise AssertionError(f"K4 backward plan {plan} disagrees with the "
                              f"library's launches {shape}")
     _, _, scr = k4.ssd_scan_with_scratch(x, dt, A, Bm, Cm, chunk=q,
@@ -4257,6 +4260,7 @@ def ssd_bwd_case(gen, device, case, dtype) -> dict:
     bd = ssd_bwd_bound(b, s, nh, hp, ds, q, dtype, with_final)
     row = {"case": name, "b": b, "S": s, "nh": nh, "hp": hp, "ds": ds,
            "Q": q, "with_final": with_final, "dtype": SUFFIX[dtype],
+           "variant": plan.variant, "groups": plan.groups,
            "max_abs_err": max(errs.values()),
            "abs_err": errs, "rel_err": rels, "twice_bitwise": True,
            "grids": {k: list(v) for k, v in plan.grids.items()},
@@ -4541,7 +4545,8 @@ def ssd_bwd_rows(training, ptxas) -> list:
             "shape": "b=8, S=4096, nh=24, hp=64, ds=128, Q=256, no final-"
                      "state cotangent (the training path's call)",
             "shapes": [{k: r[k] for k in (
-                "case", "b", "S", "nh", "hp", "ds", "Q", "with_final", "ms",
+                "case", "b", "S", "nh", "hp", "ds", "Q", "with_final",
+                "variant", "groups", "ms",
                 "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "units_bound_ms", "max_abs_err", "rel_err")}
                 for r in cases],

@@ -50,15 +50,25 @@ scan, written from the chunked algebra: the reference has no backward
 kernel and trains through ``jax.vjp`` of ``ssd_chunked``.  Given dy (and
 the final state's cotangent, or none) and the forward's inputs and scratch
 (the state entering every chunk, ``cum``), it returns dx, ddt, dA, dB, dC,
-each in its input's dtype.  Seven launches (``BWD_LAUNCH_NAMES``) count as
-one under ``"ssd_scan_bwd_f32"`` / ``"ssd_scan_bwd_bf16"``; every shape the
-forward takes runs on them (64 x 64 tiles, masked at the edges), in
-float32 on the CUDA cores, with no float atomics: the sums over heads (dB,
-dC) and over (b, S) (dA) run in a fixed order, so two runs are bitwise
-equal.  ``ssd_scan_bwd_plain`` holds the same formulas as float32 tensor
-code, chunk by chunk.  ``SSDScan`` is the autograd node: K4 with its
-scratch saved, then K4's backward; ``kernels.ops.ssd_scan`` routes through
-it wherever autograd records.
+each in its input's dtype.  Two variants, chosen by shape (``plan_bwd``),
+seven launches each (``BWD_LAUNCH_NAMES``), counted as one call under
+``"ssd_scan_bwd_f32"`` / ``"ssd_scan_bwd_bf16"``:
+
+* ``tc`` -- the sizes ``shared_cb`` takes (every mamba2-130m and
+  zamba2-1.2b shape): every product on the tensor cores at float32
+  accuracy (3xTF32; 2xTF32 where one operand holds bf16 values; C B^T of
+  bf16 inputs on the bf16 tensor cores), dy read by three launches; at
+  small batch the launch that sums dB and dC over heads splits the heads
+  into groups whose float32 partials a later launch adds in group order.
+* ``general`` -- every other shape: 64 x 64 tiles masked at the edges, in
+  float32 on the CUDA cores.
+
+Neither takes a float atomic: the sums over heads (dB, dC) and over (b,
+S) (dA) run in a fixed order, so two runs are bitwise equal.
+``ssd_scan_bwd_plain`` holds the same formulas as float32 tensor code,
+chunk by chunk.  ``SSDScan`` is the autograd node: K4 with its scratch
+saved, then K4's backward; ``kernels.ops.ssd_scan`` routes through it
+wherever autograd records.
 """
 
 from __future__ import annotations
@@ -90,13 +100,23 @@ H100_SMS = 132
 _TILE = 64          # rows / columns of a block tile in both variants
 _PASS_THREADS = 256
 
-# the backward's launches, in issue order, and its scratch tensors in the
-# order of its C interface
-BWD_LAUNCH_NAMES = ("dcb", "state_grad", "state_pass", "dx", "dcum", "dbc",
-                    "da")
+# the backward's variants, their ids in the C interface and their launches
+# in issue order; the scratch tensors of either, in the C interface's order
+BWD_TC = "tc"
+_BWD_VARIANT_ID = {GENERAL: 0, BWD_TC: 1}
+BWD_LAUNCH_NAMES = {
+    GENERAL: ("dcb", "state_grad", "state_pass", "dx", "dbc", "dcum", "da"),
+    BWD_TC: ("dcb", "state_grad", "state_pass", "dxbc", "dcum", "bc_sum",
+             "da")}
 BWD_SCRATCH = ("cb", "dcb", "dstate", "rowpart", "colpart", "dcum_loc",
-               "ddt_x", "rsum", "dA_part")
+               "ddt_x", "rsum", "dA_part", "yoff", "bcpart")
 BWD_MAX_Q = 8192    # the dcum kernel holds one chunk's dcum in shared memory
+_BWD_TC_THREADS = 128
+_BWD_TC_BLOCKS_PER_SM = 2   # the dxbc pass fills the card to this
+_BWD_TC_SLICE = 32          # K slice of a tc product
+# the tc kernels' ring: 3 stages of two operand slices of 64 x (32 + 4)
+# floats
+_BWD_TC_RING = 3 * 2 * _TILE * (_BWD_TC_SLICE + 4) * 4
 
 FWD_KEYS = tuple(f"ssd_scan_{s}" for s in _SUFFIX.values())
 BWD_KEYS = tuple(f"ssd_scan_bwd_{s}" for s in _SUFFIX.values())
@@ -356,7 +376,8 @@ def plan_for(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return plan(b, s, nh, hp, ds, q, x.dtype, sms)
 
 
-def scratch_tensors(p: Plan, device) -> Dict[str, torch.Tensor]:
+def scratch_tensors(p: "Plan | BwdPlan", device
+                    ) -> Dict[str, torch.Tensor]:
     """The float32 scratch tensors of a call planned as ``p``, allocated
     with ``torch.empty`` (every element is written before it is read)."""
     return {name: torch.empty(shape, dtype=torch.float32, device=device)
@@ -448,22 +469,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How one backward call runs: the grid (x, y, z) of each of its
-    launches in order (``BWD_LAUNCH_NAMES``), the float32 scratch tensors
-    the wrapper allocates (name -> shape, in ``BWD_SCRATCH`` order) and the
-    dcum kernel's dynamic shared memory (bytes)."""
+    """How one backward call runs: the variant, the grid (x, y, z) of each
+    of its launches in order (``BWD_LAUNCH_NAMES[variant]``), the float32
+    scratch tensors the wrapper allocates (name -> shape, in
+    ``BWD_SCRATCH`` order), the dynamic shared memory (bytes) of the
+    launches that take any, and the head groups of the ``tc`` variant's
+    dB / dC pass (1 under ``general``)."""
+    variant: str
     grids: Dict[str, Tuple[int, int, int]]
     scratch: Dict[str, Tuple[int, ...]]
-    dcum_smem: int
+    smem: Dict[str, int]
+    groups: int
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_bwd(b: int, s: int, nh: int, hp: int, ds: int, q: int,
-             dtype: torch.dtype) -> BwdPlan:
+             dtype: torch.dtype, sms: int = H100_SMS) -> BwdPlan:
     """The backward's plan for a scan of x [b, s, nh, hp] in chunks of
-    ``q`` with state size ``ds`` and inputs in ``dtype`` (a pure function
-    of its arguments): every shape the forward takes, in 64 x 64 tiles of
-    256 threads."""
+    ``q`` with state size ``ds`` and inputs in ``dtype`` on a card of
+    ``sms`` SMs (a pure function of its arguments): ``tc`` for the sizes
+    the forward's ``shared_cb`` takes, with the heads of the ``dxbc``
+    launch (per 64-row tile of a chunk, one d(xdt) block and one dB / dC
+    block per 64 columns of ds, each walking its heads in order) split into
+    groups until that launch has two blocks an SM; ``general`` for every
+    other shape the forward takes, in 64 x 64 tiles of 256 threads."""
     if dtype not in _SUFFIX:
         raise TypeError(f"no K4 backward for {dtype}")
     if s % q:
@@ -472,20 +501,41 @@ def plan_bwd(b: int, s: int, nh: int, hp: int, ds: int, q: int,
     if q > BWD_MAX_Q:
         raise ValueError(f"chunk {q} exceeds the backward's {BWD_MAX_Q}")
     nc, bh = s // q, b * nh
-    t = _cdiv(q, _TILE)
-    grids = {"dcb": (t * (t + 1) // 2, b * nc, 1),
-             "state_grad": (nc, bh, _cdiv(hp, _TILE) * _cdiv(ds, _TILE)),
-             "state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1),
-             "dx": (t, nc, bh),
-             "dcum": (nc, bh, 1),
-             "dbc": (t, _cdiv(ds, _TILE), b * nc),
-             "da": (_cdiv(nh, _PASS_THREADS), 1, 1)}
+    t, td = _cdiv(q, _TILE), _cdiv(ds, _TILE)
+    shared = {"dcb": (t * (t + 1) // 2, b * nc, 1),
+              "state_pass": (_cdiv(hp * ds, _PASS_THREADS), bh, 1),
+              "dcum": (nc, bh, 1), "da": (_cdiv(nh, _PASS_THREADS), 1, 1)}
     scratch = {"cb": (b, nc, q, q), "dcb": (b, nc, q, q),
                "dstate": (b, nh, nc, hp, ds), "rowpart": (b, nh, nc, t, q),
                "colpart": (b, nh, nc, t, q), "dcum_loc": (b, nh, nc, q),
                "ddt_x": (b, nh, nc, q), "rsum": (b, nh, nc, t),
                "dA_part": (nh, b, nc)}
-    return BwdPlan(grids, scratch, 4 * q)
+    # y_off's partial row sums, one per 64 columns of ds
+    scratch["yoff"] = (b, nh, nc, td, q)
+    smem = {"dcum": 4 * q}
+    if _shared_cb_fits(hp, ds, q):
+        variant = BWD_TC
+        # dxbc blocks a head group: per row tile one d(xdt) block and one
+        # dB / dC block per 64 columns of ds
+        rows = t * (1 + td) * b * nc
+        per = _cdiv(nh, min(nh, _cdiv(_BWD_TC_BLOCKS_PER_SM * sms, rows)))
+        groups = _cdiv(nh, per)
+        grids = {"state_grad": (nc, bh, td),
+                 "dxbc": (t, (1 + td) * groups, b * nc),
+                 "bc_sum": (_cdiv(2 * b * s * ds, 4 * _PASS_THREADS), 1, 1),
+                 **shared}
+        scratch["bcpart"] = (groups, 2, b, s, ds)
+        # the ring of staged operand slices; dcb's bf16 C and B rows of its
+        # C B^T tile share its space
+        smem["dcb"] = max(_BWD_TC_RING, 2 * _TILE * (ds + 8) * 2) \
+            if dtype == torch.bfloat16 else _BWD_TC_RING
+        smem["state_grad"] = smem["dxbc"] = _BWD_TC_RING
+    else:
+        variant, groups = GENERAL, 1
+        grids = {"state_grad": (nc, bh, _cdiv(hp, _TILE) * td),
+                 "dx": (t, nc, bh), "dbc": (t, td, b * nc), **shared}
+    grids = {k: grids[k] for k in BWD_LAUNCH_NAMES[variant]}
+    return BwdPlan(variant, grids, scratch, smem, groups)
 
 
 def census_work_bwd(b: int, s: int, nh: int, hp: int, ds: int, q: int,
@@ -521,32 +571,38 @@ def _bwd_library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name in BWD_KEYS:
             fn = getattr(lib, name)
-            fn.argtypes = ([vp] * 14 + [ctypes.POINTER(vp)] + [ci] * 6
+            fn.argtypes = ([vp] * 14 + [ctypes.POINTER(vp)] + [ci] * 8
                            + [ctypes.POINTER(ctypes.c_longlong), ci, vp])
             fn.restype = ci
         lib.ssd_scan_bwd_error_string.argtypes = [ci]
         lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
-        lib.ssd_scan_bwd_launch_shape.argtypes = [ci] * 6 + [
+        lib.ssd_scan_bwd_launch_shape.argtypes = [ci] * 9 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.ssd_scan_bwd_launch_shape.restype = None
         _bwd_bound = lib
     return _bwd_bound
 
 
-def bwd_launch_shape(b: int, s: int, nh: int, hp: int, ds: int,
-                     q: int) -> Dict[str, object]:
-    """What the backward's library launches at these sizes (builds and
-    loads it): per launch its grid, threads per block and dynamic shared
-    memory (bytes); and its constants (tile, threads, largest chunk,
-    scratch tensors)."""
-    n = len(BWD_LAUNCH_NAMES)
+def bwd_launch_shape(b: int, s: int, nh: int, hp: int, ds: int, q: int,
+                     dtype: torch.dtype, sms: int = H100_SMS
+                     ) -> Dict[str, object]:
+    """What the backward's library launches for ``plan_bwd``'s variant and
+    head groups at these sizes (builds and loads it): per launch its grid,
+    threads per block and dynamic shared memory (bytes); and its constants
+    (tile, threads of a general block, largest chunk, scratch pointers)."""
+    p = plan_bwd(b, s, nh, hp, ds, q, dtype, sms)
+    names = BWD_LAUNCH_NAMES[p.variant]
+    n = len(names)
     out = (ctypes.c_int * (5 * n + 4))()
-    _bwd_library().ssd_scan_bwd_launch_shape(b, s, nh, hp, ds, q, out)
+    _bwd_library().ssd_scan_bwd_launch_shape(
+        b, s, nh, hp, ds, q, _BWD_VARIANT_ID[p.variant], p.groups,
+        int(dtype == torch.bfloat16), out)
     v = list(out)
-    return {"launches": {name: {"grid": tuple(v[5 * i: 5 * i + 3]),
+    return {"variant": p.variant,
+            "launches": {name: {"grid": tuple(v[5 * i: 5 * i + 3]),
                                 "threads": v[5 * i + 3],
                                 "smem": v[5 * i + 4]}
-                         for i, name in enumerate(BWD_LAUNCH_NAMES)},
+                         for i, name in enumerate(names)},
             "tile": v[5 * n], "threads": v[5 * n + 1],
             "max_q": v[5 * n + 2], "scratch": v[5 * n + 3]}
 
@@ -560,8 +616,10 @@ def ssd_scan_bwd_plain(dy: torch.Tensor, d_final: Optional[torch.Tensor],
     state entering every chunk, then the chunks last to first -- d(x dt)
     from ``(C B^T . L)^T dY`` and ``decay_end . (B dS_out^T)``; dCB and dL
     from ``dY (x dt)^T`` under the causal mask; dcum from dL's rows minus
-    its columns, y_off, decay_end and the chunk decay; ddA its reverse
-    cumsum (float64); ``dS_in = (C . e^cum)^T dY + e^{cum_last} dS_out``.
+    its columns, y_off (the row sums of ``C . (e^cum dY S_in)``, from the
+    product dC needs: no ``C S_in^T``), decay_end and the chunk decay; ddA
+    its reverse cumsum (float64); ``dS_in = (C . e^cum)^T dY + e^{cum_last}
+    dS_out``.
     Returns ``(dx, ddt, dA, dB, dC)``, each in its input's dtype."""
     b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
     dev = x.device
@@ -634,8 +692,9 @@ def _bwd_kernel(dy, d_final, x, dt, A, B, C, states, cum, chunk: int
     """The backward's kernels on CUDA tensors ``_validate`` accepted."""
     b, s, nh, hp, ds, q = _validate(x, dt, A, B, C, chunk)
     dev = x.device
-    p = plan_bwd(b, s, nh, hp, ds, q, x.dtype)
-    x, B, C = (_kernel_operand(t, GENERAL) for t in (x, B, C))
+    p = plan_bwd(b, s, nh, hp, ds, q, x.dtype, _sm_count(dev))
+    operand = SHARED_CB if p.variant == BWD_TC else GENERAL
+    x, B, C = (_kernel_operand(t, operand) for t in (x, B, C))
     dt = dt if dt.stride(-1) == 1 else dt.contiguous()
     dy = dy.float().contiguous()
     if d_final is not None:
@@ -651,9 +710,10 @@ def _bwd_kernel(dy, d_final, x, dt, A, B, C, states, cum, chunk: int
     dA = torch.empty((nh,), dtype=torch.float32, device=dev)
     dB = torch.empty((b, s, 1, ds), dtype=B.dtype, device=dev)
     dC = torch.empty((b, s, 1, ds), dtype=C.dtype, device=dev)
-    scratch = [torch.empty(p.scratch[k], dtype=torch.float32, device=dev)
-               for k in BWD_SCRATCH]
-    ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    scratch = scratch_tensors(p, dev)
+    ptrs = (ctypes.c_void_p * len(BWD_SCRATCH))(
+        *(scratch[k].data_ptr() if k in scratch else None
+          for k in BWD_SCRATCH))
     strides = (ctypes.c_longlong * 10)(
         *(int(st) for st in (*x.stride()[:3], *dt.stride(), *B.stride()[:2],
                              *C.stride()[:2])))
@@ -664,14 +724,15 @@ def _bwd_kernel(dy, d_final, x, dt, A, B, C, states, cum, chunk: int
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), states.data_ptr(), cum.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptrs,
-        b, s, nh, hp, ds, q, strides, dev.index,
+        b, s, nh, hp, ds, q, _BWD_VARIANT_ID[p.variant], p.groups, strides,
+        dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
     if code != 0:
         msg = lib.ssd_scan_bwd_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {name} failed: {msg} (cudaError "
-                           f"{code}) at b {b}, S {s}, nh {nh}, hp {hp}, ds "
-                           f"{ds}, Q {q}")
+        raise RuntimeError(f"CUDA launch of {name} ({p.variant}) failed: "
+                           f"{msg} (cudaError {code}) at b {b}, S {s}, nh "
+                           f"{nh}, hp {hp}, ds {ds}, Q {q}")
     return dx, ddt, dA, dB, dC
 
 

@@ -225,60 +225,162 @@ def test_meta_route_books_both_kernels_and_launches_nothing():
 
 
 def test_plan_bwd_of_the_model_shape():
-    """mamba2-130m's training shape: 4 row tiles of the 256-step chunk (10
-    lower-triangle tile pairs), 16 chunks, 24 heads."""
+    """mamba2-130m's training shape takes the tensor-core variant: 4 row
+    tiles of the 256-step chunk (10 lower-triangle tile pairs), 16 chunks,
+    24 heads; per row tile one d(xdt) block and one dB / dC block per 64
+    columns of ds, 1536 blocks at B=8, so its heads stay in one group."""
     p = k4.plan_bwd(8, 4096, 24, 64, 128, 256, torch.bfloat16)
+    assert p.variant == k4.BWD_TC and p.groups == 1
     assert p.grids == {"dcb": (10, 128, 1), "state_grad": (16, 192, 2),
-                       "state_pass": (32, 192, 1), "dx": (4, 16, 192),
-                       "dcum": (16, 192, 1), "dbc": (4, 2, 128),
+                       "state_pass": (32, 192, 1), "dxbc": (4, 3, 128),
+                       "dcum": (16, 192, 1), "bc_sum": (8192, 1, 1),
                        "da": (1, 1, 1)}
+    assert tuple(p.grids) == k4.BWD_LAUNCH_NAMES[k4.BWD_TC]
     assert tuple(p.scratch) == k4.BWD_SCRATCH
     assert p.scratch["dstate"] == (8, 24, 16, 64, 128)
     assert p.scratch["rowpart"] == (8, 24, 16, 4, 256)
-    assert p.dcum_smem == 4 * 256
+    assert p.scratch["yoff"] == (8, 24, 16, 2, 256)
+    assert p.scratch["bcpart"] == (1, 2, 8, 4096, 128)
+    # the dcum kernel's chunk; the tc kernels' ring of three slices of two
+    # operands, 64 x (32 + 4) floats each (dcb's bf16 C and B rows, 2 x 64
+    # x 136 bf16, fit in its space)
+    ring = 3 * 2 * 64 * 36 * 4
+    assert p.smem == {"dcum": 4 * 256, "dcb": ring, "state_grad": ring,
+                      "dxbc": ring}
+    assert 2 * 64 * 136 * 2 < ring
+    assert k4.plan_bwd(8, 4096, 24, 64, 128, 256, torch.float32).smem == \
+        p.smem
+
+
+@pytest.mark.parametrize("b, nh, want", [(1, 24, 2), (2, 24, 1), (8, 24, 1),
+                                         (1, 2, 2), (1, 1, 1)])
+def test_plan_bwd_splits_the_heads_until_the_card_is_full(b, nh, want):
+    """The dxbc launch has three blocks per (batch, chunk, row tile) at ds
+    128 and each walks its heads in order; where that is under two blocks
+    an SM the plan splits the heads into groups of consecutive heads (never
+    more groups than heads), and the scratch holds one float32 dB / dC
+    partial per group."""
+    p = k4.plan_bwd(b, 4096, nh, 64, 128, 256, torch.bfloat16)
+    per = -(-nh // p.groups)
+    assert p.groups == want and p.grids["dxbc"] == (4, 3 * want, b * 16)
+    assert (p.groups - 1) * per < nh <= p.groups * per
+    assert p.scratch["bcpart"] == (want, 2, b, 4096, 128)
+    # a card of more SMs takes as many groups or more, never past the heads
+    more = k4.plan_bwd(b, 4096, nh, 64, 128, 256, torch.bfloat16,
+                       sms=4 * 132).groups
+    assert want <= more <= nh
+
+
+def test_plan_bwd_of_the_zamba2_shape():
+    """zamba2-1.2b's scan (hp 64, ds 64, 64 heads) at B=1: the tensor-core
+    variant, one 64-column tile of ds (so two dxbc blocks a row tile), and
+    three head groups of 22 heads."""
+    p = k4.plan_bwd(1, 4096, 64, 64, 64, 256, torch.bfloat16)
+    assert p.variant == k4.BWD_TC and p.groups == 3
+    assert p.grids["state_grad"] == (16, 64, 1)
+    assert p.grids["dxbc"] == (4, 6, 16)
+    assert p.grids["bc_sum"] == (-(-2 * 4096 * 64 // 1024), 1, 1)
+    assert p.scratch["yoff"] == (1, 64, 16, 1, 256)
+    assert p.scratch["bcpart"] == (3, 2, 1, 4096, 64)
+
+
+@pytest.mark.parametrize("shape, variant", [
+    ((8, 4096, 24, 64, 128, 256), "tc"),      # mamba2-130m
+    ((1, 4096, 64, 64, 64, 256), "tc"),       # zamba2-1.2b
+    ((2, 512, 3, 64, 256, 64), "tc"),         # the widest state, Q 64
+    ((2, 48, 3, 8, 16, 16), "general"),       # head size off 64
+    ((1, 128, 2, 64, 64, 64), "tc"),
+    ((1, 300, 2, 72, 40, 100), "general"),
+    ((1, 512, 2, 64, 320, 256), "general"),   # state over 256
+    ((1, 1024, 2, 64, 128, 512), "general"),  # chunk over 256
+    ((1, 512, 2, 64, 96, 256), "general"),    # state off 64
+    ((1, 512, 2, 128, 128, 256), "general"),  # head size 128
+])
+def test_plan_bwd_variant_follows_the_forward_rule(shape, variant):
+    """The tensor-core variant takes exactly the sizes the forward's
+    shared_cb variant takes (hp 64, ds a multiple of 64 up to 256, Q a
+    multiple of 64 up to 256); every other shape the forward takes runs on
+    the general variant, for either input dtype."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = k4.plan_bwd(*shape, dtype)
+        assert p.variant == variant
+        assert (variant == "tc") == (k4.plan(*shape, dtype).variant
+                                     == k4.SHARED_CB)
+        assert tuple(p.grids) == k4.BWD_LAUNCH_NAMES[variant]
+        assert ("bcpart" in p.scratch) == (variant == "tc")
+        assert "yoff" in p.scratch
 
 
 @pytest.mark.parametrize("shape", [(2, 48, 3, 8, 16, 16),
                                    (1, 300, 2, 72, 40, 100)])
 def test_plan_bwd_covers_every_forward_shape(shape):
-    """Any shape the forward takes: tiles rounded up (hp 72 and ds 40 as
-    two and one 64-wide tiles, a 100-step chunk as two row tiles)."""
+    """Any shape the forward takes: the general variant's tiles rounded up
+    (hp 72 and ds 40 as two and one 64-wide tiles, a 100-step chunk as two
+    row tiles), y_off's partial row sums one per 64 columns of ds."""
     b, s, nh, hp, ds, q = shape
     p = k4.plan_bwd(b, s, nh, hp, ds, q, torch.float32)
     t = -(-q // 64)
+    assert p.variant == k4.GENERAL and p.groups == 1
     assert p.grids["dx"] == (t, s // q, b * nh)
+    assert p.grids["dbc"] == (t, -(-ds // 64), b * s // q)
     assert p.grids["state_grad"][2] == -(-hp // 64) * -(-ds // 64)
+    assert p.scratch["yoff"] == (b, nh, s // q, -(-ds // 64), q)
     with pytest.raises(ValueError, match="chunk"):
         k4.plan_bwd(1, 16384, 1, 8, 8, 16384, torch.float32)
 
 
 def test_bwd_plan_matches_the_source_constants():
-    """The plan's tile, threads, largest chunk, scratch tensors and launches
-    are the ones ``csrc/ssd_scan_bwd.cu`` builds with."""
+    """The plan's tile, threads, largest chunk, scratch tensors, launches
+    and shared memory are the ones ``csrc/ssd_scan_bwd.cu`` builds with."""
     src = (build.CSRC_DIR / k4.BWD_SOURCE).read_text()
     assert re.search(rf"constexpr int kTile = {k4._TILE};", src)
     assert re.search(rf"constexpr int kThreads = {k4._PASS_THREADS};", src)
+    assert re.search(rf"constexpr int kNT = {k4._BWD_TC_THREADS};", src)
     assert re.search(rf"constexpr int kMaxQ = {k4.BWD_MAX_Q};", src)
     assert re.search(rf"constexpr int kScratch = {len(k4.BWD_SCRATCH)};",
                      src)
-    assert re.search(rf"constexpr int kLaunches = "
-                     rf"{len(k4.BWD_LAUNCH_NAMES)};", src)
+    assert re.search(r"constexpr int kBK = (\d+);", src).group(1) == \
+        str(k4._BWD_TC_SLICE)
+    assert re.search(r"constexpr int kStages = 3;", src)
+    assert re.search(r"constexpr int kTcBlocksPerSm = "
+                     rf"{k4._BWD_TC_BLOCKS_PER_SM};", src)
+    for variant in (k4.GENERAL, k4.BWD_TC):
+        assert re.search(rf"constexpr int kLaunches = "
+                         rf"{len(k4.BWD_LAUNCH_NAMES[variant])};", src)
     # the scratch pointers in the C interface's order
-    order = re.findall(r"p\.(\w+) = sc\[(\d)\]", src)
+    order = re.findall(r"p\.(\w+) = sc\[(\d+)\]", src)
     assert [name for name, _ in sorted(order, key=lambda t: int(t[1]))] == \
         list(k4.BWD_SCRATCH)
-    # one launch statement per planned launch, in the plan's order
+    # one launch statement per planned launch, in the plan's order: the
+    # tensor-core variant's first, then the general variant's
     kernels = re.findall(r"(ssd_bwd_\w+?)_kernel(?:<Tin>)?\s*<<<l\[(\d)\]",
                          src)
-    assert [k for k, _ in kernels] == ["ssd_bwd_" + n
-                                       for n in ("dcb", "state_grad",
-                                                 "state_pass", "dx", "dcum",
-                                                 "dbc", "da")]
-    assert [int(i) for _, i in kernels] == list(range(7))
+    tc = ["ssd_bwd_" + n for n in ("dcb_tc", "state_grad_tc", "state_pass",
+                                   "dxbc_tc", "dcum", "bc_sum", "da")]
+    general = ["ssd_bwd_" + n for n in ("dcb", "state_grad", "state_pass",
+                                        "dx", "dbc", "dcum", "da")]
+    assert [k for k, _ in kernels] == tc + general
+    assert [int(i) for _, i in kernels] == list(range(7)) * 2
+    for names, plain in ((tc, k4.BWD_LAUNCH_NAMES[k4.BWD_TC]),
+                         (general, k4.BWD_LAUNCH_NAMES[k4.GENERAL])):
+        assert [n[len("ssd_bwd_"):].replace("_tc", "") for n in names] == \
+            list(plain)
     for name in k4.BWD_KEYS + ("ssd_scan_bwd_launch_shape",
                                "ssd_scan_bwd_error_string"):
         assert re.search(rf"\b{name}\(", src), name
     assert "--use_fast_math" not in build.flags(k4.BWD_SOURCE)
+
+
+def test_bwd_source_has_no_c_sin_product():
+    """dcum's y_off term is the row sum of C (.) (e^cum dY S_in), from the
+    product dC needs: no kernel forms C S_in^T (a product over ds of C
+    against the entering state)."""
+    src = re.sub(r"//[^\n]*", "", (build.CSRC_DIR / k4.BWD_SOURCE)
+                 .read_text())
+    # the entering state is read by dY S_in (dbc, dxbc) and <S_in, dS> only
+    uses = re.findall(r"\b(?:Sin|p\.states)\b[^;]*;", src)
+    assert uses and all("Cp" not in u and "Cc" not in u for u in uses)
+    assert "C S_in^T" not in src
 
 
 def test_bwd_source_adds_no_float_atomics_to_its_outputs():

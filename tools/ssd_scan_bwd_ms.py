@@ -31,7 +31,8 @@ SHAPES = {"test": (2, 48, 3, 8, 16, 16),
           "general": (2, 300, 2, 72, 40, 100),
           "shared_cb_small": (2, 512, 3, 64, 64, 128),
           "mamba2_b1": (1, 4096, 24, 64, 128, 256),
-          "mamba2_b8": (8, 4096, 24, 64, 128, 256)}
+          "mamba2_b8": (8, 4096, 24, 64, 128, 256),
+          "zamba2_b1": (1, 4096, 64, 64, 64, 256)}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
@@ -57,6 +58,23 @@ def kernel_split(fn, torch, reps: int = 3) -> dict:
         name = ev.key[ev.key.find("ssd_bwd_"):][:60]
         out[name] = out.get(name, 0.0) + us / reps / 1e3
     return out
+
+
+def plan_and_shape(k4, torch, shape, dtype):
+    """``plan_bwd`` and ``bwd_launch_shape`` of the checkout under test on
+    this card (a checkout whose backward has one variant plans without the
+    card's SM count or the dtype)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        return (k4.plan_bwd(*shape, dtype, sms),
+                k4.bwd_launch_shape(*shape, dtype, sms))
+    except TypeError:
+        return k4.plan_bwd(*shape, dtype), k4.bwd_launch_shape(*shape)
+
+
+def plan_smem(plan) -> dict:
+    """The dynamic shared memory the plan expects, per launch."""
+    return getattr(plan, "smem", None) or {"dcum": plan.dcum_smem}
 
 
 def time_ms(fn, torch, iters: int) -> float:
@@ -98,17 +116,22 @@ def main() -> int:
            "build_seconds": build.build_seconds.get(k4.BWD_SOURCE),
            "ptxas": build.build_logs.get(k4.BWD_SOURCE, "").splitlines(),
            "cases": []}
+    print(json.dumps({k: v for k, v in out.items() if k != "cases"}),
+          flush=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     bad = False
     for name in args.shapes.split(","):
         b, s, nh, hp, ds, q = SHAPES[name]
-        shape = k4.bwd_launch_shape(b, s, nh, hp, ds, q)
-        plan = k4.plan_bwd(b, s, nh, hp, ds, q, torch.float32)
-        if {k: v["grid"] for k, v in shape["launches"].items()} != plan.grids:
-            raise AssertionError(f"{name}: plan {plan.grids} != library "
-                                 f"{shape['launches']}")
         for dtype in ("bfloat16", "float32"):
             dt_ = getattr(torch, dtype)
+            plan, shape = plan_and_shape(k4, torch, (b, s, nh, hp, ds, q),
+                                         dt_)
+            launched = shape["launches"]
+            if {k: v["grid"] for k, v in launched.items()} != plan.grids \
+                    or any(launched[k]["smem"] != v
+                           for k, v in plan_smem(plan).items()):
+                raise AssertionError(f"{name}: plan {plan} != library "
+                                     f"{shape}")
             x = torch.randn((b, s, nh, hp), generator=g,
                             device="cuda").to(dt_)
             dt = torch.rand((b, s, nh), generator=g, device="cuda") * 0.19 \
@@ -137,14 +160,16 @@ def main() -> int:
                 all(torch.isfinite(u.float()).all() for u in g1)
             bad |= not ok
             row = {"case": name, "shape": [b, s, nh, hp, ds, q],
-                   "dtype": dtype, "rel_err": rels, "twice_bitwise": same,
+                   "dtype": dtype,
+                   "variant": getattr(plan, "variant", "general"),
+                   "groups": getattr(plan, "groups", 1), "rel_err": rels,
+                   "twice_bitwise": same,
                    "ok": ok, "ms": time_ms(call, torch, args.iters),
                    "split": kernel_split(call, torch)}
             out["cases"].append(row)
             print(json.dumps(row), flush=True)
             del g1, g2, gp, scr
             torch.cuda.empty_cache()
-    print(json.dumps({k: v for k, v in out.items() if k != "cases"}))
     return 1 if bad else 0
 
 
