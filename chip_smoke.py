@@ -10,8 +10,10 @@ It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
 PyTorch version on the card, and drives the port's main paths: training the
 dense transformer (stablelm-1.6b at full width and depth through
 `launch.train.train`, every layer's attention on K3 and its hand-written
-backward) and mamba2-130m (full width and depth, B=8 S=4096, every scan
-on K4 and its hand-written backward), the fused
+backward), mamba2-130m (full width and depth, B=8 S=4096, every scan
+on K4 and its hand-written backward) and zamba2-1.2b (full width and depth,
+B=1 S=4096: every layer's scan on K4, the shared attention block at each of
+its 6 sites on K3, each with its backward), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -22,11 +24,13 @@ distributed adaptive campaign, a chaos policy, 1 / 2 / 4 workers), ResNet-50
 inference through
 `build_model(get_config("resnet50")).init(...)`, dense-transformer serving
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
-qwen3-14b, and mamba2-130m serving (chunked prefill on the SSD scan kernel,
-recurrent greedy decode), each through `build_model(get_config(...))`,
+qwen3-14b, mamba2-130m serving (chunked prefill on the SSD scan kernel,
+recurrent greedy decode) and zamba2-1.2b serving (the same, with the shared
+attention block on K3 at every site and a KV cache for each), each through
+`build_model(get_config(...))`,
 and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m,
 and the workload census (`launch.lowering` / `launch.dryrun`: every ported
-cell traced on the meta device, four steps traced on the card and held
+cell traced on the meta device, five steps traced on the card and held
 equal to their meta census, the census fed to `Campaign.from_artifacts`,
 `dataset.build_dataset`, the predictors and `offload.sweep_bandwidth`).
 Every phase prints one JSON object on a line of its own; any failed phase
@@ -38,8 +42,9 @@ Lines, in order:
   {"phase": "build", ...}            seconds nvcc took, ptxas register report
   {"phase": "flash_attention", ...}  K3 vs plain: test, ragged, model
                                      shapes, other scales; plans
-  {"phase": "ssd_scan", ...}         K4 vs plain: test, shared_cb and
-                                     mamba2 shapes, views; plans, cum
+  {"phase": "ssd_scan", ...}         K4 vs plain: test, shared_cb,
+                                     mamba2 and zamba2 shapes, views;
+                                     plans, cum
   {"phase": "training", ...}         (a) stablelm-1.6b bf16 B=1 S=4096, 4
                                      steps: ms / step, tokens/s, device ms
                                      by kind, idle, peak memory, K3
@@ -50,7 +55,12 @@ Lines, in order:
                                      steps: the same readings, K4 and K4
                                      backward launches; (f) mamba2 float32
                                      depth 2 card vs CPU; (g) mamba2 resume
-                                     == fresh; (h) K4 backward vs plain
+                                     == fresh; (h) K4 backward vs plain;
+                                     (i) zamba2-1.2b bf16 B=1 S=4096, 4
+                                     steps: the same readings, K3, K4 and
+                                     their backwards' launches; (j) zamba2
+                                     float32 depth 7 card vs CPU; (k)
+                                     zamba2 depth 7 resume == fresh
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -80,14 +90,18 @@ Lines, in order:
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
   {"phase": "transformer", ...}      prefill + decode: stablelm, qwen3 (L=4)
   {"phase": "mamba2", ...}           prefill + decode: mamba2-130m, f32 (L=4)
+  {"phase": "zamba2", ...}           prefill + decode: zamba2-1.2b (B=1
+                                     S=4096; B=8 S=1024 + 16 steps), f32
+                                     (L=7) also vs the CPU; K3 / K4
+                                     launches, vs plain, ms, idle, memory
   {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
                                      slots, 8 requests), mamba2-130m; engine
                                      == a direct decode loop
-  {"phase": "census", ...}           meta census of every ported cell; the
-                                     card census of stablelm prefill, mamba2
-                                     prefill (B=1 S=4096) and a stablelm and
-                                     a mamba2 train step == their meta
-                                     census, K3 /
+  {"phase": "census", ...}           meta census of every ported cell (20);
+                                     the card census of stablelm, mamba2
+                                     and zamba2 prefill (B=1 S=4096) and a
+                                     stablelm and a mamba2 train step ==
+                                     their meta census, K3 /
                                      K4 launches == entries; the census
                                      campaign (fused == exact), dataset and
                                      k-fold; offload sweep card == CPU
@@ -150,6 +164,7 @@ from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import mamba as tm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.models import zamba as tz  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
 from repro_torch.select import FrontierIndex, SelectionEngine  # noqa: E402
@@ -2936,11 +2951,16 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def grown_cache(model, cache, extra: int):
     """The prefill's cache copied into one with room for ``extra`` more
-    positions (the reference's prefill cache is exactly prompt-long)."""
-    b, s = cache["layers"]["k"].shape[1:3]
+    positions (the reference's prefill cache is exactly prompt-long): the
+    transformer's ``layers`` k / v, or zamba2's ``attn`` k / v at each site
+    and its ``ssm`` conv tails and states."""
+    key = "attn" if "attn" in cache else "layers"
+    b, s = cache[key]["k"].shape[1:3]
     big = model.init_cache(int(b), int(s) + extra)
     for kv in ("k", "v"):
-        big["layers"][kv][:, :, :s] = cache["layers"][kv]
+        big[key][kv][:, :, :s] = cache[key][kv]
+    for part, t in cache.get("ssm", {}).items():
+        big["ssm"][part].copy_(t)
     big["len"] = cache["len"]
     return big
 
@@ -3152,26 +3172,30 @@ def phase_transformer(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def flash_rows(rows, lm, training) -> list:
+def flash_rows(rows, lm, training, zb) -> list:
     """K3's rows: times at the stablelm B=1 S=4096 shape alone, every other
     model shape beside it, and K3 and SDPA inside the prefills.  Launches:
-    the prefill path's (``transformer``) and the training path's (the
-    forward that also writes the log-sum-exp: (a) in bf16, (b) in
-    float32), each counted from zero around its own run."""
+    the prefill paths' (``transformer``, ``zamba2``: a site a prefill) and
+    the training paths' (the forward that also writes the log-sum-exp: (a)
+    and zamba2's (i) in bf16, (b) and (j) in float32), each counted from
+    zero around its own run."""
     out = []
-    train_path = {torch.bfloat16: "a_full", torch.float32: "b_card_vs_cpu"}
+    train_path = {torch.bfloat16: ("a_full", "i_zamba2_full"),
+                  torch.float32: ("b_card_vs_cpu", "j_zamba2_card_vs_cpu")}
     for dtype in FLASH_DTYPES:
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == FLASH_HEADLINE)
         name = K3_MAIN[dtype]
         runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
-        trained = training[train_path[dtype]]["launches"][name]
+        by_path = {"prefill": lm["launches"][name],
+                   "zamba2_prefill": zb["launches"].get(name, 0)}
+        by_path.update({f"training_{path}": training[path]["launches"]
+                        .get(name, 0) for path in train_path[dtype]})
         out.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES["flash_attention"],
-            "launches": lm["launches"][name] + trained,
-            "launches_by_path": {"prefill": lm["launches"][name],
-                                 "training": trained},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
                                if d == dtype
                                and r["plan"]["variant"] == name),
@@ -3204,7 +3228,8 @@ SSD_TOL = 1e-5
 # (case, b, S, nh, hp, ds, chunk): tests/test_kernels.py's three cases
 # (b = 2), two small shapes of the shared_cb variant (ds 64, Q 128; its
 # largest state and smallest chunk, ds 256, Q 64), then mamba2-130m's
-# heads at its two prefill shapes
+# heads at its two prefill shapes and zamba2-1.2b's (64 heads, ds 64) at
+# B=1 S=4096
 SSD_CASES = (
     ("test_kernels", 2, 128, 2, 16, 16, 32),
     ("test_kernels", 2, 256, 3, 16, 32, 64),
@@ -3213,12 +3238,15 @@ SSD_CASES = (
     ("shared_cb_edge", 2, 256, 2, 64, 256, 64),
     ("mamba2_b1_s4096", 1, 4096, 24, 64, 128, 256),
     ("mamba2_b8_s1024", 8, 1024, 24, 64, 128, 256),
+    ("zamba2_b1_s4096", 1, 4096, 64, 64, 64, 256),
 )
 SSD_HEADLINE = "mamba2_b1_s4096"
 SSD_SYMBOL = "ssd_"       # every K4 __global__ function's name starts so
 # the variant each case must plan, by the case name's start
 SSD_VARIANT = {"test_kernels": k4.GENERAL, "shared_cb": k4.SHARED_CB,
-               "mamba2": k4.SHARED_CB}
+               "mamba2": k4.SHARED_CB, "zamba2": k4.SHARED_CB}
+# the cases timed by kernel with the profiler: the model shapes
+SSD_MODEL_CASES = ("mamba2", "zamba2")
 # the shared_cb variant's kernels: ptxas must report no spills for them
 SSD_TILE_KERNELS = ("ssd_cb_bf16_kernel", "ssd_cb_f32_kernel",
                     "ssd_state_tile_kernel", "ssd_output_tile_kernel")
@@ -3357,7 +3385,7 @@ def ssd_case(gen, device, case, dtype) -> list:
                 "tpu_kernel_operations": bd["tpu_kernel_operations"],
                 "library_ms": None, "device_ms": None, "kernel_split": None,
                 "grid": grid})
-            if name.startswith("mamba2"):
+            if name.startswith(SSD_MODEL_CASES):
                 br = device_breakdown(lambda: k4.ssd_scan(
                     x, dt, A, Bm, Cm, chunk=q, out_dtype=out), SSD_SYMBOL,
                     reps=5)
@@ -3407,8 +3435,9 @@ def ssd_view_case(gen, device) -> dict:
 def phase_ssd_scan(device, seed: int) -> dict:
     """K4 against ssd_scan_plain on the card, bf16 and float32 inputs: the
     test_kernels.py cases (b = 2, the general variant), a small shared_cb
-    shape and mamba2-130m's prefill shapes (nh 24, hp 64, ds 128, Q 256 at
-    B=1 S=4096 and B=8 S=1024, shared_cb), each timed beside the plain
+    shape, mamba2-130m's prefill shapes (nh 24, hp 64, ds 128, Q 256 at
+    B=1 S=4096 and B=8 S=1024, shared_cb) and zamba2-1.2b's (nh 64, hp 64,
+    ds 64, Q 256 at B=1 S=4096, shared_cb), each timed beside the plain
     version and the bound; strided and misaligned views.  Returns the
     float32-output rows keyed by (dtype, case)."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -3670,13 +3699,248 @@ def phase_mamba2(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def ssd_rows(rows, mb, training) -> list:
+# --- zamba2 serving: K4 at every layer, K3 at every site, recurrent decode ------
+
+# (run, depth or None for the full depth, dtype, B, S, decode steps): the
+# float32 run cut to 7 layers -- one site of the shared block and a 1-layer
+# tail -- and also held against the CPU
+ZAMBA_RUNS = (
+    ("a_zamba2_b1_s4096", None, torch.bfloat16, 1, 4096, 0),
+    ("b_zamba2_b8_s1024", None, torch.bfloat16, 8, 1024, 16),
+    ("c_zamba2_f32_l7_b2_s1024", 7, torch.float32, 2, 1024, 0),
+)
+ZAMBA_CPU_RUN = "c_zamba2_f32_l7_b2_s1024"
+
+
+def zamba_models(device, seed: int) -> dict:
+    """One zamba2-1.2b per (depth, dtype) of ``ZAMBA_RUNS``, at full width,
+    weights drawn on the card from a CUDA generator seeded with ``seed``."""
+    models = {}
+    for _, depth, dtype, _, _, _ in ZAMBA_RUNS:
+        if (depth, dtype) not in models:
+            cfg = dataclasses.replace(get_config("zamba2_1_2b"),
+                                      dtype=str(dtype).split(".")[-1])
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, num_layers=depth)
+            models[(depth, dtype)] = build_model(cfg).init(
+                torch.Generator(device=device).manual_seed(seed),
+                device=device)
+    return models
+
+
+def zamba_cache_errs(cache, want, prefix: str = "cache") -> dict:
+    """rel_err of every cache leaf (conv, state, k, v) against ``want``'s,
+    on ``want``'s device."""
+    return {f"{prefix}_{part}_{key}_rel_err": rel_err(
+        cache[part][key].to(want[part][key].device), want[part][key])
+        for part, keys in (("ssm", ("conv", "state")), ("attn", ("k", "v")))
+        for key in keys}
+
+
+def kernel_counts() -> dict:
+    """K3's and K4's launch counts, one dict."""
+    return {**k3.launch_counts(), **k4.launch_counts()}
+
+
+def phase_zamba2(device, seed: int) -> dict:
+    """The main path: zamba2-1.2b serving.  Counts are zeroed just before
+    the three runs' prefills and decode steps and read just after: K3 once
+    a site and K4 once a layer per prefill, neither in decode.  Then each
+    prefill is held against the same prefill with K3 and K4 swapped for
+    their plain versions (logits, top-1, every cache leaf), the first
+    decode step after each, the float32 run also against the CPU, and each
+    run is timed and profiled."""
+    models = zamba_models(device, seed)
+    prompts, outs, per_prefill, decode_launches = {}, {}, [], {}
+    for run, depth, dtype, b, s, _ in ZAMBA_RUNS:
+        prompts[run] = lm_prompts(models[(depth, dtype)], b, s, seed, device)
+    torch.cuda.synchronize()
+
+    k3.reset_launch_counts()
+    k4.reset_launch_counts()
+    for run, depth, dtype, b, s, steps in ZAMBA_RUNS:
+        model = models[(depth, dtype)]
+        before = kernel_counts()
+        logits, cache = model.prefill(prompts[run])
+        after = kernel_counts()
+        per_prefill.append({
+            "k3": sum(after[k] - before[k] for k in k3.LAUNCHES),
+            "k4": sum(after[k] - before[k] for k in k4.LAUNCHES)})
+        first, gen = None, None
+        if steps:
+            before = sum(kernel_counts().values())
+            first, gen = greedy_decode(model, logits, cache, steps)
+            decode_launches[run] = sum(kernel_counts().values()) - before
+        outs[run] = (logits, cache, first, gen)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernel_counts().items() if v}
+
+    want_launches = [{"k3": tz.n_sites(models[(d, t)].cfg),
+                      "k4": models[(d, t)].cfg.num_layers}
+                     for _, d, t, _, _, _ in ZAMBA_RUNS]
+    if per_prefill != want_launches or any(decode_launches.values()):
+        raise AssertionError(f"K3 / K4 launches per prefill {per_prefill} "
+                             f"(expected {want_launches}), in decode "
+                             f"{decode_launches} (expected 0)")
+    checks = []
+    for run, depth, dtype, b, s, steps in ZAMBA_RUNS:
+        model = models[(depth, dtype)]
+        logits, cache, first, gen = outs.pop(run)
+        if (tuple(logits.shape) != (b, s, model.cfg.vocab_size)
+                or logits.dtype != torch.float32):
+            raise AssertionError(f"{run}: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{run}: non-finite logits")
+        with mock.patch.object(k4, "ssd_scan", k4.ssd_scan_plain), \
+                mock.patch.object(k3, "flash_attention",
+                                  k3.flash_attention_plain):
+            want, want_cache = model.prefill(prompts[run])
+            # the first step from the plain cache, on the kernel path's token
+            want_first = (greedy_decode(model, logits, want_cache, 1)[0]
+                          if steps else None)
+        torch.cuda.synchronize()
+        tol = LM_LOGIT_TOL[dtype]
+        row = {"run": run, "dtype": SUFFIX[dtype], "batch": b, "seq": s,
+               "layers": model.cfg.num_layers,
+               "logits_rel_err": rel_err(logits, want),
+               "top1_agreement_last": float(
+                   (logits[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                   .float().mean()),
+               **zamba_cache_errs(cache, want_cache)}
+        if steps:
+            row["first_decode_logits_rel_err"] = rel_err(first, want_first)
+            row["generated_tokens"] = [int(t) for t in gen[0]]
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{run}: non-finite decode logits")
+        if run == ZAMBA_CPU_RUN:
+            # the port's CPU path, which the tests hold to the reference
+            cpu = build_model(model.cfg).init(
+                torch.Generator().manual_seed(seed), device="cpu")
+            cpu.load_state_dict(model.state_dict())
+            t0 = time.perf_counter()
+            cpu_logits, cpu_cache = cpu.prefill(prompts[run].cpu())
+            row["cpu_seconds"] = time.perf_counter() - t0
+            row["cpu_logits_rel_err"] = rel_err(logits.cpu(), cpu_logits)
+            row.update(zamba_cache_errs(cache, cpu_cache, "cpu_cache"))
+            del cpu, cpu_cache, cpu_logits
+        bad = {k: v for k, v in row.items() if k.endswith("rel_err")
+               and v > tol}
+        if bad or row["top1_agreement_last"] != 1.0:
+            raise AssertionError(f"{run}: kernel path off the plain path "
+                                 f"or the CPU beyond {tol}, or top-1 split: "
+                                 f"{bad}, {row['top1_agreement_last']}")
+        checks.append(row)
+        del logits, cache, want, want_cache
+    if {k: v for k, v in kernel_counts().items() if v} != launches:
+        raise AssertionError("the plain-path prefills launched K3 or K4")
+
+    perf = {}
+    for run, depth, dtype, b, s, steps in ZAMBA_RUNS:
+        model, x = models[(depth, dtype)], prompts[run]
+        cfg = model.cfg
+        sites = tz.n_sites(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        host = host_ms(lambda: model.prefill(x), warmup=2)
+        peak = torch.cuda.max_memory_allocated(device)
+        ms = host["median"]
+        br = device_breakdown(lambda: model.prefill(x), SSD_SYMBOL)
+        k3_ms = (None if br["device_ms"] is None else
+                 sum(v for k, v in br["by_name"].items()
+                     if K3_SYMBOL[dtype] in k))
+        s_bd = ssd_bound(b, s, cfg.ssm_nheads, cfg.ssm_headdim,
+                         cfg.ssm_state, min(cfg.ssm_chunk, s), dtype,
+                         torch.float32)
+        f_bd = flash_bound(b, s, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim, cfg.head_dim, True, dtype)
+        row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+               "prompt_tokens_per_s": b * s / ms * 1e3,
+               "peak_memory_bytes": peak,
+               "device_ms": br["device_ms"], "idle_share": None,
+               "k4_device_ms": br["kernel_device_ms"], "k3_device_ms": k3_ms,
+               "top": br["top"],
+               "k4_calls_bound_ms": cfg.num_layers * s_bd["bound_ms"],
+               "k4_calls_units_bound_ms":
+                   cfg.num_layers * s_bd["units_bound_ms"],
+               "k3_calls_bound_ms": sites * f_bd["bound_ms"]}
+        if br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+        if steps:
+            logits, cache = model.prefill(x)
+            st = {}
+
+            def start():
+                st["tok"] = logits[:, -1:].argmax(-1)
+                st["cache"] = grown_cache(model, cache, steps)
+
+            def one_step():
+                out, st["cache"] = model.decode_step(st["tok"], st["cache"])
+                st["tok"] = out[:, -1:].argmax(-1)
+
+            window = decode_window_ms(start, one_step, steps)
+            latency = decode_latency_ms(start, one_step, steps)
+            tok = st["tok"]
+            row["ms_per_decode_step"] = window["median"]
+            row["ms_per_decode_step_spread"] = window
+            row["generated_tokens_per_s"] = b / window["median"] * 1e3
+            row["decode_step_latency_ms"] = latency["median"]
+            row["decode_step_latency_spread"] = latency
+            # one step profiled (and one before it), into a fresh copy
+            big = grown_cache(model, cache, 2)
+            dec = device_breakdown(lambda: model.decode_step(tok, big),
+                                   SSD_SYMBOL)
+            row["decode_device_ms"] = dec["device_ms"]
+            row["decode_idle_share"] = (
+                None if dec["device_ms"] is None
+                else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
+            row["decode_top"] = dec["top"]
+            del logits, cache, big, st
+        perf[run] = row
+    del models
+    torch.cuda.empty_cache()
+    emit({"phase": "zamba2",
+          "config": "zamba2-1.2b (38 Mamba2 layers, d 2048, d_inner 4096, "
+                    "64 SSM heads of 64, ds 64, chunk 256, conv 4; one "
+                    "shared attention + MLP block after every 6 layers -- 6 "
+                    "sites, 32 heads of 64, d_ff 8192; vocab 32,000, tied) "
+                    "full width and depth in bf16; float32 depth 38 -> 7 "
+                    "(one site, a 1-layer tail); weights from a CUDA "
+                    f"generator seed {seed}, prompts synth_batch(seed={seed})",
+          "launches_per_prefill": per_prefill,
+          "launches_in_decode": decode_launches, "launches": launches,
+          "vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                           for d in LM_LOGIT_TOL},
+          "serving": perf,
+          "timing_note": "ms_per_prefill: median host clock around "
+                         "prefill + synchronize over 5 (spread: min, max), "
+                         "prompts on the card; peak_memory_bytes: "
+                         "max_memory_allocated over those prefills; "
+                         "device_ms / k4_device_ms / k3_device_ms / top: "
+                         "torch.profiler kernel time of one prefill; "
+                         "idle_share = 1 - device_ms / ms_per_prefill; "
+                         "k4_calls_bound_ms / k3_calls_bound_ms: the bounds "
+                         "summed over the prefill's calls; "
+                         "ms_per_decode_step / generated_tokens_per_s: host "
+                         "clock of a window of 16 greedy steps issued back "
+                         "to back, one synchronize at its end, per step, "
+                         "median over 5 windows; decode_step_latency_ms: "
+                         "median host clock of each of 16 steps, each ending "
+                         "in a synchronize; decode_device_ms / decode_top: "
+                         "one step profiled"})
+    return {"launches": launches, "perf": perf}
+
+
+def ssd_rows(rows, mb, training, zb) -> list:
     """K4's rows: times at the mamba2 B=1 S=4096 shape alone (float32
-    output, the model's path), the other model shape beside it, and K4
-    inside the prefills; launches from the serving path, and beside them
-    those of the training path ((e) bf16, (f) float32)."""
-    trained = {torch.bfloat16: training["e_mamba2_full"]["launches"],
-               torch.float32: training["f_mamba2_card_vs_cpu"]["launches"]}
+    output, the model's path), the other model shapes (zamba2's included)
+    beside it, and K4 inside the prefills; launches from the serving paths
+    (``mamba2``, ``zamba2``), and beside them those of the training paths
+    ((e), (i) bf16, (f), (j) float32)."""
+    trained = {torch.bfloat16: ("e_mamba2_full", "i_zamba2_full"),
+               torch.float32: ("f_mamba2_card_vs_cpu",
+                               "j_zamba2_card_vs_cpu")}
     out = []
     for dtype in SSD_DTYPES:
         sfx = SUFFIX[dtype]
@@ -3684,11 +3948,17 @@ def ssd_rows(rows, mb, training) -> list:
                     if d == dtype and c[0] == SSD_HEADLINE)
         name = f"ssd_scan_{sfx}"
         runs = [r for r, _, dt, _, _, _ in MAMBA_RUNS if dt == dtype]
+        zruns = [r for r, _, dt, _, _, _ in ZAMBA_RUNS if dt == dtype]
         out.append({
             "name": name, "route": "cuda", "source": SSD_SOURCE,
             "replaces": REPLACES["ssd_scan"],
-            "launches": mb["launches"][name],
-            "launches_in_training": trained[dtype][name],
+            "launches": mb["launches"][name] + zb["launches"].get(name, 0),
+            "launches_by_path": {"mamba2_prefill": mb["launches"][name],
+                                 "zamba2_prefill": zb["launches"].get(name,
+                                                                      0)},
+            "launches_in_training": {
+                path: training[path]["launches"].get(name, 0)
+                for path in trained[dtype]},
             "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
                                if d == dtype),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3702,12 +3972,13 @@ def ssd_rows(rows, mb, training) -> list:
                 "case", "b", "S", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "units_bound_ms", "max_abs_err", "kernel_split")}
                 for (d, c), r in rows.items()
-                if d == dtype and c[0].startswith("mamba2")],
+                if d == dtype and c[0].startswith(SSD_MODEL_CASES)],
             "in_prefill": {run: {
-                "k4_device_ms": mb["perf"][run]["k4_device_ms"],
-                "bound_ms": mb["perf"][run]["k4_calls_bound_ms"],
-                "units_bound_ms": mb["perf"][run]["k4_calls_units_bound_ms"]}
-                for run in runs}})
+                "k4_device_ms": perf[run]["k4_device_ms"],
+                "bound_ms": perf[run]["k4_calls_bound_ms"],
+                "units_bound_ms": perf[run]["k4_calls_units_bound_ms"]}
+                for perf, rs in ((mb["perf"], runs), (zb["perf"], zruns))
+                for run in rs}})
     return out
 
 
@@ -4004,16 +4275,17 @@ class TimedSave:
 
 
 def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
-                 batch: int = 1) -> dict:
-    """(c) stablelm, (g) mamba2: bf16 at depth 2 and full width, S=4096, B
-    ``batch``: 4 steps with a checkpoint every 2; the step-4 checkpoint
-    removed (a crash after step 2's); restored and run to 4.  The 2 losses
-    and the final parameters must be bitwise the uninterrupted run's."""
+                 batch: int = 1, depth: int = RESUME_DEPTH) -> dict:
+    """(c) stablelm, (g) mamba2, (k) zamba2: bf16 at depth ``depth`` (2;
+    zamba2 7) and full width, S=4096, B ``batch``: 4 steps with a
+    checkpoint every 2; the step-4 checkpoint removed (a crash after step
+    2's); restored and run to 4.  The 2 losses and the final parameters
+    must be bitwise the uninterrupted run's."""
     ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
 
     def cut(name):
-        return dataclasses.replace(get_config(name), num_layers=RESUME_DEPTH)
+        return dataclasses.replace(get_config(name), num_layers=depth)
 
     kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=TRAIN_SEQ,
               batch=batch, ckpt_dir=ckdir, ckpt_every=RESUME_EVERY,
@@ -4041,7 +4313,7 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
                              f"{resumed}, parameters bitwise {same}")
     del state, final
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": RESUME_DEPTH, "dtype": "bfloat16",
+    return {"arch": arch, "layers": depth, "dtype": "bfloat16",
             "B": batch, "S": TRAIN_SEQ, "losses_fresh": full, "losses_resumed": resumed,
             "bitwise_losses_and_parameters": True,
             "checkpoints_written": written, "writes": saves.writes,
@@ -4406,12 +4678,163 @@ def train_mamba_card_vs_cpu(device, seed: int) -> dict:
                           "grad_of_scale": CARD_CPU_GRAD_TOL}}
 
 
+ZAMBA_TRAIN_ARCH = "zamba2_1_2b"
+# (j), (k): zamba2 at depth 7 -- one site of the shared block and a 1-layer
+# tail -- and full width; (j) float32 card against the CPU with (b)'s gates
+ZAMBA_DEPTH = 7
+ZAMBA_CARD_CPU_SEQ = 512
+# the profiled step's kinds of hand-written kernel: K4's backward before its
+# forward (``ssd_bwd_`` holds ``ssd_``), then K3's forward and backward
+ZAMBA_KINDS = K4_KINDS + K3_KINDS
+
+
+def zamba_train_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N T for the parameters (the shared block's once a site; the tied
+    embedding counts as the head) plus the scan (``mamba_train_flops``'s
+    count) and causal attention at every site (``train_model_flops``'s)."""
+    sites = tz.n_sites(cfg)
+    shared = sum(p.numel() for name, p in module.named_parameters()
+                 if name.startswith("shared_attn."))
+    n = sum(p.numel() for name, p in module.named_parameters()
+            if name != "embed.embed_w" or module.head is None)
+    n += (sites - 1) * shared
+    scan = 3 * cfg.num_layers * ssd_bound(
+        b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk,
+        torch.bfloat16, torch.float32)["operations"]
+    pairs = s * (s + 1) // 2
+    attn = 3 * 2 * b * cfg.num_heads * pairs * 2 * cfg.head_dim * sites
+    return {"matmul_params": n, "flops": 6 * n * b * s + scan + attn,
+            "scan_flops": scan, "attention_flops": attn}
+
+
+def train_zamba_full(device, seed: int) -> dict:
+    """(i) zamba2-1.2b at full width and depth, bf16, B=1, S=4096 (train_4k
+    cut to one card), 4 AdamW steps through ``launch.train.train``; the
+    counts are zeroed just before and read just after."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k3.reset_launch_counts()
+    k4.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            ZAMBA_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            seq_len=TRAIN_SEQ, batch=1, seed=seed, install_signals=False,
+            log_every=1, device=device)
+    launches = {k: v for k, v in kernel_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    sites = tz.n_sites(cfg)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"zamba2 training losses {losses}")
+    # "dots" recomputes every scan; the shared block runs outside remat
+    want = {k3.TC: sites * TRAIN_STEPS, k3.BWD_BF16: sites * TRAIN_STEPS,
+            "ssd_scan_bf16": 2 * cfg.num_layers * TRAIN_STEPS,
+            "ssd_scan_bwd_bf16": cfg.num_layers * TRAIN_STEPS}
+    if cfg.remat != "dots" or launches != want:
+        raise AssertionError(f"K3 / K4 launches in zamba2 training "
+                             f"{launches}, expected {want} (remat "
+                             f"{cfg.remat})")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof, kinds=ZAMBA_KINDS)
+    device_ms = sum(split.values())
+    tokens = TRAIN_SEQ
+    flops = zamba_train_flops(state.params, cfg, 1, TRAIN_SEQ)
+    out = {"arch": ZAMBA_TRAIN_ARCH, "layers": cfg.num_layers,
+           "sites": sites, "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat, "B": 1,
+           "S": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "tokens_per_s": tokens / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak, "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "note": "as a_full: ms_per_step the host clock around a step "
+                   "ending in a synchronize, median of steps 1-2; "
+                   "device_ms_by_kind from step 3 under the profiler (K4 "
+                   "forward / backward, K3 forward / backward, cuBLAS, "
+                   "other); idle_share = 1 - device_ms / ms_per_step; "
+                   "utilization = model flops (6 N T with the shared block "
+                   "counted once a site, + 3 x the scan's forward "
+                   "operations + 3 x the attention's) / step time / 989 "
+                   "TFLOP/s"}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tz.loss_fn(module, batch["tokens"], batch["labels"])
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+def train_zamba_card_vs_cpu(device, seed: int) -> dict:
+    """(j) zamba2 float32 at depth 7 (one site, a 1-layer tail) and full
+    width, B=1, S=512: the loss and every parameter gradient -- the shared
+    block's, the sum over its site, included -- on the card (K3's and K4's
+    float32 forward and backward kernels, cuBLAS in full float32) against
+    the port's CPU path from the same weights and tokens; (b)'s gates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ZAMBA_TRAIN_ARCH),
+                              num_layers=ZAMBA_DEPTH, dtype="float32")
+    cpu = tz.Zamba(cfg, generator=torch.Generator().manual_seed(seed),
+                   device="cpu")
+    card = tz.Zamba(cfg, generator=torch.Generator(device=device)
+                    .manual_seed(seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", ZAMBA_CARD_CPU_SEQ, 1, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k3.reset_launch_counts()
+    k4.reset_launch_counts()
+    loss_g, grads_g = _hybrid_grads(card, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernel_counts().items() if v}
+    t0 = time.perf_counter()
+    loss_c, grads_c = _hybrid_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"zamba2 card vs CPU training: loss rel "
+                             f"{rel_loss}, worst gradient {worst} ({errs})")
+    sites = tz.n_sites(cfg)
+    want = {k3.F32: sites, k3.BWD_F32: sites,
+            "ssd_scan_f32": 2 * cfg.num_layers,      # "dots" recomputes it
+            "ssd_scan_bwd_f32": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"K3 / K4 launches on the card {launches}, "
+                             f"expected {want}")
+    return {"arch": ZAMBA_TRAIN_ARCH, "layers": ZAMBA_DEPTH, "sites": sites,
+            "dtype": "float32", "B": 1, "S": ZAMBA_CARD_CPU_SEQ,
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel_loss, "worst_grad_rel_diff": worst,
+            "shared_block_worst_grad_rel_diff": max(
+                v for k, v in errs.items() if k.startswith("shared_attn.")),
+            "grad_rel_diff": errs, "launches": launches,
+            "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL}}
+
+
 def phase_training(device, seed: int) -> dict:
     """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
     CPU in float32, (c) resume == fresh bitwise, (d) K3's backward alone
     against its plain version at the model shapes; (e) - (h) the same for
-    mamba2-130m and K4's backward ((e) the full run, B=8)."""
+    mamba2-130m and K4's backward ((e) the full run, B=8); (i) - (k) for
+    zamba2-1.2b, K3 and K4 and their backwards on one path ((i) the full
+    run, B=1)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -4432,6 +4855,13 @@ def phase_training(device, seed: int) -> dict:
                             for case in SSD_BWD_CASES]
     torch.cuda.empty_cache()
     seconds["e_to_h"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    out["i_zamba2_full"] = train_zamba_full(device, seed)
+    out["j_zamba2_card_vs_cpu"] = train_zamba_card_vs_cpu(device, seed)
+    out["k_zamba2_resume"] = train_resume(device, seed, ZAMBA_TRAIN_ARCH,
+                                          depth=ZAMBA_DEPTH)
+    torch.cuda.empty_cache()
+    seconds["i_to_k"] = time.perf_counter() - t2
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
     emit({"phase": "training", **out,
@@ -4440,7 +4870,10 @@ def phase_training(device, seed: int) -> dict:
                         "d_f32": "<= 1e-4 max |plain| per gradient",
                         "h_bf16": "max |K4 backward - plain| <= 2e-2 max "
                                   "|plain| per gradient",
-                        "h_f32": "<= 1e-4 max |plain| per gradient"},
+                        "h_f32": "<= 1e-4 max |plain| per gradient",
+                        "j": "zamba2 float32 depth 7 card vs CPU: loss "
+                             "1e-5 relative, every gradient (the shared "
+                             "block's included) 1e-4 of its scale"},
           "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
                            "after 2 warm-ups; device_ms the backward's "
                            "kernels (torch.profiler, 3 calls), "
@@ -4475,12 +4908,16 @@ def phase_training(device, seed: int) -> dict:
 
 def bwd_rows(training, ptxas) -> list:
     """K3 backward's rows: the stablelm B=1 S=4096 shape, the qwen3 shape
-    beside it; launches from the training path ((a) bf16, (b) float32)."""
+    beside it; launches from the training paths ((a) and zamba2's (i) bf16,
+    (b) and (j) float32)."""
     rows = []
-    paths = {torch.bfloat16: ("a_full", "training (a): stablelm-1.6b, 4 "
-                              "steps"),
-             torch.float32: ("b_card_vs_cpu", "training (b): stablelm "
-                             "float32 depth 2, one step on the card")}
+    paths = {torch.bfloat16: (("a_full", "i_zamba2_full"), "training (a): "
+                              "stablelm-1.6b, 4 steps; (i): zamba2-1.2b, "
+                              "4 steps, 6 sites"),
+             torch.float32: (("b_card_vs_cpu", "j_zamba2_card_vs_cpu"),
+                             "training (b): stablelm float32 depth 2, one "
+                             "step on the card; (j): zamba2 float32 depth "
+                             "7, one site, one step")}
     for dtype in (torch.bfloat16, torch.float32):
         name = BWD_MAIN[dtype]
         cases = [r for r in training["d_k3_backward"]
@@ -4492,7 +4929,10 @@ def bwd_rows(training, ptxas) -> list:
             "replaces": REPLACES["flash_attention"],
             "also_replaces": "src/repro/models/layers.py:96 (jax.vjp of the "
                              "XLA attention the reference trains through)",
-            "launches": training[path]["launches"][name],
+            "launches": sum(training[p]["launches"].get(name, 0)
+                            for p in path),
+            "launches_by_path": {p: training[p]["launches"].get(name, 0)
+                                 for p in path},
             "launches_from": what,
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "plan": head["plan"], "ms": head["ms"],
@@ -4515,13 +4955,17 @@ def bwd_rows(training, ptxas) -> list:
 
 def ssd_bwd_rows(training, ptxas) -> list:
     """K4 backward's rows: the mamba2 B=8 S=4096 call with no final-state
-    cotangent (the training run's), the other shapes beside it; launches from the training path ((e)
-    bf16, (f) float32)."""
+    cotangent (the training run's), the other shapes beside it; launches
+    from the training paths ((e), (i) bf16, (f), (j) float32)."""
     rows = []
-    paths = {torch.bfloat16: ("e_mamba2_full", "training (e): mamba2-130m, "
-                              "B=8, S=4096, 4 steps"),
-             torch.float32: ("f_mamba2_card_vs_cpu", "training (f): mamba2 "
-                             "float32 depth 2, one step on the card")}
+    paths = {torch.bfloat16: (("e_mamba2_full", "i_zamba2_full"),
+                              "training (e): mamba2-130m, B=8, S=4096, 4 "
+                              "steps; (i): zamba2-1.2b, B=1, 4 steps"),
+             torch.float32: (("f_mamba2_card_vs_cpu",
+                              "j_zamba2_card_vs_cpu"),
+                             "training (f): mamba2 float32 depth 2, one "
+                             "step on the card; (j): zamba2 float32 depth "
+                             "7, one step")}
     for dtype in (torch.bfloat16, torch.float32):
         name = f"ssd_scan_bwd_{SUFFIX[dtype]}"
         cases = [r for r in training["h_k4_backward"]
@@ -4534,7 +4978,10 @@ def ssd_bwd_rows(training, ptxas) -> list:
             "also_replaces": "src/repro/models/ssd.py:75 (jax.vjp of the "
                              "XLA chunked scan the reference trains "
                              "through; no TPU backward kernel)",
-            "launches": training[path]["launches"][name],
+            "launches": sum(training[p]["launches"].get(name, 0)
+                            for p in path),
+            "launches_by_path": {p: training[p]["launches"].get(name, 0)
+                                 for p in path},
             "launches_from": what,
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4627,14 +5074,17 @@ def kernels_line(numbers, launches, ptxas, select_timing) -> list:
 
 # --- the workload census ----------------------------------------------------------
 
-# the steps traced on the card: the shapes the transformer (a), mamba2 (a)
-# and training (a) runs drive, and a mamba2 train step, at full width and
-# depth
+# the steps traced on the card: the shapes the transformer (a), mamba2 (a),
+# zamba2 (a) and training (a) runs drive, and a mamba2 train step, at full
+# width and depth
 CENSUS_CARD = (
     ("stablelm_1_6b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("mamba2_130m", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
+    ("zamba2_1_2b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
     ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")))
+# the cells the meta census traces: dense x 3 shapes, mamba2 and zamba2 x 4
+CENSUS_META_CELLS = 20
 CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
                "hbm_by_opcode", "kernels")
 # the k-fold models of the census dataset (the forest's k-fold, ~30 s a
@@ -4698,6 +5148,13 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
         # a train step recomputes every scan under remat "dots"
         want = ({"ssd_scan_bf16": 2 * layers, "ssd_scan_bwd_bf16": layers}
                 if shape.kind == "train" else {"ssd_scan_bf16": layers})
+    elif cfg.family == "hybrid":
+        # the scan every layer, the shared block's attention every site
+        sites = tz.n_sites(cfg)
+        want = ({"ssd_scan_bf16": 2 * layers, "ssd_scan_bwd_bf16": layers,
+                 k3.TC: sites, k3.BWD_BF16: sites}
+                if shape.kind == "train"
+                else {"ssd_scan_bf16": layers, k3.TC: sites})
     else:
         want = ({k3.TC: layers, k3.BWD_BF16: layers}
                 if shape.kind == "train" else {k3.TC: layers})
@@ -4837,12 +5294,15 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
 
 def phase_census(device) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device; four steps traced on the card and held equal to the meta
+    device (20); five steps traced on the card and held equal to the meta
     census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         meta_rows = census_meta(tmp)
+        if len(meta_rows) != CENSUS_META_CELLS:
+            raise AssertionError(f"the meta census traced {len(meta_rows)} "
+                                 f"cells, expected {CENSUS_META_CELLS}")
         card_rows = [census_card_case(arch, shape, device)
                      for arch, shape in CENSUS_CARD]
         camp = census_campaign(tmp, device)
@@ -4911,6 +5371,7 @@ def main() -> int:
     del models, images
     lm = phase_transformer(device, args.seed)
     mb = phase_mamba2(device, args.seed)
+    zb = phase_zamba2(device, args.seed)
     phase_token_serving(device, args.seed)
     census = phase_census(device)
     campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
@@ -4918,9 +5379,10 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])
-          + conv_rows(per_dtype, infer) + flash_rows(flash, lm, training)
+          + conv_rows(per_dtype, infer)
+          + flash_rows(flash, lm, training, zb)
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
-          + ssd_rows(ssd, mb, training)
+          + ssd_rows(ssd, mb, training, zb)
           + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

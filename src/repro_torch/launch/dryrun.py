@@ -148,7 +148,8 @@ def _cells() -> Iterator[Tuple[str, str, Optional[str]]]:
 
 def applicable_cells() -> Iterator[Tuple[str, str]]:
     """(arch, shape) of every cell the port traces: the dense models'
-    train / prefill / decode shapes, mamba2's prefill and decode shapes."""
+    train / prefill / decode shapes; mamba2's and zamba2's train, prefill,
+    decode and long_500k shapes (20 cells)."""
     for arch, shape, why in _cells():
         if why is None:
             yield arch, shape

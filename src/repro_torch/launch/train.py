@@ -8,12 +8,13 @@ Wires together, as the reference: config -> model -> optimizer -> data
 iterator -> train step -> asynchronous checkpoints (with the data cursor)
 -> straggler telemetry -> preemption handling -> ``recoverable_step``.  The
 dense family trains (every layer's attention on K3 and its hand-written
-backward), and so does the SSM family (``--arch mamba2_130m``: every
-layer's scan on K4 and its hand-written backward); the command line runs
-on the card, and ``train(..., device="cpu")`` runs the plain versions on
-the host.  A mesh of more than
-one device is not ported (ROADMAP.md Queue 1 item 12e, with
-``models/dist.py`` and ``models/sharding.py``).
+backward), and so do the SSM family (``--arch mamba2_130m``: every layer's
+scan on K4 and its hand-written backward) and the hybrid family (``--arch
+zamba2_1_2b``: every layer's scan on K4, the shared block's attention at
+each site on K3, each with its hand-written backward); the command line
+runs on the card, and ``train(..., device="cpu")`` runs the plain versions
+on the host.  A mesh of more than one device is not ported (ROADMAP.md
+Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).
 """
 
 from __future__ import annotations

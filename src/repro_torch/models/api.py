@@ -3,20 +3,22 @@
 ``build_model(cfg)`` returns a ``Model`` whose ``init`` builds the network
 as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
 family (ResNet-50 inference), the dense transformer family (prefill, KV
-cache, decode, and training) and the SSM family (Mamba2: chunked prefill,
-recurrent decode, and training).  ``prefill(module, batch)``,
-``decode(module, batch, cache)`` and ``init_cache(batch, max_len,
-device=...)`` mirror the reference's serving entries (``None`` for the CNN,
-as there); the other families raise ``NotImplementedError`` naming the
-roadmap item that brings them.  ``loss(module, batch)`` and
-``make_train_step`` train the dense and SSM families; the CNN raises,
-naming the roadmap item that brings its backward kernels.
+cache, decode, and training), the SSM family (Mamba2: chunked prefill,
+recurrent decode, and training) and the hybrid family (Zamba2: the Mamba2
+backbone with one shared attention block; prefill, decode and training).
+``prefill(module, batch)``, ``decode(module, batch, cache)`` and
+``init_cache(batch, max_len, device=...)`` mirror the reference's serving
+entries (``None`` for the CNN, as there); the other families raise
+``NotImplementedError`` naming the roadmap item that brings them.
+``loss(module, batch)`` and ``make_train_step`` train the dense, SSM and
+hybrid families; the CNN raises, naming the roadmap item that brings its
+backward kernels.
 
 A ``TrainState`` is the module and its optimiser state, one optimiser leaf
-for each of the reference's parameter leaves (``leaf_groups``: a
-[L, ...] stack of layers is one leaf); ``state_tree`` /
-``load_state_tree`` turn it into the flat tree ``checkpoint.store`` writes
-and back, and ``restore_train_state`` also reads a checkpoint of the
+for each of the reference's parameter leaves (``leaf_groups``: a [L, ...]
+stack of layers -- ``layers``, or zamba's ``mamba_layers`` -- is one leaf);
+``state_tree`` / ``load_state_tree`` turn it into the flat tree
+``checkpoint.store`` writes and back, and ``restore_train_state`` also reads a checkpoint of the
 reference's ``TrainState`` (``train_state_from_reference``, any trainable
 family).
 """
@@ -34,23 +36,24 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
-from repro_torch.models import mamba, resnet, transformer
+from repro_torch.models import mamba, resnet, transformer, zamba
 from repro_torch.optim.adafactor import AdafactorConfig, FactoredV, factorable
 from repro_torch.optim.adamw import Group, is_moment_leaf
 
 # the serving families: (config check, module class, init_cache)
 _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
                       transformer.init_cache),
-            "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache)}
+            "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache),
+            "hybrid": (zamba.check_hybrid, zamba.Zamba, zamba.init_cache)}
 
 # the trainable families: (loss_fn, params_from_reference)
 _TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
-             "ssm": (mamba.loss_fn, mamba.params_from_reference)}
+             "ssm": (mamba.loss_fn, mamba.params_from_reference),
+             "hybrid": (zamba.loss_fn, zamba.params_from_reference)}
 
 # the roadmap item that ports each family not ported yet
 _NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
                "vlm": "Queue 1 item 12e (the VLM prefix)",
-               "hybrid": "Queue 1 item 12e (zamba)",
                "audio": "Queue 1 item 12e (whisper)"}
 
 # the roadmap item that brings training to each ported family that lacks it
@@ -122,8 +125,10 @@ def leaf_groups(names: Sequence[str]) -> List[Tuple[str, Group]]:
     """The reference's parameter leaves over the port's parameters named
     ``names`` (in ``named_parameters()`` order): ``(leaf name, Group)`` in
     order of first appearance, the leaf name the reference's path joined by
-    dots.  ``layers.<i>.<rest>`` for i = 0 .. L-1 is one stacked group,
-    ``layers.<rest>``; every other parameter a group of its own."""
+    dots.  ``<root>.<i>.<rest>`` for i = 0 .. L-1, ``<root>`` a stacked
+    root (``layers.STACKED_ROOTS``: ``layers``, zamba's ``mamba_layers``),
+    is one stacked group, ``<root>.<rest>``; every other parameter (zamba's
+    ``shared_attn.*`` included) a group of its own."""
     order: List[str] = []
     members: Dict[str, List[Tuple[int, int]]] = {}
     for i, name in enumerate(names):
@@ -186,7 +191,7 @@ def state_tree(state: TrainState) -> Dict[str, Any]:
     """The flat tree ``checkpoint.store.save`` writes: ``params/<name>``
     (``<name>`` a ``named_parameters()`` name), ``opt/step``,
     ``opt/m/<leaf>`` and ``opt/v/<leaf>`` (``<leaf>`` a ``param_groups``
-    leaf name: a stacked group's ``layers.<rest>``; an int8 moment as
+    leaf name: a stacked group's ``<root>.<rest>``; an int8 moment as
     ``.../q`` and ``.../scale``, a factored one as ``.../r`` and
     ``.../c``)."""
     tree: Dict[str, Any] = {f"params/{n}": p.detach()

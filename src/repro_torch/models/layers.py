@@ -85,30 +85,38 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+# the reference's parameter roots that stack one leaf a layer along a leading
+# [L, ...] axis: the dense and SSM models' ``layers``, zamba's
+# ``mamba_layers``; the port spreads each over ``<root>.<i>``
+STACKED_ROOTS = ("layers", "mamba_layers")
+
+
 def copy_reference_params(module: nn.Module, params: Mapping,
                           num_layers: int) -> None:
     """Copies the reference's ``init_params`` pytree ``params`` (nested
     dicts of arrays; any float dtype that numpy can cast to float32, bf16
     included) into ``module``, whose ``state_dict`` keys are the
-    reference's paths joined by dots.  The leading L axis of
-    ``params["layers"]`` is split one layer at a time over ``layers.<i>``;
-    every leaf must match one parameter by path and shape, and is cast to
-    that parameter's dtype."""
+    reference's paths joined by dots.  The leading L axis of each stacked
+    root (``STACKED_ROOTS``: ``params["layers"]``,
+    ``params["mamba_layers"]``) is split one layer at a time over
+    ``<root>.<i>``; every leaf must match one parameter by path and shape,
+    and is cast to that parameter's dtype."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
         for k, v in node.items():
             path = f"{prefix}.{k}" if prefix else str(k)
+            root, _, rest = path.partition(".")
             if isinstance(v, Mapping):
                 walk(v, path)
-            elif path.startswith("layers."):
+            elif root in STACKED_ROOTS and rest:
                 arr = np.asarray(v)
                 if arr.shape[:1] != (num_layers,):
                     raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
                                      f"expected ({num_layers},) layers")
                 for i in range(num_layers):
-                    flat[f"layers.{i}.{path[len('layers.'):]}"] = \
-                        np.array(arr[i], dtype=np.float32)
+                    flat[f"{root}.{i}.{rest}"] = np.array(arr[i],
+                                                          dtype=np.float32)
             else:
                 flat[path] = np.array(v, dtype=np.float32)
 
@@ -127,10 +135,12 @@ def copy_reference_params(module: nn.Module, params: Mapping,
 
 def reference_key(name: str) -> Tuple[str, Optional[int]]:
     """The reference's path of the port's parameter ``name`` and its layer
-    (``layers.3.attn.wq`` -> ``("layers/attn/wq", 3)``)."""
+    (``layers.3.attn.wq`` -> ``("layers/attn/wq", 3)``,
+    ``mamba_layers.5.mix.D`` -> ``("mamba_layers/mix/D", 5)``; an unstacked
+    parameter's layer is None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    if parts[0] in STACKED_ROOTS:
+        return "/".join(parts[:1] + parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 

@@ -30,7 +30,7 @@ into the cache in place.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,26 +103,13 @@ class Mamba(nn.Module):
                                     for lp in params["layers"])
         self.head = (L.ParamTree(params["head"]) if "head" in params
                      else None)
-        # per layer: (what the join was built from, the joined weights)
-        self._decode_conv: List[Optional[Tuple[tuple, Tuple[
-            torch.Tensor, torch.Tensor]]]] = [None] * len(self.layers)
+        self._decode_conv = ssd.DecodeConvJoins(len(self.layers))
 
     def decode_conv(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Layer ``i``'s decode conv weight and bias over the joined
-        channels (``ssd.decode_conv_weights``), joined on first use and
-        joined again whenever a source parameter changed since: written in
-        place (its ``_version``), replaced or moved (its ``data_ptr`` or
-        device) -- ``load_state_dict``, ``Module.to()`` and in-place updates
-        included.  The reference concatenates them on every step."""
-        mix = self.layers[i]["mix"]
-        key = tuple((t._version, t.data_ptr(), t.device)
-                    for t in (mix["conv_w"], mix["conv_bc_w"], mix["conv_b"],
-                              mix["conv_bc_b"]))
-        joined = self._decode_conv[i]
-        if joined is None or joined[0] != key:
-            joined = self._decode_conv[i] = (key,
-                                             ssd.decode_conv_weights(mix))
-        return joined[1]
+        channels, kept up to date with the parameters
+        (``ssd.DecodeConvJoins``)."""
+        return self._decode_conv.get(i, self.layers[i]["mix"])
 
     def _run(self, tokens: torch.Tensor, ssm_out: Optional[Dict]
              ) -> torch.Tensor:

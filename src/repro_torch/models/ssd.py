@@ -24,7 +24,7 @@ the gated norm.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,6 +134,31 @@ def decode_conv_weights(p) -> Tuple[torch.Tensor, torch.Tensor]:
     step; built once per layer."""
     return (torch.cat([p["conv_w"], p["conv_bc_w"]], dim=1).float(),
             torch.cat([p["conv_b"], p["conv_bc_b"]]))
+
+
+class DecodeConvJoins:
+    """Each layer's ``decode_conv_weights``, joined on first use and joined
+    again whenever a source parameter changed since: written in place (its
+    ``_version``), replaced or moved (its ``data_ptr`` or device) --
+    ``load_state_dict``, ``Module.to()`` and in-place updates included.
+    The reference concatenates them on every step; the SSM and hybrid
+    models keep one of these beside their layers."""
+
+    def __init__(self, num_layers: int):
+        # per layer: (what the join was built from, the joined weights)
+        self._joined: List[Optional[Tuple[tuple, Tuple[
+            torch.Tensor, torch.Tensor]]]] = [None] * num_layers
+
+    def get(self, i: int, mix) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``i``'s joined decode conv weight and bias, ``mix`` its
+        block parameters."""
+        key = tuple((t._version, t.data_ptr(), t.device)
+                    for t in (mix["conv_w"], mix["conv_bc_w"], mix["conv_b"],
+                              mix["conv_bc_b"]))
+        joined = self._joined[i]
+        if joined is None or joined[0] != key:
+            joined = self._joined[i] = (key, decode_conv_weights(mix))
+        return joined[1]
 
 
 def mamba_decode(p, cfg, x: torch.Tensor, cache: Mapping,

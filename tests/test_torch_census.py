@@ -142,10 +142,16 @@ TINY = {"stablelm_1_6b": dict(num_layers=2, d_model=128, num_heads=2,
                               num_kv_heads=2, head_dim=64, d_ff=256,
                               vocab_size=256),
         "mamba2_130m": dict(num_layers=2, d_model=128, ssm_headdim=64,
-                            ssm_state=64, ssm_chunk=64, vocab_size=256)}
+                            ssm_state=64, ssm_chunk=64, vocab_size=256),
+        # two sites of the shared block and a 1-layer tail
+        "zamba2_1_2b": dict(num_layers=5, attn_every=2, d_model=128,
+                            num_heads=2, num_kv_heads=2, head_dim=64,
+                            d_ff=256, ssm_headdim=64, ssm_state=64,
+                            ssm_chunk=64, vocab_size=256)}
 STATE_CASES = [("stablelm_1_6b", "train"), ("stablelm_1_6b", "prefill"),
                ("stablelm_1_6b", "decode"), ("mamba2_130m", "prefill"),
-               ("mamba2_130m", "decode")]
+               ("mamba2_130m", "decode"), ("zamba2_1_2b", "train"),
+               ("zamba2_1_2b", "prefill"), ("zamba2_1_2b", "decode")]
 
 
 def _reference_state_bytes(name: str, shape) -> float:
@@ -311,13 +317,13 @@ def test_applicable_and_skipped_cells():
     dense = ("stablelm_1_6b", "qwen3_14b", "qwen2_72b", "granite_20b")
     assert cells == ({(a, s) for a in dense
                       for s in ("train_4k", "prefill_32k", "decode_32k")}
-                     | {("mamba2_130m", s) for s in
-                        ("train_4k", "prefill_32k", "decode_32k",
-                         "long_500k")})
+                     | {(a, s) for a in ("mamba2_130m", "zamba2_1_2b")
+                        for s in ("train_4k", "prefill_32k", "decode_32k",
+                                  "long_500k")})
     skipped = {(a, s): why for a, s, why in dryrun.skipped_cells()}
-    assert len(skipped) == 17
+    assert len(skipped) == 13
     for arch in ("deepseek_v3_671b", "deepseek_v2_236b", "paligemma_3b",
-                 "whisper_small", "zamba2_1_2b"):
+                 "whisper_small"):
         assert "ROADMAP.md Queue 1 item 12e" in skipped[(arch, "prefill_32k")]
     assert ("resnet50", "-") in skipped
     assert not cells & set(skipped)
@@ -335,6 +341,27 @@ def test_mamba2_train_cell_books_the_scan_and_its_backward():
     layers = cfg.num_layers
     assert kern["ssd_scan_bf16"]["launches"] == 2 * layers
     assert kern["ssd_scan_bwd_bf16"]["launches"] == layers
+    shape = (256, 4096, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+             cfg.ssm_chunk)
+    flops, nbytes = k4.census_work_bwd(*shape, torch.bfloat16, False)
+    assert kern["ssd_scan_bwd_bf16"]["flops"] == layers * flops
+    assert kern["ssd_scan_bwd_bf16"]["bytes"] == layers * nbytes
+    assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
+
+
+def test_zamba2_train_cell_books_both_kernels_and_their_backwards():
+    """zamba2 x train_4k, traced on meta at full width and depth (B = 256,
+    S = 4096): every layer's scan on K4 twice (remat "dots" recomputes it)
+    and its backward once; the shared block's attention on K3 (its
+    ``_lse`` instance) and K3's backward once a site -- the shared block
+    runs outside remat, as the reference's."""
+    cfg = base.get_config("zamba2_1_2b")
+    art = dryrun.run_cell("zamba2_1_2b", "train_4k", save=False)
+    kern = art["hxa"]["kernels"]
+    layers, sites = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    assert {k: v["launches"] for k, v in kern.items()} == {
+        "ssd_scan_bf16": 2 * layers, "ssd_scan_bwd_bf16": layers,
+        k3.TC: sites, k3.BWD_BF16: sites}
     shape = (256, 4096, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
              cfg.ssm_chunk)
     flops, nbytes = k4.census_work_bwd(*shape, torch.bfloat16, False)

@@ -50,7 +50,7 @@ def test_port_has_the_expected_modules():
                  "optim/compression.py", "checkpoint/__init__.py",
                  "checkpoint/store.py", "launch/train.py", "core/hxa.py",
                  "core/offload.py", "launch/lowering.py",
-                 "launch/dryrun.py"):
+                 "launch/dryrun.py", "models/zamba.py"):
         assert want in names
     for arch in ("mamba2_130m", "deepseek_v3_671b", "deepseek_v2_236b",
                  "qwen3_14b", "qwen2_72b", "granite_20b", "stablelm_1_6b",
@@ -94,7 +94,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.models.transformer\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.ssd\n"
-        "import repro_torch.models.mamba\n"
+        "import repro_torch.models.mamba, repro_torch.models.zamba\n"
         "import repro_torch.core.features, repro_torch.core.predictors\n"
         "import repro_torch.core.dataset, repro_torch.dse_campaign.adaptive\n"
         "import repro_torch.serving, repro_torch.serving.frontier_index\n"

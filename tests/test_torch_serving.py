@@ -1,8 +1,9 @@
 """The port's token ``ServingEngine`` (``repro_torch.serving.engine``)
 against the reference's (``repro.serving.engine``) on the CPU.
 
-The reduced stablelm-1.6b and mamba2-130m (``cfg.reduced()``: 2 layers,
-d_model 64, vocab 256) in float32, with the reference's ``init_params``
+The reduced stablelm-1.6b, mamba2-130m and zamba2-1.2b (``cfg.reduced()``:
+2 layers -- zamba's one site of its shared block after them -- d_model 64,
+vocab 256) in float32, with the reference's ``init_params``
 weights carried over by ``params_from_reference``, serve the same seeded
 requests through both engines: 2 slots, 4 requests, so a freed slot is
 reused and inherits its old cache rows.  Gate: every request's
@@ -31,10 +32,11 @@ from repro_torch.configs import base
 from repro_torch.launch.serve import serve
 from repro_torch.models import mamba as tm
 from repro_torch.models import transformer as tt
+from repro_torch.models import zamba as tz
 from repro_torch.models.api import build_model
 from repro_torch.serving import Request, ServingEngine
 
-ARCHS = {"stablelm_1_6b": tt, "mamba2_130m": tm}
+ARCHS = {"stablelm_1_6b": tt, "mamba2_130m": tm, "zamba2_1_2b": tz}
 SLOTS, N_REQ, MAX_NEW, MAX_LEN = 2, 4, 5, 64
 
 
