@@ -11,9 +11,11 @@ PyTorch version on the card, and drives the port's main paths: training the
 dense transformer (stablelm-1.6b at full width and depth through
 `launch.train.train`, every layer's attention on K3 and its hand-written
 backward), mamba2-130m (full width and depth, B=8 S=4096, every scan
-on K4 and its hand-written backward) and zamba2-1.2b (full width and depth,
+on K4 and its hand-written backward), zamba2-1.2b (full width and depth,
 B=1 S=4096: every layer's scan on K4, the shared attention block at each of
-its 6 sites on K3, each with its backward), the fused
+its 6 sites on K3, each with its backward) and whisper-small (full width
+and depth, B=8, 448 tokens over 1500 frames: the encoder's, the decoder's
+and the cross attention on K3 and its backward), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -25,12 +27,14 @@ inference through
 `build_model(get_config("resnet50")).init(...)`, dense-transformer serving
 (prefill, KV cache, greedy decode) of stablelm-1.6b and a depth-cut
 qwen3-14b, mamba2-130m serving (chunked prefill on the SSD scan kernel,
-recurrent greedy decode) and zamba2-1.2b serving (the same, with the shared
-attention block on K3 at every site and a KV cache for each), each through
-`build_model(get_config(...))`,
+recurrent greedy decode), zamba2-1.2b serving (the same, with the shared
+attention block on K3 at every site and a KV cache for each) and
+whisper-small serving (an encoder over 1500 frames and a decoder with cross
+attention, every attention on K3; greedy decode against the self and the
+cross cache), each through `build_model(get_config(...))`,
 and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m,
 and the workload census (`launch.lowering` / `launch.dryrun`: every ported
-cell traced on the meta device, five steps traced on the card and held
+cell traced on the meta device, six steps traced on the card and held
 equal to their meta census, the census fed to `Campaign.from_artifacts`,
 `dataset.build_dataset`, the predictors and `offload.sweep_bandwidth`).
 Every phase prints one JSON object on a line of its own; any failed phase
@@ -60,7 +64,12 @@ Lines, in order:
                                      steps: the same readings, K3, K4 and
                                      their backwards' launches; (j) zamba2
                                      float32 depth 7 card vs CPU; (k)
-                                     zamba2 depth 7 resume == fresh
+                                     zamba2 depth 7 resume == fresh; (l)
+                                     whisper-small bf16 B=8 S=448 over
+                                     1500 frames, 4 steps: the same
+                                     readings, K3 36 + 36 a step; (m)
+                                     whisper float32 2 + 2 layers card vs
+                                     CPU; (n) whisper resume == fresh
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -93,13 +102,21 @@ Lines, in order:
   {"phase": "zamba2", ...}           prefill + decode: zamba2-1.2b (B=1
                                      S=4096; B=8 S=1024 + 16 steps), f32
                                      (L=7) also vs the CPU; K3 / K4
-                                     launches, vs plain, ms, idle, memory
+                                     launches, vs plain, ms, idle, memory,
+                                     SDPA in K3's place
+  {"phase": "whisper", ...}          encode 1500 frames + prefill:
+                                     whisper-small (B=1 S=448; B=16 S=4 +
+                                     32 steps), f32 (2 + 2 layers) also vs
+                                     the CPU; K3 launches (36 a prefill, 0
+                                     in decode), vs plain, ms, device ms by
+                                     kind, idle, memory
   {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
                                      slots, 8 requests), mamba2-130m; engine
                                      == a direct decode loop
-  {"phase": "census", ...}           meta census of every ported cell (20);
+  {"phase": "census", ...}           meta census of every ported cell (23);
                                      the card census of stablelm, mamba2
-                                     and zamba2 prefill (B=1 S=4096) and a
+                                     and zamba2 prefill (B=1 S=4096),
+                                     whisper's (B=1 S=448) and a
                                      stablelm and a mamba2 train step ==
                                      their meta census, K3 /
                                      K4 launches == entries; the census
@@ -164,6 +181,7 @@ from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import mamba as tm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.models import whisper as tw  # noqa: E402
 from repro_torch.models import zamba as tz  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.checkpoint import store as ckpt_store  # noqa: E402
@@ -2472,6 +2490,21 @@ def swapped_calls_device_ms(br: dict, lib_br: dict) -> float:
             - (br["device_ms"] - br["kernel_device_ms"]))
 
 
+def sdpa_in_k3_place_ms(prefill, dtype):
+    """Device ms that F.scaled_dot_product_attention's calls take in K3's
+    place inside ``prefill()``: ``swapped_calls_device_ms`` of a profile of
+    ``LIBRARY_REPS`` prefills with K3 and one with K3 swapped for
+    ``library_flash_attention`` (None where the profiler reads no device
+    time)."""
+    symbol = K3_SYMBOL[dtype]
+    br = device_breakdown(prefill, symbol, LIBRARY_REPS)
+    with mock.patch.object(k3, "flash_attention", library_flash_attention):
+        lib_br = device_breakdown(prefill, symbol, LIBRARY_REPS)
+    if br["device_ms"] is None or lib_br["device_ms"] is None:
+        return None
+    return swapped_calls_device_ms(br, lib_br)
+
+
 def device_breakdown(fn, symbol: str, reps: int = 1) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler,
     averaged over ``reps`` calls in one profile: the total, the time and
@@ -2707,7 +2740,8 @@ FLASH_DTYPES = (torch.bfloat16, torch.float32)
 # rounds p to bf16 for the tensor-core P V product where the plain version
 # keeps it in float32, and an output in [2, 8) has a bf16 ulp of 1/64..1/32
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# (case, B, S, H, KV, hd, hv, causal)
+# (case, B, S, H, KV, hd, hv, causal[, Sk]): Sk, the keys, where they are
+# not the S queries' own (cross attention)
 FLASH_CASES = (
     ("test_kernels", 2, 128, 2, 2, 32, 32, True),
     ("test_kernels", 2, 256, 4, 2, 64, 64, True),
@@ -2721,6 +2755,14 @@ FLASH_CASES = (
     ("stablelm_b1_s4096", 1, 4096, 32, 32, 64, 64, True),
     ("stablelm_b8_s1024", 8, 1024, 32, 32, 64, 64, True),
     ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, 128, True),
+    # whisper-small: the encoder's self attention over the 1500 frames of a
+    # 30 s window, the decoder's cross attention of a 448-token context and
+    # of a batch of 16 4-token prompts over them, and a ragged GQA cross
+    # call
+    ("whisper_encoder_b1_s1500", 1, 1500, 12, 12, 64, 64, False),
+    ("whisper_cross_b1_s448", 1, 448, 12, 12, 64, 64, False, 1500),
+    ("whisper_cross_b16_s4", 16, 4, 12, 12, 64, 64, False, 1500),
+    ("ragged_cross_gqa", 2, 77, 6, 2, 64, 64, False, 1000),
 ) + tuple(
     # a sequence within one 128-row tile (the tensor-core kernel's TMA box
     # taller than S, one partly filled tile): a short prompt on the main path
@@ -2728,6 +2770,9 @@ FLASH_CASES = (
     for d in (64, 128) for s in (1, 7, 100) for causal in (True, False))
 # the case each dtype's row of the kernels line reports
 FLASH_HEADLINE = "stablelm_b1_s4096"
+# the model shapes: held to the main path's variant, profiled, and listed
+# in the kernels line
+FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper")
 # other softmax scales (the tensor-core kernel folds a positive scale into
 # its exp2 and multiplies first otherwise), causal and not: (B, S, H, KV, d)
 FLASH_SCALES = (0.3, -0.2, 0.0)
@@ -2739,12 +2784,13 @@ K3_TC_KERNEL = "flash_bf16_tc_kernel"
 K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
 
 
-def flash_bound(b, s, h, kv, hd, hv, causal, dtype) -> dict:
-    """Least time for one attention call: K3's census work
-    (``k3.fwd_work``: q, k, v read once and o written once; 2 * B * H *
-    (visible pairs) * (hd + hv) operations, visible pairs S(S+1)/2 causal,
-    S^2 not) at the dtype's peak (bf16: the tensor cores)."""
-    ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype)
+def flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk=None) -> dict:
+    """Least time for one attention call of S queries over Sk keys (default
+    S): K3's census work (``k3.fwd_work``: q, k, v read once and o written
+    once; 2 * B * H * (visible pairs) * (hd + hv) operations, visible pairs
+    S(S+1)/2 causal, S Sk not) at the dtype's peak (bf16: the tensor
+    cores)."""
+    ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype, sk=sk)
     return bound(nbytes, ops, dtype)
 
 
@@ -2763,12 +2809,13 @@ def flash_case(gen, device, case, dtype) -> dict:
     """K3 against its plain version on one shape; raises on disagreement.
     Then K3's, the plain version's and the library's time, the bound, and
     for the model shapes K3's device time."""
-    name, b, s, h, kv, hd, hv, causal = case
+    name, b, s, h, kv, hd, hv, causal = case[:8]
+    sk = case[8] if len(case) > 8 else s
     q = torch.randn((b, s, h, hd), generator=gen, device=device).to(dtype)
-    k = torch.randn((b, s, kv, hd), generator=gen, device=device).to(dtype)
-    v = torch.randn((b, s, kv, hv), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, sk, kv, hd), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, sk, kv, hv), generator=gen, device=device).to(dtype)
     plan = k3.plan_for(q, k, v)
-    if name.startswith(("stablelm", "qwen3", "short")) and \
+    if name.startswith(FLASH_MODEL_CASES + ("short",)) and \
             plan.variant != K3_MAIN[dtype]:
         raise AssertionError(f"K3 {name} {dtype} planned {plan.variant}, "
                              f"not {K3_MAIN[dtype]}")
@@ -2784,11 +2831,12 @@ def flash_case(gen, device, case, dtype) -> dict:
         raise AssertionError(f"K3 {name}: non-finite output")
     err = float((o.float() - op.float()).abs().max())
     if not flash_within(o, op, dtype):
-        raise AssertionError(f"K3 {name} {(b, s, h, kv, hd, hv, causal)} "
-                             f"{dtype}: max |diff| {err} over the limit")
-    bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype)
+        raise AssertionError(f"K3 {name} {(b, s, sk, h, kv, hd, hv, causal)}"
+                             f" {dtype}: max |diff| {err} over the limit")
+    bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk)
     big = s >= 2048
-    row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": hd,
+    row = {"case": name, "B": b, "S": s, "Sk": sk, "H": h, "KV": kv,
+           "hd": hd,
            "hv": hv, "causal": causal, "dtype": SUFFIX[dtype],
            "plan": dataclasses.asdict(plan), "max_abs_err": err,
            "ms": time_ms(lambda: k3.flash_attention(q, k, v, causal=causal),
@@ -2804,7 +2852,7 @@ def flash_case(gen, device, case, dtype) -> dict:
                                            .abs().max())
         row["library_ms"] = time_ms(lambda: library_flash_attention(
             q, k, v, causal=causal), 10 if big else 20)
-    if name.startswith(("stablelm", "qwen3")):
+    if name.startswith(FLASH_MODEL_CASES):
         us = device_us({"k3": (lambda: k3.flash_attention(q, k, v,
                                                           causal=causal),
                                K3_SYMBOL[dtype])}, reps=5)
@@ -2868,9 +2916,12 @@ def phase_flash_attention(device, seed: int) -> dict:
     """K3 against flash_attention_plain on the card, bf16 and float32: the
     test_kernels.py cases (B=2), a non-causal, two ragged-S and two hv != hd
     cases, the model shapes (stablelm B=1 S=4096 and B=8 S=1024, qwen3 B=1
-    S=2048 H=40 KV=8 hd=128) and sequences within one tile (S 1, 7, 100 at
-    hd 64 and 128, causal and not), each timed beside the plain version,
-    SDPA and the bound.  Returns the rows keyed by (dtype, case)."""
+    S=2048 H=40 KV=8 hd=128; whisper-small's encoder over 1500 frames, its
+    cross attention of 448 and of 16 x 4 queries over them), a ragged GQA
+    cross call (77 queries over 1000 keys) and sequences within one tile (S
+    1, 7, 100 at hd 64 and 128, causal and not), each timed beside the
+    plain version, SDPA and the bound.  Returns the rows keyed by (dtype,
+    case)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = {}
     for dtype in FLASH_DTYPES:
@@ -2899,7 +2950,9 @@ def phase_flash_attention(device, seed: int) -> dict:
                          "library = F.scaled_dot_product_attention "
                          "(enable_gqa), timed where hv == hd; bound = "
                          "max(bytes of q, k, v, o / 3.35 TB/s, 2 B H "
-                         "pairs (hd + hv) / peak: 989 TFLOP/s bf16, 67 f32)"})
+                         "pairs (hd + hv) / peak: 989 TFLOP/s bf16, 67 f32); "
+                         "pairs S Sk for a call whose Sk keys are not its S "
+                         "queries' own"})
     return rows
 
 
@@ -2952,15 +3005,17 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def grown_cache(model, cache, extra: int):
     """The prefill's cache copied into one with room for ``extra`` more
     positions (the reference's prefill cache is exactly prompt-long): the
-    transformer's ``layers`` k / v, or zamba2's ``attn`` k / v at each site
-    and its ``ssm`` conv tails and states."""
-    key = "attn" if "attn" in cache else "layers"
+    transformer's ``layers`` k / v, zamba2's ``attn`` k / v at each site
+    and its ``ssm`` conv tails and states, or whisper's ``self`` k / v and
+    its ``cross`` k / v over the frames."""
+    key = next(k for k in ("attn", "layers", "self") if k in cache)
     b, s = cache[key]["k"].shape[1:3]
     big = model.init_cache(int(b), int(s) + extra)
     for kv in ("k", "v"):
         big[key][kv][:, :, :s] = cache[key][kv]
-    for part, t in cache.get("ssm", {}).items():
-        big["ssm"][part].copy_(t)
+    for part in ("ssm", "cross"):
+        for leaf, t in cache.get(part, {}).items():
+            big[part][leaf].copy_(t)
     big["len"] = cache["len"]
     return big
 
@@ -3172,23 +3227,27 @@ def phase_transformer(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def flash_rows(rows, lm, training, zb) -> list:
+def flash_rows(rows, lm, training, zb, wb) -> list:
     """K3's rows: times at the stablelm B=1 S=4096 shape alone, every other
-    model shape beside it, and K3 and SDPA inside the prefills.  Launches:
-    the prefill paths' (``transformer``, ``zamba2``: a site a prefill) and
-    the training paths' (the forward that also writes the log-sum-exp: (a)
-    and zamba2's (i) in bf16, (b) and (j) in float32), each counted from
-    zero around its own run."""
+    model shape beside it (whisper's encoder and cross attention included),
+    and K3 and SDPA inside the prefills.  Launches: the prefill paths'
+    (``transformer``, ``zamba2``: a site a prefill, ``whisper``: 36 a
+    prefill) and the training paths' (the forward that also writes the
+    log-sum-exp: (a), zamba2's (i) and whisper's (l) in bf16, (b), (j) and
+    (m) in float32), each counted from zero around its own run."""
     out = []
-    train_path = {torch.bfloat16: ("a_full", "i_zamba2_full"),
-                  torch.float32: ("b_card_vs_cpu", "j_zamba2_card_vs_cpu")}
+    train_path = {torch.bfloat16: ("a_full", "i_zamba2_full",
+                                   "l_whisper_full"),
+                  torch.float32: ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
+                                  "m_whisper_card_vs_cpu")}
     for dtype in FLASH_DTYPES:
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == FLASH_HEADLINE)
         name = K3_MAIN[dtype]
         runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
         by_path = {"prefill": lm["launches"][name],
-                   "zamba2_prefill": zb["launches"].get(name, 0)}
+                   "zamba2_prefill": zb["launches"].get(name, 0),
+                   "whisper_prefill": wb["launches"].get(name, 0)}
         by_path.update({f"training_{path}": training[path]["launches"]
                         .get(name, 0) for path in train_path[dtype]})
         out.append({
@@ -3205,15 +3264,26 @@ def flash_rows(rows, lm, training, zb) -> list:
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
             "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "H", "KV", "hd", "ms", "device_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")} for (d, c), r in rows.items()
-                if d == dtype and c[0].startswith(("stablelm", "qwen3"))],
+                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for (d, c), r in rows.items()
+                if d == dtype and c[0].startswith(FLASH_MODEL_CASES)],
             "in_prefill": {run: {
                 "k3_device_ms": lm["perf"][run]["k3_device_ms"],
                 "sdpa_device_ms": lm["perf"][run]["sdpa_calls_device_ms"],
                 "bound_ms": lm["perf"][run]["k3_calls_bound_ms"]}
-                for run in runs}})
+                for run in runs},
+            "in_zamba2_prefill": {run: {
+                "k3_device_ms": zb["perf"][run]["k3_device_ms"],
+                "sdpa_device_ms": zb["perf"][run]["sdpa_calls_device_ms"],
+                "bound_ms": zb["perf"][run]["k3_calls_bound_ms"]}
+                for run, _, dt, _, _, _ in ZAMBA_RUNS if dt == dtype},
+            "in_whisper_prefill": {run: {
+                "k3_device_ms": wb["perf"][run]["k3_device_ms"],
+                "k3_calls": wb["perf"][run]["k3_calls"],
+                "sdpa_device_ms": wb["perf"][run]["sdpa_calls_device_ms"],
+                "bound_ms": wb["perf"][run]["k3_calls_bound_ms"]}
+                for run, _, dt, _, _, _ in WHISPER_RUNS if dt == dtype}})
     return out
 
 
@@ -3863,9 +3933,13 @@ def phase_zamba2(device, seed: int) -> dict:
                "k4_calls_bound_ms": cfg.num_layers * s_bd["bound_ms"],
                "k4_calls_units_bound_ms":
                    cfg.num_layers * s_bd["units_bound_ms"],
-               "k3_calls_bound_ms": sites * f_bd["bound_ms"]}
+               "k3_calls_bound_ms": sites * f_bd["bound_ms"],
+               "sdpa_calls_device_ms": None}
         if br["device_ms"] is not None:
             row["idle_share"] = 1.0 - br["device_ms"] / ms
+        # SDPA in K3's place at every site (as the transformer phase)
+        row["sdpa_calls_device_ms"] = sdpa_in_k3_place_ms(
+            lambda: model.prefill(x), dtype)
         if steps:
             logits, cache = model.prefill(x)
             st = {}
@@ -3922,6 +3996,10 @@ def phase_zamba2(device, seed: int) -> dict:
                          "idle_share = 1 - device_ms / ms_per_prefill; "
                          "k4_calls_bound_ms / k3_calls_bound_ms: the bounds "
                          "summed over the prefill's calls; "
+                         "sdpa_calls_device_ms: the device ms SDPA's calls "
+                         "take in K3's place (a profile of 3 prefills with "
+                         "K3 swapped for F.scaled_dot_product_attention, "
+                         "less one with K3, outside K3's kernels); "
                          "ms_per_decode_step / generated_tokens_per_s: host "
                          "clock of a window of 16 greedy steps issued back "
                          "to back, one synchronize at its end, per step, "
@@ -3982,6 +4060,299 @@ def ssd_rows(rows, mb, training, zb) -> list:
     return out
 
 
+# --- whisper serving: an encoder over 1500 frames, cross attention, decode -----
+
+# (run, depth or None for the full depth, dtype, B, S, decode steps): (a) a
+# 30 s window (1500 frames) and a 448-token context; (b) a batch of 16
+# transcriptions from a 4-token prompt, 32 greedy steps; (c) float32 at 2
+# encoder and 2 decoder layers, also held against the CPU
+WHISPER_RUNS = (
+    ("a_whisper_b1_s448", None, torch.bfloat16, 1, 448, 0),
+    ("b_whisper_b16_s4", None, torch.bfloat16, 16, 4, 32),
+    ("c_whisper_f32_l2_b2_s64", 2, torch.float32, 2, 64, 0),
+)
+WHISPER_CPU_RUN = "c_whisper_f32_l2_b2_s64"
+# the decoder's positions: whisper's text context
+WHISPER_MAX_SEQ = 448
+
+
+def whisper_cfg(depth=None, dtype=torch.bfloat16):
+    """whisper-small in ``dtype``, cut to ``depth`` encoder and decoder
+    layers where given."""
+    cfg = dataclasses.replace(get_config("whisper_small"),
+                              dtype=str(dtype).split(".")[-1])
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth,
+                                  encoder_layers=depth)
+    return cfg
+
+
+def whisper_models(device, seed: int) -> dict:
+    """One whisper-small per (depth, dtype) of ``WHISPER_RUNS``, at full
+    width with 448 decoder positions, weights drawn on the card from a CUDA
+    generator seeded with ``seed``."""
+    models = {}
+    for _, depth, dtype, _, _, _ in WHISPER_RUNS:
+        if (depth, dtype) not in models:
+            models[(depth, dtype)] = build_model(
+                whisper_cfg(depth, dtype)).init(
+                torch.Generator(device=device).manual_seed(seed),
+                device=device, max_seq=WHISPER_MAX_SEQ)
+    return models
+
+
+def whisper_inputs(model, b: int, s: int, seed: int, device):
+    """The tokens [B, S] and frames [B, 1500, d] of ``synth_batch(seed)``
+    on the card."""
+    batch = synth_batch(model.cfg, ShapeConfig(f"serve_b{b}_s{s}", s, b,
+                                               "prefill"),
+                        DataConfig(seed=seed), 0)
+    return (torch.from_numpy(batch["tokens"]).to(device),
+            torch.from_numpy(batch["frames"]).to(device))
+
+
+def top1_split_margins(logits, want) -> list:
+    """For each sequence whose last-position top-1 differs between
+    ``logits`` and the plain path's ``want``: how far apart ``want`` puts
+    its own top-1 and the kernel path's, over ``want``'s scale (max
+    |logit|)."""
+    got_top, want_top = logits[:, -1].argmax(-1), want[:, -1].argmax(-1)
+    last = want[:, -1].float()
+    scale = float(want.float().abs().max())
+    return [float(last[i, want_top[i]] - last[i, got_top[i]]) / scale
+            for i in range(logits.shape[0]) if got_top[i] != want_top[i]]
+
+
+def whisper_cache_errs(cache, want, prefix: str = "cache") -> dict:
+    """rel_err of every cache leaf (self and cross k, v) against
+    ``want``'s, on ``want``'s device."""
+    return {f"{prefix}_{part}_{key}_rel_err": rel_err(
+        cache[part][key].to(want[part][key].device), want[part][key])
+        for part in ("self", "cross") for key in ("k", "v")}
+
+
+def whisper_k3_calls(cfg, b: int, s: int):
+    """(S, Sk, causal) of each K3 call of a prefill: the encoder's layers
+    over the frames, then each decoder layer's self and cross attention."""
+    f = cfg.num_frames
+    return ([(f, f, False)] * cfg.encoder_layers
+            + [(s, s, True), (s, f, False)] * cfg.num_layers)
+
+
+def kind_split_ms(by_name: dict, k3_symbol: str) -> dict:
+    """Device ms of a profile's kernels (``device_breakdown``'s
+    ``by_name``) by kind: K3, cuBLAS (GEMM kernels), the rest."""
+    kinds = (("k3", (k3_symbol,)),)
+    split = {"k3": 0.0, "cublas": 0.0, "elementwise_and_other": 0.0}
+    for name, ms in by_name.items():
+        split[kernel_kind(name, kinds)] += ms
+    return split
+
+
+def phase_whisper(device, seed: int) -> dict:
+    """The main path: whisper-small serving.  Counts are zeroed just before
+    the three runs' prefills and decode steps and read just after: K3 once
+    an encoder layer and twice a decoder layer (self and cross attention)
+    per prefill, never in decode.  Then each prefill is held against the
+    same prefill with K3 swapped for its plain version (logits, top-1, both
+    caches), the first decode step after it, the float32 run also against
+    the CPU, and each run is timed and profiled."""
+    models = whisper_models(device, seed)
+    inputs, outs, per_prefill, decode_launches = {}, {}, [], {}
+    for run, depth, dtype, b, s, _ in WHISPER_RUNS:
+        inputs[run] = whisper_inputs(models[(depth, dtype)], b, s, seed,
+                                     device)
+    torch.cuda.synchronize()
+
+    k3.reset_launch_counts()
+    for run, depth, dtype, b, s, steps in WHISPER_RUNS:
+        model = models[(depth, dtype)]
+        before = sum(k3.launch_counts().values())
+        logits, cache = model.prefill(*inputs[run])
+        per_prefill.append(sum(k3.launch_counts().values()) - before)
+        first, gen = None, None
+        if steps:
+            before = sum(k3.launch_counts().values())
+            first, gen = greedy_decode(model, logits, cache, steps)
+            decode_launches[run] = sum(k3.launch_counts().values()) - before
+        outs[run] = (logits, cache, first, gen)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+
+    want_launches = [len(whisper_k3_calls(models[(d, t)].cfg, b, s))
+                     for _, d, t, b, s, _ in WHISPER_RUNS]
+    if per_prefill != want_launches or any(decode_launches.values()):
+        raise AssertionError(f"K3 launches per prefill {per_prefill} "
+                             f"(expected {want_launches}), in decode "
+                             f"{decode_launches} (expected 0)")
+    checks = []
+    for run, depth, dtype, b, s, steps in WHISPER_RUNS:
+        model = models[(depth, dtype)]
+        tokens, frames = inputs[run]
+        logits, cache, first, gen = outs.pop(run)
+        if (tuple(logits.shape) != (b, s, model.cfg.vocab_size)
+                or logits.dtype != torch.float32):
+            raise AssertionError(f"{run}: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{run}: non-finite logits")
+        with mock.patch.object(k3, "flash_attention",
+                               k3.flash_attention_plain):
+            want, want_cache = model.prefill(tokens, frames)
+            # the first step from the plain cache, on the kernel path's token
+            want_first = (greedy_decode(model, logits, want_cache, 1)[0]
+                          if steps else None)
+        torch.cuda.synchronize()
+        tol = LM_LOGIT_TOL[dtype]
+        row = {"run": run, "dtype": SUFFIX[dtype], "batch": b, "seq": s,
+               "frames": model.cfg.num_frames,
+               "top1_split_margins": top1_split_margins(logits, want),
+               "encoder_layers": model.cfg.encoder_layers,
+               "decoder_layers": model.cfg.num_layers,
+               "logits_rel_err": rel_err(logits, want),
+               "top1_agreement_last": float(
+                   (logits[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                   .float().mean()),
+               **whisper_cache_errs(cache, want_cache)}
+        if steps:
+            row["first_decode_logits_rel_err"] = rel_err(first, want_first)
+            row["generated_tokens"] = [int(t) for t in gen[0]]
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{run}: non-finite decode logits")
+        if run == WHISPER_CPU_RUN:
+            # the port's CPU path, which the tests hold to the reference
+            cpu = build_model(model.cfg).init(
+                torch.Generator().manual_seed(seed), device="cpu",
+                max_seq=WHISPER_MAX_SEQ)
+            cpu.load_state_dict(model.state_dict())
+            t0 = time.perf_counter()
+            cpu_logits, cpu_cache = cpu.prefill(tokens.cpu(), frames.cpu())
+            row["cpu_seconds"] = time.perf_counter() - t0
+            row["cpu_logits_rel_err"] = rel_err(logits.cpu(), cpu_logits)
+            row["cpu_top1_agreement_last"] = float(
+                (logits[:, -1].argmax(-1).cpu()
+                 == cpu_logits[:, -1].argmax(-1)).float().mean())
+            row.update(whisper_cache_errs(cache, cpu_cache, "cpu_cache"))
+            del cpu, cpu_cache, cpu_logits
+        bad = {k: v for k, v in row.items() if k.endswith("rel_err")
+               and v > tol}
+        # float32: top-1 agrees; bf16: where it splits, the plain path's
+        # own two candidates lie within the logit tolerance (a near-tie of
+        # the seed weights' flat logits, not a wrong answer)
+        split = (row["top1_agreement_last"] != 1.0
+                 or row.get("cpu_top1_agreement_last", 1.0) != 1.0
+                 if dtype == torch.float32
+                 else max(row["top1_split_margins"], default=0.0) > tol)
+        if bad or split:
+            raise AssertionError(f"{run}: kernel path off the plain path "
+                                 f"or the CPU beyond {tol}, or top-1 split: "
+                                 f"{bad}, {row['top1_agreement_last']}, "
+                                 f"margins {row['top1_split_margins']}")
+        checks.append(row)
+        del logits, cache, want, want_cache
+    if {k: v for k, v in k3.launch_counts().items() if v} != launches:
+        raise AssertionError("the plain-path prefills launched K3")
+
+    perf = {}
+    for run, depth, dtype, b, s, steps in WHISPER_RUNS:
+        model = models[(depth, dtype)]
+        tokens, frames = inputs[run]
+        cfg = model.cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        host = host_ms(lambda: model.prefill(tokens, frames), warmup=2)
+        peak = torch.cuda.max_memory_allocated(device)
+        ms = host["median"]
+        br = device_breakdown(lambda: model.prefill(tokens, frames),
+                              K3_SYMBOL[dtype])
+        bounds = [flash_bound(b, sq, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, cfg.head_dim, causal, dtype, sk)
+                  ["bound_ms"] for sq, sk, causal in
+                  whisper_k3_calls(cfg, b, s)]
+        row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+               "prompt_tokens_per_s": b * s / ms * 1e3,
+               "frames_per_s": b * cfg.num_frames / ms * 1e3,
+               "peak_memory_bytes": peak,
+               "device_ms": br["device_ms"], "idle_share": None,
+               "k3_device_ms": br["kernel_device_ms"],
+               "device_ms_by_kind": (None if br["device_ms"] is None else
+                                     kind_split_ms(br["by_name"],
+                                                   K3_SYMBOL[dtype])),
+               "top": br["top"], "k3_calls": len(bounds),
+               "k3_calls_bound_ms": sum(bounds),
+               "sdpa_calls_device_ms": sdpa_in_k3_place_ms(
+                   lambda: model.prefill(tokens, frames), dtype)}
+        if br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+        if steps:
+            logits, cache = model.prefill(tokens, frames)
+            st = {}
+
+            def start():
+                st["tok"] = logits[:, -1:].argmax(-1)
+                st["cache"] = grown_cache(model, cache, steps)
+
+            def one_step():
+                out, st["cache"] = model.decode_step(st["tok"], st["cache"])
+                st["tok"] = out[:, -1:].argmax(-1)
+
+            window = decode_window_ms(start, one_step, steps)
+            latency = decode_latency_ms(start, one_step, steps)
+            tok = st["tok"]
+            row["ms_per_decode_step"] = window["median"]
+            row["ms_per_decode_step_spread"] = window
+            row["generated_tokens_per_s"] = b / window["median"] * 1e3
+            row["decode_step_latency_ms"] = latency["median"]
+            row["decode_step_latency_spread"] = latency
+            # one step profiled (and one before it), into a fresh copy
+            big = grown_cache(model, cache, 2)
+            dec = device_breakdown(lambda: model.decode_step(tok, big),
+                                   K3_SYMBOL[dtype])
+            row["decode_device_ms"] = dec["device_ms"]
+            row["decode_idle_share"] = (
+                None if dec["device_ms"] is None
+                else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
+            row["decode_top"] = dec["top"]
+            del logits, cache, big, st
+        perf[run] = row
+    del models, inputs
+    torch.cuda.empty_cache()
+    emit({"phase": "whisper",
+          "config": "whisper-small (12 encoder layers over 1500 frames, 12 "
+                    "decoder layers with cross attention; d 768, 12 heads "
+                    "of 64, d_ff 3072, GELU, layer norm; vocab 51,865, "
+                    "tied; 448 decoder positions) full width and depth in "
+                    "bf16; float32 at 2 + 2 layers; frames and prompts "
+                    f"synth_batch(seed={seed}) (the frontend is a stub), "
+                    f"weights from a CUDA generator seed {seed}",
+          "launches_per_prefill": per_prefill,
+          "launches_in_decode": decode_launches, "launches": launches,
+          "vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                           for d in LM_LOGIT_TOL},
+          "serving": perf,
+          "timing_note": "ms_per_prefill: median host clock around "
+                         "encode + decoder prefill + synchronize over 5 "
+                         "(spread: min, max), frames and prompts on the "
+                         "card; peak_memory_bytes: max_memory_allocated over "
+                         "those prefills; device_ms / k3_device_ms / "
+                         "device_ms_by_kind (K3, cuBLAS, the rest) / top: "
+                         "torch.profiler kernel time of one prefill; "
+                         "idle_share = 1 - device_ms / ms_per_prefill; "
+                         "k3_calls_bound_ms: the bounds of the prefill's K3 "
+                         "calls summed; sdpa_calls_device_ms: SDPA's device "
+                         "ms in K3's place (as the zamba2 phase's); "
+                         "ms_per_decode_step / "
+                         "generated_tokens_per_s: host clock of a window of "
+                         "32 greedy steps issued back to back, one "
+                         "synchronize at its end, per step, median over 5 "
+                         "windows; decode_step_latency_ms: median host "
+                         "clock of each of 32 steps, each ending in a "
+                         "synchronize; decode_device_ms / decode_top: one "
+                         "step profiled"})
+    return {"launches": launches, "perf": perf}
+
+
 # --- training: the dense transformer on K3 and its backward --------------------
 
 TRAIN_ARCH = "stablelm-1.6b"
@@ -4002,14 +4373,20 @@ RESUME_STEPS, RESUME_EVERY, RESUME_DEPTH = 4, 2, 2
 # to bf16 for the tensor-core products, the plain version keeps float32),
 # float32 1e-4 (sums in other orders)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# (case, B, S, H, KV, d, causal, dtypes): the two model shapes, a ragged S
-# and a non-causal GQA call (which the model shapes do not reach), each in
-# both dtypes
+# (case, B, S, H, KV, d, causal, dtypes[, Sk]): the two model shapes, a
+# ragged S and a non-causal GQA call (which the model shapes do not reach),
+# and whisper-small's training shapes: the cross attention of 448 queries
+# over 1500 keys (Sk) and the encoder's self attention over 1500 frames,
+# B=8; each in both dtypes
 BOTH_DTYPES = (torch.bfloat16, torch.float32)
 BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
              ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, True, BOTH_DTYPES),
              ("ragged_b2_s1000", 2, 1000, 4, 4, 64, True, BOTH_DTYPES),
              ("noncausal_b1_s512_gqa", 1, 512, 8, 2, 128, False,
+              BOTH_DTYPES),
+             ("whisper_cross_b8_s448", 8, 448, 12, 12, 64, False,
+              BOTH_DTYPES, 1500),
+             ("whisper_encoder_b8_s1500", 8, 1500, 12, 12, 64, False,
               BOTH_DTYPES))
 BWD_HEADLINE = "stablelm_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
@@ -4022,14 +4399,15 @@ BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_f32_tc_kernel")
 
 
-def flash_bwd_bound(b, s, h, kv, d, causal, dtype) -> dict:
-    """Least time for one backward call: q, k, v, o, do and the float32
-    log-sum-exp read once, dq, dk, dv written once; five products over the
-    visible pairs (S again, dP, dV, dQ, dK): 2 B H pairs 5 d operations,
-    2.5 times the forward's, at the dtype's peak.  float32 also gets
-    ``units_bound_ms``: the same work at the rate of the units the kernels
-    run it on, 3xTF32 on the TF32 tensor cores (495 / 3 TFLOP/s)."""
-    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype)
+def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None) -> dict:
+    """Least time for one backward call of S queries over Sk keys (default
+    S): q, k, v, o, do and the float32 log-sum-exp read once, dq, dk, dv
+    written once; five products over the visible pairs (S again, dP, dV,
+    dQ, dK): 2 B H pairs 5 d operations, 2.5 times the forward's, at the
+    dtype's peak.  float32 also gets ``units_bound_ms``: the same work at
+    the rate of the units the kernels run it on, 3xTF32 on the TF32 tensor
+    cores (495 / 3 TFLOP/s)."""
+    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype, sk=sk)
     # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
     # kernels write and read back: no input or output of the function
     nbytes -= 4 * b * h * s
@@ -4088,6 +4466,23 @@ K3_KINDS = (("k3_forward", ("flash_bf16_", "flash_f32_")),
 K4_KINDS = (("k4_backward", ("ssd_bwd_",)), ("k4_forward", ("ssd_",)))
 
 
+# name symbols of cuBLAS's GEMM kernels
+CUBLAS_SYMBOLS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")
+
+
+def kernel_kind(name: str, kinds) -> str:
+    """The kind of the kernel named ``name``: the first of ``kinds``
+    ((kind, name symbols) pairs) whose symbol it holds, else cuBLAS or the
+    rest."""
+    low = name.lower()
+    kind = next((k for k, symbols in kinds
+                 if any(t in low for t in symbols)), None)
+    if kind is not None:
+        return kind
+    return ("cublas" if any(t in low for t in CUBLAS_SYMBOLS)
+            else "elementwise_and_other")
+
+
 def step_device_split(prof, top: int = 12, kinds=K3_KINDS) -> dict:
     """Device ms of the profiled step by kind: the hand-written kernels of
     ``kinds`` (K3 forward and backward by default), cuBLAS (GEMM kernels),
@@ -4104,14 +4499,7 @@ def step_device_split(prof, top: int = 12, kinds=K3_KINDS) -> dict:
                            getattr(ev, "self_cuda_time_total", 0.0)))
         kernels.append({"kernel": ev.key[:120], "ms": us / 1e3,
                         "count": int(ev.count)})
-        name = ev.key.lower()
-        kind = next((k for k, symbols in kinds
-                     if any(t in name for t in symbols)), None)
-        if kind is None:
-            kind = ("cublas" if any(t in name for t in (
-                "gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_"))
-                else "elementwise_and_other")
-        split[kind] += us / 1e3
+        split[kernel_kind(ev.key, kinds)] += us / 1e3
     kernels.sort(key=lambda r: -r["ms"])
     return split, kernels[:top]
 
@@ -4275,19 +4663,23 @@ class TimedSave:
 
 
 def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
-                 batch: int = 1, depth: int = RESUME_DEPTH) -> dict:
-    """(c) stablelm, (g) mamba2, (k) zamba2: bf16 at depth ``depth`` (2;
-    zamba2 7) and full width, S=4096, B ``batch``: 4 steps with a
-    checkpoint every 2; the step-4 checkpoint removed (a crash after step
-    2's); restored and run to 4.  The 2 losses and the final parameters
-    must be bitwise the uninterrupted run's."""
+                 batch: int = 1, depth: int = RESUME_DEPTH,
+                 seq: int = TRAIN_SEQ) -> dict:
+    """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper: bf16 at depth
+    ``depth`` (2, an encoder's layers too; zamba2 7) and full width, S
+    ``seq`` (4096; whisper 448 over its 1500 frames), B ``batch``: 4 steps
+    with a checkpoint every 2; the step-4 checkpoint removed (a crash after
+    step 2's); restored and run to 4.  The 2 losses and the final
+    parameters must be bitwise the uninterrupted run's."""
     ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
 
     def cut(name):
-        return dataclasses.replace(get_config(name), num_layers=depth)
+        cfg = get_config(name)
+        enc = {"encoder_layers": depth} if cfg.is_encoder_decoder else {}
+        return dataclasses.replace(cfg, num_layers=depth, **enc)
 
-    kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=TRAIN_SEQ,
+    kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=seq,
               batch=batch, ckpt_dir=ckdir, ckpt_every=RESUME_EVERY,
               seed=seed, install_signals=False, log_every=100,
               device=device)
@@ -4314,7 +4706,8 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
     del state, final
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": depth, "dtype": "bfloat16",
-            "B": batch, "S": TRAIN_SEQ, "losses_fresh": full, "losses_resumed": resumed,
+            "B": batch, "S": seq, "losses_fresh": full,
+            "losses_resumed": resumed,
             "bitwise_losses_and_parameters": True,
             "checkpoints_written": written, "writes": saves.writes,
             "resumed_run_seconds": resume_s}
@@ -4326,9 +4719,10 @@ def bwd_case(gen, device, case, dtype) -> dict:
     call, the dQ kernel alone and the dK / dV kernel alone timed beside the
     plain version, SDPA's backward and the bound."""
     name, b, s, h, kv, d, causal = case[:7]
+    sk = case[8] if len(case) > 8 else s
     q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
-    k = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
-    v = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
     do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
     o, lse = k3.flash_attention_fwd(q, k, v, causal=causal)
     # the forward's log-sum-exp (what the backward recomputes P from)
@@ -4343,7 +4737,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
     del lse_plain
     plan = k3.plan_bwd(b, s, h, kv, d, dtype, causal,
                        torch.cuda.get_device_properties(device)
-                       .multi_processor_count)
+                       .multi_processor_count, sk)
     if plan.variant != BWD_MAIN[dtype]:
         raise AssertionError(f"K3 backward {name} {dtype} planned "
                              f"{plan.variant}")
@@ -4375,7 +4769,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
     # full call wrote
     scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
                             k3.BWD_BOTH)[3]
-    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype)
+    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
     lib_o = torch.nn.functional.scaled_dot_product_attention(
@@ -4388,7 +4782,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
             kern: [min(map(len, sched)), max(map(len, sched))]
             for kern, sched in (("dq", plan.schedule_dq),
                                 ("dkdv", plan.schedule_dkdv))}
-    row = {"case": name, "B": b, "S": s, "H": h, "KV": kv, "hd": d,
+    row = {"case": name, "B": b, "S": s, "Sk": sk, "H": h, "KV": kv, "hd": d,
            "causal": causal, "dtype": SUFFIX[dtype], "plan": summary,
            "max_abs_err": max(errs), "rel_err_dq_dk_dv": rels,
            "lse_max_abs_err": lse_err,
@@ -4827,6 +5221,166 @@ def train_zamba_card_vs_cpu(device, seed: int) -> dict:
                           "grad_of_scale": CARD_CPU_GRAD_TOL}}
 
 
+# --- training: whisper-small on K3 and its backward, cross attention included ---
+
+WHISPER_TRAIN_ARCH = "whisper_small"
+# (l): a batch of 8 30 s windows (1500 frames each) and 448-token
+# transcripts, full width and depth
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448
+# (m), (n): 2 encoder and 2 decoder layers at full width; (m) float32 card
+# against the CPU with (b)'s gates
+WHISPER_DEPTH = 2
+WHISPER_CARD_CPU_SEQ, WHISPER_CARD_CPU_BATCH = 128, 2
+WHISPER_RESUME_BATCH = 2
+# the parameters that multiply the frames, not the tokens: the encoder's
+# and the cross attention's k / v projections
+WHISPER_FRAME_PARAMS = ("enc_layers.", "enc_norm.")
+WHISPER_CROSS_KV = ("cross_attn.wk", "cross_attn.wv")
+
+
+def whisper_train_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N T with each parameter's own token count -- the encoder's layers
+    and the cross attention's k / v projections over the B x 1500 frames,
+    the rest of the decoder and the tied head over the B x S tokens; the
+    position tables are lookups -- plus attention: the forward's 2 B H
+    pairs (hd + hv) for the encoder's (frames^2), the decoder's causal and
+    its cross (S x frames) pairs, three times (forward and a backward of
+    two such products each)."""
+    f = cfg.num_frames
+    n_frames = n_tokens = 0
+    for name, p in module.named_parameters():
+        if name in ("enc_pos.pos_w", "dec_pos.pos_w"):
+            continue
+        if name.startswith(WHISPER_FRAME_PARAMS) or \
+                name.endswith(WHISPER_CROSS_KV):
+            n_frames += p.numel()
+        else:
+            n_tokens += p.numel()
+    pairs = (cfg.encoder_layers * f * f
+             + cfg.num_layers * (s * (s + 1) // 2 + s * f))
+    attn = 3 * 2 * b * cfg.num_heads * pairs * 2 * cfg.head_dim
+    return {"frame_params": n_frames, "token_params": n_tokens,
+            "flops": 6 * b * (n_frames * f + n_tokens * s) + attn,
+            "attention_flops": attn}
+
+
+def train_whisper_full(device, seed: int) -> dict:
+    """(l) whisper-small at full width and depth, bf16, B=8, 448 tokens
+    over 1500 frames, 4 AdamW steps through ``launch.train.train`` (frames
+    from its data iterator); the counts are zeroed just before and read
+    just after: K3's forward and backward once an attention, 36 + 36 a
+    step (remat "none")."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k3.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            WHISPER_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            seq_len=WHISPER_TRAIN_SEQ, batch=WHISPER_TRAIN_BATCH, seed=seed,
+            install_signals=False, log_every=1, device=device)
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"whisper training losses {losses}")
+    calls = cfg.encoder_layers + 2 * cfg.num_layers
+    want = {k3.TC: calls * TRAIN_STEPS, k3.BWD_BF16: calls * TRAIN_STEPS}
+    if cfg.remat != "none" or launches != want:
+        raise AssertionError(f"K3 launches in whisper training {launches}, "
+                             f"expected {want} (remat {cfg.remat})")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof)
+    device_ms = sum(split.values())
+    b, s = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    flops = whisper_train_flops(state.params, cfg, b, s)
+    out = {"arch": WHISPER_TRAIN_ARCH, "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.num_layers, "frames": cfg.num_frames,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat, "B": b, "S": s,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "tokens_per_s": b * s / (ms / 1e3),
+           "frames_per_s": b * cfg.num_frames / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak, "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "note": "as a_full: ms_per_step the host clock around a step "
+                   "ending in a synchronize, median of steps 1-2; "
+                   "device_ms_by_kind from step 3 under the profiler (K3 "
+                   "forward / backward, cuBLAS, other); idle_share = 1 - "
+                   "device_ms / ms_per_step; tokens_per_s counts the "
+                   "decoder's tokens; utilization = model flops "
+                   "(whisper_train_flops) / step time / 989 TFLOP/s"}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _audio_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tw.loss_fn(module, batch["tokens"], batch["labels"],
+                         batch["frames"])
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+def train_whisper_card_vs_cpu(device, seed: int) -> dict:
+    """(m) whisper float32 at 2 encoder and 2 decoder layers and full
+    width, B=2, S=128 over 1500 frames: the loss and every parameter
+    gradient on the card (K3's float32 forward and backward kernels --
+    the encoder's, the decoder's causal and cross attention --, cuBLAS in
+    full float32) against the port's CPU path from the same weights, tokens
+    and frames; (b)'s gates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = whisper_cfg(WHISPER_DEPTH, torch.float32)
+    b, s = WHISPER_CARD_CPU_BATCH, WHISPER_CARD_CPU_SEQ
+    cpu = tw.Whisper(cfg, generator=torch.Generator().manual_seed(seed),
+                     device="cpu", max_seq=s)
+    card = tw.Whisper(cfg, generator=torch.Generator(device=device)
+                      .manual_seed(seed), device=device, max_seq=s)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", s, b, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k3.reset_launch_counts()
+    loss_g, grads_g = _audio_grads(card, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    loss_c, grads_c = _audio_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"whisper card vs CPU training: loss rel "
+                             f"{rel_loss}, worst gradient {worst} ({errs})")
+    calls = cfg.encoder_layers + 2 * cfg.num_layers
+    want = {k3.F32: calls, k3.BWD_F32: calls}
+    if launches != want:
+        raise AssertionError(f"K3 launches on the card {launches}, "
+                             f"expected {want}")
+    return {"arch": WHISPER_TRAIN_ARCH, "encoder_layers": WHISPER_DEPTH,
+            "decoder_layers": WHISPER_DEPTH, "dtype": "float32", "B": b,
+            "S": s, "frames": cfg.num_frames,
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel_loss, "worst_grad_rel_diff": worst,
+            "cross_attention_worst_grad_rel_diff": max(
+                v for k, v in errs.items() if ".cross_attn." in k),
+            "grad_rel_diff": errs, "launches": launches,
+            "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL}}
+
+
 def phase_training(device, seed: int) -> dict:
     """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
@@ -4834,7 +5388,9 @@ def phase_training(device, seed: int) -> dict:
     against its plain version at the model shapes; (e) - (h) the same for
     mamba2-130m and K4's backward ((e) the full run, B=8); (i) - (k) for
     zamba2-1.2b, K3 and K4 and their backwards on one path ((i) the full
-    run, B=1)."""
+    run, B=1); (l) - (n) for whisper-small, K3 and its backward on the
+    encoder's, the decoder's and the cross attention ((l) the full run,
+    B=8, 448 tokens over 1500 frames)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -4862,6 +5418,14 @@ def phase_training(device, seed: int) -> dict:
                                           depth=ZAMBA_DEPTH)
     torch.cuda.empty_cache()
     seconds["i_to_k"] = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    out["l_whisper_full"] = train_whisper_full(device, seed)
+    out["m_whisper_card_vs_cpu"] = train_whisper_card_vs_cpu(device, seed)
+    out["n_whisper_resume"] = train_resume(
+        device, seed, WHISPER_TRAIN_ARCH, WHISPER_RESUME_BATCH,
+        WHISPER_DEPTH, WHISPER_TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    seconds["l_to_n"] = time.perf_counter() - t3
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
     emit({"phase": "training", **out,
@@ -4873,7 +5437,10 @@ def phase_training(device, seed: int) -> dict:
                         "h_f32": "<= 1e-4 max |plain| per gradient",
                         "j": "zamba2 float32 depth 7 card vs CPU: loss "
                              "1e-5 relative, every gradient (the shared "
-                             "block's included) 1e-4 of its scale"},
+                             "block's included) 1e-4 of its scale",
+                        "m": "whisper float32 2 + 2 layers card vs CPU: "
+                             "loss 1e-5 relative, every gradient (cross "
+                             "attention's included) 1e-4 of its scale"},
           "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
                            "after 2 warm-ups; device_ms the backward's "
                            "kernels (torch.profiler, 3 calls), "
@@ -4907,17 +5474,21 @@ def phase_training(device, seed: int) -> dict:
 
 
 def bwd_rows(training, ptxas) -> list:
-    """K3 backward's rows: the stablelm B=1 S=4096 shape, the qwen3 shape
-    beside it; launches from the training paths ((a) and zamba2's (i) bf16,
-    (b) and (j) float32)."""
+    """K3 backward's rows: the stablelm B=1 S=4096 shape, the other shapes
+    (qwen3's, whisper's cross and encoder attention) beside it; launches
+    from the training paths ((a), zamba2's (i) and whisper's (l) bf16, (b),
+    (j) and (m) float32)."""
     rows = []
-    paths = {torch.bfloat16: (("a_full", "i_zamba2_full"), "training (a): "
-                              "stablelm-1.6b, 4 steps; (i): zamba2-1.2b, "
-                              "4 steps, 6 sites"),
-             torch.float32: (("b_card_vs_cpu", "j_zamba2_card_vs_cpu"),
+    paths = {torch.bfloat16: (("a_full", "i_zamba2_full", "l_whisper_full"),
+                              "training (a): stablelm-1.6b, 4 steps; (i): "
+                              "zamba2-1.2b, 4 steps, 6 sites; (l): "
+                              "whisper-small, 4 steps, 36 attentions"),
+             torch.float32: (("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
+                              "m_whisper_card_vs_cpu"),
                              "training (b): stablelm float32 depth 2, one "
                              "step on the card; (j): zamba2 float32 depth "
-                             "7, one site, one step")}
+                             "7, one site, one step; (m): whisper float32 "
+                             "2 + 2 layers, 6 attentions, one step")}
     for dtype in (torch.bfloat16, torch.float32):
         name = BWD_MAIN[dtype]
         cases = [r for r in training["d_k3_backward"]
@@ -4943,7 +5514,7 @@ def bwd_rows(training, ptxas) -> list:
             "dkdv_ms": head["dkdv_ms"],
             "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "H", "KV", "hd", "causal", "ms",
+                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "ms",
                 "dq_ms", "dkdv_ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "units_bound_ms", "library_ms", "max_abs_err",
                 "rel_err_dq_dk_dv")} for r in cases],
@@ -5082,9 +5653,12 @@ CENSUS_CARD = (
     ("mamba2_130m", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("zamba2_1_2b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
-    ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")))
-# the cells the meta census traces: dense x 3 shapes, mamba2 and zamba2 x 4
-CENSUS_META_CELLS = 20
+    ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
+    # whisper (a)'s shape: 1500 frames and a 448-token prefill
+    ("whisper_small", ShapeConfig("prefill_b1_s448", 448, 1, "prefill")))
+# the cells the meta census traces: dense x 3 shapes, mamba2 and zamba2 x 4,
+# whisper x 3
+CENSUS_META_CELLS = 23
 CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
                "hbm_by_opcode", "kernels")
 # the k-fold models of the census dataset (the forest's k-fold, ~30 s a
@@ -5155,6 +5729,11 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
                  k3.TC: sites, k3.BWD_BF16: sites}
                 if shape.kind == "train"
                 else {"ssd_scan_bf16": layers, k3.TC: sites})
+    elif cfg.family == "audio":
+        # the encoder's layers, each decoder layer's self and cross
+        calls = cfg.encoder_layers + 2 * layers
+        want = ({k3.TC: calls, k3.BWD_BF16: calls} if shape.kind == "train"
+                else {k3.TC: calls})
     else:
         want = ({k3.TC: layers, k3.BWD_BF16: layers}
                 if shape.kind == "train" else {k3.TC: layers})
@@ -5294,7 +5873,7 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
 
 def phase_census(device) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device (20); five steps traced on the card and held equal to the meta
+    device (23); six steps traced on the card and held equal to the meta
     census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
@@ -5372,6 +5951,7 @@ def main() -> int:
     lm = phase_transformer(device, args.seed)
     mb = phase_mamba2(device, args.seed)
     zb = phase_zamba2(device, args.seed)
+    wb = phase_whisper(device, args.seed)
     phase_token_serving(device, args.seed)
     census = phase_census(device)
     campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
@@ -5380,7 +5960,7 @@ def main() -> int:
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])
           + conv_rows(per_dtype, infer)
-          + flash_rows(flash, lm, training, zb)
+          + flash_rows(flash, lm, training, zb, wb)
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
           + ssd_rows(ssd, mb, training, zb)
           + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})

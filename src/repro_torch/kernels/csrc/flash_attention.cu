@@ -19,10 +19,14 @@
 //
 //   o[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h, :] . k[b, j, h/G, :])
 //                   * v[b, j, h/G, :],   G = H / KV,
-//   over j <= i when causal, over all j < S otherwise.
-//     in : q [B, S, H, hd], k [B, S, KV, hd], v [B, S, KV, hv] (T, any
+//   over j <= i when causal, over all j < Sk otherwise.
+//     in : q [B, S, H, hd], k [B, Sk, KV, hd], v [B, Sk, KV, hv] (T, any
 //          strides with the last dimension dense, 16-byte aligned rows)
 //     out: o [B, S, H, hv] (T)
+//   The key length Sk may differ from the query length S (cross attention:
+//   a decoder's queries over an encoder's keys) when the call is not
+//   causal; causal needs Sk == S.  Query rows (q-blocks, o and lse rows)
+//   run over S, keys (kv tiles, key masks, the K / V tensor maps) over Sk.
 //
 //   The TPU kernel runs a (B*H, q-block, kv-block) grid with the kv axis
 //   sequential on one core, carrying the running max m, the running sum l
@@ -152,7 +156,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int S, H, KV;
+  int S, Sk, H, KV;  // S query rows, Sk keys (== S when causal)
   int64_t qs_b, qs_s, qs_h;  // element strides of q, k, v, o
   int64_t ks_b, ks_s, ks_h;
   int64_t vs_b, vs_s, vs_h;
@@ -411,7 +415,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto kv_tiles = [&](const Tile& tl) {
     const int q0 = tl.qb * kTcBM;
-    const int kv_end = p.causal ? min(q0 + kTcBM, p.S) : p.S;
+    const int kv_end = p.causal ? min(q0 + kTcBM, p.Sk) : p.Sk;
     return (kv_end + kTcBN - 1) / kTcBN;
   };
 
@@ -508,7 +512,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // that the dependency chains stay short.  For scale > 0 (every model) the
   // row max is taken over the raw scores and the scale folds into one FFMA
   // before each exp2 (masked scores -inf); other scales multiply first.
-  const int seq = p.S;
+  const int seq = p.Sk;  // the keys
   const bool causal = p.causal;
   auto softmax = [&](int k0, bool masked, auto positive) {
     constexpr bool kFold = decltype(positive)::value;
@@ -768,20 +772,20 @@ flash_bf16_mma_kernel(const Params p) {
   const bf16* vp = static_cast<const bf16*>(p.v) + b * p.vs_b + kvh * p.vs_h;
   bf16* op = static_cast<bf16*>(p.o) + b * p.os_b + h * p.os_h;
 
-  // one kv tile into buffer `buf` (keys past S zero-filled)
+  // one kv tile into buffer `buf` (keys past Sk zero-filled)
   auto load_kv = [&](int kb, int buf) {
     const int k0 = kb * kBK;
     bf16* kd = Ks + buf * kBK * LDK;
     bf16* vd = Vs + buf * kBK * LDV;
     for (int i = tid; i < kBK * (HD / 8); i += kThreads) {
       const int r = i / (HD / 8), c = i % (HD / 8);
-      const bool ok = k0 + r < p.S;
+      const bool ok = k0 + r < p.Sk;
       cp_async16(smem_u32(kd + r * LDK + c * 8),
                  ok ? kp + (k0 + r) * p.ks_s + c * 8 : kp, ok);
     }
     for (int i = tid; i < kBK * (HV / 8); i += kThreads) {
       const int r = i / (HV / 8), c = i % (HV / 8);
-      const bool ok = k0 + r < p.S;
+      const bool ok = k0 + r < p.Sk;
       cp_async16(smem_u32(vd + r * LDV + c * 8),
                  ok ? vp + (k0 + r) * p.vs_s + c * 8 : vp, ok);
     }
@@ -807,7 +811,7 @@ flash_bf16_mma_kernel(const Params p) {
   float m[2] = {kNegInf, kNegInf};  // running max, log2 domain
   float l[2] = {0.0f, 0.0f};        // this thread's share of the running sum
   const float sl2 = p.scale * kLog2e;
-  const int kv_end = p.causal ? min(q0 + kBQ, p.S) : p.S;
+  const int kv_end = p.causal ? min(q0 + kBQ, p.Sk) : p.Sk;
   const int n_kv = (kv_end + kBK - 1) / kBK;
 
   for (int kb = 0; kb < n_kv; ++kb) {
@@ -848,8 +852,8 @@ flash_bf16_mma_kernel(const Params p) {
         mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
       }
 
-    // scale, mask (diagonal tiles and keys past S only), row max
-    const bool masked = (k0 + kBK > p.S) || (p.causal && k0 + kBK - 1 > q0);
+    // scale, mask (diagonal tiles and keys past Sk only), row max
+    const bool masked = (k0 + kBK > p.Sk) || (p.causal && k0 + kBK - 1 > q0);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n)
@@ -859,7 +863,7 @@ flash_bf16_mma_kernel(const Params p) {
         if (masked) {
           const int row = q0 + rw + (e >> 1) * 8;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          if (key >= p.S || (p.causal && key > row)) x = kNegInf;
+          if (key >= p.Sk || (p.causal && key > row)) x = kNegInf;
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -1007,11 +1011,11 @@ flash_f32_kernel(const Params p) {
   const float* vp = static_cast<const float*>(p.v) + b * p.vs_b + kvh * p.vs_h;
   float* op = static_cast<float*>(p.o) + b * p.os_b + h * p.os_h;
 
-  const int kv_end = p.causal ? min(q0 + kFQ, p.S) : p.S;
+  const int kv_end = p.causal ? min(q0 + kFQ, p.Sk) : p.Sk;
   const int n_kv = (kv_end + kFK - 1) / kFK;
   load_rows_f32<HD>(Qs, LQ, qp, p.qs_s, q0, p.S);
-  load_rows_f32<HD>(Ks, LK, kp, p.ks_s, 0, p.S);
-  load_rows_f32<HV>(Vs, LV, vp, p.vs_s, 0, p.S);
+  load_rows_f32<HD>(Ks, LK, kp, p.ks_s, 0, p.Sk);
+  load_rows_f32<HV>(Vs, LV, vp, p.vs_s, 0, p.Sk);
   cp_async_commit();
 
   float acc[4][NG * VW];
@@ -1034,9 +1038,9 @@ flash_f32_kernel(const Params p) {
     __syncthreads();
     if (kb + 1 < n_kv) {  // in flight during this tile's products
       load_rows_f32<HD>(Ks + (buf ^ 1) * kFK * LK, LK, kp, p.ks_s, k0 + kFK,
-                        p.S);
+                        p.Sk);
       load_rows_f32<HV>(Vs + (buf ^ 1) * kFK * LV, LV, vp, p.vs_s, k0 + kFK,
-                        p.S);
+                        p.Sk);
       cp_async_commit();
     }
     const float* Kb = Ks + buf * kFK * LK;
@@ -1068,20 +1072,20 @@ flash_f32_kernel(const Params p) {
         }
     }
 
-    // scale, mask (tiles across the diagonal or past S only, by selects, so
+    // scale, mask (tiles across the diagonal or past Sk only, by selects, so
     // that no branch sits between elements), online softmax with the row
     // statistics over the 16 lanes that share the rows
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] *= p.scale;
-    if ((k0 + kFK > p.S) || (p.causal && k0 + kFK - 1 > q0)) {
+    if ((k0 + kFK > p.Sk) || (p.causal && k0 + kFK - 1 > q0)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = q0 + ty + 16 * i, key = k0 + tx + 16 * j;
-          const bool out = key >= p.S || (p.causal && key > row);
+          const bool out = key >= p.Sk || (p.causal && key > row);
           s[i][j] = out ? kNegInf : s[i][j];
         }
     }
@@ -1196,11 +1200,11 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
   }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
-                   int S, int H, int KV, const long long* st, float scale,
-                   int causal) {
+                   int S, int Sk, int H, int KV, const long long* st,
+                   float scale, int causal) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
-  p.S = S; p.H = H; p.KV = KV;
+  p.S = S; p.Sk = Sk; p.H = H; p.KV = KV;
   p.qs_b = st[0]; p.qs_s = st[1]; p.qs_h = st[2];
   p.ks_b = st[3]; p.ks_s = st[4]; p.ks_h = st[5];
   p.vs_b = st[6]; p.vs_s = st[7]; p.vs_h = st[8];
@@ -1212,12 +1216,18 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
+// the lengths every variant takes: S query rows, Sk keys, Sk == S when
+// causal
+bool lengths_fit(int S, int Sk, int causal) {
+  return S >= 1 && Sk >= 1 && (!causal || Sk == S);
+}
+
 // the checks every variant shares: the plan's tile and grid fit the shape
-bool plan_fits(int B, int S, int H, int KV, int block_q, int block_k,
-               int want_q, int want_k, int gx, int gy) {
-  return B >= 1 && S >= 1 && KV >= 1 && H % KV == 0 && block_q == want_q &&
-         block_k == want_k && (int64_t)gx == (int64_t)B * H &&
-         gy == (S + block_q - 1) / block_q;
+bool plan_fits(int B, int S, int Sk, int H, int KV, int causal, int block_q,
+               int block_k, int want_q, int want_k, int gx, int gy) {
+  return B >= 1 && lengths_fit(S, Sk, causal) && KV >= 1 && H % KV == 0 &&
+         block_q == want_q && block_k == want_k &&
+         (int64_t)gx == (int64_t)B * H && gy == (S + block_q - 1) / block_q;
 }
 
 // every row of q, k, v, o starts on 16 bytes (TMA's and cp.async's rule)
@@ -1260,20 +1270,21 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 // the tensor-core entry points: checks, tensor maps, launch (lse nullptr:
 // prefill's instance)
 int tc_entry(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int S, int H, int KV, int hd, int hv,
+             float* lse, int B, int S, int Sk, int H, int KV, int hd, int hv,
              const long long* strides, float scale, int causal, int block_q,
              int block_k, int gx, int gy, int device, void* stream) {
   const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
-  if (hd != hv || (hd != 64 && hd != 128) || B < 1 || S < 1 || KV < 1 ||
-      H % KV || block_q != kTcBM || block_k != kTcBN || gx < 1 ||
-      gx > n_tiles || gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
+  if (hd != hv || (hd != 64 && hd != 128) || B < 1 ||
+      !lengths_fit(S, Sk, causal) || KV < 1 || H % KV ||
+      block_q != kTcBM || block_k != kTcBN || gx < 1 || gx > n_tiles ||
+      gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
   if (!encode_bshd(&tm_q, q, B, S, H, hd, strides, kTcBM) ||
-      !encode_bshd(&tm_k, k, B, S, KV, hd, strides + 3, kTcBN) ||
-      !encode_bshd(&tm_v, v, B, S, KV, hv, strides + 6, kTcBN))
+      !encode_bshd(&tm_k, k, B, Sk, KV, hd, strides + 3, kTcBN) ||
+      !encode_bshd(&tm_v, v, B, Sk, KV, hv, strides + 6, kTcBN))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  Params p = make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
   p.bh = B * H;
   p.lse = lse;
   if (lse != nullptr)
@@ -1293,7 +1304,8 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// Every entry point: q, k, v, o device pointers; B, S, H, KV, hd, hv;
+// Every entry point: q, k, v, o device pointers; B, S (query rows), Sk
+// (keys; == S when causal), H, KV, hd, hv;
 // strides: 12 element strides, (batch, seq, head) of q, k, v, o in order;
 // the softmax scale; causal; the plan: block_q x block_k tile, grid (gx,
 // gy); the device and the stream.
@@ -1302,67 +1314,73 @@ extern "C" {
 // ceil(S / 128) blocks that walk the tiles; hd == hv in {64, 128}, every
 // row 16-byte aligned.
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
-                            void* o, int B, int S, int H, int KV, int hd,
-                            int hv, const long long* strides, float scale,
-                            int causal, int block_q, int block_k, int gx,
-                            int gy, int device, void* stream) {
-  return tc_entry(q, k, v, o, nullptr, B, S, H, KV, hd, hv, strides, scale,
-                  causal, block_q, block_k, gx, gy, device, stream);
+                            void* o, int B, int S, int Sk, int H, int KV,
+                            int hd, int hv, const long long* strides,
+                            float scale, int causal, int block_q, int block_k,
+                            int gx, int gy, int device, void* stream) {
+  return tc_entry(q, k, v, o, nullptr, B, S, Sk, H, KV, hd, hv, strides,
+                  scale, causal, block_q, block_k, gx, gy, device, stream);
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32)
 int flash_attention_bf16_tc_lse(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int B, int S, int H,
-                                int KV, int hd, int hv,
+                                void* o, void* lse, int B, int S, int Sk,
+                                int H, int KV, int hd, int hv,
                                 const long long* strides, float scale,
                                 int causal, int block_q, int block_k, int gx,
                                 int gy, int device, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return tc_entry(q, k, v, o, static_cast<float*>(lse), B, S, H, KV, hd, hv,
-                  strides, scale, causal, block_q, block_k, gx, gy, device,
-                  stream);
+  return tc_entry(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H, KV, hd,
+                  hv, strides, scale, causal, block_q, block_k, gx, gy,
+                  device, stream);
 }
 
 // bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid (B*H,
 // ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
-                             void* o, int B, int S, int H, int KV, int hd,
-                             int hv, const long long* strides, float scale,
-                             int causal, int block_q, int block_k, int gx,
-                             int gy, int device, void* stream) {
-  if (!plan_fits(B, S, H, KV, block_q, block_k, kBQ, kBK, gx, gy) ||
+                             void* o, int B, int S, int Sk, int H, int KV,
+                             int hd, int hv, const long long* strides,
+                             float scale, int causal, int block_q,
+                             int block_k, int gx, int gy, int device,
+                             void* stream) {
+  if (!plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kBQ, kBK, gx,
+                 gy) ||
       !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  const Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
   FLASH_DISPATCH(launch_mma)
 }
 
 // float32 on the CUDA cores, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid
 // (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV, int hd, int hv,
+                        int B, int S, int Sk, int H, int KV, int hd, int hv,
                         const long long* strides, float scale, int causal,
                         int block_q, int block_k, int gx, int gy, int device,
                         void* stream) {
-  if (!plan_fits(B, S, H, KV, block_q, block_k, kFQ, kFK, gx, gy) ||
+  if (!plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kFQ, kFK, gx,
+                 gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  const Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
   FLASH_DISPATCH(launch_f32)
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
 // hv in {64, 128}
 int flash_attention_f32_lse(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int S, int H, int KV,
-                            int hd, int hv, const long long* strides,
+                            void* o, void* lse, int B, int S, int Sk, int H,
+                            int KV, int hd, int hv, const long long* strides,
                             float scale, int causal, int block_q, int block_k,
                             int gx, int gy, int device, void* stream) {
   if (lse == nullptr || hd != hv || (hd != 64 && hd != 128) ||
-      !plan_fits(B, S, H, KV, block_q, block_k, kFQ, kFK, gx, gy) ||
+      !plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kFQ, kFK, gx,
+                 gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, H, KV, strides, scale, causal);
+  Params p = make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
   p.lse = static_cast<float*>(lse);
   return hd == 64 ? launch_f32<64, 64, true>(p, gx, gy, device, stream)
                   : launch_f32<128, 128, true>(p, gx, gy, device, stream);

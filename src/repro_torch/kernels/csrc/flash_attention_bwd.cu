@@ -30,6 +30,10 @@
 //     dQ_i  = sum_j dS_ij k_j
 //     dK_j  = sum_{h in group} sum_i dS_ij q_i
 //   out: dq [B, S, H, D], dk, dv [B, S, KV, D] in the input type.
+//   The keys and values may be Sk long, Sk != S, when the call is not
+//   causal (cross attention): k, v, dk, dv are then [B, Sk, KV, D], and
+//   the query rows (dQ items, q tiles, lse, D) run over S, the keys (kv
+//   tiles, dK / dV items, key masks, the K / V tensor maps) over Sk.
 //
 //   Bound on an H100: operations.  Per (b, h) the backward needs five
 //   products over the causally visible pairs -- S again, dP, dV, dQ, dK --
@@ -182,7 +186,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int S, H, KV;
+  int S, Sk, H, KV;      // S query rows, Sk keys (== S when causal)
   int s_pad;             // bf16: S rounded up to whole 128-row tiles
   const int* sched_dq;   // bf16: each kernel's schedule, offsets [blocks +
   const int* sched_kv;   //   1] then items (flash_attention_bwd_bf16)
@@ -513,7 +517,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_mine = p.sched_dq[blockIdx.x + 1] - first;
   const int* items = p.sched_dq + gridDim.x + 1 + first;
   auto kv_tiles = [&](int qb) {
-    const int kv_end = p.causal ? min((qb + 1) * kRows, p.S) : p.S;
+    const int kv_end = p.causal ? min((qb + 1) * kRows, p.Sk) : p.Sk;
     return (kv_end + BN - 1) / BN;
   };
 
@@ -571,7 +575,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int t = tid & 127, lane = t & 31, t4 = lane & 3;
   const int frag_row = (t >> 5) * 16 + (lane >> 2);
   const float sl2 = p.scale * kLog2e;
-  const int seq = p.S;
+  const int seq = p.S, keys = p.Sk;  // query rows, keys
   const bool causal = p.causal;
 
   float dq[D / 2];                 // dQ / scale
@@ -613,8 +617,8 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
   };
   // P and dS / scale of kv tile kt (keys [kt BN, kt BN + BN)) in s, from S
-  // in s and dP; on a tile with the diagonal or keys past S masked by
-  // selects (keys past S must go: TMA zero-filled their K and V, so P
+  // in s and dP; on a tile with the diagonal or keys past Sk masked by
+  // selects (keys past Sk must go: TMA zero-filled their K and V, so P
   // there is 2^-lse2, which can overflow)
   auto ds_tile = [&](int k0, auto masked) {
     constexpr bool kMasked = decltype(masked)::value;
@@ -627,14 +631,14 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (kMasked) {
           const int row = row0 + 8 * i;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          pe = (key >= seq || (causal && key > row)) ? 0.0f : pe;
+          pe = (key >= keys || (causal && key > row)) ? 0.0f : pe;
         }
         s[4 * n + e] = pe * (dp[4 * n + e] - dsum[i]);
       }
   };
   auto ds_of = [&](int kt) {
     const int k0 = kt * BN;
-    if (k0 + BN > seq || (causal && k0 + BN - 1 > row_lo))
+    if (k0 + BN > keys || (causal && k0 + BN - 1 > row_lo))
       ds_tile(k0, std::true_type());
     else
       ds_tile(k0, std::false_type());
@@ -828,7 +832,7 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   // this block's items: (b * KV + kv head) * nk + key block, heaviest first;
   // each walks the group's G heads, each head over the q tiles of 64 rows
   // from the first that sees the block's keys
-  const int nk = (p.S + kRows - 1) / kRows;
+  const int nk = (p.Sk + kRows - 1) / kRows;
   const int nq = (p.S + kStep - 1) / kStep;
   const int G = p.H / p.KV;
   const int first = p.sched_kv[blockIdx.x];
@@ -888,7 +892,7 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int t = tid & 127, lane = t & 31, t4 = lane & 3;
   const int frag_row = (t >> 5) * 16 + (lane >> 2);
   const float sl2 = p.scale * kLog2e;
-  const int seq = p.S;
+  const int keys = p.Sk;
 
   // At D = 128 the overlap below would hold S^T and dP^T of one q tile
   // beside P^T and dS^T of the other and dK, dV (224 registers a thread):
@@ -1088,7 +1092,7 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = key0 + 8 * i;
-      if (key >= seq) continue;
+      if (key >= keys) continue;
       bf16* ko = dkp + key * row_stride<kDK>(p);
       bf16* vo = dvp + key * row_stride<kDV>(p);
 #pragma unroll
@@ -1287,7 +1291,7 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
 // dQ: an item is kF query rows of one (b, h), blockIdx.x = (the item's
 // q-block, heaviest first under causal) * B H + b H + h.  Q and dO stay;
 // K and V tiles of f32_step keys stream through a ring of kFStages slots,
-// from key 0 to the item's last row (to S when not causal).  D of the rows
+// from key 0 to the item's last row (to Sk when not causal).  D of the rows
 // goes to the scratch for the dK / dV kernel.
 template <int D>
 __global__ void __launch_bounds__(kFThreads, 2)
@@ -1314,10 +1318,10 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   load_rows_f32<D, kF>(dOs, base<const float, kDO>(p, p.dout, b, h),
                        row_stride<kDO>(p), q0, p.S);
   cp_async_commit();
-  const int kv_end = p.causal ? min(q0 + kF, p.S) : p.S;
+  const int kv_end = p.causal ? min(q0 + kF, p.Sk) : p.Sk;
   const int tiles = (kv_end + KT - 1) / KT;
-  load_rows_f32<D, KT>(ring, kp, row_stride<kK>(p), 0, p.S);
-  load_rows_f32<D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.S);
+  load_rows_f32<D, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
+  load_rows_f32<D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
   cp_async_commit();
 
   // lse and D of rows g, g + 8 (D: the warp sums each of its rows, the
@@ -1359,9 +1363,9 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {
       float* nxt = ring + ((it + 1) % kFStages) * 2 * KT * LD;
-      load_rows_f32<D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.S);
+      load_rows_f32<D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
       load_rows_f32<D, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
-                           (it + 1) * KT, p.S);
+                           (it + 1) * KT, p.Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -1374,9 +1378,9 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
       float s[NT][4], dp[NT][4];
       scores_f32<D, NT>(Qs, Ks, 16 * warp, g, t, s);
       scores_f32<D, NT>(dOs, Vs, 16 * warp, g, t, dp);
-      // P = exp(S scale - lse), 0 for keys past S or above the row; dS /
+      // P = exp(S scale - lse), 0 for keys past Sk or above the row; dS /
       // scale = P (dP - D) into dp
-      const bool edge = k0 + KT > p.S || (p.causal && k0 + KT - 1 > r0);
+      const bool edge = k0 + KT > p.Sk || (p.causal && k0 + KT - 1 > r0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -1384,7 +1388,7 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
           float pe = expf(s[n][e] * p.scale - lse[e >> 1]);
           const int key = k0 + 8 * n + 2 * t + (e & 1);
           const int row = r0 + g + 8 * (e >> 1);
-          if (edge && (key >= p.S || (p.causal && key > row))) pe = 0.0f;
+          if (edge && (key >= p.Sk || (p.causal && key > row))) pe = 0.0f;
           dp[n][e] = pe * (dp[n][e] - dd[e >> 1]);
         }
       accumulate_f32<D, NT>(dp, Ks, g, t, dq);
@@ -1452,14 +1456,14 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const bool pwarp = (warp & 1) == 0;
   const int r16 = 16 * (warp >> 1);  // the warp's first key in the item
-  const int nk = (p.S + kF - 1) / kF, BH = (int)gridDim.x / nk;
+  const int nk = (p.Sk + kF - 1) / kF, BH = (int)gridDim.x / nk;
   const int kb = (int)blockIdx.x / BH, bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int k0 = kb * kF, key0 = k0 + r16;
   load_rows_f32<D, kF, kKVThreads>(Ks, base<const float, kK>(p, p.k, b, kvh),
-                                   row_stride<kK>(p), k0, p.S);
+                                   row_stride<kK>(p), k0, p.Sk);
   load_rows_f32<D, kF, kKVThreads>(Vs, base<const float, kV>(p, p.v, b, kvh),
-                                   row_stride<kV>(p), k0, p.S);
+                                   row_stride<kV>(p), k0, p.Sk);
   cp_async_commit();
 
   // the query tiles of one head, from the first that sees a key here
@@ -1539,14 +1543,14 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
     st = pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p);
   } else {
     out = p.part + (pwarp ? p.part_half : 0) +
-          (u64(b) * p.S * p.H + h) * D;
+          (u64(b) * p.Sk * p.H + h) * D;
     st = (int64_t)p.H * D;
   }
   const float mul = pwarp ? 1.0f : p.scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + g + 8 * i;
-    if (key >= p.S) continue;
+    if (key >= p.Sk) continue;
     float* o = out + u64(key) * st;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -1562,14 +1566,14 @@ template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
   const int G = p.H / p.KV;
-  const int64_t total = (int64_t)B * p.S * p.KV * (D / 4);
+  const int64_t total = (int64_t)B * p.Sk * p.KV * (D / 4);
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int c = (int)(i % (D / 4));
     const int64_t r = i / (D / 4);
-    const int kvh = (int)(r % p.KV), key = (int)(r / p.KV % p.S);
-    const int b = (int)(r / p.KV / p.S);
-    const float* src = p.part + (((int64_t)b * p.S + key) * p.H + kvh * G) * D
+    const int kvh = (int)(r % p.KV), key = (int)(r / p.KV % p.Sk);
+    const int b = (int)(r / p.KV / p.Sk);
+    const float* src = p.part + (((int64_t)b * p.Sk + key) * p.H + kvh * G) * D
                        + 4 * c;
     float4 k4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = k4;
     for (int gi = 0; gi < G; ++gi) {
@@ -1622,9 +1626,10 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
   if (parts & 1) {
     if (!encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kRows) ||
         !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kRows) ||
-        !encode_bshd(&tm_k, p.k, B, p.S, p.KV, D, st + 3 * kK,
+        !encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK,
                      dq_step<D>()) ||
-        !encode_bshd(&tm_v, p.v, B, p.S, p.KV, D, st + 3 * kV, dq_step<D>()))
+        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV,
+                     dq_step<D>()))
       return (int)cudaErrorInvalidValue;
     auto kernel = flash_bwd_dq_bf16_tc_kernel<D>;
     err = allow_smem(kernel, dq_smem_bytes<D>(), device, &dq_done);
@@ -1635,8 +1640,8 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    if (!encode_bshd(&tm_k, p.k, B, p.S, p.KV, D, st + 3 * kK, kRows) ||
-        !encode_bshd(&tm_v, p.v, B, p.S, p.KV, D, st + 3 * kV, kRows) ||
+    if (!encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK, kRows) ||
+        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV, kRows) ||
         !encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kStep) ||
         !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kStep))
       return (int)cudaErrorInvalidValue;
@@ -1665,7 +1670,7 @@ int launch_f32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
                              f32_dkdv_smem_bytes<D>(), kKVThreads, p, ctas_kv,
                              1, &kv_done, device, stream);
     if (err != cudaSuccess || p.H == p.KV) return (int)err;
-    const int64_t total = (int64_t)B * p.S * p.KV * (D / 4);
+    const int64_t total = (int64_t)B * p.Sk * p.KV * (D / 4);
     const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256
                                                           : 65536);
     flash_bwd_dkdv_sum_f32_kernel<D><<<blocks, 256, 0,
@@ -1686,11 +1691,12 @@ bool aligned_rows(const void* const* ptrs, const long long* st, int elem) {
 // the checks both variants share; fills p
 bool make_params(Params* p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse, void* dd,
-                 void* dq, void* dk, void* dv, int B, int S, int H, int KV,
-                 int hd, const long long* strides, float scale, int causal,
-                 int parts, int elem) {
+                 void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
+                 int KV, int hd, const long long* strides, float scale,
+                 int causal, int parts, int elem) {
   const void* ptrs[kTensors] = {q, k, v, o, dout, dq, dk, dv};
-  if (B < 1 || S < 1 || KV < 1 || H % KV || (hd != 64 && hd != 128) ||
+  if (B < 1 || S < 1 || Sk < 1 || (causal && Sk != S) || KV < 1 || H % KV ||
+      (hd != 64 && hd != 128) ||
       (int64_t)B * H >= (1ll << 31) || lse == nullptr || dd == nullptr ||
       parts < 1 || parts > 3 || !aligned_rows(ptrs, strides, elem))
     return false;
@@ -1699,7 +1705,7 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   p->lse = static_cast<const float*>(lse);
   p->dd = static_cast<float*>(dd);
   p->dq = dq; p->dk = dk; p->dv = dv;
-  p->S = S; p->H = H; p->KV = KV;
+  p->S = S; p->Sk = Sk; p->H = H; p->KV = KV;
   for (int i = 0; i < 3 * kTensors; ++i) p->st[i] = strides[i];
   p->scale = scale;
   p->causal = causal;
@@ -1711,9 +1717,10 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Both entry points: q, k, v, o, do, lse, the scratch, (bf16: the
-// schedule,) dq, dk, dv device pointers; B, S, H, KV, hd (== hv, 64 or
-// 128); strides: 24 element strides, (batch, seq, head) of q, k, v, o, do,
-// dq, dk, dv in order; the softmax scale; causal; the plan: the dQ
+// schedule,) dq, dk, dv device pointers; B, S (query rows), Sk (keys;
+// == S when causal), H, KV, hd (== hv, 64 or 128); strides: 24 element
+// strides, (batch, seq, head) of q, k, v, o, do, dq, dk, dv in order; the
+// softmax scale; causal; the plan: the dQ
 // kernel's rows an item (q_rows) and kv step, the dK / dV kernel's keys an
 // item (kv_rows) and q step, the ring depths of the two kernels and their
 // grids (blocks); parts: 1 the dQ kernel, 2 the dK / dV kernel (it reads
@@ -1725,35 +1732,36 @@ extern "C" {
 // bf16 on wgmma.  Plan: q_rows = kv_rows = 128, q_step = 64, kv_step 128 at
 // hd 64 and 64 at 128 (dq_step), the ring depths of the two kernels (4 and
 // 4 at hd 64, 3 and 3 at 128), their persistent grids ctas_dq <= B * H * nq
-// and ctas_kv <= B * KV * nq blocks (nq = ceil(S / 128)).  scratch: float32
-// [2, B * H, 128 nq] (lse2, then D).  sched: int32, each kernel's schedule
-// in turn -- ctas + 1 offsets, then its items, block c taking items
-// [offsets[c], offsets[c + 1]) in order: for the dQ kernel B * H * nq items
-// (b * H + h) * nq + q-block, for the dK / dV kernel B * KV * nq items
-// (b * KV + kv head) * nq + key block.
+// and ctas_kv <= B * KV * nk blocks (nq = ceil(S / 128), nk = ceil(Sk /
+// 128)).  scratch: float32 [2, B * H, 128 nq] (lse2, then D).  sched:
+// int32, each kernel's schedule in turn -- ctas + 1 offsets, then its
+// items, block c taking items [offsets[c], offsets[c + 1]) in order: for
+// the dQ kernel B * H * nq items (b * H + h) * nq + q-block, for the dK /
+// dV kernel B * KV * nk items (b * KV + kv head) * nk + key block.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* scratch, const void* sched, void* dq,
-                             void* dk, void* dv, int B, int S, int H, int KV,
-                             int hd, const long long* strides, float scale,
+                             void* dk, void* dv, int B, int S, int Sk, int H,
+                             int KV, int hd, const long long* strides,
+                             float scale,
                              int causal, int q_rows, int kv_rows, int q_step,
                              int kv_step, int stages_dq, int stages_dkdv,
                              int ctas_dq, int ctas_kv, int parts, int device,
                              void* stream) {
   Params p;
-  if (!make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H,
-                   KV, hd, strides, scale, causal, parts, 2) ||
+  if (!make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
+                   H, KV, hd, strides, scale, causal, parts, 2) ||
       sched == nullptr || q_rows != kRows || kv_rows != kRows ||
       q_step != kStep ||
       kv_step != (hd == 64 ? dq_step<64>() : dq_step<128>()))
     return (int)cudaErrorInvalidValue;
-  const int64_t nq = (S + kRows - 1) / kRows;
-  const int64_t n_dq = (int64_t)B * H * nq, n_kv = (int64_t)B * KV * nq;
+  const int64_t nq = (S + kRows - 1) / kRows, nk = (Sk + kRows - 1) / kRows;
+  const int64_t n_dq = (int64_t)B * H * nq, n_kv = (int64_t)B * KV * nk;
   const bool d64 = hd == 64;
   if (stages_dq != (d64 ? dq_stages<64>() : dq_stages<128>()) ||
       stages_dkdv != (d64 ? dkdv_stages<64>() : dkdv_stages<128>()) ||
-      n_dq >= (1ll << 31) || ctas_dq < 1 || ctas_dq > n_dq || ctas_kv < 1 ||
-      ctas_kv > n_kv)
+      n_dq >= (1ll << 31) || n_kv >= (1ll << 31) || ctas_dq < 1 ||
+      ctas_dq > n_dq || ctas_kv < 1 || ctas_kv > n_kv)
     return (int)cudaErrorInvalidValue;
   p.s_pad = (int)(nq * kRows);
   p.lse2 = static_cast<float*>(scratch);
@@ -1770,13 +1778,13 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
 
 // float32 as 3xTF32 on mma.sync.  Plan: q_rows = kv_rows = 64 (kF), q_step
 // = kv_step = f32_step, 2 ring slots in each kernel, grids of one block an
-// item: ctas_dq = ctas_kv = B * H * nq (nq = ceil(S / 64)).  scratch:
-// float32 D [B, H, S], after the dK, dV partials 2 x [B, S, H, hd] when H >
-// KV.
+// item: ctas_dq = B * H * nq and ctas_kv = B * H * nk (nq = ceil(S / 64),
+// nk = ceil(Sk / 64)).  scratch: float32 D [B, H, S], after the dK, dV
+// partials 2 x [B, Sk, H, hd] when H > KV.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
-                            int S, int H, int KV, int hd,
+                            int S, int Sk, int H, int KV, int hd,
                             const long long* strides, float scale, int causal,
                             int q_rows, int kv_rows, int q_step, int kv_step,
                             int stages_dq, int stages_dkdv, int ctas_dq,
@@ -1784,16 +1792,17 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             void* stream) {
   Params p;
   const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
-  const int64_t nq = (S + kF - 1) / kF;
-  if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, H, KV,
-                   hd, strides, scale, causal, parts, 4) ||
+  const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
+  if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
+                   KV, hd, strides, scale, causal, parts, 4) ||
       q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
       stages_dq != kFStages || stages_dkdv != kFStages ||
-      (int64_t)B * H * nq >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
-      ctas_kv != ctas_dq)
+      (int64_t)B * H * nq >= (1ll << 31) ||
+      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
+      ctas_kv != (int64_t)B * H * nk)
     return (int)cudaErrorInvalidValue;
-  // with GQA the scratch holds the dK, dV partials [B, S, H, hd], then D
-  p.part_half = (int64_t)B * S * H * hd;
+  // with GQA the scratch holds the dK, dV partials [B, Sk, H, hd], then D
+  p.part_half = (int64_t)B * Sk * H * hd;
   p.part = static_cast<float*>(dd);
   if (H > KV) p.dd += 2 * p.part_half;
   cudaError_t err = cudaSetDevice(device);

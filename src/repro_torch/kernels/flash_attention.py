@@ -3,13 +3,17 @@ launch counts.
 
 Hand-written CUDA kernels (``csrc/flash_attention.cu``) compute causal or
 non-causal softmax attention in the BSHD layout of the reference's
-``ops.flash_attention``: ``q`` [B, S, H, hd], ``k`` [B, S, KV, hd], ``v``
-[B, S, KV, hv] -> [B, S, H, hv] in ``q.dtype``, with the running max, the
+``ops.flash_attention``: ``q`` [B, S, H, hd], ``k`` [B, Sk, KV, hd], ``v``
+[B, Sk, KV, hv] -> [B, S, H, hv] in ``q.dtype``, with the running max, the
 running sum and the float32 accumulator kept on chip; they replace the
 reference's TPU kernel ``_flash_kernel``.  GQA / MQA read the kv head
 ``h // (H // KV)`` in place (no repeated K / V), and any ``S`` works (the
-reference kernel needs ``S`` to be a multiple of its block).  The kernels
-take ``hd, hv`` in ``HEAD_DIMS``.
+reference kernel needs ``S`` to be a multiple of its block).  The keys may
+be longer or shorter than the queries (``Sk != S``: cross attention, a
+decoder's queries over an encoder's frames) when the call is not causal;
+causal attention takes ``Sk == S`` (the reference defines no alignment
+for it) and raises otherwise.  The kernels take ``hd, hv`` in
+``HEAD_DIMS``.
 
 Three variants, chosen by shape before any launch (``plan``), each counted
 under its own key of ``LAUNCHES``:
@@ -117,44 +121,61 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _pairs(s: int, causal: bool) -> int:
-    """(query, key) pairs attention computes: S(S+1)/2 causal, S^2 not."""
-    return s * (s + 1) // 2 if causal else s * s
+def _pairs(s: int, causal: bool, sk: Optional[int] = None) -> int:
+    """(query, key) pairs attention computes over ``s`` queries and ``sk``
+    keys (default ``s``): S(S+1)/2 causal (``sk == s``), S Sk not."""
+    sk = s if sk is None else sk
+    if causal:
+        _check_lengths(s, sk, causal)
+        return s * (s + 1) // 2
+    return s * sk
+
+
+def _check_lengths(s: int, sk: int, causal: bool) -> None:
+    if causal and sk != s:
+        raise ValueError(f"causal attention needs as many keys as queries; "
+                         f"got {s} queries, {sk} keys (the reference defines "
+                         f"no alignment for a causal mask between lengths)")
 
 
 def fwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
-             causal: bool, dtype: torch.dtype, lse: bool = False
-             ) -> Tuple[int, int]:
-    """(flops, bytes) of one forward call, as the census books it: the two
-    products, (2 hd + 2 hv) B H pairs, whatever the tiling; q, k, v read and
-    o (and the float32 log-sum-exp) written once -- never the score
-    blocks."""
+             causal: bool, dtype: torch.dtype, lse: bool = False,
+             sk: Optional[int] = None) -> Tuple[int, int]:
+    """(flops, bytes) of one forward call over ``s`` queries and ``sk``
+    keys (default ``s``), as the census books it: the two products, (2 hd +
+    2 hv) B H pairs, whatever the tiling; q, k, v read and o (and the
+    float32 log-sum-exp) written once -- never the score blocks."""
+    sk = s if sk is None else sk
     el = dtype.itemsize
-    nbytes = el * b * s * (h * hd + kv * hd + kv * hv + h * hv)
+    nbytes = el * b * (s * (h * hd + h * hv) + sk * (kv * hd + kv * hv))
     if lse:
         nbytes += 4 * b * h * s
-    return (2 * hd + 2 * hv) * b * h * _pairs(s, causal), nbytes
+    return (2 * hd + 2 * hv) * b * h * _pairs(s, causal, sk), nbytes
 
 
 def bwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
-             causal: bool, dtype: torch.dtype) -> Tuple[int, int]:
-    """(flops, bytes) of one backward call: the recomputed S = Q K^T and
-    the products dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q,
-    (6 hd + 4 hv) B H pairs; q, k, v, o, dO and the LSE read, dq, dk, dv
-    and D = rowsum(dO O) written once."""
+             causal: bool, dtype: torch.dtype, sk: Optional[int] = None
+             ) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call over ``s`` queries and ``sk``
+    keys (default ``s``): the recomputed S = Q K^T and the products dP = dO
+    V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q, (6 hd + 4 hv) B H pairs;
+    q, k, v, o, dO and the LSE read, dq, dk, dv and D = rowsum(dO O)
+    written once."""
+    sk = s if sk is None else sk
     el = dtype.itemsize
-    nbytes = el * b * s * (2 * (h * hd + kv * hd + kv * hv) + 2 * h * hv) \
-        + 2 * 4 * b * h * s
-    return (6 * hd + 4 * hv) * b * h * _pairs(s, causal), nbytes
+    nbytes = el * b * (s * (2 * h * hd + 2 * h * hv)
+                       + sk * 2 * (kv * hd + kv * hv)) + 2 * 4 * b * h * s
+    return (6 * hd + 4 * hv) * b * h * _pairs(s, causal, sk), nbytes
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
          dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
-    """The launch plan of attention over q [b, s, h, hd], k [b, s, kv, hd],
-    v [b, s, kv, hv] in ``dtype`` on a card of ``sms`` SMs, for operands
-    the kernels read in place (``kernel_ready``; the wrapper copies any
-    other first).  A pure function of its arguments.
+    """The launch plan of attention over q [b, s, h, hd], k [b, sk, kv,
+    hd], v [b, sk, kv, hv] in ``dtype`` on a card of ``sms`` SMs, for
+    operands the kernels read in place (``kernel_ready``; the wrapper copies
+    any other first).  A pure function of its arguments; the tiles walk the
+    query rows, so the key length ``sk`` does not change it.
 
     bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``,
     else the ``mma.sync`` variant; float32 takes the CUDA-core variant."""
@@ -185,7 +206,8 @@ def _library():
         from repro_torch.kernels import build
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        tail = ([ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+        # B, S, Sk, H, KV, hd, hv, strides, scale, causal, the plan, ...
+        tail = ([ci] * 7 + [ctypes.POINTER(ctypes.c_longlong),
                             ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
         for name in FWD_VARIANTS:
             fn = getattr(lib, name)
@@ -208,7 +230,8 @@ def _bwd_library():
         from repro_torch.kernels import build
         lib = build.load(BWD_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        shape = [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+        # B, S, Sk, H, KV, hd, strides, scale, causal
+        shape = [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
                             ctypes.c_float, ci] + [ci] * 4
         # ..., scratch, [schedule,] dq, dk, dv, shape, strides, scale,
         # causal, the plan (tiles, stages, grids), parts, device, stream
@@ -224,17 +247,19 @@ def _bwd_library():
     return _bwd_bound
 
 
-def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> Tuple[int, int, int, int, int, int]:
-    """Raises on what neither version takes; returns (B, S, H, KV, hd, hv)."""
+def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> Tuple[int, int, int, int, int, int, int]:
+    """Raises on what neither version takes; returns (B, S, Sk, H, KV, hd,
+    hv): S query rows, Sk keys (Sk == S when ``causal``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, S, heads, dim]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, s, h, hd = (int(d) for d in q.shape)
-    kv = int(k.shape[2])
-    if tuple(k.shape) != (b, s, kv, hd) or tuple(v.shape[:3]) != (b, s, kv):
-        raise ValueError(f"k must be [B, S, KV, hd] and v [B, S, KV, hv] "
+    sk, kv = int(k.shape[1]), int(k.shape[2])
+    if tuple(k.shape) != (b, sk, kv, hd) or \
+            tuple(v.shape[:3]) != (b, sk, kv):
+        raise ValueError(f"k must be [B, Sk, KV, hd] and v [B, Sk, KV, hv] "
                          f"beside q {tuple(q.shape)}; got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if kv < 1 or h % kv:
@@ -245,10 +270,11 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if min(b, s, h, hd, int(v.shape[3])) < 1:
+    if min(b, s, sk, h, hd, int(v.shape[3])) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, v "
                          f"{tuple(v.shape)}")
-    return b, s, h, kv, hd, int(v.shape[3])
+    _check_lengths(s, sk, causal)
+    return b, s, sk, h, kv, hd, int(v.shape[3])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -263,7 +289,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv block together: for a block the reference kernel skips (entirely
     above the diagonal) every ``p`` is exactly 0 and every correction
     exactly 1, so the update changes nothing.  GQA groups query heads over
-    their kv head; K and V are never repeated."""
+    their kv head; K and V are never repeated.  Keys may be longer or
+    shorter than the queries when not ``causal``."""
     return _plain_forward(q, k, v, causal, scale)[0]
 
 
@@ -272,7 +299,7 @@ def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_plain``'s output and the row log-sum-exp of the
     scaled scores, ``m + log(max(l, 1e-30))``, float32 [B, H, S]."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
     g = h // kv
     if scale is None:
         scale = hd ** -0.5
@@ -284,8 +311,8 @@ def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((b, kv, g, s, hv), dtype=torch.float32,
                       device=q.device)
     q_pos = torch.arange(s, device=q.device)
-    block = min(BLOCK, s)
-    for k0 in range(0, s, block):
+    block = min(BLOCK, sk)
+    for k0 in range(0, sk, block):
         kj, vj = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
         sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kj) * scale
         if causal:
@@ -317,8 +344,9 @@ def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
     [B, H, S]: D = rowsum(dO * O); P = exp(scale q k^T - lse) (0 above the
     diagonal when causal); dV = P^T dO; dP = dO V^T; dS = P * (dP - D) *
     scale; dQ = dS K; dK = dS^T Q.  GQA sums dK and dV over each group's
-    heads.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    heads; keys may be longer or shorter than the queries when not
+    ``causal``.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
     g = h // kv
     if scale is None:
         scale = hd ** -0.5
@@ -360,7 +388,7 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
 def plan_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     """``plan`` for these tensors, with the SM count of their card
     (``H100_SMS`` off the card)."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    b, s, _, h, kv, hd, hv = _validate(q, k, v, False)
     sms = _sm_count(q.device) if q.device.type == "cuda" else H100_SMS
     return plan(b, s, h, kv, hd, hv, q.dtype, sms)
 
@@ -380,18 +408,19 @@ def _sm_count(device: torch.device) -> int:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention of ``q`` [B, S, H, hd] over ``k`` [B, S, KV, hd],
-    ``v`` [B, S, KV, hv] (H a multiple of KV), causal unless ``causal`` is
-    False, scores scaled by ``scale`` (default ``hd ** -0.5``); returns [B,
-    S, H, hv] in ``q.dtype`` (float32 or bfloat16, float32 statistics and
-    accumulation).  CUDA tensors launch the variant that ``plan`` picks
-    (``hd, hv`` in ``HEAD_DIMS``); CPU tensors take the plain version."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    """Softmax attention of ``q`` [B, S, H, hd] over ``k`` [B, Sk, KV, hd],
+    ``v`` [B, Sk, KV, hv] (H a multiple of KV), causal unless ``causal`` is
+    False (causal needs Sk == S), scores scaled by ``scale`` (default ``hd
+    ** -0.5``); returns [B, S, H, hv] in ``q.dtype`` (float32 or bfloat16,
+    float32 statistics and accumulation).  CUDA tensors launch the variant
+    that ``plan`` picks (``hd, hv`` in ``HEAD_DIMS``); CPU tensors take the
+    plain version."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
     if scale is None:
         scale = hd ** -0.5
     with census.kernel_call(lambda: (
             plan_for(q, k, v).variant,
-            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype))):
+            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk))):
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, causal=causal, scale=scale)
         if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
@@ -410,8 +439,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
         lib = _library()
         code = getattr(lib, p.variant)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            kv, hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, sk,
+            h, kv, hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
             p.block_k, gx, gy, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
         LAUNCHES[p.variant] += 1
@@ -436,12 +465,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch ``plan``'s variant built to write the LSE (``hd == hv`` in
     ``BWD_HEAD_DIMS``; the tensor-core variant in bf16, the CUDA-core one in
     float32); CPU tensors take the plain version."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
     if scale is None:
         scale = hd ** -0.5
     with census.kernel_call(lambda: (
             plan_for(q, k, v).variant,
-            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, lse=True))):
+            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, lse=True,
+                      sk=sk))):
         if q.device.type == "cpu":
             return _plain_forward(q, k, v, causal, scale)
         _check_train_shape(hd, hv)
@@ -457,7 +487,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         gx, gy = p.grid
         code = getattr(lib, p.variant + "_lse")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, s, h, kv, hd, hv, strides, float(scale),
+            lse.data_ptr(), b, s, sk, h, kv, hd, hv, strides, float(scale),
             int(bool(causal)), p.block_q, p.block_k, gx, gy, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
         LAUNCHES[p.variant] += 1
@@ -491,8 +521,9 @@ class BwdPlan:
 
     bf16: each kernel is persistent, ``grid_*`` = (blocks, 1), and block
     ``c`` works through the items ``schedule_*[c]`` in order -- dQ items
-    ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV + kv_head) * nq
-    + key_block`` with ``nq = ceil(S / q_rows)``.  float32: one block an
+    ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV + kv_head) * nk
+    + key_block`` with ``nq = ceil(S / q_rows)``, ``nk = ceil(Sk /
+    kv_rows)``.  float32: one block an
     item, ``grid_*`` = (items, 1), no schedule: block ``i`` takes q-block
     or key block ``i // (B H)`` (the dQ kernel's reversed under causal, so
     the heaviest items come first) of head ``b H + h = i % (B H)``; with
@@ -560,21 +591,26 @@ def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
     return dq, dkdv
 
 
-def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool
-                  ) -> Tuple[List[int], List[int]]:
-    """The work of each bf16 item, in ``BWD_STEP``-wide tiles it walks plus
-    one for its set-up (loads, D, the epilogue): dQ item ``(b * H + h) *
-    nq + qb`` walks the keys up to its rows' last (all of them when not
-    causal), in kv tiles of ``_dq_step`` keys; dK / dV item ``(b * KV +
-    kvh) * nq + kb`` walks, for each of the G heads, the q tiles of
-    ``BWD_STEP`` rows from the first that sees its keys.  The work does not
-    depend on the head size: ``_dq_step(64)`` tiles count as two."""
-    nq, nstep = _cdiv(s, BWD_ROWS), _cdiv(s, BWD_STEP)
+def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
+                  sk: Optional[int] = None) -> Tuple[List[int], List[int]]:
+    """The work of each bf16 item over ``s`` query rows and ``sk`` keys
+    (default ``s``), in ``BWD_STEP``-wide tiles it walks plus one for its
+    set-up (loads, D, the epilogue): dQ item ``(b * H + h) * nq + qb``
+    (``nq = ceil(s / BWD_ROWS)``) walks the keys up to its rows' last (all
+    ``sk`` of them when not causal), in kv tiles of ``_dq_step`` keys; dK /
+    dV item ``(b * KV + kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``)
+    walks, for each of the G heads, the q tiles of ``BWD_STEP`` rows from
+    the first that sees its keys.  The work does not depend on the head
+    size: ``_dq_step(64)`` tiles count as two."""
+    sk = s if sk is None else sk
+    _check_lengths(s, sk, causal)
+    nq, nk = _cdiv(s, BWD_ROWS), _cdiv(sk, BWD_ROWS)
+    nstep = _cdiv(s, BWD_STEP)
     per_block = BWD_ROWS // BWD_STEP
-    dq = [_cdiv(min((qb + 1) * BWD_ROWS, s) if causal else s, BWD_STEP) + 1
+    dq = [_cdiv(min((qb + 1) * BWD_ROWS, s) if causal else sk, BWD_STEP) + 1
           for qb in range(nq)]
     dkdv = [(h // kv) * (nstep - (kb * per_block if causal else 0)) + 1
-            for kb in range(nq)]
+            for kb in range(nk)]
     return dq * (b * h), dkdv * (b * kv)
 
 
@@ -601,11 +637,12 @@ def bwd_variant(dtype: torch.dtype) -> str:
     raise TypeError(f"no K3 backward variant for {dtype}")
 
 
-@functools.lru_cache(maxsize=4096)
 def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
-             causal: bool = True, sms: int = H100_SMS) -> BwdPlan:
-    """The backward's plan for q [b, s, h, hd], k, v [b, s, kv, hd] in
-    ``dtype`` on a card of ``sms`` SMs (a pure function of its arguments).
+             causal: bool = True, sms: int = H100_SMS,
+             sk: Optional[int] = None) -> BwdPlan:
+    """The backward's plan for q [b, s, h, hd], k, v [b, sk, kv, hd] (``sk``
+    default ``s``) in ``dtype`` on a card of ``sms`` SMs (a pure function of
+    its arguments, made once: the same object for the same shape).
     bf16 on ``wgmma``: items of 128 rows or keys, the dQ kernel stepping
     ``_dq_step`` keys at a time and the dK / dV kernel 64 query rows,
     ``_bwd_stages`` ring slots, each kernel a persistent grid of at most
@@ -614,9 +651,17 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     an item, heaviest first, each stepping ``_f32_step`` rows or keys
     through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums
     the dK / dV pass's per-head partials."""
+    return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
+                     bool(causal), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
+              dtype: torch.dtype, causal: bool, sms: int) -> BwdPlan:
     _check_train_shape(hd, hd)
+    _check_lengths(s, sk, causal)
     if dtype == torch.bfloat16:
-        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal)
+        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk)
         ctas_dq, ctas_dkdv = min(len(work_dq), sms), min(len(work_dkdv), sms)
         st = _bwd_stages(hd)
         return BwdPlan(BWD_BF16, BWD_ROWS, BWD_ROWS, BWD_STEP, _dq_step(hd),
@@ -625,10 +670,10 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
                        _lpt(work_dkdv, ctas_dkdv))
     if dtype == torch.float32:
         r, st = F32_BWD_ROWS, _f32_step(hd)
-        items = b * h * _cdiv(s, r)
         return BwdPlan(BWD_F32, r, r, st, st,
-                       (F32_BWD_STAGES, F32_BWD_STAGES), (items, 1),
-                       (items, 1), _f32_bwd_smem(hd))
+                       (F32_BWD_STAGES, F32_BWD_STAGES),
+                       (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
+                       _f32_bwd_smem(hd))
     raise TypeError(f"no K3 backward variant for {dtype}")
 
 
@@ -665,10 +710,10 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of attention's output ``o`` = attention(q, k,
     v) given its gradient ``do`` and the forward's log-sum-exp ``lse``
-    [B, H, S].  CUDA tensors launch ``plan_bwd``'s variant (``hd == hv`` in
-    ``BWD_HEAD_DIMS``) or raise; CPU tensors take
-    ``flash_attention_bwd_plain``."""
-    b, s, h, kv, hd, hv = _validate(q, k, v)
+    [B, H, S] (k, v, dk, dv [B, Sk, KV, hd]).  CUDA tensors launch
+    ``plan_bwd``'s variant (``hd == hv`` in ``BWD_HEAD_DIMS``) or raise; CPU
+    tensors take ``flash_attention_bwd_plain``."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
     if scale is None:
         scale = hd ** -0.5
     if tuple(o.shape) != (b, s, h, hv) or tuple(do.shape) != (b, s, h, hv) \
@@ -681,7 +726,7 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}")
     with census.kernel_call(lambda: (
             bwd_variant(q.dtype),
-            *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype))):
+            *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk))):
         if q.device.type == "cpu":
             return flash_attention_bwd_plain(do, q, k, v, o, lse,
                                              causal=causal, scale=scale)
@@ -703,8 +748,9 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     returns (dq, dk, dv, scratch), the outputs a part did not launch
     unwritten.  One call counts once.  To time the dK / dV kernel alone,
     pass back the scratch of a ``BWD_BOTH`` call on the same inputs."""
-    b, s, h, kv, hd, _ = _validate(q, k, v)
-    p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device))
+    b, s, sk, h, kv, hd, _ = _validate(q, k, v, causal)
+    p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device),
+                 sk)
     if max(p.grid_dq[0], p.grid_dkdv[0]) >= 2 ** 31:
         raise ValueError(f"B = {b}, H = {h}, S = {s} exceed the backward "
                          "kernels' grid")
@@ -713,13 +759,13 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     bf16 = p.variant == BWD_BF16
     if scratch is None:
         # bf16: lse2, D [B H, S padded]; float32: D [B, H, S], after the
-        # per-head dK, dV partials [2, B, S, H, hd] with GQA
+        # per-head dK, dV partials [2, B, Sk, H, hd] with GQA
         shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if bf16 \
-            else ((h > kv) * 2 * b * s * h * hd + b * h * s,)
+            else ((h > kv) * 2 * b * sk * h * hd + b * h * s,)
         scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(int(st) for t in (q, k, v, o, do, dq, dk, dv)
           for st in t.stride()[:3]))
@@ -728,7 +774,7 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), scratch.data_ptr()]
     if bf16:
         head.append(_schedule_tensor(p, q.device).data_ptr())
-    tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd,
+    tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, sk, h, kv, hd,
             strides, float(scale), int(bool(causal)), p.q_rows, p.kv_rows,
             p.q_step, p.kv_step, p.stages[0], p.stages[1], p.grid_dq[0],
             p.grid_dkdv[0]]

@@ -112,12 +112,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, S, H, hd]; k, v [B, S, KV, hd | hv] -> [B, S, H, hv] in
+    """q [B, S, H, hd]; k, v [B, Sk, KV, hd | hv] -> [B, S, H, hv] in
     ``q.dtype``, on the hand-written kernel K3 (its plain version for CPU
     tensors).  Unlike the reference's ``ops.flash_attention`` nothing is
     transposed to [B*H, S, hd] and K / V are not repeated for GQA: the
     kernel reads the kv head ``h // (H // KV)`` in place.  ``scale``
-    defaults to ``hd ** -0.5``; any ``S`` works.  Where autograd records
+    defaults to ``hd ** -0.5``; any ``S`` works, and the key length ``Sk``
+    may differ from ``S`` when not ``causal``.  Where autograd records
     (gradients on and an input that requires them) the call goes through
     ``FlashAttention``, K3 with its hand-written backward (``hd == hv`` in
     64, 128 on the card); otherwise -- prefill, decode -- straight to K3."""

@@ -50,7 +50,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import costmodel, hxa
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hw import get_chip
-from repro_torch.models import api
+from repro_torch.models import api, layers
 
 _COERCE = {
     "remat": str, "capacity_factor": float, "optimizer": str, "dtype": str,
@@ -159,29 +159,37 @@ class Step(NamedTuple):
 def make_step(cfg: ArchConfig, shape: ShapeConfig,
               device: DeviceLike = "meta") -> Step:
     """The step of one cell on ``device`` (the meta device, the card or the
-    CPU): the model from ``Model.init`` (seed-0 weights; none on meta) and
-    the reference's inputs -- int32 tokens [B, S] (and labels) for train and
-    prefill, [B, 1] for decode.  train: a fresh ``TrainState`` with the
-    config's optimizer (``optim.make_optimizer(cfg.optimizer)``) and one
-    ``make_train_step`` call; prefill: ``Model.prefill``; decode: one
-    ``Model.decode`` against ``init_cache(B, S)`` at position S - 1."""
+    CPU): the model from ``Model.init(max_seq=S)`` (seed-0 weights; none on
+    meta) and the reference's inputs -- int32 tokens [B, S] (and labels)
+    for train and prefill, [B, 1] for decode; the audio family's frames [B,
+    num_frames, d] in the model dtype for train and prefill.  train: a fresh
+    ``TrainState`` with the config's optimizer
+    (``optim.make_optimizer(cfg.optimizer)``) and one ``make_train_step``
+    call; prefill: ``Model.prefill``; decode: one ``Model.decode`` against
+    ``init_cache(B, S)`` (whisper's with its cross part) at position
+    S - 1."""
     dev = resolve_device(device, allow_meta=True)
     model = api.build_model(cfg)
     b, s = shape.global_batch, shape.seq_len
+    extra = {}
+    if cfg.family == "audio" and shape.kind != "decode":
+        extra["frames"] = torch.zeros((b, cfg.num_frames, cfg.d_model),
+                                      dtype=layers.dtype_of(cfg), device=dev)
     if shape.kind == "train":
         api.check_trainable(cfg)
         optimizer = optim.make_optimizer(cfg.optimizer)
-        state = api.init_train_state(model.init(device=dev), optimizer)
+        state = api.init_train_state(model.init(device=dev, max_seq=s),
+                                     optimizer)
         tokens = torch.zeros((b, s), dtype=torch.int32, device=dev)
-        batch = {"tokens": tokens, "labels": tokens.clone()}
+        batch = {"tokens": tokens, "labels": tokens.clone(), **extra}
         return Step(api.make_train_step(model, optimizer), (state, batch),
                     (state.params, state.opt, batch))
     if model.prefill is None:
         raise NotImplementedError(f"{cfg.name} has no serving step")
-    module = model.init(device=dev)
+    module = model.init(device=dev, max_seq=s)
     if shape.kind == "prefill":
         batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
-                                       device=dev)}
+                                       device=dev), **extra}
         return Step(model.prefill, (module, batch), (module, batch))
     batch = {"tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev)}
     cache = model.init_cache(b, s, device=dev)

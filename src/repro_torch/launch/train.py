@@ -11,7 +11,11 @@ dense family trains (every layer's attention on K3 and its hand-written
 backward), and so do the SSM family (``--arch mamba2_130m``: every layer's
 scan on K4 and its hand-written backward) and the hybrid family (``--arch
 zamba2_1_2b``: every layer's scan on K4, the shared block's attention at
-each site on K3, each with its hand-written backward); the command line
+each site on K3, each with its hand-written backward) and the audio family
+(``--arch whisper_small``: the encoder's, the decoder's and the cross
+attention on K3 and its hand-written backward, the frames from the data
+iterator; the decoder gets ``--seq-len`` positions, as the reference's
+``init(key, max_seq=seq_len)``); the command line
 runs on the card, and ``train(..., device="cpu")`` runs the plain versions
 on the host.  A mesh of more than one device is not ported (ROADMAP.md
 Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).
@@ -70,7 +74,7 @@ def train(arch: str, steps: int = 100, reduced: bool = True,
             "(models/dist.py, models/sharding.py, launch/mesh.py)")
 
     module = model.init(torch.Generator(device=dev).manual_seed(seed),
-                        device=dev)
+                        device=dev, max_seq=seq_len)
     state = api.init_train_state(module, optimizer)
 
     start_step = 0

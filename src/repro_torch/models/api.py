@@ -4,19 +4,26 @@
 as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
 family (ResNet-50 inference), the dense transformer family (prefill, KV
 cache, decode, and training), the SSM family (Mamba2: chunked prefill,
-recurrent decode, and training) and the hybrid family (Zamba2: the Mamba2
-backbone with one shared attention block; prefill, decode and training).
+recurrent decode, and training), the hybrid family (Zamba2: the Mamba2
+backbone with one shared attention block; prefill, decode and training)
+and the audio family (whisper: an encoder over precomputed frames and a
+decoder with cross attention; prefill, decode and training).
 ``prefill(module, batch)``, ``decode(module, batch, cache)`` and
 ``init_cache(batch, max_len, device=...)`` mirror the reference's serving
-entries (``None`` for the CNN, as there); the other families raise
+entries (``None`` for the CNN, as there; the audio family's prefill and loss
+also read ``batch["frames"]``); the other families raise
 ``NotImplementedError`` naming the roadmap item that brings them.
-``loss(module, batch)`` and ``make_train_step`` train the dense, SSM and
-hybrid families; the CNN raises, naming the roadmap item that brings its
-backward kernels.
+``init(generator=None, device="cuda", max_seq=4096)`` builds the module;
+``max_seq`` sizes whisper's decoder positions, as the reference's
+``init(key, max_seq)``, and the other families ignore it.
+``loss(module, batch)`` and ``make_train_step`` train the dense, SSM,
+hybrid and audio families; the CNN raises, naming the roadmap item that
+brings its backward kernels.
 
 A ``TrainState`` is the module and its optimiser state, one optimiser leaf
 for each of the reference's parameter leaves (``leaf_groups``: a [L, ...]
-stack of layers -- ``layers``, or zamba's ``mamba_layers`` -- is one leaf);
+stack of layers -- ``layers``, zamba's ``mamba_layers``, whisper's
+``enc_layers`` and ``dec_layers`` -- is one leaf);
 ``state_tree`` / ``load_state_tree`` turn it into the flat tree
 ``checkpoint.store`` writes and back, and ``restore_train_state`` also reads a checkpoint of the
 reference's ``TrainState`` (``train_state_from_reference``, any trainable
@@ -36,7 +43,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
-from repro_torch.models import mamba, resnet, transformer, zamba
+from repro_torch.models import mamba, resnet, transformer, whisper, zamba
 from repro_torch.optim.adafactor import AdafactorConfig, FactoredV, factorable
 from repro_torch.optim.adamw import Group, is_moment_leaf
 
@@ -44,17 +51,19 @@ from repro_torch.optim.adamw import Group, is_moment_leaf
 _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
                       transformer.init_cache),
             "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache),
-            "hybrid": (zamba.check_hybrid, zamba.Zamba, zamba.init_cache)}
+            "hybrid": (zamba.check_hybrid, zamba.Zamba, zamba.init_cache),
+            "audio": (whisper.check_audio, whisper.Whisper,
+                      whisper.init_cache)}
 
 # the trainable families: (loss_fn, params_from_reference)
 _TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
              "ssm": (mamba.loss_fn, mamba.params_from_reference),
-             "hybrid": (zamba.loss_fn, zamba.params_from_reference)}
+             "hybrid": (zamba.loss_fn, zamba.params_from_reference),
+             "audio": (whisper.loss_fn, whisper.params_from_reference)}
 
 # the roadmap item that ports each family not ported yet
 _NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
-               "vlm": "Queue 1 item 12e (the VLM prefix)",
-               "audio": "Queue 1 item 12e (whisper)"}
+               "vlm": "Queue 1 item 12e (the VLM prefix)"}
 
 # the roadmap item that brings training to each ported family that lacks it
 _NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
@@ -64,7 +73,8 @@ _NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    init: Callable[..., torch.nn.Module]   # (generator=None, device="cuda")
+    # (generator=None, device="cuda", max_seq=4096)
+    init: Callable[..., torch.nn.Module]
     prefill: Optional[Callable] = None     # (module, batch) -> (logits, cache)
     decode: Optional[Callable] = None      # (module, batch, cache) -> same
     init_cache: Optional[Callable] = None  # (batch, max_len, device) -> cache
@@ -79,10 +89,17 @@ def check_trainable(cfg: ArchConfig) -> None:
             f"{_NO_TRAINING.get(cfg.family, 'Queue 1 item 12e')}")
 
 
+def _inputs(cfg: ArchConfig, batch) -> tuple:
+    """The batch's inputs beside the tokens (and labels) that the family's
+    entries take: the audio family's ``frames``."""
+    return (batch["frames"],) if cfg.family == "audio" else ()
+
+
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "cnn":
         def init(generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = "cuda") -> resnet.ResNet:
+                 device: DeviceLike = "cuda",
+                 max_seq: int = 4096) -> resnet.ResNet:
             return resnet.ResNet(cfg, generator=generator, device=device)
 
         return Model(cfg, init)
@@ -91,8 +108,10 @@ def build_model(cfg: ArchConfig) -> Model:
         check(cfg)
 
         def init(generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = "cuda") -> torch.nn.Module:
-            return module(cfg, generator=generator, device=device)
+                 device: DeviceLike = "cuda",
+                 max_seq: int = 4096) -> torch.nn.Module:
+            kw = {"max_seq": max_seq} if cfg.family == "audio" else {}
+            return module(cfg, generator=generator, device=device, **kw)
 
         def init_cache(batch: int, max_len: int,
                        device: DeviceLike = "cuda"):
@@ -101,10 +120,12 @@ def build_model(cfg: ArchConfig) -> Model:
         def loss(module: torch.nn.Module, batch):
             check_trainable(cfg)
             return _TRAINING[cfg.family][0](module, batch["tokens"],
-                                            batch["labels"])
+                                            batch["labels"],
+                                            *_inputs(cfg, batch))
 
         return Model(cfg, init,
-                     prefill=lambda m, batch: m.prefill(batch["tokens"]),
+                     prefill=lambda m, batch: m.prefill(
+                         batch["tokens"], *_inputs(cfg, batch)),
                      decode=lambda m, batch, cache: m.decode_step(
                          batch["tokens"], cache),
                      init_cache=init_cache, loss=loss)
@@ -126,7 +147,8 @@ def leaf_groups(names: Sequence[str]) -> List[Tuple[str, Group]]:
     ``names`` (in ``named_parameters()`` order): ``(leaf name, Group)`` in
     order of first appearance, the leaf name the reference's path joined by
     dots.  ``<root>.<i>.<rest>`` for i = 0 .. L-1, ``<root>`` a stacked
-    root (``layers.STACKED_ROOTS``: ``layers``, zamba's ``mamba_layers``),
+    root (``layers.STACKED_ROOTS``: ``layers``, zamba's ``mamba_layers``,
+    whisper's ``enc_layers`` and ``dec_layers``),
     is one stacked group, ``<root>.<rest>``; every other parameter (zamba's
     ``shared_attn.*`` included) a group of its own."""
     order: List[str] = []
@@ -266,7 +288,8 @@ def reference_param_leaves(module: torch.nn.Module
     shapes = {}
     for name, p in module.named_parameters():
         path, layer = L.reference_key(name)
-        stack = (module.cfg.num_layers,) if layer is not None else ()
+        stack = ((L.stack_depth(module.cfg, path.split("/")[0]),)
+                 if layer is not None else ())
         shapes[path] = stack + tuple(p.shape)
     return sorted(shapes.items(), key=lambda kv: kv[0].split("/"))
 

@@ -5,9 +5,11 @@ Conventions, as in the reference: parameters are nested string-keyed
 mappings of tensors (a ``ParamTree`` module, or a plain dict); activations
 are [B, S, ...] and attention uses the BSHD layout; products run in the
 config dtype, softmax and norm statistics in float32, cast back once.
-Prefill attention goes through ``kernels.ops.flash_attention`` (the
-hand-written kernel K3); single-token decode attention is plain tensor code,
-as the reference computes it outside any Pallas kernel.  Large products are
+Prefill attention -- causal, an encoder's bidirectional attention and a
+decoder's cross attention over an encoder's output alike -- goes through
+``kernels.ops.flash_attention`` (the hand-written kernel K3); single-token
+decode attention is plain tensor code, as the reference computes it outside
+any Pallas kernel.  Large products are
 ``torch.matmul`` / ``einsum``, as the reference leaves them to XLA.
 """
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,20 +89,29 @@ class ParamTree(nn.Module):
 
 # the reference's parameter roots that stack one leaf a layer along a leading
 # [L, ...] axis: the dense and SSM models' ``layers``, zamba's
-# ``mamba_layers``; the port spreads each over ``<root>.<i>``
-STACKED_ROOTS = ("layers", "mamba_layers")
+# ``mamba_layers``, whisper's ``enc_layers`` and ``dec_layers``; the port
+# spreads each over ``<root>.<i>``
+STACKED_ROOTS = ("layers", "mamba_layers", "enc_layers", "dec_layers")
+
+
+def stack_depth(cfg, root: str) -> int:
+    """The layers of the stacked root ``root``: ``cfg.encoder_layers`` for
+    whisper's ``enc_layers``, ``cfg.num_layers`` for every other root."""
+    return cfg.encoder_layers if root == "enc_layers" else cfg.num_layers
 
 
 def copy_reference_params(module: nn.Module, params: Mapping,
-                          num_layers: int) -> None:
+                          num_layers: Union[int, Mapping[str, int]]) -> None:
     """Copies the reference's ``init_params`` pytree ``params`` (nested
     dicts of arrays; any float dtype that numpy can cast to float32, bf16
     included) into ``module``, whose ``state_dict`` keys are the
     reference's paths joined by dots.  The leading L axis of each stacked
     root (``STACKED_ROOTS``: ``params["layers"]``,
-    ``params["mamba_layers"]``) is split one layer at a time over
-    ``<root>.<i>``; every leaf must match one parameter by path and shape,
-    and is cast to that parameter's dtype."""
+    ``params["mamba_layers"]``, ...) is split one layer at a time over
+    ``<root>.<i>``, L being ``num_layers`` (or ``num_layers[root]``, a
+    mapping for models whose stacks differ in depth); every leaf must match
+    one parameter by path and shape, and is cast to that parameter's
+    dtype."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -111,10 +122,12 @@ def copy_reference_params(module: nn.Module, params: Mapping,
                 walk(v, path)
             elif root in STACKED_ROOTS and rest:
                 arr = np.asarray(v)
-                if arr.shape[:1] != (num_layers,):
+                n = (num_layers[root] if isinstance(num_layers, Mapping)
+                     else num_layers)
+                if arr.shape[:1] != (n,):
                     raise ValueError(f"{path}: leading axis {arr.shape[:1]}, "
-                                     f"expected ({num_layers},) layers")
-                for i in range(num_layers):
+                                     f"expected ({n},) layers")
+                for i in range(n):
                     flat[f"{root}.{i}.{rest}"] = np.array(arr[i],
                                                           dtype=np.float32)
             else:
@@ -189,6 +202,11 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def init_layernorm(d: int, device=None) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -278,6 +296,36 @@ def attention_prefill(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     return _out(o, p["wo"]), (k, v)
 
 
+def attention_encode(p, cfg, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional (encoder) self attention through K3 (``causal=False``;
+    the reference's is a materialised float32 softmax)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = ops.flash_attention(q, k, v, causal=False,
+                            scale=cfg.head_dim ** -0.5)
+    return _out(o, p["wo"])
+
+
+def cross_kv(p, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keys and values of cross attention: ``enc_out`` [B, F, d] by
+    ``wk`` and ``wv`` (no bias, as the reference's), [B, F, KV, hd]."""
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+
+
+def attention_cross(p, cfg, x: torch.Tensor,
+                    kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Cross attention of the queries ``x`` [B, S, d] by ``wq`` over the
+    given keys and values ``kv`` ([B, F, KV, hd], from ``cross_kv``), not
+    causal, through K3 with its key length apart from the query length.
+    The reference's ``attention_block(..., kv_override=...)`` also projects
+    k and v from ``x`` and drops them; the port projects only q."""
+    k, v = kv
+    o = ops.flash_attention(_proj(x, p["wq"]), k, v, causal=False,
+                            scale=cfg.head_dim ** -0.5)
+    return _out(o, p["wo"])
+
+
 def _decode_softmax_av(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cache_len: int, scale: float, s_eq: str,
                        o_eq: str, seq_axis: int) -> torch.Tensor:
@@ -347,6 +395,18 @@ def attention_decode(p, cfg, x: torch.Tensor, cache: Mapping,
         o = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
                              scale=scale)
     return _out(o, p["wo"]), cache
+
+
+def attention_cross_decode(p, cfg, x: torch.Tensor,
+                           kv: Tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """Single-token cross attention of ``x`` [B, 1, d] (``wq`` only) over a
+    layer's whole cross cache ``kv`` ([B, F, KV, hd] each), as tensor code:
+    the reference's ``decode_attention`` over all F keys."""
+    k, v = kv
+    o = decode_attention(_proj(x, p["wq"]), k, v, k.shape[1],
+                         scale=cfg.head_dim ** -0.5)
+    return _out(o, p["wo"])
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, layers: int,

@@ -319,11 +319,12 @@ def test_applicable_and_skipped_cells():
                       for s in ("train_4k", "prefill_32k", "decode_32k")}
                      | {(a, s) for a in ("mamba2_130m", "zamba2_1_2b")
                         for s in ("train_4k", "prefill_32k", "decode_32k",
-                                  "long_500k")})
+                                  "long_500k")}
+                     | {("whisper_small", s)
+                        for s in ("train_4k", "prefill_32k", "decode_32k")})
     skipped = {(a, s): why for a, s, why in dryrun.skipped_cells()}
-    assert len(skipped) == 13
-    for arch in ("deepseek_v3_671b", "deepseek_v2_236b", "paligemma_3b",
-                 "whisper_small"):
+    assert len(skipped) == 10
+    for arch in ("deepseek_v3_671b", "deepseek_v2_236b", "paligemma_3b"):
         assert "ROADMAP.md Queue 1 item 12e" in skipped[(arch, "prefill_32k")]
     assert ("resnet50", "-") in skipped
     assert not cells & set(skipped)
@@ -368,6 +369,42 @@ def test_zamba2_train_cell_books_both_kernels_and_their_backwards():
     assert kern["ssd_scan_bwd_bf16"]["flops"] == layers * flops
     assert kern["ssd_scan_bwd_bf16"]["bytes"] == layers * nbytes
     assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_whisper_cells_book_every_attention_on_k3(shape):
+    """whisper-small's three cells, traced on meta at full width and depth:
+    K3 once an encoder layer (the 1500 frames, not causal), once a decoder
+    layer's self attention (causal) and once its cross attention (the
+    decoder's S queries over the 1500 frames' keys), each entry K3's own
+    census work -- the forward with its log-sum-exp and the backward once
+    each in a train step (remat "none"); nothing in decode."""
+    cfg = base.get_config("whisper_small")
+    sh = base.SHAPES[shape]
+    art = dryrun.run_cell("whisper_small", shape, save=False)
+    kern = art["hxa"]["kernels"]
+    assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
+    if sh.kind == "decode":
+        assert kern == {}
+        return
+    b, s, f = sh.global_batch, sh.seq_len, cfg.num_frames
+    h, kv, hd, n = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_layers
+    train = sh.kind == "train"
+    calls = ([(f, f, False)] * cfg.encoder_layers
+             + [(s, s, True), (s, f, False)] * n)
+    fwd = [k3.fwd_work(b, sq, h, kv, hd, hd, causal, torch.bfloat16,
+                       lse=train, sk=sk) for sq, sk, causal in calls]
+    want = {k3.TC: {"launches": float(len(calls)),
+                    "flops": float(sum(w[0] for w in fwd)),
+                    "bytes": float(sum(w[1] for w in fwd))}}
+    if train:
+        bwd = [k3.bwd_work(b, sq, h, kv, hd, hd, causal, torch.bfloat16,
+                           sk=sk) for sq, sk, causal in calls]
+        want[k3.BWD_BF16] = {"launches": float(len(calls)),
+                             "flops": float(sum(w[0] for w in bwd)),
+                             "bytes": float(sum(w[1] for w in bwd))}
+    assert kern == want
 
 
 def test_all_names_every_skipped_cell(tmp_path, monkeypatch, capsys):

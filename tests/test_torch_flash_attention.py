@@ -290,3 +290,101 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
 def test_flash_and_conv_sources_share_the_hopper_header():
     for src in (k3.SOURCE, "conv2d.cu", k3.BWD_SOURCE, "ssd_scan.cu"):
         assert "hopper.cuh" in build.local_headers(src)
+
+
+# --- keys apart from the queries (cross attention) ----------------------------
+
+# (B, Sq, Sk, H, KV, hd): fewer queries than keys over several kv blocks of
+# 128; more queries than keys, ragged, GQA; ragged both, GQA G = 3 over
+# 1000 keys (the card's ragged cross case)
+CROSS_SHAPES = [(1, 48, 300, 4, 4, 32), (2, 200, 77, 4, 2, 16),
+                (2, 77, 1000, 6, 2, 64)]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_length_matches_attention_ref(shape, dtype):
+    """q [B, Sq, H, hd] over k, v [B, Sk, KV, hd], not causal: the plain
+    version against ``ref.attention_ref(..., causal=False)`` on K / V
+    repeated for GQA."""
+    b, sq, sk, h, kv, d = shape
+    (q, k, v), (qt, kt, vt) = _inputs(
+        sq + sk, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dtype)
+    g = h // kv
+    want = ref.attention_ref(q, jnp.repeat(k, g, 2), jnp.repeat(v, g, 2),
+                             causal=False)
+    got = ops.flash_attention(qt, kt, vt, causal=False)
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, sq, h, d)
+    _close(got, want.astype(jnp.float32), dtype)
+
+
+def test_cross_length_value_width_may_differ():
+    (q, k, v), (qt, kt, vt) = _inputs(
+        9, [(2, 40, 2, 64), (2, 130, 2, 64), (2, 130, 2, 32)], "float32")
+    got = ops.flash_attention(qt, kt, vt, causal=False)
+    assert tuple(got.shape) == (2, 40, 2, 32)
+    _close(got, ref.attention_ref(q, k, v, causal=False), "float32")
+
+
+def test_causal_with_another_key_length_raises():
+    """Causal attention between lengths has no alignment in the reference:
+    the wrapper, the plain versions, the work counts and the plans
+    refuse it."""
+    q, k = torch.zeros((1, 16, 2, 16)), torch.zeros((1, 24, 2, 16))
+    for fn in (ops.flash_attention, k3.flash_attention,
+               k3.flash_attention_plain, k3.flash_attention_fwd):
+        with pytest.raises(ValueError, match="causal"):
+            fn(q, k, k)
+        fn(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="causal"):
+        k3._validate(q, k, k, True)
+    with pytest.raises(ValueError, match="causal"):
+        k3.fwd_work(1, 16, 2, 2, 16, 16, True, F32, sk=24)
+
+
+def test_cross_length_work_equals_closed_forms():
+    """``fwd_work`` counts Sq Sk pairs when not causal, q and o bytes by Sq
+    and k and v bytes by Sk; with Sk == Sq (or None) it is what it was."""
+    b, sq, sk, h, kv, hd, hv = 2, 448, 1500, 12, 4, 64, 32
+    el = 2
+    flops, nbytes = k3.fwd_work(b, sq, h, kv, hd, hv, False, BF16, sk=sk)
+    assert flops == (2 * hd + 2 * hv) * b * h * sq * sk
+    assert nbytes == el * b * (sq * h * (hd + hv) + sk * kv * (hd + hv))
+    _, with_lse = k3.fwd_work(b, sq, h, kv, hd, hv, False, BF16, lse=True,
+                              sk=sk)
+    assert with_lse == nbytes + 4 * b * h * sq
+    for causal in (True, False):
+        same = k3.fwd_work(b, sq, h, kv, hd, hv, causal, F32)
+        assert k3.fwd_work(b, sq, h, kv, hd, hv, causal, F32, sk=sq) == same
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        assert same == ((2 * hd + 2 * hv) * b * h * pairs,
+                        4 * b * sq * (h * hd + h * hv + kv * hd + kv * hv))
+    # the census's whisper cross entry: B=1, 448 queries over 1500 frames
+    flops, nbytes = k3.fwd_work(1, 448, 12, 12, 64, 64, False, BF16,
+                                sk=1500)
+    assert flops == 2_064_384_000 and nbytes == 5_984_256
+
+
+def test_cross_length_plan_walks_the_query_rows():
+    """The forward's tiles are query rows: the plan of a cross call is the
+    plan of its queries, whatever the key length."""
+    q = torch.zeros((1, 448, 12, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 1500, 12, 64), dtype=torch.bfloat16)
+    assert k3.plan_for(q, k, k) == k3.plan(1, 448, 12, 12, 64, 64, BF16)
+    assert k3.plan_for(q, k, k).grid == (12 * 4, 1)
+    assert k3.plan_for(q.float(), k.float(), k.float()).grid == (12, 7)
+
+
+def test_cuda_sources_take_the_key_length():
+    """Every forward and backward C entry point takes S and Sk, and the
+    K / V tensor maps are encoded over Sk rows."""
+    for source, names in ((k3.SOURCE, list(k3.FWD_VARIANTS)
+                           + [k3.TC + "_lse", k3.F32 + "_lse"]),
+                          (k3.BWD_SOURCE, list(k3.BWD_VARIANTS))):
+        src = (build.CSRC_DIR / source).read_text()
+        for name in names:
+            m = re.search(rf"\nint {name}\(([^)]*)\)", src)
+            assert m and re.search(r"int S, int Sk, int H", " ".join(
+                m[1].split())), name
+        assert re.search(r"encode_bshd\(&tm_k, [^;]*\bSk\b", src)
+        assert re.search(r"encode_bshd\(&tm_v, [^;]*\bSk\b", src)

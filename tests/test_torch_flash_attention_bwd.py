@@ -460,3 +460,136 @@ def test_3xtf32_backward_holds_the_float32_gates(b, s, h, kv, d, causal):
     one_pass = _tf32(_tf32(q[0, :, 0]) @ _tf32(k[0, :, 0]).T)
     exact = q[0, :, 0].astype(np.float64) @ k[0, :, 0].T.astype(np.float64)
     assert np.abs(one_pass - exact).max() > 1e-4 * np.abs(exact).max()
+
+
+# --- keys apart from the queries (cross attention) ----------------------------
+
+# (B, Sq, Sk, H, KV, d): fewer queries than keys; more queries than keys,
+# ragged, GQA G = 4
+CROSS_SHAPES = [(1, 48, 300, 4, 4, 32), (2, 200, 77, 8, 2, 16)]
+CROSS_TOL = {torch.float32: TOL, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_length_backward_matches_jax_vjp_of_attention_ref(shape,
+                                                                 dtype):
+    """q [B, Sq, H, d] over k, v [B, Sk, KV, d], not causal: the plain
+    backward from the plain forward's o and log-sum-exp against ``jax.vjp``
+    of ``ref.attention_ref(..., causal=False)`` on K / V repeated for GQA
+    (the repeat's VJP sums each group), each gradient within 1e-5 of its
+    scale in float32 and 2e-2 in bf16."""
+    from repro.kernels import ref
+    b, sq, sk, h, kv, d = shape
+    rng = np.random.default_rng(sq + sk)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    q, k, v, do = (jnp.asarray(rng.normal(size=s).astype(np.float32), jdt)
+                   for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d),
+                             (b, sq, h, d)))
+    g = h // kv
+
+    def attn(q, k, v):
+        return ref.attention_ref(q, jnp.repeat(k, g, 2), jnp.repeat(v, g, 2),
+                                 causal=False)
+
+    o_ref, vjp = jax.vjp(attn, q, k, v)
+    want = vjp(do)
+    qt, kt, vt, dot = (_t(np.asarray(a.astype(jnp.float32))).to(dtype)
+                       for a in (q, k, v, do))
+    o, lse = k3.flash_attention_fwd(qt, kt, vt, causal=False)
+    assert lse.shape == (b, h, sq)
+    assert _rel(o, o_ref.astype(jnp.float32)) <= CROSS_TOL[dtype]
+    got = k3.flash_attention_bwd(dot, qt, kt, vt, o, lse, causal=False)
+    for gr, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert gr.shape == w.shape and gr.dtype == dtype, name
+        assert _rel(gr, w.astype(jnp.float32)) <= CROSS_TOL[dtype], name
+
+
+def test_cross_length_autograd_reaches_the_plain_backward():
+    """``ops.flash_attention`` under autograd with Sk != Sq: gradients of
+    the keys' and values' own shape, equal to float64 autograd of the
+    naive attention."""
+    rng = np.random.default_rng(5)
+    q, do = (_t(rng.normal(size=(2, 30, 4, 16)).astype(np.float32))
+             for _ in range(2))
+    k, v = (_t(rng.normal(size=(2, 90, 2, 16)).astype(np.float32))
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=False),
+                              leaves, do)
+    dbl = [t.double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(_naive(*dbl, False, 16 ** -0.5), dbl,
+                               do.double())
+    for gr, w in zip(got, want):
+        assert gr.shape == w.shape
+        assert _rel(gr, w.numpy()) <= TOL
+
+
+def test_cross_length_backward_rejects_causal_and_mismatched_shapes():
+    q, o, do = (torch.zeros((1, 16, 2, 64)) for _ in range(3))
+    k = torch.zeros((1, 40, 2, 64))
+    lse = torch.zeros((1, 2, 16))
+    with pytest.raises(ValueError, match="causal"):
+        k3.flash_attention_bwd(do, q, k, k, o, lse, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        k3.flash_attention_bwd_plain(do, q, k, k, o, lse, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        k3.flash_attention_bwd(do, q, k, k, o, torch.zeros((1, 2, 40)),
+                               causal=False)
+    with pytest.raises(ValueError, match="causal"):
+        k3.plan_bwd(1, 16, 2, 2, 64, BF16, True, sk=40)
+    with pytest.raises(ValueError, match="causal"):
+        k3.bwd_item_work(1, 16, 2, 2, True, sk=40)
+    dq, dk, dv = k3.flash_attention_bwd(do, q, k, k, o, lse, causal=False)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_cross_length_bwd_work_equals_closed_forms():
+    """``bwd_work`` counts Sq Sk pairs when not causal; q, o, dO, dq bytes
+    by Sq, k, v, dk, dv by Sk, the LSE and D by Sq; with Sk == Sq (or None)
+    it is what it was."""
+    b, sq, sk, h, kv, hd = 8, 448, 1500, 12, 12, 64
+    flops, nbytes = k3.bwd_work(b, sq, h, kv, hd, hd, False, BF16, sk=sk)
+    assert flops == 10 * hd * b * h * sq * sk
+    assert nbytes == 2 * b * (4 * sq * h * hd + 4 * sk * kv * hd) \
+        + 2 * 4 * b * h * sq
+    for causal in (True, False):
+        same = k3.bwd_work(b, sq, h, kv, hd, hd, causal, F32)
+        assert k3.bwd_work(b, sq, h, kv, hd, hd, causal, F32, sk=sq) == same
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        assert same == (10 * hd * b * h * pairs,
+                        4 * b * sq * (4 * h * hd + 4 * kv * hd)
+                        + 2 * 4 * b * h * sq)
+
+
+def test_cross_length_bwd_item_work_counts_the_tiles_each_item_walks():
+    # Sq = 300 (3 dQ items of 128 rows a head, 5 q tiles of 64), Sk = 500
+    # (4 dK / dV items of 128 keys, 8 kv tiles of 64)
+    dq, dkdv = k3.bwd_item_work(1, 300, 4, 2, False, sk=500)
+    assert dq == [8 + 1] * (3 * 4)
+    assert dkdv == [2 * 5 + 1] * (4 * 2)
+    for causal in (True, False):
+        assert k3.bwd_item_work(1, 300, 4, 2, causal, sk=300) == \
+            k3.bwd_item_work(1, 300, 4, 2, causal)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv", [(8, 448, 1500, 12, 12),
+                                          (16, 4, 1500, 12, 12),
+                                          (2, 77, 1000, 6, 2)])
+def test_cross_length_plans_cover_both_lengths(b, sq, sk, h, kv):
+    """bf16: the dQ schedule holds B H ceil(Sq / 128) items, the dK / dV
+    schedule B KV ceil(Sk / 128), each exactly once; float32: grids of B H
+    ceil(Sq / 64) and B H ceil(Sk / 64) blocks.  With Sk == Sq the plan is
+    the same object as the one made without Sk."""
+    p = k3.plan_bwd(b, sq, h, kv, 64, BF16, False, sk=sk)
+    n_dq, n_kv = b * h * -(-sq // 128), b * kv * -(-sk // 128)
+    work_dq, work_dkdv = k3.bwd_item_work(b, sq, h, kv, False, sk)
+    assert (len(work_dq), len(work_dkdv)) == (n_dq, n_kv)
+    for sched, n in ((p.schedule_dq, n_dq), (p.schedule_dkdv, n_kv)):
+        assert len(sched) == min(n, k3.H100_SMS)
+        assert sorted(i for items in sched for i in items) == list(range(n))
+    f = k3.plan_bwd(b, sq, h, kv, 64, F32, False, sk=sk)
+    assert f.grid_dq == (b * h * -(-sq // 64), 1)
+    assert f.grid_dkdv == (b * h * -(-sk // 64), 1)
+    assert k3.plan_bwd(b, sq, h, kv, 64, BF16, False, sk=sq) is \
+        k3.plan_bwd(b, sq, h, kv, 64, BF16, False)
