@@ -414,14 +414,22 @@ def phase_build() -> dict:
     if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
         raise AssertionError(f"K3's tensor-core kernel spills (or is "
                              f"missing from the ptxas report): {tc}")
+    d256 = [r for r in out[k3.SOURCE]["kernels"]
+            if K3_D256_INSTANCE in r["kernel"]]
+    if len(d256) != 4 or any(r["spill_stores"] or r["spill_loads"]
+                             for r in d256):
+        raise AssertionError(f"K3's head-dim-256 instances (mma.sync and "
+                             f"float32, with and without the LSE) spill (or "
+                             f"are missing from the ptxas report): {d256}")
     out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
         build.build_logs[k3.BWD_SOURCE])
     bwd = [r for r in out[k3.BWD_SOURCE]["kernels"]
            if any(name in r["kernel"] for name in BWD_TC_KERNELS)]
-    if len(bwd) != 2 * len(BWD_TC_KERNELS) or any(
+    if len(bwd) != BWD_TC_INSTANCES or any(
             r["spill_stores"] or r["spill_loads"] for r in bwd):
-        raise AssertionError(f"K3's backward kernels (dQ and dK / dV, bf16 "
-                             f"and float32, at hd 64 and 128) spill (or are "
+        raise AssertionError(f"K3's backward kernels (dQ and dK / dV: bf16 "
+                             f"wgmma at hd 64 and 128, float32 at 64, 128 "
+                             f"and 256, bf16 TF32 at 256) spill (or are "
                              f"missing from the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
@@ -2740,8 +2748,9 @@ FLASH_DTYPES = (torch.bfloat16, torch.float32)
 # rounds p to bf16 for the tensor-core P V product where the plain version
 # keeps it in float32, and an output in [2, 8) has a bf16 ulp of 1/64..1/32
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# (case, B, S, H, KV, hd, hv, causal[, Sk]): Sk, the keys, where they are
-# not the S queries' own (cross attention)
+# (case, B, S, H, KV, hd, hv, causal[, Sk[, prefix]]): Sk, the keys, where
+# they are not the S queries' own (cross attention); prefix, the keys every
+# row sees (a bidirectional prefix: paligemma's 256 patches)
 FLASH_CASES = (
     ("test_kernels", 2, 128, 2, 2, 32, 32, True),
     ("test_kernels", 2, 256, 4, 2, 64, 64, True),
@@ -2763,6 +2772,17 @@ FLASH_CASES = (
     ("whisper_cross_b1_s448", 1, 448, 12, 12, 64, 64, False, 1500),
     ("whisper_cross_b16_s4", 16, 4, 12, 12, 64, 64, False, 1500),
     ("ragged_cross_gqa", 2, 77, 6, 2, 64, 64, False, 1000),
+    # paligemma-3b: 256 patches + 3,840 tokens, 8 heads of 256, one kv
+    # head; its B=8 serving shape (256 + 768); a ragged head-dim-256 call
+    # with an odd prefix; the wgmma kernel's head dims with an odd prefix
+    # and one longer than S
+    ("paligemma_b1_s4096", 1, 4096, 8, 1, 256, 256, True, 4096, 256),
+    ("paligemma_b8_s1024", 8, 1024, 8, 1, 256, 256, True, 1024, 256),
+    ("prefix_ragged_d256", 2, 1000, 4, 2, 256, 256, True, 1000, 77),
+    ("prefix_odd", 2, 1000, 4, 2, 64, 64, True, 1000, 77),
+    ("prefix_odd", 2, 1000, 4, 2, 128, 128, True, 1000, 77),
+    ("prefix_past_s", 2, 300, 4, 2, 64, 64, True, 300, 1000),
+    ("prefix_past_s", 2, 300, 4, 2, 128, 128, True, 300, 1000),
 ) + tuple(
     # a sequence within one 128-row tile (the tensor-core kernel's TMA box
     # taller than S, one partly filled tile): a short prompt on the main path
@@ -2772,7 +2792,7 @@ FLASH_CASES = (
 FLASH_HEADLINE = "stablelm_b1_s4096"
 # the model shapes: held to the main path's variant, profiled, and listed
 # in the kernels line
-FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper")
+FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper", "paligemma")
 # other softmax scales (the tensor-core kernel folds a positive scale into
 # its exp2 and multiplies first otherwise), causal and not: (B, S, H, KV, d)
 FLASH_SCALES = (0.3, -0.2, 0.0)
@@ -2780,28 +2800,54 @@ FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128))
 # K3's profiler symbols: every K3 kernel's name starts with one per dtype
 K3_SYMBOL = {torch.bfloat16: "flash_bf16_", torch.float32: "flash_f32_"}
 K3_TC_KERNEL = "flash_bf16_tc_kernel"
-# the variant each dtype takes on the main path (every model shape)
+# the mangled <256, 256> of K3's head-dim-256 instances (mma.sync bf16 and
+# float32, each with and without the LSE): no spills allowed
+K3_D256_INSTANCE = "kernelILi256ELi256E"
+# the variant each dtype takes on the main path (every model shape): bf16
+# on wgmma at head dims 64 and 128, on mma.sync at 256 (paligemma)
 K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
 
 
-def flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk=None) -> dict:
+def k3_main(dtype, hd: int) -> str:
+    """The forward variant a model shape of ``dtype`` and head dim ``hd``
+    takes."""
+    if dtype == torch.bfloat16 and hd not in k3.TC_HEAD_DIMS:
+        return k3.MMA
+    return K3_MAIN[dtype]
+
+
+def flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk=None,
+                prefix=0) -> dict:
     """Least time for one attention call of S queries over Sk keys (default
     S): K3's census work (``k3.fwd_work``: q, k, v read once and o written
     once; 2 * B * H * (visible pairs) * (hd + hv) operations, visible pairs
-    S(S+1)/2 causal, S Sk not) at the dtype's peak (bf16: the tensor
-    cores)."""
-    ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype, sk=sk)
+    S(S+1)/2 causal plus P(P-1)/2 for a prefix of P keys, S Sk not) at the
+    dtype's peak (bf16: the tensor cores)."""
+    ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype, sk=sk,
+                              prefix=prefix)
     return bound(nbytes, ops, dtype)
 
 
-def library_flash_attention(q, k, v, *, causal=True, scale=None):
+def prefix_mask(s: int, prefix: int, device):
+    """[S, S] bool: key j visible to row i where j <= i or j < prefix."""
+    i = torch.arange(s, device=device)
+    return (i[None, :] <= i[:, None]) | (i[None, :] < prefix)
+
+
+def library_flash_attention(q, k, v, *, causal=True, prefix_len=0,
+                            scale=None):
     """K3's signature on the library: one
     ``F.scaled_dot_product_attention`` on [B, H, S, d] views of the BSHD
-    inputs, GQA by ``enable_gqa``.  The yardstick, alone and in K3's place
-    inside a prefill; never part of the port."""
+    inputs, GQA by ``enable_gqa``; a bidirectional prefix as the boolean
+    mask ``prefix_mask`` (then the library's masked route).  The
+    yardstick, alone and in K3's place inside a prefill; never part of the
+    port."""
+    mask = prefix_mask(q.shape[1], prefix_len, q.device) if prefix_len \
+        else None
     o = torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, scale=scale, enable_gqa=True)
+        attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+        enable_gqa=True)
     return o.transpose(1, 2)
 
 
@@ -2811,17 +2857,19 @@ def flash_case(gen, device, case, dtype) -> dict:
     for the model shapes K3's device time."""
     name, b, s, h, kv, hd, hv, causal = case[:8]
     sk = case[8] if len(case) > 8 else s
+    pre = case[9] if len(case) > 9 else 0
     q = torch.randn((b, s, h, hd), generator=gen, device=device).to(dtype)
     k = torch.randn((b, sk, kv, hd), generator=gen, device=device).to(dtype)
     v = torch.randn((b, sk, kv, hv), generator=gen, device=device).to(dtype)
     plan = k3.plan_for(q, k, v)
     if name.startswith(FLASH_MODEL_CASES + ("short",)) and \
-            plan.variant != K3_MAIN[dtype]:
+            plan.variant != k3_main(dtype, hd):
         raise AssertionError(f"K3 {name} {dtype} planned {plan.variant}, "
-                             f"not {K3_MAIN[dtype]}")
-    o = k3.flash_attention(q, k, v, causal=causal)
-    again = k3.flash_attention(q, k, v, causal=causal)
-    op = k3.flash_attention_plain(q, k, v, causal=causal)
+                             f"not {k3_main(dtype, hd)}")
+    kw = dict(causal=causal, prefix_len=pre)
+    o = k3.flash_attention(q, k, v, **kw)
+    again = k3.flash_attention(q, k, v, **kw)
+    op = k3.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     if not torch.equal(o, again):
         raise AssertionError(f"K3 {name} {dtype}: two runs differ")
@@ -2832,29 +2880,29 @@ def flash_case(gen, device, case, dtype) -> dict:
     err = float((o.float() - op.float()).abs().max())
     if not flash_within(o, op, dtype):
         raise AssertionError(f"K3 {name} {(b, s, sk, h, kv, hd, hv, causal)}"
-                             f" {dtype}: max |diff| {err} over the limit")
-    bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk)
+                             f" prefix {pre} {dtype}: max |diff| {err} over "
+                             f"the limit")
+    bd = flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk, pre)
     big = s >= 2048
     row = {"case": name, "B": b, "S": s, "Sk": sk, "H": h, "KV": kv,
            "hd": hd,
-           "hv": hv, "causal": causal, "dtype": SUFFIX[dtype],
+           "hv": hv, "causal": causal, "prefix": pre, "dtype": SUFFIX[dtype],
            "plan": dataclasses.asdict(plan), "max_abs_err": err,
-           "ms": time_ms(lambda: k3.flash_attention(q, k, v, causal=causal),
+           "ms": time_ms(lambda: k3.flash_attention(q, k, v, **kw),
                          10 if big else 20),
            "plain_ms": time_ms(lambda: k3.flash_attention_plain(
-               q, k, v, causal=causal), 2, warmup=1),
+               q, k, v, **kw), 2, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
            "library_ms": None, "library_max_abs_err": None,
            "device_ms": None}
     if hd == hv:
-        lib = library_flash_attention(q, k, v, causal=causal)
+        lib = library_flash_attention(q, k, v, **kw)
         row["library_max_abs_err"] = float((lib.float() - op.float())
                                            .abs().max())
         row["library_ms"] = time_ms(lambda: library_flash_attention(
-            q, k, v, causal=causal), 10 if big else 20)
+            q, k, v, **kw), 10 if big else 20)
     if name.startswith(FLASH_MODEL_CASES):
-        us = device_us({"k3": (lambda: k3.flash_attention(q, k, v,
-                                                          causal=causal),
+        us = device_us({"k3": (lambda: k3.flash_attention(q, k, v, **kw),
                                K3_SYMBOL[dtype])}, reps=5)
         row["device_ms"] = None if us["k3"] is None else us["k3"] / 1e3
     return row
@@ -2917,11 +2965,15 @@ def phase_flash_attention(device, seed: int) -> dict:
     test_kernels.py cases (B=2), a non-causal, two ragged-S and two hv != hd
     cases, the model shapes (stablelm B=1 S=4096 and B=8 S=1024, qwen3 B=1
     S=2048 H=40 KV=8 hd=128; whisper-small's encoder over 1500 frames, its
-    cross attention of 448 and of 16 x 4 queries over them), a ragged GQA
-    cross call (77 queries over 1000 keys) and sequences within one tile (S
-    1, 7, 100 at hd 64 and 128, causal and not), each timed beside the
-    plain version, SDPA and the bound.  Returns the rows keyed by (dtype,
-    case)."""
+    cross attention of 448 and of 16 x 4 queries over them; paligemma-3b's
+    B=1 S=4096 and B=8 S=1024, 8 heads of 256, one kv head, with its 256
+    patches' bidirectional prefix), a ragged GQA cross call (77 queries
+    over 1000 keys), prefix cases (head dim 256 ragged with an odd prefix;
+    64 and 128 with an odd prefix and one longer than S) and sequences
+    within one tile (S 1, 7, 100 at hd 64 and 128, causal and not), each
+    run twice (bitwise) and timed beside the plain version, SDPA (with the
+    prefix as a boolean mask) and the bound.  Returns the rows keyed by
+    (dtype, case)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = {}
     for dtype in FLASH_DTYPES:
@@ -2948,11 +3000,13 @@ def phase_flash_attention(device, seed: int) -> dict:
                          "inputs L2-warm where they fit); device_ms: the "
                          "kernel alone (torch.profiler), model shapes only; "
                          "library = F.scaled_dot_product_attention "
-                         "(enable_gqa), timed where hv == hd; bound = "
+                         "(enable_gqa; a prefix as a boolean attn_mask), "
+                         "timed where hv == hd; bound = "
                          "max(bytes of q, k, v, o / 3.35 TB/s, 2 B H "
                          "pairs (hd + hv) / peak: 989 TFLOP/s bf16, 67 f32); "
                          "pairs S Sk for a call whose Sk keys are not its S "
-                         "queries' own"})
+                         "queries' own, S(S+1)/2 + P(P-1)/2 with a prefix of "
+                         "P keys"})
     return rows
 
 
@@ -3227,63 +3281,71 @@ def phase_transformer(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def flash_rows(rows, lm, training, zb, wb) -> list:
-    """K3's rows: times at the stablelm B=1 S=4096 shape alone, every other
-    model shape beside it (whisper's encoder and cross attention included),
-    and K3 and SDPA inside the prefills.  Launches: the prefill paths'
-    (``transformer``, ``zamba2``: a site a prefill, ``whisper``: 36 a
+def flash_rows(rows, lm, training, zb, wb, pb) -> list:
+    """K3's rows, one a variant: times at the main path's headline shape
+    alone (bf16 wgmma and float32: stablelm B=1 S=4096; bf16 mma.sync:
+    paligemma B=1 S=4096 at head dim 256 with its prefix), every other
+    model shape of the variant beside it, and K3 and SDPA inside the
+    prefills.  Launches: the prefill paths' (``transformer``, ``zamba2``: a
+    site a prefill, ``whisper``: 36 a prefill, ``paligemma``: 18 a
     prefill) and the training paths' (the forward that also writes the
-    log-sum-exp: (a), zamba2's (i) and whisper's (l) in bf16, (b), (j) and
-    (m) in float32), each counted from zero around its own run."""
+    log-sum-exp: (a), zamba2's (i), whisper's (l) and paligemma's (o) in
+    bf16, (b), (j), (m) and (p) in float32), each counted from zero around
+    its own run."""
     out = []
+    heads = ((torch.bfloat16, k3.TC, FLASH_HEADLINE),
+             (torch.bfloat16, k3.MMA, "paligemma_b1_s4096"),
+             (torch.float32, k3.F32, FLASH_HEADLINE))
     train_path = {torch.bfloat16: ("a_full", "i_zamba2_full",
-                                   "l_whisper_full"),
+                                   "l_whisper_full", "o_paligemma_full"),
                   torch.float32: ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
-                                  "m_whisper_card_vs_cpu")}
-    for dtype in FLASH_DTYPES:
+                                  "m_whisper_card_vs_cpu",
+                                  "p_paligemma_card_vs_cpu")}
+    # (key, phase, (run, dtype) of each of the phase's runs)
+    prefill = (("in_prefill", lm, [(r[0], r[3]) for r in LM_RUNS]),
+               ("in_zamba2_prefill", zb, [(r[0], r[2]) for r in ZAMBA_RUNS]),
+               ("in_whisper_prefill", wb,
+                [(r[0], r[2]) for r in WHISPER_RUNS]),
+               ("in_paligemma_prefill", pb,
+                [(r[0], r[2]) for r in PALI_RUNS]))
+    for dtype, name, headline in heads:
         head = next(r for (d, c), r in rows.items()
-                    if d == dtype and c[0] == FLASH_HEADLINE)
-        name = K3_MAIN[dtype]
-        runs = [r for r, _, _, dt, _, _, _ in LM_RUNS if dt == dtype]
-        by_path = {"prefill": lm["launches"][name],
+                    if d == dtype and c[0] == headline)
+        mine = [r for (d, _), r in rows.items()
+                if d == dtype and r["plan"]["variant"] == name]
+        by_path = {"prefill": lm["launches"].get(name, 0),
                    "zamba2_prefill": zb["launches"].get(name, 0),
-                   "whisper_prefill": wb["launches"].get(name, 0)}
+                   "whisper_prefill": wb["launches"].get(name, 0),
+                   "paligemma_prefill": pb["launches"].get(name, 0)}
         by_path.update({f"training_{path}": training[path]["launches"]
                         .get(name, 0) for path in train_path[dtype]})
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES["flash_attention"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for (d, _), r in rows.items()
-                               if d == dtype
-                               and r["plan"]["variant"] == name),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
             "plan": head["plan"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
-            "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
+            "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
+                      f"KV={head['KV']}, hd=hv={head['hd']}, causal, "
+                      f"prefix {head['prefix']}"),
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "ms",
-                "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")} for (d, c), r in rows.items()
-                if d == dtype and c[0].startswith(FLASH_MODEL_CASES)],
-            "in_prefill": {run: {
-                "k3_device_ms": lm["perf"][run]["k3_device_ms"],
-                "sdpa_device_ms": lm["perf"][run]["sdpa_calls_device_ms"],
-                "bound_ms": lm["perf"][run]["k3_calls_bound_ms"]}
-                for run in runs},
-            "in_zamba2_prefill": {run: {
-                "k3_device_ms": zb["perf"][run]["k3_device_ms"],
-                "sdpa_device_ms": zb["perf"][run]["sdpa_calls_device_ms"],
-                "bound_ms": zb["perf"][run]["k3_calls_bound_ms"]}
-                for run, _, dt, _, _, _ in ZAMBA_RUNS if dt == dtype},
-            "in_whisper_prefill": {run: {
-                "k3_device_ms": wb["perf"][run]["k3_device_ms"],
-                "k3_calls": wb["perf"][run]["k3_calls"],
-                "sdpa_device_ms": wb["perf"][run]["sdpa_calls_device_ms"],
-                "bound_ms": wb["perf"][run]["k3_calls_bound_ms"]}
-                for run, _, dt, _, _, _ in WHISPER_RUNS if dt == dtype}})
+                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "prefix",
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in mine
+                if r["case"].startswith(FLASH_MODEL_CASES)]}
+        for key, phase, runs in prefill:
+            if phase["launches"].get(name, 0):
+                row[key] = {run: {
+                    "k3_device_ms": phase["perf"][run]["k3_device_ms"],
+                    "sdpa_device_ms":
+                        phase["perf"][run]["sdpa_calls_device_ms"],
+                    "bound_ms": phase["perf"][run]["k3_calls_bound_ms"]}
+                    for run, dt in runs if dt == dtype}
+        out.append(row)
     return out
 
 
@@ -4353,6 +4415,267 @@ def phase_whisper(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
+# --- paligemma serving: a bidirectional patch prefix over gemma-2b ------------
+
+# (run, depth or None for the full depth, dtype, B, text tokens, decode
+# steps): the 256 patch embeddings go in front of the text
+PALI_RUNS = (
+    ("a_paligemma_b1_s4096", None, torch.bfloat16, 1, 3840, 0),
+    ("b_paligemma_b8_s1024", None, torch.bfloat16, 8, 768, 16),
+    ("c_paligemma_f32_l2_b2_s384", 2, torch.float32, 2, 128, 0),
+)
+PALI_CPU_RUN = "c_paligemma_f32_l2_b2_s384"
+
+
+def pali_cfg(depth=None, dtype=torch.bfloat16):
+    """paligemma-3b in ``dtype``, cut to ``depth`` layers where given."""
+    cfg = dataclasses.replace(get_config("paligemma_3b"),
+                              dtype=str(dtype).split(".")[-1])
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    return cfg
+
+
+def pali_models(device, seed: int) -> dict:
+    """One paligemma-3b per (depth, dtype) of ``PALI_RUNS``, at full width,
+    weights drawn on the card from a CUDA generator seeded with ``seed``."""
+    models = {}
+    for _, depth, dtype, _, _, _ in PALI_RUNS:
+        if (depth, dtype) not in models:
+            models[(depth, dtype)] = build_model(pali_cfg(depth, dtype)).init(
+                torch.Generator(device=device).manual_seed(seed),
+                device=device)
+    return models
+
+
+def pali_inputs(model, b: int, text: int, seed: int, device):
+    """The tokens [B, text] and patch embeddings [B, 256, d] of
+    ``synth_batch(seed)`` (the SigLIP tower is a stub) on the card."""
+    cfg = model.cfg
+    batch = synth_batch(cfg, ShapeConfig(f"serve_b{b}_s{text}",
+                                         cfg.num_patches + text, b,
+                                         "prefill"),
+                        DataConfig(seed=seed), 0)
+    return (torch.from_numpy(batch["tokens"]).to(device),
+            torch.from_numpy(batch["prefix_embeds"]).to(device))
+
+
+def lm_cache_errs(cache, want, prefix: str = "cache") -> dict:
+    """rel_err of the dense cache's k and v against ``want``'s, on
+    ``want``'s device."""
+    return {f"{prefix}_{kv}_rel_err": rel_err(
+        cache["layers"][kv].to(want["layers"][kv].device),
+        want["layers"][kv]) for kv in ("k", "v")}
+
+
+def phase_paligemma(device, seed: int) -> dict:
+    """The main path: paligemma-3b serving.  Counts are zeroed just before
+    the three runs' prefills and decode steps and read just after: K3 once
+    a layer per prefill, over the 256 patches and the text with the
+    patches' bidirectional prefix (the ``mma.sync`` variant at head dim 256
+    in bf16), never in decode.  Then each prefill is held against the same
+    prefill with K3 swapped for its plain version (logits, top-1, the
+    cache), the first decode step after it, the float32 run also against
+    the CPU, and each run is timed and profiled, with SDPA (the prefix as a
+    boolean mask) in K3's place."""
+    models = pali_models(device, seed)
+    inputs, outs, per_prefill, decode_launches = {}, {}, [], {}
+    for run, depth, dtype, b, text, _ in PALI_RUNS:
+        inputs[run] = pali_inputs(models[(depth, dtype)], b, text, seed,
+                                  device)
+    torch.cuda.synchronize()
+
+    k3.reset_launch_counts()
+    for run, depth, dtype, b, text, steps in PALI_RUNS:
+        model = models[(depth, dtype)]
+        before = sum(k3.launch_counts().values())
+        logits, cache = model.prefill(*inputs[run])
+        per_prefill.append(sum(k3.launch_counts().values()) - before)
+        first, gen = None, None
+        if steps:
+            before = sum(k3.launch_counts().values())
+            first, gen = greedy_decode(model, logits, cache, steps)
+            decode_launches[run] = sum(k3.launch_counts().values()) - before
+        outs[run] = (logits, cache, first, gen)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+
+    want_launches = [models[(d, t)].cfg.num_layers
+                     for _, d, t, _, _, _ in PALI_RUNS]
+    if per_prefill != want_launches or any(decode_launches.values()) or \
+            set(launches) != {k3.MMA, k3.F32}:
+        raise AssertionError(f"K3 launches per prefill {per_prefill} "
+                             f"(expected {want_launches}), in decode "
+                             f"{decode_launches} (expected 0), by variant "
+                             f"{launches}")
+    checks = []
+    for run, depth, dtype, b, text, steps in PALI_RUNS:
+        model = models[(depth, dtype)]
+        tokens, patches = inputs[run]
+        n = model.cfg.num_patches + text
+        logits, cache, first, gen = outs.pop(run)
+        if (tuple(logits.shape) != (b, n, model.cfg.vocab_size)
+                or logits.dtype != torch.float32 or cache["len"] != n):
+            raise AssertionError(f"{run}: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}, cache len {cache['len']}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{run}: non-finite logits")
+        with mock.patch.object(k3, "flash_attention",
+                               k3.flash_attention_plain):
+            want, want_cache = model.prefill(tokens, patches)
+            # the first step from the plain cache, on the kernel path's token
+            want_first = (greedy_decode(model, logits, want_cache, 1)[0]
+                          if steps else None)
+        torch.cuda.synchronize()
+        tol = LM_LOGIT_TOL[dtype]
+        row = {"run": run, "dtype": SUFFIX[dtype], "batch": b,
+               "patches": model.cfg.num_patches, "text": text, "seq": n,
+               "layers": model.cfg.num_layers,
+               "top1_split_margins": top1_split_margins(logits, want),
+               "logits_rel_err": rel_err(logits, want),
+               "top1_agreement_last": float(
+                   (logits[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                   .float().mean()),
+               **lm_cache_errs(cache, want_cache)}
+        if steps:
+            row["first_decode_logits_rel_err"] = rel_err(first, want_first)
+            row["generated_tokens"] = [int(t) for t in gen[0]]
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"{run}: non-finite decode logits")
+        if run == PALI_CPU_RUN:
+            # the port's CPU path, which the tests hold to the reference
+            cpu = build_model(model.cfg).init(
+                torch.Generator().manual_seed(seed), device="cpu")
+            cpu.load_state_dict(model.state_dict())
+            t0 = time.perf_counter()
+            cpu_logits, cpu_cache = cpu.prefill(tokens.cpu(), patches.cpu())
+            row["cpu_seconds"] = time.perf_counter() - t0
+            row["cpu_logits_rel_err"] = rel_err(logits.cpu(), cpu_logits)
+            row["cpu_top1_agreement_last"] = float(
+                (logits[:, -1].argmax(-1).cpu()
+                 == cpu_logits[:, -1].argmax(-1)).float().mean())
+            row.update(lm_cache_errs(cache, cpu_cache, "cpu_cache"))
+            del cpu, cpu_cache, cpu_logits
+        bad = {k: v for k, v in row.items() if k.endswith("rel_err")
+               and v > tol}
+        # float32: top-1 agrees; bf16: where it splits, the plain path's
+        # own two candidates lie within the logit tolerance (a near-tie of
+        # the seed weights' flat logits, not a wrong answer)
+        split = (row["top1_agreement_last"] != 1.0
+                 or row.get("cpu_top1_agreement_last", 1.0) != 1.0
+                 if dtype == torch.float32
+                 else max(row["top1_split_margins"], default=0.0) > tol)
+        if bad or split:
+            raise AssertionError(f"{run}: kernel path off the plain path "
+                                 f"or the CPU beyond {tol}, or top-1 split: "
+                                 f"{bad}, {row['top1_agreement_last']}, "
+                                 f"margins {row['top1_split_margins']}")
+        checks.append(row)
+        del logits, cache, want, want_cache
+    if {k: v for k, v in k3.launch_counts().items() if v} != launches:
+        raise AssertionError("the plain-path prefills launched K3")
+
+    perf = {}
+    for run, depth, dtype, b, text, steps in PALI_RUNS:
+        model = models[(depth, dtype)]
+        tokens, patches = inputs[run]
+        cfg = model.cfg
+        n = cfg.num_patches + text
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        host = host_ms(lambda: model.prefill(tokens, patches), warmup=2)
+        peak = torch.cuda.max_memory_allocated(device)
+        ms = host["median"]
+        br = device_breakdown(lambda: model.prefill(tokens, patches),
+                              K3_SYMBOL[dtype])
+        bd = flash_bound(b, n, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.head_dim, True, dtype, prefix=cfg.num_patches)
+        row = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+               "positions_per_s": b * n / ms * 1e3,
+               "peak_memory_bytes": peak,
+               "device_ms": br["device_ms"], "idle_share": None,
+               "k3_device_ms": br["kernel_device_ms"],
+               "device_ms_by_kind": (None if br["device_ms"] is None else
+                                     kind_split_ms(br["by_name"],
+                                                   K3_SYMBOL[dtype])),
+               "top": br["top"], "k3_calls": cfg.num_layers,
+               "k3_calls_bound_ms": cfg.num_layers * bd["bound_ms"],
+               "sdpa_calls_device_ms": sdpa_in_k3_place_ms(
+                   lambda: model.prefill(tokens, patches), dtype)}
+        if br["device_ms"] is not None:
+            row["idle_share"] = 1.0 - br["device_ms"] / ms
+        if steps:
+            logits, cache = model.prefill(tokens, patches)
+            st = {}
+
+            def start():
+                st["tok"] = logits[:, -1:].argmax(-1)
+                st["cache"] = grown_cache(model, cache, steps)
+
+            def one_step():
+                out, st["cache"] = model.decode_step(st["tok"], st["cache"])
+                st["tok"] = out[:, -1:].argmax(-1)
+
+            window = decode_window_ms(start, one_step, steps)
+            latency = decode_latency_ms(start, one_step, steps)
+            tok = st["tok"]
+            row["ms_per_decode_step"] = window["median"]
+            row["ms_per_decode_step_spread"] = window
+            row["generated_tokens_per_s"] = b / window["median"] * 1e3
+            row["decode_step_latency_ms"] = latency["median"]
+            row["decode_step_latency_spread"] = latency
+            # one step profiled (and one before it), into a fresh copy
+            big = grown_cache(model, cache, 2)
+            dec = device_breakdown(lambda: model.decode_step(tok, big),
+                                   K3_SYMBOL[dtype])
+            row["decode_device_ms"] = dec["device_ms"]
+            row["decode_idle_share"] = (
+                None if dec["device_ms"] is None
+                else 1.0 - dec["device_ms"] / row["ms_per_decode_step"])
+            row["decode_top"] = dec["top"]
+            del logits, cache, big, st
+        perf[run] = row
+    del models, inputs
+    torch.cuda.empty_cache()
+    emit({"phase": "paligemma",
+          "config": "paligemma-3b (gemma-2b backbone: 18 layers, d 2048, 8 "
+                    "heads of 256, one kv head, d_ff 16,384 gated tanh "
+                    "GELU, RMS norm; vocab 257,216, tied; 256 patch "
+                    "embeddings in front of the text, a bidirectional "
+                    "prefix; sqrt(d) embedding scale rounded to the model "
+                    "dtype) full width and depth in bf16; float32 at depth "
+                    "2; patches and prompts synth_batch(seed="
+                    f"{seed}) (the SigLIP tower is a stub), weights from a "
+                    f"CUDA generator seed {seed}",
+          "launches_per_prefill": per_prefill,
+          "launches_in_decode": decode_launches, "launches": launches,
+          "vs_plain_path": checks,
+          "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                           for d in LM_LOGIT_TOL},
+          "serving": perf,
+          "timing_note": "ms_per_prefill: median host clock around "
+                         "prefill (256 patches + the text) + synchronize "
+                         "over 5 (spread: min, max), inputs on the card; "
+                         "peak_memory_bytes: max_memory_allocated over "
+                         "those prefills; device_ms / k3_device_ms / "
+                         "device_ms_by_kind (K3, cuBLAS, the rest) / top: "
+                         "torch.profiler kernel time of one prefill; "
+                         "idle_share = 1 - device_ms / ms_per_prefill; "
+                         "k3_calls_bound_ms: the bounds of the prefill's K3 "
+                         "calls (causal pairs plus the prefix's) summed; "
+                         "sdpa_calls_device_ms: SDPA's device ms in K3's "
+                         "place, the prefix as a boolean attn_mask (as the "
+                         "zamba2 phase's); ms_per_decode_step / "
+                         "generated_tokens_per_s: host clock of a window of "
+                         "16 greedy steps issued back to back, one "
+                         "synchronize at its end, per step, median over 5 "
+                         "windows; decode_step_latency_ms: median host "
+                         "clock of each of 16 steps, each ending in a "
+                         "synchronize; decode_device_ms / decode_top: one "
+                         "step profiled"})
+    return {"launches": launches, "perf": perf}
+
+
 # --- training: the dense transformer on K3 and its backward --------------------
 
 TRAIN_ARCH = "stablelm-1.6b"
@@ -4373,11 +4696,14 @@ RESUME_STEPS, RESUME_EVERY, RESUME_DEPTH = 4, 2, 2
 # to bf16 for the tensor-core products, the plain version keeps float32),
 # float32 1e-4 (sums in other orders)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# (case, B, S, H, KV, d, causal, dtypes[, Sk]): the two model shapes, a
-# ragged S and a non-causal GQA call (which the model shapes do not reach),
-# and whisper-small's training shapes: the cross attention of 448 queries
-# over 1500 keys (Sk) and the encoder's self attention over 1500 frames,
-# B=8; each in both dtypes
+# (case, B, S, H, KV, d, causal, dtypes[, Sk[, prefix]]): the two model
+# shapes, a ragged S and a non-causal GQA call (which the model shapes do
+# not reach), whisper-small's training shapes: the cross attention of 448
+# queries over 1500 keys (Sk) and the encoder's self attention over 1500
+# frames, B=8; paligemma-3b's (256 patches + 3,840 tokens, 8 heads of 256,
+# one kv head, the patches' bidirectional prefix); a ragged head-dim-256
+# call with an odd prefix; hd 64 and 128 with an odd prefix and one longer
+# than S; each in both dtypes
 BOTH_DTYPES = (torch.bfloat16, torch.float32)
 BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
              ("qwen3_b1_s2048", 1, 2048, 40, 8, 128, True, BOTH_DTYPES),
@@ -4387,27 +4713,44 @@ BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
              ("whisper_cross_b8_s448", 8, 448, 12, 12, 64, False,
               BOTH_DTYPES, 1500),
              ("whisper_encoder_b8_s1500", 8, 1500, 12, 12, 64, False,
-              BOTH_DTYPES))
+              BOTH_DTYPES),
+             ("paligemma_b1_s4096", 1, 4096, 8, 1, 256, True, BOTH_DTYPES,
+              4096, 256),
+             ("prefix_ragged_d256", 2, 1000, 4, 2, 256, True, BOTH_DTYPES,
+              1000, 77),
+             ("prefix_odd", 2, 1000, 4, 2, 64, True, BOTH_DTYPES, 1000, 77),
+             ("prefix_odd", 2, 1000, 4, 2, 128, True, BOTH_DTYPES, 1000,
+              77),
+             ("prefix_past_s", 2, 300, 4, 2, 64, True, BOTH_DTYPES, 300,
+              1000),
+             ("prefix_past_s", 2, 300, 4, 2, 128, True, BOTH_DTYPES, 300,
+              1000))
 BWD_HEADLINE = "stablelm_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
-# the backward's tensor-core kernels, bf16 (wgmma) and float32 (3xTF32 on
-# mma.sync), each at hd 64 and 128: ptxas must report no spills for them
+# the head-dim-256 case each dtype's row of the bf16 TF32 backward reports
+BWD_D256_HEADLINE = "paligemma_b1_s4096"
+# the backward's tensor-core kernels, bf16 (wgmma, hd 64 and 128), float32
+# (3xTF32 on mma.sync, hd 64, 128 and 256) and bf16 at hd 256 (the TF32
+# kernels with bf16 tiles): 12 instances, ptxas must report no spills
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_tc_kernel",
                   "flash_bwd_dq_f32_tc_kernel",
                   "flash_bwd_dkdv_f32_tc_kernel")
+BWD_TC_INSTANCES = 12
 
 
-def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None) -> dict:
+def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
+                    prefix=0) -> dict:
     """Least time for one backward call of S queries over Sk keys (default
     S): q, k, v, o, do and the float32 log-sum-exp read once, dq, dk, dv
     written once; five products over the visible pairs (S again, dP, dV,
     dQ, dK): 2 B H pairs 5 d operations, 2.5 times the forward's, at the
     dtype's peak.  float32 also gets ``units_bound_ms``: the same work at
     the rate of the units the kernels run it on, 3xTF32 on the TF32 tensor
-    cores (495 / 3 TFLOP/s)."""
-    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype, sk=sk)
+    cores (495 / 3 TFLOP/s); bf16 at head dim 256 one TF32 pass (495)."""
+    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype, sk=sk,
+                              prefix=prefix)
     # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
     # kernels write and read back: no input or output of the function
     nbytes -= 4 * b * h * s
@@ -4415,6 +4758,10 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None) -> dict:
     if dtype == torch.float32:
         out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
                                     ops / (TF32_FLOPS / 3)) * 1e3
+    elif d not in k3.TC_HEAD_DIMS:
+        # bf16 at head dim 256: one TF32 product a product
+        out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
+                                    ops / TF32_FLOPS) * 1e3
     return out
 
 
@@ -4665,9 +5012,10 @@ class TimedSave:
 def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
                  batch: int = 1, depth: int = RESUME_DEPTH,
                  seq: int = TRAIN_SEQ) -> dict:
-    """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper: bf16 at depth
-    ``depth`` (2, an encoder's layers too; zamba2 7) and full width, S
-    ``seq`` (4096; whisper 448 over its 1500 frames), B ``batch``: 4 steps
+    """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper, (q) paligemma:
+    bf16 at depth ``depth`` (2, an encoder's layers too; zamba2 7) and full
+    width, S ``seq`` (4096; whisper 448 over its 1500 frames; paligemma 256
+    patches + 256 tokens), B ``batch``: 4 steps
     with a checkpoint every 2; the step-4 checkpoint removed (a crash after
     step 2's); restored and run to 4.  The 2 losses and the final
     parameters must be bitwise the uninterrupted run's."""
@@ -4720,34 +5068,36 @@ def bwd_case(gen, device, case, dtype) -> dict:
     plain version, SDPA's backward and the bound."""
     name, b, s, h, kv, d, causal = case[:7]
     sk = case[8] if len(case) > 8 else s
+    pre = case[9] if len(case) > 9 else 0
+    kw = dict(causal=causal, prefix_len=pre)
     q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
     k = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
     v = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
     do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
-    o, lse = k3.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = k3.flash_attention_fwd(q, k, v, **kw)
     # the forward's log-sum-exp (what the backward recomputes P from)
     # against the plain forward's, within 1e-5 of its scale
-    lse_plain = k3._plain_forward(q, k, v, causal, None)[1]
+    lse_plain = k3._plain_forward(q, k, v, causal, None, pre)[1]
     lse_err = float((lse - lse_plain).abs().max())
     if lse_err > 1e-5 * float(lse_plain.abs().max()) or \
-            not torch.equal(o, k3.flash_attention(q, k, v, causal=causal)):
+            not torch.equal(o, k3.flash_attention(q, k, v, **kw)):
         raise AssertionError(f"K3 forward with the LSE {name} {dtype}: "
                              f"lse max |diff| {lse_err}, or o differs from "
                              f"the prefill kernel's")
     del lse_plain
     plan = k3.plan_bwd(b, s, h, kv, d, dtype, causal,
                        torch.cuda.get_device_properties(device)
-                       .multi_processor_count, sk)
-    if plan.variant != BWD_MAIN[dtype]:
+                       .multi_processor_count, sk, pre)
+    if plan.variant != k3.bwd_variant(dtype, d):
         raise AssertionError(f"K3 backward {name} {dtype} planned "
                              f"{plan.variant}")
     scale = d ** -0.5
 
     def run():
-        return k3.flash_attention_bwd(do, q, k, v, o, lse, causal=causal)
+        return k3.flash_attention_bwd(do, q, k, v, o, lse, **kw)
 
     g1, g2 = run(), run()
-    gp = k3.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal)
+    gp = k3.flash_attention_bwd_plain(do, q, k, v, o, lse, **kw)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
         raise AssertionError(f"K3 backward {name} {dtype}: two runs differ")
@@ -4768,12 +5118,14 @@ def bwd_case(gen, device, case, dtype) -> dict:
     # each kernel alone: the dK / dV kernel reads the scratch the last
     # full call wrote
     scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
-                            k3.BWD_BOTH)[3]
-    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk)
+                            k3.BWD_BOTH, prefix=pre)[3]
+    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk, pre)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
+    mask = prefix_mask(s, pre, device) if pre else None
     lib_o = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal, enable_gqa=True)
+        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     do_t = do.transpose(1, 2)
     summary = {key: val for key, val in dataclasses.asdict(plan).items()
                if not key.startswith("schedule")}
@@ -4783,16 +5135,19 @@ def bwd_case(gen, device, case, dtype) -> dict:
             for kern, sched in (("dq", plan.schedule_dq),
                                 ("dkdv", plan.schedule_dkdv))}
     row = {"case": name, "B": b, "S": s, "Sk": sk, "H": h, "KV": kv, "hd": d,
-           "causal": causal, "dtype": SUFFIX[dtype], "plan": summary,
+           "causal": causal, "prefix": pre, "dtype": SUFFIX[dtype],
+           "plan": summary,
            "max_abs_err": max(errs), "rel_err_dq_dk_dv": rels,
            "lse_max_abs_err": lse_err,
            "ms": time_ms(run, 10),
            "dq_ms": time_ms(lambda: k3.bwd_launch(
-               do, q, k, v, o, lse, causal, scale, k3.BWD_DQ), 10),
+               do, q, k, v, o, lse, causal, scale, k3.BWD_DQ,
+               prefix=pre), 10),
            "dkdv_ms": time_ms(lambda: k3.bwd_launch(
-               do, q, k, v, o, lse, causal, scale, k3.BWD_DKDV, scratch), 10),
+               do, q, k, v, o, lse, causal, scale, k3.BWD_DKDV, scratch,
+               pre), 10),
            "plain_ms": time_ms(lambda: k3.flash_attention_bwd_plain(
-               do, q, k, v, o, lse, causal=causal), 1, warmup=1),
+               do, q, k, v, o, lse, **kw), 1, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
            "units_bound_ms": bd.get("units_bound_ms"),
            "library_ms": time_ms(lambda: torch.autograd.grad(
@@ -5381,6 +5736,161 @@ def train_whisper_card_vs_cpu(device, seed: int) -> dict:
                           "grad_of_scale": CARD_CPU_GRAD_TOL}}
 
 
+# --- training: paligemma, the bidirectional prefix on K3 and its backward -------
+
+PALI_TRAIN_ARCH = "paligemma_3b"
+# (o): B=1, 256 patches + 3,840 tokens, full width and depth
+PALI_TRAIN_SEQ = 4096
+# (p), (q): 2 layers at full width; (p) float32 card against the CPU with
+# (b)'s gates, 256 patches + 128 tokens; (q) bf16, 256 patches + 256 tokens
+PALI_DEPTH = 2
+PALI_CARD_CPU_SEQ, PALI_RESUME_SEQ = 384, 512
+
+
+def pali_train_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N T over every position (the patches run through every layer and
+    the tied head, their logits dropped before the loss) for the parameters
+    that multiply (the tied embedding as the head; its lookup is free),
+    plus attention over the causal pairs and the prefix's: the forward's 2
+    B H pairs (hd + hv) a layer, three times (forward and a backward of two
+    such products each)."""
+    n = sum(p.numel() for p in module.parameters())
+    pairs = k3._pairs(s, True, prefix=cfg.num_patches)
+    attn = 3 * 2 * b * cfg.num_heads * pairs * 2 * cfg.head_dim \
+        * cfg.num_layers
+    return {"matmul_params": n, "flops": 6 * n * b * s + attn,
+            "attention_flops": attn}
+
+
+def train_paligemma_full(device, seed: int) -> dict:
+    """(o) paligemma-3b at full width and depth, bf16, B=1, 256 patches and
+    3,840 tokens, 4 AdamW steps through ``launch.train.train`` (patches
+    from its data iterator); the counts are zeroed just before and read
+    just after: remat "dots" keeps the projections and recomputes the rest
+    of a layer in the backward, K3's forward among it, so a step launches
+    K3's forward twice a layer and its backward once (36 + 18)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k3.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            PALI_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            seq_len=PALI_TRAIN_SEQ, batch=1, seed=seed,
+            install_signals=False, log_every=1, device=device)
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"paligemma training losses {losses}")
+    want = {k3.MMA: 2 * cfg.num_layers * TRAIN_STEPS,
+            k3.BWD_BF16_MMA: cfg.num_layers * TRAIN_STEPS}
+    if cfg.remat != "dots" or launches != want:
+        raise AssertionError(f"K3 launches in paligemma training "
+                             f"{launches}, expected {want} (remat "
+                             f"{cfg.remat})")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof)
+    device_ms = sum(split.values())
+    # the optimiser's share: one more AdamW update of the trained state
+    # (the parameters stand in for gradients), CUDA events
+    params = list(state.params.parameters())
+    grads = [p.detach() for p in params]
+    opt = optim.make_optimizer(cfg.optimizer, total_steps=TRAIN_STEPS)
+    opt_state = [state.opt]
+
+    def update():
+        opt_state[0] = opt.apply(params, grads, opt_state[0])[1]
+
+    optimizer_ms = time_ms(update, 3, warmup=1)
+    flops = pali_train_flops(state.params, cfg, 1, PALI_TRAIN_SEQ)
+    out = {"arch": PALI_TRAIN_ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat, "B": 1,
+           "S": PALI_TRAIN_SEQ, "patches": cfg.num_patches,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "positions_per_s": PALI_TRAIN_SEQ / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "optimizer_update_ms": optimizer_ms,
+           "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak, "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "note": "as a_full: ms_per_step the host clock around a step "
+                   "ending in a synchronize, median of steps 1-2; "
+                   "device_ms_by_kind from step 3 under the profiler (K3 "
+                   "forward / backward, cuBLAS, other); idle_share = 1 - "
+                   "device_ms / ms_per_step; positions_per_s counts the "
+                   "patches and the text; utilization = model flops "
+                   "(pali_train_flops) / step time / 989 TFLOP/s; "
+                   "optimizer_update_ms: one AdamW update of all "
+                   "parameters after the run (CUDA events, 3 runs)"}
+    del state, params, grads, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pali_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tt.loss_fn(module, batch["tokens"], batch["labels"],
+                         batch["prefix_embeds"])
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+def train_paligemma_card_vs_cpu(device, seed: int) -> dict:
+    """(p) paligemma float32 at depth 2 and full width, B=1, 256 patches
+    and 128 tokens: the loss and every parameter gradient on the card (K3's
+    float32 forward and backward kernels with the prefix, cuBLAS in full
+    float32) against the port's CPU path from the same weights, tokens and
+    patches; (b)'s gates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = pali_cfg(PALI_DEPTH, torch.float32)
+    cpu = tt.Transformer(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    card = tt.Transformer(cfg, generator=torch.Generator(device=device)
+                          .manual_seed(seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", PALI_CARD_CPU_SEQ, 1, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k3.reset_launch_counts()
+    loss_g, grads_g = _pali_grads(card, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    loss_c, grads_c = _pali_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"paligemma card vs CPU training: loss rel "
+                             f"{rel_loss}, worst gradient {worst} ({errs})")
+    # remat "dots": the forward twice a layer, the backward once
+    want = {k3.F32: 2 * cfg.num_layers, k3.BWD_F32: cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"K3 launches on the card {launches}, "
+                             f"expected {want}")
+    del card, cpu, grads_g, grads_c
+    torch.cuda.empty_cache()
+    return {"arch": PALI_TRAIN_ARCH, "layers": PALI_DEPTH,
+            "dtype": "float32", "B": 1, "S": PALI_CARD_CPU_SEQ,
+            "patches": cfg.num_patches,
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel_loss, "worst_grad_rel_diff": worst,
+            "grad_rel_diff": errs, "launches": launches,
+            "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL}}
+
+
 def phase_training(device, seed: int) -> dict:
     """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
@@ -5390,7 +5900,9 @@ def phase_training(device, seed: int) -> dict:
     zamba2-1.2b, K3 and K4 and their backwards on one path ((i) the full
     run, B=1); (l) - (n) for whisper-small, K3 and its backward on the
     encoder's, the decoder's and the cross attention ((l) the full run,
-    B=8, 448 tokens over 1500 frames)."""
+    B=8, 448 tokens over 1500 frames); (o) - (q) for paligemma-3b, K3 and
+    its backward at head dim 256 with the patches' bidirectional prefix
+    ((o) the full run, B=1, 256 patches + 3,840 tokens)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -5426,6 +5938,14 @@ def phase_training(device, seed: int) -> dict:
         WHISPER_DEPTH, WHISPER_TRAIN_SEQ)
     torch.cuda.empty_cache()
     seconds["l_to_n"] = time.perf_counter() - t3
+    t4 = time.perf_counter()
+    out["o_paligemma_full"] = train_paligemma_full(device, seed)
+    out["p_paligemma_card_vs_cpu"] = train_paligemma_card_vs_cpu(device,
+                                                                 seed)
+    out["q_paligemma_resume"] = train_resume(
+        device, seed, PALI_TRAIN_ARCH, 1, PALI_DEPTH, PALI_RESUME_SEQ)
+    torch.cuda.empty_cache()
+    seconds["o_to_q"] = time.perf_counter() - t4
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
     emit({"phase": "training", **out,
@@ -5440,7 +5960,10 @@ def phase_training(device, seed: int) -> dict:
                              "block's included) 1e-4 of its scale",
                         "m": "whisper float32 2 + 2 layers card vs CPU: "
                              "loss 1e-5 relative, every gradient (cross "
-                             "attention's included) 1e-4 of its scale"},
+                             "attention's included) 1e-4 of its scale",
+                        "p": "paligemma float32 depth 2 card vs CPU: loss "
+                             "1e-5 relative, every gradient (the tied "
+                             "embedding's included) 1e-4 of its scale"},
           "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
                            "after 2 warm-ups; device_ms the backward's "
                            "kernels (torch.profiler, 3 calls), "
@@ -5474,27 +5997,38 @@ def phase_training(device, seed: int) -> dict:
 
 
 def bwd_rows(training, ptxas) -> list:
-    """K3 backward's rows: the stablelm B=1 S=4096 shape, the other shapes
-    (qwen3's, whisper's cross and encoder attention) beside it; launches
-    from the training paths ((a), zamba2's (i) and whisper's (l) bf16, (b),
-    (j) and (m) float32)."""
+    """K3 backward's rows, one a variant: the bf16 wgmma and the float32
+    kernels at the stablelm B=1 S=4096 shape, the bf16 TF32 kernels at
+    paligemma's (B=1 S=4096, 8 heads of 256, one kv head, prefix 256), the
+    other shapes of the variant beside each; launches from the training
+    paths ((a), zamba2's (i), whisper's (l) and paligemma's (o) bf16, (b),
+    (j), (m) and (p) float32)."""
     rows = []
-    paths = {torch.bfloat16: (("a_full", "i_zamba2_full", "l_whisper_full"),
-                              "training (a): stablelm-1.6b, 4 steps; (i): "
-                              "zamba2-1.2b, 4 steps, 6 sites; (l): "
-                              "whisper-small, 4 steps, 36 attentions"),
-             torch.float32: (("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
-                              "m_whisper_card_vs_cpu"),
-                             "training (b): stablelm float32 depth 2, one "
-                             "step on the card; (j): zamba2 float32 depth "
-                             "7, one site, one step; (m): whisper float32 "
-                             "2 + 2 layers, 6 attentions, one step")}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = BWD_MAIN[dtype]
+    bf16_paths = (("a_full", "i_zamba2_full", "l_whisper_full",
+                   "o_paligemma_full"),
+                  "training (a): stablelm-1.6b, 4 steps; (i): "
+                  "zamba2-1.2b, 4 steps, 6 sites; (l): whisper-small, 4 "
+                  "steps, 36 attentions; (o): paligemma-3b, 4 steps, 18 "
+                  "layers")
+    # (dtype, variant, headline case, paths, its kernels' ptxas names:
+    # the wgmma kernels, the TF32 kernels at T = bf16, at T = float)
+    heads = ((torch.bfloat16, k3.BWD_BF16, BWD_HEADLINE, bf16_paths,
+              "bf16_tc_kernel"),
+             (torch.bfloat16, k3.BWD_BF16_MMA, BWD_D256_HEADLINE,
+              bf16_paths, "kernelI13__nv_bfloat16"),
+             (torch.float32, k3.BWD_F32, BWD_HEADLINE,
+              (("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
+                "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu"),
+               "training (b): stablelm float32 depth 2, one step on the "
+               "card; (j): zamba2 float32 depth 7, one site, one step; "
+               "(m): whisper float32 2 + 2 layers, 6 attentions, one step; "
+               "(p): paligemma float32 depth 2, one step"),
+              "kernelIfLi"))
+    for dtype, name, headline, (path, what), tag in heads:
         cases = [r for r in training["d_k3_backward"]
-                 if r["dtype"] == SUFFIX[dtype]]
-        head = next(r for r in cases if r["case"] == BWD_HEADLINE)
-        path, what = paths[dtype]
+                 if r["dtype"] == SUFFIX[dtype]
+                 and r["plan"]["variant"] == name]
+        head = next(r for r in cases if r["case"] == headline)
         rows.append({
             "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
             "replaces": REPLACES["flash_attention"],
@@ -5512,15 +6046,16 @@ def bwd_rows(training, ptxas) -> list:
             "units_bound_ms": head["units_bound_ms"],
             "device_ms": head["device_ms"], "dq_ms": head["dq_ms"],
             "dkdv_ms": head["dkdv_ms"],
-            "shape": "B=1, S=4096, H=KV=32, hd=hv=64, causal",
+            "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
+                      f"KV={head['KV']}, hd=hv={head['hd']}, causal, "
+                      f"prefix {head['prefix']}"),
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "ms",
-                "dq_ms", "dkdv_ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "units_bound_ms", "library_ms", "max_abs_err",
-                "rel_err_dq_dk_dv")} for r in cases],
-            "ptxas": [r for r in ptxas if "flash_bwd_" in r["kernel"]
-                      and ("bf16" if dtype == torch.bfloat16 else "f32")
-                      in r["kernel"]]})
+                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "prefix",
+                "ms", "dq_ms", "dkdv_ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "units_bound_ms", "library_ms",
+                "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
+            "ptxas": [r for r in ptxas if BWD_SYMBOL in r["kernel"]
+                      and tag in r["kernel"]]})
     return rows
 
 
@@ -5655,10 +6190,12 @@ CENSUS_CARD = (
     ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
     ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
     # whisper (a)'s shape: 1500 frames and a 448-token prefill
-    ("whisper_small", ShapeConfig("prefill_b1_s448", 448, 1, "prefill")))
+    ("whisper_small", ShapeConfig("prefill_b1_s448", 448, 1, "prefill")),
+    # paligemma (a)'s: 256 patches and 3,840 tokens
+    ("paligemma_3b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")))
 # the cells the meta census traces: dense x 3 shapes, mamba2 and zamba2 x 4,
-# whisper x 3
-CENSUS_META_CELLS = 23
+# whisper and paligemma x 3
+CENSUS_META_CELLS = 26
 CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
                "hbm_by_opcode", "kernels")
 # the k-fold models of the census dataset (the forest's k-fold, ~30 s a
@@ -5734,6 +6271,11 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
         calls = cfg.encoder_layers + 2 * layers
         want = ({k3.TC: calls, k3.BWD_BF16: calls} if shape.kind == "train"
                 else {k3.TC: calls})
+    elif cfg.family == "vlm":
+        # head dim 256: the mma.sync forward, the TF32 backward; remat
+        # "dots" recomputes the forward
+        want = ({k3.MMA: 2 * layers, k3.BWD_BF16_MMA: layers}
+                if shape.kind == "train" else {k3.MMA: layers})
     else:
         want = ({k3.TC: layers, k3.BWD_BF16: layers}
                 if shape.kind == "train" else {k3.TC: layers})
@@ -5873,7 +6415,7 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
 
 def phase_census(device) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device (23); six steps traced on the card and held equal to the meta
+    device (26); seven steps traced on the card and held equal to the meta
     census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
@@ -5952,6 +6494,7 @@ def main() -> int:
     mb = phase_mamba2(device, args.seed)
     zb = phase_zamba2(device, args.seed)
     wb = phase_whisper(device, args.seed)
+    pb = phase_paligemma(device, args.seed)
     phase_token_serving(device, args.seed)
     census = phase_census(device)
     campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
@@ -5960,7 +6503,7 @@ def main() -> int:
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])
           + conv_rows(per_dtype, infer)
-          + flash_rows(flash, lm, training, zb, wb)
+          + flash_rows(flash, lm, training, zb, wb, pb)
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
           + ssd_rows(ssd, mb, training, zb)
           + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})

@@ -19,14 +19,20 @@
 //
 //   o[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h, :] . k[b, j, h/G, :])
 //                   * v[b, j, h/G, :],   G = H / KV,
-//   over j <= i when causal, over all j < Sk otherwise.
+//   over j <= i or j < P when causal (P = prefix: a bidirectional prefix of
+//   P keys that every query row sees, PaliGemma's image patches, the
+//   reference's layers._block_mask; P = 0 plain causal, P >= S full
+//   attention), over all j < Sk otherwise.
 //     in : q [B, S, H, hd], k [B, Sk, KV, hd], v [B, Sk, KV, hv] (T, any
 //          strides with the last dimension dense, 16-byte aligned rows)
 //     out: o [B, S, H, hv] (T)
 //   The key length Sk may differ from the query length S (cross attention:
 //   a decoder's queries over an encoder's keys) when the call is not
-//   causal; causal needs Sk == S.  Query rows (q-blocks, o and lse rows)
-//   run over S, keys (kv tiles, key masks, the K / V tensor maps) over Sk.
+//   causal; causal needs Sk == S, and only a causal call takes a prefix.
+//   Query rows (q-blocks, o and lse rows) run over S, keys (kv tiles, key
+//   masks, the K / V tensor maps) over Sk.  A block of causal rows [q0,
+//   q1) sees the keys up to max(q1, P) (causal_end): its kv loop covers
+//   those and masks by position a key past its row and past the prefix.
 //
 //   The TPU kernel runs a (B*H, q-block, kv-block) grid with the kv axis
 //   sequential on one core, carrying the running max m, the running sum l
@@ -101,20 +107,27 @@
 //       four lanes of a quad by shuffles, in four partials a row; 2^x by
 //       ex2.approx (MUFU); for scale > 0 the max is taken over the raw
 //       scores and scale * log2(e) folds into one FFMA before each exp2.
-//       The kv loop runs from the diagonal tile down, so only its first tile
-//       (the diagonal, a ragged end) is masked by position -- by selects, a
-//       branch between elements costs more than the softmax -- and every row
-//       sees a key in it.
+//       The kv loop runs from the last visible tile down (the diagonal one,
+//       or the prefix's last where that lies further), so only its first
+//       tile (the diagonal, the prefix's end, a ragged end) is masked by
+//       position -- by selects, a branch between elements costs more than
+//       the softmax -- and every row sees a key in it: its first key lies at
+//       or before the row, or inside the prefix.
 //       Epilogue: O * (1 / max(l, 1e-30)) rounded to bf16x2 straight from
 //       the fragments, rows past S not written.
 //
 //   flash_bf16_mma_kernel<HD, HV>   the other bf16 shapes (hd or hv = 32,
-//     hv != hd): mma.sync.aligned.m16n8k16 from
+//     hv != hd, hd = hv = 256): mma.sync.aligned.m16n8k16 from
 //     ldmatrix fragments, four warps per 64-query block, each owning 16
 //     rows; K and V tiles of 64 keys double-buffered by cp.async in
-//     row-padded shared memory; P re-used from the S fragments as above.
+//     row-padded shared memory (169 KB at 256); P re-used from the S
+//     fragments as above.  At hd 256 a warp's 16 x 256 O tile alone takes
+//     128 float32 registers a thread, so Q's fragments are not held beside
+//     it: each k-step of S = Q K^T reads them from shared memory by
+//     ldmatrix (at 64 and 128 they stay in registers, as they were).
 //
-//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128}.  The
+//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128} and hd =
+//     hv = 256.  The
 //     reference computes float32 attention in IEEE float32, so this stays on
 //     the CUDA cores (67 TFLOP/s; TF32 would break the 1e-5 tolerance).
 //     256 threads per 64-query block, tiles of 64 keys.  Q, K and V arrive
@@ -124,11 +137,16 @@
 //     score tile, so the K reads of a quarter warp hit distinct banks; the
 //     scores stay in registers, the row max and sum come from shuffles
 //     across the 16 lanes of a row group, and only P goes through shared
-//     memory, once, for the P V product.  Two barriers a tile.
+//     memory, once, for the P V product.  Two barriers a tile.  At hd = hv
+//     = 256 two K / V buffers would take 350 KB: one buffer (212 KB), the
+//     next tile loaded after this one's P V product (three barriers a
+//     tile).
 //
-//   Training: flash_bf16_tc_kernel<D, true> and flash_f32_kernel<D, D, true>
-//   (entry points *_lse) also write the row log-sum-exp of the scaled
-//   scores, lse[b, h, i] = ln(sum_j exp(scale * q_i . k_j)), float32
+//   Training: flash_bf16_tc_kernel<D, true> (D 64, 128),
+//   flash_bf16_mma_kernel<256, 256, true> and flash_f32_kernel<D, D, true>
+//   (D 64, 128, 256) (entry points *_lse) also write the row log-sum-exp
+//   of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale * q_i . k_j)),
+//   float32
 //   [B, H, S], from the final running max and sum -- what the backward
 //   kernels (flash_attention_bwd.cu) recompute P from.  The <..., false>
 //   instances, prefill's, are the code they were.
@@ -163,6 +181,7 @@ struct Params {
   int64_t os_b, os_s, os_h;
   float scale;
   int causal;
+  int prefix;  // causal: keys [0, prefix) seen by every row
   int bh;      // tensor-core kernel: B * H
   float* lse;  // [B, H, S] float32: the *_lse entry points only
 };
@@ -183,6 +202,19 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int64_t lin, int bh,
 __device__ __forceinline__ Tile block_tile(const Params& p) {
   return tile_of(p, (int64_t)blockIdx.y * gridDim.x + blockIdx.x, gridDim.x,
                  gridDim.y);
+}
+
+// the end of the keys a causal block of rows [.., q_end) sees: its last
+// row's, or the prefix's where that lies further
+__device__ __forceinline__ int causal_end(const Params& p, int q_end) {
+  return max(min(q_end, p.Sk), min(p.prefix, p.Sk));
+}
+
+// a key the causal mask hides from a row: after it and past the prefix,
+// i.e. after the row's last visible key (one max a row, not a compare an
+// element)
+__device__ __forceinline__ bool hidden(int key, int row, int prefix) {
+  return key > max(row, prefix - 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -339,9 +371,9 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
 
 constexpr int kTcBM = 128;        // query rows per block
 constexpr int kTcBN = 128;        // keys per kv tile
-// kTcBN == kTcBM keeps every q-block's first kv tile (the diagonal one) on
-// a tile boundary: only that tile is ever masked, and every row sees a key
-// in it
+// kTcBN == kTcBM keeps every q-block's first kv tile (the diagonal one, or
+// the tile of the prefix's last key where that lies further) on a tile
+// boundary: only that tile is ever masked, and every row sees a key in it
 static_assert(kTcBN == kTcBM, "the first tile is the only masked one");
 constexpr int kTcThreads = 384;   // loader warpgroup + 2 consumer warpgroups
 constexpr int kTcConsumerWarps = 8;
@@ -414,8 +446,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                    p.bh, nq);
   };
   auto kv_tiles = [&](const Tile& tl) {
-    const int q0 = tl.qb * kTcBM;
-    const int kv_end = p.causal ? min(q0 + kTcBM, p.Sk) : p.Sk;
+    const int kv_end = p.causal ? causal_end(p, tl.qb * kTcBM + kTcBM) : p.Sk;
     return (kv_end + kTcBN - 1) / kTcBN;
   };
 
@@ -443,7 +474,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int it = 0; it < n_kv; ++it, ++ring) {
           const int st = ring % stages;
           const uint32_t free_parity = ((ring / stages) & 1) ^ 1;
-          const int k0 = (n_kv - 1 - it) * kTcBN;  // from the diagonal down
+          const int k0 = (n_kv - 1 - it) * kTcBN;  // from the last down
           mbar_wait(&k_empty[st], free_parity);
           mbar_arrive_expect_tx(&k_full[st], kTile);
 #pragma unroll
@@ -506,14 +537,16 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
   };
   // The online softmax of s (keys [k0, k0 + 128)): mask by position where
-  // `masked` (the diagonal tile, a ragged end: only the first tile of the
-  // loop), by selects, so that no branch sits between elements; new row max,
+  // `masked` (the diagonal tile, the prefix's end, a ragged end: only the
+  // first tile of the loop), by selects, so that no branch sits between
+  // elements; new row max,
   // corr, p in s, l updated.  Maxima and sums in four partials a row, so
   // that the dependency chains stay short.  For scale > 0 (every model) the
   // row max is taken over the raw scores and the scale folds into one FFMA
   // before each exp2 (masked scores -inf); other scales multiply first.
   const int seq = p.Sk;  // the keys
   const bool causal = p.causal;
+  const int prefix = p.prefix;
   auto softmax = [&](int k0, bool masked, auto positive) {
     constexpr bool kFold = decltype(positive)::value;
     if constexpr (!kFold) {
@@ -528,7 +561,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < 4; ++e) {
           const int row = row0 + (e >> 1) * 8;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          const bool out = key >= seq || (causal && key > row);
+          const bool out = key >= seq || (causal && hidden(key, row, prefix));
           s[4 * n + e] = out ? drop : s[4 * n + e];
         }
     }
@@ -619,7 +652,8 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
 
-    // kv tile 0 (the diagonal one under causal): S, softmax, P
+    // kv tile 0 (the diagonal one, or the prefix's last, under causal): S,
+    // softmax, P
     mbar_wait(q_full, j & 1);
     {
       const int st = ring % stages;
@@ -634,6 +668,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(&k_empty[st]);
         if (n_kv == 1) mbar_arrive(q_empty);  // Q is done
       }
+      // a tile below every row of the warpgroup hides no key from them
       const int k0 = (n_kv - 1) * kTcBN;
       softmax_tile(k0,
                    k0 + kTcBN > seq || (causal && k0 + kTcBN - 1 > row_lo));
@@ -660,7 +695,8 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(&k_empty[st]);
         if (it == n_kv - 1) mbar_arrive(q_empty);  // Q is done
       }
-      softmax_tile((n_kv - 1 - it) * kTcBN, false);  // below the diagonal
+      // below the diagonal, or inside the prefix: nothing hidden
+      softmax_tile((n_kv - 1 - it) * kTcBN, false);
       wgmma_wait<0>();  // P V done: O and P may change
       fence_acc(o);
       fence_pa();
@@ -750,10 +786,13 @@ constexpr int mma_smem_bytes() {
          2;
 }
 
-template <int HD, int HV>
+template <int HD, int HV, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_mma_kernel(const Params p) {
   static_assert(HD % 16 == 0 && HV % 16 == 0, "mma / ldmatrix tile shapes");
+  // Q's fragments held in registers; at hd 256 read from shared memory at
+  // each k-step instead (the 16 x 256 O tile takes 128 registers a thread)
+  constexpr bool kQRegs = HD <= 128;
   constexpr int LDQ = HD + kPad, LDK = HD + kPad, LDV = HV + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LDQ]
@@ -802,7 +841,16 @@ flash_bf16_mma_kernel(const Params p) {
   cp_async_commit();
 
   const int rw = warp * 16 + g;  // this thread's rows: rw and rw + 8
-  uint32_t qa[HD / 16][4];       // A fragments of this warp's 16 Q rows
+  uint32_t qa[kQRegs ? HD / 16 : 1][4];  // A fragments of the warp's Q rows
+  const bf16* q_row = Qs + (warp * 16 + (lane & 15)) * LDQ + (lane >> 4) * 8;
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = qa[kk][e];
+    } else {
+      ldmatrix_x4(f, q_row + kk * 16);
+    }
+  };
   float oacc[HV / 8][4];
 #pragma unroll
   for (int n = 0; n < HV / 8; ++n)
@@ -811,7 +859,7 @@ flash_bf16_mma_kernel(const Params p) {
   float m[2] = {kNegInf, kNegInf};  // running max, log2 domain
   float l[2] = {0.0f, 0.0f};        // this thread's share of the running sum
   const float sl2 = p.scale * kLog2e;
-  const int kv_end = p.causal ? min(q0 + kBQ, p.Sk) : p.Sk;
+  const int kv_end = p.causal ? causal_end(p, q0 + kBQ) : p.Sk;
   const int n_kv = (kv_end + kBK - 1) / kBK;
 
   for (int kb = 0; kb < n_kv; ++kb) {
@@ -824,11 +872,12 @@ flash_bf16_mma_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kb == 0) {
+    if constexpr (kQRegs) {
+      if (kb == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          ldmatrix_x4(qa[kk], q_row + kk * 16);
+      }
     }
     const bf16* Kb = Ks + (kb & 1) * kBK * LDK;
     const bf16* Vb = Vs + (kb & 1) * kBK * LDV;
@@ -842,17 +891,21 @@ flash_bf16_mma_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qf[4];
+      q_frag(kk, qf);
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kb + (np * 16 + (mi >> 1) * 8 + mr) * LDK + kk * 16 +
                             (mi & 1) * 8);
-        mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
       }
+    }
 
-    // scale, mask (diagonal tiles and keys past Sk only), row max
+    // scale, mask (tiles past a row of the block, keys past Sk only), row
+    // max
     const bool masked = (k0 + kBK > p.Sk) || (p.causal && k0 + kBK - 1 > q0);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -863,7 +916,8 @@ flash_bf16_mma_kernel(const Params p) {
         if (masked) {
           const int row = q0 + rw + (e >> 1) * 8;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          if (key >= p.Sk || (p.causal && key > row)) x = kNegInf;
+          if (key >= p.Sk || (p.causal && hidden(key, row, p.prefix)))
+            x = kNegInf;
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -928,6 +982,10 @@ flash_bf16_mma_kernel(const Params p) {
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rw + i * 8;
     if (row >= p.S) continue;
+    if constexpr (kLse) {  // m is in the log2 domain of the scaled scores
+      if (t4 == 0)
+        p.lse[(int64_t)tile.bh * p.S + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
     bf16* orow = op + row * p.os_s;
 #pragma unroll
     for (int n = 0; n < HV / 8; ++n) {
@@ -944,11 +1002,24 @@ constexpr int kFK = 64;         // keys per kv tile
 constexpr int kFThreads = 256;  // 16 x 16 threads, 4 rows x 4 keys each
 constexpr int kFPad = 4;        // float row padding (keeps float4 alignment)
 
+// Q, ST buffers of K and V, P
+template <int HD, int HV, int ST>
+__host__ __device__ constexpr int f32_smem_bytes_st() {
+  return (kFQ * (HD + kFPad) + ST * kFK * (HD + kFPad) +
+          ST * kFK * (HV + kFPad) + kFK * (kFQ + kFPad)) * 4;
+}
+// K / V buffers: two (the next tile loads under this one's products) where
+// they fit a block's 227 KB, else one (hd = hv = 256)
+template <int HD, int HV>
+__host__ __device__ constexpr int f32_stages() {
+  return f32_smem_bytes_st<HD, HV, 2>() <= 232448 ? 2 : 1;
+}
 template <int HD, int HV>
 constexpr int f32_smem_bytes() {
-  return (kFQ * (HD + kFPad) + 2 * kFK * (HD + kFPad) +
-          2 * kFK * (HV + kFPad) + kFK * (kFQ + kFPad)) * 4;
+  return f32_smem_bytes_st<HD, HV, f32_stages<HD, HV>()>();
 }
+static_assert(f32_smem_bytes<256, 256>() <= 232448,
+              "a block's shared memory is 227 KB");
 
 // rows [r0, r0 + 64) of a [S, W] float32 view with row stride `st` into a
 // [64][ld] shared tile by 16-byte cp.async; rows past S are zero-filled
@@ -995,11 +1066,12 @@ flash_f32_kernel(const Params p) {
   // 16 VW g + VW tx, so a quarter warp's V reads are 128 consecutive bytes
   constexpr int VW = HV >= 64 ? 4 : 2;
   constexpr int NG = HV / (16 * VW);
+  constexpr int ST = f32_stages<HD, HV>();
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                // [kFQ][LQ]
-  float* Ks = Qs + kFQ * LQ;      // [2][kFK][LK]
-  float* Vs = Ks + 2 * kFK * LK;  // [2][kFK][LV]
-  float* Pt = Vs + 2 * kFK * LV;  // [kFK][LP]: p of row ty + 16 i at 4 ty + i
+  float* Qs = fsm;                 // [kFQ][LQ]
+  float* Ks = Qs + kFQ * LQ;       // [ST][kFK][LK]
+  float* Vs = Ks + ST * kFK * LK;  // [ST][kFK][LV]
+  float* Pt = Vs + ST * kFK * LV;  // [kFK][LP]: p of row ty + 16 i at 4 ty + i
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const Tile tile = block_tile(p);
@@ -1011,7 +1083,7 @@ flash_f32_kernel(const Params p) {
   const float* vp = static_cast<const float*>(p.v) + b * p.vs_b + kvh * p.vs_h;
   float* op = static_cast<float*>(p.o) + b * p.os_b + h * p.os_h;
 
-  const int kv_end = p.causal ? min(q0 + kFQ, p.Sk) : p.Sk;
+  const int kv_end = p.causal ? causal_end(p, q0 + kFQ) : p.Sk;
   const int n_kv = (kv_end + kFK - 1) / kFK;
   load_rows_f32<HD>(Qs, LQ, qp, p.qs_s, q0, p.S);
   load_rows_f32<HD>(Ks, LK, kp, p.ks_s, 0, p.Sk);
@@ -1031,17 +1103,19 @@ flash_f32_kernel(const Params p) {
   }
 
   for (int kb = 0; kb < n_kv; ++kb) {
-    const int buf = kb & 1, k0 = kb * kFK;
+    const int buf = ST == 2 ? kb & 1 : 0, k0 = kb * kFK;
     cp_async_wait<0>();
     // tile kb (and Q) landed for every thread, and every thread is done with
     // tile kb - 1: its K / V buffer and P may be overwritten
     __syncthreads();
-    if (kb + 1 < n_kv) {  // in flight during this tile's products
-      load_rows_f32<HD>(Ks + (buf ^ 1) * kFK * LK, LK, kp, p.ks_s, k0 + kFK,
-                        p.Sk);
-      load_rows_f32<HV>(Vs + (buf ^ 1) * kFK * LV, LV, vp, p.vs_s, k0 + kFK,
-                        p.Sk);
-      cp_async_commit();
+    if constexpr (ST == 2) {
+      if (kb + 1 < n_kv) {  // in flight during this tile's products
+        load_rows_f32<HD>(Ks + (buf ^ 1) * kFK * LK, LK, kp, p.ks_s,
+                          k0 + kFK, p.Sk);
+        load_rows_f32<HV>(Vs + (buf ^ 1) * kFK * LV, LV, vp, p.vs_s,
+                          k0 + kFK, p.Sk);
+        cp_async_commit();
+      }
     }
     const float* Kb = Ks + buf * kFK * LK;
     const float* Vb = Vs + buf * kFK * LV;
@@ -1072,20 +1146,23 @@ flash_f32_kernel(const Params p) {
         }
     }
 
-    // scale, mask (tiles across the diagonal or past Sk only, by selects, so
-    // that no branch sits between elements), online softmax with the row
-    // statistics over the 16 lanes that share the rows
+    // scale, mask (tiles across the diagonal and past the prefix, or past
+    // Sk, only; by selects, so that no branch sits between elements),
+    // online softmax with the row statistics over the 16 lanes that share
+    // the rows
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] *= p.scale;
-    if ((k0 + kFK > p.Sk) || (p.causal && k0 + kFK - 1 > q0)) {
+    if ((k0 + kFK > p.Sk) || (p.causal && k0 + kFK - 1 > q0 &&
+                              k0 + kFK > p.prefix)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = q0 + ty + 16 * i, key = k0 + tx + 16 * j;
-          const bool out = key >= p.Sk || (p.causal && key > row);
+          const bool out =
+              key >= p.Sk || (p.causal && hidden(key, row, p.prefix));
           s[i][j] = out ? kNegInf : s[i][j];
         }
     }
@@ -1138,6 +1215,14 @@ flash_f32_kernel(const Params p) {
 #pragma unroll
         for (int cc = 0; cc < NG * VW; ++cc) acc[i][cc] += pv[i] * vv[cc];
     }
+    if constexpr (ST == 1) {
+      if (kb + 1 < n_kv) {  // every thread is done with this tile's K, V
+        __syncthreads();
+        load_rows_f32<HD>(Ks, LK, kp, p.ks_s, k0 + kFK, p.Sk);
+        load_rows_f32<HV>(Vs, LV, vp, p.vs_s, k0 + kFK, p.Sk);
+        cp_async_commit();
+      }
+    }
   }
 
 #pragma unroll
@@ -1170,10 +1255,10 @@ int launch(Kernel kernel, int smem, int threads, const Params& p, int gx,
   return (int)cudaGetLastError();
 }
 
-template <int HD, int HV>
+template <int HD, int HV, bool kLse = false>
 int launch_mma(const Params& p, int gx, int gy, int device, void* stream) {
   static unsigned done = 0;
-  return launch(flash_bf16_mma_kernel<HD, HV>, mma_smem_bytes<HD, HV>(),
+  return launch(flash_bf16_mma_kernel<HD, HV, kLse>, mma_smem_bytes<HD, HV>(),
                 kThreads, p, gx, gy, &done, device, stream);
 }
 
@@ -1184,7 +1269,7 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
                 kFThreads, p, gx, gy, &done, device, stream);
 }
 
-// the (hd, hv) instances: hd, hv in {32, 64, 128}
+// the (hd, hv) instances: hd, hv in {32, 64, 128}, and hd = hv = 256
 #define FLASH_DISPATCH(LAUNCH)                                    \
   switch (hd * 1000 + hv) {                                       \
     case 32032: return LAUNCH<32, 32>(p, gx, gy, device, stream);   \
@@ -1196,12 +1281,13 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
     case 128032: return LAUNCH<128, 32>(p, gx, gy, device, stream); \
     case 128064: return LAUNCH<128, 64>(p, gx, gy, device, stream); \
     case 128128: return LAUNCH<128, 128>(p, gx, gy, device, stream);\
+    case 256256: return LAUNCH<256, 256>(p, gx, gy, device, stream);\
     default: return (int)cudaErrorInvalidValue;                   \
   }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    int S, int Sk, int H, int KV, const long long* st,
-                   float scale, int causal) {
+                   float scale, int causal, int prefix) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.S = S; p.Sk = Sk; p.H = H; p.KV = KV;
@@ -1211,21 +1297,25 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.os_b = st[9]; p.os_s = st[10]; p.os_h = st[11];
   p.scale = scale;
   p.causal = causal;
+  p.prefix = prefix;
   p.bh = 0;         // set by the entry point that needs it
   p.lse = nullptr;  // set by the *_lse entry points
   return p;
 }
 
 // the lengths every variant takes: S query rows, Sk keys, Sk == S when
-// causal
-bool lengths_fit(int S, int Sk, int causal) {
-  return S >= 1 && Sk >= 1 && (!causal || Sk == S);
+// causal; a prefix (>= 0) only when causal
+bool lengths_fit(int S, int Sk, int causal, int prefix) {
+  return S >= 1 && Sk >= 1 && (!causal || Sk == S) && prefix >= 0 &&
+         (causal || prefix == 0);
 }
 
 // the checks every variant shares: the plan's tile and grid fit the shape
-bool plan_fits(int B, int S, int Sk, int H, int KV, int causal, int block_q,
-               int block_k, int want_q, int want_k, int gx, int gy) {
-  return B >= 1 && lengths_fit(S, Sk, causal) && KV >= 1 && H % KV == 0 &&
+bool plan_fits(int B, int S, int Sk, int H, int KV, int causal, int prefix,
+               int block_q, int block_k, int want_q, int want_k, int gx,
+               int gy) {
+  return B >= 1 && lengths_fit(S, Sk, causal, prefix) && KV >= 1 &&
+         H % KV == 0 &&
          block_q == want_q && block_k == want_k &&
          (int64_t)gx == (int64_t)B * H && gy == (S + block_q - 1) / block_q;
 }
@@ -1271,11 +1361,12 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 // prefill's instance)
 int tc_entry(const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int S, int Sk, int H, int KV, int hd, int hv,
-             const long long* strides, float scale, int causal, int block_q,
-             int block_k, int gx, int gy, int device, void* stream) {
+             const long long* strides, float scale, int causal, int prefix,
+             int block_q, int block_k, int gx, int gy, int device,
+             void* stream) {
   const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
   if (hd != hv || (hd != 64 && hd != 128) || B < 1 ||
-      !lengths_fit(S, Sk, causal) || KV < 1 || H % KV ||
+      !lengths_fit(S, Sk, causal, prefix) || KV < 1 || H % KV ||
       block_q != kTcBM || block_k != kTcBN || gx < 1 || gx > n_tiles ||
       gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
@@ -1284,7 +1375,8 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
       !encode_bshd(&tm_k, k, B, Sk, KV, hd, strides + 3, kTcBN) ||
       !encode_bshd(&tm_v, v, B, Sk, KV, hv, strides + 6, kTcBN))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
+  Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   p.bh = B * H;
   p.lse = lse;
   if (lse != nullptr)
@@ -1307,8 +1399,9 @@ extern "C" {
 // Every entry point: q, k, v, o device pointers; B, S (query rows), Sk
 // (keys; == S when causal), H, KV, hd, hv;
 // strides: 12 element strides, (batch, seq, head) of q, k, v, o in order;
-// the softmax scale; causal; the plan: block_q x block_k tile, grid (gx,
-// gy); the device and the stream.
+// the softmax scale; causal; prefix (causal only: keys [0, prefix) seen by
+// every row); the plan: block_q x block_k tile, grid (gx, gy); the device
+// and the stream.
 
 // bf16 on wgmma.  Plan: 128 x 128, a persistent grid (gx, 1) of gx <= B*H *
 // ceil(S / 128) blocks that walk the tiles; hd == hv in {64, 128}, every
@@ -1316,10 +1409,12 @@ extern "C" {
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int Sk, int H, int KV,
                             int hd, int hv, const long long* strides,
-                            float scale, int causal, int block_q, int block_k,
-                            int gx, int gy, int device, void* stream) {
+                            float scale, int causal, int prefix, int block_q,
+                            int block_k, int gx, int gy, int device,
+                            void* stream) {
   return tc_entry(q, k, v, o, nullptr, B, S, Sk, H, KV, hd, hv, strides,
-                  scale, causal, block_q, block_k, gx, gy, device, stream);
+                  scale, causal, prefix, block_q, block_k, gx, gy, device,
+                  stream);
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32)
@@ -1327,63 +1422,90 @@ int flash_attention_bf16_tc_lse(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int Sk,
                                 int H, int KV, int hd, int hv,
                                 const long long* strides, float scale,
-                                int causal, int block_q, int block_k, int gx,
-                                int gy, int device, void* stream) {
+                                int causal, int prefix, int block_q,
+                                int block_k, int gx, int gy, int device,
+                                void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
   return tc_entry(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H, KV, hd,
-                  hv, strides, scale, causal, block_q, block_k, gx, gy,
-                  device, stream);
+                  hv, strides, scale, causal, prefix, block_q, block_k, gx,
+                  gy, device, stream);
 }
 
-// bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid (B*H,
-// ceil(S / 64)); every row 16-byte aligned.
+// bf16 on mma.sync, hd, hv in {32, 64, 128} or hd = hv = 256.  Plan: 64 x
+// 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
                              void* o, int B, int S, int Sk, int H, int KV,
                              int hd, int hv, const long long* strides,
-                             float scale, int causal, int block_q,
-                             int block_k, int gx, int gy, int device,
-                             void* stream) {
-  if (!plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kBQ, kBK, gx,
-                 gy) ||
+                             float scale, int causal, int prefix,
+                             int block_q, int block_k, int gx, int gy,
+                             int device, void* stream) {
+  if (!plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kBQ, kBK,
+                 gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
   const Params p =
-      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   FLASH_DISPATCH(launch_mma)
 }
 
-// float32 on the CUDA cores, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid
-// (B*H, ceil(S / 64)); every row 16-byte aligned.
+// the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
+// hv == 256 (64 and 128 train on the tensor-core variant)
+int flash_attention_bf16_mma_lse(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int S, int Sk,
+                                 int H, int KV, int hd, int hv,
+                                 const long long* strides, float scale,
+                                 int causal, int prefix, int block_q,
+                                 int block_k, int gx, int gy, int device,
+                                 void* stream) {
+  if (lse == nullptr || hd != 256 || hv != 256 ||
+      !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kBQ, kBK,
+                 gx, gy) ||
+      !rows_aligned16(q, k, v, o, strides, 2))
+    return (int)cudaErrorInvalidValue;
+  Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
+  p.lse = static_cast<float*>(lse);
+  return launch_mma<256, 256, true>(p, gx, gy, device, stream);
+}
+
+// float32 on the CUDA cores, hd, hv in {32, 64, 128} or hd = hv = 256.
+// Plan: 64 x 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Sk, int H, int KV, int hd, int hv,
                         const long long* strides, float scale, int causal,
-                        int block_q, int block_k, int gx, int gy, int device,
-                        void* stream) {
-  if (!plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kFQ, kFK, gx,
-                 gy) ||
+                        int prefix, int block_q, int block_k, int gx, int gy,
+                        int device, void* stream) {
+  if (!plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kFQ, kFK,
+                 gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
     return (int)cudaErrorInvalidValue;
   const Params p =
-      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   FLASH_DISPATCH(launch_f32)
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
-// hv in {64, 128}
+// hv in {64, 128, 256}
 int flash_attention_f32_lse(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int Sk, int H,
                             int KV, int hd, int hv, const long long* strides,
-                            float scale, int causal, int block_q, int block_k,
-                            int gx, int gy, int device, void* stream) {
-  if (lse == nullptr || hd != hv || (hd != 64 && hd != 128) ||
-      !plan_fits(B, S, Sk, H, KV, causal, block_q, block_k, kFQ, kFK, gx,
-                 gy) ||
+                            float scale, int causal, int prefix, int block_q,
+                            int block_k, int gx, int gy, int device,
+                            void* stream) {
+  if (lse == nullptr || hd != hv ||
+      (hd != 64 && hd != 128 && hd != 256) ||
+      !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kFQ, kFK,
+                 gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal);
+  Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   p.lse = static_cast<float*>(lse);
-  return hd == 64 ? launch_f32<64, 64, true>(p, gx, gy, device, stream)
-                  : launch_f32<128, 128, true>(p, gx, gy, device, stream);
+  switch (hd) {
+    case 64: return launch_f32<64, 64, true>(p, gx, gy, device, stream);
+    case 128: return launch_f32<128, 128, true>(p, gx, gy, device, stream);
+    default: return launch_f32<256, 256, true>(p, gx, gy, device, stream);
+  }
 }
 
 const char* flash_attention_error_string(int code) {

@@ -23,7 +23,9 @@
 //   and row log-sum-exp lse [B, H, S] (flash_attention.cu's *_lse entry
 //   points), and do = dL/do [B, S, H, D], with G = H / KV:
 //     D_i   = sum_d do[i, d] o[i, d]                       (float32)
-//     P_ij  = exp(scale q_i . k_j - lse_i), 0 for j > i when causal
+//     P_ij  = exp(scale q_i . k_j - lse_i), 0 for j > i, j >= P when
+//             causal (P = prefix: the bidirectional prefix of P keys every
+//             row sees, PaliGemma's image patches; 0 plain causal)
 //     dV_j  = sum_{h in group} sum_i P_ij do_i
 //     dP_ij = do_i . v_j
 //     dS_ij = P_ij (dP_ij - D_i) scale
@@ -34,6 +36,10 @@
 //   causal (cross attention): k, v, dk, dv are then [B, Sk, KV, D], and
 //   the query rows (dQ items, q tiles, lse, D) run over S, the keys (kv
 //   tiles, dK / dV items, key masks, the K / V tensor maps) over Sk.
+//   With a prefix, a dQ item of causal rows [q0, q1) walks the keys up to
+//   max(q1, P) (causal_end), and a dK / dV item that holds a key of the
+//   prefix walks every query row from 0; the masks hide a key after its
+//   row and past the prefix (hidden), on the tiles they did before.
 //
 //   Bound on an H100: operations.  Per (b, h) the backward needs five
 //   products over the causally visible pairs -- S again, dP, dV, dQ, dK --
@@ -104,8 +110,12 @@
 //       the products of q tile i issue together with dV and dK of tile
 //       i - 1 (at D = 128 the registers do not hold both).  dK and dV stay
 //       in registers across the group's heads and are stored once.
-//   flash_bwd_dq_f32_tc_kernel<D>, flash_bwd_dkdv_f32_tc_kernel<D>   float32,
-//     D in {64, 128}: every product -- S and dP in both kernels, dQ, dV, dK
+//   flash_bwd_dq_f32_tc_kernel<T, D>, flash_bwd_dkdv_f32_tc_kernel<T, D>
+//     float32 (T = float), D in {64, 128, 256}, and bf16 (T = bf16) at D =
+//     256, where the wgmma kernels cannot hold a tile (their two Q / dO
+//     item slots alone are 256 KB, and a 64 x 256 accumulator is 128
+//     registers a thread beside S, dP and the fragments).  float32: every
+//     product -- S and dP in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
 //     + hi lo + hi hi, the small terms first, into a float32 accumulator;
@@ -152,6 +162,16 @@
 //       SMs), so with GQA each item writes float32 partials and
 //       flash_bwd_dkdv_sum_f32_kernel adds a group's G of them in head
 //       order.
+//     At D = 256 the streamed tiles are 16 rows, one block of each kernel
+//     fits an SM (float32: 195 and 201 KB), and every warp's accumulator
+//     is 128 registers a thread.  bf16 (entry point
+//     flash_attention_bwd_bf16_mma): the same kernels with bf16 tiles in
+//     shared memory (99 and 105 KB), read into the fragments as float32;
+//     each product is ONE TF32 mma.sync -- a bf16 value is exact in TF32,
+//     so S = Q K^T and dP = dO V^T are exact, and P and dS are rounded to
+//     TF32 once (the wgmma kernels round them to bf16) -- at half the
+//     bf16 mma.sync rate, a simple route that is right; outputs rounded to
+//     bf16 once.  D = 256 on wgmma is a later redesign.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -197,11 +217,31 @@ struct Params {
   int64_t st[3 * kTensors];
   float scale;
   int causal;
+  int prefix;            // causal: keys [0, prefix) seen by every row
 };
 
 // a non-negative index as a 64-bit offset, zero-extended: no register has
 // to keep its sign word (which, held across a loop, can cost a spill)
 __device__ __forceinline__ int64_t u64(int i) { return (int64_t)(uint32_t)i; }
+
+// the end of the keys a causal block of rows [.., q_end) sees: its last
+// row's, or the prefix's where that lies further
+__device__ __forceinline__ int causal_end(const Params& p, int q_end) {
+  return max(min(q_end, p.Sk), min(p.prefix, p.Sk));
+}
+
+// a key the causal mask hides from a row: after it and past the prefix,
+// i.e. after the row's last visible key (one max a row, not a compare an
+// element)
+__device__ __forceinline__ bool hidden(int key, int row, int prefix) {
+  return key > max(row, prefix - 1);
+}
+
+// the rows before which a key is hidden: its own row, none (0) for a key of
+// the prefix -- hidden(key, row, prefix) == row < hidden_below(key, prefix)
+__device__ __forceinline__ int hidden_below(int key, int prefix) {
+  return key >= prefix ? key : 0;
+}
 
 // the (b, head) base of tensor T and its row stride
 template <typename E, int T>
@@ -517,7 +557,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_mine = p.sched_dq[blockIdx.x + 1] - first;
   const int* items = p.sched_dq + gridDim.x + 1 + first;
   auto kv_tiles = [&](int qb) {
-    const int kv_end = p.causal ? min((qb + 1) * kRows, p.Sk) : p.Sk;
+    const int kv_end = p.causal ? causal_end(p, (qb + 1) * kRows) : p.Sk;
     return (kv_end + BN - 1) / BN;
   };
 
@@ -549,7 +589,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int it = 0; it < n_kv; ++it, ++ring) {
           const int st = ring % stages;
           const uint32_t free_parity = ((ring / stages) & 1) ^ 1;
-          const int k0 = (n_kv - 1 - it) * BN;  // from the diagonal down
+          const int k0 = (n_kv - 1 - it) * BN;  // from the last down
           mbar_wait(&k_empty[st], free_parity);
           mbar_arrive_expect_tx(&k_full[st], kTileK);
 #pragma unroll
@@ -577,6 +617,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float sl2 = p.scale * kLog2e;
   const int seq = p.S, keys = p.Sk;  // query rows, keys
   const bool causal = p.causal;
+  const int prefix = p.prefix;
 
   float dq[D / 2];                 // dQ / scale
   float s[BN / 2], dp[BN / 2];     // S then dS / scale; dP
@@ -617,9 +658,10 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
   };
   // P and dS / scale of kv tile kt (keys [kt BN, kt BN + BN)) in s, from S
-  // in s and dP; on a tile with the diagonal or keys past Sk masked by
-  // selects (keys past Sk must go: TMA zero-filled their K and V, so P
-  // there is 2^-lse2, which can overflow)
+  // in s and dP; on a tile past a row of the warpgroup (the diagonal, the
+  // prefix's end) or with keys past Sk masked by selects (keys past Sk must
+  // go: TMA zero-filled their K and V, so P there is 2^-lse2, which can
+  // overflow)
   auto ds_tile = [&](int k0, auto masked) {
     constexpr bool kMasked = decltype(masked)::value;
 #pragma unroll
@@ -631,7 +673,8 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (kMasked) {
           const int row = row0 + 8 * i;
           const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-          pe = (key >= keys || (causal && key > row)) ? 0.0f : pe;
+          pe = (key >= keys || (causal && hidden(key, row, prefix))) ? 0.0f
+                                                                     : pe;
         }
         s[4 * n + e] = pe * (dp[4 * n + e] - dsum[i]);
       }
@@ -713,7 +756,8 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
     const bool last_item = j + 1 == n_mine;
 
-    // kv tile 0 (the diagonal one under causal): S and dP, then dS
+    // kv tile 0 (the diagonal one, or the prefix's last, under causal): S
+    // and dP, then dS
     mbar_wait(&t_full[slot], (j >> 1) & 1);
     {
       const int st = ring % stages;
@@ -831,14 +875,17 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   // this block's items: (b * KV + kv head) * nk + key block, heaviest first;
   // each walks the group's G heads, each head over the q tiles of 64 rows
-  // from the first that sees the block's keys
+  // from the first that sees the block's keys (row 0 where a key of the
+  // block lies in the prefix)
   const int nk = (p.Sk + kRows - 1) / kRows;
   const int nq = (p.S + kStep - 1) / kStep;
   const int G = p.H / p.KV;
   const int first = p.sched_kv[blockIdx.x];
   const int n_mine = p.sched_kv[blockIdx.x + 1] - first;
   const int* items = p.sched_kv + gridDim.x + 1 + first;
-  auto first_q = [&](int kb) { return p.causal ? kb * (kRows / kStep) : 0; };
+  auto first_q = [&](int kb) {
+    return p.causal && kb * kRows >= p.prefix ? kb * (kRows / kStep) : 0;
+  };
 
   if (tid < 128) {
     // ---- loader ----
@@ -948,7 +995,8 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   };
   // P^T into s and dS^T / scale into dp for the q tile at q0 (ring slot
   // st); lse2 and D per column from shared memory; on a tile with the
-  // diagonal, P^T = 0 for a key after the query, by selects.  Queries past
+  // diagonal (or before it, inside the prefix), P^T = 0 for a key after the
+  // query and past the prefix, by selects.  Queries past
   // S need no mask: TMA zero-filled their Q and dO, and the scratch holds
   // 0 for their lse2 and D, so P^T = 1, dP^T = 0 and dS^T = 0 add nothing.
   auto p_ds_tile = [&](int st, int q0, auto masked) {
@@ -965,7 +1013,7 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
         float pe = fast_exp2(fmaf(s[4 * n + e], sl2, (e & 1) ? -lc.y : -lc.x));
         if constexpr (kMasked) {
           const int key = key0 + 8 * (e >> 1);
-          pe = key > q0 + col + (e & 1) ? 0.0f : pe;
+          pe = hidden(key, q0 + col + (e & 1), p.prefix) ? 0.0f : pe;
         }
         s[4 * n + e] = pe;
         dp[4 * n + e] = pe * (dp[4 * n + e] - ((e & 1) ? dc.y : dc.x));
@@ -1107,7 +1155,7 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// --- float32, 3xTF32 on mma.sync ------------------------------------------------
+// --- TF32 tensor cores on mma.sync: float32 (3xTF32) and bf16 at D = 256 ------
 
 constexpr int kF = 64;           // rows (dQ) or keys (dK / dV) of an item
 constexpr int kFThreads = 128;   // the dQ kernel's block: 4 warps of 16 rows
@@ -1117,25 +1165,56 @@ constexpr int kFStages = 2;      // ring slots of the streamed tiles
 // keys (dQ) or query rows (dK / dV) of a streamed tile: with 32 at D =
 // 64 and 16 at D = 128 two blocks of each kernel fit an SM and ptxas
 // needs no spill (dQ at D = 128 alone holds 64 accumulator registers a
-// thread)
+// thread); 16 at D = 256, where one block of each fits
 template <int D>
 __host__ __device__ constexpr int f32_step() {
   return D == 64 ? 32 : 16;
 }
-
-// shared rows are D + 4 floats: a row stride of 4 (mod 32) words puts both
-// ways a tile is read on 32 distinct banks -- element [g][t] (A fragments,
-// B of S = Q K^T) at bank 4 g + t, element [2 t][g] (B of dQ = dS K, dV =
-// P^T dO, dK = dS^T Q) at 8 t + g -- and keeps every row whole 16-byte
-// chunks for cp.async
+// blocks of the dK / dV kernel an SM: at D = 256 a warp's accumulator alone
+// is 128 registers a thread, more than two 256-thread blocks leave it
 template <int D>
-constexpr int f32_dq_smem_bytes() {  // Q, dO; the ring's K, V
-  return (2 * kF + kFStages * 2 * f32_step<D>()) * (D + 4) * 4;
+__host__ __device__ constexpr int f32_kv_blocks() {
+  return D == 256 ? 1 : 2;
 }
-template <int D>
-constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring's Q, dO, lse, D
-  return (2 * kF * (D + 4) + kF * (f32_step<D>() + 8) +
-          kFStages * 2 * f32_step<D>() * (D + 5)) * 4;
+
+// shared rows are D elements and 16 bytes: for float32 a row stride of 4
+// (mod 32) words puts both ways a tile is read on 32 distinct banks --
+// element [g][t] (A fragments, B of S = Q K^T) at bank 4 g + t, element
+// [2 t][g] (B of dQ = dS K, dV = P^T dO, dK = dS^T Q) at 8 t + g -- and
+// keeps every row whole 16-byte chunks for cp.async
+template <typename T, int D>
+__host__ __device__ constexpr int row_ld() {
+  return D + 16 / (int)sizeof(T);
+}
+template <typename T, int D>
+constexpr int f32_dq_smem_bytes() {  // Q, dO; the ring's K, V
+  return (2 * kF + kFStages * 2 * f32_step<D>()) * row_ld<T, D>() *
+         (int)sizeof(T);
+}
+// a dK / dV ring slot: Q and dO tiles, then their float32 lse and D
+template <typename T, int D>
+__host__ __device__ constexpr int f32_slot_bytes() {
+  return 2 * f32_step<D>() * row_ld<T, D>() * (int)sizeof(T) +
+         2 * f32_step<D>() * 4;
+}
+template <typename T, int D>
+constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring
+  return 2 * kF * row_ld<T, D>() * (int)sizeof(T) +
+         kF * (f32_step<D>() + 8) * 4 + kFStages * f32_slot_bytes<T, D>();
+}
+static_assert(f32_dq_smem_bytes<float, 256>() <= 232448 &&
+                  f32_dkdv_smem_bytes<float, 256>() <= 232448,
+              "a block's shared memory is 227 KB");
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// two adjacent outputs, rounded to T
+__device__ __forceinline__ void store2(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* out, float a, float b) {
+  *reinterpret_cast<uint32_t*>(out) = pack_bf16(a, b);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -1146,59 +1225,60 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-// rows [r0, r0 + ROWS) of a [S, D] float32 view (row stride st) into
-// shared rows of D + 4 floats, by 16-byte cp.async; zeros past S
-template <int D, int ROWS, int THREADS = kFThreads>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int64_t st, int r0, int S) {
-  constexpr int kChunks = D / 4;
+// rows [r0, r0 + ROWS) of a [S, D] view of T (row stride st) into shared
+// rows of row_ld<T, D>() elements, by 16-byte cp.async; zeros past S
+template <typename T, int D, int ROWS, int THREADS = kFThreads>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
+                                          int r0, int S) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  constexpr int kChunks = D / kPer, LD = row_ld<T, D>();
   static_assert(ROWS * kChunks % THREADS == 0, "whole rounds");
 #pragma unroll
   for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
     const int i = (int)threadIdx.x + j * THREADS;
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < S;
-    cp_async16(smem_u32(dst + r * (D + 4) + 4 * c),
-               src + (ok ? u64(r0 + r) * st + 4 * c : 0), ok);
+    cp_async16(smem_u32(dst + r * LD + kPer * c),
+               src + (ok ? u64(r0 + r) * st + kPer * c : 0), ok);
   }
 }
 
 // the A fragment of rows row0 + (g, g + 8), columns c0 + (t, t + 4) of a
 // shared tile, split into TF32 hi and lo
-template <int LD>
-__device__ __forceinline__ void frag_a(const float* s, int row0, int c0,
+template <int LD, typename T>
+__device__ __forceinline__ void frag_a(const T* s, int row0, int c0,
                                        int g, int t, uint32_t (&hi)[4],
                                        uint32_t (&lo)[4]) {
-  const float* p = s + (row0 + g) * LD + c0 + t;
-  split_tf32<true>(p[0], hi[0], lo[0]);
-  split_tf32<true>(p[8 * LD], hi[1], lo[1]);
-  split_tf32<true>(p[4], hi[2], lo[2]);
-  split_tf32<true>(p[8 * LD + 4], hi[3], lo[3]);
+  const T* p = s + (row0 + g) * LD + c0 + t;
+  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
+  split_tf32<true>(to_f(p[8 * LD]), hi[1], lo[1]);
+  split_tf32<true>(to_f(p[4]), hi[2], lo[2]);
+  split_tf32<true>(to_f(p[8 * LD + 4]), hi[3], lo[3]);
 }
 
 // the B fragment of a product against a shared tile's transpose (S = Q
 // K^T): B[k][n] = s[n0 + n][k0 + k], so b0 = s[n0 + g][k0 + t], b1 =
 // s[n0 + g][k0 + t + 4]
-template <int LD>
-__device__ __forceinline__ void frag_bt(const float* s, int n0, int k0, int g,
+template <int LD, typename T>
+__device__ __forceinline__ void frag_bt(const T* s, int n0, int k0, int g,
                                         int t, uint32_t (&hi)[2],
                                         uint32_t (&lo)[2]) {
-  const float* p = s + (n0 + g) * LD + k0 + t;
-  split_tf32<true>(p[0], hi[0], lo[0]);
-  split_tf32<true>(p[4], hi[1], lo[1]);
+  const T* p = s + (n0 + g) * LD + k0 + t;
+  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
+  split_tf32<true>(to_f(p[4]), hi[1], lo[1]);
 }
 
 // the B fragment of a product against a shared tile as it lies (dQ = dS
 // K), with the reduction index relabelled so that an accumulator fragment
 // is the A fragment as it stands: k-slot t is row k0 + 2 t, k-slot t + 4
 // row k0 + 2 t + 1 (see relabel_a)
-template <int LD>
-__device__ __forceinline__ void frag_b(const float* s, int k0, int n0, int g,
+template <int LD, typename T>
+__device__ __forceinline__ void frag_b(const T* s, int k0, int n0, int g,
                                        int t, uint32_t (&hi)[2],
                                        uint32_t (&lo)[2]) {
-  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
-  split_tf32<true>(p[0], hi[0], lo[0]);
-  split_tf32<true>(p[LD], hi[1], lo[1]);
+  const T* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
+  split_tf32<true>(to_f(p[LD]), hi[1], lo[1]);
 }
 
 // an accumulator fragment c (rows g, g + 8; columns 2 t, 2 t + 1 of 8) as
@@ -1226,6 +1306,22 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
+// d += a b for tiles of T: float32 as 3xTF32 (float32-accurate); bf16 as
+// one TF32 product -- a bf16 value is exact in TF32, so S = Q K^T and dP =
+// dO V^T are exact products, and P and dS (float32) are rounded once to
+// TF32, three more bits than the wgmma kernels' bf16 (lo is then dead
+// code)
+template <typename T>
+__device__ __forceinline__ void mma_x(float (&d)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[2],
+                                      const uint32_t (&bl)[2]) {
+  if constexpr (std::is_same<T, float>::value)
+    mma_3xtf32(d, ah, al, bh, bl);
+  else
+    mma_tf32(d, ah, bh[0], bh[1]);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -1235,11 +1331,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // s = A B^T over the D columns for a warp's 16 rows row0.. of a resident
 // tile A against the NT * 8 rows of a streamed tile B (S = Q K^T in the dQ
 // kernel; S^T = K Q^T, dP^T = V dO^T in the dK / dV kernel)
-template <int D, int NT>
-__device__ __forceinline__ void scores_f32(const float* A, const float* B,
-                                           int row0, int g, int t,
-                                           float (&s)[NT][4]) {
-  constexpr int LD = D + 4;
+template <typename T, int D, int NT>
+__device__ __forceinline__ void scores_f32(const T* A, const T* B, int row0,
+                                           int g, int t, float (&s)[NT][4]) {
+  constexpr int LD = row_ld<T, D>();
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -1255,7 +1350,7 @@ __device__ __forceinline__ void scores_f32(const float* A, const float* B,
     for (int n = 0; n < NT; ++n) {
       uint32_t bh[2], bl[2];
       frag_bt<LD>(B, 8 * n, 8 * kd, g, t, bh, bl);
-      mma_3xtf32(s[n], ah, al, bh, bl);
+      mma_x<T>(s[n], ah, al, bh, bl);
     }
   }
 }
@@ -1266,11 +1361,11 @@ __device__ __forceinline__ void scores_f32(const float* A, const float* B,
 // float32: mma.sync's float32 accumulation truncates, and over the
 // thousands of steps of a whole row it drifts toward zero (~1e-4 of scale
 // at S = 4096), where the tile's sum of 3 NT steps does not.
-template <int D, int NT>
+template <typename T, int D, int NT>
 __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
-                                               const float* B, int g, int t,
+                                               const T* B, int g, int t,
                                                float (&acc)[D / 8][4]) {
-  constexpr int LD = D + 4;
+  constexpr int LD = row_ld<T, D>();
   uint32_t ah[NT][4], al[NT][4];
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) relabel_a(c[kk], ah[kk], al[kk]);
@@ -1281,7 +1376,7 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t bh[2], bl[2];
       frag_b<LD>(B, 8 * kk, 8 * n, g, t, bh, bl);
-      mma_3xtf32(part, ah[kk], al[kk], bh, bl);
+      mma_x<T>(part, ah[kk], al[kk], bh, bl);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
@@ -1291,16 +1386,17 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
 // dQ: an item is kF query rows of one (b, h), blockIdx.x = (the item's
 // q-block, heaviest first under causal) * B H + b H + h.  Q and dO stay;
 // K and V tiles of f32_step keys stream through a ring of kFStages slots,
-// from key 0 to the item's last row (to Sk when not causal).  D of the rows
-// goes to the scratch for the dK / dV kernel.
-template <int D>
+// from key 0 to the item's last row or the prefix's end, whichever lies
+// further (to Sk when not causal).  D of the rows goes to the scratch for
+// the dK / dV kernel.
+template <typename T, int D>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_bwd_dq_f32_tc_kernel(const Params p) {
-  constexpr int LD = D + 4, KT = f32_step<D>(), NT = KT / 8;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;               // [kF][LD]
-  float* dOs = Qs + kF * LD;     // [kF][LD]
-  float* ring = dOs + kF * LD;   // kFStages x (K [KT][LD], V [KT][LD])
+  constexpr int LD = row_ld<T, D>(), KT = f32_step<D>(), NT = KT / 8;
+  extern __shared__ __align__(16) uint8_t fsm[];
+  T* Qs = reinterpret_cast<T*>(fsm);  // [kF][LD]
+  T* dOs = Qs + kF * LD;              // [kF][LD]
+  T* ring = dOs + kF * LD;            // kFStages x (K [KT][LD], V [KT][LD])
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1310,18 +1406,18 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   const int bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int q0 = qb * kF, r0 = q0 + 16 * warp;  // the warp's first row
-  const float* kp = base<const float, kK>(p, p.k, b, kvh);
-  const float* vp = base<const float, kV>(p, p.v, b, kvh);
+  const T* kp = base<const T, kK>(p, p.k, b, kvh);
+  const T* vp = base<const T, kV>(p, p.v, b, kvh);
 
-  load_rows_f32<D, kF>(Qs, base<const float, kQ>(p, p.q, b, h),
-                       row_stride<kQ>(p), q0, p.S);
-  load_rows_f32<D, kF>(dOs, base<const float, kDO>(p, p.dout, b, h),
-                       row_stride<kDO>(p), q0, p.S);
+  load_rows<T, D, kF>(Qs, base<const T, kQ>(p, p.q, b, h), row_stride<kQ>(p),
+                      q0, p.S);
+  load_rows<T, D, kF>(dOs, base<const T, kDO>(p, p.dout, b, h),
+                      row_stride<kDO>(p), q0, p.S);
   cp_async_commit();
-  const int kv_end = p.causal ? min(q0 + kF, p.Sk) : p.Sk;
+  const int kv_end = p.causal ? causal_end(p, q0 + kF) : p.Sk;
   const int tiles = (kv_end + KT - 1) / KT;
-  load_rows_f32<D, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
-  load_rows_f32<D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
+  load_rows<T, D, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
+  load_rows<T, D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
   cp_async_commit();
 
   // lse and D of rows g, g + 8 (D: the warp sums each of its rows, the
@@ -1336,17 +1432,17 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   cp_async_wait<1>();
   __syncthreads();
   {
-    const float* op = base<const float, kO>(p, p.o, b, h);
+    const T* op = base<const T, kO>(p, p.o, b, h);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r;
       float acc = 0.0f;
       if (row < p.S) {
-        const float* orow = op + u64(row) * row_stride<kO>(p);
+        const T* orow = op + u64(row) * row_stride<kO>(p);
 #pragma unroll
         for (int j = 0; j < D / 32; ++j)
-          acc = fmaf(dOs[(16 * warp + r) * LD + lane + 32 * j],
-                     orow[lane + 32 * j], acc);
+          acc = fmaf(to_f(dOs[(16 * warp + r) * LD + lane + 32 * j]),
+                     to_f(orow[lane + 32 * j]), acc);
       }
       acc = warp_sum(acc);
       if (r == g) dd[0] = acc;
@@ -1362,24 +1458,25 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {
-      float* nxt = ring + ((it + 1) % kFStages) * 2 * KT * LD;
-      load_rows_f32<D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
-      load_rows_f32<D, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
-                           (it + 1) * KT, p.Sk);
+      T* nxt = ring + ((it + 1) % kFStages) * 2 * KT * LD;
+      load_rows<T, D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
+      load_rows<T, D, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
+                          (it + 1) * KT, p.Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const int k0 = it * KT;
-    // a tile whose keys all lie above the warp's rows adds nothing to them
-    if (!p.causal || k0 <= r0 + 15) {
-      const float* Ks = ring + (it % kFStages) * 2 * KT * LD;
-      const float* Vs = Ks + KT * LD;
+    // a tile whose keys all lie above the warp's rows and past the prefix
+    // adds nothing to them
+    if (!p.causal || k0 <= r0 + 15 || k0 < p.prefix) {
+      const T* Ks = ring + (it % kFStages) * 2 * KT * LD;
+      const T* Vs = Ks + KT * LD;
       float s[NT][4], dp[NT][4];
-      scores_f32<D, NT>(Qs, Ks, 16 * warp, g, t, s);
-      scores_f32<D, NT>(dOs, Vs, 16 * warp, g, t, dp);
-      // P = exp(S scale - lse), 0 for keys past Sk or above the row; dS /
-      // scale = P (dP - D) into dp
+      scores_f32<T, D, NT>(Qs, Ks, 16 * warp, g, t, s);
+      scores_f32<T, D, NT>(dOs, Vs, 16 * warp, g, t, dp);
+      // P = exp(S scale - lse), 0 for keys past Sk or hidden from the row;
+      // dS / scale = P (dP - D) into dp
       const bool edge = k0 + KT > p.Sk || (p.causal && k0 + KT - 1 > r0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -1388,24 +1485,26 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
           float pe = expf(s[n][e] * p.scale - lse[e >> 1]);
           const int key = k0 + 8 * n + 2 * t + (e & 1);
           const int row = r0 + g + 8 * (e >> 1);
-          if (edge && (key >= p.Sk || (p.causal && key > row))) pe = 0.0f;
+          if (edge && (key >= p.Sk ||
+                       (p.causal && hidden(key, row, p.prefix))))
+            pe = 0.0f;
           dp[n][e] = pe * (dp[n][e] - dd[e >> 1]);
         }
-      accumulate_f32<D, NT>(dp, Ks, g, t, dq);
+      accumulate_f32<T, D, NT>(dp, Ks, g, t, dq);
     }
     __syncthreads();  // the slot is refilled next
   }
 
-  float* dqp = base<float, kDQ>(p, p.dq, b, h);
+  T* dqp = base<T, kDQ>(p, p.dq, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
     if (row >= p.S) continue;
-    float* out = dqp + u64(row) * row_stride<kDQ>(p);
+    T* out = dqp + u64(row) * row_stride<kDQ>(p);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) = make_float2(
-          dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+      store2(out + 8 * n + 2 * t, dq[n][2 * i] * p.scale,
+             dq[n][2 * i + 1] * p.scale);
   }
 }
 
@@ -1413,8 +1512,9 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
 // block, heaviest first under causal) * B H + b H + h.  K and V of the
 // head's kv head stay; the head's Q and dO tiles of f32_step rows, with
 // their lse and D (the dQ kernel's scratch), stream through a ring of
-// kFStages slots from the first row that sees the item's keys.  Warps 2 w
-// and 2 w + 1 share the keys 16 w .. 16 w + 15: per tile the first (the P
+// kFStages slots from the first row that sees the item's keys (row 0 for
+// an item that holds a key of the prefix).  Warps 2 w and 2 w + 1 share
+// the keys 16 w .. 16 w + 15: per tile the first (the P
 // warp) computes S^T and P^T, hands P^T to the second through shared
 // memory and adds P^T dO to dV; the second (the dS warp) computes dP^T and
 // dS^T = P^T (dP^T - D) and adds dS^T Q to dK.  Each warp runs 2 of the 4
@@ -1423,34 +1523,37 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
 // writes dk, dv; with it, its head's float32 partials, which
 // flash_bwd_dkdv_sum_f32_kernel adds up by group in head order.
 // rows [qt0, qt0 + f32_step) of head h's Q and dO, with their lse and D,
-// into a dK / dV ring slot: [QT][D + 4] Q, then dO, then QT lse, QT D
-template <int D>
-__device__ __forceinline__ void load_q_tile(const Params& p, float* slot,
+// into a dK / dV ring slot: [QT][LD] Q, then dO (T), then QT lse, QT D
+// (float32)
+template <typename T, int D>
+__device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
                                             int b, int h, int qt0) {
-  constexpr int QT = f32_step<D>(), LD = D + 4;
-  load_rows_f32<D, QT, kKVThreads>(slot, base<const float, kQ>(p, p.q, b, h),
-                                   row_stride<kQ>(p), qt0, p.S);
-  load_rows_f32<D, QT, kKVThreads>(slot + QT * LD,
-                                   base<const float, kDO>(p, p.dout, b, h),
-                                   row_stride<kDO>(p), qt0, p.S);
+  constexpr int QT = f32_step<D>(), LD = row_ld<T, D>();
+  T* q = reinterpret_cast<T*>(slot);
+  load_rows<T, D, QT, kKVThreads>(q, base<const T, kQ>(p, p.q, b, h),
+                                  row_stride<kQ>(p), qt0, p.S);
+  load_rows<T, D, QT, kKVThreads>(q + QT * LD,
+                                  base<const T, kDO>(p, p.dout, b, h),
+                                  row_stride<kDO>(p), qt0, p.S);
+  float* stats = reinterpret_cast<float*>(q + 2 * QT * LD);
   const int row = qt0 + (int)threadIdx.x % QT;
   const float* src = threadIdx.x < QT ? p.lse : p.dd;
   if (threadIdx.x < 2 * QT)
-    cp_async4(smem_u32(slot + 2 * QT * LD + threadIdx.x),
+    cp_async4(smem_u32(stats + threadIdx.x),
               src + (row < p.S ? u64(b * p.H + h) * p.S + row : 0),
               row < p.S);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kKVThreads, 2)
+template <typename T, int D>
+__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<D>()))
 flash_bwd_dkdv_f32_tc_kernel(const Params p) {
-  constexpr int LD = D + 4, QT = f32_step<D>(), NT = QT / 8, LP = QT + 8;
-  constexpr int kSlot = 2 * QT * LD + 2 * QT;  // Q, dO, lse, D
-  extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;               // [kF][LD]
-  float* Vs = Ks + kF * LD;      // [kF][LD]
-  float* Pt = Vs + kF * LD;      // [kF][LP]: P^T, from the P warps
-  float* ring = Pt + kF * LP;    // kFStages x kSlot
+  constexpr int LD = row_ld<T, D>(), QT = f32_step<D>(), NT = QT / 8;
+  constexpr int LP = QT + 8;
+  extern __shared__ __align__(16) uint8_t fsm[];
+  T* Ks = reinterpret_cast<T*>(fsm);                   // [kF][LD]
+  T* Vs = Ks + kF * LD;                                // [kF][LD]
+  float* Pt = reinterpret_cast<float*>(Vs + kF * LD);  // [kF][LP]: P^T
+  uint8_t* ring = reinterpret_cast<uint8_t*>(Pt + kF * LP);  // the slots
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1460,16 +1563,17 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   const int kb = (int)blockIdx.x / BH, bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int k0 = kb * kF, key0 = k0 + r16;
-  load_rows_f32<D, kF, kKVThreads>(Ks, base<const float, kK>(p, p.k, b, kvh),
-                                   row_stride<kK>(p), k0, p.Sk);
-  load_rows_f32<D, kF, kKVThreads>(Vs, base<const float, kV>(p, p.v, b, kvh),
-                                   row_stride<kV>(p), k0, p.Sk);
+  load_rows<T, D, kF, kKVThreads>(Ks, base<const T, kK>(p, p.k, b, kvh),
+                                  row_stride<kK>(p), k0, p.Sk);
+  load_rows<T, D, kF, kKVThreads>(Vs, base<const T, kV>(p, p.v, b, kvh),
+                                  row_stride<kV>(p), k0, p.Sk);
   cp_async_commit();
 
   // the query tiles of one head, from the first that sees a key here
-  // (k0 is a multiple of QT)
-  const int qs0 = p.causal ? k0 : 0;
-  load_q_tile<D>(p, ring, b, h, qs0);
+  // (k0 is a multiple of QT; every row sees a key of the prefix)
+  const int qs0 = p.causal && k0 >= p.prefix ? k0 : 0;
+  constexpr int kSlot = f32_slot_bytes<T, D>();
+  load_q_tile<T, D>(p, ring, b, h, qs0);
   cp_async_commit();
 
   // P warp: dV; dS warp: dK / scale
@@ -1478,32 +1582,38 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  const float* A = pwarp ? Ks : Vs;
+  const T* A = pwarp ? Ks : Vs;
+  // this thread's two keys' hidden_below: a row before it masks P^T
+  const int below[2] = {hidden_below(key0 + g, p.prefix),
+                        hidden_below(key0 + g + 8, p.prefix)};
   for (int qt0 = qs0, i = 0; qt0 < p.S; qt0 += QT, i ^= 1) {
-    if (qt0 + QT < p.S) load_q_tile<D>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
+    if (qt0 + QT < p.S)
+      load_q_tile<T, D>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* Qs = ring + i * kSlot;
-    const float* dOs = Qs + QT * LD;
-    const float* Ls = dOs + QT * LD;
+    const T* Qs = reinterpret_cast<const T*>(ring + i * kSlot);
+    const T* dOs = Qs + QT * LD;
+    const float* Ls = reinterpret_cast<const float*>(dOs + QT * LD);
     const float* Ds = Ls + QT;
-    // a tile whose rows all lie before the warp's keys adds nothing to them
-    const bool active = !p.causal || qt0 + QT - 1 >= key0;
+    // a tile whose rows all lie before the warp's keys, where none of them
+    // is in the prefix, adds nothing to them
+    const bool active =
+        !p.causal || qt0 + QT - 1 >= key0 || key0 < p.prefix;
     float c[NT][4];  // P warp: S^T, then P^T; dS warp: dP^T, then dS^T
     if (active) {
-      scores_f32<D, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
+      scores_f32<T, D, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
       if (pwarp) {
-        // P^T, 0 for rows past S or before the key
+        // P^T, 0 for rows past S or keys hidden from the row
         const bool edge = qt0 + QT > p.S || (p.causal && qt0 < key0 + 15);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int ql = 8 * n + 2 * t + (e & 1), row = qt0 + ql;
-            const int key = key0 + g + 8 * (e >> 1);
             float pe = expf(c[n][e] * p.scale - Ls[ql]);
-            if (edge && (row >= p.S || (p.causal && key > row))) pe = 0.0f;
+            if (edge && (row >= p.S || (p.causal && row < below[e >> 1])))
+              pe = 0.0f;
             c[n][e] = pe;
           }
 #pragma unroll
@@ -1529,40 +1639,50 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
             c[n][2 * i + 1] = pe.y * (c[n][2 * i + 1] - Ds[ql + 1]);
           }
       }
-      accumulate_f32<D, NT>(c, pwarp ? dOs : Qs, g, t, acc);
+      accumulate_f32<T, D, NT>(c, pwarp ? dOs : Qs, g, t, acc);
     }
     __syncthreads();  // the slot and P^T are refilled next
   }
 
-  // without GQA dk, dv; with it, the head's partials, rows of H D floats
-  float* out;
-  int64_t st;
-  if (p.H == p.KV) {
-    out = pwarp ? base<float, kDV>(p, p.dv, b, kvh)
-                : base<float, kDK>(p, p.dk, b, kvh);
-    st = pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p);
-  } else {
-    out = p.part + (pwarp ? p.part_half : 0) +
-          (u64(b) * p.Sk * p.H + h) * D;
-    st = (int64_t)p.H * D;
-  }
   const float mul = pwarp ? 1.0f : p.scale;
+  // the rows of this thread's two keys: dk, dv without GQA; with it the
+  // head's float32 partials, rows of H D floats (one code path for float32:
+  // two cost the 128-register budget a spill at D = 128)
+  auto write = [&](auto* out, int64_t st) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + g + 8 * i;
-    if (key >= p.Sk) continue;
-    float* o = out + u64(key) * st;
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + g + 8 * i;
+      if (key >= p.Sk) continue;
+      auto* o = out + u64(key) * st;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(o + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
+      for (int n = 0; n < D / 8; ++n)
+        store2(o + 8 * n + 2 * t, acc[n][2 * i] * mul,
+               acc[n][2 * i + 1] * mul);
+    }
+  };
+  if (p.H == p.KV)
+    write(pwarp ? base<T, kDV>(p, p.dv, b, kvh)
+                : base<T, kDK>(p, p.dk, b, kvh),
+          pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p));
+  else
+    write(p.part + (pwarp ? p.part_half : 0) +
+              (u64(b) * p.Sk * p.H + h) * D,
+          (int64_t)p.H * D);
+}
+
+// four adjacent outputs, rounded to T
+__device__ __forceinline__ void store4(float* out, float4 x) {
+  *reinterpret_cast<float4*>(out) = x;
+}
+__device__ __forceinline__ void store4(bf16* out, float4 x) {
+  *reinterpret_cast<uint2*>(out) = make_uint2(pack_bf16(x.x, x.y),
+                                              pack_bf16(x.z, x.w));
 }
 
 // dK and dV with GQA: for each (b, key, kv head), the sum of the group's G
 // float32 partials in head order (the same order in every run); 4 columns
 // a thread
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
   const int G = p.H / p.KV;
@@ -1583,10 +1703,10 @@ flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
       k4.x += x.x; k4.y += x.y; k4.z += x.z; k4.w += x.w;
       v4.x += y.x; v4.y += y.y; v4.z += y.z; v4.w += y.w;
     }
-    *reinterpret_cast<float4*>(base<float, kDK>(p, p.dk, b, kvh) +
-                               key * row_stride<kDK>(p) + 4 * c) = k4;
-    *reinterpret_cast<float4*>(base<float, kDV>(p, p.dv, b, kvh) +
-                               key * row_stride<kDV>(p) + 4 * c) = v4;
+    store4(base<T, kDK>(p, p.dk, b, kvh) + key * row_stride<kDK>(p) + 4 * c,
+           k4);
+    store4(base<T, kDV>(p, p.dv, b, kvh) + key * row_stride<kDV>(p) + 4 * c,
+           v4);
   }
 }
 
@@ -1655,26 +1775,26 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
   return (int)err;
 }
 
-template <int D>
-int launch_f32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
-               int device, void* stream) {
+template <typename T, int D>
+int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
+                int device, void* stream) {
   static unsigned dq_done = 0, kv_done = 0;
   if (parts & 1) {
-    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<D>,
-                             f32_dq_smem_bytes<D>(), kFThreads, p, ctas_dq,
+    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<T, D>,
+                             f32_dq_smem_bytes<T, D>(), kFThreads, p, ctas_dq,
                              1, &dq_done, device, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<D>,
-                             f32_dkdv_smem_bytes<D>(), kKVThreads, p, ctas_kv,
-                             1, &kv_done, device, stream);
+    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<T, D>,
+                             f32_dkdv_smem_bytes<T, D>(), kKVThreads, p,
+                             ctas_kv, 1, &kv_done, device, stream);
     if (err != cudaSuccess || p.H == p.KV) return (int)err;
     const int64_t total = (int64_t)B * p.Sk * p.KV * (D / 4);
     const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256
                                                           : 65536);
-    flash_bwd_dkdv_sum_f32_kernel<D><<<blocks, 256, 0,
-                                       (cudaStream_t)stream>>>(p, B);
+    flash_bwd_dkdv_sum_f32_kernel<T, D><<<blocks, 256, 0,
+                                          (cudaStream_t)stream>>>(p, B);
     return (int)cudaGetLastError();
   }
   return (int)cudaSuccess;
@@ -1688,15 +1808,16 @@ bool aligned_rows(const void* const* ptrs, const long long* st, int elem) {
   return true;
 }
 
-// the checks both variants share; fills p
+// the checks every variant shares (the head dims are each entry point's);
+// fills p
 bool make_params(Params* p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse, void* dd,
                  void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
-                 int KV, int hd, const long long* strides, float scale,
-                 int causal, int parts, int elem) {
+                 int KV, const long long* strides, float scale, int causal,
+                 int prefix, int parts, int elem) {
   const void* ptrs[kTensors] = {q, k, v, o, dout, dq, dk, dv};
-  if (B < 1 || S < 1 || Sk < 1 || (causal && Sk != S) || KV < 1 || H % KV ||
-      (hd != 64 && hd != 128) ||
+  if (B < 1 || S < 1 || Sk < 1 || (causal && Sk != S) || prefix < 0 ||
+      (!causal && prefix != 0) || KV < 1 || H % KV ||
       (int64_t)B * H >= (1ll << 31) || lse == nullptr || dd == nullptr ||
       parts < 1 || parts > 3 || !aligned_rows(ptrs, strides, elem))
     return false;
@@ -1709,18 +1830,69 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   for (int i = 0; i < 3 * kTensors; ++i) p->st[i] = strides[i];
   p->scale = scale;
   p->causal = causal;
+  p->prefix = prefix;
   return true;
+}
+
+// the TF32 entry points (float32: hd 64, 128, 256; bf16: hd 256)
+template <typename T>
+int tf32_entry(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* dd, void* dq,
+               void* dk, void* dv, int B, int S, int Sk, int H, int KV,
+               int hd, const long long* strides, float scale, int causal,
+               int prefix, int q_rows, int kv_rows, int q_step, int kv_step,
+               int stages_dq, int stages_dkdv, int ctas_dq, int ctas_kv,
+               int parts, int device, void* stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  Params p;
+  const bool dims = kF32 ? (hd == 64 || hd == 128 || hd == 256) : hd == 256;
+  const int step = hd == 64 ? f32_step<64>()
+                            : hd == 128 ? f32_step<128>() : f32_step<256>();
+  const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
+  if (!dims ||
+      !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
+                   KV, strides, scale, causal, prefix, parts,
+                   (int)sizeof(T)) ||
+      q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
+      stages_dq != kFStages || stages_dkdv != kFStages ||
+      (int64_t)B * H * nq >= (1ll << 31) ||
+      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
+      ctas_kv != (int64_t)B * H * nk)
+    return (int)cudaErrorInvalidValue;
+  // with GQA the scratch holds the dK, dV partials [B, Sk, H, hd], then D
+  p.part_half = (int64_t)B * Sk * H * hd;
+  p.part = static_cast<float*>(dd);
+  if (H > KV) p.dd += 2 * p.part_half;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kF32) {
+    switch (hd) {
+      case 64:
+        return launch_tf32<float, 64>(p, B, ctas_dq, ctas_kv, parts, device,
+                                      stream);
+      case 128:
+        return launch_tf32<float, 128>(p, B, ctas_dq, ctas_kv, parts, device,
+                                       stream);
+      default:
+        return launch_tf32<float, 256>(p, B, ctas_dq, ctas_kv, parts, device,
+                                       stream);
+    }
+  } else {
+    return launch_tf32<bf16, 256>(p, B, ctas_dq, ctas_kv, parts, device,
+                                  stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both entry points: q, k, v, o, do, lse, the scratch, (bf16: the
+// Every entry point: q, k, v, o, do, lse, the scratch, (wgmma: the
 // schedule,) dq, dk, dv device pointers; B, S (query rows), Sk (keys;
-// == S when causal), H, KV, hd (== hv, 64 or 128); strides: 24 element
-// strides, (batch, seq, head) of q, k, v, o, do, dq, dk, dv in order; the
-// softmax scale; causal; the plan: the dQ
+// == S when causal), H, KV, hd (== hv); strides: 24 element strides,
+// (batch, seq, head) of q, k, v, o, do, dq, dk, dv in order; the softmax
+// scale; causal; prefix (causal only: keys [0, prefix) seen by every
+// row); the plan: the dQ
 // kernel's rows an item (q_rows) and kv step, the dK / dV kernel's keys an
 // item (kv_rows) and q step, the ring depths of the two kernels and their
 // grids (blocks); parts: 1 the dQ kernel, 2 the dK / dV kernel (it reads
@@ -1729,11 +1901,12 @@ extern "C" {
 // aligned.  Each entry point checks the plan against its own constants and
 // refuses any other.
 
-// bf16 on wgmma.  Plan: q_rows = kv_rows = 128, q_step = 64, kv_step 128 at
-// hd 64 and 64 at 128 (dq_step), the ring depths of the two kernels (4 and
-// 4 at hd 64, 3 and 3 at 128), their persistent grids ctas_dq <= B * H * nq
-// and ctas_kv <= B * KV * nk blocks (nq = ceil(S / 128), nk = ceil(Sk /
-// 128)).  scratch: float32 [2, B * H, 128 nq] (lse2, then D).  sched:
+// bf16 on wgmma, hd 64 or 128.  Plan: q_rows = kv_rows = 128, q_step = 64,
+// kv_step 128 at hd 64 and 64 at 128 (dq_step), the ring depths of the two
+// kernels (4 and 4 at hd 64, 3 and 3 at 128), their persistent grids
+// ctas_dq <= B * H * nq and ctas_kv <= B * KV * nk blocks (nq = ceil(S /
+// 128), nk = ceil(Sk / 128)).  scratch: float32 [2, B * H, 128 nq] (lse2,
+// then D).  sched:
 // int32, each kernel's schedule in turn -- ctas + 1 offsets, then its
 // items, block c taking items [offsets[c], offsets[c + 1]) in order: for
 // the dQ kernel B * H * nq items (b * H + h) * nq + q-block, for the dK /
@@ -1743,14 +1916,15 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              void* scratch, const void* sched, void* dq,
                              void* dk, void* dv, int B, int S, int Sk, int H,
                              int KV, int hd, const long long* strides,
-                             float scale,
-                             int causal, int q_rows, int kv_rows, int q_step,
-                             int kv_step, int stages_dq, int stages_dkdv,
-                             int ctas_dq, int ctas_kv, int parts, int device,
+                             float scale, int causal, int prefix, int q_rows,
+                             int kv_rows, int q_step, int kv_step,
+                             int stages_dq, int stages_dkdv, int ctas_dq,
+                             int ctas_kv, int parts, int device,
                              void* stream) {
   Params p;
-  if (!make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
-                   H, KV, hd, strides, scale, causal, parts, 2) ||
+  if ((hd != 64 && hd != 128) ||
+      !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
+                   H, KV, strides, scale, causal, prefix, parts, 2) ||
       sched == nullptr || q_rows != kRows || kv_rows != kRows ||
       q_step != kStep ||
       kv_step != (hd == 64 ? dq_step<64>() : dq_step<128>()))
@@ -1776,40 +1950,47 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                 device, stream);
 }
 
-// float32 as 3xTF32 on mma.sync.  Plan: q_rows = kv_rows = 64 (kF), q_step
-// = kv_step = f32_step, 2 ring slots in each kernel, grids of one block an
-// item: ctas_dq = B * H * nq and ctas_kv = B * H * nk (nq = ceil(S / 64),
-// nk = ceil(Sk / 64)).  scratch: float32 D [B, H, S], after the dK, dV
-// partials 2 x [B, Sk, H, hd] when H > KV.
+// bf16 at hd 256 on mma.sync, every product one TF32 mma (the float32
+// kernels' design, bf16 tiles in shared memory).  Plan: q_rows = kv_rows =
+// 64 (kF), q_step = kv_step = f32_step (16), 2 ring slots in each kernel,
+// grids of one block an item: ctas_dq = B * H * nq and ctas_kv = B * H *
+// nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D [B, H,
+// S], after the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
+int flash_attention_bwd_bf16_mma(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* dd, void* dq,
+                                 void* dk, void* dv, int B, int S, int Sk,
+                                 int H, int KV, int hd,
+                                 const long long* strides, float scale,
+                                 int causal, int prefix, int q_rows,
+                                 int kv_rows, int q_step, int kv_step,
+                                 int stages_dq, int stages_dkdv, int ctas_dq,
+                                 int ctas_kv, int parts, int device,
+                                 void* stream) {
+  return tf32_entry<bf16>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
+                          KV, hd, strides, scale, causal, prefix, q_rows,
+                          kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
+                          ctas_dq, ctas_kv, parts, device, stream);
+}
+
+// float32 as 3xTF32 on mma.sync, hd 64, 128 or 256.  Plan: q_rows =
+// kv_rows = 64 (kF), q_step = kv_step = f32_step, 2 ring slots in each
+// kernel, grids of one block an item: ctas_dq = B * H * nq and ctas_kv =
+// B * H * nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D
+// [B, H, S], after the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
                             int S, int Sk, int H, int KV, int hd,
                             const long long* strides, float scale, int causal,
-                            int q_rows, int kv_rows, int q_step, int kv_step,
-                            int stages_dq, int stages_dkdv, int ctas_dq,
-                            int ctas_kv, int parts, int device,
+                            int prefix, int q_rows, int kv_rows, int q_step,
+                            int kv_step, int stages_dq, int stages_dkdv,
+                            int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
-  Params p;
-  const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
-  const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
-  if (!make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                   KV, hd, strides, scale, causal, parts, 4) ||
-      q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
-      stages_dq != kFStages || stages_dkdv != kFStages ||
-      (int64_t)B * H * nq >= (1ll << 31) ||
-      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
-      ctas_kv != (int64_t)B * H * nk)
-    return (int)cudaErrorInvalidValue;
-  // with GQA the scratch holds the dK, dV partials [B, Sk, H, hd], then D
-  p.part_half = (int64_t)B * Sk * H * hd;
-  p.part = static_cast<float*>(dd);
-  if (H > KV) p.dd += 2 * p.part_half;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return hd == 64
-             ? launch_f32<64>(p, B, ctas_dq, ctas_kv, parts, device, stream)
-             : launch_f32<128>(p, B, ctas_dq, ctas_kv, parts, device, stream);
+  return tf32_entry<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk,
+                           H, KV, hd, strides, scale, causal, prefix, q_rows,
+                           kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
+                           ctas_dq, ctas_kv, parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -12,8 +12,11 @@ reference kernel needs ``S`` to be a multiple of its block).  The keys may
 be longer or shorter than the queries (``Sk != S``: cross attention, a
 decoder's queries over an encoder's frames) when the call is not causal;
 causal attention takes ``Sk == S`` (the reference defines no alignment
-for it) and raises otherwise.  The kernels take ``hd, hv`` in
-``HEAD_DIMS``.
+for it) and raises otherwise.  A causal call may open a bidirectional
+prefix (``prefix_len`` P > 0, PaliGemma's image patches, the reference's
+``layers._block_mask``): query row ``i`` sees key ``j`` where ``j <= i`` or
+``j < P``; ``P >= S`` is full attention.  The kernels take ``hd, hv`` in
+``HEAD_DIMS``, 256 only with ``hd == hv``.
 
 Three variants, chosen by shape before any launch (``plan``), each counted
 under its own key of ``LAUNCHES``:
@@ -22,7 +25,8 @@ under its own key of ``LAUNCHES``:
   (every model shape): ``wgmma`` tensor cores fed by TMA, a loader warp and
   two consumer warpgroups over 128-row blocks.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
-  ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
+  ``hv != hd``, ``hd == hv == 256``: paligemma's): ``mma.sync`` tensor
+  cores, 64-row blocks.
 * ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
 
 Beside them stands ``flash_attention_plain``: the reference kernel's own
@@ -44,7 +48,9 @@ also writes the row log-sum-exp of the scaled scores, float32 [B, H, S],
 counted under the forward variant's key.  Its backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
 (``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
-by TMA in persistent grids that walk the plan's schedule, or
+by TMA in persistent grids that walk the plan's schedule, at head dims 64
+and 128; ``flash_attention_bwd_bf16_mma`` at head dim 256, every product
+as one TF32 ``mma.sync`` (a bf16 operand is exact in TF32); or
 ``flash_attention_bwd_f32``, every product as 3xTF32 on ``mma.sync``
 tensor cores; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
@@ -72,10 +78,12 @@ SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 NEG_INF = -1e30
 BLOCK = 128            # the reference kernel's default q / kv block
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# head dims the forward kernels take only with hd == hv
+SQUARE_HEAD_DIMS = (256,)
 TC_HEAD_DIMS = (64, 128)
 # head dims of the training path on the card (hd == hv), both dtypes
-BWD_HEAD_DIMS = TC_HEAD_DIMS
+BWD_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 TC = "flash_attention_bf16_tc"
@@ -83,8 +91,9 @@ MMA = "flash_attention_bf16_mma"
 F32 = "flash_attention_f32"
 FWD_VARIANTS = (TC, MMA, F32)
 BWD_BF16 = "flash_attention_bwd_bf16"
+BWD_BF16_MMA = "flash_attention_bwd_bf16_mma"
 BWD_F32 = "flash_attention_bwd_f32"
-BWD_VARIANTS = (BWD_BF16, BWD_F32)
+BWD_VARIANTS = (BWD_BF16, BWD_BF16_MMA, BWD_F32)
 
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
@@ -121,43 +130,53 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _pairs(s: int, causal: bool, sk: Optional[int] = None) -> int:
+def _pairs(s: int, causal: bool, sk: Optional[int] = None,
+           prefix: int = 0) -> int:
     """(query, key) pairs attention computes over ``s`` queries and ``sk``
-    keys (default ``s``): S(S+1)/2 causal (``sk == s``), S Sk not."""
+    keys (default ``s``): S(S+1)/2 causal (``sk == s``), plus P(P-1)/2 for
+    a bidirectional prefix of P = min(``prefix``, S) keys (the pairs above
+    the diagonal that it opens); S Sk not causal."""
     sk = s if sk is None else sk
+    _check_lengths(s, sk, causal, prefix)
     if causal:
-        _check_lengths(s, sk, causal)
-        return s * (s + 1) // 2
+        p = min(prefix, s)
+        return s * (s + 1) // 2 + p * (p - 1) // 2
     return s * sk
 
 
-def _check_lengths(s: int, sk: int, causal: bool) -> None:
+def _check_lengths(s: int, sk: int, causal: bool, prefix: int = 0) -> None:
     if causal and sk != s:
         raise ValueError(f"causal attention needs as many keys as queries; "
                          f"got {s} queries, {sk} keys (the reference defines "
                          f"no alignment for a causal mask between lengths)")
+    if prefix < 0 or (prefix and not causal):
+        raise ValueError(f"a bidirectional prefix (prefix_len {prefix}) "
+                         f"opens a causal mask: it needs causal attention "
+                         f"and prefix_len >= 0")
 
 
 def fwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
              causal: bool, dtype: torch.dtype, lse: bool = False,
-             sk: Optional[int] = None) -> Tuple[int, int]:
+             sk: Optional[int] = None, prefix: int = 0) -> Tuple[int, int]:
     """(flops, bytes) of one forward call over ``s`` queries and ``sk``
-    keys (default ``s``), as the census books it: the two products, (2 hd +
-    2 hv) B H pairs, whatever the tiling; q, k, v read and o (and the
-    float32 log-sum-exp) written once -- never the score blocks."""
+    keys (default ``s``) with a bidirectional prefix of ``prefix`` keys, as
+    the census books it: the two products, (2 hd + 2 hv) B H pairs
+    (``_pairs``), whatever the tiling; q, k, v read and o (and the float32
+    log-sum-exp) written once -- never the score blocks."""
     sk = s if sk is None else sk
     el = dtype.itemsize
     nbytes = el * b * (s * (h * hd + h * hv) + sk * (kv * hd + kv * hv))
     if lse:
         nbytes += 4 * b * h * s
-    return (2 * hd + 2 * hv) * b * h * _pairs(s, causal, sk), nbytes
+    return (2 * hd + 2 * hv) * b * h * _pairs(s, causal, sk, prefix), nbytes
 
 
 def bwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
-             causal: bool, dtype: torch.dtype, sk: Optional[int] = None
-             ) -> Tuple[int, int]:
+             causal: bool, dtype: torch.dtype, sk: Optional[int] = None,
+             prefix: int = 0) -> Tuple[int, int]:
     """(flops, bytes) of one backward call over ``s`` queries and ``sk``
-    keys (default ``s``): the recomputed S = Q K^T and the products dP = dO
+    keys (default ``s``) with a bidirectional prefix of ``prefix`` keys:
+    the recomputed S = Q K^T and the products dP = dO
     V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q, (6 hd + 4 hv) B H pairs;
     q, k, v, o, dO and the LSE read, dq, dk, dv and D = rowsum(dO O)
     written once."""
@@ -165,7 +184,7 @@ def bwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     el = dtype.itemsize
     nbytes = el * b * (s * (2 * h * hd + 2 * h * hv)
                        + sk * 2 * (kv * hd + kv * hv)) + 2 * 4 * b * h * s
-    return (6 * hd + 4 * hv) * b * h * _pairs(s, causal, sk), nbytes
+    return (6 * hd + 4 * hv) * b * h * _pairs(s, causal, sk, prefix), nbytes
 
 
 @functools.lru_cache(maxsize=4096)
@@ -178,7 +197,8 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     query rows, so the key length ``sk`` does not change it.
 
     bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``,
-    else the ``mma.sync`` variant; float32 takes the CUDA-core variant."""
+    else the ``mma.sync`` variant (head dim 256 among them); float32 takes
+    the CUDA-core variant.  A prefix does not change the plan."""
     if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS:
         variant, bq, bk = TC, 128, 128
     elif dtype == torch.bfloat16:
@@ -206,14 +226,15 @@ def _library():
         from repro_torch.kernels import build
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # B, S, Sk, H, KV, hd, hv, strides, scale, causal, the plan, ...
+        # B, S, Sk, H, KV, hd, hv, strides, scale, causal, prefix, the
+        # plan, ...
         tail = ([ci] * 7 + [ctypes.POINTER(ctypes.c_longlong),
-                            ctypes.c_float, ci] + [ci] * 4 + [ci, vp])
+                            ctypes.c_float, ci, ci] + [ci] * 4 + [ci, vp])
         for name in FWD_VARIANTS:
             fn = getattr(lib, name)
             fn.argtypes = [vp] * 4 + tail
             fn.restype = ci
-        for name in (TC, F32):               # the forwards with the LSE
+        for name in FWD_VARIANTS:            # the forwards with the LSE
             fn = getattr(lib, name + "_lse")
             fn.argtypes = [vp] * 5 + tail
             fn.restype = ci
@@ -230,15 +251,17 @@ def _bwd_library():
         from repro_torch.kernels import build
         lib = build.load(BWD_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # B, S, Sk, H, KV, hd, strides, scale, causal
+        # B, S, Sk, H, KV, hd, strides, scale, causal, prefix
         shape = [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
-                            ctypes.c_float, ci] + [ci] * 4
+                            ctypes.c_float, ci, ci] + [ci] * 4
         # ..., scratch, [schedule,] dq, dk, dv, shape, strides, scale,
-        # causal, the plan (tiles, stages, grids), parts, device, stream
+        # causal, prefix, the plan (tiles, stages, grids), parts, device,
+        # stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
-        lib.flash_attention_bwd_f32.argtypes = \
-            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
+        for name in (BWD_BF16_MMA, BWD_F32):
+            getattr(lib, name).argtypes = \
+                [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
         for name in BWD_VARIANTS:
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
@@ -248,9 +271,11 @@ def _bwd_library():
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> Tuple[int, int, int, int, int, int, int]:
+              causal: bool, prefix: int = 0
+              ) -> Tuple[int, int, int, int, int, int, int]:
     """Raises on what neither version takes; returns (B, S, Sk, H, KV, hd,
-    hv): S query rows, Sk keys (Sk == S when ``causal``)."""
+    hv): S query rows, Sk keys (Sk == S when ``causal``; a ``prefix`` only
+    when ``causal``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, S, heads, dim]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -273,17 +298,18 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, s, sk, h, hd, int(v.shape[3])) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, v "
                          f"{tuple(v.shape)}")
-    _check_lengths(s, sk, causal)
+    _check_lengths(s, sk, causal, prefix)
     return b, s, sk, h, kv, hd, int(v.shape[3])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
+                          *, causal: bool = True, prefix_len: int = 0,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the reference kernel's
     arithmetic: q, k, v cast to float32; for each kv block of ``BLOCK`` keys
-    in order, ``s = q k^T * scale`` (causal: keys past the query row set to
-    ``NEG_INF``), ``m' = max(m, rowmax s)``, ``p = exp(s - m')``, ``l = l *
+    in order, ``s = q k^T * scale`` (causal: keys past the query row and
+    not in the first ``prefix_len`` set to ``NEG_INF``), ``m' = max(m,
+    rowmax s)``, ``p = exp(s - m')``, ``l = l *
     exp(m - m') + rowsum p``, ``acc = acc * exp(m - m') + p v``; then ``acc /
     max(l, 1e-30)`` rounded to ``q.dtype`` once.  All query rows take each
     kv block together: for a block the reference kernel skips (entirely
@@ -291,15 +317,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exactly 1, so the update changes nothing.  GQA groups query heads over
     their kv head; K and V are never repeated.  Keys may be longer or
     shorter than the queries when not ``causal``."""
-    return _plain_forward(q, k, v, causal, scale)[0]
+    return _plain_forward(q, k, v, causal, scale, prefix_len)[0]
+
+
+def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor,
+             prefix: int) -> torch.Tensor:
+    """[queries, keys]: key ``j`` visible to query row ``i`` under the causal
+    mask with a bidirectional prefix, ``j <= i or j < prefix`` (the
+    reference's ``layers._block_mask``)."""
+    return (k_pos[None, :] <= q_pos[:, None]) | (k_pos[None, :] < prefix)
 
 
 def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, scale: Optional[float]
+                   causal: bool, scale: Optional[float], prefix: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_plain``'s output and the row log-sum-exp of the
     scaled scores, ``m + log(max(l, 1e-30))``, float32 [B, H, S]."""
-    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix)
     g = h // kv
     if scale is None:
         scale = hd ** -0.5
@@ -317,7 +351,7 @@ def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kj) * scale
         if causal:
             k_pos = torch.arange(k0, k0 + kj.shape[1], device=q.device)
-            sc = torch.where(k_pos[None, :] <= q_pos[:, None], sc, NEG_INF)
+            sc = torch.where(_visible(q_pos, k_pos, prefix), sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -335,18 +369,19 @@ def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
                               k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, lse: torch.Tensor, *,
-                              causal: bool = True,
+                              causal: bool = True, prefix_len: int = 0,
                               scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Plain PyTorch version of the backward kernels, written out step by
     step in float32 from the forward's output ``o`` and log-sum-exp ``lse``
     [B, H, S]: D = rowsum(dO * O); P = exp(scale q k^T - lse) (0 above the
-    diagonal when causal); dV = P^T dO; dP = dO V^T; dS = P * (dP - D) *
+    diagonal when causal, outside the first ``prefix_len`` keys); dV = P^T
+    dO; dP = dO V^T; dS = P * (dP - D) *
     scale; dQ = dS K; dK = dS^T Q.  GQA sums dK and dV over each group's
     heads; keys may be longer or shorter than the queries when not
     ``causal``.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     g = h // kv
     if scale is None:
         scale = hd ** -0.5
@@ -359,7 +394,7 @@ def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
     p = torch.exp(sc - lse.float().reshape(b, kv, g, s)[..., None])
     if causal:
         pos = torch.arange(s, device=q.device)
-        p = torch.where(pos[None, :] <= pos[:, None], p, 0.0)
+        p = torch.where(_visible(pos, pos, prefix_len), p, 0.0)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     ds = p * (dp - dd[..., None]) * scale
@@ -405,27 +440,36 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
+def _check_fwd_shape(hd: int, hv: int) -> None:
+    if hd not in HEAD_DIMS or hv not in HEAD_DIMS or (
+            hd != hv and (hd in SQUARE_HEAD_DIMS or hv in SQUARE_HEAD_DIMS)):
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS} "
+                         f"({SQUARE_HEAD_DIMS} only with hd == hv); got hd "
+                         f"{hd}, hv {hv}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, prefix_len: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention of ``q`` [B, S, H, hd] over ``k`` [B, Sk, KV, hd],
     ``v`` [B, Sk, KV, hv] (H a multiple of KV), causal unless ``causal`` is
-    False (causal needs Sk == S), scores scaled by ``scale`` (default ``hd
+    False (causal needs Sk == S), the first ``prefix_len`` keys seen by
+    every query row (causal only), scores scaled by ``scale`` (default ``hd
     ** -0.5``); returns [B, S, H, hv] in ``q.dtype`` (float32 or bfloat16,
     float32 statistics and accumulation).  CUDA tensors launch the variant
     that ``plan`` picks (``hd, hv`` in ``HEAD_DIMS``); CPU tensors take the
     plain version."""
-    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
     with census.kernel_call(lambda: (
             plan_for(q, k, v).variant,
-            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk))):
+            *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk,
+                      prefix=prefix_len))):
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-        if hd not in HEAD_DIMS or hv not in HEAD_DIMS:
-            raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got "
-                             f"hd {hd}, hv {hv}")
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         prefix_len=prefix_len, scale=scale)
+        _check_fwd_shape(hd, hv)
         p = plan_for(q, k, v)
         gx, gy = p.grid
         if gx >= 2 ** 31 or gy > 65535:
@@ -434,21 +478,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
         if q.device.type == "meta":
             return o                  # the census's shape-only route
-        q, k, v = (_kernel_operand(t) for t in (q, k, v))
-        strides = (ctypes.c_longlong * 12)(
-            *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
-        lib = _library()
-        code = getattr(lib, p.variant)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, sk,
-            h, kv, hd, hv, strides, float(scale), int(bool(causal)), p.block_q,
-            p.block_k, gx, gy, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
-        LAUNCHES[p.variant] += 1
-        if code != 0:
-            msg = lib.flash_attention_error_string(code).decode()
-            raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
-                               f"{msg} (cudaError {code})")
+        _launch_fwd(p, q, k, v, o, None, causal, prefix_len, scale)
         return o
+
+
+def _launch_fwd(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: Optional[torch.Tensor], causal: bool,
+                prefix: int, scale: float) -> None:
+    """One launch of ``p``'s variant (its ``_lse`` entry point where ``lse``
+    is given), counted under the variant's key; raises on a refused
+    launch."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    strides = (ctypes.c_longlong * 12)(
+        *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
+    lib = _library()
+    entry = p.variant if lse is None else p.variant + "_lse"
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    if lse is not None:
+        head.append(lse.data_ptr())
+    gx, gy = p.grid
+    code = getattr(lib, entry)(
+        *head, b, s, sk, h, kv, hd, hv, strides, float(scale),
+        int(bool(causal)), int(prefix), p.block_q, p.block_k, gx, gy,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[p.variant] += 1
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {entry} ({p}) failed: {msg} "
+                           f"(cudaError {code})")
 
 
 def _check_train_shape(hd: int, hv: int) -> None:
@@ -458,52 +516,41 @@ def _check_train_shape(hd: int, hv: int) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, scale: Optional[float] = None
+                        *, causal: bool = True, prefix_len: int = 0,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention``'s output and the row log-sum-exp of the scaled
     scores, float32 [B, H, S] (what the backward needs).  CUDA tensors
     launch ``plan``'s variant built to write the LSE (``hd == hv`` in
-    ``BWD_HEAD_DIMS``; the tensor-core variant in bf16, the CUDA-core one in
-    float32); CPU tensors take the plain version."""
-    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
+    ``BWD_HEAD_DIMS``: the tensor-core variant in bf16 at 64 and 128, the
+    ``mma.sync`` one at 256, the CUDA-core one in float32); CPU tensors
+    take the plain version."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
     with census.kernel_call(lambda: (
             plan_for(q, k, v).variant,
             *fwd_work(b, s, h, kv, hd, hv, causal, q.dtype, lse=True,
-                      sk=sk))):
+                      sk=sk, prefix=prefix_len))):
         if q.device.type == "cpu":
-            return _plain_forward(q, k, v, causal, scale)
+            return _plain_forward(q, k, v, causal, scale, prefix_len)
         _check_train_shape(hd, hv)
         p = plan_for(q, k, v)
         o = torch.empty((b, s, h, hv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         if q.device.type == "meta":
             return o, lse             # the census's shape-only route
-        q, k, v = (_kernel_operand(t) for t in (q, k, v))
-        strides = (ctypes.c_longlong * 12)(
-            *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
-        lib = _library()
-        gx, gy = p.grid
-        code = getattr(lib, p.variant + "_lse")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, s, sk, h, kv, hd, hv, strides, float(scale),
-            int(bool(causal)), p.block_q, p.block_k, gx, gy, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
-        LAUNCHES[p.variant] += 1
-        if code != 0:
-            msg = lib.flash_attention_error_string(code).decode()
-            raise RuntimeError(f"CUDA launch of {p.variant}_lse ({p}) "
-                               f"failed: {msg} (cudaError {code})")
+        _launch_fwd(p, q, k, v, o, lse, causal, prefix_len, scale)
         return o, lse
 
 
 # the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
 # of one (b, head) and walk the keys ``_dq_step(hd)`` at a time; the dK /
 # dV kernel's items are BWD_ROWS keys of one (b, kv head) and walk the
-# group's query rows BWD_STEP at a time.  The float32 kernels' items are
-# F32_BWD_ROWS rows or keys, and each walks ``_f32_step(hd)`` keys or rows
-# at a time through a ring of F32_BWD_STAGES slots.
+# group's query rows BWD_STEP at a time.  The TF32 kernels' items (float32,
+# and bf16 at head dim 256) are F32_BWD_ROWS rows or keys, and each walks
+# ``_f32_step(hd)`` keys or rows at a time through a ring of
+# F32_BWD_STAGES slots.
 BWD_ROWS, BWD_STEP, F32_BWD_ROWS, F32_BWD_STAGES = 128, 64, 64, 2
 # which kernels a backward launch runs (the C entry points' ``parts``)
 BWD_DQ, BWD_DKDV, BWD_BOTH = 1, 2, 3
@@ -519,16 +566,16 @@ class BwdPlan:
     slots of the two kernels' streamed tiles; ``smem``: the dynamic shared
     memory of a block of each.
 
-    bf16: each kernel is persistent, ``grid_*`` = (blocks, 1), and block
-    ``c`` works through the items ``schedule_*[c]`` in order -- dQ items
-    ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV + kv_head) * nk
-    + key_block`` with ``nq = ceil(S / q_rows)``, ``nk = ceil(Sk /
-    kv_rows)``.  float32: one block an
-    item, ``grid_*`` = (items, 1), no schedule: block ``i`` takes q-block
-    or key block ``i // (B H)`` (the dQ kernel's reversed under causal, so
-    the heaviest items come first) of head ``b H + h = i % (B H)``; with
-    GQA the dK / dV items write float32 partials per head, which a last
-    kernel sums by group in head order."""
+    bf16 on ``wgmma``: each kernel is persistent, ``grid_*`` = (blocks, 1),
+    and block ``c`` works through the items ``schedule_*[c]`` in order --
+    dQ items ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV +
+    kv_head) * nk + key_block`` with ``nq = ceil(S / q_rows)``, ``nk =
+    ceil(Sk / kv_rows)``.  The TF32 kernels (float32; bf16 at head dim
+    256): one block an item, ``grid_*`` = (items, 1), no schedule: block
+    ``i`` takes q-block or key block ``i // (B H)`` (the dQ kernel's
+    reversed under causal, so the heaviest items come first) of head ``b H
+    + h = i % (B H)``; with GQA the dK / dV items write float32 partials per
+    head, which a last kernel sums by group in head order."""
     variant: str
     q_rows: int
     kv_rows: int
@@ -571,46 +618,50 @@ def _bwd_smem(hd: int, stages: int) -> Tuple[int, int]:
 
 
 def _f32_step(hd: int) -> int:
-    """Keys (dQ) or query rows (dK / dV) of a float32 kernel's streamed
-    tile: 32 at hd 64, 16 at hd 128, so that two blocks of each kernel fit
-    an SM and ptxas needs no spill."""
+    """Keys (dQ) or query rows (dK / dV) of a TF32 kernel's streamed tile:
+    32 at hd 64, 16 at hd 128 and 256, so that two blocks of each kernel
+    fit an SM at 64 and 128 and ptxas needs no spill."""
     return 32 if hd == 64 else 16
 
 
-def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
-    """Dynamic shared memory of a float32 block, as
-    ``flash_attention_bwd.cu`` lays it out in rows of hd + 4 floats: dQ:
-    the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V tiles; dK /
-    dV: the item's K and V, P^T handed between the warps of a pair
-    ([64][step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and their
-    lse and D."""
-    ld, r, st = hd + 4, F32_BWD_ROWS, _f32_step(hd)
-    dq = (2 * r + F32_BWD_STAGES * 2 * st) * ld * 4
-    dkdv = (2 * r * ld + r * (st + 8)
-            + F32_BWD_STAGES * 2 * st * (ld + 1)) * 4
+def _f32_bwd_smem(hd: int, el: int = 4) -> Tuple[int, int]:
+    """Dynamic shared memory of a TF32 block with elements of ``el`` bytes
+    (4 float32, 2 bf16), as ``flash_attention_bwd.cu`` lays it out in rows
+    of hd elements and 16 bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES``
+    slots of K and V tiles; dK / dV: the item's K and V, float32 P^T handed
+    between the warps of a pair ([64][step + 8]), ``F32_BWD_STAGES`` slots
+    of Q and dO tiles and their float32 lse and D."""
+    row, r, st = hd * el + 16, F32_BWD_ROWS, _f32_step(hd)
+    dq = (2 * r + F32_BWD_STAGES * 2 * st) * row
+    dkdv = (2 * r * row + r * (st + 8) * 4
+            + F32_BWD_STAGES * 2 * st * (row + 4))
     return dq, dkdv
 
 
 def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
-                  sk: Optional[int] = None) -> Tuple[List[int], List[int]]:
+                  sk: Optional[int] = None, prefix: int = 0
+                  ) -> Tuple[List[int], List[int]]:
     """The work of each bf16 item over ``s`` query rows and ``sk`` keys
     (default ``s``), in ``BWD_STEP``-wide tiles it walks plus one for its
     set-up (loads, D, the epilogue): dQ item ``(b * H + h) * nq + qb``
-    (``nq = ceil(s / BWD_ROWS)``) walks the keys up to its rows' last (all
-    ``sk`` of them when not causal), in kv tiles of ``_dq_step`` keys; dK /
-    dV item ``(b * KV + kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``)
-    walks, for each of the G heads, the q tiles of ``BWD_STEP`` rows from
-    the first that sees its keys.  The work does not depend on the head
-    size: ``_dq_step(64)`` tiles count as two."""
+    (``nq = ceil(s / BWD_ROWS)``) walks the keys up to its rows' last, or
+    to the prefix's last where that lies further (all ``sk`` of them when
+    not causal), in kv tiles of ``_dq_step`` keys; dK / dV item ``(b * KV +
+    kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``) walks, for each of the G
+    heads, the q tiles of ``BWD_STEP`` rows from the first that sees its
+    keys (row 0 where a key of the item lies in the prefix).  The work does
+    not depend on the head size: ``_dq_step(64)`` tiles count as two."""
     sk = s if sk is None else sk
-    _check_lengths(s, sk, causal)
+    _check_lengths(s, sk, causal, prefix)
     nq, nk = _cdiv(s, BWD_ROWS), _cdiv(sk, BWD_ROWS)
     nstep = _cdiv(s, BWD_STEP)
     per_block = BWD_ROWS // BWD_STEP
-    dq = [_cdiv(min((qb + 1) * BWD_ROWS, s) if causal else sk, BWD_STEP) + 1
-          for qb in range(nq)]
-    dkdv = [(h // kv) * (nstep - (kb * per_block if causal else 0)) + 1
-            for kb in range(nk)]
+    p = min(prefix, s)
+    dq = [_cdiv(max(min((qb + 1) * BWD_ROWS, s), p) if causal else sk,
+                BWD_STEP) + 1 for qb in range(nq)]
+    dkdv = [(h // kv) * (nstep - (kb * per_block
+                                  if causal and kb * BWD_ROWS >= p else 0))
+            + 1 for kb in range(nk)]
     return dq * (b * h), dkdv * (b * kv)
 
 
@@ -628,10 +679,11 @@ def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(x) for x in lists)
 
 
-def bwd_variant(dtype: torch.dtype) -> str:
-    """The backward's variant (its ``LAUNCHES`` key) for ``dtype``."""
+def bwd_variant(dtype: torch.dtype, hd: int = 64) -> str:
+    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` and head
+    dim ``hd``."""
     if dtype == torch.bfloat16:
-        return BWD_BF16
+        return BWD_BF16_MMA if hd in SQUARE_HEAD_DIMS else BWD_BF16
     if dtype == torch.float32:
         return BWD_F32
     raise TypeError(f"no K3 backward variant for {dtype}")
@@ -639,42 +691,43 @@ def bwd_variant(dtype: torch.dtype) -> str:
 
 def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
              causal: bool = True, sms: int = H100_SMS,
-             sk: Optional[int] = None) -> BwdPlan:
+             sk: Optional[int] = None, prefix: int = 0) -> BwdPlan:
     """The backward's plan for q [b, s, h, hd], k, v [b, sk, kv, hd] (``sk``
-    default ``s``) in ``dtype`` on a card of ``sms`` SMs (a pure function of
-    its arguments, made once: the same object for the same shape).
-    bf16 on ``wgmma``: items of 128 rows or keys, the dQ kernel stepping
-    ``_dq_step`` keys at a time and the dK / dV kernel 64 query rows,
-    ``_bwd_stages`` ring slots, each kernel a persistent grid of at most
-    one block an SM whose schedule ``_lpt`` makes from ``bwd_item_work``;
-    float32 as 3xTF32 on ``mma.sync``: items of 64 rows or keys, one block
-    an item, heaviest first, each stepping ``_f32_step`` rows or keys
-    through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums
-    the dK / dV pass's per-head partials."""
+    default ``s``) with a bidirectional prefix of ``prefix`` keys in
+    ``dtype`` on a card of ``sms`` SMs (a pure function of its arguments,
+    made once: the same object for the same shape).
+    bf16 at hd 64 and 128 on ``wgmma``: items of 128 rows or keys, the dQ
+    kernel stepping ``_dq_step`` keys at a time and the dK / dV kernel 64
+    query rows, ``_bwd_stages`` ring slots, each kernel a persistent grid
+    of at most one block an SM whose schedule ``_lpt`` makes from
+    ``bwd_item_work``; float32, and bf16 at hd 256, on ``mma.sync``
+    (3xTF32, or one TF32 product with bf16 operands): items of 64 rows or
+    keys, one block an item, heaviest first, each stepping ``_f32_step``
+    rows or keys through ``F32_BWD_STAGES`` ring slots; with GQA a last
+    kernel sums the dK / dV pass's per-head partials."""
     return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
-                     bool(causal), sms)
+                     bool(causal), sms, int(prefix))
 
 
 @functools.lru_cache(maxsize=4096)
 def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
-              dtype: torch.dtype, causal: bool, sms: int) -> BwdPlan:
+              dtype: torch.dtype, causal: bool, sms: int,
+              prefix: int) -> BwdPlan:
     _check_train_shape(hd, hd)
-    _check_lengths(s, sk, causal)
-    if dtype == torch.bfloat16:
-        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk)
+    _check_lengths(s, sk, causal, prefix)
+    variant = bwd_variant(dtype, hd)
+    if variant == BWD_BF16:
+        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk, prefix)
         ctas_dq, ctas_dkdv = min(len(work_dq), sms), min(len(work_dkdv), sms)
         st = _bwd_stages(hd)
         return BwdPlan(BWD_BF16, BWD_ROWS, BWD_ROWS, BWD_STEP, _dq_step(hd),
                        (st, st), (ctas_dq, 1), (ctas_dkdv, 1),
                        _bwd_smem(hd, st), _lpt(work_dq, ctas_dq),
                        _lpt(work_dkdv, ctas_dkdv))
-    if dtype == torch.float32:
-        r, st = F32_BWD_ROWS, _f32_step(hd)
-        return BwdPlan(BWD_F32, r, r, st, st,
-                       (F32_BWD_STAGES, F32_BWD_STAGES),
-                       (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
-                       _f32_bwd_smem(hd))
-    raise TypeError(f"no K3 backward variant for {dtype}")
+    r, st = F32_BWD_ROWS, _f32_step(hd)
+    return BwdPlan(variant, r, r, st, st, (F32_BWD_STAGES, F32_BWD_STAGES),
+                   (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
+                   _f32_bwd_smem(hd, dtype.itemsize))
 
 
 def schedule_words(p: BwdPlan) -> List[int]:
@@ -705,15 +758,16 @@ def _schedule_tensor(p: BwdPlan, device: torch.device) -> torch.Tensor:
 
 def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-                        *, causal: bool = True,
+                        *, causal: bool = True, prefix_len: int = 0,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of attention's output ``o`` = attention(q, k,
     v) given its gradient ``do`` and the forward's log-sum-exp ``lse``
-    [B, H, S] (k, v, dk, dv [B, Sk, KV, hd]).  CUDA tensors launch
-    ``plan_bwd``'s variant (``hd == hv`` in ``BWD_HEAD_DIMS``) or raise; CPU
-    tensors take ``flash_attention_bwd_plain``."""
-    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal)
+    [B, H, S] (k, v, dk, dv [B, Sk, KV, hd]; the first ``prefix_len`` keys
+    seen by every row when causal).  CUDA tensors launch ``plan_bwd``'s
+    variant (``hd == hv`` in ``BWD_HEAD_DIMS``) or raise; CPU tensors take
+    ``flash_attention_bwd_plain``."""
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
     if tuple(o.shape) != (b, s, h, hv) or tuple(do.shape) != (b, s, h, hv) \
@@ -725,22 +779,26 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     with census.kernel_call(lambda: (
-            bwd_variant(q.dtype),
-            *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk))):
+            bwd_variant(q.dtype, hd),
+            *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk,
+                      prefix=prefix_len))):
         if q.device.type == "cpu":
             return flash_attention_bwd_plain(do, q, k, v, o, lse,
-                                             causal=causal, scale=scale)
+                                             causal=causal,
+                                             prefix_len=prefix_len,
+                                             scale=scale)
         _check_train_shape(hd, hv)
         if q.device.type == "meta":       # the census's shape-only route
             return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
                          for t in (q, k, v))
-        return bwd_launch(do, q, k, v, o, lse, causal, scale, BWD_BOTH)[:3]
+        return bwd_launch(do, q, k, v, o, lse, causal, scale, BWD_BOTH,
+                          prefix=prefix_len)[:3]
 
 
 def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                causal: bool, scale: float, parts: int,
-               scratch: Optional[torch.Tensor] = None
+               scratch: Optional[torch.Tensor] = None, prefix: int = 0
                ) -> Tuple[torch.Tensor, ...]:
     """The kernels of ``flash_attention_bwd`` on CUDA tensors it accepts:
     ``parts`` ``BWD_DQ`` (the dQ kernel, which also writes the scratch),
@@ -748,19 +806,19 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     returns (dq, dk, dv, scratch), the outputs a part did not launch
     unwritten.  One call counts once.  To time the dK / dV kernel alone,
     pass back the scratch of a ``BWD_BOTH`` call on the same inputs."""
-    b, s, sk, h, kv, hd, _ = _validate(q, k, v, causal)
+    b, s, sk, h, kv, hd, _ = _validate(q, k, v, causal, prefix)
     p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device),
-                 sk)
+                 sk, prefix)
     if max(p.grid_dq[0], p.grid_dkdv[0]) >= 2 ** 31:
         raise ValueError(f"B = {b}, H = {h}, S = {s} exceed the backward "
                          "kernels' grid")
     q, k, v, o, do = (_kernel_operand(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    bf16 = p.variant == BWD_BF16
+    wgmma = p.variant == BWD_BF16
     if scratch is None:
-        # bf16: lse2, D [B H, S padded]; float32: D [B, H, S], after the
+        # wgmma: lse2, D [B H, S padded]; TF32: D [B, H, S], after the
         # per-head dK, dV partials [2, B, Sk, H, hd] with GQA
-        shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if bf16 \
+        shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if wgmma \
             else ((h > kv) * 2 * b * sk * h * hd + b * h * s,)
         scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -772,12 +830,12 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     lib = _bwd_library()
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), scratch.data_ptr()]
-    if bf16:
+    if wgmma:
         head.append(_schedule_tensor(p, q.device).data_ptr())
     tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, sk, h, kv, hd,
-            strides, float(scale), int(bool(causal)), p.q_rows, p.kv_rows,
-            p.q_step, p.kv_step, p.stages[0], p.stages[1], p.grid_dq[0],
-            p.grid_dkdv[0]]
+            strides, float(scale), int(bool(causal)), int(prefix), p.q_rows,
+            p.kv_rows, p.q_step, p.kv_step, p.stages[0], p.stages[1],
+            p.grid_dq[0], p.grid_dkdv[0]]
     code = getattr(lib, p.variant)(
         *head, *tail, int(parts), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -794,10 +852,11 @@ class FlashAttention(torch.autograd.Function):
     the log-sum-exp; the backward is ``flash_attention_bwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, prefix: int = 0):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     prefix_len=prefix, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.prefix = causal, scale, prefix
         return o
 
     @staticmethod
@@ -805,14 +864,18 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(do, q, k, v, o, lse,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal,
+                                         prefix_len=ctx.prefix,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
+                              prefix_len: int = 0,
                               scale: Optional[float] = None) -> torch.Tensor:
     """``flash_attention`` that autograd differentiates (``FlashAttention``)."""
     if scale is None:
         scale = int(q.shape[-1]) ** -0.5
-    return FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    return FlashAttention.apply(q, k, v, bool(causal), float(scale),
+                                int(prefix_len))

@@ -110,7 +110,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, prefix_len: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B, S, H, hd]; k, v [B, Sk, KV, hd | hv] -> [B, S, H, hv] in
     ``q.dtype``, on the hand-written kernel K3 (its plain version for CPU
@@ -118,15 +118,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     transposed to [B*H, S, hd] and K / V are not repeated for GQA: the
     kernel reads the kv head ``h // (H // KV)`` in place.  ``scale``
     defaults to ``hd ** -0.5``; any ``S`` works, and the key length ``Sk``
-    may differ from ``S`` when not ``causal``.  Where autograd records
-    (gradients on and an input that requires them) the call goes through
-    ``FlashAttention``, K3 with its hand-written backward (``hd == hv`` in
-    64, 128 on the card); otherwise -- prefill, decode -- straight to K3."""
+    may differ from ``S`` when not ``causal``.  ``prefix_len`` P opens a
+    bidirectional prefix in the causal mask (key ``j`` visible to row ``i``
+    where ``j <= i`` or ``j < P``: the reference's ``layers._block_mask``,
+    PaliGemma's image patches); it needs ``causal`` and ``Sk == S``.  Where
+    autograd records (gradients on and an input that requires them) the
+    call goes through ``FlashAttention``, K3 with its hand-written backward
+    (``hd == hv`` in 64, 128, 256 on the card); otherwise -- prefill,
+    decode -- straight to K3."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _k3.flash_attention_trainable(q, k, v, causal=causal,
+                                             prefix_len=prefix_len,
                                              scale=scale)
-    return _k3.flash_attention(q, k, v, causal=causal, scale=scale)
+    return _k3.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
+                               scale=scale)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

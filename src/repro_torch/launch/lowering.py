@@ -162,7 +162,10 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
     CPU): the model from ``Model.init(max_seq=S)`` (seed-0 weights; none on
     meta) and the reference's inputs -- int32 tokens [B, S] (and labels)
     for train and prefill, [B, 1] for decode; the audio family's frames [B,
-    num_frames, d] in the model dtype for train and prefill.  train: a fresh
+    num_frames, d] in the model dtype for train and prefill; the VLM
+    family's S - num_patches text tokens (and labels) after its patch
+    embeddings [B, num_patches, d] in the model dtype for train and prefill
+    (the reference's ``input_specs``).  train: a fresh
     ``TrainState`` with the config's optimizer
     (``optim.make_optimizer(cfg.optimizer)``) and one ``make_train_step``
     call; prefill: ``Model.prefill``; decode: one ``Model.decode`` against
@@ -171,16 +174,21 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
     dev = resolve_device(device, allow_meta=True)
     model = api.build_model(cfg)
     b, s = shape.global_batch, shape.seq_len
-    extra = {}
+    extra, text = {}, s
     if cfg.family == "audio" and shape.kind != "decode":
         extra["frames"] = torch.zeros((b, cfg.num_frames, cfg.d_model),
                                       dtype=layers.dtype_of(cfg), device=dev)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        text = s - cfg.num_patches
+        extra["prefix_embeds"] = torch.zeros(
+            (b, cfg.num_patches, cfg.d_model), dtype=layers.dtype_of(cfg),
+            device=dev)
     if shape.kind == "train":
         api.check_trainable(cfg)
         optimizer = optim.make_optimizer(cfg.optimizer)
         state = api.init_train_state(model.init(device=dev, max_seq=s),
                                      optimizer)
-        tokens = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        tokens = torch.zeros((b, text), dtype=torch.int32, device=dev)
         batch = {"tokens": tokens, "labels": tokens.clone(), **extra}
         return Step(api.make_train_step(model, optimizer), (state, batch),
                     (state.params, state.opt, batch))
@@ -188,7 +196,7 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
         raise NotImplementedError(f"{cfg.name} has no serving step")
     module = model.init(device=dev, max_seq=s)
     if shape.kind == "prefill":
-        batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
+        batch = {"tokens": torch.zeros((b, text), dtype=torch.int32,
                                        device=dev), **extra}
         return Step(model.prefill, (module, batch), (module, batch))
     batch = {"tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev)}

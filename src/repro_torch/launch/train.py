@@ -15,7 +15,11 @@ each site on K3, each with its hand-written backward) and the audio family
 (``--arch whisper_small``: the encoder's, the decoder's and the cross
 attention on K3 and its hand-written backward, the frames from the data
 iterator; the decoder gets ``--seq-len`` positions, as the reference's
-``init(key, max_seq=seq_len)``); the command line
+``init(key, max_seq=seq_len)``) and the VLM family (``--arch
+paligemma_3b``: every layer's attention, the patches' bidirectional prefix
+included, on K3 and its hand-written backward; ``--seq-len`` counts the
+patches, the data iterator gives ``seq_len - num_patches`` text tokens and
+the patch embeddings); the command line
 runs on the card, and ``train(..., device="cpu")`` runs the plain versions
 on the host.  A mesh of more than one device is not ported (ROADMAP.md
 Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).

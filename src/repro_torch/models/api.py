@@ -5,20 +5,23 @@ as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
 family (ResNet-50 inference), the dense transformer family (prefill, KV
 cache, decode, and training), the SSM family (Mamba2: chunked prefill,
 recurrent decode, and training), the hybrid family (Zamba2: the Mamba2
-backbone with one shared attention block; prefill, decode and training)
-and the audio family (whisper: an encoder over precomputed frames and a
-decoder with cross attention; prefill, decode and training).
+backbone with one shared attention block; prefill, decode and training),
+the audio family (whisper: an encoder over precomputed frames and a
+decoder with cross attention; prefill, decode and training) and the VLM
+family (paligemma: a bidirectional prefix of precomputed patch embeddings
+over the dense decoder; prefill, decode and training).
 ``prefill(module, batch)``, ``decode(module, batch, cache)`` and
 ``init_cache(batch, max_len, device=...)`` mirror the reference's serving
 entries (``None`` for the CNN, as there; the audio family's prefill and loss
-also read ``batch["frames"]``); the other families raise
+also read ``batch["frames"]``, the VLM family's ``batch["prefix_embeds"]``
+where the batch has them); the other families raise
 ``NotImplementedError`` naming the roadmap item that brings them.
 ``init(generator=None, device="cuda", max_seq=4096)`` builds the module;
 ``max_seq`` sizes whisper's decoder positions, as the reference's
 ``init(key, max_seq)``, and the other families ignore it.
 ``loss(module, batch)`` and ``make_train_step`` train the dense, SSM,
-hybrid and audio families; the CNN raises, naming the roadmap item that
-brings its backward kernels.
+hybrid, audio and VLM families; the CNN raises, naming the roadmap item
+that brings its backward kernels.
 
 A ``TrainState`` is the module and its optimiser state, one optimiser leaf
 for each of the reference's parameter leaves (``leaf_groups``: a [L, ...]
@@ -53,17 +56,19 @@ _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
             "ssm": (mamba.check_ssm, mamba.Mamba, mamba.init_cache),
             "hybrid": (zamba.check_hybrid, zamba.Zamba, zamba.init_cache),
             "audio": (whisper.check_audio, whisper.Whisper,
-                      whisper.init_cache)}
+                      whisper.init_cache),
+            "vlm": (transformer.check_dense, transformer.Transformer,
+                    transformer.init_cache)}
 
 # the trainable families: (loss_fn, params_from_reference)
 _TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
              "ssm": (mamba.loss_fn, mamba.params_from_reference),
              "hybrid": (zamba.loss_fn, zamba.params_from_reference),
-             "audio": (whisper.loss_fn, whisper.params_from_reference)}
+             "audio": (whisper.loss_fn, whisper.params_from_reference),
+             "vlm": (transformer.loss_fn, transformer.params_from_reference)}
 
 # the roadmap item that ports each family not ported yet
-_NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)",
-               "vlm": "Queue 1 item 12e (the VLM prefix)"}
+_NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)"}
 
 # the roadmap item that brings training to each ported family that lacks it
 _NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
@@ -91,8 +96,14 @@ def check_trainable(cfg: ArchConfig) -> None:
 
 def _inputs(cfg: ArchConfig, batch) -> tuple:
     """The batch's inputs beside the tokens (and labels) that the family's
-    entries take: the audio family's ``frames``."""
-    return (batch["frames"],) if cfg.family == "audio" else ()
+    entries take: the audio family's ``frames``, the VLM family's
+    ``prefix_embeds`` (None where the batch has none: text alone, as the
+    reference's ``batch.get``)."""
+    if cfg.family == "audio":
+        return (batch["frames"],)
+    if cfg.family == "vlm":
+        return (batch.get("prefix_embeds"),)
+    return ()
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -270,28 +270,21 @@ def _qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor
     return q, k, v
 
 
-def _no_prefix(prefix_len: int) -> None:
-    if prefix_len:
-        raise NotImplementedError(
-            "a bidirectional prefix (prefix_len > 0, PaliGemma) is not "
-            "computed by the attention kernel K3 yet: see ROADMAP.md Queue 1 "
-            "item 12e")
-
-
 def attention_block(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                     prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence causal attention (train / prefill) through K3, with
-    K3's backward where autograd records (``ops.flash_attention``)."""
+    K3's backward where autograd records (``ops.flash_attention``); the
+    first ``prefix_len`` positions (PaliGemma's image patches) seen by every
+    row."""
     return attention_prefill(p, cfg, x, positions, prefix_len)[0]
 
 
 def attention_prefill(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                       prefix_len: int = 0):
-    """Prefill: causal attention through K3 that also returns (k, v) for
-    the cache."""
-    _no_prefix(prefix_len)
+    """Prefill: causal attention through K3, with a bidirectional prefix of
+    ``prefix_len`` positions, that also returns (k, v) for the cache."""
     q, k, v = _qkv(p, cfg, x, positions)
-    o = ops.flash_attention(q, k, v, causal=True,
+    o = ops.flash_attention(q, k, v, causal=True, prefix_len=prefix_len,
                             scale=cfg.head_dim ** -0.5)
     return _out(o, p["wo"]), (k, v)
 

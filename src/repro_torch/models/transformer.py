@@ -2,15 +2,20 @@
 reference's ``models/transformer.py``).
 
 Dense GQA / MQA models -- stablelm, qwen2 (``qkv_bias``), qwen3
-(``qk_norm``), granite (one kv head).  Inference: ``prefill`` (every
-layer's attention on the hand-written kernel K3), a KV cache and greedy
-``decode_step``, under ``torch.no_grad`` on frozen parameters.  Training:
-``forward`` / ``loss_fn`` over all positions, differentiable (K3 with its
-hand-written backward), with the reference's ``cfg.remat`` per layer.  The
-reference scans one stacked layer body with ``lax.scan``; here
-``Transformer.layers`` is an ``nn.ModuleList`` walked by a Python loop.
-MoE, MLA, multi-token prediction and the VLM embedding scale raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 12e).
+(``qk_norm``), granite (one kv head) -- and the VLM family (paligemma:
+gemma's embedding scale, sqrt(d) rounded to the model dtype, on the token
+embeddings, after which ``prefix_embeds`` -- the SigLIP tower's patch
+embeddings, a stub input -- are put in front of the text; every layer's
+attention sees the patches bidirectionally, the text causally; positions
+run over the whole sequence, patches included).  Inference: ``prefill``
+(every layer's attention on the hand-written kernel K3), a KV cache and
+greedy ``decode_step``, under ``torch.no_grad`` on frozen parameters.
+Training: ``forward`` / ``loss_fn`` over all positions (the patches'
+logits dropped before the loss), differentiable (K3 with its hand-written
+backward), with the reference's ``cfg.remat`` per layer.  The reference
+scans one stacked layer body with ``lax.scan``; here ``Transformer.layers``
+is an ``nn.ModuleList`` walked by a Python loop.  MoE, MLA and multi-token
+prediction raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 12e).
 
 The module's ``state_dict`` keys are the reference's parameter paths joined
 by dots, with the stacked leading L axis of ``params["layers"]`` spread over
@@ -53,8 +58,6 @@ def check_dense(cfg) -> None:
         missing.append(f"attn_type {cfg.attn_type!r}")
     if cfg.mtp_depth:
         missing.append("multi-token prediction")
-    if cfg.family == "vlm":
-        missing.append("the VLM embedding scale and patch prefix")
     if cfg.family not in ("dense", "moe", "vlm"):
         missing.append(f"family {cfg.family!r}")
     if missing:
@@ -97,18 +100,49 @@ def init_cache(cfg, batch: int, max_len: int,
 
 # --- forward ---------------------------------------------------------------------
 
-def _layer_fwd(lp, cfg, x: torch.Tensor, positions: torch.Tensor):
+def embed_scale(cfg, dtype: torch.dtype) -> float:
+    """gemma's embedding scale, which the VLM family puts on its token
+    embeddings: sqrt(d_model) rounded to ``dtype`` first as the reference's
+    ``jnp.asarray(d ** 0.5, x.dtype)`` (45.25 in bf16 at d 2048), so that
+    ``x * scale`` is the reference's product in that dtype."""
+    return float(torch.tensor(cfg.d_model ** 0.5, dtype=dtype))
+
+
+def embed_inputs(model: "Transformer", tokens, prefix_embeds=None
+                 ) -> Tuple[torch.Tensor, int]:
+    """The decoder's input sequence and its prefix length: the tokens'
+    embeddings (the VLM family's scaled by ``embed_scale``), after
+    ``prefix_embeds`` [B, P,
+    d] (numpy or a tensor, any float dtype, cast to the model's) where
+    given (P = 0 without)."""
+    cfg = model.cfg
+    x = L.embed(model.embed, torch.as_tensor(tokens, device=model.device))
+    if cfg.family == "vlm":
+        x = x * embed_scale(cfg, x.dtype)
+    if prefix_embeds is None:
+        return x, 0
+    prefix = torch.as_tensor(prefix_embeds, device=model.device)
+    if prefix.dim() != 3 or prefix.shape[0] != x.shape[0] or \
+            prefix.shape[2] != cfg.d_model:
+        raise ValueError(f"prefix_embeds must be [B, P, {cfg.d_model}] "
+                         f"beside tokens {tuple(x.shape[:2])}; got "
+                         f"{tuple(prefix.shape)}")
+    return torch.cat([prefix.to(x.dtype), x], dim=1), int(prefix.shape[1])
+
+
+def _layer_fwd(lp, cfg, x: torch.Tensor, positions: torch.Tensor,
+               prefix_len: int = 0):
     h = L.norm(lp["ln1"], x, cfg.norm_eps)
-    a, kv = L.attention_prefill(lp["attn"], cfg, h, positions)
+    a, kv = L.attention_prefill(lp["attn"], cfg, h, positions, prefix_len)
     x = x + a
     h = L.norm(lp["ln2"], x, cfg.norm_eps)
     return x + L.ffn_block(lp["ffn"], cfg, h), kv
 
 
 def _layer_train(lp, x: torch.Tensor, positions: torch.Tensor,
-                 cfg) -> torch.Tensor:
+                 cfg, prefix_len: int = 0) -> torch.Tensor:
     h = L.norm(lp["ln1"], x, cfg.norm_eps)
-    x = x + L.attention_block(lp["attn"], cfg, h, positions)
+    x = x + L.attention_block(lp["attn"], cfg, h, positions, prefix_len)
     h = L.norm(lp["ln2"], x, cfg.norm_eps)
     return x + L.ffn_block(lp["ffn"], cfg, h)
 
@@ -149,15 +183,16 @@ class Transformer(nn.Module):
         self.head = (L.ParamTree(params["head"]) if "head" in params
                      else None)
 
-    def _run(self, tokens: torch.Tensor, kv_out: Optional[Dict]
+    def _run(self, x: torch.Tensor, prefix_len: int, kv_out: Optional[Dict]
              ) -> torch.Tensor:
-        """The full-sequence forward; each layer's (k, v) is written into
-        ``kv_out`` (a cache's ``"layers"``) when one is given."""
-        x = L.embed(self.embed, tokens)
-        positions = torch.arange(tokens.shape[1], device=self.device)[None]
+        """The full-sequence forward of the embedded sequence ``x``
+        (``embed_inputs``) whose first ``prefix_len`` positions every
+        position sees; each layer's (k, v) is written into ``kv_out`` (a
+        cache's ``"layers"``) when one is given."""
+        positions = torch.arange(x.shape[1], device=self.device)[None]
         head_major = self.cfg.cache_layout == "head_major"
         for i, lp in enumerate(self.layers):
-            x, (k, v) = _layer_fwd(lp, self.cfg, x, positions)
+            x, (k, v) = _layer_fwd(lp, self.cfg, x, positions, prefix_len)
             if kv_out is not None:
                 if head_major:
                     k, v = k.transpose(1, 2), v.transpose(1, 2)
@@ -167,19 +202,23 @@ class Transformer(nn.Module):
         return L.unembed(self.head, self.embed, h)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> float32 logits [B, S, vocab]."""
-        return self._run(torch.as_tensor(tokens, device=self.device), None)
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds=None) -> torch.Tensor:
+        """tokens [B, S] (after ``prefix_embeds`` [B, P, d] where given) ->
+        float32 logits [B, P + S, vocab]."""
+        return self._run(*embed_inputs(self, tokens, prefix_embeds), None)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """Logits and a populated cache whose ``max_len`` is the prompt
+    def prefill(self, tokens: torch.Tensor, prefix_embeds=None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Logits [B, P + S, vocab] and a populated cache of ``len`` P + S,
+        the prefix's positions and the prompt's, whose ``max_len`` is that
         length (as the reference's); copy it into a larger ``init_cache``
         to decode after it."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        cache = self.init_cache(*tokens.shape)
-        logits = self._run(tokens, cache["layers"])
-        cache["len"] = int(tokens.shape[1])
+        x, prefix_len = embed_inputs(self, tokens, prefix_embeds)
+        cache = self.init_cache(*x.shape[:2])
+        logits = self._run(x, prefix_len, cache["layers"])
+        cache["len"] = int(x.shape[1])
         return logits, cache
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
@@ -193,8 +232,7 @@ class Transformer(nn.Module):
         one raises (``layers.attention_decode``) before anything is
         written."""
         cache_len = int(cache["len"])
-        tokens = torch.as_tensor(tokens, device=self.device)
-        x = L.embed(self.embed, tokens)
+        x, _ = embed_inputs(self, tokens)
         kc, vc = cache["layers"]["k"], cache["layers"]["v"]
         for i, lp in enumerate(self.layers):
             x = _layer_decode(lp, self.cfg, x, {"k": kc[i], "v": vc[i]},
@@ -204,27 +242,32 @@ class Transformer(nn.Module):
         return L.unembed(self.head, self.embed, h), cache
 
 
-def forward(model: Transformer, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward over all positions: tokens [B, S] -> (final
-    hidden [B, S, D], float32 logits [B, S, vocab]), differentiable, each
-    layer under ``cfg.remat``."""
+def forward(model: Transformer, tokens, prefix_embeds=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over all positions: tokens [B, S] (after
+    ``prefix_embeds`` [B, P, d] where given) -> (final hidden [B, P + S,
+    D], float32 logits [B, P + S, vocab]), differentiable, each layer under
+    ``cfg.remat``."""
     cfg = model.cfg
-    tokens = torch.as_tensor(tokens, device=model.device)
-    x = L.embed(model.embed, tokens)
-    positions = torch.arange(tokens.shape[1], device=model.device)[None]
-    layer = L.remat(functools.partial(_layer_train, cfg=cfg), cfg)
+    x, prefix_len = embed_inputs(model, tokens, prefix_embeds)
+    positions = torch.arange(x.shape[1], device=model.device)[None]
+    layer = L.remat(functools.partial(_layer_train, cfg=cfg,
+                                      prefix_len=prefix_len), cfg)
     for lp in model.layers:
         x = layer(lp, x, positions)
     h = L.norm(model.final_norm, x, cfg.norm_eps)
     return h, L.unembed(model.head, model.embed, h)
 
 
-def loss_fn(model: Transformer, tokens, labels
+def loss_fn(model: Transformer, tokens, labels, prefix_embeds=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean NLL of ``logits[:, :-1]`` against ``labels[:, 1:]`` (the
-    reference's pairing) and the metrics ``{"nll", "moe_aux"}`` (0 for the
-    dense family)."""
-    return L.next_token_loss(forward(model, tokens)[1], labels)
+    """Mean NLL of the text's ``logits[:, :-1]`` (the prefix's positions
+    dropped) against ``labels[:, 1:]`` (the reference's pairing) and the
+    metrics ``{"nll", "moe_aux"}`` (0 for the dense family)."""
+    logits = forward(model, tokens, prefix_embeds)[1]
+    if prefix_embeds is not None:
+        logits = logits[:, int(prefix_embeds.shape[1]):]
+    return L.next_token_loss(logits, labels)
 
 
 def params_from_reference(params: Mapping, cfg,

@@ -320,11 +320,12 @@ def test_applicable_and_skipped_cells():
                      | {(a, s) for a in ("mamba2_130m", "zamba2_1_2b")
                         for s in ("train_4k", "prefill_32k", "decode_32k",
                                   "long_500k")}
-                     | {("whisper_small", s)
+                     | {(a, s) for a in ("whisper_small", "paligemma_3b")
                         for s in ("train_4k", "prefill_32k", "decode_32k")})
+    assert len(cells) == 26
     skipped = {(a, s): why for a, s, why in dryrun.skipped_cells()}
-    assert len(skipped) == 10
-    for arch in ("deepseek_v3_671b", "deepseek_v2_236b", "paligemma_3b"):
+    assert len(skipped) == 7
+    for arch in ("deepseek_v3_671b", "deepseek_v2_236b"):
         assert "ROADMAP.md Queue 1 item 12e" in skipped[(arch, "prefill_32k")]
     assert ("resnet50", "-") in skipped
     assert not cells & set(skipped)
@@ -369,6 +370,43 @@ def test_zamba2_train_cell_books_both_kernels_and_their_backwards():
     assert kern["ssd_scan_bwd_bf16"]["flops"] == layers * flops
     assert kern["ssd_scan_bwd_bf16"]["bytes"] == layers * nbytes
     assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_paligemma_cells_book_k3_with_the_prefix(shape):
+    """paligemma-3b's three cells, traced on meta at full width and depth
+    (18 layers, 8 heads of 256, one kv head, 256 patches): K3 once a layer
+    over patches + text with the 256 patches' bidirectional prefix, each
+    entry K3's own census work with the prefix's pairs -- at head dim 256
+    the ``mma.sync`` forward and the TF32 backward; a train step under
+    remat "dots" runs the forward (with its log-sum-exp) twice a layer (the
+    checkpoint recomputes it) and the backward once; nothing in decode."""
+    cfg = base.get_config("paligemma_3b")
+    sh = base.SHAPES[shape]
+    art = dryrun.run_cell("paligemma_3b", shape, save=False)
+    kern = art["hxa"]["kernels"]
+    assert art["model_flops"] > 0 and art["useful_flops_ratio"] > 0
+    if sh.kind == "decode":
+        assert kern == {}
+        return
+    b, s, n, p = sh.global_batch, sh.seq_len, cfg.num_layers, \
+        cfg.num_patches
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    train = sh.kind == "train"
+    passes = 2 if train else 1
+    fwd = k3.fwd_work(b, s, h, kv, hd, hd, True, torch.bfloat16, lse=train,
+                      prefix=p)
+    assert fwd[0] == 4 * hd * b * h * (s * (s + 1) // 2 + p * (p - 1) // 2)
+    want = {k3.MMA: {"launches": float(passes * n),
+                     "flops": float(passes * n * fwd[0]),
+                     "bytes": float(passes * n * fwd[1])}}
+    if train:
+        bwd = k3.bwd_work(b, s, h, kv, hd, hd, True, torch.bfloat16,
+                          prefix=p)
+        want[k3.BWD_BF16_MMA] = {"launches": float(n),
+                                 "flops": float(n * bwd[0]),
+                                 "bytes": float(n * bwd[1])}
+    assert kern == want
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref
+from repro.models import layers as rL
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels import ops
@@ -126,6 +127,7 @@ def test_cpu_tensors_never_launch():
                                   "flash_attention_bf16_mma": 0,
                                   "flash_attention_f32": 0,
                                   "flash_attention_bwd_bf16": 0,
+                                  "flash_attention_bwd_bf16_mma": 0,
                                   "flash_attention_bwd_f32": 0}
     assert k3._bound is None and k3._bwd_bound is None
 
@@ -388,3 +390,124 @@ def test_cuda_sources_take_the_key_length():
                 m[1].split())), name
         assert re.search(r"encode_bshd\(&tm_k, [^;]*\bSk\b", src)
         assert re.search(r"encode_bshd\(&tm_v, [^;]*\bSk\b", src)
+
+
+# --- the bidirectional prefix and head dim 256 (paligemma) -----------------------
+
+# (B, S, H, KV, d): MQA and GQA at head dims 16, 64 and 256; S within the
+# reference's first chunk (min(1024, S)), where its XLA attention is the
+# exact prefix mask
+PREFIX_SHAPES = [(2, 40, 4, 1, 16), (1, 72, 4, 2, 64), (1, 36, 2, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", PREFIX_SHAPES)
+@pytest.mark.parametrize("prefix", ["0", "1", "7", "S"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefix_matches_reference_xla_attention(shape, prefix, dtype):
+    """``prefix_len`` P: key ``j`` visible to row ``i`` where ``j <= i`` or
+    ``j < P`` -- the plain version against the reference's XLA attention
+    (``layers.flash_attention(..., prefix_len=P)``, the oracle of the
+    prefix: the reference's TPU kernel has no prefix rule)."""
+    b, s, h, kv, d = shape
+    p = s if prefix == "S" else int(prefix)
+    (q, k, v), (qt, kt, vt) = _inputs(s + d + p, [(b, s, h, d), (b, s, kv, d),
+                                                  (b, s, kv, d)], dtype)
+    want = rL.flash_attention(q, k, v, scale=d ** -0.5, prefix_len=p)
+    got = ops.flash_attention(qt, kt, vt, prefix_len=p)
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, s, h, d)
+    _close(got, want.astype(jnp.float32), dtype)
+
+
+def test_prefix_of_the_whole_sequence_is_full_attention():
+    """P >= S opens every pair: the causal call with the prefix equals the
+    non-causal one bitwise; P = 0 is plain causal attention."""
+    _, (qt, kt, vt) = _inputs(11, [(2, 50, 4, 32), (2, 50, 2, 32),
+                                   (2, 50, 2, 32)], "float32")
+    full = ops.flash_attention(qt, kt, vt, causal=False)
+    for p in (50, 51, 1000):
+        assert torch.equal(ops.flash_attention(qt, kt, vt, prefix_len=p),
+                           full)
+    assert torch.equal(ops.flash_attention(qt, kt, vt, prefix_len=0),
+                       ops.flash_attention(qt, kt, vt))
+
+
+def test_prefix_needs_causal_attention_over_its_own_keys():
+    q, k = torch.zeros((1, 16, 2, 16)), torch.zeros((1, 24, 2, 16))
+    for fn in (ops.flash_attention, k3.flash_attention,
+               k3.flash_attention_plain, k3.flash_attention_fwd):
+        with pytest.raises(ValueError, match="prefix"):
+            fn(q, q, q, causal=False, prefix_len=3)
+        with pytest.raises(ValueError, match="causal"):
+            fn(q, k, k, prefix_len=3)
+        with pytest.raises(ValueError, match="prefix"):
+            fn(q, q, q, prefix_len=-1)
+    with pytest.raises(ValueError, match="prefix"):
+        k3.fwd_work(1, 16, 2, 2, 16, 16, False, F32, prefix=3)
+
+
+@pytest.mark.parametrize("s,p", [(1, 0), (1, 1), (40, 0), (40, 1), (40, 7),
+                                 (40, 40), (40, 90), (300, 77), (4096, 256)])
+def test_pairs_count_the_visible_pairs(s, p):
+    """``_pairs`` (and so ``fwd_work`` and ``bwd_work``, the census's K3
+    entries) counts the pairs of the mask: S(S+1)/2 causal pairs plus
+    P(P-1)/2 opened above the diagonal, against a brute-force count."""
+    if s <= 300:
+        i = np.arange(s)[:, None]
+        j = np.arange(s)[None, :]
+        want = int(((j <= i) | (j < p)).sum())
+    else:
+        want = 8_423_296                 # paligemma: 256 patches + 3,840
+    assert k3._pairs(s, True, prefix=p) == want
+    b, h, kv, d = 2, 8, 1, 256
+    assert k3.fwd_work(b, s, h, kv, d, d, True, BF16, prefix=p)[0] == \
+        4 * d * b * h * want
+    assert k3.bwd_work(b, s, h, kv, d, d, True, BF16, prefix=p)[0] == \
+        10 * d * b * h * want
+    # the bytes do not depend on the mask
+    assert k3.fwd_work(b, s, h, kv, d, d, True, BF16, prefix=p)[1] == \
+        k3.fwd_work(b, s, h, kv, d, d, True, BF16)[1]
+
+
+@pytest.mark.parametrize("dtype,variant", [(BF16, k3.MMA), (F32, k3.F32)])
+def test_plan_routes_head_dim_256(dtype, variant):
+    """paligemma's shape, hd = hv = 256: bf16 on ``mma.sync`` (the ``wgmma``
+    kernel's tiles do not fit 227 KB at 256), float32 on the CUDA cores; 64
+    query rows a block, one block a (b * h, q-block); the prefix does not
+    change the plan."""
+    p = k3.plan(1, 4096, 8, 1, 256, 256, dtype)
+    assert (p.variant, p.block_q, p.block_k, p.grid) == (variant, 64, 64,
+                                                         (8, 64))
+    q = torch.zeros((1, 4096, 8, 256), dtype=dtype)
+    k = torch.zeros((1, 4096, 1, 256), dtype=dtype)
+    assert k3.plan_for(q, k, k) == p
+
+
+def test_head_dim_256_only_with_an_equal_value_width():
+    """The kernels take head dim 256 only with hd == hv (the model shape);
+    the wrapper refuses the rest before any launch -- here on the meta
+    device, where the plan's route runs without a card."""
+    for hd, hv in ((256, 64), (64, 256), (192, 192)):
+        q = torch.zeros((1, 8, 2, hd), device="meta")
+        v = torch.zeros((1, 8, 2, hv), device="meta")
+        with pytest.raises(ValueError, match="head dims"):
+            k3.flash_attention(q, q, v)
+    q = torch.zeros((1, 8, 2, 256), device="meta")
+    assert tuple(k3.flash_attention(q, q, q, prefix_len=4).shape) == \
+        (1, 8, 2, 256)
+
+
+def test_cuda_sources_take_the_prefix():
+    """Every forward and backward C entry point takes ``int prefix`` after
+    ``causal``; every kernel's mask goes through ``hidden`` and its
+    horizon through ``causal_end``."""
+    for source, names in ((k3.SOURCE, list(k3.FWD_VARIANTS)
+                           + [v + "_lse" for v in k3.FWD_VARIANTS]),
+                          (k3.BWD_SOURCE, list(k3.BWD_VARIANTS))):
+        src = (build.CSRC_DIR / source).read_text()
+        for name in names:
+            m = re.search(rf"\nint {name}\(([^)]*)\)", src)
+            assert m and re.search(r"int causal, int prefix,", " ".join(
+                m[1].split())), name
+        assert "int prefix;" in src and "causal_end(p, " in src
+        code = re.sub(r"//[^\n]*", "", src)
+        assert not re.search(r"causal && key > row\)", code)

@@ -130,7 +130,8 @@ def test_autograd_on_the_cpu_reaches_the_plain_backward(monkeypatch):
     o = ops.flash_attention(qg, kg, vg, scale=0.2)
     assert o.grad_fn is not None and "FlashAttention" in type(o.grad_fn).__name__
     o.backward(do)
-    assert len(calls) == 1 and calls[0] == {"causal": True, "scale": 0.2}
+    assert len(calls) == 1 and calls[0] == {"causal": True, "prefix_len": 0,
+                                            "scale": 0.2}
     o2, lse = k3.flash_attention_fwd(q, k, v, scale=0.2)
     want = real(do, q, k, v, o2, lse, scale=0.2)
     for t, w in zip((qg, kg, vg), want):
@@ -302,7 +303,7 @@ def test_bwd_source_adds_no_float_atomics_to_its_outputs():
         assert word not in code, word
 
 
-@pytest.mark.parametrize("hd", [16, 32, 256])
+@pytest.mark.parametrize("hd", [16, 32, 192])
 def test_plan_bwd_refuses_other_head_dims(hd):
     with pytest.raises(ValueError):
         k3.plan_bwd(1, 128, 2, 2, hd, BF16)
@@ -593,3 +594,166 @@ def test_cross_length_plans_cover_both_lengths(b, sq, sk, h, kv):
     assert f.grid_dkdv == (b * h * -(-sk // 64), 1)
     assert k3.plan_bwd(b, sq, h, kv, 64, BF16, False, sk=sq) is \
         k3.plan_bwd(b, sq, h, kv, 64, BF16, False)
+
+
+# --- the bidirectional prefix and head dim 256 (paligemma) -----------------------
+
+# (B, S, H, KV, d): MQA and GQA at head dims 16, 64 and 256; S within the
+# reference's first chunk, where its XLA attention is the exact prefix mask
+PREFIX_SHAPES = [(2, 40, 4, 1, 16), (1, 72, 4, 2, 64), (1, 36, 2, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", PREFIX_SHAPES)
+@pytest.mark.parametrize("prefix", ["0", "1", "7", "S"])
+def test_prefix_backward_matches_jax_vjp_of_the_reference(shape, prefix):
+    """The plain forward (with its log-sum-exp) and backward with
+    ``prefix_len`` P against ``jax.vjp`` of the reference's XLA attention
+    with the same prefix, float32: each gradient within 1e-5 of its
+    scale."""
+    b, s, h, kv, d = shape
+    p = s if prefix == "S" else int(prefix)
+    q, k, v, do = _draw(s + d + p, b, s, h, kv, d)
+    scale = d ** -0.5
+
+    def attn(q, k, v):
+        return rL.flash_attention(q, k, v, scale=scale, prefix_len=p)
+
+    o_ref, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), prefix_len=p,
+                                    scale=scale)
+    assert _rel(o, o_ref) <= TOL
+    got = k3.flash_attention_bwd(_t(do), _t(q), _t(k), _t(v), o, lse,
+                                 prefix_len=p, scale=scale)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel(g, w) <= TOL, name
+
+
+def test_prefix_reaches_the_backward_through_autograd():
+    """``ops.flash_attention(..., prefix_len=P)`` under autograd carries P
+    to ``flash_attention_bwd``: the gradients equal the plain backward's
+    with P, and differ from the plain causal ones."""
+    q, k, v, do = (_t(a) for a in _draw(12, 1, 30, 4, 1, 16))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.flash_attention(qg, kg, vg, prefix_len=9).backward(do)
+    o, lse = k3.flash_attention_fwd(q, k, v, prefix_len=9)
+    want = k3.flash_attention_bwd_plain(do, q, k, v, o, lse, prefix_len=9)
+    for t, w in zip((qg, kg, vg), want):
+        assert torch.equal(t.grad, w)
+    o0, lse0 = k3.flash_attention_fwd(q, k, v)
+    causal = k3.flash_attention_bwd_plain(do, q, k, v, o0, lse0)
+    assert not torch.equal(causal[1], want[1])
+
+
+@pytest.mark.parametrize("s,p", [(300, 77), (300, 128), (300, 300),
+                                 (1000, 256), (64, 1), (130, 129)])
+def test_bwd_item_work_with_a_prefix_counts_the_tiles_of_the_mask(s, p):
+    """With a prefix, each bf16 item walks the tiles a brute-force mask
+    says it must: a dQ item's keys up to its rows' last visible key (the
+    prefix's last where that lies further), a dK / dV item's q tiles from
+    the first row that sees one of its keys (row 0 for an item that holds
+    a key of the prefix)."""
+    b, h, kv = 1, 4, 2
+    dq, dkdv = k3.bwd_item_work(b, s, h, kv, True, prefix=p)
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    seen = (j <= i) | (j < p)
+    rows, step = k3.BWD_ROWS, k3.BWD_STEP
+    nq = -(-s // rows)
+    want_dq = [-(-(int(np.nonzero(seen[qb * rows:(qb + 1) * rows].any(0))[0]
+                               .max()) + 1) // step) + 1 for qb in range(nq)]
+    nstep = -(-s // step)
+    want_kv = []
+    for kb in range(nq):
+        first = int(np.nonzero(seen[:, kb * rows:(kb + 1) * rows].any(1))[0]
+                    .min())
+        want_kv.append((h // kv) * (nstep - first // step) + 1)
+    assert dq == want_dq * (b * h) and dkdv == want_kv * (b * kv)
+    assert k3.bwd_item_work(b, s, h, kv, True, prefix=0) == \
+        k3.bwd_item_work(b, s, h, kv, True)
+
+
+@pytest.mark.parametrize("dtype,variant,smem", [
+    # bf16: the TF32 kernels with bf16 tiles in shared memory, one TF32
+    # product a product; float32: 3xTF32; items of 64 rows or keys, 16-row
+    # steps, one block an item (paligemma B=1 S=4096 H=8: 512 of each)
+    (BF16, k3.BWD_BF16_MMA, (101376, 107776)),
+    (F32, k3.BWD_F32, (199680, 206080)),
+])
+def test_plan_bwd_of_head_dim_256(dtype, variant, smem):
+    p = k3.plan_bwd(1, 4096, 8, 1, 256, dtype, True, k3.H100_SMS, None, 256)
+    assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
+            p.grid_dq, p.grid_dkdv, p.smem) == (
+        variant, 64, 64, 16, 16, (2, 2), (512, 1), (512, 1), smem)
+    assert max(p.smem) <= SMEM_LIMIT
+    assert not p.schedule_dq and not p.schedule_dkdv
+    assert k3.bwd_variant(dtype, 256) == variant
+    # the prefix moves the wgmma schedule's work, not the TF32 grids
+    assert k3.plan_bwd(1, 4096, 8, 1, 256, dtype) == p
+
+
+def test_tf32_smem_matches_the_source_layout():
+    """``_f32_bwd_smem`` mirrors ``f32_dq_smem_bytes`` / ``f32_dkdv_smem_
+    bytes``: rows of hd elements and 16 bytes, float32 lse, D and P^T; and
+    the source gives the dK / dV kernel one block an SM at hd 256."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    assert re.search(r"f32_kv_blocks\(\) {\s*return D == 256 \? 1 : 2;", src)
+    assert re.search(r"row_ld\(\) {\s*return D \+ 16 / \(int\)sizeof\(T\);",
+                     src)
+    for hd in (64, 128, 256):
+        dq, dkdv = k3._f32_bwd_smem(hd)
+        row, st = hd * 4 + 16, k3._f32_step(hd)
+        assert dq == (2 * 64 + 2 * 2 * st) * row
+        assert dkdv == 2 * 64 * row + 64 * (st + 8) * 4 + 2 * (2 * st * row
+                                                                + 2 * st * 4)
+    assert k3._f32_bwd_smem(256, 2) == (101376, 107776)
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,p", [
+    (1, 80, 4, 1, True, 24),        # MQA with a prefix
+    (1, 96, 4, 2, True, 0),         # GQA, plain causal
+    (1, 64, 2, 2, False, 0),        # not causal
+])
+def test_one_pass_tf32_bf16_backward_holds_the_bf16_gate(b, s, h, kv, causal,
+                                                         p):
+    """The bf16 kernels at hd 256 (``flash_attention_bwd_bf16_mma``): every
+    product ONE TF32 ``mma.sync`` -- bf16 q, k, v, dO exact in TF32, P and
+    dS rounded to TF32 once -- emulated in numpy on bf16 inputs: dq, dk and
+    dv within the bf16 gate (2e-2 of scale) of the float32 plain backward,
+    and within 1e-2."""
+    d = 256
+    q, k, v, do = (a.astype(np.float32) for a in _draw(s + p, b, s, h, kv, d))
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                   for a in (q, k, v, do))
+    scale = d ** -0.5
+    o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
+                                    prefix_len=p, scale=scale)
+    o = o.to(torch.bfloat16).float()
+    plain = k3.flash_attention_bwd_plain(_t(do), _t(q), _t(k), _t(v), o, lse,
+                                         causal=causal, prefix_len=p,
+                                         scale=scale)
+    g = h // kv
+    heads = lambda t: np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+    qh, doh = heads(q), heads(do)
+    kh, vh = heads(k)[:, np.arange(h) // g], heads(v)[:, np.arange(h) // g]
+    dd = heads((do * o.numpy()).sum(-1, dtype=np.float32)[..., None])[..., 0]
+    one = lambda a, c: np.matmul(_tf32(a), _tf32(c))   # noqa: E731
+    sc = one(qh, kh.swapaxes(-1, -2))
+    pm = np.exp(sc * np.float32(scale) - lse.numpy()[..., None])
+    if causal:
+        i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+        pm = np.where((j <= i) | (j < p), pm, np.float32(0))
+    ds = pm * (one(doh, vh.swapaxes(-1, -2)) - dd[..., None])
+    got = [one(ds, kh) * np.float32(scale),
+           one(ds.swapaxes(-1, -2), qh) * np.float32(scale),
+           one(pm.swapaxes(-1, -2), doh)]
+    for i, name in enumerate(("dq", "dk", "dv")):
+        x = got[i]
+        if i:       # dK, dV: the group's heads summed
+            x = x.reshape(b, kv, g, s, d).sum(2)
+            x = x.transpose(0, 2, 1, 3)
+        else:
+            x = x.transpose(0, 2, 1, 3)
+        assert _rel(torch.from_numpy(np.ascontiguousarray(x)),
+                    plain[i].numpy()) <= 1e-2, name

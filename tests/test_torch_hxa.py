@@ -72,13 +72,20 @@ TINY = {"stablelm_1_6b": dict(num_layers=2, d_model=128, num_heads=4,
         "whisper_small": dict(num_layers=2, d_model=128, num_heads=2,
                               num_kv_heads=2, head_dim=64, d_ff=256,
                               vocab_size=256, dtype="float32",
-                              num_frames=32)}
-SEQ = {"stablelm_1_6b": 64, "mamba2_130m": 128, "whisper_small": 64}
+                              num_frames=32),
+        # 8 patches and 56 text tokens, one kv head of 32 (a head dim K3
+        # takes off the CPU, the meta device included)
+        "paligemma_3b": dict(num_layers=2, d_model=128, num_heads=4,
+                             num_kv_heads=1, head_dim=32, d_ff=256,
+                             vocab_size=256)}
+SEQ = {"stablelm_1_6b": 64, "mamba2_130m": 128, "whisper_small": 64,
+       "paligemma_3b": 64}
 B = 2
 FLOP_TOL = 0.05
 DOTS_TOL = 1e-9
 # the port's compute bytes over HxA's once the three known gaps are taken
-# out (readings: stablelm 0.857, mamba2 1.015, whisper 0.838); a census
+# out (readings: stablelm 0.857, mamba2 1.015, whisper 0.838, paligemma
+# 0.813); a census
 # that counted every operand twice would read 1.57 and 2.03
 HBM_BAND = (0.8, 1.2)
 # HLO opcodes that only move or lay out data: XLA materialises them where the
@@ -142,7 +149,11 @@ def _reference_prefill_text(name: str) -> str:
         m = rapi.build_model(rcfg)
         params = jax.eval_shape(lambda: m.init(jax.random.PRNGKey(0),
                                                SEQ[name]))
-        batch = {"tokens": jax.ShapeDtypeStruct((B, SEQ[name]), jnp.int32)}
+        text = SEQ[name] - rcfg.num_patches
+        batch = {"tokens": jax.ShapeDtypeStruct((B, text), jnp.int32)}
+        if rcfg.family == "vlm":
+            batch["prefix_embeds"] = jax.ShapeDtypeStruct(
+                (B, rcfg.num_patches, rcfg.d_model), jnp.bfloat16)
         if rcfg.family == "audio":
             batch["frames"] = jax.ShapeDtypeStruct(
                 (B, rcfg.num_frames, rcfg.d_model), jnp.bfloat16)
@@ -265,14 +276,16 @@ def test_census_flops_within_5pct_of_hxa(name):
     cfg = _port_cfg(name)
     s = SEQ[name]
     kernel_flops = sum(v["flops"] for v in got["kernels"].values())
-    # gap 1: the port's K3 books causal pairs, XLA computes the full square
+    # gap 1: the port's K3 books causal pairs (and those a bidirectional
+    # prefix opens: paligemma's patches), XLA computes the full square
     # (whisper's encoder and cross attention are not causal: no gap there)
     causal_gap = 0.0
     if cfg.num_heads and cfg.family != "ssm":
         per_pair = 2 * cfg.head_dim + 2 * cfg.head_dim
+        visible = k3._pairs(s, True, prefix=cfg.num_patches)
         causal_gap = per_pair * B * cfg.num_heads * cfg.num_layers * (
-            s * s - s * (s + 1) // 2)
-        pairs = cfg.num_layers * s * (s + 1) // 2
+            s * s - visible)
+        pairs = cfg.num_layers * visible
         if cfg.family == "audio":
             f = cfg.num_frames
             pairs += cfg.encoder_layers * f * f + cfg.num_layers * s * f

@@ -347,7 +347,8 @@ def test_build_model_dense_api():
 
 
 @pytest.mark.parametrize("name,replace", [
-    ("deepseek_v3_671b", {}), ("deepseek_v2_236b", {}), ("paligemma_3b", {}),
+    ("deepseek_v3_671b", {}), ("deepseek_v2_236b", {}),
+    ("paligemma_3b", {"num_experts": 8}),
     ("stablelm_1_6b", {"num_experts": 8}),
     ("stablelm_1_6b", {"attn_type": "mla"}),
     ("stablelm_1_6b", {"mtp_depth": 1}),
@@ -359,8 +360,23 @@ def test_moe_mla_and_vlm_raise(name, replace):
 
 
 def test_bidirectional_prefix_raises():
-    _, cfg, _, model, toks, _ = _case("stablelm_1_6b", "float32")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="12e"):
-        L.attention_prefill(model.layers[0].attn, cfg, x,
-                            torch.arange(4)[None], prefix_len=2)
+    """A bidirectional prefix opens the causal mask: ``attention_prefill``
+    takes it (the reference's ``attention_prefill(..., prefix_len)``), and
+    K3 refuses it on a call that is not causal or whose keys are not the
+    queries' own."""
+    rcfg, cfg, params, model, _, _ = _case("stablelm_1_6b", "float32")
+    x = np.random.default_rng(3).normal(size=(1, 6, cfg.d_model)).astype(
+        np.float32)
+    lp = jax.tree_util.tree_map(lambda a: a[0], params["layers"])
+    want, (wk, _) = rL.attention_prefill(lp["attn"], rcfg, jnp.asarray(x),
+                                        jnp.arange(6)[None], prefix_len=4)
+    got, (k, _) = L.attention_prefill(model.layers[0].attn, cfg,
+                                      torch.from_numpy(x),
+                                      torch.arange(6)[None], prefix_len=4)
+    assert _rel(got, want) < LOGIT_TOL["float32"]
+    assert _rel(k, wk) < CACHE_TOL["float32"]
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="prefix"):
+        k3.flash_attention(q, q, q, causal=False, prefix_len=2)
+    with pytest.raises(ValueError, match="causal"):
+        k3.flash_attention(q, q[:, :3], q[:, :3], prefix_len=2)

@@ -324,9 +324,9 @@ def test_prefill_and_decode_go_through_the_kernel_entries(monkeypatch):
     calls = []
     attn = k3.flash_attention
 
-    def spy_attn(q, k, v, *, causal, scale):
+    def spy_attn(q, k, v, *, causal, scale, **kw):
         calls.append((q.shape[1], k.shape[1], causal))
-        return attn(q, k, v, causal=causal, scale=scale)
+        return attn(q, k, v, causal=causal, scale=scale, **kw)
 
     monkeypatch.setattr(k3, "flash_attention", spy_attn)
     _, cache = _prefill(model, toks, frames)
