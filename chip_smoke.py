@@ -418,7 +418,7 @@ def phase_build() -> dict:
             if K3_D256_INSTANCE in r["kernel"]]
     if len(d256) != 4 or any(r["spill_stores"] or r["spill_loads"]
                              for r in d256):
-        raise AssertionError(f"K3's head-dim-256 instances (mma.sync and "
+        raise AssertionError(f"K3's head-dim-256 instances (bf16 wgmma and "
                              f"float32, with and without the LSE) spill (or "
                              f"are missing from the ptxas report): {d256}")
     out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
@@ -428,9 +428,10 @@ def phase_build() -> dict:
     if len(bwd) != BWD_TC_INSTANCES or any(
             r["spill_stores"] or r["spill_loads"] for r in bwd):
         raise AssertionError(f"K3's backward kernels (dQ and dK / dV: bf16 "
-                             f"wgmma at hd 64 and 128, float32 at 64, 128 "
-                             f"and 256, bf16 TF32 at 256) spill (or are "
-                             f"missing from the ptxas report): {bwd}")
+                             f"wgmma at hd 64, 128 and 256 -- the split dK "
+                             f"/ dV kernel at 256 --, float32 at 64, 128 "
+                             f"and 256) spill (or are missing from the "
+                             f"ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
              if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
@@ -2800,20 +2801,13 @@ FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128))
 # K3's profiler symbols: every K3 kernel's name starts with one per dtype
 K3_SYMBOL = {torch.bfloat16: "flash_bf16_", torch.float32: "flash_f32_"}
 K3_TC_KERNEL = "flash_bf16_tc_kernel"
-# the mangled <256, 256> of K3's head-dim-256 instances (mma.sync bf16 and
-# float32, each with and without the LSE): no spills allowed
-K3_D256_INSTANCE = "kernelILi256ELi256E"
-# the variant each dtype takes on the main path (every model shape): bf16
-# on wgmma at head dims 64 and 128, on mma.sync at 256 (paligemma)
+# the mangled <256, ...> of K3's head-dim-256 instances (bf16 wgmma
+# <256, false|true> and float32 <256, 256, false|true>): no spills allowed
+K3_D256_INSTANCE = "kernelILi256E"
+# the variant each dtype takes on the main path (every model shape, head
+# dims 64, 128 and paligemma's 256): bf16 on wgmma, float32 on the CUDA
+# cores
 K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
-
-
-def k3_main(dtype, hd: int) -> str:
-    """The forward variant a model shape of ``dtype`` and head dim ``hd``
-    takes."""
-    if dtype == torch.bfloat16 and hd not in k3.TC_HEAD_DIMS:
-        return k3.MMA
-    return K3_MAIN[dtype]
 
 
 def flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk=None,
@@ -2863,9 +2857,9 @@ def flash_case(gen, device, case, dtype) -> dict:
     v = torch.randn((b, sk, kv, hv), generator=gen, device=device).to(dtype)
     plan = k3.plan_for(q, k, v)
     if name.startswith(FLASH_MODEL_CASES + ("short",)) and \
-            plan.variant != k3_main(dtype, hd):
+            plan.variant != K3_MAIN[dtype]:
         raise AssertionError(f"K3 {name} {dtype} planned {plan.variant}, "
-                             f"not {k3_main(dtype, hd)}")
+                             f"not {K3_MAIN[dtype]}")
     kw = dict(causal=causal, prefix_len=pre)
     o = k3.flash_attention(q, k, v, **kw)
     again = k3.flash_attention(q, k, v, **kw)
@@ -3282,45 +3276,49 @@ def phase_transformer(device, seed: int) -> dict:
 
 
 def flash_rows(rows, lm, training, zb, wb, pb) -> list:
-    """K3's rows, one a variant: times at the main path's headline shape
-    alone (bf16 wgmma and float32: stablelm B=1 S=4096; bf16 mma.sync:
-    paligemma B=1 S=4096 at head dim 256 with its prefix), every other
-    model shape of the variant beside it, and K3 and SDPA inside the
-    prefills.  Launches: the prefill paths' (``transformer``, ``zamba2``: a
-    site a prefill, ``whisper``: 36 a prefill, ``paligemma``: 18 a
-    prefill) and the training paths' (the forward that also writes the
-    log-sum-exp: (a), zamba2's (i), whisper's (l) and paligemma's (o) in
-    bf16, (b), (j), (m) and (p) in float32), each counted from zero around
-    its own run."""
+    """K3's rows: the bf16 wgmma kernel's instances at head dims 64 and 128
+    (stablelm B=1 S=4096 alone), its head-dim-256 instances (64-key kv
+    tiles: paligemma B=1 S=4096 with its prefix) and the float32 kernel
+    (stablelm B=1 S=4096), every other model shape of the row beside it,
+    and K3 and SDPA inside the prefills.  Launches: the prefill paths'
+    (``transformer``, ``zamba2``: a site a prefill, ``whisper``: 36 a
+    prefill, ``paligemma``: 18 a prefill) and the training paths' (the
+    forward that also writes the log-sum-exp: (a), zamba2's (i), whisper's
+    (l) and paligemma's (o) in bf16, (b), (j), (m) and (p) in float32),
+    each counted from zero around its own run; the bf16 rows split them by
+    the head dim each path runs (paligemma's 256, the others' 64 or 128)."""
     out = []
-    heads = ((torch.bfloat16, k3.TC, FLASH_HEADLINE),
-             (torch.bfloat16, k3.MMA, "paligemma_b1_s4096"),
-             (torch.float32, k3.F32, FLASH_HEADLINE))
-    train_path = {torch.bfloat16: ("a_full", "i_zamba2_full",
-                                   "l_whisper_full", "o_paligemma_full"),
-                  torch.float32: ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
-                                  "m_whisper_card_vs_cpu",
-                                  "p_paligemma_card_vs_cpu")}
-    # (key, phase, (run, dtype) of each of the phase's runs)
-    prefill = (("in_prefill", lm, [(r[0], r[3]) for r in LM_RUNS]),
-               ("in_zamba2_prefill", zb, [(r[0], r[2]) for r in ZAMBA_RUNS]),
-               ("in_whisper_prefill", wb,
-                [(r[0], r[2]) for r in WHISPER_RUNS]),
-               ("in_paligemma_prefill", pb,
-                [(r[0], r[2]) for r in PALI_RUNS]))
-    for dtype, name, headline in heads:
+    # (path, phase, (run, dtype) of each of the phase's runs)
+    prefill = (("prefill", lm, [(r[0], r[3]) for r in LM_RUNS]),
+               ("zamba2_prefill", zb, [(r[0], r[2]) for r in ZAMBA_RUNS]),
+               ("whisper_prefill", wb, [(r[0], r[2]) for r in WHISPER_RUNS]),
+               ("paligemma_prefill", pb, [(r[0], r[2]) for r in PALI_RUNS]))
+    # (dtype, variant, row name, headline case, head dims, prefill paths,
+    # training paths)
+    heads = ((torch.bfloat16, k3.TC, k3.TC, FLASH_HEADLINE, (64, 128),
+              ("prefill", "zamba2_prefill", "whisper_prefill"),
+              ("a_full", "i_zamba2_full", "l_whisper_full")),
+             (torch.bfloat16, k3.TC, k3.TC + "_hd256", "paligemma_b1_s4096",
+              (256,), ("paligemma_prefill",), ("o_paligemma_full",)),
+             (torch.float32, k3.F32, k3.F32, FLASH_HEADLINE,
+              (32, 64, 128, 256),
+              ("prefill", "zamba2_prefill", "whisper_prefill",
+               "paligemma_prefill"),
+              ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
+               "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu")))
+    for dtype, variant, name, headline, dims, pre_paths, train_paths in heads:
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == headline)
         mine = [r for (d, _), r in rows.items()
-                if d == dtype and r["plan"]["variant"] == name]
-        by_path = {"prefill": lm["launches"].get(name, 0),
-                   "zamba2_prefill": zb["launches"].get(name, 0),
-                   "whisper_prefill": wb["launches"].get(name, 0),
-                   "paligemma_prefill": pb["launches"].get(name, 0)}
+                if d == dtype and r["plan"]["variant"] == variant
+                and r["hd"] in dims]
+        by_path = {path: phase["launches"].get(variant, 0)
+                   for path, phase, _ in prefill if path in pre_paths}
         by_path.update({f"training_{path}": training[path]["launches"]
-                        .get(name, 0) for path in train_path[dtype]})
+                        .get(variant, 0) for path in train_paths})
         row = {
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name, "variant": variant, "head_dims": list(dims),
+            "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES["flash_attention"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -3337,9 +3335,9 @@ def flash_rows(rows, lm, training, zb, wb, pb) -> list:
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")} for r in mine
                 if r["case"].startswith(FLASH_MODEL_CASES)]}
-        for key, phase, runs in prefill:
-            if phase["launches"].get(name, 0):
-                row[key] = {run: {
+        for path, phase, runs in prefill:
+            if path in pre_paths and phase["launches"].get(variant, 0):
+                row["in_" + path] = {run: {
                     "k3_device_ms": phase["perf"][run]["k3_device_ms"],
                     "sdpa_device_ms":
                         phase["perf"][run]["sdpa_calls_device_ms"],
@@ -4472,8 +4470,8 @@ def phase_paligemma(device, seed: int) -> dict:
     """The main path: paligemma-3b serving.  Counts are zeroed just before
     the three runs' prefills and decode steps and read just after: K3 once
     a layer per prefill, over the 256 patches and the text with the
-    patches' bidirectional prefix (the ``mma.sync`` variant at head dim 256
-    in bf16), never in decode.  Then each prefill is held against the same
+    patches' bidirectional prefix (the ``wgmma`` variant's head-dim-256
+    instance in bf16), never in decode.  Then each prefill is held against the same
     prefill with K3 swapped for its plain version (logits, top-1, the
     cache), the first decode step after it, the float32 run also against
     the CPU, and each run is timed and profiled, with SDPA (the prefix as a
@@ -4503,7 +4501,7 @@ def phase_paligemma(device, seed: int) -> dict:
     want_launches = [models[(d, t)].cfg.num_layers
                      for _, d, t, _, _, _ in PALI_RUNS]
     if per_prefill != want_launches or any(decode_launches.values()) or \
-            set(launches) != {k3.MMA, k3.F32}:
+            set(launches) != {k3.TC, k3.F32}:
         raise AssertionError(f"K3 launches per prefill {per_prefill} "
                              f"(expected {want_launches}), in decode "
                              f"{decode_launches} (expected 0), by variant "
@@ -4728,13 +4726,15 @@ BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
 BWD_HEADLINE = "stablelm_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
-# the head-dim-256 case each dtype's row of the bf16 TF32 backward reports
+# the case the bf16 backward's head-dim-256 row reports (paligemma)
 BWD_D256_HEADLINE = "paligemma_b1_s4096"
-# the backward's tensor-core kernels, bf16 (wgmma, hd 64 and 128), float32
-# (3xTF32 on mma.sync, hd 64, 128 and 256) and bf16 at hd 256 (the TF32
-# kernels with bf16 tiles): 12 instances, ptxas must report no spills
+# the backward's tensor-core kernels, bf16 (wgmma: dQ at hd 64, 128 and
+# 256, dK / dV at 64 and 128, the split dK / dV kernel at 256) and float32
+# (3xTF32 on mma.sync, hd 64, 128 and 256): 12 instances, ptxas must
+# report no spills
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_tc_kernel",
+                  "flash_bwd_dkdv_bf16_split_kernel",
                   "flash_bwd_dq_f32_tc_kernel",
                   "flash_bwd_dkdv_f32_tc_kernel")
 BWD_TC_INSTANCES = 12
@@ -4748,7 +4748,7 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
     dQ, dK): 2 B H pairs 5 d operations, 2.5 times the forward's, at the
     dtype's peak.  float32 also gets ``units_bound_ms``: the same work at
     the rate of the units the kernels run it on, 3xTF32 on the TF32 tensor
-    cores (495 / 3 TFLOP/s); bf16 at head dim 256 one TF32 pass (495)."""
+    cores (495 / 3 TFLOP/s)."""
     ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype, sk=sk,
                               prefix=prefix)
     # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
@@ -4758,10 +4758,6 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
     if dtype == torch.float32:
         out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
                                     ops / (TF32_FLOPS / 3)) * 1e3
-    elif d not in k3.TC_HEAD_DIMS:
-        # bf16 at head dim 256: one TF32 product a product
-        out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
-                                    ops / TF32_FLOPS) * 1e3
     return out
 
 
@@ -5782,8 +5778,8 @@ def train_paligemma_full(device, seed: int) -> dict:
     cfg = state.params.cfg
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"paligemma training losses {losses}")
-    want = {k3.MMA: 2 * cfg.num_layers * TRAIN_STEPS,
-            k3.BWD_BF16_MMA: cfg.num_layers * TRAIN_STEPS}
+    want = {k3.TC: 2 * cfg.num_layers * TRAIN_STEPS,
+            k3.BWD_BF16: cfg.num_layers * TRAIN_STEPS}
     if cfg.remat != "dots" or launches != want:
         raise AssertionError(f"K3 launches in paligemma training "
                              f"{launches}, expected {want} (remat "
@@ -5997,46 +5993,49 @@ def phase_training(device, seed: int) -> dict:
 
 
 def bwd_rows(training, ptxas) -> list:
-    """K3 backward's rows, one a variant: the bf16 wgmma and the float32
-    kernels at the stablelm B=1 S=4096 shape, the bf16 TF32 kernels at
-    paligemma's (B=1 S=4096, 8 heads of 256, one kv head, prefix 256), the
-    other shapes of the variant beside each; launches from the training
-    paths ((a), zamba2's (i), whisper's (l) and paligemma's (o) bf16, (b),
-    (j), (m) and (p) float32)."""
+    """K3 backward's rows: the bf16 wgmma kernels at head dims 64 and 128
+    (stablelm B=1 S=4096), at head dim 256 (the dQ kernel's 256 instance
+    and the split dK / dV kernel: paligemma's B=1 S=4096, 8 heads of 256,
+    one kv head, prefix 256) and the float32 kernels (stablelm), the other
+    shapes of the row beside each; launches from the training paths ((a),
+    zamba2's (i), whisper's (l) bf16 at 64 / 128, paligemma's (o) bf16 at
+    256, (b), (j), (m) and (p) float32)."""
     rows = []
-    bf16_paths = (("a_full", "i_zamba2_full", "l_whisper_full",
-                   "o_paligemma_full"),
-                  "training (a): stablelm-1.6b, 4 steps; (i): "
-                  "zamba2-1.2b, 4 steps, 6 sites; (l): whisper-small, 4 "
-                  "steps, 36 attentions; (o): paligemma-3b, 4 steps, 18 "
-                  "layers")
-    # (dtype, variant, headline case, paths, its kernels' ptxas names:
-    # the wgmma kernels, the TF32 kernels at T = bf16, at T = float)
-    heads = ((torch.bfloat16, k3.BWD_BF16, BWD_HEADLINE, bf16_paths,
-              "bf16_tc_kernel"),
-             (torch.bfloat16, k3.BWD_BF16_MMA, BWD_D256_HEADLINE,
-              bf16_paths, "kernelI13__nv_bfloat16"),
-             (torch.float32, k3.BWD_F32, BWD_HEADLINE,
-              (("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
-                "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu"),
-               "training (b): stablelm float32 depth 2, one step on the "
-               "card; (j): zamba2 float32 depth 7, one site, one step; "
-               "(m): whisper float32 2 + 2 layers, 6 attentions, one step; "
-               "(p): paligemma float32 depth 2, one step"),
-              "kernelIfLi"))
-    for dtype, name, headline, (path, what), tag in heads:
+    # (dtype, variant, row name, headline case, head dims, paths, what,
+    # its kernels' ptxas names)
+    heads = ((torch.bfloat16, k3.BWD_BF16, k3.BWD_BF16, BWD_HEADLINE,
+              (64, 128), ("a_full", "i_zamba2_full", "l_whisper_full"),
+              "training (a): stablelm-1.6b, 4 steps; (i): zamba2-1.2b, 4 "
+              "steps, 6 sites; (l): whisper-small, 4 steps, 36 attentions",
+              ("bf16_tc_kernelILi64E", "bf16_tc_kernelILi128E")),
+             (torch.bfloat16, k3.BWD_BF16, k3.BWD_BF16 + "_hd256",
+              BWD_D256_HEADLINE, (256,), ("o_paligemma_full",),
+              "training (o): paligemma-3b, 4 steps, 18 layers",
+              ("bf16_tc_kernelILi256E", "bf16_split_kernelILi256E",
+               "kernelI13__nv_bfloat16Li256E")),
+             (torch.float32, k3.BWD_F32, k3.BWD_F32, BWD_HEADLINE,
+              (64, 128, 256),
+              ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
+               "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu"),
+              "training (b): stablelm float32 depth 2, one step on the "
+              "card; (j): zamba2 float32 depth 7, one site, one step; "
+              "(m): whisper float32 2 + 2 layers, 6 attentions, one step; "
+              "(p): paligemma float32 depth 2, one step",
+              ("kernelIfLi",)))
+    for dtype, variant, name, headline, dims, path, what, tags in heads:
         cases = [r for r in training["d_k3_backward"]
                  if r["dtype"] == SUFFIX[dtype]
-                 and r["plan"]["variant"] == name]
+                 and r["plan"]["variant"] == variant and r["hd"] in dims]
         head = next(r for r in cases if r["case"] == headline)
         rows.append({
-            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "name": name, "variant": variant, "head_dims": list(dims),
+            "route": "cuda", "source": FLASH_BWD_SOURCE,
             "replaces": REPLACES["flash_attention"],
             "also_replaces": "src/repro/models/layers.py:96 (jax.vjp of the "
                              "XLA attention the reference trains through)",
-            "launches": sum(training[p]["launches"].get(name, 0)
+            "launches": sum(training[p]["launches"].get(variant, 0)
                             for p in path),
-            "launches_by_path": {p: training[p]["launches"].get(name, 0)
+            "launches_by_path": {p: training[p]["launches"].get(variant, 0)
                                  for p in path},
             "launches_from": what,
             "max_abs_err": max(r["max_abs_err"] for r in cases),
@@ -6055,7 +6054,7 @@ def bwd_rows(training, ptxas) -> list:
                 "bound_ms", "bound_by", "units_bound_ms", "library_ms",
                 "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
             "ptxas": [r for r in ptxas if BWD_SYMBOL in r["kernel"]
-                      and tag in r["kernel"]]})
+                      and any(tag in r["kernel"] for tag in tags)]})
     return rows
 
 
@@ -6272,10 +6271,10 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
         want = ({k3.TC: calls, k3.BWD_BF16: calls} if shape.kind == "train"
                 else {k3.TC: calls})
     elif cfg.family == "vlm":
-        # head dim 256: the mma.sync forward, the TF32 backward; remat
-        # "dots" recomputes the forward
-        want = ({k3.MMA: 2 * layers, k3.BWD_BF16_MMA: layers}
-                if shape.kind == "train" else {k3.MMA: layers})
+        # head dim 256 on the wgmma kernels; remat "dots" recomputes the
+        # forward
+        want = ({k3.TC: 2 * layers, k3.BWD_BF16: layers}
+                if shape.kind == "train" else {k3.TC: layers})
     else:
         want = ({k3.TC: layers, k3.BWD_BF16: layers}
                 if shape.kind == "train" else {k3.TC: layers})

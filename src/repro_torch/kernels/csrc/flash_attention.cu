@@ -68,36 +68,43 @@
 //   Variants (every kernel's name starts with flash_bf16_ or flash_f32_,
 //   the profiler's symbol for K3 in each dtype):
 //
-//   flash_bf16_tc_kernel<D>   bf16, hd == hv == D in {64, 128}, q, k, v
-//     16-byte aligned with strides of whole 16 bytes: every model shape.
+//   flash_bf16_tc_kernel<D>   bf16, hd == hv == D in {64, 128, 256}, q, k,
+//     v 16-byte aligned with strides of whole 16 bytes: every model shape.
 //     Persistent: one block an SM walks the tiles of 128 query rows of one
 //     (b, h), the heaviest first, in rounds whose block order alternates so
 //     that every block gets an even share of the work.  Block = 3
 //     warpgroups: warpgroup 0 loads, warpgroups 1 and 2 each own 64 rows of
 //     a tile.  Warp specialisation: the loader drops to 24 registers
 //     (setmaxnreg) and one of its threads issues every TMA copy; the
-//     consumers rise to 240, so an S tile of 64 floats, an O tile of D/2
+//     consumers rise to 240, so an S tile of BN/2 floats, an O tile of D/2
 //     floats and P's fragments stay in registers.
 //       Loads: TMA over 4-D tensor maps of q, k, v as they lie, dims
-//       (hd, heads, S, B), boxes of 64 x 1 x 128 x 1 in the 128-byte swizzle
-//       (a 128-byte box row is 64 bf16, so D = 128 takes two boxes a tile).
-//       A box never runs into the next sequence, and TMA's zero fill covers
-//       rows and keys past S.  K and V tiles of 128 keys go through a ring
-//       of tc_stages<D>() slots (3 at D = 64, 2 at D = 128; 2 to 6 ran
-//       alike at D = 64) with separate full / empty mbarriers for K and V,
+//       (hd, heads, S, B), boxes of 64 x 1 x rows x 1 in the 128-byte
+//       swizzle (a 128-byte box row is 64 bf16, so a tile of D columns is
+//       D / 64 boxes).  A box never runs into the next sequence, and TMA's
+//       zero fill covers rows and keys past S.  K and V tiles of BN =
+//       tc_bn<D>() keys (128 at D = 64 and 128, 64 at D = 256) go through a
+//       ring of tc_stages<D>() slots (3 at D = 64, 2 at D = 128 and 256; 2
+//       to 6 ran alike at D = 64) with separate full / empty mbarriers for K
+//       and V,
 //       so S = Q K^T on a tile starts before its V has landed.  The ring
 //       runs on from one tile of queries to the next, and Q has its own
 //       full / empty pair: the next tile's Q, K and V load while the
 //       consumers finish the last one.
-//       S = Q K^T: wgmma.m64n128k16, both operands from shared memory; K as
-//       stored is already the K-major B operand.
+//       S = Q K^T: wgmma.m64nBNk16, D / 16 steps, both operands from shared
+//       memory; K as stored is already the K-major B operand.
 //       O += P V: wgmma with A from registers.  The C fragments of two
 //       adjacent 8-key column groups of S are the A fragment of one 16-key
 //       step (the layout identity the mma.sync kernel uses), so P is
 //       rounded to bf16 in place and never touches shared memory.  V is the
 //       B operand in MN-major form (imm-trans-b = 1): 8-key groups 1 KB
-//       apart (SBO), 64-wide hv boxes 16 KB apart (LBO) -- K2 reads its HWIO
-//       weights the same way.
+//       apart (SBO), 64-wide hv boxes one box apart (LBO) -- K2 reads its
+//       HWIO weights the same way; at D = 256 one wgmma.m64n256k16, the
+//       widest, a 16-key step.
+//       Head dim 256 (paligemma): the O tile alone is 128 registers a
+//       thread, so kv tiles are 64 keys (S 32 registers, P 16): Q 64 KB, two
+//       K / V stages of 64 KB, 193 KB in all.  Per kv tile each consumer
+//       warpgroup does 16 m64n64k16 steps of S and 4 m64n256k16 of P V.
 //       Overlap: each consumer issues S of kv tile j and P V of tile j-1
 //       together and runs the softmax of tile j while P V is on the tensor
 //       cores; the two consumer warpgroups take turns to issue (named
@@ -107,24 +114,23 @@
 //       four lanes of a quad by shuffles, in four partials a row; 2^x by
 //       ex2.approx (MUFU); for scale > 0 the max is taken over the raw
 //       scores and scale * log2(e) folds into one FFMA before each exp2.
-//       The kv loop runs from the last visible tile down (the diagonal one,
-//       or the prefix's last where that lies further), so only its first
-//       tile (the diagonal, the prefix's end, a ragged end) is masked by
-//       position -- by selects, a branch between elements costs more than
-//       the softmax -- and every row sees a key in it: its first key lies at
-//       or before the row, or inside the prefix.
+//       Each warpgroup's kv loop runs from its rows' last visible tile down
+//       (the diagonal one, or the prefix's last where that lies further),
+//       so only its first tile (the diagonal, the prefix's end, a ragged
+//       end) is masked by position -- by selects, a branch between elements
+//       costs more than the softmax -- and every row sees a key in it: its
+//       first key lies at or before the row, or inside the prefix
+//       (tc_tiles_align).  With 64-key tiles under 128-row blocks the
+//       block's first tile can lie wholly above the lower warpgroup's rows:
+//       that warpgroup waits for it to land and releases it unread.
 //       Epilogue: O * (1 / max(l, 1e-30)) rounded to bf16x2 straight from
 //       the fragments, rows past S not written.
 //
 //   flash_bf16_mma_kernel<HD, HV>   the other bf16 shapes (hd or hv = 32,
-//     hv != hd, hd = hv = 256): mma.sync.aligned.m16n8k16 from
-//     ldmatrix fragments, four warps per 64-query block, each owning 16
-//     rows; K and V tiles of 64 keys double-buffered by cp.async in
-//     row-padded shared memory (169 KB at 256); P re-used from the S
-//     fragments as above.  At hd 256 a warp's 16 x 256 O tile alone takes
-//     128 float32 registers a thread, so Q's fragments are not held beside
-//     it: each k-step of S = Q K^T reads them from shared memory by
-//     ldmatrix (at 64 and 128 they stay in registers, as they were).
+//     hv != hd): mma.sync.aligned.m16n8k16 from ldmatrix fragments, four
+//     warps per 64-query block, each owning 16 rows; K and V tiles of 64
+//     keys double-buffered by cp.async in row-padded shared memory; P
+//     re-used from the S fragments as above.
 //
 //   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128} and hd =
 //     hv = 256.  The
@@ -142,12 +148,11 @@
 //     next tile loaded after this one's P V product (three barriers a
 //     tile).
 //
-//   Training: flash_bf16_tc_kernel<D, true> (D 64, 128),
-//   flash_bf16_mma_kernel<256, 256, true> and flash_f32_kernel<D, D, true>
-//   (D 64, 128, 256) (entry points *_lse) also write the row log-sum-exp
-//   of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale * q_i . k_j)),
-//   float32
-//   [B, H, S], from the final running max and sum -- what the backward
+//   Training: flash_bf16_tc_kernel<D, true> and flash_f32_kernel<D, D,
+//   true> (D 64, 128, 256) (entry points *_lse) also write the row
+//   log-sum-exp of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale *
+//   q_i . k_j)), float32 [B, H, S], from the final running max and sum --
+//   what the backward
 //   kernels (flash_attention_bwd.cu) recompute P from.  The <..., false>
 //   instances, prefill's, are the code they were.
 // ---------------------------------------------------------------------------
@@ -353,6 +358,46 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S[64 x 64] (=|+)= A[64 x 16] (K-major, descriptor da) * B[64 x 16]^T
+// (K-major, descriptor db); scale_d = 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (=|+)= Q K^T over a kv tile of N keys
+template <int N>
+__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da,
+                                        uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_s<64>(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  wgmma_ss_m64n64k16(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_s<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n128k16(d, da, db, scale_d);
+}
+
+// O += P V over D value columns
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -368,32 +413,58 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
                                               uint64_t db) {
   wgmma_rs_m64n128k16(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n256k16(d, a, db);
+}
 
 constexpr int kTcBM = 128;        // query rows per block
-constexpr int kTcBN = 128;        // keys per kv tile
-// kTcBN == kTcBM keeps every q-block's first kv tile (the diagonal one, or
-// the tile of the prefix's last key where that lies further) on a tile
-// boundary: only that tile is ever masked, and every row sees a key in it
-static_assert(kTcBN == kTcBM, "the first tile is the only masked one");
 constexpr int kTcThreads = 384;   // loader warpgroup + 2 consumer warpgroups
 constexpr int kTcConsumerWarps = 8;
-constexpr int kTcBoxBytes = 128 * 128;  // one box: 128 rows of 128 bytes
+
+// keys per kv tile: 128 at D = 64 and 128; 64 at D = 256, where S of 128
+// keys (64 registers a thread) does not fit beside O's 128
+template <int D>
+__host__ __device__ constexpr int tc_bn() {
+  return D == 256 ? 64 : 128;
+}
+// Each consumer warpgroup walks its own 64 rows' kv tiles from the last
+// visible one down.  A tile of 128 keys starts at or below the block's
+// first row, a tile of 64 at or below each warpgroup's: so a warpgroup's
+// first tile (its rows' last, or the prefix's last where that lies
+// further, or a ragged end) is the only one it masks, and every row sees
+// a key in it -- the tile's first key lies at or before the row, or inside
+// the prefix.  At D = 256 the block's first tile of 64 keys can lie wholly
+// above warpgroup 0's rows (past the prefix): warpgroup 0 releases it
+// without computing.
+template <int D>
+constexpr bool tc_tiles_align() {
+  return tc_bn<D>() == kTcBM || 64 % tc_bn<D>() == 0;
+}
+static_assert(tc_tiles_align<64>() && tc_tiles_align<128>() &&
+                  tc_tiles_align<256>(),
+              "a warpgroup's first kv tile is its only masked one");
 
 // slots of the K / V ring: 3 at D = 64 (32 KB a K, V pair), 2 at D = 128
-// (64 KB a pair)
+// and 256 (64 KB a pair)
 template <int D>
 __host__ __device__ constexpr int tc_stages() {
   return D == 64 ? 3 : 2;
 }
 
-// shared memory: Q, the K and V slots, barriers, 1 KiB to align the base to
-// the swizzle's 1024-byte period
+// shared memory: Q (128 rows), the K and V slots (tc_bn rows each), the
+// barriers, 1 KiB to align the base to the swizzle's 1024-byte period;
+// every tile is 64-column boxes of 128-byte rows
 template <int D>
 constexpr int tc_smem_bytes() {
-  return 1024 + (D / 64) * kTcBoxBytes * (1 + 2 * tc_stages<D>()) +
+  return 1024 + (D / 64) * 128 * (kTcBM + 2 * tc_stages<D>() * tc_bn<D>()) +
          (2 + 4 * tc_stages<D>()) * 8;
 }
-static_assert(tc_smem_bytes<64>() <= 232448 && tc_smem_bytes<128>() <= 232448,
+static_assert(tc_smem_bytes<64>() <= 232448 &&
+                  tc_smem_bytes<128>() <= 232448 &&
+                  tc_smem_bytes<256>() <= 232448,
               "a block's shared memory is 227 KB");
 
 template <int D, bool kLse>
@@ -402,15 +473,20 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const Params p) {
-  static_assert(D == 64 || D == 128, "head dims of the wgmma kernel");
-  constexpr int kTile = (D / 64) * kTcBoxBytes;  // one Q, K or V tile
+  static_assert(D == 64 || D == 128 || D == 256,
+                "head dims of the wgmma kernel");
+  constexpr int BN = tc_bn<D>();
+  constexpr int kBoxQ = kTcBM * 128;       // a 64-column box of Q
+  constexpr int kBoxK = BN * 128;          // of a K or V tile
+  constexpr int kTileQ = (D / 64) * kBoxQ;
+  constexpr int kTileK = (D / 64) * kBoxK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   constexpr int stages = tc_stages<D>();
   uint8_t* sQ = smem;
-  uint8_t* sK = sQ + kTile;
-  uint8_t* sV = sK + stages * kTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + stages * kTile);
+  uint8_t* sK = sQ + kTileQ;
+  uint8_t* sV = sK + stages * kTileK;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + stages * kTileK);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
   uint64_t* k_empty = k_full + stages;
@@ -447,7 +523,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto kv_tiles = [&](const Tile& tl) {
     const int kv_end = p.causal ? causal_end(p, tl.qb * kTcBM + kTcBM) : p.Sk;
-    return (kv_end + kTcBN - 1) / kTcBN;
+    return (kv_end + BN - 1) / BN;
   };
 
   if (tid < 128) {
@@ -466,26 +542,26 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int kvh = h / (p.H / p.KV);
         const int n_kv = kv_tiles(tl);
         if (j > 0) mbar_wait(q_empty, (j - 1) & 1);  // the last Q is done
-        mbar_arrive_expect_tx(q_full, kTile);
+        mbar_arrive_expect_tx(q_full, kTileQ);
 #pragma unroll
         for (int cc = 0; cc < D / 64; ++cc)
-          tma_load_4d(sQ + cc * kTcBoxBytes, &tm_q, q_full, 64 * cc, h,
+          tma_load_4d(sQ + cc * kBoxQ, &tm_q, q_full, 64 * cc, h,
                       tl.qb * kTcBM, b);
         for (int it = 0; it < n_kv; ++it, ++ring) {
           const int st = ring % stages;
           const uint32_t free_parity = ((ring / stages) & 1) ^ 1;
-          const int k0 = (n_kv - 1 - it) * kTcBN;  // from the last down
+          const int k0 = (n_kv - 1 - it) * BN;  // from the last down
           mbar_wait(&k_empty[st], free_parity);
-          mbar_arrive_expect_tx(&k_full[st], kTile);
+          mbar_arrive_expect_tx(&k_full[st], kTileK);
 #pragma unroll
           for (int cc = 0; cc < D / 64; ++cc)
-            tma_load_4d(sK + st * kTile + cc * kTcBoxBytes, &tm_k,
+            tma_load_4d(sK + st * kTileK + cc * kBoxK, &tm_k,
                         &k_full[st], 64 * cc, kvh, k0, b);
           mbar_wait(&v_empty[st], free_parity);
-          mbar_arrive_expect_tx(&v_full[st], kTile);
+          mbar_arrive_expect_tx(&v_full[st], kTileK);
 #pragma unroll
           for (int cc = 0; cc < D / 64; ++cc)
-            tma_load_4d(sV + st * kTile + cc * kTcBoxBytes, &tm_v,
+            tma_load_4d(sV + st * kTileK + cc * kBoxK, &tm_v,
                         &v_full[st], 64 * cc, kvh, k0, b);
         }
       }
@@ -510,35 +586,37 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   float o[D / 2];
   float m[2], l[2];                 // running max (log2 domain), this
                                     // thread's share of the running sum
-  float s[kTcBN / 2];               // S, then P, of the tile in hand
-  uint32_t pa[kTcBN / 16][4];       // P in bf16 as the A fragments of P V
+  float s[BN / 2];                  // S, then P, of the tile in hand
+  uint32_t pa[BN / 16][4];          // P in bf16 as the A fragments of P V
   float corr[2];
-  // S = Q K^T of slot st: 64 rows x 128 keys, D / 16 steps of 16 (two boxes
-  // at D = 128); K-major rows of 128 bytes, 8-row groups 1 KB apart, the
+  // S = Q K^T of slot st: 64 rows x BN keys, D / 16 steps of 16 (a box per
+  // 64 columns); K-major rows of 128 bytes, 8-row groups 1 KB apart, the
   // step's 16 columns at +32 bytes inside the swizzled row.  Committed, not
   // waited for.
   auto issue_s = [&](int st) {
-    const uint32_t k_addr = smem_u32(sK + st * kTile);
+    const uint32_t k_addr = smem_u32(sK + st * kTileK);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kTcBoxBytes + (kk % 4) * 32;
-      wgmma_ss_m64n128k16(s, smem_desc(q_addr + off, 16, 1024),
-                          smem_desc(k_addr + off, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_s<BN>(s, smem_desc(q_addr + (kk / 4) * kBoxQ + (kk % 4) * 32, 16,
+                               1024),
+                  smem_desc(k_addr + (kk / 4) * kBoxK + (kk % 4) * 32, 16,
+                            1024),
+                  kk > 0);
     wgmma_commit();
   };
   // O += P V of slot st: V MN-major, step j = keys [16 j, 16 j + 16) at
-  // +2 KB.  Committed, not waited for.
+  // +2 KB, the 64-wide column boxes one box apart (LBO).  Committed, not
+  // waited for.
   auto issue_pv = [&](int st) {
-    const uint32_t v_addr = smem_u32(sV + st * kTile);
+    const uint32_t v_addr = smem_u32(sV + st * kTileK);
 #pragma unroll
-    for (int j = 0; j < kTcBN / 16; ++j)
-      wgmma_pv<D>(o, pa[j], smem_desc(v_addr + j * 2048, kTcBoxBytes, 1024));
+    for (int j = 0; j < BN / 16; ++j)
+      wgmma_pv<D>(o, pa[j], smem_desc(v_addr + j * 2048, kBoxK, 1024));
     wgmma_commit();
   };
-  // The online softmax of s (keys [k0, k0 + 128)): mask by position where
+  // The online softmax of s (keys [k0, k0 + BN)): mask by position where
   // `masked` (the diagonal tile, the prefix's end, a ragged end: only the
-  // first tile of the loop), by selects, so that no branch sits between
+  // warpgroup's first tile), by selects, so that no branch sits between
   // elements; new row max,
   // corr, p in s, l updated.  Maxima and sums in four partials a row, so
   // that the dependency chains stay short.  For scale > 0 (every model) the
@@ -551,12 +629,12 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     constexpr bool kFold = decltype(positive)::value;
     if constexpr (!kFold) {
 #pragma unroll
-      for (int i = 0; i < kTcBN / 2; ++i) s[i] *= sl2;
+      for (int i = 0; i < BN / 2; ++i) s[i] *= sl2;
     }
     if (masked) {
       const float drop = kFold ? -INFINITY : kNegInf;
 #pragma unroll
-      for (int n = 0; n < kTcBN / 8; ++n)
+      for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = row0 + (e >> 1) * 8;
@@ -571,7 +649,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int a = 0; a < 4; ++a) mx[i][a] = kFold ? -INFINITY : kNegInf;
 #pragma unroll
-    for (int n = 0; n < kTcBN / 8; ++n)
+    for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float& acc = mx[e >> 1][(n & 1) * 2 + (e & 1)];
@@ -588,7 +666,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     float rs[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
-    for (int n = 0; n < kTcBN / 8; ++n)
+    for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[4 * n + e];
@@ -619,7 +697,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       o[4 * n + 3] *= corr[1];
     }
 #pragma unroll
-    for (int j = 0; j < kTcBN / 16; ++j) {
+    for (int j = 0; j < BN / 16; ++j) {
       pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
       pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
       pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
@@ -628,14 +706,15 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto fence_pa = [&]() {
 #pragma unroll
-    for (int j = 0; j < kTcBN / 16; ++j) fence_frag(pa[j]);
+    for (int j = 0; j < BN / 16; ++j) fence_frag(pa[j]);
   };
 
   // The two consumer warpgroups take turns to issue their products (named
   // barriers 1 and 2, 256 threads: one warpgroup syncs, the other arrives),
   // so one warpgroup's softmax runs while the other's products do.  Each
-  // issues n_kv + 1 times a tile; warpgroup 1 opens warpgroup 0's first
-  // turn and gives no turn after its very last.
+  // takes n_kv + 1 turns a tile (a tile it releases unread takes one that
+  // issues nothing); warpgroup 1 opens warpgroup 0's first turn and gives
+  // no turn after its very last.
   const int my_turn = 1 + cw, their_turn = 2 - cw;
   if (cw == 1) bar_arrive(1, 256);
 
@@ -643,21 +722,43 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int j = 0; j < n_mine; ++j) {
     const Tile tl = tile_at(j);
     const int b = tl.bh / p.H, h = tl.bh % p.H;
-    const int n_kv = kv_tiles(tl);
     row_lo = tl.qb * kTcBM + cw * 64;
     row0 = row_lo + frag_row;
+    // the block's kv tiles (the loader's), this warpgroup's: the first
+    // `skip` (0 or 1; 0 at compile time where the tiles are as tall as
+    // the block) lie above its rows and past the prefix
+    const int n_kv = kv_tiles(tl);
+    const int n = BN < kTcBM && causal
+                      ? (causal_end(p, row_lo + 64) + BN - 1) / BN
+                      : n_kv;
+    const int skip = BN < kTcBM ? n_kv - n : 0;
     const bool last_tile = j + 1 == n_mine;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
 
-    // kv tile 0 (the diagonal one, or the prefix's last, under causal): S,
-    // softmax, P
     mbar_wait(q_full, j & 1);
-    {
+    if (BN < kTcBM && skip) {
+      // released once it has landed, so that no arrival runs ahead of the
+      // slot's phase
       const int st = ring % stages;
       mbar_wait(&k_full[st], (ring / stages) & 1);
+      mbar_wait(&v_full[st], (ring / stages) & 1);
+      bar_sync(my_turn, 256);
+      bar_arrive(their_turn, 256);
+      if (lane == 0) {
+        mbar_arrive(&k_empty[st]);
+        mbar_arrive(&v_empty[st]);
+      }
+    }
+    const int r0 = ring + skip;  // this warpgroup's first tile in the ring
+
+    // its kv tile 0 (its rows' last, or the prefix's, under causal): S,
+    // softmax, P
+    {
+      const int st = r0 % stages;
+      mbar_wait(&k_full[st], (r0 / stages) & 1);
       bar_sync(my_turn, 256);
       wgmma_fence();
       issue_s(st);
@@ -666,19 +767,18 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_acc(s);
       if (lane == 0) {
         mbar_arrive(&k_empty[st]);
-        if (n_kv == 1) mbar_arrive(q_empty);  // Q is done
+        if (n == 1) mbar_arrive(q_empty);  // Q is done
       }
       // a tile below every row of the warpgroup hides no key from them
-      const int k0 = (n_kv - 1) * kTcBN;
-      softmax_tile(k0,
-                   k0 + kTcBN > seq || (causal && k0 + kTcBN - 1 > row_lo));
+      const int k0 = (n - 1) * BN;
+      softmax_tile(k0, k0 + BN > seq || (causal && k0 + BN - 1 > row_lo));
       rescale_and_pack();
     }
 
     // kv tile it: S = Q K_it^T and O += P_{it-1} V_{it-1} in flight
     // together, the softmax of tile it runs while the tensor cores do P V
-    for (int it = 1; it < n_kv; ++it) {
-      const int r = ring + it;
+    for (int it = 1; it < n; ++it) {
+      const int r = r0 + it;
       const int st = r % stages, pst = (r - 1) % stages;
       mbar_wait(&k_full[st], (r / stages) & 1);
       mbar_wait(&v_full[pst], ((r - 1) / stages) & 1);
@@ -693,10 +793,10 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_acc(s);
       if (lane == 0) {
         mbar_arrive(&k_empty[st]);
-        if (it == n_kv - 1) mbar_arrive(q_empty);  // Q is done
+        if (it == n - 1) mbar_arrive(q_empty);  // Q is done
       }
       // below the diagonal, or inside the prefix: nothing hidden
-      softmax_tile((n_kv - 1 - it) * kTcBN, false);
+      softmax_tile((n - 1 - it) * BN, false);
       wgmma_wait<0>();  // P V done: O and P may change
       fence_acc(o);
       fence_pa();
@@ -786,13 +886,10 @@ constexpr int mma_smem_bytes() {
          2;
 }
 
-template <int HD, int HV, bool kLse>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_mma_kernel(const Params p) {
   static_assert(HD % 16 == 0 && HV % 16 == 0, "mma / ldmatrix tile shapes");
-  // Q's fragments held in registers; at hd 256 read from shared memory at
-  // each k-step instead (the 16 x 256 O tile takes 128 registers a thread)
-  constexpr bool kQRegs = HD <= 128;
   constexpr int LDQ = HD + kPad, LDK = HD + kPad, LDV = HV + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LDQ]
@@ -841,16 +938,7 @@ flash_bf16_mma_kernel(const Params p) {
   cp_async_commit();
 
   const int rw = warp * 16 + g;  // this thread's rows: rw and rw + 8
-  uint32_t qa[kQRegs ? HD / 16 : 1][4];  // A fragments of the warp's Q rows
-  const bf16* q_row = Qs + (warp * 16 + (lane & 15)) * LDQ + (lane >> 4) * 8;
-  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
-    if constexpr (kQRegs) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = qa[kk][e];
-    } else {
-      ldmatrix_x4(f, q_row + kk * 16);
-    }
-  };
+  uint32_t qa[HD / 16][4];       // A fragments of this warp's 16 Q rows
   float oacc[HV / 8][4];
 #pragma unroll
   for (int n = 0; n < HV / 8; ++n)
@@ -872,12 +960,11 @@ flash_bf16_mma_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kQRegs) {
-      if (kb == 0) {
+    if (kb == 0) {
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          ldmatrix_x4(qa[kk], q_row + kk * 16);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
+                                (lane >> 4) * 8);
     }
     const bf16* Kb = Ks + (kb & 1) * kBK * LDK;
     const bf16* Vb = Vs + (kb & 1) * kBK * LDV;
@@ -891,18 +978,15 @@ flash_bf16_mma_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qf[4];
-      q_frag(kk, qf);
+    for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kb + (np * 16 + (mi >> 1) * 8 + mr) * LDK + kk * 16 +
                             (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
       }
-    }
 
     // scale, mask (tiles past a row of the block, keys past Sk only), row
     // max
@@ -982,10 +1066,6 @@ flash_bf16_mma_kernel(const Params p) {
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rw + i * 8;
     if (row >= p.S) continue;
-    if constexpr (kLse) {  // m is in the log2 domain of the scaled scores
-      if (t4 == 0)
-        p.lse[(int64_t)tile.bh * p.S + row] = (m[i] + log2f(l[i])) * kLn2;
-    }
     bf16* orow = op + row * p.os_s;
 #pragma unroll
     for (int n = 0; n < HV / 8; ++n) {
@@ -1255,10 +1335,10 @@ int launch(Kernel kernel, int smem, int threads, const Params& p, int gx,
   return (int)cudaGetLastError();
 }
 
-template <int HD, int HV, bool kLse = false>
+template <int HD, int HV>
 int launch_mma(const Params& p, int gx, int gy, int device, void* stream) {
   static unsigned done = 0;
-  return launch(flash_bf16_mma_kernel<HD, HV, kLse>, mma_smem_bytes<HD, HV>(),
+  return launch(flash_bf16_mma_kernel<HD, HV>, mma_smem_bytes<HD, HV>(),
                 kThreads, p, gx, gy, &done, device, stream);
 }
 
@@ -1269,7 +1349,8 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
                 kFThreads, p, gx, gy, &done, device, stream);
 }
 
-// the (hd, hv) instances: hd, hv in {32, 64, 128}, and hd = hv = 256
+// the (hd, hv) instances: hd, hv in {32, 64, 128} (and, float32 only, hd
+// = hv = 256)
 #define FLASH_DISPATCH(LAUNCH)                                    \
   switch (hd * 1000 + hv) {                                       \
     case 32032: return LAUNCH<32, 32>(p, gx, gy, device, stream);   \
@@ -1281,7 +1362,6 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
     case 128032: return LAUNCH<128, 32>(p, gx, gy, device, stream); \
     case 128064: return LAUNCH<128, 64>(p, gx, gy, device, stream); \
     case 128128: return LAUNCH<128, 128>(p, gx, gy, device, stream);\
-    case 256256: return LAUNCH<256, 256>(p, gx, gy, device, stream);\
     default: return (int)cudaErrorInvalidValue;                   \
   }
 
@@ -1365,31 +1445,37 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
              int block_q, int block_k, int gx, int gy, int device,
              void* stream) {
   const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
-  if (hd != hv || (hd != 64 && hd != 128) || B < 1 ||
+  const int bn = hd == 64    ? tc_bn<64>()
+                 : hd == 128 ? tc_bn<128>()
+                             : tc_bn<256>();
+  if (hd != hv || (hd != 64 && hd != 128 && hd != 256) || B < 1 ||
       !lengths_fit(S, Sk, causal, prefix) || KV < 1 || H % KV ||
-      block_q != kTcBM || block_k != kTcBN || gx < 1 || gx > n_tiles ||
+      block_q != kTcBM || block_k != bn || gx < 1 || gx > n_tiles ||
       gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
   if (!encode_bshd(&tm_q, q, B, S, H, hd, strides, kTcBM) ||
-      !encode_bshd(&tm_k, k, B, Sk, KV, hd, strides + 3, kTcBN) ||
-      !encode_bshd(&tm_v, v, B, Sk, KV, hv, strides + 6, kTcBN))
+      !encode_bshd(&tm_k, k, B, Sk, KV, hd, strides + 3, bn) ||
+      !encode_bshd(&tm_v, v, B, Sk, KV, hv, strides + 6, bn))
     return (int)cudaErrorInvalidValue;
   Params p =
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   p.bh = B * H;
   p.lse = lse;
-  if (lse != nullptr)
-    return hd == 64
-               ? launch_tc<64, true>(tm_q, tm_k, tm_v, p, gx, gy, device,
-                                     stream)
-               : launch_tc<128, true>(tm_q, tm_k, tm_v, p, gx, gy, device,
-                                      stream);
-  return hd == 64
-             ? launch_tc<64, false>(tm_q, tm_k, tm_v, p, gx, gy, device,
-                                    stream)
-             : launch_tc<128, false>(tm_q, tm_k, tm_v, p, gx, gy, device,
-                                     stream);
+  switch (hd * 2 + (lse != nullptr)) {
+    case 128: return launch_tc<64, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                          device, stream);
+    case 129: return launch_tc<64, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                         device, stream);
+    case 256: return launch_tc<128, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                           device, stream);
+    case 257: return launch_tc<128, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                          device, stream);
+    case 512: return launch_tc<256, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                           device, stream);
+    default: return launch_tc<256, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                         device, stream);
+  }
 }
 
 }  // namespace
@@ -1403,9 +1489,9 @@ extern "C" {
 // every row); the plan: block_q x block_k tile, grid (gx, gy); the device
 // and the stream.
 
-// bf16 on wgmma.  Plan: 128 x 128, a persistent grid (gx, 1) of gx <= B*H *
-// ceil(S / 128) blocks that walk the tiles; hd == hv in {64, 128}, every
-// row 16-byte aligned.
+// bf16 on wgmma.  Plan: 128 query rows x 128 keys (64 keys at hd 256), a
+// persistent grid (gx, 1) of gx <= B*H * ceil(S / 128) blocks that walk the
+// tiles; hd == hv in {64, 128, 256}, every row 16-byte aligned.
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int Sk, int H, int KV,
                             int hd, int hv, const long long* strides,
@@ -1431,8 +1517,8 @@ int flash_attention_bf16_tc_lse(const void* q, const void* k, const void* v,
                   gy, device, stream);
 }
 
-// bf16 on mma.sync, hd, hv in {32, 64, 128} or hd = hv = 256.  Plan: 64 x
-// 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
+// bf16 on mma.sync, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid (B*H,
+// ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
                              void* o, int B, int S, int Sk, int H, int KV,
                              int hd, int hv, const long long* strides,
@@ -1448,26 +1534,6 @@ int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(launch_mma)
 }
 
-// the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
-// hv == 256 (64 and 128 train on the tensor-core variant)
-int flash_attention_bf16_mma_lse(const void* q, const void* k, const void* v,
-                                 void* o, void* lse, int B, int S, int Sk,
-                                 int H, int KV, int hd, int hv,
-                                 const long long* strides, float scale,
-                                 int causal, int prefix, int block_q,
-                                 int block_k, int gx, int gy, int device,
-                                 void* stream) {
-  if (lse == nullptr || hd != 256 || hv != 256 ||
-      !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kBQ, kBK,
-                 gx, gy) ||
-      !rows_aligned16(q, k, v, o, strides, 2))
-    return (int)cudaErrorInvalidValue;
-  Params p =
-      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
-  p.lse = static_cast<float*>(lse);
-  return launch_mma<256, 256, true>(p, gx, gy, device, stream);
-}
-
 // float32 on the CUDA cores, hd, hv in {32, 64, 128} or hd = hv = 256.
 // Plan: 64 x 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
@@ -1481,6 +1547,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
+  if (hd == 256 && hv == 256)
+    return launch_f32<256, 256>(p, gx, gy, device, stream);
   FLASH_DISPATCH(launch_f32)
 }
 

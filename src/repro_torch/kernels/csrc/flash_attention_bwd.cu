@@ -69,9 +69,11 @@
 //   (repro_torch/kernels/flash_attention.py, plan_bwd()).  The entry points
 //   check that a plan fits the shape and obey it; they choose nothing.
 //
-//   flash_bwd_dq_bf16_tc_kernel<D>, flash_bwd_dkdv_bf16_tc_kernel<D>   bf16,
-//     D in {64, 128}, K3's forward (flash_attention.cu,
-//     flash_bf16_tc_kernel) with its roles turned around.  Persistent: one
+//   flash_bwd_dq_bf16_tc_kernel<D> (D in {64, 128, 256}),
+//   flash_bwd_dkdv_bf16_tc_kernel<D> (D in {64, 128}),
+//   flash_bwd_dkdv_bf16_split_kernel<256>   bf16, K3's forward
+//     (flash_attention.cu, flash_bf16_tc_kernel) with its roles turned
+//     around.  Persistent: one
 //     384-thread block an SM walks the work items the plan's schedule gives
 //     it (a list per block, heaviest first, longest-processing-time
 //     assignment, so the causal grid's 32:1 spread of work evens out).
@@ -84,9 +86,10 @@
 //     barriers 1 and 2), so one's exponentials run under the other's
 //     products.
 //     dQ: an item is 128 query rows of one (b, h).  Their Q and dO tiles
-//       (two slots, so the next item's load under this one) stay while K
-//       and V tiles (128 keys at D = 64, 64 at D = 128, so that S, dP and
-//       dQ fit the registers) stream through a ring of full / empty
+//       (two slots, so the next item's load under this one; one at D =
+//       256, where a slot is 128 KB) stay while K and V tiles (128 keys at
+//       D = 64, 64 at D = 128, 32 at D = 256, so that S, dP and dQ fit the
+//       registers) stream through a ring of full / empty
 //       mbarriers, from the diagonal down.  Per kv tile, S = Q K^T and
 //       dP = dO V^T by wgmma.m64nNk16 from shared memory (K and V as
 //       stored are K-major B operands), P = 2^(S scale log2 e - lse log2 e)
@@ -110,12 +113,32 @@
 //       the products of q tile i issue together with dV and dK of tile
 //       i - 1 (at D = 128 the registers do not hold both).  dK and dV stay
 //       in registers across the group's heads and are stored once.
+//     Head dim 256 (paligemma, MQA: H = 8, KV = 1).  A 64 x 256 float32
+//       accumulator is 128 registers a thread, and two 128-row Q / dO item
+//       slots alone would be 256 KB.  dQ: one item slot (Q and dO, 128 KB)
+//       and a ring of 3 K / V tiles of 32 keys (32 KB a stage): 225 KB;
+//       registers dQ 128 + S 16 + dP 16 + dS 8; S and dP by
+//       wgmma.m64n32k16, dQ += dS K by wgmma.m64n256k16, the block's
+//       ping-pong and overlap as above (the lower warpgroup computes the
+//       two 32-key tiles above its rows masked to 0: no branch).  dK / dV
+//       (flash_bwd_dkdv_bf16_split_kernel): dK and dV do not fit one
+//       warpgroup together, so the two consumer warpgroups split them -- the
+//       float32 kernels' warp-pair split lifted to warpgroups: warpgroup 0
+//       computes S^T = K Q^T and P^T, hands P^T (float32, one fragment a
+//       thread, 16 KB, two buffers on full / empty mbarriers) to warpgroup
+//       1 and adds P^T dO to dV; warpgroup 1 computes dP^T = V dO^T and dS^T
+//       and adds dS^T Q to dK; each product m64n64k16 or m64n256k16.  An
+//       item is 64 keys of ONE head (512 items at paligemma's B=1 S=4096,
+//       not the 64 an item per kv head would give 132 SMs), the item's K
+//       and V (64 KB) resident, Q / dO tiles of 64 rows with their lse2 and
+//       D through 2 slots (130 KB): 226 KB.  With GQA the items write
+//       float32 partials [2, B, Sk, H, D] after the scratch's lse2 and D,
+//       and flash_bwd_dkdv_sum_f32_kernel adds a group's in head order (67
+//       MB written and read at paligemma's shape).  P and dS are rounded to
+//       bf16 for the products as at 64 and 128; dS takes P in float32.
 //   flash_bwd_dq_f32_tc_kernel<T, D>, flash_bwd_dkdv_f32_tc_kernel<T, D>
-//     float32 (T = float), D in {64, 128, 256}, and bf16 (T = bf16) at D =
-//     256, where the wgmma kernels cannot hold a tile (their two Q / dO
-//     item slots alone are 256 KB, and a 64 x 256 accumulator is 128
-//     registers a thread beside S, dP and the fragments).  float32: every
-//     product -- S and dP in both kernels, dQ, dV, dK
+//     float32 (T = float), D in {64, 128, 256}.  Every product -- S and dP
+//     in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
 //     + hi lo + hi hi, the small terms first, into a float32 accumulator;
@@ -163,15 +186,8 @@
 //       flash_bwd_dkdv_sum_f32_kernel adds a group's G of them in head
 //       order.
 //     At D = 256 the streamed tiles are 16 rows, one block of each kernel
-//     fits an SM (float32: 195 and 201 KB), and every warp's accumulator
-//     is 128 registers a thread.  bf16 (entry point
-//     flash_attention_bwd_bf16_mma): the same kernels with bf16 tiles in
-//     shared memory (99 and 105 KB), read into the fragments as float32;
-//     each product is ONE TF32 mma.sync -- a bf16 value is exact in TF32,
-//     so S = Q K^T and dP = dO V^T are exact, and P and dS are rounded to
-//     TF32 once (the wgmma kernels round them to bf16) -- at half the
-//     bf16 mma.sync rate, a simple route that is right; outputs rounded to
-//     bf16 once.  D = 256 on wgmma is a later redesign.
+//     fits an SM (195 and 201 KB), and every warp's accumulator is 128
+//     registers a thread.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -399,6 +415,12 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               uint64_t db) {
   wgmma_rs_m64n128k16(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n256k16(d, a, db);
+}
 
 // S[64 x 128] (=|+)= A[64 x 16] (K-major) * B[128 x 16]^T (K-major)
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
@@ -435,10 +457,32 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// S[64 x 32] (=|+)= A[64 x 16] (K-major) * B[32 x 16]^T (K-major)
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // C[64 x N] (=|+)= A (K-major) * B^T (K-major), N keys or query rows
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_m64n32k16(d, da, db, scale_d);
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -461,12 +505,14 @@ constexpr int kBoxStep = kStep * 128;  // of a 64-row tile
 static_assert(kRows == 2 * kStep, "tile sizes");
 
 // the dQ kernel's kv tile: 128 keys at D = 64 (S and dP take 64 + 64
-// registers a thread beside dQ's 32), 64 at D = 128 (dQ takes 64)
+// registers a thread beside dQ's 32), 64 at D = 128 (dQ takes 64), 32 at
+// D = 256 (dQ takes 128; S, dP 16 each)
 template <int D>
 __host__ __device__ constexpr int dq_step() {
-  return D == 64 ? 128 : 64;
+  return D == 64 ? 128 : D == 128 ? 64 : 32;
 }
-// ring slots of each kernel (the budget of 227 KB decides)
+// ring slots of each kernel (the budget of 227 KB decides; the dK / dV
+// kernel at D = 256 is flash_bwd_dkdv_bf16_split_kernel, kSplitStages)
 template <int D>
 __host__ __device__ constexpr int dq_stages() {
   return D == 64 ? 4 : 3;
@@ -475,14 +521,20 @@ template <int D>
 __host__ __device__ constexpr int dkdv_stages() {
   return D == 64 ? 4 : 3;
 }
+// the dQ kernel's item slots of Q and dO: two (the next item's load under
+// this one), one at D = 256, where a slot is 128 KB
+template <int D>
+__host__ __device__ constexpr int dq_slots() {
+  return D == 256 ? 1 : 2;
+}
 
 // shared memory: 1 KiB to align the base to the swizzle's 1024-byte period,
-// two item slots of Q and dO, the ring of K and V tiles, the barriers
+// the item slots of Q and dO, the ring of K and V tiles, the barriers
 template <int D>
 constexpr int dq_smem_bytes() {
-  return 1024 + 2 * 2 * (D / 64) * kBoxBig +
+  return 1024 + 2 * dq_slots<D>() * (D / 64) * kBoxBig +
          dq_stages<D>() * 2 * (D / 64) * dq_step<D>() * 128 +
-         (4 + 4 * dq_stages<D>()) * 8;
+         (2 * dq_slots<D>() + 4 * dq_stages<D>()) * 8;
 }
 // two item slots of K and V; the ring of Q and dO tiles with their 64 lse2
 // and D values; the barriers
@@ -492,7 +544,9 @@ constexpr int dkdv_smem_bytes() {
          dkdv_stages<D>() * (2 * (D / 64) * kBoxStep + 2 * kStep * 4) +
          (4 + 2 * dkdv_stages<D>()) * 8;
 }
-static_assert(dq_smem_bytes<64>() <= 232448 && dq_smem_bytes<128>() <= 232448,
+static_assert(dq_smem_bytes<64>() <= 232448 &&
+                  dq_smem_bytes<128>() <= 232448 &&
+                  dq_smem_bytes<256>() <= 232448,
               "a block's shared memory is 227 KB");
 static_assert(dkdv_smem_bytes<64>() <= 232448 &&
                   dkdv_smem_bytes<128>() <= 232448,
@@ -516,28 +570,30 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             const Params p) {
-  static_assert(D == 64 || D == 128, "head dims of the wgmma kernels");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "head dims of the wgmma dQ kernel");
   constexpr int BN = dq_step<D>();
   constexpr int stages = dq_stages<D>();
+  constexpr int slots = dq_slots<D>();
   constexpr int kBoxK = BN * 128;             // a 64-column box of K or V
   constexpr int kTileQ = (D / 64) * kBoxBig;  // Q or dO of an item
   constexpr int kTileK = (D / 64) * kBoxK;    // a K or V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sQ = smem;                   // [2][kTileQ]
-  uint8_t* sdO = sQ + 2 * kTileQ;       // [2][kTileQ]
-  uint8_t* sK = sdO + 2 * kTileQ;       // [stages][kTileK]
-  uint8_t* sV = sK + stages * kTileK;   // [stages][kTileK]
+  uint8_t* sQ = smem;                       // [slots][kTileQ]
+  uint8_t* sdO = sQ + slots * kTileQ;       // [slots][kTileQ]
+  uint8_t* sK = sdO + slots * kTileQ;       // [stages][kTileK]
+  uint8_t* sV = sK + stages * kTileK;       // [stages][kTileK]
   uint64_t* t_full = reinterpret_cast<uint64_t*>(sV + stages * kTileK);
-  uint64_t* t_empty = t_full + 2;
-  uint64_t* k_full = t_empty + 2;
+  uint64_t* t_empty = t_full + slots;
+  uint64_t* k_full = t_empty + slots;
   uint64_t* k_empty = k_full + stages;
   uint64_t* v_full = k_empty + stages;
   uint64_t* v_empty = v_full + stages;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < slots; ++i) {
       mbar_init(&t_full[i], 1);  // the loader's expect_tx
       mbar_init(&t_empty[i], kConsumerWarps);  // one lane per warp
     }
@@ -576,8 +632,8 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int bh = item / nq, qb = item % nq;
         const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
         const int n_kv = kv_tiles(qb);
-        const int slot = j & 1;
-        mbar_wait(&t_empty[slot], ((j >> 1) & 1) ^ 1);
+        const int slot = j % slots;
+        mbar_wait(&t_empty[slot], ((j / slots) & 1) ^ 1);
         mbar_arrive_expect_tx(&t_full[slot], 2 * kTileQ);
 #pragma unroll
         for (int cc = 0; cc < D / 64; ++cc) {
@@ -627,10 +683,14 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint32_t q_addr = 0, do_addr = 0;
 
   // S = Q K^T and dP = dO V^T of ring slot st, 64 rows x BN keys, D / 16
-  // steps of 16 (two boxes at D = 128): K-major, 8-row groups 1 KB apart,
+  // steps of 16 (a box per 64 columns): K-major, 8-row groups 1 KB apart,
   // the step's 16 columns at +32 bytes inside the swizzled row.  One
-  // commit group, not waited for.
+  // commit group, not waited for.  At D = 256 the item's Q and dO
+  // addresses pass an empty asm first, so that their 32 descriptors are
+  // made at each issue and not hoisted out of the kv loop (64 registers,
+  // which ptxas spilled)
   auto issue_sdp = [&](int st) {
+    if constexpr (D == 256) asm volatile("" : "+r"(q_addr), "+r"(do_addr));
     const uint32_t k_addr = smem_u32(sK + st * kTileK);
     const uint32_t v_addr = smem_u32(sV + st * kTileK);
 #pragma unroll
@@ -648,8 +708,8 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           kk > 0);
     wgmma_commit();
   };
-  // dQ += dS K of slot st: K MN-major, key step j at +2 KB, the two 64-wide
-  // column boxes of D = 128 one box apart (LBO).  One commit group.
+  // dQ += dS K of slot st: K MN-major, key step j at +2 KB, the 64-wide
+  // column boxes one box apart (LBO).  One commit group.
   auto issue_dq = [&](int st) {
     const uint32_t k_addr = smem_u32(sK + st * kTileK);
 #pragma unroll
@@ -708,7 +768,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int bh = item / nq, qb = item % nq;
     const int b = bh / p.H, h = bh % p.H;
     const int n_kv = kv_tiles(qb);
-    const int slot = j & 1;
+    const int slot = j % slots;
     row_lo = qb * kRows + cw * 64;
     row0 = row_lo + frag_row;
     q_addr = smem_u32(sQ + slot * kTileQ) + cw * 64 * 128;
@@ -758,7 +818,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // kv tile 0 (the diagonal one, or the prefix's last, under causal): S
     // and dP, then dS
-    mbar_wait(&t_full[slot], (j >> 1) & 1);
+    mbar_wait(&t_full[slot], (j / slots) & 1);
     {
       const int st = ring % stages;
       mbar_wait(&k_full[st], (ring / stages) & 1);
@@ -1155,7 +1215,273 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// --- TF32 tensor cores on mma.sync: float32 (3xTF32) and bf16 at D = 256 ------
+// dK / dV at D = 256: a 64 x 256 float32 accumulator is 128 registers a
+// thread, so one warpgroup cannot hold dK beside dV.  The two consumer
+// warpgroups split them: warpgroup 0 (the P warpgroup) computes S^T = K
+// Q^T and P^T, hands P^T (float32) to warpgroup 1 through shared memory
+// and adds P^T dO to dV; warpgroup 1 (the dS warpgroup) computes dP^T = V
+// dO^T, dS^T = P^T (dP^T - D) and adds dS^T Q to dK -- the float32
+// kernels' warp-pair split lifted to warpgroups.  An item is kStep keys of
+// ONE head, so that MQA / GQA give as many items as heads times key
+// blocks; with GQA each item writes float32 partials that
+// flash_bwd_dkdv_sum_f32_kernel adds by group in head order.
+constexpr int kSplitStages = 2;   // Q / dO ring slots of the split kernel
+constexpr int kSplitPt = 128 * (kStep / 2);  // floats of a P^T buffer
+
+// shared memory: 1 KiB to align the base, the item's K and V (64 keys),
+// the ring of Q and dO tiles (64 rows) with their lse2 and D, two P^T
+// buffers (one float32 fragment a thread), the barriers
+template <int D>
+constexpr int split_smem_bytes() {
+  return 1024 + 2 * (D / 64) * kBoxStep +
+         kSplitStages * (2 * (D / 64) * kBoxStep + 2 * kStep * 4) +
+         2 * kSplitPt * 4 + (2 + 2 * kSplitStages + 4) * 8;
+}
+static_assert(split_smem_bytes<256>() <= 232448,
+              "a block's shared memory is 227 KB");
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_bf16_split_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const Params p) {
+  static_assert(D == 256, "the split dK / dV kernel's head dim");
+  constexpr int stages = kSplitStages;
+  constexpr int kTile = (D / 64) * kBoxStep;  // K, V, a Q or a dO tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + kTile;
+  uint8_t* sQ = sV + kTile;               // [stages][kTile]
+  uint8_t* sdO = sQ + stages * kTile;     // [stages][kTile]
+  float* sL = reinterpret_cast<float*>(sdO + stages * kTile);  // [stages][64]
+  float* sD = sL + stages * kStep;                             // [stages][64]
+  float* sP = sD + stages * kStep;                  // [2][kSplitPt]: P^T
+  uint64_t* t_full = reinterpret_cast<uint64_t*>(sP + 2 * kSplitPt);
+  uint64_t* t_empty = t_full + 1;
+  uint64_t* q_full = t_empty + 1;
+  uint64_t* q_empty = q_full + stages;
+  uint64_t* p_full = q_empty + stages;
+  uint64_t* p_empty = p_full + 2;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(t_full, 1);
+    mbar_init(t_empty, kConsumerWarps);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&q_full[st], 1);
+      mbar_init(&q_empty[st], kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {  // every thread of a warpgroup arrives
+      mbar_init(&p_full[i], 128);
+      mbar_init(&p_empty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's items: (b * H + h) * nk + key block, heaviest first; each
+  // walks its head's q tiles of 64 rows from the first that sees the
+  // block's keys (row 0 where a key of the block lies in the prefix)
+  const int nk = (p.Sk + kStep - 1) / kStep;
+  const int nq = (p.S + kStep - 1) / kStep;
+  const int first = p.sched_kv[blockIdx.x];
+  const int n_mine = p.sched_kv[blockIdx.x + 1] - first;
+  const int* items = p.sched_kv + gridDim.x + 1 + first;
+  auto first_q = [&](int kb) {
+    return p.causal && kb * kStep >= p.prefix ? kb : 0;
+  };
+
+  if (tid < 128) {
+    // ---- loader ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_do);
+      int ring = 0;
+      for (int j = 0; j < n_mine; ++j) {
+        const int item = items[j];
+        const int bh = item / nk, kb = item % nk;
+        const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+        mbar_wait(t_empty, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(t_full, 2 * kTile);
+#pragma unroll
+        for (int cc = 0; cc < D / 64; ++cc) {
+          tma_load_4d(sK + cc * kBoxStep, &tm_k, t_full, 64 * cc, kvh,
+                      kb * kStep, b);
+          tma_load_4d(sV + cc * kBoxStep, &tm_v, t_full, 64 * cc, kvh,
+                      kb * kStep, b);
+        }
+        for (int qt = first_q(kb); qt < nq; ++qt, ++ring) {
+          const int st = ring % stages;
+          mbar_wait(&q_empty[st], ((ring / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&q_full[st], 2 * kTile + 2 * kStep * 4);
+#pragma unroll
+          for (int cc = 0; cc < D / 64; ++cc) {
+            tma_load_4d(sQ + st * kTile + cc * kBoxStep, &tm_q, &q_full[st],
+                        64 * cc, h, qt * kStep, b);
+            tma_load_4d(sdO + st * kTile + cc * kBoxStep, &tm_do,
+                        &q_full[st], 64 * cc, h, qt * kStep, b);
+          }
+          const int64_t at = (int64_t)bh * p.s_pad + qt * kStep;
+          bulk_load(sL + st * kStep, p.lse2 + at, kStep * 4, &q_full[st]);
+          bulk_load(sD + st * kStep, p.dd + at, kStep * 4, &q_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: both own the item's 64 keys; cw 0 makes P^T and dV,
+  // cw 1 dS^T and dK ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = tid / 128 - 1;
+  const int t = tid & 127, lane = t & 31, t4 = lane & 3;
+  const int frag_row = (t >> 5) * 16 + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const bool pgroup = cw == 0;
+  // the scores' A (all 64 keys of K or V, K-major), their B (the Q or dO
+  // tile, K-major) and the accumulation's B (the dO or Q tile, MN-major)
+  const uint32_t a_addr = smem_u32(pgroup ? sK : sV);
+  const uint8_t* sB = pgroup ? sQ : sdO;
+  const uint8_t* sM = pgroup ? sdO : sQ;
+
+  float acc[D / 2];              // dV (P warpgroup), dK / scale (dS)
+  float c[kStep / 2];            // S^T then P^T; dP^T then dS^T / scale
+  uint32_t a[kStep / 16][4];     // P^T or dS^T in bf16: A of the accumulation
+  int ring = 0;                  // the Q / dO slot sequence, as the loader's
+  int u = 0;                     // the P^T hand-over sequence
+  for (int j = 0; j < n_mine; ++j) {
+    const int item = items[j];
+    const int bh = item / nk, kb = item % nk;
+    const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+    const int key_lo = kb * kStep, key0 = key_lo + frag_row;
+    const int qt0 = first_q(kb), steps = nq - qt0;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    mbar_wait(t_full, j & 1);
+    for (int i = 0; i < steps; ++i, ++ring, ++u) {
+      const int st = ring % stages, q0 = (qt0 + i) * kStep;
+      mbar_wait(&q_full[st], (ring / stages) & 1);
+      // S^T = K Q^T or dP^T = V dO^T: 64 keys x 64 rows, D / 16 steps
+      const uint32_t b_addr = smem_u32(sB + st * kTile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64k16(
+            c, smem_desc(a_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16,
+                         1024),
+            smem_desc(b_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(c);
+      if (lane == 0 && i == steps - 1) mbar_arrive(t_empty);  // K or V done
+      const int buf = u & 1;
+      const uint32_t phase = (u >> 1) & 1;
+      float4* pt = reinterpret_cast<float4*>(sP + buf * kSplitPt) + t;
+      if (pgroup) {
+        // P^T, lse2 per column; on a tile with the diagonal (or before
+        // it, inside the prefix) 0 for a key after the row and past the
+        // prefix, by selects.  Rows past S need no mask: their Q and dO
+        // are TMA's zeros and their lse2 and D the scratch's, so P^T = 1,
+        // dV gains 0 and dS^T is 0.
+        const float* L = sL + st * kStep;
+        const bool masked = p.causal && key_lo + kStep - 1 > q0;
+#pragma unroll
+        for (int n = 0; n < kStep / 8; ++n) {
+          const int col = n * 8 + t4 * 2;
+          const float2 lc = *reinterpret_cast<const float2*>(L + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe =
+                fast_exp2(fmaf(c[4 * n + e], sl2, (e & 1) ? -lc.y : -lc.x));
+            const int key = key0 + 8 * (e >> 1);
+            c[4 * n + e] =
+                masked && hidden(key, q0 + col + (e & 1), p.prefix) ? 0.0f
+                                                                    : pe;
+          }
+        }
+        mbar_wait(&p_empty[buf], phase ^ 1);
+#pragma unroll
+        for (int n = 0; n < kStep / 8; ++n)
+          pt[n * 128] = make_float4(c[4 * n], c[4 * n + 1], c[4 * n + 2],
+                                    c[4 * n + 3]);
+        mbar_arrive(&p_full[buf]);
+      } else {
+        // dS^T / scale = P^T (dP^T - D), D per column
+        const float* Dd = sD + st * kStep;
+        mbar_wait(&p_full[buf], phase);
+#pragma unroll
+        for (int n = 0; n < kStep / 8; ++n) {
+          const int col = n * 8 + t4 * 2;
+          const float2 dc = *reinterpret_cast<const float2*>(Dd + col);
+          const float4 pe = pt[n * 128];
+          c[4 * n] = pe.x * (c[4 * n] - dc.x);
+          c[4 * n + 1] = pe.y * (c[4 * n + 1] - dc.y);
+          c[4 * n + 2] = pe.z * (c[4 * n + 2] - dc.x);
+          c[4 * n + 3] = pe.w * (c[4 * n + 3] - dc.y);
+        }
+        mbar_arrive(&p_empty[buf]);
+      }
+      // dV += P^T dO or dK / scale += (dS^T / scale) Q: A from registers,
+      // B the tile as MN-major, row step jj at +2 KB, 64-column boxes one
+      // box apart (LBO)
+#pragma unroll
+      for (int jj = 0; jj < kStep / 16; ++jj) c_to_a(a[jj], c + 8 * jj);
+      const uint32_t m_addr = smem_u32(sM + st * kTile);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < kStep / 16; ++jj)
+        wgmma_rs<D>(acc, a[jj],
+                    smem_desc(m_addr + jj * 2048, kBoxStep, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+#pragma unroll
+      for (int jj = 0; jj < kStep / 16; ++jj) fence_frag(a[jj]);
+      if (lane == 0) mbar_arrive(&q_empty[st]);
+    }
+
+    // this thread's two keys: dk or dv without GQA; with it the head's
+    // float32 partials, rows of H D floats
+    const float mul = pgroup ? 1.0f : p.scale;
+    if (p.H == p.KV) {
+      bf16* out = pgroup ? base<bf16, kDV>(p, p.dv, b, kvh)
+                         : base<bf16, kDK>(p, p.dk, b, kvh);
+      const int64_t rs = pgroup ? row_stride<kDV>(p) : row_stride<kDK>(p);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * i;
+        if (key >= p.Sk) continue;
+        bf16* o = out + u64(key) * rs;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(o + n * 8 + t4 * 2) =
+              pack_bf16(acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+      }
+    } else {
+      float* out = p.part + (pgroup ? p.part_half : 0) +
+                   (u64(b) * p.Sk * p.H + h) * D;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * i;
+        if (key >= p.Sk) continue;
+        float* o = out + u64(key) * p.H * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(o + n * 8 + t4 * 2) = make_float2(
+              acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+      }
+    }
+  }
+}
+
+// --- TF32 tensor cores on mma.sync: float32 as 3xTF32 ---------------------------
 
 constexpr int kF = 64;           // rows (dQ) or keys (dK / dV) of an item
 constexpr int kFThreads = 128;   // the dQ kernel's block: 4 warps of 16 rows
@@ -1207,14 +1533,10 @@ static_assert(f32_dq_smem_bytes<float, 256>() <= 232448 &&
               "a block's shared memory is 227 KB");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// two adjacent outputs, rounded to T
+// two adjacent outputs
 __device__ __forceinline__ void store2(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* out, float a, float b) {
-  *reinterpret_cast<uint32_t*>(out) = pack_bf16(a, b);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -1306,11 +1628,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
-// d += a b for tiles of T: float32 as 3xTF32 (float32-accurate); bf16 as
-// one TF32 product -- a bf16 value is exact in TF32, so S = Q K^T and dP =
-// dO V^T are exact products, and P and dS (float32) are rounded once to
-// TF32, three more bits than the wgmma kernels' bf16 (lo is then dead
-// code)
+// d += a b for tiles of T: float32 as 3xTF32 (float32-accurate); a bf16
+// tile (exact in TF32) as one TF32 product, lo then dead code
 template <typename T>
 __device__ __forceinline__ void mma_x(float (&d)[4], const uint32_t (&ah)[4],
                                       const uint32_t (&al)[4],
@@ -1735,8 +2054,21 @@ bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
   return encode_bf16(map, base, 4, dims, strides, box);
 }
 
+// K3's GQA sum of a call's dK / dV partials (H > KV): one thread a 4
+// columns of a (b, key, kv head)
+template <typename T, int D>
+cudaError_t launch_sum(const Params& p, int B, void* stream) {
+  const int64_t total = (int64_t)B * p.Sk * p.KV * (D / 4);
+  const int blocks =
+      (int)((total + 255) / 256 < 65536 ? (total + 255) / 256 : 65536);
+  flash_bwd_dkdv_sum_f32_kernel<T, D><<<blocks, 256, 0,
+                                        (cudaStream_t)stream>>>(p, B);
+  return cudaGetLastError();
+}
+
 // parts: 1 the dQ kernel, 2 the dK / dV kernel (which reads the scratch the
-// dQ kernel wrote), 3 both in this order
+// dQ kernel wrote; at D = 256 the split kernel, then with GQA the sum of
+// its partials), 3 both in this order
 template <int D>
 int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
                 int ctas_kv, int parts, int device, void* stream) {
@@ -1760,17 +2092,30 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    if (!encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK, kRows) ||
-        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV, kRows) ||
+    constexpr bool kSplit = D == 256;   // items of 64 keys of one head
+    constexpr int kv_rows = kSplit ? kStep : kRows;
+    if (!encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK, kv_rows) ||
+        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV, kv_rows) ||
         !encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kStep) ||
         !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kStep))
       return (int)cudaErrorInvalidValue;
-    auto kernel = flash_bwd_dkdv_bf16_tc_kernel<D>;
-    err = allow_smem(kernel, dkdv_smem_bytes<D>(), device, &kv_done);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<ctas_kv, kThreads, dkdv_smem_bytes<D>(),
-             (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
-    err = cudaGetLastError();
+    if constexpr (kSplit) {
+      auto kernel = flash_bwd_dkdv_bf16_split_kernel<D>;
+      err = allow_smem(kernel, split_smem_bytes<D>(), device, &kv_done);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<ctas_kv, kThreads, split_smem_bytes<D>(),
+               (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
+      err = cudaGetLastError();
+      if (err == cudaSuccess && p.H > p.KV)
+        err = launch_sum<bf16, D>(p, B, stream);
+    } else {
+      auto kernel = flash_bwd_dkdv_bf16_tc_kernel<D>;
+      err = allow_smem(kernel, dkdv_smem_bytes<D>(), device, &kv_done);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<ctas_kv, kThreads, dkdv_smem_bytes<D>(),
+               (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
+      err = cudaGetLastError();
+    }
   }
   return (int)err;
 }
@@ -1790,12 +2135,7 @@ int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
                              f32_dkdv_smem_bytes<T, D>(), kKVThreads, p,
                              ctas_kv, 1, &kv_done, device, stream);
     if (err != cudaSuccess || p.H == p.KV) return (int)err;
-    const int64_t total = (int64_t)B * p.Sk * p.KV * (D / 4);
-    const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256
-                                                          : 65536);
-    flash_bwd_dkdv_sum_f32_kernel<T, D><<<blocks, 256, 0,
-                                          (cudaStream_t)stream>>>(p, B);
-    return (int)cudaGetLastError();
+    return (int)launch_sum<T, D>(p, B, stream);
   }
   return (int)cudaSuccess;
 }
@@ -1834,8 +2174,7 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   return true;
 }
 
-// the TF32 entry points (float32: hd 64, 128, 256; bf16: hd 256)
-template <typename T>
+// the TF32 entry point (float32: hd 64, 128, 256)
 int tf32_entry(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* dd, void* dq,
                void* dk, void* dv, int B, int S, int Sk, int H, int KV,
@@ -1843,16 +2182,13 @@ int tf32_entry(const void* q, const void* k, const void* v, const void* o,
                int prefix, int q_rows, int kv_rows, int q_step, int kv_step,
                int stages_dq, int stages_dkdv, int ctas_dq, int ctas_kv,
                int parts, int device, void* stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
   Params p;
-  const bool dims = kF32 ? (hd == 64 || hd == 128 || hd == 256) : hd == 256;
   const int step = hd == 64 ? f32_step<64>()
                             : hd == 128 ? f32_step<128>() : f32_step<256>();
   const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
-  if (!dims ||
+  if ((hd != 64 && hd != 128 && hd != 256) ||
       !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                   KV, strides, scale, causal, prefix, parts,
-                   (int)sizeof(T)) ||
+                   KV, strides, scale, causal, prefix, parts, 4) ||
       q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
       stages_dq != kFStages || stages_dkdv != kFStages ||
       (int64_t)B * H * nq >= (1ll << 31) ||
@@ -1865,21 +2201,16 @@ int tf32_entry(const void* q, const void* k, const void* v, const void* o,
   if (H > KV) p.dd += 2 * p.part_half;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kF32) {
-    switch (hd) {
-      case 64:
-        return launch_tf32<float, 64>(p, B, ctas_dq, ctas_kv, parts, device,
-                                      stream);
-      case 128:
-        return launch_tf32<float, 128>(p, B, ctas_dq, ctas_kv, parts, device,
-                                       stream);
-      default:
-        return launch_tf32<float, 256>(p, B, ctas_dq, ctas_kv, parts, device,
-                                       stream);
-    }
-  } else {
-    return launch_tf32<bf16, 256>(p, B, ctas_dq, ctas_kv, parts, device,
-                                  stream);
+  switch (hd) {
+    case 64:
+      return launch_tf32<float, 64>(p, B, ctas_dq, ctas_kv, parts, device,
+                                    stream);
+    case 128:
+      return launch_tf32<float, 128>(p, B, ctas_dq, ctas_kv, parts, device,
+                                     stream);
+    default:
+      return launch_tf32<float, 256>(p, B, ctas_dq, ctas_kv, parts, device,
+                                     stream);
   }
 }
 
@@ -1901,16 +2232,19 @@ extern "C" {
 // aligned.  Each entry point checks the plan against its own constants and
 // refuses any other.
 
-// bf16 on wgmma, hd 64 or 128.  Plan: q_rows = kv_rows = 128, q_step = 64,
-// kv_step 128 at hd 64 and 64 at 128 (dq_step), the ring depths of the two
-// kernels (4 and 4 at hd 64, 3 and 3 at 128), their persistent grids
-// ctas_dq <= B * H * nq and ctas_kv <= B * KV * nk blocks (nq = ceil(S /
-// 128), nk = ceil(Sk / 128)).  scratch: float32 [2, B * H, 128 nq] (lse2,
-// then D).  sched:
-// int32, each kernel's schedule in turn -- ctas + 1 offsets, then its
-// items, block c taking items [offsets[c], offsets[c + 1]) in order: for
-// the dQ kernel B * H * nq items (b * H + h) * nq + q-block, for the dK /
-// dV kernel B * KV * nk items (b * KV + kv head) * nk + key block.
+// bf16 on wgmma, hd 64, 128 or 256.  Plan: q_rows = 128, q_step = 64,
+// kv_step = dq_step (128 at hd 64, 64 at 128, 32 at 256); kv_rows 128 at
+// hd 64 and 128, 64 at 256; the ring depths of the two kernels (4 and 4 at
+// hd 64, 3 and 3 at 128, 3 and kSplitStages = 2 at 256); their persistent
+// grids ctas_dq <= B * H * nq and ctas_kv <= (number of dK / dV items)
+// blocks (nq = ceil(S / 128), nk = ceil(Sk / kv_rows)).  scratch: float32
+// [2, B * H, 128 nq] (lse2, then D), at hd 256 with H > KV followed by the
+// dK, dV partials 2 x [B, Sk, H, hd].  sched: int32, each kernel's
+// schedule in turn -- ctas + 1 offsets, then its items, block c taking
+// items [offsets[c], offsets[c + 1]) in order: for the dQ kernel B * H *
+// nq items (b * H + h) * nq + q-block, for the dK / dV kernel B * KV * nk
+// items (b * KV + kv head) * nk + key block, at hd 256 B * H * nk items (b
+// * H + h) * nk + key block.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* scratch, const void* sched, void* dq,
@@ -1922,55 +2256,51 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              int ctas_kv, int parts, int device,
                              void* stream) {
   Params p;
-  if ((hd != 64 && hd != 128) ||
+  const bool d256 = hd == 256;
+  const int want_kv_rows = d256 ? kStep : kRows;
+  const int want_step = hd == 64    ? dq_step<64>()
+                        : hd == 128 ? dq_step<128>()
+                                    : dq_step<256>();
+  const int want_stages_dq = hd == 64    ? dq_stages<64>()
+                             : hd == 128 ? dq_stages<128>()
+                                         : dq_stages<256>();
+  const int want_stages_kv = hd == 64    ? dkdv_stages<64>()
+                             : hd == 128 ? dkdv_stages<128>()
+                                         : kSplitStages;
+  if ((hd != 64 && hd != 128 && hd != 256) ||
       !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
                    H, KV, strides, scale, causal, prefix, parts, 2) ||
-      sched == nullptr || q_rows != kRows || kv_rows != kRows ||
-      q_step != kStep ||
-      kv_step != (hd == 64 ? dq_step<64>() : dq_step<128>()))
+      sched == nullptr || q_rows != kRows || kv_rows != want_kv_rows ||
+      q_step != kStep || kv_step != want_step ||
+      stages_dq != want_stages_dq || stages_dkdv != want_stages_kv)
     return (int)cudaErrorInvalidValue;
-  const int64_t nq = (S + kRows - 1) / kRows, nk = (Sk + kRows - 1) / kRows;
-  const int64_t n_dq = (int64_t)B * H * nq, n_kv = (int64_t)B * KV * nk;
-  const bool d64 = hd == 64;
-  if (stages_dq != (d64 ? dq_stages<64>() : dq_stages<128>()) ||
-      stages_dkdv != (d64 ? dkdv_stages<64>() : dkdv_stages<128>()) ||
-      n_dq >= (1ll << 31) || n_kv >= (1ll << 31) || ctas_dq < 1 ||
+  const int64_t nq = (S + kRows - 1) / kRows;
+  const int64_t nk = (Sk + want_kv_rows - 1) / want_kv_rows;
+  const int64_t n_dq = (int64_t)B * H * nq;
+  const int64_t n_kv = (int64_t)B * (d256 ? H : KV) * nk;
+  if (n_dq >= (1ll << 31) || n_kv >= (1ll << 31) || ctas_dq < 1 ||
       ctas_dq > n_dq || ctas_kv < 1 || ctas_kv > n_kv)
     return (int)cudaErrorInvalidValue;
   p.s_pad = (int)(nq * kRows);
   p.lse2 = static_cast<float*>(scratch);
   p.dd = p.lse2 + (int64_t)B * H * p.s_pad;
+  p.part = p.dd + (int64_t)B * H * p.s_pad;
+  p.part_half = (int64_t)B * Sk * H * hd;
   p.sched_dq = static_cast<const int*>(sched);
   p.sched_kv = p.sched_dq + ctas_dq + 1 + n_dq;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return d64 ? launch_bf16<64>(p, B, strides, ctas_dq, ctas_kv, parts,
-                               device, stream)
-             : launch_bf16<128>(p, B, strides, ctas_dq, ctas_kv, parts,
-                                device, stream);
-}
-
-// bf16 at hd 256 on mma.sync, every product one TF32 mma (the float32
-// kernels' design, bf16 tiles in shared memory).  Plan: q_rows = kv_rows =
-// 64 (kF), q_step = kv_step = f32_step (16), 2 ring slots in each kernel,
-// grids of one block an item: ctas_dq = B * H * nq and ctas_kv = B * H *
-// nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D [B, H,
-// S], after the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
-int flash_attention_bwd_bf16_mma(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const void* lse, void* dd, void* dq,
-                                 void* dk, void* dv, int B, int S, int Sk,
-                                 int H, int KV, int hd,
-                                 const long long* strides, float scale,
-                                 int causal, int prefix, int q_rows,
-                                 int kv_rows, int q_step, int kv_step,
-                                 int stages_dq, int stages_dkdv, int ctas_dq,
-                                 int ctas_kv, int parts, int device,
-                                 void* stream) {
-  return tf32_entry<bf16>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                          KV, hd, strides, scale, causal, prefix, q_rows,
-                          kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
-                          ctas_dq, ctas_kv, parts, device, stream);
+  switch (hd) {
+    case 64:
+      return launch_bf16<64>(p, B, strides, ctas_dq, ctas_kv, parts, device,
+                             stream);
+    case 128:
+      return launch_bf16<128>(p, B, strides, ctas_dq, ctas_kv, parts,
+                              device, stream);
+    default:
+      return launch_bf16<256>(p, B, strides, ctas_dq, ctas_kv, parts,
+                              device, stream);
+  }
 }
 
 // float32 as 3xTF32 on mma.sync, hd 64, 128 or 256.  Plan: q_rows =
@@ -1987,10 +2317,10 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             int kv_step, int stages_dq, int stages_dkdv,
                             int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
-  return tf32_entry<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk,
-                           H, KV, hd, strides, scale, causal, prefix, q_rows,
-                           kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
-                           ctas_dq, ctas_kv, parts, device, stream);
+  return tf32_entry(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H, KV,
+                    hd, strides, scale, causal, prefix, q_rows, kv_rows,
+                    q_step, kv_step, stages_dq, stages_dkdv, ctas_dq, ctas_kv,
+                    parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

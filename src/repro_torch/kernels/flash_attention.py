@@ -22,11 +22,11 @@ Three variants, chosen by shape before any launch (``plan``), each counted
 under its own key of ``LAUNCHES``:
 
 * ``flash_attention_bf16_tc`` -- bf16 with ``hd == hv`` in ``TC_HEAD_DIMS``
-  (every model shape): ``wgmma`` tensor cores fed by TMA, a loader warp and
-  two consumer warpgroups over 128-row blocks.
+  (every model shape, paligemma's 256 included): ``wgmma`` tensor cores fed
+  by TMA, a loader warp and two consumer warpgroups over 128-row blocks, kv
+  tiles of ``_tc_bn(hd)`` keys.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
-  ``hv != hd``, ``hd == hv == 256``: paligemma's): ``mma.sync`` tensor
-  cores, 64-row blocks.
+  ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
 * ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
 
 Beside them stands ``flash_attention_plain``: the reference kernel's own
@@ -43,14 +43,14 @@ through ``census.kernel_call``.
 
 Training goes through ``flash_attention_trainable``, a
 ``torch.autograd.Function``.  Its forward is ``flash_attention_fwd``: the
-same kernels (``hd == hv`` in ``BWD_HEAD_DIMS``) built with a flag that
-also writes the row log-sum-exp of the scaled scores, float32 [B, H, S],
-counted under the forward variant's key.  Its backward is
+``LSE_VARIANTS`` kernels (``hd == hv`` in ``BWD_HEAD_DIMS``) built with a
+flag that also writes the row log-sum-exp of the scaled scores, float32
+[B, H, S], counted under the forward variant's key.  Its backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
 (``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
-by TMA in persistent grids that walk the plan's schedule, at head dims 64
-and 128; ``flash_attention_bwd_bf16_mma`` at head dim 256, every product
-as one TF32 ``mma.sync`` (a bf16 operand is exact in TF32); or
+by TMA in persistent grids that walk the plan's schedule -- at head dim
+256 the dK / dV kernel splits dK and dV over its two consumer warpgroups
+and, with GQA, writes per-head partials a last kernel sums -- or
 ``flash_attention_bwd_f32``, every product as 3xTF32 on ``mma.sync``
 tensor cores; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
@@ -81,7 +81,7 @@ BLOCK = 128            # the reference kernel's default q / kv block
 HEAD_DIMS = (32, 64, 128, 256)
 # head dims the forward kernels take only with hd == hv
 SQUARE_HEAD_DIMS = (256,)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
 # head dims of the training path on the card (hd == hv), both dtypes
 BWD_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -90,10 +90,11 @@ TC = "flash_attention_bf16_tc"
 MMA = "flash_attention_bf16_mma"
 F32 = "flash_attention_f32"
 FWD_VARIANTS = (TC, MMA, F32)
+# the forward variants with an ``_lse`` entry point (the training path's)
+LSE_VARIANTS = (TC, F32)
 BWD_BF16 = "flash_attention_bwd_bf16"
-BWD_BF16_MMA = "flash_attention_bwd_bf16_mma"
 BWD_F32 = "flash_attention_bwd_f32"
-BWD_VARIANTS = (BWD_BF16, BWD_BF16_MMA, BWD_F32)
+BWD_VARIANTS = (BWD_BF16, BWD_F32)
 
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
@@ -187,6 +188,12 @@ def bwd_work(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     return (6 * hd + 4 * hv) * b * h * _pairs(s, causal, sk, prefix), nbytes
 
 
+def _tc_bn(hd: int) -> int:
+    """Keys of the ``wgmma`` forward's kv tile (``tc_bn``): 128, 64 at head
+    dim 256, where S of 128 keys does not fit the registers beside O."""
+    return 64 if hd == 256 else 128
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
          dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
@@ -196,11 +203,12 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     any other first).  A pure function of its arguments; the tiles walk the
     query rows, so the key length ``sk`` does not change it.
 
-    bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``,
-    else the ``mma.sync`` variant (head dim 256 among them); float32 takes
-    the CUDA-core variant.  A prefix does not change the plan."""
+    bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
+    (head dim 256 among them, kv tiles of 64 keys), else the ``mma.sync``
+    variant; float32 takes the CUDA-core variant.  A prefix does not change
+    the plan."""
     if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS:
-        variant, bq, bk = TC, 128, 128
+        variant, bq, bk = TC, 128, _tc_bn(hd)
     elif dtype == torch.bfloat16:
         variant, bq, bk = MMA, 64, 64
     elif dtype == torch.float32:
@@ -234,7 +242,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [vp] * 4 + tail
             fn.restype = ci
-        for name in FWD_VARIANTS:            # the forwards with the LSE
+        for name in LSE_VARIANTS:            # the forwards with the LSE
             fn = getattr(lib, name + "_lse")
             fn.argtypes = [vp] * 5 + tail
             fn.restype = ci
@@ -259,9 +267,8 @@ def _bwd_library():
         # stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
-        for name in (BWD_BF16_MMA, BWD_F32):
-            getattr(lib, name).argtypes = \
-                [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
+        lib.flash_attention_bwd_f32.argtypes = \
+            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
         for name in BWD_VARIANTS:
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
@@ -522,9 +529,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_attention``'s output and the row log-sum-exp of the scaled
     scores, float32 [B, H, S] (what the backward needs).  CUDA tensors
     launch ``plan``'s variant built to write the LSE (``hd == hv`` in
-    ``BWD_HEAD_DIMS``: the tensor-core variant in bf16 at 64 and 128, the
-    ``mma.sync`` one at 256, the CUDA-core one in float32); CPU tensors
-    take the plain version."""
+    ``BWD_HEAD_DIMS``: the tensor-core variant in bf16, the CUDA-core one
+    in float32); CPU tensors take the plain version."""
     b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
@@ -547,11 +553,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
 # of one (b, head) and walk the keys ``_dq_step(hd)`` at a time; the dK /
 # dV kernel's items are BWD_ROWS keys of one (b, kv head) and walk the
-# group's query rows BWD_STEP at a time.  The TF32 kernels' items (float32,
-# and bf16 at head dim 256) are F32_BWD_ROWS rows or keys, and each walks
-# ``_f32_step(hd)`` keys or rows at a time through a ring of
+# group's query rows BWD_STEP at a time -- at head dim 256 (the split
+# kernel) BWD_STEP keys of one (b, head), through BWD_SPLIT_STAGES ring
+# slots.  The float32 kernels' items are F32_BWD_ROWS rows or keys, and
+# each walks ``_f32_step(hd)`` keys or rows at a time through a ring of
 # F32_BWD_STAGES slots.
 BWD_ROWS, BWD_STEP, F32_BWD_ROWS, F32_BWD_STAGES = 128, 64, 64, 2
+BWD_SPLIT_STAGES = 2
 # which kernels a backward launch runs (the C entry points' ``parts``)
 BWD_DQ, BWD_DKDV, BWD_BOTH = 1, 2, 3
 
@@ -561,21 +569,23 @@ class BwdPlan:
     """How one backward call runs: the variant (its ``LAUNCHES`` key); the
     dQ kernel owns ``q_rows`` query rows of one (b, head) at a time and
     walks the visible keys ``kv_step`` at a time; the dK / dV kernel owns
-    ``kv_rows`` keys of one (b, kv head) and walks the group's heads and
-    their visible query rows ``q_step`` at a time.  ``stages``: the ring
-    slots of the two kernels' streamed tiles; ``smem``: the dynamic shared
-    memory of a block of each.
+    ``kv_rows`` keys of one (b, kv head) -- of one (b, head) at head dim
+    256 -- and walks the visible query rows ``q_step`` at a time.
+    ``stages``: the ring slots of the two kernels' streamed tiles;
+    ``smem``: the dynamic shared memory of a block of each.
 
     bf16 on ``wgmma``: each kernel is persistent, ``grid_*`` = (blocks, 1),
     and block ``c`` works through the items ``schedule_*[c]`` in order --
     dQ items ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV +
-    kv_head) * nk + key_block`` with ``nq = ceil(S / q_rows)``, ``nk =
-    ceil(Sk / kv_rows)``.  The TF32 kernels (float32; bf16 at head dim
-    256): one block an item, ``grid_*`` = (items, 1), no schedule: block
-    ``i`` takes q-block or key block ``i // (B H)`` (the dQ kernel's
-    reversed under causal, so the heaviest items come first) of head ``b H
-    + h = i % (B H)``; with GQA the dK / dV items write float32 partials per
-    head, which a last kernel sums by group in head order."""
+    kv_head) * nk + key_block`` (at head dim 256 ``(b * H + h) * nk +
+    key_block``, with GQA writing float32 partials per head that a last
+    kernel sums by group in head order) with ``nq = ceil(S / q_rows)``,
+    ``nk = ceil(Sk / kv_rows)``.  float32: one block an item, ``grid_*`` =
+    (items, 1), no schedule: block ``i`` takes q-block or key block ``i //
+    (B H)`` (the dQ kernel's reversed under causal, so the heaviest items
+    come first) of head ``b H + h = i % (B H)``; with GQA the dK / dV items
+    write float32 partials per head, which a last kernel sums by group in
+    head order."""
     variant: str
     q_rows: int
     kv_rows: int
@@ -592,28 +602,45 @@ class BwdPlan:
 
 
 def _bwd_stages(hd: int) -> int:
-    """Ring slots of both bf16 kernels (the 227 KB budget decides at 128)."""
+    """Ring slots of the bf16 dQ kernel, and of the dK / dV kernel at 64
+    and 128 (the 227 KB budget decides at 128 and 256)."""
     return 4 if hd == 64 else 3
 
 
 def _dq_step(hd: int) -> int:
     """Keys of the bf16 dQ kernel's kv tile: 128 at hd 64, 64 at hd 128
-    (where dQ's accumulator takes 64 registers a thread)."""
-    return 128 if hd == 64 else 64
+    (where dQ's accumulator takes 64 registers a thread), 32 at hd 256
+    (128)."""
+    return {64: 128, 128: 64}.get(hd, 32)
 
 
-def _bwd_smem(hd: int, stages: int) -> Tuple[int, int]:
+def _dq_slots(hd: int) -> int:
+    """Item slots of Q and dO in the bf16 dQ kernel: two, one at hd 256."""
+    return 1 if hd == 256 else 2
+
+
+def _bwd_smem(hd: int, stages: int,
+              kv_stages: Optional[int] = None) -> Tuple[int, int]:
     """Dynamic shared memory of a bf16 block, as ``flash_attention_bwd.cu``
-    lays it out: 1 KiB to align the base to the swizzle's period; dQ: two
-    item slots of Q and dO, ``stages`` slots of K and V tiles, 4 + 4 stages
-    mbarriers; dK / dV: two item slots of K and V, ``stages`` slots of Q,
-    dO and their 64 lse2 and D floats, 4 + 2 stages mbarriers."""
+    lays it out: 1 KiB to align the base to the swizzle's period; dQ:
+    ``_dq_slots`` item slots of Q and dO, ``stages`` slots of K and V
+    tiles, 2 slots + 4 stages mbarriers; dK / dV (``kv_stages``, default
+    ``stages``): two item slots of K and V, the ring's Q, dO and their 64
+    lse2 and D floats, 4 + 2 stages mbarriers -- at hd 256 (the split
+    kernel) one item's K and V of 64 keys, the ring, two float32 P^T
+    buffers of 128 x 32 and 2 + 2 stages + 4 mbarriers."""
+    kv_stages = stages if kv_stages is None else kv_stages
     boxes = hd // 64                         # 64-column boxes of a row
     big, step = BWD_ROWS * 128, BWD_STEP * 128   # bytes of a box
-    dq = 1024 + 4 * boxes * big + stages * 2 * boxes * _dq_step(hd) * 128 \
-        + (4 + 4 * stages) * 8
-    dkdv = 1024 + 4 * boxes * big \
-        + stages * (2 * boxes * step + 2 * BWD_STEP * 4) + (4 + 2 * stages) * 8
+    slots = _dq_slots(hd)
+    dq = 1024 + 2 * slots * boxes * big \
+        + stages * 2 * boxes * _dq_step(hd) * 128 + (2 * slots + 4 * stages) * 8
+    ring = kv_stages * (2 * boxes * step + 2 * BWD_STEP * 4)
+    if hd == 256:
+        dkdv = 1024 + 2 * boxes * step + ring + 2 * 128 * (BWD_STEP // 2) * 4 \
+            + (2 + 2 * kv_stages + 4) * 8
+    else:
+        dkdv = 1024 + 4 * boxes * big + ring + (4 + 2 * kv_stages) * 8
     return dq, dkdv
 
 
@@ -624,14 +651,14 @@ def _f32_step(hd: int) -> int:
     return 32 if hd == 64 else 16
 
 
-def _f32_bwd_smem(hd: int, el: int = 4) -> Tuple[int, int]:
-    """Dynamic shared memory of a TF32 block with elements of ``el`` bytes
-    (4 float32, 2 bf16), as ``flash_attention_bwd.cu`` lays it out in rows
-    of hd elements and 16 bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES``
-    slots of K and V tiles; dK / dV: the item's K and V, float32 P^T handed
-    between the warps of a pair ([64][step + 8]), ``F32_BWD_STAGES`` slots
-    of Q and dO tiles and their float32 lse and D."""
-    row, r, st = hd * el + 16, F32_BWD_ROWS, _f32_step(hd)
+def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
+    """Dynamic shared memory of a float32 block, as
+    ``flash_attention_bwd.cu`` lays it out in rows of hd floats and 16
+    bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V
+    tiles; dK / dV: the item's K and V, float32 P^T handed between the
+    warps of a pair ([64][step + 8]), ``F32_BWD_STAGES`` slots of Q and dO
+    tiles and their float32 lse and D."""
+    row, r, st = hd * 4 + 16, F32_BWD_ROWS, _f32_step(hd)
     dq = (2 * r + F32_BWD_STAGES * 2 * st) * row
     dkdv = (2 * r * row + r * (st + 8) * 4
             + F32_BWD_STAGES * 2 * st * (row + 4))
@@ -639,29 +666,37 @@ def _f32_bwd_smem(hd: int, el: int = 4) -> Tuple[int, int]:
 
 
 def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
-                  sk: Optional[int] = None, prefix: int = 0
+                  sk: Optional[int] = None, prefix: int = 0, hd: int = 64
                   ) -> Tuple[List[int], List[int]]:
     """The work of each bf16 item over ``s`` query rows and ``sk`` keys
-    (default ``s``), in ``BWD_STEP``-wide tiles it walks plus one for its
-    set-up (loads, D, the epilogue): dQ item ``(b * H + h) * nq + qb``
-    (``nq = ceil(s / BWD_ROWS)``) walks the keys up to its rows' last, or
-    to the prefix's last where that lies further (all ``sk`` of them when
-    not causal), in kv tiles of ``_dq_step`` keys; dK / dV item ``(b * KV +
-    kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``) walks, for each of the G
-    heads, the q tiles of ``BWD_STEP`` rows from the first that sees its
-    keys (row 0 where a key of the item lies in the prefix).  The work does
-    not depend on the head size: ``_dq_step(64)`` tiles count as two."""
+    (default ``s``), in the tiles it walks plus one for its set-up (loads,
+    D, the epilogue): dQ item ``(b * H + h) * nq + qb`` (``nq = ceil(s /
+    BWD_ROWS)``) walks the keys up to its rows' last, or to the prefix's
+    last where that lies further (all ``sk`` of them when not causal); dK /
+    dV item ``(b * KV + kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``)
+    walks, for each of the G heads, the q tiles of ``BWD_STEP`` rows from
+    the first that sees its keys (row 0 where a key of the item lies in the
+    prefix).  At head dims 64 and 128 the dQ tiles count ``BWD_STEP`` keys
+    (``_dq_step(64)`` tiles count as two).  At head dim 256 the tiles are
+    the kernels' own: the dQ item's kv tiles of ``_dq_step(256)`` keys, and
+    the dK / dV item ``(b * H + h) * nk + kb`` (``nk = ceil(sk /
+    BWD_STEP)``) walks its one head's q tiles."""
     sk = s if sk is None else sk
     _check_lengths(s, sk, causal, prefix)
-    nq, nk = _cdiv(s, BWD_ROWS), _cdiv(sk, BWD_ROWS)
-    nstep = _cdiv(s, BWD_STEP)
-    per_block = BWD_ROWS // BWD_STEP
     p = min(prefix, s)
+    nq = _cdiv(s, BWD_ROWS)
+    nstep = _cdiv(s, BWD_STEP)
+    dq_tile = _dq_step(hd) if hd == 256 else BWD_STEP
     dq = [_cdiv(max(min((qb + 1) * BWD_ROWS, s), p) if causal else sk,
-                BWD_STEP) + 1 for qb in range(nq)]
+                dq_tile) + 1 for qb in range(nq)]
+    if hd == 256:
+        dkdv = [nstep - (kb if causal and kb * BWD_STEP >= p else 0) + 1
+                for kb in range(_cdiv(sk, BWD_STEP))]
+        return dq * (b * h), dkdv * (b * h)
+    per_block = BWD_ROWS // BWD_STEP
     dkdv = [(h // kv) * (nstep - (kb * per_block
                                   if causal and kb * BWD_ROWS >= p else 0))
-            + 1 for kb in range(nk)]
+            + 1 for kb in range(_cdiv(sk, BWD_ROWS))]
     return dq * (b * h), dkdv * (b * kv)
 
 
@@ -680,10 +715,10 @@ def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
 
 
 def bwd_variant(dtype: torch.dtype, hd: int = 64) -> str:
-    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` and head
-    dim ``hd``."""
+    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` (every
+    head dim ``hd`` of a dtype takes the same one)."""
     if dtype == torch.bfloat16:
-        return BWD_BF16_MMA if hd in SQUARE_HEAD_DIMS else BWD_BF16
+        return BWD_BF16
     if dtype == torch.float32:
         return BWD_F32
     raise TypeError(f"no K3 backward variant for {dtype}")
@@ -696,15 +731,15 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     default ``s``) with a bidirectional prefix of ``prefix`` keys in
     ``dtype`` on a card of ``sms`` SMs (a pure function of its arguments,
     made once: the same object for the same shape).
-    bf16 at hd 64 and 128 on ``wgmma``: items of 128 rows or keys, the dQ
-    kernel stepping ``_dq_step`` keys at a time and the dK / dV kernel 64
-    query rows, ``_bwd_stages`` ring slots, each kernel a persistent grid
-    of at most one block an SM whose schedule ``_lpt`` makes from
-    ``bwd_item_work``; float32, and bf16 at hd 256, on ``mma.sync``
-    (3xTF32, or one TF32 product with bf16 operands): items of 64 rows or
-    keys, one block an item, heaviest first, each stepping ``_f32_step``
-    rows or keys through ``F32_BWD_STAGES`` ring slots; with GQA a last
-    kernel sums the dK / dV pass's per-head partials."""
+    bf16 on ``wgmma``: dQ items of 128 rows stepping ``_dq_step`` keys at a
+    time, dK / dV items of 128 keys (64 keys of one head at hd 256)
+    stepping 64 query rows, ``_bwd_stages`` ring slots (``BWD_SPLIT_STAGES``
+    in the dK / dV kernel at 256), each kernel a persistent grid of at most
+    one block an SM whose schedule ``_lpt`` makes from ``bwd_item_work``;
+    float32 on ``mma.sync`` (3xTF32): items of 64 rows or keys, one block
+    an item, heaviest first, each stepping ``_f32_step`` rows or keys
+    through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums the
+    dK / dV pass's per-head partials (float32, and bf16 at hd 256)."""
     return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
                      bool(causal), sms, int(prefix))
 
@@ -717,17 +752,20 @@ def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
     _check_lengths(s, sk, causal, prefix)
     variant = bwd_variant(dtype, hd)
     if variant == BWD_BF16:
-        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk, prefix)
+        work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk, prefix,
+                                           hd)
         ctas_dq, ctas_dkdv = min(len(work_dq), sms), min(len(work_dkdv), sms)
         st = _bwd_stages(hd)
-        return BwdPlan(BWD_BF16, BWD_ROWS, BWD_ROWS, BWD_STEP, _dq_step(hd),
-                       (st, st), (ctas_dq, 1), (ctas_dkdv, 1),
-                       _bwd_smem(hd, st), _lpt(work_dq, ctas_dq),
+        st_kv = BWD_SPLIT_STAGES if hd == 256 else st
+        kv_rows = BWD_STEP if hd == 256 else BWD_ROWS
+        return BwdPlan(BWD_BF16, BWD_ROWS, kv_rows, BWD_STEP, _dq_step(hd),
+                       (st, st_kv), (ctas_dq, 1), (ctas_dkdv, 1),
+                       _bwd_smem(hd, st, st_kv), _lpt(work_dq, ctas_dq),
                        _lpt(work_dkdv, ctas_dkdv))
     r, st = F32_BWD_ROWS, _f32_step(hd)
     return BwdPlan(variant, r, r, st, st, (F32_BWD_STAGES, F32_BWD_STAGES),
                    (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
-                   _f32_bwd_smem(hd, dtype.itemsize))
+                   _f32_bwd_smem(hd))
 
 
 def schedule_words(p: BwdPlan) -> List[int]:
@@ -816,11 +854,13 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     lse = lse.contiguous()
     wgmma = p.variant == BWD_BF16
     if scratch is None:
-        # wgmma: lse2, D [B H, S padded]; TF32: D [B, H, S], after the
-        # per-head dK, dV partials [2, B, Sk, H, hd] with GQA
-        shape = (2, b * h, _cdiv(s, BWD_ROWS) * BWD_ROWS) if wgmma \
-            else ((h > kv) * 2 * b * sk * h * hd + b * h * s,)
-        scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
+        # wgmma: lse2, D [B H, S padded], at hd 256 with GQA then the
+        # per-head dK, dV partials [2, B, Sk, H, hd]; float32: D [B, H, S],
+        # after those partials with GQA
+        partials = (h > kv) * 2 * b * sk * h * hd
+        n = 2 * b * h * _cdiv(s, BWD_ROWS) * BWD_ROWS \
+            + (hd == 256) * partials if wgmma else partials + b * h * s
+        scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)

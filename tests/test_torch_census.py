@@ -378,7 +378,7 @@ def test_paligemma_cells_book_k3_with_the_prefix(shape):
     (18 layers, 8 heads of 256, one kv head, 256 patches): K3 once a layer
     over patches + text with the 256 patches' bidirectional prefix, each
     entry K3's own census work with the prefix's pairs -- at head dim 256
-    the ``mma.sync`` forward and the TF32 backward; a train step under
+    the ``wgmma`` forward and backward; a train step under
     remat "dots" runs the forward (with its log-sum-exp) twice a layer (the
     checkpoint recomputes it) and the backward once; nothing in decode."""
     cfg = base.get_config("paligemma_3b")
@@ -397,15 +397,15 @@ def test_paligemma_cells_book_k3_with_the_prefix(shape):
     fwd = k3.fwd_work(b, s, h, kv, hd, hd, True, torch.bfloat16, lse=train,
                       prefix=p)
     assert fwd[0] == 4 * hd * b * h * (s * (s + 1) // 2 + p * (p - 1) // 2)
-    want = {k3.MMA: {"launches": float(passes * n),
+    want = {k3.TC: {"launches": float(passes * n),
                      "flops": float(passes * n * fwd[0]),
                      "bytes": float(passes * n * fwd[1])}}
     if train:
         bwd = k3.bwd_work(b, s, h, kv, hd, hd, True, torch.bfloat16,
                           prefix=p)
-        want[k3.BWD_BF16_MMA] = {"launches": float(n),
-                                 "flops": float(n * bwd[0]),
-                                 "bytes": float(n * bwd[1])}
+        want[k3.BWD_BF16] = {"launches": float(n),
+                             "flops": float(n * bwd[0]),
+                             "bytes": float(n * bwd[1])}
     assert kern == want
 
 

@@ -127,7 +127,6 @@ def test_cpu_tensors_never_launch():
                                   "flash_attention_bf16_mma": 0,
                                   "flash_attention_f32": 0,
                                   "flash_attention_bwd_bf16": 0,
-                                  "flash_attention_bwd_bf16_mma": 0,
                                   "flash_attention_bwd_f32": 0}
     assert k3._bound is None and k3._bwd_bound is None
 
@@ -468,18 +467,50 @@ def test_pairs_count_the_visible_pairs(s, p):
         k3.fwd_work(b, s, h, kv, d, d, True, BF16)[1]
 
 
-@pytest.mark.parametrize("dtype,variant", [(BF16, k3.MMA), (F32, k3.F32)])
-def test_plan_routes_head_dim_256(dtype, variant):
-    """paligemma's shape, hd = hv = 256: bf16 on ``mma.sync`` (the ``wgmma``
-    kernel's tiles do not fit 227 KB at 256), float32 on the CUDA cores; 64
-    query rows a block, one block a (b * h, q-block); the prefix does not
-    change the plan."""
+@pytest.mark.parametrize("dtype,want", [
+    # bf16 on wgmma: 128 query rows a tile, kv tiles of 64 keys (S of 128
+    # would not fit the registers beside O's 128), 256 tiles walked by one
+    # persistent block an SM
+    (BF16, (k3.TC, 128, 64, (132, 1))),
+    # float32 on the CUDA cores: 64 x 64, one block a (b * h, q-block)
+    (F32, (k3.F32, 64, 64, (8, 64)))])
+def test_plan_routes_head_dim_256(dtype, want):
+    """paligemma's shape, hd = hv = 256; the prefix does not change the
+    plan."""
     p = k3.plan(1, 4096, 8, 1, 256, 256, dtype)
-    assert (p.variant, p.block_q, p.block_k, p.grid) == (variant, 64, 64,
-                                                         (8, 64))
+    assert (p.variant, p.block_q, p.block_k, p.grid) == want
     q = torch.zeros((1, 4096, 8, 256), dtype=dtype)
     k = torch.zeros((1, 4096, 1, 256), dtype=dtype)
     assert k3.plan_for(q, k, k) == p
+
+
+def test_tc_plan_at_head_dim_256_matches_the_source_constants():
+    """The ``wgmma`` forward's kv tile (``tc_bn``: 64 keys at 256, 128 at 64
+    and 128) is the plan's ``block_k``; its shared memory at 256, evaluated
+    from ``tc_smem_bytes`` -- Q of 128 rows, two K / V stages of 64 keys --
+    fits a block's 227 KB; each consumer warpgroup's rows start on a kv
+    tile boundary (``tc_tiles_align``), so only its first tile is masked."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    m = re.search(r"tc_bn\(\) {\s*return D == 256 \? (\d+) : (\d+);", src)
+    assert m and (int(m[1]), int(m[2])) == (k3._tc_bn(256), k3._tc_bn(64)) \
+        == (64, 128)
+    m = re.search(r"tc_stages\(\) {\s*return D == 64 \? (\d+) : (\d+);", src)
+    assert m
+    body = re.search(r"constexpr int tc_smem_bytes\(\) {\s*return (.*?);",
+                     src, re.S)[1]
+    for d in (64, 128, 256):
+        expr = body.replace("tc_stages<D>()", m[1] if d == 64 else m[2])
+        expr = expr.replace("tc_bn<D>()", str(k3._tc_bn(d)))
+        expr = re.sub(r"\bD\b", str(d), expr).replace("kTcBM", "128")
+        expr = " ".join(expr.split()).replace("/", "//")
+        assert re.fullmatch(r"[\d\s+*/()]+", expr), expr
+        assert eval(expr) <= 232_448
+        assert k3.plan(1, 4096, 8, 1, d, d, BF16).block_k == k3._tc_bn(d)
+    assert "static_assert(tc_tiles_align<64>() && tc_tiles_align<128>() &&" \
+        in src
+    # paligemma's B=8 prefill: 512 tiles of 128 rows on the 132 SMs
+    assert k3.plan(8, 1024, 8, 1, 256, 256, BF16) == k3.Plan(
+        k3.TC, 128, 64, (132, 1))
 
 
 def test_head_dim_256_only_with_an_equal_value_width():
@@ -501,7 +532,7 @@ def test_cuda_sources_take_the_prefix():
     ``causal``; every kernel's mask goes through ``hidden`` and its
     horizon through ``causal_end``."""
     for source, names in ((k3.SOURCE, list(k3.FWD_VARIANTS)
-                           + [v + "_lse" for v in k3.FWD_VARIANTS]),
+                           + [v + "_lse" for v in k3.LSE_VARIANTS]),
                           (k3.BWD_SOURCE, list(k3.BWD_VARIANTS))):
         src = (build.CSRC_DIR / source).read_text()
         for name in names:

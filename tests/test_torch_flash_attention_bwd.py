@@ -14,6 +14,7 @@ emulation of the float32 kernels' 3xTF32 arithmetic shows, before any
 card, that it holds their 1e-4-of-scale gate.
 """
 
+import dataclasses
 import re
 
 import jax
@@ -282,10 +283,14 @@ def test_bwd_plan_matches_the_source_constants():
     assert re.search(rf"constexpr int kFStages = {k3.F32_BWD_STAGES};", src)
     for fn, want in (("dq_stages", k3._bwd_stages), ("dkdv_stages",
                                                      k3._bwd_stages),
-                     ("dq_step", k3._dq_step), ("f32_step", k3._f32_step)):
+                     ("f32_step", k3._f32_step)):
         m = re.search(rf"{fn}\(\) {{\s*return D == 64 \? (\d+) : (\d+);",
                       src)
         assert m and (int(m[1]), int(m[2])) == (want(64), want(128)), fn
+    m = re.search(r"dq_step\(\) {\s*return D == 64 \? (\d+) : D == 128 \? "
+                  r"(\d+) : (\d+);", src)
+    assert m and tuple(map(int, m.groups())) == tuple(
+        k3._dq_step(hd) for hd in (64, 128, 256))
     for hd in (64, 128):
         assert max(k3._bwd_smem(hd, k3._bwd_stages(hd))) <= SMEM_LIMIT
         # two float32 blocks (and the 1 KB the card reserves for each) fit
@@ -337,11 +342,15 @@ def test_bwd_source_defines_the_bound_entry_points():
     assert "setmaxnreg.dec" in src and "setmaxnreg.inc" in src
     assert "tma_load_4d(" in src
     kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
-    assert len(kernels) == src.count("__global__") == 5
+    assert len(kernels) == src.count("__global__") == 6
     assert all(name.startswith("flash_bwd_") for name in kernels)
     assert {"flash_bwd_dq_bf16_tc_kernel", "flash_bwd_dkdv_bf16_tc_kernel",
+            "flash_bwd_dkdv_bf16_split_kernel",
             "flash_bwd_dq_f32_tc_kernel", "flash_bwd_dkdv_f32_tc_kernel",
             "flash_bwd_dkdv_sum_f32_kernel"} == set(kernels)
+    # head dim 256 on wgmma: S and dP of 32 keys, P V-like products 256 wide
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in src
+    assert "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16" in header
     # no CUDA-core product loop is left
     assert "dot_rows" not in src
     assert "repro/kernels/flash_attention.py::_flash_kernel" in src
@@ -674,23 +683,36 @@ def test_bwd_item_work_with_a_prefix_counts_the_tiles_of_the_mask(s, p):
         k3.bwd_item_work(b, s, h, kv, True)
 
 
-@pytest.mark.parametrize("dtype,variant,smem", [
-    # bf16: the TF32 kernels with bf16 tiles in shared memory, one TF32
-    # product a product; float32: 3xTF32; items of 64 rows or keys, 16-row
-    # steps, one block an item (paligemma B=1 S=4096 H=8: 512 of each)
-    (BF16, k3.BWD_BF16_MMA, (101376, 107776)),
-    (F32, k3.BWD_F32, (199680, 206080)),
+@pytest.mark.parametrize("dtype,want", [
+    # bf16 on wgmma: dQ items of 128 rows stepping 32 keys through 3 slots
+    # (one Q / dO item slot), dK / dV items of 64 keys of one head stepping
+    # 64 rows through 2 slots (the split kernel); paligemma B=1 S=4096 H=8:
+    # 256 dQ and 512 dK / dV items over the 132 SMs
+    (BF16, (k3.BWD_BF16, 128, 64, 64, 32, (3, 2), (132, 1), (132, 1),
+            (230512, 231504))),
+    # float32: 3xTF32; items of 64 rows or keys, 16-row steps, one block an
+    # item (512 of each)
+    (F32, (k3.BWD_F32, 64, 64, 16, 16, (2, 2), (512, 1), (512, 1),
+           (199680, 206080))),
 ])
-def test_plan_bwd_of_head_dim_256(dtype, variant, smem):
+def test_plan_bwd_of_head_dim_256(dtype, want):
     p = k3.plan_bwd(1, 4096, 8, 1, 256, dtype, True, k3.H100_SMS, None, 256)
     assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
-            p.grid_dq, p.grid_dkdv, p.smem) == (
-        variant, 64, 64, 16, 16, (2, 2), (512, 1), (512, 1), smem)
+            p.grid_dq, p.grid_dkdv, p.smem) == want
     assert max(p.smem) <= SMEM_LIMIT
-    assert not p.schedule_dq and not p.schedule_dkdv
-    assert k3.bwd_variant(dtype, 256) == variant
-    # the prefix moves the wgmma schedule's work, not the TF32 grids
-    assert k3.plan_bwd(1, 4096, 8, 1, 256, dtype) == p
+    assert k3.bwd_variant(dtype, 256) == want[0]
+    plain_causal = k3.plan_bwd(1, 4096, 8, 1, 256, dtype)
+    if dtype == BF16:
+        # persistent grids with schedules; the prefix moves the items' work
+        assert p.schedule_dq and p.schedule_dkdv
+        assert plain_causal.schedule_dkdv != p.schedule_dkdv
+        assert dataclasses.replace(plain_causal, schedule_dq=(),
+                                   schedule_dkdv=()) == \
+            dataclasses.replace(p, schedule_dq=(), schedule_dkdv=())
+    else:
+        # the prefix does not change the float32 grids
+        assert not p.schedule_dq and not p.schedule_dkdv
+        assert plain_causal == p
 
 
 def test_tf32_smem_matches_the_source_layout():
@@ -707,7 +729,7 @@ def test_tf32_smem_matches_the_source_layout():
         assert dq == (2 * 64 + 2 * 2 * st) * row
         assert dkdv == 2 * 64 * row + 64 * (st + 8) * 4 + 2 * (2 * st * row
                                                                 + 2 * st * 4)
-    assert k3._f32_bwd_smem(256, 2) == (101376, 107776)
+    assert k3._f32_bwd_smem(256) == (199680, 206080)
 
 
 @pytest.mark.parametrize("b,s,h,kv,causal,p", [
@@ -717,15 +739,18 @@ def test_tf32_smem_matches_the_source_layout():
 ])
 def test_one_pass_tf32_bf16_backward_holds_the_bf16_gate(b, s, h, kv, causal,
                                                          p):
-    """The bf16 kernels at hd 256 (``flash_attention_bwd_bf16_mma``): every
-    product ONE TF32 ``mma.sync`` -- bf16 q, k, v, dO exact in TF32, P and
-    dS rounded to TF32 once -- emulated in numpy on bf16 inputs: dq, dk and
-    dv within the bf16 gate (2e-2 of scale) of the float32 plain backward,
-    and within 1e-2."""
+    """The bf16 kernels at hd 256 (``flash_attention_bwd_bf16``'s ``wgmma``
+    dQ kernel and split dK / dV kernel, which replace the one-pass TF32
+    route), emulated in numpy on bf16 q, k, v and dO: S and dP exact
+    products in float32, P = exp(S scale - lse) and dS = P (dP - D) in
+    float32, P and dS rounded to bf16 for the products dQ = dS K, dV_h =
+    P^T dO and dK_h = dS^T Q (float32 accumulation, the scale once at the
+    end), each head's dK / dV partial summed over its group in head order:
+    dq, dk and dv within the bf16 gate (2e-2 of scale) of the float32 plain
+    backward, and within 1e-2."""
     d = 256
     q, k, v, do = (a.astype(np.float32) for a in _draw(s + p, b, s, h, kv, d))
-    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
-                   for a in (q, k, v, do))
+    q, k, v, do = (_bf16(a) for a in (q, k, v, do))
     scale = d ** -0.5
     o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
                                     prefix_len=p, scale=scale)
@@ -738,22 +763,158 @@ def test_one_pass_tf32_bf16_backward_holds_the_bf16_gate(b, s, h, kv, causal,
     qh, doh = heads(q), heads(do)
     kh, vh = heads(k)[:, np.arange(h) // g], heads(v)[:, np.arange(h) // g]
     dd = heads((do * o.numpy()).sum(-1, dtype=np.float32)[..., None])[..., 0]
-    one = lambda a, c: np.matmul(_tf32(a), _tf32(c))   # noqa: E731
-    sc = one(qh, kh.swapaxes(-1, -2))
+    sc = np.matmul(qh, kh.swapaxes(-1, -2))
     pm = np.exp(sc * np.float32(scale) - lse.numpy()[..., None])
     if causal:
         i, j = np.arange(s)[:, None], np.arange(s)[None, :]
         pm = np.where((j <= i) | (j < p), pm, np.float32(0))
-    ds = pm * (one(doh, vh.swapaxes(-1, -2)) - dd[..., None])
-    got = [one(ds, kh) * np.float32(scale),
-           one(ds.swapaxes(-1, -2), qh) * np.float32(scale),
-           one(pm.swapaxes(-1, -2), doh)]
+    ds = pm * (np.matmul(doh, vh.swapaxes(-1, -2)) - dd[..., None])
+    pb, dsb = _bf16(pm), _bf16(ds)
+    dq = np.matmul(dsb, kh) * np.float32(scale)
+    dk_h = np.matmul(dsb.swapaxes(-1, -2), qh) * np.float32(scale)
+    dv_h = np.matmul(pb.swapaxes(-1, -2), doh)
+    got = [dq]
+    for part in (dk_h, dv_h):    # [b, h, s, d] -> the group's heads in order
+        part = part.reshape(b, kv, g, s, d)
+        acc = np.zeros((b, kv, s, d), np.float32)
+        for gi in range(g):
+            acc += part[:, :, gi]
+        got.append(acc)
     for i, name in enumerate(("dq", "dk", "dv")):
-        x = got[i]
-        if i:       # dK, dV: the group's heads summed
-            x = x.reshape(b, kv, g, s, d).sum(2)
-            x = x.transpose(0, 2, 1, 3)
-        else:
-            x = x.transpose(0, 2, 1, 3)
-        assert _rel(torch.from_numpy(np.ascontiguousarray(x)),
-                    plain[i].numpy()) <= 1e-2, name
+        x = np.ascontiguousarray(got[i].transpose(0, 2, 1, 3))
+        assert _rel(torch.from_numpy(x), plain[i].numpy()) <= 1e-2, name
+
+
+# --- head dim 256: the dQ kernel's one item slot, the split dK / dV kernel -----
+
+
+def _cpp_int(src, fn, d, consts):
+    """The value of ``constexpr int fn()`` of ``src`` at head dim ``d``:
+    its return expression with ``D``, the ``name<D>()`` helpers and the
+    named constants replaced by ``consts``' values, integer division."""
+    m = re.search(rf"constexpr int {fn}\(\) {{\s*return (.*?);\s*}}", src,
+                  re.S)
+    assert m, fn
+    expr = re.sub(r"(\w+)<D>\(\)", lambda x: str(consts[x[1]]), m[1])
+    expr = re.sub(r"\bD\b", str(d), expr)
+    for name, value in consts.items():
+        expr = re.sub(rf"\b{name}\b", str(value), expr)
+    expr = " ".join(expr.split()).replace("/", "//")
+    assert re.fullmatch(r"[\d\s+*/()-]+", expr), expr
+    return eval(expr)
+
+
+def test_bwd_plan_at_head_dim_256_matches_the_source_constants():
+    """The hd-256 plan's tile steps, ring depths, item slots and shared
+    memory are the source's: ``dq_step``, ``dq_stages``, ``dq_slots``,
+    ``kSplitStages``; ``_bwd_smem`` equals ``dq_smem_bytes`` and
+    ``split_smem_bytes`` evaluated from the source (and, at 64 and 128,
+    ``dq_smem_bytes`` and ``dkdv_smem_bytes``), every one within a block's
+    227 KB."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    assert re.search(rf"constexpr int kSplitStages = {k3.BWD_SPLIT_STAGES};",
+                     src)
+    assert re.search(r"constexpr int kSplitPt = 128 \* \(kStep / 2\);", src)
+    m = re.search(r"dq_slots\(\) {\s*return D == 256 \? (\d+) : (\d+);", src)
+    assert m and (int(m[1]), int(m[2])) == (k3._dq_slots(256),
+                                            k3._dq_slots(64)) == (1, 2)
+    p = k3.plan_bwd(1, 4096, 8, 1, 256, BF16)
+    assert (p.kv_step, p.q_step, p.q_rows, p.kv_rows, p.stages) == (
+        32, 64, 128, 64, (3, k3.BWD_SPLIT_STAGES))
+    for hd in (64, 128, 256):
+        st = k3._bwd_stages(hd)
+        st_kv = k3.BWD_SPLIT_STAGES if hd == 256 else st
+        consts = {"kRows": k3.BWD_ROWS, "kStep": k3.BWD_STEP,
+                  "kBoxBig": k3.BWD_ROWS * 128, "kBoxStep": k3.BWD_STEP * 128,
+                  "kSplitStages": k3.BWD_SPLIT_STAGES,
+                  "kSplitPt": 128 * (k3.BWD_STEP // 2),
+                  "dq_slots": k3._dq_slots(hd), "dq_stages": st,
+                  "dkdv_stages": st, "dq_step": k3._dq_step(hd)}
+        dq, dkdv = k3._bwd_smem(hd, st, st_kv)
+        assert dq == _cpp_int(src, "dq_smem_bytes", hd, consts)
+        assert dkdv == _cpp_int(src, "split_smem_bytes" if hd == 256
+                                else "dkdv_smem_bytes", hd, consts)
+        assert max(dq, dkdv) <= SMEM_LIMIT
+    assert k3._bwd_smem(256, 3, 2) == (230512, 231504)
+
+
+# (B, S, H, KV), prefix: paligemma's two shapes, a ragged GQA with a ragged
+# prefix, a plain causal GQA
+D256_SHAPES = [((1, 4096, 8, 1), 256), ((8, 1024, 8, 1), 256),
+               ((2, 1000, 4, 2), 77), ((1, 300, 4, 2), 0)]
+
+
+@pytest.mark.parametrize("shape,prefix", D256_SHAPES)
+def test_bwd_schedule_at_head_dim_256_covers_every_item_once_heaviest_first(
+        shape, prefix):
+    """At hd 256 each kernel's schedule holds every item exactly once --
+    dQ items of 128 rows of one (b, head), dK / dV items of 64 keys of one
+    (b, head) -- each block's list heaviest first, within LPT's bound, the
+    blocks' first items among the heaviest."""
+    b, s, h, kv = shape
+    p = k3.plan_bwd(b, s, h, kv, 256, BF16, True, k3.H100_SMS, None, prefix)
+    work_dq, work_dkdv = k3.bwd_item_work(b, s, h, kv, True, prefix=prefix,
+                                          hd=256)
+    assert len(work_dq) == b * h * -(-s // 128)
+    assert len(work_dkdv) == b * h * -(-s // 64)
+    for sched, work, grid in ((p.schedule_dq, work_dq, p.grid_dq),
+                              (p.schedule_dkdv, work_dkdv, p.grid_dkdv)):
+        assert grid == (min(len(work), k3.H100_SMS), 1)
+        assert len(sched) == grid[0] and all(sched)
+        assert sorted(i for items in sched for i in items) \
+            == list(range(len(work)))
+        for items in sched:
+            w = [work[i] for i in items]
+            assert w == sorted(w, reverse=True)
+        loads = [sum(work[i] for i in items) for items in sched]
+        assert max(loads) <= sum(work) / len(sched) + max(work)
+        firsts = sorted((work[items[0]] for items in sched), reverse=True)
+        assert firsts == sorted(work, reverse=True)[:len(sched)]
+    # the kernel reads the dK / dV schedule after the dQ one's
+    words = k3.schedule_words(p)
+    assert len(words) == (p.grid_dq[0] + 1 + len(work_dq)
+                          + p.grid_dkdv[0] + 1 + len(work_dkdv))
+
+
+@pytest.mark.parametrize("s,p", [(300, 77), (300, 256), (1000, 256),
+                                 (130, 129), (64, 1), (4096, 256)])
+def test_bwd_item_work_at_head_dim_256_counts_the_tiles_of_the_mask(s, p):
+    """At hd 256 each item walks the kernel's own tiles a brute-force mask
+    says it must, plus one for its set-up: a dQ item of 128 rows the 32-key
+    tiles up to its rows' last visible key; a dK / dV item of 64 keys of one
+    head the 64-row q tiles from the first row that sees one of its keys.
+    Not causal: every tile."""
+    b, h, kv = 2, 4, 2
+    dq, dkdv = k3.bwd_item_work(b, s, h, kv, True, prefix=p, hd=256)
+    n = min(s, 1024)             # the brute force at a prefix of the rows
+    i = np.arange(s)[:, None]
+    j = np.arange(n)[None, :]
+    seen = (j <= i) | (j < p)
+    want_dq = []
+    for qb in range(-(-s // 128)):
+        rows = np.arange(qb * 128, min(qb * 128 + 128, s))
+        last = max(int(rows.max()), min(p, s) - 1)
+        want_dq.append(-(-(last + 1) // 32) + 1)
+    want_kv = []
+    for kb in range(-(-s // 64)):
+        if kb * 64 < n:
+            first = int(np.nonzero(seen[:, kb * 64:kb * 64 + 64].any(1))[0]
+                        .min())
+        else:                     # past the brute force: past the prefix
+            first = kb * 64
+        want_kv.append(-(-s // 64) - first // 64 + 1)
+    assert dq == want_dq * (b * h) and dkdv == want_kv * (b * h)
+    # the brute-force dQ horizon, where the mask was drawn
+    for qb in range(-(-min(s, 1024) // 128)):
+        block = seen[qb * 128:(qb + 1) * 128]
+        assert int(np.nonzero(block.any(0))[0].max()) + 1 == min(
+            n, max(min(qb * 128 + 128, s), min(p, s)))
+    nc_dq, nc_kv = k3.bwd_item_work(b, s, h, kv, False, hd=256)
+    assert nc_dq == [-(-s // 32) + 1] * (b * h * -(-s // 128))
+    assert nc_kv == [-(-s // 64) + 1] * (b * h * -(-s // 64))
+
+
+def _bf16(a):
+    """float32 rounded to bf16 (to nearest, ties to even) and back."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()

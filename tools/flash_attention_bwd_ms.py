@@ -3,7 +3,7 @@
 a checkout.
 
     python3 tools/flash_attention_bwd_ms.py [--root DIR] [--iters 20]
-        [--seed 0]
+        [--seed 0] [--shapes NAME,...] [--check]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
@@ -11,15 +11,21 @@ checkouts can be compared on one card, in turns.  Calls
 of ``chip_smoke.py``'s training (d) -- stablelm-1.6b B=1 S=4096 (32 heads
 of 64) and qwen3-14b B=1 S=2048 (40 heads, 8 kv, of 128), causal; a
 ragged B=2 S=1000 (4 heads of 64, causal) and a non-causal B=1 S=512 (8
-heads, 2 kv, of 128); each in bf16 and float32 -- on seeded random inputs and
-the forward kernel's own output and log-sum-exp, on the first CUDA card.
-Prints one JSON object: per shape the milliseconds of one call (CUDA
-events around ``--iters`` back-to-back calls after a warm-up, inputs
-L2-warm where they fit), of the dQ and the dK / dV kernel alone where the
-checkout can launch them apart (``bwd_launch``), and of SDPA's backward on
-the same inputs (``torch.autograd.grad`` through
-``F.scaled_dot_product_attention``, timed only), with the card's name.
-Needs a CUDA card; exits 2 without one.
+heads, 2 kv, of 128); each in bf16 and float32 -- and on paligemma-3b's
+head-dim-256 shapes (B=1 S=4096 and B=8 S=1024, 8 heads, 1 kv, a prefix
+of 256; a ragged B=2 S=1000, 4 heads, 2 kv, prefix 77; bf16, and B=1
+S=4096 in float32) on seeded random inputs and the forward kernel's own
+output and log-sum-exp, on the first CUDA card.  Prints one JSON object:
+per shape the milliseconds of one call (CUDA events around ``--iters``
+back-to-back calls after a warm-up, inputs L2-warm where they fit), of
+the dQ and the dK / dV kernel alone where the checkout can launch them
+apart (``bwd_launch``), and of SDPA's backward on the same inputs
+(``torch.autograd.grad`` through ``F.scaled_dot_product_attention``, the
+prefix as a boolean mask; timed only), with the card's name.  ``--check``
+also holds each gradient against the plain backward on the card (within
+2e-2 of its scale in bf16, 1e-4 in float32) and against a second call,
+bitwise, and exits 1 if one fails.  Needs a CUDA card; exits 2 without
+one.
 """
 
 import argparse
@@ -27,16 +33,23 @@ import json
 import os
 import sys
 
-# (name, dtype, B, S, H, KV, d, causal)
-SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True),
-          ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128, True),
-          ("ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, 64, True),
-          ("noncausal_b1_s512_gqa", "bfloat16", 1, 512, 8, 2, 128, False),
-          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, True),
-          ("qwen3_b1_s2048_f32", "float32", 1, 2048, 40, 8, 128, True),
-          ("ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, 64, True),
-          ("noncausal_b1_s512_gqa_f32", "float32", 1, 512, 8, 2, 128,
-           False))
+# (name, dtype, B, S, H, KV, d, causal, prefix)
+SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True, 0),
+          ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128, True, 0),
+          ("ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, 64, True, 0),
+          ("noncausal_b1_s512_gqa", "bfloat16", 1, 512, 8, 2, 128, False,
+           0),
+          ("paligemma_b1_s4096", "bfloat16", 1, 4096, 8, 1, 256, True, 256),
+          ("paligemma_b8_s1024", "bfloat16", 8, 1024, 8, 1, 256, True, 256),
+          ("prefix_ragged_d256", "bfloat16", 2, 1000, 4, 2, 256, True, 77),
+          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, True,
+           0),
+          ("qwen3_b1_s2048_f32", "float32", 1, 2048, 40, 8, 128, True, 0),
+          ("ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, 64, True, 0),
+          ("noncausal_b1_s512_gqa_f32", "float32", 1, 512, 8, 2, 128, False,
+           0),
+          ("paligemma_b1_s4096_f32", "float32", 1, 4096, 8, 1, 256, True,
+           256))
 
 
 def main() -> int:
@@ -45,6 +58,9 @@ def main() -> int:
     ap.add_argument("--root", default=here)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated names (default: all)")
+    ap.add_argument("--check", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -66,35 +82,68 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
+    wanted = set(filter(None, args.shapes.split(",")))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     out = {"root": os.path.abspath(args.root),
            "device": torch.cuda.get_device_name(0), "ms": {}}
-    for name, dtype, b, s, h, kv, d, causal in SHAPES:
+    failed = []
+    for name, dtype, b, s, h, kv, d, causal, prefix in SHAPES:
+        if wanted and name not in wanted:
+            continue
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda")
                        .to(dt) for n in (h, kv, kv, h))
-        o, lse = k3.flash_attention_fwd(q, k, v, causal=causal)
+        kw = {"prefix_len": prefix} if prefix else {}
+        o, lse = k3.flash_attention_fwd(q, k, v, causal=causal, **kw)
         row = {"call": time_ms(lambda: k3.flash_attention_bwd(
-            do, q, k, v, o, lse, causal=causal))}
+            do, q, k, v, o, lse, causal=causal, **kw))}
         if hasattr(k3, "bwd_launch"):
             scale = d ** -0.5
+            pkw = {"prefix": prefix} if prefix else {}
             scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
-                                    k3.BWD_BOTH)[3]
+                                    k3.BWD_BOTH, **pkw)[3]
             row["dq"] = time_ms(lambda: k3.bwd_launch(
-                do, q, k, v, o, lse, causal, scale, k3.BWD_DQ))
+                do, q, k, v, o, lse, causal, scale, k3.BWD_DQ, **pkw))
             row["dkdv"] = time_ms(lambda: k3.bwd_launch(
-                do, q, k, v, o, lse, causal, scale, k3.BWD_DKDV, scratch))
+                do, q, k, v, o, lse, causal, scale, k3.BWD_DKDV, scratch,
+                **pkw))
+        i = torch.arange(s, device="cuda")
+        mask = ((i[None, :] <= i[:, None]) | (i[None, :] < prefix)) \
+            if prefix else None
         qs, ks, vs = (t.transpose(1, 2).requires_grad_(True)
                       for t in (q, k, v))
         lib_o = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal, enable_gqa=True)
+            qs, ks, vs, attn_mask=mask, is_causal=causal and not prefix,
+            enable_gqa=True)
         do_t = do.transpose(1, 2)
         row["sdpa"] = time_ms(lambda: torch.autograd.grad(
             lib_o, (qs, ks, vs), do_t, retain_graph=True))
+        if args.check:
+            got = k3.flash_attention_bwd(do, q, k, v, o, lse, causal=causal,
+                                         **kw)
+            again = k3.flash_attention_bwd(do, q, k, v, o, lse,
+                                           causal=causal, **kw)
+            want = k3.flash_attention_bwd_plain(do, q, k, v, o, lse,
+                                                causal=causal, **kw)
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+            errs = {}
+            for gname, x, w in zip(("dq", "dk", "dv"), got, want):
+                w = w.float()
+                errs[gname] = float((x.float() - w).abs().max()
+                                    / w.abs().max().clamp_min(1e-30))
+            row["err_of_scale"] = errs
+            row["within"] = all(e <= tol for e in errs.values())
+            row["bitwise_twice"] = all(torch.equal(x, y)
+                                       for x, y in zip(got, again))
+            if not (row["within"] and row["bitwise_twice"]):
+                failed.append(name)
+            del got, again, want
         out["ms"][name] = row
         del q, k, v, do, o, lse, qs, ks, vs, lib_o
+    if args.check:
+        out["failed"] = failed
     print(json.dumps(out))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

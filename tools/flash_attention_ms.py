@@ -2,18 +2,26 @@
 """Time of the PyTorch port's attention kernel (K3) alone, from a checkout.
 
     python3 tools/flash_attention_ms.py [--root DIR] [--iters 50]
-        [--seed 0]
+        [--seed 0] [--shapes NAME,...] [--check]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
-``repro_torch.kernels.flash_attention.flash_attention`` (causal) on the
-model shapes of ``chip_smoke.py`` -- stablelm-1.6b B=1 S=4096 and B=8
-S=1024 (32 heads of 64), qwen3-14b B=1 S=2048 (40 heads, 8 kv, of 128) in
-bf16, stablelm B=1 S=4096 in float32 -- on seeded random inputs on the
-first CUDA card, and prints one JSON object: per shape the milliseconds
-of one call (CUDA events around ``--iters`` back-to-back calls after a
-warm-up, inputs L2-warm where they fit), with the card's name.  Needs a
-CUDA card; exits 2 without one.
+``repro_torch.kernels.flash_attention.flash_attention`` (causal, with the
+shape's bidirectional prefix) on the model shapes of ``chip_smoke.py`` --
+stablelm-1.6b B=1 S=4096 and B=8 S=1024 (32 heads of 64), qwen3-14b B=1
+S=2048 (40 heads, 8 kv, of 128), paligemma-3b B=1 S=4096 and B=8 S=1024
+(8 heads, 1 kv, of 256, a prefix of 256 patches) and a ragged B=2 S=1000
+(4 heads, 2 kv, of 256, prefix 77) in bf16, stablelm B=1 S=4096 in float32
+-- on seeded random inputs on the first CUDA card, and prints one JSON
+object: per shape the milliseconds of one call (``call``; CUDA events
+around ``--iters`` back-to-back calls after a warm-up, inputs L2-warm
+where they fit), of the training forward that also writes the log-sum-exp
+(``lse``, ``flash_attention_fwd``, where the checkout has it) and of
+``F.scaled_dot_product_attention`` on the same inputs (``sdpa``; the
+prefix as a boolean mask, timed only), with the card's name.  ``--check``
+also holds each call against the plain version on the card (bf16: within
+2e-2 + 2e-2 |plain|, float32 1e-5) and against a second call, bitwise, and
+exits 1 if one fails.  Needs a CUDA card; exits 2 without one.
 """
 
 import argparse
@@ -21,11 +29,14 @@ import json
 import os
 import sys
 
-# (name, dtype, B, S, H, KV, d)
-SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64),
-          ("stablelm_b8_s1024", "bfloat16", 8, 1024, 32, 32, 64),
-          ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128),
-          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64))
+# (name, dtype, B, S, H, KV, d, prefix)
+SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, 0),
+          ("stablelm_b8_s1024", "bfloat16", 8, 1024, 32, 32, 64, 0),
+          ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128, 0),
+          ("paligemma_b1_s4096", "bfloat16", 1, 4096, 8, 1, 256, 256),
+          ("paligemma_b8_s1024", "bfloat16", 8, 1024, 8, 1, 256, 256),
+          ("prefix_ragged_d256", "bfloat16", 2, 1000, 4, 2, 256, 77),
+          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, 0))
 
 
 def main() -> int:
@@ -34,34 +45,79 @@ def main() -> int:
     ap.add_argument("--root", default=here)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated names (default: all)")
+    ap.add_argument("--check", action="store_true")
     args = ap.parse_args()
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     from repro_torch.kernels import flash_attention as k3
 
-    g = torch.Generator(device="cuda").manual_seed(args.seed)
-    out = {"root": os.path.abspath(args.root),
-           "device": torch.cuda.get_device_name(0), "ms": {}}
-    for name, dtype, b, s, h, kv, d in SHAPES:
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda")
-                   .to(dt) for n in (h, kv, kv))
+    def time_ms(fn):
         for _ in range(5):
-            k3.flash_attention(q, k, v, causal=True)
+            fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
         for _ in range(args.iters):
-            k3.flash_attention(q, k, v, causal=True)
+            fn()
         end.record()
         torch.cuda.synchronize()
-        out["ms"][name] = start.elapsed_time(end) / args.iters
+        return start.elapsed_time(end) / args.iters
+
+    wanted = set(filter(None, args.shapes.split(",")))
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    out = {"root": os.path.abspath(args.root),
+           "device": torch.cuda.get_device_name(0), "ms": {}}
+    failed = []
+    for name, dtype, b, s, h, kv, d, prefix in SHAPES:
+        if wanted and name not in wanted:
+            continue
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda")
+                   .to(dt) for n in (h, kv, kv))
+        kw = {"prefix_len": prefix} if prefix else {}
+        row = {"call": time_ms(lambda: k3.flash_attention(
+            q, k, v, causal=True, **kw))}
+        if hasattr(k3, "flash_attention_fwd") and d in k3.BWD_HEAD_DIMS:
+            row["lse"] = time_ms(lambda: k3.flash_attention_fwd(
+                q, k, v, causal=True, **kw))
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) | (i[None, :] < prefix)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        row["sdpa"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        if args.check:
+            got = k3.flash_attention(q, k, v, causal=True, **kw)
+            again = k3.flash_attention(q, k, v, causal=True, **kw)
+            want = k3.flash_attention_plain(q, k, v, causal=True,
+                                            **kw).float()
+            err = (got.float() - want).abs()
+            tol = (2e-2 + 2e-2 * want.abs()) if dt == torch.bfloat16 \
+                else (1e-5 + 1e-5 * want.abs())
+            row["max_abs_err"] = float(err.max())
+            row["within"] = bool((err <= tol).all())
+            row["bitwise_twice"] = bool(torch.equal(got, again))
+            if "lse" in row:    # the training forward: o and lse
+                o2, lse2 = k3.flash_attention_fwd(q, k, v, causal=True, **kw)
+                _, lse_want = k3._plain_forward(q, k, v, True, d ** -0.5,
+                                                prefix)
+                row["lse_max_abs_err"] = float((lse2 - lse_want).abs().max())
+                row["within"] = row["within"] and bool(
+                    torch.equal(o2, got)) and row["lse_max_abs_err"] <= 2e-3
+            if not (row["within"] and row["bitwise_twice"]):
+                failed.append(name)
+        out["ms"][name] = row
+        del q, k, v, qs, ks, vs, mask
+    if args.check:
+        out["failed"] = failed
     print(json.dumps(out))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
