@@ -15,7 +15,9 @@ on K4 and its hand-written backward), zamba2-1.2b (full width and depth,
 B=1 S=4096: every layer's scan on K4, the shared attention block at each of
 its 6 sites on K3, each with its backward) and whisper-small (full width
 and depth, B=8, 448 tokens over 1500 frames: the encoder's, the decoder's
-and the cross attention on K3 and its backward), the fused
+and the cross attention on K3 and its backward) and deepseek-v2 (full
+width, 2 layers, B=1 S=4096, Adafactor, remat "full": MLA's attention on
+K3 at (192, 128) and its backward, the routed experts), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -31,13 +33,16 @@ recurrent greedy decode), zamba2-1.2b serving (the same, with the shared
 attention block on K3 at every site and a KV cache for each) and
 whisper-small serving (an encoder over 1500 frames and a decoder with cross
 attention, every attention on K3; greedy decode against the self and the
-cross cache), each through `build_model(get_config(...))`,
-and the token `ServingEngine` over full-width stablelm-1.6b and mamba2-130m,
+cross cache), paligemma-3b and deepseek v2 / v3 serving (MLA prefill on
+K3 at (192, 128), the routed and shared experts, absorbed decode over the
+compressed cache), each through `build_model(get_config(...))`,
+and the token `ServingEngine` over stablelm-1.6b and mamba2-130m,
 and the workload census (`launch.lowering` / `launch.dryrun`: every ported
-cell traced on the meta device, six steps traced on the card and held
+cell traced on the meta device, eight steps traced on the card and held
 equal to their meta census, the census fed to `Campaign.from_artifacts`,
 `dataset.build_dataset`, the predictors and `offload.sweep_bandwidth`).
-Every phase prints one JSON object on a line of its own; any failed phase
+Every phase prints one JSON object on a line of its own, then its seconds
+as {"phase_seconds": name, "seconds": s}; any failed phase
 raises, so the exit code is non-zero and the last line is missing.  Without
 a CUDA device the script exits non-zero before printing anything.
 
@@ -69,7 +74,12 @@ Lines, in order:
                                      1500 frames, 4 steps: the same
                                      readings, K3 36 + 36 a step; (m)
                                      whisper float32 2 + 2 layers card vs
-                                     CPU; (n) whisper resume == fresh
+                                     CPU; (n) whisper resume == fresh;
+                                     (o) - (q) paligemma-3b likewise; (r)
+                                     deepseek-v2 full width, 2 layers, B=1
+                                     S=4096, Adafactor, remat "full"; (s)
+                                     v3 float32 + MTP card vs CPU, routes
+                                     first; (t) resume == fresh
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -110,10 +120,17 @@ Lines, in order:
                                      the CPU; K3 launches (36 a prefill, 0
                                      in decode), vs plain, ms, device ms by
                                      kind, idle, memory
+  {"phase": "deepseek", ...}         prefill + decode: deepseek-v2 (3
+                                     layers) and -v3 (4) at full width
+                                     (B=1 S=4096; B=8 S=1024 + 16 steps),
+                                     f32 (L=2, d 1024) also vs the CPU; K3
+                                     launches and routed-expert calls,
+                                     route flips per MoE layer, vs plain,
+                                     ms, device ms by kind, idle, memory
   {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
                                      slots, 8 requests), mamba2-130m; engine
                                      == a direct decode loop
-  {"phase": "census", ...}           meta census of every ported cell (23);
+  {"phase": "census", ...}           meta census of every ported cell (32);
                                      the card census of stablelm, mamba2
                                      and zamba2 prefill (B=1 S=4096),
                                      whisper's (B=1 S=448) and a
@@ -122,7 +139,8 @@ Lines, in order:
                                      K4 launches == entries; the census
                                      campaign (fused == exact), dataset and
                                      k-fold; offload sweep card == CPU
-  {"phase": "total", ...}            seconds the whole script took
+  {"phase": "total", ...}            seconds the whole script took, and
+                                     each phase's
   {"kernels": [...]}                 one entry per kernel: times, bound, launches
   <name>, <power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}      the last line
@@ -180,6 +198,7 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import mamba as tm  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models import whisper as tw  # noqa: E402
 from repro_torch.models import zamba as tz  # noqa: E402
@@ -414,13 +433,15 @@ def phase_build() -> dict:
     if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
         raise AssertionError(f"K3's tensor-core kernel spills (or is "
                              f"missing from the ptxas report): {tc}")
-    d256 = [r for r in out[k3.SOURCE]["kernels"]
-            if K3_D256_INSTANCE in r["kernel"]]
-    if len(d256) != 4 or any(r["spill_stores"] or r["spill_loads"]
-                             for r in d256):
-        raise AssertionError(f"K3's head-dim-256 instances (bf16 wgmma and "
-                             f"float32, with and without the LSE) spill (or "
-                             f"are missing from the ptxas report): {d256}")
+    for tag, what in ((K3_D256_INSTANCE, "head-dim-256"),
+                      (K3_MLA_INSTANCE, "(192, 128)")):
+        inst = [r for r in out[k3.SOURCE]["kernels"] if tag in r["kernel"]]
+        if len(inst) != 4 or any(r["spill_stores"] or r["spill_loads"]
+                                 for r in inst):
+            raise AssertionError(f"K3's {what} instances (bf16 wgmma and "
+                                 f"float32, with and without the LSE) spill "
+                                 f"(or are missing from the ptxas report): "
+                                 f"{inst}")
     out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
         build.build_logs[k3.BWD_SOURCE])
     bwd = [r for r in out[k3.BWD_SOURCE]["kernels"]
@@ -430,8 +451,9 @@ def phase_build() -> dict:
         raise AssertionError(f"K3's backward kernels (dQ and dK / dV: bf16 "
                              f"wgmma at hd 64, 128 and 256 -- the split dK "
                              f"/ dV kernel at 256 --, float32 at 64, 128 "
-                             f"and 256) spill (or are missing from the "
-                             f"ptxas report): {bwd}")
+                             f"and 256, TF32 at (192, 128) with float32 "
+                             f"and bf16 tiles) spill (or are missing from "
+                             f"the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
              if any(k in r["kernel"] for k in SSD_TILE_KERNELS)]
@@ -2042,6 +2064,10 @@ TOKEN_RUNS = (
      512),
     ("mamba2_bf16", "mamba2_130m", torch.bfloat16, 4, 8, (4, 16), 8, 256),
 )
+# the engine's models at full width and 12 of their 24 layers: the engine's
+# gates (every request complete, a lone request == a direct decode loop)
+# do not depend on depth, and a decode call's host time grows with it
+TOKEN_DEPTH = 12
 
 
 def token_requests(vocab: int, n: int, lens, max_new: int, seed: int):
@@ -2094,8 +2120,8 @@ def decode_call_window(model, module, slots: int, max_len: int,
 
 
 def phase_token_serving(device, seed: int) -> dict:
-    """The token ``ServingEngine`` at full width: stablelm-1.6b bf16, then
-    mamba2-130m bf16 (shorter).  Each run: the requests through the engine
+    """The token ``ServingEngine`` at full width and ``TOKEN_DEPTH`` layers:
+    stablelm-1.6b bf16, then mamba2-130m bf16 (shorter).  Each run: the requests through the engine
     (K3 and K4 counted: a decode runs neither), every request complete,
     the shared cache position inside ``max_len``; the device's idle share
     over a window of engine-shaped decode calls; request 0 alone in one
@@ -2103,7 +2129,8 @@ def phase_token_serving(device, seed: int) -> dict:
     t_phase, rows = time.perf_counter(), []
     for run, arch, dtype, slots, n, lens, max_new, max_len in TOKEN_RUNS:
         cfg = dataclasses.replace(get_config(arch),
-                                  dtype=str(dtype).split(".")[-1])
+                                  dtype=str(dtype).split(".")[-1],
+                                  num_layers=TOKEN_DEPTH)
         model = build_model(cfg)
         module = model.init(torch.Generator(device=device).manual_seed(seed),
                             device=device)
@@ -2784,6 +2811,13 @@ FLASH_CASES = (
     ("prefix_odd", 2, 1000, 4, 2, 128, 128, True, 1000, 77),
     ("prefix_past_s", 2, 300, 4, 2, 64, 64, True, 300, 1000),
     ("prefix_past_s", 2, 300, 4, 2, 128, 128, True, 300, 1000),
+    # deepseek v2 / v3 MLA prefill (a): 128 heads, q / k of 192 (128 nope +
+    # 64 rope), v of 128, H == KV; a ragged and a short causal call and a
+    # ragged non-causal one at that pair
+    ("deepseek_b1_s4096", 1, 4096, 128, 128, 192, 128, True),
+    ("mla_ragged", 2, 1000, 4, 4, 192, 128, True),
+    ("mla_short", 2, 100, 4, 4, 192, 128, True),
+    ("mla_ragged_non_causal", 1, 1000, 2, 2, 192, 128, False),
 ) + tuple(
     # a sequence within one 128-row tile (the tensor-core kernel's TMA box
     # taller than S, one partly filled tile): a short prompt on the main path
@@ -2793,7 +2827,12 @@ FLASH_CASES = (
 FLASH_HEADLINE = "stablelm_b1_s4096"
 # the model shapes: held to the main path's variant, profiled, and listed
 # in the kernels line
-FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper", "paligemma")
+FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper", "paligemma",
+                     "deepseek")
+# the cases at deepseek's (192, 128), the rows of their own in the kernels
+# line, and the one those rows report
+FLASH_MLA_CASES = ("deepseek", "mla")
+FLASH_MLA_HEADLINE = "deepseek_b1_s4096"
 # other softmax scales (the tensor-core kernel folds a positive scale into
 # its exp2 and multiplies first otherwise), causal and not: (B, S, H, KV, d)
 FLASH_SCALES = (0.3, -0.2, 0.0)
@@ -2802,8 +2841,10 @@ FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128))
 K3_SYMBOL = {torch.bfloat16: "flash_bf16_", torch.float32: "flash_f32_"}
 K3_TC_KERNEL = "flash_bf16_tc_kernel"
 # the mangled <256, ...> of K3's head-dim-256 instances (bf16 wgmma
-# <256, false|true> and float32 <256, 256, false|true>): no spills allowed
+# <256, 256, false|true> and float32 <256, 256, false|true>): no spills
+# allowed; and of its (192, 128) instances (the same four)
 K3_D256_INSTANCE = "kernelILi256E"
+K3_MLA_INSTANCE = "kernelILi192ELi128E"
 # the variant each dtype takes on the main path (every model shape, head
 # dims 64, 128 and paligemma's 256): bf16 on wgmma, float32 on the CUDA
 # cores
@@ -2889,7 +2930,7 @@ def flash_case(gen, device, case, dtype) -> dict:
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
            "library_ms": None, "library_max_abs_err": None,
            "device_ms": None}
-    if hd == hv:
+    if hd == hv or name.startswith(FLASH_MLA_CASES):
         lib = library_flash_attention(q, k, v, **kw)
         row["library_max_abs_err"] = float((lib.float() - op.float())
                                            .abs().max())
@@ -3055,7 +3096,16 @@ def grown_cache(model, cache, extra: int):
     positions (the reference's prefill cache is exactly prompt-long): the
     transformer's ``layers`` k / v, zamba2's ``attn`` k / v at each site
     and its ``ssm`` conv tails and states, or whisper's ``self`` k / v and
-    its ``cross`` k / v over the frames."""
+    its ``cross`` k / v over the frames, or deepseek's compressed
+    ``dense`` / ``moe`` entries (c_kv, k_rope)."""
+    if "moe" in cache:       # the MoE family's compressed MLA cache
+        b, s = cache["moe"]["c_kv"].shape[1:3]
+        big = model.init_cache(int(b), int(s) + extra)
+        for part in ("dense", "moe"):
+            for leaf, t in cache.get(part, {}).items():
+                big[part][leaf][:, :, :s] = t
+        big["len"] = cache["len"]
+        return big
     key = next(k for k in ("attn", "layers", "self") if k in cache)
     b, s = cache[key]["k"].shape[1:3]
     big = model.init_cache(int(b), int(s) + extra)
@@ -3275,7 +3325,7 @@ def phase_transformer(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
-def flash_rows(rows, lm, training, zb, wb, pb) -> list:
+def flash_rows(rows, lm, training, zb, wb, pb, db) -> list:
     """K3's rows: the bf16 wgmma kernel's instances at head dims 64 and 128
     (stablelm B=1 S=4096 alone), its head-dim-256 instances (64-key kv
     tiles: paligemma B=1 S=4096 with its prefix) and the float32 kernel
@@ -3286,13 +3336,16 @@ def flash_rows(rows, lm, training, zb, wb, pb) -> list:
     forward that also writes the log-sum-exp: (a), zamba2's (i), whisper's
     (l) and paligemma's (o) in bf16, (b), (j), (m) and (p) in float32),
     each counted from zero around its own run; the bf16 rows split them by
-    the head dim each path runs (paligemma's 256, the others' 64 or 128)."""
+    the head dim each path runs (paligemma's 256, the others' 64 or 128);
+    deepseek's (192, 128) has a row of its own in each dtype (its prefills
+    (a) - (c), training (r) in bf16 and (s) in float32)."""
     out = []
     # (path, phase, (run, dtype) of each of the phase's runs)
     prefill = (("prefill", lm, [(r[0], r[3]) for r in LM_RUNS]),
                ("zamba2_prefill", zb, [(r[0], r[2]) for r in ZAMBA_RUNS]),
                ("whisper_prefill", wb, [(r[0], r[2]) for r in WHISPER_RUNS]),
-               ("paligemma_prefill", pb, [(r[0], r[2]) for r in PALI_RUNS]))
+               ("paligemma_prefill", pb, [(r[0], r[2]) for r in PALI_RUNS]),
+               ("deepseek_prefill", db, [(r[0], r[3]) for r in DS_RUNS]))
     # (dtype, variant, row name, headline case, head dims, prefill paths,
     # training paths)
     heads = ((torch.bfloat16, k3.TC, k3.TC, FLASH_HEADLINE, (64, 128),
@@ -3305,7 +3358,13 @@ def flash_rows(rows, lm, training, zb, wb, pb) -> list:
               ("prefill", "zamba2_prefill", "whisper_prefill",
                "paligemma_prefill"),
               ("b_card_vs_cpu", "j_zamba2_card_vs_cpu",
-               "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu")))
+               "m_whisper_card_vs_cpu", "p_paligemma_card_vs_cpu")),
+             (torch.bfloat16, k3.TC, k3.TC + "_mla_192_128",
+              FLASH_MLA_HEADLINE, (192,), ("deepseek_prefill",),
+              ("r_deepseek_full",)),
+             (torch.float32, k3.F32, k3.F32 + "_mla_192_128",
+              FLASH_MLA_HEADLINE, (192,), ("deepseek_prefill",),
+              ("s_deepseek_card_vs_cpu",)))
     for dtype, variant, name, headline, dims, pre_paths, train_paths in heads:
         head = next(r for (d, c), r in rows.items()
                     if d == dtype and c[0] == headline)
@@ -3328,10 +3387,11 @@ def flash_rows(rows, lm, training, zb, wb, pb) -> list:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
             "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
-                      f"KV={head['KV']}, hd=hv={head['hd']}, causal, "
-                      f"prefix {head['prefix']}"),
+                      f"KV={head['KV']}, hd={head['hd']}, hv={head['hv']}, "
+                      f"causal, prefix {head['prefix']}"),
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "prefix",
+                "case", "B", "S", "Sk", "H", "KV", "hd", "hv", "causal",
+                "prefix",
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")} for r in mine
                 if r["case"].startswith(FLASH_MODEL_CASES)]}
@@ -3342,7 +3402,8 @@ def flash_rows(rows, lm, training, zb, wb, pb) -> list:
                     "sdpa_device_ms":
                         phase["perf"][run]["sdpa_calls_device_ms"],
                     "bound_ms": phase["perf"][run]["k3_calls_bound_ms"]}
-                    for run, dt in runs if dt == dtype}
+                    for run, dt in runs
+                    if dt == dtype and run in phase["perf"]}
         out.append(row)
     return out
 
@@ -4674,6 +4735,406 @@ def phase_paligemma(device, seed: int) -> dict:
     return {"launches": launches, "perf": perf}
 
 
+# --- deepseek v2 / v3 serving: MLA on K3 at (192, 128), the experts ------------
+
+DS_ARCHS = ("deepseek_v2_236b", "deepseek_v3_671b")
+# (c) and training (s) / (t): the published widths cut to d_model 1024, 8
+# heads of 192 / 128, q_lora 256, kv_lora 512, 16 experts of width 256 (each
+# model's own top-k and shared experts), 2 layers (1 dense + 1 MoE): a
+# full-width float32 MoE layer (45 GB) is more than the CPU run should hold
+DS_SMALL = dict(d_model=1024, num_heads=8, num_kv_heads=8, q_lora_rank=256,
+                kv_lora_rank=512, num_experts=16, moe_d_ff=256)
+# (run, arch, depth, dtype, B, S, decode steps, at DS_SMALL's widths): (a)
+# B=1 S=4096 and (b) B=8 S=1024 + 16 steps at full width in bf16, v2 at 3
+# layers (1 dense + 2 MoE, 160 experts), v3 at 4 (3 dense + 1 MoE, 256
+# experts); (c) float32 at depth 2 and DS_SMALL's widths, B=2 S=128, also
+# against the CPU
+DS_RUNS = (
+    ("a_v2_b1_s4096", "deepseek_v2_236b", 3, torch.bfloat16, 1, 4096, 0,
+     False),
+    ("b_v2_b8_s1024", "deepseek_v2_236b", 3, torch.bfloat16, 8, 1024, 16,
+     False),
+    ("c_v2_f32_b2_s128", "deepseek_v2_236b", 2, torch.float32, 2, 128, 1,
+     True),
+    ("a_v3_b1_s4096", "deepseek_v3_671b", 4, torch.bfloat16, 1, 4096, 0,
+     False),
+    ("b_v3_b8_s1024", "deepseek_v3_671b", 4, torch.bfloat16, 8, 1024, 16,
+     False),
+    ("c_v3_f32_b2_s128", "deepseek_v3_671b", 2, torch.float32, 2, 128, 1,
+     True))
+# the share of tokens whose top-k expert set may differ, per MoE layer,
+# between the kernel path and the plain path (or the card and the CPU): K3
+# and its plain version differ within their tolerance, and a token near a
+# tie in the next layer's router can then pick another expert
+DS_FLIP_BOUND = 0.01
+# the kinds of a deepseek prefill's device time: K3, cuBLAS, the routing's
+# top-k / sort / gather / scatter kernels, the rest
+DS_ROUTING_SYMBOLS = ("topk", "sort", "index", "gather", "scatter",
+                      "histogram", "bincount", "cub::")
+
+
+def ds_cfg(arch: str, depth: int, dtype=torch.bfloat16, small=False):
+    """``arch`` in ``dtype`` cut to ``depth`` layers (at least one MoE
+    layer), at DS_SMALL's widths where ``small``."""
+    cfg = train_mod.cut_depth(get_config(arch), depth)
+    return dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1],
+                               **(DS_SMALL if small else {}))
+
+
+class RouteLog:
+    """Keeps each MoE block's top-k expert indices [T, k] while active, in
+    call order."""
+
+    def __enter__(self):
+        self.idx = []
+        real = tmoe.route
+
+        def rec(p, cfg, xf):
+            out = real(p, cfg, xf)
+            self.idx.append(out[0].detach().clone())
+            return out
+
+        self._patch = mock.patch.object(tmoe, "route", rec)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+class LayerInputs:
+    """Keeps each prefill layer's parameters and input hidden state (``(lp,
+    x)``, in layer order) while active."""
+
+    def __enter__(self):
+        self.layers = []
+        real = tt._layer_fwd
+
+        def rec(lp, cfg, x, positions, prefix_len=0):
+            self.layers.append((lp, x.detach().clone()))
+            return real(lp, cfg, x, positions, prefix_len)
+
+        self._patch = mock.patch.object(tt, "_layer_fwd", rec)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def same_input_flips(model, inputs: list, routes: list) -> list:
+    """K3's own effect on each MoE layer's routing: each MoE layer run again
+    on the kernel path's input to it (``LayerInputs``) with K3 swapped for
+    its plain version; per MoE layer, the share of tokens whose top-k set
+    differs from the kernel path's (``routes``, one a MoE layer)."""
+    shares = []
+    moe_inputs = [(lp, x) for lp, x in inputs if "moe" in lp]
+    positions = torch.arange(moe_inputs[0][1].shape[1],
+                             device=model.device)[None]
+    for (lp, x), got in zip(moe_inputs, routes):
+        with torch.no_grad(), \
+                mock.patch.object(k3, "flash_attention",
+                                  k3.flash_attention_plain), \
+                RouteLog() as again:
+            tt._layer_fwd(lp, model.cfg, x, positions)
+        shares.append(route_flips([got], again.idx)[0][0])
+    return shares
+
+
+def route_flips(got: list, want: list):
+    """Per MoE call, the share of tokens whose top-k SET differs between two
+    runs' ``RouteLog``s; and [T] True where a token's sets agree in every
+    call."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} MoE calls against {len(want)}")
+    shares, agree = [], None
+    for a, b in zip(got, want):
+        same = (a.sort(-1).values == b.to(a.device).sort(-1).values).all(-1)
+        shares.append(1.0 - float(same.float().mean()))
+        agree = same if agree is None else agree & same
+    return shares, agree
+
+
+def masked_rel_err(got: torch.Tensor, want: torch.Tensor,
+                   mask: torch.Tensor, axis: int = 0) -> float:
+    """``rel_err`` over the [B, S] positions where ``mask`` holds, the batch
+    axis of the tensors at ``axis`` (a cache's [L, B, S, ...] at 1)."""
+    m = mask.to(want.device)
+    m = m.reshape((1,) * axis + tuple(m.shape)
+                  + (1,) * (want.dim() - axis - 2))
+    diff = torch.where(m, (got.to(want.device).float() - want.float()).abs(),
+                       0.0)
+    scale = torch.where(m, want.float().abs(), 0.0)
+    return float(diff.max()) / float(scale.max())
+
+
+def ds_cache_errs(cache, want, mask, prefix: str = "cache") -> dict:
+    return {f"{prefix}_{key}_{name}_rel_err": masked_rel_err(
+        cache[key][name], want[key][name], mask, axis=1)
+        for key in ("dense", "moe") for name in ("c_kv", "k_rope")}
+
+
+def ds_split_ms(by_name: dict, k3_symbol: str) -> dict:
+    """Device ms of a deepseek prefill's kernels by kind: K3, cuBLAS, the
+    routing (top-k, sort, gather, scatter), the rest."""
+    kinds = (("k3", (k3_symbol,)), ("routing_gather", DS_ROUTING_SYMBOLS))
+    split = {"k3": 0.0, "cublas": 0.0, "routing_gather": 0.0,
+             "elementwise_and_other": 0.0}
+    for name, ms in by_name.items():
+        split[kernel_kind(name, kinds)] += ms
+    return split
+
+
+def phase_deepseek(device, seed: int) -> dict:
+    """The main path: deepseek v2 / v3 serving, one model at a time,
+    weights drawn on the card from a CUDA generator.  Counts are zeroed
+    just before the runs' prefills and decode steps and read just after:
+    K3 once a layer per prefill (MLA at (192, 128), the ``wgmma`` variant in
+    bf16), never in decode; the routed experts once a MoE layer.  Each
+    prefill is then held against the same prefill with K3 swapped for its
+    plain version: the share of tokens whose top-k expert set differs in
+    each MoE layer (at most DS_FLIP_BOUND), then logits and the compressed
+    cache over the tokens whose routes agree in every layer, the first
+    decode step over the sequences whose decode-step routes agree; (c)
+    also against the CPU.  The flip gate is K3's own effect: each MoE layer run
+    again on the kernel path's input to it with K3's plain version.  End to
+    end, every bf16 difference cascades through the layers' bf16 products,
+    and at seed weights (a near-uniform router over 160 or 256 experts) a
+    few percent of tokens reach another expert set, whatever attention
+    runs -- reported beside it, with SDPA in K3's place for scale; in
+    float32 the end-to-end shares are gated too.  (a) and (b) are timed
+    and profiled."""
+    t_phase = time.perf_counter()
+    per_prefill, decode_launches, moe_calls = {}, {}, {}
+    checks, perf, launches = [], {}, {}
+    k3.reset_launch_counts()
+    tmoe.reset_calls()
+    for arch in DS_ARCHS:
+        runs = [r for r in DS_RUNS if r[1] == arch]
+        models = {}
+        for _, _, depth, dtype, _, _, _, small in runs:
+            if (depth, dtype, small) not in models:
+                torch.cuda.empty_cache()
+                models[(depth, dtype, small)] = build_model(
+                    ds_cfg(arch, depth, dtype, small)).init(
+                        torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+        for run, _, depth, dtype, b, s, steps, small in runs:
+            model = models[(depth, dtype, small)]
+            cfg = model.cfg
+            n_moe = cfg.num_layers - cfg.first_k_dense
+            tokens = lm_prompts(model, b, s, seed, device)
+            torch.cuda.synchronize()
+            before, calls = k3.launch_counts(), dict(tmoe.CALLS)
+            with RouteLog() as routes, LayerInputs() as inputs:
+                logits, cache = model.prefill(tokens)
+            torch.cuda.synchronize()
+            got = launches_since(before)
+            per_prefill[run] = sum(got.values())
+            moe_calls[run] = tmoe.CALLS[tmoe.MOE_FWD] - calls[tmoe.MOE_FWD]
+            first = None
+            if steps:
+                mid = k3.launch_counts()
+                with RouteLog() as dec_routes:
+                    first, gen = greedy_decode(model, logits, cache, steps)
+                torch.cuda.synchronize()
+                decode_launches[run] = sum(launches_since(mid).values())
+            for k, v in launches_since(before).items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+            if per_prefill[run] != depth or moe_calls[run] != n_moe or \
+                    decode_launches.get(run, 0):
+                raise AssertionError(
+                    f"{run}: K3 launches a prefill {per_prefill[run]} "
+                    f"(expected {depth}), routed-expert calls "
+                    f"{moe_calls[run]} (expected {n_moe}), K3 in decode "
+                    f"{decode_launches.get(run)} (expected 0)")
+            if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+                    not torch.isfinite(logits).all() or cache["len"] != s:
+                raise AssertionError(f"{run}: logits {tuple(logits.shape)}, "
+                                     f"finite {torch.isfinite(logits).all()}"
+                                     f", cache len {cache['len']}")
+            after_main = k3.launch_counts()
+            with mock.patch.object(k3, "flash_attention",
+                                   k3.flash_attention_plain), \
+                    RouteLog() as plain_routes:
+                want, want_cache = model.prefill(tokens)
+                want_first = (greedy_decode(model, logits, want_cache, 1)[0]
+                              if steps else None)
+            torch.cuda.synchronize()
+            if k3.launch_counts() != after_main:
+                raise AssertionError(f"{run}: the plain path launched K3")
+            shares, agree = route_flips(routes.idx[:n_moe],
+                                        plain_routes.idx[:n_moe])
+            mask = agree.reshape(b, s)
+            forced = same_input_flips(model, inputs.layers,
+                                      routes.idx[:n_moe])
+            del inputs
+            tol = LM_LOGIT_TOL[dtype]
+            row = {"run": run, "arch": arch, "dtype": SUFFIX[dtype],
+                   "batch": b, "seq": s, "layers": cfg.num_layers,
+                   "moe_layers": n_moe, "experts": cfg.num_experts,
+                   "experts_per_token": cfg.experts_per_token,
+                   "d_model": cfg.d_model,
+                   "route_flip_share_per_moe_layer": forced,
+                   "route_flip_share_per_moe_layer_end_to_end": shares,
+                   "tokens_with_all_routes_agreeing": int(mask.sum()),
+                   "logits_rel_err": masked_rel_err(logits, want, mask),
+                   **ds_cache_errs(cache, want_cache, mask)}
+            if not steps and not small:
+                # the library in K3's place, end to end, for scale
+                with mock.patch.object(k3, "flash_attention",
+                                       library_flash_attention), \
+                        RouteLog() as lib_routes:
+                    model.prefill(tokens)
+                row["sdpa_route_flip_share_per_moe_layer_end_to_end"] = \
+                    route_flips(lib_routes.idx, plain_routes.idx[:n_moe])[0]
+            if steps:
+                # the sequences whose first decode step routes as on the
+                # plain path in every MoE layer (the cache it reads holds
+                # the prompt's flipped positions too)
+                rows = route_flips(dec_routes.idx[:n_moe],
+                                   plain_routes.idx[n_moe:2 * n_moe])[1]
+                row["first_decode_rows_compared"] = int(rows.sum())
+                row["first_decode_logits_rel_err"] = (
+                    masked_rel_err(first, want_first, rows[:, None])
+                    if rows.any() else None)
+                row["generated_tokens"] = [int(t) for t in gen[0]]
+                if not torch.isfinite(first).all():
+                    raise AssertionError(f"{run}: non-finite decode logits")
+            if small:
+                # the port's CPU path, which the tests hold to the reference
+                cpu = build_model(cfg).init(
+                    torch.Generator().manual_seed(seed), device="cpu")
+                cpu.load_state_dict(model.state_dict())
+                t0 = time.perf_counter()
+                with RouteLog() as cpu_routes:
+                    cpu_logits, cpu_cache = cpu.prefill(tokens.cpu())
+                row["cpu_seconds"] = time.perf_counter() - t0
+                c_shares, c_agree = route_flips(routes.idx[:n_moe],
+                                                cpu_routes.idx)
+                c_mask = c_agree.reshape(b, s).cpu()
+                row["cpu_route_flip_share_per_moe_layer"] = c_shares
+                row["cpu_logits_rel_err"] = masked_rel_err(
+                    logits.cpu(), cpu_logits, c_mask)
+                row.update(ds_cache_errs(
+                    {k: {n: t.cpu() for n, t in v.items()}
+                     for k, v in cache.items() if k != "len"},
+                    cpu_cache, c_mask, "cpu_cache"))
+                forced = forced + c_shares
+                del cpu, cpu_cache, cpu_logits
+            if dtype == torch.float32:
+                forced = forced + shares
+            bad = {k: v for k, v in row.items()
+                   if k.endswith("rel_err") and v is not None and v > tol}
+            if bad or max(forced) > DS_FLIP_BOUND:
+                raise AssertionError(f"{run}: kernel path off the plain path "
+                                     f"or the CPU beyond {tol} over the "
+                                     f"tokens whose routes agree, or route "
+                                     f"flips over {DS_FLIP_BOUND}: {bad}, "
+                                     f"{forced}")
+            checks.append(row)
+            del logits, cache, want, want_cache, first, want_first
+            if small:
+                continue
+            # (a), (b): timed and profiled
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            host = host_ms(lambda: model.prefill(tokens), warmup=2)
+            peak = torch.cuda.max_memory_allocated(device)
+            ms = host["median"]
+            br = device_breakdown(lambda: model.prefill(tokens),
+                                  K3_SYMBOL[dtype])
+            bd = flash_bound(b, s, cfg.num_heads, cfg.num_heads, 192, 128,
+                             True, dtype)
+            prow = {"ms_per_prefill": ms, "ms_per_prefill_spread": host,
+                    "positions_per_s": b * s / ms * 1e3,
+                    "peak_memory_bytes": peak,
+                    "device_ms": br["device_ms"], "idle_share": None,
+                    "k3_device_ms": br["kernel_device_ms"],
+                    "device_ms_by_kind": (
+                        None if br["device_ms"] is None
+                        else ds_split_ms(br["by_name"], K3_SYMBOL[dtype])),
+                    "top": br["top"], "k3_calls": depth,
+                    "k3_calls_bound_ms": depth * bd["bound_ms"],
+                    "sdpa_calls_device_ms": sdpa_in_k3_place_ms(
+                        lambda: model.prefill(tokens), dtype)}
+            if br["device_ms"] is not None:
+                prow["idle_share"] = 1.0 - br["device_ms"] / ms
+            if steps:
+                logits, cache = model.prefill(tokens)
+                st = {}
+
+                def start():
+                    st["tok"] = logits[:, -1:].argmax(-1)
+                    st["cache"] = grown_cache(model, cache, steps)
+
+                def one_step():
+                    out, st["cache"] = model.decode_step(st["tok"],
+                                                         st["cache"])
+                    st["tok"] = out[:, -1:].argmax(-1)
+
+                window = decode_window_ms(start, one_step, steps)
+                latency = decode_latency_ms(start, one_step, steps)
+                tok = st["tok"]
+                prow["ms_per_decode_step"] = window["median"]
+                prow["ms_per_decode_step_spread"] = window
+                prow["generated_tokens_per_s"] = b / window["median"] * 1e3
+                prow["decode_step_latency_ms"] = latency["median"]
+                prow["decode_step_latency_spread"] = latency
+                big = grown_cache(model, cache, 2)
+                dec = device_breakdown(lambda: model.decode_step(tok, big),
+                                       K3_SYMBOL[dtype])
+                prow["decode_device_ms"] = dec["device_ms"]
+                prow["decode_idle_share"] = (
+                    None if dec["device_ms"] is None
+                    else 1.0 - dec["device_ms"] / prow["ms_per_decode_step"])
+                prow["decode_top"] = dec["top"]
+                del logits, cache, big, st
+            perf[run] = prow
+        del models
+        torch.cuda.empty_cache()
+    out = {"phase": "deepseek",
+           "config": "deepseek-v2-236b (d 5120, 128 heads, MLA q_lora 1536 "
+                     "kv_lora 512 nope 128 rope 64 v 128; 160 routed "
+                     "experts top-6 softmax + 2 shared of 1536; dense d_ff "
+                     "12288; vocab 102400) at 3 layers (1 dense + 2 MoE); "
+                     "deepseek-v3-671b (d 7168, the same MLA, 256 routed "
+                     "experts top-8 sigmoid + bias + 1 shared of 2048; dense "
+                     "d_ff 18432; vocab 129280; MTP head, which serving "
+                     "does not run) at 4 layers (3 dense + 1 MoE); full "
+                     "width in bf16; (c) float32 at depth 2 (1 dense + 1 "
+                     "MoE) cut to d 1024, 8 heads of 192 / 128, q_lora "
+                     "256, kv_lora 512, 16 experts of 256 (each model's own "
+                     "top-k and shared experts); prompts synth_batch(seed="
+                     f"{seed}), weights from a CUDA generator seed {seed}",
+           "launches_per_prefill": per_prefill,
+           "routed_expert_calls_per_prefill": moe_calls,
+           "launches_in_decode": decode_launches, "launches": launches,
+           "vs_plain_path": checks,
+           "logit_tolerance_rel_to_scale": {SUFFIX[d]: LM_LOGIT_TOL[d]
+                                            for d in LM_LOGIT_TOL},
+           "route_flip_bound": DS_FLIP_BOUND, "serving": perf,
+           "seconds": time.perf_counter() - t_phase,
+           "timing_note": "as paligemma's: ms_per_prefill median host "
+                          "clock over 5 after 2 warm-ups; device_ms_by_kind "
+                          "(K3, cuBLAS, routing_gather: top-k, sort, "
+                          "gather, scatter kernels, the rest) from one "
+                          "profiled prefill; idle_share = 1 - device_ms / "
+                          "ms_per_prefill; decode: windows of 16 steps; "
+                          "vs_plain_path: logits and caches over the tokens "
+                          "whose top-k sets agree in every MoE layer (end "
+                          "to end); route_flip_share_per_moe_layer: each "
+                          "MoE layer on the kernel path's input to it, K3 "
+                          "against its plain version (gated <= "
+                          "route_flip_bound); *_end_to_end: the whole "
+                          "prefill's routes against the plain path's "
+                          "(float32: gated), sdpa_*: SDPA in K3's place"}
+    emit(out)
+    return {"launches": launches, "perf": perf, "checks": checks,
+            "seconds": out["seconds"]}
+
+
 # --- training: the dense transformer on K3 and its backward --------------------
 
 TRAIN_ARCH = "stablelm-1.6b"
@@ -4722,26 +5183,34 @@ BWD_CASES = (("stablelm_b1_s4096", 1, 4096, 32, 32, 64, True, BOTH_DTYPES),
              ("prefix_past_s", 2, 300, 4, 2, 64, True, BOTH_DTYPES, 300,
               1000),
              ("prefix_past_s", 2, 300, 4, 2, 128, True, BOTH_DTYPES, 300,
-              1000))
+              1000),
+             # deepseek's MLA at (192, 128), H == KV: the prefill (a) and
+             # training (r) shape, and a ragged one
+             ("deepseek_b1_s4096", 1, 4096, 128, 128, (192, 128), True,
+              BOTH_DTYPES),
+             ("mla_ragged_b2_s1000", 2, 1000, 4, 4, (192, 128), True,
+              BOTH_DTYPES))
 BWD_HEADLINE = "stablelm_b1_s4096"
+BWD_MLA_HEADLINE = "deepseek_b1_s4096"
 BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
 # the case the bf16 backward's head-dim-256 row reports (paligemma)
 BWD_D256_HEADLINE = "paligemma_b1_s4096"
 # the backward's tensor-core kernels, bf16 (wgmma: dQ at hd 64, 128 and
-# 256, dK / dV at 64 and 128, the split dK / dV kernel at 256) and float32
-# (3xTF32 on mma.sync, hd 64, 128 and 256): 12 instances, ptxas must
-# report no spills
+# 256, dK / dV at 64 and 128, the split dK / dV kernel at 256), float32
+# (3xTF32 on mma.sync, hd 64, 128 and 256) and the TF32 kernels at (192,
+# 128) with float32 and with bf16 tiles: 16 instances, ptxas must report
+# no spills
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_split_kernel",
                   "flash_bwd_dq_f32_tc_kernel",
                   "flash_bwd_dkdv_f32_tc_kernel")
-BWD_TC_INSTANCES = 12
+BWD_TC_INSTANCES = 16
 
 
 def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
-                    prefix=0) -> dict:
+                    prefix=0, hv=None) -> dict:
     """Least time for one backward call of S queries over Sk keys (default
     S): q, k, v, o, do and the float32 log-sum-exp read once, dq, dk, dv
     written once; five products over the visible pairs (S again, dP, dV,
@@ -4749,8 +5218,8 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
     dtype's peak.  float32 also gets ``units_bound_ms``: the same work at
     the rate of the units the kernels run it on, 3xTF32 on the TF32 tensor
     cores (495 / 3 TFLOP/s)."""
-    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d, causal, dtype, sk=sk,
-                              prefix=prefix)
+    ops, nbytes = k3.bwd_work(b, s, h, kv, d, d if hv is None else hv,
+                              causal, dtype, sk=sk, prefix=prefix)
     # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
     # kernels write and read back: no input or output of the function
     nbytes -= 4 * b * h * s
@@ -5007,11 +5476,13 @@ class TimedSave:
 
 def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
                  batch: int = 1, depth: int = RESUME_DEPTH,
-                 seq: int = TRAIN_SEQ) -> dict:
-    """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper, (q) paligemma:
-    bf16 at depth ``depth`` (2, an encoder's layers too; zamba2 7) and full
-    width, S ``seq`` (4096; whisper 448 over its 1500 frames; paligemma 256
-    patches + 256 tokens), B ``batch``: 4 steps
+                 seq: int = TRAIN_SEQ, widths=None) -> dict:
+    """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper, (q) paligemma,
+    (t) deepseek-v2: bf16 at depth ``depth`` (2, an encoder's layers too;
+    zamba2 7; deepseek 1 dense + 1 MoE) and full width (deepseek at
+    ``widths``, DS_SMALL's), S ``seq`` (4096; whisper 448 over its 1500
+    frames; paligemma 256 patches + 256 tokens; deepseek 256), B
+    ``batch``: 4 steps
     with a checkpoint every 2; the step-4 checkpoint removed (a crash after
     step 2's); restored and run to 4.  The 2 losses and the final
     parameters must be bitwise the uninterrupted run's."""
@@ -5019,9 +5490,9 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
     shutil.rmtree(ckdir, ignore_errors=True)
 
     def cut(name):
-        cfg = get_config(name)
+        cfg = train_mod.cut_depth(get_config(name), depth)
         enc = {"encoder_layers": depth} if cfg.is_encoder_decoder else {}
-        return dataclasses.replace(cfg, num_layers=depth, **enc)
+        return dataclasses.replace(cfg, **enc, **(widths or {}))
 
     kw = dict(steps=RESUME_STEPS, reduced=False, seq_len=seq,
               batch=batch, ckpt_dir=ckdir, ckpt_every=RESUME_EVERY,
@@ -5050,7 +5521,7 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
     del state, final
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": depth, "dtype": "bfloat16",
-            "B": batch, "S": seq, "losses_fresh": full,
+            "widths": widths, "B": batch, "S": seq, "losses_fresh": full,
             "losses_resumed": resumed,
             "bitwise_losses_and_parameters": True,
             "checkpoints_written": written, "writes": saves.writes,
@@ -5063,13 +5534,14 @@ def bwd_case(gen, device, case, dtype) -> dict:
     call, the dQ kernel alone and the dK / dV kernel alone timed beside the
     plain version, SDPA's backward and the bound."""
     name, b, s, h, kv, d, causal = case[:7]
+    d, hv = d if isinstance(d, tuple) else (d, d)
     sk = case[8] if len(case) > 8 else s
     pre = case[9] if len(case) > 9 else 0
     kw = dict(causal=causal, prefix_len=pre)
     q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
     k = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
-    v = torch.randn((b, sk, kv, d), generator=gen, device=device).to(dtype)
-    do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, sk, kv, hv), generator=gen, device=device).to(dtype)
+    do = torch.randn((b, s, h, hv), generator=gen, device=device).to(dtype)
     o, lse = k3.flash_attention_fwd(q, k, v, **kw)
     # the forward's log-sum-exp (what the backward recomputes P from)
     # against the plain forward's, within 1e-5 of its scale
@@ -5083,8 +5555,8 @@ def bwd_case(gen, device, case, dtype) -> dict:
     del lse_plain
     plan = k3.plan_bwd(b, s, h, kv, d, dtype, causal,
                        torch.cuda.get_device_properties(device)
-                       .multi_processor_count, sk, pre)
-    if plan.variant != k3.bwd_variant(dtype, d):
+                       .multi_processor_count, sk, pre, hv)
+    if plan.variant != k3.bwd_variant(dtype, d, hv):
         raise AssertionError(f"K3 backward {name} {dtype} planned "
                              f"{plan.variant}")
     scale = d ** -0.5
@@ -5115,7 +5587,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
     # full call wrote
     scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
                             k3.BWD_BOTH, prefix=pre)[3]
-    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk, pre)
+    bd = flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk, pre, hv)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
     mask = prefix_mask(s, pre, device) if pre else None
@@ -5131,7 +5603,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
             for kern, sched in (("dq", plan.schedule_dq),
                                 ("dkdv", plan.schedule_dkdv))}
     row = {"case": name, "B": b, "S": s, "Sk": sk, "H": h, "KV": kv, "hd": d,
-           "causal": causal, "prefix": pre, "dtype": SUFFIX[dtype],
+           "hv": hv, "causal": causal, "prefix": pre, "dtype": SUFFIX[dtype],
            "plan": summary,
            "max_abs_err": max(errs), "rel_err_dq_dk_dv": rels,
            "lse_max_abs_err": lse_err,
@@ -5887,6 +6359,209 @@ def train_paligemma_card_vs_cpu(device, seed: int) -> dict:
                           "grad_of_scale": CARD_CPU_GRAD_TOL}}
 
 
+# --- training: deepseek v2 / v3 (MLA on K3 at (192, 128), the experts) -----------
+
+DS_TRAIN_ARCH = "deepseek_v2_236b"
+DS_TRAIN_SEQ = 4096
+# (r): v2 at full width, 2 layers (1 dense + 1 MoE of 160 experts):
+# parameters, gradients and Adafactor's bf16 momentum ~32 GB.  v3 at full
+# width (4 layers, 256 experts: ~95 GB) does not fit one card
+DS_TRAIN_DEPTH = 2
+# (s): v3 float32 at DS_SMALL's widths with its MTP head, B=2 S=128; (t): v2
+# bf16 at those widths, B=1 S=256
+DS_CARD_CPU_ARCH = "deepseek_v3_671b"
+DS_CARD_CPU_SEQ = 128
+DS_RESUME_SEQ = 256
+
+
+def ds_train_flops(module, cfg, b: int, s: int) -> dict:
+    """6 N_active T for the parameters that multiply a token (the routed
+    experts' k of E, the shared experts, attention, the dense FFN, the
+    router, the untied head; not the embedding's lookup), plus attention
+    over the causal pairs: 2 B H pairs (hd + hv) a layer, three times."""
+    n = sum(p.numel() for p in module.parameters())
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    idle = (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model \
+        * cfg.moe_d_ff * n_moe
+    active = n - idle - module.embed["embed_w"].numel()
+    attn = 3 * 2 * b * cfg.num_heads * k3._pairs(s, True) * (192 + 128) \
+        * cfg.num_layers
+    return {"active_params": active, "params": n,
+            "flops": 6 * active * b * s + attn, "attention_flops": attn}
+
+
+def train_deepseek_full(device, seed: int) -> dict:
+    """(r) deepseek-v2 at full width, 2 layers (1 dense + 1 MoE of 160
+    experts), bf16, B=1, S=4096, 4 steps of the config's Adafactor under
+    remat "full" through ``launch.train.train(depth=2)``; the counts are
+    zeroed just before and read just after: remat "full" recomputes each
+    layer in the backward, so a step launches K3's forward twice a layer
+    and its backward once (2 + 2, 2), and the routed experts' forward twice
+    a MoE layer and their backward once."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k3.reset_launch_counts()
+    tmoe.reset_calls()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            DS_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            seq_len=DS_TRAIN_SEQ, batch=1, seed=seed, install_signals=False,
+            log_every=1, device=device, depth=DS_TRAIN_DEPTH)
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    calls = dict(tmoe.CALLS)
+    peak = torch.cuda.max_memory_allocated(device)
+    cfg = state.params.cfg
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"deepseek training losses {losses}")
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    want = {k3.TC: 2 * cfg.num_layers * TRAIN_STEPS,
+            k3.BWD_BF16_MMA: cfg.num_layers * TRAIN_STEPS}
+    want_calls = {tmoe.MOE_FWD: 2 * n_moe * TRAIN_STEPS,
+                  tmoe.MOE_BWD: n_moe * TRAIN_STEPS}
+    if cfg.remat != "full" or cfg.optimizer != "adafactor" or \
+            launches != want or calls != want_calls:
+        raise AssertionError(f"deepseek training: K3 launches {launches} "
+                             f"(expected {want}), routed-expert calls "
+                             f"{calls} (expected {want_calls}), remat "
+                             f"{cfg.remat}, optimizer {cfg.optimizer}")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof)
+    device_ms = sum(split.values())
+    params = list(state.params.parameters())
+    grads = [p.detach() for p in params]
+    opt = optim.make_optimizer(cfg.optimizer, total_steps=TRAIN_STEPS)
+    opt_state = [state.opt]
+
+    def update():
+        opt_state[0] = opt.apply(params, grads, opt_state[0])[1]
+
+    optimizer_ms = time_ms(update, 3, warmup=1)
+    flops = ds_train_flops(state.params, cfg, 1, DS_TRAIN_SEQ)
+    out = {"arch": DS_TRAIN_ARCH, "layers": cfg.num_layers,
+           "moe_layers": n_moe, "experts": cfg.num_experts,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat, "B": 1,
+           "S": DS_TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "tokens_per_s": DS_TRAIN_SEQ / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "top_kernels": top, "optimizer_update_ms": optimizer_ms,
+           "idle_share": 1.0 - device_ms / ms,
+           "peak_memory_bytes": peak, "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": launches, "routed_expert_calls": calls,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "note": "as a_full; utilization = model flops on the ACTIVE "
+                   "parameters (ds_train_flops: k of E routed experts) / "
+                   "step time / 989 TFLOP/s; optimizer_update_ms: one "
+                   "Adafactor update of all parameters after the run (CUDA "
+                   "events, 3 runs)"}
+    del state, params, grads, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ds_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = tt.loss_fn(module, batch["tokens"], batch["labels"])
+    return loss.detach(), train_mod.api.grads_of(loss,
+                                                 list(module.parameters()))
+
+
+ROUTED = ("moe.w_in", "moe.w_gate", "moe.w_out", "moe.router")
+
+
+def train_deepseek_card_vs_cpu(device, seed: int) -> dict:
+    """(s) deepseek-v3 float32 at DS_SMALL's widths, 2 layers (1 dense + 1
+    MoE) and its MTP layer, B=2, S=128: the loss and every parameter
+    gradient on the card (K3's float32 forward and backward at (192, 128),
+    cuBLAS in full float32) against the port's CPU path from the same
+    weights and tokens.  First each MoE call's top-k sets, card against CPU
+    (the share that differs is at most DS_FLIP_BOUND); where all agree,
+    (b)'s gates on the loss and every gradient; where any differ, every
+    gradient but the routed experts' and the router's to those gates, and
+    a routed expert's only where its token set agrees."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ds_cfg(DS_CARD_CPU_ARCH, 2, torch.float32, small=True)
+    cpu = tt.Transformer(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    card = tt.Transformer(cfg, generator=torch.Generator(device=device)
+                          .manual_seed(seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", DS_CARD_CPU_SEQ, 2, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k3.reset_launch_counts()
+    with RouteLog() as card_routes:
+        loss_g, grads_g = _ds_grads(card, {k: torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in k3.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    with RouteLog() as cpu_routes:
+        loss_c, grads_c = _ds_grads(cpu, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    shares, _ = route_flips(card_routes.idx, cpu_routes.idx)
+    flipped = [int(round(sh * card_routes.idx[0].shape[0])) for sh in shares]
+    all_agree = not any(flipped)
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    # a routed expert's token set on each side (the forward's MoE call)
+    sets = [{e: set(np.nonzero((r.cpu() == e).any(-1).numpy())[0].tolist())
+             for e in range(cfg.num_experts)}
+            for r in (card_routes.idx[0], cpu_routes.idx[0])]
+    worst, errs, skipped = 0.0, {}, []
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        routed = any(name.endswith(t) for t in ROUTED)
+        scale = float(c.abs().max())
+        if routed and not all_agree:
+            if not name.endswith("moe.router"):
+                for e in range(cfg.num_experts):
+                    if sets[0][e] == sets[1][e]:
+                        err = float((g[e].cpu() - c[e]).abs().max()) / scale
+                        errs[f"{name}[{e}]"] = err
+                        worst = max(worst, err)
+                    else:
+                        skipped.append(f"{name}[{e}]")
+            else:
+                skipped.append(name)
+            continue
+        err = 0.0 if scale == 0.0 else \
+            float((g.cpu() - c).abs().max()) / scale
+        errs[name] = err
+        worst = max(worst, err)
+    if max(shares) > DS_FLIP_BOUND or worst > CARD_CPU_GRAD_TOL or \
+            (all_agree and rel_loss > CARD_CPU_LOSS_TOL):
+        raise AssertionError(f"deepseek card vs CPU training: route flips "
+                             f"{flipped}, loss rel {rel_loss}, worst "
+                             f"gradient {worst} ({errs})")
+    # remat "full": the forward twice a layer, the MTP layer's once; the
+    # backward once a layer and once for the MTP layer
+    want = {k3.F32: 2 * cfg.num_layers + 1,
+            k3.BWD_F32: cfg.num_layers + 1}
+    if launches != want:
+        raise AssertionError(f"K3 launches on the card {launches}, "
+                             f"expected {want}")
+    del card, cpu, grads_g, grads_c
+    torch.cuda.empty_cache()
+    return {"arch": DS_CARD_CPU_ARCH, "layers": cfg.num_layers,
+            "mtp_depth": cfg.mtp_depth, "dtype": "float32", "B": 2,
+            "S": DS_CARD_CPU_SEQ, "widths": DS_SMALL,
+            "route_flips_per_moe_call": flipped,
+            "route_flip_share_per_moe_call": shares,
+            "all_routes_agree": all_agree,
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_diff": rel_loss, "worst_grad_rel_diff": worst,
+            "grad_rel_diff": errs, "not_compared": skipped,
+            "launches": launches, "cpu_seconds": cpu_s,
+            "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                          "grad_of_scale": CARD_CPU_GRAD_TOL,
+                          "route_flip_share": DS_FLIP_BOUND}}
+
+
 def phase_training(device, seed: int) -> dict:
     """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
@@ -5898,7 +6573,11 @@ def phase_training(device, seed: int) -> dict:
     encoder's, the decoder's and the cross attention ((l) the full run,
     B=8, 448 tokens over 1500 frames); (o) - (q) for paligemma-3b, K3 and
     its backward at head dim 256 with the patches' bidirectional prefix
-    ((o) the full run, B=1, 256 patches + 3,840 tokens)."""
+    ((o) the full run, B=1, 256 patches + 3,840 tokens); (r) - (t) for
+    deepseek-v2 / v3, K3 and its backward at (192, 128) and the routed
+    experts' backward ((r) v2's full width, 2 layers, B=1, S=4096,
+    Adafactor, remat "full"; (s) v3 float32 with its MTP head against the
+    CPU; (t) v2 resumed)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -5942,6 +6621,14 @@ def phase_training(device, seed: int) -> dict:
         device, seed, PALI_TRAIN_ARCH, 1, PALI_DEPTH, PALI_RESUME_SEQ)
     torch.cuda.empty_cache()
     seconds["o_to_q"] = time.perf_counter() - t4
+    t5 = time.perf_counter()
+    out["r_deepseek_full"] = train_deepseek_full(device, seed)
+    out["s_deepseek_card_vs_cpu"] = train_deepseek_card_vs_cpu(device, seed)
+    out["t_deepseek_resume"] = train_resume(
+        device, seed, DS_TRAIN_ARCH, 1, DS_TRAIN_DEPTH, DS_RESUME_SEQ,
+        DS_SMALL)
+    torch.cuda.empty_cache()
+    seconds["r_to_t"] = time.perf_counter() - t5
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
     emit({"phase": "training", **out,
@@ -5959,7 +6646,14 @@ def phase_training(device, seed: int) -> dict:
                              "attention's included) 1e-4 of its scale",
                         "p": "paligemma float32 depth 2 card vs CPU: loss "
                              "1e-5 relative, every gradient (the tied "
-                             "embedding's included) 1e-4 of its scale"},
+                             "embedding's included) 1e-4 of its scale",
+                        "s": "deepseek-v3 float32 depth 2 + MTP card vs "
+                             "CPU: each MoE call's top-k sets differ for at "
+                             "most 1 % of tokens; all agreeing: loss 1e-5 "
+                             "relative and every gradient 1e-4 of its "
+                             "scale; else every gradient but the routed "
+                             "experts' and the router's, and a routed "
+                             "expert's where its token set agrees"},
           "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
                            "after 2 warm-ups; device_ms the backward's "
                            "kernels (torch.profiler, 3 calls), "
@@ -6021,7 +6715,16 @@ def bwd_rows(training, ptxas) -> list:
               "card; (j): zamba2 float32 depth 7, one site, one step; "
               "(m): whisper float32 2 + 2 layers, 6 attentions, one step; "
               "(p): paligemma float32 depth 2, one step",
-              ("kernelIfLi",)))
+              ("kernelIfLi64E", "kernelIfLi128E", "kernelIfLi256E")),
+             (torch.bfloat16, k3.BWD_BF16_MMA, k3.BWD_BF16_MMA,
+              BWD_MLA_HEADLINE, (192,), ("r_deepseek_full",),
+              "training (r): deepseek-v2 full width, depth 2, 4 steps",
+              ("kernelI13__nv_bfloat16Li192E",)),
+             (torch.float32, k3.BWD_F32, k3.BWD_F32 + "_mla_192_128",
+              BWD_MLA_HEADLINE, (192,), ("s_deepseek_card_vs_cpu",),
+              "training (s): deepseek-v3 float32 at (c)'s widths, depth 2 "
+              "with its MTP layer, one step on the card",
+              ("kernelIfLi192E",)))
     for dtype, variant, name, headline, dims, path, what, tags in heads:
         cases = [r for r in training["d_k3_backward"]
                  if r["dtype"] == SUFFIX[dtype]
@@ -6046,11 +6749,11 @@ def bwd_rows(training, ptxas) -> list:
             "device_ms": head["device_ms"], "dq_ms": head["dq_ms"],
             "dkdv_ms": head["dkdv_ms"],
             "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
-                      f"KV={head['KV']}, hd=hv={head['hd']}, causal, "
-                      f"prefix {head['prefix']}"),
+                      f"KV={head['KV']}, hd={head['hd']}, hv={head['hv']}, "
+                      f"causal, prefix {head['prefix']}"),
             "model_shapes": [{k: r[k] for k in (
-                "case", "B", "S", "Sk", "H", "KV", "hd", "causal", "prefix",
-                "ms", "dq_ms", "dkdv_ms", "device_ms", "plain_ms",
+                "case", "B", "S", "Sk", "H", "KV", "hd", "hv", "causal",
+                "prefix", "ms", "dq_ms", "dkdv_ms", "device_ms", "plain_ms",
                 "bound_ms", "bound_by", "units_bound_ms", "library_ms",
                 "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
             "ptxas": [r for r in ptxas if BWD_SYMBOL in r["kernel"]
@@ -6186,15 +6889,20 @@ CENSUS_CARD = (
     ("stablelm_1_6b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("mamba2_130m", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
     ("zamba2_1_2b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
-    ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
-    ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train")),
+    # the two train steps at 12 of their 24 layers (card == meta holds at
+    # any depth; the full-depth steps run in the training phase)
+    ("stablelm_1_6b", ShapeConfig("train_b1_s4096", 4096, 1, "train"), 12),
+    ("mamba2_130m", ShapeConfig("train_b1_s4096", 4096, 1, "train"), 12),
     # whisper (a)'s shape: 1500 frames and a 448-token prefill
     ("whisper_small", ShapeConfig("prefill_b1_s448", 448, 1, "prefill")),
     # paligemma (a)'s: 256 patches and 3,840 tokens
-    ("paligemma_3b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")))
+    ("paligemma_3b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill")),
+    # deepseek-v2 (a)'s, at its 3 layers (1 dense + 2 MoE) of full width
+    ("deepseek_v2_236b", ShapeConfig("prefill_b1_s4096", 4096, 1, "prefill"),
+     3))
 # the cells the meta census traces: dense x 3 shapes, mamba2 and zamba2 x 4,
-# whisper and paligemma x 3
-CENSUS_META_CELLS = 26
+# whisper, paligemma, deepseek v2 and v3 x 3
+CENSUS_META_CELLS = 32
 CENSUS_KEYS = ("flops", "hbm_bytes", "matmul_flops", "op_counts",
                "hbm_by_opcode", "kernels")
 # the k-fold models of the census dataset (the forest's k-fold, ~30 s a
@@ -6225,12 +6933,16 @@ def census_meta(tmp: str) -> list:
     return rows
 
 
-def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
-    """One step traced on the card at full width and depth, held equal to
-    the same step traced on the meta device; its K3 / K4 launches (counts
-    zeroed just before the traced run, read just after) equal the census's
-    kernel entries."""
+def census_card_case(arch: str, shape: ShapeConfig, device,
+                     depth=None) -> dict:
+    """One step traced on the card at full width and depth (``depth``
+    layers where given), held equal to the same step traced on the meta
+    device; its K3 / K4 launches and routed-expert calls (counts zeroed
+    just before the traced run, read just after) equal the census's kernel
+    entries."""
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = train_mod.cut_depth(cfg, depth)
     meta, meta_cost = lowering.trace(lowering.make_step(cfg, shape, "meta"))
     torch.cuda.empty_cache()
     step = lowering.make_step(cfg, shape, device)
@@ -6238,13 +6950,15 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
     untraced = host_ms(run, iters=HOST_REPEATS, warmup=1)
     k3.reset_launch_counts()
     k4.reset_launch_counts()
+    tmoe.reset_calls()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card, card_cost = lowering.trace(step)
     torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: v for k, v in {**k3.launch_counts(),
-                                  **k4.launch_counts()}.items() if v}
+                                  **k4.launch_counts(),
+                                  **tmoe.CALLS}.items() if v}
     for key in CENSUS_KEYS:
         if card[key] != meta[key]:
             raise AssertionError(f"{arch} {shape.name}: census {key} on the "
@@ -6270,6 +6984,11 @@ def census_card_case(arch: str, shape: ShapeConfig, device) -> dict:
         calls = cfg.encoder_layers + 2 * layers
         want = ({k3.TC: calls, k3.BWD_BF16: calls} if shape.kind == "train"
                 else {k3.TC: calls})
+    elif cfg.family == "moe":
+        # MLA at (192, 128); the routed experts once a MoE layer, booked by
+        # shape (a prefill only here)
+        want = {k3.TC: layers,
+                tmoe.MOE_FWD: layers - cfg.first_k_dense}
     elif cfg.family == "vlm":
         # head dim 256 on the wgmma kernels; remat "dots" recomputes the
         # forward
@@ -6414,7 +7133,7 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
 
 def phase_census(device) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device (26); seven steps traced on the card and held equal to the meta
+    device (32); eight steps traced on the card and held equal to the meta
     census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
@@ -6423,8 +7142,8 @@ def phase_census(device) -> dict:
         if len(meta_rows) != CENSUS_META_CELLS:
             raise AssertionError(f"the meta census traced {len(meta_rows)} "
                                  f"cells, expected {CENSUS_META_CELLS}")
-        card_rows = [census_card_case(arch, shape, device)
-                     for arch, shape in CENSUS_CARD]
+        card_rows = [census_card_case(arch, shape, device, *rest)
+                     for arch, shape, *rest in CENSUS_CARD]
         camp = census_campaign(tmp, device)
         preds = census_predictors(tmp, device)
     cfg = get_config(CENSUS_CARD[0][0])
@@ -6459,50 +7178,71 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
-    smi = phase_device()
-    built = phase_build()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        """``fn(*a)``, its wall seconds printed on a line of their own."""
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    smi = timed("device", phase_device)
+    built = timed("build", phase_build)
     # first after the build: in runs where it followed the ResNet phase's
     # profiles, the profiler read no device time for K3 alone
-    flash = phase_flash_attention(device, args.seed)
-    ssd = phase_ssd_scan(device, args.seed)
+    flash = timed("flash_attention", phase_flash_attention, device,
+                  args.seed)
+    ssd = timed("ssd_scan", phase_ssd_scan, device, args.seed)
     # before the later phases' profiles (see above), and while the card's
-    # memory is free: the full-width run holds ~40 GB
-    training = phase_training(device, args.seed)
+    # memory is free: the full-width runs hold up to ~55 GB
+    training = timed("training", phase_training, device, args.seed)
     workloads = make_workloads(args.seed)
     ptxas = built[kern.SOURCE]["kernels"]
-    numbers = phase_kernels(workloads, device, ptxas)
-    main_path = phase_campaign_default(workloads, device)
-    phase_campaign_resume(workloads, device, main_path["fresh64"])
-    large = phase_campaign_large(workloads, device, args.large_freq_points,
-                                 numbers)
-    models = phase_predictors(workloads, device, args.seed)
-    phase_campaign_fast(workloads, device, models, main_path["exact"])
-    adaptive = phase_adaptive(workloads, device, main_path["exact"])
-    selection = phase_selection(workloads, device, main_path["campaign64"],
-                                main_path["fresh64"], models, args.seed)
-    fabric = phase_fabric(workloads, device, main_path, adaptive)
+    numbers = timed("kernels", phase_kernels, workloads, device, ptxas)
+    main_path = timed("campaign_default", phase_campaign_default, workloads,
+                      device)
+    timed("campaign_resume", phase_campaign_resume, workloads, device,
+          main_path["fresh64"])
+    large = timed("campaign_large", phase_campaign_large, workloads, device,
+                  args.large_freq_points, numbers)
+    models = timed("predictors", phase_predictors, workloads, device,
+                   args.seed)
+    timed("campaign_fast", phase_campaign_fast, workloads, device, models,
+          main_path["exact"])
+    adaptive = timed("adaptive", phase_adaptive, workloads, device,
+                     main_path["exact"])
+    selection = timed("selection", phase_selection, workloads, device,
+                      main_path["campaign64"], main_path["fresh64"], models,
+                      args.seed)
+    fabric = timed("fabric", phase_fabric, workloads, device, main_path,
+                   adaptive)
     campaign_launches = {k: v + large[k] + adaptive["launches"][k]
                          + selection["launches"][k] + fabric["launches"][k]
                          for k, v in main_path["launches"].items()}
     cfg, models, images = resnet_inputs(device, args.seed)
-    per_dtype = phase_conv2d(device, args.seed, models[torch.bfloat16],
-                             images[32])
-    infer = phase_resnet50(device, args.seed, cfg, models, images)
+    per_dtype = timed("conv2d", phase_conv2d, device, args.seed,
+                      models[torch.bfloat16], images[32])
+    infer = timed("resnet50", phase_resnet50, device, args.seed, cfg, models,
+                  images)
     del models, images
-    lm = phase_transformer(device, args.seed)
-    mb = phase_mamba2(device, args.seed)
-    zb = phase_zamba2(device, args.seed)
-    wb = phase_whisper(device, args.seed)
-    pb = phase_paligemma(device, args.seed)
-    phase_token_serving(device, args.seed)
-    census = phase_census(device)
+    lm = timed("transformer", phase_transformer, device, args.seed)
+    mb = timed("mamba2", phase_mamba2, device, args.seed)
+    zb = timed("zamba2", phase_zamba2, device, args.seed)
+    wb = timed("whisper", phase_whisper, device, args.seed)
+    pb = timed("paligemma", phase_paligemma, device, args.seed)
+    db = timed("deepseek", phase_deepseek, device, args.seed)
+    timed("token_serving", phase_token_serving, device, args.seed)
+    census = timed("census", phase_census, device)
     campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
                          for k, v in campaign_launches.items()}
-    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "phase_seconds": seconds})
     emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
                                   selection["timing"])
           + conv_rows(per_dtype, infer)
-          + flash_rows(flash, lm, training, zb, wb, pb)
+          + flash_rows(flash, lm, training, zb, wb, pb, db)
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
           + ssd_rows(ssd, mb, training, zb)
           + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})

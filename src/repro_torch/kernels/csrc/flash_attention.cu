@@ -68,8 +68,19 @@
 //   Variants (every kernel's name starts with flash_bf16_ or flash_f32_,
 //   the profiler's symbol for K3 in each dtype):
 //
-//   flash_bf16_tc_kernel<D>   bf16, hd == hv == D in {64, 128, 256}, q, k,
-//     v 16-byte aligned with strides of whole 16 bytes: every model shape.
+//   flash_bf16_tc_kernel<HD, HV>   bf16, hd == hv in {64, 128, 256} or
+//     (hd, hv) = (192, 128) (deepseek's MLA prefill: q / k of 128 nope + 64
+//     rope columns, v of 128), q, k, v 16-byte aligned with strides of
+//     whole 16 bytes: every model shape.  Below D is hd == hv; at (192,
+//     128) Q and K tiles are 3 boxes, V and O 2, S = Q K^T 12 k16 steps
+//     (hd 128's 8 and 4 more).  There P V runs in float32 accuracy: P is
+//     split into bf16 hi = bf16(P) and lo = bf16(P - hi), two products a
+//     16-key step, lo first (32 more registers a thread).  The MoE layer
+//     after each MLA attention routes each token to its top-k experts, a
+//     choice a last-bit change of the hidden state can flip, so the
+//     kernel keeps to the plain path's float32 P V (the reference
+//     kernel's arithmetic) as closely as the tensor cores allow; the
+//     rounding of P to bf16 was the largest difference between them.
 //     Persistent: one block an SM walks the tiles of 128 query rows of one
 //     (b, h), the heaviest first, in rounds whose block order alternates so
 //     that every block gets an even share of the work.  Block = 3
@@ -132,8 +143,8 @@
 //     keys double-buffered by cp.async in row-padded shared memory; P
 //     re-used from the S fragments as above.
 //
-//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128} and hd =
-//     hv = 256.  The
+//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128}, hd = hv =
+//     256 and (192, 128).  The
 //     reference computes float32 attention in IEEE float32, so this stays on
 //     the CUDA cores (67 TFLOP/s; TF32 would break the 1e-5 tolerance).
 //     256 threads per 64-query block, tiles of 64 keys.  Q, K and V arrive
@@ -146,10 +157,11 @@
 //     memory, once, for the P V product.  Two barriers a tile.  At hd = hv
 //     = 256 two K / V buffers would take 350 KB: one buffer (212 KB), the
 //     next tile loaded after this one's P V product (three barriers a
-//     tile).
+//     tile); so at (192, 128), where two would take 230 KB (one 148 KB).
 //
-//   Training: flash_bf16_tc_kernel<D, true> and flash_f32_kernel<D, D,
-//   true> (D 64, 128, 256) (entry points *_lse) also write the row
+//   Training: flash_bf16_tc_kernel<HD, HV, true> and flash_f32_kernel<HD,
+//   HV, true> (hd == hv in {64, 128, 256}, and (192, 128)) (entry points
+//   *_lse) also write the row
 //   log-sum-exp of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale *
 //   q_i . k_j)), float32 [B, H, S], from the final running max and sum --
 //   what the backward
@@ -225,6 +237,17 @@ __device__ __forceinline__ bool hidden(int key, int row, int prefix) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
   return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// (a, b) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo holds x
+// to 16 bits of mantissa
+__device__ __forceinline__ void pack_hi_lo(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 // max and sum over the four lanes of a quad (xor 1, 2): every lane of the
@@ -424,8 +447,9 @@ constexpr int kTcBM = 128;        // query rows per block
 constexpr int kTcThreads = 384;   // loader warpgroup + 2 consumer warpgroups
 constexpr int kTcConsumerWarps = 8;
 
-// keys per kv tile: 128 at D = 64 and 128; 64 at D = 256, where S of 128
-// keys (64 registers a thread) does not fit beside O's 128
+// keys per kv tile (D the Q K^T width): 128 at D = 64, 128 and 192 (whose
+// O is 128 values wide); 64 at D = 256, where S of 128 keys (64 registers a
+// thread) does not fit beside O's 128
 template <int D>
 __host__ __device__ constexpr int tc_bn() {
   return D == 256 ? 64 : 128;
@@ -444,49 +468,58 @@ constexpr bool tc_tiles_align() {
   return tc_bn<D>() == kTcBM || 64 % tc_bn<D>() == 0;
 }
 static_assert(tc_tiles_align<64>() && tc_tiles_align<128>() &&
-                  tc_tiles_align<256>(),
+                  tc_tiles_align<192>() && tc_tiles_align<256>(),
               "a warpgroup's first kv tile is its only masked one");
 
-// slots of the K / V ring: 3 at D = 64 (32 KB a K, V pair), 2 at D = 128
-// and 256 (64 KB a pair)
+// slots of the K / V ring: 3 at D = 64 (32 KB a K, V pair), 2 at D = 128,
+// 192 (80 KB a pair) and 256 (64 KB a pair)
 template <int D>
 __host__ __device__ constexpr int tc_stages() {
   return D == 64 ? 3 : 2;
 }
 
-// shared memory: Q (128 rows), the K and V slots (tc_bn rows each), the
-// barriers, 1 KiB to align the base to the swizzle's 1024-byte period;
-// every tile is 64-column boxes of 128-byte rows
-template <int D>
+// shared memory: Q (128 rows of HD), the K slots (tc_bn rows of HD) and
+// the V slots (tc_bn rows of HV), the barriers, 1 KiB to align the base to
+// the swizzle's 1024-byte period; every tile is 64-column boxes of
+// 128-byte rows.  (192, 128): Q 48 KB, two K stages 96 KB, two V stages
+// 64 KB
+template <int HD, int HV>
 constexpr int tc_smem_bytes() {
-  return 1024 + (D / 64) * 128 * (kTcBM + 2 * tc_stages<D>() * tc_bn<D>()) +
-         (2 + 4 * tc_stages<D>()) * 8;
+  return 1024 + 128 * ((HD / 64) * kTcBM +
+                       tc_stages<HD>() * tc_bn<HD>() * ((HD + HV) / 64)) +
+         (2 + 4 * tc_stages<HD>()) * 8;
 }
-static_assert(tc_smem_bytes<64>() <= 232448 &&
-                  tc_smem_bytes<128>() <= 232448 &&
-                  tc_smem_bytes<256>() <= 232448,
+static_assert(tc_smem_bytes<64, 64>() <= 232448 &&
+                  tc_smem_bytes<128, 128>() <= 232448 &&
+                  tc_smem_bytes<192, 128>() <= 232448 &&
+                  tc_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 
-template <int D, bool kLse>
+template <int HD, int HV, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const Params p) {
-  static_assert(D == 64 || D == 128 || D == 256,
+  static_assert((HD == HV && (HD == 64 || HD == 128 || HD == 256)) ||
+                    (HD == 192 && HV == 128),
                 "head dims of the wgmma kernel");
-  constexpr int BN = tc_bn<D>();
+  constexpr int BN = tc_bn<HD>();
   constexpr int kBoxQ = kTcBM * 128;       // a 64-column box of Q
   constexpr int kBoxK = BN * 128;          // of a K or V tile
-  constexpr int kTileQ = (D / 64) * kBoxQ;
-  constexpr int kTileK = (D / 64) * kBoxK;
+  constexpr int kTileQ = (HD / 64) * kBoxQ;
+  constexpr int kTileK = (HD / 64) * kBoxK;
+  constexpr int kTileV = (HV / 64) * kBoxK;
+  // deepseek's MLA (192, 128): P V in float32 accuracy, P split into bf16
+  // hi and lo parts (module header)
+  constexpr bool kSplitP = HD != HV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  constexpr int stages = tc_stages<D>();
+  constexpr int stages = tc_stages<HD>();
   uint8_t* sQ = smem;
   uint8_t* sK = sQ + kTileQ;
   uint8_t* sV = sK + stages * kTileK;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + stages * kTileK);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + stages * kTileV);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
   uint64_t* k_empty = k_full + stages;
@@ -544,7 +577,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (j > 0) mbar_wait(q_empty, (j - 1) & 1);  // the last Q is done
         mbar_arrive_expect_tx(q_full, kTileQ);
 #pragma unroll
-        for (int cc = 0; cc < D / 64; ++cc)
+        for (int cc = 0; cc < HD / 64; ++cc)
           tma_load_4d(sQ + cc * kBoxQ, &tm_q, q_full, 64 * cc, h,
                       tl.qb * kTcBM, b);
         for (int it = 0; it < n_kv; ++it, ++ring) {
@@ -554,14 +587,14 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(&k_empty[st], free_parity);
           mbar_arrive_expect_tx(&k_full[st], kTileK);
 #pragma unroll
-          for (int cc = 0; cc < D / 64; ++cc)
+          for (int cc = 0; cc < HD / 64; ++cc)
             tma_load_4d(sK + st * kTileK + cc * kBoxK, &tm_k,
                         &k_full[st], 64 * cc, kvh, k0, b);
           mbar_wait(&v_empty[st], free_parity);
-          mbar_arrive_expect_tx(&v_full[st], kTileK);
+          mbar_arrive_expect_tx(&v_full[st], kTileV);
 #pragma unroll
-          for (int cc = 0; cc < D / 64; ++cc)
-            tma_load_4d(sV + st * kTileK + cc * kBoxK, &tm_v,
+          for (int cc = 0; cc < HV / 64; ++cc)
+            tma_load_4d(sV + st * kTileV + cc * kBoxK, &tm_v,
                         &v_full[st], 64 * cc, kvh, k0, b);
         }
       }
@@ -583,20 +616,22 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_addr = smem_u32(sQ) + cw * 64 * 128;
   int row_lo = 0, row0 = 0;  // the tile's first row of this warpgroup, thread
 
-  float o[D / 2];
+  float o[HV / 2];
   float m[2], l[2];                 // running max (log2 domain), this
                                     // thread's share of the running sum
   float s[BN / 2];                  // S, then P, of the tile in hand
   uint32_t pa[BN / 16][4];          // P in bf16 as the A fragments of P V
+  // at (192, 128) also P - bf16(P) in bf16 (kSplitP): P V as two products
+  uint32_t pl[kSplitP ? BN / 16 : 1][4];
   float corr[2];
-  // S = Q K^T of slot st: 64 rows x BN keys, D / 16 steps of 16 (a box per
+  // S = Q K^T of slot st: 64 rows x BN keys, HD / 16 steps of 16 (a box per
   // 64 columns); K-major rows of 128 bytes, 8-row groups 1 KB apart, the
   // step's 16 columns at +32 bytes inside the swizzled row.  Committed, not
   // waited for.
   auto issue_s = [&](int st) {
     const uint32_t k_addr = smem_u32(sK + st * kTileK);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_s<BN>(s, smem_desc(q_addr + (kk / 4) * kBoxQ + (kk % 4) * 32, 16,
                                1024),
                   smem_desc(k_addr + (kk / 4) * kBoxK + (kk % 4) * 32, 16,
@@ -608,10 +643,13 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // +2 KB, the 64-wide column boxes one box apart (LBO).  Committed, not
   // waited for.
   auto issue_pv = [&](int st) {
-    const uint32_t v_addr = smem_u32(sV + st * kTileK);
+    const uint32_t v_addr = smem_u32(sV + st * kTileV);
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-      wgmma_pv<D>(o, pa[j], smem_desc(v_addr + j * 2048, kBoxK, 1024));
+    for (int j = 0; j < BN / 16; ++j) {
+      const uint64_t dv = smem_desc(v_addr + j * 2048, kBoxK, 1024);
+      if constexpr (kSplitP) wgmma_pv<HV>(o, pl[j], dv);  // small terms first
+      wgmma_pv<HV>(o, pa[j], dv);
+    }
     wgmma_commit();
   };
   // The online softmax of s (keys [k0, k0 + BN)): mask by position where
@@ -690,7 +728,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // are the A fragment of key step j
   auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < HV / 8; ++n) {
       o[4 * n] *= corr[0];
       o[4 * n + 1] *= corr[0];
       o[4 * n + 2] *= corr[1];
@@ -698,15 +736,25 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {
-      pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
-      pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-      pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-      pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      if constexpr (kSplitP) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pack_hi_lo(s[8 * j + 2 * e], s[8 * j + 2 * e + 1], pa[j][e],
+                     pl[j][e]);
+      } else {
+        pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+        pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
     }
   };
   auto fence_pa = [&]() {
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) fence_frag(pa[j]);
+    for (int j = 0; j < BN / 16; ++j) {
+      fence_frag(pa[j]);
+      if constexpr (kSplitP) fence_frag(pl[j]);
+    }
   };
 
   // The two consumer warpgroups take turns to issue their products (named
@@ -734,7 +782,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int skip = BN < kTcBM ? n_kv - n : 0;
     const bool last_tile = j + 1 == n_mine;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < HV / 2; ++i) o[i] = 0.0f;
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
 
@@ -834,7 +882,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       bf16* orow = op + row * p.os_s;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < HV / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
             pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
     }
@@ -1422,17 +1470,17 @@ bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
   return encode_bf16(map, base, 4, dims, strides, box);
 }
 
-template <int D, bool kLse>
+template <int HD, int HV, bool kLse>
 int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
               const CUtensorMap& tm_v, const Params& p, int gx, int gy,
               int device, void* stream) {
   static unsigned done = 0;
-  auto kernel = flash_bf16_tc_kernel<D, kLse>;
+  auto kernel = flash_bf16_tc_kernel<HD, HV, kLse>;
+  constexpr int smem = tc_smem_bytes<HD, HV>();
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = allow_smem(kernel, tc_smem_bytes<D>(), device, &done);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem, device, &done);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((unsigned)gx, (unsigned)gy), kTcThreads, tc_smem_bytes<D>(),
+  kernel<<<dim3((unsigned)gx, (unsigned)gy), kTcThreads, smem,
            (cudaStream_t)stream>>>(tm_q, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }
@@ -1447,8 +1495,10 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
   const int64_t n_tiles = (int64_t)B * H * ((S + kTcBM - 1) / kTcBM);
   const int bn = hd == 64    ? tc_bn<64>()
                  : hd == 128 ? tc_bn<128>()
+                 : hd == 192 ? tc_bn<192>()
                              : tc_bn<256>();
-  if (hd != hv || (hd != 64 && hd != 128 && hd != 256) || B < 1 ||
+  const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  if (!(square || (hd == 192 && hv == 128)) || B < 1 ||
       !lengths_fit(S, Sk, causal, prefix) || KV < 1 || H % KV ||
       block_q != kTcBM || block_k != bn || gx < 1 || gx > n_tiles ||
       gy != 1 || !rows_aligned16(q, k, v, o, strides, 2))
@@ -1463,18 +1513,22 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
   p.bh = B * H;
   p.lse = lse;
   switch (hd * 2 + (lse != nullptr)) {
-    case 128: return launch_tc<64, false>(tm_q, tm_k, tm_v, p, gx, gy,
-                                          device, stream);
-    case 129: return launch_tc<64, true>(tm_q, tm_k, tm_v, p, gx, gy,
-                                         device, stream);
-    case 256: return launch_tc<128, false>(tm_q, tm_k, tm_v, p, gx, gy,
-                                           device, stream);
-    case 257: return launch_tc<128, true>(tm_q, tm_k, tm_v, p, gx, gy,
-                                          device, stream);
-    case 512: return launch_tc<256, false>(tm_q, tm_k, tm_v, p, gx, gy,
-                                           device, stream);
-    default: return launch_tc<256, true>(tm_q, tm_k, tm_v, p, gx, gy,
-                                         device, stream);
+    case 128: return launch_tc<64, 64, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                              device, stream);
+    case 129: return launch_tc<64, 64, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                             device, stream);
+    case 256: return launch_tc<128, 128, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                                device, stream);
+    case 257: return launch_tc<128, 128, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                               device, stream);
+    case 384: return launch_tc<192, 128, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                                device, stream);
+    case 385: return launch_tc<192, 128, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                               device, stream);
+    case 512: return launch_tc<256, 256, false>(tm_q, tm_k, tm_v, p, gx, gy,
+                                                device, stream);
+    default: return launch_tc<256, 256, true>(tm_q, tm_k, tm_v, p, gx, gy,
+                                              device, stream);
   }
 }
 
@@ -1491,7 +1545,8 @@ extern "C" {
 
 // bf16 on wgmma.  Plan: 128 query rows x 128 keys (64 keys at hd 256), a
 // persistent grid (gx, 1) of gx <= B*H * ceil(S / 128) blocks that walk the
-// tiles; hd == hv in {64, 128, 256}, every row 16-byte aligned.
+// tiles; hd == hv in {64, 128, 256} or (hd, hv) = (192, 128), every row
+// 16-byte aligned.
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int Sk, int H, int KV,
                             int hd, int hv, const long long* strides,
@@ -1534,7 +1589,8 @@ int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(launch_mma)
 }
 
-// float32 on the CUDA cores, hd, hv in {32, 64, 128} or hd = hv = 256.
+// float32 on the CUDA cores, hd, hv in {32, 64, 128}, hd = hv = 256 or
+// (hd, hv) = (192, 128).
 // Plan: 64 x 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Sk, int H, int KV, int hd, int hv,
@@ -1549,19 +1605,21 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   if (hd == 256 && hv == 256)
     return launch_f32<256, 256>(p, gx, gy, device, stream);
+  if (hd == 192 && hv == 128)
+    return launch_f32<192, 128>(p, gx, gy, device, stream);
   FLASH_DISPATCH(launch_f32)
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
-// hv in {64, 128, 256}
+// hv in {64, 128, 256} or (hd, hv) = (192, 128)
 int flash_attention_f32_lse(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int Sk, int H,
                             int KV, int hd, int hv, const long long* strides,
                             float scale, int causal, int prefix, int block_q,
                             int block_k, int gx, int gy, int device,
                             void* stream) {
-  if (lse == nullptr || hd != hv ||
-      (hd != 64 && hd != 128 && hd != 256) ||
+  const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  if (lse == nullptr || !(square || (hd == 192 && hv == 128)) ||
       !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kFQ, kFK,
                  gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
@@ -1572,6 +1630,7 @@ int flash_attention_f32_lse(const void* q, const void* k, const void* v,
   switch (hd) {
     case 64: return launch_f32<64, 64, true>(p, gx, gy, device, stream);
     case 128: return launch_f32<128, 128, true>(p, gx, gy, device, stream);
+    case 192: return launch_f32<192, 128, true>(p, gx, gy, device, stream);
     default: return launch_f32<256, 256, true>(p, gx, gy, device, stream);
   }
 }

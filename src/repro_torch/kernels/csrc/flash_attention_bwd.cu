@@ -136,8 +136,13 @@
 //       and flash_bwd_dkdv_sum_f32_kernel adds a group's in head order (67
 //       MB written and read at paligemma's shape).  P and dS are rounded to
 //       bf16 for the products as at 64 and 128; dS takes P in float32.
-//   flash_bwd_dq_f32_tc_kernel<T, D>, flash_bwd_dkdv_f32_tc_kernel<T, D>
-//     float32 (T = float), D in {64, 128, 256}.  Every product -- S and dP
+//   flash_bwd_dq_f32_tc_kernel<T, HD, HV>, flash_bwd_dkdv_f32_tc_kernel<T,
+//     HD, HV>   float32 (T = float), hd == hv == D in {64, 128, 256} or
+//     (hd, hv) = (192, 128) (deepseek's MLA, no GQA); and bf16 (T = bf16,
+//     entry flash_attention_bwd_bf16_mma) at (192, 128) only: the same
+//     kernels with bf16 tiles in shared memory, each product one TF32 mma
+//     (a bf16 operand is exact in TF32), a simple kernel that is right
+//     (its wgmma redesign waits).  Every product -- S and dP
 //     in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
@@ -187,7 +192,12 @@
 //       order.
 //     At D = 256 the streamed tiles are 16 rows, one block of each kernel
 //     fits an SM (195 and 201 KB), and every warp's accumulator is 128
-//     registers a thread.
+//     registers a thread.  At (192, 128) Q and K rows are 192 wide, dO and
+//     V rows 128: S = Q K^T runs over 192 columns, dP = dO V^T over 128;
+//     the dQ warp holds dQ (96 registers a thread), the dK / dV kernel's
+//     dS warp dK (96) and its P warp dV in the first 64 of the same
+//     accumulator; tiles of 16 rows, one dK / dV block an SM (float32: 123
+//     KB for dQ, 129 KB for dK / dV).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -1497,10 +1507,11 @@ __host__ __device__ constexpr int f32_step() {
   return D == 64 ? 32 : 16;
 }
 // blocks of the dK / dV kernel an SM: at D = 256 a warp's accumulator alone
-// is 128 registers a thread, more than two 256-thread blocks leave it
-template <int D>
+// is 128 registers a thread, more than two 256-thread blocks leave it; at
+// (192, 128) the dS warp's dK is 96
+template <int HD, int HV>
 __host__ __device__ constexpr int f32_kv_blocks() {
-  return D == 256 ? 1 : 2;
+  return HD + HV > 256 ? 1 : 2;
 }
 
 // shared rows are D elements and 16 bytes: for float32 a row stride of 4
@@ -1512,31 +1523,40 @@ template <typename T, int D>
 __host__ __device__ constexpr int row_ld() {
   return D + 16 / (int)sizeof(T);
 }
-template <typename T, int D>
+// a Q (or K) row of HD and a dO (or V) row of HV elements
+template <typename T, int HD, int HV>
+__host__ __device__ constexpr int pair_bytes() {
+  return (row_ld<T, HD>() + row_ld<T, HV>()) * (int)sizeof(T);
+}
+template <typename T, int HD, int HV>
 constexpr int f32_dq_smem_bytes() {  // Q, dO; the ring's K, V
-  return (2 * kF + kFStages * 2 * f32_step<D>()) * row_ld<T, D>() *
-         (int)sizeof(T);
+  return (kF + kFStages * f32_step<HD>()) * pair_bytes<T, HD, HV>();
 }
 // a dK / dV ring slot: Q and dO tiles, then their float32 lse and D
-template <typename T, int D>
+template <typename T, int HD, int HV>
 __host__ __device__ constexpr int f32_slot_bytes() {
-  return 2 * f32_step<D>() * row_ld<T, D>() * (int)sizeof(T) +
-         2 * f32_step<D>() * 4;
+  return f32_step<HD>() * pair_bytes<T, HD, HV>() + 2 * f32_step<HD>() * 4;
 }
-template <typename T, int D>
+template <typename T, int HD, int HV>
 constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring
-  return 2 * kF * row_ld<T, D>() * (int)sizeof(T) +
-         kF * (f32_step<D>() + 8) * 4 + kFStages * f32_slot_bytes<T, D>();
+  return kF * pair_bytes<T, HD, HV>() + kF * (f32_step<HD>() + 8) * 4 +
+         kFStages * f32_slot_bytes<T, HD, HV>();
 }
-static_assert(f32_dq_smem_bytes<float, 256>() <= 232448 &&
-                  f32_dkdv_smem_bytes<float, 256>() <= 232448,
+static_assert(f32_dq_smem_bytes<float, 256, 256>() <= 232448 &&
+                  f32_dkdv_smem_bytes<float, 256, 256>() <= 232448 &&
+                  f32_dq_smem_bytes<float, 192, 128>() <= 232448 &&
+                  f32_dkdv_smem_bytes<float, 192, 128>() <= 232448,
               "a block's shared memory is 227 KB");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// two adjacent outputs
+// two adjacent outputs, rounded to T
 __device__ __forceinline__ void store2(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* out, float a, float b) {
+  *reinterpret_cast<uint32_t*>(out) = pack_bf16(a, b);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -1554,10 +1574,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
                                           int r0, int S) {
   constexpr int kPer = 16 / (int)sizeof(T);  // elements a 16-byte chunk
   constexpr int kChunks = D / kPer, LD = row_ld<T, D>();
-  static_assert(ROWS * kChunks % THREADS == 0, "whole rounds");
+  // a last partial round only where the chunks are no whole number of
+  // rounds (bf16 Q tiles of 16 x 192 over 256 threads)
+  constexpr int kRounds = (ROWS * kChunks + THREADS - 1) / THREADS;
+  constexpr bool kWhole = ROWS * kChunks % THREADS == 0;
 #pragma unroll
-  for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
+  for (int j = 0; j < kRounds; ++j) {
     const int i = (int)threadIdx.x + j * THREADS;
+    if (!kWhole && i >= ROWS * kChunks) break;
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < S;
     cp_async16(smem_u32(dst + r * LD + kPer * c),
@@ -1680,10 +1704,13 @@ __device__ __forceinline__ void scores_f32(const T* A, const T* B, int row0,
 // float32: mma.sync's float32 accumulation truncates, and over the
 // thousands of steps of a whole row it drifts toward zero (~1e-4 of scale
 // at S = 4096), where the tile's sum of 3 NT steps does not.
-template <typename T, int D, int NT>
+// acc may be wider than the D columns this product adds to (NA >= D / 8:
+// the dK / dV kernel's one accumulator at (192, 128), dK's or dV's)
+template <typename T, int D, int NT, int NA>
 __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
                                                const T* B, int g, int t,
-                                               float (&acc)[D / 8][4]) {
+                                               float (&acc)[NA][4]) {
+  static_assert(NA >= D / 8, "the accumulator holds the product");
   constexpr int LD = row_ld<T, D>();
   uint32_t ah[NT][4], al[NT][4];
 #pragma unroll
@@ -1707,15 +1734,16 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
 // K and V tiles of f32_step keys stream through a ring of kFStages slots,
 // from key 0 to the item's last row or the prefix's end, whichever lies
 // further (to Sk when not causal).  D of the rows goes to the scratch for
-// the dK / dV kernel.
-template <typename T, int D>
+// the dK / dV kernel.  Q and K rows are HD wide, dO and V rows HV.
+template <typename T, int HD, int HV>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_bwd_dq_f32_tc_kernel(const Params p) {
-  constexpr int LD = row_ld<T, D>(), KT = f32_step<D>(), NT = KT / 8;
+  constexpr int LD = row_ld<T, HD>(), LV = row_ld<T, HV>();
+  constexpr int KT = f32_step<HD>(), NT = KT / 8, SLOT = KT * (LD + LV);
   extern __shared__ __align__(16) uint8_t fsm[];
   T* Qs = reinterpret_cast<T*>(fsm);  // [kF][LD]
-  T* dOs = Qs + kF * LD;              // [kF][LD]
-  T* ring = dOs + kF * LD;            // kFStages x (K [KT][LD], V [KT][LD])
+  T* dOs = Qs + kF * LD;              // [kF][LV]
+  T* ring = dOs + kF * LV;            // kFStages x (K [KT][LD], V [KT][LV])
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1728,15 +1756,15 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   const T* kp = base<const T, kK>(p, p.k, b, kvh);
   const T* vp = base<const T, kV>(p, p.v, b, kvh);
 
-  load_rows<T, D, kF>(Qs, base<const T, kQ>(p, p.q, b, h), row_stride<kQ>(p),
-                      q0, p.S);
-  load_rows<T, D, kF>(dOs, base<const T, kDO>(p, p.dout, b, h),
-                      row_stride<kDO>(p), q0, p.S);
+  load_rows<T, HD, kF>(Qs, base<const T, kQ>(p, p.q, b, h),
+                       row_stride<kQ>(p), q0, p.S);
+  load_rows<T, HV, kF>(dOs, base<const T, kDO>(p, p.dout, b, h),
+                       row_stride<kDO>(p), q0, p.S);
   cp_async_commit();
   const int kv_end = p.causal ? causal_end(p, q0 + kF) : p.Sk;
   const int tiles = (kv_end + KT - 1) / KT;
-  load_rows<T, D, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
-  load_rows<T, D, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
+  load_rows<T, HD, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
+  load_rows<T, HV, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
   cp_async_commit();
 
   // lse and D of rows g, g + 8 (D: the warp sums each of its rows, the
@@ -1759,8 +1787,8 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
       if (row < p.S) {
         const T* orow = op + u64(row) * row_stride<kO>(p);
 #pragma unroll
-        for (int j = 0; j < D / 32; ++j)
-          acc = fmaf(to_f(dOs[(16 * warp + r) * LD + lane + 32 * j]),
+        for (int j = 0; j < HV / 32; ++j)
+          acc = fmaf(to_f(dOs[(16 * warp + r) * LV + lane + 32 * j]),
                      to_f(orow[lane + 32 * j]), acc);
       }
       acc = warp_sum(acc);
@@ -1770,17 +1798,17 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     }
   }
 
-  float dq[D / 8][4];
+  float dq[HD / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {
-      T* nxt = ring + ((it + 1) % kFStages) * 2 * KT * LD;
-      load_rows<T, D, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
-      load_rows<T, D, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
-                          (it + 1) * KT, p.Sk);
+      T* nxt = ring + ((it + 1) % kFStages) * SLOT;
+      load_rows<T, HD, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
+      load_rows<T, HV, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
+                           (it + 1) * KT, p.Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -1789,11 +1817,11 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     // a tile whose keys all lie above the warp's rows and past the prefix
     // adds nothing to them
     if (!p.causal || k0 <= r0 + 15 || k0 < p.prefix) {
-      const T* Ks = ring + (it % kFStages) * 2 * KT * LD;
+      const T* Ks = ring + (it % kFStages) * SLOT;
       const T* Vs = Ks + KT * LD;
       float s[NT][4], dp[NT][4];
-      scores_f32<T, D, NT>(Qs, Ks, 16 * warp, g, t, s);
-      scores_f32<T, D, NT>(dOs, Vs, 16 * warp, g, t, dp);
+      scores_f32<T, HD, NT>(Qs, Ks, 16 * warp, g, t, s);
+      scores_f32<T, HV, NT>(dOs, Vs, 16 * warp, g, t, dp);
       // P = exp(S scale - lse), 0 for keys past Sk or hidden from the row;
       // dS / scale = P (dP - D) into dp
       const bool edge = k0 + KT > p.Sk || (p.causal && k0 + KT - 1 > r0);
@@ -1809,7 +1837,7 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
             pe = 0.0f;
           dp[n][e] = pe * (dp[n][e] - dd[e >> 1]);
         }
-      accumulate_f32<T, D, NT>(dp, Ks, g, t, dq);
+      accumulate_f32<T, HD, NT>(dp, Ks, g, t, dq);
     }
     __syncthreads();  // the slot is refilled next
   }
@@ -1821,7 +1849,7 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     if (row >= p.S) continue;
     T* out = dqp + u64(row) * row_stride<kDQ>(p);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < HD / 8; ++n)
       store2(out + 8 * n + 2 * t, dq[n][2 * i] * p.scale,
              dq[n][2 * i + 1] * p.scale);
   }
@@ -1842,19 +1870,20 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
 // writes dk, dv; with it, its head's float32 partials, which
 // flash_bwd_dkdv_sum_f32_kernel adds up by group in head order.
 // rows [qt0, qt0 + f32_step) of head h's Q and dO, with their lse and D,
-// into a dK / dV ring slot: [QT][LD] Q, then dO (T), then QT lse, QT D
-// (float32)
-template <typename T, int D>
+// into a dK / dV ring slot: [QT][LD] Q, then [QT][LV] dO (T), then QT lse,
+// QT D (float32)
+template <typename T, int HD, int HV>
 __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
                                             int b, int h, int qt0) {
-  constexpr int QT = f32_step<D>(), LD = row_ld<T, D>();
+  constexpr int QT = f32_step<HD>(), LD = row_ld<T, HD>();
+  constexpr int LV = row_ld<T, HV>();
   T* q = reinterpret_cast<T*>(slot);
-  load_rows<T, D, QT, kKVThreads>(q, base<const T, kQ>(p, p.q, b, h),
-                                  row_stride<kQ>(p), qt0, p.S);
-  load_rows<T, D, QT, kKVThreads>(q + QT * LD,
-                                  base<const T, kDO>(p, p.dout, b, h),
-                                  row_stride<kDO>(p), qt0, p.S);
-  float* stats = reinterpret_cast<float*>(q + 2 * QT * LD);
+  load_rows<T, HD, QT, kKVThreads>(q, base<const T, kQ>(p, p.q, b, h),
+                                   row_stride<kQ>(p), qt0, p.S);
+  load_rows<T, HV, QT, kKVThreads>(q + QT * LD,
+                                   base<const T, kDO>(p, p.dout, b, h),
+                                   row_stride<kDO>(p), qt0, p.S);
+  float* stats = reinterpret_cast<float*>(q + QT * (LD + LV));
   const int row = qt0 + (int)threadIdx.x % QT;
   const float* src = threadIdx.x < QT ? p.lse : p.dd;
   if (threadIdx.x < 2 * QT)
@@ -1863,15 +1892,17 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
               row < p.S);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<D>()))
+template <typename T, int HD, int HV>
+__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<HD, HV>()))
 flash_bwd_dkdv_f32_tc_kernel(const Params p) {
-  constexpr int LD = row_ld<T, D>(), QT = f32_step<D>(), NT = QT / 8;
+  static_assert(HD >= HV, "the accumulator is dK's width or more");
+  constexpr int LD = row_ld<T, HD>(), LV = row_ld<T, HV>();
+  constexpr int QT = f32_step<HD>(), NT = QT / 8;
   constexpr int LP = QT + 8;
   extern __shared__ __align__(16) uint8_t fsm[];
   T* Ks = reinterpret_cast<T*>(fsm);                   // [kF][LD]
-  T* Vs = Ks + kF * LD;                                // [kF][LD]
-  float* Pt = reinterpret_cast<float*>(Vs + kF * LD);  // [kF][LP]: P^T
+  T* Vs = Ks + kF * LD;                                // [kF][LV]
+  float* Pt = reinterpret_cast<float*>(Vs + kF * LV);  // [kF][LP]: P^T
   uint8_t* ring = reinterpret_cast<uint8_t*>(Pt + kF * LP);  // the slots
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1882,23 +1913,23 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   const int kb = (int)blockIdx.x / BH, bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int k0 = kb * kF, key0 = k0 + r16;
-  load_rows<T, D, kF, kKVThreads>(Ks, base<const T, kK>(p, p.k, b, kvh),
-                                  row_stride<kK>(p), k0, p.Sk);
-  load_rows<T, D, kF, kKVThreads>(Vs, base<const T, kV>(p, p.v, b, kvh),
-                                  row_stride<kV>(p), k0, p.Sk);
+  load_rows<T, HD, kF, kKVThreads>(Ks, base<const T, kK>(p, p.k, b, kvh),
+                                   row_stride<kK>(p), k0, p.Sk);
+  load_rows<T, HV, kF, kKVThreads>(Vs, base<const T, kV>(p, p.v, b, kvh),
+                                   row_stride<kV>(p), k0, p.Sk);
   cp_async_commit();
 
   // the query tiles of one head, from the first that sees a key here
   // (k0 is a multiple of QT; every row sees a key of the prefix)
   const int qs0 = p.causal && k0 >= p.prefix ? k0 : 0;
-  constexpr int kSlot = f32_slot_bytes<T, D>();
-  load_q_tile<T, D>(p, ring, b, h, qs0);
+  constexpr int kSlot = f32_slot_bytes<T, HD, HV>();
+  load_q_tile<T, HD, HV>(p, ring, b, h, qs0);
   cp_async_commit();
 
-  // P warp: dV; dS warp: dK / scale
-  float acc[D / 8][4];
+  // P warp: dV (its first HV / 8 column groups); dS warp: dK / scale
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   const T* A = pwarp ? Ks : Vs;
@@ -1907,13 +1938,13 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
                         hidden_below(key0 + g + 8, p.prefix)};
   for (int qt0 = qs0, i = 0; qt0 < p.S; qt0 += QT, i ^= 1) {
     if (qt0 + QT < p.S)
-      load_q_tile<T, D>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
+      load_q_tile<T, HD, HV>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const T* Qs = reinterpret_cast<const T*>(ring + i * kSlot);
     const T* dOs = Qs + QT * LD;
-    const float* Ls = reinterpret_cast<const float*>(dOs + QT * LD);
+    const float* Ls = reinterpret_cast<const float*>(dOs + QT * LV);
     const float* Ds = Ls + QT;
     // a tile whose rows all lie before the warp's keys, where none of them
     // is in the prefix, adds nothing to them
@@ -1921,7 +1952,12 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
         !p.causal || qt0 + QT - 1 >= key0 || key0 < p.prefix;
     float c[NT][4];  // P warp: S^T, then P^T; dS warp: dP^T, then dS^T
     if (active) {
-      scores_f32<T, D, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
+      if constexpr (HD == HV)
+        scores_f32<T, HD, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
+      else if (pwarp)
+        scores_f32<T, HD, NT>(Ks, Qs, r16, g, t, c);
+      else
+        scores_f32<T, HV, NT>(Vs, dOs, r16, g, t, c);
       if (pwarp) {
         // P^T, 0 for rows past S or keys hidden from the row
         const bool edge = qt0 + QT > p.S || (p.causal && qt0 < key0 + 15);
@@ -1958,35 +1994,50 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
             c[n][2 * i + 1] = pe.y * (c[n][2 * i + 1] - Ds[ql + 1]);
           }
       }
-      accumulate_f32<T, D, NT>(c, pwarp ? dOs : Qs, g, t, acc);
+      if constexpr (HD == HV)
+        accumulate_f32<T, HD, NT>(c, pwarp ? dOs : Qs, g, t, acc);
+      else if (pwarp)
+        accumulate_f32<T, HV, NT>(c, dOs, g, t, acc);
+      else
+        accumulate_f32<T, HD, NT>(c, Qs, g, t, acc);
     }
     __syncthreads();  // the slot and P^T are refilled next
   }
 
   const float mul = pwarp ? 1.0f : p.scale;
-  // the rows of this thread's two keys: dk, dv without GQA; with it the
-  // head's float32 partials, rows of H D floats (one code path for float32:
-  // two cost the 128-register budget a spill at D = 128)
-  auto write = [&](auto* out, int64_t st) {
+  // the rows of this thread's two keys, W columns: dk, dv without GQA;
+  // with it the head's float32 partials, rows of H D floats (one code path
+  // for float32: two cost the 128-register budget a spill at D = 128)
+  auto write = [&](auto* out, int64_t st, auto width) {
+    constexpr int W = decltype(width)::value;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = key0 + g + 8 * i;
       if (key >= p.Sk) continue;
       auto* o = out + u64(key) * st;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < W / 8; ++n)
         store2(o + 8 * n + 2 * t, acc[n][2 * i] * mul,
                acc[n][2 * i + 1] * mul);
     }
   };
-  if (p.H == p.KV)
-    write(pwarp ? base<T, kDV>(p, p.dv, b, kvh)
-                : base<T, kDK>(p, p.dk, b, kvh),
-          pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p));
-  else
-    write(p.part + (pwarp ? p.part_half : 0) +
-              (u64(b) * p.Sk * p.H + h) * D,
-          (int64_t)p.H * D);
+  if constexpr (HD == HV) {
+    constexpr std::integral_constant<int, HD> w{};
+    if (p.H == p.KV)
+      write(pwarp ? base<T, kDV>(p, p.dv, b, kvh)
+                  : base<T, kDK>(p, p.dk, b, kvh),
+            pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p), w);
+    else
+      write(p.part + (pwarp ? p.part_half : 0) +
+                (u64(b) * p.Sk * p.H + h) * HD,
+            (int64_t)p.H * HD, w);
+  } else if (pwarp) {  // H == KV: the entry points refuse GQA here
+    write(base<T, kDV>(p, p.dv, b, kvh), row_stride<kDV>(p),
+          std::integral_constant<int, HV>());
+  } else {
+    write(base<T, kDK>(p, p.dk, b, kvh), row_stride<kDK>(p),
+          std::integral_constant<int, HD>());
+  }
 }
 
 // four adjacent outputs, rounded to T
@@ -2120,22 +2171,26 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
   return (int)err;
 }
 
-template <typename T, int D>
+template <typename T, int HD, int HV>
 int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
                 int device, void* stream) {
   static unsigned dq_done = 0, kv_done = 0;
   if (parts & 1) {
-    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<T, D>,
-                             f32_dq_smem_bytes<T, D>(), kFThreads, p, ctas_dq,
-                             1, &dq_done, device, stream);
+    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<T, HD, HV>,
+                             f32_dq_smem_bytes<T, HD, HV>(), kFThreads, p,
+                             ctas_dq, 1, &dq_done, device, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<T, D>,
-                             f32_dkdv_smem_bytes<T, D>(), kKVThreads, p,
+    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<T, HD, HV>,
+                             f32_dkdv_smem_bytes<T, HD, HV>(), kKVThreads, p,
                              ctas_kv, 1, &kv_done, device, stream);
-    if (err != cudaSuccess || p.H == p.KV) return (int)err;
-    return (int)launch_sum<T, D>(p, B, stream);
+    if constexpr (HD == HV) {
+      if (err != cudaSuccess || p.H == p.KV) return (int)err;
+      return (int)launch_sum<T, HD>(p, B, stream);
+    } else {
+      return (int)err;  // no GQA at hd != hv
+    }
   }
   return (int)cudaSuccess;
 }
@@ -2174,21 +2229,28 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   return true;
 }
 
-// the TF32 entry point (float32: hd 64, 128, 256)
+// the TF32 entry points: float32 (3xTF32) at hd == hv in {64, 128, 256}
+// and (hd, hv) = (192, 128); bf16 tiles (one TF32 product) at (192, 128)
+// only.  (192, 128) takes no GQA (H == KV: deepseek's MLA).
+template <typename T>
 int tf32_entry(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* dd, void* dq,
                void* dk, void* dv, int B, int S, int Sk, int H, int KV,
-               int hd, const long long* strides, float scale, int causal,
-               int prefix, int q_rows, int kv_rows, int q_step, int kv_step,
-               int stages_dq, int stages_dkdv, int ctas_dq, int ctas_kv,
-               int parts, int device, void* stream) {
+               int hd, int hv, const long long* strides, float scale,
+               int causal, int prefix, int q_rows, int kv_rows, int q_step,
+               int kv_step, int stages_dq, int stages_dkdv, int ctas_dq,
+               int ctas_kv, int parts, int device, void* stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   Params p;
-  const int step = hd == 64 ? f32_step<64>()
-                            : hd == 128 ? f32_step<128>() : f32_step<256>();
+  const bool rect = hd == 192 && hv == 128 && H == KV;
+  const bool square =
+      kF32 && hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
   const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
-  if ((hd != 64 && hd != 128 && hd != 256) ||
+  if (!(square || rect) ||
       !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                   KV, strides, scale, causal, prefix, parts, 4) ||
+                   KV, strides, scale, causal, prefix, parts,
+                   (int)sizeof(T)) ||
       q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
       stages_dq != kFStages || stages_dkdv != kFStages ||
       (int64_t)B * H * nq >= (1ll << 31) ||
@@ -2201,17 +2263,23 @@ int tf32_entry(const void* q, const void* k, const void* v, const void* o,
   if (H > KV) p.dd += 2 * p.part_half;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  switch (hd) {
-    case 64:
-      return launch_tf32<float, 64>(p, B, ctas_dq, ctas_kv, parts, device,
+  if (rect)
+    return launch_tf32<T, 192, 128>(p, B, ctas_dq, ctas_kv, parts, device,
                                     stream);
-    case 128:
-      return launch_tf32<float, 128>(p, B, ctas_dq, ctas_kv, parts, device,
-                                     stream);
-    default:
-      return launch_tf32<float, 256>(p, B, ctas_dq, ctas_kv, parts, device,
-                                     stream);
+  if constexpr (kF32) {
+    switch (hd) {
+      case 64:
+        return launch_tf32<float, 64, 64>(p, B, ctas_dq, ctas_kv, parts,
+                                          device, stream);
+      case 128:
+        return launch_tf32<float, 128, 128>(p, B, ctas_dq, ctas_kv, parts,
+                                            device, stream);
+      default:
+        return launch_tf32<float, 256, 256>(p, B, ctas_dq, ctas_kv, parts,
+                                            device, stream);
+    }
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -2220,7 +2288,7 @@ extern "C" {
 
 // Every entry point: q, k, v, o, do, lse, the scratch, (wgmma: the
 // schedule,) dq, dk, dv device pointers; B, S (query rows), Sk (keys;
-// == S when causal), H, KV, hd (== hv); strides: 24 element strides,
+// == S when causal), H, KV, hd, hv; strides: 24 element strides,
 // (batch, seq, head) of q, k, v, o, do, dq, dk, dv in order; the softmax
 // scale; causal; prefix (causal only: keys [0, prefix) seen by every
 // row); the plan: the dQ
@@ -2249,7 +2317,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* scratch, const void* sched, void* dq,
                              void* dk, void* dv, int B, int S, int Sk, int H,
-                             int KV, int hd, const long long* strides,
+                             int KV, int hd, int hv, const long long* strides,
                              float scale, int causal, int prefix, int q_rows,
                              int kv_rows, int q_step, int kv_step,
                              int stages_dq, int stages_dkdv, int ctas_dq,
@@ -2267,7 +2335,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   const int want_stages_kv = hd == 64    ? dkdv_stages<64>()
                              : hd == 128 ? dkdv_stages<128>()
                                          : kSplitStages;
-  if ((hd != 64 && hd != 128 && hd != 256) ||
+  if ((hd != 64 && hd != 128 && hd != 256) || hv != hd ||
       !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
                    H, KV, strides, scale, causal, prefix, parts, 2) ||
       sched == nullptr || q_rows != kRows || kv_rows != want_kv_rows ||
@@ -2303,24 +2371,47 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// float32 as 3xTF32 on mma.sync, hd 64, 128 or 256.  Plan: q_rows =
-// kv_rows = 64 (kF), q_step = kv_step = f32_step, 2 ring slots in each
-// kernel, grids of one block an item: ctas_dq = B * H * nq and ctas_kv =
-// B * H * nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D
-// [B, H, S], after the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
+// float32 as 3xTF32 on mma.sync, hd == hv in {64, 128, 256} or (hd, hv) =
+// (192, 128) with H == KV.  Plan: q_rows = kv_rows = 64 (kF), q_step =
+// kv_step = f32_step (of hd), 2 ring slots in each kernel, grids of one
+// block an item: ctas_dq = B * H * nq and ctas_kv = B * H * nk (nq =
+// ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D [B, H, S], after
+// the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
-                            int S, int Sk, int H, int KV, int hd,
+                            int S, int Sk, int H, int KV, int hd, int hv,
                             const long long* strides, float scale, int causal,
                             int prefix, int q_rows, int kv_rows, int q_step,
                             int kv_step, int stages_dq, int stages_dkdv,
                             int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
-  return tf32_entry(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H, KV,
-                    hd, strides, scale, causal, prefix, q_rows, kv_rows,
-                    q_step, kv_step, stages_dq, stages_dkdv, ctas_dq, ctas_kv,
-                    parts, device, stream);
+  return tf32_entry<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk,
+                           H, KV, hd, hv, strides, scale, causal, prefix,
+                           q_rows, kv_rows, q_step, kv_step, stages_dq,
+                           stages_dkdv, ctas_dq, ctas_kv, parts, device,
+                           stream);
+}
+
+// bf16 at (hd, hv) = (192, 128) with H == KV on mma.sync, every product one
+// TF32 mma (the float32 kernels with bf16 tiles in shared memory: a bf16
+// operand is exact in TF32).  Plan and scratch as flash_attention_bwd_f32's
+// at that pair: D [B, H, S].
+int flash_attention_bwd_bf16_mma(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* dd, void* dq,
+                                 void* dk, void* dv, int B, int S, int Sk,
+                                 int H, int KV, int hd, int hv,
+                                 const long long* strides, float scale,
+                                 int causal, int prefix, int q_rows,
+                                 int kv_rows, int q_step, int kv_step,
+                                 int stages_dq, int stages_dkdv, int ctas_dq,
+                                 int ctas_kv, int parts, int device,
+                                 void* stream) {
+  return tf32_entry<bf16>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
+                          KV, hd, hv, strides, scale, causal, prefix, q_rows,
+                          kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
+                          ctas_dq, ctas_kv, parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -16,15 +16,18 @@ for it) and raises otherwise.  A causal call may open a bidirectional
 prefix (``prefix_len`` P > 0, PaliGemma's image patches, the reference's
 ``layers._block_mask``): query row ``i`` sees key ``j`` where ``j <= i`` or
 ``j < P``; ``P >= S`` is full attention.  The kernels take ``hd, hv`` in
-``HEAD_DIMS``, 256 only with ``hd == hv``.
+``HEAD_DIMS``, 256 only with ``hd == hv``, and the pairs of
+``RECT_PAIRS``: (192, 128), deepseek's MLA prefill (q / k of 128 nope and
+64 rope columns, v of 128).
 
 Three variants, chosen by shape before any launch (``plan``), each counted
 under its own key of ``LAUNCHES``:
 
 * ``flash_attention_bf16_tc`` -- bf16 with ``hd == hv`` in ``TC_HEAD_DIMS``
-  (every model shape, paligemma's 256 included): ``wgmma`` tensor cores fed
-  by TMA, a loader warp and two consumer warpgroups over 128-row blocks, kv
-  tiles of ``_tc_bn(hd)`` keys.
+  or ``(hd, hv)`` in ``RECT_PAIRS`` (every model shape, paligemma's 256 and
+  deepseek's (192, 128) included): ``wgmma`` tensor cores fed by TMA, a
+  loader warp and two consumer warpgroups over 128-row blocks, kv tiles of
+  ``_tc_bn(hd)`` keys.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
   ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
 * ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
@@ -43,16 +46,18 @@ through ``census.kernel_call``.
 
 Training goes through ``flash_attention_trainable``, a
 ``torch.autograd.Function``.  Its forward is ``flash_attention_fwd``: the
-``LSE_VARIANTS`` kernels (``hd == hv`` in ``BWD_HEAD_DIMS``) built with a
-flag that also writes the row log-sum-exp of the scaled scores, float32
+``LSE_VARIANTS`` kernels (``hd == hv`` in ``BWD_HEAD_DIMS``, or a pair of
+``RECT_PAIRS``) built with a flag that also writes the row log-sum-exp of the scaled scores, float32
 [B, H, S], counted under the forward variant's key.  Its backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
 (``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
 by TMA in persistent grids that walk the plan's schedule -- at head dim
 256 the dK / dV kernel splits dK and dV over its two consumer warpgroups
-and, with GQA, writes per-head partials a last kernel sums -- or
-``flash_attention_bwd_f32``, every product as 3xTF32 on ``mma.sync``
-tensor cores; one call launches a dQ kernel that
+and, with GQA, writes per-head partials a last kernel sums --,
+``flash_attention_bwd_bf16_mma`` at (192, 128), the float32 kernels with
+bf16 tiles, every product one TF32 ``mma.sync`` (a bf16 operand is exact in
+TF32), or ``flash_attention_bwd_f32``, every product as 3xTF32 on
+``mma.sync`` tensor cores; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
 with no float atomics, so two runs are bitwise equal.  Beside it
 stands ``flash_attention_bwd_plain``, the backward written out step by step
@@ -82,7 +87,11 @@ HEAD_DIMS = (32, 64, 128, 256)
 # head dims the forward kernels take only with hd == hv
 SQUARE_HEAD_DIMS = (256,)
 TC_HEAD_DIMS = (64, 128, 256)
-# head dims of the training path on the card (hd == hv), both dtypes
+# (hd, hv) pairs with hd != hv outside HEAD_DIMS that every kernel takes,
+# forward (the wgmma variant in bf16) and backward: deepseek's MLA, H == KV
+RECT_PAIRS = ((192, 128),)
+# head dims of the training path on the card (hd == hv), both dtypes; and
+# RECT_PAIRS
 BWD_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -93,8 +102,9 @@ FWD_VARIANTS = (TC, MMA, F32)
 # the forward variants with an ``_lse`` entry point (the training path's)
 LSE_VARIANTS = (TC, F32)
 BWD_BF16 = "flash_attention_bwd_bf16"
+BWD_BF16_MMA = "flash_attention_bwd_bf16_mma"
 BWD_F32 = "flash_attention_bwd_f32"
-BWD_VARIANTS = (BWD_BF16, BWD_F32)
+BWD_VARIANTS = (BWD_BF16, BWD_BF16_MMA, BWD_F32)
 
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
@@ -204,10 +214,12 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     query rows, so the key length ``sk`` does not change it.
 
     bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
-    (head dim 256 among them, kv tiles of 64 keys), else the ``mma.sync``
-    variant; float32 takes the CUDA-core variant.  A prefix does not change
-    the plan."""
-    if dtype == torch.bfloat16 and hd == hv and hd in TC_HEAD_DIMS:
+    (head dim 256 among them, kv tiles of 64 keys) or ``(hd, hv)`` is in
+    ``RECT_PAIRS`` (kv tiles of 128 keys), else the ``mma.sync`` variant;
+    float32 takes the CUDA-core variant.  A prefix does not change the
+    plan."""
+    if dtype == torch.bfloat16 and ((hd == hv and hd in TC_HEAD_DIMS)
+                                    or (hd, hv) in RECT_PAIRS):
         variant, bq, bk = TC, 128, _tc_bn(hd)
     elif dtype == torch.bfloat16:
         variant, bq, bk = MMA, 64, 64
@@ -259,16 +271,17 @@ def _bwd_library():
         from repro_torch.kernels import build
         lib = build.load(BWD_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # B, S, Sk, H, KV, hd, strides, scale, causal, prefix
-        shape = [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+        # B, S, Sk, H, KV, hd, hv, strides, scale, causal, prefix
+        shape = [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong),
                             ctypes.c_float, ci, ci] + [ci] * 4
         # ..., scratch, [schedule,] dq, dk, dv, shape, strides, scale,
         # causal, prefix, the plan (tiles, stages, grids), parts, device,
         # stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
-        lib.flash_attention_bwd_f32.argtypes = \
-            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
+        for name in (BWD_BF16_MMA, BWD_F32):
+            getattr(lib, name).argtypes = \
+                [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
         for name in BWD_VARIANTS:
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
@@ -448,11 +461,13 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _check_fwd_shape(hd: int, hv: int) -> None:
+    if (hd, hv) in RECT_PAIRS:
+        return
     if hd not in HEAD_DIMS or hv not in HEAD_DIMS or (
             hd != hv and (hd in SQUARE_HEAD_DIMS or hv in SQUARE_HEAD_DIMS)):
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS} "
-                         f"({SQUARE_HEAD_DIMS} only with hd == hv); got hd "
-                         f"{hd}, hv {hv}")
+                         f"({SQUARE_HEAD_DIMS} only with hd == hv) and the "
+                         f"pairs {RECT_PAIRS}; got hd {hd}, hv {hv}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -517,9 +532,10 @@ def _launch_fwd(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_train_shape(hd: int, hv: int) -> None:
-    if hd != hv or hd not in BWD_HEAD_DIMS:
+    if (hd, hv) not in RECT_PAIRS and (hd != hv or hd not in BWD_HEAD_DIMS):
         raise ValueError(f"the training kernels take hd == hv in "
-                         f"{BWD_HEAD_DIMS}; got hd {hd}, hv {hv}")
+                         f"{BWD_HEAD_DIMS} and the pairs {RECT_PAIRS}; got "
+                         f"hd {hd}, hv {hv}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -529,8 +545,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_attention``'s output and the row log-sum-exp of the scaled
     scores, float32 [B, H, S] (what the backward needs).  CUDA tensors
     launch ``plan``'s variant built to write the LSE (``hd == hv`` in
-    ``BWD_HEAD_DIMS``: the tensor-core variant in bf16, the CUDA-core one
-    in float32); CPU tensors take the plain version."""
+    ``BWD_HEAD_DIMS`` or a pair of ``RECT_PAIRS``: the tensor-core variant
+    in bf16, the CUDA-core one in float32); CPU tensors take the plain
+    version."""
     b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
@@ -651,17 +668,21 @@ def _f32_step(hd: int) -> int:
     return 32 if hd == 64 else 16
 
 
-def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
-    """Dynamic shared memory of a float32 block, as
-    ``flash_attention_bwd.cu`` lays it out in rows of hd floats and 16
-    bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V
-    tiles; dK / dV: the item's K and V, float32 P^T handed between the
-    warps of a pair ([64][step + 8]), ``F32_BWD_STAGES`` slots of Q and dO
-    tiles and their float32 lse and D."""
-    row, r, st = hd * 4 + 16, F32_BWD_ROWS, _f32_step(hd)
-    dq = (2 * r + F32_BWD_STAGES * 2 * st) * row
-    dkdv = (2 * r * row + r * (st + 8) * 4
-            + F32_BWD_STAGES * 2 * st * (row + 4))
+def _f32_bwd_smem(hd: int, hv: Optional[int] = None,
+                  itemsize: int = 4) -> Tuple[int, int]:
+    """Dynamic shared memory of a TF32 block (float32 tiles; bf16 tiles,
+    ``itemsize`` 2, at (192, 128)), as ``flash_attention_bwd.cu`` lays it
+    out in rows of hd (Q, K) or hv (dO, V) elements and 16 bytes: dQ: the
+    item's Q and dO, ``F32_BWD_STAGES`` slots of K and V tiles; dK / dV: the
+    item's K and V, float32 P^T handed between the warps of a pair ([64]
+    [step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and their
+    float32 lse and D."""
+    hv = hd if hv is None else hv
+    pair = (hd + hv) * itemsize + 32          # a Q row and a dO row
+    r, st = F32_BWD_ROWS, _f32_step(hd)
+    dq = (r + F32_BWD_STAGES * st) * pair
+    dkdv = r * pair + r * (st + 8) * 4 + F32_BWD_STAGES * (st * pair
+                                                           + 2 * st * 4)
     return dq, dkdv
 
 
@@ -714,11 +735,15 @@ def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(x) for x in lists)
 
 
-def bwd_variant(dtype: torch.dtype, hd: int = 64) -> str:
-    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` (every
-    head dim ``hd`` of a dtype takes the same one)."""
+def bwd_variant(dtype: torch.dtype, hd: int = 64,
+                hv: Optional[int] = None) -> str:
+    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` at head
+    dims ``hd, hv`` (``hv`` default ``hd``): every square head dim of a
+    dtype takes the same one; bf16 at a pair of ``RECT_PAIRS`` takes the
+    TF32 kernels with bf16 tiles."""
+    hv = hd if hv is None else hv
     if dtype == torch.bfloat16:
-        return BWD_BF16
+        return BWD_BF16_MMA if (hd, hv) in RECT_PAIRS else BWD_BF16
     if dtype == torch.float32:
         return BWD_F32
     raise TypeError(f"no K3 backward variant for {dtype}")
@@ -726,11 +751,15 @@ def bwd_variant(dtype: torch.dtype, hd: int = 64) -> str:
 
 def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
              causal: bool = True, sms: int = H100_SMS,
-             sk: Optional[int] = None, prefix: int = 0) -> BwdPlan:
-    """The backward's plan for q [b, s, h, hd], k, v [b, sk, kv, hd] (``sk``
-    default ``s``) with a bidirectional prefix of ``prefix`` keys in
-    ``dtype`` on a card of ``sms`` SMs (a pure function of its arguments,
-    made once: the same object for the same shape).
+             sk: Optional[int] = None, prefix: int = 0,
+             hv: Optional[int] = None) -> BwdPlan:
+    """The backward's plan for q [b, s, h, hd], k [b, sk, kv, hd], v [b,
+    sk, kv, hv] (``sk`` default ``s``, ``hv`` default ``hd``) with a
+    bidirectional prefix of ``prefix`` keys in ``dtype`` on a card of
+    ``sms`` SMs (a pure function of its arguments, made once: the same
+    object for the same shape).  A pair of ``RECT_PAIRS`` takes the TF32
+    kernels in either dtype (``flash_attention_bwd_bf16_mma`` in bf16: one
+    TF32 product a bf16 product) and no GQA (h == kv).
     bf16 on ``wgmma``: dQ items of 128 rows stepping ``_dq_step`` keys at a
     time, dK / dV items of 128 keys (64 keys of one head at hd 256)
     stepping 64 query rows, ``_bwd_stages`` ring slots (``BWD_SPLIT_STAGES``
@@ -741,16 +770,20 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums the
     dK / dV pass's per-head partials (float32, and bf16 at hd 256)."""
     return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
-                     bool(causal), sms, int(prefix))
+                     bool(causal), sms, int(prefix), hd if hv is None else hv)
 
 
 @functools.lru_cache(maxsize=4096)
 def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
               dtype: torch.dtype, causal: bool, sms: int,
-              prefix: int) -> BwdPlan:
-    _check_train_shape(hd, hd)
+              prefix: int, hv: int) -> BwdPlan:
+    _check_train_shape(hd, hv)
     _check_lengths(s, sk, causal, prefix)
-    variant = bwd_variant(dtype, hd)
+    if (hd, hv) in RECT_PAIRS and h != kv:
+        raise ValueError(f"the training kernels take (hd, hv) = ({hd}, "
+                         f"{hv}) without GQA; got {h} query heads over {kv} "
+                         f"kv heads")
+    variant = bwd_variant(dtype, hd, hv)
     if variant == BWD_BF16:
         work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk, prefix,
                                            hd)
@@ -765,7 +798,7 @@ def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
     r, st = F32_BWD_ROWS, _f32_step(hd)
     return BwdPlan(variant, r, r, st, st, (F32_BWD_STAGES, F32_BWD_STAGES),
                    (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
-                   _f32_bwd_smem(hd))
+                   _f32_bwd_smem(hd, hv, dtype.itemsize))
 
 
 def schedule_words(p: BwdPlan) -> List[int]:
@@ -801,9 +834,10 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of attention's output ``o`` = attention(q, k,
     v) given its gradient ``do`` and the forward's log-sum-exp ``lse``
-    [B, H, S] (k, v, dk, dv [B, Sk, KV, hd]; the first ``prefix_len`` keys
-    seen by every row when causal).  CUDA tensors launch ``plan_bwd``'s
-    variant (``hd == hv`` in ``BWD_HEAD_DIMS``) or raise; CPU tensors take
+    [B, H, S] (k, dk [B, Sk, KV, hd], v, dv [B, Sk, KV, hv]; the first
+    ``prefix_len`` keys seen by every row when causal).  CUDA tensors launch
+    ``plan_bwd``'s variant (``hd == hv`` in ``BWD_HEAD_DIMS``, or a pair of
+    ``RECT_PAIRS``) or raise; CPU tensors take
     ``flash_attention_bwd_plain``."""
     b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
@@ -817,7 +851,7 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     with census.kernel_call(lambda: (
-            bwd_variant(q.dtype, hd),
+            bwd_variant(q.dtype, hd, hv),
             *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk,
                       prefix=prefix_len))):
         if q.device.type == "cpu":
@@ -844,9 +878,9 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     returns (dq, dk, dv, scratch), the outputs a part did not launch
     unwritten.  One call counts once.  To time the dK / dV kernel alone,
     pass back the scratch of a ``BWD_BOTH`` call on the same inputs."""
-    b, s, sk, h, kv, hd, _ = _validate(q, k, v, causal, prefix)
+    b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix)
     p = plan_bwd(b, s, h, kv, hd, q.dtype, bool(causal), _sm_count(q.device),
-                 sk, prefix)
+                 sk, prefix, hv)
     if max(p.grid_dq[0], p.grid_dkdv[0]) >= 2 ** 31:
         raise ValueError(f"B = {b}, H = {h}, S = {s} exceed the backward "
                          "kernels' grid")
@@ -863,7 +897,7 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, kv, hv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(int(st) for t in (q, k, v, o, do, dq, dk, dv)
           for st in t.stride()[:3]))
@@ -873,7 +907,7 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if wgmma:
         head.append(_schedule_tensor(p, q.device).data_ptr())
     tail = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, sk, h, kv, hd,
-            strides, float(scale), int(bool(causal)), int(prefix), p.q_rows,
+            hv, strides, float(scale), int(bool(causal)), int(prefix), p.q_rows,
             p.kv_rows, p.q_step, p.kv_step, p.stages[0], p.stages[1],
             p.grid_dq[0], p.grid_dkdv[0]]
     code = getattr(lib, p.variant)(

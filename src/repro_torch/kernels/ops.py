@@ -124,8 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     PaliGemma's image patches); it needs ``causal`` and ``Sk == S``.  Where
     autograd records (gradients on and an input that requires them) the
     call goes through ``FlashAttention``, K3 with its hand-written backward
-    (``hd == hv`` in 64, 128, 256 on the card); otherwise -- prefill,
-    decode -- straight to K3."""
+    (``hd == hv`` in 64, 128, 256, or (192, 128), on the card); otherwise
+    -- prefill, decode -- straight to K3."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _k3.flash_attention_trainable(q, k, v, causal=causal,

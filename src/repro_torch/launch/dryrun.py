@@ -11,7 +11,7 @@ port traces its own step on the meta device (no card, no memory) through
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape prefill_32k
-  python -m repro_torch.launch.dryrun --all      # 26 cells, 7 skipped
+  python -m repro_torch.launch.dryrun --all      # 32 cells, 1 skipped
 
 A mesh of more than one device (``--multi-pod``) is not ported: the
 collective half of the census waits for ROADMAP.md Queue 1 item 12e
@@ -150,7 +150,9 @@ def applicable_cells() -> Iterator[Tuple[str, str]]:
     """(arch, shape) of every cell the port traces: the dense models'
     train / prefill / decode shapes; mamba2's and zamba2's train, prefill,
     decode and long_500k shapes; whisper's and paligemma's train, prefill
-    and decode shapes (26 cells)."""
+    and decode shapes; deepseek v2's and v3's train, prefill and decode
+    shapes (32 cells; the MoE family's routed experts are booked by shape,
+    ``models/moe.py``)."""
     for arch, shape, why in _cells():
         if why is None:
             yield arch, shape
@@ -159,8 +161,7 @@ def applicable_cells() -> Iterator[Tuple[str, str]]:
 def skipped_cells() -> List[Tuple[str, str, str]]:
     """(arch, shape, why) of every cell the port does not trace yet, ``why``
     naming the ROADMAP item that ports it (``shape`` "-" for ResNet-50,
-    which has no LM shapes): 7 cells, the MoE / MLA models' (deepseek v2
-    and v3) and ResNet-50."""
+    which has no LM shapes): ResNet-50's one cell."""
     return [(a, s, why) for a, s, why in _cells() if why is not None]
 
 

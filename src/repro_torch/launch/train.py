@@ -19,7 +19,11 @@ iterator; the decoder gets ``--seq-len`` positions, as the reference's
 paligemma_3b``: every layer's attention, the patches' bidirectional prefix
 included, on K3 and its hand-written backward; ``--seq-len`` counts the
 patches, the data iterator gives ``seq_len - num_patches`` text tokens and
-the patch embeddings); the command line
+the patch embeddings) and the MoE family (``--arch deepseek_v2_236b`` /
+``deepseek_v3_671b``: MLA's attention on K3 at head dims (192, 128) and its
+backward, the routed and shared experts, v3's MTP head, with the configs'
+Adafactor and remat "full"; ``--depth`` cuts the layers, as the whole
+model does not fit one card); the command line
 runs on the card, and ``train(..., device="cpu")`` runs the plain versions
 on the host.  A mesh of more than one device is not ported (ROADMAP.md
 Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).
@@ -28,6 +32,7 @@ Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -57,17 +62,23 @@ def train(arch: str, steps: int = 100, reduced: bool = True,
           restore: bool = False, ckpt_every: int = 50, mesh_shape=None,
           log_every: int = 10, lr: float = 3e-4, seed: int = 0,
           install_signals: bool = True, straggler_k: float = 5.0,
-          device: DeviceLike = DEFAULT_DEVICE):
+          device: DeviceLike = DEFAULT_DEVICE,
+          depth: Optional[int] = None):
     """Trains ``arch`` (reduced unless ``reduced`` is False) for steps up to
     ``steps`` on synthetic batches; weights from ``torch.Generator`` seeded
     with ``seed`` on ``device``, data from ``seed + 1``.  With ``ckpt_dir``
     a checkpoint every ``ckpt_every`` steps, and ``restore`` resumes from the
-    latest one there (the port's or the reference's).  Returns (the losses of
-    the steps run, the final ``TrainState``)."""
+    latest one there (the port's or the reference's).  ``depth`` cuts the
+    config to that many layers (the MoE family keeps ``first_k_dense`` dense
+    layers where ``depth`` leaves room for a MoE layer after them, else
+    one dense layer fewer than ``depth``).  Returns (the losses of the
+    steps run, the final ``TrainState``)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if depth is not None:
+        cfg = cut_depth(cfg, depth)
     shape = ShapeConfig("train_cli", seq_len, batch, "train")
     model = api.build_model(cfg)
     optimizer = optim.make_optimizer(cfg.optimizer, lr=lr, total_steps=steps)
@@ -129,6 +140,15 @@ def train(arch: str, steps: int = 100, reduced: bool = True,
     return losses, state
 
 
+def cut_depth(cfg, depth: int):
+    """``cfg`` with ``depth`` layers; with experts at least one MoE layer
+    (``first_k_dense`` at most ``depth - 1``)."""
+    kw = {"num_layers": depth}
+    if cfg.num_experts:
+        kw["first_k_dense"] = min(cfg.first_k_dense, depth - 1)
+    return dataclasses.replace(cfg, **kw)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -142,6 +162,8 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", help="e.g. 2x4")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--depth", type=int, help="cut the config to this many "
+                    "layers")
     args = ap.parse_args()
     mesh_shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh \
         else None
@@ -149,7 +171,8 @@ def main():
                       seq_len=args.seq_len, batch=args.batch,
                       ckpt_dir=args.ckpt_dir, restore=args.restore,
                       ckpt_every=args.ckpt_every, mesh_shape=mesh_shape,
-                      lr=args.lr)
+                      lr=args.lr,
+                      **({} if args.depth is None else {"depth": args.depth}))
     print(f"[train] done: first loss {losses[0]:.4f} -> last "
           f"{losses[-1]:.4f}")
 

@@ -7,9 +7,12 @@ cache, decode, and training), the SSM family (Mamba2: chunked prefill,
 recurrent decode, and training), the hybrid family (Zamba2: the Mamba2
 backbone with one shared attention block; prefill, decode and training),
 the audio family (whisper: an encoder over precomputed frames and a
-decoder with cross attention; prefill, decode and training) and the VLM
+decoder with cross attention; prefill, decode and training), the VLM
 family (paligemma: a bidirectional prefix of precomputed patch embeddings
-over the dense decoder; prefill, decode and training).
+over the dense decoder; prefill, decode and training) and the MoE family
+(deepseek v2 / v3: multi-head latent attention, routed and shared
+experts, v3's multi-token prediction; prefill, compressed-cache decode and
+training, on one device).
 ``prefill(module, batch)``, ``decode(module, batch, cache)`` and
 ``init_cache(batch, max_len, device=...)`` mirror the reference's serving
 entries (``None`` for the CNN, as there; the audio family's prefill and loss
@@ -20,13 +23,14 @@ where the batch has them); the other families raise
 ``max_seq`` sizes whisper's decoder positions, as the reference's
 ``init(key, max_seq)``, and the other families ignore it.
 ``loss(module, batch)`` and ``make_train_step`` train the dense, SSM,
-hybrid, audio and VLM families; the CNN raises, naming the roadmap item
-that brings its backward kernels.
+hybrid, audio, VLM and MoE families; the CNN raises, naming the roadmap
+item that brings its backward kernels.
 
 A ``TrainState`` is the module and its optimiser state, one optimiser leaf
 for each of the reference's parameter leaves (``leaf_groups``: a [L, ...]
 stack of layers -- ``layers``, zamba's ``mamba_layers``, whisper's
-``enc_layers`` and ``dec_layers`` -- is one leaf);
+``enc_layers`` and ``dec_layers``, deepseek's ``dense_layers`` and
+``moe_layers`` -- is one leaf);
 ``state_tree`` / ``load_state_tree`` turn it into the flat tree
 ``checkpoint.store`` writes and back, and ``restore_train_state`` also reads a checkpoint of the
 reference's ``TrainState`` (``train_state_from_reference``, any trainable
@@ -58,6 +62,8 @@ _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
             "audio": (whisper.check_audio, whisper.Whisper,
                       whisper.init_cache),
             "vlm": (transformer.check_dense, transformer.Transformer,
+                    transformer.init_cache),
+            "moe": (transformer.check_dense, transformer.Transformer,
                     transformer.init_cache)}
 
 # the trainable families: (loss_fn, params_from_reference)
@@ -65,10 +71,8 @@ _TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
              "ssm": (mamba.loss_fn, mamba.params_from_reference),
              "hybrid": (zamba.loss_fn, zamba.params_from_reference),
              "audio": (whisper.loss_fn, whisper.params_from_reference),
-             "vlm": (transformer.loss_fn, transformer.params_from_reference)}
-
-# the roadmap item that ports each family not ported yet
-_NOT_PORTED = {"moe": "Queue 1 item 12e (MoE, MLA)"}
+             "vlm": (transformer.loss_fn, transformer.params_from_reference),
+             "moe": (transformer.loss_fn, transformer.params_from_reference)}
 
 # the roadmap item that brings training to each ported family that lacks it
 _NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
@@ -142,7 +146,7 @@ def build_model(cfg: ArchConfig) -> Model:
                      init_cache=init_cache, loss=loss)
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-        f"ROADMAP.md {_NOT_PORTED.get(cfg.family, 'Queue 1')}")
+        f"ROADMAP.md Queue 1")
 
 
 # --- training --------------------------------------------------------------------
@@ -159,9 +163,10 @@ def leaf_groups(names: Sequence[str]) -> List[Tuple[str, Group]]:
     order of first appearance, the leaf name the reference's path joined by
     dots.  ``<root>.<i>.<rest>`` for i = 0 .. L-1, ``<root>`` a stacked
     root (``layers.STACKED_ROOTS``: ``layers``, zamba's ``mamba_layers``,
-    whisper's ``enc_layers`` and ``dec_layers``),
-    is one stacked group, ``<root>.<rest>``; every other parameter (zamba's
-    ``shared_attn.*`` included) a group of its own."""
+    whisper's ``enc_layers`` and ``dec_layers``, deepseek's
+    ``dense_layers`` and ``moe_layers``), is one stacked group,
+    ``<root>.<rest>``; every other parameter (zamba's ``shared_attn.*``,
+    deepseek's ``mtp.*`` included) a group of its own."""
     order: List[str] = []
     members: Dict[str, List[Tuple[int, int]]] = {}
     for i, name in enumerate(names):
@@ -195,6 +200,16 @@ def init_train_state(module: torch.nn.Module, optimizer) -> TrainState:
         list(module.parameters()), [g for _, g in param_groups(module)]))
 
 
+def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]
+             ) -> List[torch.Tensor]:
+    """d loss / d p for every parameter, zeros for one the loss does not
+    reach (deepseek v3's ``router_bias`` biases the routing's selection
+    only; ``jax.grad`` gives such a leaf zeros too)."""
+    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def make_train_step(model: Model, optimizer,
                     grad_transform: Optional[Callable] = None):
     """``train_step(state, batch) -> (state, metrics)``: the loss and every
@@ -202,15 +217,15 @@ def make_train_step(model: Model, optimizer,
     e.g. int8 compression), then ``optimizer.apply`` over the groups the
     state was made with, which writes the new parameters and moments in
     place.  A failure in the forward or the backward leaves the state as it
-    was.  Metrics: ``nll``, ``moe_aux``, ``grad_norm``, ``lr``, ``loss``
-    (tensors)."""
+    was.  Metrics: ``nll``, ``moe_aux`` (and ``mtp_nll`` with an MTP head),
+    ``grad_norm``, ``lr``, ``loss`` (tensors)."""
     check_trainable(model.cfg)
 
     def train_step(state: TrainState, batch):
         module = state.params
         params = list(module.parameters())
         loss, metrics = model.loss(module, batch)
-        grads = list(torch.autograd.grad(loss, params))
+        grads = grads_of(loss, params)
         if grad_transform is not None:
             grads = list(grad_transform(grads))
         _, opt, opt_metrics = optimizer.apply(params, grads, state.opt)

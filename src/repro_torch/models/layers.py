@@ -89,15 +89,25 @@ class ParamTree(nn.Module):
 
 # the reference's parameter roots that stack one leaf a layer along a leading
 # [L, ...] axis: the dense and SSM models' ``layers``, zamba's
-# ``mamba_layers``, whisper's ``enc_layers`` and ``dec_layers``; the port
-# spreads each over ``<root>.<i>``
-STACKED_ROOTS = ("layers", "mamba_layers", "enc_layers", "dec_layers")
+# ``mamba_layers``, whisper's ``enc_layers`` and ``dec_layers``, the MoE
+# family's ``dense_layers`` and ``moe_layers``; the port spreads each over
+# ``<root>.<i>``
+STACKED_ROOTS = ("layers", "mamba_layers", "enc_layers", "dec_layers",
+                 "dense_layers", "moe_layers")
 
 
 def stack_depth(cfg, root: str) -> int:
     """The layers of the stacked root ``root``: ``cfg.encoder_layers`` for
-    whisper's ``enc_layers``, ``cfg.num_layers`` for every other root."""
-    return cfg.encoder_layers if root == "enc_layers" else cfg.num_layers
+    whisper's ``enc_layers``, ``cfg.first_k_dense`` for the MoE family's
+    ``dense_layers`` and the rest of ``cfg.num_layers`` for its
+    ``moe_layers``, ``cfg.num_layers`` for every other root."""
+    if root == "enc_layers":
+        return cfg.encoder_layers
+    if root == "dense_layers":
+        return cfg.first_k_dense
+    if root == "moe_layers":
+        return cfg.num_layers - cfg.first_k_dense
+    return cfg.num_layers
 
 
 def copy_reference_params(module: nn.Module, params: Mapping,

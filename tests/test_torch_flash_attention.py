@@ -127,6 +127,7 @@ def test_cpu_tensors_never_launch():
                                   "flash_attention_bf16_mma": 0,
                                   "flash_attention_f32": 0,
                                   "flash_attention_bwd_bf16": 0,
+                                  "flash_attention_bwd_bf16_mma": 0,
                                   "flash_attention_bwd_f32": 0}
     assert k3._bound is None and k3._bwd_bound is None
 
@@ -485,11 +486,13 @@ def test_plan_routes_head_dim_256(dtype, want):
 
 
 def test_tc_plan_at_head_dim_256_matches_the_source_constants():
-    """The ``wgmma`` forward's kv tile (``tc_bn``: 64 keys at 256, 128 at 64
-    and 128) is the plan's ``block_k``; its shared memory at 256, evaluated
-    from ``tc_smem_bytes`` -- Q of 128 rows, two K / V stages of 64 keys --
-    fits a block's 227 KB; each consumer warpgroup's rows start on a kv
-    tile boundary (``tc_tiles_align``), so only its first tile is masked."""
+    """The ``wgmma`` forward's kv tile (``tc_bn``: 64 keys at 256, 128 at 64,
+    128 and deepseek's (192, 128)) is the plan's ``block_k``; its shared
+    memory, evaluated from ``tc_smem_bytes`` -- Q of 128 rows, two K / V
+    stages of 64 keys at 256; at (192, 128) Q 48 KB, two K stages of 48 KB
+    and two V stages of 32 KB -- fits a block's 227 KB; each consumer
+    warpgroup's rows start on a kv tile boundary (``tc_tiles_align``), so
+    only its first tile is masked."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     m = re.search(r"tc_bn\(\) {\s*return D == 256 \? (\d+) : (\d+);", src)
     assert m and (int(m[1]), int(m[2])) == (k3._tc_bn(256), k3._tc_bn(64)) \
@@ -498,14 +501,19 @@ def test_tc_plan_at_head_dim_256_matches_the_source_constants():
     assert m
     body = re.search(r"constexpr int tc_smem_bytes\(\) {\s*return (.*?);",
                      src, re.S)[1]
-    for d in (64, 128, 256):
-        expr = body.replace("tc_stages<D>()", m[1] if d == 64 else m[2])
-        expr = expr.replace("tc_bn<D>()", str(k3._tc_bn(d)))
-        expr = re.sub(r"\bD\b", str(d), expr).replace("kTcBM", "128")
+    for hd, hv in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        expr = body.replace("tc_stages<HD>()", m[1] if hd == 64 else m[2])
+        expr = expr.replace("tc_bn<HD>()", str(k3._tc_bn(hd)))
+        expr = re.sub(r"\bHD\b", str(hd), expr)
+        expr = re.sub(r"\bHV\b", str(hv), expr).replace("kTcBM", "128")
         expr = " ".join(expr.split()).replace("/", "//")
         assert re.fullmatch(r"[\d\s+*/()]+", expr), expr
         assert eval(expr) <= 232_448
-        assert k3.plan(1, 4096, 8, 1, d, d, BF16).block_k == k3._tc_bn(d)
+        assert k3.plan(1, 4096, 8, 8, hd, hv, BF16).block_k == \
+            k3._tc_bn(hd)
+        if (hd, hv) == (192, 128):
+            assert eval(expr) == 1024 + 48 * 1024 + 2 * (48 + 32) * 1024 + \
+                10 * 8
     assert "static_assert(tc_tiles_align<64>() && tc_tiles_align<128>() &&" \
         in src
     # paligemma's B=8 prefill: 512 tiles of 128 rows on the 132 SMs
@@ -542,3 +550,82 @@ def test_cuda_sources_take_the_prefix():
         assert "int prefix;" in src and "causal_end(p, " in src
         code = re.sub(r"//[^\n]*", "", src)
         assert not re.search(r"causal && key > row\)", code)
+
+
+# --- deepseek's MLA: head dims (192, 128) ----------------------------------------
+
+
+MLA_SHAPES = [(2, 40, 2, 2), (1, 300, 2, 2)]     # (B, S, H == KV)
+
+
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_head_dims_match_reference_xla_attention(shape, causal, dtype):
+    """q / k of 192 columns (128 nope + 64 rope), v of 128, H == KV, the
+    softmax scale 192 ** -0.5 (``mla.py``): the plain version against the
+    reference's XLA attention (causal: ``layers.flash_attention``, what
+    ``mla_prefill`` calls) or its TPU kernel's oracle (not causal:
+    ``kernels/ref.py``); this file's tolerances."""
+    b, s, h = shape[:3]
+    (q, k, v), (qt, kt, vt) = _inputs(s + h, [(b, s, h, 192), (b, s, h, 192),
+                                              (b, s, h, 128)], dtype)
+    scale = 192 ** -0.5
+    if causal:
+        want = rL.flash_attention(q, k, v, scale=scale)
+    else:
+        want = ref.attention_ref(q, k, v, causal=False, scale=scale)
+    got = ops.flash_attention(qt, kt, vt, causal=causal, scale=scale)
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, s, h, 128)
+    _close(got, jnp.asarray(want).astype(jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    # deepseek v2 / v3 prefill (a): B=1 S=4096, 128 heads: 4096 tiles of
+    # 128 rows, kv tiles of 128 keys, on the wgmma kernel
+    ((1, 4096, 128, 128, 192, 128), BF16, (k3.TC, 128, 128, (132, 1))),
+    ((8, 1024, 128, 128, 192, 128), BF16, (k3.TC, 128, 128, (132, 1))),
+    ((1, 4096, 128, 128, 192, 128), F32, (k3.F32, 64, 64, (128, 64))),
+    ((2, 300, 4, 4, 192, 128), BF16, (k3.TC, 128, 128, (24, 1))),
+])
+def test_plan_routes_mla_head_dims(shape, dtype, want):
+    p = k3.plan(*shape, dtype)
+    assert (p.variant, p.block_q, p.block_k, p.grid) == want
+
+
+def test_mla_pair_is_the_only_rectangular_pair_past_128():
+    """(192, 128) is taken everywhere -- forward, the LSE forward and the
+    backward (on meta, the plan's route without a card); (192, 192),
+    (128, 192) and (192, 64) stay refused before any launch."""
+    assert k3.RECT_PAIRS == ((192, 128),)
+    q = torch.zeros((1, 8, 2, 192), device="meta")
+    v = torch.zeros((1, 8, 2, 128), device="meta")
+    assert tuple(k3.flash_attention(q, q, v, scale=0.1).shape) == \
+        (1, 8, 2, 128)
+    o, lse = k3.flash_attention_fwd(q, q, v)
+    assert tuple(o.shape) == (1, 8, 2, 128) and tuple(lse.shape) == (1, 2, 8)
+    for hd, hv in ((192, 192), (128, 192), (192, 64)):
+        qq = torch.zeros((1, 8, 2, hd), device="meta")
+        vv = torch.zeros((1, 8, 2, hv), device="meta")
+        with pytest.raises(ValueError, match="head dims"):
+            k3.flash_attention(qq, qq, vv)
+
+
+def test_mla_instances_are_in_the_sources():
+    """The wgmma kernel and the float32 kernel have (192, 128) instances,
+    with and without the LSE; the wgmma kernel's tiles align at 192."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    for inst in ("launch_tc<192, 128, false>", "launch_tc<192, 128, true>",
+                 "launch_f32<192, 128>", "launch_f32<192, 128, true>"):
+        assert inst in src, inst
+    assert "tc_tiles_align<192>()" in src
+    assert "tc_smem_bytes<192, 128>() <= 232448" in src
+
+
+def test_mla_work_counts_each_width_once():
+    """``fwd_work`` at (192, 128): (2 hd + 2 hv) B H pairs, q and k read at
+    192 columns, v and o at 128."""
+    flops, nbytes = k3.fwd_work(1, 4096, 128, 128, 192, 128, True, BF16)
+    pairs = 4096 * 4097 // 2
+    assert flops == (2 * 192 + 2 * 128) * 128 * pairs
+    assert nbytes == 2 * 4096 * 128 * (192 + 128 + 192 + 128)

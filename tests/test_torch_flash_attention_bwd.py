@@ -308,7 +308,7 @@ def test_bwd_source_adds_no_float_atomics_to_its_outputs():
         assert word not in code, word
 
 
-@pytest.mark.parametrize("hd", [16, 32, 192])
+@pytest.mark.parametrize("hd", [16, 32, 96])
 def test_plan_bwd_refuses_other_head_dims(hd):
     with pytest.raises(ValueError):
         k3.plan_bwd(1, 128, 2, 2, hd, BF16)
@@ -717,19 +717,25 @@ def test_plan_bwd_of_head_dim_256(dtype, want):
 
 def test_tf32_smem_matches_the_source_layout():
     """``_f32_bwd_smem`` mirrors ``f32_dq_smem_bytes`` / ``f32_dkdv_smem_
-    bytes``: rows of hd elements and 16 bytes, float32 lse, D and P^T; and
-    the source gives the dK / dV kernel one block an SM at hd 256."""
+    bytes``: rows of hd (Q, K) or hv (dO, V) elements and 16 bytes, float32
+    lse, D and P^T; and the source gives the dK / dV kernel one block an SM
+    at hd 256 and at (192, 128) (hd + hv > 256)."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    assert re.search(r"f32_kv_blocks\(\) {\s*return D == 256 \? 1 : 2;", src)
+    assert re.search(r"f32_kv_blocks\(\) {\s*return HD \+ HV > 256 \? 1 : 2;",
+                     src)
     assert re.search(r"row_ld\(\) {\s*return D \+ 16 / \(int\)sizeof\(T\);",
                      src)
-    for hd in (64, 128, 256):
-        dq, dkdv = k3._f32_bwd_smem(hd)
-        row, st = hd * 4 + 16, k3._f32_step(hd)
-        assert dq == (2 * 64 + 2 * 2 * st) * row
-        assert dkdv == 2 * 64 * row + 64 * (st + 8) * 4 + 2 * (2 * st * row
-                                                                + 2 * st * 4)
+    for hd, hv, el in ((64, 64, 4), (128, 128, 4), (256, 256, 4),
+                       (192, 128, 4), (192, 128, 2)):
+        dq, dkdv = k3._f32_bwd_smem(hd, hv, el)
+        pair = (hd + 16 // el) * el + (hv + 16 // el) * el
+        st = k3._f32_step(hd)
+        assert dq == (64 + 2 * st) * pair
+        assert dkdv == 64 * pair + 64 * (st + 8) * 4 + 2 * (st * pair
+                                                            + 2 * st * 4)
+        assert max(dq, dkdv) <= SMEM_LIMIT
     assert k3._f32_bwd_smem(256) == (199680, 206080)
+    assert k3._f32_bwd_smem(192, 128) == (125952, 132352)
 
 
 @pytest.mark.parametrize("b,s,h,kv,causal,p", [
@@ -918,3 +924,80 @@ def _bf16(a):
     """float32 rounded to bf16 (to nearest, ties to even) and back."""
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
         torch.bfloat16).float().numpy()
+
+
+# --- deepseek's MLA: head dims (192, 128), H == KV ----------------------------------
+
+
+@pytest.mark.parametrize("s,causal", [(64, True), (300, True), (100, False)])
+def test_mla_backward_matches_jax_vjp_of_the_reference(s, causal):
+    """q / k of 192 columns, v / dO of 128, H == KV, scale 192 ** -0.5: the
+    plain backward against ``jax.vjp`` of the reference's XLA attention
+    (causal, what ``mla_block`` trains through) or of ``attention_ref``
+    (not causal), float32, each gradient within ``TOL`` of its scale."""
+    from repro.kernels import ref
+    rng = np.random.default_rng(s)
+    b, h = 2, 2
+    q, k = (rng.normal(size=(b, s, h, 192)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.normal(size=(b, s, h, 128)).astype(np.float32)
+             for _ in range(2))
+    scale = 192 ** -0.5
+
+    def attn(q, k, v):
+        if causal:
+            return rL.flash_attention(q, k, v, scale=scale, chunk=128)
+        return ref.attention_ref(q, k, v, causal=False, scale=scale)
+
+    o_ref, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
+                                    scale=scale)
+    assert _rel(o, o_ref) <= TOL
+    got = k3.flash_attention_bwd(_t(do), _t(q), _t(k), _t(v), o, lse,
+                                 causal=causal, scale=scale)
+    assert [tuple(g.shape) for g in got] == [(b, s, h, 192), (b, s, h, 192),
+                                             (b, s, h, 128)]
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, k3.BWD_BF16_MMA), (torch.float32, k3.BWD_F32)])
+def test_plan_bwd_of_mla_head_dims(dtype, want):
+    """(192, 128) runs on the TF32 ``mma.sync`` kernels in both dtypes
+    (bf16 tiles: one TF32 product each): items of 64 rows or keys, one
+    block an item, 16-row steps; with GQA it is refused."""
+    p = k3.plan_bwd(1, 4096, 128, 128, 192, dtype, hv=128)
+    assert p.variant == want == k3.bwd_variant(dtype, 192, 128)
+    assert (p.q_rows, p.kv_rows, p.q_step, p.kv_step) == (64, 64, 16, 16)
+    assert p.grid_dq == p.grid_dkdv == (128 * 64, 1)
+    assert p.smem == k3._f32_bwd_smem(192, 128, dtype.itemsize)
+    assert max(p.smem) <= SMEM_LIMIT
+    assert not p.schedule_dq
+    with pytest.raises(ValueError, match="GQA"):
+        k3.plan_bwd(1, 256, 4, 2, 192, dtype, hv=128)
+
+
+def test_mla_bwd_work_separates_the_widths():
+    """``bwd_work`` at (192, 128): (6 hd + 4 hv) B H pairs; q, k, dq, dk at
+    192 columns, v, o, dO, dv at 128."""
+    flops, nbytes = k3.bwd_work(1, 4096, 128, 128, 192, 128, True,
+                                torch.bfloat16)
+    pairs = 4096 * 4097 // 2
+    assert flops == (6 * 192 + 4 * 128) * 128 * pairs
+    assert nbytes == 2 * 4096 * (2 * 128 * 192 + 2 * 128 * 128
+                                 + 2 * (128 * 192 + 128 * 128)) \
+        + 2 * 4 * 128 * 4096
+
+
+def test_mla_bwd_instances_are_in_the_source():
+    """The TF32 kernels are templated on both widths: (192, 128) instances
+    for float32 and bf16 tiles, bound to ``flash_attention_bwd_bf16_mma``
+    and ``flash_attention_bwd_f32``, each entry taking ``int hd, int hv``."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    assert "launch_tf32<T, 192, 128>" in src
+    assert "tf32_entry<bf16>" in src and "tf32_entry<float>" in src
+    for name in k3.BWD_VARIANTS:
+        m = re.search(rf"\nint {name}\(([^)]*)\)", src)
+        assert m and "int hd, int hv," in " ".join(m[1].split()), name
