@@ -449,10 +449,10 @@ def phase_build() -> dict:
     if len(bwd) != BWD_TC_INSTANCES or any(
             r["spill_stores"] or r["spill_loads"] for r in bwd):
         raise AssertionError(f"K3's backward kernels (dQ and dK / dV: bf16 "
-                             f"wgmma at hd 64, 128 and 256 -- the split dK "
-                             f"/ dV kernel at 256 --, float32 at 64, 128 "
-                             f"and 256, TF32 at (192, 128) with float32 "
-                             f"and bf16 tiles) spill (or are missing from "
+                             f"wgmma at hd 64, 128, 256 and (192, 128) -- "
+                             f"the split dK / dV kernel at 256 and (192, "
+                             f"128) --, float32 3xTF32 at 64, 128, 256 "
+                             f"and (192, 128)) spill (or are missing from "
                              f"the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
@@ -5196,11 +5196,10 @@ BWD_SYMBOL = "flash_bwd_"     # every backward kernel's name starts so
 BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
 # the case the bf16 backward's head-dim-256 row reports (paligemma)
 BWD_D256_HEADLINE = "paligemma_b1_s4096"
-# the backward's tensor-core kernels, bf16 (wgmma: dQ at hd 64, 128 and
-# 256, dK / dV at 64 and 128, the split dK / dV kernel at 256), float32
-# (3xTF32 on mma.sync, hd 64, 128 and 256) and the TF32 kernels at (192,
-# 128) with float32 and with bf16 tiles: 16 instances, ptxas must report
-# no spills
+# the backward's tensor-core kernels, bf16 (wgmma: dQ at hd 64, 128, 256
+# and (192, 128), dK / dV at 64 and 128, the split dK / dV kernel at 256
+# and (192, 128)) and float32 (3xTF32 on mma.sync, hd 64, 128, 256 and
+# (192, 128)): 16 instances, ptxas must report no spills
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_split_kernel",
@@ -5556,7 +5555,7 @@ def bwd_case(gen, device, case, dtype) -> dict:
     plan = k3.plan_bwd(b, s, h, kv, d, dtype, causal,
                        torch.cuda.get_device_properties(device)
                        .multi_processor_count, sk, pre, hv)
-    if plan.variant != k3.bwd_variant(dtype, d, hv):
+    if plan.variant != k3.bwd_variant(dtype):
         raise AssertionError(f"K3 backward {name} {dtype} planned "
                              f"{plan.variant}")
     scale = d ** -0.5
@@ -6415,7 +6414,7 @@ def train_deepseek_full(device, seed: int) -> dict:
         raise AssertionError(f"deepseek training losses {losses}")
     n_moe = cfg.num_layers - cfg.first_k_dense
     want = {k3.TC: 2 * cfg.num_layers * TRAIN_STEPS,
-            k3.BWD_BF16_MMA: cfg.num_layers * TRAIN_STEPS}
+            k3.BWD_BF16: cfg.num_layers * TRAIN_STEPS}
     want_calls = {tmoe.MOE_FWD: 2 * n_moe * TRAIN_STEPS,
                   tmoe.MOE_BWD: n_moe * TRAIN_STEPS}
     if cfg.remat != "full" or cfg.optimizer != "adafactor" or \
@@ -6690,10 +6689,13 @@ def bwd_rows(training, ptxas) -> list:
     """K3 backward's rows: the bf16 wgmma kernels at head dims 64 and 128
     (stablelm B=1 S=4096), at head dim 256 (the dQ kernel's 256 instance
     and the split dK / dV kernel: paligemma's B=1 S=4096, 8 heads of 256,
-    one kv head, prefix 256) and the float32 kernels (stablelm), the other
-    shapes of the row beside each; launches from the training paths ((a),
-    zamba2's (i), whisper's (l) bf16 at 64 / 128, paligemma's (o) bf16 at
-    256, (b), (j), (m) and (p) float32)."""
+    one kv head, prefix 256), at deepseek's (192, 128) (the dQ kernel's and
+    the split dK / dV kernel's (192, 128) instances: B=1 S=4096, 128
+    heads) and the float32 kernels (stablelm; deepseek's (192, 128) a row
+    of its own), the other shapes of the row beside each; launches from
+    the training paths ((a), zamba2's (i), whisper's (l) bf16 at 64 / 128,
+    paligemma's (o) bf16 at 256, deepseek's (r) bf16 at (192, 128), (b),
+    (j), (m), (p) and (s) float32)."""
     rows = []
     # (dtype, variant, row name, headline case, head dims, paths, what,
     # its kernels' ptxas names)
@@ -6715,16 +6717,17 @@ def bwd_rows(training, ptxas) -> list:
               "card; (j): zamba2 float32 depth 7, one site, one step; "
               "(m): whisper float32 2 + 2 layers, 6 attentions, one step; "
               "(p): paligemma float32 depth 2, one step",
-              ("kernelIfLi64E", "kernelIfLi128E", "kernelIfLi256E")),
-             (torch.bfloat16, k3.BWD_BF16_MMA, k3.BWD_BF16_MMA,
+              ("f32_tc_kernelILi64E", "f32_tc_kernelILi128E",
+               "f32_tc_kernelILi256E", "sum_f32_kernelIf")),
+             (torch.bfloat16, k3.BWD_BF16, k3.BWD_BF16 + "_mla_192_128",
               BWD_MLA_HEADLINE, (192,), ("r_deepseek_full",),
               "training (r): deepseek-v2 full width, depth 2, 4 steps",
-              ("kernelI13__nv_bfloat16Li192E",)),
+              ("bf16_tc_kernelILi192E", "bf16_split_kernelILi192E")),
              (torch.float32, k3.BWD_F32, k3.BWD_F32 + "_mla_192_128",
               BWD_MLA_HEADLINE, (192,), ("s_deepseek_card_vs_cpu",),
               "training (s): deepseek-v3 float32 at (c)'s widths, depth 2 "
               "with its MTP layer, one step on the card",
-              ("kernelIfLi192E",)))
+              ("f32_tc_kernelILi192E",)))
     for dtype, variant, name, headline, dims, path, what, tags in heads:
         cases = [r for r in training["d_k3_backward"]
                  if r["dtype"] == SUFFIX[dtype]

@@ -83,10 +83,15 @@
 //     rounding of P to bf16 was the largest difference between them.
 //     Persistent: one block an SM walks the tiles of 128 query rows of one
 //     (b, h), the heaviest first, in rounds whose block order alternates so
-//     that every block gets an even share of the work.  Block = 3
-//     warpgroups: warpgroup 0 loads, warpgroups 1 and 2 each own 64 rows of
-//     a tile.  Warp specialisation: the loader drops to 24 registers
-//     (setmaxnreg) and one of its threads issues every TMA copy; the
+//     that every block gets an even share of the work.  Where the K and V a
+//     round streams pass what the L2 holds (deepseek: 128 heads of 2.6 MB
+//     at S = 4096), the tiles run head by head (tc_group), so that the K
+//     and V the blocks stream stay in the L2 and are not read from device
+//     memory again for every q-block.  (64-key tiles with a ring of
+//     3 or 4, as at 256, ran slower at (192, 128) than 128-key tiles with
+//     2.)  Block = 3 warpgroups: warpgroup 0 loads, warpgroups 1 and 2 each
+//     own 64 rows of a tile.  Warp specialisation: the loader drops to 24
+//     registers (setmaxnreg) and one of its threads issues every TMA copy; the
 //     consumers rise to 240, so an S tile of BN/2 floats, an O tile of D/2
 //     floats and P's fragments stay in registers.
 //       Loads: TMA over 4-D tensor maps of q, k, v as they lie, dims
@@ -200,25 +205,33 @@ struct Params {
   int causal;
   int prefix;  // causal: keys [0, prefix) seen by every row
   int bh;      // tensor-core kernel: B * H
+  int group;   // tensor-core kernel: heads of a tile group (tc_group)
   float* lse;  // [B, H, S] float32: the *_lse entry points only
 };
 
-// The (b * H + h, q-block) of tile `lin` of bh * nq: tiles run q-block by
-// q-block over every head -- from the heaviest (last) q-block down under
-// causal, so the long kv loops start early and the short ones fill the
-// tail.
+// The (b * H + h, q-block) of tile `lin` of bh * nq: tiles run in groups
+// of `group` consecutive heads (b * H + h; the last group may hold fewer),
+// group after group, and inside a group q-block by q-block over its heads
+// -- from the heaviest (last) q-block down under causal, so the long kv
+// loops start early and the short ones fill the tail.  group == bh is one
+// group of every head.
 struct Tile {
   int bh, qb;
 };
 __device__ __forceinline__ Tile tile_of(const Params& p, int64_t lin, int bh,
-                                        int nq) {
-  const int qb = (int)(lin / bh);
-  return {(int)(lin % bh), p.causal ? nq - 1 - qb : qb};
+                                        int nq, int group) {
+  const int64_t per = (int64_t)group * nq;
+  const int g = (int)(lin / per);
+  const int size = min(group, bh - g * group);  // heads of this group
+  const int64_t r = lin - g * per;
+  const int qb = (int)(r / size);
+  return {g * group + (int)(r % size), p.causal ? nq - 1 - qb : qb};
 }
-// the tile of a block of the (B * H, q-blocks) grid, in launch order
+// the tile of a block of the (B * H, q-blocks) grid, in launch order, one
+// group of every head
 __device__ __forceinline__ Tile block_tile(const Params& p) {
   return tile_of(p, (int64_t)blockIdx.y * gridDim.x + blockIdx.x, gridDim.x,
-                 gridDim.y);
+                 gridDim.y, gridDim.x);
 }
 
 // the end of the keys a causal block of rows [.., q_end) sees: its last
@@ -552,7 +565,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                                  : ctas - 1 - c < n_tiles % ctas);
   auto tile_at = [&](int j) {
     return tile_of(p, (int64_t)j * ctas + (j % 2 == 0 ? c : ctas - 1 - c),
-                   p.bh, nq);
+                   p.bh, nq, p.group);
   };
   auto kv_tiles = [&](const Tile& tl) {
     const int kv_end = p.causal ? causal_end(p, tl.qb * kTcBM + kTcBM) : p.Sk;
@@ -1427,6 +1440,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.causal = causal;
   p.prefix = prefix;
   p.bh = 0;         // set by the entry point that needs it
+  p.group = 0;
   p.lse = nullptr;  // set by the *_lse entry points
   return p;
 }
@@ -1485,6 +1499,24 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   return (int)cudaGetLastError();
 }
 
+// The heads of a tile group (tile_of): one -- the tiles run head by head,
+// every q-block of a head heaviest first, then the next head's -- where
+// the K and V that one round of the grid streams in the order of a single
+// group (gx heads at one q-block, their kv heads' K and V up to Sk) pass
+// kL2Group, more than the 50 MB L2 holds; else every head.  Head by head,
+// a round's blocks stream the K and V of the few heads it holds, which the
+// L2 keeps: deepseek's prefill (128 heads, K and V of 2.6 MB each at S =
+// 4096) reads them from device memory again for every q-block otherwise.
+// The rounds' alternating block order keeps head by head within ~3 % of
+// the even split at deepseek's shapes.
+constexpr int64_t kL2Group = 64ll << 20;
+int tc_group(int B, int Sk, int H, int KV, int hd, int hv, int gx) {
+  const int64_t heads = gx < (int64_t)B * H ? gx : (int64_t)B * H;
+  const int64_t g = H / KV;
+  const int64_t round_bytes = (heads + g - 1) / g * Sk * (hd + hv) * 2;
+  return round_bytes > kL2Group ? 1 : B * H;
+}
+
 // the tensor-core entry points: checks, tensor maps, launch (lse nullptr:
 // prefill's instance)
 int tc_entry(const void* q, const void* k, const void* v, void* o,
@@ -1511,6 +1543,7 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
   Params p =
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   p.bh = B * H;
+  p.group = tc_group(B, Sk, H, KV, hd, hv, gx);
   p.lse = lse;
   switch (hd * 2 + (lse != nullptr)) {
     case 128: return launch_tc<64, 64, false>(tm_q, tm_k, tm_v, p, gx, gy,

@@ -69,9 +69,10 @@
 //   (repro_torch/kernels/flash_attention.py, plan_bwd()).  The entry points
 //   check that a plan fits the shape and obey it; they choose nothing.
 //
-//   flash_bwd_dq_bf16_tc_kernel<D> (D in {64, 128, 256}),
-//   flash_bwd_dkdv_bf16_tc_kernel<D> (D in {64, 128}),
-//   flash_bwd_dkdv_bf16_split_kernel<256>   bf16, K3's forward
+//   flash_bwd_dq_bf16_tc_kernel<HD, HV> (hd == hv == D in {64, 128, 256},
+//   and (192, 128)), flash_bwd_dkdv_bf16_tc_kernel<D> (D in {64, 128}),
+//   flash_bwd_dkdv_bf16_split_kernel<HD, HV> (256 and (192, 128))   bf16,
+//   K3's forward
 //     (flash_attention.cu, flash_bf16_tc_kernel) with its roles turned
 //     around.  Persistent: one
 //     384-thread block an SM walks the work items the plan's schedule gives
@@ -136,13 +137,26 @@
 //       and flash_bwd_dkdv_sum_f32_kernel adds a group's in head order (67
 //       MB written and read at paligemma's shape).  P and dS are rounded to
 //       bf16 for the products as at 64 and 128; dS takes P in float32.
-//   flash_bwd_dq_f32_tc_kernel<T, HD, HV>, flash_bwd_dkdv_f32_tc_kernel<T,
-//     HD, HV>   float32 (T = float), hd == hv == D in {64, 128, 256} or
-//     (hd, hv) = (192, 128) (deepseek's MLA, no GQA); and bf16 (T = bf16,
-//     entry flash_attention_bwd_bf16_mma) at (192, 128) only: the same
-//     kernels with bf16 tiles in shared memory, each product one TF32 mma
-//     (a bf16 operand is exact in TF32), a simple kernel that is right
-//     (its wgmma redesign waits).  Every product -- S and dP
+//     (hd, hv) = (192, 128) (deepseek's MLA: H == KV = 128, no GQA).  Q and
+//       K rows are 3 boxes, dO and V rows 2: S = Q K^T takes 12 k16 steps,
+//       dP = dO V^T 8.  dQ: one item slot (Q 48 KB and dO 32 KB) and a ring
+//       of 3 K / V tiles of 64 keys (24 + 16 KB a stage): 201 KB; registers
+//       dQ 96 + S 32 + dP 32 + dS 16; dQ += dS K by one wgmma.m64n192k16 a
+//       16-key step (192 is a legal wgmma width: a multiple of 8 up to
+//       256).  dK (96 registers) and dV (64) beside S^T and dP^T would be
+//       ~224 of the 240, so dK / dV takes the split kernel: the P
+//       warpgroup's S^T runs over 192 columns and its dV += P^T dO is
+//       m64n128k16, the dS warpgroup's dP^T over 128 and its dK += dS^T Q
+//       m64n192k16; the item's K and V (40 KB) resident, 3 ring slots of Q
+//       / dO tiles with their lse2 and D (40.5 KB each), the two P^T
+//       buffers (32 KB): 195 KB.  An item is 64 keys of one head (8,192
+//       items at deepseek's B=1 S=4096); H == KV, so no partials.  It
+//       replaces the float32 TF32 kernels with bf16 tiles (one TF32
+//       mma.sync a product, items of 64 rows or keys, one block an item),
+//       which took 38.2 ms at that shape against SDPA's 4.0.
+//   flash_bwd_dq_f32_tc_kernel<HD, HV>, flash_bwd_dkdv_f32_tc_kernel<HD,
+//     HV>   float32, hd == hv == D in {64, 128, 256} or (hd, hv) = (192,
+//     128) (deepseek's MLA, no GQA).  Every product -- S and dP
 //     in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
@@ -426,6 +440,12 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
   wgmma_rs_m64n128k16(d, a, db);
 }
 template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n192k16(d, a, db);
+}
+template <>
 __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -514,15 +534,18 @@ constexpr int kBoxStep = kStep * 128;  // of a 64-row tile
 // boundary of the items: the scratch's padding, the causal first q tile
 static_assert(kRows == 2 * kStep, "tile sizes");
 
+// Below D is the Q K^T width (hd): the head dims are hd == hv in {64, 128,
+// 256} and deepseek's (hd, hv) = (192, 128).
 // the dQ kernel's kv tile: 128 keys at D = 64 (S and dP take 64 + 64
-// registers a thread beside dQ's 32), 64 at D = 128 (dQ takes 64), 32 at
-// D = 256 (dQ takes 128; S, dP 16 each)
+// registers a thread beside dQ's 32), 64 at D = 128 (dQ takes 64) and at
+// 192 (dQ 96), 32 at D = 256 (dQ takes 128; S, dP 16 each)
 template <int D>
 __host__ __device__ constexpr int dq_step() {
-  return D == 64 ? 128 : D == 128 ? 64 : 32;
+  return D == 64 ? 128 : D == 128 ? 64 : D == 192 ? 64 : 32;
 }
 // ring slots of each kernel (the budget of 227 KB decides; the dK / dV
-// kernel at D = 256 is flash_bwd_dkdv_bf16_split_kernel, kSplitStages)
+// kernel at D = 192 and 256 is flash_bwd_dkdv_bf16_split_kernel,
+// split_stages)
 template <int D>
 __host__ __device__ constexpr int dq_stages() {
   return D == 64 ? 4 : 3;
@@ -532,19 +555,19 @@ __host__ __device__ constexpr int dkdv_stages() {
   return D == 64 ? 4 : 3;
 }
 // the dQ kernel's item slots of Q and dO: two (the next item's load under
-// this one), one at D = 256, where a slot is 128 KB
+// this one), one at D = 192 (80 KB a slot) and 256 (128 KB)
 template <int D>
 __host__ __device__ constexpr int dq_slots() {
-  return D == 256 ? 1 : 2;
+  return D >= 192 ? 1 : 2;
 }
 
 // shared memory: 1 KiB to align the base to the swizzle's 1024-byte period,
 // the item slots of Q and dO, the ring of K and V tiles, the barriers
-template <int D>
+template <int HD, int HV>
 constexpr int dq_smem_bytes() {
-  return 1024 + 2 * dq_slots<D>() * (D / 64) * kBoxBig +
-         dq_stages<D>() * 2 * (D / 64) * dq_step<D>() * 128 +
-         (2 * dq_slots<D>() + 4 * dq_stages<D>()) * 8;
+  return 1024 + dq_slots<HD>() * ((HD + HV) / 64) * kBoxBig +
+         dq_stages<HD>() * ((HD + HV) / 64) * dq_step<HD>() * 128 +
+         (2 * dq_slots<HD>() + 4 * dq_stages<HD>()) * 8;
 }
 // two item slots of K and V; the ring of Q and dO tiles with their 64 lse2
 // and D values; the barriers
@@ -554,9 +577,10 @@ constexpr int dkdv_smem_bytes() {
          dkdv_stages<D>() * (2 * (D / 64) * kBoxStep + 2 * kStep * 4) +
          (4 + 2 * dkdv_stages<D>()) * 8;
 }
-static_assert(dq_smem_bytes<64>() <= 232448 &&
-                  dq_smem_bytes<128>() <= 232448 &&
-                  dq_smem_bytes<256>() <= 232448,
+static_assert(dq_smem_bytes<64, 64>() <= 232448 &&
+                  dq_smem_bytes<128, 128>() <= 232448 &&
+                  dq_smem_bytes<192, 128>() <= 232448 &&
+                  dq_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 static_assert(dkdv_smem_bytes<64>() <= 232448 &&
                   dkdv_smem_bytes<128>() <= 232448,
@@ -573,28 +597,31 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float* c) {
   a[3] = pack_bf16(c[6], c[7]);
 }
 
-template <int D>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_do,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             const Params p) {
-  static_assert(D == 64 || D == 128 || D == 256,
+  static_assert((HD == HV && (HD == 64 || HD == 128 || HD == 256)) ||
+                    (HD == 192 && HV == 128),
                 "head dims of the wgmma dQ kernel");
-  constexpr int BN = dq_step<D>();
-  constexpr int stages = dq_stages<D>();
-  constexpr int slots = dq_slots<D>();
-  constexpr int kBoxK = BN * 128;             // a 64-column box of K or V
-  constexpr int kTileQ = (D / 64) * kBoxBig;  // Q or dO of an item
-  constexpr int kTileK = (D / 64) * kBoxK;    // a K or V tile
+  constexpr int BN = dq_step<HD>();
+  constexpr int stages = dq_stages<HD>();
+  constexpr int slots = dq_slots<HD>();
+  constexpr int kBoxK = BN * 128;              // a 64-column box of K or V
+  constexpr int kTileQ = (HD / 64) * kBoxBig;  // Q of an item
+  constexpr int kTileO = (HV / 64) * kBoxBig;  // dO of an item
+  constexpr int kTileK = (HD / 64) * kBoxK;    // a K tile
+  constexpr int kTileV = (HV / 64) * kBoxK;    // a V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = smem;                       // [slots][kTileQ]
-  uint8_t* sdO = sQ + slots * kTileQ;       // [slots][kTileQ]
-  uint8_t* sK = sdO + slots * kTileQ;       // [stages][kTileK]
-  uint8_t* sV = sK + stages * kTileK;       // [stages][kTileK]
-  uint64_t* t_full = reinterpret_cast<uint64_t*>(sV + stages * kTileK);
+  uint8_t* sdO = sQ + slots * kTileQ;       // [slots][kTileO]
+  uint8_t* sK = sdO + slots * kTileO;       // [stages][kTileK]
+  uint8_t* sV = sK + stages * kTileK;       // [stages][kTileV]
+  uint64_t* t_full = reinterpret_cast<uint64_t*>(sV + stages * kTileV);
   uint64_t* t_empty = t_full + slots;
   uint64_t* k_full = t_empty + slots;
   uint64_t* k_empty = k_full + stages;
@@ -644,14 +671,15 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int n_kv = kv_tiles(qb);
         const int slot = j % slots;
         mbar_wait(&t_empty[slot], ((j / slots) & 1) ^ 1);
-        mbar_arrive_expect_tx(&t_full[slot], 2 * kTileQ);
+        mbar_arrive_expect_tx(&t_full[slot], kTileQ + kTileO);
 #pragma unroll
-        for (int cc = 0; cc < D / 64; ++cc) {
+        for (int cc = 0; cc < HD / 64; ++cc)
           tma_load_4d(sQ + slot * kTileQ + cc * kBoxBig, &tm_q, &t_full[slot],
                       64 * cc, h, qb * kRows, b);
-          tma_load_4d(sdO + slot * kTileQ + cc * kBoxBig, &tm_do,
+#pragma unroll
+        for (int cc = 0; cc < HV / 64; ++cc)
+          tma_load_4d(sdO + slot * kTileO + cc * kBoxBig, &tm_do,
                       &t_full[slot], 64 * cc, h, qb * kRows, b);
-        }
         for (int it = 0; it < n_kv; ++it, ++ring) {
           const int st = ring % stages;
           const uint32_t free_parity = ((ring / stages) & 1) ^ 1;
@@ -659,14 +687,14 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(&k_empty[st], free_parity);
           mbar_arrive_expect_tx(&k_full[st], kTileK);
 #pragma unroll
-          for (int cc = 0; cc < D / 64; ++cc)
+          for (int cc = 0; cc < HD / 64; ++cc)
             tma_load_4d(sK + st * kTileK + cc * kBoxK, &tm_k, &k_full[st],
                         64 * cc, kvh, k0, b);
           mbar_wait(&v_empty[st], free_parity);
-          mbar_arrive_expect_tx(&v_full[st], kTileK);
+          mbar_arrive_expect_tx(&v_full[st], kTileV);
 #pragma unroll
-          for (int cc = 0; cc < D / 64; ++cc)
-            tma_load_4d(sV + st * kTileK + cc * kBoxK, &tm_v, &v_full[st],
+          for (int cc = 0; cc < HV / 64; ++cc)
+            tma_load_4d(sV + st * kTileV + cc * kBoxK, &tm_v, &v_full[st],
                         64 * cc, kvh, k0, b);
         }
       }
@@ -685,32 +713,33 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool causal = p.causal;
   const int prefix = p.prefix;
 
-  float dq[D / 2];                 // dQ / scale
+  float dq[HD / 2];                // dQ / scale
   float s[BN / 2], dp[BN / 2];     // S then dS / scale; dP
   uint32_t da[BN / 16][4];         // dS / scale in bf16: A fragments of dS K
   float dsum[2], l2[2];            // D and lse * log2 e of the 2 rows
   int row0 = 0, row_lo = 0;
   uint32_t q_addr = 0, do_addr = 0;
 
-  // S = Q K^T and dP = dO V^T of ring slot st, 64 rows x BN keys, D / 16
-  // steps of 16 (a box per 64 columns): K-major, 8-row groups 1 KB apart,
-  // the step's 16 columns at +32 bytes inside the swizzled row.  One
-  // commit group, not waited for.  At D = 256 the item's Q and dO
-  // addresses pass an empty asm first, so that their 32 descriptors are
-  // made at each issue and not hoisted out of the kv loop (64 registers,
-  // which ptxas spilled)
+  // S = Q K^T and dP = dO V^T of ring slot st, 64 rows x BN keys, HD / 16
+  // and HV / 16 steps of 16 (a box per 64 columns): K-major, 8-row groups
+  // 1 KB apart, the step's 16 columns at +32 bytes inside the swizzled row.
+  // One commit group, not waited for.  At (192, 128) and 256 the item's Q
+  // and dO addresses pass an empty asm first, so that their 20 or 32
+  // descriptors are made at each issue and not hoisted out of the kv loop
+  // (64 registers at 256, which ptxas spilled)
   auto issue_sdp = [&](int st) {
-    if constexpr (D == 256) asm volatile("" : "+r"(q_addr), "+r"(do_addr));
+    if constexpr (HD + HV > 256)
+      asm volatile("" : "+r"(q_addr), "+r"(do_addr));
     const uint32_t k_addr = smem_u32(sK + st * kTileK);
-    const uint32_t v_addr = smem_u32(sV + st * kTileK);
+    const uint32_t v_addr = smem_u32(sV + st * kTileV);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss<BN>(
           s, smem_desc(q_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
           smem_desc(k_addr + (kk / 4) * kBoxK + (kk % 4) * 32, 16, 1024),
           kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < HV / 16; ++kk)
       wgmma_ss<BN>(
           dp,
           smem_desc(do_addr + (kk / 4) * kBoxBig + (kk % 4) * 32, 16, 1024),
@@ -724,7 +753,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_addr = smem_u32(sK + st * kTileK);
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j)
-      wgmma_rs<D>(dq, da[j], smem_desc(k_addr + j * 2048, kBoxK, 1024));
+      wgmma_rs<HD>(dq, da[j], smem_desc(k_addr + j * 2048, kBoxK, 1024));
     wgmma_commit();
   };
   // P and dS / scale of kv tile kt (keys [kt BN, kt BN + BN)) in s, from S
@@ -782,10 +811,10 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     row_lo = qb * kRows + cw * 64;
     row0 = row_lo + frag_row;
     q_addr = smem_u32(sQ + slot * kTileQ) + cw * 64 * 128;
-    do_addr = smem_u32(sdO + slot * kTileQ) + cw * 64 * 128;
+    do_addr = smem_u32(sdO + slot * kTileO) + cw * 64 * 128;
 
     // D = rowsum(dO o O) and lse of this thread's two rows: the quad's four
-    // threads take D / 4 columns each; written to the scratch for the dK /
+    // threads take HV / 4 columns each; written to the scratch for the dK /
     // dV kernel, zeros on the rows past S
     const bf16* op = base<const bf16, kO>(p, p.o, b, h);
     const bf16* dop = base<const bf16, kDO>(p, p.dout, b, h);
@@ -795,11 +824,11 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       float acc = 0.0f;
       if (row < seq) {
         const uint4* orow = reinterpret_cast<const uint4*>(
-            op + row * row_stride<kO>(p) + t4 * (D / 4));
+            op + row * row_stride<kO>(p) + t4 * (HV / 4));
         const uint4* drow = reinterpret_cast<const uint4*>(
-            dop + row * row_stride<kDO>(p) + t4 * (D / 4));
+            dop + row * row_stride<kDO>(p) + t4 * (HV / 4));
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c) {
+        for (int c = 0; c < HV / 32; ++c) {
           const uint4 a = orow[c], d = drow[c];
           const uint32_t av[4] = {a.x, a.y, a.z, a.w};
           const uint32_t dv[4] = {d.x, d.y, d.z, d.w};
@@ -823,7 +852,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
     const bool last_item = j + 1 == n_mine;
 
     // kv tile 0 (the diagonal one, or the prefix's last, under causal): S
@@ -897,7 +926,7 @@ flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row >= seq) continue;
       bf16* out = dqp + row * row_stride<kDQ>(p);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<uint32_t*>(out + n * 8 + t4 * 2) =
             pack_bf16(dq[4 * n + 2 * i] * p.scale,
                       dq[4 * n + 2 * i + 1] * p.scale);
@@ -1225,49 +1254,62 @@ flash_bwd_dkdv_bf16_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// dK / dV at D = 256: a 64 x 256 float32 accumulator is 128 registers a
-// thread, so one warpgroup cannot hold dK beside dV.  The two consumer
-// warpgroups split them: warpgroup 0 (the P warpgroup) computes S^T = K
-// Q^T and P^T, hands P^T (float32) to warpgroup 1 through shared memory
-// and adds P^T dO to dV; warpgroup 1 (the dS warpgroup) computes dP^T = V
-// dO^T, dS^T = P^T (dP^T - D) and adds dS^T Q to dK -- the float32
-// kernels' warp-pair split lifted to warpgroups.  An item is kStep keys of
-// ONE head, so that MQA / GQA give as many items as heads times key
-// blocks; with GQA each item writes float32 partials that
+// dK / dV at D = 192 and 256: a 64 x 256 float32 accumulator is 128
+// registers a thread, and at (192, 128) dK (96) and dV (64) with S^T and
+// dP^T would be ~224, so one warpgroup does not hold dK beside dV.  The
+// two consumer warpgroups split them: warpgroup 0 (the P warpgroup)
+// computes S^T = K Q^T and P^T, hands P^T (float32) to warpgroup 1 through
+// shared memory and adds P^T dO to dV; warpgroup 1 (the dS warpgroup)
+// computes dP^T = V dO^T, dS^T = P^T (dP^T - D) and adds dS^T Q to dK --
+// the float32 kernels' warp-pair split lifted to warpgroups.  At (192, 128)
+// the two sides differ in width: the P warpgroup's scores run over HD = 192
+// columns and its dV over HV = 128, the dS warpgroup's scores over 128 and
+// its dK over 192 (one wgmma.m64n192k16 a 16-row step).  An item is kStep
+// keys of ONE head, so that MQA / GQA give as many items as heads times key
+// blocks; with GQA (at 256 only) each item writes float32 partials that
 // flash_bwd_dkdv_sum_f32_kernel adds by group in head order.
-constexpr int kSplitStages = 2;   // Q / dO ring slots of the split kernel
 constexpr int kSplitPt = 128 * (kStep / 2);  // floats of a P^T buffer
+
+// Q / dO ring slots of the split kernel (D the Q K^T width): 2 at 256 (64
+// KB a pair), 3 at (192, 128) (40 KB)
+template <int D>
+__host__ __device__ constexpr int split_stages() {
+  return D == 256 ? 2 : 3;
+}
 
 // shared memory: 1 KiB to align the base, the item's K and V (64 keys),
 // the ring of Q and dO tiles (64 rows) with their lse2 and D, two P^T
 // buffers (one float32 fragment a thread), the barriers
-template <int D>
+template <int HD, int HV>
 constexpr int split_smem_bytes() {
-  return 1024 + 2 * (D / 64) * kBoxStep +
-         kSplitStages * (2 * (D / 64) * kBoxStep + 2 * kStep * 4) +
-         2 * kSplitPt * 4 + (2 + 2 * kSplitStages + 4) * 8;
+  return 1024 + ((HD + HV) / 64) * kBoxStep +
+         split_stages<HD>() * (((HD + HV) / 64) * kBoxStep + 2 * kStep * 4) +
+         2 * kSplitPt * 4 + (2 + 2 * split_stages<HD>() + 4) * 8;
 }
-static_assert(split_smem_bytes<256>() <= 232448,
+static_assert(split_smem_bytes<192, 128>() <= 232448 &&
+                  split_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 
-template <int D>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_bf16_split_kernel(const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
                                  const __grid_constant__ CUtensorMap tm_q,
                                  const __grid_constant__ CUtensorMap tm_do,
                                  const Params p) {
-  static_assert(D == 256, "the split dK / dV kernel's head dim");
-  constexpr int stages = kSplitStages;
-  constexpr int kTile = (D / 64) * kBoxStep;  // K, V, a Q or a dO tile
+  static_assert((HD == 256 && HV == 256) || (HD == 192 && HV == 128),
+                "the split dK / dV kernel's head dims");
+  constexpr int stages = split_stages<HD>();
+  constexpr int kTileK = (HD / 64) * kBoxStep;  // K, or a Q tile
+  constexpr int kTileV = (HV / 64) * kBoxStep;  // V, or a dO tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sK = smem;
-  uint8_t* sV = sK + kTile;
-  uint8_t* sQ = sV + kTile;               // [stages][kTile]
-  uint8_t* sdO = sQ + stages * kTile;     // [stages][kTile]
-  float* sL = reinterpret_cast<float*>(sdO + stages * kTile);  // [stages][64]
-  float* sD = sL + stages * kStep;                             // [stages][64]
+  uint8_t* sV = sK + kTileK;
+  uint8_t* sQ = sV + kTileV;              // [stages][kTileK]
+  uint8_t* sdO = sQ + stages * kTileK;    // [stages][kTileV]
+  float* sL = reinterpret_cast<float*>(sdO + stages * kTileV);  // [stages][64]
+  float* sD = sL + stages * kStep;                              // [stages][64]
   float* sP = sD + stages * kStep;                  // [2][kSplitPt]: P^T
   uint64_t* t_full = reinterpret_cast<uint64_t*>(sP + 2 * kSplitPt);
   uint64_t* t_empty = t_full + 1;
@@ -1318,25 +1360,28 @@ flash_bwd_dkdv_bf16_split_kernel(const __grid_constant__ CUtensorMap tm_k,
         const int bh = item / nk, kb = item % nk;
         const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
         mbar_wait(t_empty, (j & 1) ^ 1);
-        mbar_arrive_expect_tx(t_full, 2 * kTile);
+        mbar_arrive_expect_tx(t_full, kTileK + kTileV);
 #pragma unroll
-        for (int cc = 0; cc < D / 64; ++cc) {
+        for (int cc = 0; cc < HD / 64; ++cc)
           tma_load_4d(sK + cc * kBoxStep, &tm_k, t_full, 64 * cc, kvh,
                       kb * kStep, b);
+#pragma unroll
+        for (int cc = 0; cc < HV / 64; ++cc)
           tma_load_4d(sV + cc * kBoxStep, &tm_v, t_full, 64 * cc, kvh,
                       kb * kStep, b);
-        }
         for (int qt = first_q(kb); qt < nq; ++qt, ++ring) {
           const int st = ring % stages;
           mbar_wait(&q_empty[st], ((ring / stages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&q_full[st], 2 * kTile + 2 * kStep * 4);
+          mbar_arrive_expect_tx(&q_full[st],
+                                kTileK + kTileV + 2 * kStep * 4);
 #pragma unroll
-          for (int cc = 0; cc < D / 64; ++cc) {
-            tma_load_4d(sQ + st * kTile + cc * kBoxStep, &tm_q, &q_full[st],
+          for (int cc = 0; cc < HD / 64; ++cc)
+            tma_load_4d(sQ + st * kTileK + cc * kBoxStep, &tm_q, &q_full[st],
                         64 * cc, h, qt * kStep, b);
-            tma_load_4d(sdO + st * kTile + cc * kBoxStep, &tm_do,
+#pragma unroll
+          for (int cc = 0; cc < HV / 64; ++cc)
+            tma_load_4d(sdO + st * kTileV + cc * kBoxStep, &tm_do,
                         &q_full[st], 64 * cc, h, qt * kStep, b);
-          }
           const int64_t at = (int64_t)bh * p.s_pad + qt * kStep;
           bulk_load(sL + st * kStep, p.lse2 + at, kStep * 4, &q_full[st]);
           bulk_load(sD + st * kStep, p.dd + at, kStep * 4, &q_full[st]);
@@ -1354,141 +1399,161 @@ flash_bwd_dkdv_bf16_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int frag_row = (t >> 5) * 16 + (lane >> 2);
   const float sl2 = p.scale * kLog2e;
   const bool pgroup = cw == 0;
-  // the scores' A (all 64 keys of K or V, K-major), their B (the Q or dO
-  // tile, K-major) and the accumulation's B (the dO or Q tile, MN-major)
-  const uint32_t a_addr = smem_u32(pgroup ? sK : sV);
-  const uint8_t* sB = pgroup ? sQ : sdO;
-  const uint8_t* sM = pgroup ? sdO : sQ;
 
-  float acc[D / 2];              // dV (P warpgroup), dK / scale (dS)
-  float c[kStep / 2];            // S^T then P^T; dP^T then dS^T / scale
-  uint32_t a[kStep / 16][4];     // P^T or dS^T in bf16: A of the accumulation
-  int ring = 0;                  // the Q / dO slot sequence, as the loader's
-  int u = 0;                     // the P^T hand-over sequence
-  for (int j = 0; j < n_mine; ++j) {
-    const int item = items[j];
-    const int bh = item / nk, kb = item % nk;
-    const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
-    const int key_lo = kb * kStep, key0 = key_lo + frag_row;
-    const int qt0 = first_q(kb), steps = nq - qt0;
+  // One warpgroup's side, KD the scores' reduction width (HD for S^T = K
+  // Q^T, HV for dP^T = V dO^T), AD its accumulator's (HV for dV += P^T dO,
+  // HD for dK += dS^T Q).  The scores' A is the item's K or V (64 keys,
+  // K-major), their B the ring's Q or dO tile (K-major); the
+  // accumulation's B is the ring's dO or Q tile (MN-major).
+  auto consume = [&](auto kd, auto ad) {
+    constexpr int KD = decltype(kd)::value, AD = decltype(ad)::value;
+    constexpr int kTileB = (KD / 64) * kBoxStep, kTileM = (AD / 64) * kBoxStep;
+    const uint32_t a_addr = smem_u32(pgroup ? sK : sV);
+    const uint8_t* sB = pgroup ? sQ : sdO;
+    const uint8_t* sM = pgroup ? sdO : sQ;
+
+    float acc[AD / 2];             // dV (P warpgroup), dK / scale (dS)
+    float c[kStep / 2];            // S^T then P^T; dP^T then dS^T / scale
+    uint32_t a[kStep / 16][4];     // P^T or dS^T in bf16: A of the accumulation
+    int ring = 0;                  // the Q / dO slot sequence, as the loader's
+    int u = 0;                     // the P^T hand-over sequence
+    for (int j = 0; j < n_mine; ++j) {
+      const int item = items[j];
+      const int bh = item / nk, kb = item % nk;
+      const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
+      const int key_lo = kb * kStep, key0 = key_lo + frag_row;
+      const int qt0 = first_q(kb), steps = nq - qt0;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-    mbar_wait(t_full, j & 1);
-    for (int i = 0; i < steps; ++i, ++ring, ++u) {
-      const int st = ring % stages, q0 = (qt0 + i) * kStep;
-      mbar_wait(&q_full[st], (ring / stages) & 1);
-      // S^T = K Q^T or dP^T = V dO^T: 64 keys x 64 rows, D / 16 steps
-      const uint32_t b_addr = smem_u32(sB + st * kTile);
-      wgmma_fence();
+      for (int i = 0; i < AD / 2; ++i) acc[i] = 0.0f;
+      mbar_wait(t_full, j & 1);
+      for (int i = 0; i < steps; ++i, ++ring, ++u) {
+        const int st = ring % stages, q0 = (qt0 + i) * kStep;
+        mbar_wait(&q_full[st], (ring / stages) & 1);
+        // S^T = K Q^T or dP^T = V dO^T: 64 keys x 64 rows, KD / 16 steps
+        const uint32_t b_addr = smem_u32(sB + st * kTileB);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64k16(
-            c, smem_desc(a_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16,
-                         1024),
-            smem_desc(b_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16, 1024),
-            kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(c);
-      if (lane == 0 && i == steps - 1) mbar_arrive(t_empty);  // K or V done
-      const int buf = u & 1;
-      const uint32_t phase = (u >> 1) & 1;
-      float4* pt = reinterpret_cast<float4*>(sP + buf * kSplitPt) + t;
-      if (pgroup) {
-        // P^T, lse2 per column; on a tile with the diagonal (or before
-        // it, inside the prefix) 0 for a key after the row and past the
-        // prefix, by selects.  Rows past S need no mask: their Q and dO
-        // are TMA's zeros and their lse2 and D the scratch's, so P^T = 1,
-        // dV gains 0 and dS^T is 0.
-        const float* L = sL + st * kStep;
-        const bool masked = p.causal && key_lo + kStep - 1 > q0;
+        for (int kk = 0; kk < KD / 16; ++kk)
+          wgmma_ss_m64n64k16(
+              c, smem_desc(a_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16,
+                           1024),
+              smem_desc(b_addr + (kk / 4) * kBoxStep + (kk % 4) * 32, 16,
+                        1024),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(c);
+        if (lane == 0 && i == steps - 1) mbar_arrive(t_empty);  // K or V done
+        const int buf = u & 1;
+        const uint32_t phase = (u >> 1) & 1;
+        float4* pt = reinterpret_cast<float4*>(sP + buf * kSplitPt) + t;
+        if (pgroup) {
+          // P^T, lse2 per column; on a tile with the diagonal (or before
+          // it, inside the prefix) 0 for a key after the row and past the
+          // prefix, by selects.  Rows past S need no mask: their Q and dO
+          // are TMA's zeros and their lse2 and D the scratch's, so P^T = 1,
+          // dV gains 0 and dS^T is 0.
+          const float* L = sL + st * kStep;
+          const bool masked = p.causal && key_lo + kStep - 1 > q0;
 #pragma unroll
-        for (int n = 0; n < kStep / 8; ++n) {
-          const int col = n * 8 + t4 * 2;
-          const float2 lc = *reinterpret_cast<const float2*>(L + col);
+          for (int n = 0; n < kStep / 8; ++n) {
+            const int col = n * 8 + t4 * 2;
+            const float2 lc = *reinterpret_cast<const float2*>(L + col);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float pe =
-                fast_exp2(fmaf(c[4 * n + e], sl2, (e & 1) ? -lc.y : -lc.x));
-            const int key = key0 + 8 * (e >> 1);
-            c[4 * n + e] =
-                masked && hidden(key, q0 + col + (e & 1), p.prefix) ? 0.0f
-                                                                    : pe;
+            for (int e = 0; e < 4; ++e) {
+              const float pe =
+                  fast_exp2(fmaf(c[4 * n + e], sl2, (e & 1) ? -lc.y : -lc.x));
+              const int key = key0 + 8 * (e >> 1);
+              c[4 * n + e] =
+                  masked && hidden(key, q0 + col + (e & 1), p.prefix) ? 0.0f
+                                                                      : pe;
+            }
           }
-        }
-        mbar_wait(&p_empty[buf], phase ^ 1);
+          mbar_wait(&p_empty[buf], phase ^ 1);
 #pragma unroll
-        for (int n = 0; n < kStep / 8; ++n)
-          pt[n * 128] = make_float4(c[4 * n], c[4 * n + 1], c[4 * n + 2],
-                                    c[4 * n + 3]);
-        mbar_arrive(&p_full[buf]);
-      } else {
-        // dS^T / scale = P^T (dP^T - D), D per column
-        const float* Dd = sD + st * kStep;
-        mbar_wait(&p_full[buf], phase);
+          for (int n = 0; n < kStep / 8; ++n)
+            pt[n * 128] = make_float4(c[4 * n], c[4 * n + 1], c[4 * n + 2],
+                                      c[4 * n + 3]);
+          mbar_arrive(&p_full[buf]);
+        } else {
+          // dS^T / scale = P^T (dP^T - D), D per column
+          const float* Dd = sD + st * kStep;
+          mbar_wait(&p_full[buf], phase);
 #pragma unroll
-        for (int n = 0; n < kStep / 8; ++n) {
-          const int col = n * 8 + t4 * 2;
-          const float2 dc = *reinterpret_cast<const float2*>(Dd + col);
-          const float4 pe = pt[n * 128];
-          c[4 * n] = pe.x * (c[4 * n] - dc.x);
-          c[4 * n + 1] = pe.y * (c[4 * n + 1] - dc.y);
-          c[4 * n + 2] = pe.z * (c[4 * n + 2] - dc.x);
-          c[4 * n + 3] = pe.w * (c[4 * n + 3] - dc.y);
+          for (int n = 0; n < kStep / 8; ++n) {
+            const int col = n * 8 + t4 * 2;
+            const float2 dc = *reinterpret_cast<const float2*>(Dd + col);
+            const float4 pe = pt[n * 128];
+            c[4 * n] = pe.x * (c[4 * n] - dc.x);
+            c[4 * n + 1] = pe.y * (c[4 * n + 1] - dc.y);
+            c[4 * n + 2] = pe.z * (c[4 * n + 2] - dc.x);
+            c[4 * n + 3] = pe.w * (c[4 * n + 3] - dc.y);
+          }
+          mbar_arrive(&p_empty[buf]);
         }
-        mbar_arrive(&p_empty[buf]);
+        // dV += P^T dO or dK / scale += (dS^T / scale) Q: A from registers,
+        // B the tile as MN-major, row step jj at +2 KB, 64-column boxes one
+        // box apart (LBO)
+#pragma unroll
+        for (int jj = 0; jj < kStep / 16; ++jj) c_to_a(a[jj], c + 8 * jj);
+        const uint32_t m_addr = smem_u32(sM + st * kTileM);
+        wgmma_fence();
+#pragma unroll
+        for (int jj = 0; jj < kStep / 16; ++jj)
+          wgmma_rs<AD>(acc, a[jj],
+                       smem_desc(m_addr + jj * 2048, kBoxStep, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+#pragma unroll
+        for (int jj = 0; jj < kStep / 16; ++jj) fence_frag(a[jj]);
+        if (lane == 0) mbar_arrive(&q_empty[st]);
       }
-      // dV += P^T dO or dK / scale += (dS^T / scale) Q: A from registers,
-      // B the tile as MN-major, row step jj at +2 KB, 64-column boxes one
-      // box apart (LBO)
-#pragma unroll
-      for (int jj = 0; jj < kStep / 16; ++jj) c_to_a(a[jj], c + 8 * jj);
-      const uint32_t m_addr = smem_u32(sM + st * kTile);
-      wgmma_fence();
-#pragma unroll
-      for (int jj = 0; jj < kStep / 16; ++jj)
-        wgmma_rs<D>(acc, a[jj],
-                    smem_desc(m_addr + jj * 2048, kBoxStep, 1024));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(acc);
-#pragma unroll
-      for (int jj = 0; jj < kStep / 16; ++jj) fence_frag(a[jj]);
-      if (lane == 0) mbar_arrive(&q_empty[st]);
-    }
 
-    // this thread's two keys: dk or dv without GQA; with it the head's
-    // float32 partials, rows of H D floats
-    const float mul = pgroup ? 1.0f : p.scale;
-    if (p.H == p.KV) {
-      bf16* out = pgroup ? base<bf16, kDV>(p, p.dv, b, kvh)
-                         : base<bf16, kDK>(p, p.dk, b, kvh);
-      const int64_t rs = pgroup ? row_stride<kDV>(p) : row_stride<kDK>(p);
+      // this thread's two keys: dk or dv without GQA; with it (hd == hv)
+      // the head's float32 partials, rows of H AD floats
+      const float mul = pgroup ? 1.0f : p.scale;
+      bool direct = true;
+      if constexpr (HD == HV) direct = p.H == p.KV;
+      if (direct) {
+        bf16* out = pgroup ? base<bf16, kDV>(p, p.dv, b, kvh)
+                           : base<bf16, kDK>(p, p.dk, b, kvh);
+        const int64_t rs = pgroup ? row_stride<kDV>(p) : row_stride<kDK>(p);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = key0 + 8 * i;
-        if (key >= p.Sk) continue;
-        bf16* o = out + u64(key) * rs;
+        for (int i = 0; i < 2; ++i) {
+          const int key = key0 + 8 * i;
+          if (key >= p.Sk) continue;
+          bf16* o = out + u64(key) * rs;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<uint32_t*>(o + n * 8 + t4 * 2) =
-              pack_bf16(acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
-      }
-    } else {
-      float* out = p.part + (pgroup ? p.part_half : 0) +
-                   (u64(b) * p.Sk * p.H + h) * D;
+          for (int n = 0; n < AD / 8; ++n)
+            *reinterpret_cast<uint32_t*>(o + n * 8 + t4 * 2) = pack_bf16(
+                acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+        }
+      } else {
+        float* out = p.part + (pgroup ? p.part_half : 0) +
+                     (u64(b) * p.Sk * p.H + h) * AD;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = key0 + 8 * i;
-        if (key >= p.Sk) continue;
-        float* o = out + u64(key) * p.H * D;
+        for (int i = 0; i < 2; ++i) {
+          const int key = key0 + 8 * i;
+          if (key >= p.Sk) continue;
+          float* o = out + u64(key) * p.H * AD;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(o + n * 8 + t4 * 2) = make_float2(
-              acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+          for (int n = 0; n < AD / 8; ++n)
+            *reinterpret_cast<float2*>(o + n * 8 + t4 * 2) = make_float2(
+                acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+        }
       }
     }
-  }
+  };
+  if constexpr (HD == HV)
+    consume(std::integral_constant<int, HD>(),
+            std::integral_constant<int, HD>());
+  else if (pgroup)
+    consume(std::integral_constant<int, HD>(),
+            std::integral_constant<int, HV>());
+  else
+    consume(std::integral_constant<int, HV>(),
+            std::integral_constant<int, HD>());
 }
 
 // --- TF32 tensor cores on mma.sync: float32 as 3xTF32 ---------------------------
@@ -1519,44 +1584,38 @@ __host__ __device__ constexpr int f32_kv_blocks() {
 // element [g][t] (A fragments, B of S = Q K^T) at bank 4 g + t, element
 // [2 t][g] (B of dQ = dS K, dV = P^T dO, dK = dS^T Q) at 8 t + g -- and
 // keeps every row whole 16-byte chunks for cp.async
-template <typename T, int D>
+template <int D>
 __host__ __device__ constexpr int row_ld() {
-  return D + 16 / (int)sizeof(T);
+  return D + 4;
 }
 // a Q (or K) row of HD and a dO (or V) row of HV elements
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 __host__ __device__ constexpr int pair_bytes() {
-  return (row_ld<T, HD>() + row_ld<T, HV>()) * (int)sizeof(T);
+  return (row_ld<HD>() + row_ld<HV>()) * 4;
 }
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 constexpr int f32_dq_smem_bytes() {  // Q, dO; the ring's K, V
-  return (kF + kFStages * f32_step<HD>()) * pair_bytes<T, HD, HV>();
+  return (kF + kFStages * f32_step<HD>()) * pair_bytes<HD, HV>();
 }
 // a dK / dV ring slot: Q and dO tiles, then their float32 lse and D
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 __host__ __device__ constexpr int f32_slot_bytes() {
-  return f32_step<HD>() * pair_bytes<T, HD, HV>() + 2 * f32_step<HD>() * 4;
+  return f32_step<HD>() * pair_bytes<HD, HV>() + 2 * f32_step<HD>() * 4;
 }
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring
-  return kF * pair_bytes<T, HD, HV>() + kF * (f32_step<HD>() + 8) * 4 +
-         kFStages * f32_slot_bytes<T, HD, HV>();
+  return kF * pair_bytes<HD, HV>() + kF * (f32_step<HD>() + 8) * 4 +
+         kFStages * f32_slot_bytes<HD, HV>();
 }
-static_assert(f32_dq_smem_bytes<float, 256, 256>() <= 232448 &&
-                  f32_dkdv_smem_bytes<float, 256, 256>() <= 232448 &&
-                  f32_dq_smem_bytes<float, 192, 128>() <= 232448 &&
-                  f32_dkdv_smem_bytes<float, 192, 128>() <= 232448,
+static_assert(f32_dq_smem_bytes<256, 256>() <= 232448 &&
+                  f32_dkdv_smem_bytes<256, 256>() <= 232448 &&
+                  f32_dq_smem_bytes<192, 128>() <= 232448 &&
+                  f32_dkdv_smem_bytes<192, 128>() <= 232448,
               "a block's shared memory is 227 KB");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// two adjacent outputs, rounded to T
+// two adjacent outputs
 __device__ __forceinline__ void store2(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* out, float a, float b) {
-  *reinterpret_cast<uint32_t*>(out) = pack_bf16(a, b);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -1567,15 +1626,15 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-// rows [r0, r0 + ROWS) of a [S, D] view of T (row stride st) into shared
-// rows of row_ld<T, D>() elements, by 16-byte cp.async; zeros past S
-template <typename T, int D, int ROWS, int THREADS = kFThreads>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
-                                          int r0, int S) {
-  constexpr int kPer = 16 / (int)sizeof(T);  // elements a 16-byte chunk
-  constexpr int kChunks = D / kPer, LD = row_ld<T, D>();
+// rows [r0, r0 + ROWS) of a [S, D] float32 view (row stride st) into shared
+// rows of row_ld<D>() elements, by 16-byte cp.async; zeros past S
+template <int D, int ROWS, int THREADS = kFThreads>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t st, int r0, int S) {
+  constexpr int kPer = 4;  // elements a 16-byte chunk
+  constexpr int kChunks = D / kPer, LD = row_ld<D>();
   // a last partial round only where the chunks are no whole number of
-  // rounds (bf16 Q tiles of 16 x 192 over 256 threads)
+  // rounds
   constexpr int kRounds = (ROWS * kChunks + THREADS - 1) / THREADS;
   constexpr bool kWhole = ROWS * kChunks % THREADS == 0;
 #pragma unroll
@@ -1591,40 +1650,40 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
 
 // the A fragment of rows row0 + (g, g + 8), columns c0 + (t, t + 4) of a
 // shared tile, split into TF32 hi and lo
-template <int LD, typename T>
-__device__ __forceinline__ void frag_a(const T* s, int row0, int c0,
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* s, int row0, int c0,
                                        int g, int t, uint32_t (&hi)[4],
                                        uint32_t (&lo)[4]) {
-  const T* p = s + (row0 + g) * LD + c0 + t;
-  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
-  split_tf32<true>(to_f(p[8 * LD]), hi[1], lo[1]);
-  split_tf32<true>(to_f(p[4]), hi[2], lo[2]);
-  split_tf32<true>(to_f(p[8 * LD + 4]), hi[3], lo[3]);
+  const float* p = s + (row0 + g) * LD + c0 + t;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[8 * LD], hi[1], lo[1]);
+  split_tf32<true>(p[4], hi[2], lo[2]);
+  split_tf32<true>(p[8 * LD + 4], hi[3], lo[3]);
 }
 
 // the B fragment of a product against a shared tile's transpose (S = Q
 // K^T): B[k][n] = s[n0 + n][k0 + k], so b0 = s[n0 + g][k0 + t], b1 =
 // s[n0 + g][k0 + t + 4]
-template <int LD, typename T>
-__device__ __forceinline__ void frag_bt(const T* s, int n0, int k0, int g,
+template <int LD>
+__device__ __forceinline__ void frag_bt(const float* s, int n0, int k0, int g,
                                         int t, uint32_t (&hi)[2],
                                         uint32_t (&lo)[2]) {
-  const T* p = s + (n0 + g) * LD + k0 + t;
-  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
-  split_tf32<true>(to_f(p[4]), hi[1], lo[1]);
+  const float* p = s + (n0 + g) * LD + k0 + t;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[4], hi[1], lo[1]);
 }
 
 // the B fragment of a product against a shared tile as it lies (dQ = dS
 // K), with the reduction index relabelled so that an accumulator fragment
 // is the A fragment as it stands: k-slot t is row k0 + 2 t, k-slot t + 4
 // row k0 + 2 t + 1 (see relabel_a)
-template <int LD, typename T>
-__device__ __forceinline__ void frag_b(const T* s, int k0, int n0, int g,
+template <int LD>
+__device__ __forceinline__ void frag_b(const float* s, int k0, int n0, int g,
                                        int t, uint32_t (&hi)[2],
                                        uint32_t (&lo)[2]) {
-  const T* p = s + (k0 + 2 * t) * LD + n0 + g;
-  split_tf32<true>(to_f(p[0]), hi[0], lo[0]);
-  split_tf32<true>(to_f(p[LD]), hi[1], lo[1]);
+  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[LD], hi[1], lo[1]);
 }
 
 // an accumulator fragment c (rows g, g + 8; columns 2 t, 2 t + 1 of 8) as
@@ -1652,19 +1711,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
-// d += a b for tiles of T: float32 as 3xTF32 (float32-accurate); a bf16
-// tile (exact in TF32) as one TF32 product, lo then dead code
-template <typename T>
-__device__ __forceinline__ void mma_x(float (&d)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4],
-                                      const uint32_t (&bh)[2],
-                                      const uint32_t (&bl)[2]) {
-  if constexpr (std::is_same<T, float>::value)
-    mma_3xtf32(d, ah, al, bh, bl);
-  else
-    mma_tf32(d, ah, bh[0], bh[1]);
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -1674,10 +1720,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 // s = A B^T over the D columns for a warp's 16 rows row0.. of a resident
 // tile A against the NT * 8 rows of a streamed tile B (S = Q K^T in the dQ
 // kernel; S^T = K Q^T, dP^T = V dO^T in the dK / dV kernel)
-template <typename T, int D, int NT>
-__device__ __forceinline__ void scores_f32(const T* A, const T* B, int row0,
-                                           int g, int t, float (&s)[NT][4]) {
-  constexpr int LD = row_ld<T, D>();
+template <int D, int NT>
+__device__ __forceinline__ void scores_f32(const float* A, const float* B,
+                                           int row0, int g, int t,
+                                           float (&s)[NT][4]) {
+  constexpr int LD = row_ld<D>();
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -1693,7 +1740,7 @@ __device__ __forceinline__ void scores_f32(const T* A, const T* B, int row0,
     for (int n = 0; n < NT; ++n) {
       uint32_t bh[2], bl[2];
       frag_bt<LD>(B, 8 * n, 8 * kd, g, t, bh, bl);
-      mma_x<T>(s[n], ah, al, bh, bl);
+      mma_3xtf32(s[n], ah, al, bh, bl);
     }
   }
 }
@@ -1706,12 +1753,12 @@ __device__ __forceinline__ void scores_f32(const T* A, const T* B, int row0,
 // at S = 4096), where the tile's sum of 3 NT steps does not.
 // acc may be wider than the D columns this product adds to (NA >= D / 8:
 // the dK / dV kernel's one accumulator at (192, 128), dK's or dV's)
-template <typename T, int D, int NT, int NA>
+template <int D, int NT, int NA>
 __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
-                                               const T* B, int g, int t,
+                                               const float* B, int g, int t,
                                                float (&acc)[NA][4]) {
   static_assert(NA >= D / 8, "the accumulator holds the product");
-  constexpr int LD = row_ld<T, D>();
+  constexpr int LD = row_ld<D>();
   uint32_t ah[NT][4], al[NT][4];
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) relabel_a(c[kk], ah[kk], al[kk]);
@@ -1722,7 +1769,7 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t bh[2], bl[2];
       frag_b<LD>(B, 8 * kk, 8 * n, g, t, bh, bl);
-      mma_x<T>(part, ah[kk], al[kk], bh, bl);
+      mma_3xtf32(part, ah[kk], al[kk], bh, bl);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
@@ -1735,15 +1782,15 @@ __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
 // from key 0 to the item's last row or the prefix's end, whichever lies
 // further (to Sk when not causal).  D of the rows goes to the scratch for
 // the dK / dV kernel.  Q and K rows are HD wide, dO and V rows HV.
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_bwd_dq_f32_tc_kernel(const Params p) {
-  constexpr int LD = row_ld<T, HD>(), LV = row_ld<T, HV>();
+  constexpr int LD = row_ld<HD>(), LV = row_ld<HV>();
   constexpr int KT = f32_step<HD>(), NT = KT / 8, SLOT = KT * (LD + LV);
   extern __shared__ __align__(16) uint8_t fsm[];
-  T* Qs = reinterpret_cast<T*>(fsm);  // [kF][LD]
-  T* dOs = Qs + kF * LD;              // [kF][LV]
-  T* ring = dOs + kF * LV;            // kFStages x (K [KT][LD], V [KT][LV])
+  float* Qs = reinterpret_cast<float*>(fsm);  // [kF][LD]
+  float* dOs = Qs + kF * LD;              // [kF][LV]
+  float* ring = dOs + kF * LV;            // kFStages x (K [KT][LD], V [KT][LV])
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1753,18 +1800,18 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   const int bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int q0 = qb * kF, r0 = q0 + 16 * warp;  // the warp's first row
-  const T* kp = base<const T, kK>(p, p.k, b, kvh);
-  const T* vp = base<const T, kV>(p, p.v, b, kvh);
+  const float* kp = base<const float, kK>(p, p.k, b, kvh);
+  const float* vp = base<const float, kV>(p, p.v, b, kvh);
 
-  load_rows<T, HD, kF>(Qs, base<const T, kQ>(p, p.q, b, h),
+  load_rows<HD, kF>(Qs, base<const float, kQ>(p, p.q, b, h),
                        row_stride<kQ>(p), q0, p.S);
-  load_rows<T, HV, kF>(dOs, base<const T, kDO>(p, p.dout, b, h),
+  load_rows<HV, kF>(dOs, base<const float, kDO>(p, p.dout, b, h),
                        row_stride<kDO>(p), q0, p.S);
   cp_async_commit();
   const int kv_end = p.causal ? causal_end(p, q0 + kF) : p.Sk;
   const int tiles = (kv_end + KT - 1) / KT;
-  load_rows<T, HD, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
-  load_rows<T, HV, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
+  load_rows<HD, KT>(ring, kp, row_stride<kK>(p), 0, p.Sk);
+  load_rows<HV, KT>(ring + KT * LD, vp, row_stride<kV>(p), 0, p.Sk);
   cp_async_commit();
 
   // lse and D of rows g, g + 8 (D: the warp sums each of its rows, the
@@ -1779,17 +1826,17 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
   cp_async_wait<1>();
   __syncthreads();
   {
-    const T* op = base<const T, kO>(p, p.o, b, h);
+    const float* op = base<const float, kO>(p, p.o, b, h);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r;
       float acc = 0.0f;
       if (row < p.S) {
-        const T* orow = op + u64(row) * row_stride<kO>(p);
+        const float* orow = op + u64(row) * row_stride<kO>(p);
 #pragma unroll
         for (int j = 0; j < HV / 32; ++j)
-          acc = fmaf(to_f(dOs[(16 * warp + r) * LV + lane + 32 * j]),
-                     to_f(orow[lane + 32 * j]), acc);
+          acc = fmaf(dOs[(16 * warp + r) * LV + lane + 32 * j],
+                     orow[lane + 32 * j], acc);
       }
       acc = warp_sum(acc);
       if (r == g) dd[0] = acc;
@@ -1805,9 +1852,9 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {
-      T* nxt = ring + ((it + 1) % kFStages) * SLOT;
-      load_rows<T, HD, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
-      load_rows<T, HV, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
+      float* nxt = ring + ((it + 1) % kFStages) * SLOT;
+      load_rows<HD, KT>(nxt, kp, row_stride<kK>(p), (it + 1) * KT, p.Sk);
+      load_rows<HV, KT>(nxt + KT * LD, vp, row_stride<kV>(p),
                            (it + 1) * KT, p.Sk);
     }
     cp_async_commit();
@@ -1817,11 +1864,11 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
     // a tile whose keys all lie above the warp's rows and past the prefix
     // adds nothing to them
     if (!p.causal || k0 <= r0 + 15 || k0 < p.prefix) {
-      const T* Ks = ring + (it % kFStages) * SLOT;
-      const T* Vs = Ks + KT * LD;
+      const float* Ks = ring + (it % kFStages) * SLOT;
+      const float* Vs = Ks + KT * LD;
       float s[NT][4], dp[NT][4];
-      scores_f32<T, HD, NT>(Qs, Ks, 16 * warp, g, t, s);
-      scores_f32<T, HV, NT>(dOs, Vs, 16 * warp, g, t, dp);
+      scores_f32<HD, NT>(Qs, Ks, 16 * warp, g, t, s);
+      scores_f32<HV, NT>(dOs, Vs, 16 * warp, g, t, dp);
       // P = exp(S scale - lse), 0 for keys past Sk or hidden from the row;
       // dS / scale = P (dP - D) into dp
       const bool edge = k0 + KT > p.Sk || (p.causal && k0 + KT - 1 > r0);
@@ -1837,17 +1884,17 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
             pe = 0.0f;
           dp[n][e] = pe * (dp[n][e] - dd[e >> 1]);
         }
-      accumulate_f32<T, HD, NT>(dp, Ks, g, t, dq);
+      accumulate_f32<HD, NT>(dp, Ks, g, t, dq);
     }
     __syncthreads();  // the slot is refilled next
   }
 
-  T* dqp = base<T, kDQ>(p, p.dq, b, h);
+  float* dqp = base<float, kDQ>(p, p.dq, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
     if (row >= p.S) continue;
-    T* out = dqp + u64(row) * row_stride<kDQ>(p);
+    float* out = dqp + u64(row) * row_stride<kDQ>(p);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       store2(out + 8 * n + 2 * t, dq[n][2 * i] * p.scale,
@@ -1870,18 +1917,18 @@ flash_bwd_dq_f32_tc_kernel(const Params p) {
 // writes dk, dv; with it, its head's float32 partials, which
 // flash_bwd_dkdv_sum_f32_kernel adds up by group in head order.
 // rows [qt0, qt0 + f32_step) of head h's Q and dO, with their lse and D,
-// into a dK / dV ring slot: [QT][LD] Q, then [QT][LV] dO (T), then QT lse,
+// into a dK / dV ring slot: [QT][LD] Q, then [QT][LV] dO, then QT lse,
 // QT D (float32)
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
                                             int b, int h, int qt0) {
-  constexpr int QT = f32_step<HD>(), LD = row_ld<T, HD>();
-  constexpr int LV = row_ld<T, HV>();
-  T* q = reinterpret_cast<T*>(slot);
-  load_rows<T, HD, QT, kKVThreads>(q, base<const T, kQ>(p, p.q, b, h),
+  constexpr int QT = f32_step<HD>(), LD = row_ld<HD>();
+  constexpr int LV = row_ld<HV>();
+  float* q = reinterpret_cast<float*>(slot);
+  load_rows<HD, QT, kKVThreads>(q, base<const float, kQ>(p, p.q, b, h),
                                    row_stride<kQ>(p), qt0, p.S);
-  load_rows<T, HV, QT, kKVThreads>(q + QT * LD,
-                                   base<const T, kDO>(p, p.dout, b, h),
+  load_rows<HV, QT, kKVThreads>(q + QT * LD,
+                                   base<const float, kDO>(p, p.dout, b, h),
                                    row_stride<kDO>(p), qt0, p.S);
   float* stats = reinterpret_cast<float*>(q + QT * (LD + LV));
   const int row = qt0 + (int)threadIdx.x % QT;
@@ -1892,16 +1939,16 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
               row < p.S);
 }
 
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<HD, HV>()))
 flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   static_assert(HD >= HV, "the accumulator is dK's width or more");
-  constexpr int LD = row_ld<T, HD>(), LV = row_ld<T, HV>();
+  constexpr int LD = row_ld<HD>(), LV = row_ld<HV>();
   constexpr int QT = f32_step<HD>(), NT = QT / 8;
   constexpr int LP = QT + 8;
   extern __shared__ __align__(16) uint8_t fsm[];
-  T* Ks = reinterpret_cast<T*>(fsm);                   // [kF][LD]
-  T* Vs = Ks + kF * LD;                                // [kF][LV]
+  float* Ks = reinterpret_cast<float*>(fsm);                   // [kF][LD]
+  float* Vs = Ks + kF * LD;                                // [kF][LV]
   float* Pt = reinterpret_cast<float*>(Vs + kF * LV);  // [kF][LP]: P^T
   uint8_t* ring = reinterpret_cast<uint8_t*>(Pt + kF * LP);  // the slots
 
@@ -1913,17 +1960,17 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   const int kb = (int)blockIdx.x / BH, bh = (int)blockIdx.x % BH;
   const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
   const int k0 = kb * kF, key0 = k0 + r16;
-  load_rows<T, HD, kF, kKVThreads>(Ks, base<const T, kK>(p, p.k, b, kvh),
+  load_rows<HD, kF, kKVThreads>(Ks, base<const float, kK>(p, p.k, b, kvh),
                                    row_stride<kK>(p), k0, p.Sk);
-  load_rows<T, HV, kF, kKVThreads>(Vs, base<const T, kV>(p, p.v, b, kvh),
+  load_rows<HV, kF, kKVThreads>(Vs, base<const float, kV>(p, p.v, b, kvh),
                                    row_stride<kV>(p), k0, p.Sk);
   cp_async_commit();
 
   // the query tiles of one head, from the first that sees a key here
   // (k0 is a multiple of QT; every row sees a key of the prefix)
   const int qs0 = p.causal && k0 >= p.prefix ? k0 : 0;
-  constexpr int kSlot = f32_slot_bytes<T, HD, HV>();
-  load_q_tile<T, HD, HV>(p, ring, b, h, qs0);
+  constexpr int kSlot = f32_slot_bytes<HD, HV>();
+  load_q_tile<HD, HV>(p, ring, b, h, qs0);
   cp_async_commit();
 
   // P warp: dV (its first HV / 8 column groups); dS warp: dK / scale
@@ -1932,18 +1979,18 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  const T* A = pwarp ? Ks : Vs;
+  const float* A = pwarp ? Ks : Vs;
   // this thread's two keys' hidden_below: a row before it masks P^T
   const int below[2] = {hidden_below(key0 + g, p.prefix),
                         hidden_below(key0 + g + 8, p.prefix)};
   for (int qt0 = qs0, i = 0; qt0 < p.S; qt0 += QT, i ^= 1) {
     if (qt0 + QT < p.S)
-      load_q_tile<T, HD, HV>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
+      load_q_tile<HD, HV>(p, ring + (i ^ 1) * kSlot, b, h, qt0 + QT);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* Qs = reinterpret_cast<const T*>(ring + i * kSlot);
-    const T* dOs = Qs + QT * LD;
+    const float* Qs = reinterpret_cast<const float*>(ring + i * kSlot);
+    const float* dOs = Qs + QT * LD;
     const float* Ls = reinterpret_cast<const float*>(dOs + QT * LV);
     const float* Ds = Ls + QT;
     // a tile whose rows all lie before the warp's keys, where none of them
@@ -1953,11 +2000,11 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
     float c[NT][4];  // P warp: S^T, then P^T; dS warp: dP^T, then dS^T
     if (active) {
       if constexpr (HD == HV)
-        scores_f32<T, HD, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
+        scores_f32<HD, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
       else if (pwarp)
-        scores_f32<T, HD, NT>(Ks, Qs, r16, g, t, c);
+        scores_f32<HD, NT>(Ks, Qs, r16, g, t, c);
       else
-        scores_f32<T, HV, NT>(Vs, dOs, r16, g, t, c);
+        scores_f32<HV, NT>(Vs, dOs, r16, g, t, c);
       if (pwarp) {
         // P^T, 0 for rows past S or keys hidden from the row
         const bool edge = qt0 + QT > p.S || (p.causal && qt0 < key0 + 15);
@@ -1995,11 +2042,11 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
           }
       }
       if constexpr (HD == HV)
-        accumulate_f32<T, HD, NT>(c, pwarp ? dOs : Qs, g, t, acc);
+        accumulate_f32<HD, NT>(c, pwarp ? dOs : Qs, g, t, acc);
       else if (pwarp)
-        accumulate_f32<T, HV, NT>(c, dOs, g, t, acc);
+        accumulate_f32<HV, NT>(c, dOs, g, t, acc);
       else
-        accumulate_f32<T, HD, NT>(c, Qs, g, t, acc);
+        accumulate_f32<HD, NT>(c, Qs, g, t, acc);
     }
     __syncthreads();  // the slot and P^T are refilled next
   }
@@ -2024,18 +2071,18 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   if constexpr (HD == HV) {
     constexpr std::integral_constant<int, HD> w{};
     if (p.H == p.KV)
-      write(pwarp ? base<T, kDV>(p, p.dv, b, kvh)
-                  : base<T, kDK>(p, p.dk, b, kvh),
+      write(pwarp ? base<float, kDV>(p, p.dv, b, kvh)
+                  : base<float, kDK>(p, p.dk, b, kvh),
             pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p), w);
     else
       write(p.part + (pwarp ? p.part_half : 0) +
                 (u64(b) * p.Sk * p.H + h) * HD,
             (int64_t)p.H * HD, w);
   } else if (pwarp) {  // H == KV: the entry points refuse GQA here
-    write(base<T, kDV>(p, p.dv, b, kvh), row_stride<kDV>(p),
+    write(base<float, kDV>(p, p.dv, b, kvh), row_stride<kDV>(p),
           std::integral_constant<int, HV>());
   } else {
-    write(base<T, kDK>(p, p.dk, b, kvh), row_stride<kDK>(p),
+    write(base<float, kDK>(p, p.dk, b, kvh), row_stride<kDK>(p),
           std::integral_constant<int, HD>());
   }
 }
@@ -2118,52 +2165,56 @@ cudaError_t launch_sum(const Params& p, int B, void* stream) {
 }
 
 // parts: 1 the dQ kernel, 2 the dK / dV kernel (which reads the scratch the
-// dQ kernel wrote; at D = 256 the split kernel, then with GQA the sum of
-// its partials), 3 both in this order
-template <int D>
+// dQ kernel wrote; at hd 192 and 256 the split kernel, then with GQA the
+// sum of its partials), 3 both in this order
+template <int HD, int HV>
 int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
                 int ctas_kv, int parts, int device, void* stream) {
   static unsigned dq_done = 0, kv_done = 0;
   cudaError_t err = cudaSuccess;
   CUtensorMap tm_q = {}, tm_do = {}, tm_k = {}, tm_v = {};
   if (parts & 1) {
-    if (!encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kRows) ||
-        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kRows) ||
-        !encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK,
-                     dq_step<D>()) ||
-        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV,
-                     dq_step<D>()))
+    if (!encode_bshd(&tm_q, p.q, B, p.S, p.H, HD, st + 3 * kQ, kRows) ||
+        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, HV, st + 3 * kDO, kRows) ||
+        !encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, HD, st + 3 * kK,
+                     dq_step<HD>()) ||
+        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, HV, st + 3 * kV,
+                     dq_step<HD>()))
       return (int)cudaErrorInvalidValue;
-    auto kernel = flash_bwd_dq_bf16_tc_kernel<D>;
-    err = allow_smem(kernel, dq_smem_bytes<D>(), device, &dq_done);
+    auto kernel = flash_bwd_dq_bf16_tc_kernel<HD, HV>;
+    constexpr int smem = dq_smem_bytes<HD, HV>();
+    err = allow_smem(kernel, smem, device, &dq_done);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<ctas_dq, kThreads, dq_smem_bytes<D>(), (cudaStream_t)stream>>>(
+    kernel<<<ctas_dq, kThreads, smem, (cudaStream_t)stream>>>(
         tm_q, tm_do, tm_k, tm_v, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    constexpr bool kSplit = D == 256;   // items of 64 keys of one head
+    constexpr bool kSplit = HD >= 192;   // items of 64 keys of one head
     constexpr int kv_rows = kSplit ? kStep : kRows;
-    if (!encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, D, st + 3 * kK, kv_rows) ||
-        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, D, st + 3 * kV, kv_rows) ||
-        !encode_bshd(&tm_q, p.q, B, p.S, p.H, D, st + 3 * kQ, kStep) ||
-        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, D, st + 3 * kDO, kStep))
+    if (!encode_bshd(&tm_k, p.k, B, p.Sk, p.KV, HD, st + 3 * kK, kv_rows) ||
+        !encode_bshd(&tm_v, p.v, B, p.Sk, p.KV, HV, st + 3 * kV, kv_rows) ||
+        !encode_bshd(&tm_q, p.q, B, p.S, p.H, HD, st + 3 * kQ, kStep) ||
+        !encode_bshd(&tm_do, p.dout, B, p.S, p.H, HV, st + 3 * kDO, kStep))
       return (int)cudaErrorInvalidValue;
     if constexpr (kSplit) {
-      auto kernel = flash_bwd_dkdv_bf16_split_kernel<D>;
-      err = allow_smem(kernel, split_smem_bytes<D>(), device, &kv_done);
+      auto kernel = flash_bwd_dkdv_bf16_split_kernel<HD, HV>;
+      constexpr int smem = split_smem_bytes<HD, HV>();
+      err = allow_smem(kernel, smem, device, &kv_done);
       if (err != cudaSuccess) return (int)err;
-      kernel<<<ctas_kv, kThreads, split_smem_bytes<D>(),
-               (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
+      kernel<<<ctas_kv, kThreads, smem, (cudaStream_t)stream>>>(
+          tm_k, tm_v, tm_q, tm_do, p);
       err = cudaGetLastError();
-      if (err == cudaSuccess && p.H > p.KV)
-        err = launch_sum<bf16, D>(p, B, stream);
+      if constexpr (HD == HV) {  // no GQA at hd != hv
+        if (err == cudaSuccess && p.H > p.KV)
+          err = launch_sum<bf16, HD>(p, B, stream);
+      }
     } else {
-      auto kernel = flash_bwd_dkdv_bf16_tc_kernel<D>;
-      err = allow_smem(kernel, dkdv_smem_bytes<D>(), device, &kv_done);
+      auto kernel = flash_bwd_dkdv_bf16_tc_kernel<HD>;
+      err = allow_smem(kernel, dkdv_smem_bytes<HD>(), device, &kv_done);
       if (err != cudaSuccess) return (int)err;
-      kernel<<<ctas_kv, kThreads, dkdv_smem_bytes<D>(),
+      kernel<<<ctas_kv, kThreads, dkdv_smem_bytes<HD>(),
                (cudaStream_t)stream>>>(tm_k, tm_v, tm_q, tm_do, p);
       err = cudaGetLastError();
     }
@@ -2171,23 +2222,23 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
   return (int)err;
 }
 
-template <typename T, int HD, int HV>
+template <int HD, int HV>
 int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
                 int device, void* stream) {
   static unsigned dq_done = 0, kv_done = 0;
   if (parts & 1) {
-    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<T, HD, HV>,
-                             f32_dq_smem_bytes<T, HD, HV>(), kFThreads, p,
+    cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<HD, HV>,
+                             f32_dq_smem_bytes<HD, HV>(), kFThreads, p,
                              ctas_dq, 1, &dq_done, device, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<T, HD, HV>,
-                             f32_dkdv_smem_bytes<T, HD, HV>(), kKVThreads, p,
+    cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<HD, HV>,
+                             f32_dkdv_smem_bytes<HD, HV>(), kKVThreads, p,
                              ctas_kv, 1, &kv_done, device, stream);
     if constexpr (HD == HV) {
       if (err != cudaSuccess || p.H == p.KV) return (int)err;
-      return (int)launch_sum<T, HD>(p, B, stream);
+      return (int)launch_sum<float, HD>(p, B, stream);
     } else {
       return (int)err;  // no GQA at hd != hv
     }
@@ -2229,59 +2280,6 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   return true;
 }
 
-// the TF32 entry points: float32 (3xTF32) at hd == hv in {64, 128, 256}
-// and (hd, hv) = (192, 128); bf16 tiles (one TF32 product) at (192, 128)
-// only.  (192, 128) takes no GQA (H == KV: deepseek's MLA).
-template <typename T>
-int tf32_entry(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* dd, void* dq,
-               void* dk, void* dv, int B, int S, int Sk, int H, int KV,
-               int hd, int hv, const long long* strides, float scale,
-               int causal, int prefix, int q_rows, int kv_rows, int q_step,
-               int kv_step, int stages_dq, int stages_dkdv, int ctas_dq,
-               int ctas_kv, int parts, int device, void* stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  Params p;
-  const bool rect = hd == 192 && hv == 128 && H == KV;
-  const bool square =
-      kF32 && hd == hv && (hd == 64 || hd == 128 || hd == 256);
-  const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
-  const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
-  if (!(square || rect) ||
-      !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                   KV, strides, scale, causal, prefix, parts,
-                   (int)sizeof(T)) ||
-      q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
-      stages_dq != kFStages || stages_dkdv != kFStages ||
-      (int64_t)B * H * nq >= (1ll << 31) ||
-      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
-      ctas_kv != (int64_t)B * H * nk)
-    return (int)cudaErrorInvalidValue;
-  // with GQA the scratch holds the dK, dV partials [B, Sk, H, hd], then D
-  p.part_half = (int64_t)B * Sk * H * hd;
-  p.part = static_cast<float*>(dd);
-  if (H > KV) p.dd += 2 * p.part_half;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (rect)
-    return launch_tf32<T, 192, 128>(p, B, ctas_dq, ctas_kv, parts, device,
-                                    stream);
-  if constexpr (kF32) {
-    switch (hd) {
-      case 64:
-        return launch_tf32<float, 64, 64>(p, B, ctas_dq, ctas_kv, parts,
-                                          device, stream);
-      case 128:
-        return launch_tf32<float, 128, 128>(p, B, ctas_dq, ctas_kv, parts,
-                                            device, stream);
-      default:
-        return launch_tf32<float, 256, 256>(p, B, ctas_dq, ctas_kv, parts,
-                                            device, stream);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
@@ -2300,19 +2298,20 @@ extern "C" {
 // aligned.  Each entry point checks the plan against its own constants and
 // refuses any other.
 
-// bf16 on wgmma, hd 64, 128 or 256.  Plan: q_rows = 128, q_step = 64,
-// kv_step = dq_step (128 at hd 64, 64 at 128, 32 at 256); kv_rows 128 at
-// hd 64 and 128, 64 at 256; the ring depths of the two kernels (4 and 4 at
-// hd 64, 3 and 3 at 128, 3 and kSplitStages = 2 at 256); their persistent
-// grids ctas_dq <= B * H * nq and ctas_kv <= (number of dK / dV items)
-// blocks (nq = ceil(S / 128), nk = ceil(Sk / kv_rows)).  scratch: float32
-// [2, B * H, 128 nq] (lse2, then D), at hd 256 with H > KV followed by the
-// dK, dV partials 2 x [B, Sk, H, hd].  sched: int32, each kernel's
-// schedule in turn -- ctas + 1 offsets, then its items, block c taking
-// items [offsets[c], offsets[c + 1]) in order: for the dQ kernel B * H *
-// nq items (b * H + h) * nq + q-block, for the dK / dV kernel B * KV * nk
-// items (b * KV + kv head) * nk + key block, at hd 256 B * H * nk items (b
-// * H + h) * nk + key block.
+// bf16 on wgmma, hd == hv in {64, 128, 256} or (hd, hv) = (192, 128)
+// with H == KV.  Plan: q_rows = 128, q_step = 64, kv_step = dq_step (128
+// at hd 64, 64 at 128 and 192, 32 at 256); kv_rows 128 at hd 64 and 128,
+// 64 at 192 and 256 (the split dK / dV kernel); the ring depths of the two
+// kernels (4 and 4 at hd 64, 3 and 3 at 128, 3 and split_stages at 192 and
+// 256: 3 and 2); their persistent grids ctas_dq <= B * H * nq and ctas_kv
+// <= (number of dK / dV items) blocks (nq = ceil(S / 128), nk = ceil(Sk /
+// kv_rows)).  scratch: float32 [2, B * H, 128 nq] (lse2, then D), at hd 256
+// with H > KV followed by the dK, dV partials 2 x [B, Sk, H, hd].  sched:
+// int32, each kernel's schedule in turn -- ctas + 1 offsets, then its
+// items, block c taking items [offsets[c], offsets[c + 1]) in order: for
+// the dQ kernel B * H * nq items (b * H + h) * nq + q-block, for the dK /
+// dV kernel B * KV * nk items (b * KV + kv head) * nk + key block, at hd
+// 192 and 256 B * H * nk items (b * H + h) * nk + key block.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* scratch, const void* sched, void* dq,
@@ -2324,18 +2323,23 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              int ctas_kv, int parts, int device,
                              void* stream) {
   Params p;
-  const bool d256 = hd == 256;
-  const int want_kv_rows = d256 ? kStep : kRows;
+  const bool rect = hd == 192 && hv == 128 && H == KV;
+  const bool square = hv == hd && (hd == 64 || hd == 128 || hd == 256);
+  const bool split = hd >= 192;
+  const int want_kv_rows = split ? kStep : kRows;
   const int want_step = hd == 64    ? dq_step<64>()
                         : hd == 128 ? dq_step<128>()
+                        : hd == 192 ? dq_step<192>()
                                     : dq_step<256>();
   const int want_stages_dq = hd == 64    ? dq_stages<64>()
                              : hd == 128 ? dq_stages<128>()
+                             : hd == 192 ? dq_stages<192>()
                                          : dq_stages<256>();
   const int want_stages_kv = hd == 64    ? dkdv_stages<64>()
                              : hd == 128 ? dkdv_stages<128>()
-                                         : kSplitStages;
-  if ((hd != 64 && hd != 128 && hd != 256) || hv != hd ||
+                             : hd == 192 ? split_stages<192>()
+                                         : split_stages<256>();
+  if (!(square || rect) ||
       !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
                    H, KV, strides, scale, causal, prefix, parts, 2) ||
       sched == nullptr || q_rows != kRows || kv_rows != want_kv_rows ||
@@ -2345,7 +2349,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   const int64_t nq = (S + kRows - 1) / kRows;
   const int64_t nk = (Sk + want_kv_rows - 1) / want_kv_rows;
   const int64_t n_dq = (int64_t)B * H * nq;
-  const int64_t n_kv = (int64_t)B * (d256 ? H : KV) * nk;
+  const int64_t n_kv = (int64_t)B * (split ? H : KV) * nk;
   if (n_dq >= (1ll << 31) || n_kv >= (1ll << 31) || ctas_dq < 1 ||
       ctas_dq > n_dq || ctas_kv < 1 || ctas_kv > n_kv)
     return (int)cudaErrorInvalidValue;
@@ -2360,14 +2364,17 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   switch (hd) {
     case 64:
-      return launch_bf16<64>(p, B, strides, ctas_dq, ctas_kv, parts, device,
-                             stream);
+      return launch_bf16<64, 64>(p, B, strides, ctas_dq, ctas_kv, parts,
+                                 device, stream);
     case 128:
-      return launch_bf16<128>(p, B, strides, ctas_dq, ctas_kv, parts,
-                              device, stream);
+      return launch_bf16<128, 128>(p, B, strides, ctas_dq, ctas_kv, parts,
+                                   device, stream);
+    case 192:
+      return launch_bf16<192, 128>(p, B, strides, ctas_dq, ctas_kv, parts,
+                                   device, stream);
     default:
-      return launch_bf16<256>(p, B, strides, ctas_dq, ctas_kv, parts,
-                              device, stream);
+      return launch_bf16<256, 256>(p, B, strides, ctas_dq, ctas_kv, parts,
+                                   device, stream);
   }
 }
 
@@ -2386,32 +2393,40 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             int kv_step, int stages_dq, int stages_dkdv,
                             int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
-  return tf32_entry<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk,
-                           H, KV, hd, hv, strides, scale, causal, prefix,
-                           q_rows, kv_rows, q_step, kv_step, stages_dq,
-                           stages_dkdv, ctas_dq, ctas_kv, parts, device,
-                           stream);
-}
-
-// bf16 at (hd, hv) = (192, 128) with H == KV on mma.sync, every product one
-// TF32 mma (the float32 kernels with bf16 tiles in shared memory: a bf16
-// operand is exact in TF32).  Plan and scratch as flash_attention_bwd_f32's
-// at that pair: D [B, H, S].
-int flash_attention_bwd_bf16_mma(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const void* lse, void* dd, void* dq,
-                                 void* dk, void* dv, int B, int S, int Sk,
-                                 int H, int KV, int hd, int hv,
-                                 const long long* strides, float scale,
-                                 int causal, int prefix, int q_rows,
-                                 int kv_rows, int q_step, int kv_step,
-                                 int stages_dq, int stages_dkdv, int ctas_dq,
-                                 int ctas_kv, int parts, int device,
-                                 void* stream) {
-  return tf32_entry<bf16>(q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
-                          KV, hd, hv, strides, scale, causal, prefix, q_rows,
-                          kv_rows, q_step, kv_step, stages_dq, stages_dkdv,
-                          ctas_dq, ctas_kv, parts, device, stream);
+  Params p;
+  const bool rect = hd == 192 && hv == 128 && H == KV;
+  const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
+  const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
+  if (!(square || rect) ||
+      !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
+                   KV, strides, scale, causal, prefix, parts, 4) ||
+      q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
+      stages_dq != kFStages || stages_dkdv != kFStages ||
+      (int64_t)B * H * nq >= (1ll << 31) ||
+      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
+      ctas_kv != (int64_t)B * H * nk)
+    return (int)cudaErrorInvalidValue;
+  // with GQA the scratch holds the dK, dV partials [B, Sk, H, hd], then D
+  p.part_half = (int64_t)B * Sk * H * hd;
+  p.part = static_cast<float*>(dd);
+  if (H > KV) p.dd += 2 * p.part_half;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (hd) {
+    case 64:
+      return launch_tf32<64, 64>(p, B, ctas_dq, ctas_kv, parts, device,
+                                 stream);
+    case 128:
+      return launch_tf32<128, 128>(p, B, ctas_dq, ctas_kv, parts, device,
+                                   stream);
+    case 192:
+      return launch_tf32<192, 128>(p, B, ctas_dq, ctas_kv, parts, device,
+                                   stream);
+    default:
+      return launch_tf32<256, 256>(p, B, ctas_dq, ctas_kv, parts, device,
+                                   stream);
+  }
 }
 
 const char* flash_attention_bwd_error_string(int code) {

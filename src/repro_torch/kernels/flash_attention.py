@@ -52,11 +52,9 @@ Training goes through ``flash_attention_trainable``, a
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
 (``plan_bwd`` picks ``flash_attention_bwd_bf16``, ``wgmma`` tensor cores fed
 by TMA in persistent grids that walk the plan's schedule -- at head dim
-256 the dK / dV kernel splits dK and dV over its two consumer warpgroups
-and, with GQA, writes per-head partials a last kernel sums --,
-``flash_attention_bwd_bf16_mma`` at (192, 128), the float32 kernels with
-bf16 tiles, every product one TF32 ``mma.sync`` (a bf16 operand is exact in
-TF32), or ``flash_attention_bwd_f32``, every product as 3xTF32 on
+256 and at (192, 128) the dK / dV kernel splits dK and dV over its two
+consumer warpgroups and, with GQA (at 256), writes per-head partials a last
+kernel sums --, or ``flash_attention_bwd_f32``, every product as 3xTF32 on
 ``mma.sync`` tensor cores; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
 with no float atomics, so two runs are bitwise equal.  Beside it
@@ -102,9 +100,8 @@ FWD_VARIANTS = (TC, MMA, F32)
 # the forward variants with an ``_lse`` entry point (the training path's)
 LSE_VARIANTS = (TC, F32)
 BWD_BF16 = "flash_attention_bwd_bf16"
-BWD_BF16_MMA = "flash_attention_bwd_bf16_mma"
 BWD_F32 = "flash_attention_bwd_f32"
-BWD_VARIANTS = (BWD_BF16, BWD_BF16_MMA, BWD_F32)
+BWD_VARIANTS = (BWD_BF16, BWD_F32)
 
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
@@ -279,9 +276,8 @@ def _bwd_library():
         # stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
-        for name in (BWD_BF16_MMA, BWD_F32):
-            getattr(lib, name).argtypes = \
-                [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
+        lib.flash_attention_bwd_f32.argtypes = \
+            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
         for name in BWD_VARIANTS:
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
@@ -570,13 +566,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the bf16 backward's tiles: the dQ kernel's items are BWD_ROWS query rows
 # of one (b, head) and walk the keys ``_dq_step(hd)`` at a time; the dK /
 # dV kernel's items are BWD_ROWS keys of one (b, kv head) and walk the
-# group's query rows BWD_STEP at a time -- at head dim 256 (the split
-# kernel) BWD_STEP keys of one (b, head), through BWD_SPLIT_STAGES ring
-# slots.  The float32 kernels' items are F32_BWD_ROWS rows or keys, and
-# each walks ``_f32_step(hd)`` keys or rows at a time through a ring of
-# F32_BWD_STAGES slots.
+# group's query rows BWD_STEP at a time -- at head dims 192 and 256 (the
+# split kernel, ``_split``) BWD_STEP keys of one (b, head), through
+# ``_split_stages(hd)`` ring slots.  The float32 kernels' items are
+# F32_BWD_ROWS rows or keys, and each walks ``_f32_step(hd)`` keys or rows
+# at a time through a ring of F32_BWD_STAGES slots.
 BWD_ROWS, BWD_STEP, F32_BWD_ROWS, F32_BWD_STAGES = 128, 64, 64, 2
-BWD_SPLIT_STAGES = 2
 # which kernels a backward launch runs (the C entry points' ``parts``)
 BWD_DQ, BWD_DKDV, BWD_BOTH = 1, 2, 3
 
@@ -594,9 +589,9 @@ class BwdPlan:
     bf16 on ``wgmma``: each kernel is persistent, ``grid_*`` = (blocks, 1),
     and block ``c`` works through the items ``schedule_*[c]`` in order --
     dQ items ``(b * H + h) * nq + q_block``, dK / dV items ``(b * KV +
-    kv_head) * nk + key_block`` (at head dim 256 ``(b * H + h) * nk +
-    key_block``, with GQA writing float32 partials per head that a last
-    kernel sums by group in head order) with ``nq = ceil(S / q_rows)``,
+    kv_head) * nk + key_block`` (at head dims 192 and 256 ``(b * H + h) *
+    nk + key_block``, with GQA writing float32 partials per head that a
+    last kernel sums by group in head order) with ``nq = ceil(S / q_rows)``,
     ``nk = ceil(Sk / kv_rows)``.  float32: one block an item, ``grid_*`` =
     (items, 1), no schedule: block ``i`` takes q-block or key block ``i //
     (B H)`` (the dQ kernel's reversed under causal, so the heaviest items
@@ -620,44 +615,60 @@ class BwdPlan:
 
 def _bwd_stages(hd: int) -> int:
     """Ring slots of the bf16 dQ kernel, and of the dK / dV kernel at 64
-    and 128 (the 227 KB budget decides at 128 and 256)."""
+    and 128 (the 227 KB budget decides at 128, 192 and 256)."""
     return 4 if hd == 64 else 3
+
+
+def _split(hd: int) -> bool:
+    """Whether the bf16 dK / dV pass is the split kernel (items of
+    BWD_STEP keys of one head, dK and dV on the two consumer warpgroups):
+    at head dim 256 and at deepseek's (192, 128)."""
+    return hd >= 192
+
+
+def _split_stages(hd: int) -> int:
+    """Ring slots of the split dK / dV kernel: 2 at hd 256 (64 KB a Q / dO
+    pair), 3 at (192, 128) (40 KB)."""
+    return 2 if hd == 256 else 3
 
 
 def _dq_step(hd: int) -> int:
     """Keys of the bf16 dQ kernel's kv tile: 128 at hd 64, 64 at hd 128
-    (where dQ's accumulator takes 64 registers a thread), 32 at hd 256
-    (128)."""
-    return {64: 128, 128: 64}.get(hd, 32)
+    (where dQ's accumulator takes 64 registers a thread) and at (192, 128)
+    (96), 32 at hd 256 (128)."""
+    return {64: 128, 128: 64, 192: 64}.get(hd, 32)
 
 
 def _dq_slots(hd: int) -> int:
-    """Item slots of Q and dO in the bf16 dQ kernel: two, one at hd 256."""
-    return 1 if hd == 256 else 2
+    """Item slots of Q and dO in the bf16 dQ kernel: two, one at (192,
+    128) (80 KB a slot) and at hd 256 (128 KB)."""
+    return 1 if hd >= 192 else 2
 
 
-def _bwd_smem(hd: int, stages: int,
-              kv_stages: Optional[int] = None) -> Tuple[int, int]:
-    """Dynamic shared memory of a bf16 block, as ``flash_attention_bwd.cu``
-    lays it out: 1 KiB to align the base to the swizzle's period; dQ:
-    ``_dq_slots`` item slots of Q and dO, ``stages`` slots of K and V
-    tiles, 2 slots + 4 stages mbarriers; dK / dV (``kv_stages``, default
-    ``stages``): two item slots of K and V, the ring's Q, dO and their 64
-    lse2 and D floats, 4 + 2 stages mbarriers -- at hd 256 (the split
-    kernel) one item's K and V of 64 keys, the ring, two float32 P^T
-    buffers of 128 x 32 and 2 + 2 stages + 4 mbarriers."""
+def _bwd_smem(hd: int, stages: int, kv_stages: Optional[int] = None,
+              hv: Optional[int] = None) -> Tuple[int, int]:
+    """Dynamic shared memory of a bf16 block at head dims ``hd, hv``
+    (``hv`` default ``hd``), as ``flash_attention_bwd.cu`` lays it out:
+    1 KiB to align the base to the swizzle's period; dQ: ``_dq_slots`` item
+    slots of Q and dO, ``stages`` slots of K and V tiles, 2 slots + 4
+    stages mbarriers; dK / dV (``kv_stages``, default ``stages``): two
+    item slots of K and V, the ring's Q, dO and their 64 lse2 and D floats,
+    4 + 2 stages mbarriers -- at hd 192 and 256 (the split kernel) one
+    item's K and V of 64 keys, the ring, two float32 P^T buffers of 128 x
+    32 and 2 + 2 stages + 4 mbarriers."""
     kv_stages = stages if kv_stages is None else kv_stages
-    boxes = hd // 64                         # 64-column boxes of a row
+    hv = hd if hv is None else hv
+    boxes = (hd + hv) // 64            # 64-column boxes of a Q and a dO row
     big, step = BWD_ROWS * 128, BWD_STEP * 128   # bytes of a box
     slots = _dq_slots(hd)
-    dq = 1024 + 2 * slots * boxes * big \
-        + stages * 2 * boxes * _dq_step(hd) * 128 + (2 * slots + 4 * stages) * 8
-    ring = kv_stages * (2 * boxes * step + 2 * BWD_STEP * 4)
-    if hd == 256:
-        dkdv = 1024 + 2 * boxes * step + ring + 2 * 128 * (BWD_STEP // 2) * 4 \
+    dq = 1024 + slots * boxes * big \
+        + stages * boxes * _dq_step(hd) * 128 + (2 * slots + 4 * stages) * 8
+    ring = kv_stages * (boxes * step + 2 * BWD_STEP * 4)
+    if _split(hd):
+        dkdv = 1024 + boxes * step + ring + 2 * 128 * (BWD_STEP // 2) * 4 \
             + (2 + 2 * kv_stages + 4) * 8
     else:
-        dkdv = 1024 + 4 * boxes * big + ring + (4 + 2 * kv_stages) * 8
+        dkdv = 1024 + 2 * boxes * big + ring + (4 + 2 * kv_stages) * 8
     return dq, dkdv
 
 
@@ -668,17 +679,15 @@ def _f32_step(hd: int) -> int:
     return 32 if hd == 64 else 16
 
 
-def _f32_bwd_smem(hd: int, hv: Optional[int] = None,
-                  itemsize: int = 4) -> Tuple[int, int]:
-    """Dynamic shared memory of a TF32 block (float32 tiles; bf16 tiles,
-    ``itemsize`` 2, at (192, 128)), as ``flash_attention_bwd.cu`` lays it
-    out in rows of hd (Q, K) or hv (dO, V) elements and 16 bytes: dQ: the
-    item's Q and dO, ``F32_BWD_STAGES`` slots of K and V tiles; dK / dV: the
-    item's K and V, float32 P^T handed between the warps of a pair ([64]
-    [step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and their
-    float32 lse and D."""
+def _f32_bwd_smem(hd: int, hv: Optional[int] = None) -> Tuple[int, int]:
+    """Dynamic shared memory of a TF32 block, as ``flash_attention_bwd.cu``
+    lays it out in float32 rows of hd (Q, K) or hv (dO, V) elements and 16
+    bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V
+    tiles; dK / dV: the item's K and V, P^T handed between the warps of a
+    pair ([64] [step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and
+    their lse and D."""
     hv = hd if hv is None else hv
-    pair = (hd + hv) * itemsize + 32          # a Q row and a dO row
+    pair = (hd + hv) * 4 + 32                 # a Q row and a dO row
     r, st = F32_BWD_ROWS, _f32_step(hd)
     dq = (r + F32_BWD_STAGES * st) * pair
     dkdv = r * pair + r * (st + 8) * 4 + F32_BWD_STAGES * (st * pair
@@ -697,11 +706,12 @@ def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
     dV item ``(b * KV + kvh) * nk + kb`` (``nk = ceil(sk / BWD_ROWS)``)
     walks, for each of the G heads, the q tiles of ``BWD_STEP`` rows from
     the first that sees its keys (row 0 where a key of the item lies in the
-    prefix).  At head dims 64 and 128 the dQ tiles count ``BWD_STEP`` keys
-    (``_dq_step(64)`` tiles count as two).  At head dim 256 the tiles are
-    the kernels' own: the dQ item's kv tiles of ``_dq_step(256)`` keys, and
-    the dK / dV item ``(b * H + h) * nk + kb`` (``nk = ceil(sk /
-    BWD_STEP)``) walks its one head's q tiles."""
+    prefix).  At head dims 64, 128 and 192 the dQ tiles count ``BWD_STEP``
+    keys (``_dq_step(64)`` tiles count as two; 192's are that long).  At
+    head dim 256 the dQ item's kv tiles are the kernel's own, of
+    ``_dq_step(256)`` keys.  At 192 and 256 (the split kernel) the dK / dV
+    item ``(b * H + h) * nk + kb`` (``nk = ceil(sk / BWD_STEP)``) walks its
+    one head's q tiles."""
     sk = s if sk is None else sk
     _check_lengths(s, sk, causal, prefix)
     p = min(prefix, s)
@@ -710,7 +720,7 @@ def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
     dq_tile = _dq_step(hd) if hd == 256 else BWD_STEP
     dq = [_cdiv(max(min((qb + 1) * BWD_ROWS, s), p) if causal else sk,
                 dq_tile) + 1 for qb in range(nq)]
-    if hd == 256:
+    if _split(hd):
         dkdv = [nstep - (kb if causal and kb * BWD_STEP >= p else 0) + 1
                 for kb in range(_cdiv(sk, BWD_STEP))]
         return dq * (b * h), dkdv * (b * h)
@@ -721,11 +731,33 @@ def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
     return dq * (b * h), dkdv * (b * kv)
 
 
-def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
-    """Longest processing time first: the items in order of decreasing work
-    (ties by index), each to the block with the least work so far (ties by
-    block index).  Every block's list is heaviest first."""
-    order = sorted(range(len(work)), key=lambda i: (-work[i], i))
+# the operands one round of a persistent grid streams past which its work
+# runs head by head: more than the card's 50 MB L2 holds (the forward's
+# ``kL2Group`` in ``flash_attention.cu``)
+L2_GROUP_BYTES = 64 << 20
+
+
+def _group_items(per_head: int, heads: int, round_bytes: int) -> int:
+    """Items of one schedule group of a kernel whose ``heads`` heads have
+    ``per_head`` items each, consecutive: one head's where the operands the
+    first round of blocks streams -- the heaviest item of each of as many
+    heads, each walking its head's K and V or Q and dO -- pass
+    ``L2_GROUP_BYTES`` (``round_bytes``), else every item.  Head by head,
+    the blocks stream the operands of a few heads at a time, which the L2
+    keeps; over every head at once (deepseek's 128 heads of 2.6 MB at S =
+    4096) each item would read its operands from device memory again."""
+    return per_head if round_bytes > L2_GROUP_BYTES else per_head * heads
+
+
+def _lpt(work: List[int], blocks: int,
+         group: Optional[int] = None) -> Tuple[Tuple[int, ...], ...]:
+    """Longest processing time first: the items group by group (runs of
+    ``group`` consecutive items, default all of them), inside a group in
+    order of decreasing work (ties by index), each to the block with the
+    least work so far (ties by block index).  Every block's list runs group
+    by group, heaviest first inside each."""
+    group = group or max(len(work), 1)
+    order = sorted(range(len(work)), key=lambda i: (i // group, -work[i], i))
     heap = [(0, c) for c in range(blocks)]
     lists: List[List[int]] = [[] for _ in range(blocks)]
     for i in order:
@@ -735,15 +767,12 @@ def _lpt(work: List[int], blocks: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(x) for x in lists)
 
 
-def bwd_variant(dtype: torch.dtype, hd: int = 64,
-                hv: Optional[int] = None) -> str:
-    """The backward's variant (its ``LAUNCHES`` key) for ``dtype`` at head
-    dims ``hd, hv`` (``hv`` default ``hd``): every square head dim of a
-    dtype takes the same one; bf16 at a pair of ``RECT_PAIRS`` takes the
-    TF32 kernels with bf16 tiles."""
-    hv = hd if hv is None else hv
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward's variant (its ``LAUNCHES`` key) for ``dtype``: every
+    head dim of a dtype, the pairs of ``RECT_PAIRS`` included, takes the
+    same one."""
     if dtype == torch.bfloat16:
-        return BWD_BF16_MMA if (hd, hv) in RECT_PAIRS else BWD_BF16
+        return BWD_BF16
     if dtype == torch.float32:
         return BWD_F32
     raise TypeError(f"no K3 backward variant for {dtype}")
@@ -757,14 +786,15 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     sk, kv, hv] (``sk`` default ``s``, ``hv`` default ``hd``) with a
     bidirectional prefix of ``prefix`` keys in ``dtype`` on a card of
     ``sms`` SMs (a pure function of its arguments, made once: the same
-    object for the same shape).  A pair of ``RECT_PAIRS`` takes the TF32
-    kernels in either dtype (``flash_attention_bwd_bf16_mma`` in bf16: one
-    TF32 product a bf16 product) and no GQA (h == kv).
+    object for the same shape).  A pair of ``RECT_PAIRS`` takes no GQA (h
+    == kv).
     bf16 on ``wgmma``: dQ items of 128 rows stepping ``_dq_step`` keys at a
-    time, dK / dV items of 128 keys (64 keys of one head at hd 256)
-    stepping 64 query rows, ``_bwd_stages`` ring slots (``BWD_SPLIT_STAGES``
-    in the dK / dV kernel at 256), each kernel a persistent grid of at most
-    one block an SM whose schedule ``_lpt`` makes from ``bwd_item_work``;
+    time, dK / dV items of 128 keys (64 keys of one head at hd 192 and 256,
+    the split kernel) stepping 64 query rows, ``_bwd_stages`` ring slots
+    (``_split_stages`` in the split kernel), each kernel a persistent grid
+    of at most one block an SM whose schedule ``_lpt`` makes from
+    ``bwd_item_work``, in head groups (``_group_items``) where the operands
+    the items stream pass ``L2_GROUP_BYTES``;
     float32 on ``mma.sync`` (3xTF32): items of 64 rows or keys, one block
     an item, heaviest first, each stepping ``_f32_step`` rows or keys
     through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums the
@@ -783,22 +813,34 @@ def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
         raise ValueError(f"the training kernels take (hd, hv) = ({hd}, "
                          f"{hv}) without GQA; got {h} query heads over {kv} "
                          f"kv heads")
-    variant = bwd_variant(dtype, hd, hv)
+    variant = bwd_variant(dtype)
     if variant == BWD_BF16:
         work_dq, work_dkdv = bwd_item_work(b, s, h, kv, causal, sk, prefix,
                                            hd)
         ctas_dq, ctas_dkdv = min(len(work_dq), sms), min(len(work_dkdv), sms)
+        # the dQ items stream their kv head's K and V, the dK / dV items
+        # their head's (or kv head's group's) Q and dO
+        g = h // kv
+        heads_kv = b * (h if _split(hd) else kv)
+        group_dq = _group_items(
+            _cdiv(s, BWD_ROWS), b * h,
+            _cdiv(min(ctas_dq, b * h), g) * sk * (hd + hv) * 2)
+        group_kv = _group_items(
+            len(work_dkdv) // heads_kv, heads_kv,
+            min(ctas_dkdv, heads_kv) * (b * h // heads_kv) * s * (hd + hv)
+            * 2)
         st = _bwd_stages(hd)
-        st_kv = BWD_SPLIT_STAGES if hd == 256 else st
-        kv_rows = BWD_STEP if hd == 256 else BWD_ROWS
+        st_kv = _split_stages(hd) if _split(hd) else st
+        kv_rows = BWD_STEP if _split(hd) else BWD_ROWS
         return BwdPlan(BWD_BF16, BWD_ROWS, kv_rows, BWD_STEP, _dq_step(hd),
                        (st, st_kv), (ctas_dq, 1), (ctas_dkdv, 1),
-                       _bwd_smem(hd, st, st_kv), _lpt(work_dq, ctas_dq),
-                       _lpt(work_dkdv, ctas_dkdv))
+                       _bwd_smem(hd, st, st_kv, hv),
+                       _lpt(work_dq, ctas_dq, group_dq),
+                       _lpt(work_dkdv, ctas_dkdv, group_kv))
     r, st = F32_BWD_ROWS, _f32_step(hd)
     return BwdPlan(variant, r, r, st, st, (F32_BWD_STAGES, F32_BWD_STAGES),
                    (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
-                   _f32_bwd_smem(hd, hv, dtype.itemsize))
+                   _f32_bwd_smem(hd, hv))
 
 
 def schedule_words(p: BwdPlan) -> List[int]:
@@ -851,7 +893,7 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"lse must be float32 [B, H, S] = {(b, h, s)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     with census.kernel_call(lambda: (
-            bwd_variant(q.dtype, hd, hv),
+            bwd_variant(q.dtype),
             *bwd_work(b, s, h, kv, hd, hv, causal, q.dtype, sk=sk,
                       prefix=prefix_len))):
         if q.device.type == "cpu":

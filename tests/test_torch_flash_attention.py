@@ -127,7 +127,6 @@ def test_cpu_tensors_never_launch():
                                   "flash_attention_bf16_mma": 0,
                                   "flash_attention_f32": 0,
                                   "flash_attention_bwd_bf16": 0,
-                                  "flash_attention_bwd_bf16_mma": 0,
                                   "flash_attention_bwd_f32": 0}
     assert k3._bound is None and k3._bwd_bound is None
 
@@ -620,6 +619,63 @@ def test_mla_instances_are_in_the_sources():
         assert inst in src, inst
     assert "tc_tiles_align<192>()" in src
     assert "tc_smem_bytes<192, 128>() <= 232448" in src
+
+
+def _tc_tile_loads(bh, nq, ctas, group):
+    """Each persistent block's work (kv tiles of 128 keys) under
+    ``flash_attention.cu``'s order: ``tile_of`` (groups of ``group`` heads,
+    inside a group q-block by q-block from the heaviest) dealt round by
+    round, the blocks in reverse order on odd rounds; and every tile's
+    (head, q-block) once."""
+    seen, loads = set(), [0] * ctas
+    for j in range(-(-bh * nq // ctas)):
+        for c in range(ctas):
+            lin = j * ctas + (c if j % 2 == 0 else ctas - 1 - c)
+            if lin >= bh * nq:
+                continue
+            g = lin // (group * nq)
+            size = min(group, bh - g * group)
+            r = lin - g * group * nq
+            head, qb = g * group + r % size, nq - 1 - r // size
+            seen.add((head, qb))
+            loads[c] += qb + 1
+    assert len(seen) == bh * nq
+    return loads
+
+
+def test_tc_tile_order_goes_head_by_head_past_the_l2():
+    """The wgmma forward runs its tiles head by head (``tc_group`` 1) where
+    the K and V a round of the grid streams in q-block order -- as many
+    heads as blocks, their kv heads' K and V -- pass ``kL2Group`` (64 MB,
+    ``L2_GROUP_BYTES``): deepseek's prefills (a) and (b); every other model
+    shape keeps one group.  Head by head, the rounds' alternating order
+    keeps every block within 4 % of the even split at deepseek's shapes."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    assert "constexpr int64_t kL2Group = 64ll << 20;" in src
+    assert k3.L2_GROUP_BYTES == 64 << 20
+    assert "p.group = tc_group(B, Sk, H, KV, hd, hv, gx);" in src
+    assert "return round_bytes > kL2Group ? 1 : B * H;" in src
+
+    def round_bytes(b, s, h, kv, hd, hv):
+        heads = min(k3.plan(b, s, h, kv, hd, hv, BF16).grid[0], b * h)
+        return -(-heads // (h // kv)) * s * (hd + hv) * 2
+
+    grouped = {(b, s, h, kv, hd, hv): round_bytes(b, s, h, kv, hd, hv)
+               > k3.L2_GROUP_BYTES for b, s, h, kv, hd, hv in (
+                   (1, 4096, 128, 128, 192, 128), (8, 1024, 128, 128, 192,
+                                                   128),
+                   (1, 4096, 32, 32, 64, 64), (8, 1024, 32, 32, 64, 64),
+                   (1, 2048, 40, 8, 128, 128), (1, 4096, 8, 1, 256, 256),
+                   (8, 1024, 8, 1, 256, 256), (8, 1500, 12, 12, 64, 64))}
+    assert [k[:3] for k, v in grouped.items() if v] == [
+        (1, 4096, 128), (8, 1024, 128)]
+    for b, s in ((1, 4096), (8, 1024)):
+        nq = -(-s // 128)
+        loads = _tc_tile_loads(b * 128, nq, k3.H100_SMS, 1)
+        assert max(loads) <= 1.04 * sum(loads) / len(loads)
+        # one group of every head: the same tiles, evenly spread as well
+        loads = _tc_tile_loads(b * 128, nq, k3.H100_SMS, b * 128)
+        assert max(loads) <= 1.04 * sum(loads) / len(loads)
 
 
 def test_mla_work_counts_each_width_once():

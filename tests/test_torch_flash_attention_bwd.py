@@ -288,9 +288,9 @@ def test_bwd_plan_matches_the_source_constants():
                       src)
         assert m and (int(m[1]), int(m[2])) == (want(64), want(128)), fn
     m = re.search(r"dq_step\(\) {\s*return D == 64 \? (\d+) : D == 128 \? "
-                  r"(\d+) : (\d+);", src)
+                  r"(\d+) : D == 192 \? (\d+) : (\d+);", src)
     assert m and tuple(map(int, m.groups())) == tuple(
-        k3._dq_step(hd) for hd in (64, 128, 256))
+        k3._dq_step(hd) for hd in (64, 128, 192, 256))
     for hd in (64, 128):
         assert max(k3._bwd_smem(hd, k3._bwd_stages(hd))) <= SMEM_LIMIT
         # two float32 blocks (and the 1 KB the card reserves for each) fit
@@ -700,7 +700,7 @@ def test_plan_bwd_of_head_dim_256(dtype, want):
     assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
             p.grid_dq, p.grid_dkdv, p.smem) == want
     assert max(p.smem) <= SMEM_LIMIT
-    assert k3.bwd_variant(dtype, 256) == want[0]
+    assert k3.bwd_variant(dtype) == want[0]
     plain_causal = k3.plan_bwd(1, 4096, 8, 1, 256, dtype)
     if dtype == BF16:
         # persistent grids with schedules; the prefix moves the items' work
@@ -717,18 +717,16 @@ def test_plan_bwd_of_head_dim_256(dtype, want):
 
 def test_tf32_smem_matches_the_source_layout():
     """``_f32_bwd_smem`` mirrors ``f32_dq_smem_bytes`` / ``f32_dkdv_smem_
-    bytes``: rows of hd (Q, K) or hv (dO, V) elements and 16 bytes, float32
+    bytes``: float32 rows of hd (Q, K) or hv (dO, V) elements and 16 bytes,
     lse, D and P^T; and the source gives the dK / dV kernel one block an SM
     at hd 256 and at (192, 128) (hd + hv > 256)."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
     assert re.search(r"f32_kv_blocks\(\) {\s*return HD \+ HV > 256 \? 1 : 2;",
                      src)
-    assert re.search(r"row_ld\(\) {\s*return D \+ 16 / \(int\)sizeof\(T\);",
-                     src)
-    for hd, hv, el in ((64, 64, 4), (128, 128, 4), (256, 256, 4),
-                       (192, 128, 4), (192, 128, 2)):
-        dq, dkdv = k3._f32_bwd_smem(hd, hv, el)
-        pair = (hd + 16 // el) * el + (hv + 16 // el) * el
+    assert re.search(r"row_ld\(\) {\s*return D \+ 4;", src)
+    for hd, hv in ((64, 64), (128, 128), (256, 256), (192, 128)):
+        dq, dkdv = k3._f32_bwd_smem(hd, hv)
+        pair = (hd + 4) * 4 + (hv + 4) * 4
         st = k3._f32_step(hd)
         assert dq == (64 + 2 * st) * pair
         assert dkdv == 64 * pair + 64 * (st + 8) * 4 + 2 * (st * pair
@@ -794,15 +792,17 @@ def test_one_pass_tf32_bf16_backward_holds_the_bf16_gate(b, s, h, kv, causal,
 # --- head dim 256: the dQ kernel's one item slot, the split dK / dV kernel -----
 
 
-def _cpp_int(src, fn, d, consts):
-    """The value of ``constexpr int fn()`` of ``src`` at head dim ``d``:
-    its return expression with ``D``, the ``name<D>()`` helpers and the
+def _cpp_int(src, fn, d, consts, hv=None):
+    """The value of ``constexpr int fn()`` of ``src`` at head dims ``d``
+    (hd) and ``hv`` (default ``d``): its return expression with ``D`` and
+    ``HD``, ``HV``, the ``name<D>()`` / ``name<HD>()`` helpers and the
     named constants replaced by ``consts``' values, integer division."""
     m = re.search(rf"constexpr int {fn}\(\) {{\s*return (.*?);\s*}}", src,
                   re.S)
     assert m, fn
-    expr = re.sub(r"(\w+)<D>\(\)", lambda x: str(consts[x[1]]), m[1])
-    expr = re.sub(r"\bD\b", str(d), expr)
+    expr = re.sub(r"(\w+)<H?D>\(\)", lambda x: str(consts[x[1]]), m[1])
+    expr = re.sub(r"\bH?D\b", str(d), expr)
+    expr = re.sub(r"\bHV\b", str(d if hv is None else hv), expr)
     for name, value in consts.items():
         expr = re.sub(rf"\b{name}\b", str(value), expr)
     expr = " ".join(expr.split()).replace("/", "//")
@@ -811,43 +811,83 @@ def _cpp_int(src, fn, d, consts):
 
 
 def test_bwd_plan_at_head_dim_256_matches_the_source_constants():
-    """The hd-256 plan's tile steps, ring depths, item slots and shared
-    memory are the source's: ``dq_step``, ``dq_stages``, ``dq_slots``,
-    ``kSplitStages``; ``_bwd_smem`` equals ``dq_smem_bytes`` and
-    ``split_smem_bytes`` evaluated from the source (and, at 64 and 128,
+    """The hd-256 and (192, 128) plans' tile steps, ring depths, item slots
+    and shared memory are the source's: ``dq_step``, ``dq_stages``,
+    ``dq_slots``, ``split_stages``; ``_bwd_smem`` equals ``dq_smem_bytes``
+    and ``split_smem_bytes`` evaluated from the source (and, at 64 and 128,
     ``dq_smem_bytes`` and ``dkdv_smem_bytes``), every one within a block's
     227 KB."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    assert re.search(rf"constexpr int kSplitStages = {k3.BWD_SPLIT_STAGES};",
-                     src)
+    m = re.search(r"split_stages\(\) {\s*return D == 256 \? (\d+) : (\d+);",
+                  src)
+    assert m and (int(m[1]), int(m[2])) == (k3._split_stages(256),
+                                            k3._split_stages(192)) == (2, 3)
     assert re.search(r"constexpr int kSplitPt = 128 \* \(kStep / 2\);", src)
-    m = re.search(r"dq_slots\(\) {\s*return D == 256 \? (\d+) : (\d+);", src)
+    m = re.search(r"dq_slots\(\) {\s*return D >= 192 \? (\d+) : (\d+);", src)
     assert m and (int(m[1]), int(m[2])) == (k3._dq_slots(256),
                                             k3._dq_slots(64)) == (1, 2)
+    assert k3._dq_slots(192) == 1
+    assert re.search(r"constexpr bool kSplit = HD >= 192;", src)
+    assert [hd for hd in (64, 128, 192, 256) if k3._split(hd)] == [192, 256]
     p = k3.plan_bwd(1, 4096, 8, 1, 256, BF16)
     assert (p.kv_step, p.q_step, p.q_rows, p.kv_rows, p.stages) == (
-        32, 64, 128, 64, (3, k3.BWD_SPLIT_STAGES))
-    for hd in (64, 128, 256):
+        32, 64, 128, 64, (3, k3._split_stages(256)))
+    for hd, hv in ((64, 64), (128, 128), (192, 128), (256, 256)):
         st = k3._bwd_stages(hd)
-        st_kv = k3.BWD_SPLIT_STAGES if hd == 256 else st
+        st_kv = k3._split_stages(hd) if k3._split(hd) else st
         consts = {"kRows": k3.BWD_ROWS, "kStep": k3.BWD_STEP,
                   "kBoxBig": k3.BWD_ROWS * 128, "kBoxStep": k3.BWD_STEP * 128,
-                  "kSplitStages": k3.BWD_SPLIT_STAGES,
+                  "split_stages": k3._split_stages(hd),
                   "kSplitPt": 128 * (k3.BWD_STEP // 2),
                   "dq_slots": k3._dq_slots(hd), "dq_stages": st,
                   "dkdv_stages": st, "dq_step": k3._dq_step(hd)}
-        dq, dkdv = k3._bwd_smem(hd, st, st_kv)
-        assert dq == _cpp_int(src, "dq_smem_bytes", hd, consts)
-        assert dkdv == _cpp_int(src, "split_smem_bytes" if hd == 256
-                                else "dkdv_smem_bytes", hd, consts)
+        dq, dkdv = k3._bwd_smem(hd, st, st_kv, hv)
+        assert dq == _cpp_int(src, "dq_smem_bytes", hd, consts, hv)
+        assert dkdv == _cpp_int(src, "split_smem_bytes" if k3._split(hd)
+                                else "dkdv_smem_bytes", hd, consts, hv)
         assert max(dq, dkdv) <= SMEM_LIMIT
     assert k3._bwd_smem(256, 3, 2) == (230512, 231504)
+    # (192, 128): one 80 KB item slot and 3 stages of 64-key K / V tiles
+    # (40 KB a stage); the split kernel's resident K / V (40 KB), 3 ring
+    # slots of Q / dO with lse2 and D (40.5 KB a slot), two P^T buffers
+    assert k3._bwd_smem(192, 3, 3, 128) == (
+        1024 + 80 * 1024 + 3 * 40 * 1024 + (2 + 12) * 8,
+        1024 + 40 * 1024 + 3 * (40 * 1024 + 512) + 32 * 1024 + 12 * 8)
 
 
 # (B, S, H, KV), prefix: paligemma's two shapes, a ragged GQA with a ragged
 # prefix, a plain causal GQA
 D256_SHAPES = [((1, 4096, 8, 1), 256), ((8, 1024, 8, 1), 256),
                ((2, 1000, 4, 2), 77), ((1, 300, 4, 2), 0)]
+
+
+def _want_group(per_head, heads, round_bytes):
+    """The items of a schedule group: one head's where the operands the
+    first round of blocks streams pass 64 MB (more than the card's 50 MB
+    L2 holds), else every item."""
+    return per_head if round_bytes > 64 << 20 else per_head * heads
+
+
+def _check_schedule(sched, work, grid, group):
+    """Every item exactly once; every block's list runs group by group
+    (runs of ``group`` consecutive items), heaviest first inside each; no
+    block gets more than the even share plus one item (LPT's bound); the
+    blocks' first items are the first of that order; the grid is the SM
+    count or the item count, whichever is smaller."""
+    assert grid == (min(len(work), k3.H100_SMS), 1)
+    assert len(sched) == grid[0] and all(sched)
+    assert sorted(i for items in sched for i in items) \
+        == list(range(len(work)))
+
+    def key(i):
+        return i // group, -work[i], i
+
+    for items in sched:
+        assert [key(i) for i in items] == sorted(key(i) for i in items)
+    loads = [sum(work[i] for i in items) for items in sched]
+    assert max(loads) <= sum(work) / len(sched) + max(work)
+    order = sorted(range(len(work)), key=key)
+    assert sorted(items[0] for items in sched) == sorted(order[:len(sched)])
 
 
 @pytest.mark.parametrize("shape,prefix", D256_SHAPES)
@@ -880,6 +920,85 @@ def test_bwd_schedule_at_head_dim_256_covers_every_item_once_heaviest_first(
     words = k3.schedule_words(p)
     assert len(words) == (p.grid_dq[0] + 1 + len(work_dq)
                           + p.grid_dkdv[0] + 1 + len(work_dkdv))
+
+
+# (B, S, H == KV) at (192, 128): deepseek's training (r) and prefill (a)
+# shape, its B=8 prefill (b), a ragged one
+MLA_SCHEDULE_SHAPES = [(1, 4096, 128), (8, 1024, 128), (2, 1000, 4)]
+
+
+@pytest.mark.parametrize("shape", MLA_SCHEDULE_SHAPES)
+def test_bwd_schedule_at_mla_head_dims_covers_every_item_once_heaviest_first(
+        shape):
+    """At (192, 128) each kernel's schedule holds every item exactly once
+    -- dQ items of 128 rows of one (b, head), dK / dV items of 64 keys of
+    one (b, head), the split kernel's -- head by head where the operands a
+    round of 132 blocks streams pass the L2 (deepseek: K / V and Q / dO of
+    128 heads, 2.6 MB each at S = 4096), heaviest first inside each head,
+    within LPT's bound; the item work is ``bwd_item_work``'s at hd 192."""
+    b, s, h = shape
+    p = k3.plan_bwd(b, s, h, h, 192, BF16, hv=128)
+    work_dq, work_dkdv = k3.bwd_item_work(b, s, h, h, True, hd=192)
+    nq, nk = -(-s // 128), -(-s // 64)
+    assert len(work_dq) == b * h * nq and len(work_dkdv) == b * h * nk
+    round_bytes = min(k3.H100_SMS, b * h) * s * (192 + 128) * 2
+    group_dq = _want_group(nq, b * h, round_bytes)
+    group_kv = _want_group(nk, b * h, round_bytes)
+    assert (group_dq, group_kv) == ((nq, nk) if h == 128 else
+                                    (b * h * nq, b * h * nk))
+    for sched, work, grid, group in (
+            (p.schedule_dq, work_dq, p.grid_dq, group_dq),
+            (p.schedule_dkdv, work_dkdv, p.grid_dkdv, group_kv)):
+        _check_schedule(sched, work, grid, group)
+
+
+@pytest.mark.parametrize("s,p", [(300, 0), (1000, 77), (4096, 0)])
+def test_bwd_item_work_at_mla_head_dims_counts_the_kernels_tiles(s, p):
+    """At (192, 128) each item walks the kernels' own tiles a brute-force
+    mask says it must, plus one for its set-up: a dQ item of 128 rows the
+    64-key tiles (``_dq_step(192)``) up to its rows' last visible key; a
+    dK / dV item of 64 keys of one head (the split kernel's) the 64-row q
+    tiles from the first row that sees one of its keys.  Not causal: every
+    tile."""
+    b, h = 2, 4
+    assert k3._dq_step(192) == k3.BWD_STEP == 64
+    dq, dkdv = k3.bwd_item_work(b, s, h, h, True, prefix=p, hd=192)
+    n = min(s, 1024)             # the brute force at a prefix of the rows
+    i = np.arange(s)[:, None]
+    j = np.arange(n)[None, :]
+    seen = (j <= i) | (j < p)
+    want_dq = []
+    for qb in range(-(-s // 128)):
+        rows = np.arange(qb * 128, min(qb * 128 + 128, s))
+        last = max(int(rows.max()), min(p, s) - 1)
+        want_dq.append(-(-(last + 1) // 64) + 1)
+    want_kv = []
+    for kb in range(-(-s // 64)):
+        if kb * 64 < n:
+            first = int(np.nonzero(seen[:, kb * 64:kb * 64 + 64].any(1))[0]
+                        .min())
+        else:                     # past the brute force: past the prefix
+            first = kb * 64
+        want_kv.append(-(-s // 64) - first // 64 + 1)
+    assert dq == want_dq * (b * h) and dkdv == want_kv * (b * h)
+    nc_dq, nc_kv = k3.bwd_item_work(b, s, h, h, False, hd=192)
+    assert nc_dq == [-(-s // 64) + 1] * (b * h * -(-s // 128))
+    assert nc_kv == [-(-s // 64) + 1] * (b * h * -(-s // 64))
+
+
+def test_lpt_groups_run_in_order_heaviest_first_inside_each():
+    """``_lpt`` with a group: the groups' items in group order, each
+    group's heaviest first, every item to the least loaded block; without
+    one, heaviest first over every item; ``_group_items`` takes one head's
+    items past ``L2_GROUP_BYTES``."""
+    work = [1, 5, 3, 2, 9, 4]
+    # 9, 5, 4, 3, 2, 1 in turn to the lighter block (ties: block 0)
+    assert k3._lpt(work, 2) == ((4, 2), (1, 5, 3, 0))
+    # items 0-2 (5, 3, 1), then items 3-5 (9, 4, 2)
+    assert k3._lpt(work, 2, 3) == ((1, 5, 3), (2, 0, 4))
+    assert k3.L2_GROUP_BYTES == 64 << 20
+    assert k3._group_items(32, 128, k3.L2_GROUP_BYTES) == 32 * 128
+    assert k3._group_items(32, 128, k3.L2_GROUP_BYTES + 1) == 32
 
 
 @pytest.mark.parametrize("s,p", [(300, 77), (300, 256), (1000, 256),
@@ -963,18 +1082,34 @@ def test_mla_backward_matches_jax_vjp_of_the_reference(s, causal):
 
 
 @pytest.mark.parametrize("dtype,want", [
-    (torch.bfloat16, k3.BWD_BF16_MMA), (torch.float32, k3.BWD_F32)])
+    # bf16 on wgmma: dQ items of 128 rows stepping 64 keys through 3 slots
+    # (one Q / dO item slot, 80 KB), dK / dV items of 64 keys of one head
+    # stepping 64 rows through 3 slots (the split kernel): 4,096 dQ and
+    # 8,192 dK / dV items over the 132 SMs
+    (BF16, (k3.BWD_BF16, 128, 64, 64, 64, (3, 3), (132, 1), (132, 1),
+            (205936, 199264))),
+    # float32: 3xTF32 on mma.sync; items of 64 rows or keys, 16-row steps,
+    # one block an item
+    (F32, (k3.BWD_F32, 64, 64, 16, 16, (2, 2), (128 * 64, 1),
+           (128 * 64, 1), (125952, 132352))),
+])
 def test_plan_bwd_of_mla_head_dims(dtype, want):
-    """(192, 128) runs on the TF32 ``mma.sync`` kernels in both dtypes
-    (bf16 tiles: one TF32 product each): items of 64 rows or keys, one
-    block an item, 16-row steps; with GQA it is refused."""
+    """deepseek's (192, 128) at its training shape B=1 S=4096 H=KV=128:
+    bf16 on the wgmma kernels (the split dK / dV kernel, as at 256) with
+    persistent grids of at most one block an SM, float32 on the TF32
+    kernels; with GQA it is refused in either dtype."""
     p = k3.plan_bwd(1, 4096, 128, 128, 192, dtype, hv=128)
-    assert p.variant == want == k3.bwd_variant(dtype, 192, 128)
-    assert (p.q_rows, p.kv_rows, p.q_step, p.kv_step) == (64, 64, 16, 16)
-    assert p.grid_dq == p.grid_dkdv == (128 * 64, 1)
-    assert p.smem == k3._f32_bwd_smem(192, 128, dtype.itemsize)
+    assert p.variant == want[0] == k3.bwd_variant(dtype)
+    assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
+            p.grid_dq, p.grid_dkdv, p.smem) == want
     assert max(p.smem) <= SMEM_LIMIT
-    assert not p.schedule_dq
+    if dtype == BF16:
+        assert p.smem == k3._bwd_smem(192, 3, 3, 128)
+        assert max(p.grid_dq[0], p.grid_dkdv[0]) <= k3.H100_SMS
+        assert p.schedule_dq and p.schedule_dkdv
+    else:
+        assert p.smem == k3._f32_bwd_smem(192, 128)
+        assert not p.schedule_dq and not p.schedule_dkdv
     with pytest.raises(ValueError, match="GQA"):
         k3.plan_bwd(1, 256, 4, 2, 192, dtype, hv=128)
 
@@ -992,12 +1127,25 @@ def test_mla_bwd_work_separates_the_widths():
 
 
 def test_mla_bwd_instances_are_in_the_source():
-    """The TF32 kernels are templated on both widths: (192, 128) instances
-    for float32 and bf16 tiles, bound to ``flash_attention_bwd_bf16_mma``
-    and ``flash_attention_bwd_f32``, each entry taking ``int hd, int hv``."""
+    """The bf16 wgmma kernels are templated on both widths and have (192,
+    128) instances -- the dQ kernel and the split dK / dV kernel, with the
+    m64n192k16 product for dS K and dS^T Q --, the TF32 kernels a float32
+    one; the TF32 route with bf16 tiles is gone, and each entry takes
+    ``int hd, int hv``."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    assert "launch_tf32<T, 192, 128>" in src
-    assert "tf32_entry<bf16>" in src and "tf32_entry<float>" in src
+    for inst in ("launch_bf16<192, 128>", "launch_tf32<192, 128>",
+                 "flash_bwd_dq_bf16_tc_kernel<HD, HV>",
+                 "flash_bwd_dkdv_bf16_split_kernel<HD, HV>",
+                 "dq_smem_bytes<192, 128>() <= 232448",
+                 "split_smem_bytes<192, 128>() <= 232448",
+                 "wgmma_rs<192>(float (&d)[96]"):
+        assert inst in src, inst
+    hopper = (build.CSRC_DIR / "hopper.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16" in hopper
+    assert "flash_attention_bwd_bf16_mma" not in src
+    assert "tf32_entry" not in src and "typename T, int HD" not in src
+    assert k3.BWD_VARIANTS == (k3.BWD_BF16, k3.BWD_F32)
+    assert not hasattr(k3, "BWD_BF16_MMA")
     for name in k3.BWD_VARIANTS:
         m = re.search(rf"\nint {name}\(([^)]*)\)", src)
         assert m and "int hd, int hv," in " ".join(m[1].split()), name

@@ -14,7 +14,10 @@ ragged B=2 S=1000 (4 heads of 64, causal) and a non-causal B=1 S=512 (8
 heads, 2 kv, of 128); each in bf16 and float32 -- and on paligemma-3b's
 head-dim-256 shapes (B=1 S=4096 and B=8 S=1024, 8 heads, 1 kv, a prefix
 of 256; a ragged B=2 S=1000, 4 heads, 2 kv, prefix 77; bf16, and B=1
-S=4096 in float32) on seeded random inputs and the forward kernel's own
+S=4096 in float32) and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128)
+(B=1 S=4096, 128 heads, causal, training (r)'s shape; a ragged B=2 S=1000,
+4 heads; H == KV; each in bf16 and float32) on seeded random inputs and
+the forward kernel's own
 output and log-sum-exp, on the first CUDA card.  Prints one JSON object:
 per shape the milliseconds of one call (CUDA events around ``--iters``
 back-to-back calls after a warm-up, inputs L2-warm where they fit), of
@@ -33,7 +36,7 @@ import json
 import os
 import sys
 
-# (name, dtype, B, S, H, KV, d, causal, prefix)
+# (name, dtype, B, S, H, KV, d, causal, prefix); d is hd == hv or (hd, hv)
 SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True, 0),
           ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128, True, 0),
           ("ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, 64, True, 0),
@@ -49,7 +52,15 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True, 0),
           ("noncausal_b1_s512_gqa_f32", "float32", 1, 512, 8, 2, 128, False,
            0),
           ("paligemma_b1_s4096_f32", "float32", 1, 4096, 8, 1, 256, True,
-           256))
+           256),
+          ("deepseek_b1_s4096", "bfloat16", 1, 4096, 128, 128, (192, 128),
+           True, 0),
+          ("mla_ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, (192, 128),
+           True, 0),
+          ("deepseek_b1_s4096_f32", "float32", 1, 4096, 128, 128,
+           (192, 128), True, 0),
+          ("mla_ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, (192, 128),
+           True, 0))
 
 
 def main() -> int:
@@ -91,14 +102,16 @@ def main() -> int:
         if wanted and name not in wanted:
             continue
         dt = getattr(torch, dtype)
-        q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda")
-                       .to(dt) for n in (h, kv, kv, h))
+        hd, hv = d if isinstance(d, tuple) else (d, d)
+        q, k, v, do = (torch.randn((b, s, n, w), generator=g, device="cuda")
+                       .to(dt) for n, w in ((h, hd), (kv, hd), (kv, hv),
+                                            (h, hv)))
         kw = {"prefix_len": prefix} if prefix else {}
         o, lse = k3.flash_attention_fwd(q, k, v, causal=causal, **kw)
         row = {"call": time_ms(lambda: k3.flash_attention_bwd(
             do, q, k, v, o, lse, causal=causal, **kw))}
         if hasattr(k3, "bwd_launch"):
-            scale = d ** -0.5
+            scale = hd ** -0.5
             pkw = {"prefix": prefix} if prefix else {}
             scratch = k3.bwd_launch(do, q, k, v, o, lse, causal, scale,
                                     k3.BWD_BOTH, **pkw)[3]

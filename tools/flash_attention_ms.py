@@ -11,14 +11,18 @@ shape's bidirectional prefix) on the model shapes of ``chip_smoke.py`` --
 stablelm-1.6b B=1 S=4096 and B=8 S=1024 (32 heads of 64), qwen3-14b B=1
 S=2048 (40 heads, 8 kv, of 128), paligemma-3b B=1 S=4096 and B=8 S=1024
 (8 heads, 1 kv, of 256, a prefix of 256 patches) and a ragged B=2 S=1000
-(4 heads, 2 kv, of 256, prefix 77) in bf16, stablelm B=1 S=4096 in float32
--- on seeded random inputs on the first CUDA card, and prints one JSON
+(4 heads, 2 kv, of 256, prefix 77) in bf16, stablelm B=1 S=4096 in
+float32, and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128) (B=1 S=4096,
+128 heads, prefill (a); a ragged B=2 S=1000, 4 heads; H == KV; each in
+bf16 and float32) -- on seeded random inputs on the first CUDA card, and
+prints one JSON
 object: per shape the milliseconds of one call (``call``; CUDA events
 around ``--iters`` back-to-back calls after a warm-up, inputs L2-warm
 where they fit), of the training forward that also writes the log-sum-exp
 (``lse``, ``flash_attention_fwd``, where the checkout has it) and of
-``F.scaled_dot_product_attention`` on the same inputs (``sdpa``; the
-prefix as a boolean mask, timed only), with the card's name.  ``--check``
+``F.scaled_dot_product_attention`` on the same inputs (``sdpa``; causal
+by ``is_causal``, a prefix as a boolean mask, timed only), with the card's
+name.  ``--check``
 also holds each call against the plain version on the card (bf16: within
 2e-2 + 2e-2 |plain|, float32 1e-5) and against a second call, bitwise, and
 exits 1 if one fails.  Needs a CUDA card; exits 2 without one.
@@ -29,14 +33,21 @@ import json
 import os
 import sys
 
-# (name, dtype, B, S, H, KV, d, prefix)
+# (name, dtype, B, S, H, KV, d, prefix); d is hd == hv or (hd, hv)
 SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, 0),
           ("stablelm_b8_s1024", "bfloat16", 8, 1024, 32, 32, 64, 0),
           ("qwen3_b1_s2048", "bfloat16", 1, 2048, 40, 8, 128, 0),
           ("paligemma_b1_s4096", "bfloat16", 1, 4096, 8, 1, 256, 256),
           ("paligemma_b8_s1024", "bfloat16", 8, 1024, 8, 1, 256, 256),
           ("prefix_ragged_d256", "bfloat16", 2, 1000, 4, 2, 256, 77),
-          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, 0))
+          ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, 0),
+          ("deepseek_b1_s4096", "bfloat16", 1, 4096, 128, 128, (192, 128),
+           0),
+          ("mla_ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, (192, 128), 0),
+          ("deepseek_b1_s4096_f32", "float32", 1, 4096, 128, 128,
+           (192, 128), 0),
+          ("mla_ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, (192, 128),
+           0))
 
 
 def main() -> int:
@@ -79,19 +90,24 @@ def main() -> int:
         if wanted and name not in wanted:
             continue
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda")
-                   .to(dt) for n in (h, kv, kv))
+        hd, hv = d if isinstance(d, tuple) else (d, d)
+        q, k, v = (torch.randn((b, s, n, w), generator=g, device="cuda")
+                   .to(dt) for n, w in ((h, hd), (kv, hd), (kv, hv)))
         kw = {"prefix_len": prefix} if prefix else {}
         row = {"call": time_ms(lambda: k3.flash_attention(
             q, k, v, causal=True, **kw))}
-        if hasattr(k3, "flash_attention_fwd") and d in k3.BWD_HEAD_DIMS:
+        if hasattr(k3, "flash_attention_fwd") and (
+                hd == hv and hd in k3.BWD_HEAD_DIMS
+                or (hd, hv) in getattr(k3, "RECT_PAIRS", ())):
             row["lse"] = time_ms(lambda: k3.flash_attention_fwd(
                 q, k, v, causal=True, **kw))
         i = torch.arange(s, device="cuda")
-        mask = (i[None, :] <= i[:, None]) | (i[None, :] < prefix)
+        mask = ((i[None, :] <= i[:, None]) | (i[None, :] < prefix)) \
+            if prefix else None
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         row["sdpa"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            qs, ks, vs, attn_mask=mask, is_causal=not prefix,
+            enable_gqa=True))
         if args.check:
             got = k3.flash_attention(q, k, v, causal=True, **kw)
             again = k3.flash_attention(q, k, v, causal=True, **kw)
@@ -105,7 +121,7 @@ def main() -> int:
             row["bitwise_twice"] = bool(torch.equal(got, again))
             if "lse" in row:    # the training forward: o and lse
                 o2, lse2 = k3.flash_attention_fwd(q, k, v, causal=True, **kw)
-                _, lse_want = k3._plain_forward(q, k, v, True, d ** -0.5,
+                _, lse_want = k3._plain_forward(q, k, v, True, hd ** -0.5,
                                                 prefix)
                 row["lse_max_abs_err"] = float((lse2 - lse_want).abs().max())
                 row["within"] = row["within"] and bool(
