@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
     python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
-`nvcc` per source, all six started together), holds each against its plain
+`nvcc` per source, all seven started together), holds each against its plain
 PyTorch version on the card, and drives the port's main paths: training the
 dense transformer (stablelm-1.6b at full width and depth through
 `launch.train.train`, every layer's attention on K3 and its hand-written
@@ -17,7 +17,9 @@ its 6 sites on K3, each with its backward) and whisper-small (full width
 and depth, B=8, 448 tokens over 1500 frames: the encoder's, the decoder's
 and the cross attention on K3 and its backward) and deepseek-v2 (full
 width, 2 layers, B=1 S=4096, Adafactor, remat "full": MLA's attention on
-K3 at (192, 128) and its backward, the routed experts), the fused
+K3 at (192, 128) and its backward, the routed experts) and ResNet-50
+(full width and depth, B=32: every stride-1 convolution on K2 and its
+hand-written data- and weight-gradient kernels), the fused
 campaign sweep through `Campaign.run`, the paper's predictors (dataset,
 k-fold, the forest walk and KNN on the card), the `"fast"` campaign tier
 and the surrogate-guided `AdaptiveCampaign`, the accelerator-selection
@@ -79,7 +81,19 @@ Lines, in order:
                                      deepseek-v2 full width, 2 layers, B=1
                                      S=4096, Adafactor, remat "full"; (s)
                                      v3 float32 + MTP card vs CPU, routes
-                                     first; (t) resume == fresh
+                                     first; (t) resume == fresh; (u)
+                                     ResNet-50 bf16 B=32, 4 steps: ms /
+                                     step, images/s, device ms by kind
+                                     (K2 forward / data gradient / weight
+                                     gradient, cuDNN, the rest), batch
+                                     norm and AdamW replayed, idle, peak
+                                     memory, K2 launches 46 + 46 + 46 a
+                                     step; (v) reduced float32 card vs CPU
+                                     and a full-width bf16 step vs the
+                                     plain versions; (w) resume == fresh
+                                     (parameters and moments); (x) K2's
+                                     backward vs plain at the 16 stride-1
+                                     shapes, cuDNN's gradients
   {"phase": "kernels", ...}          fused K1 vs plain per case (bitwise,
                                      twice), plans, K1 / K1a vs plain,
                                      timings of the fused tile and the
@@ -197,8 +211,10 @@ from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.launch import dryrun, lowering  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import api as api_mod  # noqa: E402
 from repro_torch.models import mamba as tm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import resnet as resnet_mod  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models import whisper as tw  # noqa: E402
 from repro_torch.models import zamba as tz  # noqa: E402
@@ -210,6 +226,7 @@ from repro_torch.telemetry import Telemetry, metric_value  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dse_sweep.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
+CONV_BWD_SOURCE = "src/repro_torch/kernels/csrc/conv2d_bwd.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -407,13 +424,14 @@ def phase_build() -> dict:
     """One nvcc per source, all started together; returns the report per
     source."""
     t0 = time.perf_counter()
-    sources = (kern.SOURCE, k2.SOURCE, k3.SOURCE, k3.BWD_SOURCE, k4.SOURCE,
-               k4.BWD_SOURCE)
+    sources = (kern.SOURCE, k2.SOURCE, k2.BWD_SOURCE, k3.SOURCE,
+               k3.BWD_SOURCE, k4.SOURCE, k4.BWD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(
             lambda src: build.build(src, force=True), sources)))
     for kernel in (kern, k2, k3, k4):
         kernel._library()
+    k2._bwd_library()
     k3._bwd_library()
     k4._bwd_library()
     out = {}
@@ -427,6 +445,16 @@ def phase_build() -> dict:
     out[kern.SOURCE]["kernels"] = ptxas_report(
         build.build_logs[kern.SOURCE])
     out[k2.SOURCE]["kernels"] = ptxas_report(build.build_logs[k2.SOURCE])
+    out[k2.BWD_SOURCE]["kernels"] = ptxas_report(
+        build.build_logs[k2.BWD_SOURCE])
+    wgrad = [r for r in out[k2.BWD_SOURCE]["kernels"]
+             if "k2_wgrad_" in r["kernel"]]
+    if len(wgrad) != K2_WGRAD_KERNELS or any(
+            r["spill_stores"] or r["spill_loads"] for r in wgrad):
+        raise AssertionError(f"K2's weight-gradient kernels (bf16 mma.sync, "
+                             f"the CUDA-core kernel and the slice sum for "
+                             f"bf16 and float32) spill (or are missing from "
+                             f"the ptxas report): {wgrad}")
     out[k3.SOURCE]["kernels"] = ptxas_report(build.build_logs[k3.SOURCE])
     tc = [r for r in out[k3.SOURCE]["kernels"]
           if K3_TC_KERNEL in r["kernel"]]
@@ -2213,6 +2241,9 @@ CONV_DTYPES = (torch.float32, torch.bfloat16)
 # every kernel of a K2 call (tensor-core, float32, SIMT, split-K sum) and
 # no library kernel has this in its name
 K2_SYMBOL = "k2_conv2d_"
+# the weight gradient's kernels: k2_wgrad_bf16_tc_kernel,
+# k2_wgrad_simt_kernel<float | bf16>, k2_wgrad_sum_kernel<float | bf16>
+K2_WGRAD_KERNELS = 5
 # K2 vs conv2d_plain, max |diff| over the scale max |plain|: float32 sums of
 # up to 4608 terms in another order (FMA-contracted) stay near 1e-6; a bf16
 # output may round the other way, one bf16 ulp, 2^-7 of the value at most
@@ -5475,7 +5506,8 @@ class TimedSave:
 
 def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
                  batch: int = 1, depth: int = RESUME_DEPTH,
-                 seq: int = TRAIN_SEQ, widths=None) -> dict:
+                 seq: int = TRAIN_SEQ, widths=None,
+                 moments: bool = False) -> dict:
     """(c) stablelm, (g) mamba2, (k) zamba2, (n) whisper, (q) paligemma,
     (t) deepseek-v2: bf16 at depth ``depth`` (2, an encoder's layers too;
     zamba2 7; deepseek 1 dense + 1 MoE) and full width (deepseek at
@@ -5484,7 +5516,8 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
     ``batch``: 4 steps
     with a checkpoint every 2; the step-4 checkpoint removed (a crash after
     step 2's); restored and run to 4.  The 2 losses and the final
-    parameters must be bitwise the uninterrupted run's."""
+    parameters (with ``moments`` also the AdamW moments: ResNet-50's (w))
+    must be bitwise the uninterrupted run's."""
     ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -5502,6 +5535,8 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
                 TimedSave() as saves:
             full, state = train_mod.train(arch, **kw)
             final = [p.detach().clone() for p in state.params.parameters()]
+            if moments:
+                final += [t.clone() for t in state.opt.m + state.opt.v]
             del state
             torch.cuda.empty_cache()
             written = sorted(os.listdir(ckdir))
@@ -5511,18 +5546,22 @@ def train_resume(device, seed: int, arch: str = TRAIN_ARCH,
             resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
-    same = all(torch.equal(a, b)
-               for a, b in zip(final, state.params.parameters()))
+    now = list(state.params.parameters())
+    if moments:
+        now += state.opt.m + state.opt.v
+    same = len(now) == len(final) and all(torch.equal(a, b)
+                                          for a, b in zip(final, now))
     if resumed != full[RESUME_EVERY:] or not same or \
             not all(np.isfinite(full)):
         raise AssertionError(f"resume != fresh: losses {full} then "
                              f"{resumed}, parameters bitwise {same}")
-    del state, final
+    del state, final, now
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": depth, "dtype": "bfloat16",
             "widths": widths, "B": batch, "S": seq, "losses_fresh": full,
             "losses_resumed": resumed,
             "bitwise_losses_and_parameters": True,
+            "bitwise_moments": moments,
             "checkpoints_written": written, "writes": saves.writes,
             "resumed_run_seconds": resume_s}
 
@@ -6561,6 +6600,563 @@ def train_deepseek_card_vs_cpu(device, seed: int) -> dict:
                           "route_flip_share": DS_FLIP_BOUND}}
 
 
+# --- ResNet-50 training: K2 and its backward ------------------------------------
+
+RESNET_TRAIN_ARCH = "resnet50"
+RESNET_TRAIN_BATCH = 32
+RESNET_K2_CALLS = 46          # stride-1 convolutions a forward
+# (u): the loss "falls or holds" over the 4 steps: the last within 5 % of
+# the first (random labels: 4 steps cannot take the NLL far below ln 1000,
+# and a diverging step -- what this catches -- grows it by far more)
+RESNET_LOSS_HOLD = 1.05
+# (v): the reduced ResNet in float32, card against CPU, B=8: loss 1e-5
+# relative, every gradient 1e-4 of its scale (the float32 tolerances of
+# tests/test_torch_resnet_train.py).  Then one full-width step, B=8, on K2
+# and its backward against the same step with their plain versions, from
+# the same weights in bf16 and in float32.  ResNet-50's gradient at seed
+# weights is chaotic in bf16: the plain bf16 step's gradient lies 1.30 of
+# its norm (relative L2) from the plain float32 step's (measured on the
+# H100), as far as the kernels' does, so the kernels' bf16 gradient is
+# held to be no farther from the float32 one than 1.1 x the plain bf16
+# gradient is, and its loss within 1e-2 of the plain bf16 loss; in
+# float32 the kernels' gradient within 5e-2 (relative L2) of the plain
+# version's (measured 0.017: float32 rounding, amplified the same way)
+RESNET_CPU_BATCH = 8
+RESNET_SWAP_BATCH = 8
+RESNET_SWAP_LOSS_TOL = 1e-2
+RESNET_SWAP_RATIO = 1.1
+RESNET_SWAP_F32_TOL = 5e-2
+# (x): K2's backward alone, B=32, every distinct stride-1 shape of ResNet-50
+# (H = W, Cin, Cout, k, count in one forward), and one ragged bf16 shape
+# for the CUDA-core weight-gradient variant
+RESNET_BWD_SHAPES = (
+    (56, 64, 64, 1, 1), (56, 256, 64, 1, 2), (56, 64, 64, 3, 3),
+    (56, 64, 256, 1, 4), (56, 256, 128, 1, 1), (28, 512, 128, 1, 3),
+    (28, 128, 128, 3, 3), (28, 128, 512, 1, 4), (28, 512, 256, 1, 1),
+    (14, 1024, 256, 1, 5), (14, 256, 256, 3, 5), (14, 256, 1024, 1, 6),
+    (14, 1024, 512, 1, 1), (7, 2048, 512, 1, 2), (7, 512, 512, 3, 2),
+    (7, 512, 2048, 1, 3))
+RESNET_BWD_RAGGED = (3, 13, 11, 20, 36, 3)
+K2_BWD_ITERS = 5
+# the profiled ResNet step's kinds, matched in this order: the
+# weight-gradient kernels, K2's forward kernels (the forward's calls and
+# the data gradient's: ``k2_step_split`` tells them apart), cuDNN's
+# convolutions (the stem and the stride-2 ones, forward and backward)
+CUDNN_SYMBOLS = ("cudnn", "conv", "fprop", "dgrad", "wgrad", "implicit")
+RESNET_KINDS = (("k2_wgrad", ("k2_wgrad_",)), ("k2_conv2d", (K2_SYMBOL,)),
+                ("cudnn", CUDNN_SYMBOLS))
+
+
+def k2_step_split(prof, calls: int = RESNET_K2_CALLS) -> dict:
+    """Device ms of the profiled step's K2 forward-kernel launches split
+    into the forward's and the data gradient's: on the one stream the
+    forward's ``calls`` K2 calls run before any backward kernel, so the
+    first ``calls`` main kernels (with the split-K sums after them) are
+    the forward's and the rest the data gradient's."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and K2_SYMBOL in e.name),
+                 key=lambda e: e.time_range.start)
+    out = {"k2_forward": 0.0, "k2_dgrad": 0.0}
+    main = 0
+    for e in evs:
+        if "splitk_sum" not in e.name:
+            main += 1
+        kind = "k2_forward" if main <= calls else "k2_dgrad"
+        out[kind] += (e.time_range.end - e.time_range.start) / 1e3
+    out["kernels"] = len(evs)
+    return out
+
+
+def bn_replay_ms(module, images) -> dict:
+    """One step's eager batch norm: every ``BatchNorm`` call of a
+    train-mode forward of ``module`` on ``images`` (recorded by a hook),
+    replayed alone on random inputs of the same shapes, forward and
+    backward: ``ms`` by CUDA events around the replay (mean of 3; the host
+    issues its small kernels one by one), ``device_ms`` its kernels' device
+    time (``torch.profiler``, mean of 3)."""
+    shapes = []
+
+    def hook(mod, args):
+        shapes.append((mod, tuple(args[0].shape), args[0].dtype))
+
+    handles = [m.register_forward_pre_hook(hook) for m in module.modules()
+               if isinstance(m, resnet_mod.BatchNorm)]
+    try:
+        with torch.no_grad():
+            module(images, train=True)
+    finally:
+        for h in handles:
+            h.remove()
+    xs = [(mod, torch.randn(s, device=images.device).to(dt)
+           .requires_grad_(True)) for mod, s, dt in shapes]
+    dys = [torch.randn_like(x) for _, x in xs]
+
+    def replay():
+        for (mod, x), dy in zip(xs, dys):
+            mod(x, train=True).backward(dy)
+
+    ms = time_ms(replay, 3, warmup=1)
+    device_ms = device_total_ms(replay, 3)
+    module.zero_grad(set_to_none=True)
+    return {"calls": len(shapes), "ms": ms, "device_ms": device_ms}
+
+
+def resnet_train_flops(b: int, image: int = 224) -> dict:
+    """A step's operations: 3 x the forward's convolutions and classifier
+    (2 per multiply-add; the backward's data and weight gradients double
+    the forward), the 46 stride-1 convolutions apart."""
+    total = k2_total = 0
+    for (cin, cout, k, h, stride) in resnet_conv_shapes(image):
+        f = 2 * b * (-(-h // stride)) ** 2 * cout * k * k * cin
+        total += f
+        k2_total += f if stride == 1 else 0
+    fc = 2 * b * 2048 * 1000
+    return {"flops": 3 * (total + fc), "k2_flops": 3 * k2_total}
+
+
+def resnet_conv_shapes(image: int = 224) -> list:
+    """(Cin, Cout, k, H_in, stride) of ResNet-50's 53 convolutions."""
+    out = [(3, 64, 7, image, 2)]
+    h, cin = image // 4, 64
+    for s, n in enumerate((3, 4, 6, 3)):
+        cmid = 64 * 2 ** s
+        for blk in range(n):
+            stride = 2 if (blk == 0 and s > 0) else 1
+            out += [(cin, cmid, 1, h, 1), (cmid, cmid, 3, h, stride),
+                    (cmid, cmid * 4, 1, -(-h // stride), 1)]
+            if blk == 0:
+                out.append((cin, cmid * 4, 1, h, stride))
+            h, cin = -(-h // stride), cmid * 4
+    return out
+
+
+def train_resnet_full(device, seed: int) -> dict:
+    """(u) ResNet-50 at full width and depth, bf16, B=32, 4 AdamW steps
+    through ``launch.train.train``; the counts are zeroed just before and
+    read just after: 46 K2 forward, 46 data-gradient and 46
+    weight-gradient launches a step."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    k2.reset_launch_counts()
+    with StepClock() as clock:
+        losses, state = train_mod.train(
+            RESNET_TRAIN_ARCH, steps=TRAIN_STEPS, reduced=False,
+            batch=RESNET_TRAIN_BATCH, seed=seed, install_signals=False,
+            log_every=1, device=device)
+    fwd, bwd = k2.launch_counts(), k2.bwd_launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    n = RESNET_K2_CALLS * TRAIN_STEPS
+    want_fwd = {k: 0 for k in k2.LAUNCHES}
+    want_fwd[k2.TC] = n
+    want_bwd = {k: 0 for k in k2.BWD_LAUNCHES}
+    want_bwd[k2.DGRAD[k2.TC]] = want_bwd[k2.WG_TC] = n
+    if fwd != want_fwd or bwd != want_bwd:
+        raise AssertionError(f"K2 launches in ResNet training: forward "
+                             f"{fwd}, backward {bwd}; expected {want_fwd}, "
+                             f"{want_bwd}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            losses[-1] > RESNET_LOSS_HOLD * losses[0]:
+        raise AssertionError(f"ResNet training losses {losses}: not finite, "
+                             f"or the last above {RESNET_LOSS_HOLD} x the "
+                             f"first")
+    timed = clock.ms[1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed)
+    split, top = step_device_split(clock.prof, kinds=RESNET_KINDS)
+    device_ms = sum(split.values())
+    k2_split = k2_step_split(clock.prof)
+    module = state.params
+    images = torch.from_numpy(synth_batch(
+        module.cfg, ShapeConfig("train_cli", 0, RESNET_TRAIN_BATCH, "train"),
+        DataConfig(seed=seed + 1), 0)["images"]).to(device)
+    bn = bn_replay_ms(module, images)
+    params = list(module.parameters())
+    grads = [p.detach() for p in params]
+    opt = optim.make_optimizer(module.cfg.optimizer, total_steps=TRAIN_STEPS)
+    opt_state = [state.opt]
+
+    def update():
+        opt_state[0] = opt.apply(params, grads, opt_state[0])[1]
+
+    optimizer_ms = time_ms(update, 3, warmup=1)
+    optimizer_device_ms = device_total_ms(update, 3)
+    flops = resnet_train_flops(RESNET_TRAIN_BATCH)
+    parts = {"k2_forward": k2_split["k2_forward"],
+             "k2_dgrad": k2_split["k2_dgrad"], "k2_wgrad": split["k2_wgrad"],
+             "cudnn": split["cudnn"],
+             "batch_norm_replayed": bn["device_ms"],
+             "adamw_update_replayed": optimizer_device_ms}
+    # None where the profiler read no device time
+    shares = {k: v / device_ms if device_ms > 0 and v is not None
+              else None for k, v in parts.items()}
+    out = {"arch": RESNET_TRAIN_ARCH, "dtype": module.cfg.dtype,
+           "optimizer": module.cfg.optimizer, "remat": module.cfg.remat,
+           "B": RESNET_TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms_all": clock.ms, "ms_per_step": ms,
+           "ms_per_step_spread": spread(timed),
+           "images_per_s": RESNET_TRAIN_BATCH / (ms / 1e3),
+           "profiled_step_ms": clock.ms[TRAIN_PROFILED_STEP],
+           "device_ms_by_kind": split, "device_ms": device_ms,
+           "k2_forward_vs_dgrad_ms": k2_split,
+           "device_share": shares, "top_kernels": top,
+           "batch_norm_ms_replayed": bn, "optimizer_update_ms": optimizer_ms,
+           "optimizer_update_device_ms": optimizer_device_ms,
+           "idle_share": 1.0 - device_ms / ms, "peak_memory_bytes": peak,
+           "model_flops": flops,
+           "model_flops_utilization": flops["flops"] / (ms / 1e3) / 989e12,
+           "launches": {**fwd, **bwd},
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "note": "ms_per_step: host clock around a step ending in a "
+                   "synchronize, median of steps 1-2 (step 0 warms up, step "
+                   "3 runs under the profiler); device_ms: the profiled "
+                   "step's kernels by kind (k2_conv2d = K2's forward "
+                   "kernels, split into the forward's calls and the data "
+                   "gradient's by their order on the stream); "
+                   "batch_norm_ms_replayed: the step's 53 train-mode batch "
+                   "norms, forward and backward, replayed alone (ms: CUDA "
+                   "events, device_ms: their kernels, torch.profiler); "
+                   "optimizer_update_ms / _device_ms: one AdamW update of "
+                   "all parameters after the run, the same two ways (3 "
+                   "runs); device_share: each part's device ms over the "
+                   "profiled step's (the replayed parts measured alone); "
+                   "utilization = 3 x the forward's convolution and "
+                   "classifier flops / step time / 989 TFLOP/s"}
+    del state, module, params, grads, opt_state, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def stride1_convs(module) -> int:
+    """The stride-1 convolutions of a ``ResNet``: K2's calls a forward."""
+    n = 0
+    for name in module.block_names:
+        blk = getattr(module, name)
+        n += 2 + (blk.conv2.stride == 1) + (
+            blk.proj is not None and blk.proj.stride == 1)
+    return n
+
+
+def _resnet_grads(module, batch):
+    module.requires_grad_(True)
+    loss, _ = resnet_mod.loss_fn(module, batch["images"], batch["labels"])
+    params = list(module.parameters())
+    return loss.detach(), api_mod.grads_of(loss, params)
+
+
+def train_resnet_card_vs_cpu(device, seed: int) -> dict:
+    """(v) the reduced ResNet (stages (1, 1), width 8, 32x32) in float32,
+    B=8: the loss and every gradient on the card (K2's float32 forward,
+    data- and weight-gradient kernels, cuDNN with TF32 off) against the
+    port's CPU path (plain versions) from the same weights and images;
+    then one bf16 step of the full-width ResNet-50, B=8, on K2 and its
+    backward against the same step with K2 and its backward swapped for
+    their plain versions."""
+    cfg = dataclasses.replace(get_config(RESNET_TRAIN_ARCH).reduced(),
+                              dtype="float32")
+    cpu = resnet_mod.ResNet(cfg, generator=torch.Generator().manual_seed(
+        seed), device="cpu")
+    card = resnet_mod.ResNet(cfg, generator=torch.Generator().manual_seed(
+        seed), device=device)
+    card.load_state_dict(cpu.state_dict())
+    shape = ShapeConfig("train_cli", 0, RESNET_CPU_BATCH, "train")
+    batch = synth_batch(cfg, shape, DataConfig(seed=seed + 1), 0)
+    k2.reset_launch_counts()
+    loss_g, grads_g = _resnet_grads(card, batch)
+    torch.cuda.synchronize()
+    launches = {**k2.launch_counts(), **k2.bwd_launch_counts()}
+    loss_c, grads_c = _resnet_grads(cpu, batch)
+    rel_loss = abs(float(loss_g) / float(loss_c) - 1)
+    worst, errs = 0.0, {}
+    for (name, _), g, c in zip(cpu.named_parameters(), grads_g, grads_c):
+        if name.endswith((".mean", ".var")):
+            if g.any() or c.any():
+                raise AssertionError(f"{name}: a nonzero gradient")
+            continue
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+    if rel_loss > CARD_CPU_LOSS_TOL or worst > CARD_CPU_GRAD_TOL:
+        raise AssertionError(f"ResNet card vs CPU training: loss rel "
+                             f"{rel_loss}, worst gradient {worst} ({errs})")
+    want = {k: 0 for k in launches}
+    convs = stride1_convs(card)
+    want[k2.F32] = want[k2.DGRAD[k2.F32]] = want[k2.WG_F32] = convs
+    if launches != want:
+        raise AssertionError(f"K2 launches on the card {launches}, expected "
+                             f"{want}")
+    out = {"stages": list(cfg.cnn_stages), "width": cfg.cnn_width,
+           "image": cfg.image_size, "dtype": "float32",
+           "B": RESNET_CPU_BATCH, "loss_card": float(loss_g),
+           "loss_cpu": float(loss_c), "loss_rel_diff": rel_loss,
+           "worst_grad_rel_diff": worst, "grad_rel_diff": errs,
+           "launches": launches,
+           "tolerance": {"loss": CARD_CPU_LOSS_TOL,
+                         "grad_of_scale": CARD_CPU_GRAD_TOL}}
+    del cpu, card
+    # the bf16 step, kernels against plain versions on the card, both held
+    # to the float32 plain step from the same weights
+    full = get_config(RESNET_TRAIN_ARCH)
+    m16 = resnet_mod.ResNet(full, generator=torch.Generator(
+        device=device).manual_seed(seed), device=device)
+    m32 = resnet_mod.ResNet(dataclasses.replace(full, dtype="float32"),
+                            generator=torch.Generator(
+                                device=device).manual_seed(seed),
+                            device=device)
+    m32.load_state_dict({k: v.float() for k, v in m16.state_dict().items()})
+    batch = synth_batch(full, ShapeConfig("train_cli", 0, RESNET_SWAP_BATCH,
+                                          "train"),
+                        DataConfig(seed=seed + 1), 0)
+    k2.reset_launch_counts()
+    steps = {"k16": _resnet_grads(m16, batch)}
+    torch.cuda.synchronize()
+    kernel_launches = {**k2.launch_counts(), **k2.bwd_launch_counts()}
+    steps["k32"] = _resnet_grads(m32, batch)
+    with mock.patch.object(k2, "conv2d", k2.conv2d_plain), \
+            mock.patch.object(k2, "conv2d_dgrad", k2.conv2d_dgrad_plain), \
+            mock.patch.object(k2, "conv2d_wgrad", k2.conv2d_wgrad_plain):
+        steps["p16"] = _resnet_grads(m16, batch)
+        steps["p32"] = _resnet_grads(m32, batch)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in kernel_launches}
+    want[k2.TC] = want[k2.DGRAD[k2.TC]] = want[k2.WG_TC] = RESNET_K2_CALLS
+    if kernel_launches != want:
+        raise AssertionError(f"the bf16 step's K2 launches {kernel_launches}"
+                             f", expected {want}")
+    flat = {k: torch.cat([g.float().reshape(-1) for g in grads])
+            for k, (_, grads) in steps.items()}
+
+    def dist(a, b):
+        return float((flat[a] - flat[b]).norm() / flat[b].norm())
+
+    swap_loss = abs(float(steps["k16"][0]) / float(steps["p16"][0]) - 1)
+    got = {"k16_vs_p16": dist("k16", "p16"), "k16_vs_p32": dist("k16", "p32"),
+           "p16_vs_p32": dist("p16", "p32"), "k32_vs_p32": dist("k32", "p32")}
+    if swap_loss > RESNET_SWAP_LOSS_TOL or \
+            got["k16_vs_p32"] > RESNET_SWAP_RATIO * got["p16_vs_p32"] or \
+            got["k32_vs_p32"] > RESNET_SWAP_F32_TOL:
+        raise AssertionError(f"the full-width step on K2 vs its plain "
+                             f"versions: bf16 loss rel {swap_loss}, "
+                             f"gradients' relative L2 distances {got}")
+    out["full_width_kernels_vs_plain"] = {
+        "B": RESNET_SWAP_BATCH,
+        "losses": {k: float(v[0]) for k, v in steps.items()},
+        "bf16_loss_rel_diff": swap_loss, "grad_rel_l2": got,
+        "grad_norms": {k: float(v.norm()) for k, v in flat.items()},
+        "launches_bf16_step": kernel_launches,
+        "tolerance": {"bf16_loss": RESNET_SWAP_LOSS_TOL,
+                      "k16_vs_p32_over_p16_vs_p32": RESNET_SWAP_RATIO,
+                      "k32_vs_p32": RESNET_SWAP_F32_TOL}}
+    del m16, m32, steps, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def queued_ms(fn, calls: int = K2_BWD_ITERS, sleep_ms: float = 20.0):
+    """Mean device ms per call of ``fn`` with the host out of the way: the
+    calls are queued behind a ``sleep_ms`` sleep kernel, so that the card
+    runs them back to back, and timed by CUDA events around them; None
+    where the host took longer than the sleep to queue them.  (The
+    profiler's device time is not read here: after the earlier phases'
+    profiles it read none for most of these calls.)"""
+    if not _SLEEP_CYCLES_PER_MS:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / max(s.elapsed_time(e), 1e-3))
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * _SLEEP_CYCLES_PER_MS[0]))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls if host_ms < sleep_ms else None
+
+
+def k2_bwd_case(gen, device, shape, dtype, count: int) -> dict:
+    """K2's data and weight gradients against their plain versions on one
+    shape, twice bitwise; their CUDA-event ms, device ms (``queued_ms``),
+    plain ms, cuDNN's ms and device ms for the same gradient and the
+    bound."""
+    b, h, w, cin, cout, k = shape
+    pads = ((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2))
+    x = torch.randn((b, h, w, cin), generator=gen, device=device).to(dtype)
+    wt = (torch.randn((k, k, cin, cout), generator=gen, device=device)
+          * (2.0 / (k * k * cin)) ** 0.5).to(dtype)
+    dy = torch.randn((b, h, w, cout), generator=gen, device=device).to(dtype)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    wc = wt.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+    p = k // 2
+    runs = {
+        "dgrad": (lambda: k2.conv2d_dgrad(dy, wt, padding=pads),
+                  lambda: k2.conv2d_dgrad_plain(dy, wt, padding=pads),
+                  lambda: torch.nn.grad.conv2d_input(
+                      tuple(xc.shape), wc, dyc, padding=(p, p)),
+                  k2.census_work((b, h, w, cout), (k, k, cout, cin),
+                                 (b, h, w, cin), dtype)),
+        "wgrad": (lambda: k2.conv2d_wgrad(x, dy, k, k, padding=pads),
+                  lambda: k2.conv2d_wgrad_plain(x, dy, k, k, padding=pads),
+                  lambda: torch.nn.grad.conv2d_weight(
+                      xc, tuple(wc.shape), dyc, padding=(p, p)),
+                  k2.wgrad_work(x.shape, dy.shape, k, k, dtype))}
+    out = {"shape": [b, h, w, cin, cout, k], "dtype": SUFFIX[dtype],
+           "count_per_forward": count,
+           "plans": {"dgrad": str(k2.plan_for(dy, k2.rotate(wt),
+                                              k2.dgrad_padding(k, k, pads))),
+                     "wgrad": str(k2.wgrad_plan_for(x, dy, k, k, pads))}}
+    for what, (run, plain, lib, (ops, nbytes)) in runs.items():
+        got, again = run(), run()
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {what} {out['shape']} {dtype}: two "
+                                 f"runs on the same inputs differ")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K2 {what} returned non-finite values")
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        if rel > CONV_TOL[dtype]:
+            raise AssertionError(f"K2 {what} {out['shape']} {dtype}: max "
+                                 f"err {rel} of scale > {CONV_TOL[dtype]}")
+        out[what] = {"max_abs_err": err, "rel_err": rel,
+                     "repeat_bitwise_equal": True,
+                     "ms": time_ms(run, K2_BWD_ITERS, warmup=2),
+                     "device_ms": queued_ms(run),
+                     "plain_ms": time_ms(plain, 2, warmup=1),
+                     "library_ms": time_ms(lib, K2_BWD_ITERS, warmup=2),
+                     "library_device_ms": queued_ms(lib),
+                     **bound(nbytes, ops, dtype)}
+    return out
+
+
+def k2_bwd_cases(device, seed: int) -> list:
+    """(x) K2's backward alone at ResNet-50's 16 stride-1 shapes, B=32, in
+    bf16 and float32, and at one ragged bf16 shape (the CUDA-core
+    weight-gradient variant); cuDNN with TF32 off."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cases = [k2_bwd_case(gen, device, (RESNET_TRAIN_BATCH, h, h, cin,
+                                           cout, k), dtype, n)
+                 for dtype in CONV_DTYPES
+                 for h, cin, cout, k, n in RESNET_BWD_SHAPES]
+        cases.append(k2_bwd_case(gen, device, RESNET_BWD_RAGGED,
+                                 torch.bfloat16, 0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return cases
+
+
+def k2_bwd_rows(training, ptxas) -> list:
+    """K2 backward's rows, one per variant: the data gradient (K2's forward
+    kernels on dy and the rotated weights) and the weight gradient
+    (``csrc/conv2d_bwd.cu``), bf16 and float32, each summed over one
+    forward's 46 calls at B=32 (every shape's time times its count;
+    ``max_abs_err`` the largest over the shapes), the shapes beside; the
+    bf16 CUDA-core weight gradient at its ragged shape (off the main path).
+    Launches: (u) for bf16, (v)'s card step for float32."""
+    cases = training["x_k2_backward"]
+    launches = {**training["u_resnet50_full"]["launches"]}
+    f32_launches = training["v_resnet50_card_vs_cpu"]["launches"]
+    rows = []
+    for dtype in CONV_DTYPES:
+        sfx = SUFFIX[dtype]
+        mine = [c for c in cases if c["dtype"] == sfx
+                and c["count_per_forward"] > 0]
+        for what, name, source in (
+                ("dgrad", k2.DGRAD[k2.TC if dtype == torch.bfloat16
+                                   else k2.F32], CONV_SOURCE),
+                ("wgrad", k2.WG_TC if dtype == torch.bfloat16
+                 else k2.WG_F32, CONV_BWD_SOURCE)):
+            def total(key):
+                vals = [c[what][key] for c in mine]
+                if any(v is None for v in vals):
+                    return None
+                return sum(v * c["count_per_forward"]
+                           for v, c in zip(vals, mine))
+            t_ops = sum(c[what]["operations"] * c["count_per_forward"]
+                        for c in mine)
+            t_bytes = sum(c[what]["bytes"] * c["count_per_forward"]
+                          for c in mine)
+            b = bound(t_bytes, t_ops, dtype)
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": REPLACES["conv2d"],
+                "gradient_of": "K2: the reference's Pallas kernel has no "
+                               "backward; the reference differentiates "
+                               "lax.conv_general_dilated with jax.vjp "
+                               "(src/repro/models/resnet.py:30)",
+                "launches": (launches if dtype == torch.bfloat16
+                             else f32_launches)[name],
+                "max_abs_err": max(c[what]["max_abs_err"] for c in mine),
+                "ms": total("ms"), "device_ms": total("device_ms"),
+                "plain_ms": total("plain_ms"),
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": total("library_ms"),
+                "library_device_ms": total("library_device_ms"),
+                "shape": f"one ResNet-50 forward's {RESNET_K2_CALLS} "
+                         f"stride-1 convolutions at B={RESNET_TRAIN_BATCH}",
+                "per_shape": [{"shape": c["shape"],
+                               "count": c["count_per_forward"],
+                               **{k: c[what][k] for k in (
+                                   "ms", "device_ms", "plain_ms",
+                                   "library_ms", "library_device_ms",
+                                   "bound_ms", "bound_by", "rel_err")}}
+                              for c in mine],
+                **({"ptxas": [r for r in ptxas if "k2_wgrad_" in r["kernel"]
+                              and ("bf16" in r["kernel"]) == (
+                                  dtype == torch.bfloat16)]}
+                   if what == "wgrad" else {})})
+    rag = [c for c in cases if c["count_per_forward"] == 0][0]["wgrad"]
+    rows.append({
+        "name": k2.WG_SIMT, "route": "cuda", "source": CONV_BWD_SOURCE,
+        "replaces": REPLACES["conv2d"],
+        "gradient_of": "K2 (see conv2d_wgrad_bf16_tc)",
+        "launches": launches[k2.WG_SIMT], "max_abs_err": rag["max_abs_err"],
+        "ms": rag["ms"], "device_ms": rag["device_ms"],
+        "plain_ms": rag["plain_ms"], "bound_ms": rag["bound_ms"],
+        "bound_by": rag["bound_by"], "library_ms": rag["library_ms"],
+        "library_device_ms": rag["library_device_ms"],
+        "shape": f"x {list(RESNET_BWD_RAGGED[:4])}, {RESNET_BWD_RAGGED[5]}x"
+                 f"{RESNET_BWD_RAGGED[5]} to {RESNET_BWD_RAGGED[4]} (ragged, "
+                 f"off the main path)"})
+    return rows
+
+
+def phase_resnet_training(device, seed: int) -> dict:
+    """(u) - (x): ResNet-50 training on K2 and its backward.  Training
+    turns ``torch.backends.cudnn.deterministic`` on (``ResNet.forward``);
+    the setting is restored after (u) - (x) for the phases that follow."""
+    deterministic = torch.backends.cudnn.deterministic
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        out = {"u_resnet50_full": train_resnet_full(device, seed)}
+        out["v_resnet50_card_vs_cpu"] = train_resnet_card_vs_cpu(device,
+                                                                 seed)
+        out["w_resnet50_resume"] = train_resume(
+            device, seed, RESNET_TRAIN_ARCH, RESNET_TRAIN_BATCH,
+            get_config(RESNET_TRAIN_ARCH).num_layers, 0, moments=True)
+        out["x_k2_backward"] = k2_bwd_cases(device, seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def phase_training(device, seed: int) -> dict:
     """The training paths: (a) the full stablelm-1.6b run (a main path,
     counts zeroed just before and read just after), (b) card against the
@@ -6576,7 +7172,10 @@ def phase_training(device, seed: int) -> dict:
     deepseek-v2 / v3, K3 and its backward at (192, 128) and the routed
     experts' backward ((r) v2's full width, 2 layers, B=1, S=4096,
     Adafactor, remat "full"; (s) v3 float32 with its MTP head against the
-    CPU; (t) v2 resumed)."""
+    CPU; (t) v2 resumed); (u) - (x) for ResNet-50, K2 and its hand-written
+    data- and weight-gradient kernels ((u) the full run, B=32; (v) the
+    reduced ResNet in float32 against the CPU and a bf16 step against the
+    plain versions; (w) resumed; (x) K2's backward alone)."""
     t0 = time.perf_counter()
     out = {"a_full": train_full(device, seed)}
     out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
@@ -6628,6 +7227,10 @@ def phase_training(device, seed: int) -> dict:
         DS_SMALL)
     torch.cuda.empty_cache()
     seconds["r_to_t"] = time.perf_counter() - t5
+    t6 = time.perf_counter()
+    out.update(phase_resnet_training(device, seed))
+    seconds["u_to_x"] = time.perf_counter() - t6
+    emit({"phase_seconds": "training_u_to_x", "seconds": seconds["u_to_x"]})
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
     emit({"phase": "training", **out,
@@ -6646,6 +7249,19 @@ def phase_training(device, seed: int) -> dict:
                         "p": "paligemma float32 depth 2 card vs CPU: loss "
                              "1e-5 relative, every gradient (the tied "
                              "embedding's included) 1e-4 of its scale",
+                        "v": "ResNet reduced float32 card vs CPU: loss "
+                             "1e-5 relative, every gradient 1e-4 of its "
+                             "scale, batch norm's mean / var gradients 0; "
+                             "full-width step, B=8, on K2 and its backward "
+                             "vs their plain versions: bf16 loss 1e-2 "
+                             "relative; the bf16 gradient no farther from "
+                             "the plain float32 one (relative L2) than 1.1 "
+                             "x the plain bf16 gradient is; float32 "
+                             "gradient within 5e-2 (relative L2)",
+                        "x": "K2's data and weight gradients vs their "
+                             "plain versions: max |kernel - plain| <= 1e-5 "
+                             "max |plain| float32, 1e-2 bf16; twice "
+                             "bitwise",
                         "s": "deepseek-v3 float32 depth 2 + MTP card vs "
                              "CPU: each MoE call's top-k sets differ for at "
                              "most 1 % of tokens; all agreeing: loss 1e-5 "
@@ -6653,6 +7269,18 @@ def phase_training(device, seed: int) -> dict:
                              "scale; else every gradient but the routed "
                              "experts' and the router's, and a routed "
                              "expert's where its token set agrees"},
+          "x_timing_note": "x: ms / library_ms CUDA events around 5 "
+                           "back-to-back calls after 2 warm-ups (library = "
+                           "torch.nn.grad.conv2d_input / conv2d_weight, "
+                           "cuDNN, channels-last, TF32 off); device_ms / "
+                           "library_device_ms: CUDA events around 5 calls "
+                           "queued behind a 20 ms sleep kernel, so that the "
+                           "card runs them back to back (None where the "
+                           "host took longer than the sleep); "
+                           "plain_ms one call of the plain version; bound = "
+                           "max(bytes of the two inputs and the output / "
+                           "3.35 TB/s, 2 P kh kw Cin Cout / 989 TFLOP/s "
+                           "bf16, 67 float32)",
           "h_timing_note": "h: ms CUDA events around 5 back-to-back calls "
                            "after 2 warm-ups; device_ms the backward's "
                            "kernels (torch.profiler, 3 calls), "
@@ -7246,6 +7874,7 @@ def main() -> int:
                                   selection["timing"])
           + conv_rows(per_dtype, infer)
           + flash_rows(flash, lm, training, zb, wb, pb, db)
+          + k2_bwd_rows(training, built[k2.BWD_SOURCE]["kernels"])
           + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
           + ssd_rows(ssd, mb, training, zb)
           + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})

@@ -1,5 +1,5 @@
-"""The stride-1 convolution kernel (K2): launch plan, wrapper, plain version,
-launch counts.
+"""The stride-1 convolution kernel (K2) and its gradient: launch plans,
+wrappers, plain versions, launch counts.
 
 Hand-written CUDA kernels (``csrc/conv2d.cu``) compute the stride-1
 convolution NHWC x HWIO -> NHWC as an implicit GEMM (M = output pixels,
@@ -23,15 +23,34 @@ slices whose float32 partial sums a second kernel adds in slice order (no
 atomics: two runs give the same bits).  One call is one launch in
 ``LAUNCHES`` whether it runs one kernel or two.
 
-Beside them stands ``conv2d_plain``: the reference kernel's own arithmetic, a
-float32 sum of ``kh*kw`` shifted-window matmuls.  The wrapper takes it ONLY
-for tensors that lie on the CPU; for CUDA tensors it launches a kernel or
-raises -- there is no fallback.  The library is built and loaded inside the
-first launching call, never at import time.  Tensors on the meta device (the
-workload census, ``core.census.analyze_step``) take a shape-only route:
-the plan, an empty meta output, nothing launched or counted.  Under an
-active census each call books its entry (``census_work``) through
-``census.kernel_call``.
+The gradient (``Conv2dK2``, the ``torch.autograd.Function`` that
+``conv2d_trainable`` applies; the reference trains through ``jax.vjp`` of
+``lax.conv`` and has no backward kernel):
+
+* the data gradient ``conv2d_dgrad`` is K2's forward on dy with the rotated
+  weights ``rotate(w)`` and the padding ``dgrad_padding`` -- the same
+  kernels and plan, counted under ``conv2d_dgrad_*`` in ``BWD_LAUNCHES`` so
+  that ``LAUNCHES`` keeps counting forwards alone;
+* the weight gradient ``conv2d_wgrad`` is ``csrc/conv2d_bwd.cu``: one GEMM a
+  tap over the pixels (M = Cin, N = Cout, K = B*H_out*W_out), the pixel
+  walk split across blocks whose float32 partials a second kernel adds in
+  slice order (``plan_wgrad``); variants ``conv2d_wgrad_bf16_tc``
+  (``mma.sync`` tensor cores; bf16 with Cin, Cout % 8 == 0 and aligned
+  tensors: every ResNet-50 shape), ``conv2d_wgrad_bf16_simt`` and
+  ``conv2d_wgrad_f32`` (CUDA cores, IEEE float32), each a key of
+  ``BWD_LAUNCHES``.
+
+Beside them stand ``conv2d_plain`` (the reference kernel's own arithmetic, a
+float32 sum of ``kh*kw`` shifted-window matmuls), ``conv2d_dgrad_plain``
+(``conv2d_plain`` on the rotated weights) and ``conv2d_wgrad_plain`` (the
+float32 sum over taps of ``window.T @ dy``).  The wrappers take them ONLY
+for tensors that lie on the CPU; for CUDA tensors they launch a kernel or
+raise -- there is no fallback.  The libraries are built and loaded inside
+the first launching call, never at import time.  Tensors on the meta device
+(the workload census, ``core.census.analyze_step``) take a shape-only
+route: the plan, an empty meta output, nothing launched or counted.  Under
+an active census each call books its entry (``census_work``,
+``wgrad_work``) through ``census.kernel_call``.
 """
 
 from __future__ import annotations
@@ -47,6 +66,7 @@ import torch.nn.functional as F
 from repro_torch.core import census
 
 SOURCE = "conv2d.cu"
+BWD_SOURCE = "conv2d_bwd.cu"
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 NO_PADDING: Padding = ((0, 0), (0, 0))
@@ -55,6 +75,16 @@ TC, SIMT, F32 = "conv2d_bf16_tc", "conv2d_bf16_simt", "conv2d_f32"
 
 # launches per variant since the last ``reset_launch_counts``
 LAUNCHES: Dict[str, int] = {TC: 0, SIMT: 0, F32: 0}
+
+# the gradient's variants: the data gradient runs the forward variant's
+# kernels, counted under its own key; the weight gradient's keys are the
+# entry points of csrc/conv2d_bwd.cu
+DGRAD = {TC: "conv2d_dgrad_bf16_tc", SIMT: "conv2d_dgrad_bf16_simt",
+         F32: "conv2d_dgrad_f32"}
+WG_TC, WG_SIMT, WG_F32 = ("conv2d_wgrad_bf16_tc", "conv2d_wgrad_bf16_simt",
+                          "conv2d_wgrad_f32")
+BWD_LAUNCHES: Dict[str, int] = {**{k: 0 for k in DGRAD.values()},
+                                WG_TC: 0, WG_SIMT: 0, WG_F32: 0}
 
 # SMs of an H100 SXM: the plan's card off the card (CPU, meta)
 H100_SMS = 132
@@ -76,12 +106,18 @@ RESIDENT = {(TC, 64): 2, (TC, 128): 1, (F32, 64): 2, (F32, 128): 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zeroes the forward's and the gradient's counts."""
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def bwd_launch_counts() -> Dict[str, int]:
+    return dict(BWD_LAUNCHES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,11 +326,23 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     Cout]; returns [B, H_out, W_out, Cout] in ``x.dtype`` (float32 or
     bfloat16, float32 accumulation).  CUDA tensors launch the variant that
     ``plan`` picks; CPU tensors take the plain version."""
+    return _conv(x, w, padding, None)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, padding: Padding,
+          names: Optional[Dict[str, str]]) -> torch.Tensor:
+    """``conv2d``, each launch counted (and booked by the census) under
+    ``names[variant]`` in ``BWD_LAUNCHES`` where ``names`` is given (the
+    data gradient), else under the variant in ``LAUNCHES``."""
     ho, wo = _validate(x, w, padding)
     b, h, wd, cin = (int(s) for s in x.shape)
     kh, kw, _, cout = (int(s) for s in w.shape)
+
+    def key(variant: str) -> str:
+        return variant if names is None else names[variant]
+
     with census.kernel_call(lambda: (
-            _plan_of(x, w, padding).variant,
+            key(_plan_of(x, w, padding).variant),
             *census_work(x.shape, w.shape, (b, ho, wo, cout), x.dtype))):
         if x.device.type == "cpu":
             return conv2d_plain(x, w, padding=padding)
@@ -328,9 +376,285 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
             code = lib.conv2d_f32(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), ws_ptr, *shape,
                 p.bn, p.vec, p.split, gx, gy, x.device.index, stream)
-        LAUNCHES[p.variant] += 1
+        if names is None:
+            LAUNCHES[p.variant] += 1
+        else:
+            BWD_LAUNCHES[names[p.variant]] += 1
         if code != 0:
             msg = lib.conv2d_error_string(code).decode()
+            raise RuntimeError(f"CUDA launch of {key(p.variant)} ({p}) "
+                               f"failed: {msg} (cudaError {code})")
+        return y
+
+
+# --- the gradient ----------------------------------------------------------------
+
+def rotate(w: torch.Tensor) -> torch.Tensor:
+    """The data gradient's weights: ``w_rot[i, j, co, ci] = w[kh-1-i,
+    kw-1-j, ci, co]``, contiguous."""
+    return w.flip((0, 1)).transpose(2, 3).contiguous()
+
+
+def dgrad_padding(kh: int, kw: int, padding: Padding) -> Padding:
+    """The padding of the data gradient's convolution of dy with
+    ``rotate(w)``: ``((kh-1-pt, kh-1-pb), (kw-1-pl, kw-1-pr))``; raises for a
+    forward padding of the kernel's size or more (no ResNet convolution has
+    one)."""
+    (pt, pb), (pl, pr) = padding
+    out = ((kh - 1 - pt, kh - 1 - pb), (kw - 1 - pl, kw - 1 - pr))
+    if min(p for pair in out for p in pair) < 0:
+        raise ValueError(f"padding {padding} reaches past the {kh}x{kw} "
+                         "kernel: the data gradient is not implemented for "
+                         "it")
+    return out
+
+
+def conv2d_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, *,
+                       padding: Padding = NO_PADDING) -> torch.Tensor:
+    """Plain version of the data gradient: ``conv2d_plain`` of dy with the
+    rotated weights."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    return conv2d_plain(dy, rotate(w), padding=dgrad_padding(kh, kw,
+                                                             padding))
+
+
+def conv2d_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
+                 padding: Padding = NO_PADDING) -> torch.Tensor:
+    """dx [B, H, W, Cin] of the forward ``conv2d(x, w, padding=padding)``
+    given dy [B, H_out, W_out, Cout] (``dy.dtype``): K2's forward kernels on
+    dy and ``rotate(w)``, counted under ``DGRAD[variant]``; CPU tensors take
+    the plain version."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    return _conv(dy, rotate(w), dgrad_padding(kh, kw, padding), DGRAD)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """How one weight-gradient call runs: the variant (its ``BWD_LAUNCHES``
+    key and its C entry point), the tile ``bm x bn`` over (Cin, Cout), the
+    pixels per step ``bk``, the steps of one tap's pixel walk, the pixel
+    slices ``split`` of each tap and the grid (tiles of Cin, tiles of Cout,
+    taps * split)."""
+    variant: str
+    bm: int
+    bn: int
+    bk: int
+    steps: int
+    split: int
+    grid: Tuple[int, int, int]
+
+    def slice_bounds(self, z: int) -> Tuple[int, int]:
+        """Steps ``[begin, end)`` of pixel slice ``z`` (the kernels compute
+        the same bounds)."""
+        return (z * self.steps // self.split,
+                (z + 1) * self.steps // self.split)
+
+
+# blocks of a weight-gradient variant that fit on one SM at once (the
+# tensor-core kernel: 256 threads of at most 128 registers and 52 KB of
+# shared memory; the CUDA-core kernel: 256 threads, 16 KB)
+WGRAD_RESIDENT = {WG_TC: 2, WG_SIMT: 2, WG_F32: 2}
+# a pixel slice is at least this many pixels: fewer would spend more on the
+# workspace and the tile's epilogue than on the products
+MIN_WGRAD_SLICE_PIXELS = 256
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_wgrad(b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+               padding: Padding, dtype: torch.dtype, sms: int,
+               aligned: bool = True) -> WgradPlan:
+    """The launch plan of the weight gradient of a stride-1 convolution of
+    x [b, h, w, cin] with a [kh, kw, cin, cout] kernel on a card of ``sms``
+    SMs; ``aligned`` says that x, dy and dw start on 16-byte boundaries.  A
+    pure function of its arguments.  Where the tiles of all taps fill less
+    than one wave of resident blocks, each tap's pixel walk is cut into the
+    fewest slices that fill one, of at least ``MIN_WGRAD_SLICE_PIXELS``
+    pixels each."""
+    (pt, pb), (pl, pr) = padding
+    ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    pixels = b * ho * wo
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and aligned:
+        variant, bk = WG_TC, 32
+    elif dtype == torch.bfloat16:
+        variant, bk = WG_SIMT, 8
+    elif dtype == torch.float32:
+        variant, bk = WG_F32, 8
+    else:
+        raise TypeError(f"no K2 weight-gradient variant for {dtype}")
+    bm = bn = 128
+    steps = _cdiv(pixels, bk)
+    tiles = _cdiv(cin, bm) * _cdiv(cout, bn) * kh * kw
+    wave = sms * WGRAD_RESIDENT[variant]
+    split = 1
+    if tiles < wave:
+        split = max(1, min(_cdiv(wave, tiles),
+                           steps // _cdiv(MIN_WGRAD_SLICE_PIXELS, bk)))
+    return WgradPlan(variant, bm, bn, bk, steps, split,
+                     (_cdiv(cin, bm), _cdiv(cout, bn), kh * kw * split))
+
+
+_bwd_bound = None
+
+
+def _bwd_library():
+    """The loaded weight-gradient library with ``argtypes`` set."""
+    global _bwd_bound
+    if _bwd_bound is None:
+        from repro_torch.kernels import build
+        lib = build.load(BWD_SOURCE)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for name in (WG_TC, WG_SIMT, WG_F32):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 4 + [ci] * 11 + [ci] * 3 + [ci, vp]
+            fn.restype = ci
+        lib.conv2d_wgrad_error_string.argtypes = [ci]
+        lib.conv2d_wgrad_error_string.restype = ctypes.c_char_p
+        _bwd_bound = lib
+    return _bwd_bound
+
+
+def _validate_wgrad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                    padding: Padding) -> None:
+    """Raises unless dy is the output gradient of a [kh, kw, Cin, Cout]
+    convolution of x with ``padding``."""
+    if x.dim() != 4 or dy.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, Cin] and dy [B, H_out, W_out, "
+                         f"Cout]; got {tuple(x.shape)} and {tuple(dy.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or dy.dtype != x.dtype:
+        raise TypeError(f"x and dy must both be float32 or bfloat16; got "
+                        f"{x.dtype} and {dy.dtype}")
+    if dy.device != x.device:
+        raise ValueError(f"x is on {x.device}, dy on {dy.device}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("x and dy must be contiguous")
+    if min(p for pair in padding for p in pair) < 0:
+        raise ValueError(f"negative padding {padding}")
+    (pt, pb), (pl, pr) = padding
+    ho = x.shape[1] + pt + pb - kh + 1
+    wo = x.shape[2] + pl + pr - kw + 1
+    if ho < 1 or wo < 1 or min(x.shape) < 1 or min(dy.shape) < 1 or \
+            min(kh, kw) < 1:
+        raise ValueError(f"empty convolution: x {tuple(x.shape)}, a {kh}x{kw}"
+                         f" kernel, padding {padding}")
+    if (dy.shape[0], dy.shape[1], dy.shape[2]) != (x.shape[0], ho, wo):
+        raise ValueError(f"dy {tuple(dy.shape)} is not the output of x "
+                         f"{tuple(x.shape)} under a {kh}x{kw} kernel with "
+                         f"padding {padding}")
+
+
+def wgrad_work(x_shape, dy_shape, kh: int, kw: int, dtype: torch.dtype
+               ) -> Tuple[int, int]:
+    """(flops, bytes) of one weight-gradient call, as the census books it:
+    2 P kh kw Cin Cout, and x, dy read and dw written once."""
+    b, h, w, cin = (int(s) for s in x_shape)
+    _, ho, wo, cout = (int(s) for s in dy_shape)
+    pixels = b * ho * wo
+    return 2 * pixels * kh * kw * cin * cout, dtype.itemsize * (
+        b * h * w * cin + pixels * cout + kh * kw * cin * cout)
+
+
+def conv2d_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                       *, padding: Padding = NO_PADDING) -> torch.Tensor:
+    """Plain version of the weight gradient, with the reference's
+    arithmetic: zero-pad, then for each tap the float32 product
+    ``window.T @ dy`` ([Cin, P] x [P, Cout]), rounded to ``x.dtype`` once."""
+    _validate_wgrad(x, dy, kh, kw, padding)
+    (pt, pb), (pl, pr) = padding
+    b, _, _, cin = (int(s) for s in x.shape)
+    _, ho, wo, cout = (int(s) for s in dy.shape)
+    xp = F.pad(x.float(), (0, 0, pl, pr, pt, pb))
+    dyf = dy.float().reshape(b * ho * wo, cout)
+    dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
+                     device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            win = xp[:, i:i + ho, j:j + wo, :].reshape(b * ho * wo, cin)
+            dw[i, j] = win.T @ dyf
+    return dw.to(x.dtype)
+
+
+def wgrad_plan_for(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                   padding: Padding = NO_PADDING) -> WgradPlan:
+    """``plan_wgrad`` for these tensors, with the SM count of their card
+    (``H100_SMS`` off the card)."""
+    (pt, pb), (pl, pr) = padding
+    return plan_wgrad(*(int(s) for s in x.shape), int(dy.shape[3]), kh, kw,
+                      ((int(pt), int(pb)), (int(pl), int(pr))), x.dtype,
+                      _sm_count(x.device) if x.device.type == "cuda"
+                      else H100_SMS,
+                      x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+
+
+def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int, *,
+                 padding: Padding = NO_PADDING) -> torch.Tensor:
+    """dw [kh, kw, Cin, Cout] in ``x.dtype`` of the forward
+    ``conv2d(x, w, padding=padding)`` given dy [B, H_out, W_out, Cout]:
+    CUDA tensors launch the variant that ``plan_wgrad`` picks; CPU tensors
+    take the plain version."""
+    _validate_wgrad(x, dy, kh, kw, padding)
+    cin, cout = int(x.shape[3]), int(dy.shape[3])
+    with census.kernel_call(lambda: (
+            wgrad_plan_for(x, dy, kh, kw, padding).variant,
+            *wgrad_work(x.shape, dy.shape, kh, kw, x.dtype))):
+        if x.device.type == "cpu":
+            return conv2d_wgrad_plain(x, dy, kh, kw, padding=padding)
+        b, h, wd = (int(s) for s in x.shape[:3])
+        ho, wo = int(dy.shape[1]), int(dy.shape[2])
+        if b * ho * wo >= 2 ** 31:
+            raise ValueError(f"B*H_out*W_out = {b * ho * wo} exceeds the "
+                             "kernel's int range")
+        p = wgrad_plan_for(x, dy, kh, kw, padding)
+        dw = torch.empty((kh, kw, cin, cout), dtype=x.dtype,
+                         device=x.device)
+        if x.device.type == "meta":
+            return dw                 # the census's shape-only route
+        if p.variant == WG_TC and dw.data_ptr() % 16:
+            raise ValueError("the weight gradient's output is not 16-byte "
+                             "aligned")
+        lib = _bwd_library()
+        ws = (torch.empty((p.split, kh * kw * cin * cout),
+                          dtype=torch.float32, device=x.device)
+              if p.split > 1 else None)
+        shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
+                 int(padding[1][0]), ho, wo)
+        code = getattr(lib, p.variant)(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            0 if ws is None else ws.data_ptr(), *shape, p.split,
+            p.grid[0], p.grid[1], x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        BWD_LAUNCHES[p.variant] += 1
+        if code != 0:
+            msg = lib.conv2d_wgrad_error_string(code).decode()
             raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
                                f"{msg} (cudaError {code})")
-        return y
+        return dw
+
+
+class Conv2dK2(torch.autograd.Function):
+    """K2 with its gradient: the forward ``conv2d`` saves x and w; the
+    backward takes dy contiguous and computes dx (``conv2d_dgrad``) and dw
+    (``conv2d_wgrad``) where ``needs_input_grad`` asks for them."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, padding: Padding):
+        ctx.padding = padding
+        ctx.save_for_backward(x, w)
+        return conv2d(x, w, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_dgrad(dy, w, padding=ctx.padding)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_wgrad(x, dy, int(w.shape[0]), int(w.shape[1]),
+                              padding=ctx.padding)
+        return dx, dw, None
+
+
+def conv2d_trainable(x: torch.Tensor, w: torch.Tensor, *,
+                     padding: Padding = NO_PADDING) -> torch.Tensor:
+    """``conv2d`` under autograd: ``Conv2dK2``."""
+    return Conv2dK2.apply(x, w, padding)

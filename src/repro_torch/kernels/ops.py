@@ -7,8 +7,10 @@ its packed result to the host and one synchronisation (tiles past the fused
 kernel's shared memory take the sweep kernel, the screen kernel and the
 compaction in turn), returning the host-side ``SweepReduced``.
 ``conv2d`` is what the models call for a convolution: stride 1 goes to the
-hand-written kernel K2 with the reference's SAME padding, any other stride
-to the library convolution with JAX's SAME padding written out.  ``flash_attention`` is what the transformer calls for
+hand-written kernel K2 with the reference's SAME padding, differentiable
+(K2's hand-written data- and weight-gradient kernels) where autograd
+records, any other stride to the library convolution with JAX's SAME
+padding written out.  ``flash_attention`` is what the transformer calls for
 prefill attention: the hand-written kernel K3, in the reference's BSHD
 layout, GQA without repeating K / V, differentiable (K3's backward
 kernels) where autograd records.  ``ssd_scan`` is what the Mamba2
@@ -86,7 +88,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     convolution, as in the reference, with JAX's SAME padding applied by
     ``F.pad`` first.  A float32 library convolution runs in TF32 unless
     ``torch.backends.cudnn.allow_tf32`` is off, as a float32 ``ResNet``
-    sets it."""
+    sets it.  Where autograd records (gradients on and an input that
+    requires them) a stride-1 call goes through ``conv2d.Conv2dK2``, K2
+    with its hand-written backward; the library convolution keeps its own
+    autograd."""
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be 'SAME' or 'VALID', got "
                          f"{padding!r}")
@@ -98,6 +103,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         pads = _k2.NO_PADDING
         if padding == "SAME":
             pads = ((kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2))
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _k2.conv2d_trainable(x, w, padding=pads)
         return _k2.conv2d(x, w, padding=pads)
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")

@@ -23,7 +23,12 @@ the patch embeddings) and the MoE family (``--arch deepseek_v2_236b`` /
 ``deepseek_v3_671b``: MLA's attention on K3 at head dims (192, 128) and its
 backward, the routed and shared experts, v3's MTP head, with the configs'
 Adafactor and remat "full"; ``--depth`` cuts the layers, as the whole
-model does not fit one card); the command line
+model does not fit one card) and the CNN family (``--arch resnet50``:
+every stride-1 convolution on K2 and its hand-written data- and
+weight-gradient kernels, the stride-2 ones on the library convolution,
+batch norm with the batch's statistics; ``--batch`` images of the
+config's size with their labels from the data iterator, ``--seq-len``
+unread); the command line
 runs on the card, and ``train(..., device="cpu")`` runs the plain versions
 on the host.  A mesh of more than one device is not ported (ROADMAP.md
 Queue 1 item 12e, with ``models/dist.py`` and ``models/sharding.py``).

@@ -2,7 +2,7 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose ``init`` builds the network
 as a ``torch.nn.Module`` on the requested device.  Ported so far: the CNN
-family (ResNet-50 inference), the dense transformer family (prefill, KV
+family (ResNet-50 inference and training), the dense transformer family (prefill, KV
 cache, decode, and training), the SSM family (Mamba2: chunked prefill,
 recurrent decode, and training), the hybrid family (Zamba2: the Mamba2
 backbone with one shared attention block; prefill, decode and training),
@@ -22,15 +22,16 @@ where the batch has them); the other families raise
 ``init(generator=None, device="cuda", max_seq=4096)`` builds the module;
 ``max_seq`` sizes whisper's decoder positions, as the reference's
 ``init(key, max_seq)``, and the other families ignore it.
-``loss(module, batch)`` and ``make_train_step`` train the dense, SSM,
-hybrid, audio, VLM and MoE families; the CNN raises, naming the roadmap
-item that brings its backward kernels.
+``loss(module, batch)`` and ``make_train_step`` train every family: the
+CNN's loss reads ``batch["images"]`` and ``batch["labels"]``, the others'
+``batch["tokens"]`` and ``batch["labels"]``.
 
 A ``TrainState`` is the module and its optimiser state, one optimiser leaf
 for each of the reference's parameter leaves (``leaf_groups``: a [L, ...]
 stack of layers -- ``layers``, zamba's ``mamba_layers``, whisper's
 ``enc_layers`` and ``dec_layers``, deepseek's ``dense_layers`` and
-``moe_layers`` -- is one leaf);
+``moe_layers`` -- is one leaf; ResNet's batch-norm ``mean`` and ``var``
+are leaves, as in the reference);
 ``state_tree`` / ``load_state_tree`` turn it into the flat tree
 ``checkpoint.store`` writes and back, and ``restore_train_state`` also reads a checkpoint of the
 reference's ``TrainState`` (``train_state_from_reference``, any trainable
@@ -67,16 +68,13 @@ _SERVING = {"dense": (transformer.check_dense, transformer.Transformer,
                     transformer.init_cache)}
 
 # the trainable families: (loss_fn, params_from_reference)
-_TRAINING = {"dense": (transformer.loss_fn, transformer.params_from_reference),
+_TRAINING = {"cnn": (resnet.loss_fn, resnet.params_from_reference),
+             "dense": (transformer.loss_fn, transformer.params_from_reference),
              "ssm": (mamba.loss_fn, mamba.params_from_reference),
              "hybrid": (zamba.loss_fn, zamba.params_from_reference),
              "audio": (whisper.loss_fn, whisper.params_from_reference),
              "vlm": (transformer.loss_fn, transformer.params_from_reference),
              "moe": (transformer.loss_fn, transformer.params_from_reference)}
-
-# the roadmap item that brings training to each ported family that lacks it
-_NO_TRAINING = {"cnn": "Queue 1 item 12d (ResNet training: a K2 backward "
-                       "and train-mode batch norm)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +92,7 @@ def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family not in _TRAINING:
         raise NotImplementedError(
             f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"yet: see ROADMAP.md "
-            f"{_NO_TRAINING.get(cfg.family, 'Queue 1 item 12e')}")
+            f"yet: see ROADMAP.md Queue 1 item 12e")
 
 
 def _inputs(cfg: ArchConfig, batch) -> tuple:
@@ -117,7 +114,10 @@ def build_model(cfg: ArchConfig) -> Model:
                  max_seq: int = 4096) -> resnet.ResNet:
             return resnet.ResNet(cfg, generator=generator, device=device)
 
-        return Model(cfg, init)
+        def cnn_loss(module: resnet.ResNet, batch):
+            return resnet.loss_fn(module, batch["images"], batch["labels"])
+
+        return Model(cfg, init, loss=cnn_loss)
     if cfg.family in _SERVING:
         check, module, make_cache = _SERVING[cfg.family]
         check(cfg)

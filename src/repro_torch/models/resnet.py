@@ -1,26 +1,36 @@
-"""ResNet-50 inference -- the paper's own CNN domain.
+"""ResNet-50 -- the paper's own CNN domain: inference and training.
 
 The counterpart of the reference's ``models/resnet.py`` ``forward(params,
-cfg, images, train=False)``: an NHWC bottleneck ResNet whose batch norm uses
-the stored running statistics.  Activations stay NHWC and weights HWIO, as
-in the reference, so no layout changes are needed between the two packages
-or inside the network.  Every stride-1 convolution (each bottleneck's 1x1
-``conv1`` / ``conv3``, the stride-1 3x3 ``conv2`` and the first projection:
-46 of ResNet-50's 53) runs on the hand-written kernel K2 through
-``kernels.ops.conv2d``; the stem and the stride-2 convolutions go to the
-library convolution there.  Inference only: K2 has no backward kernel yet,
-so the parameters do not require gradients and ``forward`` runs under
-``torch.no_grad``.
+cfg, images, train=False)`` and ``loss_fn``: an NHWC bottleneck ResNet.
+Activations stay NHWC and weights HWIO, as in the reference, so no layout
+changes are needed between the two packages or inside the network.  Every
+stride-1 convolution (each bottleneck's 1x1 ``conv1`` / ``conv3``, the
+stride-1 3x3 ``conv2`` and the first projection: 46 of ResNet-50's 53) runs
+on the hand-written kernel K2 through ``kernels.ops.conv2d`` -- in training
+with K2's hand-written data- and weight-gradient kernels --; the stem and
+the stride-2 convolutions go to the library convolution there.
+
+Inference (``forward(images)``, under ``torch.no_grad``) normalises with
+the stored ``mean`` / ``var``; training (``forward(images, train=True)``,
+``loss_fn``) with the batch's mean and population variance, in float32, as
+the reference's ``batchnorm(train=True)``.  As in the reference, ``mean``
+and ``var`` are parameters (optimiser leaves whose gradient is zero in
+training, so AdamW's weight decay shrinks ``var``) and no step updates them
+from the batch statistics: the reference's train step has no running
+update, whatever its module docstring says.
 
 The module's ``state_dict`` keys are the reference's parameter paths joined
-by dots (``stage0_block0.conv1.conv``, ``bn_stem.mean``, ``fc.fc``), so
+by dots (``stage0_block0.conv1.conv``, ``bn_stem.mean``, ``fc.fc``), and its
+parameters are registered in the order of the reference's leaves (sorted
+keys at every level, ``jax.tree_util``'s order), so that the optimiser's
+leaves and its global norm's sum run in the reference's order;
 ``params_from_reference`` carries a reference ``init_params`` pytree over
 one leaf at a time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,21 +73,30 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the channel axis with the reference's
-    association, ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32,
-    cast back to the input dtype (``nn.BatchNorm2d`` places eps and updates
-    its statistics differently)."""
+    """Batch norm over the channel axis with the reference's association,
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32, cast back to
+    the input dtype (``nn.BatchNorm2d`` places eps and updates its
+    statistics differently).  Inference takes the stored ``mean`` / ``var``;
+    ``train=True`` the batch's mean and population variance over (B, H, W),
+    in float32 (``jnp.mean`` / ``jnp.var``), and leaves the stored ones
+    alone.  ``bias``, ``mean``, ``scale``, ``var``: the reference's leaf
+    order."""
 
     def __init__(self, c: int, device: torch.device):
         super().__init__()
-        self.scale = _frozen(torch.ones(c, device=device))
         self.bias = _frozen(torch.zeros(c, device=device))
-        self.register_buffer("mean", torch.zeros(c, device=device))
-        self.register_buffer("var", torch.ones(c, device=device))
+        self.mean = _frozen(torch.zeros(c, device=device))
+        self.scale = _frozen(torch.ones(c, device=device))
+        self.var = _frozen(torch.ones(c, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = ((x.float() - self.mean) * torch.rsqrt(self.var + BN_EPS)
-               * self.scale + self.bias)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.square(xf - mean).mean(dim=(0, 1, 2))
+        else:
+            mean, var = self.mean, self.var
+        out = (xf - mean) * torch.rsqrt(var + BN_EPS) * self.scale + self.bias
         return out.to(x.dtype)
 
 
@@ -90,24 +109,27 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = cmid * 4
         kw = dict(dtype=dtype, generator=generator, device=device)
-        self.conv1 = Conv(1, 1, cin, cmid, 1, **kw)
-        self.bn1 = BatchNorm(cmid, device)
-        self.conv2 = Conv(3, 3, cmid, cmid, stride, **kw)
-        self.bn2 = BatchNorm(cmid, device)
-        self.conv3 = Conv(1, 1, cmid, cout, 1, **kw)
-        self.bn3 = BatchNorm(cout, device)
-        self.proj: Optional[Conv] = None
-        self.bn_proj: Optional[BatchNorm] = None
+        # drawn in the reference's order, registered in its leaf order
+        parts = {"conv1": Conv(1, 1, cin, cmid, 1, **kw),
+                 "conv2": Conv(3, 3, cmid, cmid, stride, **kw),
+                 "conv3": Conv(1, 1, cmid, cout, 1, **kw)}
+        norms = {"bn1": cmid, "bn2": cmid, "bn3": cout}
         if stride != 1 or cin != cout:
-            self.proj = Conv(1, 1, cin, cout, stride, **kw)
-            self.bn_proj = BatchNorm(cout, device)
+            parts["proj"] = Conv(1, 1, cin, cout, stride, **kw)
+            norms["bn_proj"] = cout
+        parts.update({n: BatchNorm(c, device) for n, c in norms.items()})
+        for name in sorted(parts):
+            self.add_module(name, parts[name])
+        if "proj" not in parts:
+            self.proj: Optional[Conv] = None
+            self.bn_proj: Optional[BatchNorm] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
-        h = self.bn3(self.conv3(h))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x), train))
+        h = F.relu(self.bn2(self.conv2(h), train))
+        h = self.bn3(self.conv3(h), train)
         if self.proj is not None:
-            x = self.bn_proj(self.proj(x))
+            x = self.bn_proj(self.proj(x), train)
         return F.relu(x + h)
 
 
@@ -162,8 +184,9 @@ class ResNet(nn.Module):
             torch.backends.cudnn.allow_tf32 = False
         kw = dict(dtype=self.dtype, generator=generator, device=dev)
         w = cfg.cnn_width
-        self.stem = Conv(7, 7, 3, w, 2, **kw)
-        self.bn_stem = BatchNorm(w, dev)
+        # drawn in the reference's order, registered in its leaf order
+        parts = {"stem": Conv(7, 7, 3, w, 2, **kw),
+                 "bn_stem": BatchNorm(w, dev)}
         self.block_names: List[str] = []
         cin = w
         for s, n_blocks in enumerate(cfg.cnn_stages):
@@ -171,31 +194,57 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and s > 0) else 1
                 name = f"stage{s}_block{b}"
-                self.add_module(name, Bottleneck(cin, cmid, stride, **kw))
+                parts[name] = Bottleneck(cin, cmid, stride, **kw)
                 self.block_names.append(name)
                 cin = cmid * 4
-        self.fc = Dense(cin, cfg.vocab_size, **kw)
+        parts["fc"] = Dense(cin, cfg.vocab_size, **kw)
+        for name in sorted(parts):
+            self.add_module(name, parts[name])
+        self.device = dev
 
-    @torch.no_grad()
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images [B, H, W, 3] -> float32 logits [B, classes]."""
-        x = images.to(self.dtype)
-        x = F.relu(self.bn_stem(self.stem(x)))
+    def forward(self, images, train: bool = False) -> torch.Tensor:
+        """images [B, H, W, 3] (a tensor or an array, any float dtype) ->
+        float32 logits [B, classes].  Inference (the default) runs under
+        ``torch.no_grad`` with the stored batch-norm statistics; ``train``
+        is differentiable and normalises with the batch's.  Training turns
+        on ``torch.backends.cudnn.deterministic`` for the whole process:
+        cuDNN's backward of the stride-2 convolutions is otherwise not
+        repeatable, and a resumed run must equal a fresh one bit for
+        bit."""
+        if train:
+            torch.backends.cudnn.deterministic = True
+            return self._run(images, True)
+        with torch.no_grad():
+            return self._run(images, False)
+
+    def _run(self, images, train: bool) -> torch.Tensor:
+        x = torch.as_tensor(images, device=self.device).to(self.dtype)
+        x = F.relu(self.bn_stem(self.stem(x), train))
         x = max_pool_same(x)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         x = x.float().mean(dim=(1, 2))
         # the classifier product stays in cfg.dtype, as the reference's einsum
         return (x.to(self.dtype) @ self.fc.fc).float()
+
+
+def loss_fn(model: ResNet, images, labels
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn``: the train-mode logits' mean NLL against
+    ``labels`` [B] (``L.cross_entropy`` over one position a row), and the
+    metrics ``{"nll"}``."""
+    logits = model(images, train=True)
+    labels = torch.as_tensor(labels, device=logits.device)
+    loss = L.cross_entropy(logits[:, None, :], labels[:, None])
+    return loss, {"nll": loss.detach()}
 
 
 def params_from_reference(params: Mapping, cfg,
                           device: DeviceLike = "cuda") -> ResNet:
     """A ``ResNet`` holding the reference's ``init_params`` pytree
     ``params`` (nested dicts of arrays; any float dtype that numpy can cast
-    to float32, bf16 included).  Every leaf must match one parameter or
-    batch-norm buffer by path and shape; each is cast to that tensor's
-    dtype."""
+    to float32, bf16 included).  Every leaf must match one parameter by
+    path and shape; each is cast to that parameter's dtype."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
