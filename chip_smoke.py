@@ -451,10 +451,10 @@ def phase_build() -> dict:
              if "k2_wgrad_" in r["kernel"]]
     if len(wgrad) != K2_WGRAD_KERNELS or any(
             r["spill_stores"] or r["spill_loads"] for r in wgrad):
-        raise AssertionError(f"K2's weight-gradient kernels (bf16 mma.sync, "
-                             f"the CUDA-core kernel and the slice sum for "
-                             f"bf16 and float32) spill (or are missing from "
-                             f"the ptxas report): {wgrad}")
+        raise AssertionError(f"K2's weight-gradient kernels (the bf16 "
+                             f"wgmma instances, the CUDA-core kernel and the "
+                             f"slice sums for bf16 and float32) spill (or "
+                             f"are missing from the ptxas report): {wgrad}")
     out[k3.SOURCE]["kernels"] = ptxas_report(build.build_logs[k3.SOURCE])
     tc = [r for r in out[k3.SOURCE]["kernels"]
           if K3_TC_KERNEL in r["kernel"]]
@@ -2241,9 +2241,10 @@ CONV_DTYPES = (torch.float32, torch.bfloat16)
 # every kernel of a K2 call (tensor-core, float32, SIMT, split-K sum) and
 # no library kernel has this in its name
 K2_SYMBOL = "k2_conv2d_"
-# the weight gradient's kernels: k2_wgrad_bf16_tc_kernel,
-# k2_wgrad_simt_kernel<float | bf16>, k2_wgrad_sum_kernel<float | bf16>
-K2_WGRAD_KERNELS = 5
+# the weight gradient's kernels: k2_wgrad_bf16_wgmma_kernel<BM, BN, TAPS>
+# (the 5 instances of k2.WGRAD_TILES), k2_wgrad_simt_kernel<float | bf16>,
+# k2_wgrad_sum_kernel<float | bf16, 1 | 4>
+K2_WGRAD_KERNELS = 11
 # K2 vs conv2d_plain, max |diff| over the scale max |plain|: float32 sums of
 # up to 4608 terms in another order (FMA-contracted) stay near 1e-6; a bf16
 # output may round the other way, one bf16 ulp, 2^-7 of the value at most

@@ -35,10 +35,10 @@ The gradient (``Conv2dK2``, the ``torch.autograd.Function`` that
   tap over the pixels (M = Cin, N = Cout, K = B*H_out*W_out), the pixel
   walk split across blocks whose float32 partials a second kernel adds in
   slice order (``plan_wgrad``); variants ``conv2d_wgrad_bf16_tc``
-  (``mma.sync`` tensor cores; bf16 with Cin, Cout % 8 == 0 and aligned
-  tensors: every ResNet-50 shape), ``conv2d_wgrad_bf16_simt`` and
-  ``conv2d_wgrad_f32`` (CUDA cores, IEEE float32), each a key of
-  ``BWD_LAUNCHES``.
+  (``wgmma`` tensor cores fed by TMA, tiles fitted to the channels; bf16
+  with Cin, Cout % 8 == 0 and aligned tensors: every ResNet-50 shape),
+  ``conv2d_wgrad_bf16_simt`` and ``conv2d_wgrad_f32`` (CUDA cores, IEEE
+  float32), each a key of ``BWD_LAUNCHES``.
 
 Beside them stand ``conv2d_plain`` (the reference kernel's own arithmetic, a
 float32 sum of ``kh*kw`` shifted-window matmuls), ``conv2d_dgrad_plain``
@@ -434,7 +434,12 @@ class WgradPlan:
     key and its C entry point), the tile ``bm x bn`` over (Cin, Cout), the
     pixels per step ``bk``, the steps of one tap's pixel walk, the pixel
     slices ``split`` of each tap and the grid (tiles of Cin, tiles of Cout,
-    taps * split)."""
+    tap groups * split).  The tensor-core variant also has ``taps`` (taps a
+    block: a group of consecutive taps shares each dy box), the TMA box of a
+    step ``box`` = (bw, bh, bb) over the logical [images, H, W] of dy, the
+    boxes along each of those ``boxes`` = (nw, nh, nb), ``flat`` (a 1x1
+    kernel with no padding: x and dy walked as [1, 1, B*H*W]) and the ring's
+    ``stages``."""
     variant: str
     bm: int
     bn: int
@@ -442,6 +447,11 @@ class WgradPlan:
     steps: int
     split: int
     grid: Tuple[int, int, int]
+    taps: int = 1
+    box: Tuple[int, int, int] = (0, 0, 0)
+    boxes: Tuple[int, int, int] = (0, 0, 0)
+    flat: bool = False
+    stages: int = 0
 
     def slice_bounds(self, z: int) -> Tuple[int, int]:
         """Steps ``[begin, end)`` of pixel slice ``z`` (the kernels compute
@@ -449,33 +459,161 @@ class WgradPlan:
         return (z * self.steps // self.split,
                 (z + 1) * self.steps // self.split)
 
+    def box_origin(self, s: int) -> Tuple[int, int, int]:
+        """(w0, h0, b0): where step ``s``'s box starts in the logical
+        [images, H, W] of dy, boxes along W first (the tensor-core kernel's
+        producer computes the same); tap (i, j) reads x's box at (w0 + j -
+        pad_l, h0 + i - pad_t, b0)."""
+        nw, nh, _ = self.boxes
+        t = s // nw
+        return ((s - t * nw) * self.box[0], (t % nh) * self.box[1],
+                (t // nh) * self.box[2])
+
 
 # blocks of a weight-gradient variant that fit on one SM at once (the
-# tensor-core kernel: 256 threads of at most 128 registers and 52 KB of
-# shared memory; the CUDA-core kernel: 256 threads, 16 KB)
-WGRAD_RESIDENT = {WG_TC: 2, WG_SIMT: 2, WG_F32: 2}
+# tensor-core kernel: 384 threads and up to 227 KB of shared memory; the
+# CUDA-core kernel: 256 threads, 16 KB)
+WGRAD_RESIDENT = {WG_TC: 1, WG_SIMT: 2, WG_F32: 2}
 # a pixel slice is at least this many pixels: fewer would spend more on the
 # workspace and the tile's epilogue than on the products
 MIN_WGRAD_SLICE_PIXELS = 256
+# the tensor-core kernel's instances (bm, bn, taps), each the rule's choice
+# at some ResNet-50 shape (64 x 256 and 128 x 256 were measured too and
+# never won), its largest box (rows = pixels a step, a multiple of 16:
+# wgmma's depth), its deepest ring and the shared memory a block may take
+# (the ring, 16 bytes of barriers a stage, 1 KiB to align it)
+WGRAD_TILES = ((64, 64, 1), (64, 128, 1), (128, 64, 1), (128, 128, 1),
+               (64, 64, 3))
+WGRAD_MAX_ROWS = 128
+WGRAD_MAX_STAGES = 8
+WGRAD_MIN_STAGES = 4
+WGRAD_SMEM_BYTES = 232448
+
+
+def wgrad_max_rows(bm: int, bn: int, taps: int) -> int:
+    """The most pixels a step of tile (bm, bn, taps) takes: at most
+    ``WGRAD_MAX_ROWS``, and few enough that ``WGRAD_MIN_STAGES`` stages fit
+    (with 64-row tiles each consumer warpgroup holds a stage while it waits
+    for its next, so the ring needs three at least)."""
+    boxes = taps * bm // 64 + bn // 64
+    fit = (WGRAD_SMEM_BYTES - 1024 - 16 * WGRAD_MAX_STAGES) // (
+        WGRAD_MIN_STAGES * boxes * 128)
+    return min(WGRAD_MAX_ROWS, fit // 16 * 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def wgrad_box(w: int, h: int, n: int, max_rows: int = WGRAD_MAX_ROWS
+              ) -> Tuple[int, int, int]:
+    """The TMA box (bw, bh, bb) of one step over a logical [n, h, w] pixel
+    grid: bw*bh*bb pixels, a multiple of 16 and at most ``max_rows``; the
+    fewest pixels loaded over the whole walk (a box past the grid's edge is
+    zero-filled), then the widest rows, then the most pixels a step, then
+    the most image rows.  At 112 rows or more every ResNet-50 grid is tiled
+    exactly: 56x56 by (56, 2, 1), 28x28 by (28, 4, 1), 14x14 by (14, 2, 4),
+    7x7 by (7, 1, 16), B*H*W pixels by up to 128 (112 at 7x7, B=32)."""
+    best = None
+    for bw in range(1, min(max_rows, _cdiv(w, 16) * 16) + 1):
+        for bh in range(1, min(h, max_rows // bw) + 1):
+            for bb in range(1, min(n, max_rows // (bw * bh)) + 1):
+                rows = bw * bh * bb
+                if rows % 16:
+                    continue
+                loaded = _cdiv(w, bw) * _cdiv(h, bh) * _cdiv(n, bb) * rows
+                key = (loaded, -bw, -rows, -bh)
+                if best is None or key < best[0]:
+                    best = (key, (bw, bh, bb))
+    return best[1]
+
+
+# a tap's pixel walk of at least this many pixels is long (ResNet-50 at
+# 56x56, B=32), of fewer than WGRAD_SHORT_WALK short (7x7)
+WGRAD_LONG_WALK = 65536
+WGRAD_SHORT_WALK = 4096
+
+
+def wgrad_tile(cin: int, cout: int, kh: int, kw: int, pixels: int
+               ) -> Tuple[int, int, int]:
+    """The tensor-core kernel's (bm, bn, taps) for these channels and a
+    walk of ``pixels`` = B*H_out*W_out, the rule measured at ResNet-50's 16
+    shapes (``tools/conv2d_bwd_ms.py --tiles``):
+
+    * a long walk is byte-bound and its slices fill the card: 64 x 64, the
+      smallest tile, keeps the workspace of partial tiles small;
+    * a 1x1 kernel over a middling walk: 128 (64 where Cin <= 64) x 64;
+    * a 1x1 kernel over a short walk: 64 x 128 (64 where Cout <= 64), whose
+      tiles fill the card with no split;
+    * a larger kernel (operation-bound): 128 x 128, 64 where Cin or Cout
+      <= 64.
+
+    A 3x3 kernel at 64 x 64 holds a row of three taps in a block, so that
+    each dy box serves three taps.  No tile runs a product on a zero-filled
+    channel where Cin and Cout are multiples of 64."""
+    if pixels >= WGRAD_LONG_WALK:
+        bm, bn = 64, 64
+    elif kh * kw == 1 and pixels >= WGRAD_SHORT_WALK:
+        bm, bn = (64 if cin <= 64 else 128), 64
+    elif kh * kw == 1:
+        bm, bn = 64, (64 if cout <= 64 else 128)
+    else:
+        bm, bn = (64 if cin <= 64 else 128), (64 if cout <= 64 else 128)
+    taps = 3 if (bm, bn) == (64, 64) and kw == 3 and kh * kw % 3 == 0 else 1
+    return bm, bn, taps
+
+
+def wgrad_stages(bm: int, bn: int, taps: int, rows: int) -> int:
+    """The deepest ring of the tensor-core kernel's stages (each a dy box a
+    64 output channels and, a tap, an x box a 64 input channels) that fits
+    ``WGRAD_SMEM_BYTES``."""
+    stage = (taps * bm // 64 + bn // 64) * rows * 128
+    return max(1, min(WGRAD_MAX_STAGES, (WGRAD_SMEM_BYTES - 1024
+                                         - 16 * WGRAD_MAX_STAGES) // stage))
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_wgrad(b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
                padding: Padding, dtype: torch.dtype, sms: int,
-               aligned: bool = True) -> WgradPlan:
+               aligned: bool = True,
+               tile: Optional[Tuple[int, int, int]] = None) -> WgradPlan:
     """The launch plan of the weight gradient of a stride-1 convolution of
     x [b, h, w, cin] with a [kh, kw, cin, cout] kernel on a card of ``sms``
-    SMs; ``aligned`` says that x, dy and dw start on 16-byte boundaries.  A
-    pure function of its arguments.  Where the tiles of all taps fill less
-    than one wave of resident blocks, each tap's pixel walk is cut into the
-    fewest slices that fill one, of at least ``MIN_WGRAD_SLICE_PIXELS``
-    pixels each."""
+    SMs; ``aligned`` says that x, dy and dw start on 16-byte boundaries;
+    ``tile`` = (bm, bn, taps), one of ``WGRAD_TILES``, overrides
+    ``wgrad_tile`` (for measuring one against another).  A pure function of
+    its arguments.
+
+    bf16 takes the tensor-core variant where Cin % 8 == 0, Cout % 8 == 0 and
+    x, dy and dw are aligned: TMA's 16-byte strides and base, so every such
+    shape has tensor maps.  Any other bf16 shape takes the CUDA-core one.
+    Where the tiles of all tap groups fill less than one wave of resident
+    blocks, each tap's pixel walk is cut into the most slices that still fit
+    one wave, of at least ``MIN_WGRAD_SLICE_PIXELS`` pixels (and two steps)
+    each."""
     (pt, pb), (pl, pr) = padding
     ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
     pixels = b * ho * wo
     if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and aligned:
-        variant, bk = WG_TC, 32
-    elif dtype == torch.bfloat16:
+        bm, bn, taps = tile or wgrad_tile(cin, cout, kh, kw, pixels)
+        if (bm, bn, taps) not in WGRAD_TILES or kh * kw % taps:
+            raise ValueError(f"no tensor-core weight-gradient tile "
+                             f"{(bm, bn, taps)} for a {kh}x{kw} kernel")
+        flat = kh == kw == 1 and padding == NO_PADDING
+        grid_whn = (pixels, 1, 1) if flat else (wo, ho, b)
+        box = wgrad_box(*grid_whn, wgrad_max_rows(bm, bn, taps))
+        boxes = tuple(_cdiv(g, e) for g, e in zip(grid_whn, box))
+        rows = box[0] * box[1] * box[2]
+        steps = boxes[0] * boxes[1] * boxes[2]
+        groups = kh * kw // taps
+        tiles = _cdiv(cin, bm) * _cdiv(cout, bn) * groups
+        wave = sms * WGRAD_RESIDENT[WG_TC]
+        split = 1
+        if tiles < wave:
+            min_steps = max(2, _cdiv(MIN_WGRAD_SLICE_PIXELS, rows))
+            split = max(1, min(wave // tiles, steps // min_steps))
+        return WgradPlan(WG_TC, bm, bn, rows, steps, split,
+                         (_cdiv(cin, bm), _cdiv(cout, bn), groups * split),
+                         taps, box, boxes, flat,
+                         wgrad_stages(bm, bn, taps, rows))
+    if dtype == torch.bfloat16:
         variant, bk = WG_SIMT, 8
     elif dtype == torch.float32:
         variant, bk = WG_F32, 8
@@ -503,10 +641,14 @@ def _bwd_library():
         from repro_torch.kernels import build
         lib = build.load(BWD_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        # pointers, the shape (B .. Wo), the plan, the device and stream
+        lib.conv2d_wgrad_bf16_tc.argtypes = [vp] * 4 + [ci] * 11 + [ci] * 11 \
+            + [ci, vp]
+        for name in (WG_SIMT, WG_F32):
+            getattr(lib, name).argtypes = [vp] * 4 + [ci] * 11 + [ci] * 3 \
+                + [ci, vp]
         for name in (WG_TC, WG_SIMT, WG_F32):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 4 + [ci] * 11 + [ci] * 3 + [ci, vp]
-            fn.restype = ci
+            getattr(lib, name).restype = ci
         lib.conv2d_wgrad_error_string.argtypes = [ci]
         lib.conv2d_wgrad_error_string.restype = ctypes.c_char_p
         _bwd_bound = lib
@@ -598,36 +740,50 @@ def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int, *,
             *wgrad_work(x.shape, dy.shape, kh, kw, x.dtype))):
         if x.device.type == "cpu":
             return conv2d_wgrad_plain(x, dy, kh, kw, padding=padding)
-        b, h, wd = (int(s) for s in x.shape[:3])
-        ho, wo = int(dy.shape[1]), int(dy.shape[2])
+        b, ho, wo = int(x.shape[0]), int(dy.shape[1]), int(dy.shape[2])
         if b * ho * wo >= 2 ** 31:
             raise ValueError(f"B*H_out*W_out = {b * ho * wo} exceeds the "
                              "kernel's int range")
         p = wgrad_plan_for(x, dy, kh, kw, padding)
-        dw = torch.empty((kh, kw, cin, cout), dtype=x.dtype,
-                         device=x.device)
-        if x.device.type == "meta":
-            return dw                 # the census's shape-only route
-        if p.variant == WG_TC and dw.data_ptr() % 16:
-            raise ValueError("the weight gradient's output is not 16-byte "
-                             "aligned")
-        lib = _bwd_library()
-        ws = (torch.empty((p.split, kh * kw * cin * cout),
-                          dtype=torch.float32, device=x.device)
-              if p.split > 1 else None)
-        shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
-                 int(padding[1][0]), ho, wo)
-        code = getattr(lib, p.variant)(
-            x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            0 if ws is None else ws.data_ptr(), *shape, p.split,
-            p.grid[0], p.grid[1], x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        BWD_LAUNCHES[p.variant] += 1
-        if code != 0:
-            msg = lib.conv2d_wgrad_error_string(code).decode()
-            raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
-                               f"{msg} (cudaError {code})")
-        return dw
+        if x.device.type == "meta":       # the census's shape-only route
+            return torch.empty((kh, kw, cin, cout), dtype=x.dtype,
+                               device=x.device)
+        return wgrad_launch(x, dy, kh, kw, padding, p)
+
+
+def wgrad_launch(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                 padding: Padding, p: WgradPlan) -> torch.Tensor:
+    """Launches plan ``p`` of the weight gradient on CUDA tensors that
+    ``conv2d_wgrad`` has checked (or on a plan of another tile, to measure
+    one against another); counts the launch under ``p.variant``."""
+    b, h, wd, cin = (int(s) for s in x.shape)
+    ho, wo, cout = int(dy.shape[1]), int(dy.shape[2]), int(dy.shape[3])
+    dw = torch.empty((kh, kw, cin, cout), dtype=x.dtype, device=x.device)
+    if p.variant == WG_TC and dw.data_ptr() % 16:
+        raise ValueError("the weight gradient's output is not 16-byte "
+                         "aligned")
+    lib = _bwd_library()
+    ws = (torch.empty((p.split, kh * kw * cin * cout), dtype=torch.float32,
+                      device=x.device)
+          if p.split > 1 else None)
+    shape = (b, h, wd, cin, cout, kh, kw, int(padding[0][0]),
+             int(padding[1][0]), ho, wo)
+    ptrs = (x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            0 if ws is None else ws.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if p.variant == WG_TC:
+        code = lib.conv2d_wgrad_bf16_tc(
+            *ptrs, *shape, p.bm, p.bn, p.taps, *p.box, int(p.flat),
+            p.stages, p.split, p.grid[0], p.grid[1], x.device.index, stream)
+    else:
+        code = getattr(lib, p.variant)(*ptrs, *shape, p.split, p.grid[0],
+                                       p.grid[1], x.device.index, stream)
+    BWD_LAUNCHES[p.variant] += 1
+    if code != 0:
+        msg = lib.conv2d_wgrad_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: "
+                           f"{msg} (cudaError {code})")
+    return dw
 
 
 class Conv2dK2(torch.autograd.Function):

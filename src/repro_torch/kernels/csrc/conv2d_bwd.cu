@@ -36,22 +36,53 @@
 //   same bits.  The split is the plan's (repro_torch/kernels/conv2d.py,
 //   plan_wgrad()); these entry points check it and choose nothing.
 //
-//   Bound on an H100: operations at every ResNet-50 shape (2*P*kh*kw*Cin*Cout
-//   flops on P*(Cin + Cout) + kh*kw*Cin*Cout elements).
+//   Bound on an H100 (bytes over 3.35 TB/s, operations over 989 TFLOP/s
+//   bf16): the 1x1 kernels at 56x56 and 28x28 are byte-bound (32-170 flops
+//   a byte: ResNet-50's P*(Cin + Cout) inputs against Cin*Cout outputs);
+//   the 3x3 kernels and everything at 14x14 and 7x7 are bound by
+//   operations (up to ~1000 flops a byte).
 //
 //   Variants (every kernel's name starts with k2_wgrad_, the profiler's
 //   symbol for K2's weight gradient):
 //
-//   k2_wgrad_bf16_tc_kernel   bf16, Cin % 8 == 0, Cout % 8 == 0, 16-byte
-//     aligned x and dy: every ResNet-50 shape.  A 128 (Cin) x 128 (Cout)
-//     tile per 256-thread block, 8 warps of 64 x 32; the pixel walk in steps
-//     of 32 through a ring of 3 shared-memory stages filled by 16-byte
-//     cp.async (zero-filled for a pixel in the padding or past P, a channel
-//     past Cin or Cout).  Both operands are pixel-major in memory and stay so
-//     in shared memory (rows of 128 channels, padded to 136 so that
-//     ldmatrix's eight rows fall in distinct banks); ldmatrix.trans turns
-//     them into the m16n8k16 fragments (A = x^T, row-major; B = dy, column-
-//     major), and mma.sync.m16n8k16 bf16 x bf16 -> f32 multiplies them.
+//   k2_wgrad_bf16_wgmma_kernel<BM, BN, TAPS>   bf16, Cin % 8 == 0, Cout % 8
+//     == 0, 16-byte aligned x, dy and dw: every ResNet-50 shape.
+//     - wgmma.mma_async m64nBNk16, both operands from shared memory and
+//       both transposed (imm-trans-a = imm-trans-b = 1): A = window^T is
+//       M-major and B = dy is N-major, because in memory both are
+//       pixel-major rows of channels.  A box of 64 channels is one 128-byte
+//       swizzled row a pixel, as TMA writes it.  float32 accumulators.
+//     - TMA fills the ring: 4-D tensor maps over x [B, H, W, Cin] and dy
+//       [B, H_out, W_out, Cout] (channels innermost), one box (64 channels,
+//       bw, bh, bb images) a step, the box chosen by the plan so that whole
+//       steps tile the image (ResNet-50: [56, 2, 1], [28, 4, 1], [14, 2, 4],
+//       [7, 1, 16] -- 112 pixels, none zero-filled).  Tap (i, j) reads x's
+//       box at the offset (j - pad_l, i - pad_t); TMA's out-of-bounds zero
+//       fill is the convolution's padding, so the kernel does no per-pixel
+//       index arithmetic.  A 1x1 kernel with no padding walks x and dy as
+//       [B*H*W] pixels (boxes of up to 128).
+//     - Warp-specialised: warpgroup 0's first thread issues every load into
+//       a ring of up to 8 stages, each with a full and an empty mbarrier;
+//       warpgroups 1 and 2 issue the products, keeping one step's wgmma in
+//       flight while the next is issued.  No __syncthreads in the walk.
+//     - Tiles fitted by the plan: BM = 64 where Cin = 64 (no product on a
+//       zero-filled channel at any ResNet-50 shape), the consumers then
+//       taking alternate steps of the same 64 x BN tile and adding their
+//       float32 tiles in a fixed order at the end; BM = 128 splits Cin
+//       between them.  TAPS = 3 holds a row of a 3x3 kernel in one block,
+//       so that each dy box serves three taps.
+//     - Pixel slices as above; the tile's epilogue writes the float32
+//       partial (or, unsplit, the bf16 result) from the accumulators.
+//     - Launched, like the slice sum, as a programmatic dependent of the
+//       kernel before it on the stream (griddepcontrol.wait before any
+//       global access), so that its launch and barrier set-up overlap that
+//       kernel's tail: a call is a few microseconds of fixed cost against
+//       4-40 of work at ResNet-50's shapes.
+//     What still bounds it (measured, PERF.md): at 56x56 the bytes, at
+//     50-70 % of the card's rate; elsewhere the shared memory each step
+//     passes through (TMA writes plus both operands read by every wgmma:
+//     128 B a clock an SM), the waves of 3x3 tiles at 7x7, and each call's
+//     fixed cost.
 //
 //   k2_wgrad_simt_kernel<T>   float32 (the reference convolves float32
 //     exactly: IEEE float32 on the CUDA cores, 67 TFLOP/s; TF32 would break
@@ -111,162 +142,318 @@ __device__ __forceinline__ int64_t x_offset(const WgradShape& a, int p, int i,
   return (((int64_t)b * a.H + ih) * a.W + iw) * a.Cin + c;
 }
 
-// --- k2_wgrad_bf16_tc_kernel -------------------------------------------------
+// --- k2_wgrad_bf16_wgmma_kernel ----------------------------------------------
 
-constexpr int kTcBM = 128;     // input channels a block
-constexpr int kTcBN = 128;     // output channels a block
-constexpr int kTcBK = 32;      // pixels a step
-constexpr int kTcStages = 3;
-constexpr int kTcThreads = 256;
-constexpr int kTcLd = 128 + 8;  // a shared row: 128 channels + 16 bytes
-constexpr int kTcStageElems = 2 * kTcBK * kTcLd;  // A then B
-constexpr int kTcSmemBytes = kTcStages * kTcStageElems * 2;  // 52,224
-
-// four 8x8 b16 matrices, each transposed: lanes 8i..8i+7 give the row
-// addresses of matrix i, and each lane receives (rows 2(lane%4), +1,
-// column lane/4) of each
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
+// D[64 x 64] += A[64 x 16] (M-major, descriptor da, imm-trans-a = 1) *
+// B[16 x 64] (N-major, descriptor db, imm-trans-b = 1), bf16 -> f32
+__device__ __forceinline__ void wgmma_tt_m64n64k16(float (&d)[32],
+                                               uint64_t da, uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// d += a (16x16, row-major fragment) * b (16x8, column-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// D[64 x 128] += A[64 x 16] (M-major, descriptor da, imm-trans-a = 1) *
+// B[16 x 128] (N-major, descriptor db, imm-trans-b = 1), bf16 -> f32
+__device__ __forceinline__ void wgmma_tt_m64n128k16(float (&d)[64],
+                                               uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__global__ void __launch_bounds__(kTcThreads, 2)
-k2_wgrad_bf16_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                        bf16* __restrict__ dw, float* __restrict__ ws,
-                        WgradShape a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+template <int BN>
+__device__ __forceinline__ void wgmma_tt(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_tt<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  wgmma_tt_m64n64k16(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_tt<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  wgmma_tt_m64n128k16(d, da, db);
+}
+
+// named barriers of the two consumer warpgroups (0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// programmatic dependent launch: wait until the grids this one depends on
+// have completed and their writes are visible; let the next grid launch
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kWgMaxStages = 8;
+constexpr int kWgMaxRows = 128;  // pixels a step (box rows)
+constexpr int kWgMaxSmem = 232448;
+
+// What the wgmma kernel walks: the box (bw, bh, bb) over the logical
+// [W, H, images] of dy, (nw, nh) boxes along W and H, `rows` = bw*bh*bb
+// pixels a step; the steps of one tap are nw * nh * ceil(images / bb).
+struct WgmmaShape {
+  int Cin, Cout, KH, KW, pad_t, pad_l;
+  int bw, bh, bb, nw, nh, rows;
+  int steps, split, stages;
+};
+
+// the kernel's dynamic shared memory: the ring (or, where larger, the
+// consumers' float32 exchange), the full and empty barriers, 1 KiB to align
+// the base to the 128-byte swizzle's 1024-byte period
+__host__ __device__ constexpr int wg_stage_bytes(int bm, int bn, int taps,
+                                                 int rows) {
+  return (taps * (bm / 64) + bn / 64) * rows * 128;
+}
+__host__ __device__ constexpr int wg_ring_bytes(int bm, int bn, int taps,
+                                                int rows, int stages) {
+  return stages * wg_stage_bytes(bm, bn, taps, rows) >
+                 (bm == 64 ? taps * 64 * bn * 4 : 0)
+             ? stages * wg_stage_bytes(bm, bn, taps, rows)
+             : taps * 64 * bn * 4;
+}
+__host__ __device__ constexpr int wg_smem_bytes(int bm, int bn, int taps,
+                                                int rows, int stages) {
+  return wg_ring_bytes(bm, bn, taps, rows, stages) + 2 * stages * 8 + 1024;
+}
+
+// dw[tap] (+)= window_tap(x)^T dy over one pixel slice, for TAPS taps
+// (group g: taps g*TAPS .. g*TAPS + TAPS - 1) of a BM (Cin) x BN (Cout)
+// tile.  Warpgroup 0's first thread issues every TMA load: per step one
+// box of dy for each 64 output channels and, per tap, one box of x for each
+// 64 input channels, at the tap's offset (j - pad_l, i - pad_t); the
+// padding is TMA's zero fill.  BM = 128: consumer warpgroup c multiplies
+// input channels [64 c, 64 c + 64) on every step; BM = 64: it multiplies
+// all 64 on the steps of its parity, and the two float32 tiles are added
+// (warpgroup 1's + warpgroup 2's) through shared memory at the end.
+template <int BM, int BN, int TAPS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+k2_wgrad_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_dy,
+                           bf16* __restrict__ dw, float* __restrict__ ws,
+                           WgmmaShape a) {
+  constexpr int MB = BM / 64;  // x boxes a tap
+  constexpr int NB = BN / 64;  // dy boxes
+  constexpr bool kSplitM = BM == 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int box_bytes = a.rows * 128;
+  const int stage_bytes = wg_stage_bytes(BM, BN, TAPS, a.rows);
+  const int stages = a.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + wg_ring_bytes(BM, BN, TAPS, a.rows, stages));
+  uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // rows (input channels) wm*64 .. +63
-  const int wn = warp & 3;   // columns (output channels) wn*32 .. +31
-  const int m0 = blockIdx.x * kTcBM;
-  const int n0 = blockIdx.y * kTcBN;
-  const int tap = blockIdx.z / a.split;
-  const int z = blockIdx.z - tap * a.split;
-  const int ti = tap / a.KW;
-  const int tj = tap - ti * a.KW;
-  int s0, s1;
-  slice_bounds(a, z, s0, s1);
-  const int n_steps = s1 - s0;
-
-  // this thread's copies: 16 bytes (8 channels) of rows tid/16 and
-  // tid/16 + 16 of a step, for A (x) and for B (dy)
-  const int c8 = (tid & 15) * 8;
-  const bool a_chan = m0 + c8 < a.Cin;  // Cin % 8 == 0: all 8 or none
-  const bool b_chan = n0 + c8 < a.Cout;
-
-  auto load = [&](int stage, int s) {
-    bf16* As = smem + stage * kTcStageElems;
-    bf16* Bs = As + kTcBK * kTcLd;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = (tid >> 4) + 16 * e;
-      const int p = s * kTcBK + r;
-      const int64_t xo = a_chan ? x_offset(a, p, ti, tj, m0 + c8) : -1;
-      cp_async16(smem_u32(As + r * kTcLd + c8), xo >= 0 ? x + xo : x, xo >= 0);
-      const bool bok = b_chan && p < a.P;
-      cp_async16(smem_u32(Bs + r * kTcLd + c8),
-                 bok ? dy + (int64_t)p * a.Cout + n0 + c8 : dy, bok);
+  if (tid == 0) {
+    prefetch_tensormap(&tm_x);
+    prefetch_tensormap(&tm_dy);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kSplitM ? 256 : 128);
     }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-#pragma unroll
-  for (int k = 0; k < kTcStages - 1; ++k) {
-    if (k < n_steps) load(k, s0 + k);
-    else cp_async_commit();  // an empty group keeps the count
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // launched as a programmatic dependent of the previous kernel on the
+  // stream: everything above overlaps its tail; nothing global is read or
+  // written before it has completed.  It lets its own dependents launch
+  // only as it exits (an earlier trigger parks their blocks beside its own:
+  // measured slower)
+  grid_dependency_wait();
+  __syncthreads();
 
-  const int mi = lane >> 3;  // ldmatrix: the matrix this lane addresses
-  const int mr = lane & 7;   // and its row
-  for (int it = 0; it < n_steps; ++it) {
-    // step it has landed for this thread; the barrier makes it everyone's
-    // and retires every read of the stage the next load overwrites
-    cp_async_wait<kTcStages - 2>();
-    __syncthreads();
-    const int next = it + kTcStages - 1;
-    if (next < n_steps) load(next % kTcStages, s0 + next);
-    else cp_async_commit();
-    const bf16* As = smem + (it % kTcStages) * kTcStageElems;
-    const bf16* Bs = As + kTcBK * kTcLd;
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      // A = x^T [m, k] from As[k][m]: matrices (m 0-7, k 0-7), (m 8-15,
-      // k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15) -- a0a1 .. a6a7
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4_trans(af[mt], As + (ks + (mi >> 1) * 8 + mr) * kTcLd +
-                                      wm * 64 + mt * 16 + (mi & 1) * 8);
-      // B = dy [k, n] from Bs[k][n]: matrices (k 0-7, n 0-7), (k 8-15,
-      // n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) -- b0b1, b2b3 of two
-      // n8 tiles
-      uint32_t bfr[2][4];
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(bfr[np], Bs + (ks + (mi & 1) * 8 + mr) * kTcLd +
-                                       wn * 32 + np * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
-                   bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int group = blockIdx.z / a.split;
+  const int z = blockIdx.z - group * a.split;
+  const int s0 = (int)((int64_t)z * a.steps / a.split);
+  const int n_steps = (int)((int64_t)(z + 1) * a.steps / a.split) - s0;
+  const int wg = tid / 128;
 
-  // the accumulator fragment: (row lane/4 (+8), columns 2(lane%4), +1)
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const int64_t plane = (int64_t)a.Cin * a.Cout;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    if (tid == 0) {
+      for (int it = 0; it < n_steps; ++it) {
+        const int st = it % stages;
+        mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+        // the step's box origin: the plan's WgradPlan.box_origin
+        const int s = s0 + it;
+        const int t = s / a.nw;
+        const int w0 = (s - t * a.nw) * a.bw;
+        const int h0 = (t % a.nh) * a.bh;
+        const int b0 = (t / a.nh) * a.bb;
+        uint8_t* base = smem + st * stage_bytes;
+        mbar_arrive_expect_tx(&full[st], stage_bytes);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_4d(base + nb * box_bytes, &tm_dy, &full[st], n0 + 64 * nb,
+                      w0, h0, b0);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + mt * 16 + g + 8 * h;
-      if (m >= a.Cin) continue;
+        for (int tp = 0; tp < TAPS; ++tp) {
+          const int tap = group * TAPS + tp;
+          const int i = tap / a.KW;
+          const int j = tap - i * a.KW;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = n0 + wn * 32 + nt * 8 + 2 * q;
-        if (n >= a.Cout) continue;  // Cout % 8 == 0: n + 1 < Cout too
-        const float v0 = acc[mt][nt][2 * h];
-        const float v1 = acc[mt][nt][2 * h + 1];
-        const int64_t o = tap * plane + (int64_t)m * a.Cout + n;
-        if (a.split > 1) {
-          *reinterpret_cast<float2*>(
-              ws + (int64_t)z * a.KH * a.KW * plane + o) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(dw + o) =
-              __floats2bfloat162_rn(v0, v1);
+          for (int mb = 0; mb < MB; ++mb)
+            tma_load_4d(base + (NB + tp * MB + mb) * box_bytes, &tm_x,
+                        &full[st], m0 + 64 * mb, w0 + j - a.pad_l,
+                        h0 + i - a.pad_t, b0);
         }
       }
     }
+  } else {
+    // ---- consumers ----
+    const int cw = wg - 1;
+    float acc[TAPS][BN / 2];
+#pragma unroll
+    for (int tp = 0; tp < TAPS; ++tp)
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) acc[tp][q] = 0.0f;
+    const int ksteps = a.rows / 16;
+    int held = -1;  // the stage whose products may still be in flight
+    for (int it = kSplitM ? 0 : cw; it < n_steps; it += kSplitM ? 1 : 2) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      const uint32_t base = smem_u32(smem + st * stage_bytes);
+#pragma unroll
+      for (int tp = 0; tp < TAPS; ++tp) fence_acc(acc[tp]);
+      wgmma_fence();
+#pragma unroll
+      for (int tp = 0; tp < TAPS; ++tp) {
+        const uint32_t xa =
+            base + (NB + tp * MB + (kSplitM ? cw : 0)) * box_bytes;
+        // both operands are pixel-major rows of 64 channels (128 bytes,
+        // swizzled): MN-major, 8-pixel groups 1024 bytes apart (SBO), B's
+        // 64-channel boxes box_bytes apart (LBO); 16 pixels = 2048 bytes
+        for (int kk = 0; kk < ksteps; ++kk)
+          wgmma_tt<BN>(acc[tp], smem_desc(xa + kk * 2048, box_bytes, 1024),
+                       smem_desc(base + kk * 2048, box_bytes, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int tp = 0; tp < TAPS; ++tp) fence_acc(acc[tp]);
+      if (held >= 0) mbar_arrive(&empty[held]);
+      held = st;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int tp = 0; tp < TAPS; ++tp) fence_acc(acc[tp]);
+    if (held >= 0) mbar_arrive(&empty[held]);
+
+    const int t = tid & 127;
+    bool store = true;
+    if (!kSplitM) {
+      // warpgroup 2 hands its tile to warpgroup 1 once both are done with
+      // the ring; warpgroup 1 adds it to its own and stores
+      float* xch = reinterpret_cast<float*>(smem);
+      consumers_sync(1);
+      if (cw == 1) {
+#pragma unroll
+        for (int tp = 0; tp < TAPS; ++tp)
+#pragma unroll
+          for (int q = 0; q < BN / 2; ++q)
+            xch[(tp * (BN / 2) + q) * 128 + t] = acc[tp][q];
+      }
+      consumers_sync(2);
+      store = cw == 0;
+      if (store) {
+#pragma unroll
+        for (int tp = 0; tp < TAPS; ++tp)
+#pragma unroll
+          for (int q = 0; q < BN / 2; ++q)
+            acc[tp][q] += xch[(tp * (BN / 2) + q) * 128 + t];
+      }
+    }
+
+    if (store) {
+      // accumulator fragment: thread t of the warpgroup holds rows
+      // 16 (t / 32) + (t % 32) / 4 and +8, columns 8 q + 2 (t % 4) + {0, 1}
+      // in acc[4 q + {0, 1}] and acc[4 q + {2, 3}]
+      const int r0 =
+          m0 + (kSplitM ? 64 * cw : 0) + (t >> 5) * 16 + ((t & 31) >> 2);
+      const int64_t plane = (int64_t)a.Cin * a.Cout;
+#pragma unroll
+      for (int tp = 0; tp < TAPS; ++tp) {
+        const int64_t tap_off = (int64_t)(group * TAPS + tp) * plane;
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          const int n = n0 + q * 8 + (t & 3) * 2;
+          if (n >= a.Cout) continue;  // Cout % 8 == 0: n + 1 < Cout too
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = r0 + 8 * h;
+            if (m >= a.Cin) continue;
+            const float v0 = acc[tp][4 * q + 2 * h];
+            const float v1 = acc[tp][4 * q + 2 * h + 1];
+            const int64_t o = tap_off + (int64_t)m * a.Cout + n;
+            if (a.split > 1) {
+              *reinterpret_cast<float2*>(
+                  ws + (int64_t)z * a.KH * a.KW * plane + o) =
+                  make_float2(v0, v1);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(dw + o) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+      }
+    }
+  }
 }
 
 // --- k2_wgrad_simt_kernel<T> -------------------------------------------------
@@ -385,17 +572,40 @@ k2_wgrad_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 // --- k2_wgrad_sum_kernel -----------------------------------------------------
 
+__device__ __forceinline__ void store4(bf16* y, float4 v) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(y);
+  p[0] = __floats2bfloat162_rn(v.x, v.y);
+  p[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+__device__ __forceinline__ void store4(float* y, float4 v) {
+  *reinterpret_cast<float4*>(y) = v;
+}
+
 // dw[e] = ((ws[0, e] + ws[1, e]) + ws[2, e]) + ... over the `split` slices,
-// in slice order, rounded to T once
-template <typename T>
+// in slice order, rounded to T once; VEC consecutive elements a thread
+template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
 k2_wgrad_sum_kernel(const float* __restrict__ ws, T* __restrict__ dw,
                     int64_t n, int split) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  grid_dependency_wait();  // the partials of the kernel before it
+  grid_launch_dependents();  // a short grid: the next may launch under it
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (e >= n) return;
-  float s = ws[e];
-  for (int z = 1; z < split; ++z) s += ws[z * n + e];
-  store1(dw + e, s);
+  if (VEC == 4) {
+    float4 s = *reinterpret_cast<const float4*>(ws + e);
+    for (int z = 1; z < split; ++z) {
+      const float4 p = *reinterpret_cast<const float4*>(ws + z * n + e);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    store4(dw + e, s);
+  } else {
+    float s = ws[e];
+    for (int z = 1; z < split; ++z) s += ws[z * n + e];
+    store1(dw + e, s);
+  }
 }
 
 // --- host side ---------------------------------------------------------------
@@ -409,13 +619,27 @@ bool plan_fits(const WgradShape& a, int bm, int bn, int gx, int gy,
          (int64_t)a.KH * a.KW * a.split <= 65535;
 }
 
+// the slice sum over n = KH*KW*Cin*Cout elements, 4 a thread where n % 4 == 0;
+// launched as a programmatic dependent of the kernel that wrote ws
 template <typename T>
-cudaError_t launch_sum(const float* ws, T* dw, const WgradShape& a,
+cudaError_t launch_sum(const float* ws, T* dw, int64_t n, int split,
                        cudaStream_t stream) {
-  const int64_t n = (int64_t)a.KH * a.KW * a.Cin * a.Cout;
-  k2_wgrad_sum_kernel<T><<<(unsigned)ceil_div(n, 256), 256, 0, stream>>>(
-      ws, dw, n, a.split);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  const int vec = n % 4 == 0 ? 4 : 1;
+  cfg.gridDim = dim3((unsigned)ceil_div(n / vec, 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err =
+      vec == 4 ? cudaLaunchKernelEx(&cfg, k2_wgrad_sum_kernel<T, 4>, ws, dw, n,
+                                    split)
+               : cudaLaunchKernelEx(&cfg, k2_wgrad_sum_kernel<T, 1>, ws, dw, n,
+                                    split);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 template <typename T>
@@ -432,39 +656,118 @@ int launch_simt(const void* x, const void* dy, void* dw, void* ws,
       (const T*)x, (const T*)dy, (T*)dw, (float*)ws, a);
   err = cudaGetLastError();
   if (err == cudaSuccess && a.split > 1)
-    err = launch_sum((const float*)ws, (T*)dw, a, s);
+    err = launch_sum((const float*)ws, (T*)dw,
+                     (int64_t)a.KH * a.KW * a.Cin * a.Cout, a.split, s);
   return (int)err;
+}
+
+template <int BM, int BN, int TAPS>
+int launch_wgmma(const CUtensorMap& tm_x, const CUtensorMap& tm_dy, bf16* dw,
+                 float* ws, const WgmmaShape& a, dim3 grid, int device,
+                 cudaStream_t stream) {
+  static unsigned done = 0;
+  auto kernel = k2_wgrad_bf16_wgmma_kernel<BM, BN, TAPS>;
+  cudaError_t err = allow_smem(kernel, kWgMaxSmem, device, &done);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = wg_smem_bytes(BM, BN, TAPS, a.rows, a.stages);
+  cfg.stream = stream;
+  // a programmatic dependent of the kernel before it on the stream
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_dy, dw, ws, a);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess && a.split > 1)
+    err = launch_sum(ws, dw, (int64_t)a.KH * a.KW * a.Cin * a.Cout, a.split,
+                     stream);
+  return (int)err;
+}
+
+// a 4-D tensor map over a [images, H, W, C] bf16 tensor, channels innermost,
+// boxes of 64 channels x (bw, bh, bb)
+bool encode_nhwc(CUtensorMap* map, const void* base, int C, int64_t W,
+                 int64_t H, int64_t N, int bw, int bh, int bb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)(C * W * 2),
+                                 (cuuint64_t)(C * W * H * 2)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh,
+                             (cuuint32_t)bb};
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 on the tensor cores.  Plan: split, grid (gx, gy) over Cin and Cout
-// in tiles of 128; the grid's z is KH * KW * split.
+// bf16 on the tensor cores.  Plan: the tile bm (64 or 128) x bn (64 or
+// 128) over (Cin, Cout) with `taps` taps a block ((bm, bn, taps) one of
+// the kernel's instances), the box (bw, bh, bb) of a step, flat (1: a 1x1
+// kernel with no padding, whose x and dy are walked as [B*H*W] pixels in
+// boxes of bw), the ring's stages, split, grid (gx, gy); the grid's z is
+// KH * KW / taps * split.
 int conv2d_wgrad_bf16_tc(const void* x, const void* dy, void* dw, void* ws,
                          int B, int H, int W, int Cin, int Cout, int KH,
                          int KW, int pad_t, int pad_l, int Ho, int Wo,
-                         int split, int gx, int gy, int device,
-                         void* stream) {
-  const WgradShape a = make_shape(B, H, W, Cin, Cout, KH, KW, pad_t, pad_l,
-                                  Ho, Wo, kTcBK, split);
-  if (Cin % 8 || Cout % 8 || !aligned16(x) || !aligned16(dy) ||
-      !aligned16(dw) || !plan_fits(a, kTcBM, kTcBN, gx, gy, ws))
+                         int bm, int bn, int taps, int bw, int bh, int bb,
+                         int flat, int stages, int split, int gx, int gy,
+                         int device, void* stream) {
+  const int rows = bw * bh * bb;
+  const bool direct = KH == 1 && KW == 1 && pad_t == 0 && pad_l == 0 &&
+                      Ho == H && Wo == W;
+  // the logical [images, H, W] that the boxes walk, of dy and of x
+  const int64_t P = (int64_t)B * Ho * Wo;
+  const int64_t lw = flat ? P : Wo, lh = flat ? 1 : Ho, ln = flat ? 1 : B;
+  WgmmaShape a{Cin, Cout, KH, KW, pad_t, pad_l, bw, bh, bb,
+               (int)ceil_div(lw, bw), (int)ceil_div(lh, bh), rows};
+  const int64_t steps = (int64_t)a.nw * a.nh * ceil_div(ln, bb);
+  a.steps = (int)steps;
+  a.split = split;
+  a.stages = stages;
+  const bool instance = (bm == 64 && (bn == 64 || bn == 128) &&
+                         (taps == 1 || (taps == 3 && bn == 64))) ||
+                        (bm == 128 && (bn == 64 || bn == 128) && taps == 1);
+  if (!instance || KH * KW % taps || Cin % 8 || Cout % 8 || !aligned16(x) ||
+      !aligned16(dy) || !aligned16(dw) || (flat && !direct) || bw < 1 ||
+      bh < 1 || bb < 1 || bw > 256 || bh > 256 || bb > 256 || rows % 16 ||
+      rows > kWgMaxRows || stages < (bm == 64 ? 3 : 2) ||
+      stages > kWgMaxStages ||
+      wg_smem_bytes(bm, bn, taps, rows, stages) > kWgMaxSmem || split < 1 ||
+      split > steps || steps >= (1ll << 31) || (split > 1 && !ws) ||
+      gx != ceil_div(Cin, bm) || gy != ceil_div(Cout, bn) ||
+      (int64_t)KH * KW / taps * split > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  static unsigned done = 0;
-  err = allow_smem(k2_wgrad_bf16_tc_kernel, kTcSmemBytes, device, &done);
-  if (err != cudaSuccess) return (int)err;
+
+  CUtensorMap tm_x = {}, tm_dy = {};
+  const bool ok =
+      flat ? encode_nhwc(&tm_x, x, Cin, P, 1, 1, bw, bh, bb) &&
+                 encode_nhwc(&tm_dy, dy, Cout, P, 1, 1, bw, bh, bb)
+           : encode_nhwc(&tm_x, x, Cin, W, H, B, bw, bh, bb) &&
+                 encode_nhwc(&tm_dy, dy, Cout, Wo, Ho, B, bw, bh, bb);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy,
+                  (unsigned)(KH * KW / taps * split));
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)(KH * KW * split));
-  k2_wgrad_bf16_tc_kernel<<<grid, kTcThreads, kTcSmemBytes, s>>>(
-      (const bf16*)x, (const bf16*)dy, (bf16*)dw, (float*)ws, a);
-  err = cudaGetLastError();
-  if (err == cudaSuccess && split > 1)
-    err = launch_sum((const float*)ws, (bf16*)dw, a, s);
-  return (int)err;
+  bf16* d = (bf16*)dw;
+  float* wsf = (float*)ws;
+  if (bm == 128)
+    return bn == 64 ? launch_wgmma<128, 64, 1>(tm_x, tm_dy, d, wsf, a, grid,
+                                               device, s)
+                    : launch_wgmma<128, 128, 1>(tm_x, tm_dy, d, wsf, a, grid,
+                                                device, s);
+  if (bn == 128)
+    return launch_wgmma<64, 128, 1>(tm_x, tm_dy, d, wsf, a, grid, device, s);
+  return taps == 3 ? launch_wgmma<64, 64, 3>(tm_x, tm_dy, d, wsf, a, grid,
+                                             device, s)
+                   : launch_wgmma<64, 64, 1>(tm_x, tm_dy, d, wsf, a, grid,
+                                             device, s);
 }
 
 // bf16 on the CUDA cores, any shape.  Plan: split, grid (gx, gy) over Cin

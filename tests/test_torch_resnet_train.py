@@ -253,18 +253,21 @@ def test_dgrad_refuses_a_padding_past_the_kernel():
 
 
 @pytest.mark.parametrize("shape,k,pads,variant,split", [
-    ((32, 56, 56, 64, 64), (3, 3), ((1, 1), (1, 1)), k2.WG_TC, 30),
-    ((32, 7, 7, 512, 2048), (1, 1), ((0, 0), (0, 0)), k2.WG_TC, 5),
+    ((32, 56, 56, 64, 64), (3, 3), ((1, 1), (1, 1)), k2.WG_TC, 44),
+    ((32, 7, 7, 512, 2048), (1, 1), ((0, 0), (0, 0)), k2.WG_TC, 1),
     ((2, 9, 9, 12, 20), (3, 3), ((1, 1), (1, 1)), k2.WG_SIMT, 1)])
 def test_wgrad_plan(shape, k, pads, variant, split):
-    """The plan's variant and pixel split: the slices fill one wave of
-    resident blocks, each of at least ``MIN_WGRAD_SLICE_PIXELS`` pixels,
+    """The plan's variant and pixel split: the slices fill at most one wave
+    of resident blocks, each of at least ``MIN_WGRAD_SLICE_PIXELS`` pixels,
     and cover every step once, in order."""
     b, h, w, cin, cout = shape
     p = k2.plan_wgrad(b, h, w, cin, cout, *k, pads, torch.bfloat16,
                       k2.H100_SMS)
     assert (p.variant, p.split) == (variant, split)
-    assert p.grid == (-(-cin // 128), -(-cout // 128), k[0] * k[1] * split)
+    assert p.grid == (-(-cin // p.bm), -(-cout // p.bn),
+                      k[0] * k[1] // p.taps * split)
+    assert p.grid[0] * p.grid[1] * p.grid[2] <= k2.H100_SMS * (
+        k2.WGRAD_RESIDENT[variant]) or split == 1
     bounds = [p.slice_bounds(z) for z in range(p.split)]
     assert bounds[0][0] == 0 and bounds[-1][1] == p.steps
     assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
@@ -272,6 +275,165 @@ def test_wgrad_plan(shape, k, pads, variant, split):
         k2.MIN_WGRAD_SLICE_PIXELS, p.steps * p.bk)
     assert k2.plan_wgrad(b, h, w, cin, cout, *k, pads, torch.float32,
                          k2.H100_SMS).variant == k2.WG_F32
+
+
+# ResNet-50's 16 distinct stride-1 convolutions (H = W, Cin, Cout, k), B=32
+RESNET50_WGRAD_SHAPES = [
+    (56, 64, 64, 1), (56, 256, 64, 1), (56, 64, 64, 3), (56, 64, 256, 1),
+    (56, 256, 128, 1), (28, 512, 128, 1), (28, 128, 128, 3),
+    (28, 128, 512, 1), (28, 512, 256, 1), (14, 1024, 256, 1),
+    (14, 256, 256, 3), (14, 256, 1024, 1), (14, 1024, 512, 1),
+    (7, 2048, 512, 1), (7, 512, 512, 3), (7, 512, 2048, 1)]
+
+
+@pytest.mark.parametrize("h,cin,cout,k", RESNET50_WGRAD_SHAPES)
+def test_wgrad_plan_fits_resnet50(h, cin, cout, k):
+    """At each ResNet-50 shape the tensor-core variant is chosen; no tile
+    carries a zero-filled channel and the boxes tile the pixels exactly (no
+    product runs on zero fill); the grid is within CUDA's limits and the
+    ring fits shared memory; the slices cover every step once, in order."""
+    pads = ((k // 2, k // 2), (k // 2, k // 2))
+    p = k2.plan_wgrad(32, h, h, cin, cout, k, k, pads, torch.bfloat16,
+                      k2.H100_SMS)
+    assert p.variant == k2.WG_TC
+    assert (p.bm, p.bn, p.taps) in k2.WGRAD_TILES
+    assert cin % p.bm == 0 and cout % p.bn == 0
+    assert p.grid == (cin // p.bm, cout // p.bn, k * k // p.taps * p.split)
+    assert p.grid[0] < 2 ** 31 and max(p.grid[1:]) <= 65535
+    # the walk: whole boxes of a multiple of 16 pixels, exactly the pixels
+    bw, bh, bb = p.box
+    walk = (32 * h * h, 1, 1) if p.flat else (h, h, 32)
+    assert p.flat == (k == 1)
+    assert p.bk == bw * bh * bb and p.bk % 16 == 0
+    assert p.bk <= k2.WGRAD_MAX_ROWS
+    assert all(g % e == 0 for g, e in zip(walk, p.box))
+    assert p.boxes == tuple(g // e for g, e in zip(walk, p.box))
+    assert p.steps * p.bk == 32 * h * h
+    origins = {p.box_origin(s) for s in range(p.steps)}
+    assert len(origins) == p.steps and all(
+        o[d] % p.box[d] == 0 and o[d] < walk[d] for o in origins
+        for d in range(3))
+    # the ring: at least three stages, in the card's shared memory
+    stage = (p.taps * p.bm // 64 + p.bn // 64) * p.bk * 128
+    assert 3 <= p.stages <= k2.WGRAD_MAX_STAGES
+    assert p.stages * stage + 16 * p.stages + 1024 <= k2.WGRAD_SMEM_BYTES
+    # the slices: contiguous, in order, covering every step once
+    steps = [s for z in range(p.split) for s in range(*p.slice_bounds(z))]
+    assert steps == list(range(p.steps))
+    assert p.grid[0] * p.grid[1] * p.grid[2] <= k2.H100_SMS or p.split == 1
+
+
+def test_wgrad_plan_matches_the_source():
+    """The plan's limits and tiles are the kernel's: its largest box, its
+    deepest ring, the shared memory a block may take and its instances;
+    the ``mma.sync`` kernel and its ``ldmatrix`` helper are gone."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC_DIR / k2.BWD_SOURCE).read_text()
+    const = dict(re.findall(r"constexpr int (kWg\w+) = (\d+);", src))
+    assert int(const["kWgMaxRows"]) == k2.WGRAD_MAX_ROWS
+    assert int(const["kWgMaxStages"]) == k2.WGRAD_MAX_STAGES
+    assert int(const["kWgMaxSmem"]) == k2.WGRAD_SMEM_BYTES
+    launched = set(re.findall(r"launch_wgmma<(\d+), (\d+), (\d+)>\(", src))
+    assert {tuple(map(int, t)) for t in launched} == set(k2.WGRAD_TILES)
+    assert "mma.sync" not in src and "ldmatrix" not in src
+    assert "k2_wgrad_bf16_tc_kernel" not in src
+    assert ".f32.bf16.bf16" in src and "p, 1, 1, 1, 1;" in src
+    assert "hopper.cuh" in build.local_headers(k2.BWD_SOURCE)
+
+
+@pytest.mark.parametrize("tile,k", [((64, 256, 1), 1), ((128, 64, 3), 3),
+                                     ((64, 64, 3), 1)])
+def test_wgrad_plan_refuses_a_tile_without_an_instance(tile, k):
+    """A tile the kernel has no instance for, or taps that do not divide the
+    kernel's, is refused before any launch."""
+    pads = ((k // 2, k // 2), (k // 2, k // 2))
+    with pytest.raises(ValueError, match="no tensor-core"):
+        k2.plan_wgrad(2, 8, 8, 64, 64, k, k, pads, torch.bfloat16,
+                      k2.H100_SMS, True, tile)
+
+
+def _box(t, c0, w0, h0, b0, box):
+    """A TMA box of the [N, H, W, C] tensor t: 64 channels from c0, (bw, bh,
+    bb) pixels from (w0, h0, b0), zero where it lies outside t (TMA's
+    out-of-bounds fill); rows pixel-major, W fastest."""
+    bw, bh, bb = box
+    n, hh, ww, cc = t.shape
+    out = torch.zeros((bb, bh, bw, 64), dtype=torch.float32)
+    lo = [max(0, -v) for v in (b0, h0, w0, -c0)]
+    hi = [min(e, lim - v) for e, lim, v in ((bb, n, b0), (bh, hh, h0),
+                                           (bw, ww, w0))]
+    c_hi = min(64, cc - c0)
+    if min(e - s for s, e in zip(lo[:3], hi)) > 0 and c_hi > 0:
+        out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2], :c_hi] = t[
+            b0 + lo[0]:b0 + hi[0], h0 + lo[1]:h0 + hi[1],
+            w0 + lo[2]:w0 + hi[2], c0:c0 + c_hi].float()
+    return out.reshape(bb * bh * bw, 64)
+
+
+def _replay_box_walk(x, dy, kh, kw, padding, p):
+    """The tensor-core kernel's walk replayed in plain float32 PyTorch:
+    for each tap group, pixel slice and (Cin, Cout) tile, the steps' boxes
+    (x's at the tap's offset) multiplied box by box into a float32 partial
+    tile, the partials added in slice order."""
+    b, h, w, cin = x.shape
+    cout = dy.shape[3]
+    (pt, _), (pl, _) = padding
+    if p.flat:
+        x, dy = x.reshape(1, 1, -1, cin), dy.reshape(1, 1, -1, cout)
+    gx, gy, _ = p.grid
+    ws = torch.zeros((p.split, kh * kw, gx * p.bm, gy * p.bn))
+    for g in range(kh * kw // p.taps):
+        for z in range(p.split):
+            for s in range(*p.slice_bounds(z)):
+                w0, h0, b0 = p.box_origin(s)
+                for tp in range(p.taps):
+                    tap = g * p.taps + tp
+                    i, j = divmod(tap, kw)
+                    for c0 in range(0, gx * p.bm, 64):
+                        a = _box(x, c0, w0 + j - pl, h0 + i - pt, b0, p.box)
+                        for n0 in range(0, gy * p.bn, 64):
+                            d = _box(dy, n0, w0, h0, b0, p.box)
+                            ws[z, tap, c0:c0 + 64, n0:n0 + 64] += a.T @ d
+    dw = ws[0]
+    for z in range(1, p.split):
+        dw = dw + ws[z]
+    return dw[:, :cin, :cout].reshape(kh, kw, cin, cout)
+
+
+# (x shape, kernel, padding): a padded 3x3 whose boxes run past the image
+# and whose tiles past Cin and Cout (ragged), the 7x7 box (7, 1, 16) split
+# in two slices, a 1x1 walked flat, 5x3 with asymmetric padding in tap
+# groups of three, 136 -> 264 channels over two and three 128-wide tiles
+WALK_SHAPES = [((2, 9, 11, 16, 24), (3, 3), ((1, 1), (1, 1))),
+               ((16, 7, 7, 8, 16), (3, 3), ((1, 1), (1, 1))),
+               ((2, 7, 9, 8, 16), (1, 1), ((0, 0), (0, 0))),
+               ((3, 9, 11, 8, 16), (5, 3), ((2, 1), (1, 0))),
+               ((2, 6, 6, 136, 264), (3, 3), ((1, 1), (1, 1)))]
+
+
+@pytest.mark.parametrize("shape,k,pads", WALK_SHAPES)
+def test_wgrad_box_walk_matches_plain_and_jax_vjp(shape, k, pads):
+    """The tensor-core kernel's box walk (TMA boxes with out-of-bounds zero
+    fill, tap offsets, slices added in order) gives the weight gradient:
+    within 1e-5 of scale of ``conv2d_wgrad_plain`` (float32 sums in another
+    order) and of ``jax.vjp`` of ``lax.conv_general_dilated`` (float32),
+    on bf16-exact inputs."""
+    b, h, w, cin, cout = shape
+    x, wt = _grad_inputs(shape, k, "bfloat16")
+    (pt, pb), (pl, pr) = pads
+    dy = _dy((b, h + pt + pb - k[0] + 1, w + pl + pr - k[1] + 1, cout),
+             "bfloat16")
+    p = k2.plan_wgrad(b, h, w, cin, cout, *k, pads, torch.bfloat16,
+                      k2.H100_SMS)
+    assert p.variant == k2.WG_TC
+    got = _replay_box_walk(_t(x, "bfloat16"), _t(dy, "bfloat16"), *k, pads,
+                           p)
+    plain = k2.conv2d_wgrad_plain(_t(x, "float32"), _t(dy, "float32"), *k,
+                                  padding=pads)
+    _, _, want = _jax_vjp(x, wt, dy, pads, "float32")
+    assert _rel(got, plain.numpy()) <= GRAD_TOL["float32"]
+    assert _rel(got, want) <= GRAD_TOL["float32"]
 
 
 def test_gradient_on_meta_books_the_census_and_launches_nothing():

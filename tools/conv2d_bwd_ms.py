@@ -3,6 +3,7 @@
 
     python3 tools/conv2d_bwd_ms.py [--root DIR] [--batch 32] [--iters 10]
                                    [--seed 0] [--shapes test,resnet50]
+                                   [--tiles [--repeat 3]]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  For each shape and dtype
@@ -22,13 +23,23 @@ first line holds the build seconds and ptxas report of
 (``nvidia-smi``).  Shapes ``resnet50``: ResNet-50's 16 distinct stride-1
 convolutions at ``--batch`` (224x224 images) with the count of each in one
 forward; ``test``: small and ragged ones (odd sizes, Cin or Cout not a
-multiple of 8, a 5x3 kernel, B=2).  Exits 1 on a disagreement, 2 without a
-CUDA card.
+multiple of 8, a 5x3 kernel, B=2).  ``device_ms`` beside each ``ms``:
+the same calls queued behind a sleep kernel, so that the card runs them
+back to back (the host's launch time hidden), timed by CUDA events.
+
+``--tiles``: for each ResNet-50 shape in bf16, also the weight gradient
+under every tensor-core tile ``(bm, bn, taps)`` of ``k2.WGRAD_TILES`` that
+the shape takes (``plan_wgrad(..., tile)``), each held to the same gate
+against the plain version and timed (``device_ms``: the median of
+``--repeat`` readings taken in turns), on one line a shape.
+Exits 1 on a disagreement, 2 without a CUDA card.
 """
 
 import argparse
+import functools
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -61,6 +72,37 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def queued_ms(torch, fn, calls: int = 10, sleep_ms: float = 20.0):
+    """Device ms of one ``fn()``: ``calls`` calls queued behind a sleep
+    kernel of ``sleep_ms``, timed by CUDA events around them; None where the
+    host took longer than the sleep to queue them."""
+    import time
+    if not _SLEEP_CYCLES_PER_MS:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / max(s.elapsed_time(e), 1e-3))
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * _SLEEP_CYCLES_PER_MS[0]))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls if host_ms < sleep_ms else None
 
 
 def bound(pixels, b, h, w, cin, cout, kh, kw, dtype_name, itemsize):
@@ -106,21 +148,66 @@ def case(torch, k2, gen, dev, shape, dtype, iters):
         ok &= good
         out[what] = {"max_abs_err_of_scale": err, "bitwise_twice": bitwise,
                      "within": good, "ms": time_ms(torch, run, iters),
+                     "device_ms": queued_ms(torch, run),
                      "plain_ms": time_ms(torch, plain, 2, warmup=1)}
     # cuDNN's gradient of the same convolution, channels-last, TF32 off
     xc = x.permute(0, 3, 1, 2)
     wc = wt.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
     dyc = dy.permute(0, 3, 1, 2)
     if (pt, pl) == (pb, pr):
-        out["wgrad"]["library_ms"] = time_ms(torch, lambda: (
-            torch.nn.grad.conv2d_weight(xc, tuple(wc.shape), dyc,
-                                        padding=(pt, pl))), iters)
+        lib_w = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+            xc, tuple(wc.shape), dyc, padding=(pt, pl))
+        out["wgrad"]["library_ms"] = time_ms(torch, lib_w, iters)
+        out["wgrad"]["library_device_ms"] = queued_ms(torch, lib_w)
         out["dgrad"]["library_ms"] = time_ms(torch, lambda: (
             torch.nn.grad.conv2d_input(tuple(xc.shape), wc, dyc,
                                        padding=(pt, pl))), iters)
     pixels = b * ho * wo
     out["bound"] = bound(pixels, b, h, w, cin, cout, kh, kw, name,
                          x.element_size())
+    return ok, out
+
+
+def tile_sweep(torch, k2, gen, dev, shape, repeat):
+    """The bf16 weight gradient of one shape under every tensor-core tile it
+    takes: error against the plain version, bitwise twice, and device ms,
+    the median of ``repeat`` readings taken in turns over the tiles."""
+    b, h, w, cin, cout, kh, kw, pads = shape
+    (pt, pb), (pl, pr) = pads
+    ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    x = torch.randn((b, h, w, cin), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = torch.randn((b, ho, wo, cout), generator=gen, device=dev).to(
+        torch.bfloat16)
+    want = k2.conv2d_wgrad_plain(x, dy, kh, kw, padding=pads).float()
+    scale = float(want.abs().max())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"shape": [b, h, w, cin, cout, kh, kw], "tiles": []}
+    ok = True
+    runs = []
+    for tile in k2.WGRAD_TILES:
+        if kh * kw % tile[2]:
+            continue
+        p = k2.plan_wgrad(b, h, w, cin, cout, kh, kw, pads, torch.bfloat16,
+                          sms, True, tile)
+        run = functools.partial(k2.wgrad_launch, x, dy, kh, kw, pads, p)
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max()) / scale
+        good = err <= TOL["bfloat16"] and torch.equal(got, again)
+        ok &= good
+        runs.append(run)
+        out["tiles"].append({"tile": list(tile), "split": p.split,
+                             "stages": p.stages, "rel_err": err,
+                             "within": good, "readings": []})
+    for _ in range(repeat):
+        for run, row in zip(runs, out["tiles"]):
+            row["readings"].append(queued_ms(torch, run))
+    for row in out["tiles"]:
+        row["device_ms"] = statistics.median(row["readings"])
+    chosen = k2.plan_wgrad(b, h, w, cin, cout, kh, kw, pads, torch.bfloat16,
+                           sms)
+    out["chosen"] = [chosen.bm, chosen.bn, chosen.taps]
     return ok, out
 
 
@@ -132,6 +219,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--shapes", default="test,resnet50")
+    ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     import torch
@@ -159,6 +248,16 @@ def main() -> int:
             shapes.append(("resnet50", (args.batch, h, h, cin, cout, k, k,
                                         ((p, p), (p, p))), n))
     ok = True
+    if args.tiles:
+        for h, cin, cout, k, n in RESNET50:
+            p = k // 2
+            good, out = tile_sweep(torch, k2, gen, dev, (
+                args.batch, h, h, cin, cout, k, k, ((p, p), (p, p))),
+                args.repeat)
+            out["count_per_forward"] = n
+            ok &= good
+            print(json.dumps(out), flush=True)
+            torch.cuda.empty_cache()
     for kind, shape, count in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             good, out = case(torch, k2, gen, dev, shape, dtype, args.iters)
