@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and `nvcc`:
 
-    python3 chip_smoke.py [--seed 0] [--large-freq-points 25600]
+    python3 chip_smoke.py [--seed 0] [--large-freq-points 6400]
 
 It builds the hand-written kernels from `src/repro_torch/kernels/csrc/` (one
 `nvcc` per source, all seven started together), holds each against its plain
@@ -100,7 +100,7 @@ Lines, in order:
                                      old chain, K1b
   {"phase": "campaign_default", ...} 125,440-candidate campaign, three tiers
   {"phase": "campaign_resume", ...}  checkpoint / resume == fresh
-  {"phase": "campaign_large", ...}   ~10M-candidate campaign, float32
+  {"phase": "campaign_large", ...}   ~2.5M-candidate campaign, float32
   {"phase": "predictors", ...}       dataset, k-fold MAPE / R^2 (synthetic
                                      census), forest walk and KNN card vs
                                      CPU, fast-path pick card vs CPU
@@ -117,7 +117,7 @@ Lines, in order:
                                      workers (float64), float32, respawn,
                                      distributed adaptive, chaos (all
                                      bitwise the single-process runs);
-                                     1 / 2 / 4 workers over ~1 M candidates
+                                     1 / 2 / 4 workers over ~0.5 M candidates
   {"phase": "conv2d", ...}           K2 vs plain: ResNet-50 shapes at B=1,
                                      8, 32, test and ragged shapes, plans
   {"phase": "resnet50", ...}         inference at B=1, 32 (bf16), 8 (f32)
@@ -144,7 +144,11 @@ Lines, in order:
   {"phase": "token_serving", ...}    ServingEngine: stablelm-1.6b bf16 (4
                                      slots, 8 requests), mamba2-130m; engine
                                      == a direct decode loop
-  {"phase": "census", ...}           meta census of every ported cell (32);
+  {"phase": "census", ...}           meta census of every ported cell (32,
+                                     `python -m repro_torch.launch.dryrun
+                                     --all`, started in a process of its
+                                     own before the build, which sees no
+                                     card);
                                      the card census of stablelm, mamba2
                                      and zamba2 prefill (B=1 S=4096),
                                      whisper's (B=1 S=448) and a
@@ -461,13 +465,21 @@ def phase_build() -> dict:
     if not tc or any(r["spill_stores"] or r["spill_loads"] for r in tc):
         raise AssertionError(f"K3's tensor-core kernel spills (or is "
                              f"missing from the ptxas report): {tc}")
+    f32_tc = [r for r in out[k3.SOURCE]["kernels"]
+              if any(k in r["kernel"] for k in K3_F32_TC_KERNELS)]
+    if len(f32_tc) != 4 or any(r["spill_stores"] or r["spill_loads"]
+                               for r in f32_tc):
+        raise AssertionError(f"K3's float32 wgmma route (its two instances "
+                             f"and the two pre-pass kernels) spills (or is "
+                             f"missing from the ptxas report): {f32_tc}")
     for tag, what in ((K3_D256_INSTANCE, "head-dim-256"),
                       (K3_MLA_INSTANCE, "(192, 128)")):
         inst = [r for r in out[k3.SOURCE]["kernels"] if tag in r["kernel"]]
         if len(inst) != 4 or any(r["spill_stores"] or r["spill_loads"]
                                  for r in inst):
             raise AssertionError(f"K3's {what} instances (bf16 wgmma and "
-                                 f"float32, with and without the LSE) spill "
+                                 f"float32 -- at (192, 128) 3xTF32 wgmma --,"
+                                 f" with and without the LSE) spill "
                                  f"(or are missing from the ptxas report): "
                                  f"{inst}")
     out[k3.BWD_SOURCE]["kernels"] = ptxas_report(
@@ -480,7 +492,8 @@ def phase_build() -> dict:
                              f"wgmma at hd 64, 128, 256 and (192, 128) -- "
                              f"the split dK / dV kernel at 256 and (192, "
                              f"128) --, float32 3xTF32 at 64, 128, 256 "
-                             f"and (192, 128)) spill (or are missing from "
+                             f"on mma.sync and at (192, 128) on wgmma with "
+                             f"its pre-pass) spill (or are missing from "
                              f"the ptxas report): {bwd}")
     out[k4.SOURCE]["kernels"] = ptxas_report(build.build_logs[k4.SOURCE])
     tiles = [r for r in out[k4.SOURCE]["kernels"]
@@ -1810,10 +1823,10 @@ def phase_selection(workloads, device, campaign, fresh, models,
 # --- the distributed campaign fabric -------------------------------------------
 
 # the scaling run: its worker counts, and the DVFS lattice that takes the
-# default chips and slice sizes to ~1 M candidates (392 rows x 2,560 points:
-# 1,003,520 candidates, 245 tiles of 4,096)
+# default chips and slice sizes to ~0.5 M candidates (392 rows x 1,280
+# points: 501,760 candidates, 123 tiles of 4,096)
 FABRIC_WORKERS = (1, 2, 4)
-FABRIC_FREQ_POINTS = 2_560
+FABRIC_FREQ_POINTS = 1_280
 FABRIC_CHAOS_SEED = 7
 FABRIC_COUNTS = ("lost_workers", "worker_crashes", "worker_clean_exits",
                  "deliveries", "duplicates", "reissued_tiles")
@@ -1882,7 +1895,7 @@ def phase_fabric(workloads, device, main_path, adaptive, space=None,
     plain ``Campaign``; (b) the same clean in float32; (c) one worker
     killed after one tile and respawned; (d) the distributed adaptive
     campaign, clean and with a worker crash; (e) a seeded chaos policy on
-    the in-process fleet; (f) 1, 2 and 4 workers over ~1 M candidates.
+    the in-process fleet; (f) 1, 2 and 4 workers over ~0.5 M candidates.
     Every frontier is held bitwise against the single-process run's.
     Counts are zeroed just before (a) and read just after (f) in this
     process; each worker ships its own in its terminal snapshot (a worker
@@ -2029,7 +2042,7 @@ def phase_fabric(workloads, device, main_path, adaptive, space=None,
             "quarantined_files": len(report["quarantined_files"])}
         seconds["e"] = time.perf_counter() - t
 
-    # (f) scaling: 1, 2, 4 clean workers over ~1 M candidates
+    # (f) scaling: 1, 2, 4 clean workers over ~0.5 M candidates
     scaling, first = [], None
     for n in FABRIC_WORKERS:
         t = time.perf_counter()
@@ -2865,21 +2878,30 @@ FLASH_MODEL_CASES = ("stablelm", "qwen3", "whisper", "paligemma",
 # line, and the one those rows report
 FLASH_MLA_CASES = ("deepseek", "mla")
 FLASH_MLA_HEADLINE = "deepseek_b1_s4096"
-# other softmax scales (the tensor-core kernel folds a positive scale into
-# its exp2 and multiplies first otherwise), causal and not: (B, S, H, KV, d)
+# other softmax scales (the tensor-core kernels fold a positive scale into
+# their exp2 and multiply first otherwise), causal and not: (B, S, H, KV,
+# d), d is hd == hv or (hd, hv) -- deepseek's (192, 128) runs float32 as
+# 3xTF32 on wgmma
 FLASH_SCALES = (0.3, -0.2, 0.0)
-FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128))
+FLASH_SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128),
+                      (1, 300, 4, 4, (192, 128)))
 # K3's profiler symbols: every K3 kernel's name starts with one per dtype
 K3_SYMBOL = {torch.bfloat16: "flash_bf16_", torch.float32: "flash_f32_"}
 K3_TC_KERNEL = "flash_bf16_tc_kernel"
+# the float32 wgmma route at (192, 128): the pre-pass that splits k
+# and the one that transposes and splits v, then the kernel
+K3_F32_TC_KERNELS = ("flash_f32_split_kernel", "flash_f32_vt_kernel",
+                     "flash_f32_tc_kernel")
 # the mangled <256, ...> of K3's head-dim-256 instances (bf16 wgmma
 # <256, 256, false|true> and float32 <256, 256, false|true>): no spills
-# allowed; and of its (192, 128) instances (the same four)
+# allowed; and of its (192, 128) instances (bf16 wgmma and float32 3xTF32
+# wgmma, with and without the LSE)
 K3_D256_INSTANCE = "kernelILi256E"
 K3_MLA_INSTANCE = "kernelILi192ELi128E"
 # the variant each dtype takes on the main path (every model shape, head
 # dims 64, 128 and paligemma's 256): bf16 on wgmma, float32 on the CUDA
-# cores
+# cores (at deepseek's (192, 128) the same LAUNCHES key runs 3xTF32 on
+# wgmma)
 K3_MAIN = {torch.bfloat16: k3.TC, torch.float32: k3.F32}
 
 
@@ -2889,10 +2911,30 @@ def flash_bound(b, s, h, kv, hd, hv, causal, dtype, sk=None,
     S): K3's census work (``k3.fwd_work``: q, k, v read once and o written
     once; 2 * B * H * (visible pairs) * (hd + hv) operations, visible pairs
     S(S+1)/2 causal plus P(P-1)/2 for a prefix of P keys, S Sk not) at the
-    dtype's peak (bf16: the tensor cores)."""
+    peak of the units the kernel runs it on: bf16 on the tensor cores;
+    float32 at the pairs of ``k3.RECT_PAIRS`` as 3xTF32 on the TF32 tensor
+    cores (495 / 3 TFLOP/s), at the other shapes on the CUDA cores (67
+    TFLOP/s).  float32 also gets ``cuda_core_bound_ms``, the same work at
+    67 TFLOP/s."""
     ops, nbytes = k3.fwd_work(b, s, h, kv, hd, hv, causal, dtype, sk=sk,
                               prefix=prefix)
-    return bound(nbytes, ops, dtype)
+    out = bound(nbytes, ops, dtype)
+    if dtype == torch.float32:
+        core = out["bound_ms"]
+        if (hd, hv) in k3.RECT_PAIRS:
+            out = tf32_bound(nbytes, ops)
+        out["cuda_core_bound_ms"] = core
+    return out
+
+
+def tf32_bound(nbytes: int, ops: int) -> dict:
+    """``bound`` of float32 work run as 3xTF32: three TF32 products a
+    float32 one, at 495 TFLOP/s."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / (TF32_FLOPS / 3) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
 
 
 def prefix_mask(s: int, prefix: int, device):
@@ -2960,6 +3002,7 @@ def flash_case(gen, device, case, dtype) -> dict:
            "plain_ms": time_ms(lambda: k3.flash_attention_plain(
                q, k, v, **kw), 2, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "cuda_core_bound_ms": bd.get("cuda_core_bound_ms"),
            "library_ms": None, "library_max_abs_err": None,
            "device_ms": None}
     if hd == hv or name.startswith(FLASH_MLA_CASES):
@@ -2969,9 +3012,18 @@ def flash_case(gen, device, case, dtype) -> dict:
         row["library_ms"] = time_ms(lambda: library_flash_attention(
             q, k, v, **kw), 10 if big else 20)
     if name.startswith(FLASH_MODEL_CASES):
-        us = device_us({"k3": (lambda: k3.flash_attention(q, k, v, **kw),
-                               K3_SYMBOL[dtype])}, reps=5)
+        fns = {"k3": (lambda: k3.flash_attention(q, k, v, **kw),
+                      K3_SYMBOL[dtype])}
+        if plan.entry == k3.F32_TC_ENTRY:
+            # the float32 wgmma kernel and its pre-pass, apart
+            fns.update({name: (fns["k3"][0], name)
+                        for name in K3_F32_TC_KERNELS})
+        us = device_us(fns, reps=5)
         row["device_ms"] = None if us["k3"] is None else us["k3"] / 1e3
+        if plan.entry == k3.F32_TC_ENTRY:
+            row["device_ms_by_kernel"] = {
+                name: None if us[name] is None else us[name] / 1e3
+                for name in K3_F32_TC_KERNELS}
     return row
 
 
@@ -2983,12 +3035,31 @@ def flash_within(o, op, dtype) -> bool:
     return bool((diff <= limit).all())
 
 
+def attention_f64(q, k, v, causal, scale):
+    """Softmax attention of BSHD q over k, v (GQA by repeating the kv heads)
+    in float64 on the card: the exact answer that float32 K3 and its plain
+    version each round their own way."""
+    q, k, v = (t.double() for t in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        s = q.shape[1]
+        seen = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~seen, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v)
+
+
 def flash_scale_case(gen, device, shape, scale, causal, dtype) -> dict:
     """K3 against its plain version at an explicit softmax scale; raises on
-    disagreement."""
+    disagreement.  float32 also reports how far each of the two lies from
+    ``attention_f64`` (not a gate: the plain version rounds its float32
+    scores its own way, and at scale 0.3 and head dim 192 that alone is
+    ~1e-5)."""
     b, s, h, kv, d = shape
-    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device)
-               .to(dtype) for n in (h, kv, kv))
+    hd, hv = d if isinstance(d, tuple) else (d, d)
+    q, k, v = (torch.randn((b, s, n, w), generator=gen, device=device)
+               .to(dtype) for n, w in ((h, hd), (kv, hd), (kv, hv)))
     o = k3.flash_attention(q, k, v, causal=causal, scale=scale)
     op = k3.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
@@ -2996,9 +3067,15 @@ def flash_scale_case(gen, device, shape, scale, causal, dtype) -> dict:
     if not flash_within(o, op, dtype):
         raise AssertionError(f"K3 {shape} scale {scale} causal {causal} "
                              f"{dtype}: max |diff| {err} over the limit")
-    return {"shape": list(shape), "scale": scale, "causal": causal,
-            "dtype": SUFFIX[dtype],
-            "variant": k3.plan_for(q, k, v).variant, "max_abs_err": err}
+    row = {"shape": [b, s, h, kv, hd, hv], "scale": scale, "causal": causal,
+           "dtype": SUFFIX[dtype],
+           "variant": k3.plan_for(q, k, v).variant, "max_abs_err": err}
+    if dtype == torch.float32:
+        exact = attention_f64(q, k, v, causal, scale)
+        row["max_abs_err_f64"] = float((o.double() - exact).abs().max())
+        row["plain_max_abs_err_f64"] = float((op.double() - exact).abs()
+                                             .max())
+    return row
 
 
 def flash_view_case(gen, device) -> dict:
@@ -3070,7 +3147,10 @@ def phase_flash_attention(device, seed: int) -> dict:
                          "(enable_gqa; a prefix as a boolean attn_mask), "
                          "timed where hv == hd; bound = "
                          "max(bytes of q, k, v, o / 3.35 TB/s, 2 B H "
-                         "pairs (hd + hv) / peak: 989 TFLOP/s bf16, 67 f32); "
+                         "pairs (hd + hv) / the peak of the kernel's units:"
+                         " 989 TFLOP/s bf16, 67 f32 on the CUDA cores, "
+                         "495 / 3 f32 as 3xTF32 at (192, 128); "
+                         "cuda_core_bound (f32) the same at 67); "
                          "pairs S Sk for a call whose Sk keys are not its S "
                          "queries' own, S(S+1)/2 + P(P-1)/2 with a prefix of "
                          "P keys"})
@@ -3418,6 +3498,7 @@ def flash_rows(rows, lm, training, zb, wb, pb, db) -> list:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "cuda_core_bound_ms": head["cuda_core_bound_ms"],
             "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
                       f"KV={head['KV']}, hd={head['hd']}, hv={head['hv']}, "
                       f"causal, prefix {head['prefix']}"),
@@ -3425,8 +3506,11 @@ def flash_rows(rows, lm, training, zb, wb, pb, db) -> list:
                 "case", "B", "S", "Sk", "H", "KV", "hd", "hv", "causal",
                 "prefix",
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")} for r in mine
+                "cuda_core_bound_ms", "library_ms", "max_abs_err")}
+                for r in mine
                 if r["case"].startswith(FLASH_MODEL_CASES)]}
+        if "device_ms_by_kernel" in head:
+            row["device_ms_by_kernel"] = head["device_ms_by_kernel"]
         for path, phase, runs in prefill:
             if path in pre_paths and phase["launches"].get(variant, 0):
                 row["in_" + path] = {run: {
@@ -5230,14 +5314,26 @@ BWD_MAIN = {torch.bfloat16: k3.BWD_BF16, torch.float32: k3.BWD_F32}
 BWD_D256_HEADLINE = "paligemma_b1_s4096"
 # the backward's tensor-core kernels, bf16 (wgmma: dQ at hd 64, 128, 256
 # and (192, 128), dK / dV at 64 and 128, the split dK / dV kernel at 256
-# and (192, 128)) and float32 (3xTF32 on mma.sync, hd 64, 128, 256 and
-# (192, 128)): 16 instances, ptxas must report no spills
+# and (192, 128)) and float32 (3xTF32 on mma.sync, hd 64, 128, 256; at
+# (192, 128) 3xTF32 on wgmma, its three passes, and its pre-pass: split
+# and transposed at 192 and 128, v split, D): 21 instances, ptxas must
+# report no spills
+BWD_F32_TC_KERNELS = ("flash_bwd_f32_wgmma_kernel",
+                      "flash_bwd_f32_split_kernel", "flash_bwd_f32_t_kernel",
+                      "flash_bwd_f32_dd_kernel")
 BWD_TC_KERNELS = ("flash_bwd_dq_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_tc_kernel",
                   "flash_bwd_dkdv_bf16_split_kernel",
                   "flash_bwd_dq_f32_tc_kernel",
-                  "flash_bwd_dkdv_f32_tc_kernel")
-BWD_TC_INSTANCES = 16
+                  "flash_bwd_dkdv_f32_tc_kernel") + BWD_F32_TC_KERNELS
+BWD_TC_INSTANCES = 21
+# the float32 wgmma route's kernels by part, as the profiler names them
+BWD_F32_TC_PARTS = (("split", "flash_bwd_f32_split_kernel"),
+                    ("transpose", "flash_bwd_f32_t_kernel"),
+                    ("d", "flash_bwd_f32_dd_kernel"),
+                    ("dq_pass", "flash_bwd_f32_wgmma_kernel<0>"),
+                    ("dk_pass", "flash_bwd_f32_wgmma_kernel<1>"),
+                    ("dv_pass", "flash_bwd_f32_wgmma_kernel<2>"))
 
 
 def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
@@ -5246,9 +5342,10 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
     S): q, k, v, o, do and the float32 log-sum-exp read once, dq, dk, dv
     written once; five products over the visible pairs (S again, dP, dV,
     dQ, dK): 2 B H pairs 5 d operations, 2.5 times the forward's, at the
-    dtype's peak.  float32 also gets ``units_bound_ms``: the same work at
-    the rate of the units the kernels run it on, 3xTF32 on the TF32 tensor
-    cores (495 / 3 TFLOP/s)."""
+    peak of the units the kernels run it on: bf16 on the tensor cores,
+    float32 (every float32 backward kernel) as 3xTF32 on the TF32 tensor
+    cores (495 / 3 TFLOP/s).  float32 also gets ``cuda_core_bound_ms``,
+    the same work at 67 TFLOP/s."""
     ops, nbytes = k3.bwd_work(b, s, h, kv, d, d if hv is None else hv,
                               causal, dtype, sk=sk, prefix=prefix)
     # K3's census (``k3.bwd_work``) also counts D = rowsum(dO O), which the
@@ -5256,8 +5353,9 @@ def flash_bwd_bound(b, s, h, kv, d, causal, dtype, sk=None,
     nbytes -= 4 * b * h * s
     out = bound(nbytes, ops, dtype)
     if dtype == torch.float32:
-        out["units_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
-                                    ops / (TF32_FLOPS / 3)) * 1e3
+        core = out["bound_ms"]
+        out = tf32_bound(nbytes, ops)
+        out["cuda_core_bound_ms"] = core
     return out
 
 
@@ -5656,11 +5754,19 @@ def bwd_case(gen, device, case, dtype) -> dict:
            "plain_ms": time_ms(lambda: k3.flash_attention_bwd_plain(
                do, q, k, v, o, lse, **kw), 1, warmup=1),
            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-           "units_bound_ms": bd.get("units_bound_ms"),
+           "cuda_core_bound_ms": bd.get("cuda_core_bound_ms"),
            "library_ms": time_ms(lambda: torch.autograd.grad(
                lib_o, (qs, ks, vs), do_t, retain_graph=True), 10)}
-    us = device_us({"bwd": (run, BWD_SYMBOL)}, reps=5)
+    fns = {"bwd": (run, BWD_SYMBOL)}
+    if plan.entry == k3.BWD_F32_TC_ENTRY:
+        # the float32 wgmma route apart: its pre-pass, then its three passes
+        fns.update({part: (run, sym) for part, sym in BWD_F32_TC_PARTS})
+    us = device_us(fns, reps=5)
     row["device_ms"] = None if us["bwd"] is None else us["bwd"] / 1e3
+    if plan.entry == k3.BWD_F32_TC_ENTRY:
+        row["device_ms_by_kernel"] = {
+            part: None if us[part] is None else us[part] / 1e3
+            for part, _ in BWD_F32_TC_PARTS}
     return row
 
 
@@ -7178,54 +7284,61 @@ def phase_training(device, seed: int) -> dict:
     reduced ResNet in float32 against the CPU and a bf16 step against the
     plain versions; (w) resumed; (x) K2's backward alone)."""
     t0 = time.perf_counter()
-    out = {"a_full": train_full(device, seed)}
-    out["b_card_vs_cpu"] = train_card_vs_cpu(device, seed)
-    out["c_resume"] = train_resume(device, seed)
+    out, items = {}, {}
+
+    def part(key, fn, *a, **kw):
+        """``out[key] = fn(*a, **kw)``, its wall seconds in ``items``."""
+        t = time.perf_counter()
+        out[key] = fn(*a, **kw)
+        items[key] = time.perf_counter() - t
+
+    part("a_full", train_full, device, seed)
+    part("b_card_vs_cpu", train_card_vs_cpu, device, seed)
+    part("c_resume", train_resume, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
-    out["d_k3_backward"] = [bwd_case(gen, device, case, dtype)
-                            for dtype in BOTH_DTYPES
-                            for case in BWD_CASES if dtype in case[7]]
+    part("d_k3_backward", lambda: [bwd_case(gen, device, case, dtype)
+                                   for dtype in BOTH_DTYPES
+                                   for case in BWD_CASES
+                                   if dtype in case[7]])
     torch.cuda.empty_cache()
     seconds = {"a_to_d": time.perf_counter() - t0}
     t1 = time.perf_counter()
-    out["e_mamba2_full"] = train_mamba_full(device, seed)
-    out["f_mamba2_card_vs_cpu"] = train_mamba_card_vs_cpu(device, seed)
-    out["g_mamba2_resume"] = train_resume(device, seed, MAMBA_TRAIN_ARCH,
-                                          MAMBA_RESUME_BATCH)
-    out["h_k4_backward"] = [ssd_bwd_case(gen, device, case, dtype)
-                            for dtype in BOTH_DTYPES
-                            for case in SSD_BWD_CASES]
+    part("e_mamba2_full", train_mamba_full, device, seed)
+    part("f_mamba2_card_vs_cpu", train_mamba_card_vs_cpu, device, seed)
+    part("g_mamba2_resume", train_resume, device, seed, MAMBA_TRAIN_ARCH,
+         MAMBA_RESUME_BATCH)
+    part("h_k4_backward", lambda: [ssd_bwd_case(gen, device, case, dtype)
+                                   for dtype in BOTH_DTYPES
+                                   for case in SSD_BWD_CASES])
     torch.cuda.empty_cache()
     seconds["e_to_h"] = time.perf_counter() - t1
     t2 = time.perf_counter()
-    out["i_zamba2_full"] = train_zamba_full(device, seed)
-    out["j_zamba2_card_vs_cpu"] = train_zamba_card_vs_cpu(device, seed)
-    out["k_zamba2_resume"] = train_resume(device, seed, ZAMBA_TRAIN_ARCH,
-                                          depth=ZAMBA_DEPTH)
+    part("i_zamba2_full", train_zamba_full, device, seed)
+    part("j_zamba2_card_vs_cpu", train_zamba_card_vs_cpu, device, seed)
+    part("k_zamba2_resume", train_resume, device, seed, ZAMBA_TRAIN_ARCH,
+         depth=ZAMBA_DEPTH)
     torch.cuda.empty_cache()
     seconds["i_to_k"] = time.perf_counter() - t2
     t3 = time.perf_counter()
-    out["l_whisper_full"] = train_whisper_full(device, seed)
-    out["m_whisper_card_vs_cpu"] = train_whisper_card_vs_cpu(device, seed)
-    out["n_whisper_resume"] = train_resume(
-        device, seed, WHISPER_TRAIN_ARCH, WHISPER_RESUME_BATCH,
-        WHISPER_DEPTH, WHISPER_TRAIN_SEQ)
+    part("l_whisper_full", train_whisper_full, device, seed)
+    part("m_whisper_card_vs_cpu", train_whisper_card_vs_cpu, device, seed)
+    part("n_whisper_resume", train_resume, device, seed, WHISPER_TRAIN_ARCH,
+         WHISPER_RESUME_BATCH, WHISPER_DEPTH, WHISPER_TRAIN_SEQ)
     torch.cuda.empty_cache()
     seconds["l_to_n"] = time.perf_counter() - t3
     t4 = time.perf_counter()
-    out["o_paligemma_full"] = train_paligemma_full(device, seed)
-    out["p_paligemma_card_vs_cpu"] = train_paligemma_card_vs_cpu(device,
-                                                                 seed)
-    out["q_paligemma_resume"] = train_resume(
-        device, seed, PALI_TRAIN_ARCH, 1, PALI_DEPTH, PALI_RESUME_SEQ)
+    part("o_paligemma_full", train_paligemma_full, device, seed)
+    part("p_paligemma_card_vs_cpu", train_paligemma_card_vs_cpu, device,
+         seed)
+    part("q_paligemma_resume", train_resume, device, seed, PALI_TRAIN_ARCH,
+         1, PALI_DEPTH, PALI_RESUME_SEQ)
     torch.cuda.empty_cache()
     seconds["o_to_q"] = time.perf_counter() - t4
     t5 = time.perf_counter()
-    out["r_deepseek_full"] = train_deepseek_full(device, seed)
-    out["s_deepseek_card_vs_cpu"] = train_deepseek_card_vs_cpu(device, seed)
-    out["t_deepseek_resume"] = train_resume(
-        device, seed, DS_TRAIN_ARCH, 1, DS_TRAIN_DEPTH, DS_RESUME_SEQ,
-        DS_SMALL)
+    part("r_deepseek_full", train_deepseek_full, device, seed)
+    part("s_deepseek_card_vs_cpu", train_deepseek_card_vs_cpu, device, seed)
+    part("t_deepseek_resume", train_resume, device, seed, DS_TRAIN_ARCH, 1,
+         DS_TRAIN_DEPTH, DS_RESUME_SEQ, DS_SMALL)
     torch.cuda.empty_cache()
     seconds["r_to_t"] = time.perf_counter() - t5
     t6 = time.perf_counter()
@@ -7234,6 +7347,7 @@ def phase_training(device, seed: int) -> dict:
     emit({"phase_seconds": "training_u_to_x", "seconds": seconds["u_to_x"]})
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = seconds
+    out["item_seconds"] = items
     emit({"phase": "training", **out,
           "tolerance": {"d_bf16": "max |kernel - plain| <= 2e-2 max |plain| "
                                   "per gradient",
@@ -7304,13 +7418,18 @@ def phase_training(device, seed: int) -> dict:
                          "attention at the same shape, timed only); dq_ms / "
                          "dkdv_ms: the same around each kernel alone "
                          "(k3.bwd_launch with one part; the dK / dV kernel "
-                         "reads the scratch of a full call); "
-                         "device_ms: the backward's two kernels "
-                         "(torch.profiler); bound = max(bytes of q, k, v, o, "
+                         "reads the scratch of a full call; float32 at "
+                         "(192, 128): dq_ms the pre-pass and the dQ pass, "
+                         "dkdv_ms the dK and the dV passes); "
+                         "device_ms: the backward's kernels "
+                         "(torch.profiler; device_ms_by_kernel the float32 "
+                         "(192, 128) route's parts); bound = max(bytes of "
+                         "q, k, v, o, "
                          "do, lse, dq, dk, dv / 3.35 TB/s, 2 B H pairs 5 d / "
-                         "peak: 989 TFLOP/s bf16, 67 f32); units_bound "
-                         "(float32): the same operations at 495 / 3 TFLOP/s, "
-                         "3xTF32 on the tensor cores"})
+                         "the peak of the kernels' units: 989 TFLOP/s bf16, "
+                         "495 / 3 f32, 3xTF32 on the tensor cores); "
+                         "cuda_core_bound (float32): the same operations at "
+                         "67 TFLOP/s"})
     return out
 
 
@@ -7356,7 +7475,7 @@ def bwd_rows(training, ptxas) -> list:
               BWD_MLA_HEADLINE, (192,), ("s_deepseek_card_vs_cpu",),
               "training (s): deepseek-v3 float32 at (c)'s widths, depth 2 "
               "with its MTP layer, one step on the card",
-              ("f32_tc_kernelILi192E",)))
+              BWD_F32_TC_KERNELS))
     for dtype, variant, name, headline, dims, path, what, tags in heads:
         cases = [r for r in training["d_k3_backward"]
                  if r["dtype"] == SUFFIX[dtype]
@@ -7377,16 +7496,18 @@ def bwd_rows(training, ptxas) -> list:
             "plan": head["plan"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "units_bound_ms": head["units_bound_ms"],
+            "cuda_core_bound_ms": head["cuda_core_bound_ms"],
             "device_ms": head["device_ms"], "dq_ms": head["dq_ms"],
             "dkdv_ms": head["dkdv_ms"],
+            **({"device_ms_by_kernel": head["device_ms_by_kernel"]}
+               if "device_ms_by_kernel" in head else {}),
             "shape": (f"B={head['B']}, S={head['S']}, H={head['H']}, "
                       f"KV={head['KV']}, hd={head['hd']}, hv={head['hv']}, "
                       f"causal, prefix {head['prefix']}"),
             "model_shapes": [{k: r[k] for k in (
                 "case", "B", "S", "Sk", "H", "KV", "hd", "hv", "causal",
                 "prefix", "ms", "dq_ms", "dkdv_ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "units_bound_ms", "library_ms",
+                "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms",
                 "max_abs_err", "rel_err_dq_dk_dv")} for r in cases],
             "ptxas": [r for r in ptxas if BWD_SYMBOL in r["kernel"]
                       and any(tag in r["kernel"] for tag in tags)]})
@@ -7545,15 +7666,57 @@ OFFLOAD_CHECKED = 8
 OFFLOAD_TOL = 1e-15      # analyze vs the sweep: the network leg's association
 
 
-def census_meta(tmp: str) -> list:
-    """Every applicable ported cell traced on the meta device at its full
-    width, depth and shape, written to ``tmp`` as a ``card1`` artifact."""
+def start_census_meta() -> dict:
+    """Starts the meta census in a process of its own: ``python -m
+    repro_torch.launch.dryrun --all``, a user's command, which traces every
+    applicable ported cell on the meta device at its full width, depth and
+    shape and writes each as a ``card1`` artifact.  Its ~80-110 s of host
+    work then run beside the card's phases; ``census_meta`` waits for it.
+    The child sees no card and needs none."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_census_")
+    art = os.path.join(tmp, "artifacts")
+    os.makedirs(art)
+    path = os.pathsep.join(p for p in (os.path.join(ROOT, "src"),
+                                       os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, REPRO_ART_DIR=art, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", PYTHONPATH=path)
+    log = open(os.path.join(tmp, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "tmp": tmp, "art": art,
+            "t0": time.time()}
+
+
+def stop_census_meta(job: dict) -> None:
+    """Ends the meta census's process if it still runs, and removes its
+    directory."""
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+    job["proc"].wait()
+    job["log"].close()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def census_meta(job: dict) -> tuple:
+    """Waits for the meta census ``start_census_meta`` began; its rows, one
+    per applicable cell in ``dryrun.applicable_cells()`` order, and the
+    child's wall (from its start to its last artifact's write) and the
+    seconds this process waited for it."""
+    t = time.perf_counter()
+    rc = job["proc"].wait()
+    waited = time.perf_counter() - t
+    if rc != 0:
+        job["log"].flush()
+        with open(job["log"].name) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"the meta census (dryrun --all) exited {rc}:"
+                             f"\n{tail}")
     rows = []
     for arch, shape in dryrun.applicable_cells():
-        art = dryrun.run_cell(arch, shape, save=False)
         with open(os.path.join(
-                tmp, f"{arch}__{shape}__{dryrun.POD_TAG}.json"), "w") as f:
-            json.dump(art, f)
+                job["art"], f"{arch}__{shape}__{dryrun.POD_TAG}.json")) as f:
+            art = json.load(f)
         rows.append({"cell": f"{arch}|{shape}", "flops": art["hxa"]["flops"],
                      "hbm_bytes": art["hxa"]["hbm_bytes"],
                      "useful_flops_ratio": art["useful_flops_ratio"],
@@ -7562,7 +7725,9 @@ def census_meta(tmp: str) -> list:
                      "kernels": {k: v["launches"] for k, v in
                                  art["hxa"]["kernels"].items()},
                      "trace_wall_s": art["wall_s"]})
-    return rows
+    last = max(os.path.getmtime(os.path.join(job["art"], f))
+               for f in os.listdir(job["art"]))
+    return rows, {"child_wall_s": last - job["t0"], "waited_s": waited}
 
 
 def census_card_case(arch: str, shape: ShapeConfig, device,
@@ -7763,31 +7928,37 @@ def census_offload(ana: dict, vocab: int, seq: int, device) -> dict:
                 cpu["choose_remote_latency"].sum())}
 
 
-def phase_census(device) -> dict:
+def phase_census(device, meta_job: dict) -> dict:
     """The workload census: every applicable ported cell traced on the meta
-    device (32); eight steps traced on the card and held equal to the meta
-    census; ``Campaign.from_artifacts``, ``build_dataset`` and the
+    device (32, by ``meta_job``, the ``dryrun --all`` process started at
+    the beginning); eight steps traced on the card and held equal to the
+    meta census; ``Campaign.from_artifacts``, ``build_dataset`` and the
     predictors, and ``offload.sweep_bandwidth`` on the census."""
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        meta_rows = census_meta(tmp)
-        if len(meta_rows) != CENSUS_META_CELLS:
-            raise AssertionError(f"the meta census traced {len(meta_rows)} "
-                                 f"cells, expected {CENSUS_META_CELLS}")
-        card_rows = [census_card_case(arch, shape, device, *rest)
-                     for arch, shape, *rest in CENSUS_CARD]
-        camp = census_campaign(tmp, device)
-        preds = census_predictors(tmp, device)
+    tmp = meta_job["art"]
+    meta_rows, meta_clock = census_meta(meta_job)
+    if len(meta_rows) != CENSUS_META_CELLS:
+        raise AssertionError(f"the meta census traced {len(meta_rows)} "
+                             f"cells, expected {CENSUS_META_CELLS}")
+    card_rows = [census_card_case(arch, shape, device, *rest)
+                 for arch, shape, *rest in CENSUS_CARD]
+    camp = census_campaign(tmp, device)
+    preds = census_predictors(tmp, device)
     cfg = get_config(CENSUS_CARD[0][0])
     prefill = lowering.trace(lowering.make_step(cfg, CENSUS_CARD[0][1],
                                                 "meta"))[0]
     off = census_offload(prefill, cfg.vocab_size, CENSUS_CARD[0][1].seq_len,
                          device)
-    out = {"phase": "census", "meta_cells": meta_rows, "card": card_rows,
+    out = {"phase": "census", "meta_cells": meta_rows,
+           "meta_process": meta_clock, "card": card_rows,
            "campaign_from_artifacts": camp, "predictors": preds,
            "offload": off, "seconds": time.perf_counter() - t_phase,
            "note": "meta_cells: lower_cell on the meta device at the cell's "
-                   "shape (per device, one device); card: the step traced on "
+                   "shape (per device, one device), by `dryrun --all` in a "
+                   "process of its own beside the other phases "
+                   "(meta_process: its wall from its start to its last "
+                   "artifact, and the wait for it here); card: the step "
+                   "traced on "
                    "the card equals the meta trace exactly (flops, bytes, "
                    "op counts, kernel entries); step_ms: host clock, each "
                    "run ending in a synchronize, median of 5 after a warm-up; "
@@ -7800,7 +7971,7 @@ def phase_census(device) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--large-freq-points", type=int, default=25_600,
+    ap.add_argument("--large-freq-points", type=int, default=6_400,
                     help="DVFS lattice density of the large campaign "
                          "(392 rows x this many points)")
     args = ap.parse_args()
@@ -7820,69 +7991,76 @@ def main() -> int:
         emit({"phase_seconds": name, "seconds": seconds[name]})
         return out
 
-    smi = timed("device", phase_device)
-    built = timed("build", phase_build)
-    # first after the build: in runs where it followed the ResNet phase's
-    # profiles, the profiler read no device time for K3 alone
-    flash = timed("flash_attention", phase_flash_attention, device,
-                  args.seed)
-    ssd = timed("ssd_scan", phase_ssd_scan, device, args.seed)
-    # before the later phases' profiles (see above), and while the card's
-    # memory is free: the full-width runs hold up to ~55 GB
-    training = timed("training", phase_training, device, args.seed)
-    workloads = make_workloads(args.seed)
-    ptxas = built[kern.SOURCE]["kernels"]
-    numbers = timed("kernels", phase_kernels, workloads, device, ptxas)
-    main_path = timed("campaign_default", phase_campaign_default, workloads,
-                      device)
-    timed("campaign_resume", phase_campaign_resume, workloads, device,
-          main_path["fresh64"])
-    large = timed("campaign_large", phase_campaign_large, workloads, device,
-                  args.large_freq_points, numbers)
-    models = timed("predictors", phase_predictors, workloads, device,
-                   args.seed)
-    timed("campaign_fast", phase_campaign_fast, workloads, device, models,
-          main_path["exact"])
-    adaptive = timed("adaptive", phase_adaptive, workloads, device,
-                     main_path["exact"])
-    selection = timed("selection", phase_selection, workloads, device,
-                      main_path["campaign64"], main_path["fresh64"], models,
+    # the meta census's host work runs beside every phase before its own
+    meta_job = start_census_meta()
+    try:
+        smi = timed("device", phase_device)
+        built = timed("build", phase_build)
+        # first after the build: in runs where it followed the ResNet
+        # phase's profiles, the profiler read no device time for K3 alone
+        flash = timed("flash_attention", phase_flash_attention, device,
                       args.seed)
-    fabric = timed("fabric", phase_fabric, workloads, device, main_path,
-                   adaptive)
-    campaign_launches = {k: v + large[k] + adaptive["launches"][k]
-                         + selection["launches"][k] + fabric["launches"][k]
-                         for k, v in main_path["launches"].items()}
-    cfg, models, images = resnet_inputs(device, args.seed)
-    per_dtype = timed("conv2d", phase_conv2d, device, args.seed,
-                      models[torch.bfloat16], images[32])
-    infer = timed("resnet50", phase_resnet50, device, args.seed, cfg, models,
-                  images)
-    del models, images
-    lm = timed("transformer", phase_transformer, device, args.seed)
-    mb = timed("mamba2", phase_mamba2, device, args.seed)
-    zb = timed("zamba2", phase_zamba2, device, args.seed)
-    wb = timed("whisper", phase_whisper, device, args.seed)
-    pb = timed("paligemma", phase_paligemma, device, args.seed)
-    db = timed("deepseek", phase_deepseek, device, args.seed)
-    timed("token_serving", phase_token_serving, device, args.seed)
-    census = timed("census", phase_census, device)
-    campaign_launches = {k: v + census["campaign_from_artifacts"]["launches"][k]
-                         for k, v in campaign_launches.items()}
-    emit({"phase": "total", "seconds": time.perf_counter() - t0,
-          "phase_seconds": seconds})
-    emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
-                                  selection["timing"])
-          + conv_rows(per_dtype, infer)
-          + flash_rows(flash, lm, training, zb, wb, pb, db)
-          + k2_bwd_rows(training, built[k2.BWD_SOURCE]["kernels"])
-          + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
-          + ssd_rows(ssd, mb, training, zb)
-          + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+        ssd = timed("ssd_scan", phase_ssd_scan, device, args.seed)
+        # before the later phases' profiles (see above), and while the
+        # card's memory is free: the full-width runs hold up to ~55 GB
+        training = timed("training", phase_training, device, args.seed)
+        workloads = make_workloads(args.seed)
+        ptxas = built[kern.SOURCE]["kernels"]
+        numbers = timed("kernels", phase_kernels, workloads, device, ptxas)
+        main_path = timed("campaign_default", phase_campaign_default,
+                          workloads, device)
+        timed("campaign_resume", phase_campaign_resume, workloads, device,
+              main_path["fresh64"])
+        large = timed("campaign_large", phase_campaign_large, workloads,
+                      device, args.large_freq_points, numbers)
+        models = timed("predictors", phase_predictors, workloads, device,
+                       args.seed)
+        timed("campaign_fast", phase_campaign_fast, workloads, device, models,
+              main_path["exact"])
+        adaptive = timed("adaptive", phase_adaptive, workloads, device,
+                         main_path["exact"])
+        selection = timed("selection", phase_selection, workloads, device,
+                          main_path["campaign64"], main_path["fresh64"],
+                          models, args.seed)
+        fabric = timed("fabric", phase_fabric, workloads, device, main_path,
+                       adaptive)
+        campaign_launches = {k: v + large[k] + adaptive["launches"][k]
+                             + selection["launches"][k]
+                             + fabric["launches"][k]
+                             for k, v in main_path["launches"].items()}
+        cfg, models, images = resnet_inputs(device, args.seed)
+        per_dtype = timed("conv2d", phase_conv2d, device, args.seed,
+                          models[torch.bfloat16], images[32])
+        infer = timed("resnet50", phase_resnet50, device, args.seed, cfg,
+                      models, images)
+        del models, images
+        lm = timed("transformer", phase_transformer, device, args.seed)
+        mb = timed("mamba2", phase_mamba2, device, args.seed)
+        zb = timed("zamba2", phase_zamba2, device, args.seed)
+        wb = timed("whisper", phase_whisper, device, args.seed)
+        pb = timed("paligemma", phase_paligemma, device, args.seed)
+        db = timed("deepseek", phase_deepseek, device, args.seed)
+        timed("token_serving", phase_token_serving, device, args.seed)
+        census = timed("census", phase_census, device, meta_job)
+        from_artifacts = census["campaign_from_artifacts"]["launches"]
+        campaign_launches = {k: v + from_artifacts[k]
+                             for k, v in campaign_launches.items()}
+        emit({"phase": "total", "seconds": time.perf_counter() - t0,
+              "phase_seconds": seconds})
+        emit({"kernels": kernels_line(numbers, campaign_launches, ptxas,
+                                      selection["timing"])
+              + conv_rows(per_dtype, infer)
+              + flash_rows(flash, lm, training, zb, wb, pb, db)
+              + k2_bwd_rows(training, built[k2.BWD_SOURCE]["kernels"])
+              + bwd_rows(training, built[k3.BWD_SOURCE]["kernels"])
+              + ssd_rows(ssd, mb, training, zb)
+              + ssd_bwd_rows(training, built[k4.BWD_SOURCE]["kernels"])})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+    finally:
+        stop_census_meta(meta_job)
     return 0
 
 

@@ -148,10 +148,10 @@
 //     keys double-buffered by cp.async in row-padded shared memory; P
 //     re-used from the S fragments as above.
 //
-//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128}, hd = hv =
-//     256 and (192, 128).  The
-//     reference computes float32 attention in IEEE float32, so this stays on
-//     the CUDA cores (67 TFLOP/s; TF32 would break the 1e-5 tolerance).
+//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128} and hd =
+//     hv = 256, on the CUDA cores in IEEE float32 (67 TFLOP/s).  One-pass
+//     TF32 (10 bits of mantissa) would break the 1e-5 tolerance; 3xTF32,
+//     below, does not, and runs at (192, 128) so far.
 //     256 threads per 64-query block, tiles of 64 keys.  Q, K and V arrive
 //     by 16-byte cp.async, K and V double-buffered (the next tile loads
 //     while this one is multiplied out), all row-major as they lie.  Thread
@@ -162,10 +162,65 @@
 //     memory, once, for the P V product.  Two barriers a tile.  At hd = hv
 //     = 256 two K / V buffers would take 350 KB: one buffer (212 KB), the
 //     next tile loaded after this one's P V product (three barriers a
-//     tile); so at (192, 128), where two would take 230 KB (one 148 KB).
+//     tile).
 //
-//   Training: flash_bf16_tc_kernel<HD, HV, true> and flash_f32_kernel<HD,
-//   HV, true> (hd == hv in {64, 128, 256}, and (192, 128)) (entry points
+//   flash_f32_tc_kernel<192, 128>   float32 at deepseek's (192, 128), every
+//     product as 3xTF32 on wgmma: each operand x is split into TF32 hi =
+//     cvt.rna(x) and lo = cvt.rna(x - hi) (x - hi is exact, lo keeps all
+//     but ~2 of x's 24 bits), each product lo hi + hi lo + hi hi, the small
+//     terms first, into a float32 accumulator: float32-accurate to ~1e-6
+//     relative, as the backward's 3xTF32 (module header of
+//     flash_attention_bwd.cu), at the TF32 tensor cores' 495 / 3 TFLOP/s.
+//     Its output lies closer to float64 attention than the plain version's
+//     float32 does (chip_smoke.py's scale cases print both distances): the
+//     CUDA-core kernel it replaces summed each score in the plain version's
+//     order and shared its rounding, so at a large scale (0.3) what the
+//     1e-5 gate against the plain version sees is mostly the plain
+//     version's own float32 scores.
+//     TF32 wgmma takes both shared-memory operands K-major only (no
+//     transpose), so a pre-pass writes the split K and V operands into a
+//     float32 scratch: flash_f32_split_kernel k as hi, lo [B KV, Sk, 192],
+//     and flash_f32_vt_kernel v transposed, V^T hi, lo [B KV, 128, Sk
+//     rounded to 64], the keys of each group of 8 in the order 0 2 4 6 1 3
+//     5 7 (tf32_key): the S accumulator gives a thread keys 2 t and 2 t + 1
+//     of a group, the register A fragment wants k-slots t and t + 4, so
+//     with V^T in that order P's fragments are the accumulator as it
+//     stands.  The pre-pass reads k and v once and writes twice their size
+//     (1.34 GB at deepseek's B=1 S=4096); the kernel's K and V tiles then
+//     load by TMA with no work by the multiplying threads, where splitting
+//     in the kernel would redo them once for every q tile that reads them.
+//     A tile's Q is read by one block once, so the consumers split it in
+//     shared memory as it lands (96 floats a thread), which saves the 805
+//     MB its hi and lo would take in the scratch.
+//     Shared memory sets the design.  At 192 float32 columns a 64-row Q
+//     tile is 48 KB, hi and lo 96 KB; a 64-key K tile the same; V^T of 64
+//     keys 64 KB: Q and one K / V tile split, 256 KB, pass the 227 KB.  So:
+//     one consumer warpgroup on a 64-row tile (two would need two Q tiles,
+//     192 KB) with Q's hi and lo resident (96 KB), and the kv tile of 64
+//     keys streamed as five 32 KB chunks -- three of K (64 columns each),
+//     two of V^T (32 keys each), hi and lo -- through a ring of four slots
+//     (128 KB): 225 KB in all.  A chunk's slot is released as soon as its
+//     products are done (wgmma_wait per commit group), so the loads run
+//     about a chunk ahead of the products.  (Q's lo as a register A operand
+//     would take 96 registers a thread beside O's 64; 32-key tiles make S
+//     an m64n32 product, which reads its A tile from shared memory for half
+//     the work.)  S = Q K^T: 24 k8 steps of wgmma.m64n64k8, each K chunk into
+//     a fresh accumulator, the three added in float32; O += P V: 8 k8 steps
+//     of wgmma.m64n128k8, P's hi and lo from registers, into a fresh
+//     accumulator added to O in float32 (O = O corr + P V): the tensor
+//     cores' float32 accumulation truncates, and chained over a whole row
+//     (1,536 products at S = 4096) it drifts, as the backward found.  The
+//     softmax is the bf16 kernel's (scale folded into one FFMA before each
+//     exp2, masks by selects on a warpgroup's first kv tile only, kv tiles
+//     from the diagonal down); it does not overlap the products.
+//     Persistent: one 160-thread block (the consumer warpgroup, then a
+//     loader warp, one of whose threads issues every TMA copy) an SM walks
+//     the tiles of 64 query rows heaviest first, head by head where a
+//     round's K and V hi and lo pass the L2 (tc_group), as the bf16 kernel.
+//
+//   Training: flash_bf16_tc_kernel<HD, HV, true> (hd == hv in {64, 128,
+//   256}, and (192, 128)), flash_f32_kernel<HD, HV, true> (hd == hv in {64,
+//   128, 256}) and flash_f32_tc_kernel<192, 128, true> (entry points
 //   *_lse) also write the row
 //   log-sum-exp of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale *
 //   q_i . k_j)), float32 [B, H, S], from the final running max and sum --
@@ -1383,6 +1438,401 @@ flash_f32_kernel(const Params p) {
   }
 }
 
+// --- float32, 3xTF32 on wgmma: flash_f32_tc_kernel ----------------------------
+//
+// (hd, hv) = (192, 128), deepseek's MLA; module header.  K and V come from
+// a pre-pass (flash_f32_split_kernel, flash_f32_vt_kernel) that writes each
+// float32 x as TF32 hi = cvt.rna(x) and lo = cvt.rna(x - hi) into a
+// scratch, V transposed, so each is a K-major TF32 tile that TMA loads and
+// wgmma reads as it lies; Q lands as float32 and the consumers split it in
+// place.
+
+constexpr int kF3Rows = 64;      // query rows of a tile: one consumer warpgroup
+constexpr int kF3Keys = 64;      // keys of a kv tile
+constexpr int kF3Threads = 160;  // the consumer warpgroup, then the loader warp
+constexpr int kF3Slots = 4;      // ring slots
+constexpr int kF3Slot = 32768;   // a slot: 64 keys x 64 K columns, or 32 keys
+                                 // of V^T's 128 rows; hi then lo
+constexpr int kF3Box = 8192;     // a box: 64 rows of 32 floats (128 bytes)
+
+// shared memory: the 1 KiB alignment of the swizzle's period, Q's hi and lo
+// (64 rows of HD), the ring, the barriers (Q full / empty, a full / empty
+// pair a slot)
+template <int HD, int HV>
+__host__ __device__ constexpr int f32_tc_smem_bytes() {
+  return 1024 + 2 * kF3Rows * HD * 4 + kF3Slots * kF3Slot +
+         (2 + 2 * kF3Slots) * 8;
+}
+static_assert(f32_tc_smem_bytes<192, 128>() <= 232448,
+              "a block's shared memory is 227 KB");
+
+// k as TF32 hi and lo (hopper.cuh split_rows)
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_f32_split_kernel(const float* src, int64_t sb, int64_t ss, int64_t sh,
+                       int S, int heads, int64_t total, float* dst,
+                       int64_t half) {
+  split_rows<D>(src, sb, ss, sh, S, heads, total, dst, half);
+}
+
+// V^T as TF32 hi and lo, keys in tf32_key order (hopper.cuh split_tile)
+template <int HV>
+__global__ void __launch_bounds__(256)
+flash_f32_vt_kernel(const float* v, int64_t sb, int64_t ss, int64_t sh,
+                    int Sk, int KV, int skp, float* dst, int64_t half) {
+  split_tile<HV>(v, sb, ss, sh, Sk, KV, skp, dst, half, nullptr, 0);
+}
+
+template <int HD, int HV, bool kLse>
+__global__ void __launch_bounds__(kF3Threads, 1)
+flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const Params p) {
+  static_assert(HD == 192 && HV == 128, "the (192, 128) kernel");
+  constexpr int KC = HD / 64;           // K chunks of a kv tile
+  constexpr int VC = kF3Keys / 32;      // V^T chunks of a kv tile
+  static_assert(KC == 3 && VC == 2, "the waits and releases below");
+  constexpr int kTileQ = 2 * kF3Rows * HD * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                   // HD / 32 boxes of hi, lo
+  uint8_t* ring = sQ + kTileQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kF3Slots * kF3Slot);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + kF3Slots;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4);              // one lane per consumer warp
+    for (int st = 0; st < kF3Slots; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's tiles, as the bf16 kernel deals them
+  const int nq = (p.S + kF3Rows - 1) / kF3Rows;
+  const int64_t n_tiles = (int64_t)p.bh * nq;
+  const int ctas = gridDim.x, c = blockIdx.x;
+  const int n_mine = (int)(n_tiles / ctas) +
+      ((n_tiles / ctas) % 2 == 0 ? c < n_tiles % ctas
+                                 : ctas - 1 - c < n_tiles % ctas);
+  auto tile_at = [&](int j) {
+    return tile_of(p, (int64_t)j * ctas + (j % 2 == 0 ? c : ctas - 1 - c),
+                   p.bh, nq, p.group);
+  };
+  auto kv_tiles = [&](const Tile& tl) {
+    const int kv_end =
+        p.causal ? causal_end(p, tl.qb * kF3Rows + kF3Rows) : p.Sk;
+    return (kv_end + kF3Keys - 1) / kF3Keys;
+  };
+
+  if (tid >= 128) {
+    // ---- loader: one thread issues every copy; per kv tile KC chunks of K
+    // (64 columns each), then VC of V^T (32 keys each), through the ring,
+    // which runs on from one tile of queries to the next ----
+    if (tid == 128) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      int r = 0;
+      auto acquire = [&]() {
+        const int st = r % kF3Slots;
+        mbar_wait(&empty[st], ((r / kF3Slots) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], kF3Slot);
+        ++r;
+        return st;
+      };
+      for (int j = 0; j < n_mine; ++j) {
+        const Tile tl = tile_at(j);
+        const int kvbh = (tl.bh / p.H) * p.KV + (tl.bh % p.H) / (p.H / p.KV);
+        const int n_kv = kv_tiles(tl);
+        if (j > 0) mbar_wait(q_empty, (j - 1) & 1);  // the last Q is done
+        mbar_arrive_expect_tx(q_full, kTileQ / 2);
+#pragma unroll
+        for (int cb = 0; cb < HD / 32; ++cb)
+          tma_load_4d(sQ + cb * 2 * kF3Box, &tm_q, q_full, 32 * cb,
+                      tl.bh % p.H, tl.qb * kF3Rows, tl.bh / p.H);
+        for (int it = 0; it < n_kv; ++it) {
+          const int k0 = (n_kv - 1 - it) * kF3Keys;  // from the last down
+#pragma unroll
+          for (int cc = 0; cc < KC; ++cc) {
+            const int st = acquire();
+            tma_load_4d(ring + st * kF3Slot, &tm_k, &full[st], 64 * cc, k0,
+                        kvbh, 0);
+            tma_load_4d(ring + st * kF3Slot + 2 * kF3Box, &tm_k, &full[st],
+                        64 * cc + 32, k0, kvbh, 0);
+          }
+#pragma unroll
+          for (int vc = 0; vc < VC; ++vc) {
+            const int st = acquire();
+            tma_load_4d(ring + st * kF3Slot, &tm_v, &full[st], k0 + 32 * vc,
+                        0, kvbh, 0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: 64 rows of each tile ----
+  const int lane = tid & 31, t4 = lane & 3;
+  // accumulator fragment: thread t holds rows 16 (t / 32) + (t % 32) / 4
+  // and +8, columns 8 n + 2 (t % 4) + {0, 1} in [4 n + {0, 1}] and
+  // [4 n + {2, 3}]
+  const int frag_row = (tid >> 5) * 16 + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t q_addr = smem_u32(sQ), ring_addr = smem_u32(ring);
+  const int seq = p.Sk;
+  const bool causal = p.causal;
+  const int prefix = p.prefix;
+
+  float o[HV / 2];         // O, float32, summed tile by tile
+  float pv[HV / 2];        // one kv tile's P V, a fresh accumulator
+  float sc[KC][32];        // one kv tile's S, a fresh accumulator a K chunk
+  float s[32];             // S, then P
+  uint32_t ph[8][4], pl[8][4];  // P in TF32 hi and lo: the A fragments
+  float m[2], l[2], corr[2];
+
+  // S (+)= Q K^T over the 64 columns of K chunk cc in slot st, 8 k8 steps:
+  // the small terms first -- lo hi and hi lo of every step -- then hi hi of
+  // every step, so that only 8 of the 24 products add into an accumulator
+  // as large as S (the tensor cores' accumulation truncates: interleaved,
+  // the 24 cost 3x the error).  Q box cb holds columns [32 cb, 32 cb +
+  // 32), hi then lo 8 KB on; a K slot holds two such boxes.  Committed,
+  // not waited for.
+  auto issue_s = [&](int cc, int st) {
+    auto desc = [&](int ks, bool q_lo, bool k_lo, uint64_t& dq,
+                    uint64_t& dk) {
+      const uint32_t qa = q_addr + (2 * cc + ks / 4) * 2 * kF3Box +
+                          (ks % 4) * 32;
+      const uint32_t ka = ring_addr + st * kF3Slot + (ks / 4) * 2 * kF3Box +
+                          (ks % 4) * 32;
+      dq = smem_desc(qa + (q_lo ? kF3Box : 0), 16, 1024);
+      dk = smem_desc(ka + (k_lo ? kF3Box : 0), 16, 1024);
+    };
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      uint64_t dq, dk;
+      desc(ks, true, false, dq, dk);
+      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, ks > 0);
+      desc(ks, false, true, dq, dk);
+      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      uint64_t dq, dk;
+      desc(ks, false, false, dq, dk);
+      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, 1);
+    }
+    wgmma_commit();
+  };
+  // P V over the tile's 64 keys, V^T chunks 0 and 1 in slots st0 and st1
+  // (32 keys each; V^T hi, then lo 16 KB on), 8 k8 steps into a fresh pv,
+  // small terms first as in S: P lo V^T hi and P hi V^T lo of every step,
+  // then P hi V^T hi.  Committed, not waited for.
+  auto issue_pv = [&](int st0, int st1) {
+    auto vt = [&](int n, bool lo) {
+      return smem_desc(ring_addr + (n < 4 ? st0 : st1) * kF3Slot +
+                           (lo ? 2 * kF3Box : 0) + (n % 4) * 32,
+                       16, 1024);
+    };
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      wgmma_tf32_rs_m64n128k8(pv, pl[n], vt(n, false), n > 0);
+      wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, true), 1);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, false), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int r) {
+    if (lane == 0) mbar_arrive(&empty[r % kF3Slots]);
+  };
+  auto wait_full = [&](int r) {
+    mbar_wait(&full[r % kF3Slots], (r / kF3Slots) & 1);
+  };
+  // the online softmax of s (keys [k0, k0 + 64)), as the bf16 kernel's:
+  // masked by selects where `masked`, the row max over the raw scores with
+  // the scale folded into one FFMA before each exp2 when scale > 0
+  auto softmax = [&](int k0, bool masked, int row0, auto positive) {
+    constexpr bool kFold = decltype(positive)::value;
+    if constexpr (!kFold) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= sl2;
+    }
+    if (masked) {
+      const float drop = kFold ? -INFINITY : kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e >> 1) * 8;
+          const int key = k0 + n * 8 + t4 * 2 + (e & 1);
+          const bool out = key >= seq || (causal && hidden(key, row, prefix));
+          s[4 * n + e] = out ? drop : s[4 * n + e];
+        }
+    }
+    float mx[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) mx[i][a] = kFold ? -INFINITY : kNegInf;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& acc = mx[e >> 1][(n & 1) * 2 + (e & 1)];
+        acc = fmaxf(acc, s[4 * n + e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float row_max = quad_max(fmaxf(fmaxf(mx[i][0], mx[i][1]),
+                                     fmaxf(mx[i][2], mx[i][3])));
+      if constexpr (kFold) row_max *= sl2;
+      const float m_new = fmaxf(m[i], row_max);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float rs[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * n + e];
+        const float m_row = m[e >> 1];
+        const float pe = exp2f(kFold ? fmaf(x, sl2, -m_row) : x - m_row);
+        s[4 * n + e] = pe;
+        rs[e >> 1][(n & 1) * 2 + (e & 1)] += pe;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l[i] = l[i] * corr[i] + ((rs[i][0] + rs[i][1]) + (rs[i][2] + rs[i][3]));
+  };
+
+  int r = 0;  // the ring's sequence, as the loader's
+  for (int j = 0; j < n_mine; ++j) {
+    const Tile tl = tile_at(j);
+    const int b = tl.bh / p.H, h = tl.bh % p.H;
+    const int row_lo = tl.qb * kF3Rows, row0 = row_lo + frag_row;
+    const int n_kv = kv_tiles(tl);
+#pragma unroll
+    for (int i = 0; i < HV / 2; ++i) o[i] = 0.0f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.0f;
+    mbar_wait(q_full, j & 1);
+    // Q as it landed (float32 in each box's hi half) into TF32 hi and lo in
+    // place: a box's lo half has the hi half's layout, so an element keeps
+    // its offset; the writes reach the tensor cores' proxy by the fence
+#pragma unroll
+    for (int cb = 0; cb < HD / 32; ++cb)
+#pragma unroll
+      for (int e = 0; e < kF3Box / 16 / 128; ++e) {
+        float4* hi = reinterpret_cast<float4*>(sQ + cb * 2 * kF3Box) +
+                     e * 128 + tid;
+        const float4 x = *hi;
+        float4 h4, l4;
+        split_f32(x.x, h4.x, l4.x);
+        split_f32(x.y, h4.y, l4.y);
+        split_f32(x.z, h4.z, l4.z);
+        split_f32(x.w, h4.w, l4.w);
+        *hi = h4;
+        *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(hi) +
+                                   kF3Box) = l4;
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(1, 128);
+
+    for (int it = 0; it < n_kv; ++it, r += KC + VC) {
+      const int k0 = (n_kv - 1 - it) * kF3Keys;
+      // S: the K chunks' products back to back, each chunk's slot released
+      // as soon as its products are done
+#pragma unroll
+      for (int cc = 0; cc < KC; ++cc) {
+        wait_full(r + cc);
+        wgmma_fence();
+        issue_s(cc, (r + cc) % kF3Slots);
+      }
+      wgmma_wait<2>();
+      release(r);
+      wgmma_wait<1>();
+      release(r + 1);
+      wgmma_wait<0>();
+      release(r + 2);
+#pragma unroll
+      for (int cc = 0; cc < KC; ++cc) fence_acc(sc[cc]);
+      if (it == n_kv - 1 && lane == 0) mbar_arrive(q_empty);  // Q is done
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = (sc[0][i] + sc[1][i]) + sc[2][i];
+      // only the first tile (the diagonal, the prefix's end, a ragged end)
+      // hides a key from a row
+      const bool masked =
+          it == 0 && (k0 + kF3Keys > seq || (causal && k0 + kF3Keys - 1 >
+                                                           row_lo));
+      if (sl2 > 0.0f)
+        softmax(k0, masked, row0, std::true_type());
+      else
+        softmax(k0, masked, row0, std::false_type());
+      // P as TF32 hi and lo: the accumulator fragment of key group n is the
+      // A fragment of k8 step n with k-slot t = key 2 t, t + 4 = key 2 t + 1
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        split_tf32<true>(s[4 * n], ph[n][0], pl[n][0]);
+        split_tf32<true>(s[4 * n + 2], ph[n][1], pl[n][1]);
+        split_tf32<true>(s[4 * n + 1], ph[n][2], pl[n][2]);
+        split_tf32<true>(s[4 * n + 3], ph[n][3], pl[n][3]);
+      }
+      // P V into a fresh accumulator, added to O in float32: the tensor
+      // cores' accumulation truncates, and over a whole row (1,536 wgmma
+      // steps at S = 4096) it would drift
+      wait_full(r + KC);
+      wait_full(r + KC + 1);
+      wgmma_fence();
+      issue_pv((r + KC) % kF3Slots, (r + KC + 1) % kF3Slots);
+      wgmma_wait<0>();
+      release(r + KC);
+      release(r + KC + 1);
+      fence_acc(pv);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        fence_frag(ph[n]);
+        fence_frag(pl[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < HV / 8; ++n) {
+        o[4 * n] = fmaf(o[4 * n], corr[0], pv[4 * n]);
+        o[4 * n + 1] = fmaf(o[4 * n + 1], corr[0], pv[4 * n + 1]);
+        o[4 * n + 2] = fmaf(o[4 * n + 2], corr[1], pv[4 * n + 2]);
+        o[4 * n + 3] = fmaf(o[4 * n + 3], corr[1], pv[4 * n + 3]);
+      }
+    }
+
+    // l over the quad, then o = acc / max(l, 1e-30)
+    float* op = static_cast<float*>(p.o) + b * p.os_b + h * p.os_h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + i * 8;
+      const float den = fmaxf(quad_sum(l[i]), kMinDenom);
+      if (row >= p.S) continue;
+      if constexpr (kLse) {  // m is in the log2 domain of the scaled scores
+        if (t4 == 0)
+          p.lse[(int64_t)tl.bh * p.S + row] = (m[i] + log2f(den)) * kLn2;
+      }
+      float* orow = op + row * p.os_s;
+#pragma unroll
+      for (int n = 0; n < HV / 8; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8 + t4 * 2) =
+            make_float2(o[4 * n + 2 * i] / den, o[4 * n + 2 * i + 1] / den);
+    }
+  }
+}
+
 // --- launch ------------------------------------------------------------------
 
 template <typename Kernel>
@@ -1509,11 +1959,14 @@ int launch_tc(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 // 4096) reads them from device memory again for every q-block otherwise.
 // The rounds' alternating block order keeps head by head within ~3 % of
 // the even split at deepseek's shapes.
+// elem: the bytes a column of K and V takes in the tiles the blocks stream
+// (2 in bf16; 8 for the float32 wgmma kernel's TF32 hi and lo)
 constexpr int64_t kL2Group = 64ll << 20;
-int tc_group(int B, int Sk, int H, int KV, int hd, int hv, int gx) {
+int tc_group(int B, int Sk, int H, int KV, int hd, int hv, int gx,
+             int elem = 2) {
   const int64_t heads = gx < (int64_t)B * H ? gx : (int64_t)B * H;
   const int64_t g = H / KV;
-  const int64_t round_bytes = (heads + g - 1) / g * Sk * (hd + hv) * 2;
+  const int64_t round_bytes = (heads + g - 1) / g * Sk * (hd + hv) * elem;
   return round_bytes > kL2Group ? 1 : B * H;
 }
 
@@ -1563,6 +2016,93 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
     default: return launch_tc<256, 256, true>(tm_q, tm_k, tm_v, p, gx, gy,
                                               device, stream);
   }
+}
+
+// the pre-pass (split k, split and transpose v into `scratch`), then
+// the kernel over tensor maps of the scratch
+template <bool kLse>
+int launch_f32_tc(const void* q, const void* k, const void* v,
+                  const long long* st, float* scratch, const Params& p,
+                  int B, int gx, int device, void* stream) {
+  constexpr int HD = 192, HV = 128;
+  static unsigned done = 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t skp = (int64_t)(p.Sk + kF3Keys - 1) / kF3Keys * kF3Keys;
+  const int64_t kn = (int64_t)B * p.KV * p.Sk * HD;
+  const int64_t vn = (int64_t)B * p.KV * HV * skp;
+  float* ks = scratch;
+  float* vt = ks + 2 * kn;
+  auto blocks = [](int64_t total) {
+    const int64_t n = (total + 255) / 256;
+    return (int)(n < 132 * 16 ? n : 132 * 16);
+  };
+  flash_f32_split_kernel<HD><<<blocks(kn / 4), 256, 0, s>>>(
+      static_cast<const float*>(k), st[3], st[4], st[5], p.Sk, p.KV, kn / 4,
+      ks, kn);
+  flash_f32_vt_kernel<HV><<<dim3((unsigned)(skp / 64), HV / 64,
+                                 (unsigned)(B * p.KV)), 256, 0, s>>>(
+      static_cast<const float*>(v), st[6], st[7], st[8], p.Sk, p.KV,
+      (int)skp, vt, vn);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // q as it lies: dims (hd, heads, S, B), boxes of 32 columns (128 bytes)
+  // x 1 x 64 rows x 1.  The scratch: dims innermost first (columns, rows,
+  // b * heads, hi / lo); boxes of 32 columns x 64 rows (128 of V^T's) x 1
+  // x both
+  CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
+  const cuuint64_t qd[4] = {HD, (cuuint64_t)p.H, (cuuint64_t)p.S,
+                            (cuuint64_t)B};
+  const cuuint64_t qstr[3] = {(cuuint64_t)st[2] * 4, (cuuint64_t)st[1] * 4,
+                              (cuuint64_t)st[0] * 4};
+  const cuuint32_t box_q[4] = {32, 1, kF3Rows, 1};
+  const cuuint64_t kd[4] = {HD, (cuuint64_t)p.Sk, (cuuint64_t)B * p.KV, 2};
+  const cuuint64_t kstr[3] = {HD * 4, (cuuint64_t)p.Sk * HD * 4,
+                              (cuuint64_t)kn * 4};
+  const cuuint64_t vd[4] = {(cuuint64_t)skp, HV, (cuuint64_t)B * p.KV, 2};
+  const cuuint64_t vstr[3] = {(cuuint64_t)skp * 4, (cuuint64_t)skp * HV * 4,
+                              (cuuint64_t)vn * 4};
+  const cuuint32_t box_rows[4] = {32, kF3Rows, 1, 2};
+  const cuuint32_t box_vt[4] = {32, HV, 1, 2};
+  if (!encode_f32(&tm_q, q, 4, qd, qstr, box_q) ||
+      !encode_f32(&tm_k, ks, 4, kd, kstr, box_rows) ||
+      !encode_f32(&tm_v, vt, 4, vd, vstr, box_vt))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_f32_tc_kernel<HD, HV, kLse>;
+  constexpr int smem = f32_tc_smem_bytes<HD, HV>();
+  err = allow_smem(kernel, smem, device, &done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)gx, 1), kF3Threads, smem, s>>>(tm_q, tm_k, tm_v,
+                                                          p);
+  return (int)cudaGetLastError();
+}
+
+// the float32 wgmma entry points: checks, then the launches (lse nullptr:
+// prefill's instance)
+int f32_tc_entry(const void* q, const void* k, const void* v, void* o,
+                 float* lse, void* scratch, int B, int S, int Sk, int H,
+                 int KV, int hd, int hv, const long long* strides,
+                 float scale, int causal, int prefix, int block_q,
+                 int block_k, int gx, int gy, int device, void* stream) {
+  const int64_t n_tiles = (int64_t)B * H * ((S + kF3Rows - 1) / kF3Rows);
+  if (hd != 192 || hv != 128 || B < 1 ||
+      !lengths_fit(S, Sk, causal, prefix) || KV < 1 || H % KV ||
+      block_q != kF3Rows || block_k != kF3Keys || gx < 1 || gx > n_tiles ||
+      gy != 1 || scratch == nullptr || !aligned16(scratch) ||
+      !rows_aligned16(q, k, v, o, strides, 4))
+    return (int)cudaErrorInvalidValue;
+  Params p =
+      make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
+  p.bh = B * H;
+  p.group = tc_group(B, Sk, H, KV, hd, hv, gx, 8);
+  p.lse = lse;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  float* sc = static_cast<float*>(scratch);
+  return lse != nullptr
+             ? launch_f32_tc<true>(q, k, v, strides, sc, p, B, gx, device,
+                                   stream)
+             : launch_f32_tc<false>(q, k, v, strides, sc, p, B, gx, device,
+                                    stream);
 }
 
 }  // namespace
@@ -1622,8 +2162,7 @@ int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(launch_mma)
 }
 
-// float32 on the CUDA cores, hd, hv in {32, 64, 128}, hd = hv = 256 or
-// (hd, hv) = (192, 128).
+// float32 on the CUDA cores, hd, hv in {32, 64, 128} or hd = hv = 256.
 // Plan: 64 x 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Sk, int H, int KV, int hd, int hv,
@@ -1638,13 +2177,11 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   if (hd == 256 && hv == 256)
     return launch_f32<256, 256>(p, gx, gy, device, stream);
-  if (hd == 192 && hv == 128)
-    return launch_f32<192, 128>(p, gx, gy, device, stream);
   FLASH_DISPATCH(launch_f32)
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
-// hv in {64, 128, 256} or (hd, hv) = (192, 128)
+// hv in {64, 128, 256}
 int flash_attention_f32_lse(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int Sk, int H,
                             int KV, int hd, int hv, const long long* strides,
@@ -1652,7 +2189,7 @@ int flash_attention_f32_lse(const void* q, const void* k, const void* v,
                             int block_k, int gx, int gy, int device,
                             void* stream) {
   const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
-  if (lse == nullptr || !(square || (hd == 192 && hv == 128)) ||
+  if (lse == nullptr || !square ||
       !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kFQ, kFK,
                  gx, gy) ||
       !rows_aligned16(q, k, v, o, strides, 4))
@@ -1663,9 +2200,39 @@ int flash_attention_f32_lse(const void* q, const void* k, const void* v,
   switch (hd) {
     case 64: return launch_f32<64, 64, true>(p, gx, gy, device, stream);
     case 128: return launch_f32<128, 128, true>(p, gx, gy, device, stream);
-    case 192: return launch_f32<192, 128, true>(p, gx, gy, device, stream);
     default: return launch_f32<256, 256, true>(p, gx, gy, device, stream);
   }
+}
+
+// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128).  Plan: 64 query rows
+// x 64 keys, a persistent grid (gx, 1) of gx <= B*H * ceil(S / 64) blocks
+// that walk the tiles; every row 16-byte aligned.  scratch: float32, 16-byte
+// aligned, 2 (B H S hd + B KV Sk hd + B KV hv skp) floats, skp = Sk rounded
+// up to a multiple of 64: the operands split into TF32 hi and lo, v
+// transposed.
+int flash_attention_f32_tc(const void* q, const void* k, const void* v,
+                           void* o, void* scratch, int B, int S, int Sk,
+                           int H, int KV, int hd, int hv,
+                           const long long* strides, float scale, int causal,
+                           int prefix, int block_q, int block_k, int gx,
+                           int gy, int device, void* stream) {
+  return f32_tc_entry(q, k, v, o, nullptr, scratch, B, S, Sk, H, KV, hd, hv,
+                      strides, scale, causal, prefix, block_q, block_k, gx,
+                      gy, device, stream);
+}
+
+// the same, also writing the row log-sum-exp lse [B, H, S] (float32)
+int flash_attention_f32_tc_lse(const void* q, const void* k, const void* v,
+                               void* o, void* lse, void* scratch, int B,
+                               int S, int Sk, int H, int KV, int hd, int hv,
+                               const long long* strides, float scale,
+                               int causal, int prefix, int block_q,
+                               int block_k, int gx, int gy, int device,
+                               void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return f32_tc_entry(q, k, v, o, static_cast<float*>(lse), scratch, B, S,
+                      Sk, H, KV, hd, hv, strides, scale, causal, prefix,
+                      block_q, block_k, gx, gy, device, stream);
 }
 
 const char* flash_attention_error_string(int code) {

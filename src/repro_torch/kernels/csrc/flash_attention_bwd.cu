@@ -155,9 +155,8 @@
 //       mma.sync a product, items of 64 rows or keys, one block an item),
 //       which took 38.2 ms at that shape against SDPA's 4.0.
 //   flash_bwd_dq_f32_tc_kernel<HD, HV>, flash_bwd_dkdv_f32_tc_kernel<HD,
-//     HV>   float32, hd == hv == D in {64, 128, 256} or (hd, hv) = (192,
-//     128) (deepseek's MLA, no GQA).  Every product -- S and dP
-//     in both kernels, dQ, dV, dK
+//     HV>   float32, hd == hv == D in {64, 128, 256}.  Every product -- S
+//     and dP in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
 //     + hi lo + hi hi, the small terms first, into a float32 accumulator;
@@ -206,12 +205,35 @@
 //       order.
 //     At D = 256 the streamed tiles are 16 rows, one block of each kernel
 //     fits an SM (195 and 201 KB), and every warp's accumulator is 128
-//     registers a thread.  At (192, 128) Q and K rows are 192 wide, dO and
-//     V rows 128: S = Q K^T runs over 192 columns, dP = dO V^T over 128;
-//     the dQ warp holds dQ (96 registers a thread), the dK / dV kernel's
-//     dS warp dK (96) and its P warp dV in the first 64 of the same
-//     accumulator; tiles of 16 rows, one dK / dV block an SM (float32: 123
-//     KB for dQ, 129 KB for dK / dV).
+//     registers a thread.
+//   flash_bwd_f32_wgmma_kernel<kPassDQ | kPassDK | kPassDV>   float32 at
+//     (hd, hv) = (192, 128) (deepseek's MLA, H == KV): every product as
+//     3xTF32 on wgmma, split by cvt.rna as above.  TF32 wgmma reads both
+//     shared-memory operands K-major only, so dQ = dS K needs K^T, dK = dS^T
+//     Q needs Q^T and dV = P^T dO needs dO^T with the reduction index
+//     contiguous; a pre-pass writes them, and q, k, v, do as they lie, split
+//     into hi and lo, to a float32 scratch (4.8 GB at deepseek's B=1 S=4096
+//     H=128; read once each, written twice their size), with D =
+//     rowsum(dO o).  Shared memory sets the design: a 64-row tile of 192
+//     columns is 96 KB split, so no block holds two such tiles and a ring:
+//     the bf16 kernels' split dK / dV layout (dK on one warpgroup, dV on the
+//     other) would need K and V resident (160 KB) and a second K / V-wide
+//     tile for each warpgroup.  So one 192-wide operand stays (Q for dQ, K
+//     for dK and dV), everything else streams as 32 KB chunks (64 rows x 64
+//     columns, hi and lo) through a ring of 4 (225 KB in all), and one
+//     consumer warpgroup runs three passes, each holding one output (dQ or
+//     dK 96 registers a thread, dV 64): dQ (S, dP, dS, dQ += dS K), dK (S^T,
+//     dP^T, dS^T, dK += dS^T Q), dV (S^T, P^T, dV += P^T dO).  Eight
+//     products where five are needed (S three times, dP twice), each pass
+//     streaming 320 KB (dV 160 KB) a 64 x 64 tile pair from the L2.  An
+//     item is 64 rows or keys of one head, one block an item, head by head
+//     (a round's operands stay in the L2), heaviest first inside a head.
+//     Products: wgmma.m64n64k8, S and dP from shared memory (chained in one
+//     accumulator: 1e-4 of scale is the gate), the outputs with dS (or P)
+//     from registers -- the accumulator fragment once the reduction index
+//     is relabelled, the transposed operands' index stored in tf32_key order
+//     -- 64 columns at a time into a fresh accumulator added in float32; no
+//     atomics, so two runs are bitwise equal.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -1572,11 +1594,10 @@ __host__ __device__ constexpr int f32_step() {
   return D == 64 ? 32 : 16;
 }
 // blocks of the dK / dV kernel an SM: at D = 256 a warp's accumulator alone
-// is 128 registers a thread, more than two 256-thread blocks leave it; at
-// (192, 128) the dS warp's dK is 96
-template <int HD, int HV>
+// is 128 registers a thread, more than two 256-thread blocks leave it
+template <int D>
 __host__ __device__ constexpr int f32_kv_blocks() {
-  return HD + HV > 256 ? 1 : 2;
+  return D == 256 ? 1 : 2;
 }
 
 // shared rows are D elements and 16 bytes: for float32 a row stride of 4
@@ -1608,9 +1629,7 @@ constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring
          kFStages * f32_slot_bytes<HD, HV>();
 }
 static_assert(f32_dq_smem_bytes<256, 256>() <= 232448 &&
-                  f32_dkdv_smem_bytes<256, 256>() <= 232448 &&
-                  f32_dq_smem_bytes<192, 128>() <= 232448 &&
-                  f32_dkdv_smem_bytes<192, 128>() <= 232448,
+                  f32_dkdv_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 
 // two adjacent outputs
@@ -1751,13 +1770,10 @@ __device__ __forceinline__ void scores_f32(const float* A, const float* B,
 // float32: mma.sync's float32 accumulation truncates, and over the
 // thousands of steps of a whole row it drifts toward zero (~1e-4 of scale
 // at S = 4096), where the tile's sum of 3 NT steps does not.
-// acc may be wider than the D columns this product adds to (NA >= D / 8:
-// the dK / dV kernel's one accumulator at (192, 128), dK's or dV's)
-template <int D, int NT, int NA>
+template <int D, int NT>
 __device__ __forceinline__ void accumulate_f32(const float (&c)[NT][4],
                                                const float* B, int g, int t,
-                                               float (&acc)[NA][4]) {
-  static_assert(NA >= D / 8, "the accumulator holds the product");
+                                               float (&acc)[D / 8][4]) {
   constexpr int LD = row_ld<D>();
   uint32_t ah[NT][4], al[NT][4];
 #pragma unroll
@@ -1940,9 +1956,9 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
 }
 
 template <int HD, int HV>
-__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<HD, HV>()))
+__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<HD>()))
 flash_bwd_dkdv_f32_tc_kernel(const Params p) {
-  static_assert(HD >= HV, "the accumulator is dK's width or more");
+  static_assert(HD == HV, "dK and dV share one accumulator width");
   constexpr int LD = row_ld<HD>(), LV = row_ld<HV>();
   constexpr int QT = f32_step<HD>(), NT = QT / 8;
   constexpr int LP = QT + 8;
@@ -1999,12 +2015,7 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
         !p.causal || qt0 + QT - 1 >= key0 || key0 < p.prefix;
     float c[NT][4];  // P warp: S^T, then P^T; dS warp: dP^T, then dS^T
     if (active) {
-      if constexpr (HD == HV)
-        scores_f32<HD, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
-      else if (pwarp)
-        scores_f32<HD, NT>(Ks, Qs, r16, g, t, c);
-      else
-        scores_f32<HV, NT>(Vs, dOs, r16, g, t, c);
+      scores_f32<HD, NT>(A, pwarp ? Qs : dOs, r16, g, t, c);
       if (pwarp) {
         // P^T, 0 for rows past S or keys hidden from the row
         const bool edge = qt0 + QT > p.S || (p.causal && qt0 < key0 + 15);
@@ -2041,50 +2052,35 @@ flash_bwd_dkdv_f32_tc_kernel(const Params p) {
             c[n][2 * i + 1] = pe.y * (c[n][2 * i + 1] - Ds[ql + 1]);
           }
       }
-      if constexpr (HD == HV)
-        accumulate_f32<HD, NT>(c, pwarp ? dOs : Qs, g, t, acc);
-      else if (pwarp)
-        accumulate_f32<HV, NT>(c, dOs, g, t, acc);
-      else
-        accumulate_f32<HD, NT>(c, Qs, g, t, acc);
+      accumulate_f32<HD, NT>(c, pwarp ? dOs : Qs, g, t, acc);
     }
     __syncthreads();  // the slot and P^T are refilled next
   }
 
   const float mul = pwarp ? 1.0f : p.scale;
-  // the rows of this thread's two keys, W columns: dk, dv without GQA;
-  // with it the head's float32 partials, rows of H D floats (one code path
-  // for float32: two cost the 128-register budget a spill at D = 128)
-  auto write = [&](auto* out, int64_t st, auto width) {
-    constexpr int W = decltype(width)::value;
+  // the rows of this thread's two keys: dk, dv without GQA; with it the
+  // head's float32 partials, rows of H D floats (one code path for
+  // float32: two cost the 128-register budget a spill at D = 128)
+  auto write = [&](float* out, int64_t st) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = key0 + g + 8 * i;
       if (key >= p.Sk) continue;
-      auto* o = out + u64(key) * st;
+      float* o = out + u64(key) * st;
 #pragma unroll
-      for (int n = 0; n < W / 8; ++n)
+      for (int n = 0; n < HD / 8; ++n)
         store2(o + 8 * n + 2 * t, acc[n][2 * i] * mul,
                acc[n][2 * i + 1] * mul);
     }
   };
-  if constexpr (HD == HV) {
-    constexpr std::integral_constant<int, HD> w{};
-    if (p.H == p.KV)
-      write(pwarp ? base<float, kDV>(p, p.dv, b, kvh)
-                  : base<float, kDK>(p, p.dk, b, kvh),
-            pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p), w);
-    else
-      write(p.part + (pwarp ? p.part_half : 0) +
-                (u64(b) * p.Sk * p.H + h) * HD,
-            (int64_t)p.H * HD, w);
-  } else if (pwarp) {  // H == KV: the entry points refuse GQA here
-    write(base<float, kDV>(p, p.dv, b, kvh), row_stride<kDV>(p),
-          std::integral_constant<int, HV>());
-  } else {
-    write(base<float, kDK>(p, p.dk, b, kvh), row_stride<kDK>(p),
-          std::integral_constant<int, HD>());
-  }
+  if (p.H == p.KV)
+    write(pwarp ? base<float, kDV>(p, p.dv, b, kvh)
+                : base<float, kDK>(p, p.dk, b, kvh),
+          pwarp ? row_stride<kDV>(p) : row_stride<kDK>(p));
+  else
+    write(p.part + (pwarp ? p.part_half : 0) +
+              (u64(b) * p.Sk * p.H + h) * HD,
+          (int64_t)p.H * HD);
 }
 
 // four adjacent outputs, rounded to T
@@ -2124,6 +2120,393 @@ flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
            k4);
     store4(base<T, kDV>(p, p.dv, b, kvh) + key * row_stride<kDV>(p) + 4 * c,
            v4);
+  }
+}
+
+// --- float32 at (192, 128): 3xTF32 on wgmma ---------------------------------------
+//
+// flash_bwd_f32_wgmma_kernel<kDQ | kDK | kDV> (module header).  A pre-pass
+// (flash_bwd_f32_t_kernel: q, k, do; flash_bwd_f32_split_kernel: v;
+// flash_bwd_f32_dd_kernel) writes every operand split into TF32 hi and lo
+// into the float32 scratch -- q, k, v, do as they lie, q, k and do
+// transposed (reduction index contiguous, in tf32_key order inside each 8) --
+// and D = rowsum(dO o); then three launches of one kernel, each a pass over
+// its items with one consumer warpgroup and a loader warp:
+//   kDQ: an item is 64 query rows of one head; Q resident; per kv tile S
+//        = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K (K^T streamed);
+//   kDK: an item is 64 keys of one head; K resident; per q tile S^T = K
+//        Q^T, dP^T = V dO^T, dS^T, dK += dS^T Q (Q^T streamed);
+//   kDV: an item is 64 keys; K resident; per q tile S^T, P^T, dV += P^T dO
+//        (dO^T streamed).
+// Only the 192-wide resident (Q or K) stays in shared memory; every
+// streamed operand -- the 128-wide one of dP too -- comes as chunks of 64
+// rows x 64 columns (two boxes of 32), hi and lo (32 KB), through a ring of
+// four slots.
+
+constexpr int kB3Rows = 64;       // rows of an item and of a streamed tile
+constexpr int kB3Threads = 160;   // the consumer warpgroup, the loader warp
+constexpr int kB3Slots = 4;       // ring slots
+constexpr int kB3Box = 8192;      // 64 rows of 32 floats (128 bytes)
+constexpr int kB3Slot = 4 * kB3Box;  // a chunk: two boxes' hi and lo
+enum { kPassDQ = 0, kPassDK = 1, kPassDV = 2 };
+
+// shared memory: the 1 KiB alignment of the swizzle's period; the resident
+// tile's hi and lo (64 rows of HD floats), the ring, the barriers (the
+// resident's full, a full / empty pair a slot)
+template <int HD, int HV>
+__host__ __device__ constexpr int b3_smem_bytes() {
+  return 1024 + 2 * kB3Rows * HD * 4 + kB3Slots * kB3Slot +
+         (1 + 2 * kB3Slots) * 8;
+}
+static_assert(b3_smem_bytes<192, 128>() <= 232448,
+              "a block's shared memory is 227 KB");
+
+// v as TF32 hi and lo (hopper.cuh split_rows)
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_f32_split_kernel(const float* src, int64_t sb, int64_t ss,
+                           int64_t sh, int S, int heads, int64_t total,
+                           float* dst, int64_t half) {
+  split_rows<D>(src, sb, ss, sh, S, heads, total, dst, half);
+}
+
+// q, k, do as TF32 hi and lo, transposed and as they lie (hopper.cuh
+// split_tile)
+template <int W>
+__global__ void __launch_bounds__(256)
+flash_bwd_f32_t_kernel(const float* src, int64_t sb, int64_t ss, int64_t sh,
+                       int S, int heads, int sp, float* dst, int64_t half,
+                       float* rows, int64_t rows_half) {
+  split_tile<W>(src, sb, ss, sh, S, heads, sp, dst, half, rows, rows_half);
+}
+
+// D [B H, S] = rowsum(dO o), float32: one warp a row, in a fixed order
+template <int HV>
+__global__ void __launch_bounds__(256)
+flash_bwd_f32_dd_kernel(const Params p, int B) {
+  const int64_t rows = (int64_t)B * p.H * p.S;
+  const int lane = threadIdx.x & 31;
+  for (int64_t r = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
+       r < rows; r += (int64_t)gridDim.x * blockDim.x / 32) {
+    const int s = (int)(r % p.S);
+    const int64_t bh = r / p.S;
+    const int b = (int)(bh / p.H), h = (int)(bh % p.H);
+    const float* dor = base<const float, kDO>(p, p.dout, b, h) +
+                       u64(s) * row_stride<kDO>(p);
+    const float* orow = base<const float, kO>(p, p.o, b, h) +
+                        u64(s) * row_stride<kO>(p);
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < HV / 32; ++j)
+      acc = fmaf(dor[lane + 32 * j], orow[lane + 32 * j], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) p.dd[r] = acc;
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kB3Threads, 1)
+flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
+                           const __grid_constant__ CUtensorMap tm_a2,
+                           const __grid_constant__ CUtensorMap tm_b1,
+                           const __grid_constant__ CUtensorMap tm_b2,
+                           const __grid_constant__ CUtensorMap tm_bt,
+                           const Params p) {
+  constexpr int HD = 192, HV = 128;
+  constexpr bool kByRow = MODE == kPassDQ;  // item rows are query rows
+  constexpr bool kDP = MODE != kPassDV;     // dP (and dS) computed
+  constexpr int W = MODE == kPassDV ? HV : HD;  // output width
+  constexpr int NB = W / 64;                    // output column blocks
+  constexpr int kA1 = 2 * kB3Rows * HD * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sA1 = smem;             // HD / 32 boxes of hi, lo
+  uint8_t* ring = sA1 + kA1;
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(ring + kB3Slots * kB3Slot);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + kB3Slots;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    for (int st = 0; st < kB3Slots; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);  // one lane per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the item: head bh's tile ib (query rows for kDQ, keys otherwise), head
+  // by head, inside a head heaviest first under causal
+  const int n_items = kByRow ? (p.S + kB3Rows - 1) / kB3Rows
+                             : (p.Sk + kB3Rows - 1) / kB3Rows;
+  const int bh = (int)blockIdx.x / n_items;
+  const int ib = kByRow && p.causal
+                     ? n_items - 1 - (int)blockIdx.x % n_items
+                     : (int)blockIdx.x % n_items;
+  const int i0 = ib * kB3Rows;
+  // the streamed tiles: kDQ the kv tiles up to the rows' last visible key;
+  // else the q tiles from the first that sees a key here (0 for an item
+  // that holds a key of the prefix)
+  const int t_first = kByRow || !p.causal || i0 < p.prefix ? 0 : ib;
+  const int t_end =
+      kByRow ? ((p.causal ? causal_end(p, i0 + kB3Rows) : p.Sk) + kB3Rows -
+                1) / kB3Rows
+             : (p.S + kB3Rows - 1) / kB3Rows;
+
+  if (tid >= 128) {
+    // ---- loader: the resident, then per streamed tile HD / 64 chunks of
+    // B1, (kDQ, kDK) HV / 64 pairs of chunks of A2 (the item's rows) and B2
+    // (the tile's), and NB of the transposed operand ----
+    if (tid == 128) {
+      prefetch_tensormap(&tm_a1);
+      prefetch_tensormap(&tm_b1);
+      prefetch_tensormap(&tm_bt);
+      if constexpr (kDP) {
+        prefetch_tensormap(&tm_a2);
+        prefetch_tensormap(&tm_b2);
+      }
+      mbar_arrive_expect_tx(res_full, kA1);
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c)
+        tma_load_4d(sA1 + c * 2 * kB3Box, &tm_a1, res_full, 32 * c, i0, bh,
+                    0);
+      int r = 0;
+      // a chunk: boxes (c0, c1) and (c0 + d0, c1 + d1), 16 KB apart
+      auto load = [&](const CUtensorMap* map, int c0, int c1, int d0,
+                      int d1) {
+        const int st = r % kB3Slots;
+        mbar_wait(&empty[st], ((r / kB3Slots) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], kB3Slot);
+        tma_load_4d(ring + st * kB3Slot, map, &full[st], c0, c1, bh, 0);
+        tma_load_4d(ring + st * kB3Slot + 2 * kB3Box, map, &full[st],
+                    c0 + d0, c1 + d1, bh, 0);
+        ++r;
+      };
+      for (int t = t_first; t < t_end; ++t) {
+        const int t0 = t * kB3Rows;
+        for (int c = 0; c < HD / 64; ++c) load(&tm_b1, 64 * c, t0, 32, 0);
+        if constexpr (kDP)
+          for (int c = 0; c < HV / 64; ++c) {
+            load(&tm_a2, 64 * c, i0, 32, 0);
+            load(&tm_b2, 64 * c, t0, 32, 0);
+          }
+        for (int cb = 0; cb < NB; ++cb) load(&tm_bt, t0, 64 * cb, 32, 0);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: the item's 64 rows ----
+  const int lane = tid & 31, t4 = lane & 3;
+  const int frag_row = (tid >> 5) * 16 + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t a1_addr = smem_u32(sA1), ring_addr = smem_u32(ring);
+  const bool causal = p.causal;
+  const int prefix = p.prefix;
+  const int64_t stat0 = (int64_t)bh * p.S;  // lse and D of head bh
+
+  float out[NB][32];  // dQ, dK or dV: a tile's sum added in float32
+  float s[32], dp[32];
+  float acc[32];      // one output column block of one tile
+  uint32_t dh[8][4], dl[8][4];  // dS (P for kDV) in TF32 hi and lo
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) out[cb][i] = 0.0f;
+  // kDQ: the lse (log2 domain) and D of this thread's two rows
+  float lse_r[2] = {0.0f, 0.0f}, d_r[2] = {0.0f, 0.0f};
+  if constexpr (kByRow) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i0 + frag_row + 8 * i;
+      if (row < p.S) {
+        lse_r[i] = p.lse[stat0 + row] * kLog2e;
+        d_r[i] = p.dd[stat0 + row];
+      }
+    }
+  }
+
+  // X (+)= A B^T over 64 columns, 8 k8 steps (box ks / 4 of each): the
+  // small terms of every step first, then hi hi; a_box(ks) and b_box(ks)
+  // the addresses of the steps' boxes (hi; lo 8 KB on)
+  auto issue_ss = [&](float (&x)[32], auto a_box, auto b_box, bool first) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t aa = a_box(ks / 4) + (ks % 4) * 32;
+      const uint32_t ba = b_box(ks / 4) + (ks % 4) * 32;
+      wgmma_tf32_ss_m64n64k8(x, smem_desc(aa + kB3Box, 16, 1024),
+                             smem_desc(ba, 16, 1024), !(first && ks == 0));
+      wgmma_tf32_ss_m64n64k8(x, smem_desc(aa, 16, 1024),
+                             smem_desc(ba + kB3Box, 16, 1024), 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t aa = a_box(ks / 4) + (ks % 4) * 32;
+      const uint32_t ba = b_box(ks / 4) + (ks % 4) * 32;
+      wgmma_tf32_ss_m64n64k8(x, smem_desc(aa, 16, 1024),
+                             smem_desc(ba, 16, 1024), 1);
+    }
+    wgmma_commit();
+  };
+  // acc = dS (registers, 8 k8 steps) times a chunk of the transposed
+  // operand (64 of the reduction index in two boxes, 64 output columns),
+  // into a fresh accumulator, the small terms first
+  auto issue_rs = [&](int st) {
+    const uint32_t ba = ring_addr + st * kB3Slot;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint32_t b = ba + (n / 4) * 2 * kB3Box + (n % 4) * 32;
+      wgmma_tf32_rs_m64n64k8(acc, dl[n], smem_desc(b, 16, 1024), n > 0);
+      wgmma_tf32_rs_m64n64k8(acc, dh[n], smem_desc(b + kB3Box, 16, 1024),
+                             1);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      wgmma_tf32_rs_m64n64k8(
+          acc, dh[n],
+          smem_desc(ba + (n / 4) * 2 * kB3Box + (n % 4) * 32, 16, 1024), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int r) {
+    if (lane == 0) mbar_arrive(&empty[r % kB3Slots]);
+  };
+  auto wait_full = [&](int r) {
+    mbar_wait(&full[r % kB3Slots], (r / kB3Slots) & 1);
+  };
+  auto slot_box = [&](int r) {
+    const uint32_t a = ring_addr + (r % kB3Slots) * kB3Slot;
+    return [a](int bx) { return a + bx * 2 * kB3Box; };
+  };
+
+  mbar_wait(res_full, 0);
+  int r = 0;
+  for (int t = t_first; t < t_end; ++t) {
+    const int t0 = t * kB3Rows;
+    // kDK, kDV: the lse (log2 domain) and D of this thread's 16 columns,
+    // loaded ahead of their use
+    float lse_c[8][2], d_c[8][2];
+    if constexpr (!kByRow) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t0 + 8 * n + 2 * t4 + e;
+          const bool in = col < p.S;
+          lse_c[n][e] = in ? p.lse[stat0 + col] * kLog2e : 0.0f;
+          d_c[n][e] = in && kDP ? p.dd[stat0 + col] : 0.0f;
+        }
+    }
+    // S (S^T) over HD / 64 chunks, then dP (dP^T) over HV / 64 pairs, one
+    // commit group a chunk or pair; its slots released once the next group
+    // is issued and its own is done
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c, ++r) {
+      wait_full(r);
+      wgmma_fence();
+      issue_ss(s, [&](int bx) { return a1_addr + (2 * c + bx) * 2 * kB3Box; },
+               slot_box(r), c == 0);
+      if (c > 0) {
+        wgmma_wait<1>();
+        release(r - 1);
+      }
+    }
+    int last = 1;  // slots of the last group issued
+    if constexpr (kDP) {
+#pragma unroll
+      for (int c = 0; c < HV / 64; ++c, r += 2) {
+        wait_full(r);
+        wait_full(r + 1);
+        wgmma_fence();
+        issue_ss(dp, slot_box(r), slot_box(r + 1), c == 0);
+        wgmma_wait<1>();
+        for (int i = 1; i <= last; ++i) release(r - i);
+        last = 2;
+      }
+    }
+    wgmma_wait<0>();
+    for (int i = 1; i <= last; ++i) release(r - i);
+    fence_acc(s);
+    if constexpr (kDP) fence_acc(dp);
+    // P = 2^(S scale log2 e - lse log2 e), 0 where the mask hides the pair
+    // or the row / key lies past S / Sk -- tested by selects, and only on a
+    // tile that holds such a pair (the diagonal's, a ragged end's): 7 % of
+    // the call where every tile tested; dS / scale = P (dP - D); as TF32
+    // hi and lo in the A fragments' order (k-slot t = index 2 t)
+    const bool edge =
+        kByRow ? (t0 + kB3Rows > p.Sk || i0 + kB3Rows > p.S ||
+                  (causal && t0 + kB3Rows - 1 > i0))
+               : (t0 + kB3Rows > p.S || i0 + kB3Rows > p.Sk ||
+                  (causal && i0 + kB3Rows - 1 > t0));
+    float x[32];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i_row = i0 + frag_row + 8 * (e >> 1);  // the item's
+        const int t_col = t0 + 8 * n + 2 * t4 + (e & 1);  // the tile's
+        const int row = kByRow ? i_row : t_col;            // query row
+        const int key = kByRow ? t_col : i_row;
+        const float lse2 = kByRow ? lse_r[e >> 1] : lse_c[n][e & 1];
+        const bool hide = edge && (row >= p.S || key >= p.Sk ||
+                                   (causal && hidden(key, row, prefix)));
+        const float pe = hide ? 0.0f : exp2f(fmaf(s[4 * n + e], sl2, -lse2));
+        if constexpr (kDP) {
+          const float dd = kByRow ? d_r[e >> 1] : d_c[n][e & 1];
+          x[4 * n + e] = pe * (dp[4 * n + e] - dd);
+        } else {
+          x[4 * n + e] = pe;
+        }
+      }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      split_tf32<true>(x[4 * n], dh[n][0], dl[n][0]);
+      split_tf32<true>(x[4 * n + 2], dh[n][1], dl[n][1]);
+      split_tf32<true>(x[4 * n + 1], dh[n][2], dl[n][2]);
+      split_tf32<true>(x[4 * n + 3], dh[n][3], dl[n][3]);
+    }
+    // the output, a column block (a chunk) at a time into a fresh
+    // accumulator (two in turns measured no faster)
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb, ++r) {
+      wait_full(r);
+      wgmma_fence();
+      issue_rs(r % kB3Slots);
+      wgmma_wait<0>();
+      release(r);
+      fence_acc(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) out[cb][i] += acc[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      fence_frag(dh[n]);
+      fence_frag(dl[n]);
+    }
+  }
+
+  // rows of the item: dQ rows < S, dK / dV keys < Sk; dQ, dK times scale
+  const int b = bh / p.H, h = bh % p.H;
+  float* dst = MODE == kPassDQ   ? base<float, kDQ>(p, p.dq, b, h)
+               : MODE == kPassDK ? base<float, kDK>(p, p.dk, b, h)
+                                 : base<float, kDV>(p, p.dv, b, h);
+  const int64_t rs = MODE == kPassDQ   ? row_stride<kDQ>(p)
+                     : MODE == kPassDK ? row_stride<kDK>(p)
+                                       : row_stride<kDV>(p);
+  const float mul = MODE == kPassDV ? 1.0f : p.scale;
+  const int limit = kByRow ? p.S : p.Sk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i0 + frag_row + 8 * i;
+    if (row >= limit) continue;
+    float* o = dst + u64(row) * rs;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        store2(o + 64 * cb + 8 * n + 2 * t4, out[cb][4 * n + 2 * i] * mul,
+               out[cb][4 * n + 2 * i + 1] * mul);
   }
 }
 
@@ -2225,6 +2608,7 @@ int launch_bf16(const Params& p, int B, const long long* st, int ctas_dq,
 template <int HD, int HV>
 int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
                 int device, void* stream) {
+  static_assert(HD == HV, "the mma.sync float32 kernels: hd == hv");
   static unsigned dq_done = 0, kv_done = 0;
   if (parts & 1) {
     cudaError_t err = launch(flash_bwd_dq_f32_tc_kernel<HD, HV>,
@@ -2236,12 +2620,8 @@ int launch_tf32(const Params& p, int B, int ctas_dq, int ctas_kv, int parts,
     cudaError_t err = launch(flash_bwd_dkdv_f32_tc_kernel<HD, HV>,
                              f32_dkdv_smem_bytes<HD, HV>(), kKVThreads, p,
                              ctas_kv, 1, &kv_done, device, stream);
-    if constexpr (HD == HV) {
-      if (err != cudaSuccess || p.H == p.KV) return (int)err;
-      return (int)launch_sum<float, HD>(p, B, stream);
-    } else {
-      return (int)err;  // no GQA at hd != hv
-    }
+    if (err != cudaSuccess || p.H == p.KV) return (int)err;
+    return (int)launch_sum<float, HD>(p, B, stream);
   }
   return (int)cudaSuccess;
 }
@@ -2278,6 +2658,122 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   p->causal = causal;
   p->prefix = prefix;
   return true;
+}
+
+// the float32 wgmma backward's scratch (floats), as launch_b3 lays it out
+struct B3Scratch {
+  float *q, *k, *v, *dout, *qt, *kt, *dot, *dd;
+  int64_t nq, nk, nv, ndo, nqt, nkt, ndot;  // floats of one half (hi or lo)
+  int sp, skp;                              // S, Sk rounded up to 64
+};
+B3Scratch b3_scratch(float* base, int B, int S, int Sk, int H) {
+  constexpr int HD = 192, HV = 128;
+  B3Scratch s;
+  const int64_t n = (int64_t)B * H;
+  s.sp = (S + kB3Rows - 1) / kB3Rows * kB3Rows;
+  s.skp = (Sk + kB3Rows - 1) / kB3Rows * kB3Rows;
+  s.nq = n * S * HD;
+  s.nk = n * Sk * HD;
+  s.nv = n * Sk * HV;
+  s.ndo = n * S * HV;
+  s.nqt = n * HD * s.sp;
+  s.nkt = n * HD * s.skp;
+  s.ndot = n * HV * s.sp;
+  s.q = base;
+  s.k = s.q + 2 * s.nq;
+  s.v = s.k + 2 * s.nk;
+  s.dout = s.v + 2 * s.nv;
+  s.qt = s.dout + 2 * s.ndo;
+  s.kt = s.qt + 2 * s.nqt;
+  s.dot = s.kt + 2 * s.nkt;
+  s.dd = s.dot + 2 * s.ndot;
+  return s;
+}
+
+// a 4-D float32 map (columns, rows, b * heads, hi / lo) over a split
+// operand, boxes of 32 columns x 64 rows x 1 x both
+bool encode_split(CUtensorMap* map, const float* base, int cols, int rows,
+                  int n, int64_t half) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)n, 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)cols * rows * 4,
+                                 (cuuint64_t)half * 4};
+  const cuuint32_t box[4] = {32, kB3Rows, 1, 2};
+  return encode_f32(map, base, 4, dims, strides, box);
+}
+
+int b3_blocks(int64_t total) {
+  const int64_t n = (total + 255) / 256;
+  return (int)(n < 132 * 16 ? n : 132 * 16);
+}
+
+template <int MODE>
+cudaError_t launch_b3_pass(const CUtensorMap& a1, const CUtensorMap& a2,
+                           const CUtensorMap& b1, const CUtensorMap& b2,
+                           const CUtensorMap& bt, const Params& p, int ctas,
+                           int device, cudaStream_t stream) {
+  static unsigned done = 0;
+  auto kernel = flash_bwd_f32_wgmma_kernel<MODE>;
+  constexpr int smem = b3_smem_bytes<192, 128>();
+  cudaError_t err = allow_smem(kernel, smem, device, &done);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, kB3Threads, smem, stream>>>(a1, a2, b1, b2, bt, p);
+  return cudaGetLastError();
+}
+
+// parts 1: the pre-pass (split, transposed, D) and the dQ pass; 2: the dK
+// and the dV passes, which read the scratch a part-1 launch wrote
+int launch_b3(Params p, int B, float* scratch, int ctas_dq, int ctas_kv,
+              int parts, int device, void* stream) {
+  constexpr int HD = 192, HV = 128;
+  cudaStream_t st = (cudaStream_t)stream;
+  const B3Scratch sc = b3_scratch(scratch, B, p.S, p.Sk, p.H);
+  p.dd = sc.dd;
+  const int n = B * p.H;
+  if (parts & 1) {
+    const int64_t* s = p.st;
+    // q, k, do: split as they lie and transposed in one pass; v as it lies
+    flash_bwd_f32_t_kernel<HD><<<dim3(sc.sp / 64, HD / 64, n), 256, 0, st>>>(
+        static_cast<const float*>(p.q), s[3 * kQ], s[3 * kQ + 1],
+        s[3 * kQ + 2], p.S, p.H, sc.sp, sc.qt, sc.nqt, sc.q, sc.nq);
+    flash_bwd_f32_t_kernel<HD><<<dim3(sc.skp / 64, HD / 64, n), 256, 0,
+                                 st>>>(
+        static_cast<const float*>(p.k), s[3 * kK], s[3 * kK + 1],
+        s[3 * kK + 2], p.Sk, p.KV, sc.skp, sc.kt, sc.nkt, sc.k, sc.nk);
+    flash_bwd_f32_t_kernel<HV><<<dim3(sc.sp / 64, HV / 64, n), 256, 0, st>>>(
+        static_cast<const float*>(p.dout), s[3 * kDO], s[3 * kDO + 1],
+        s[3 * kDO + 2], p.S, p.H, sc.sp, sc.dot, sc.ndot, sc.dout, sc.ndo);
+    flash_bwd_f32_split_kernel<HV><<<b3_blocks(sc.nv / 4), 256, 0, st>>>(
+        static_cast<const float*>(p.v), s[3 * kV], s[3 * kV + 1],
+        s[3 * kV + 2], p.Sk, p.KV, sc.nv / 4, sc.v, sc.nv);
+    flash_bwd_f32_dd_kernel<HV><<<b3_blocks((int64_t)n * p.S * 32), 256, 0,
+                                  st>>>(p, B);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  CUtensorMap tq = {}, tk = {}, tv = {}, tdo = {}, tqt = {}, tkt = {},
+              tdot = {};
+  if (!encode_split(&tq, sc.q, HD, p.S, n, sc.nq) ||
+      !encode_split(&tk, sc.k, HD, p.Sk, n, sc.nk) ||
+      !encode_split(&tv, sc.v, HV, p.Sk, n, sc.nv) ||
+      !encode_split(&tdo, sc.dout, HV, p.S, n, sc.ndo) ||
+      !encode_split(&tqt, sc.qt, sc.sp, HD, n, sc.nqt) ||
+      !encode_split(&tkt, sc.kt, sc.skp, HD, n, sc.nkt) ||
+      !encode_split(&tdot, sc.dot, sc.sp, HV, n, sc.ndot))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (parts & 1)
+    err = launch_b3_pass<kPassDQ>(tq, tdo, tk, tv, tkt, p, ctas_dq, device,
+                                  st);
+  if (err == cudaSuccess && (parts & 2)) {
+    err = launch_b3_pass<kPassDK>(tk, tv, tq, tdo, tqt, p, ctas_kv, device,
+                                  st);
+    if (err == cudaSuccess)
+      err = launch_b3_pass<kPassDV>(tk, tv, tq, tdo, tdot, p, ctas_kv,
+                                    device, st);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -2378,12 +2874,12 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// float32 as 3xTF32 on mma.sync, hd == hv in {64, 128, 256} or (hd, hv) =
-// (192, 128) with H == KV.  Plan: q_rows = kv_rows = 64 (kF), q_step =
-// kv_step = f32_step (of hd), 2 ring slots in each kernel, grids of one
-// block an item: ctas_dq = B * H * nq and ctas_kv = B * H * nk (nq =
-// ceil(S / 64), nk = ceil(Sk / 64)).  scratch: float32 D [B, H, S], after
-// the dK, dV partials 2 x [B, Sk, H, hd] when H > KV.
+// float32 as 3xTF32 on mma.sync, hd == hv in {64, 128, 256}.  Plan:
+// q_rows = kv_rows = 64 (kF), q_step = kv_step = f32_step (of hd), 2 ring
+// slots in each kernel, grids of one block an item: ctas_dq = B * H * nq
+// and ctas_kv = B * H * nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).
+// scratch: float32 D [B, H, S], after the dK, dV partials 2 x [B, Sk, H,
+// hd] when H > KV.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dd, void* dq, void* dk, void* dv, int B,
@@ -2394,11 +2890,10 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
   Params p;
-  const bool rect = hd == 192 && hv == 128 && H == KV;
   const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
   const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
   const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
-  if (!(square || rect) ||
+  if (!square ||
       !make_params(&p, q, k, v, o, dout, lse, dd, dq, dk, dv, B, S, Sk, H,
                    KV, strides, scale, causal, prefix, parts, 4) ||
       q_rows != kF || kv_rows != kF || q_step != step || kv_step != step ||
@@ -2420,13 +2915,47 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
     case 128:
       return launch_tf32<128, 128>(p, B, ctas_dq, ctas_kv, parts, device,
                                    stream);
-    case 192:
-      return launch_tf32<192, 128>(p, B, ctas_dq, ctas_kv, parts, device,
-                                   stream);
     default:
       return launch_tf32<256, 256>(p, B, ctas_dq, ctas_kv, parts, device,
                                    stream);
   }
+}
+
+// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128) with H == KV.  Plan:
+// q_rows = kv_rows = q_step = kv_step = 64, 4 ring slots in each pass,
+// grids of one block an item: ctas_dq = B * H * nq (the dQ pass) and
+// ctas_kv = B * H * nk (the dK pass, then the dV pass), nq = ceil(S / 64),
+// nk = ceil(Sk / 64).  scratch: float32, 16-byte aligned: q, k, v, do
+// split into TF32 hi and lo, q, k, do transposed and split, D [B H, S]
+// (b3_scratch), 2 (B H S (192 + 128) + B H Sk (192 + 128) + B H 192 (sp +
+// skp) + B H 128 sp) + B H S floats, sp and skp S and Sk rounded up to 64.
+int flash_attention_bwd_f32_tc(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout,
+                               const void* lse, void* scratch, void* dq,
+                               void* dk, void* dv, int B, int S, int Sk,
+                               int H, int KV, int hd, int hv,
+                               const long long* strides, float scale,
+                               int causal, int prefix, int q_rows,
+                               int kv_rows, int q_step, int kv_step,
+                               int stages_dq, int stages_dkdv, int ctas_dq,
+                               int ctas_kv, int parts, int device,
+                               void* stream) {
+  Params p;
+  const int64_t nq = (S + kB3Rows - 1) / kB3Rows;
+  const int64_t nk = (Sk + kB3Rows - 1) / kB3Rows;
+  if (hd != 192 || hv != 128 || H != KV ||
+      !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
+                   H, KV, strides, scale, causal, prefix, parts, 4) ||
+      !aligned16(scratch) || q_rows != kB3Rows || kv_rows != kB3Rows ||
+      q_step != kB3Rows || kv_step != kB3Rows || stages_dq != kB3Slots ||
+      stages_dkdv != kB3Slots || (int64_t)B * H * nq >= (1ll << 31) ||
+      (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
+      ctas_kv != (int64_t)B * H * nk)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_b3(p, B, static_cast<float*>(scratch), ctas_dq, ctas_kv,
+                   parts, device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

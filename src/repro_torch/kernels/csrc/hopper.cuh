@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
 // cp.async, mbarriers, TMA loads, wgmma shared-memory descriptors, fences
-// and the m64n192 and m64n256 products with A from registers, float32
-// products as 3xTF32 on mma.sync, and the host side of TMA
+// and the m64n192 and m64n256 products with A from registers, TF32 wgmma
+// products (float32 as 3xTF32) and the split / transposed operands they
+// read, float32 products as 3xTF32 on mma.sync, and the host side of TMA
 // (cuTensorMapEncodeTiled found through the runtime, so no -lcuda).
 // Included by conv2d.cu, flash_attention.cu, flash_attention_bwd.cu and
 // ssd_scan.cu; kernels/build.py hashes this header into the library name of
@@ -272,6 +273,105 @@ __device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// --- float32 on wgmma: TF32 operands ------------------------------------------
+
+// D[64 x 64] (=|+)= A[64 x 8] * B[64 x 8]^T, TF32 operands both from shared
+// memory, both K-major (TF32 takes no transpose), 128-byte swizzle: a k8 step
+// is 32 bytes of a 128-byte row, as a k16 step of bf16; scale_d = 0
+// overwrites D
+__device__ __forceinline__ void wgmma_tf32_ss_m64n64k8(float (&d)[32],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (=|+)= A[64 x 8] (registers: each warp's 16 rows as the
+// m16n8k8 TF32 A fragment, a[0..3] = A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]) * B[8 x 128] (shared memory, K-major: B^T's 128 rows of
+// 8); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32_rs_m64n128k8(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (=|+)= A[64 x 8] (registers, as in wgmma_tf32_rs_m64n128k8) *
+// B[8 x 64] (shared memory, K-major); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32_rs_m64n64k8(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // --- float32 products as 3xTF32 on mma.sync ----------------------------------
 
 // A float32 x as hi + lo, both TF32 (10 explicit mantissa bits each, round
@@ -307,6 +407,93 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// --- float32 operands split for 3xTF32 wgmma ---------------------------------
+
+// x as TF32 hi and lo (split_tf32), stored as floats
+__device__ __forceinline__ void split_f32(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  split_tf32<true>(x, h, l);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(l);
+}
+
+// The order of a transposed operand's reduction index inside each group of
+// 8: k-slot u holds index 2 u (u < 4) or 2 (u - 4) + 1.  TF32 wgmma reads a
+// register A fragment in the m16n8k8 layout (k-slots t and t + 4 of thread
+// t), while a float32 accumulator gives thread t columns 2 t and 2 t + 1 of
+// each group of 8: with the index stored in this order an accumulator
+// fragment (P, dS) is the A fragment as it stands.
+__host__ __device__ constexpr int tf32_key(int u) {
+  return u < 4 ? 2 * u : 2 * u - 7;
+}
+
+// rows [B, S, heads, D] (element strides sb, ss, sh; D dense) into hi [B
+// heads, S, D] then lo `half` floats on: `total` float4s, grid-stride
+template <int D>
+__device__ __forceinline__ void split_rows(const float* src, int64_t sb,
+                                           int64_t ss, int64_t sh, int S,
+                                           int heads, int64_t total,
+                                           float* dst, int64_t half) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i % (D / 4));
+    const int64_t r = i / (D / 4);  // (b * heads + h) * S + s
+    const int s = (int)(r % S);
+    const int64_t bh = r / S;
+    const int h = (int)(bh % heads), b = (int)(bh / heads);
+    const float4 x = *reinterpret_cast<const float4*>(
+        src + b * sb + s * ss + h * sh + 4 * c);
+    float4 hi, lo;
+    split_f32(x.x, hi.x, lo.x);
+    split_f32(x.y, hi.y, lo.y);
+    split_f32(x.z, hi.z, lo.z);
+    split_f32(x.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(dst + r * D + 4 * c) = hi;
+    *reinterpret_cast<float4*>(dst + half + r * D + 4 * c) = lo;
+  }
+}
+
+// a 64 x 64 tile of rows [B, S, heads, W] (strides sb, ss, sh) -- blockIdx
+// (row tile, 64 columns, b heads + h), 256 threads -- transposed into hi [B
+// heads, W, sp] then lo `half` floats on, rows in tf32_key order inside
+// each 8, zeros past S (sp: S rounded up to whole tiles); and, where `rows`
+// is not null, as it lies into hi [B heads, S, W] then lo `rows_half` on:
+// one read of the source for both
+template <int W>
+__device__ __forceinline__ void split_tile(const float* src, int64_t sb,
+                                           int64_t ss, int64_t sh, int S,
+                                           int heads, int sp, float* dst,
+                                           int64_t half, float* rows,
+                                           int64_t rows_half) {
+  __shared__ float tile[64][65];
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * 64;
+  const int bh = blockIdx.z, b = bh / heads, h = bh % heads;
+  const float* in = src + b * sb + h * sh + c0;
+  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
+    const int r = i / 64, c = i % 64;
+    tile[r][c] = r0 + r < S ? in[(int64_t)(r0 + r) * ss + c] : 0.0f;
+  }
+  __syncthreads();
+  float* out = dst + ((int64_t)bh * W + c0) * sp + r0;
+  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
+    const int c = i / 64, u = i % 64;
+    float hi, lo;
+    split_f32(tile[(u & ~7) | tf32_key(u & 7)][c], hi, lo);
+    out[(int64_t)c * sp + u] = hi;
+    out[half + (int64_t)c * sp + u] = lo;
+  }
+  if (rows == nullptr) return;
+  float* row_out = rows + ((int64_t)bh * S + r0) * W + c0;
+  for (int i = threadIdx.x; i < 64 * 64; i += 256) {
+    const int r = i / 64, c = i % 64;
+    if (r0 + r >= S) break;
+    float hi, lo;
+    split_f32(tile[r][c], hi, lo);
+    row_out[(int64_t)r * W + c] = hi;
+    row_out[rows_half + (int64_t)r * W + c] = lo;
+  }
+}
+
 // --- host side ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -335,19 +522,32 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map of rank <= 5, 128-byte swizzle, zero fill out of
-// bounds; dims and box innermost first, strides in bytes
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+// a tensor map of rank <= 5 over elements of type `type`, 128-byte
+// swizzle, zero fill out of bounds; dims and box innermost first, strides in
+// bytes
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box);
+}
+// float32: a 128-byte box row is 32 elements
+inline bool encode_f32(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                    strides, box);
 }
 
 // the dynamic shared memory limit of a kernel, raised once per device

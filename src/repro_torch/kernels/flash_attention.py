@@ -30,7 +30,12 @@ under its own key of ``LAUNCHES``:
   ``_tc_bn(hd)`` keys.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
   ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
-* ``flash_attention_f32`` -- float32 on the CUDA cores in IEEE float32.
+* ``flash_attention_f32`` -- float32: at ``(hd, hv)`` in ``RECT_PAIRS``
+  (deepseek's (192, 128)) every product as 3xTF32 on ``wgmma`` tensor cores
+  fed by TMA (the C entry point ``F32_TC_ENTRY``; a pre-pass splits the
+  operands into TF32 hi and lo in a float32 scratch, v transposed), one
+  consumer warpgroup over 64-row tiles in a persistent grid; every other
+  shape on the CUDA cores in IEEE float32.
 
 Beside them stands ``flash_attention_plain``: the reference kernel's own
 arithmetic (float32 throughout, blockwise online softmax over kv blocks of
@@ -106,6 +111,19 @@ BWD_VARIANTS = (BWD_BF16, BWD_F32)
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
 LAUNCHES: Dict[str, int] = {k: 0 for k in FWD_VARIANTS + BWD_VARIANTS}
+# the C entry point (and, with ``_lse``, its LSE twin) of the float32
+# variant at the pairs of ``RECT_PAIRS``: 3xTF32 on wgmma, counted under F32
+F32_TC_ENTRY = "flash_attention_f32_tc"
+# float32 wgmma kernel: query rows of a tile and keys of a kv tile; its ring
+# of F32_TC_SLOTS slots of F32_TC_SLOT_BYTES (a chunk of a kv tile: 64 keys x
+# 64 K columns, or 32 keys of V^T's rows, TF32 hi and lo)
+F32_TC_ROWS, F32_TC_SLOTS, F32_TC_SLOT_BYTES = 64, 4, 32768
+# the backward's C entry point at the pairs of ``RECT_PAIRS`` in float32:
+# 3xTF32 on wgmma, counted under BWD_F32; its passes' items and streamed
+# tiles are F32_TC_ROWS rows or keys, through rings of F32_TC_BWD_SLOTS
+# slots of F32_TC_SLOT_BYTES (64 rows x 64 columns, hi and lo)
+BWD_F32_TC_ENTRY = "flash_attention_bwd_f32_tc"
+F32_TC_BWD_SLOTS = 4
 
 # SMs of an H100 SXM: the plan's default card
 H100_SMS = 132
@@ -127,11 +145,13 @@ class Plan:
     launch grid: (``B * H``, q-blocks), one block a tile, or for the
     tensor-core variant (blocks, 1), one persistent block an SM that walks
     the tiles.  Tiles run q-block by q-block over every head, the heaviest
-    q-block first under causal."""
+    q-block first under causal.  ``entry``: the C entry point where it is
+    not the variant's own (the float32 ``wgmma`` kernel, ``F32_TC_ENTRY``)."""
     variant: str
     block_q: int
     block_k: int
     grid: Tuple[int, int]
+    entry: Optional[str] = None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -213,8 +233,9 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
     (head dim 256 among them, kv tiles of 64 keys) or ``(hd, hv)`` is in
     ``RECT_PAIRS`` (kv tiles of 128 keys), else the ``mma.sync`` variant;
-    float32 takes the CUDA-core variant.  A prefix does not change the
-    plan."""
+    float32 takes its variant: at a pair of ``RECT_PAIRS`` the 3xTF32
+    ``wgmma`` kernel (``F32_TC_ENTRY``: 64 x 64 tiles, one persistent block
+    an SM), else the CUDA cores.  A prefix does not change the plan."""
     if dtype == torch.bfloat16 and ((hd == hv and hd in TC_HEAD_DIMS)
                                     or (hd, hv) in RECT_PAIRS):
         variant, bq, bk = TC, 128, _tc_bn(hd)
@@ -225,9 +246,32 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     else:
         raise TypeError(f"no K3 variant for {dtype}")
     grid = (b * h, _cdiv(s, bq))
+    if variant == F32 and (hd, hv) in RECT_PAIRS:
+        return Plan(F32, F32_TC_ROWS, F32_TC_ROWS,
+                    (min(grid[0] * grid[1], sms), 1), F32_TC_ENTRY)
     if variant == TC:
         grid = (min(grid[0] * grid[1], sms), 1)
     return Plan(variant, bq, bk, grid)
+
+
+def f32_tc_smem(hd: int) -> int:
+    """Dynamic shared memory of the float32 ``wgmma`` kernel's block, as
+    ``flash_attention.cu`` lays it out (``f32_tc_smem_bytes``): 1 KiB to
+    align the base to the swizzle's period, Q's TF32 hi and lo (64 rows of
+    ``hd`` floats each), the ring, and Q's full / empty mbarriers beside a
+    pair a slot."""
+    return 1024 + 2 * F32_TC_ROWS * hd * 4 + \
+        F32_TC_SLOTS * F32_TC_SLOT_BYTES + (2 + 2 * F32_TC_SLOTS) * 8
+
+
+def f32_tc_scratch_floats(b: int, s: int, sk: int, h: int, kv: int, hd: int,
+                          hv: int) -> int:
+    """float32 scratch of the 3xTF32 ``wgmma`` forward, as
+    ``flash_attention.cu`` lays it out: k split into TF32 hi and lo ([2, B
+    KV, Sk, hd]), v transposed and split ([2, B KV, hv, Sk rounded up to
+    the 64-key tile]); the kernel splits q itself."""
+    skp = _cdiv(sk, F32_TC_ROWS) * F32_TC_ROWS
+    return 2 * (b * kv * sk * hd + b * kv * hv * skp)
 
 
 _bound = None
@@ -255,6 +299,11 @@ def _library():
             fn = getattr(lib, name + "_lse")
             fn.argtypes = [vp] * 5 + tail
             fn.restype = ci
+        # the float32 wgmma kernel: its scratch after o (and lse)
+        lib.flash_attention_f32_tc.argtypes = [vp] * 5 + tail
+        lib.flash_attention_f32_tc_lse.argtypes = [vp] * 6 + tail
+        lib.flash_attention_f32_tc.restype = ci
+        lib.flash_attention_f32_tc_lse.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -276,9 +325,10 @@ def _bwd_library():
         # stream
         lib.flash_attention_bwd_bf16.argtypes = \
             [vp] * 11 + shape + [ci] * 4 + [ci, ci, vp]
-        lib.flash_attention_bwd_f32.argtypes = \
-            [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
-        for name in BWD_VARIANTS:
+        for name in (BWD_F32, BWD_F32_TC_ENTRY):
+            getattr(lib, name).argtypes = \
+                [vp] * 10 + shape + [ci] * 4 + [ci, ci, vp]
+        for name in BWD_VARIANTS + (BWD_F32_TC_ENTRY,):
             getattr(lib, name).restype = ci
         lib.flash_attention_bwd_error_string.argtypes = [ci]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -511,10 +561,17 @@ def _launch_fwd(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(
         *(int(st) for t in (q, k, v, o) for st in t.stride()[:3]))
     lib = _library()
-    entry = p.variant if lse is None else p.variant + "_lse"
+    entry = p.entry or p.variant
+    if lse is not None:
+        entry += "_lse"
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
     if lse is not None:
         head.append(lse.data_ptr())
+    if p.entry == F32_TC_ENTRY:
+        scratch = torch.empty((f32_tc_scratch_floats(b, s, sk, h, kv, hd,
+                                                     hv),),
+                              dtype=torch.float32, device=q.device)
+        head.append(scratch.data_ptr())
     gx, gy = p.grid
     code = getattr(lib, entry)(
         *head, b, s, sk, h, kv, hd, hv, strides, float(scale),
@@ -597,7 +654,11 @@ class BwdPlan:
     (B H)`` (the dQ kernel's reversed under causal, so the heaviest items
     come first) of head ``b H + h = i % (B H)``; with GQA the dK / dV items
     write float32 partials per head, which a last kernel sums by group in
-    head order."""
+    head order.  float32 at a pair of ``RECT_PAIRS``: the C entry point
+    ``entry`` (``BWD_F32_TC_ENTRY``), a pre-pass and three passes of one
+    ``wgmma`` kernel (dQ on ``grid_dq``; dK, then dV on ``grid_dkdv``), one
+    block an item, head by head (block ``i`` takes head ``i // n`` and its
+    item ``i % n``, the dQ pass's reversed under causal)."""
     variant: str
     q_rows: int
     kv_rows: int
@@ -611,6 +672,7 @@ class BwdPlan:
         default=(), repr=False)
     schedule_dkdv: Tuple[Tuple[int, ...], ...] = dataclasses.field(
         default=(), repr=False)
+    entry: Optional[str] = None
 
 
 def _bwd_stages(hd: int) -> int:
@@ -679,20 +741,41 @@ def _f32_step(hd: int) -> int:
     return 32 if hd == 64 else 16
 
 
-def _f32_bwd_smem(hd: int, hv: Optional[int] = None) -> Tuple[int, int]:
-    """Dynamic shared memory of a TF32 block, as ``flash_attention_bwd.cu``
-    lays it out in float32 rows of hd (Q, K) or hv (dO, V) elements and 16
-    bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES`` slots of K and V
-    tiles; dK / dV: the item's K and V, P^T handed between the warps of a
-    pair ([64] [step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles and
-    their lse and D."""
-    hv = hd if hv is None else hv
-    pair = (hd + hv) * 4 + 32                 # a Q row and a dO row
+def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
+    """Dynamic shared memory of a TF32 block (hd == hv), as
+    ``flash_attention_bwd.cu`` lays it out in float32 rows of hd elements
+    and 16 bytes: dQ: the item's Q and dO, ``F32_BWD_STAGES`` slots of K
+    and V tiles; dK / dV: the item's K and V, P^T handed between the warps
+    of a pair ([64] [step + 8]), ``F32_BWD_STAGES`` slots of Q and dO tiles
+    and their lse and D."""
+    pair = 2 * hd * 4 + 32                    # a Q row and a dO row
     r, st = F32_BWD_ROWS, _f32_step(hd)
     dq = (r + F32_BWD_STAGES * st) * pair
     dkdv = r * pair + r * (st + 8) * 4 + F32_BWD_STAGES * (st * pair
                                                            + 2 * st * 4)
     return dq, dkdv
+
+
+def f32_tc_bwd_smem(hd: int, hv: int) -> int:
+    """Dynamic shared memory of a block of the float32 ``wgmma`` backward's
+    passes (``b3_smem_bytes``): 1 KiB to align the base to the swizzle's
+    period, the item's resident tile in TF32 hi and lo (64 rows of ``hd``
+    floats: Q or K; the ``hv``-wide operands stream), the ring, the
+    resident's mbarrier and a full / empty pair a slot."""
+    return 1024 + 2 * F32_TC_ROWS * hd * 4 + \
+        F32_TC_BWD_SLOTS * F32_TC_SLOT_BYTES + (1 + 2 * F32_TC_BWD_SLOTS) * 8
+
+
+def f32_tc_bwd_scratch_floats(b: int, s: int, sk: int, h: int, hd: int,
+                              hv: int) -> int:
+    """float32 scratch of the float32 ``wgmma`` backward, as
+    ``flash_attention_bwd.cu`` lays it out (``b3_scratch``): q, k, v, do
+    split into TF32 hi and lo; q, k, do transposed and split, S and Sk
+    rounded up to the 64-row tile; D [B H, S]."""
+    sp, skp = (_cdiv(n, F32_TC_ROWS) * F32_TC_ROWS for n in (s, sk))
+    n = b * h
+    return 2 * n * (s * (hd + hv) + sk * (hd + hv) + hd * (sp + skp)
+                    + hv * sp) + n * s
 
 
 def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
@@ -798,7 +881,10 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     float32 on ``mma.sync`` (3xTF32): items of 64 rows or keys, one block
     an item, heaviest first, each stepping ``_f32_step`` rows or keys
     through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums the
-    dK / dV pass's per-head partials (float32, and bf16 at hd 256)."""
+    dK / dV pass's per-head partials (float32, and bf16 at hd 256).  float32
+    at a pair of ``RECT_PAIRS``: 3xTF32 on ``wgmma`` (``BWD_F32_TC_ENTRY``),
+    items and tiles of 64, ``F32_TC_BWD_SLOTS`` ring slots, one block an
+    item."""
     return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
                      bool(causal), sms, int(prefix), hd if hv is None else hv)
 
@@ -837,10 +923,16 @@ def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
                        _bwd_smem(hd, st, st_kv, hv),
                        _lpt(work_dq, ctas_dq, group_dq),
                        _lpt(work_dkdv, ctas_dkdv, group_kv))
+    if (hd, hv) in RECT_PAIRS:
+        r, st = F32_TC_ROWS, F32_TC_BWD_SLOTS
+        smem = f32_tc_bwd_smem(hd, hv)
+        return BwdPlan(variant, r, r, r, r, (st, st),
+                       (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
+                       (smem, smem), entry=BWD_F32_TC_ENTRY)
     r, st = F32_BWD_ROWS, _f32_step(hd)
     return BwdPlan(variant, r, r, st, st, (F32_BWD_STAGES, F32_BWD_STAGES),
                    (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
-                   _f32_bwd_smem(hd, hv))
+                   _f32_bwd_smem(hd))
 
 
 def schedule_words(p: BwdPlan) -> List[int]:
@@ -932,10 +1024,16 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if scratch is None:
         # wgmma: lse2, D [B H, S padded], at hd 256 with GQA then the
         # per-head dK, dV partials [2, B, Sk, H, hd]; float32: D [B, H, S],
-        # after those partials with GQA
+        # after those partials with GQA; float32 at (192, 128): the split
+        # and transposed operands, then D
         partials = (h > kv) * 2 * b * sk * h * hd
-        n = 2 * b * h * _cdiv(s, BWD_ROWS) * BWD_ROWS \
-            + (hd == 256) * partials if wgmma else partials + b * h * s
+        if p.entry == BWD_F32_TC_ENTRY:
+            n = f32_tc_bwd_scratch_floats(b, s, sk, h, hd, hv)
+        elif wgmma:
+            n = 2 * b * h * _cdiv(s, BWD_ROWS) * BWD_ROWS \
+                + (hd == 256) * partials
+        else:
+            n = partials + b * h * s
         scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, kv, hd), dtype=q.dtype, device=q.device)
@@ -952,13 +1050,14 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             hv, strides, float(scale), int(bool(causal)), int(prefix), p.q_rows,
             p.kv_rows, p.q_step, p.kv_step, p.stages[0], p.stages[1],
             p.grid_dq[0], p.grid_dkdv[0]]
-    code = getattr(lib, p.variant)(
+    entry = p.entry or p.variant
+    code = getattr(lib, entry)(
         *head, *tail, int(parts), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[p.variant] += 1
     if code != 0:
         msg = lib.flash_attention_bwd_error_string(code).decode()
-        raise RuntimeError(f"CUDA launch of {p.variant} ({p}) failed: {msg} "
+        raise RuntimeError(f"CUDA launch of {entry} ({p}) failed: {msg} "
                            f"(cudaError {code})")
     return dq, dk, dv, scratch
 

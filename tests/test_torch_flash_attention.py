@@ -182,7 +182,8 @@ def test_cuda_source_defines_the_bound_entry_points():
     names the TPU kernel it replaces."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     for name in list(k3.FWD_VARIANTS) + [
-            k3.TC + "_lse", k3.F32 + "_lse", "flash_attention_error_string"]:
+            k3.TC + "_lse", k3.F32 + "_lse", k3.F32_TC_ENTRY,
+            k3.F32_TC_ENTRY + "_lse", "flash_attention_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
@@ -192,9 +193,10 @@ def test_cuda_source_defines_the_bound_entry_points():
     assert "-1e30f" in src and "1e-30f" in src
     # each __global__ function's name opens the line after its bounds
     kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
-    assert len(kernels) == src.count("__global__") == 3
+    assert len(kernels) == src.count("__global__") == 6
     assert sorted(kernels) == ["flash_bf16_mma_kernel", "flash_bf16_tc_kernel",
-                               "flash_f32_kernel"]
+                               "flash_f32_kernel", "flash_f32_split_kernel",
+                               "flash_f32_tc_kernel", "flash_f32_vt_kernel"]
 
 
 # --- the launch plan -------------------------------------------------------
@@ -584,12 +586,19 @@ def test_mla_head_dims_match_reference_xla_attention(shape, causal, dtype):
     # 128 rows, kv tiles of 128 keys, on the wgmma kernel
     ((1, 4096, 128, 128, 192, 128), BF16, (k3.TC, 128, 128, (132, 1))),
     ((8, 1024, 128, 128, 192, 128), BF16, (k3.TC, 128, 128, (132, 1))),
-    ((1, 4096, 128, 128, 192, 128), F32, (k3.F32, 64, 64, (128, 64))),
+    # float32 on the 3xTF32 wgmma kernel: 8,192 tiles of 64 rows, kv tiles
+    # of 64 keys, one persistent block an SM
+    ((1, 4096, 128, 128, 192, 128), F32, (k3.F32, 64, 64, (132, 1))),
     ((2, 300, 4, 4, 192, 128), BF16, (k3.TC, 128, 128, (24, 1))),
+    # a ragged float32 call: 2 x 4 heads x 16 tiles, fewer than the SMs
+    ((2, 1000, 4, 4, 192, 128), F32, (k3.F32, 64, 64, (128, 1))),
 ])
 def test_plan_routes_mla_head_dims(shape, dtype, want):
     p = k3.plan(*shape, dtype)
     assert (p.variant, p.block_q, p.block_k, p.grid) == want
+    # the float32 wgmma kernel has a C entry point of its own, counted under
+    # the float32 variant's LAUNCHES key
+    assert p.entry == (k3.F32_TC_ENTRY if dtype == F32 else None)
 
 
 def test_mla_pair_is_the_only_rectangular_pair_past_128():
@@ -611,12 +620,16 @@ def test_mla_pair_is_the_only_rectangular_pair_past_128():
 
 
 def test_mla_instances_are_in_the_sources():
-    """The wgmma kernel and the float32 kernel have (192, 128) instances,
-    with and without the LSE; the wgmma kernel's tiles align at 192."""
+    """The bf16 wgmma kernel and the float32 wgmma kernel have (192, 128)
+    instances, with and without the LSE; the bf16 kernel's tiles align at
+    192."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     for inst in ("launch_tc<192, 128, false>", "launch_tc<192, 128, true>",
-                 "launch_f32<192, 128>", "launch_f32<192, 128, true>"):
+                 "launch_f32_tc<true>", "launch_f32_tc<false>",
+                 "flash_f32_tc_kernel<HD, HV, kLse>"):
         assert inst in src, inst
+    # the CUDA-core float32 kernel no longer takes (192, 128)
+    assert "launch_f32<192, 128" not in src
     assert "tc_tiles_align<192>()" in src
     assert "tc_smem_bytes<192, 128>() <= 232448" in src
 
@@ -685,3 +698,240 @@ def test_mla_work_counts_each_width_once():
     pairs = 4096 * 4097 // 2
     assert flops == (2 * 192 + 2 * 128) * 128 * pairs
     assert nbytes == 2 * 4096 * 128 * (192 + 128 + 192 + 128)
+
+
+# --- the float32 wgmma kernel's arithmetic at (192, 128), emulated ---------------
+
+
+def _tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, on the 13 low mantissa bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32(a, b, passes=3):
+    """``a @ b`` (batched float32) as the wgmma kernel's tensor cores do it,
+    into one fresh float32 accumulator (``_add_truncated``): the small terms
+    first, lo(a) hi(b)
+    and hi(a) lo(b) of every k8 step, then hi(a) hi(b) of every step
+    (``passes`` 1: hi(a) hi(b) alone, one-pass TF32)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    steps = range(0, a.shape[-1], 8)
+    terms = [(x, y, k0) for k0 in steps for x, y in ((al, bh), (ah, bl))
+             ] if passes == 3 else []
+    terms += [(ah, bh, k0) for k0 in steps]
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for x, y, k0 in terms:
+        acc = _add_truncated(acc, np.matmul(
+            x[..., k0:k0 + 8].astype(np.float64),
+            y[..., k0:k0 + 8, :].astype(np.float64)))
+    return acc
+
+
+def _add_truncated(acc, step):
+    """acc + step rounded toward zero to float32: the tensor cores add each
+    product's k8 sum into a float32 accumulator without rounding to
+    nearest."""
+    exact = acc.astype(np.float64) + step
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _emulated_f32_tc(q, k, v, causal, scale, passes=3):
+    """``flash_f32_tc_kernel`` in numpy, [B, S, H, 192] x [B, S, H, 128]: kv
+    tiles of 64 keys from the last visible one down; S of a tile as three
+    64-column chunks, each a fresh 3xTF32 accumulator, added in float32;
+    for a positive scale masked scores -inf, the row max over the raw
+    scores, p = 2^(s scale log2 e - m); else s scaled by scale log2 e
+    first, masked scores -1e30, p = 2^(s - m); P V of a tile a fresh 3xTF32
+    accumulator, O = O corr + P V; O / max(l, 1e-30)."""
+    b, s, h, hd = q.shape
+    heads = lambda t: np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    sl2 = np.float32(scale) * np.float32(1.4426950408889634)
+    fold = sl2 > 0
+    out = np.zeros(vh.shape[:2] + (s, vh.shape[-1]), np.float32)
+    rows = np.arange(s)
+    for q0 in range(0, s, 64):
+        qt = qh[:, :, q0:q0 + 64]
+        r = rows[q0:q0 + 64]
+        n_kv = -(-(min(q0 + 64, s) if causal else s) // 64)
+        o = np.zeros(qt.shape[:3] + (vh.shape[-1],), np.float32)
+        m = np.full(qt.shape[:3], -1e30, np.float32)
+        l = np.zeros(qt.shape[:3], np.float32)
+        for kt in range(n_kv - 1, -1, -1):
+            kk, vv = kh[:, :, kt * 64:kt * 64 + 64], vh[:, :, kt * 64:
+                                                         kt * 64 + 64]
+            chunks = [_mm_tf32(qt[..., c:c + 64],
+                               kk[..., c:c + 64].swapaxes(-1, -2), passes)
+                      for c in range(0, hd, 64)]
+            sc = (chunks[0] + chunks[1]) + chunks[2]
+            if not fold:
+                sc = sc * sl2
+            key = np.arange(kt * 64, kt * 64 + kk.shape[2])
+            if causal:
+                sc = np.where(key[None, :] <= r[:, None], sc,
+                              -np.inf if fold else np.float32(-1e30))
+            row_max = sc.max(-1) * sl2 if fold else sc.max(-1)
+            m_new = np.maximum(m, row_max)
+            corr = np.exp2(m - m_new)
+            p = np.exp2((sc * sl2 if fold else sc) - m_new[..., None]
+                        ).astype(np.float32)
+            l = l * corr + p.sum(-1, dtype=np.float32)
+            m = m_new
+            o = o * corr[..., None] + _mm_tf32(p, vv, passes)
+        out[:, :, q0:q0 + 64] = o / np.maximum(l, np.float32(1e-30))[..., None]
+    return out.transpose(0, 2, 1, 3)
+
+
+def _f32_tc_against_references(b, s, h, causal, scale):
+    """The emulated kernel (``_emulated_f32_tc``) on seeded inputs at (192,
+    128); returns its output, the plain version's, a float64 attention's,
+    the reference's XLA attention's (non-causal: its bidirectional prefix
+    over the whole sequence) and the one-pass-TF32 emulation's."""
+    rng = np.random.default_rng(s + h)
+    q, k = (rng.normal(size=(b, s, h, 192)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(b, s, h, 128)).astype(np.float32)
+    got = _emulated_f32_tc(q, k, v, causal, scale)
+    plain = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                causal=causal, scale=scale).numpy()
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                   k.astype(np.float64)) * scale
+    if causal:
+        sc = np.where(np.tril(np.ones((s, s), bool)), sc, -np.inf)
+    pr = np.exp(sc - sc.max(-1, keepdims=True))
+    want64 = np.einsum("bhqk,bkhd->bqhd", pr / pr.sum(-1, keepdims=True),
+                       v.astype(np.float64))
+    want_jax = np.asarray(rL.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+        prefix_len=0 if causal else s))
+    one_pass = _emulated_f32_tc(q, k, v, causal, scale, passes=1)
+    return got, plain, want64, want_jax, one_pass
+
+
+@pytest.mark.parametrize("b,s,h,causal", [
+    (1, 150, 2, True),      # ragged: a partial last tile, the diagonal
+    (2, 64, 2, True),       # one tile
+    (1, 130, 2, False),     # ragged, every key of every row
+])
+def test_3xtf32_forward_holds_the_float32_gate(b, s, h, causal):
+    """The float32 wgmma kernel's arithmetic at (192, 128) -- S and P V as
+    3xTF32 with cvt.rna splits, in k8 steps, fresh accumulators per chunk
+    and tile -- stays within 1e-5 of scale (``chip_smoke.py``'s float32
+    gate) of the plain version, of float64 and of the reference's XLA
+    attention (non-causal: its bidirectional prefix over the whole
+    sequence); one-pass TF32 in the same place misses that gate."""
+    got, plain, want64, want_jax, one_pass = _f32_tc_against_references(
+        b, s, h, causal, 192 ** -0.5)
+    assert got.shape == plain.shape == want64.shape == want_jax.shape
+    for ref_ in (plain, want64, want_jax):
+        assert np.abs(got - ref_).max() <= 1e-5 * np.abs(ref_).max()
+    assert np.abs(one_pass - want64).max() > 1e-5 * np.abs(want64).max()
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_forward_holds_the_float32_gate_at_other_scales(scale,
+                                                               causal):
+    """As ``test_3xtf32_forward_holds_the_float32_gate`` at ``chip_smoke.py``'s
+    other softmax scales (a positive scale folded into the exp2, a negative
+    one multiplied first) on its (192, 128) scale shape, B=1 S=300 H=4; and
+    the emulated kernel lies closer to float64 than the plain version does:
+    at these scales the scores reach ~15, and the plain version's float32
+    sums over 192 columns move its output by ~1e-5 on their own."""
+    got, plain, want64, want_jax, one_pass = _f32_tc_against_references(
+        1, 300, 4, causal, scale)
+    assert got.shape == plain.shape == want64.shape == want_jax.shape
+    for ref_ in (plain, want64, want_jax):
+        assert np.abs(got - ref_).max() <= 1e-5 * np.abs(ref_).max()
+    assert np.abs(got - want64).max() < np.abs(plain - want64).max()
+    assert np.abs(one_pass - want64).max() > 1e-5 * np.abs(want64).max()
+
+
+def test_f32_tc_plan_matches_the_source_constants():
+    """The float32 wgmma kernel at (192, 128): the plan's tile is the
+    source's (kF3Rows, kF3Keys), its shared memory -- evaluated from
+    ``f32_tc_smem_bytes``: Q's hi and lo 96 KB, four 32 KB ring slots, 10
+    mbarriers, the 1 KiB alignment -- is ``k3.f32_tc_smem`` and fits a
+    block's 227 KB, and the scratch the wrapper allocates is the pre-pass's
+    layout (k split; v transposed and split, keys rounded up to a tile; q
+    the kernel splits in shared memory)."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    const = {name: int(val) for name, val in re.findall(
+        r"constexpr int (kF3\w+) = (\d+);", src)}
+    assert const == {"kF3Rows": k3.F32_TC_ROWS, "kF3Keys": k3.F32_TC_ROWS,
+                     "kF3Threads": 160, "kF3Slots": k3.F32_TC_SLOTS,
+                     "kF3Slot": k3.F32_TC_SLOT_BYTES, "kF3Box": 8192}
+    # a slot holds a chunk's hi and lo boxes
+    assert const["kF3Slot"] == 4 * const["kF3Box"] == \
+        2 * 32 * const["kF3Keys"] * 4 * 2
+    body = re.search(r"constexpr int f32_tc_smem_bytes\(\) {\s*return "
+                     r"(.*?);", src, re.S)[1]
+    expr = re.sub(r"\bHD\b", "192", body)
+    for name, val in const.items():
+        expr = re.sub(rf"\b{name}\b", str(val), expr)
+    expr = " ".join(expr.split())
+    assert re.fullmatch(r"[\d\s+*()]+", expr), expr
+    assert eval(expr) == k3.f32_tc_smem(192) == \
+        1024 + 96 * 1024 + 4 * 32 * 1024 + 10 * 8
+    assert k3.f32_tc_smem(192) <= 232_448
+    assert "static_assert(f32_tc_smem_bytes<192, 128>() <= 232448," in src
+    p = k3.plan(1, 4096, 128, 128, 192, 128, F32)
+    assert (p.block_q, p.block_k) == (const["kF3Rows"], const["kF3Keys"])
+    for b, s, sk, h, kv in ((1, 4096, 4096, 128, 128), (2, 1000, 1000, 4, 4),
+                            (1, 77, 1000, 2, 2)):
+        skp = -(-sk // 64) * 64
+        assert k3.f32_tc_scratch_floats(b, s, sk, h, kv, 192, 128) == 2 * (
+            b * kv * sk * 192 + b * kv * 128 * skp)
+    assert "const int64_t skp = (int64_t)(p.Sk + kF3Keys - 1) / kF3Keys * " \
+        "kF3Keys;" in src
+    assert "float* ks = scratch;" in src and "float* vt = ks + 2 * kn;" in src
+
+
+def test_f32_tc_kernel_runs_3xtf32_on_wgmma():
+    """The float32 wgmma kernel's products are TF32 wgmma instructions
+    (hopper.cuh) fed by TMA: S = Q K^T with both operands from shared
+    memory, P V with P from registers; every product three of them (lo hi,
+    hi lo, hi hi); its operands split by cvt.rna; its tiles head by head
+    past the L2 as the bf16 kernel's, at 8 bytes a K / V column (hi and lo);
+    P's register fragments in the order of V^T's keys (hopper.cuh
+    ``tf32_key``: 0 2 4 6 1 3 5 7 within each 8)."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    hdr = (build.CSRC_DIR / "hopper.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in hdr
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in hdr
+    body = src[src.index("flash_f32_tc_kernel(const __grid_constant__"):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("wgmma_tf32_ss_m64n64k8(") == 3
+    assert body.count("wgmma_tf32_rs_m64n128k8(") == 3
+    assert "tma_load_4d(" in body and "mma.sync" not in body
+    assert "split_tf32<true>(" in src and "cvt.rna.tf32.f32" in hdr
+    # Q lands as float32 and is split in place, made visible to the tensor
+    # cores' proxy before the first product reads it
+    assert body.count("split_f32(") == 4
+    assert body.index("split_f32(") < body.index(
+        "fence.proxy.async.shared::cta") < body.index("bar_sync(1, 128);") \
+        < body.index("for (int it = 0; it < n_kv; ++it, r += KC + VC)")
+    assert "p.group = tc_group(B, Sk, H, KV, hd, hv, gx, 8);" in src
+    m = re.search(r"constexpr int tf32_key\(int u\) {\s*return (.*?);", hdr)
+    assert m[1] == "u < 4 ? 2 * u : 2 * u - 7"
+    assert "split_tile<HV>(v, " in src and "tf32_key(u & 7)" in hdr
+    vt_key = [2 * u if u < 4 else 2 * u - 7 for u in range(8)]
+    assert vt_key == [0, 2, 4, 6, 1, 3, 5, 7]
+    # P's A fragment of key group n: k-slot t (a[0], a[1]: rows g, g + 8)
+    # holds key 2 t, k-slot t + 4 (a[2], a[3]) key 2 t + 1 -- the
+    # accumulator's [4 n], [4 n + 2] and [4 n + 1], [4 n + 3]
+    for e, a in ((0, 0), (2, 1), (1, 2), (3, 3)):
+        assert f"split_tf32<true>(s[4 * n{f' + {e}' if e else ''}], " \
+            f"ph[n][{a}], pl[n][{a}]);" in body
+    for t in range(4):      # thread t's k-slots t and t + 4 hold its keys
+        assert (vt_key[t], vt_key[t + 4]) == (2 * t, 2 * t + 1)

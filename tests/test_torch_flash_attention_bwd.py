@@ -329,7 +329,8 @@ def test_bwd_source_defines_the_bound_entry_points():
     compiles the source with FMA contraction and without fast math, like
     the forward."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    for name in list(k3.BWD_VARIANTS) + ["flash_attention_bwd_error_string"]:
+    for name in list(k3.BWD_VARIANTS) + [k3.BWD_F32_TC_ENTRY,
+                                         "flash_attention_bwd_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "atomicAdd" not in src and "red.global" not in src
     header = (build.CSRC_DIR / "hopper.cuh").read_text()
@@ -342,12 +343,21 @@ def test_bwd_source_defines_the_bound_entry_points():
     assert "setmaxnreg.dec" in src and "setmaxnreg.inc" in src
     assert "tma_load_4d(" in src
     kernels = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
-    assert len(kernels) == src.count("__global__") == 6
+    assert len(kernels) == src.count("__global__") == 10
     assert all(name.startswith("flash_bwd_") for name in kernels)
     assert {"flash_bwd_dq_bf16_tc_kernel", "flash_bwd_dkdv_bf16_tc_kernel",
             "flash_bwd_dkdv_bf16_split_kernel",
             "flash_bwd_dq_f32_tc_kernel", "flash_bwd_dkdv_f32_tc_kernel",
-            "flash_bwd_dkdv_sum_f32_kernel"} == set(kernels)
+            "flash_bwd_dkdv_sum_f32_kernel",
+            # float32 at (192, 128): the pre-pass and the wgmma passes
+            "flash_bwd_f32_split_kernel", "flash_bwd_f32_t_kernel",
+            "flash_bwd_f32_dd_kernel", "flash_bwd_f32_wgmma_kernel"} == \
+        set(kernels)
+    # TF32 wgmma: S and dP from shared memory, the outputs with dS (or P)
+    # from registers
+    assert "wgmma_tf32_ss_m64n64k8(" in src
+    assert "wgmma_tf32_rs_m64n64k8(" in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in header
     # head dim 256 on wgmma: S and dP of 32 keys, P V-like products 256 wide
     assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in src
     assert "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16" in header
@@ -388,7 +398,7 @@ def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale):
     S, dP, dQ, dK and dV as 3xTF32 products; P = exp(S scale - lse) and dS
     = P (dP - D) in float32; the scale applied to dQ and dK at the end; dK
     and dV summed over a group's heads in one accumulation, as the dK / dV
-    kernel walks them."""
+    kernel walks them.  v, do and o may be narrower than q, k (hv < hd)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -407,7 +417,7 @@ def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale):
     by_key = lambda t: np.ascontiguousarray(
         t.reshape(b, kv, g, s, s).transpose(0, 1, 4, 2, 3)
         .reshape(b, kv, s, g * s))
-    rows = lambda t: t.reshape(b, kv, g * s, d)
+    rows = lambda t: t.reshape(b, kv, g * s, t.shape[-1])
     dk = _mm_3xtf32(by_key(ds), rows(qh)) * np.float32(scale)
     dv = _mm_3xtf32(by_key(p), rows(doh))
     return (dq.transpose(0, 2, 1, 3), dk.transpose(0, 2, 1, 3),
@@ -435,6 +445,7 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     (1, 150, 4, 2, 64, True),       # causal GQA G = 2, S ragged
     (1, 96, 8, 2, 64, False),       # non-causal GQA G = 4
     (1, 80, 4, 2, 128, True),       # hd 128
+    (1, 100, 2, 2, (192, 128), True),   # deepseek's MLA, S ragged
 ])
 def test_3xtf32_backward_holds_the_float32_gates(b, s, h, kv, d, causal):
     """The float32 kernels' arithmetic -- every product as 3xTF32 -- keeps
@@ -443,8 +454,13 @@ def test_3xtf32_backward_holds_the_float32_gates(b, s, h, kv, d, causal):
     reference's attention (non-causal: its bidirectional prefix over the
     whole sequence) and of ``flash_attention_bwd_plain``; one-pass TF32
     would not."""
-    q, k, v, do = _draw(s * d + h, b, s, h, kv, d)
-    scale = d ** -0.5
+    hd, hv = d if isinstance(d, tuple) else (d, d)
+    q, k, v, do = _draw(s * hd + h, b, s, h, kv, hd)
+    if hv != hd:            # v and do of their own width
+        rng = np.random.default_rng(s * hv + h)
+        v, do = (rng.normal(size=shape[:3] + (hv,)).astype(np.float32)
+                 for shape in (v.shape, do.shape))
+    scale = hd ** -0.5
     o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
                                     scale=scale)
     got = _emulated_f32_bwd(do, q, k, v, o.numpy(), lse.numpy(), causal,
@@ -717,23 +733,25 @@ def test_plan_bwd_of_head_dim_256(dtype, want):
 
 def test_tf32_smem_matches_the_source_layout():
     """``_f32_bwd_smem`` mirrors ``f32_dq_smem_bytes`` / ``f32_dkdv_smem_
-    bytes``: float32 rows of hd (Q, K) or hv (dO, V) elements and 16 bytes,
-    lse, D and P^T; and the source gives the dK / dV kernel one block an SM
-    at hd 256 and at (192, 128) (hd + hv > 256)."""
+    bytes``: float32 rows of hd elements and 16 bytes, lse, D and P^T; the
+    source gives the dK / dV kernel one block an SM at hd 256; and the
+    route takes hd == hv alone: (192, 128) goes to the wgmma kernels."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    assert re.search(r"f32_kv_blocks\(\) {\s*return HD \+ HV > 256 \? 1 : 2;",
-                     src)
+    assert re.search(r"f32_kv_blocks\(\) {\s*return D == 256 \? 1 : 2;", src)
     assert re.search(r"row_ld\(\) {\s*return D \+ 4;", src)
-    for hd, hv in ((64, 64), (128, 128), (256, 256), (192, 128)):
-        dq, dkdv = k3._f32_bwd_smem(hd, hv)
-        pair = (hd + 4) * 4 + (hv + 4) * 4
+    for hd in (64, 128, 256):
+        dq, dkdv = k3._f32_bwd_smem(hd)
+        pair = 2 * (hd + 4) * 4
         st = k3._f32_step(hd)
         assert dq == (64 + 2 * st) * pair
         assert dkdv == 64 * pair + 64 * (st + 8) * 4 + 2 * (st * pair
                                                             + 2 * st * 4)
         assert max(dq, dkdv) <= SMEM_LIMIT
     assert k3._f32_bwd_smem(256) == (199680, 206080)
-    assert k3._f32_bwd_smem(192, 128) == (125952, 132352)
+    assert re.search(r"int launch_tf32\([^{]*{\s*static_assert\(HD == HV,",
+                     src)
+    assert k3.plan_bwd(1, 300, 4, 4, 192, torch.float32, hv=128).entry == \
+        k3.BWD_F32_TC_ENTRY
 
 
 @pytest.mark.parametrize("b,s,h,kv,causal,p", [
@@ -1088,16 +1106,17 @@ def test_mla_backward_matches_jax_vjp_of_the_reference(s, causal):
     # 8,192 dK / dV items over the 132 SMs
     (BF16, (k3.BWD_BF16, 128, 64, 64, 64, (3, 3), (132, 1), (132, 1),
             (205936, 199264))),
-    # float32: 3xTF32 on mma.sync; items of 64 rows or keys, 16-row steps,
-    # one block an item
-    (F32, (k3.BWD_F32, 64, 64, 16, 16, (2, 2), (128 * 64, 1),
-           (128 * 64, 1), (125952, 132352))),
+    # float32: 3xTF32 on wgmma; items of 64 rows or keys, 64-row tiles
+    # through rings of 4 slots, one block an item
+    (F32, (k3.BWD_F32, 64, 64, 64, 64, (4, 4), (128 * 64, 1),
+           (128 * 64, 1), (230472, 230472))),
 ])
 def test_plan_bwd_of_mla_head_dims(dtype, want):
     """deepseek's (192, 128) at its training shape B=1 S=4096 H=KV=128:
     bf16 on the wgmma kernels (the split dK / dV kernel, as at 256) with
-    persistent grids of at most one block an SM, float32 on the TF32
-    kernels; with GQA it is refused in either dtype."""
+    persistent grids of at most one block an SM, float32 on the 3xTF32
+    wgmma passes (``BWD_F32_TC_ENTRY``); with GQA it is refused in either
+    dtype."""
     p = k3.plan_bwd(1, 4096, 128, 128, 192, dtype, hv=128)
     assert p.variant == want[0] == k3.bwd_variant(dtype)
     assert (p.variant, p.q_rows, p.kv_rows, p.q_step, p.kv_step, p.stages,
@@ -1108,8 +1127,9 @@ def test_plan_bwd_of_mla_head_dims(dtype, want):
         assert max(p.grid_dq[0], p.grid_dkdv[0]) <= k3.H100_SMS
         assert p.schedule_dq and p.schedule_dkdv
     else:
-        assert p.smem == k3._f32_bwd_smem(192, 128)
+        assert p.smem == (k3.f32_tc_bwd_smem(192, 128),) * 2
         assert not p.schedule_dq and not p.schedule_dkdv
+        assert p.entry == k3.BWD_F32_TC_ENTRY
     with pytest.raises(ValueError, match="GQA"):
         k3.plan_bwd(1, 256, 4, 2, 192, dtype, hv=128)
 
@@ -1129,11 +1149,14 @@ def test_mla_bwd_work_separates_the_widths():
 def test_mla_bwd_instances_are_in_the_source():
     """The bf16 wgmma kernels are templated on both widths and have (192,
     128) instances -- the dQ kernel and the split dK / dV kernel, with the
-    m64n192k16 product for dS K and dS^T Q --, the TF32 kernels a float32
-    one; the TF32 route with bf16 tiles is gone, and each entry takes
-    ``int hd, int hv``."""
+    m64n192k16 product for dS K and dS^T Q --, float32 the three passes of
+    the 3xTF32 wgmma kernel (the mma.sync kernels no longer take it); the
+    TF32 route with bf16 tiles is gone, and each entry takes ``int hd, int
+    hv``."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    for inst in ("launch_bf16<192, 128>", "launch_tf32<192, 128>",
+    assert "launch_tf32<192, 128>" not in src
+    for inst in ("launch_bf16<192, 128>", "launch_b3_pass<kPassDQ>",
+                 "launch_b3_pass<kPassDK>", "launch_b3_pass<kPassDV>",
                  "flash_bwd_dq_bf16_tc_kernel<HD, HV>",
                  "flash_bwd_dkdv_bf16_split_kernel<HD, HV>",
                  "dq_smem_bytes<192, 128>() <= 232448",
@@ -1149,3 +1172,42 @@ def test_mla_bwd_instances_are_in_the_source():
     for name in k3.BWD_VARIANTS:
         m = re.search(rf"\nint {name}\(([^)]*)\)", src)
         assert m and "int hd, int hv," in " ".join(m[1].split()), name
+
+
+def test_f32_wgmma_smem_and_scratch_match_the_source_layout():
+    """The float32 wgmma backward at (192, 128): ``f32_tc_bwd_smem``
+    mirrors ``b3_smem_bytes`` -- the resident tile's TF32 hi and lo (64
+    rows of 192 floats), four 32 KB ring slots, nine mbarriers, the 1 KiB
+    alignment -- and fits a block's 227 KB; the scratch the
+    wrapper allocates is ``b3_scratch``'s layout (q, k, v, do split; q, k,
+    do transposed and split, rows rounded up to 64; D)."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    const = {name: int(val) for name, val in re.findall(
+        r"constexpr int (kB3\w+) = (\d+);", src)}
+    assert const == {"kB3Rows": k3.F32_TC_ROWS, "kB3Threads": 160,
+                     "kB3Slots": k3.F32_TC_BWD_SLOTS, "kB3Box": 8192}
+    assert "constexpr int kB3Slot = 4 * kB3Box;" in src
+    const["kB3Slot"] = 4 * const["kB3Box"]
+    assert const["kB3Slot"] == k3.F32_TC_SLOT_BYTES
+    body = re.search(r"constexpr int b3_smem_bytes\(\) {\s*return "
+                     r"(.*?);", src, re.S)[1]
+    expr = re.sub(r"\bHD\b", "192", body)
+    expr = re.sub(r"\bHV\b", "128", expr)
+    for name, val in sorted(const.items(), key=lambda kv: -len(kv[0])):
+        expr = re.sub(rf"\b{name}\b", str(val), expr)
+    expr = " ".join(expr.split())
+    assert re.fullmatch(r"[\d\s+*()]+", expr), expr
+    assert eval(expr) == k3.f32_tc_bwd_smem(192, 128) == \
+        1024 + 2 * 64 * 192 * 4 + 4 * 32768 + 9 * 8 <= SMEM_LIMIT
+    assert "static_assert(b3_smem_bytes<192, 128>() <= 232448," in src
+    for b, s, sk, h in ((1, 4096, 4096, 128), (2, 1000, 1000, 4),
+                        (1, 77, 1000, 2)):
+        sp, skp = -(-s // 64) * 64, -(-sk // 64) * 64
+        n = b * h
+        assert k3.f32_tc_bwd_scratch_floats(b, s, sk, h, 192, 128) == 2 * (
+            n * s * 192 + n * sk * 192 + n * sk * 128 + n * s * 128
+            + n * 192 * sp + n * 192 * skp + n * 128 * sp) + n * s
+    for line in ("s.dout = s.v + 2 * s.nv;", "s.qt = s.dout + 2 * s.ndo;",
+                 "s.kt = s.qt + 2 * s.nqt;", "s.dot = s.kt + 2 * s.nkt;",
+                 "s.dd = s.dot + 2 * s.ndot;"):
+        assert line in src, line

@@ -3,7 +3,7 @@
 a checkout.
 
     python3 tools/flash_attention_bwd_ms.py [--root DIR] [--iters 20]
-        [--seed 0] [--shapes NAME,...] [--check]
+        [--seed 0] [--shapes NAME,...] [--check] [--source COPY.cu]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
@@ -24,11 +24,19 @@ back-to-back calls after a warm-up, inputs L2-warm where they fit), of
 the dQ and the dK / dV kernel alone where the checkout can launch them
 apart (``bwd_launch``), and of SDPA's backward on the same inputs
 (``torch.autograd.grad`` through ``F.scaled_dot_product_attention``, the
-prefix as a boolean mask; timed only), with the card's name.  ``--check``
-also holds each gradient against the plain backward on the card (within
-2e-2 of its scale in bf16, 1e-4 in float32) and against a second call,
-bitwise, and exits 1 if one fails.  Needs a CUDA card; exits 2 without
-one.
+prefix as a boolean mask; timed only), with the card's name; and the
+memory the card holds at the peak of one call (``peak_gb``: inputs,
+outputs and whatever scratch the call allocates; torch's allocator
+statistics) and ``b_fit``, the batch at which that peak, linear in B,
+reaches the card's memory (computed, not run).  ``--check`` also holds
+each gradient against the plain backward on the card (within 2e-2 of its
+scale in bf16, 1e-4 in float32) and against a second call, bitwise, and
+exits 1 if one fails.  ``--source`` builds an edited copy of
+``csrc/flash_attention_bwd.cu`` (``hopper.cuh`` beside it) with that
+source's nvcc flags into the build directory and runs it in place of the
+checkout's backward library (the same C interface), so that variants of
+the source can be checked and timed in turns, one process each.  Needs a
+CUDA card; exits 2 without one.
 """
 
 import argparse
@@ -72,6 +80,9 @@ def main() -> int:
     ap.add_argument("--shapes", default="",
                     help="comma-separated names (default: all)")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--source", default="",
+                    help="an edited copy of csrc/flash_attention_bwd.cu to "
+                         "build and run in place of the checkout's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -79,6 +90,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     from repro_torch.kernels import flash_attention as k3
+    out = {"root": os.path.abspath(args.root),
+           "device": torch.cuda.get_device_name(0), "ms": {}}
+    if args.source:
+        out["source"] = os.path.abspath(args.source)
+        out["ptxas_warnings"] = use_source(k3, args.source)
 
     def time_ms(fn):
         for _ in range(3):
@@ -94,9 +110,16 @@ def main() -> int:
         return start.elapsed_time(end) / args.iters
 
     wanted = set(filter(None, args.shapes.split(",")))
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    card_gb = torch.cuda.mem_get_info()[1] / 1e9
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    out = {"root": os.path.abspath(args.root),
-           "device": torch.cuda.get_device_name(0), "ms": {}}
     failed = []
     for name, dtype, b, s, h, kv, d, causal, prefix in SHAPES:
         if wanted and name not in wanted:
@@ -108,8 +131,12 @@ def main() -> int:
                                             (h, hv)))
         kw = {"prefix_len": prefix} if prefix else {}
         o, lse = k3.flash_attention_fwd(q, k, v, causal=causal, **kw)
-        row = {"call": time_ms(lambda: k3.flash_attention_bwd(
+        row = {"peak_gb": peak_gb(lambda: k3.flash_attention_bwd(
             do, q, k, v, o, lse, causal=causal, **kw))}
+        row["b_fit"] = int(card_gb // (row["peak_gb"] / b))
+        row["call"] = time_ms(lambda: k3.flash_attention_bwd(
+            do, q, k, v, o, lse, causal=causal, **kw))
+        scratch = None
         if hasattr(k3, "bwd_launch"):
             scale = hd ** -0.5
             pkw = {"prefix": prefix} if prefix else {}
@@ -150,13 +177,44 @@ def main() -> int:
                                        for x, y in zip(got, again))
             if not (row["within"] and row["bitwise_twice"]):
                 failed.append(name)
-            del got, again, want
+            del got, again, want, x, w
         out["ms"][name] = row
-        del q, k, v, do, o, lse, qs, ks, vs, lib_o
+        # nothing of this shape stays allocated into the next one's peak
+        del q, k, v, do, o, lse, qs, ks, vs, lib_o, do_t, scratch
     if args.check:
         out["failed"] = failed
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def use_source(k3, src: str) -> list:
+    """Builds ``src`` (a copy of the backward's source) with the source's
+    nvcc flags and makes it ``k3``'s backward library; returns ptxas's
+    warnings."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from repro_torch.kernels import build
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib_path = build.default_build_dir() / f"bwd_source_{tag}.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.find_nvcc(), *build.flags(k3.BWD_SOURCE),
+                           "-o", str(lib_path), src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    template = k3._bwd_library()
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in (k3.BWD_BF16, k3.BWD_F32,
+               getattr(k3, "BWD_F32_TC_ENTRY", k3.BWD_F32),
+               "flash_attention_bwd_error_string"):
+        getattr(lib, fn).argtypes = getattr(template, fn).argtypes
+        getattr(lib, fn).restype = getattr(template, fn).restype
+    k3._bwd_bound = lib
+    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "arning" in ln]
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Time of the PyTorch port's attention kernel (K3) alone, from a checkout.
 
     python3 tools/flash_attention_ms.py [--root DIR] [--iters 50]
-        [--seed 0] [--shapes NAME,...] [--check]
+        [--seed 0] [--shapes NAME,...] [--check] [--scales]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
@@ -22,10 +22,18 @@ where they fit), of the training forward that also writes the log-sum-exp
 (``lse``, ``flash_attention_fwd``, where the checkout has it) and of
 ``F.scaled_dot_product_attention`` on the same inputs (``sdpa``; causal
 by ``is_causal``, a prefix as a boolean mask, timed only), with the card's
-name.  ``--check``
+name; and the memory the card holds at the peak of one call (``peak_gb``:
+inputs, output and whatever scratch the call allocates; torch's allocator
+statistics) and ``b_fit``, the batch at which that peak, linear in B,
+reaches the card's memory (computed, not run).  ``--check``
 also holds each call against the plain version on the card (bf16: within
 2e-2 + 2e-2 |plain|, float32 1e-5) and against a second call, bitwise, and
-exits 1 if one fails.  Needs a CUDA card; exits 2 without one.
+exits 1 if one fails.  ``--scales`` instead runs float32 K3 at
+``chip_smoke.py``'s other softmax scales and scale shapes (B=1 S=300 H=4,
+hd 64, 128 and (192, 128), causal and not) and prints, per case, how far
+K3, the plain version and each other lie (max |diff|) and how far each of
+the two lies from softmax attention in float64: a reading, no gate.
+Needs a CUDA card; exits 2 without one.
 """
 
 import argparse
@@ -48,6 +56,10 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, 0),
            (192, 128), 0),
           ("mla_ragged_b2_s1000_f32", "float32", 2, 1000, 4, 4, (192, 128),
            0))
+# --scales: (B, S, H, KV, d) and the scales of chip_smoke.py's scale cases
+SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128),
+                (1, 300, 4, 4, (192, 128)))
+SCALES = (0.3, -0.2)
 
 
 def main() -> int:
@@ -59,6 +71,7 @@ def main() -> int:
     ap.add_argument("--shapes", default="",
                     help="comma-separated names (default: all)")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--scales", action="store_true")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -81,6 +94,18 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    if args.scales:
+        print(json.dumps(scale_errors(torch, k3, args)))
+        return 0
+    card_gb = torch.cuda.mem_get_info()[1] / 1e9
     wanted = set(filter(None, args.shapes.split(",")))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     out = {"root": os.path.abspath(args.root),
@@ -94,8 +119,11 @@ def main() -> int:
         q, k, v = (torch.randn((b, s, n, w), generator=g, device="cuda")
                    .to(dt) for n, w in ((h, hd), (kv, hd), (kv, hv)))
         kw = {"prefix_len": prefix} if prefix else {}
-        row = {"call": time_ms(lambda: k3.flash_attention(
+        row = {"peak_gb": peak_gb(lambda: k3.flash_attention(
             q, k, v, causal=True, **kw))}
+        row["b_fit"] = int(card_gb // (row["peak_gb"] / b))
+        row["call"] = time_ms(lambda: k3.flash_attention(
+            q, k, v, causal=True, **kw))
         if hasattr(k3, "flash_attention_fwd") and (
                 hd == hv and hd in k3.BWD_HEAD_DIMS
                 or (hd, hv) in getattr(k3, "RECT_PAIRS", ())):
@@ -121,19 +149,60 @@ def main() -> int:
             row["bitwise_twice"] = bool(torch.equal(got, again))
             if "lse" in row:    # the training forward: o and lse
                 o2, lse2 = k3.flash_attention_fwd(q, k, v, causal=True, **kw)
-                _, lse_want = k3._plain_forward(q, k, v, True, hd ** -0.5,
-                                                prefix)
+                lse_want = k3._plain_forward(q, k, v, True, hd ** -0.5,
+                                             prefix)[1]
                 row["lse_max_abs_err"] = float((lse2 - lse_want).abs().max())
                 row["within"] = row["within"] and bool(
                     torch.equal(o2, got)) and row["lse_max_abs_err"] <= 2e-3
+                del o2, lse2, lse_want
             if not (row["within"] and row["bitwise_twice"]):
                 failed.append(name)
+            del got, again, want, err, tol
         out["ms"][name] = row
+        # nothing of this shape stays allocated into the next one's peak
         del q, k, v, qs, ks, vs, mask
     if args.check:
         out["failed"] = failed
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def scale_errors(torch, k3, args) -> dict:
+    """float32 K3 and its plain version against float64 attention at
+    ``SCALES`` on ``SCALE_SHAPES``."""
+    def exact(q, k, v, causal, scale):
+        q, k, v = (t.double() for t in (q, k, v))
+        g = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        if causal:
+            s = q.shape[1]
+            seen = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+            sc = sc.masked_fill(~seen, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows = []
+    for b, s, h, kv, d in SCALE_SHAPES:
+        hd, hv = d if isinstance(d, tuple) else (d, d)
+        for scale in SCALES:
+            for causal in (True, False):
+                q, k, v = (torch.randn((b, s, n, w), generator=g,
+                                       device="cuda")
+                           for n, w in ((h, hd), (kv, hd), (kv, hv)))
+                o = k3.flash_attention(q, k, v, causal=causal, scale=scale)
+                op = k3.flash_attention_plain(q, k, v, causal=causal,
+                                              scale=scale)
+                want = exact(q, k, v, causal, scale)
+                rows.append({"shape": [b, s, h, kv, hd, hv], "scale": scale,
+                             "causal": causal, "k3_plain": err(o, op),
+                             "k3_f64": err(o, want),
+                             "plain_f64": err(op, want)})
+    return {"root": os.path.abspath(args.root),
+            "device": torch.cuda.get_device_name(0), "scales": rows}
 
 
 if __name__ == "__main__":
