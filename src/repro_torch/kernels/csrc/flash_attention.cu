@@ -148,10 +148,10 @@
 //     keys double-buffered by cp.async in row-padded shared memory; P
 //     re-used from the S fragments as above.
 //
-//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128} and hd =
-//     hv = 256, on the CUDA cores in IEEE float32 (67 TFLOP/s).  One-pass
-//     TF32 (10 bits of mantissa) would break the 1e-5 tolerance; 3xTF32,
-//     below, does not, and runs at (192, 128) so far.
+//   flash_f32_kernel<HD, HV>   float32, hd, hv in {32, 64, 128}, on the
+//     CUDA cores in IEEE float32 (67 TFLOP/s).  One-pass TF32 (10 bits of
+//     mantissa) would break the 1e-5 tolerance; 3xTF32, below, does not,
+//     and runs at (192, 128) and at hd = hv = 256.
 //     256 threads per 64-query block, tiles of 64 keys.  Q, K and V arrive
 //     by 16-byte cp.async, K and V double-buffered (the next tile loads
 //     while this one is multiplied out), all row-major as they lie.  Thread
@@ -159,10 +159,7 @@
 //     score tile, so the K reads of a quarter warp hit distinct banks; the
 //     scores stay in registers, the row max and sum come from shuffles
 //     across the 16 lanes of a row group, and only P goes through shared
-//     memory, once, for the P V product.  Two barriers a tile.  At hd = hv
-//     = 256 two K / V buffers would take 350 KB: one buffer (212 KB), the
-//     next tile loaded after this one's P V product (three barriers a
-//     tile).
+//     memory, once, for the P V product.  Two barriers a tile.
 //
 //   flash_f32_tc_kernel<192, 128>   float32 at deepseek's (192, 128), every
 //     product as 3xTF32 on wgmma: each operand x is split into TF32 hi =
@@ -218,10 +215,35 @@
 //     the tiles of 64 query rows heaviest first, head by head where a
 //     round's K and V hi and lo pass the L2 (tc_group), as the bf16 kernel.
 //
+//   flash_f32_tc_kernel<256, 256>   float32 at paligemma's hd = hv = 256
+//     (8 heads over 1 kv head, the patches' bidirectional prefix), the
+//     same kernel and pre-pass (k and V^T over the B KV kv heads, read in
+//     place by every query head of the group).  Budgets at 256:
+//     - Shared memory: Q's hi and lo are 128 KB, so the ring has 3 slots
+//       of 32 KB (230,464 bytes in all).  A kv tile of 64 keys streams 8
+//       chunks: 4 of K (64 columns each) and 4 of V^T, each 64 keys x 64
+//       rows of V^T (64 of O's columns) in two boxes of 32 keys -- a V^T
+//       chunk of 32 keys x 256 rows would be 64 KB.
+//     - Registers: O is 128 a thread.  S beside it: chunks 0 and 1 chained
+//       in one accumulator, 2 and 3 in another (64), added in float32 -- a
+//       fresh accumulator a chunk (the (192, 128) order) would be 128, or
+//       96 in turns.  P V beside O and P's hi and lo (64): 32 of O's
+//       columns at a time (wgmma.m64n32k8, a fresh accumulator of 16),
+//       added to O in float32; each V^T chunk's two halves run back to back
+//       and its slot is released after both.  Peak 208 of the 255: with 64
+//       columns at a
+//       time (32) ptxas spilled (255 registers, 8 KB of spill stores) at
+//       the same speed; the 32-column kernel takes 255, no spill.
+//     The chained S pairs cost accuracy against fresh chunks: at scale 0.3
+//     (the scores ~20) the emulated kernel lies 2.9e-6 of scale from
+//     float64 attention against 0.9e-6 with a fresh accumulator a chunk,
+//     as far as the plain version's float32 (2.8e-6), inside the 1e-5 gate
+//     (tests/test_torch_flash_attention.py).
+//
 //   Training: flash_bf16_tc_kernel<HD, HV, true> (hd == hv in {64, 128,
 //   256}, and (192, 128)), flash_f32_kernel<HD, HV, true> (hd == hv in {64,
-//   128, 256}) and flash_f32_tc_kernel<192, 128, true> (entry points
-//   *_lse) also write the row
+//   128}) and flash_f32_tc_kernel<HD, HV, true> ((192, 128) and 256; entry
+//   points *_lse) also write the row
 //   log-sum-exp of the scaled scores, lse[b, h, i] = ln(sum_j exp(scale *
 //   q_i . k_j)), float32 [B, H, S], from the final running max and sum --
 //   what the backward
@@ -1198,23 +1220,14 @@ constexpr int kFK = 64;         // keys per kv tile
 constexpr int kFThreads = 256;  // 16 x 16 threads, 4 rows x 4 keys each
 constexpr int kFPad = 4;        // float row padding (keeps float4 alignment)
 
-// Q, ST buffers of K and V, P
-template <int HD, int HV, int ST>
-__host__ __device__ constexpr int f32_smem_bytes_st() {
-  return (kFQ * (HD + kFPad) + ST * kFK * (HD + kFPad) +
-          ST * kFK * (HV + kFPad) + kFK * (kFQ + kFPad)) * 4;
-}
-// K / V buffers: two (the next tile loads under this one's products) where
-// they fit a block's 227 KB, else one (hd = hv = 256)
-template <int HD, int HV>
-__host__ __device__ constexpr int f32_stages() {
-  return f32_smem_bytes_st<HD, HV, 2>() <= 232448 ? 2 : 1;
-}
+// Q, two buffers of K and V (the next tile loads under this one's
+// products), P
 template <int HD, int HV>
 constexpr int f32_smem_bytes() {
-  return f32_smem_bytes_st<HD, HV, f32_stages<HD, HV>()>();
+  return (kFQ * (HD + kFPad) + 2 * kFK * (HD + kFPad) +
+          2 * kFK * (HV + kFPad) + kFK * (kFQ + kFPad)) * 4;
 }
-static_assert(f32_smem_bytes<256, 256>() <= 232448,
+static_assert(f32_smem_bytes<128, 128>() <= 232448,
               "a block's shared memory is 227 KB");
 
 // rows [r0, r0 + 64) of a [S, W] float32 view with row stride `st` into a
@@ -1262,12 +1275,11 @@ flash_f32_kernel(const Params p) {
   // 16 VW g + VW tx, so a quarter warp's V reads are 128 consecutive bytes
   constexpr int VW = HV >= 64 ? 4 : 2;
   constexpr int NG = HV / (16 * VW);
-  constexpr int ST = f32_stages<HD, HV>();
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;                 // [kFQ][LQ]
-  float* Ks = Qs + kFQ * LQ;       // [ST][kFK][LK]
-  float* Vs = Ks + ST * kFK * LK;  // [ST][kFK][LV]
-  float* Pt = Vs + ST * kFK * LV;  // [kFK][LP]: p of row ty + 16 i at 4 ty + i
+  float* Ks = Qs + kFQ * LQ;       // [2][kFK][LK]
+  float* Vs = Ks + 2 * kFK * LK;   // [2][kFK][LV]
+  float* Pt = Vs + 2 * kFK * LV;   // [kFK][LP]: p of row ty + 16 i at 4 ty + i
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const Tile tile = block_tile(p);
@@ -1299,19 +1311,17 @@ flash_f32_kernel(const Params p) {
   }
 
   for (int kb = 0; kb < n_kv; ++kb) {
-    const int buf = ST == 2 ? kb & 1 : 0, k0 = kb * kFK;
+    const int buf = kb & 1, k0 = kb * kFK;
     cp_async_wait<0>();
     // tile kb (and Q) landed for every thread, and every thread is done with
     // tile kb - 1: its K / V buffer and P may be overwritten
     __syncthreads();
-    if constexpr (ST == 2) {
-      if (kb + 1 < n_kv) {  // in flight during this tile's products
-        load_rows_f32<HD>(Ks + (buf ^ 1) * kFK * LK, LK, kp, p.ks_s,
-                          k0 + kFK, p.Sk);
-        load_rows_f32<HV>(Vs + (buf ^ 1) * kFK * LV, LV, vp, p.vs_s,
-                          k0 + kFK, p.Sk);
-        cp_async_commit();
-      }
+    if (kb + 1 < n_kv) {  // in flight during this tile's products
+      load_rows_f32<HD>(Ks + (buf ^ 1) * kFK * LK, LK, kp, p.ks_s, k0 + kFK,
+                        p.Sk);
+      load_rows_f32<HV>(Vs + (buf ^ 1) * kFK * LV, LV, vp, p.vs_s, k0 + kFK,
+                        p.Sk);
+      cp_async_commit();
     }
     const float* Kb = Ks + buf * kFK * LK;
     const float* Vb = Vs + buf * kFK * LV;
@@ -1411,14 +1421,6 @@ flash_f32_kernel(const Params p) {
 #pragma unroll
         for (int cc = 0; cc < NG * VW; ++cc) acc[i][cc] += pv[i] * vv[cc];
     }
-    if constexpr (ST == 1) {
-      if (kb + 1 < n_kv) {  // every thread is done with this tile's K, V
-        __syncthreads();
-        load_rows_f32<HD>(Ks, LK, kp, p.ks_s, k0 + kFK, p.Sk);
-        load_rows_f32<HV>(Vs, LV, vp, p.vs_s, k0 + kFK, p.Sk);
-        cp_async_commit();
-      }
-    }
   }
 
 #pragma unroll
@@ -1440,30 +1442,43 @@ flash_f32_kernel(const Params p) {
 
 // --- float32, 3xTF32 on wgmma: flash_f32_tc_kernel ----------------------------
 //
-// (hd, hv) = (192, 128), deepseek's MLA; module header.  K and V come from
-// a pre-pass (flash_f32_split_kernel, flash_f32_vt_kernel) that writes each
-// float32 x as TF32 hi = cvt.rna(x) and lo = cvt.rna(x - hi) into a
-// scratch, V transposed, so each is a K-major TF32 tile that TMA loads and
-// wgmma reads as it lies; Q lands as float32 and the consumers split it in
-// place.
+// (hd, hv) = (192, 128), deepseek's MLA, and hd = hv = 256, paligemma's;
+// module header.  K and V come from a pre-pass (flash_f32_split_kernel,
+// flash_f32_vt_kernel) that writes each float32 x as TF32 hi = cvt.rna(x)
+// and lo = cvt.rna(x - hi) into a scratch, V transposed, so each is a
+// K-major TF32 tile that TMA loads and wgmma reads as it lies; Q lands as
+// float32 and the consumers split it in place.
 
 constexpr int kF3Rows = 64;      // query rows of a tile: one consumer warpgroup
 constexpr int kF3Keys = 64;      // keys of a kv tile
 constexpr int kF3Threads = 160;  // the consumer warpgroup, then the loader warp
-constexpr int kF3Slots = 4;      // ring slots
-constexpr int kF3Slot = 32768;   // a slot: 64 keys x 64 K columns, or 32 keys
-                                 // of V^T's 128 rows; hi then lo
+constexpr int kF3Slot = 32768;   // a slot: 64 keys x 64 K columns, or a V^T
+                                 // chunk (32 keys x 128 rows at (192, 128),
+                                 // 64 keys x 64 rows at 256); hi then lo
 constexpr int kF3Box = 8192;     // a box: 64 rows of 32 floats (128 bytes)
+
+// ring slots: 4 beside (192, 128)'s Q of 96 KB, 3 beside hd 256's 128 KB
+template <int HD>
+__host__ __device__ constexpr int f32_tc_slots() {
+  return HD == 256 ? 3 : 4;
+}
+// rows of V^T (columns of O) a V^T chunk holds: all 128 at (192, 128), 64
+// at hv 256 (a box of 32 keys, the tensor map's box height)
+template <int HV>
+__host__ __device__ constexpr int f32_tc_vt_rows() {
+  return HV == 256 ? 64 : HV;
+}
 
 // shared memory: the 1 KiB alignment of the swizzle's period, Q's hi and lo
 // (64 rows of HD), the ring, the barriers (Q full / empty, a full / empty
 // pair a slot)
 template <int HD, int HV>
 __host__ __device__ constexpr int f32_tc_smem_bytes() {
-  return 1024 + 2 * kF3Rows * HD * 4 + kF3Slots * kF3Slot +
-         (2 + 2 * kF3Slots) * 8;
+  return 1024 + 2 * kF3Rows * HD * 4 + f32_tc_slots<HD>() * kF3Slot +
+         (2 + 2 * f32_tc_slots<HD>()) * 8;
 }
-static_assert(f32_tc_smem_bytes<192, 128>() <= 232448,
+static_assert(f32_tc_smem_bytes<192, 128>() <= 232448 &&
+                  f32_tc_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 
 // k as TF32 hi and lo (hopper.cuh split_rows)
@@ -1489,25 +1504,39 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const Params p) {
-  static_assert(HD == 192 && HV == 128, "the (192, 128) kernel");
-  constexpr int KC = HD / 64;           // K chunks of a kv tile
-  constexpr int VC = kF3Keys / 32;      // V^T chunks of a kv tile
-  static_assert(KC == 3 && VC == 2, "the waits and releases below");
+  static_assert((HD == 192 && HV == 128) || (HD == 256 && HV == 256),
+                "the (192, 128) and the hd-256 kernels");
+  // hv 256: O in four column blocks of 64, one V^T chunk (64 keys x 64
+  // rows) each; (192, 128): O whole, V^T in chunks of 32 keys x 128 rows
+  constexpr bool kWide = HV == 256;
+  constexpr int kSlots = f32_tc_slots<HD>();
+  constexpr int KC = HD / 64;                         // K chunks of a kv tile
+  constexpr int VC = kWide ? HV / 64 : kF3Keys / 32;  // V^T chunks of a tile
+  constexpr int OB = kWide ? HV / 64 : 1;             // O's column blocks
+  constexpr int OW = HV / 2 / OB;     // O's floats a thread in a block
+  constexpr int SA = kWide ? 2 : KC;  // S accumulators: a chunk pair or chunk
+  // P V's fresh accumulator: (192, 128) all of O's 128 columns; hv 256 32
+  // of them, half a column block (m64n32k8: 16 registers a thread; a block
+  // of 64, 32 registers, spilled beside O's 128 and P's 64)
+  constexpr int PW = kWide ? 16 : OW;  // pv floats a thread
+  constexpr int PH = OW / PW;          // pv halves a column block
+  static_assert(KC == (kWide ? 4 : 3) && VC == (kWide ? 4 : 2),
+                "the waits and releases below");
   constexpr int kTileQ = 2 * kF3Rows * HD * 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = smem;                   // HD / 32 boxes of hi, lo
   uint8_t* ring = sQ + kTileQ;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kF3Slots * kF3Slot);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kSlots * kF3Slot);
   uint64_t* q_empty = q_full + 1;
   uint64_t* full = q_empty + 1;
-  uint64_t* empty = full + kF3Slots;
+  uint64_t* empty = full + kSlots;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 4);              // one lane per consumer warp
-    for (int st = 0; st < kF3Slots; ++st) {
+    for (int st = 0; st < kSlots; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], 4);
     }
@@ -1534,16 +1563,16 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (tid >= 128) {
     // ---- loader: one thread issues every copy; per kv tile KC chunks of K
-    // (64 columns each), then VC of V^T (32 keys each), through the ring,
-    // which runs on from one tile of queries to the next ----
+    // (64 columns each), then VC of V^T, through the ring, which runs on
+    // from one tile of queries to the next ----
     if (tid == 128) {
       prefetch_tensormap(&tm_q);
       prefetch_tensormap(&tm_k);
       prefetch_tensormap(&tm_v);
       int r = 0;
       auto acquire = [&]() {
-        const int st = r % kF3Slots;
-        mbar_wait(&empty[st], ((r / kF3Slots) & 1) ^ 1);
+        const int st = r % kSlots;
+        mbar_wait(&empty[st], ((r / kSlots) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[st], kF3Slot);
         ++r;
         return st;
@@ -1571,8 +1600,15 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int vc = 0; vc < VC; ++vc) {
             const int st = acquire();
-            tma_load_4d(ring + st * kF3Slot, &tm_v, &full[st], k0 + 32 * vc,
-                        0, kvbh, 0);
+            if constexpr (kWide) {  // V^T rows [64 vc, +64), keys in 2 boxes
+              tma_load_4d(ring + st * kF3Slot, &tm_v, &full[st], k0, 64 * vc,
+                          kvbh, 0);
+              tma_load_4d(ring + st * kF3Slot + 2 * kF3Box, &tm_v, &full[st],
+                          k0 + 32, 64 * vc, kvbh, 0);
+            } else {
+              tma_load_4d(ring + st * kF3Slot, &tm_v, &full[st], k0 + 32 * vc,
+                          0, kvbh, 0);
+            }
           }
         }
       }
@@ -1592,21 +1628,21 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool causal = p.causal;
   const int prefix = p.prefix;
 
-  float o[HV / 2];         // O, float32, summed tile by tile
-  float pv[HV / 2];        // one kv tile's P V, a fresh accumulator
-  float sc[KC][32];        // one kv tile's S, a fresh accumulator a K chunk
+  float o[OB][OW];         // O, float32, summed tile by tile
+  float pv[PW];            // one kv tile's P V (columns of it), fresh
+  float sc[SA][32];        // one kv tile's S in fresh accumulators
   float s[32];             // S, then P
   uint32_t ph[8][4], pl[8][4];  // P in TF32 hi and lo: the A fragments
   float m[2], l[2], corr[2];
 
-  // S (+)= Q K^T over the 64 columns of K chunk cc in slot st, 8 k8 steps:
-  // the small terms first -- lo hi and hi lo of every step -- then hi hi of
-  // every step, so that only 8 of the 24 products add into an accumulator
-  // as large as S (the tensor cores' accumulation truncates: interleaved,
-  // the 24 cost 3x the error).  Q box cb holds columns [32 cb, 32 cb +
-  // 32), hi then lo 8 KB on; a K slot holds two such boxes.  Committed,
-  // not waited for.
-  auto issue_s = [&](int cc, int st) {
+  // acc (+)= Q K^T over the 64 columns of K chunk cc in slot st, 8 k8
+  // steps (acc overwritten where `first`): the small terms first -- lo hi
+  // and hi lo of every step -- then hi hi of every step, so that only 8 of
+  // the 24 products add into an accumulator as large as S (the tensor
+  // cores' accumulation truncates: interleaved, the 24 cost 3x the error).
+  // Q box cb holds columns [32 cb, 32 cb + 32), hi then lo 8 KB on; a K
+  // slot holds two such boxes.  Committed, not waited for.
+  auto issue_s = [&](float (&acc)[32], int cc, int st, bool first) {
     auto desc = [&](int ks, bool q_lo, bool k_lo, uint64_t& dq,
                     uint64_t& dk) {
       const uint32_t qa = q_addr + (2 * cc + ks / 4) * 2 * kF3Box +
@@ -1620,43 +1656,73 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int ks = 0; ks < 8; ++ks) {
       uint64_t dq, dk;
       desc(ks, true, false, dq, dk);
-      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, ks > 0);
+      wgmma_tf32_ss_m64n64k8(acc, dq, dk, !(first && ks == 0));
       desc(ks, false, true, dq, dk);
-      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, 1);
+      wgmma_tf32_ss_m64n64k8(acc, dq, dk, 1);
     }
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
       uint64_t dq, dk;
       desc(ks, false, false, dq, dk);
-      wgmma_tf32_ss_m64n64k8(sc[cc], dq, dk, 1);
+      wgmma_tf32_ss_m64n64k8(acc, dq, dk, 1);
     }
     wgmma_commit();
   };
-  // P V over the tile's 64 keys, V^T chunks 0 and 1 in slots st0 and st1
-  // (32 keys each; V^T hi, then lo 16 KB on), 8 k8 steps into a fresh pv,
-  // small terms first as in S: P lo V^T hi and P hi V^T lo of every step,
-  // then P hi V^T hi.  Committed, not waited for.
+  // P V into a fresh pv, 8 k8 steps over the tile's 64 keys, small terms
+  // first as in S: P lo V^T hi and P hi V^T lo of every step, then P hi
+  // V^T hi.  (192, 128): all 128 columns, V^T chunks 0 and 1 in slots st0
+  // and st1 (32 keys each; V^T hi, then lo 16 KB on).  hv 256: half hf =
+  // st1 of a column block, its V^T chunk in slot st0 (two boxes of 32 keys
+  // x 64 rows, each hi then lo 8 KB on; the half's 32 rows 4 KB on, whole
+  // swizzle periods).  Committed, not waited for.
   auto issue_pv = [&](int st0, int st1) {
-    auto vt = [&](int n, bool lo) {
-      return smem_desc(ring_addr + (n < 4 ? st0 : st1) * kF3Slot +
-                           (lo ? 2 * kF3Box : 0) + (n % 4) * 32,
-                       16, 1024);
-    };
+    if constexpr (kWide) {
+      auto vt = [&](int n, bool lo) {
+        return smem_desc(ring_addr + st0 * kF3Slot + (n / 4) * 2 * kF3Box +
+                             (lo ? kF3Box : 0) + (n % 4) * 32 + st1 * 4096,
+                         16, 1024);
+      };
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      wgmma_tf32_rs_m64n128k8(pv, pl[n], vt(n, false), n > 0);
-      wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, true), 1);
+      for (int n = 0; n < 8; ++n) {
+        wgmma_tf32_rs_m64n32k8(pv, pl[n], vt(n, false), n > 0);
+        wgmma_tf32_rs_m64n32k8(pv, ph[n], vt(n, true), 1);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        wgmma_tf32_rs_m64n32k8(pv, ph[n], vt(n, false), 1);
+    } else {
+      auto vt = [&](int n, bool lo) {
+        return smem_desc(ring_addr + (n < 4 ? st0 : st1) * kF3Slot +
+                             (lo ? 2 * kF3Box : 0) + (n % 4) * 32,
+                         16, 1024);
+      };
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        wgmma_tf32_rs_m64n128k8(pv, pl[n], vt(n, false), n > 0);
+        wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, true), 1);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, false), 1);
     }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      wgmma_tf32_rs_m64n128k8(pv, ph[n], vt(n, false), 1);
     wgmma_commit();
   };
   auto release = [&](int r) {
-    if (lane == 0) mbar_arrive(&empty[r % kF3Slots]);
+    if (lane == 0) mbar_arrive(&empty[r % kSlots]);
   };
   auto wait_full = [&](int r) {
-    mbar_wait(&full[r % kF3Slots], (r / kF3Slots) & 1);
+    mbar_wait(&full[r % kSlots], (r / kSlots) & 1);
+  };
+  // O = O corr + pv over half hf of column block cb, in float32
+  auto add_pv = [&](int cb, int hf) {
+#pragma unroll
+    for (int n = 0; n < PW / 4; ++n) {
+      float* oo = o[cb] + hf * PW;
+      oo[4 * n] = fmaf(oo[4 * n], corr[0], pv[4 * n]);
+      oo[4 * n + 1] = fmaf(oo[4 * n + 1], corr[0], pv[4 * n + 1]);
+      oo[4 * n + 2] = fmaf(oo[4 * n + 2], corr[1], pv[4 * n + 2]);
+      oo[4 * n + 3] = fmaf(oo[4 * n + 3], corr[1], pv[4 * n + 3]);
+    }
   };
   // the online softmax of s (keys [k0, k0 + 64)), as the bf16 kernel's:
   // masked by selects where `masked`, the row max over the raw scores with
@@ -1723,7 +1789,9 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row_lo = tl.qb * kF3Rows, row0 = row_lo + frag_row;
     const int n_kv = kv_tiles(tl);
 #pragma unroll
-    for (int i = 0; i < HV / 2; ++i) o[i] = 0.0f;
+    for (int cb = 0; cb < OB; ++cb)
+#pragma unroll
+      for (int i = 0; i < OW; ++i) o[cb][i] = 0.0f;
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
     mbar_wait(q_full, j & 1);
@@ -1752,24 +1820,46 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int it = 0; it < n_kv; ++it, r += KC + VC) {
       const int k0 = (n_kv - 1 - it) * kF3Keys;
       // S: the K chunks' products back to back, each chunk's slot released
-      // as soon as its products are done
+      // as soon as its products are done.  (192, 128): a fresh accumulator
+      // a chunk; hd 256: chunks 0, 1 chained in sc[0] and 2, 3 in sc[1] (a
+      // fresh accumulator a chunk beside O's 128 registers would not fit)
+      if constexpr (kWide) {
 #pragma unroll
-      for (int cc = 0; cc < KC; ++cc) {
-        wait_full(r + cc);
-        wgmma_fence();
-        issue_s(cc, (r + cc) % kF3Slots);
+        for (int cc = 0; cc < KC; ++cc) {
+          wait_full(r + cc);
+          wgmma_fence();
+          issue_s(sc[cc / 2], cc, (r + cc) % kSlots, cc % 2 == 0);
+          if (cc > 0) {
+            wgmma_wait<1>();
+            release(r + cc - 1);
+          }
+        }
+        wgmma_wait<0>();
+        release(r + KC - 1);
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < KC; ++cc) {
+          wait_full(r + cc);
+          wgmma_fence();
+          issue_s(sc[cc], cc, (r + cc) % kSlots, true);
+        }
+        wgmma_wait<2>();
+        release(r);
+        wgmma_wait<1>();
+        release(r + 1);
+        wgmma_wait<0>();
+        release(r + 2);
       }
-      wgmma_wait<2>();
-      release(r);
-      wgmma_wait<1>();
-      release(r + 1);
-      wgmma_wait<0>();
-      release(r + 2);
 #pragma unroll
-      for (int cc = 0; cc < KC; ++cc) fence_acc(sc[cc]);
+      for (int a = 0; a < SA; ++a) fence_acc(sc[a]);
       if (it == n_kv - 1 && lane == 0) mbar_arrive(q_empty);  // Q is done
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = (sc[0][i] + sc[1][i]) + sc[2][i];
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (kWide)
+          s[i] = sc[0][i] + sc[1][i];
+        else
+          s[i] = (sc[0][i] + sc[1][i]) + sc[2][i];
+      }
       // only the first tile (the diagonal, the prefix's end, a ragged end)
       // hides a key from a row
       const bool masked =
@@ -1790,26 +1880,38 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       // P V into a fresh accumulator, added to O in float32: the tensor
       // cores' accumulation truncates, and over a whole row (1,536 wgmma
-      // steps at S = 4096) it would drift
-      wait_full(r + KC);
-      wait_full(r + KC + 1);
-      wgmma_fence();
-      issue_pv((r + KC) % kF3Slots, (r + KC + 1) % kF3Slots);
-      wgmma_wait<0>();
-      release(r + KC);
-      release(r + KC + 1);
-      fence_acc(pv);
+      // steps at S = 4096) it would drift.  hv 256: 32 columns at a time
+      // (a fresh accumulator as wide as O would not fit beside it), each
+      // column block's V^T chunk released after its two halves
+      if constexpr (kWide) {
+#pragma unroll
+        for (int cb = 0; cb < OB; ++cb) {
+          wait_full(r + KC + cb);
+#pragma unroll
+          for (int hf = 0; hf < PH; ++hf) {
+            wgmma_fence();
+            issue_pv((r + KC + cb) % kSlots, hf);
+            wgmma_wait<0>();
+            fence_acc(pv);
+            add_pv(cb, hf);
+          }
+          release(r + KC + cb);
+        }
+      } else {
+        wait_full(r + KC);
+        wait_full(r + KC + 1);
+        wgmma_fence();
+        issue_pv((r + KC) % kSlots, (r + KC + 1) % kSlots);
+        wgmma_wait<0>();
+        release(r + KC);
+        release(r + KC + 1);
+        fence_acc(pv);
+        add_pv(0, 0);
+      }
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         fence_frag(ph[n]);
         fence_frag(pl[n]);
-      }
-#pragma unroll
-      for (int n = 0; n < HV / 8; ++n) {
-        o[4 * n] = fmaf(o[4 * n], corr[0], pv[4 * n]);
-        o[4 * n + 1] = fmaf(o[4 * n + 1], corr[0], pv[4 * n + 1]);
-        o[4 * n + 2] = fmaf(o[4 * n + 2], corr[1], pv[4 * n + 2]);
-        o[4 * n + 3] = fmaf(o[4 * n + 3], corr[1], pv[4 * n + 3]);
       }
     }
 
@@ -1826,9 +1928,12 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       float* orow = op + row * p.os_s;
 #pragma unroll
-      for (int n = 0; n < HV / 8; ++n)
-        *reinterpret_cast<float2*>(orow + n * 8 + t4 * 2) =
-            make_float2(o[4 * n + 2 * i] / den, o[4 * n + 2 * i + 1] / den);
+      for (int cb = 0; cb < OB; ++cb)
+#pragma unroll
+        for (int n = 0; n < OW / 4; ++n)
+          *reinterpret_cast<float2*>(orow + 64 * cb + n * 8 + t4 * 2) =
+              make_float2(o[cb][4 * n + 2 * i] / den,
+                          o[cb][4 * n + 2 * i + 1] / den);
     }
   }
 }
@@ -1860,8 +1965,7 @@ int launch_f32(const Params& p, int gx, int gy, int device, void* stream) {
                 kFThreads, p, gx, gy, &done, device, stream);
 }
 
-// the (hd, hv) instances: hd, hv in {32, 64, 128} (and, float32 only, hd
-// = hv = 256)
+// the (hd, hv) instances: hd, hv in {32, 64, 128}
 #define FLASH_DISPATCH(LAUNCH)                                    \
   switch (hd * 1000 + hv) {                                       \
     case 32032: return LAUNCH<32, 32>(p, gx, gy, device, stream);   \
@@ -2020,11 +2124,10 @@ int tc_entry(const void* q, const void* k, const void* v, void* o,
 
 // the pre-pass (split k, split and transpose v into `scratch`), then
 // the kernel over tensor maps of the scratch
-template <bool kLse>
+template <int HD, int HV, bool kLse>
 int launch_f32_tc(const void* q, const void* k, const void* v,
                   const long long* st, float* scratch, const Params& p,
                   int B, int gx, int device, void* stream) {
-  constexpr int HD = 192, HV = 128;
   static unsigned done = 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t skp = (int64_t)(p.Sk + kF3Keys - 1) / kF3Keys * kF3Keys;
@@ -2047,8 +2150,8 @@ int launch_f32_tc(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   // q as it lies: dims (hd, heads, S, B), boxes of 32 columns (128 bytes)
   // x 1 x 64 rows x 1.  The scratch: dims innermost first (columns, rows,
-  // b * heads, hi / lo); boxes of 32 columns x 64 rows (128 of V^T's) x 1
-  // x both
+  // b * heads, hi / lo); boxes of 32 columns x 64 rows (V^T's
+  // f32_tc_vt_rows) x 1 x both
   CUtensorMap tm_q = {}, tm_k = {}, tm_v = {};
   const cuuint64_t qd[4] = {HD, (cuuint64_t)p.H, (cuuint64_t)p.S,
                             (cuuint64_t)B};
@@ -2062,7 +2165,7 @@ int launch_f32_tc(const void* q, const void* k, const void* v,
   const cuuint64_t vstr[3] = {(cuuint64_t)skp * 4, (cuuint64_t)skp * HV * 4,
                               (cuuint64_t)vn * 4};
   const cuuint32_t box_rows[4] = {32, kF3Rows, 1, 2};
-  const cuuint32_t box_vt[4] = {32, HV, 1, 2};
+  const cuuint32_t box_vt[4] = {32, f32_tc_vt_rows<HV>(), 1, 2};
   if (!encode_f32(&tm_q, q, 4, qd, qstr, box_q) ||
       !encode_f32(&tm_k, ks, 4, kd, kstr, box_rows) ||
       !encode_f32(&tm_v, vt, 4, vd, vstr, box_vt))
@@ -2084,7 +2187,8 @@ int f32_tc_entry(const void* q, const void* k, const void* v, void* o,
                  float scale, int causal, int prefix, int block_q,
                  int block_k, int gx, int gy, int device, void* stream) {
   const int64_t n_tiles = (int64_t)B * H * ((S + kF3Rows - 1) / kF3Rows);
-  if (hd != 192 || hv != 128 || B < 1 ||
+  const bool pair = (hd == 192 && hv == 128) || (hd == 256 && hv == 256);
+  if (!pair || B < 1 ||
       !lengths_fit(S, Sk, causal, prefix) || KV < 1 || H % KV ||
       block_q != kF3Rows || block_k != kF3Keys || gx < 1 || gx > n_tiles ||
       gy != 1 || scratch == nullptr || !aligned16(scratch) ||
@@ -2098,11 +2202,16 @@ int f32_tc_entry(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   float* sc = static_cast<float*>(scratch);
-  return lse != nullptr
-             ? launch_f32_tc<true>(q, k, v, strides, sc, p, B, gx, device,
-                                   stream)
-             : launch_f32_tc<false>(q, k, v, strides, sc, p, B, gx, device,
-                                    stream);
+  switch (hd * 2 + (lse != nullptr)) {
+    case 384: return launch_f32_tc<192, 128, false>(q, k, v, strides, sc, p,
+                                                    B, gx, device, stream);
+    case 385: return launch_f32_tc<192, 128, true>(q, k, v, strides, sc, p,
+                                                   B, gx, device, stream);
+    case 512: return launch_f32_tc<256, 256, false>(q, k, v, strides, sc, p,
+                                                    B, gx, device, stream);
+    default: return launch_f32_tc<256, 256, true>(q, k, v, strides, sc, p,
+                                                  B, gx, device, stream);
+  }
 }
 
 }  // namespace
@@ -2162,8 +2271,8 @@ int flash_attention_bf16_mma(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(launch_mma)
 }
 
-// float32 on the CUDA cores, hd, hv in {32, 64, 128} or hd = hv = 256.
-// Plan: 64 x 64, grid (B*H, ceil(S / 64)); every row 16-byte aligned.
+// float32 on the CUDA cores, hd, hv in {32, 64, 128}.  Plan: 64 x 64, grid
+// (B*H, ceil(S / 64)); every row 16-byte aligned.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Sk, int H, int KV, int hd, int hv,
                         const long long* strides, float scale, int causal,
@@ -2175,20 +2284,18 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
-  if (hd == 256 && hv == 256)
-    return launch_f32<256, 256>(p, gx, gy, device, stream);
   FLASH_DISPATCH(launch_f32)
 }
 
 // the same, also writing the row log-sum-exp lse [B, H, S] (float32); hd ==
-// hv in {64, 128, 256}
+// hv in {64, 128}
 int flash_attention_f32_lse(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int Sk, int H,
                             int KV, int hd, int hv, const long long* strides,
                             float scale, int causal, int prefix, int block_q,
                             int block_k, int gx, int gy, int device,
                             void* stream) {
-  const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  const bool square = hd == hv && (hd == 64 || hd == 128);
   if (lse == nullptr || !square ||
       !plan_fits(B, S, Sk, H, KV, causal, prefix, block_q, block_k, kFQ, kFK,
                  gx, gy) ||
@@ -2197,19 +2304,16 @@ int flash_attention_f32_lse(const void* q, const void* k, const void* v,
   Params p =
       make_params(q, k, v, o, S, Sk, H, KV, strides, scale, causal, prefix);
   p.lse = static_cast<float*>(lse);
-  switch (hd) {
-    case 64: return launch_f32<64, 64, true>(p, gx, gy, device, stream);
-    case 128: return launch_f32<128, 128, true>(p, gx, gy, device, stream);
-    default: return launch_f32<256, 256, true>(p, gx, gy, device, stream);
-  }
+  return hd == 64 ? launch_f32<64, 64, true>(p, gx, gy, device, stream)
+                  : launch_f32<128, 128, true>(p, gx, gy, device, stream);
 }
 
-// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128).  Plan: 64 query rows
-// x 64 keys, a persistent grid (gx, 1) of gx <= B*H * ceil(S / 64) blocks
-// that walk the tiles; every row 16-byte aligned.  scratch: float32, 16-byte
-// aligned, 2 (B H S hd + B KV Sk hd + B KV hv skp) floats, skp = Sk rounded
-// up to a multiple of 64: the operands split into TF32 hi and lo, v
-// transposed.
+// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128) or hd = hv = 256.
+// Plan: 64 query rows x 64 keys, a persistent grid (gx, 1) of gx <= B*H *
+// ceil(S / 64) blocks that walk the tiles; every row 16-byte aligned.
+// scratch: float32, 16-byte aligned, 2 (B KV Sk hd + B KV hv skp) floats,
+// skp = Sk rounded up to a multiple of 64: k split into TF32 hi and lo, v
+// transposed and split.
 int flash_attention_f32_tc(const void* q, const void* k, const void* v,
                            void* o, void* scratch, int B, int S, int Sk,
                            int H, int KV, int hd, int hv,

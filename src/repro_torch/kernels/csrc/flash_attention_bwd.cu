@@ -155,7 +155,7 @@
 //       mma.sync a product, items of 64 rows or keys, one block an item),
 //       which took 38.2 ms at that shape against SDPA's 4.0.
 //   flash_bwd_dq_f32_tc_kernel<HD, HV>, flash_bwd_dkdv_f32_tc_kernel<HD,
-//     HV>   float32, hd == hv == D in {64, 128, 256}.  Every product -- S
+//     HV>   float32, hd == hv == D in {64, 128}.  Every product -- S
 //     and dP in both kernels, dQ, dV, dK
 //     -- on the tensor cores as 3xTF32 (mma.sync m16n8k8; each operand split
 //     as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), each product lo hi
@@ -203,11 +203,9 @@
 //       SMs), so with GQA each item writes float32 partials and
 //       flash_bwd_dkdv_sum_f32_kernel adds a group's G of them in head
 //       order.
-//     At D = 256 the streamed tiles are 16 rows, one block of each kernel
-//     fits an SM (195 and 201 KB), and every warp's accumulator is 128
-//     registers a thread.
-//   flash_bwd_f32_wgmma_kernel<kPassDQ | kPassDK | kPassDV>   float32 at
-//     (hd, hv) = (192, 128) (deepseek's MLA, H == KV): every product as
+//   flash_bwd_f32_wgmma_kernel<kPassDQ | kPassDK | kPassDV, HD, HV>
+//     float32 at (hd, hv) = (192, 128) (deepseek's MLA, H == KV) and at hd
+//     = hv = 256 (paligemma, GQA; below): every product as
 //     3xTF32 on wgmma, split by cvt.rna as above.  TF32 wgmma reads both
 //     shared-memory operands K-major only, so dQ = dS K needs K^T, dK = dS^T
 //     Q needs Q^T and dV = P^T dO needs dO^T with the reduction index
@@ -234,6 +232,33 @@
 //     is relabelled, the transposed operands' index stored in tf32_key order
 //     -- 64 columns at a time into a fresh accumulator added in float32; no
 //     atomics, so two runs are bitwise equal.
+//     Head dim 256 (paligemma: 8 heads over 1 kv head, the patches'
+//     prefix).  It replaces flash_bwd_{dq,dkdv}_f32_tc_kernel<256> (3xTF32
+//     on mma.sync, 16-row steps, one block an SM), 1.29 times SDPA's
+//     backward.  Budgets:
+//     - Shared memory: the resident tile is 128 KB, so the ring has 3
+//       slots (231,480 bytes in all).  A dP product over a pair of chunks
+//       (64 columns of the item's rows and of the tile's, 2 slots) would
+//       leave the loader no slot ahead, so a dP chunk is 32 columns of
+//       both in one slot, 8 of them a tile pair.
+//     - Registers: the output is 128 a thread, S and dP 64 beside it, then
+//       dS's hi and lo 64 and a fresh 64-column accumulator 32: 224.  The
+//       dK and dV passes' lse2 and D of the tile's 16 columns a thread (32
+//       more, in registers at (192, 128)) are staged in shared memory
+//       instead: each thread loads one value before the products and stores
+//       it under them (two buffers, one named barrier a tile).  ptxas: 254,
+//       254 and 253 registers (dQ, dK, dV), no spill.
+//     - GQA: an item is 64 rows or keys of one query head (512 items a pass
+//       at B=1 S=4096 H=8, against 64 for items that walked the group's
+//       heads); q, do and their copies lie over the B H query heads, k, v
+//       and theirs over the B KV kv heads, each item's loads naming its own
+//       head (a_head) and the streamed tiles' (t_head).  The dK and dV
+//       items write float32 partials [B, Sk, H, 256] after D in the
+//       scratch (67 MB at B=1 S=4096), and flash_bwd_dkdv_sum_f32_kernel
+//       adds a group's in head order: no atomics.
+//     - The prefix: a dK / dV item that holds a key of the prefix walks
+//       every q tile from 0, a dQ item the keys up to causal_end; the masks
+//       run on edge tiles only, as at (192, 128).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -1588,16 +1613,10 @@ constexpr int kFStages = 2;      // ring slots of the streamed tiles
 // keys (dQ) or query rows (dK / dV) of a streamed tile: with 32 at D =
 // 64 and 16 at D = 128 two blocks of each kernel fit an SM and ptxas
 // needs no spill (dQ at D = 128 alone holds 64 accumulator registers a
-// thread); 16 at D = 256, where one block of each fits
+// thread)
 template <int D>
 __host__ __device__ constexpr int f32_step() {
   return D == 64 ? 32 : 16;
-}
-// blocks of the dK / dV kernel an SM: at D = 256 a warp's accumulator alone
-// is 128 registers a thread, more than two 256-thread blocks leave it
-template <int D>
-__host__ __device__ constexpr int f32_kv_blocks() {
-  return D == 256 ? 1 : 2;
 }
 
 // shared rows are D elements and 16 bytes: for float32 a row stride of 4
@@ -1628,8 +1647,8 @@ constexpr int f32_dkdv_smem_bytes() {  // K, V; P^T; the ring
   return kF * pair_bytes<HD, HV>() + kF * (f32_step<HD>() + 8) * 4 +
          kFStages * f32_slot_bytes<HD, HV>();
 }
-static_assert(f32_dq_smem_bytes<256, 256>() <= 232448 &&
-                  f32_dkdv_smem_bytes<256, 256>() <= 232448,
+static_assert(f32_dq_smem_bytes<128, 128>() <= 232448 &&
+                  f32_dkdv_smem_bytes<128, 128>() <= 232448,
               "a block's shared memory is 227 KB");
 
 // two adjacent outputs
@@ -1956,7 +1975,7 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* slot,
 }
 
 template <int HD, int HV>
-__global__ void __launch_bounds__(kKVThreads, (f32_kv_blocks<HD>()))
+__global__ void __launch_bounds__(kKVThreads, 2)
 flash_bwd_dkdv_f32_tc_kernel(const Params p) {
   static_assert(HD == HV, "dK and dV share one accumulator width");
   constexpr int LD = row_ld<HD>(), LV = row_ld<HV>();
@@ -2123,42 +2142,60 @@ flash_bwd_dkdv_sum_f32_kernel(const Params p, int B) {
   }
 }
 
-// --- float32 at (192, 128): 3xTF32 on wgmma ---------------------------------------
+// --- float32 at (192, 128) and hd 256: 3xTF32 on wgmma ---------------------------
 //
-// flash_bwd_f32_wgmma_kernel<kDQ | kDK | kDV> (module header).  A pre-pass
-// (flash_bwd_f32_t_kernel: q, k, do; flash_bwd_f32_split_kernel: v;
-// flash_bwd_f32_dd_kernel) writes every operand split into TF32 hi and lo
-// into the float32 scratch -- q, k, v, do as they lie, q, k and do
-// transposed (reduction index contiguous, in tf32_key order inside each 8) --
-// and D = rowsum(dO o); then three launches of one kernel, each a pass over
-// its items with one consumer warpgroup and a loader warp:
+// flash_bwd_f32_wgmma_kernel<kDQ | kDK | kDV, HD, HV> (module header).  A
+// pre-pass (flash_bwd_f32_t_kernel: q, k, do; flash_bwd_f32_split_kernel:
+// v; flash_bwd_f32_dd_kernel) writes every operand split into TF32 hi and
+// lo into the float32 scratch -- q, k, v, do as they lie, q, k and do
+// transposed (reduction index contiguous, in tf32_key order inside each 8)
+// -- and D = rowsum(dO o); then three launches of one kernel, each a pass
+// over its items with one consumer warpgroup and a loader warp:
 //   kDQ: an item is 64 query rows of one head; Q resident; per kv tile S
 //        = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K (K^T streamed);
 //   kDK: an item is 64 keys of one head; K resident; per q tile S^T = K
 //        Q^T, dP^T = V dO^T, dS^T, dK += dS^T Q (Q^T streamed);
 //   kDV: an item is 64 keys; K resident; per q tile S^T, P^T, dV += P^T dO
 //        (dO^T streamed).
-// Only the 192-wide resident (Q or K) stays in shared memory; every
-// streamed operand -- the 128-wide one of dP too -- comes as chunks of 64
-// rows x 64 columns (two boxes of 32), hi and lo (32 KB), through a ring of
-// four slots.
+// Only the HD-wide resident (Q or K) stays in shared memory; every
+// streamed operand comes as 32 KB chunks (hi and lo) through the ring.
+// With GQA an item is one query head's; q, do and their copies are laid
+// out over the B H query heads, k, v and theirs over the B KV kv heads, and
+// the dK and dV items write per-head float32 partials that
+// flash_bwd_dkdv_sum_f32_kernel adds in head order.
 
 constexpr int kB3Rows = 64;       // rows of an item and of a streamed tile
 constexpr int kB3Threads = 160;   // the consumer warpgroup, the loader warp
-constexpr int kB3Slots = 4;       // ring slots
 constexpr int kB3Box = 8192;      // 64 rows of 32 floats (128 bytes)
 constexpr int kB3Slot = 4 * kB3Box;  // a chunk: two boxes' hi and lo
 enum { kPassDQ = 0, kPassDK = 1, kPassDV = 2 };
 
+// ring slots: 4 beside (192, 128)'s resident of 96 KB, 3 beside hd 256's
+// 128 KB.  With 3 a dP chunk takes one slot (32 columns of A and of B), so
+// that the loader keeps a slot ahead; with 4 two (64 columns of each)
+template <int HD>
+__host__ __device__ constexpr int b3_slots() {
+  return HD == 256 ? 3 : 4;
+}
+// bytes of the dK / dV passes' staged lse2 and D at hd 256: two buffers (q
+// tiles in turns) of 64 of each, float32 (at (192, 128) each thread loads
+// its 16 columns' into registers ahead of their use; beside hd 256's 128
+// output registers those 32 would spill)
+template <int HD>
+__host__ __device__ constexpr int b3_stat_bytes() {
+  return HD == 256 ? 2 * 2 * kB3Rows * 4 : 0;
+}
+
 // shared memory: the 1 KiB alignment of the swizzle's period; the resident
-// tile's hi and lo (64 rows of HD floats), the ring, the barriers (the
-// resident's full, a full / empty pair a slot)
+// tile's hi and lo (64 rows of HD floats), the ring, the staged lse2 and D,
+// the barriers (the resident's full, a full / empty pair a slot)
 template <int HD, int HV>
 __host__ __device__ constexpr int b3_smem_bytes() {
-  return 1024 + 2 * kB3Rows * HD * 4 + kB3Slots * kB3Slot +
-         (1 + 2 * kB3Slots) * 8;
+  return 1024 + 2 * kB3Rows * HD * 4 + b3_slots<HD>() * kB3Slot +
+         b3_stat_bytes<HD>() + (1 + 2 * b3_slots<HD>()) * 8;
 }
-static_assert(b3_smem_bytes<192, 128>() <= 232448,
+static_assert(b3_smem_bytes<192, 128>() <= 232448 &&
+                  b3_smem_bytes<256, 256>() <= 232448,
               "a block's shared memory is 227 KB");
 
 // v as TF32 hi and lo (hopper.cuh split_rows)
@@ -2204,7 +2241,7 @@ flash_bwd_f32_dd_kernel(const Params p, int B) {
   }
 }
 
-template <int MODE>
+template <int MODE, int HD, int HV>
 __global__ void __launch_bounds__(kB3Threads, 1)
 flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
                            const __grid_constant__ CUtensorMap tm_a2,
@@ -2212,24 +2249,31 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
                            const __grid_constant__ CUtensorMap tm_b2,
                            const __grid_constant__ CUtensorMap tm_bt,
                            const Params p) {
-  constexpr int HD = 192, HV = 128;
+  static_assert((HD == 192 && HV == 128) || (HD == 256 && HV == 256),
+                "the (192, 128) and the hd-256 passes");
   constexpr bool kByRow = MODE == kPassDQ;  // item rows are query rows
   constexpr bool kDP = MODE != kPassDV;     // dP (and dS) computed
   constexpr int W = MODE == kPassDV ? HV : HD;  // output width
   constexpr int NB = W / 64;                    // output column blocks
+  constexpr int kSlots = b3_slots<HD>();
+  constexpr bool kOneSlotDP = kSlots == 3;  // a dP chunk: 32 columns, 1 slot
+  constexpr bool kStage = b3_stat_bytes<HD>() > 0 && !kByRow;
   constexpr int kA1 = 2 * kB3Rows * HD * 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sA1 = smem;             // HD / 32 boxes of hi, lo
   uint8_t* ring = sA1 + kA1;
-  uint64_t* res_full = reinterpret_cast<uint64_t*>(ring + kB3Slots * kB3Slot);
+  float* stat = reinterpret_cast<float*>(ring + kSlots * kB3Slot);
+  uint64_t* res_full =
+      reinterpret_cast<uint64_t*>(ring + kSlots * kB3Slot +
+                                  b3_stat_bytes<HD>());
   uint64_t* full = res_full + 1;
-  uint64_t* empty = full + kB3Slots;
+  uint64_t* empty = full + kSlots;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(res_full, 1);
-    for (int st = 0; st < kB3Slots; ++st) {
+    for (int st = 0; st < kSlots; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], 4);  // one lane per consumer warp
     }
@@ -2237,11 +2281,16 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
   }
   __syncthreads();
 
-  // the item: head bh's tile ib (query rows for kDQ, keys otherwise), head
-  // by head, inside a head heaviest first under causal
+  // the item: query head bh's tile ib (query rows for kDQ, keys
+  // otherwise), head by head, inside a head heaviest first under causal;
+  // its kv head kvbh.  The item's own operands (the resident, A2) lie over
+  // the heads of its rows, the streamed tiles' over the others'
   const int n_items = kByRow ? (p.S + kB3Rows - 1) / kB3Rows
                              : (p.Sk + kB3Rows - 1) / kB3Rows;
   const int bh = (int)blockIdx.x / n_items;
+  const int kvbh = (bh / p.H) * p.KV + (bh % p.H) / (p.H / p.KV);
+  const int a_head = kByRow ? bh : kvbh;
+  const int t_head = kByRow ? kvbh : bh;
   const int ib = kByRow && p.causal
                      ? n_items - 1 - (int)blockIdx.x % n_items
                      : (int)blockIdx.x % n_items;
@@ -2257,8 +2306,8 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
 
   if (tid >= 128) {
     // ---- loader: the resident, then per streamed tile HD / 64 chunks of
-    // B1, (kDQ, kDK) HV / 64 pairs of chunks of A2 (the item's rows) and B2
-    // (the tile's), and NB of the transposed operand ----
+    // B1, (kDQ, kDK) the dP chunks of A2 (the item's rows) and B2 (the
+    // tile's), and NB of the transposed operand ----
     if (tid == 128) {
       prefetch_tensormap(&tm_a1);
       prefetch_tensormap(&tm_b1);
@@ -2270,29 +2319,38 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
       mbar_arrive_expect_tx(res_full, kA1);
 #pragma unroll
       for (int c = 0; c < HD / 32; ++c)
-        tma_load_4d(sA1 + c * 2 * kB3Box, &tm_a1, res_full, 32 * c, i0, bh,
-                    0);
+        tma_load_4d(sA1 + c * 2 * kB3Box, &tm_a1, res_full, 32 * c, i0,
+                    a_head, 0);
       int r = 0;
-      // a chunk: boxes (c0, c1) and (c0 + d0, c1 + d1), 16 KB apart
-      auto load = [&](const CUtensorMap* map, int c0, int c1, int d0,
-                      int d1) {
-        const int st = r % kB3Slots;
-        mbar_wait(&empty[st], ((r / kB3Slots) & 1) ^ 1);
+      // a chunk: box (c0, c1) of map m0, then 16 KB on box (d0, d1) of m1
+      auto load = [&](const CUtensorMap* m0, int c0, int c1, int h0,
+                      const CUtensorMap* m1, int d0, int d1, int h1) {
+        const int st = r % kSlots;
+        mbar_wait(&empty[st], ((r / kSlots) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[st], kB3Slot);
-        tma_load_4d(ring + st * kB3Slot, map, &full[st], c0, c1, bh, 0);
-        tma_load_4d(ring + st * kB3Slot + 2 * kB3Box, map, &full[st],
-                    c0 + d0, c1 + d1, bh, 0);
+        tma_load_4d(ring + st * kB3Slot, m0, &full[st], c0, c1, h0, 0);
+        tma_load_4d(ring + st * kB3Slot + 2 * kB3Box, m1, &full[st], d0, d1,
+                    h1, 0);
         ++r;
       };
       for (int t = t_first; t < t_end; ++t) {
         const int t0 = t * kB3Rows;
-        for (int c = 0; c < HD / 64; ++c) load(&tm_b1, 64 * c, t0, 32, 0);
-        if constexpr (kDP)
+        for (int c = 0; c < HD / 64; ++c)
+          load(&tm_b1, 64 * c, t0, t_head, &tm_b1, 64 * c + 32, t0, t_head);
+        if constexpr (kDP && kOneSlotDP) {
+          for (int c = 0; c < HV / 32; ++c)
+            load(&tm_a2, 32 * c, i0, a_head, &tm_b2, 32 * c, t0, t_head);
+        } else if constexpr (kDP) {
           for (int c = 0; c < HV / 64; ++c) {
-            load(&tm_a2, 64 * c, i0, 32, 0);
-            load(&tm_b2, 64 * c, t0, 32, 0);
+            load(&tm_a2, 64 * c, i0, a_head, &tm_a2, 64 * c + 32, i0,
+                 a_head);
+            load(&tm_b2, 64 * c, t0, t_head, &tm_b2, 64 * c + 32, t0,
+                 t_head);
           }
-        for (int cb = 0; cb < NB; ++cb) load(&tm_bt, t0, 64 * cb, 32, 0);
+        }
+        for (int cb = 0; cb < NB; ++cb)
+          load(&tm_bt, t0, 64 * cb, t_head, &tm_bt, t0 + 32, 64 * cb,
+               t_head);
       }
     }
     return;
@@ -2328,12 +2386,14 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
     }
   }
 
-  // X (+)= A B^T over 64 columns, 8 k8 steps (box ks / 4 of each): the
-  // small terms of every step first, then hi hi; a_box(ks) and b_box(ks)
-  // the addresses of the steps' boxes (hi; lo 8 KB on)
-  auto issue_ss = [&](float (&x)[32], auto a_box, auto b_box, bool first) {
+  // X (+)= A B^T over STEPS k8 steps (box ks / 4 of each): the small terms
+  // of every step first, then hi hi; a_box(ks) and b_box(ks) the addresses
+  // of the steps' boxes (hi; lo 8 KB on)
+  auto issue_ss = [&](float (&x)[32], auto a_box, auto b_box, bool first,
+                      auto steps) {
+    constexpr int STEPS = decltype(steps)::value;
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
+    for (int ks = 0; ks < STEPS; ++ks) {
       const uint32_t aa = a_box(ks / 4) + (ks % 4) * 32;
       const uint32_t ba = b_box(ks / 4) + (ks % 4) * 32;
       wgmma_tf32_ss_m64n64k8(x, smem_desc(aa + kB3Box, 16, 1024),
@@ -2342,7 +2402,7 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
                              smem_desc(ba + kB3Box, 16, 1024), 1);
     }
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
+    for (int ks = 0; ks < STEPS; ++ks) {
       const uint32_t aa = a_box(ks / 4) + (ks % 4) * 32;
       const uint32_t ba = b_box(ks / 4) + (ks % 4) * 32;
       wgmma_tf32_ss_m64n64k8(x, smem_desc(aa, 16, 1024),
@@ -2350,6 +2410,8 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
     }
     wgmma_commit();
   };
+  using Chunk = std::integral_constant<int, 8>;     // 64 columns
+  using HalfChunk = std::integral_constant<int, 4>; // 32 columns
   // acc = dS (registers, 8 k8 steps) times a chunk of the transposed
   // operand (64 of the reduction index in two boxes, 64 output columns),
   // into a fresh accumulator, the small terms first
@@ -2370,13 +2432,13 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
     wgmma_commit();
   };
   auto release = [&](int r) {
-    if (lane == 0) mbar_arrive(&empty[r % kB3Slots]);
+    if (lane == 0) mbar_arrive(&empty[r % kSlots]);
   };
   auto wait_full = [&](int r) {
-    mbar_wait(&full[r % kB3Slots], (r / kB3Slots) & 1);
+    mbar_wait(&full[r % kSlots], (r / kSlots) & 1);
   };
   auto slot_box = [&](int r) {
-    const uint32_t a = ring_addr + (r % kB3Slots) * kB3Slot;
+    const uint32_t a = ring_addr + (r % kSlots) * kB3Slot;
     return [a](int bx) { return a + bx * 2 * kB3Box; };
   };
 
@@ -2384,10 +2446,19 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
   int r = 0;
   for (int t = t_first; t < t_end; ++t) {
     const int t0 = t * kB3Rows;
-    // kDK, kDV: the lse (log2 domain) and D of this thread's 16 columns,
-    // loaded ahead of their use
+    // kDK, kDV: the lse (log2 domain) and D of this thread's 16 columns --
+    // loaded ahead of their use into registers, or (kStage) by one thread
+    // a value into this tile's shared buffer, stored once the products are
+    // issued
     float lse_c[8][2], d_c[8][2];
-    if constexpr (!kByRow) {
+    [[maybe_unused]] float staged = 0.0f;
+    [[maybe_unused]] float* stat_t = stat + (t & 1) * 2 * kB3Rows;
+    if constexpr (kStage) {
+      const int col = t0 + (tid & (kB3Rows - 1));
+      if (col < p.S && (tid < kB3Rows || kDP))
+        staged = tid < kB3Rows ? p.lse[stat0 + col] * kLog2e
+                               : p.dd[stat0 + col];
+    } else if constexpr (!kByRow) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -2398,37 +2469,51 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
           d_c[n][e] = in && kDP ? p.dd[stat0 + col] : 0.0f;
         }
     }
-    // S (S^T) over HD / 64 chunks, then dP (dP^T) over HV / 64 pairs, one
-    // commit group a chunk or pair; its slots released once the next group
-    // is issued and its own is done
+    // S (S^T) over HD / 64 chunks, then dP (dP^T) over the dP chunks, one
+    // commit group a chunk or pair, chained in one accumulator each; a
+    // group's slots released once the next group is issued and its own is
+    // done
 #pragma unroll
     for (int c = 0; c < HD / 64; ++c, ++r) {
       wait_full(r);
       wgmma_fence();
       issue_ss(s, [&](int bx) { return a1_addr + (2 * c + bx) * 2 * kB3Box; },
-               slot_box(r), c == 0);
+               slot_box(r), c == 0, Chunk());
       if (c > 0) {
         wgmma_wait<1>();
         release(r - 1);
       }
     }
     int last = 1;  // slots of the last group issued
-    if constexpr (kDP) {
+    if constexpr (kDP && kOneSlotDP) {
+#pragma unroll
+      for (int c = 0; c < HV / 32; ++c, ++r) {
+        wait_full(r);
+        wgmma_fence();
+        const auto box = slot_box(r);
+        issue_ss(dp, box, [box](int) { return box(1); }, c == 0,
+                 HalfChunk());
+        wgmma_wait<1>();
+        release(r - 1);
+      }
+    } else if constexpr (kDP) {
 #pragma unroll
       for (int c = 0; c < HV / 64; ++c, r += 2) {
         wait_full(r);
         wait_full(r + 1);
         wgmma_fence();
-        issue_ss(dp, slot_box(r), slot_box(r + 1), c == 0);
+        issue_ss(dp, slot_box(r), slot_box(r + 1), c == 0, Chunk());
         wgmma_wait<1>();
         for (int i = 1; i <= last; ++i) release(r - i);
         last = 2;
       }
     }
+    if constexpr (kStage) stat_t[tid] = staged;
     wgmma_wait<0>();
     for (int i = 1; i <= last; ++i) release(r - i);
     fence_acc(s);
     if constexpr (kDP) fence_acc(dp);
+    if constexpr (kStage) bar_sync(1, 128);  // the consumer warpgroup
     // P = 2^(S scale log2 e - lse log2 e), 0 where the mask hides the pair
     // or the row / key lies past S / Sk -- tested by selects, and only on a
     // tile that holds such a pair (the diagonal's, a ragged end's): 7 % of
@@ -2448,12 +2533,17 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
         const int t_col = t0 + 8 * n + 2 * t4 + (e & 1);  // the tile's
         const int row = kByRow ? i_row : t_col;            // query row
         const int key = kByRow ? t_col : i_row;
-        const float lse2 = kByRow ? lse_r[e >> 1] : lse_c[n][e & 1];
+        const int col = 8 * n + 2 * t4 + (e & 1);
+        const float lse2 = kByRow   ? lse_r[e >> 1]
+                           : kStage ? stat_t[col]
+                                    : lse_c[n][e & 1];
         const bool hide = edge && (row >= p.S || key >= p.Sk ||
                                    (causal && hidden(key, row, prefix)));
         const float pe = hide ? 0.0f : exp2f(fmaf(s[4 * n + e], sl2, -lse2));
         if constexpr (kDP) {
-          const float dd = kByRow ? d_r[e >> 1] : d_c[n][e & 1];
+          const float dd = kByRow   ? d_r[e >> 1]
+                           : kStage ? stat_t[kB3Rows + col]
+                                    : d_c[n][e & 1];
           x[4 * n + e] = pe * (dp[4 * n + e] - dd);
         } else {
           x[4 * n + e] = pe;
@@ -2472,7 +2562,7 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
     for (int cb = 0; cb < NB; ++cb, ++r) {
       wait_full(r);
       wgmma_fence();
-      issue_rs(r % kB3Slots);
+      issue_rs(r % kSlots);
       wgmma_wait<0>();
       release(r);
       fence_acc(acc);
@@ -2486,12 +2576,18 @@ flash_bwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a1,
     }
   }
 
-  // rows of the item: dQ rows < S, dK / dV keys < Sk; dQ, dK times scale
-  const int b = bh / p.H, h = bh % p.H;
+  // rows of the item: dQ rows < S, dK / dV keys < Sk; dQ, dK times scale.
+  // With GQA dK and dV go to the head's partials [B, Sk, H, W]
+  const int b = bh / p.H, h = bh % p.H, kvh = kvbh % p.KV;
+  const bool partial = !kByRow && p.H > p.KV;
   float* dst = MODE == kPassDQ   ? base<float, kDQ>(p, p.dq, b, h)
-               : MODE == kPassDK ? base<float, kDK>(p, p.dk, b, h)
-                                 : base<float, kDV>(p, p.dv, b, h);
+               : partial         ? p.part + (MODE == kPassDV ? p.part_half
+                                                             : 0) +
+                             ((int64_t)b * p.Sk * p.H + h) * W
+               : MODE == kPassDK ? base<float, kDK>(p, p.dk, b, kvh)
+                                 : base<float, kDV>(p, p.dv, b, kvh);
   const int64_t rs = MODE == kPassDQ   ? row_stride<kDQ>(p)
+                     : partial         ? (int64_t)p.H * W
                      : MODE == kPassDK ? row_stride<kDK>(p)
                                        : row_stride<kDV>(p);
   const float mul = MODE == kPassDV ? 1.0f : p.scale;
@@ -2660,24 +2756,28 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
   return true;
 }
 
-// the float32 wgmma backward's scratch (floats), as launch_b3 lays it out
+// the float32 wgmma backward's scratch (floats), as launch_b3 lays it out:
+// q, do and their transposed copies over the B H query heads, k, v and k's
+// transposed copy over the B KV kv heads, D [B H, S], and with GQA (H > KV)
+// the dK, dV partials [2, B, Sk, H, HD] on a 16-byte boundary after D
 struct B3Scratch {
-  float *q, *k, *v, *dout, *qt, *kt, *dot, *dd;
+  float *q, *k, *v, *dout, *qt, *kt, *dot, *dd, *part;
   int64_t nq, nk, nv, ndo, nqt, nkt, ndot;  // floats of one half (hi or lo)
+  int64_t part_half;                        // floats of one partial
   int sp, skp;                              // S, Sk rounded up to 64
 };
-B3Scratch b3_scratch(float* base, int B, int S, int Sk, int H) {
-  constexpr int HD = 192, HV = 128;
+template <int HD, int HV>
+B3Scratch b3_scratch(float* base, int B, int S, int Sk, int H, int KV) {
   B3Scratch s;
-  const int64_t n = (int64_t)B * H;
+  const int64_t n = (int64_t)B * H, nkv = (int64_t)B * KV;
   s.sp = (S + kB3Rows - 1) / kB3Rows * kB3Rows;
   s.skp = (Sk + kB3Rows - 1) / kB3Rows * kB3Rows;
   s.nq = n * S * HD;
-  s.nk = n * Sk * HD;
-  s.nv = n * Sk * HV;
+  s.nk = nkv * Sk * HD;
+  s.nv = nkv * Sk * HV;
   s.ndo = n * S * HV;
   s.nqt = n * HD * s.sp;
-  s.nkt = n * HD * s.skp;
+  s.nkt = nkv * HD * s.skp;
   s.ndot = n * HV * s.sp;
   s.q = base;
   s.k = s.q + 2 * s.nq;
@@ -2687,13 +2787,15 @@ B3Scratch b3_scratch(float* base, int B, int S, int Sk, int H) {
   s.kt = s.qt + 2 * s.nqt;
   s.dot = s.kt + 2 * s.nkt;
   s.dd = s.dot + 2 * s.ndot;
+  s.part = s.dd + (n * S + 3) / 4 * 4;
+  s.part_half = (int64_t)B * Sk * H * HD;
   return s;
 }
 
 // a 4-D float32 map (columns, rows, b * heads, hi / lo) over a split
 // operand, boxes of 32 columns x 64 rows x 1 x both
 bool encode_split(CUtensorMap* map, const float* base, int cols, int rows,
-                  int n, int64_t half) {
+                  int64_t n, int64_t half) {
   const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)n, 2};
   const cuuint64_t strides[3] = {(cuuint64_t)cols * 4,
@@ -2708,14 +2810,14 @@ int b3_blocks(int64_t total) {
   return (int)(n < 132 * 16 ? n : 132 * 16);
 }
 
-template <int MODE>
+template <int MODE, int HD, int HV>
 cudaError_t launch_b3_pass(const CUtensorMap& a1, const CUtensorMap& a2,
                            const CUtensorMap& b1, const CUtensorMap& b2,
                            const CUtensorMap& bt, const Params& p, int ctas,
                            int device, cudaStream_t stream) {
   static unsigned done = 0;
-  auto kernel = flash_bwd_f32_wgmma_kernel<MODE>;
-  constexpr int smem = b3_smem_bytes<192, 128>();
+  auto kernel = flash_bwd_f32_wgmma_kernel<MODE, HD, HV>;
+  constexpr int smem = b3_smem_bytes<HD, HV>();
   cudaError_t err = allow_smem(kernel, smem, device, &done);
   if (err != cudaSuccess) return err;
   kernel<<<ctas, kB3Threads, smem, stream>>>(a1, a2, b1, b2, bt, p);
@@ -2723,21 +2825,24 @@ cudaError_t launch_b3_pass(const CUtensorMap& a1, const CUtensorMap& a2,
 }
 
 // parts 1: the pre-pass (split, transposed, D) and the dQ pass; 2: the dK
-// and the dV passes, which read the scratch a part-1 launch wrote
+// and the dV passes, which read the scratch a part-1 launch wrote, then
+// with GQA the sum of their partials
+template <int HD, int HV>
 int launch_b3(Params p, int B, float* scratch, int ctas_dq, int ctas_kv,
               int parts, int device, void* stream) {
-  constexpr int HD = 192, HV = 128;
   cudaStream_t st = (cudaStream_t)stream;
-  const B3Scratch sc = b3_scratch(scratch, B, p.S, p.Sk, p.H);
+  const B3Scratch sc = b3_scratch<HD, HV>(scratch, B, p.S, p.Sk, p.H, p.KV);
   p.dd = sc.dd;
-  const int n = B * p.H;
+  p.part = sc.part;
+  p.part_half = sc.part_half;
+  const int n = B * p.H, nkv = B * p.KV;
   if (parts & 1) {
     const int64_t* s = p.st;
     // q, k, do: split as they lie and transposed in one pass; v as it lies
     flash_bwd_f32_t_kernel<HD><<<dim3(sc.sp / 64, HD / 64, n), 256, 0, st>>>(
         static_cast<const float*>(p.q), s[3 * kQ], s[3 * kQ + 1],
         s[3 * kQ + 2], p.S, p.H, sc.sp, sc.qt, sc.nqt, sc.q, sc.nq);
-    flash_bwd_f32_t_kernel<HD><<<dim3(sc.skp / 64, HD / 64, n), 256, 0,
+    flash_bwd_f32_t_kernel<HD><<<dim3(sc.skp / 64, HD / 64, nkv), 256, 0,
                                  st>>>(
         static_cast<const float*>(p.k), s[3 * kK], s[3 * kK + 1],
         s[3 * kK + 2], p.Sk, p.KV, sc.skp, sc.kt, sc.nkt, sc.k, sc.nk);
@@ -2755,23 +2860,27 @@ int launch_b3(Params p, int B, float* scratch, int ctas_dq, int ctas_kv,
   CUtensorMap tq = {}, tk = {}, tv = {}, tdo = {}, tqt = {}, tkt = {},
               tdot = {};
   if (!encode_split(&tq, sc.q, HD, p.S, n, sc.nq) ||
-      !encode_split(&tk, sc.k, HD, p.Sk, n, sc.nk) ||
-      !encode_split(&tv, sc.v, HV, p.Sk, n, sc.nv) ||
+      !encode_split(&tk, sc.k, HD, p.Sk, nkv, sc.nk) ||
+      !encode_split(&tv, sc.v, HV, p.Sk, nkv, sc.nv) ||
       !encode_split(&tdo, sc.dout, HV, p.S, n, sc.ndo) ||
       !encode_split(&tqt, sc.qt, sc.sp, HD, n, sc.nqt) ||
-      !encode_split(&tkt, sc.kt, sc.skp, HD, n, sc.nkt) ||
+      !encode_split(&tkt, sc.kt, sc.skp, HD, nkv, sc.nkt) ||
       !encode_split(&tdot, sc.dot, sc.sp, HV, n, sc.ndot))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (parts & 1)
-    err = launch_b3_pass<kPassDQ>(tq, tdo, tk, tv, tkt, p, ctas_dq, device,
-                                  st);
+    err = launch_b3_pass<kPassDQ, HD, HV>(tq, tdo, tk, tv, tkt, p, ctas_dq,
+                                          device, st);
   if (err == cudaSuccess && (parts & 2)) {
-    err = launch_b3_pass<kPassDK>(tk, tv, tq, tdo, tqt, p, ctas_kv, device,
-                                  st);
+    err = launch_b3_pass<kPassDK, HD, HV>(tk, tv, tq, tdo, tqt, p, ctas_kv,
+                                          device, st);
     if (err == cudaSuccess)
-      err = launch_b3_pass<kPassDV>(tk, tv, tq, tdo, tdot, p, ctas_kv,
-                                    device, st);
+      err = launch_b3_pass<kPassDV, HD, HV>(tk, tv, tq, tdo, tdot, p,
+                                            ctas_kv, device, st);
+    if constexpr (HD == HV) {  // GQA at hd 256 only
+      if (err == cudaSuccess && p.H > p.KV)
+        err = launch_sum<float, HD>(p, B, stream);
+    }
   }
   return (int)err;
 }
@@ -2874,7 +2983,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// float32 as 3xTF32 on mma.sync, hd == hv in {64, 128, 256}.  Plan:
+// float32 as 3xTF32 on mma.sync, hd == hv in {64, 128}.  Plan:
 // q_rows = kv_rows = 64 (kF), q_step = kv_step = f32_step (of hd), 2 ring
 // slots in each kernel, grids of one block an item: ctas_dq = B * H * nq
 // and ctas_kv = B * H * nk (nq = ceil(S / 64), nk = ceil(Sk / 64)).
@@ -2890,7 +2999,7 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             int ctas_dq, int ctas_kv, int parts, int device,
                             void* stream) {
   Params p;
-  const bool square = hd == hv && (hd == 64 || hd == 128 || hd == 256);
+  const bool square = hd == hv && (hd == 64 || hd == 128);
   const int step = hd == 64 ? f32_step<64>() : f32_step<128>();
   const int64_t nq = (S + kF - 1) / kF, nk = (Sk + kF - 1) / kF;
   if (!square ||
@@ -2908,27 +3017,23 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
   if (H > KV) p.dd += 2 * p.part_half;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  switch (hd) {
-    case 64:
-      return launch_tf32<64, 64>(p, B, ctas_dq, ctas_kv, parts, device,
-                                 stream);
-    case 128:
-      return launch_tf32<128, 128>(p, B, ctas_dq, ctas_kv, parts, device,
-                                   stream);
-    default:
-      return launch_tf32<256, 256>(p, B, ctas_dq, ctas_kv, parts, device,
-                                   stream);
-  }
+  return hd == 64 ? launch_tf32<64, 64>(p, B, ctas_dq, ctas_kv, parts,
+                                        device, stream)
+                  : launch_tf32<128, 128>(p, B, ctas_dq, ctas_kv, parts,
+                                          device, stream);
 }
 
-// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128) with H == KV.  Plan:
-// q_rows = kv_rows = q_step = kv_step = 64, 4 ring slots in each pass,
-// grids of one block an item: ctas_dq = B * H * nq (the dQ pass) and
-// ctas_kv = B * H * nk (the dK pass, then the dV pass), nq = ceil(S / 64),
-// nk = ceil(Sk / 64).  scratch: float32, 16-byte aligned: q, k, v, do
-// split into TF32 hi and lo, q, k, do transposed and split, D [B H, S]
-// (b3_scratch), 2 (B H S (192 + 128) + B H Sk (192 + 128) + B H 192 (sp +
-// skp) + B H 128 sp) + B H S floats, sp and skp S and Sk rounded up to 64.
+// float32 as 3xTF32 on wgmma, (hd, hv) = (192, 128) with H == KV, or hd =
+// hv = 256 (GQA too).  Plan: q_rows = kv_rows = q_step = kv_step = 64, the
+// ring slots of b3_slots (4 at (192, 128), 3 at 256) in each pass, grids of
+// one block an item: ctas_dq = B * H * nq (the dQ pass) and ctas_kv = B * H
+// * nk (the dK pass, then the dV pass), nq = ceil(S / 64), nk = ceil(Sk /
+// 64).  scratch: float32, 16-byte aligned, laid out by b3_scratch: q, k, v,
+// do split into TF32 hi and lo, q, k, do transposed and split, D [B H, S],
+// with GQA the dK, dV partials -- 2 (B H S (hd + hv) + B KV Sk (hd + hv) +
+// B H hd sp + B KV hd skp + B H hv sp) + B H S floats, the last rounded up
+// to a multiple of 4, + 2 B Sk H hd with GQA; sp and skp S and Sk rounded
+// up to 64.
 int flash_attention_bwd_f32_tc(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const void* lse, void* scratch, void* dq,
@@ -2943,19 +3048,25 @@ int flash_attention_bwd_f32_tc(const void* q, const void* k, const void* v,
   Params p;
   const int64_t nq = (S + kB3Rows - 1) / kB3Rows;
   const int64_t nk = (Sk + kB3Rows - 1) / kB3Rows;
-  if (hd != 192 || hv != 128 || H != KV ||
+  const bool rect = hd == 192 && hv == 128 && H == KV;
+  const bool wide = hd == 256 && hv == 256;
+  const int slots = wide ? b3_slots<256>() : b3_slots<192>();
+  if (!(rect || wide) ||
       !make_params(&p, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Sk,
                    H, KV, strides, scale, causal, prefix, parts, 4) ||
       !aligned16(scratch) || q_rows != kB3Rows || kv_rows != kB3Rows ||
-      q_step != kB3Rows || kv_step != kB3Rows || stages_dq != kB3Slots ||
-      stages_dkdv != kB3Slots || (int64_t)B * H * nq >= (1ll << 31) ||
+      q_step != kB3Rows || kv_step != kB3Rows || stages_dq != slots ||
+      stages_dkdv != slots || (int64_t)B * H * nq >= (1ll << 31) ||
       (int64_t)B * H * nk >= (1ll << 31) || ctas_dq != (int64_t)B * H * nq ||
       ctas_kv != (int64_t)B * H * nk)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_b3(p, B, static_cast<float*>(scratch), ctas_dq, ctas_kv,
-                   parts, device, stream);
+  float* sc = static_cast<float*>(scratch);
+  return wide ? launch_b3<256, 256>(p, B, sc, ctas_dq, ctas_kv, parts,
+                                    device, stream)
+              : launch_b3<192, 128>(p, B, sc, ctas_dq, ctas_kv, parts,
+                                    device, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -30,12 +30,13 @@ under its own key of ``LAUNCHES``:
   ``_tc_bn(hd)`` keys.
 * ``flash_attention_bf16_mma`` -- any other bf16 shape (hd or hv 32,
   ``hv != hd``): ``mma.sync`` tensor cores, 64-row blocks.
-* ``flash_attention_f32`` -- float32: at ``(hd, hv)`` in ``RECT_PAIRS``
-  (deepseek's (192, 128)) every product as 3xTF32 on ``wgmma`` tensor cores
-  fed by TMA (the C entry point ``F32_TC_ENTRY``; a pre-pass splits the
-  operands into TF32 hi and lo in a float32 scratch, v transposed), one
-  consumer warpgroup over 64-row tiles in a persistent grid; every other
-  shape on the CUDA cores in IEEE float32.
+* ``flash_attention_f32`` -- float32: at ``(hd, hv)`` in ``F32_TC_PAIRS``
+  (deepseek's (192, 128) and paligemma's hd = hv = 256) every product as
+  3xTF32 on ``wgmma`` tensor cores fed by TMA (the C entry point
+  ``F32_TC_ENTRY``; a pre-pass splits the operands into TF32 hi and lo in
+  a float32 scratch, v transposed), one consumer warpgroup over 64-row
+  tiles in a persistent grid; every other shape on the CUDA cores in IEEE
+  float32.
 
 Beside them stands ``flash_attention_plain``: the reference kernel's own
 arithmetic (float32 throughout, blockwise online softmax over kv blocks of
@@ -60,7 +61,8 @@ by TMA in persistent grids that walk the plan's schedule -- at head dim
 256 and at (192, 128) the dK / dV kernel splits dK and dV over its two
 consumer warpgroups and, with GQA (at 256), writes per-head partials a last
 kernel sums --, or ``flash_attention_bwd_f32``, every product as 3xTF32 on
-``mma.sync`` tensor cores; one call launches a dQ kernel that
+``mma.sync`` tensor cores at head dims 64 and 128 and on ``wgmma`` at
+``F32_TC_PAIRS``; one call launches a dQ kernel that
 also writes D = rowsum(dO * O) and then a dK / dV kernel, counted once),
 with no float atomics, so two runs are bitwise equal.  Beside it
 stands ``flash_attention_bwd_plain``, the backward written out step by step
@@ -111,19 +113,20 @@ BWD_VARIANTS = (BWD_BF16, BWD_F32)
 # launches per variant since the last ``reset_launch_counts`` (a forward
 # that also writes the log-sum-exp counts under its forward variant)
 LAUNCHES: Dict[str, int] = {k: 0 for k in FWD_VARIANTS + BWD_VARIANTS}
+# the (hd, hv) pairs float32 runs as 3xTF32 on wgmma, forward and backward:
+# deepseek's MLA (H == KV) and paligemma's head dim 256 (GQA too)
+F32_TC_PAIRS = ((192, 128), (256, 256))
 # the C entry point (and, with ``_lse``, its LSE twin) of the float32
-# variant at the pairs of ``RECT_PAIRS``: 3xTF32 on wgmma, counted under F32
+# variant at ``F32_TC_PAIRS``: 3xTF32 on wgmma, counted under F32
 F32_TC_ENTRY = "flash_attention_f32_tc"
-# float32 wgmma kernel: query rows of a tile and keys of a kv tile; its ring
-# of F32_TC_SLOTS slots of F32_TC_SLOT_BYTES (a chunk of a kv tile: 64 keys x
-# 64 K columns, or 32 keys of V^T's rows, TF32 hi and lo)
-F32_TC_ROWS, F32_TC_SLOTS, F32_TC_SLOT_BYTES = 64, 4, 32768
-# the backward's C entry point at the pairs of ``RECT_PAIRS`` in float32:
-# 3xTF32 on wgmma, counted under BWD_F32; its passes' items and streamed
-# tiles are F32_TC_ROWS rows or keys, through rings of F32_TC_BWD_SLOTS
-# slots of F32_TC_SLOT_BYTES (64 rows x 64 columns, hi and lo)
+# float32 wgmma kernels: query rows of a tile and keys of a kv tile (the
+# backward's items and streamed tiles too); their rings' slots of
+# F32_TC_SLOT_BYTES (a chunk: 64 rows x 64 columns, or a chunk of V^T, TF32
+# hi and lo), ``f32_tc_slots`` of them
+F32_TC_ROWS, F32_TC_SLOT_BYTES = 64, 32768
+# the backward's C entry point at ``F32_TC_PAIRS`` in float32: 3xTF32 on
+# wgmma, counted under BWD_F32
 BWD_F32_TC_ENTRY = "flash_attention_bwd_f32_tc"
-F32_TC_BWD_SLOTS = 4
 
 # SMs of an H100 SXM: the plan's default card
 H100_SMS = 132
@@ -233,7 +236,7 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     bf16 takes the ``wgmma`` variant where ``hd == hv`` in ``TC_HEAD_DIMS``
     (head dim 256 among them, kv tiles of 64 keys) or ``(hd, hv)`` is in
     ``RECT_PAIRS`` (kv tiles of 128 keys), else the ``mma.sync`` variant;
-    float32 takes its variant: at a pair of ``RECT_PAIRS`` the 3xTF32
+    float32 takes its variant: at a pair of ``F32_TC_PAIRS`` the 3xTF32
     ``wgmma`` kernel (``F32_TC_ENTRY``: 64 x 64 tiles, one persistent block
     an SM), else the CUDA cores.  A prefix does not change the plan."""
     if dtype == torch.bfloat16 and ((hd == hv and hd in TC_HEAD_DIMS)
@@ -246,7 +249,7 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     else:
         raise TypeError(f"no K3 variant for {dtype}")
     grid = (b * h, _cdiv(s, bq))
-    if variant == F32 and (hd, hv) in RECT_PAIRS:
+    if variant == F32 and (hd, hv) in F32_TC_PAIRS:
         return Plan(F32, F32_TC_ROWS, F32_TC_ROWS,
                     (min(grid[0] * grid[1], sms), 1), F32_TC_ENTRY)
     if variant == TC:
@@ -254,14 +257,22 @@ def plan(b: int, s: int, h: int, kv: int, hd: int, hv: int,
     return Plan(variant, bq, bk, grid)
 
 
+def f32_tc_slots(hd: int) -> int:
+    """Ring slots of the float32 ``wgmma`` kernels, forward and backward
+    (``f32_tc_slots``, ``b3_slots``): 4 beside (192, 128)'s resident tile
+    of 96 KB, 3 beside hd 256's 128 KB."""
+    return 3 if hd == 256 else 4
+
+
 def f32_tc_smem(hd: int) -> int:
     """Dynamic shared memory of the float32 ``wgmma`` kernel's block, as
     ``flash_attention.cu`` lays it out (``f32_tc_smem_bytes``): 1 KiB to
     align the base to the swizzle's period, Q's TF32 hi and lo (64 rows of
-    ``hd`` floats each), the ring, and Q's full / empty mbarriers beside a
-    pair a slot."""
-    return 1024 + 2 * F32_TC_ROWS * hd * 4 + \
-        F32_TC_SLOTS * F32_TC_SLOT_BYTES + (2 + 2 * F32_TC_SLOTS) * 8
+    ``hd`` floats each), the ring of ``f32_tc_slots``, and Q's full / empty
+    mbarriers beside a pair a slot."""
+    slots = f32_tc_slots(hd)
+    return 1024 + 2 * F32_TC_ROWS * hd * 4 + slots * F32_TC_SLOT_BYTES + \
+        (2 + 2 * slots) * 8
 
 
 def f32_tc_scratch_floats(b: int, s: int, sk: int, h: int, kv: int, hd: int,
@@ -599,8 +610,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores, float32 [B, H, S] (what the backward needs).  CUDA tensors
     launch ``plan``'s variant built to write the LSE (``hd == hv`` in
     ``BWD_HEAD_DIMS`` or a pair of ``RECT_PAIRS``: the tensor-core variant
-    in bf16, the CUDA-core one in float32); CPU tensors take the plain
-    version."""
+    in bf16; in float32 the 3xTF32 ``wgmma`` kernel at ``F32_TC_PAIRS``, the
+    CUDA cores at 64 and 128); CPU tensors take the plain version."""
     b, s, sk, h, kv, hd, hv = _validate(q, k, v, causal, prefix_len)
     if scale is None:
         scale = hd ** -0.5
@@ -654,11 +665,12 @@ class BwdPlan:
     (B H)`` (the dQ kernel's reversed under causal, so the heaviest items
     come first) of head ``b H + h = i % (B H)``; with GQA the dK / dV items
     write float32 partials per head, which a last kernel sums by group in
-    head order.  float32 at a pair of ``RECT_PAIRS``: the C entry point
+    head order.  float32 at a pair of ``F32_TC_PAIRS``: the C entry point
     ``entry`` (``BWD_F32_TC_ENTRY``), a pre-pass and three passes of one
     ``wgmma`` kernel (dQ on ``grid_dq``; dK, then dV on ``grid_dkdv``), one
-    block an item, head by head (block ``i`` takes head ``i // n`` and its
-    item ``i % n``, the dQ pass's reversed under causal)."""
+    block an item, head by head (block ``i`` takes query head ``i // n``
+    and its item ``i % n``, the dQ pass's reversed under causal); with GQA
+    the dK and dV items write per-head partials, summed by a last kernel."""
     variant: str
     q_rows: int
     kv_rows: int
@@ -735,9 +747,9 @@ def _bwd_smem(hd: int, stages: int, kv_stages: Optional[int] = None,
 
 
 def _f32_step(hd: int) -> int:
-    """Keys (dQ) or query rows (dK / dV) of a TF32 kernel's streamed tile:
-    32 at hd 64, 16 at hd 128 and 256, so that two blocks of each kernel
-    fit an SM at 64 and 128 and ptxas needs no spill."""
+    """Keys (dQ) or query rows (dK / dV) of a TF32 ``mma.sync`` kernel's
+    streamed tile: 32 at hd 64, 16 at hd 128, so that two blocks of each
+    kernel fit an SM and ptxas needs no spill."""
     return 32 if hd == 64 else 16
 
 
@@ -756,26 +768,39 @@ def _f32_bwd_smem(hd: int) -> Tuple[int, int]:
     return dq, dkdv
 
 
+def f32_tc_bwd_stat_bytes(hd: int) -> int:
+    """Shared bytes of the float32 ``wgmma`` backward's staged lse2 and D
+    (``b3_stat_bytes``): at hd 256 two buffers of 64 of each, float32; none
+    at (192, 128)."""
+    return 2 * 2 * F32_TC_ROWS * 4 if hd == 256 else 0
+
+
 def f32_tc_bwd_smem(hd: int, hv: int) -> int:
     """Dynamic shared memory of a block of the float32 ``wgmma`` backward's
     passes (``b3_smem_bytes``): 1 KiB to align the base to the swizzle's
     period, the item's resident tile in TF32 hi and lo (64 rows of ``hd``
-    floats: Q or K; the ``hv``-wide operands stream), the ring, the
-    resident's mbarrier and a full / empty pair a slot."""
-    return 1024 + 2 * F32_TC_ROWS * hd * 4 + \
-        F32_TC_BWD_SLOTS * F32_TC_SLOT_BYTES + (1 + 2 * F32_TC_BWD_SLOTS) * 8
+    floats: Q or K; the ``hv``-wide operands stream), the ring of
+    ``f32_tc_slots``, the staged lse2 and D, the resident's mbarrier and a
+    full / empty pair a slot."""
+    slots = f32_tc_slots(hd)
+    return 1024 + 2 * F32_TC_ROWS * hd * 4 + slots * F32_TC_SLOT_BYTES + \
+        f32_tc_bwd_stat_bytes(hd) + (1 + 2 * slots) * 8
 
 
-def f32_tc_bwd_scratch_floats(b: int, s: int, sk: int, h: int, hd: int,
-                              hv: int) -> int:
+def f32_tc_bwd_scratch_floats(b: int, s: int, sk: int, h: int, kv: int,
+                              hd: int, hv: int) -> int:
     """float32 scratch of the float32 ``wgmma`` backward, as
-    ``flash_attention_bwd.cu`` lays it out (``b3_scratch``): q, k, v, do
-    split into TF32 hi and lo; q, k, do transposed and split, S and Sk
-    rounded up to the 64-row tile; D [B H, S]."""
+    ``flash_attention_bwd.cu`` lays it out (``b3_scratch``): q and do split
+    into TF32 hi and lo, as they lie and transposed, over the B H query
+    heads; k split as it lies and transposed, v as it lies, over the B KV
+    kv heads (S and Sk rounded up to the 64-row tile where transposed); D
+    [B H, S], and with GQA (h > kv) the per-head dK and dV partials [2, B,
+    Sk, H, hd] from the next multiple of 4 floats."""
     sp, skp = (_cdiv(n, F32_TC_ROWS) * F32_TC_ROWS for n in (s, sk))
-    n = b * h
-    return 2 * n * (s * (hd + hv) + sk * (hd + hv) + hd * (sp + skp)
-                    + hv * sp) + n * s
+    n, nkv = b * h, b * kv
+    d = _cdiv(n * s, 4) * 4 + 2 * b * sk * h * hd if h > kv else n * s
+    return 2 * (n * (s * (hd + hv) + hd * sp + hv * sp)
+                + nkv * (sk * (hd + hv) + hd * skp)) + d
 
 
 def bwd_item_work(b: int, s: int, h: int, kv: int, causal: bool,
@@ -878,13 +903,14 @@ def plan_bwd(b: int, s: int, h: int, kv: int, hd: int, dtype: torch.dtype,
     of at most one block an SM whose schedule ``_lpt`` makes from
     ``bwd_item_work``, in head groups (``_group_items``) where the operands
     the items stream pass ``L2_GROUP_BYTES``;
-    float32 on ``mma.sync`` (3xTF32): items of 64 rows or keys, one block
-    an item, heaviest first, each stepping ``_f32_step`` rows or keys
-    through ``F32_BWD_STAGES`` ring slots; with GQA a last kernel sums the
-    dK / dV pass's per-head partials (float32, and bf16 at hd 256).  float32
-    at a pair of ``RECT_PAIRS``: 3xTF32 on ``wgmma`` (``BWD_F32_TC_ENTRY``),
-    items and tiles of 64, ``F32_TC_BWD_SLOTS`` ring slots, one block an
-    item."""
+    float32 on ``mma.sync`` (3xTF32) at head dims 64 and 128: items of 64
+    rows or keys, one block an item, heaviest first, each stepping
+    ``_f32_step`` rows or keys through ``F32_BWD_STAGES`` ring slots; with
+    GQA a last kernel sums the dK / dV pass's per-head partials (float32,
+    and bf16 at hd 256).  float32 at a pair of ``F32_TC_PAIRS``: 3xTF32 on
+    ``wgmma`` (``BWD_F32_TC_ENTRY``), items and tiles of 64, ``f32_tc_slots``
+    ring slots, one block an item (with GQA, at hd 256, the dK and dV
+    passes' per-head partials summed by the same last kernel)."""
     return _plan_bwd(b, s, s if sk is None else sk, h, kv, hd, dtype,
                      bool(causal), sms, int(prefix), hd if hv is None else hv)
 
@@ -923,8 +949,8 @@ def _plan_bwd(b: int, s: int, sk: int, h: int, kv: int, hd: int,
                        _bwd_smem(hd, st, st_kv, hv),
                        _lpt(work_dq, ctas_dq, group_dq),
                        _lpt(work_dkdv, ctas_dkdv, group_kv))
-    if (hd, hv) in RECT_PAIRS:
-        r, st = F32_TC_ROWS, F32_TC_BWD_SLOTS
+    if (hd, hv) in F32_TC_PAIRS:
+        r, st = F32_TC_ROWS, f32_tc_slots(hd)
         smem = f32_tc_bwd_smem(hd, hv)
         return BwdPlan(variant, r, r, r, r, (st, st),
                        (b * h * _cdiv(s, r), 1), (b * h * _cdiv(sk, r), 1),
@@ -1024,11 +1050,11 @@ def bwd_launch(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if scratch is None:
         # wgmma: lse2, D [B H, S padded], at hd 256 with GQA then the
         # per-head dK, dV partials [2, B, Sk, H, hd]; float32: D [B, H, S],
-        # after those partials with GQA; float32 at (192, 128): the split
-        # and transposed operands, then D
+        # after those partials with GQA; float32 at ``F32_TC_PAIRS``: the
+        # split and transposed operands, D, the partials with GQA
         partials = (h > kv) * 2 * b * sk * h * hd
         if p.entry == BWD_F32_TC_ENTRY:
-            n = f32_tc_bwd_scratch_floats(b, s, sk, h, hd, hv)
+            n = f32_tc_bwd_scratch_floats(b, s, sk, h, kv, hd, hv)
         elif wgmma:
             n = 2 * b * h * _cdiv(s, BWD_ROWS) * BWD_ROWS \
                 + (hd == 256) * partials

@@ -474,13 +474,16 @@ def test_pairs_count_the_visible_pairs(s, p):
     # would not fit the registers beside O's 128), 256 tiles walked by one
     # persistent block an SM
     (BF16, (k3.TC, 128, 64, (132, 1))),
-    # float32 on the CUDA cores: 64 x 64, one block a (b * h, q-block)
-    (F32, (k3.F32, 64, 64, (8, 64)))])
+    # float32 as 3xTF32 on wgmma: 64 x 64 tiles, 512 of them walked by one
+    # persistent block an SM (was the CUDA cores' (8, 64) grid)
+    (F32, (k3.F32, 64, 64, (132, 1)))])
 def test_plan_routes_head_dim_256(dtype, want):
     """paligemma's shape, hd = hv = 256; the prefix does not change the
-    plan."""
+    plan; float32 takes the wgmma kernel's own C entry point, counted under
+    the float32 variant's key."""
     p = k3.plan(1, 4096, 8, 1, 256, 256, dtype)
     assert (p.variant, p.block_q, p.block_k, p.grid) == want
+    assert p.entry == (k3.F32_TC_ENTRY if dtype == F32 else None)
     q = torch.zeros((1, 4096, 8, 256), dtype=dtype)
     k = torch.zeros((1, 4096, 1, 256), dtype=dtype)
     assert k3.plan_for(q, k, k) == p
@@ -625,7 +628,8 @@ def test_mla_instances_are_in_the_sources():
     192."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     for inst in ("launch_tc<192, 128, false>", "launch_tc<192, 128, true>",
-                 "launch_f32_tc<true>", "launch_f32_tc<false>",
+                 "launch_f32_tc<192, 128, true>",
+                 "launch_f32_tc<192, 128, false>",
                  "flash_f32_tc_kernel<HD, HV, kLse>"):
         assert inst in src, inst
     # the CUDA-core float32 kernel no longer takes (192, 128)
@@ -700,7 +704,7 @@ def test_mla_work_counts_each_width_once():
     assert nbytes == 2 * 4096 * 128 * (192 + 128 + 192 + 128)
 
 
-# --- the float32 wgmma kernel's arithmetic at (192, 128), emulated ---------------
+# --- the float32 wgmma kernel's arithmetic, emulated ------------------------------
 
 
 def _tf32(x):
@@ -715,18 +719,19 @@ def _split(x):
     return hi, _tf32(x - hi)
 
 
-def _mm_tf32(a, b, passes=3):
+def _mm_tf32(a, b, passes=3, acc=None):
     """``a @ b`` (batched float32) as the wgmma kernel's tensor cores do it,
-    into one fresh float32 accumulator (``_add_truncated``): the small terms
-    first, lo(a) hi(b)
-    and hi(a) lo(b) of every k8 step, then hi(a) hi(b) of every step
-    (``passes`` 1: hi(a) hi(b) alone, one-pass TF32)."""
+    into a float32 accumulator (``_add_truncated``) -- fresh, or ``acc``
+    where a chunk is chained onto the one before: the small terms first,
+    lo(a) hi(b) and hi(a) lo(b) of every k8 step, then hi(a) hi(b) of every
+    step (``passes`` 1: hi(a) hi(b) alone, one-pass TF32)."""
     (ah, al), (bh, bl) = _split(a), _split(b)
     steps = range(0, a.shape[-1], 8)
     terms = [(x, y, k0) for k0 in steps for x, y in ((al, bh), (ah, bl))
              ] if passes == 3 else []
     terms += [(ah, bh, k0) for k0 in steps]
-    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    if acc is None:
+        acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
     for x, y, k0 in terms:
         acc = _add_truncated(acc, np.matmul(
             x[..., k0:k0 + 8].astype(np.float64),
@@ -745,17 +750,40 @@ def _add_truncated(acc, step):
     return out
 
 
-def _emulated_f32_tc(q, k, v, causal, scale, passes=3):
-    """``flash_f32_tc_kernel`` in numpy, [B, S, H, 192] x [B, S, H, 128]: kv
-    tiles of 64 keys from the last visible one down; S of a tile as three
-    64-column chunks, each a fresh 3xTF32 accumulator, added in float32;
-    for a positive scale masked scores -inf, the row max over the raw
-    scores, p = 2^(s scale log2 e - m); else s scaled by scale log2 e
-    first, masked scores -1e30, p = 2^(s - m); P V of a tile a fresh 3xTF32
-    accumulator, O = O corr + P V; O / max(l, 1e-30)."""
+def _scores_tf32(qt, kk, passes):
+    """S of a 64 x 64 tile as ``flash_f32_tc_kernel`` sums it, over 64-column
+    K chunks: at hd 192 each chunk a fresh accumulator, (c0 + c1) + c2 in
+    float32; at hd 256 chunks 0, 1 chained in one accumulator and 2, 3 in
+    another, added in float32."""
+    kt = kk.swapaxes(-1, -2)
+    hd = qt.shape[-1]
+    if hd == 256:
+        pair = [None, None]
+        for c in range(4):
+            pair[c // 2] = _mm_tf32(qt[..., 64 * c:64 * c + 64],
+                                    kt[..., 64 * c:64 * c + 64, :], passes,
+                                    pair[c // 2])
+        return pair[0] + pair[1]
+    chunks = [_mm_tf32(qt[..., c:c + 64], kt[..., c:c + 64, :], passes)
+              for c in range(0, hd, 64)]
+    return (chunks[0] + chunks[1]) + chunks[2]
+
+
+def _emulated_f32_tc(q, k, v, causal, scale, passes=3, prefix=0):
+    """``flash_f32_tc_kernel`` in numpy, q [B, S, H, hd], k [B, S, KV, hd],
+    v [B, S, KV, hv] at (192, 128) or hd = hv = 256, GQA by the kv head h //
+    (H / KV): kv tiles of 64 keys from the last visible one down (causal:
+    the rows' last key or the prefix's, whichever lies further); S of a
+    tile as ``_scores_tf32``; for a positive scale masked scores -inf, the
+    row max over the raw scores, p = 2^(s scale log2 e - m); else s scaled
+    by scale log2 e first, masked scores -1e30, p = 2^(s - m); P V of a tile
+    a fresh 3xTF32 accumulator (at hv 256 32 columns at a time, which
+    changes no column's sum), O = O corr + P V; O / max(l, 1e-30)."""
     b, s, h, hd = q.shape
+    g = h // k.shape[2]
     heads = lambda t: np.ascontiguousarray(t.transpose(0, 2, 1, 3))
-    qh, kh, vh = heads(q), heads(k), heads(v)
+    qh = heads(q)
+    kh, vh = heads(k)[:, np.arange(h) // g], heads(v)[:, np.arange(h) // g]
     sl2 = np.float32(scale) * np.float32(1.4426950408889634)
     fold = sl2 > 0
     out = np.zeros(vh.shape[:2] + (s, vh.shape[-1]), np.float32)
@@ -763,23 +791,21 @@ def _emulated_f32_tc(q, k, v, causal, scale, passes=3):
     for q0 in range(0, s, 64):
         qt = qh[:, :, q0:q0 + 64]
         r = rows[q0:q0 + 64]
-        n_kv = -(-(min(q0 + 64, s) if causal else s) // 64)
+        end = max(min(q0 + 64, s), min(prefix, s)) if causal else s
+        n_kv = -(-end // 64)
         o = np.zeros(qt.shape[:3] + (vh.shape[-1],), np.float32)
         m = np.full(qt.shape[:3], -1e30, np.float32)
         l = np.zeros(qt.shape[:3], np.float32)
         for kt in range(n_kv - 1, -1, -1):
             kk, vv = kh[:, :, kt * 64:kt * 64 + 64], vh[:, :, kt * 64:
                                                          kt * 64 + 64]
-            chunks = [_mm_tf32(qt[..., c:c + 64],
-                               kk[..., c:c + 64].swapaxes(-1, -2), passes)
-                      for c in range(0, hd, 64)]
-            sc = (chunks[0] + chunks[1]) + chunks[2]
+            sc = _scores_tf32(qt, kk, passes)
             if not fold:
                 sc = sc * sl2
             key = np.arange(kt * 64, kt * 64 + kk.shape[2])
             if causal:
-                sc = np.where(key[None, :] <= r[:, None], sc,
-                              -np.inf if fold else np.float32(-1e30))
+                seen = (key[None, :] <= r[:, None]) | (key[None, :] < prefix)
+                sc = np.where(seen, sc, -np.inf if fold else np.float32(-1e30))
             row_max = sc.max(-1) * sl2 if fold else sc.max(-1)
             m_new = np.maximum(m, row_max)
             corr = np.exp2(m - m_new)
@@ -792,29 +818,36 @@ def _emulated_f32_tc(q, k, v, causal, scale, passes=3):
     return out.transpose(0, 2, 1, 3)
 
 
-def _f32_tc_against_references(b, s, h, causal, scale):
-    """The emulated kernel (``_emulated_f32_tc``) on seeded inputs at (192,
-    128); returns its output, the plain version's, a float64 attention's,
-    the reference's XLA attention's (non-causal: its bidirectional prefix
-    over the whole sequence) and the one-pass-TF32 emulation's."""
-    rng = np.random.default_rng(s + h)
-    q, k = (rng.normal(size=(b, s, h, 192)).astype(np.float32)
-            for _ in range(2))
-    v = rng.normal(size=(b, s, h, 128)).astype(np.float32)
-    got = _emulated_f32_tc(q, k, v, causal, scale)
+def _f32_tc_against_references(b, s, h, causal, scale, kv=None, hd=192,
+                               hv=128, prefix=0, seed=None):
+    """The emulated kernel (``_emulated_f32_tc``) on seeded inputs (kv heads
+    ``kv``, default ``h``); returns its output, the plain version's, a
+    float64 attention's, the reference's XLA attention's (non-causal: its
+    bidirectional prefix over the whole sequence) and the one-pass-TF32
+    emulation's."""
+    kv = h if kv is None else kv
+    rng = np.random.default_rng(s + h if seed is None else seed)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, kv, hv)).astype(np.float32)
+    got = _emulated_f32_tc(q, k, v, causal, scale, prefix=prefix)
     plain = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
-                                causal=causal, scale=scale).numpy()
+                                causal=causal, scale=scale,
+                                prefix_len=prefix).numpy()
+    g = h // kv
     sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
-                   k.astype(np.float64)) * scale
+                   np.repeat(k, g, 2).astype(np.float64)) * scale
     if causal:
-        sc = np.where(np.tril(np.ones((s, s), bool)), sc, -np.inf)
+        i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+        sc = np.where((j <= i) | (j < prefix), sc, -np.inf)
     pr = np.exp(sc - sc.max(-1, keepdims=True))
     want64 = np.einsum("bhqk,bkhd->bqhd", pr / pr.sum(-1, keepdims=True),
-                       v.astype(np.float64))
+                       np.repeat(v, g, 2).astype(np.float64))
     want_jax = np.asarray(rL.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
-        prefix_len=0 if causal else s))
-    one_pass = _emulated_f32_tc(q, k, v, causal, scale, passes=1)
+        prefix_len=prefix if causal else s))
+    one_pass = _emulated_f32_tc(q, k, v, causal, scale, passes=1,
+                                prefix=prefix)
     return got, plain, want64, want_jax, one_pass
 
 
@@ -838,63 +871,141 @@ def test_3xtf32_forward_holds_the_float32_gate(b, s, h, causal):
     assert np.abs(one_pass - want64).max() > 1e-5 * np.abs(want64).max()
 
 
-@pytest.mark.parametrize("scale", [0.3, -0.2])
-@pytest.mark.parametrize("causal", [True, False])
-def test_3xtf32_forward_holds_the_float32_gate_at_other_scales(scale,
-                                                               causal):
-    """As ``test_3xtf32_forward_holds_the_float32_gate`` at ``chip_smoke.py``'s
-    other softmax scales (a positive scale folded into the exp2, a negative
-    one multiplied first) on its (192, 128) scale shape, B=1 S=300 H=4; and
-    the emulated kernel lies closer to float64 than the plain version does:
-    at these scales the scores reach ~15, and the plain version's float32
-    sums over 192 columns move its output by ~1e-5 on their own."""
+# (B, S, H, KV, prefix) at hd = hv = 256, scale 1/16, causal: paligemma's
+# MQA with its patches' prefix (a ragged S, the prefix past the first
+# tile), GQA KV = 2 with a ragged prefix, plain causal MQA
+D256_EMULATED = [(1, 300, 4, 1, 256), (1, 200, 4, 2, 77), (2, 130, 2, 1, 0)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,prefix", D256_EMULATED)
+def test_3xtf32_forward_at_head_dim_256_holds_the_float32_gate(b, s, h, kv,
+                                                              prefix):
+    """The hd-256 kernel's arithmetic (``flash_f32_tc_kernel<256, 256>``: S
+    of two chained pairs of 64-column chunks, P V in fresh 3xTF32
+    accumulators added in float32, the prefix's horizon and mask, GQA)
+    stays within 1e-5 of scale of the plain version, of float64 and of the
+    reference's XLA attention with the same prefix; one-pass TF32 misses
+    that gate."""
     got, plain, want64, want_jax, one_pass = _f32_tc_against_references(
-        1, 300, 4, causal, scale)
+        b, s, h, True, 256 ** -0.5, kv=kv, hd=256, hv=256, prefix=prefix)
     assert got.shape == plain.shape == want64.shape == want_jax.shape
     for ref_ in (plain, want64, want_jax):
         assert np.abs(got - ref_).max() <= 1e-5 * np.abs(ref_).max()
-    assert np.abs(got - want64).max() < np.abs(plain - want64).max()
+    assert np.abs(one_pass - want64).max() > 1e-5 * np.abs(want64).max()
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv,hd,hv", [(4, 192, 128), (2, 256, 256)])
+def test_3xtf32_forward_holds_the_float32_gate_at_other_scales(scale, causal,
+                                                               kv, hd, hv):
+    """As ``test_3xtf32_forward_holds_the_float32_gate`` at ``chip_smoke.py``'s
+    other softmax scales (a positive scale folded into the exp2, a negative
+    one multiplied first) on its scale shapes, B=1 S=300 H=4 at (192, 128)
+    and at hd 256 (KV = 2).  The plain version's own distance from float64
+    is printed: at these scales the scores reach ~15 (~20 at 256), and its
+    float32 sums over 192 columns move its output by ~1e-5 of scale on
+    their own, so at (192, 128) the emulated kernel, with a fresh
+    accumulator a 64-column chunk of S, lies closer to float64 than the
+    plain version does.  At 256, whose S chains two chunks in each of two
+    accumulators, the two lie about as far (~3e-6 of scale at 0.3), both
+    within 1e-5 of scale of float64."""
+    got, plain, want64, want_jax, one_pass = _f32_tc_against_references(
+        1, 300, 4, causal, scale, kv=kv, hd=hd, hv=hv,
+        seed=None if hd == 192 else 300 + 4 + hd)
+    assert got.shape == plain.shape == want64.shape == want_jax.shape
+    scale64 = np.abs(want64).max()
+    print(f"hd {hd} scale {scale} causal {causal}: emulated - float64 "
+          f"{np.abs(got - want64).max() / scale64:.3e}, plain - float64 "
+          f"{np.abs(plain - want64).max() / scale64:.3e} of scale")
+    for ref_ in (plain, want64, want_jax):
+        assert np.abs(got - ref_).max() <= 1e-5 * np.abs(ref_).max()
+    assert np.abs(plain - want64).max() <= 1e-5 * scale64
+    if hd == 192:
+        assert np.abs(got - want64).max() < np.abs(plain - want64).max()
     assert np.abs(one_pass - want64).max() > 1e-5 * np.abs(want64).max()
 
 
 def test_f32_tc_plan_matches_the_source_constants():
-    """The float32 wgmma kernel at (192, 128): the plan's tile is the
-    source's (kF3Rows, kF3Keys), its shared memory -- evaluated from
-    ``f32_tc_smem_bytes``: Q's hi and lo 96 KB, four 32 KB ring slots, 10
-    mbarriers, the 1 KiB alignment -- is ``k3.f32_tc_smem`` and fits a
-    block's 227 KB, and the scratch the wrapper allocates is the pre-pass's
-    layout (k split; v transposed and split, keys rounded up to a tile; q
-    the kernel splits in shared memory)."""
+    """The float32 wgmma kernel at (192, 128) and at hd 256: the plan's tile
+    is the source's (kF3Rows, kF3Keys), its ring slots ``f32_tc_slots`` (4
+    beside (192, 128)'s Q, 3 beside hd 256's), its shared memory --
+    evaluated from ``f32_tc_smem_bytes``: Q's hi and lo (96 or 128 KB), the
+    32 KB ring slots, the mbarriers, the 1 KiB alignment -- is
+    ``k3.f32_tc_smem`` and fits a block's 227 KB, and the scratch the
+    wrapper allocates is the pre-pass's layout over the B KV kv heads (k
+    split; v transposed and split, keys rounded up to a tile; q the kernel
+    splits in shared memory)."""
     src = (build.CSRC_DIR / k3.SOURCE).read_text()
     const = {name: int(val) for name, val in re.findall(
         r"constexpr int (kF3\w+) = (\d+);", src)}
     assert const == {"kF3Rows": k3.F32_TC_ROWS, "kF3Keys": k3.F32_TC_ROWS,
-                     "kF3Threads": 160, "kF3Slots": k3.F32_TC_SLOTS,
-                     "kF3Slot": k3.F32_TC_SLOT_BYTES, "kF3Box": 8192}
+                     "kF3Threads": 160, "kF3Slot": k3.F32_TC_SLOT_BYTES,
+                     "kF3Box": 8192}
     # a slot holds a chunk's hi and lo boxes
     assert const["kF3Slot"] == 4 * const["kF3Box"] == \
         2 * 32 * const["kF3Keys"] * 4 * 2
+    m = re.search(r"f32_tc_slots\(\) {\s*return HD == 256 \? (\d+) : (\d+);",
+                  src)
+    assert m and (int(m[1]), int(m[2])) == (k3.f32_tc_slots(256),
+                                            k3.f32_tc_slots(192)) == (3, 4)
+    m = re.search(r"f32_tc_vt_rows\(\) {\s*return HV == 256 \? 64 : HV;",
+                  src)
+    assert m
     body = re.search(r"constexpr int f32_tc_smem_bytes\(\) {\s*return "
                      r"(.*?);", src, re.S)[1]
-    expr = re.sub(r"\bHD\b", "192", body)
-    for name, val in const.items():
-        expr = re.sub(rf"\b{name}\b", str(val), expr)
-    expr = " ".join(expr.split())
-    assert re.fullmatch(r"[\d\s+*()]+", expr), expr
-    assert eval(expr) == k3.f32_tc_smem(192) == \
-        1024 + 96 * 1024 + 4 * 32 * 1024 + 10 * 8
-    assert k3.f32_tc_smem(192) <= 232_448
-    assert "static_assert(f32_tc_smem_bytes<192, 128>() <= 232448," in src
-    p = k3.plan(1, 4096, 128, 128, 192, 128, F32)
-    assert (p.block_q, p.block_k) == (const["kF3Rows"], const["kF3Keys"])
-    for b, s, sk, h, kv in ((1, 4096, 4096, 128, 128), (2, 1000, 1000, 4, 4),
-                            (1, 77, 1000, 2, 2)):
+    for hd, want in ((192, 1024 + 96 * 1024 + 4 * 32 * 1024 + 10 * 8),
+                     (256, 1024 + 128 * 1024 + 3 * 32 * 1024 + 8 * 8)):
+        expr = body.replace("f32_tc_slots<HD>()", str(k3.f32_tc_slots(hd)))
+        expr = re.sub(r"\bHD\b", str(hd), expr)
+        for name, val in const.items():
+            expr = re.sub(rf"\b{name}\b", str(val), expr)
+        expr = " ".join(expr.split())
+        assert re.fullmatch(r"[\d\s+*()]+", expr), expr
+        assert eval(expr) == k3.f32_tc_smem(hd) == want
+        assert k3.f32_tc_smem(hd) <= 232_448
+    assert "static_assert(f32_tc_smem_bytes<192, 128>() <= 232448 &&" in src
+    assert "f32_tc_smem_bytes<256, 256>() <= 232448," in src
+    for hd, hv, h, kv in ((192, 128, 128, 128), (256, 256, 8, 1)):
+        p = k3.plan(1, 4096, h, kv, hd, hv, F32)
+        assert (p.block_q, p.block_k) == (const["kF3Rows"], const["kF3Keys"])
+        assert p.entry == k3.F32_TC_ENTRY
+    for b, s, sk, h, kv, hd, hv in (
+            (1, 4096, 4096, 128, 128, 192, 128), (2, 1000, 1000, 4, 4, 192, 128),
+            (1, 77, 1000, 2, 2, 192, 128), (1, 4096, 4096, 8, 1, 256, 256),
+            (2, 1000, 1000, 4, 2, 256, 256)):
         skp = -(-sk // 64) * 64
-        assert k3.f32_tc_scratch_floats(b, s, sk, h, kv, 192, 128) == 2 * (
-            b * kv * sk * 192 + b * kv * 128 * skp)
+        assert k3.f32_tc_scratch_floats(b, s, sk, h, kv, hd, hv) == 2 * (
+            b * kv * sk * hd + b * kv * hv * skp)
     assert "const int64_t skp = (int64_t)(p.Sk + kF3Keys - 1) / kF3Keys * " \
         "kF3Keys;" in src
     assert "float* ks = scratch;" in src and "float* vt = ks + 2 * kn;" in src
+
+
+def test_f32_tc_head_dim_256_instances_replace_the_cuda_core_ones():
+    """At hd = hv = 256 float32 launches the 3xTF32 wgmma kernel, with and
+    without the LSE (``launch_f32_tc<256, 256, ...>``); the CUDA-core
+    kernel's hd-256 instances and their one-buffer path are gone, so the
+    CUDA-core entry points refuse 256 (their head dims 32, 64, 128); the
+    float32 plan routes 256 with every kv head count and prefix the model
+    uses."""
+    src = (build.CSRC_DIR / k3.SOURCE).read_text()
+    for inst in ("launch_f32_tc<256, 256, false>",
+                 "launch_f32_tc<256, 256, true>",
+                 "const bool pair = (hd == 192 && hv == 128) || (hd == 256 "
+                 "&& hv == 256);"):
+        assert inst in src, inst
+    for gone in ("launch_f32<256", "f32_stages", "ST == 1"):
+        assert gone not in src, gone
+    assert "const bool square = hd == hv && (hd == 64 || hd == 128);" in src
+    assert k3.F32_TC_PAIRS == ((192, 128), (256, 256))
+    for b, s, h, kv in ((1, 4096, 8, 1), (8, 1024, 8, 1), (2, 1000, 4, 2),
+                        (1, 300, 4, 4)):
+        p = k3.plan(b, s, h, kv, 256, 256, F32)
+        assert p.entry == k3.F32_TC_ENTRY and p.variant == k3.F32
+        assert p.grid == (min(b * h * -(-s // 64), k3.H100_SMS), 1)
+    # the other float32 head dims keep the CUDA cores
+    assert k3.plan(1, 4096, 32, 32, 64, 64, F32).entry is None
 
 
 def test_f32_tc_kernel_runs_3xtf32_on_wgmma():
@@ -909,10 +1020,14 @@ def test_f32_tc_kernel_runs_3xtf32_on_wgmma():
     hdr = (build.CSRC_DIR / "hopper.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in hdr
     assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in hdr
+    assert "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32" in hdr
     body = src[src.index("flash_f32_tc_kernel(const __grid_constant__"):]
     body = body[:body.index("\n}\n")]
     assert body.count("wgmma_tf32_ss_m64n64k8(") == 3
+    # P V: (192, 128) m64n128k8; hd 256 m64n32k8, a fresh accumulator of 32
+    # of O's columns beside O's 128 registers
     assert body.count("wgmma_tf32_rs_m64n128k8(") == 3
+    assert body.count("wgmma_tf32_rs_m64n32k8(") == 3
     assert "tma_load_4d(" in body and "mma.sync" not in body
     assert "split_tf32<true>(" in src and "cvt.rna.tf32.f32" in hdr
     # Q lands as float32 and is split in place, made visible to the tensor

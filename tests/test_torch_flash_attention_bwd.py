@@ -393,12 +393,66 @@ def _mm_3xtf32(a, b):
     return acc
 
 
-def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale):
+def _add_truncated(acc, step):
+    """acc + step rounded toward zero to float32: the tensor cores add each
+    k8 step's sum into a float32 accumulator without rounding to nearest."""
+    exact = acc.astype(np.float64) + step
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _mm_wgmma(a, b, chunk):
+    """``a @ b`` as the 3xTF32 wgmma passes sum it into one accumulator: the
+    reduction index in chunks of ``chunk`` (a ring slot's 64 or 32
+    columns), each chunk's small terms first -- lo(a) hi(b) and hi(a)
+    lo(b) of every k8 step -- then hi(a) hi(b) of every step, each step's
+    sum added rounded toward zero (``_add_truncated``)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    n = a.shape[-1]
+
+    def add(x, y, k0):
+        return _add_truncated(acc, np.matmul(
+            x[..., k0:k0 + 8].astype(np.float64),
+            y[..., k0:k0 + 8, :].astype(np.float64)))
+
+    for c0 in range(0, n, chunk):
+        steps = range(c0, min(c0 + chunk, n), 8)
+        for k0 in steps:
+            for x, y in ((al, bh), (ah, bl)):
+                acc = add(x, y, k0)
+        for k0 in steps:
+            acc = add(ah, bh, k0)
+    return acc
+
+
+def _mm_tiles(a, b):
+    """``a @ b`` over a reduction index of rows or keys, as the wgmma passes
+    add an output: a fresh accumulator a 64-wide tile (``_mm_wgmma``), the
+    tiles' sums added in float32 in tile order."""
+    out = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for t0 in range(0, a.shape[-1], 64):
+        out = out + _mm_wgmma(a[..., t0:t0 + 64], b[..., t0:t0 + 64, :], 64)
+    return out
+
+
+def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale, prefix=0,
+                      wgmma=False):
     """The float32 kernels' backward in numpy: D = rowsum(dO o) in float32;
     S, dP, dQ, dK and dV as 3xTF32 products; P = exp(S scale - lse) and dS
-    = P (dP - D) in float32; the scale applied to dQ and dK at the end; dK
-    and dV summed over a group's heads in one accumulation, as the dK / dV
-    kernel walks them.  v, do and o may be narrower than q, k (hv < hd)."""
+    = P (dP - D) in float32, 0 where the causal mask with a bidirectional
+    prefix of ``prefix`` keys hides the pair; the scale applied to dQ and
+    dK at the end; dK and dV summed over a group's heads in one
+    accumulation, as the dK / dV kernel walks them.  v, do and o may be
+    narrower than q, k (hv < hd).  ``wgmma``: the order of the wgmma
+    passes at hd 256 -- S over 64-column chunks and dP over 32-column ones
+    chained in one accumulator each (``_mm_wgmma``), P = 2^(S scale log2 e
+    - lse log2 e), every output a fresh accumulator a 64-row tile added in
+    float32 (``_mm_tiles``), dK and dV per head summed over the group in
+    head order."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -406,10 +460,31 @@ def _emulated_f32_bwd(do, q, k, v, o, lse, causal, scale):
     qh, doh = heads(q), heads(do)                      # [b, h, s, d]
     kh, vh = heads(k)[:, np.arange(h) // g], heads(v)[:, np.arange(h) // g]
     dd = heads((do * o).sum(-1, dtype=np.float32)[..., None])[..., 0]
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    seen = (j <= i) | (j < prefix)
+    if wgmma:
+        log2e = np.float32(1.4426950408889634)
+        sc = _mm_wgmma(qh, kh.swapaxes(-1, -2), 64)
+        p = np.exp2(sc * (np.float32(scale) * log2e)
+                    - lse[..., None] * log2e).astype(np.float32)
+        if causal:
+            p = np.where(seen, p, np.float32(0))
+        dp = _mm_wgmma(doh, vh.swapaxes(-1, -2), 32)
+        ds = p * (dp - dd[..., None])
+        dq = _mm_tiles(ds, kh) * np.float32(scale)
+        dk_h = _mm_tiles(ds.swapaxes(-1, -2), qh) * np.float32(scale)
+        dv_h = _mm_tiles(p.swapaxes(-1, -2), doh)
+        dk, dv = (np.zeros((b, kv, s, x.shape[-1]), np.float32)
+                  for x in (dk_h, dv_h))
+        for gi in range(g):               # the sum kernel, in head order
+            dk = dk + dk_h.reshape(b, kv, g, s, -1)[:, :, gi]
+            dv = dv + dv_h.reshape(b, kv, g, s, -1)[:, :, gi]
+        return (dq.transpose(0, 2, 1, 3), dk.transpose(0, 2, 1, 3),
+                dv.transpose(0, 2, 1, 3))
     sc = _mm_3xtf32(qh, kh.swapaxes(-1, -2))
     p = np.exp(sc * np.float32(scale) - lse[..., None]).astype(np.float32)
     if causal:
-        p = np.where(np.tril(np.ones((s, s), bool)), p, np.float32(0))
+        p = np.where(seen, p, np.float32(0))
     dp = _mm_3xtf32(doh, vh.swapaxes(-1, -2))
     ds = p * (dp - dd[..., None])
     dq = _mm_3xtf32(ds, kh) * np.float32(scale)
@@ -486,6 +561,54 @@ def test_3xtf32_backward_holds_the_float32_gates(b, s, h, kv, d, causal):
     one_pass = _tf32(_tf32(q[0, :, 0]) @ _tf32(k[0, :, 0]).T)
     exact = q[0, :, 0].astype(np.float64) @ k[0, :, 0].T.astype(np.float64)
     assert np.abs(one_pass - exact).max() > 1e-4 * np.abs(exact).max()
+
+
+# (B, S, H, KV, prefix) at hd 256: paligemma's MQA (G = 8) with its
+# patches' prefix at a ragged S; GQA G = 2 with a ragged prefix
+D256_BWD_EMULATED = [(1, 300, 8, 1, 256), (1, 200, 4, 2, 77)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,prefix", D256_BWD_EMULATED)
+def test_3xtf32_backward_at_head_dim_256_holds_the_float32_gates(b, s, h, kv,
+                                                                prefix):
+    """The hd-256 wgmma passes' arithmetic (``_emulated_f32_bwd(...,
+    wgmma=True)``: their chunk order, truncating accumulation, a fresh
+    accumulator a tile for every output, the group's per-head dK / dV
+    partials summed in head order) with the prefix's mask keeps dq, dk and
+    dv within 1e-4 of scale (``chip_smoke.py``'s float32 gate) of the
+    float64 autograd, of ``jax.vjp`` of the reference's attention with the
+    same prefix and of ``flash_attention_bwd_plain``."""
+    d = 256
+    q, k, v, do = _draw(s * d + h + prefix, b, s, h, kv, d)
+    scale = d ** -0.5
+    o, lse = k3.flash_attention_fwd(_t(q), _t(k), _t(v), prefix_len=prefix,
+                                    scale=scale)
+    got = _emulated_f32_bwd(do, q, k, v, o.numpy(), lse.numpy(), True,
+                            scale, prefix, wgmma=True)
+    q64, k64, v64 = (_t(x).double().requires_grad_(True) for x in (q, k, v))
+    g = h // kv
+    sc = torch.einsum("bqhd,bkhd->bhqk", q64, k64.repeat_interleave(g, 2)) \
+        * scale
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    sc = sc.masked_fill(~((j <= i) | (j < prefix)), float("-inf"))
+    o64 = torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1),
+                       v64.repeat_interleave(g, 2))
+    want64 = torch.autograd.grad(o64, (q64, k64, v64), _t(do).double())
+
+    def attn(q, k, v):      # one chunk: the prefix within its first
+        return rL.flash_attention(q, k, v, scale=scale, prefix_len=prefix)
+
+    _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_jax = vjp(jnp.asarray(do))
+    plain = k3.flash_attention_bwd_plain(_t(do), _t(q), _t(k), _t(v), o, lse,
+                                         prefix_len=prefix, scale=scale)
+    for idx, name in enumerate(("dq", "dk", "dv")):
+        gx = torch.from_numpy(np.ascontiguousarray(got[idx]))
+        assert gx.shape == plain[idx].shape and gx.dtype == torch.float32
+        for ref in (want64[idx].numpy(), want_jax[idx], plain[idx].numpy()):
+            assert _rel(gx, ref) <= 1e-4, name
+        print(f"hd 256 {name}: emulated - float64 "
+              f"{_rel(gx, want64[idx].numpy()):.3e} of scale")
 
 
 # --- keys apart from the queries (cross attention) ----------------------------
@@ -706,10 +829,11 @@ def test_bwd_item_work_with_a_prefix_counts_the_tiles_of_the_mask(s, p):
     # 256 dQ and 512 dK / dV items over the 132 SMs
     (BF16, (k3.BWD_BF16, 128, 64, 64, 32, (3, 2), (132, 1), (132, 1),
             (230512, 231504))),
-    # float32: 3xTF32; items of 64 rows or keys, 16-row steps, one block an
-    # item (512 of each)
-    (F32, (k3.BWD_F32, 64, 64, 16, 16, (2, 2), (512, 1), (512, 1),
-           (199680, 206080))),
+    # float32: 3xTF32 on wgmma; items of 64 rows or keys, 64-row tiles
+    # through 3 ring slots, one block an item (512 of each; was mma.sync
+    # with 16-row steps, 2 slots, 199680 and 206080 bytes)
+    (F32, (k3.BWD_F32, 64, 64, 64, 64, (3, 3), (512, 1), (512, 1),
+           (231480, 231480))),
 ])
 def test_plan_bwd_of_head_dim_256(dtype, want):
     p = k3.plan_bwd(1, 4096, 8, 1, 256, dtype, True, k3.H100_SMS, None, 256)
@@ -726,20 +850,26 @@ def test_plan_bwd_of_head_dim_256(dtype, want):
                                    schedule_dkdv=()) == \
             dataclasses.replace(p, schedule_dq=(), schedule_dkdv=())
     else:
-        # the prefix does not change the float32 grids
+        # the prefix does not change the float32 grids; the wgmma passes'
+        # own entry point
         assert not p.schedule_dq and not p.schedule_dkdv
         assert plain_causal == p
+        assert p.entry == k3.BWD_F32_TC_ENTRY
 
 
 def test_tf32_smem_matches_the_source_layout():
     """``_f32_bwd_smem`` mirrors ``f32_dq_smem_bytes`` / ``f32_dkdv_smem_
-    bytes``: float32 rows of hd elements and 16 bytes, lse, D and P^T; the
-    source gives the dK / dV kernel one block an SM at hd 256; and the
-    route takes hd == hv alone: (192, 128) goes to the wgmma kernels."""
+    bytes``: float32 rows of hd elements and 16 bytes, lse, D and P^T; two
+    blocks of the dK / dV kernel an SM at hd 64 and 128, the mma.sync
+    route's head dims; hd 256 and (192, 128) go to the wgmma kernels (the
+    mma.sync kernels' hd-256 instances and their one-block-an-SM bound are
+    gone)."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
-    assert re.search(r"f32_kv_blocks\(\) {\s*return D == 256 \? 1 : 2;", src)
+    assert "f32_kv_blocks" not in src and "launch_tf32<256" not in src
+    assert "__global__ void __launch_bounds__(kKVThreads, 2)" in src
     assert re.search(r"row_ld\(\) {\s*return D \+ 4;", src)
-    for hd in (64, 128, 256):
+    assert "const bool square = hd == hv && (hd == 64 || hd == 128);" in src
+    for hd in (64, 128):
         dq, dkdv = k3._f32_bwd_smem(hd)
         pair = 2 * (hd + 4) * 4
         st = k3._f32_step(hd)
@@ -747,11 +877,14 @@ def test_tf32_smem_matches_the_source_layout():
         assert dkdv == 64 * pair + 64 * (st + 8) * 4 + 2 * (st * pair
                                                             + 2 * st * 4)
         assert max(dq, dkdv) <= SMEM_LIMIT
-    assert k3._f32_bwd_smem(256) == (199680, 206080)
+    assert k3._f32_bwd_smem(128) == (101376, 107776)
     assert re.search(r"int launch_tf32\([^{]*{\s*static_assert\(HD == HV,",
                      src)
     assert k3.plan_bwd(1, 300, 4, 4, 192, torch.float32, hv=128).entry == \
         k3.BWD_F32_TC_ENTRY
+    assert k3.plan_bwd(1, 300, 4, 1, 256, torch.float32).entry == \
+        k3.BWD_F32_TC_ENTRY
+    assert k3.plan_bwd(1, 300, 4, 1, 128, torch.float32).entry is None
 
 
 @pytest.mark.parametrize("b,s,h,kv,causal,p", [
@@ -1155,8 +1288,10 @@ def test_mla_bwd_instances_are_in_the_source():
     hv``."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
     assert "launch_tf32<192, 128>" not in src
-    for inst in ("launch_bf16<192, 128>", "launch_b3_pass<kPassDQ>",
-                 "launch_b3_pass<kPassDK>", "launch_b3_pass<kPassDV>",
+    for inst in ("launch_bf16<192, 128>", "launch_b3<192, 128>",
+                 "launch_b3_pass<kPassDQ, HD, HV>",
+                 "launch_b3_pass<kPassDK, HD, HV>",
+                 "launch_b3_pass<kPassDV, HD, HV>",
                  "flash_bwd_dq_bf16_tc_kernel<HD, HV>",
                  "flash_bwd_dkdv_bf16_split_kernel<HD, HV>",
                  "dq_smem_bytes<192, 128>() <= 232448",
@@ -1175,39 +1310,99 @@ def test_mla_bwd_instances_are_in_the_source():
 
 
 def test_f32_wgmma_smem_and_scratch_match_the_source_layout():
-    """The float32 wgmma backward at (192, 128): ``f32_tc_bwd_smem``
-    mirrors ``b3_smem_bytes`` -- the resident tile's TF32 hi and lo (64
-    rows of 192 floats), four 32 KB ring slots, nine mbarriers, the 1 KiB
-    alignment -- and fits a block's 227 KB; the scratch the
-    wrapper allocates is ``b3_scratch``'s layout (q, k, v, do split; q, k,
-    do transposed and split, rows rounded up to 64; D)."""
+    """The float32 wgmma backward at (192, 128) and at hd 256:
+    ``f32_tc_bwd_smem`` mirrors ``b3_smem_bytes`` -- the resident tile's
+    TF32 hi and lo (64 rows of 192 or 256 floats), 32 KB ring slots
+    (``b3_slots``: 4, or 3 at 256), the staged lse2 and D (``b3_stat_bytes``:
+    1 KB at 256), the mbarriers, the 1 KiB alignment -- and fits a block's
+    227 KB; the scratch the wrapper allocates is ``b3_scratch``'s layout (q,
+    k, v, do split; q, k, do transposed and split, rows rounded up to 64;
+    D; with GQA the dK / dV partials), over B H query heads and B KV kv
+    heads."""
     src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
     const = {name: int(val) for name, val in re.findall(
         r"constexpr int (kB3\w+) = (\d+);", src)}
     assert const == {"kB3Rows": k3.F32_TC_ROWS, "kB3Threads": 160,
-                     "kB3Slots": k3.F32_TC_BWD_SLOTS, "kB3Box": 8192}
+                     "kB3Box": 8192}
     assert "constexpr int kB3Slot = 4 * kB3Box;" in src
     const["kB3Slot"] = 4 * const["kB3Box"]
     assert const["kB3Slot"] == k3.F32_TC_SLOT_BYTES
+    m = re.search(r"b3_slots\(\) {\s*return HD == 256 \? (\d+) : (\d+);",
+                  src)
+    assert m and (int(m[1]), int(m[2])) == (k3.f32_tc_slots(256),
+                                            k3.f32_tc_slots(192)) == (3, 4)
+    m = re.search(r"b3_stat_bytes\(\) {\s*return HD == 256 \? (.*?) : 0;",
+                  src)
+    assert m and eval(m[1].replace("kB3Rows", "64")) == \
+        k3.f32_tc_bwd_stat_bytes(256) == 1024
+    assert k3.f32_tc_bwd_stat_bytes(192) == 0
     body = re.search(r"constexpr int b3_smem_bytes\(\) {\s*return "
                      r"(.*?);", src, re.S)[1]
-    expr = re.sub(r"\bHD\b", "192", body)
-    expr = re.sub(r"\bHV\b", "128", expr)
-    for name, val in sorted(const.items(), key=lambda kv: -len(kv[0])):
-        expr = re.sub(rf"\b{name}\b", str(val), expr)
-    expr = " ".join(expr.split())
-    assert re.fullmatch(r"[\d\s+*()]+", expr), expr
-    assert eval(expr) == k3.f32_tc_bwd_smem(192, 128) == \
-        1024 + 2 * 64 * 192 * 4 + 4 * 32768 + 9 * 8 <= SMEM_LIMIT
-    assert "static_assert(b3_smem_bytes<192, 128>() <= 232448," in src
-    for b, s, sk, h in ((1, 4096, 4096, 128), (2, 1000, 1000, 4),
-                        (1, 77, 1000, 2)):
+    for hd, hv, want in (
+            (192, 128, 1024 + 2 * 64 * 192 * 4 + 4 * 32768 + 9 * 8),
+            (256, 256, 1024 + 2 * 64 * 256 * 4 + 3 * 32768 + 1024 + 7 * 8)):
+        expr = body.replace("b3_slots<HD>()", str(k3.f32_tc_slots(hd)))
+        expr = expr.replace("b3_stat_bytes<HD>()",
+                            str(k3.f32_tc_bwd_stat_bytes(hd)))
+        expr = re.sub(r"\bHD\b", str(hd), expr)
+        expr = re.sub(r"\bHV\b", str(hv), expr)
+        for name, val in sorted(const.items(), key=lambda kv: -len(kv[0])):
+            expr = re.sub(rf"\b{name}\b", str(val), expr)
+        expr = " ".join(expr.split())
+        assert re.fullmatch(r"[\d\s+*()]+", expr), expr
+        assert eval(expr) == k3.f32_tc_bwd_smem(hd, hv) == want <= SMEM_LIMIT
+    assert "static_assert(b3_smem_bytes<192, 128>() <= 232448 &&" in src
+    assert "b3_smem_bytes<256, 256>() <= 232448," in src
+    for b, s, sk, h, kv, hd, hv in ((1, 4096, 4096, 128, 128, 192, 128),
+                                    (2, 1000, 1000, 4, 4, 192, 128),
+                                    (1, 77, 1000, 2, 2, 192, 128),
+                                    (1, 4096, 4096, 8, 1, 256, 256),
+                                    (2, 1001, 1001, 4, 2, 256, 256)):
         sp, skp = -(-s // 64) * 64, -(-sk // 64) * 64
-        n = b * h
-        assert k3.f32_tc_bwd_scratch_floats(b, s, sk, h, 192, 128) == 2 * (
-            n * s * 192 + n * sk * 192 + n * sk * 128 + n * s * 128
-            + n * 192 * sp + n * 192 * skp + n * 128 * sp) + n * s
+        n, nkv = b * h, b * kv
+        want = 2 * (n * s * hd + nkv * sk * hd + nkv * sk * hv + n * s * hv
+                    + n * hd * sp + nkv * hd * skp + n * hv * sp)
+        want += -(-(n * s) // 4) * 4 if h > kv else n * s
+        want += (h > kv) * 2 * b * sk * h * hd
+        assert k3.f32_tc_bwd_scratch_floats(b, s, sk, h, kv, hd, hv) == want
     for line in ("s.dout = s.v + 2 * s.nv;", "s.qt = s.dout + 2 * s.ndo;",
                  "s.kt = s.qt + 2 * s.nqt;", "s.dot = s.kt + 2 * s.nkt;",
-                 "s.dd = s.dot + 2 * s.ndot;"):
+                 "s.dd = s.dot + 2 * s.ndot;",
+                 "s.part = s.dd + (n * S + 3) / 4 * 4;",
+                 "s.nk = nkv * Sk * HD;", "s.nkt = nkv * HD * s.skp;"):
         assert line in src, line
+
+
+def test_f32_wgmma_backward_at_head_dim_256_runs_3xtf32_with_gqa():
+    """The hd-256 float32 backward's passes are the wgmma kernel's
+    ``<kPass*, 256, 256>`` instances: both shared-memory operands K-major,
+    every product three TF32 wgmma (S, dP from shared memory, the outputs
+    with dS or P from registers), dP from 32-column chunks that hold A and
+    B in one ring slot (3 slots), lse2 and D staged in shared memory for the
+    dK / dV passes; the item's operands over its heads (a_head) and the
+    streamed tiles' over the others (t_head), so GQA's kv heads are read in
+    place; with GQA the dK / dV items write per-head partials that
+    ``flash_bwd_dkdv_sum_f32_kernel<float, 256>`` adds in head order, and
+    nothing adds with an atomic."""
+    src = (build.CSRC_DIR / k3.BWD_SOURCE).read_text()
+    for line in ("launch_b3<256, 256>(p, B, sc, ctas_dq, ctas_kv, parts,",
+                 "const bool wide = hd == 256 && hv == 256;",
+                 "const bool rect = hd == 192 && hv == 128 && H == KV;",
+                 "constexpr bool kOneSlotDP = kSlots == 3;",
+                 "issue_ss(dp, box, [box](int) { return box(1); }, c == 0,",
+                 "const int a_head = kByRow ? bh : kvbh;",
+                 "const int t_head = kByRow ? kvbh : bh;",
+                 "const bool partial = !kByRow && p.H > p.KV;",
+                 "err = launch_sum<float, HD>(p, B, stream);",
+                 "if constexpr (kStage) bar_sync(1, 128);"):
+        assert line in src, line
+    body = src[src.index("flash_bwd_f32_wgmma_kernel(const __grid_constant__"):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("wgmma_tf32_ss_m64n64k8(") == 3
+    assert body.count("wgmma_tf32_rs_m64n64k8(") == 3
+    assert "mma.sync" not in body and "atomic" not in body
+    for hd, kv in ((256, 1), (256, 2), (256, 8)):
+        p = k3.plan_bwd(2, 300, 8, kv, hd, torch.float32, prefix=77)
+        assert p.entry == k3.BWD_F32_TC_ENTRY and p.stages == (3, 3)
+        assert p.smem == (k3.f32_tc_bwd_smem(256, 256),) * 2
+        assert p.grid_dq == p.grid_dkdv == (2 * 8 * -(-300 // 64), 1)

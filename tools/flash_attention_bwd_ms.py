@@ -13,8 +13,8 @@ of 64) and qwen3-14b B=1 S=2048 (40 heads, 8 kv, of 128), causal; a
 ragged B=2 S=1000 (4 heads of 64, causal) and a non-causal B=1 S=512 (8
 heads, 2 kv, of 128); each in bf16 and float32 -- and on paligemma-3b's
 head-dim-256 shapes (B=1 S=4096 and B=8 S=1024, 8 heads, 1 kv, a prefix
-of 256; a ragged B=2 S=1000, 4 heads, 2 kv, prefix 77; bf16, and B=1
-S=4096 in float32) and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128)
+of 256; a ragged B=2 S=1000, 4 heads, 2 kv, prefix 77; each in bf16 and
+float32) and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128)
 (B=1 S=4096, 128 heads, causal, training (r)'s shape; a ragged B=2 S=1000,
 4 heads; H == KV; each in bf16 and float32) on seeded random inputs and
 the forward kernel's own
@@ -61,6 +61,10 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, True, 0),
            0),
           ("paligemma_b1_s4096_f32", "float32", 1, 4096, 8, 1, 256, True,
            256),
+          ("paligemma_b8_s1024_f32", "float32", 8, 1024, 8, 1, 256, True,
+           256),
+          ("prefix_ragged_d256_f32", "float32", 2, 1000, 4, 2, 256, True,
+           77),
           ("deepseek_b1_s4096", "bfloat16", 1, 4096, 128, 128, (192, 128),
            True, 0),
           ("mla_ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, (192, 128),

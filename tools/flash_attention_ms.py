@@ -3,6 +3,7 @@
 
     python3 tools/flash_attention_ms.py [--root DIR] [--iters 50]
         [--seed 0] [--shapes NAME,...] [--check] [--scales]
+        [--source COPY.cu]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so two
 checkouts can be compared on one card, in turns.  Calls
@@ -11,8 +12,8 @@ shape's bidirectional prefix) on the model shapes of ``chip_smoke.py`` --
 stablelm-1.6b B=1 S=4096 and B=8 S=1024 (32 heads of 64), qwen3-14b B=1
 S=2048 (40 heads, 8 kv, of 128), paligemma-3b B=1 S=4096 and B=8 S=1024
 (8 heads, 1 kv, of 256, a prefix of 256 patches) and a ragged B=2 S=1000
-(4 heads, 2 kv, of 256, prefix 77) in bf16, stablelm B=1 S=4096 in
-float32, and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128) (B=1 S=4096,
+(4 heads, 2 kv, of 256, prefix 77), each in bf16 and float32, stablelm B=1
+S=4096 in float32, and deepseek-v2 / v3's MLA at (hd, hv) = (192, 128) (B=1 S=4096,
 128 heads, prefill (a); a ragged B=2 S=1000, 4 heads; H == KV; each in
 bf16 and float32) -- on seeded random inputs on the first CUDA card, and
 prints one JSON
@@ -30,10 +31,15 @@ also holds each call against the plain version on the card (bf16: within
 2e-2 + 2e-2 |plain|, float32 1e-5) and against a second call, bitwise, and
 exits 1 if one fails.  ``--scales`` instead runs float32 K3 at
 ``chip_smoke.py``'s other softmax scales and scale shapes (B=1 S=300 H=4,
-hd 64, 128 and (192, 128), causal and not) and prints, per case, how far
+hd 64, 128, (192, 128) and 256, causal and not) and prints, per case, how far
 K3, the plain version and each other lie (max |diff|) and how far each of
 the two lies from softmax attention in float64: a reading, no gate.
-Needs a CUDA card; exits 2 without one.
+``--source`` builds an edited copy of ``csrc/flash_attention.cu``
+(``hopper.cuh`` beside it) with that source's nvcc flags and runs it in
+place of the checkout's forward library (the same C interface), printing
+its ptxas report for the float32 wgmma kernel, so that variants of the
+source can be checked and timed in turns, one process each.  Needs a CUDA
+card; exits 2 without one.
 """
 
 import argparse
@@ -49,6 +55,9 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, 0),
           ("paligemma_b8_s1024", "bfloat16", 8, 1024, 8, 1, 256, 256),
           ("prefix_ragged_d256", "bfloat16", 2, 1000, 4, 2, 256, 77),
           ("stablelm_b1_s4096_f32", "float32", 1, 4096, 32, 32, 64, 0),
+          ("paligemma_b1_s4096_f32", "float32", 1, 4096, 8, 1, 256, 256),
+          ("paligemma_b8_s1024_f32", "float32", 8, 1024, 8, 1, 256, 256),
+          ("prefix_ragged_d256_f32", "float32", 2, 1000, 4, 2, 256, 77),
           ("deepseek_b1_s4096", "bfloat16", 1, 4096, 128, 128, (192, 128),
            0),
           ("mla_ragged_b2_s1000", "bfloat16", 2, 1000, 4, 4, (192, 128), 0),
@@ -58,7 +67,7 @@ SHAPES = (("stablelm_b1_s4096", "bfloat16", 1, 4096, 32, 32, 64, 0),
            0))
 # --scales: (B, S, H, KV, d) and the scales of chip_smoke.py's scale cases
 SCALE_SHAPES = ((1, 300, 4, 2, 64), (1, 300, 4, 2, 128),
-                (1, 300, 4, 4, (192, 128)))
+                (1, 300, 4, 4, (192, 128)), (1, 300, 4, 2, 256))
 SCALES = (0.3, -0.2)
 
 
@@ -72,6 +81,9 @@ def main() -> int:
                     help="comma-separated names (default: all)")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--scales", action="store_true")
+    ap.add_argument("--source", default="",
+                    help="an edited copy of csrc/flash_attention.cu to "
+                         "build and run in place of the checkout's")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -80,6 +92,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     from repro_torch.kernels import flash_attention as k3
+    source = {}
+    if args.source:
+        source = {"source": os.path.abspath(args.source),
+                  "ptxas_f32_tc": use_source(k3, args.source)}
 
     def time_ms(fn):
         for _ in range(5):
@@ -109,7 +125,7 @@ def main() -> int:
     wanted = set(filter(None, args.shapes.split(",")))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     out = {"root": os.path.abspath(args.root),
-           "device": torch.cuda.get_device_name(0), "ms": {}}
+           "device": torch.cuda.get_device_name(0), **source, "ms": {}}
     failed = []
     for name, dtype, b, s, h, kv, d, prefix in SHAPES:
         if wanted and name not in wanted:
@@ -203,6 +219,44 @@ def scale_errors(torch, k3, args) -> dict:
                              "plain_f64": err(op, want)})
     return {"root": os.path.abspath(args.root),
             "device": torch.cuda.get_device_name(0), "scales": rows}
+
+
+def use_source(k3, src: str) -> list:
+    """Builds ``src`` (a copy of the forward's source) with the source's
+    nvcc flags and makes it ``k3``'s forward library; returns ptxas's
+    register and spill lines for the float32 wgmma kernel's instances."""
+    import ctypes
+    import hashlib
+    import re
+    import subprocess
+
+    from repro_torch.kernels import build
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib_path = build.default_build_dir() / f"fwd_source_{tag}.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.find_nvcc(), *build.flags(k3.SOURCE),
+                           "-o", str(lib_path), src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    template = k3._library()
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in (list(k3.FWD_VARIANTS) + [v + "_lse" for v in k3.LSE_VARIANTS]
+               + [k3.F32_TC_ENTRY, k3.F32_TC_ENTRY + "_lse",
+                  "flash_attention_error_string"]):
+        getattr(lib, fn).argtypes = getattr(template, fn).argtypes
+        getattr(lib, fn).restype = getattr(template, fn).restype
+    k3._bound = lib
+    report, name = [], None
+    for ln in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m[1]
+        elif name and "flash_f32_tc_kernel" in name and (
+                "registers" in ln or "spill" in ln):
+            report.append(f"{name[-40:]}: {ln.split(':', 1)[-1].strip()}")
+    return report
 
 
 if __name__ == "__main__":
